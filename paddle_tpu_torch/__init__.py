@@ -7,14 +7,17 @@ the JAX package on a ported path is a hand-written Hopper kernel
 use. Entry points run on the GPU unless the caller passes
 ``device="cpu"``, where each kernel's plain PyTorch version runs instead.
 
-Ported so far: GPT inference (``models.GPTForCausalLM``: the scoring
-forward through the flash-attention kernel) and the paged serving engine
+Ported so far: GPT inference and training at dropout 0
+(``models.GPTForCausalLM``: attention through the flash-attention forward
+and backward kernels, the loss), ``optimizer.AdamW`` with fp32 masters,
+``jit.TrainStep`` (eager steps), and the paged serving engine
 (``serving.DecodeEngine``). ``convert.load_paddle_state`` carries weights
 over from a ``paddle_tpu`` model.
 """
-from . import core, kernels, models, nn, serving
+from . import core, jit, kernels, models, nn, optimizer, serving
+from .jit import TrainStep
 from .models import GPTConfig, GPTForCausalLM
 from .serving import DecodeEngine
 
-__all__ = ["core", "kernels", "models", "nn", "serving", "GPTConfig",
-           "GPTForCausalLM", "DecodeEngine"]
+__all__ = ["core", "jit", "kernels", "models", "nn", "optimizer", "serving",
+           "GPTConfig", "GPTForCausalLM", "DecodeEngine", "TrainStep"]

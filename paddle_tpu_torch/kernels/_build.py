@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``_build/lib<name>-<hash>.so`` (the hash covers the source and the flags, so
 an edited source rebuilds and a stale library is never loaded) and bound
-with ``ctypes``: the sources expose a plain ``extern "C"`` launcher, so no
-PyTorch header is compiled and a build takes seconds. Nothing is built
-when a module is imported; the first launch builds what it needs, and
-``build_all()`` builds every source that is not built yet.
+with ``ctypes``: each source exposes one plain ``extern "C"`` launcher
+named like the kernel, so no PyTorch header is compiled and a build takes
+seconds. Nothing is built when a module is imported; the first launch
+builds what it needs, and ``build_all()`` builds every source that is not
+built yet, one ``nvcc`` per source, all started together.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -25,7 +27,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # every CUDA source of the port, by kernel name
-SOURCES = {"flash_pair_fwd": "flash_pair_fwd.cu"}
+SOURCES = {"flash_pair_fwd": "flash_pair_fwd.cu",
+           "flash_pair_bwd": "flash_pair_bwd.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -64,21 +67,25 @@ def build(name: str) -> dict:
     os.close(fd)
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / SOURCES[name])]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
+    res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    if res.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"CUDA build of {name} failed (nvcc exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
+                           f"{res.returncode}):\n{res.stdout}")
     os.replace(tmp, _lib_path(name))     # atomic: never a half-written .so
-    return {"seconds": time.perf_counter() - t0, "log": proc.stdout}
+    return {"seconds": time.perf_counter() - t0, "log": res.stdout}
 
 
 def build_all() -> Dict[str, dict]:
-    """Build every source that is not built yet: ``{name: build(name)}``
-    for what was built."""
-    return {name: build(name) for name in SOURCES
-            if not _lib_path(name).exists()}
+    """Build every source that is not built yet, one ``nvcc`` per source
+    in a thread each, all started together: ``{name: build result}`` for
+    what was built. Waits for every build, then raises for the first that
+    failed."""
+    names = [name for name in SOURCES if not _lib_path(name).exists()]
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+    return {name: f.result() for name, f in futures.items()}
 
 
 def load(name: str, argtypes: Sequence, restype=ctypes.c_int) -> ctypes.CDLL:

@@ -2,11 +2,12 @@
 
 Pre-LN transformer decoder with learned position embeddings, a tanh-GELU
 MLP of 4x width and an LM head tied to the token embedding: the GPT-3
-recipe, built from ``torch.nn`` layers. This slice covers inference: the
-uncached scoring forward (attention through the packed flash kernel on the
-GPU) and the paged-KV cached forward that ``serving.DecodeEngine`` drives.
-Training (loss, dropout), recompute, the scanned layer stack and tensor
-parallelism come in later slices.
+recipe, built from ``torch.nn`` layers. Ported so far: the uncached
+forward (attention through the packed flash kernels on the GPU, forward
+and backward), the loss (``GPTForCausalLM.forward(ids, labels)``, the JAX
+package's ``lm_head_ce``) for training at dropout 0, and the paged-KV
+cached forward that ``serving.DecodeEngine`` drives. Dropout (slice 3),
+recompute, the scanned layer stack and tensor parallelism come later.
 
 Layouts follow the JAX package at every public function: the fused
 projection is ``[B, L, 3*H*D]`` with columns ``[q heads | k heads | v
@@ -212,8 +213,8 @@ class GPTModel(nn.Module):
         if self.training and (cfg.hidden_dropout_prob > 0.0
                               or cfg.attention_dropout_prob > 0.0):
             raise NotImplementedError(
-                "dropout in training mode comes with the training slice "
-                "(ROADMAP Queue 1, training path); call model.eval()")
+                "dropout in training mode comes with slice 3 (ROADMAP Queue "
+                "2, items 1-2 and 8); train at dropout 0 or call eval()")
         b, s = input_ids.shape
         ar = torch.arange(s, device=input_ids.device)
         if kv_caches is None:
@@ -283,12 +284,37 @@ class GPTForCausalLM(nn.Module):
             else self.lm_head.weight
 
     def forward(self, input_ids, labels=None):
-        """Logits ``[B, S, vocab]`` in the parameter type."""
+        """Logits ``[B, S, vocab]`` in the parameter type; with ``labels``
+        ``(None, loss)``: the next-token cross-entropy from the SHIFTED
+        hidden states (``hidden[:, :-1]`` against ``labels[:, 1:]``, as the
+        JAX package slices them) through ``_lm_head_ce``. The logits are
+        not returned on the loss path."""
+        hidden = self.gpt(input_ids)
         if labels is not None:
-            raise NotImplementedError(
-                "the loss path (lm_head_ce) comes with the training slice "
-                "(ROADMAP Queue 1, item 3)")
-        return nn.functional.linear(self.gpt(input_ids), self.head_weight)
+            return None, _lm_head_ce(hidden[:, :-1], self.head_weight,
+                                     labels[:, 1:])
+        return nn.functional.linear(hidden, self.head_weight)
+
+
+def _lm_head_ce(hidden, weight, labels, ignore_index: int = -100):
+    """LM head + next-token cross-entropy (the JAX package's
+    ``lm_head_ce``, ``paddle_tpu/models/gpt.py:34``): ``hidden [B, S, H]``
+    (already shifted) against a ``[vocab, H]`` head weight, fp32 logits,
+    ``logsumexp`` minus the gold logit per token, tokens labelled
+    ``ignore_index`` zeroed, and the sum over ``max(n_valid, 1)``.
+
+    The head runs on both operands upcast to fp32, which gives the same
+    products and fp32 accumulation as the JAX op's bf16 inputs with
+    ``preferred_element_type=float32``; it is the step's largest matrix
+    product (PERF.md records its share)."""
+    logits = hidden.float() @ weight.float().T
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0).long()
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    per_tok = torch.where(valid, lse - gold, 0.0)
+    n = valid.sum().clamp_min(1).to(per_tok.dtype)
+    return per_tok.sum() / n
 
 
 def _lm_head_logits(hidden_last, head_weight):

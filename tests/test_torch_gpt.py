@@ -1,6 +1,7 @@
 """The port's GPT (paddle_tpu_torch.models.gpt) against the JAX package's,
 on the same weights, in fp32 on the CPU: weight conversion, the uncached
-scoring logits, the init recipe, device resolution and import hygiene."""
+scoring logits, the loss, the init recipe, device resolution and import
+hygiene."""
 import os
 import subprocess
 import sys
@@ -159,11 +160,20 @@ def test_default_device_needs_cuda():
         GPTForCausalLM(GPTConfig(**SMALL))
 
 
-def test_labels_wait_for_the_training_slice(pair):
-    _, _, tm = pair
-    ids = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        tm(ids, labels=ids)
+def test_loss_with_labels_matches_jax(pair):
+    """model(ids, labels) -> (None, loss), the shifted next-token CE with
+    ignored labels, against the JAX model's (tests/test_torch_train.py
+    holds its gradients and training steps)."""
+    jm, _, tm = pair
+    ids = np.random.RandomState(4).randint(0, 256, (2, 160)).astype(np.int32)
+    labels = ids.copy()
+    labels[:, :9] = -100
+    _, ref = jm(paddle.to_tensor(ids), paddle.to_tensor(labels))
+    with torch.no_grad():
+        none, got = tm(torch.from_numpy(ids).long(),
+                       torch.from_numpy(labels).long())
+    assert none is None
+    np.testing.assert_allclose(got.item(), float(ref), rtol=1e-5)
 
 
 def test_port_imports_no_jax_and_no_paddle_tpu():
@@ -173,7 +183,8 @@ def test_port_imports_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.core, paddle_tpu_torch.kernels\n"
         "import paddle_tpu_torch.kernels._build\n"
         "import paddle_tpu_torch.nn.functional, paddle_tpu_torch.models\n"
-        "import paddle_tpu_torch.serving\n"
+        "import paddle_tpu_torch.serving, paddle_tpu_torch.optimizer\n"
+        "import paddle_tpu_torch.optimizer.lr, paddle_tpu_torch.jit\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
