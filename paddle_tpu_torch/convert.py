@@ -6,7 +6,11 @@ Input is ``{name: numpy array}`` as a ``paddle_tpu`` model's
 names, so names map one to one. What changes:
 
 * Paddle's ``Linear.weight`` is ``[in, out]`` and torch's ``[out, in]``:
-  every Linear weight is transposed. The packed qkv projection keeps its
+  the weight of every ``torch.nn.Linear`` of the target is transposed, and
+  nothing else is. Which weights those are is read from the target's
+  module types, not from their names: a square weight (LLaMA's
+  ``q_proj``/``o_proj``) would pass the shape check untransposed. The
+  packed qkv projection keeps its
   column order ``[q heads | k heads | v heads]`` (it becomes the row order
   of the transposed weight, which is what ``F.linear`` produces as output
   columns).
@@ -28,8 +32,12 @@ import torch
 
 __all__ = ["convert_paddle_state", "load_paddle_state"]
 
-_LINEAR_WEIGHTS = ("qkv_proj.weight", "out_proj.weight", "fc_in.weight",
-                   "fc_out.weight", "lm_head.weight")
+
+def _linear_weight_names(model: torch.nn.Module) -> set:
+    """State-dict names of the weights of ``model``'s ``nn.Linear``s."""
+    return {f"{name}.weight" if name else "weight"
+            for name, mod in model.named_modules()
+            if isinstance(mod, torch.nn.Linear)}
 
 
 def convert_paddle_state(params: Mapping[str, np.ndarray],
@@ -42,10 +50,11 @@ def convert_paddle_state(params: Mapping[str, np.ndarray],
     if leftover or missing:
         raise ValueError(f"convert: unmapped source names {leftover}, "
                          f"target names without a source {missing}")
+    linear = _linear_weight_names(model)
     out = {}
     for name, ref in target.items():
         arr = np.asarray(params[name], dtype=np.float32)
-        if name.endswith(_LINEAR_WEIGHTS):
+        if name in linear:
             arr = arr.T
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"convert: {name} has shape {tuple(arr.shape)} "

@@ -55,7 +55,7 @@ def _check(qkv: torch.Tensor, num_heads: int, dropout_rate: float,
            who: str = "flash_pair_fwd") -> int:
     if dropout_rate > 0.0:
         raise NotImplementedError(
-            f"{who}: in-kernel dropout comes with slice 3 (ROADMAP Queue 2, "
+            f"{who}: in-kernel dropout comes with slice 4 (ROADMAP Queue 2, "
             f"items 1-2); call it with dropout_rate=0")
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * num_heads):
         raise ValueError(f"{who}: qkv must be [B, L, 3*H*D] with "

@@ -6,7 +6,7 @@ recipe, built from ``torch.nn`` layers. Ported so far: the uncached
 forward (attention through the packed flash kernels on the GPU, forward
 and backward), the loss (``GPTForCausalLM.forward(ids, labels)``, the JAX
 package's ``lm_head_ce``) for training at dropout 0, and the paged-KV
-cached forward that ``serving.DecodeEngine`` drives. Dropout (slice 3),
+cached forward that ``serving.DecodeEngine`` drives. Dropout (slice 4),
 recompute, the scanned layer stack and tensor parallelism come later.
 
 Layouts follow the JAX package at every public function: the fused
@@ -213,7 +213,7 @@ class GPTModel(nn.Module):
         if self.training and (cfg.hidden_dropout_prob > 0.0
                               or cfg.attention_dropout_prob > 0.0):
             raise NotImplementedError(
-                "dropout in training mode comes with slice 3 (ROADMAP Queue "
+                "dropout in training mode comes with slice 4 (ROADMAP Queue "
                 "2, items 1-2 and 8); train at dropout 0 or call eval()")
         b, s = input_ids.shape
         ar = torch.arange(s, device=input_ids.device)

@@ -1,8 +1,9 @@
 """Decode engine: block-paged KV cache + continuous batching.
 
 Counterpart of ``paddle_tpu/serving/engine.py`` (``DecodeEngine`` with
-``paged=True`` and a ``prefill_chunk``). The KV pool is per-layer
-``[kv_blocks, block_size, n_heads, head_dim]`` K/V tensors plus a
+``paged=True`` and a ``prefill_chunk``), over GPT or LLaMA (``_model_spec``).
+The KV pool is per-layer ``[kv_blocks, block_size, n_kv_heads, head_dim]``
+K/V tensors plus a
 ``[max_slots, max_blocks_per_slot]`` block table; which physical block
 backs which logical position is table DATA owned by the host-side
 ``pager.BlockPager`` (free list, refcounts, shared prefix blocks, the
@@ -11,9 +12,9 @@ persistent prefix LRU, copy-on-write decisions). Each scheduler iteration:
 * admits queued requests into free slots, adopting any shared prompt
   prefix (co-resident tenants or parked LRU blocks);
 * advances every in-flight prefill by one ``[1, prefill_chunk]`` chunk;
-* runs one ``[max_slots, 1]`` decode step over every slot (dead slots sit
-  at position 0 with an all-trash table row, so their writes land in
-  trash block 0).
+* runs one ``[max_slots, 1]`` decode step over every slot (a slot that is
+  not decoding, free or mid-prefill, sits at position 0 behind an
+  all-trash table row, so its writes land in trash block 0).
 
 Copy-on-write block copies the pager reports are applied to the pools at
 the start of the next chunk or decode call, before anything reads or
@@ -30,7 +31,7 @@ from __future__ import annotations
 import itertools
 import time
 from contextlib import contextmanager
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -41,6 +42,36 @@ from .scheduler import (TERMINAL_STATUSES, AdmissionQueue, Request,
                         SlotAllocator)
 
 __all__ = ["DecodeEngine", "Request", "TERMINAL_STATUSES"]
+
+
+class ModelSpec(NamedTuple):
+    """What the engine drives: the cached-forward backbone and the KV
+    cache's geometry."""
+    backbone: torch.nn.Module
+    num_layers: int
+    num_kv_heads: int
+    head_dim: int
+
+
+def _model_spec(model) -> ModelSpec:
+    """Resolve the causal-LM surface the engine drives (the JAX package's
+    ``_model_spec``), duck-typed over ``GPTForCausalLM`` (``model.gpt``)
+    and ``LlamaForCausalLM`` (``model.model``, pools sized by the KV head
+    count): both backbones take ``(ids, kv_caches=, start_pos=,
+    write_end=)`` and return hidden states, and both models expose
+    ``head_weight``."""
+    cfg = getattr(model, "config", None)
+    if cfg is None:
+        raise TypeError(f"{type(model).__name__} has no .config: the "
+                        f"engine serves GPT/LLaMA-style causal LMs")
+    head_dim = cfg.hidden_size // cfg.num_heads
+    if hasattr(model, "gpt"):                       # GPTForCausalLM
+        return ModelSpec(model.gpt, cfg.num_layers, cfg.num_heads, head_dim)
+    if hasattr(model, "model"):                     # LlamaForCausalLM
+        return ModelSpec(model.model, cfg.num_layers, cfg.num_kv_heads,
+                         head_dim)
+    raise TypeError(f"cannot resolve a decode backbone on "
+                    f"{type(model).__name__}")
 
 
 def _not_ported(what: str, item: str):
@@ -65,7 +96,8 @@ class _PrefillState:
 
 
 class DecodeEngine:
-    """Paged serving engine over one ``GPTForCausalLM``.
+    """Paged serving engine over one ``GPTForCausalLM`` or
+    ``LlamaForCausalLM``.
 
     Knobs:
       max_slots      batch rows of the decode step (concurrent requests)
@@ -119,8 +151,9 @@ class DecodeEngine:
                 f"({cfg.max_position_embeddings})")
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
+        spec = _model_spec(model)
         self.model = model
-        self.backbone = model.gpt
+        self.backbone = spec.backbone
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
         self.block_size = int(min(block_size, self.max_len))
@@ -138,13 +171,12 @@ class DecodeEngine:
         self.prefill_chunk = int(prefill_chunk)
         head = model.head_weight
         self.device = head.device
-        n_heads = cfg.num_heads
-        head_dim = cfg.hidden_size // cfg.num_heads
         self._pools = [
-            tuple(torch.zeros(self.kv_blocks, self.block_size, n_heads,
-                              head_dim, dtype=head.dtype, device=self.device)
+            tuple(torch.zeros(self.kv_blocks, self.block_size,
+                              spec.num_kv_heads, spec.head_dim,
+                              dtype=head.dtype, device=self.device)
                   for _ in range(2))
-            for _ in range(cfg.num_layers)]
+            for _ in range(spec.num_layers)]
         self._pager = BlockPager(self.kv_blocks, self.block_size,
                                  self.max_slots, self._mbs)
         # in-flight chunked prefills: slot -> _PrefillState
@@ -225,7 +257,11 @@ class DecodeEngine:
         numpy arrays."""
         with self._serving_mode():
             self._apply_cow(copies)
-            table = self._to_dev(self._pager.tables)
+            # only live rows may write: a slot mid-prefill is not live, sits
+            # at position 0 and already owns blocks (perhaps a shared prefix
+            # block), so its row reads and writes the trash block instead
+            table = self._to_dev(np.where(self._live[:, None],
+                                          self._pager.tables, TRASH_BLOCK))
             pos = self._to_dev(self._pos)
             caches = [(pk, pv, table) for pk, pv in self._pools]
             hidden = self.backbone(self._to_dev(self._tok)[:, None],

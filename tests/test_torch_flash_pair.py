@@ -25,7 +25,8 @@ from paddle_tpu_torch.kernels.flash_pair import (FlashPairPacked,
                                                  flash_pair_fwd,
                                                  flash_pair_fwd_reference)
 
-NO_LAUNCHES = {"flash_pair_fwd": 0, "flash_pair_bwd": 0}
+NO_LAUNCHES = {"flash_pair_fwd": 0, "flash_pair_bwd": 0,
+               "flash_attention_fwd": 0, "flash_attention_bwd": 0}
 
 
 def _qkv(b, L, heads, d, seed):
@@ -102,7 +103,7 @@ def test_cuda_kernel_matches_plain(case):
     reset_launch_counts()
     out, lse = flash_pair_fwd(x, heads, causal)
     torch.cuda.synchronize()
-    assert launch_counts() == {"flash_pair_fwd": 1, "flash_pair_bwd": 0}
+    assert launch_counts() == dict(NO_LAUNCHES, flash_pair_fwd=1)
     ref_out, ref_lse = flash_pair_fwd_reference(x, heads, causal)
     atol, rtol = (4e-3, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
     torch.testing.assert_close(out.float(), ref_out.float(), atol=atol,
@@ -227,7 +228,7 @@ def test_cuda_backward_matches_plain(case):
     reset_launch_counts()
     got = flash_pair_bwd(x, out, lse, g, heads, causal)
     torch.cuda.synchronize()
-    assert launch_counts() == {"flash_pair_fwd": 0, "flash_pair_bwd": 1}
+    assert launch_counts() == dict(NO_LAUNCHES, flash_pair_bwd=1)
     want = flash_pair_bwd_reference(x, out, lse, g, heads, causal)
     hd = heads * d
     # relative Frobenius error per part; the limits of chip_smoke.py's
@@ -248,7 +249,8 @@ def test_cuda_gradient_flows_through_the_function():
     out = FlashPairPacked.apply(x, 4, True)
     out.backward(g)
     torch.cuda.synchronize()
-    assert launch_counts() == {"flash_pair_fwd": 1, "flash_pair_bwd": 1}
+    assert launch_counts() == dict(NO_LAUNCHES, flash_pair_fwd=1,
+                                   flash_pair_bwd=1)
     o2, lse = flash_pair_fwd(x.detach(), 4, True)
     want = flash_pair_bwd_reference(x.detach(), o2, lse, g, 4, True)
     assert _rel(x.grad, want) < 1e-5

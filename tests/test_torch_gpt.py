@@ -185,6 +185,8 @@ def test_port_imports_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.nn.functional, paddle_tpu_torch.models\n"
         "import paddle_tpu_torch.serving, paddle_tpu_torch.optimizer\n"
         "import paddle_tpu_torch.optimizer.lr, paddle_tpu_torch.jit\n"
+        "import paddle_tpu_torch.models.llama, paddle_tpu_torch.nn.norm\n"
+        "import paddle_tpu_torch.kernels.flash_attention\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"

@@ -1,8 +1,17 @@
 """The port's paged DecodeEngine and BlockPager against the JAX package's,
-in fp32 on the CPU: the same tiny weights and the same submit/step
-schedule must give the same greedy tokens per request under prefix
+in fp32 on the CPU: on the same tiny weights and the same submit/step
+schedule the port's engine must give each request the greedy tokens of
+the JAX model (the argmax of its uncached forward at every generated
+position) and the JAX engine's scheduling decisions, under prefix
 sharing, copy-on-write and pool-pressure preemption, and the two pagers
-must make the same allocation decisions under a seeded random op mix."""
+must make the same allocation decisions under a seeded random op mix.
+
+The tokens are held to the JAX model rather than to the JAX engine: the
+JAX engine's decode step writes every non-decoding row at position 0
+through the slot's real block table, so a slot mid-prefill beside a live
+one gets its first position (or a shared prefix block) overwritten, and
+its later tokens drift. The port's engine gives those rows the trash
+block (``test_decode_leaves_prefilling_blocks_alone``)."""
 import numpy as np
 import pytest
 import torch
@@ -77,6 +86,16 @@ def _schedule(kind):
             for _ in range(4)]
 
 
+def greedy_from(jax_model, req):
+    """The JAX model's greedy continuation of ``req.prompt`` judged on
+    ``req``'s own tokens: the argmax of the uncached forward over prompt +
+    tokens at every generated position."""
+    seq = np.asarray([list(req.prompt) + list(req.output_tokens)], np.int32)
+    logits = np.asarray(jax_model(paddle.to_tensor(seq)).numpy())[0]
+    n = len(req.prompt)
+    return logits[n - 1:n - 1 + len(req.output_tokens)].argmax(-1).tolist()
+
+
 def _drive(engine, sched, check):
     reqs, step = [], 0
     pending = list(sched)
@@ -102,7 +121,8 @@ def test_engine_greedy_parity_with_jax(models, kind, kv_blocks):
     treqs = _drive(teng, sched, teng.check_invariants)
     for jr, tr in zip(jreqs, treqs):
         assert jr.status == tr.status == "done", (jr, tr)
-        assert tr.output_tokens == jr.output_tokens, (jr.prompt, jr, tr)
+        assert len(tr.output_tokens) == len(jr.output_tokens)
+        assert list(tr.output_tokens) == greedy_from(jm, tr), tr.prompt
         assert tr.preemptions == jr.preemptions
     jst, tst = jeng.stats()["paged"], teng.stats()["paged"]
     for key in ("shared_hits", "shared_tokens", "cow_copies", "prefix_hits",
@@ -113,6 +133,27 @@ def test_engine_greedy_parity_with_jax(models, kind, kv_blocks):
         assert tst["prefix_hits"] >= 1
     else:
         assert tst["preemptions"] > 0
+
+
+def test_decode_leaves_prefilling_blocks_alone(models):
+    """A decode step beside a slot that is mid-prefill (not live, at
+    position 0, but owning blocks) writes nothing into that slot's blocks:
+    its row goes to the trash block."""
+    _, tm = models
+    eng = DecodeEngine(tm, **GEOM)
+    live = eng.submit(list(range(1, 6)), max_new_tokens=20)
+    while live.status != "running":
+        eng.step()
+    eng.submit(list(range(10, 30)), max_new_tokens=4)   # 3 chunks of 8
+    assert eng._try_admit(eng._queue.pop())
+    slot = next(iter(eng._prefilling))
+    eng._advance_prefill(slot, [])                      # chunk 1 of 3
+    first = int(eng._pager.tables[slot, 0])
+    before = [(pk[first].clone(), pv[first].clone()) for pk, pv in eng._pools]
+    eng._decode([])                # the live slot decodes one token
+    eng.check_invariants()
+    for (pk, pv), (k0, v0) in zip(eng._pools, before):
+        assert torch.equal(pk[first], k0) and torch.equal(pv[first], v0)
 
 
 def test_engine_cancel_and_nonfinite_logits(models):
