@@ -2,13 +2,17 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernels of the port from the sources in this
+Builds the seven CUDA kernels of the port from the sources in this
 checkout, one ``nvcc`` each, all started together: ``flash_pair_fwd`` and
-``flash_pair_bwd`` (flash attention over GPT's packed qkv) and
-``flash_attention_fwd`` and ``flash_attention_bwd`` (flash attention on
-``[B, L, H, D]`` with grouped-query attention, LLaMA's). It holds each
-kernel against its plain PyTorch version at the shapes the main paths give
-it, then drives four main paths through the user entry points, bf16,
+``flash_pair_bwd`` (flash attention over packed qkv, with in-kernel
+dropout), ``flash_attention_fwd`` and ``flash_attention_bwd`` (flash
+attention on ``[B, L, H, D]`` with grouped-query attention, LLaMA's),
+``dropout_fwd`` (dropout, forward and backward) and
+``fused_add_dropout_ln_fwd`` / ``_bwd`` (BERT's residual epilogue
+``LayerNorm(x + dropout(sub))``). It holds each kernel against its plain
+PyTorch version at the shapes the main paths give it (the dropout kernels
+mask for mask: every mask is one Philox function of the seed and the
+element), then drives six main paths through the user entry points,
 random weights from a seed:
 
 * GPT-medium (vocab 50304, hidden 1024, 16 blocks, 8 heads of 128)
@@ -18,9 +22,16 @@ random weights from a seed:
   a profiled serving run;
 * GPT-medium training: ``TrainStep`` + ``AdamW(1e-4, wd 0.01,
   multi_precision=True)`` at the ``bench.py`` train geometry (batch 16 x
-  seq 1024), 1 warm-up and 6 timed steps, a profiled step, the same steps
-  with attention in its plain versions, then the slice against the plain
-  CPU path on the same weights (loss and every leaf's gradient);
+  seq 1024, dropout 0 as ``bench.py`` builds it), 1 warm-up and 6 timed
+  steps, a profiled step, the same steps with attention in its plain
+  versions, then the slice against the plain CPU path on the same weights
+  (loss and every leaf's gradient), and again at dropout 0.1;
+* BERT-base (vocab 30528, hidden 768, 12 layers of 12 heads of 64, FFN
+  3072, dropout 0.1; BASELINE.md config 2) pretraining at batch 64 x 512
+  (MLM on 15% of positions + NSP), 1 warm-up and 6 timed steps, a profiled
+  step, the eval scoring forward at [64, 512], the same steps with every
+  kernel in its plain version, then 2 layers in fp32 against the plain CPU
+  path at dropout 0.1;
 * LLaMA-7B (vocab 32000, hidden 4096, FFN 11008, 32 blocks of 32 heads of
   128, built on the card) serving: the scoring forward at [2, 2048] and
   the engine answering 8 requests, a cross-check against the uncached
@@ -51,6 +62,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -115,6 +127,25 @@ CROSSCHECK_GAP = {BF16: 0.5, FP32: 1e-3}
 CROSSCHECK_FLOOR = {BF16: 0.75, FP32: 0.99}
 # [llama-train]: how far the first loss may sit from ln(vocab)
 LOSS0_SLACK = 1.5
+
+# BERT-base (models/bert.py bert_base, BASELINE.md config 2): dropout 0.1
+# on the embeddings, the attention probabilities and both residuals of
+# every layer; pretrained at B=64, S=512, 1 + 6 steps
+BERT_BASE = dict(vocab_size=30528, hidden_size=768, num_layers=12,
+                 num_heads=12, intermediate_size=3072,
+                 max_position_embeddings=512, hidden_dropout_prob=0.1,
+                 attention_dropout_prob=0.1)
+BERT_TRAIN = dict(batch=64, seq=512, steps=6)
+# launches of one BERT-base training step: a pair forward and backward per
+# layer, two fused-LN epilogues forward and backward per layer, and the
+# embedding dropout forward and backward
+BERT_STEP_LAUNCHES = dict(flash_pair_fwd=12, flash_pair_bwd=12,
+                          fused_add_dropout_ln_fwd=24,
+                          fused_add_dropout_ln_bwd=24, dropout_fwd=2)
+# [compare-fused-ln] limits on the relative Frobenius error of each of dx,
+# d(sub), dw, db against the plain version: 3x the largest first reading on
+# an H100 (bf16 1.58e-5, d(sub) at rate 0.1; fp32 2.53e-7, dw at 0.1)
+FUSED_BWD_REL_LIMIT = {BF16: 5e-5, FP32: 8e-7}
 
 
 def log(msg):
@@ -204,15 +235,27 @@ def phase_card():
 
 
 def phase_build():
+    """Builds every source; per compiled kernel (an entry function, its
+    mangled name cut to the kernel's name and template arguments: type,
+    head size, dropout flag), ptxas's registers and spills."""
     from paddle_tpu_torch.kernels import _build
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"[build] {len(built)} kernel source(s) in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, res in built.items():
+        entry, spill = "?", ""
         for line in res["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+                m = re.search(r"\d([a-z_]+kernel)I(.+)", entry)
+                if m:
+                    entry = f"{m.group(1)}<{m.group(2)}>"
+            elif "spill" in line:
+                spill = line.split(":")[-1].strip()
+            elif "Used" in line and "registers" in line:
+                regs = line.split("Used")[1].split(",")[0].strip()
+                log(f"[build] {name} {entry}: {regs}; {spill}")
 
 
 def phase_compare():
@@ -653,12 +696,14 @@ class _PlainPairPacked(torch.autograd.Function):
     for the kernel-free witness in ``phase_train_plain``."""
 
     @staticmethod
-    def forward(ctx, qkv, num_heads, causal):
+    def forward(ctx, qkv, num_heads, causal, dropout_rate=0.0, seed=None):
         from paddle_tpu_torch.kernels.flash_pair import (
             flash_pair_fwd_reference)
-        out, lse = flash_pair_fwd_reference(qkv, num_heads, causal)
+        out, lse = flash_pair_fwd_reference(qkv, num_heads, causal,
+                                            dropout_rate, seed)
         ctx.save_for_backward(qkv, out, lse)
         ctx.num_heads, ctx.causal = num_heads, causal
+        ctx.dropout_rate, ctx.seed = dropout_rate, seed
         return out
 
     @staticmethod
@@ -666,8 +711,10 @@ class _PlainPairPacked(torch.autograd.Function):
         from paddle_tpu_torch.kernels.flash_pair import (
             flash_pair_bwd_reference)
         qkv, out, lse = ctx.saved_tensors
-        return flash_pair_bwd_reference(qkv, out, lse, dout.contiguous(),
-                                        ctx.num_heads, ctx.causal), None, None
+        return (flash_pair_bwd_reference(qkv, out, lse, dout.contiguous(),
+                                         ctx.num_heads, ctx.causal,
+                                         ctx.dropout_rate, ctx.seed),
+                None, None, None, None)
 
 
 def phase_train_plain(losses):
@@ -705,46 +752,61 @@ def phase_train_check():
     """The slice against the plain path on the same weights: GPT-medium
     width with 2 blocks in fp32, B = 2, L = 256, one forward and backward
     on the card (through both flash kernels) and one on the CPU (the plain
-    path). The loss and every leaf's gradient agree within
-    TRAIN_CHECK_REL_LIMIT relative (Frobenius per leaf): fp32 on both
-    sides, so what remains is summation order."""
-    from paddle_tpu_torch.kernels import launch_counts
+    path), ``_card_vs_cpu``."""
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
     cfg = GPTConfig(**dict(GPT_MEDIUM, num_layers=2))
-    cpu = GPTForCausalLM(cfg, device="cpu", seed=7)
-    card = GPTForCausalLM(cfg, seed=7)
-    card.load_state_dict(cpu.state_dict())
     gen = torch.Generator()
     gen.manual_seed(8)
     ids = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen)
     labels = ids.clone()
     labels[:, :16] = -100
+    _card_vs_cpu("[train-check] fp32, 2 blocks, [2, 256]:",
+                 lambda dev: GPTForCausalLM(cfg, device=dev, seed=7),
+                 (ids, labels), dict(flash_pair_fwd=2, flash_pair_bwd=2))
+
+
+def _card_vs_cpu(tag, make, inputs, want_launches):
+    """One forward and backward of ``make(device)`` on the card (through
+    the kernels, exactly ``want_launches``) and on the CPU (the plain
+    versions) on the same weights and, where the model drops, the same
+    generator state: the loss and every leaf's gradient within
+    TRAIN_CHECK_REL_LIMIT relative (Frobenius per leaf). fp32 on both
+    sides, so what remains is summation order. Returns {leaf: relative
+    error}."""
+    from paddle_tpu_torch.kernels import launch_counts
+    cpu = make("cpu")
+    card = make("cuda")                # the same seed: the same generator
+    card.load_state_dict(cpu.state_dict())
     before = launch_counts()
-    _, loss_card = card(ids.cuda(), labels.cuda())
+    loss_card = card(*(t.cuda() if t is not None else None for t in inputs))
+    if isinstance(loss_card, tuple):
+        loss_card = loss_card[-1]
     loss_card.backward()
     torch.cuda.synchronize()
     grew = _grew(before, launch_counts())
-    _expect_launches("[train-check]", grew, flash_pair_fwd=2,
-                     flash_pair_bwd=2)
-    _, loss_cpu = cpu(ids, labels)
+    _expect_launches(tag, grew, **want_launches)
+    loss_cpu = cpu(*inputs)
+    if isinstance(loss_cpu, tuple):
+        loss_cpu = loss_cpu[-1]
     loss_cpu.backward()
     loss_rel = abs(loss_card.item() - loss_cpu.item()) / abs(loss_cpu.item())
-    worst_name, worst = None, 0.0
+    rels = {}
     cpu_params = dict(cpu.named_parameters())
     for name, p in card.named_parameters():
-        if p.grad is None:
-            raise AssertionError(f"{name} got no gradient on the card")
-        rel = rel_err(p.grad.cpu(), cpu_params[name].grad)
-        if rel > worst:
-            worst_name, worst = name, rel
-    log(f"[train-check] fp32, 2 blocks, [2, 256]: loss card "
-        f"{loss_card.item():.6f} vs cpu {loss_cpu.item():.6f} (rel "
-        f"{loss_rel:.3g}); worst leaf gradient rel {worst:.3g} "
+        if (p.grad is None) != (cpu_params[name].grad is None):
+            raise AssertionError(f"{name}: a gradient on one side only")
+        if p.grad is not None:
+            rels[name] = rel_err(p.grad.cpu(), cpu_params[name].grad)
+    worst_name = max(rels, key=rels.get)
+    worst = rels[worst_name]
+    log(f"{tag} loss card {loss_card.item():.6f} vs cpu {loss_cpu.item():.6f}"
+        f" (rel {loss_rel:.3g}); worst leaf gradient rel {worst:.3g} "
         f"({worst_name}); limit {TRAIN_CHECK_REL_LIMIT}; launches {grew}")
     if not (loss_rel < TRAIN_CHECK_REL_LIMIT
             and worst < TRAIN_CHECK_REL_LIMIT):
         raise AssertionError("the card's loss or gradients disagree with "
                              "the plain CPU path")
+    return rels
 
 
 def phase_profile_train(model, opt, ids):
@@ -1301,52 +1363,677 @@ def phase_profile_llama_train(model, opt, ids):
 
 def phase_llama_train_check():
     """LLaMA-7B width with 2 blocks and GQA (32 q heads on 8 KV heads) in
-    fp32, [1, 256], some labels ignored: one forward and backward on the
-    card (through both flash_attention kernels) and one on the CPU (the
-    plain path) on the same weights. The loss and every leaf's gradient
-    agree within TRAIN_CHECK_REL_LIMIT relative (Frobenius per leaf): fp32
-    on both sides, so what remains is summation order; the KV projections'
-    gradients carry the kernel's sum over each group of 4 q heads."""
-    from paddle_tpu_torch.kernels import launch_counts
+    fp32, [1, 256], some labels ignored: the card (through both
+    flash_attention kernels) against the plain CPU path on the same
+    weights (``_card_vs_cpu``); the KV projections' gradients carry the
+    kernel's sum over each group of 4 q heads."""
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b
     cfg = llama_7b(num_layers=2, num_kv_heads=8)
-    cpu = LlamaForCausalLM(cfg, device="cpu", seed=7)
-    card = LlamaForCausalLM(cfg, seed=7)
-    card.load_state_dict(cpu.state_dict())
     gen = torch.Generator()
     gen.manual_seed(15)
     ids = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen)
     labels = ids.clone()
     labels[:, :16] = -100
-    before = launch_counts()
-    _, loss_card = card(ids.cuda(), labels.cuda())
-    loss_card.backward()
+    rels = _card_vs_cpu(
+        "[llama-train-check] fp32, 2 blocks, GQA 32/8, [1, 256]:",
+        lambda dev: LlamaForCausalLM(cfg, device=dev, seed=7), (ids, labels),
+        dict(flash_attention_fwd=2, flash_attention_bwd=2))
+    kv_worst = max(v for k, v in rels.items()
+                   if k.endswith(("k_proj.weight", "v_proj.weight")))
+    log(f"[llama-train-check] worst k/v projection gradient rel "
+        f"{kv_worst:.3g}")
+
+
+# ------------------------------------------------- dropout kernels, BERT
+
+
+def _bound(nbytes, flops, dtype):
+    """The larger of bytes over the memory rate and operations over the
+    peak rate of the type, in ms, and which of the two it is."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def _nonzero_randn(shape, dtype, gen):
+    """N(0, 1) on the card in ``dtype`` with no exact zero (a zero input
+    would read as a dropped element)."""
+    x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    return torch.where(x == 0, torch.ones_like(x), x)
+
+
+def phase_compare_dropout():
+    """dropout_fwd against its plain version at BERT's embedding output
+    [64, 512, 768], bf16 and fp32, rates 0.1 and 0.5, on the same seed:
+    the kernel's zero pattern is the plain Philox keep mask (zero
+    mismatches), the values are equal bit for bit, the keep share lies
+    within 5 sigma of 1 - rate, and the backward launch (the same kernel
+    on a cotangent with the forward's seed) drops exactly the forward's
+    elements. Each case is timed beside the plain version,
+    torch.nn.functional.dropout (library_ms only) and the bound (each
+    element read and written once). Returns the main path's record (bf16,
+    rate 0.1)."""
+    from paddle_tpu_torch.kernels import philox
+    from paddle_tpu_torch.kernels.dropout import (dropout_fwd,
+                                                  dropout_fwd_reference)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    shape = (64, 512, 768)
+    rows, cols = shape[0] * shape[1], shape[2]
+    record = None
+    for dtype in (BF16, FP32):
+        x = _nonzero_randn(shape, dtype, gen)
+        g = _nonzero_randn(shape, dtype, gen)
+        for rate in (0.1, 0.5):
+            seed = 0x123456789 + int(rate * 10)
+            out = dropout_fwd(x, seed, rate)
+            back = dropout_fwd(g, seed, rate)
+            torch.cuda.synchronize()
+            ref = dropout_fwd_reference(x, seed, rate)
+            keep = philox.row_keep(seed, philox.SALT_DROPOUT, rows, cols,
+                                   rate, "cuda").reshape(shape)
+            mism = int(((out != 0) != keep).sum())
+            back_mism = int(((back != 0) != (out != 0)).sum())
+            err = (out.float() - ref.float()).abs().max().item()
+            share = keep.float().mean().item()
+            sigma = math.sqrt(rate * (1 - rate) / keep.numel())
+            z = (share - (1 - rate)) / sigma
+            ms = cuda_time_ms(lambda: dropout_fwd(x, seed, rate))
+            plain_ms = cuda_time_ms(
+                lambda: dropout_fwd_reference(x, seed, rate), iters=3,
+                warmup=1)
+            library_ms = cuda_time_ms(
+                lambda: torch.nn.functional.dropout(x, rate))
+            esize = x.element_size()
+            bound_ms, bound_by = _bound(2 * x.numel() * esize, x.numel(),
+                                        FP32)
+            log(f"[compare-dropout] dropout_fwd {list(shape)} "
+                f"{str(dtype)[6:]} rate {rate}: keep-mask mismatches {mism}, "
+                f"backward mismatches {back_mism}, max|err| {err:.3g}; keep "
+                f"share {share:.6f} ({z:+.2f} sigma); kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, F.dropout {library_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by})")
+            if mism or back_mism or not torch.equal(out, ref) \
+                    or abs(z) > 5.0:
+                raise AssertionError("dropout_fwd disagrees with its plain "
+                                     "version")
+            if dtype == BF16 and rate == 0.1:
+                record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=library_ms)
+            del out, back, ref, keep
+        del x, g
+        torch.cuda.empty_cache()
+    return record
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp of |x| (elementwise; 0 at 0)."""
+    a = x.float().abs()
+    e = torch.floor(torch.log2(a.clamp_min(1e-30)))
+    return torch.where(a > 0, torch.exp2(e - 7), 0.0)
+
+
+def phase_compare_fused_ln():
+    """fused_add_dropout_ln_fwd/_bwd against their plain versions at
+    BERT-base's [32768, 768] rows, bf16 and fp32, rates 0 and 0.1, on the
+    same seed (x, sub, dy ~ N(0, 1), w ~ 1 + N(0, 0.1^2), b ~ N(0,
+    0.1^2), eps 1e-12). Gates: d(sub) is zero exactly where the plain
+    Philox mask drops (zero mismatches); out within one bf16 ulp of |out|
+    + 1e-5 (fp32: 1e-5 + 1e-5 |out|): the two sum a row in other orders,
+    which can move a value across a rounding boundary; mean within 1e-6 +
+    1e-5 |mean| and rstd within 1e-5 relative; the relative Frobenius
+    error of each of dx, d(sub), dw, db under FUSED_BWD_REL_LIMIT. Each
+    is timed beside its plain version, the composition
+    F.layer_norm(x + F.dropout(sub)) (library_ms: forward, and
+    torch.autograd.grad through it) and the bound. Returns the records of
+    the main path's case (bf16, rate 0.1): (forward, backward)."""
+    from paddle_tpu_torch.kernels import philox
+    from paddle_tpu_torch.kernels.fused_residual import (
+        fused_add_dropout_ln_bwd, fused_add_dropout_ln_bwd_reference,
+        fused_add_dropout_ln_fwd, fused_add_dropout_ln_fwd_reference)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    n, h, eps = 64 * 512, 768, 1e-12
+    records = None
+    for dtype in (BF16, FP32):
+        x = torch.randn(n, h, device="cuda", generator=gen).to(dtype)
+        sub = torch.randn(n, h, device="cuda", generator=gen).to(dtype)
+        w = (1 + 0.1 * torch.randn(h, device="cuda", generator=gen)).to(dtype)
+        b = (0.1 * torch.randn(h, device="cuda", generator=gen)).to(dtype)
+        dy = torch.randn(n, h, device="cuda", generator=gen).to(dtype)
+        for rate in (0.0, 0.1):
+            seed = 0xFEEDBEEF + int(rate * 10)
+            out, stats = fused_add_dropout_ln_fwd(x, sub, w, b, seed, rate,
+                                                  eps)
+            got = fused_add_dropout_ln_bwd(x, sub, w, stats, dy, seed, rate,
+                                           eps)
+            torch.cuda.synchronize()
+            r_out, r_stats = fused_add_dropout_ln_fwd_reference(
+                x, sub, w, b, seed, rate, eps)
+            want = fused_add_dropout_ln_bwd_reference(x, sub, w, r_stats, dy,
+                                                      seed, rate, eps)
+            keep = philox.row_keep(seed, philox.SALT_FUSED_LN, n, h, rate,
+                                   "cuda") if rate > 0 else \
+                torch.ones(n, h, dtype=torch.bool, device="cuda")
+            mism = int(((got[1] != 0) != keep).sum())
+            diff = (out.float() - r_out.float()).abs()
+            if dtype == BF16:
+                limit = _bf16_ulp(r_out) + 1e-5
+            else:
+                limit = 1e-5 + 1e-5 * r_out.abs()
+            of_limit = (diff / limit).max().item()
+            mean_err = ((stats[0] - r_stats[0]).abs()
+                        / (1e-6 + 1e-5 * r_stats[0].abs())).max().item()
+            rstd_rel = ((stats[1] - r_stats[1]).abs()
+                        / r_stats[1].abs()).max().item()
+            rels = {name: rel_err(a, c) for name, a, c in
+                    zip(("dx", "dsub", "dw", "db"), got, want)}
+            bwd_abs = max((a.float() - c.float()).abs().max().item()
+                          for a, c in zip(got[:2], want[:2]))
+
+            def library_fwd():
+                return torch.nn.functional.layer_norm(
+                    x + torch.nn.functional.dropout(sub, rate), (h,), w, b,
+                    eps)
+            leaves = [t.detach().requires_grad_() for t in (x, sub, w, b)]
+            lib_out = torch.nn.functional.layer_norm(
+                leaves[0] + torch.nn.functional.dropout(leaves[1], rate),
+                (h,), leaves[2], leaves[3], eps)
+            ms = cuda_time_ms(lambda: fused_add_dropout_ln_fwd(
+                x, sub, w, b, seed, rate, eps))
+            bwd_ms = cuda_time_ms(lambda: fused_add_dropout_ln_bwd(
+                x, sub, w, stats, dy, seed, rate, eps))
+            plain_ms = cuda_time_ms(lambda: fused_add_dropout_ln_fwd_reference(
+                x, sub, w, b, seed, rate, eps), iters=3, warmup=1)
+            plain_bwd_ms = cuda_time_ms(
+                lambda: fused_add_dropout_ln_bwd_reference(
+                    x, sub, w, r_stats, dy, seed, rate, eps), iters=3,
+                warmup=1)
+            lib_ms = cuda_time_ms(library_fwd)
+            lib_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+                lib_out, leaves, dy, retain_graph=True))
+            es = x.element_size()
+            fwd_bound = _bound(3 * n * h * es + 2 * h * es + 2 * n * 4,
+                               10.0 * n * h, FP32)
+            bwd_bound = _bound(5 * n * h * es + 3 * h * es + 2 * n * 4,
+                               20.0 * n * h, FP32)
+            tag = f"[compare-fused-ln] [{n}, {h}] {str(dtype)[6:]} rate {rate}"
+            log(f"{tag}: keep-mask mismatches {mism}; out {of_limit:.3f} of "
+                f"the limit (max|err| {diff.max().item():.3g}); mean "
+                f"{mean_err:.3f} of its limit, rstd rel {rstd_rel:.3g}; "
+                + ", ".join(f"{k} rel {v:.3g}" for k, v in rels.items())
+                + f" (limit {FUSED_BWD_REL_LIMIT[dtype]})")
+            log(f"{tag}: forward {ms:.4f} ms (plain {plain_ms:.4f}, "
+                f"composition {lib_ms:.4f}, bound {fwd_bound[0]:.4f} ms "
+                f"{fwd_bound[1]}); backward {bwd_ms:.4f} ms (plain "
+                f"{plain_bwd_ms:.4f}, composition autograd {lib_bwd_ms:.4f}, "
+                f"bound {bwd_bound[0]:.4f} ms {bwd_bound[1]})")
+            if mism or not of_limit <= 1.0 or not mean_err <= 1.0 \
+                    or not rstd_rel <= 1e-5 \
+                    or max(rels.values()) >= FUSED_BWD_REL_LIMIT[dtype]:
+                raise AssertionError("the fused add-dropout-LayerNorm "
+                                     "kernels disagree with their plain "
+                                     "versions")
+            if dtype == BF16 and rate == 0.1:
+                records = (dict(max_abs_err=diff.max().item(), ms=ms,
+                                plain_ms=plain_ms, bound_ms=fwd_bound[0],
+                                bound_by=fwd_bound[1], library_ms=lib_ms),
+                           dict(max_abs_err=bwd_abs, ms=bwd_ms,
+                                plain_ms=plain_bwd_ms, bound_ms=bwd_bound[0],
+                                bound_by=bwd_bound[1],
+                                library_ms=lib_bwd_ms))
+            del out, stats, got, r_out, r_stats, want, keep, diff, limit
+            del leaves, lib_out
+        del x, sub, w, b, dy
+        torch.cuda.empty_cache()
+    return records
+
+
+def _attn_mask_probe(b, L, h, d, causal, seed, rate):
+    """Read the pair kernels' keep masks back off the card and count where
+    they differ from ``philox.attention_keep`` over the attended pairs.
+
+    With q = k = 0 every score is 0, so p = 1 in the forward (l = the
+    number of visible keys) and p = 1 / l in the backward. Probe t sets v
+    of key t*d + e to the unit vector e in every head: out[i, e] is then
+    the dropped-and-rounded p of key t*d + e over l, zero exactly where
+    the kernel drops it. In the backward, dO of row t*d + e is the unit
+    vector e, so dv[j, e] is round(p * keep_factor) of pair (t*d + e, j).
+    L / d probes of each cover every pair. Returns (forward mismatches,
+    backward mismatches, attended pairs)."""
+    from paddle_tpu_torch.kernels import philox
+    from paddle_tpu_torch.kernels.flash_pair import (flash_pair_bwd,
+                                                     flash_pair_fwd)
+    hd = h * d
+    want = philox.attention_keep(seed, b, h, L, L, rate, "cuda")
+    visible = torch.ones(L, L, dtype=torch.bool, device="cuda")
+    if causal:
+        visible = visible.tril()
+    e = torch.arange(d, device="cuda")
+    heads = torch.arange(h, device="cuda")[:, None] * d + e[None, :]  # [h, d]
+    fwd_m = bwd_m = 0
+    for t in range(L // d):
+        rows = (t * d + e)[None, :].expand(h, d)
+        qkv = torch.zeros(b, L, 3 * hd, dtype=BF16, device="cuda")
+        qkv[:, rows, 2 * hd + heads] = 1.0
+        out, lse = flash_pair_fwd(qkv, h, causal, rate, seed)
+        got = out.view(b, L, h, d).permute(0, 2, 1, 3) != 0  # [b, h, i, e]
+        sl = slice(t * d, (t + 1) * d)
+        fwd_m += int(((got != want[..., sl]) & visible[:, sl]).sum())
+        dout = torch.zeros(b, L, hd, dtype=BF16, device="cuda")
+        dout[:, rows, heads] = 1.0
+        dqkv = flash_pair_bwd(qkv, out, lse, dout, h, causal, rate, seed)
+        dv = dqkv[..., 2 * hd:].view(b, L, h, d).permute(0, 2, 3, 1) != 0
+        bwd_m += int(((dv != want[:, :, sl, :]) & visible[sl, :]).sum())
+        del qkv, out, lse, dout, dqkv, got, dv
+    return fwd_m, bwd_m, int(visible.sum()) * b * h
+
+
+def phase_compare_dropout_attn():
+    """The pair kernels with dropout against their plain versions on the
+    same seed: BERT's shape [64, 512, 3*12*64] bidirectional (new to the
+    table: first at rate 0, then 0.1) and GPT-medium's training shape [16,
+    1024, 3*8*128] causal at 0.1, bf16. The limits of [compare-fa] (out:
+    atol 4e-3 times the probability-weighted |v| where that exceeds 1, +
+    rtol 1e-2; lse) and [compare-bwd] (relative Frobenius error per part,
+    dk/dv equal between launches). The weighted form is needed here: the
+    error is each rounded p * keep_factor times its v, and a kept pair
+    carries 1 / (1 - rate) = 1.11 of its p, so the weight passes 1 where
+    [compare]'s unweighted atol assumed it would not (the first reading at
+    BERT's shape, unweighted: 1.36 of the limit, one bf16 rounding of a
+    kept 1.11 p times a |v| near 1.4). The keep masks read
+    back from both kernels
+    (``_attn_mask_probe``) match the plain Philox mask at every attended
+    pair. Times beside the plain versions, scaled_dot_product_attention
+    at the same dropout rate (forward, and autograd through it: library_ms
+    only) and the bounds. Returns {(shape tag, rate): (fwd ms, bwd ms)}."""
+    from paddle_tpu_torch.kernels.flash_pair import (
+        flash_pair_bwd, flash_pair_bwd_reference, flash_pair_fwd,
+        flash_pair_fwd_reference)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    times = {}
+    for b, L, h, d, causal, rates in ((64, 512, 12, 64, False, (0.0, 0.1)),
+                                      (16, 1024, 8, 128, True, (0.1,))):
+        for rate in rates:
+            seed = 0xABCDEF12345 if rate else None
+            qkv, dout = _bwd_inputs(b, L, h, d, BF16, gen)
+            out, lse = flash_pair_fwd(qkv, h, causal, rate, seed)
+            got = flash_pair_bwd(qkv, out, lse, dout, h, causal, rate, seed)
+            again = flash_pair_bwd(qkv, out, lse, dout, h, causal, rate, seed)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = flash_pair_fwd_reference(qkv, h, causal, rate,
+                                                        seed)
+            want = flash_pair_bwd_reference(qkv, out, lse, dout, h, causal,
+                                            rate, seed)
+            atol, rtol = 4e-3, 1e-2
+            # the probability-weighted |v| of each output element, kept
+            # pairs scaled by 1/(1 - rate): [compare-fa]'s atol scale
+            absv = qkv.clone()
+            absv[..., 2 * h * d:] = absv[..., 2 * h * d:].abs()
+            weight = flash_pair_fwd_reference(absv, h, causal, rate,
+                                              seed)[0].float()
+            diff = (out.float() - ref_out.float()).abs()
+            of_limit = (diff / (atol * weight.clamp_min(1.0)
+                                + rtol * ref_out.float().abs())).max().item()
+            del absv, weight
+            lse_err = (lse - ref_lse).abs().max().item()
+            lse_ok = bool(((lse - ref_lse).abs()
+                           <= 1e-3 + 1e-3 * ref_lse.abs()).all())
+            hd = h * d
+            rels = [rel_err(got[..., i * hd:(i + 1) * hd],
+                            want[..., i * hd:(i + 1) * hd]) for i in range(3)]
+            stable = torch.equal(got[..., hd:], again[..., hd:])
+            del ref_out, ref_lse, want, again
+            probe = _attn_mask_probe(b, L, h, d, causal, seed, rate) \
+                if rate else (0, 0, 0)
+            fwd_ms = cuda_time_ms(
+                lambda: flash_pair_fwd(qkv, h, causal, rate, seed))
+            bwd_ms = cuda_time_ms(
+                lambda: flash_pair_bwd(qkv, out, lse, dout, h, causal, rate,
+                                       seed), iters=10)
+            plain_ms = cuda_time_ms(lambda: flash_pair_fwd_reference(
+                qkv, h, causal, rate, seed), iters=3, warmup=1)
+            plain_bwd_ms = cuda_time_ms(lambda: flash_pair_bwd_reference(
+                qkv, out, lse, dout, h, causal, rate, seed), iters=3,
+                warmup=1)
+            leaf = qkv.detach().requires_grad_()
+            q, k, v = (leaf[..., i * hd:(i + 1) * hd].view(b, L, h, d)
+                       .transpose(1, 2) for i in range(3))
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, dropout_p=rate, is_causal=causal)
+            lib_ms = cuda_time_ms(library)
+            o = library()
+            do = dout.view(b, L, h, d).transpose(1, 2)
+            lib_bwd_ms = cuda_time_ms(
+                lambda: torch.autograd.grad(o, leaf, do, retain_graph=True))
+            fb = flash_bound_ms(b, L, h, d, BF16, causal)
+            bb = flash_bwd_bound_ms(b, L, h, d, BF16, causal)
+            tag = (f"[compare-dropout-attn] B={b} L={L} H={h} D={d} bf16 "
+                   f"causal={causal} rate {rate}")
+            log(f"{tag}: out {of_limit:.3f} of the limit (atol {atol}, rtol "
+                f"{rtol}), max|lse err| {lse_err:.3g}; dq/dk/dv rel "
+                f"{rels[0]:.3g}/{rels[1]:.3g}/{rels[2]:.3g} (limit "
+                f"{BWD_REL_LIMIT[BF16]}); keep-mask mismatches forward "
+                f"{probe[0]}, backward {probe[1]} over {probe[2]} attended "
+                f"pairs")
+            log(f"{tag}: forward {fwd_ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
+                f"{lib_ms:.4f}, bound {fb[0]:.4f} ms {fb[1]}); backward "
+                f"{bwd_ms:.4f} ms (plain {plain_bwd_ms:.4f}, sdpa backward "
+                f"{lib_bwd_ms:.4f}, bound {bb[0]:.4f} ms {bb[1]})")
+            if not (of_limit <= 1.0 and lse_ok and stable
+                    and max(rels) < BWD_REL_LIMIT[BF16]
+                    and probe[0] == 0 and probe[1] == 0):
+                raise AssertionError(f"{tag}: the pair kernels disagree with "
+                                     f"their plain versions")
+            times[(b, L, rate)] = (fwd_ms, bwd_ms)
+            del qkv, dout, out, lse, got, leaf, q, k, v, o, do, diff
+            torch.cuda.empty_cache()
+    return times
+
+
+class _PlainDropout(torch.autograd.Function):
+    """``DropoutFunction`` with the kernel replaced by its plain version,
+    for the kernel-free witness in ``phase_bert_train_plain``."""
+
+    @staticmethod
+    def forward(ctx, x, seed, rate, upscale=True):
+        from paddle_tpu_torch.kernels.dropout import dropout_fwd_reference
+        ctx.seed, ctx.rate, ctx.upscale = seed, rate, upscale
+        return dropout_fwd_reference(x, seed, rate, upscale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from paddle_tpu_torch.kernels.dropout import dropout_fwd_reference
+        return (dropout_fwd_reference(dy.contiguous(), ctx.seed, ctx.rate,
+                                      ctx.upscale), None, None, None)
+
+
+class _PlainFusedLN(torch.autograd.Function):
+    """``FusedAddDropoutLN`` with both kernels replaced by their plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, x, sub, weight, bias, seed, rate, eps):
+        from paddle_tpu_torch.kernels.fused_residual import (
+            fused_add_dropout_ln_fwd_reference)
+        h = x.shape[-1]
+        x2, s2 = x.reshape(-1, h), sub.reshape(-1, h)
+        out, stats = fused_add_dropout_ln_fwd_reference(x2, s2, weight, bias,
+                                                        seed, rate, eps)
+        ctx.save_for_backward(x2, s2, weight, stats)
+        ctx.seed, ctx.rate, ctx.eps, ctx.shape = seed, rate, eps, x.shape
+        return out.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, dout):
+        from paddle_tpu_torch.kernels.fused_residual import (
+            fused_add_dropout_ln_bwd_reference)
+        x2, s2, weight, stats = ctx.saved_tensors
+        dx, ds, dw, db = fused_add_dropout_ln_bwd_reference(
+            x2, s2, weight, stats, dout.reshape(x2.shape), ctx.seed,
+            ctx.rate, ctx.eps)
+        return (dx.reshape(ctx.shape), ds.reshape(ctx.shape), dw, db, None,
+                None, None)
+
+
+class _plain_kernels:
+    """Context manager: every autograd Function of the BERT path
+    (FlashPairPacked, DropoutFunction, FusedAddDropoutLN) swapped for its
+    plain twin in the functionals that call it."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.nn.functional import attention, common, norm
+        self._saved = [(attention, "FlashPairPacked", _PlainPairPacked),
+                       (common, "DropoutFunction", _PlainDropout),
+                       (norm, "FusedAddDropoutLN", _PlainFusedLN)]
+        self._saved = [(mod, name, getattr(mod, name), plain)
+                       for mod, name, plain in self._saved]
+        for mod, name, _, plain in self._saved:
+            setattr(mod, name, plain)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, kernel, _ in self._saved:
+            setattr(mod, name, kernel)
+        return False
+
+
+def _bert_batch(b, s, seed, device="cuda"):
+    """A pretraining batch from a CPU generator: token ids, token types
+    (0 then 1 from a random split point per row), MLM labels on a random
+    15% of positions (-100 elsewhere) and NSP labels. Returns the TrainStep
+    inputs (ids, token_type_ids, attn_mask=None, masked_lm_labels,
+    next_sentence_labels)."""
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    ids = torch.randint(0, BERT_BASE["vocab_size"], (b, s), generator=gen)
+    split = torch.randint(s // 4, 3 * s // 4, (b, 1), generator=gen)
+    types = (torch.arange(s)[None, :] >= split).long()
+    masked = torch.rand(b, s, generator=gen) < 0.15
+    mlm = torch.where(masked, ids, -100)
+    nsp = torch.randint(0, 2, (b,), generator=gen)
+    return tuple(t.to(device) if t is not None else None
+                 for t in (ids, types, None, mlm, nsp))
+
+
+def _bert_recipe(dtype=BF16):
+    """[bert-train]'s recipe: BERT-base (seed 0, dropout 0.1) in ``dtype``,
+    AdamW(1e-4, wd 0.01, multi_precision=True), TrainStep, one fixed
+    random batch of BERT_TRAIN["batch"] x BERT_TRAIN["seq"] (seed 31)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import BertConfig, BertForPreTraining
+    from paddle_tpu_torch.optimizer import AdamW
+    model = BertForPreTraining(BertConfig(**BERT_BASE), dtype=dtype, seed=0)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters(), multi_precision=True)
+    batch = _bert_batch(BERT_TRAIN["batch"], BERT_TRAIN["seq"], 31)
+    return model, opt, TrainStep(model, opt), batch
+
+
+def _is_bert_kernel(key):
+    """A profiler key of the kernels on BERT's path: the pair kernels
+    (flash_attention.cuh) and the dropout and fused-LN kernels."""
+    return _is_flash_kernel(key) or any(
+        name in key for name in ("dropout_kernel", "fused_ln_fwd_kernel",
+                                 "fused_ln_bwd_kernel"))
+
+
+def phase_bert_train():
+    """BERT-base pretraining: the recipe of ``_bert_recipe``, 1 warm-up
+    step and BERT_TRAIN["steps"] timed steps (each synchronised). Every
+    loss is finite, the first is near ln(vocab) + ln 2 (MLM over a random
+    vocabulary plus NSP, within LOSS0_SLACK) and a later one is below it;
+    each step launches exactly BERT_STEP_LAUNCHES; every parameter equals
+    its fp32 master cast to bf16. Returns the model, optimizer, batch and
+    losses."""
+    from paddle_tpu_torch.kernels import launch_counts
+    t0 = time.perf_counter()
+    model, opt, step, batch = _bert_recipe()
+    b, s = batch[0].shape
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[bert-train] BERT-base {n_params / 1e6:.1f} M params bf16, dropout "
+        f"0.1, AdamW(multi_precision) built in {time.perf_counter() - t0:.1f}"
+        f" s; batch {b} x {s}, {int((batch[3] != -100).sum())} MLM labels")
     torch.cuda.synchronize()
-    grew = _grew(before, launch_counts())
-    _expect_launches("[llama-train-check]", grew, flash_attention_fwd=2,
-                     flash_attention_bwd=2)
-    _, loss_cpu = cpu(ids, labels)
-    loss_cpu.backward()
-    loss_rel = abs(loss_card.item() - loss_cpu.item()) / abs(loss_cpu.item())
-    worst_name, worst, kv_worst = None, 0.0, 0.0
-    cpu_params = dict(cpu.named_parameters())
-    for name, p in card.named_parameters():
-        if p.grad is None:
-            raise AssertionError(f"{name} got no gradient on the card")
-        rel = rel_err(p.grad.cpu(), cpu_params[name].grad)
-        if rel > worst:
-            worst_name, worst = name, rel
-        if name.endswith(("k_proj.weight", "v_proj.weight")):
-            kv_worst = max(kv_worst, rel)
-    log(f"[llama-train-check] fp32, 2 blocks, GQA 32/8, [1, 256]: loss card "
-        f"{loss_card.item():.6f} vs cpu {loss_cpu.item():.6f} (rel "
-        f"{loss_rel:.3g}); worst leaf gradient rel {worst:.3g} "
-        f"({worst_name}), worst k/v projection {kv_worst:.3g}; limit "
-        f"{TRAIN_CHECK_REL_LIMIT}; launches {grew}")
-    if not (loss_rel < TRAIN_CHECK_REL_LIMIT
-            and worst < TRAIN_CHECK_REL_LIMIT):
-        raise AssertionError("the card's loss or gradients disagree with "
-                             "the plain CPU path")
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for i in range(1 + BERT_TRAIN["steps"]):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        loss = step(*batch)
+        losses.append(loss.item())              # synchronises
+        walls.append(time.perf_counter() - t0)
+        _expect_launches(f"[bert-train] step {i}",
+                         _grew(before, launch_counts()),
+                         **BERT_STEP_LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    want0 = math.log(BERT_BASE["vocab_size"]) + math.log(2.0)
+    if not abs(losses[0] - want0) < LOSS0_SLACK:
+        raise AssertionError(f"first loss {losses[0]:.4f} is not near "
+                             f"ln(vocab) + ln 2 = {want0:.4f}")
+    if not min(losses[1:]) < losses[0]:
+        raise AssertionError(f"loss did not fall on a repeated batch: "
+                             f"{losses}")
+    for p in model.parameters():
+        master = opt._master_weights[id(p)]
+        if master.dtype != torch.float32 or not torch.equal(
+                p, master.to(torch.bfloat16)):
+            raise AssertionError("a parameter is not its fp32 master cast "
+                                 "to bf16")
+    timed = walls[1:]
+    wall = sum(timed) / len(timed)
+    log(f"[bert-train] losses {[round(x, 4) for x in losses]} (ln vocab + "
+        f"ln 2 = {want0:.4f})")
+    log(f"[bert-train] {len(timed)} timed steps: wall per step "
+        f"{wall * 1e3:.1f} ms (min {min(timed) * 1e3:.1f}, max "
+        f"{max(timed) * 1e3:.1f}; warm-up {walls[0] * 1e3:.1f}), "
+        f"{b / wall:.1f} seq/s, {b * s / wall:.0f} tokens/s; launches per "
+        f"step {BERT_STEP_LAUNCHES}; peak memory {peak_gb:.2f} GB")
+    return model, opt, batch, losses
+
+
+def phase_bert_scoring(model):
+    """BERT-base's eval forward at [64, 512] bf16 (no labels: MLM and NSP
+    logits): finite, of the right shapes, and exactly 12 pair forwards and
+    24 fused-LN forwards at rate 0, no dropout. Returns the batch."""
+    from paddle_tpu_torch.kernels import launch_counts
+    ids, types = _bert_batch(64, 512, 32)[:2]
+    model.eval()
+    before = launch_counts()
+    with torch.no_grad():
+        mlm, nsp = model(ids, types)
+    torch.cuda.synchronize()
+    layers = BERT_BASE["num_layers"]
+    _expect_launches("[bert-scoring]", _grew(before, launch_counts()),
+                     flash_pair_fwd=layers,
+                     fused_add_dropout_ln_fwd=2 * layers)
+    if mlm.shape != (64, 512, BERT_BASE["vocab_size"]) \
+            or nsp.shape != (64, 2):
+        raise AssertionError(f"shapes {tuple(mlm.shape)}, {tuple(nsp.shape)}")
+    if not (torch.isfinite(mlm).all() and torch.isfinite(nsp).all()):
+        raise AssertionError("non-finite scoring logits")
+    log(f"[bert-scoring] eval [64, 512]: MLM logits {tuple(mlm.shape)}, NSP "
+        f"{tuple(nsp.shape)} finite; {layers} pair forwards + {2 * layers} "
+        f"fused-LN forwards at rate 0, no dropout")
+    return ids, types
+
+
+def phase_bert_scoring_time(model, ids, types):
+    """Device time of one BERT-base eval forward at [64, 512] (outside the
+    path's launch count)."""
+    with torch.no_grad():
+        ms = cuda_time_ms(lambda: model(ids, types), iters=3, warmup=1)
+    log(f"[bert-scoring] forward [64, 512]: {ms:.2f} ms, "
+        f"{64 / ms * 1e3:.1f} seq/s")
+
+
+def phase_profile_bert_train(model, opt, batch):
+    """One [bert-train] step under torch.profiler: the device busy share,
+    the six kernels with the most device time, and the share of device
+    time taken by the kernels of BERT's path (the pair kernels with the
+    dq conversion, dropout, fused-LN forward and backward)."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.jit import TrainStep
+    model.train()
+    step = TrainStep(model, opt)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*batch).item()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    ours = {}
+    for e in kernels:
+        if _is_bert_kernel(e.key):
+            name = next(n for n in ("flash_fwd_kernel", "flash_bwd_kernel",
+                                    "dq_convert_kernel", "dropout_kernel",
+                                    "fused_ln_fwd_kernel",
+                                    "fused_ln_bwd_kernel") if n in e.key)
+            ours[name] = ours.get(name, 0.0) + e.self_device_time_total
+    ours_us = sum(ours.values())
+    busy = max(busy_us, 1.0)
+    log(f"[profile-bert-train] one step, profiler on: {wall * 1e3:.1f} ms "
+        f"wall, device busy {busy_us / 1e3:.1f} ms = "
+        f"{busy_us / 1e6 / wall:.3f} of wall; the path's kernels "
+        f"{ours_us / 1e3:.1f} ms = {ours_us / busy:.3f} of device time ("
+        + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in sorted(ours.items()))
+        + ")")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"[profile-bert-train]   {e.self_device_time_total / 1e3:8.2f} ms"
+            f" x{e.count:5d}  {e.key[:90]}")
+
+
+def phase_bert_train_plain(losses):
+    """A witness for [bert-train]: the same recipe, batch and steps with
+    every kernel of the path in its plain version (``_plain_kernels``: no
+    launch). The plain versions draw the same masks from the same seeds,
+    so every step's loss agrees with [bert-train]'s within
+    TRAIN_PLAIN_LOSS_LIMIT."""
+    from paddle_tpu_torch.kernels import launch_counts
+    model, opt, step, batch = _bert_recipe()
+    with _plain_kernels():
+        before = launch_counts()
+        t0 = time.perf_counter()
+        plain = [step(*batch).item() for _ in losses]
+        wall = time.perf_counter() - t0
+        after = launch_counts()
+    if after != before:
+        raise AssertionError(f"the plain run launched kernels: {before} -> "
+                             f"{after}")
+    diff = max(abs(x - y) for x, y in zip(losses, plain))
+    log(f"[bert-train-plain] losses {[round(x, 4) for x in plain]}; largest "
+        f"|kernel - plain| over the {len(plain)} steps {diff:.3g} (limit "
+        f"{TRAIN_PLAIN_LOSS_LIMIT}); {wall / len(plain) * 1e3:.0f} ms per "
+        f"step")
+    if not diff < TRAIN_PLAIN_LOSS_LIMIT:
+        raise AssertionError("the kernel path's loss curve departs from the "
+                             "plain path's on the same recipe")
+    del model, opt, step
+
+
+def phase_bert_train_check():
+    """BERT-base width at 2 layers in fp32, [2, 512], dropout 0.1: the
+    card (all five kernels, each dropping) against the plain CPU path from
+    the same weights and generator state (``_card_vs_cpu``). The masks
+    are keyed on the element, so the two runs drop the same elements; a
+    mask tied to the kernels' tiles would show here as an O(1) gradient
+    error."""
+    from paddle_tpu_torch.models import BertConfig, BertForPreTraining
+    cfg = BertConfig(**dict(BERT_BASE, num_layers=2))
+    _card_vs_cpu(
+        "[bert-train-check] fp32, 2 layers, [2, 512], dropout 0.1:",
+        lambda dev: BertForPreTraining(cfg, device=dev, seed=7),
+        _bert_batch(2, 512, 33, device="cpu"),
+        dict(flash_pair_fwd=2, flash_pair_bwd=2, fused_add_dropout_ln_fwd=4,
+             fused_add_dropout_ln_bwd=4, dropout_fwd=2))
+
+
+def phase_gpt_dropout_check():
+    """GPT-medium width at 2 blocks in fp32, [2, 256], dropout 0.1 on the
+    embeddings, the residuals and the attention (causal pair kernels at
+    d = 128): the card against the plain CPU path (``_card_vs_cpu``). Five
+    dropouts forward (embeddings, two per block) and five backward."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(**dict(GPT_MEDIUM, num_layers=2, hidden_dropout_prob=0.1,
+                           attention_dropout_prob=0.1))
+    gen = torch.Generator()
+    gen.manual_seed(34)
+    ids = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen)
+    labels = ids.clone()
+    labels[:, :16] = -100
+    _card_vs_cpu(
+        "[gpt-dropout-check] fp32, 2 blocks, [2, 256], dropout 0.1:",
+        lambda dev: GPTForCausalLM(cfg, device=dev, seed=8).train(),
+        (ids, labels), dict(flash_pair_fwd=2, flash_pair_bwd=2,
+                            dropout_fwd=10))
 
 
 def _kernel_entry(name, source, replaces, launches, record):
@@ -1379,6 +2066,10 @@ def main() -> int:
     phase_autograd()
     records["flash_attention_fwd"] = phase_compare_fa()
     records["flash_attention_bwd"] = phase_compare_fa_bwd()
+    records["dropout_fwd"] = phase_compare_dropout()
+    (records["fused_add_dropout_ln_fwd"],
+     records["fused_add_dropout_ln_bwd"]) = phase_compare_fused_ln()
+    phase_compare_dropout_attn()
     t0 = time.perf_counter()
     model = GPTForCausalLM(GPTConfig(**GPT_MEDIUM), dtype=torch.bfloat16,
                            seed=0).eval()
@@ -1406,6 +2097,23 @@ def main() -> int:
     phase_train_plain(losses)
     torch.cuda.empty_cache()
     phase_train_check()
+    torch.cuda.empty_cache()
+    phase_gpt_dropout_check()
+    torch.cuda.empty_cache()
+
+    reset_launch_counts()                  # BERT training starts here
+    bert, opt, batch, losses = phase_bert_train()
+    paths["bert-training"] = launch_counts()   # ... and ends here
+    phase_profile_bert_train(bert, opt, batch)
+    reset_launch_counts()                  # BERT scoring starts here
+    ids, types = phase_bert_scoring(bert)
+    paths["bert-scoring"] = launch_counts()    # ... and ends here
+    phase_bert_scoring_time(bert, ids, types)
+    del bert, opt, batch, ids, types
+    torch.cuda.empty_cache()
+    phase_bert_train_plain(losses)
+    torch.cuda.empty_cache()
+    phase_bert_train_check()
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1438,6 +2146,10 @@ def main() -> int:
     # every kernel of a path ran on it
     needs = {"gpt-serving": ["flash_pair_fwd"],
              "gpt-training": ["flash_pair_fwd", "flash_pair_bwd"],
+             "bert-training": ["flash_pair_fwd", "flash_pair_bwd",
+                               "dropout_fwd", "fused_add_dropout_ln_fwd",
+                               "fused_add_dropout_ln_bwd"],
+             "bert-scoring": ["flash_pair_fwd", "fused_add_dropout_ln_fwd"],
              "llama-serving": ["flash_attention_fwd"],
              "llama-training": ["flash_attention_fwd",
                                 "flash_attention_bwd"]}
@@ -1459,7 +2171,15 @@ def main() -> int:
                       records["flash_attention_fwd"]),
         _kernel_entry("flash_attention_bwd", "flash_attention_bwd.cu",
                       "flash_attention.py:340", launches,
-                      records["flash_attention_bwd"])]
+                      records["flash_attention_bwd"]),
+        _kernel_entry("dropout_fwd", "dropout.cu", "dropout.py:21", launches,
+                      records["dropout_fwd"]),
+        _kernel_entry("fused_add_dropout_ln_fwd", "fused_residual_fwd.cu",
+                      "fused_residual.py:36", launches,
+                      records["fused_add_dropout_ln_fwd"]),
+        _kernel_entry("fused_add_dropout_ln_bwd", "fused_residual_bwd.cu",
+                      "fused_residual.py:57", launches,
+                      records["fused_add_dropout_ln_bwd"])]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

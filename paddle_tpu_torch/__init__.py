@@ -7,22 +7,30 @@ the JAX package on a ported path is a hand-written Hopper kernel
 use. Entry points run on the GPU unless the caller passes
 ``device="cpu"``, where each kernel's plain PyTorch version runs instead.
 
-Ported so far: GPT inference and training at dropout 0
+Ported so far: GPT inference and training at its dropout
 (``models.GPTForCausalLM``: attention through the packed flash-attention
-forward and backward kernels, the loss), LLaMA inference and training
+forward and backward kernels with in-kernel dropout, the dropout kernel,
+the loss), BERT pretraining (``models.BertForPreTraining``: the pair
+kernels bidirectional at head_dim 64, the fused add-dropout-LayerNorm
+kernels, MLM + NSP losses), LLaMA inference and training
 (``models.LlamaForCausalLM``: RoPE, RMSNorm, SwiGLU, grouped-query
 attention through the ``[B, L, H, D]`` flash kernels), ``optimizer.AdamW``
 with fp32 masters, ``jit.TrainStep`` (eager steps), and the paged serving
-engine over either model (``serving.DecodeEngine``).
+engine over GPT or LLaMA (``serving.DecodeEngine``). Every dropout draws
+its seed from the model's CPU generator and its bits from one Philox
+stream keyed on the element, so the card and the CPU drop the same
+elements.
 ``convert.load_paddle_state`` carries weights over from a ``paddle_tpu``
 model.
 """
 from . import core, jit, kernels, models, nn, optimizer, serving
 from .jit import TrainStep
-from .models import (GPTConfig, GPTForCausalLM, LlamaConfig,
-                     LlamaForCausalLM, llama_7b)
+from .models import (BertConfig, BertForPreTraining, GPTConfig,
+                     GPTForCausalLM, LlamaConfig, LlamaForCausalLM, bert_base,
+                     llama_7b)
 from .serving import DecodeEngine
 
 __all__ = ["core", "jit", "kernels", "models", "nn", "optimizer", "serving",
-           "GPTConfig", "GPTForCausalLM", "LlamaConfig", "LlamaForCausalLM",
-           "llama_7b", "DecodeEngine", "TrainStep"]
+           "BertConfig", "BertForPreTraining", "bert_base", "GPTConfig",
+           "GPTForCausalLM", "LlamaConfig", "LlamaForCausalLM", "llama_7b",
+           "DecodeEngine", "TrainStep"]

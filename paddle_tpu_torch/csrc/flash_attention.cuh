@@ -58,6 +58,17 @@
 // there is no length cutoff: one kernel does the job of the Pallas fused
 // and split backward forms.
 //
+// Dropout on the attention probabilities (the pair launchers; the flat ones
+// launch at rate 0), as the Pallas pair kernels have it
+// (flash_pair.py:126-135, :163-177, `_bwd_tile_core` :282-295): the
+// forward sums l over the undropped p, then feeds round(p * keep_factor) to
+// P.V; the backward uses p * keep_factor for dV and dp * keep_factor in ds =
+// p * (dp - delta), with keep_factor = 1 / (1 - rate) where the element is
+// kept and 0 where it is dropped. The keep decision comes from philox.cuh,
+// keyed on (b, h, q row, key column), so the forward's q tiles and the
+// backward's kv tiles drop the same elements. Rate 0 compiles without any
+// of it (the kDrop template flag): a rate-0 launch is the kernel as it was.
+//
 // Both: rows past a length read as zero and are never written; kv rows that
 // no query sees get zero gradients. bf16 products run on the tensor cores
 // through WMMA (16x16x16, fp32 accumulate); fp32 uses plain FMA, because
@@ -86,6 +97,9 @@
 #include <stdint.h>
 #include <type_traits>
 
+#include "common.cuh"
+#include "philox.cuh"
+
 namespace {
 
 constexpr int kBM = 64;            // q rows per tile
@@ -93,19 +107,6 @@ constexpr int kBN = 64;            // kv rows per tile
 constexpr int kWarps = 4;          // bf16: each warp owns 16 q (and kv) rows
 constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;  // _NEG_INF of the Pallas kernels
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
 
 // Rows of T tiles in shared memory are padded by 16 bytes, which keeps
 // every row 16-byte aligned for vector stores and every 16-row WMMA
@@ -154,6 +155,8 @@ struct Mask {
 // Operands of one forward launch. q points at head 0 of batch row 0, k and
 // v at KV head 0; *_row are the element strides between rows (a batch row
 // is L rows). out is [B, Lq, H, D] rows o_row apart, lse [B, H, Lq].
+// drop is read only by the kDrop instantiations (zero from a launcher that
+// leaves it out).
 struct FwdArgs {
   const void* q;
   const void* k;
@@ -164,6 +167,7 @@ struct FwdArgs {
   int Lq, Lk, H, Hkv;
   float sm_scale;
   int causal;
+  DropParams drop;
 };
 
 template <typename T, int D>
@@ -265,7 +269,7 @@ __device__ __forceinline__ void accumulate_pv(const T* Ps, const T* Vs,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
   using G = FwdGeom<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -283,6 +287,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (a.H / a.Hkv);    // this q head's KV head (_kv_map)
+  const uint32_t bh = (uint32_t)(b * a.H + h);  // dropout's row word 1
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const Mask mask{a.Lq, a.Lk, a.Lk - a.Lq, a.causal};
@@ -331,10 +336,20 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
     const float m_cur = fmaxf(m_prev, mx);
     const float corr = expf(m_prev - m_cur);
     float sum = 0.0f;
-    for (int c = c0; c < c0 + kBN / 2; ++c) {
-      const float p = mask(qrow, n0 + c) ? expf(srow[c] - m_cur) : 0.0f;
-      sum += p;
-      prow[c] = from_f<T>(p);  // p rounded to v's type before P.V
+    for (int c = c0; c < c0 + kBN / 2; c += 4) {
+      uint4 w;
+      if constexpr (kDrop)
+        w = keep_words(a.drop, (uint32_t)(n0 + c) >> 2, (uint32_t)qrow, bh,
+                       kSaltAttention);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p =
+            mask(qrow, n0 + c + e) ? expf(srow[c + e] - m_cur) : 0.0f;
+        sum += p;  // l from the undropped p
+        float pv = p;
+        if constexpr (kDrop) pv = p * keep_factor(a.drop, word_of(w, e));
+        prow[c + e] = from_f<T>(pv);  // rounded to v's type before P.V
+      }
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     float* orow = Os + r * G::kLdO;
@@ -369,10 +384,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 cudaError_t launch_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
   using G = FwdGeom<T, D>;
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<T, D, kDrop>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kBytes);
   if (err != cudaSuccess) return err;
@@ -381,19 +396,20 @@ cudaError_t launch_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The forward for input type (bf16 or fp32) and head size (64 or 128);
-// returns the cudaError_t of the launch.
-inline int flash_fwd(const FwdArgs& a, int B, int D, int is_bf16,
-                     cudaStream_t st) {
+// The forward for input type (bf16 or fp32) and head size (64 or 128),
+// with dropout (kDrop, a.drop) or without; returns the cudaError_t of the
+// launch.
+template <bool kDrop = false>
+int flash_fwd(const FwdArgs& a, int B, int D, int is_bf16, cudaStream_t st) {
   if (B <= 0 || a.Lq <= 0 || a.Lk <= 0 || a.H <= 0 || a.Hkv <= 0 ||
       a.H % a.Hkv)
     return (int)cudaErrorInvalidValue;
   if (is_bf16) {
-    if (D == 64) return (int)launch_fwd<__nv_bfloat16, 64>(a, B, st);
-    if (D == 128) return (int)launch_fwd<__nv_bfloat16, 128>(a, B, st);
+    if (D == 64) return (int)launch_fwd<__nv_bfloat16, 64, kDrop>(a, B, st);
+    if (D == 128) return (int)launch_fwd<__nv_bfloat16, 128, kDrop>(a, B, st);
   } else {
-    if (D == 64) return (int)launch_fwd<float, 64>(a, B, st);
-    if (D == 128) return (int)launch_fwd<float, 128>(a, B, st);
+    if (D == 64) return (int)launch_fwd<float, 64, kDrop>(a, B, st);
+    if (D == 128) return (int)launch_fwd<float, 128, kDrop>(a, B, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -403,7 +419,7 @@ inline int flash_fwd(const FwdArgs& a, int B, int D, int is_bf16,
 // Operands of one backward launch. q, k, v as in FwdArgs; dout [B, Lq, H,
 // D] contiguous; lse and delta [B, H, Lq] fp32; dq_acc [B, Lq, H*D] fp32,
 // zeroed; dq rows dq_row apart (head h at h*D), dk and dv rows dkv_row
-// apart (KV head hk at hk*D).
+// apart (KV head hk at hk*D). drop as in FwdArgs.
 struct BwdArgs {
   const void* q;
   const void* k;
@@ -419,6 +435,7 @@ struct BwdArgs {
   int Lq, Lk, H, Hkv;
   float sm_scale;
   int causal;
+  DropParams drop;
 };
 
 // Shared-memory geometry; every region size is a multiple of 128 bytes.
@@ -465,12 +482,13 @@ struct Acc<float, D> {  // thread t: kv row t / 2, columns [(t % 2) * D / 2, +D 
 };
 
 // One (q tile, kv tile) step on the tensor cores (bf16). dqg points at
-// this head's dq scratch, whose rows are q_stride apart.
-template <int D>
+// this head's dq scratch, whose rows are q_stride apart; bh = b * H + h
+// keys the dropout words.
+template <int D, bool kDrop>
 __device__ __forceinline__ void step_bf16(
     Acc<__nv_bfloat16, D>& acc, unsigned char* smem, int m0, int n0,
     Mask mask, float sm_scale, float* dqg, long q_stride, int warp,
-    int lane) {
+    int lane, const DropParams& drop, uint32_t bh) {
   using namespace nvcuda;
   using T = __nv_bfloat16;
   using G = BwdGeom<T, D>;
@@ -529,12 +547,27 @@ __device__ __forceinline__ void step_bf16(
     const int c0 = (lane & 1) * (kBN / 2);
     const float l = Lse[r];
     const float dl = Delta[r];
-    for (int c = c0; c < c0 + kBN / 2; ++c) {
-      const float p = mask(qrow, n0 + c) ? expf(Ss[r * G::kLdS + c] - l)
-                                         : 0.0f;
-      const float ds = p * (DPs[r * G::kLdS + c] - dl);
-      Ps[r * G::kLdP + c] = from_f<T>(p);    // p rounded to dO's type for dV
-      DSs[r * G::kLdP + c] = from_f<T>(ds);  // ds rounded to the input type
+    for (int c = c0; c < c0 + kBN / 2; c += 4) {
+      uint4 w;
+      if constexpr (kDrop)
+        w = keep_words(drop, (uint32_t)(n0 + c) >> 2, (uint32_t)qrow, bh,
+                       kSaltAttention);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cc = c + e;
+        const float p = mask(qrow, n0 + cc)
+                            ? expf(Ss[r * G::kLdS + cc] - l) : 0.0f;
+        float dp = DPs[r * G::kLdS + cc];
+        float p_dv = p;
+        if constexpr (kDrop) {
+          const float f = keep_factor(drop, word_of(w, e));
+          p_dv = p * f;
+          dp = dp * f;
+        }
+        const float ds = p * (dp - dl);
+        Ps[r * G::kLdP + cc] = from_f<T>(p_dv);  // rounded to dO's type
+        DSs[r * G::kLdP + cc] = from_f<T>(ds);   // rounded to the input type
+      }
     }
   }
   __syncthreads();  // dV and dK read every q row's p and ds
@@ -585,11 +618,13 @@ __device__ __forceinline__ void step_bf16(
 }
 
 // One (q tile, kv tile) step with plain FMA (fp32).
-template <int D>
+template <int D, bool kDrop>
 __device__ __forceinline__ void step_f32(Acc<float, D>& acc,
                                          unsigned char* smem, int m0, int n0,
                                          Mask mask, float sm_scale,
-                                         float* dqg, long q_stride) {
+                                         float* dqg, long q_stride,
+                                         const DropParams& drop,
+                                         uint32_t bh) {
   using T = float;
   using G = BwdGeom<T, D>;
   const T* Ks = reinterpret_cast<const T*>(smem + G::kK);
@@ -610,18 +645,31 @@ __device__ __forceinline__ void step_f32(Acc<float, D>& acc,
     const float dl = Delta[r];
     const T* q = Qs + r * G::kLdT;
     const T* dout = DOs + r * G::kLdT;
-    for (int c = half * (kBN / 2); c < (half + 1) * (kBN / 2); ++c) {
-      const T* k = Ks + c * G::kLdT;
-      const T* v = Vs + c * G::kLdT;
-      float s = 0.0f, dp = 0.0f;
+    for (int c4 = half * (kBN / 2); c4 < (half + 1) * (kBN / 2); c4 += 4) {
+      uint4 w;
+      if constexpr (kDrop)
+        w = keep_words(drop, (uint32_t)(n0 + c4) >> 2, (uint32_t)qrow, bh,
+                       kSaltAttention);
+      for (int e = 0; e < 4; ++e) {
+        const int c = c4 + e;
+        const T* k = Ks + c * G::kLdT;
+        const T* v = Vs + c * G::kLdT;
+        float s = 0.0f, dp = 0.0f;
 #pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(q[d] * sm_scale, k[d], s);
-        dp = fmaf(dout[d], v[d], dp);
+        for (int d = 0; d < D; ++d) {
+          s = fmaf(q[d] * sm_scale, k[d], s);
+          dp = fmaf(dout[d], v[d], dp);
+        }
+        const float p = mask(qrow, n0 + c) ? expf(s - l) : 0.0f;
+        float p_dv = p;
+        if constexpr (kDrop) {
+          const float f = keep_factor(drop, word_of(w, e));
+          p_dv = p * f;
+          dp = dp * f;
+        }
+        Ps[r * G::kLdS + c] = p_dv;
+        DSs[r * G::kLdS + c] = p * (dp - dl);
       }
-      const float p = mask(qrow, n0 + c) ? expf(s - l) : 0.0f;
-      Ps[r * G::kLdS + c] = p;
-      DSs[r * G::kLdS + c] = p * (dp - dl);
     }
   }
   __syncthreads();  // dV and dK read every q row's p and ds
@@ -663,7 +711,7 @@ __device__ __forceinline__ void step_f32(Acc<float, D>& acc,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(BwdArgs a) {
   using G = BwdGeom<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -731,11 +779,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(BwdArgs a) {
         Delta[threadIdx.x] = gr < a.Lq ? deltag[gr] : 0.0f;
       }
       __syncthreads();
+      const uint32_t bh = (uint32_t)(b * a.H + h);
       if constexpr (G::kBf16) {
-        step_bf16<D>(acc, smem, m0, n0, mask, a.sm_scale, dqg, do_row, warp,
-                     lane);
+        step_bf16<D, kDrop>(acc, smem, m0, n0, mask, a.sm_scale, dqg, do_row,
+                            warp, lane, a.drop, bh);
       } else {
-        step_f32<D>(acc, smem, m0, n0, mask, a.sm_scale, dqg, do_row);
+        step_f32<D, kDrop>(acc, smem, m0, n0, mask, a.sm_scale, dqg, do_row,
+                           a.drop, bh);
       }
     }
   }
@@ -796,10 +846,10 @@ __global__ void dq_convert_kernel(const float* __restrict__ dq_acc,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 cudaError_t launch_bwd(const BwdArgs& a, int B, cudaStream_t stream) {
   using G = BwdGeom<T, D>;
-  auto kernel = flash_bwd_kernel<T, D>;
+  auto kernel = flash_bwd_kernel<T, D, kDrop>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kBytes);
   if (err != cudaSuccess) return err;
@@ -814,19 +864,20 @@ cudaError_t launch_bwd(const BwdArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The backward for input type (bf16 or fp32) and head size (64 or 128);
-// returns the cudaError_t of the launches.
-inline int flash_bwd(const BwdArgs& a, int B, int D, int is_bf16,
-                     cudaStream_t st) {
+// The backward for input type (bf16 or fp32) and head size (64 or 128),
+// with dropout (kDrop, a.drop) or without; returns the cudaError_t of the
+// launches.
+template <bool kDrop = false>
+int flash_bwd(const BwdArgs& a, int B, int D, int is_bf16, cudaStream_t st) {
   if (B <= 0 || a.Lq <= 0 || a.Lk <= 0 || a.H <= 0 || a.Hkv <= 0 ||
       a.H % a.Hkv)
     return (int)cudaErrorInvalidValue;
   if (is_bf16) {
-    if (D == 64) return (int)launch_bwd<__nv_bfloat16, 64>(a, B, st);
-    if (D == 128) return (int)launch_bwd<__nv_bfloat16, 128>(a, B, st);
+    if (D == 64) return (int)launch_bwd<__nv_bfloat16, 64, kDrop>(a, B, st);
+    if (D == 128) return (int)launch_bwd<__nv_bfloat16, 128, kDrop>(a, B, st);
   } else {
-    if (D == 64) return (int)launch_bwd<float, 64>(a, B, st);
-    if (D == 128) return (int)launch_bwd<float, 128>(a, B, st);
+    if (D == 64) return (int)launch_bwd<float, 64, kDrop>(a, B, st);
+    if (D == 128) return (int)launch_bwd<float, 128, kDrop>(a, B, st);
   }
   return (int)cudaErrorInvalidValue;
 }

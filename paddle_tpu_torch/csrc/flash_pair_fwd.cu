@@ -1,7 +1,8 @@
 // Flash-attention forward over GPT's packed qkv layout, for Hopper (sm_90a).
 //
 // Replaces: paddle_tpu/kernels/pallas/flash_pair.py `_pair_fwd_kernel`
-// (launched by `_pair_fwd`), at dropout rate 0.
+// (launched by `_pair_fwd`), with its in-kernel dropout on the attention
+// probabilities (Philox, philox.cuh; rate 0 launches the kernel without it).
 //
 // For qkv [B, L, 3*H*D] with column order [q heads | k heads | v heads]:
 // out [B, L, H*D] (the packed context) and lse [B, H, L] fp32, causal or
@@ -14,22 +15,30 @@
 // causal, bf16) the work is 2*B*H*D*L*(L+1) ~= 4.3 GFLOP (4.4 us at 989
 // TFLOP/s) against 16.8 MB of traffic (qkv read once, out and lse written
 // once: 5.0 us at 3.35 TB/s); the two bounds are close, and at longer L
-// the operations dominate.
+// the operations dominate. At BERT's shape (B=64, L=512, H=12, D=64,
+// bidirectional) 51.5 GFLOP (52 us) against 201 MB (60 us): bytes bound.
+// Dropout adds one Philox4x32-10 call per 4 attended pairs, integer work
+// that neither bound counts.
 
 #include "flash_attention.cuh"
 
 // C entry point, bound with ctypes. Returns the cudaError_t of the launch
 // (0 on success). The caller has checked shapes, types, contiguity and
 // alignment; `out` is [B, L, H*D] of the input type and `lse` is [B, H, L]
-// fp32.
+// fp32. With `dropout` set, the probabilities drop under the seed's words,
+// the keep threshold and the scale of kernels/philox.py.
 extern "C" int flash_pair_fwd(const void* qkv, void* out, void* lse, int B,
                               int L, int H, int D, int is_bf16, int causal,
-                              float sm_scale, void* stream) {
+                              float sm_scale, int dropout, unsigned seed_lo,
+                              unsigned seed_hi, unsigned threshold,
+                              float keep_scale, void* stream) {
   const long hd = (long)H * D;
   const size_t esize = is_bf16 ? 2 : 4;
   const char* base = static_cast<const char*>(qkv);
   FwdArgs a{qkv, base + hd * esize, base + 2 * hd * esize, out,
             static_cast<float*>(lse), 3 * hd, 3 * hd, hd, L, L, H, H,
-            sm_scale, causal};
-  return flash_fwd(a, B, D, is_bf16, static_cast<cudaStream_t>(stream));
+            sm_scale, causal, {seed_lo, seed_hi, threshold, keep_scale}};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dropout ? flash_fwd<true>(a, B, D, is_bf16, st)
+                 : flash_fwd<false>(a, B, D, is_bf16, st);
 }

@@ -2,19 +2,30 @@
 
 * ``flash_pair_fwd`` (``csrc/flash_pair_fwd.cu``) and ``flash_pair_bwd``
   (``csrc/flash_pair_bwd.cu``), the flash-attention forward and backward
-  over the packed qkv layout, tied together under autograd by
-  ``FlashPairPacked`` (GPT);
+  over the packed qkv layout with in-kernel dropout, tied together under
+  autograd by ``FlashPairPacked`` (GPT, BERT);
 * ``flash_attention_fwd`` (``csrc/flash_attention_fwd.cu``) and
   ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``), the same on
   the ``[B, L, H, D]`` layout with grouped-query attention, tied together
   by ``FlashAttention`` (LLaMA, ``F.flash_attention`` and the no-mask
-  ``F.scaled_dot_product_attention``).
+  ``F.scaled_dot_product_attention``);
+* ``dropout_fwd`` (``csrc/dropout.cu``), dropout with the mask drawn in the
+  kernel, forward and backward under ``DropoutFunction`` (``F.dropout``);
+* ``fused_add_dropout_ln_fwd`` (``csrc/fused_residual_fwd.cu``) and
+  ``fused_add_dropout_ln_bwd`` (``csrc/fused_residual_bwd.cu``),
+  ``LayerNorm(x + dropout(sub))`` in one pass each way, under
+  ``FusedAddDropoutLN`` (``F.add_dropout_ln``, BERT).
+
+Every dropout draws its bits from one counter-based Philox4x32-10
+(``csrc/philox.cuh``, plain version ``philox.py``), keyed on the element,
+so a kernel and its plain version drop the same elements.
 
 Every wrapper counts its launches in a plain integer attribute
 (``<wrapper>.launches``); ``launch_counts()`` reads them all and
 ``reset_launch_counts()`` zeroes them, so a run can show that its main path
 went through the kernels.
 """
+from .dropout import DropoutFunction, dropout_fwd, dropout_fwd_reference
 from .flash_attention import (FlashAttention, flash_attention_bwd,
                               flash_attention_bwd_reference,
                               flash_attention_fwd,
@@ -22,18 +33,28 @@ from .flash_attention import (FlashAttention, flash_attention_bwd,
 from .flash_pair import (FlashPairPacked, flash_pair_bwd,
                          flash_pair_bwd_reference, flash_pair_fwd,
                          flash_pair_fwd_reference, pair_layout_supported)
+from .fused_residual import (FusedAddDropoutLN, fused_add_dropout_ln_bwd,
+                             fused_add_dropout_ln_bwd_reference,
+                             fused_add_dropout_ln_fwd,
+                             fused_add_dropout_ln_fwd_reference)
 
 __all__ = ["flash_pair_fwd", "flash_pair_fwd_reference", "flash_pair_bwd",
            "flash_pair_bwd_reference", "FlashPairPacked",
            "pair_layout_supported", "flash_attention_fwd",
            "flash_attention_fwd_reference", "flash_attention_bwd",
            "flash_attention_bwd_reference", "FlashAttention",
-           "launch_counts", "reset_launch_counts"]
+           "dropout_fwd", "dropout_fwd_reference", "DropoutFunction",
+           "fused_add_dropout_ln_fwd", "fused_add_dropout_ln_fwd_reference",
+           "fused_add_dropout_ln_bwd", "fused_add_dropout_ln_bwd_reference",
+           "FusedAddDropoutLN", "launch_counts", "reset_launch_counts"]
 
 WRAPPERS = {"flash_pair_fwd": flash_pair_fwd,
             "flash_pair_bwd": flash_pair_bwd,
             "flash_attention_fwd": flash_attention_fwd,
-            "flash_attention_bwd": flash_attention_bwd}
+            "flash_attention_bwd": flash_attention_bwd,
+            "dropout_fwd": dropout_fwd,
+            "fused_add_dropout_ln_fwd": fused_add_dropout_ln_fwd,
+            "fused_add_dropout_ln_bwd": fused_add_dropout_ln_bwd}
 
 
 def launch_counts() -> dict:

@@ -1,12 +1,12 @@
 """Build the port's CUDA sources into shared libraries and load them.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-``_build/lib<name>-<hash>.so`` (the hash covers the source, the headers of
-``csrc/`` and the flags, so an edited source or header rebuilds and a stale
-library is never loaded) and bound with ``ctypes``: each source exposes one
-plain ``extern "C"`` launcher named like the kernel (the kernels themselves
-live in ``csrc/flash_attention.cuh``), so no PyTorch header is compiled and
-a build takes seconds. Nothing is built when a module is imported; the first launch
+``_build/lib<name>-<hash>.so`` (the hash covers the source, every header of
+``csrc/`` (``flash_attention.cuh``, ``fused_residual.cuh``, ``philox.cuh``,
+``common.cuh``) and the flags, so an edited source or header rebuilds and a
+stale library is never loaded) and bound with ``ctypes``: each source
+exposes one plain ``extern "C"`` launcher named like the kernel, so no
+PyTorch header is compiled and a build takes seconds. Nothing is built when a module is imported; the first launch
 builds what it needs, and ``build_all()`` builds every source that is not
 built yet, one ``nvcc`` per source, all started together.
 """
@@ -31,7 +31,10 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {"flash_pair_fwd": "flash_pair_fwd.cu",
            "flash_pair_bwd": "flash_pair_bwd.cu",
            "flash_attention_fwd": "flash_attention_fwd.cu",
-           "flash_attention_bwd": "flash_attention_bwd.cu"}
+           "flash_attention_bwd": "flash_attention_bwd.cu",
+           "dropout_fwd": "dropout.cu",
+           "fused_add_dropout_ln_fwd": "fused_residual_fwd.cu",
+           "fused_add_dropout_ln_bwd": "fused_residual_bwd.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

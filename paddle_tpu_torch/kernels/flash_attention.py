@@ -47,8 +47,9 @@ def _check(q, k, v, dropout_rate=0.0, block_q=None, block_k=None,
     """Validate the forward's inputs; returns ``(B, Lq, Lk, H, Hkv, D)``."""
     if dropout_rate > 0.0:
         raise NotImplementedError(
-            f"{who}: in-kernel dropout comes with slice 4 (ROADMAP Queue 2, "
-            f"items 1-2 and 8); call it with dropout_rate=0")
+            f"{who}: in-kernel dropout on the [B, L, H, D] kernels comes "
+            f"with kv_lens in slice 5 (ROADMAP Queue 2, items 4-5); call it "
+            f"with dropout_rate=0")
     if block_q is not None or block_k is not None:
         raise NotImplementedError(
             f"{who}: the block sizes are the kernel's own; a measured block "

@@ -1,17 +1,23 @@
 """Flash attention over the packed qkv layout (the "pair" path).
 
-Counterpart of ``paddle_tpu/kernels/pallas/flash_pair.py`` at dropout rate
-0. Two kernels, CUDA C++ for ``sm_90a``, built with ``nvcc`` at first use
-and bound with ``ctypes``:
+Counterpart of ``paddle_tpu/kernels/pallas/flash_pair.py``, in-kernel
+dropout included. Two kernels, CUDA C++ for ``sm_90a``, built with
+``nvcc`` at first use and bound with ``ctypes``:
 
-* ``flash_pair_fwd(qkv, num_heads, causal)`` (``csrc/flash_pair_fwd.cu``)
-  takes the fused projection output ``[B, L, 3*H*D]`` (columns ``[q heads
-  | k heads | v heads]``) and returns the packed context ``[B, L, H*D]``
-  in the input type and the per-row log-sum-exp ``[B, H, L]`` in fp32.
-* ``flash_pair_bwd(qkv, out, lse, dout, num_heads, causal)``
-  (``csrc/flash_pair_bwd.cu``) returns ``d(qkv)`` ``[B, L, 3*H*D]`` in the
-  packed layout: the one-pass backward of ``_pair_bwd``, fused and split
-  forms alike (they compute the same function).
+* ``flash_pair_fwd(qkv, num_heads, causal, dropout_rate, seed)``
+  (``csrc/flash_pair_fwd.cu``) takes the fused projection output ``[B, L,
+  3*H*D]`` (columns ``[q heads | k heads | v heads]``) and returns the
+  packed context ``[B, L, H*D]`` in the input type and the per-row
+  log-sum-exp ``[B, H, L]`` in fp32.
+* ``flash_pair_bwd(qkv, out, lse, dout, num_heads, causal, dropout_rate,
+  seed)`` (``csrc/flash_pair_bwd.cu``) returns ``d(qkv)`` ``[B, L,
+  3*H*D]`` in the packed layout: the one-pass backward of ``_pair_bwd``,
+  fused and split forms alike (they compute the same function).
+
+At ``dropout_rate > 0`` both drop the attention probabilities under the
+keep mask of ``philox.attention_keep(seed, ...)``, keyed on (b, h, q
+position, key position): the backward regenerates the forward's mask from
+the same seed, and the plain versions draw the same one.
 
 ``FlashPairPacked`` ties them together under autograd. On a CUDA tensor a
 wrapper launches its kernel; on a CPU tensor it computes its ``_reference``,
@@ -25,7 +31,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, philox
 
 __all__ = ["flash_pair_fwd", "flash_pair_fwd_reference", "flash_pair_bwd",
            "flash_pair_bwd_reference", "FlashPairPacked",
@@ -51,12 +57,20 @@ def pair_layout_supported(head_dim: int, num_heads: int,
             and num_heads % hpb == 0)
 
 
+def _compute_type(dt: torch.dtype) -> torch.dtype:
+    """fp32 for the kernels' types; fp64 stays fp64 (the plain versions
+    take it for gradient checks)."""
+    return torch.promote_types(dt, torch.float32)
+
+
 def _check(qkv: torch.Tensor, num_heads: int, dropout_rate: float,
-           who: str = "flash_pair_fwd") -> int:
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            f"{who}: in-kernel dropout comes with slice 4 (ROADMAP Queue 2, "
-            f"items 1-2); call it with dropout_rate=0")
+           seed=None, who: str = "flash_pair_fwd", plain: bool = False) -> int:
+    if not 0.0 <= float(dropout_rate) < 1.0:
+        raise ValueError(f"{who}: dropout_rate must be in [0, 1), got "
+                         f"{dropout_rate}")
+    if dropout_rate > 0.0 and seed is None:
+        raise ValueError(f"{who}: dropout_rate > 0 needs a seed "
+                         f"(core.random.next_seed)")
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * num_heads):
         raise ValueError(f"{who}: qkv must be [B, L, 3*H*D] with "
                          f"H={num_heads}, got {tuple(qkv.shape)}")
@@ -65,7 +79,7 @@ def _check(qkv: torch.Tensor, num_heads: int, dropout_rate: float,
         raise ValueError(f"{who}: head_dim {d} with {num_heads} "
                          f"heads is not supported (head_dim in {_HEAD_DIMS}, "
                          f"num_heads a multiple of max(1, 128 // head_dim))")
-    if qkv.dtype not in _DTYPES:
+    if qkv.dtype not in _DTYPES + ((torch.float64,) if plain else ()):
         raise TypeError(f"{who}: dtype {qkv.dtype} is not "
                         f"supported (bfloat16 or float32)")
     if not qkv.is_contiguous():
@@ -73,19 +87,34 @@ def _check(qkv: torch.Tensor, num_heads: int, dropout_rate: float,
     return d
 
 
+def _keep_factor(qkv, num_heads, dropout_rate, seed, ct):
+    """``[B, H, L, L]`` factor of each attended pair: ``keep_scale`` where
+    the Philox word keeps it, 0 where it drops (None at rate 0)."""
+    if dropout_rate <= 0.0:
+        return None
+    b, L, _ = qkv.shape
+    keep = philox.attention_keep(seed, b, num_heads, L, L, dropout_rate,
+                                 qkv.device)
+    return torch.where(keep, philox.keep_scale(dropout_rate), 0.0).to(ct)
+
+
 def flash_pair_fwd_reference(qkv: torch.Tensor, num_heads: int,
-                             causal: bool, dropout_rate: float = 0.0):
+                             causal: bool, dropout_rate: float = 0.0,
+                             seed=None):
     """The kernel's math in fp32 torch: q * scale rounded to the input
-    type before Q.K^T, probabilities rounded to v's type before P.V, the
-    mask at -1e30 and the final ``acc / max(l, 1e-30)``. Returns
-    ``(out [B, L, H*D] in qkv's type, lse [B, H, L] fp32)``."""
-    d = _check(qkv, num_heads, dropout_rate)
+    type before Q.K^T, the mask at -1e30, ``l`` summed over the undropped
+    probabilities, then each probability times its keep factor (dropout),
+    rounded to v's type before P.V, and the final ``acc / max(l, 1e-30)``.
+    Returns ``(out [B, L, H*D] in qkv's type, lse [B, H, L] fp32)``. Takes
+    fp64 too (computed in fp64), for gradient checks."""
+    d = _check(qkv, num_heads, dropout_rate, seed, plain=True)
     b, L, _ = qkv.shape
     dt = qkv.dtype
+    ct = _compute_type(dt)
     x = qkv.reshape(b, L, 3, num_heads, d).permute(0, 2, 3, 1, 4)  # [b,3,H,L,d]
-    q = (x[:, 0].float() * (1.0 / math.sqrt(d))).to(dt).float()
-    k = x[:, 1].float()
-    v = x[:, 2].float()
+    q = (x[:, 0].to(ct) * (1.0 / math.sqrt(d))).to(dt).to(ct)
+    k = x[:, 1].to(ct)
+    v = x[:, 2].to(ct)
     s = q @ k.transpose(-1, -2)                               # [b,H,L,L]
     if causal:
         valid = torch.ones(L, L, dtype=torch.bool,
@@ -96,7 +125,10 @@ def flash_pair_fwd_reference(qkv: torch.Tensor, num_heads: int,
     if causal:
         p = torch.where(valid, p, 0.0)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = (p.to(dt).float() @ v) / l
+    f = _keep_factor(qkv, num_heads, dropout_rate, seed, ct)
+    if f is not None:
+        p = p * f
+    o = (p.to(dt).to(ct) @ v) / l
     lse = (m + torch.log(l))[..., 0]
     out = o.transpose(1, 2).reshape(b, L, num_heads * d).to(dt)
     return out, lse
@@ -104,21 +136,25 @@ def flash_pair_fwd_reference(qkv: torch.Tensor, num_heads: int,
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_int, ctypes.c_float,
+             *philox.KERNEL_ARGTYPES, ctypes.c_void_p)
 
 
 def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
-                   dropout_rate: float = 0.0):
-    """Packed flash-attention forward: ``(out [B, L, H*D], lse [B, H, L])``.
+                   dropout_rate: float = 0.0, seed=None):
+    """Packed flash-attention forward: ``(out [B, L, H*D], lse [B, H, L])``,
+    the probabilities dropped at ``dropout_rate`` under ``seed`` (a 64-bit
+    int; required when the rate is positive).
 
     A CUDA tensor launches the kernel on the current stream (one launch
     per call, counted in ``flash_pair_fwd.launches``); a CPU tensor runs
-    ``flash_pair_fwd_reference``. Raises on ``dropout_rate > 0``, a head
-    size other than 64 or 128, a type other than bf16/fp32 and
-    non-contiguous input."""
-    d = _check(qkv, num_heads, dropout_rate)
+    ``flash_pair_fwd_reference``. Raises on a rate outside [0, 1), a
+    positive rate without a seed, a head size other than 64 or 128, a type
+    other than bf16/fp32 and non-contiguous input."""
+    d = _check(qkv, num_heads, dropout_rate, seed)
     if qkv.device.type == "cpu":
-        return flash_pair_fwd_reference(qkv, num_heads, causal)
+        return flash_pair_fwd_reference(qkv, num_heads, causal,
+                                        dropout_rate, seed)
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_pair_fwd: unsupported device {qkv.device}")
     if qkv.data_ptr() % 16:
@@ -135,7 +171,8 @@ def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
         rc = lib.flash_pair_fwd(
             qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, L, num_heads,
             d, int(qkv.dtype == torch.bfloat16), int(bool(causal)),
-            1.0 / math.sqrt(d), stream)
+            1.0 / math.sqrt(d), *philox.kernel_args(dropout_rate, seed),
+            stream)
     if rc != 0:
         raise RuntimeError(f"flash_pair_fwd: kernel launch failed "
                            f"(cudaError {rc})")
@@ -146,15 +183,18 @@ def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
 flash_pair_fwd.launches = 0
 
 
-def _check_bwd(qkv, out, lse, dout, num_heads):
-    d = _check(qkv, num_heads, 0.0, who="flash_pair_bwd")
+def _check_bwd(qkv, out, lse, dout, num_heads, dropout_rate, seed,
+               plain=False):
+    d = _check(qkv, num_heads, dropout_rate, seed, who="flash_pair_bwd",
+               plain=plain)
     b, L, _ = qkv.shape
     for name, t in (("out", out), ("dout", dout)):
         if tuple(t.shape) != (b, L, num_heads * d) or t.dtype != qkv.dtype:
             raise ValueError(f"flash_pair_bwd: {name} must be [B, L, H*D] = "
                              f"{(b, L, num_heads * d)} of {qkv.dtype}, got "
                              f"{tuple(t.shape)} of {t.dtype}")
-    if tuple(lse.shape) != (b, num_heads, L) or lse.dtype != torch.float32:
+    if tuple(lse.shape) != (b, num_heads, L) or lse.dtype != \
+            _compute_type(qkv.dtype):
         raise ValueError(f"flash_pair_bwd: lse must be [B, H, L] = "
                          f"{(b, num_heads, L)} float32, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
@@ -167,45 +207,55 @@ def _check_bwd(qkv, out, lse, dout, num_heads):
 
 
 def _delta(out: torch.Tensor, dout: torch.Tensor, num_heads: int):
-    """``rowsum(dO * O)`` in fp32 as ``[B, H, L]`` (flash_pair.py:451-455,
-    outside the kernel there too)."""
+    """``rowsum(dO * O)`` in fp32 (fp64 for fp64 input) as ``[B, H, L]``
+    (flash_pair.py:451-455, outside the kernel there too)."""
     b, L, hd = out.shape
-    prod = dout.float() * out.float()
+    ct = _compute_type(out.dtype)
+    prod = dout.to(ct) * out.to(ct)
     return prod.reshape(b, L, num_heads, hd // num_heads).sum(-1) \
         .transpose(1, 2).contiguous()
 
 
 def flash_pair_bwd_reference(qkv: torch.Tensor, out: torch.Tensor,
                              lse: torch.Tensor, dout: torch.Tensor,
-                             num_heads: int, causal: bool):
+                             num_heads: int, causal: bool,
+                             dropout_rate: float = 0.0, seed=None):
     """The backward kernel's math in fp32 torch, written out as the Pallas
     ``_bwd_tile_core`` has it (not autograd of the forward): ``qs = q *
     scale`` rounded to the input type, ``p = exp(qs.K^T - lse)`` zeroed
-    where masked, ``dp = dO.V^T``, ``ds = p * (dp - delta)`` rounded to the
+    where masked, ``f`` the forward's keep factor of each pair (1 at rate
+    0), ``dp = (dO.V^T) * f``, ``ds = p * (dp - delta)`` rounded to the
     input type, ``dq = ds.K * scale``, ``dk = ds^T.q * scale`` with the
-    unscaled q, ``dv = round(p)^T.dO``. Returns ``d(qkv)`` ``[B, L,
-    3*H*D]`` in qkv's type."""
-    d = _check_bwd(qkv, out, lse, dout, num_heads)
+    unscaled q, ``dv = round(p * f)^T.dO``. Returns ``d(qkv)`` ``[B, L,
+    3*H*D]`` in qkv's type. Takes fp64 too (computed in fp64)."""
+    d = _check_bwd(qkv, out, lse, dout, num_heads, dropout_rate, seed,
+                   plain=True)
     b, L, _ = qkv.shape
     dt = qkv.dtype
+    ct = _compute_type(dt)
     scale = 1.0 / math.sqrt(d)
     x = qkv.reshape(b, L, 3, num_heads, d).permute(0, 2, 3, 1, 4)  # [b,3,H,L,d]
-    q = x[:, 0].float()
-    k = x[:, 1].float()
-    v = x[:, 2].float()
-    qs = (q * scale).to(dt).float()
+    q = x[:, 0].to(ct)
+    k = x[:, 1].to(ct)
+    v = x[:, 2].to(ct)
+    qs = (q * scale).to(dt).to(ct)
     s = qs @ k.transpose(-1, -2)                              # [b,H,L,L]
     p = torch.exp(s - lse[..., None])
     if causal:
         valid = torch.ones(L, L, dtype=torch.bool,
                            device=qkv.device).tril()
         p = torch.where(valid, p, 0.0)
-    do = dout.reshape(b, L, num_heads, d).transpose(1, 2).float()
+    do = dout.reshape(b, L, num_heads, d).transpose(1, 2).to(ct)
     dp = do @ v.transpose(-1, -2)
-    ds = (p * (dp - _delta(out, dout, num_heads)[..., None])).to(dt).float()
+    p_dv = p
+    f = _keep_factor(qkv, num_heads, dropout_rate, seed, ct)
+    if f is not None:
+        p_dv = p * f
+        dp = dp * f
+    ds = (p * (dp - _delta(out, dout, num_heads)[..., None])).to(dt).to(ct)
     dq = (ds @ k) * scale
     dk = (ds.transpose(-1, -2) @ q) * scale
-    dv = p.to(dt).float().transpose(-1, -2) @ do
+    dv = p_dv.to(dt).to(ct).transpose(-1, -2) @ do
     dqkv = torch.stack([dq, dk, dv], dim=1)                   # [b,3,H,L,d]
     return dqkv.permute(0, 3, 1, 2, 4).reshape(b, L, 3 * num_heads * d) \
         .to(dt)
@@ -214,14 +264,16 @@ def flash_pair_bwd_reference(qkv: torch.Tensor, out: torch.Tensor,
 _BWD_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
+                 ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                 *philox.KERNEL_ARGTYPES, ctypes.c_void_p)
 
 
 def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
-                   dout: torch.Tensor, num_heads: int, causal: bool):
+                   dout: torch.Tensor, num_heads: int, causal: bool,
+                   dropout_rate: float = 0.0, seed=None):
     """Packed flash-attention backward: ``d(qkv)`` ``[B, L, 3*H*D]`` in
     qkv's type from the forward's inputs and outputs and the output's
-    gradient ``dout``.
+    gradient ``dout``; ``dropout_rate`` and ``seed`` are the forward's.
 
     A CUDA tensor launches the kernel on the current stream (one counted
     launch per call in ``flash_pair_bwd.launches``; the kernel's dq goes
@@ -231,10 +283,10 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
     kernel. Raises on what the kernel does not take: a head size other than
     64 or 128, a type other than bf16/fp32, mismatched shapes or types,
     non-contiguous or misaligned input."""
-    d = _check_bwd(qkv, out, lse, dout, num_heads)
+    d = _check_bwd(qkv, out, lse, dout, num_heads, dropout_rate, seed)
     if qkv.device.type == "cpu":
         return flash_pair_bwd_reference(qkv, out, lse, dout, num_heads,
-                                        causal)
+                                        causal, dropout_rate, seed)
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_pair_bwd: unsupported device {qkv.device}")
     if qkv.data_ptr() % 16 or dout.data_ptr() % 16:
@@ -252,7 +304,8 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
             qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq_acc.data_ptr(), dqkv.data_ptr(), b, L,
             num_heads, d, int(qkv.dtype == torch.bfloat16), int(bool(causal)),
-            1.0 / math.sqrt(d), stream)
+            1.0 / math.sqrt(d), *philox.kernel_args(dropout_rate, seed),
+            stream)
     if rc != 0:
         raise RuntimeError(f"flash_pair_bwd: kernel launch failed "
                            f"(cudaError {rc})")
@@ -266,21 +319,24 @@ flash_pair_bwd.launches = 0
 class FlashPairPacked(torch.autograd.Function):
     """Packed flash attention under autograd (the counterpart of the JAX
     package's ``custom_vjp`` ``flash_pair``): ``forward`` runs
-    ``flash_pair_fwd`` and saves ``(qkv, out, lse)``, ``backward`` runs
-    ``flash_pair_bwd`` and returns ``d(qkv)``. ``apply(qkv, num_heads,
-    causal) -> out [B, L, H*D]``."""
+    ``flash_pair_fwd`` and saves ``(qkv, out, lse)`` and the dropout seed
+    (an int), ``backward`` runs ``flash_pair_bwd``, which regenerates the
+    forward's mask from that seed, and returns ``d(qkv)``. ``apply(qkv,
+    num_heads, causal, dropout_rate=0.0, seed=None) -> out [B, L, H*D]``."""
 
     @staticmethod
-    def forward(ctx, qkv, num_heads, causal):
-        out, lse = flash_pair_fwd(qkv, num_heads, causal)
+    def forward(ctx, qkv, num_heads, causal, dropout_rate=0.0, seed=None):
+        out, lse = flash_pair_fwd(qkv, num_heads, causal, dropout_rate, seed)
         ctx.save_for_backward(qkv, out, lse)
         ctx.num_heads = num_heads
         ctx.causal = causal
+        ctx.dropout_rate, ctx.seed = dropout_rate, seed
         return out
 
     @staticmethod
     def backward(ctx, dout):
         qkv, out, lse = ctx.saved_tensors
         dqkv = flash_pair_bwd(qkv, out, lse, dout.contiguous(),
-                              ctx.num_heads, ctx.causal)
-        return dqkv, None, None
+                              ctx.num_heads, ctx.causal, ctx.dropout_rate,
+                              ctx.seed)
+        return dqkv, None, None, None, None

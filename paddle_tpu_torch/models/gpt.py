@@ -5,9 +5,11 @@ MLP of 4x width and an LM head tied to the token embedding: the GPT-3
 recipe, built from ``torch.nn`` layers. Ported so far: the uncached
 forward (attention through the packed flash kernels on the GPU, forward
 and backward), the loss (``GPTForCausalLM.forward(ids, labels)``, the JAX
-package's ``lm_head_ce``) for training at dropout 0, and the paged-KV
-cached forward that ``serving.DecodeEngine`` drives. Dropout (slice 4),
-recompute, the scanned layer stack and tensor parallelism come later.
+package's ``lm_head_ce``), training at the config's dropout (the
+embedding and residual dropouts through the dropout kernel, the attention
+dropout inside the pair kernels, every mask from the model's generator),
+and the paged-KV cached forward that ``serving.DecodeEngine`` drives.
+Recompute, the scanned layer stack and tensor parallelism come later.
 
 Layouts follow the JAX package at every public function: the fused
 projection is ``[B, L, 3*H*D]`` with columns ``[q heads | k heads | v
@@ -26,10 +28,15 @@ from torch import nn
 from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
 from ..core.random import make_generator
+from ..nn import Dropout
 from ..nn import functional as F
 
 __all__ = ["GPTConfig", "gpt_tiny", "GPTAttention", "GPTMLP", "GPTBlock",
            "GPTModel", "GPTForCausalLM"]
+
+# dropout generators are seeded apart from the init generator of the same
+# seed: seed ^ this
+DROPOUT_STREAM = 0x5DEECE66D
 
 
 @dataclass
@@ -112,13 +119,14 @@ def _paged_kv_update(kv_cache, k, v):
 
 
 class GPTAttention(nn.Module):
-    def __init__(self, config: GPTConfig):
+    def __init__(self, config: GPTConfig, generator=None):
         super().__init__()
         self.num_heads = config.num_heads
         self.head_dim = config.hidden_size // config.num_heads
         self.qkv_proj = nn.Linear(config.hidden_size, 3 * config.hidden_size)
         self.out_proj = nn.Linear(config.hidden_size, config.hidden_size)
         self.dropout_p = config.attention_dropout_prob
+        self.generator = generator
 
     def forward(self, x, kv_cache=None):
         if kv_cache is not None:
@@ -128,7 +136,8 @@ class GPTAttention(nn.Module):
         out = F.flash_attention_qkv_packed(self.qkv_proj(x), self.num_heads,
                                            dropout=self.dropout_p,
                                            causal=True,
-                                           training=self.training)
+                                           training=self.training,
+                                           generator=self.generator)
         return self.out_proj(out)
 
     def _forward_cached(self, x, kv_cache):
@@ -174,29 +183,40 @@ class GPTMLP(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    """Pre-LN decoder block."""
+    """Pre-LN decoder block; the residual dropout after attention and after
+    the MLP on the uncached path (the cached path serves: no dropout)."""
 
-    def __init__(self, config: GPTConfig):
+    def __init__(self, config: GPTConfig, generator=None):
         super().__init__()
         eps = config.layer_norm_epsilon
         self.ln_1 = nn.LayerNorm(config.hidden_size, eps=eps)
-        self.attn = GPTAttention(config)
+        self.attn = GPTAttention(config, generator)
         self.ln_2 = nn.LayerNorm(config.hidden_size, eps=eps)
         self.mlp = GPTMLP(config)
+        self.dropout = Dropout(config.hidden_dropout_prob,
+                               generator=generator)
 
     def forward(self, x, kv_cache=None):
-        x = x + self.attn(self.ln_1(x), kv_cache=kv_cache)
-        return x + self.mlp(self.ln_2(x))
+        if kv_cache is not None:
+            x = x + self.attn(self.ln_1(x), kv_cache=kv_cache)
+            return x + self.mlp(self.ln_2(x))
+        x = x + self.dropout(self.attn(self.ln_1(x)))
+        return x + self.dropout(self.mlp(self.ln_2(x)))
 
 
 class GPTModel(nn.Module):
-    def __init__(self, config: GPTConfig):
+    """Embeddings (with the embedding dropout), blocks and the final
+    LayerNorm. ``generator`` (a CPU ``torch.Generator``) feeds every
+    dropout; training at a positive rate without one raises."""
+
+    def __init__(self, config: GPTConfig, generator=None):
         super().__init__()
         self.config = config
         self.wte = nn.Embedding(config.vocab_size, config.hidden_size)
         self.wpe = nn.Embedding(config.max_position_embeddings,
                                 config.hidden_size)
-        self.h = nn.ModuleList(GPTBlock(config)
+        self.drop = Dropout(config.hidden_dropout_prob, generator=generator)
+        self.h = nn.ModuleList(GPTBlock(config, generator)
                                for _ in range(config.num_layers))
         self.ln_f = nn.LayerNorm(config.hidden_size,
                                  eps=config.layer_norm_epsilon)
@@ -210,15 +230,10 @@ class GPTModel(nn.Module):
         a ``[B]`` tensor of per-row cursors), writing K/V in place below
         ``write_end`` (default ``start_pos + S``)."""
         cfg = self.config
-        if self.training and (cfg.hidden_dropout_prob > 0.0
-                              or cfg.attention_dropout_prob > 0.0):
-            raise NotImplementedError(
-                "dropout in training mode comes with slice 4 (ROADMAP Queue "
-                "2, items 1-2 and 8); train at dropout 0 or call eval()")
         b, s = input_ids.shape
         ar = torch.arange(s, device=input_ids.device)
         if kv_caches is None:
-            x = self.wte(input_ids) + self.wpe(ar[None, :])
+            x = self.drop(self.wte(input_ids) + self.wpe(ar[None, :]))
             for block in self.h:
                 x = block(x)
             return self.ln_f(x)
@@ -244,14 +259,17 @@ class GPTForCausalLM(nn.Module):
     ``device`` defaults to the GPU (``core.device.resolve_device``: raises
     without CUDA; pass ``device="cpu"`` for the plain CPU path). Weights
     follow the GPT-3 init recipe, drawn from a ``torch.Generator`` seeded
-    with ``seed``, then cast to ``dtype``."""
+    with ``seed``, then cast to ``dtype``. Every dropout draws its seeds
+    from ``self.generator``, a CPU generator seeded with ``seed ^
+    DROPOUT_STREAM`` (reseed it to replay a run's masks)."""
 
     def __init__(self, config: GPTConfig, *, device=None,
                  dtype=torch.float32, seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
         self.config = config
-        self.gpt = GPTModel(config)
+        self.generator = make_generator(seed ^ DROPOUT_STREAM)
+        self.gpt = GPTModel(config, self.generator)
         if config.tie_word_embeddings:
             self.lm_head = None                  # reuse wte
         else:
@@ -296,18 +314,21 @@ class GPTForCausalLM(nn.Module):
         return nn.functional.linear(hidden, self.head_weight)
 
 
-def _lm_head_ce(hidden, weight, labels, ignore_index: int = -100):
+def _lm_head_ce(hidden, weight, labels, bias=None, ignore_index: int = -100):
     """LM head + next-token cross-entropy (the JAX package's
     ``lm_head_ce``, ``paddle_tpu/models/gpt.py:34``): ``hidden [B, S, H]``
-    (already shifted) against a ``[vocab, H]`` head weight, fp32 logits,
-    ``logsumexp`` minus the gold logit per token, tokens labelled
-    ``ignore_index`` zeroed, and the sum over ``max(n_valid, 1)``.
+    (already shifted) against a ``[vocab, H]`` head weight, fp32 logits
+    (plus ``bias [vocab]`` in fp32 where given: BERT's MLM decoder bias,
+    ``has_bias``), ``logsumexp`` minus the gold logit per token, tokens
+    labelled ``ignore_index`` zeroed, and the sum over ``max(n_valid, 1)``.
 
     The head runs on both operands upcast to fp32, which gives the same
     products and fp32 accumulation as the JAX op's bf16 inputs with
     ``preferred_element_type=float32``; it is the step's largest matrix
     product (PERF.md records its share)."""
     logits = hidden.float() @ weight.float().T
+    if bias is not None:
+        logits = logits + bias.float()
     lse = torch.logsumexp(logits, dim=-1)
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0).long()

@@ -30,7 +30,9 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.functional import attention
 
 NO_LAUNCHES = {"flash_pair_fwd": 0, "flash_pair_bwd": 0,
-               "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+               "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+               "dropout_fwd": 0, "fused_add_dropout_ln_fwd": 0,
+               "fused_add_dropout_ln_bwd": 0}
 
 # (Lq, Lk): one tile pair (the fused backward), two (the split backward),
 # and Lq != Lk (the causal diagonal moves by Lk - Lq)
@@ -162,7 +164,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
     q = torch.zeros(1, 128, 4, 64)
     k = torch.zeros(1, 128, 2, 64)
     if bad == "dropout":
-        with pytest.raises(NotImplementedError, match="slice 4"):
+        with pytest.raises(NotImplementedError, match="slice 5"):
             flash_attention_fwd(q, k, k, True, dropout_rate=0.1)
     elif bad == "head_dim":
         with pytest.raises(ValueError):
@@ -248,7 +250,7 @@ def test_functionals_route_to_the_kernel_when_the_gate_passes(monkeypatch):
 
 def test_flash_attention_refuses_dropout_in_training():
     q = torch.zeros(1, 128, 2, 64)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 5"):
         F.flash_attention(q, q, q, dropout=0.1, training=True)
     F.flash_attention(q, q, q, dropout=0.1, training=False)
 

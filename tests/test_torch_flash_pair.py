@@ -5,7 +5,11 @@ On the CPU each wrapper runs its plain version, which is held to the
 Pallas kernels in interpret mode (as tests/test_flash_pair.py runs them)
 in fp32: the forward's out and lse to ``_pair_fwd``, the backward through
 ``FlashPairPacked`` to ``jax.vjp`` of ``flash_pair_packed`` in both its
-fused and its split form. The CUDA kernels themselves are held to the plain
+fused and its split form. With dropout the Pallas kernels draw TPU
+hardware bits, so the port's dropout is held to its own contract: the
+Philox mask of the seed, the written-out backward equal to autograd of the
+forward under that mask (fp64), and the plain attention route drawing the
+same mask. The CUDA kernels themselves are held to the plain
 versions by the ``cuda``-marked tests, which run only where a card is
 present.
 """
@@ -18,15 +22,20 @@ import pytest
 import torch
 
 from paddle_tpu.kernels.pallas.flash_pair import _pair_fwd, flash_pair_packed
-from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+from paddle_tpu_torch.core.random import next_seed
+from paddle_tpu_torch.kernels import launch_counts, philox, \
+    reset_launch_counts
 from paddle_tpu_torch.kernels.flash_pair import (FlashPairPacked,
                                                  flash_pair_bwd,
                                                  flash_pair_bwd_reference,
                                                  flash_pair_fwd,
                                                  flash_pair_fwd_reference)
+from paddle_tpu_torch.nn import functional as F
 
 NO_LAUNCHES = {"flash_pair_fwd": 0, "flash_pair_bwd": 0,
-               "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+               "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+               "dropout_fwd": 0, "fused_add_dropout_ln_fwd": 0,
+               "fused_add_dropout_ln_bwd": 0}
 
 
 def _qkv(b, L, heads, d, seed):
@@ -67,8 +76,10 @@ def test_cpu_tensor_takes_plain_path_uncounted():
 def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     x = torch.zeros(1, 128, 3 * 2 * 64)
     if bad == "dropout":
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="seed"):
             flash_pair_fwd(x, 2, True, dropout_rate=0.1)
+        with pytest.raises(ValueError, match="dropout_rate"):
+            flash_pair_fwd(x, 2, True, dropout_rate=1.0, seed=1)
     elif bad == "head_dim":
         with pytest.raises(ValueError):
             flash_pair_fwd(torch.zeros(1, 128, 3 * 4 * 32), 4, True)
@@ -254,3 +265,125 @@ def test_cuda_gradient_flows_through_the_function():
     o2, lse = flash_pair_fwd(x.detach(), 4, True)
     want = flash_pair_bwd_reference(x.detach(), o2, lse, g, 4, True)
     assert _rel(x.grad, want) < 1e-5
+
+
+# ----------------------------------------------------------------- dropout
+
+
+@pytest.mark.parametrize("d,causal", [(64, False), (128, True)])
+def test_dropout_backward_matches_autograd_of_forward_fp64(d, causal):
+    """At rate 0.1 the written-out backward (``flash_pair_bwd_reference``:
+    p * keep_factor for dV, dp * keep_factor in ds) against torch autograd
+    of ``flash_pair_fwd_reference`` under the same mask (the same seed), in
+    fp64, where the rounding points are exact."""
+    heads, seed, rate = 2, 0xA5A5A5A5A5, 0.1
+    x = torch.from_numpy(_qkv(2, 160, heads, d, seed=d)).double() \
+        .requires_grad_()
+    out, lse = flash_pair_fwd_reference(x, heads, causal, rate, seed)
+    g = torch.from_numpy(np.random.RandomState(d + 1).randn(*out.shape))
+    out.backward(g)
+    got = flash_pair_bwd_reference(x.detach(), out.detach(), lse.detach(), g,
+                                   heads, causal, rate, seed)
+    torch.testing.assert_close(got, x.grad, atol=1e-10, rtol=1e-10)
+
+
+def test_dropout_forward_drops_the_philox_pairs():
+    """flash_pair_fwd_reference at rate 0.1 is softmax attention whose
+    probabilities are multiplied by keep_scale where
+    ``philox.attention_keep`` keeps the pair and by 0 where it drops it
+    (l over the undropped probabilities); another seed, another output."""
+    b, L, heads, d, rate, seed = 2, 96, 2, 64, 0.1, 31337
+    x = torch.from_numpy(_qkv(b, L, heads, d, seed=1)).double()
+    out, _ = flash_pair_fwd_reference(x, heads, False, rate, seed)
+    q, k, v = x.reshape(b, L, 3, heads, d).permute(2, 0, 3, 1, 4)
+    p = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(d), dim=-1)
+    keep = philox.attention_keep(seed, b, heads, L, L, rate)
+    want = (p * torch.where(keep, 1 / (1 - rate), 0.0)) @ v
+    torch.testing.assert_close(out, want.transpose(1, 2).reshape(b, L, -1))
+    other, _ = flash_pair_fwd_reference(x, heads, False, rate, seed + 1)
+    assert not torch.allclose(other, out)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_attention_route_draws_the_pair_mask(causal):
+    """On the CPU, F.flash_attention_qkv_packed in training at dropout 0.1
+    runs the plain softmax chain with the pair kernels' mask: its output
+    equals the pair plain version at the same seed (drawn from the same
+    generator state), and its gradient is the pair backward's."""
+    b, L, heads, d = 2, 128, 2, 64
+    x = torch.from_numpy(_qkv(b, L, heads, d, seed=11)).requires_grad_()
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    seed = next_seed(gen)
+    gen.manual_seed(4)
+    out = F.flash_attention_qkv_packed(x, heads, dropout=0.1, causal=causal,
+                                       training=True, generator=gen)
+    want, lse = flash_pair_fwd_reference(x.detach(), heads, causal, 0.1,
+                                         seed)
+    torch.testing.assert_close(out.detach(), want, atol=1e-5, rtol=1e-5)
+    g = torch.from_numpy(np.random.RandomState(2).randn(*out.shape)
+                         .astype(np.float32))
+    out.backward(g)
+    dx = flash_pair_bwd_reference(x.detach(), want, lse, g, heads, causal,
+                                  0.1, seed)
+    torch.testing.assert_close(x.grad, dx, atol=1e-5, rtol=1e-5)
+
+
+def test_packed_attention_dropout_needs_a_generator():
+    x = torch.zeros(1, 128, 3 * 2 * 64)
+    with pytest.raises(ValueError, match="generator"):
+        F.flash_attention_qkv_packed(x, 2, dropout=0.1, training=True)
+    F.flash_attention_qkv_packed(x, 2, dropout=0.1, training=False)
+
+
+def test_dropout_seed_is_saved_for_the_backward():
+    """FlashPairPacked at rate 0.1 on the CPU: the backward regenerates the
+    forward's mask from the saved seed (the gradient equals the backward
+    reference at that seed, not another)."""
+    x = torch.from_numpy(_qkv(1, 160, 2, 64, seed=12)).requires_grad_()
+    out = FlashPairPacked.apply(x, 2, False, 0.1, 99)
+    g = torch.ones_like(out)
+    out.backward(g)
+    o, lse = flash_pair_fwd_reference(x.detach(), 2, False, 0.1, 99)
+    want = flash_pair_bwd_reference(x.detach(), o, lse, g, 2, False, 0.1, 99)
+    torch.testing.assert_close(x.grad, want)
+    other = flash_pair_bwd_reference(x.detach(), o, lse, g, 2, False, 0.1,
+                                     98)
+    assert not torch.allclose(other, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(4, 512, 12, 64, "bfloat16", False),
+                                  (2, 1024, 8, 128, "bfloat16", True),
+                                  (2, 300, 4, 64, "float32", True)])
+def test_cuda_dropout_kernels_match_plain(case):
+    """The pair kernels at rate 0.1 against their plain versions on the
+    same seed (the limits of the rate-0 tests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    b, L, heads, d, dt, causal = case
+    dtype = getattr(torch, dt)
+    x, g = _bwd_case(b, L, heads, d, dtype, seed=13)
+    seed = 0x5EED5EED
+    reset_launch_counts()
+    out, lse = flash_pair_fwd(x, heads, causal, 0.1, seed)
+    got = flash_pair_bwd(x, out, lse, g, heads, causal, 0.1, seed)
+    torch.cuda.synchronize()
+    assert launch_counts() == dict(NO_LAUNCHES, flash_pair_fwd=1,
+                                   flash_pair_bwd=1)
+    ref_out, ref_lse = flash_pair_fwd_reference(x, heads, causal, 0.1, seed)
+    atol, rtol = (4e-3, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    # atol scales with the probability-weighted |v| where that exceeds 1
+    # (a kept pair carries 1.11 of its p): chip_smoke.py's limit
+    absv = x.clone()
+    absv[..., 2 * heads * d:] = absv[..., 2 * heads * d:].abs()
+    weight = flash_pair_fwd_reference(absv, heads, causal, 0.1, seed)[0]
+    limit = atol * weight.float().clamp_min(1.0) + rtol * ref_out.float().abs()
+    assert ((out.float() - ref_out.float()).abs() <= limit).all()
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    want = flash_pair_bwd_reference(x, out, lse, g, heads, causal, 0.1, seed)
+    limit = 7e-4 if dtype == torch.bfloat16 else 6e-7
+    hd = heads * d
+    for i in range(3):
+        assert _rel(got[..., i * hd:(i + 1) * hd],
+                    want[..., i * hd:(i + 1) * hd]) < limit

@@ -187,6 +187,9 @@ def test_port_imports_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.optimizer.lr, paddle_tpu_torch.jit\n"
         "import paddle_tpu_torch.models.llama, paddle_tpu_torch.nn.norm\n"
         "import paddle_tpu_torch.kernels.flash_attention\n"
+        "import paddle_tpu_torch.kernels.dropout, paddle_tpu_torch.nn.common\n"
+        "import paddle_tpu_torch.kernels.fused_residual\n"
+        "import paddle_tpu_torch.kernels.philox, paddle_tpu_torch.models.bert\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
@@ -195,3 +198,33 @@ def test_port_imports_no_jax_and_no_paddle_tpu():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_training_dropout_is_deterministic_per_generator_seed():
+    """GPT at its default dropout 0.1 trains on the CPU: the embedding and
+    residual dropouts and the attention dropout draw from the model's
+    generator, so the same generator seed gives the same loss and
+    gradients, another seed another loss, and eval (no dropout) gives the
+    loss of the same weights at rate 0; nothing launches on the CPU."""
+    cfg = dict(SMALL, hidden_dropout_prob=0.1, attention_dropout_prob=0.1)
+    tm = GPTForCausalLM(GPTConfig(**cfg), device="cpu", seed=3).train()
+    plain = GPTForCausalLM(GPTConfig(**SMALL), device="cpu", seed=3)
+    plain.load_state_dict(tm.state_dict())
+    ids = torch.from_numpy(
+        np.random.RandomState(5).randint(0, 256, (2, 160))).long()
+    reset_launch_counts()
+    losses, grads = [], []
+    for s in (21, 21, 22):
+        tm.zero_grad(set_to_none=True)
+        tm.generator.manual_seed(s)
+        _, loss = tm(ids, ids)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append(tm.gpt.h[0].attn.qkv_proj.weight.grad.clone())
+    assert losses[0] == losses[1] and losses[0] != losses[2]
+    assert torch.equal(grads[0], grads[1])
+    assert all(v == 0 for v in launch_counts().values())
+    with torch.no_grad():
+        eval_loss = tm.eval()(ids, ids)[1].item()
+        rate0 = plain.train()(ids, ids)[1].item()
+    assert eval_loss == rate0 != losses[0]
