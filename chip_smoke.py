@@ -2,18 +2,20 @@
 
     python3 chip_smoke.py
 
-Builds the seven CUDA kernels of the port from the sources in this
-checkout, one ``nvcc`` each, all started together: ``flash_pair_fwd`` and
+Builds the seven CUDA sources of the port from this checkout, one
+``nvcc`` each, all started together: ``flash_pair_fwd`` and
 ``flash_pair_bwd`` (flash attention over packed qkv, with in-kernel
-dropout), ``flash_attention_fwd`` and ``flash_attention_bwd`` (flash
-attention on ``[B, L, H, D]`` with grouped-query attention, LLaMA's),
+dropout; also ``kernels.flash_attention_qkv_packed``, the packed-qkv call
+for heads of 128), ``flash_attention_fwd`` and ``flash_attention_bwd``
+(flash attention on ``[B, L, H, D]`` with grouped-query attention,
+per-sequence key lengths, segment ids and in-kernel dropout),
 ``dropout_fwd`` (dropout, forward and backward) and
 ``fused_add_dropout_ln_fwd`` / ``_bwd`` (BERT's residual epilogue
 ``LayerNorm(x + dropout(sub))``). It holds each kernel against its plain
-PyTorch version at the shapes the main paths give it (the dropout kernels
-mask for mask: every mask is one Philox function of the seed and the
-element), then drives six main paths through the user entry points,
-random weights from a seed:
+PyTorch version at the shapes the main paths give it (every dropout mask
+for mask: each is one Philox function of the seed and the element, and the
+attention masks are read back with probe inputs), then drives the main
+paths through the user entry points, random weights from a seed:
 
 * GPT-medium (vocab 50304, hidden 1024, 16 blocks, 8 heads of 128)
   serving: the scoring forward and the paged DecodeEngine answering 8
@@ -31,7 +33,13 @@ random weights from a seed:
   (MLM on 15% of positions + NSP), 1 warm-up and 6 timed steps, a profiled
   step, the eval scoring forward at [64, 512], the same steps with every
   kernel in its plain version, then 2 layers in fp32 against the plain CPU
-  path at dropout 0.1;
+  path at dropout 0.1: once on the packed path (unpadded batches, the pair
+  kernels) and once on padded batches (``seq_lens``; lengths uniform in
+  [32, 512] from a seed: the flat kernels with the lengths), where the
+  padded route at full lengths is also held to the packed route;
+* row 6's direct call: ``kernels.flash_attention_qkv_packed`` (the pair
+  kernels) under
+  autograd at [2, 2048, 3*16*128] (no model reaches it);
 * LLaMA-7B (vocab 32000, hidden 4096, FFN 11008, 32 blocks of 32 heads of
   128, built on the card) serving: the scoring forward at [2, 2048] and
   the engine answering 8 requests, a cross-check against the uncached
@@ -67,6 +75,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # published H100 SXM peaks (dense): bf16 tensor cores, fp32 without them,
@@ -136,12 +145,19 @@ BERT_BASE = dict(vocab_size=30528, hidden_size=768, num_layers=12,
                  max_position_embeddings=512, hidden_dropout_prob=0.1,
                  attention_dropout_prob=0.1)
 BERT_TRAIN = dict(batch=64, seq=512, steps=6)
+BERT_PAD_SEED = 45       # [bert-pad-train]'s batch; [compare-fa-masks] too
 # launches of one BERT-base training step: a pair forward and backward per
 # layer, two fused-LN epilogues forward and backward per layer, and the
 # embedding dropout forward and backward
 BERT_STEP_LAUNCHES = dict(flash_pair_fwd=12, flash_pair_bwd=12,
                           fused_add_dropout_ln_fwd=24,
                           fused_add_dropout_ln_bwd=24, dropout_fwd=2)
+# launches of one BERT-base training step on a padded batch: a flat
+# forward and backward per layer, the fused-LN epilogues and the embedding
+# dropout as on the packed path, and no pair launch
+BERT_PAD_STEP_LAUNCHES = dict(flash_attention_fwd=12, flash_attention_bwd=12,
+                              fused_add_dropout_ln_fwd=24,
+                              fused_add_dropout_ln_bwd=24, dropout_fwd=2)
 # [compare-fused-ln] limits on the relative Frobenius error of each of dx,
 # d(sub), dw, db against the plain version: 3x the largest first reading on
 # an H100 (bf16 1.58e-5, d(sub) at rate 0.1; fp32 2.53e-7, dw at 0.1)
@@ -863,20 +879,30 @@ def fa_pairs(lq, lk, causal):
     return int(seen.clamp(0, lk).sum())
 
 
-def fa_bound_ms(b, lq, lk, h, hkv, d, dtype, causal, backward=False):
+def fa_bound_ms(b, lq, lk, h, hkv, d, dtype, causal, backward=False,
+                pairs=None, kv_rows=None):
     """Least time for the [B, L, H, D] attention: the larger of its bytes
     over the memory rate and its matmul operations over the peak rate of
     the input type. Forward: q, k, v read once, out and lse written once;
     2 products of 2*D per attended pair. Backward: q, k, v, out, dO and
-    lse read once, dq, dk, dv written once; 5 products of 2*D a pair."""
+    lse read once, dq, dk, dv written once; 5 products of 2*D a pair.
+    ``pairs``: the attended pairs of all batch rows over one head, where
+    lengths or segment ids mask some (default: B times ``fa_pairs``).
+    ``kv_rows``: the K/V rows the function needs, summed over the batch
+    (sum_b min(Lk, lens[b]) with lengths; default B*Lk): K and V are read
+    only there, while dk and dv are written in full."""
     esize = torch.finfo(dtype).bits // 8
     q_elems, kv_elems = b * lq * h * d, b * lk * hkv * d
+    kv_read = kv_elems if kv_rows is None else kv_rows * hkv * d
+    if pairs is None:
+        pairs = b * fa_pairs(lq, lk, causal)
     if backward:
-        nbytes = (4 * q_elems + 4 * kv_elems) * esize + b * h * lq * 4
-        flops = 10.0 * d * b * h * fa_pairs(lq, lk, causal)
+        nbytes = ((4 * q_elems + 2 * kv_read + 2 * kv_elems) * esize
+                  + b * h * lq * 4)
+        flops = 10.0 * d * h * pairs
     else:
-        nbytes = (2 * q_elems + 2 * kv_elems) * esize + b * h * lq * 4
-        flops = 4.0 * d * b * h * fa_pairs(lq, lk, causal)
+        nbytes = (2 * q_elems + 2 * kv_read) * esize + b * h * lq * 4
+        flops = 4.0 * d * h * pairs
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
@@ -891,13 +917,16 @@ def _fa_inputs(b, lq, lk, h, hkv, d, dtype, gen):
     return [t.to(dtype) for t in (q, k, v, g)]
 
 
-def _sdpa_library(q, k, v, causal):
+def _sdpa_library(q, k, v, causal, valid=None, rate=0.0):
     """The PyTorch call computing the same function (timed as library_ms
     only; the port never calls it): scaled_dot_product_attention on the
-    [B, H, L, D] views with GQA."""
+    [B, H, L, D] views with GQA, ``valid`` the boolean mask of the attended
+    pairs where lengths or segments mask some (causal folded in), and
+    dropout_p ``rate``."""
     return torch.nn.functional.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=causal, enable_gqa=True)
+        attn_mask=valid, dropout_p=rate, is_causal=causal and valid is None,
+        enable_gqa=True)
 
 
 def phase_compare_fa():
@@ -916,13 +945,13 @@ def phase_compare_fa():
     outputs of [4, 2048, 32, 128] one element read 4% over the unscaled
     limit (the first reading on an H100). lse within 1e-3. Each case is
     timed beside its plain version, the library call (where its causal
-    alignment is the kernel's, Lq == Lk) and the bound. Returns the
-    training shape's record."""
+    alignment is the kernel's, Lq == Lk) and the bound. Rate 0, no lengths
+    or segments: the code of the kernels before those were added, whose
+    errors these must repeat."""
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_fwd, flash_attention_fwd_reference)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(10)
-    record = None
     for case in FA_CASES:
         b, lq, lk, h, hkv, d, dtype, causal = case
         q, k, v, _ = _fa_inputs(b, lq, lk, h, hkv, d, dtype, gen)
@@ -960,13 +989,8 @@ def phase_compare_fa():
             f"rtol {rtol}); max|lse err| {lse_err:.3g}; kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, sdpa {lib}, bound {bound_ms:.4f} ms "
             f"({bound_by})")
-        if case == FA_TRAIN_CASE:
-            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms)
         del q, k, v, out, lse, ref_out, ref_lse, diff
         torch.cuda.empty_cache()
-    return record
 
 
 def phase_compare_fa_bwd():
@@ -975,14 +999,12 @@ def phase_compare_fa_bwd():
     (limits FA_BWD_REL_LIMIT), dk and dv equal bit for bit between two
     launches (no atomics there) and dq's run-to-run change. At the
     training shape it then times the kernel beside the plain version,
-    torch.autograd.grad through the library call and the bound. Returns
-    the training shape's record."""
+    torch.autograd.grad through the library call and the bound."""
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_reference,
         flash_attention_fwd)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
-    record = None
     for case in FA_CASES:
         b, lq, lk, h, hkv, d, dtype, causal = case
         q, k, v, g = _fa_inputs(b, lq, lk, h, hkv, d, dtype, gen)
@@ -991,11 +1013,10 @@ def phase_compare_fa_bwd():
         again = flash_attention_bwd(q, k, v, out, lse, g, causal)
         torch.cuda.synchronize()
         want = flash_attention_bwd_reference(q, k, v, out, lse, g, causal)
-        parts, worst_abs = [], 0.0
+        parts = []
         for part, x, y in zip(("dq", "dk", "dv"), got, want):
             rel = rel_err(x, y)
             mx = (x.float() - y.float()).abs().max().item()
-            worst_abs = max(worst_abs, mx)
             parts.append(f"{part} rel {rel:.3g} max|err| {mx:.3g}")
             if not rel < FA_BWD_REL_LIMIT[dtype]:
                 raise AssertionError(
@@ -1027,13 +1048,9 @@ def phase_compare_fa_bwd():
             log(f"[compare-fa-bwd] at the training shape: kernel {ms:.4f} "
                 f"ms, plain {plain_ms:.4f} ms, sdpa backward "
                 f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-            record = dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms)
             del leaves, o
         del q, k, v, g, out, lse, got, again, want
         torch.cuda.empty_cache()
-    return record
 
 
 def phase_llama_scoring(model):
@@ -1268,29 +1285,6 @@ def phase_llama_train():
         f"{b * L / wall:.0f} tokens/s; {blocks} + {blocks} flash_attention "
         f"launches per step; peak memory {peak_gb:.2f} GB")
     return model, opt, ids, losses
-
-
-class _PlainFlashAttention(torch.autograd.Function):
-    """``FlashAttention`` with both kernels replaced by their plain
-    versions, for the kernel-free witness in ``phase_llama_train_plain``."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal):
-        from paddle_tpu_torch.kernels.flash_attention import (
-            flash_attention_fwd_reference)
-        out, lse = flash_attention_fwd_reference(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        from paddle_tpu_torch.kernels.flash_attention import (
-            flash_attention_bwd_reference)
-        q, k, v, out, lse = ctx.saved_tensors
-        return (*flash_attention_bwd_reference(q, k, v, out, lse,
-                                               dout.contiguous(),
-                                               ctx.causal), None)
 
 
 def phase_llama_train_plain(losses):
@@ -1781,13 +1775,14 @@ class _PlainFusedLN(torch.autograd.Function):
 
 
 class _plain_kernels:
-    """Context manager: every autograd Function of the BERT path
-    (FlashPairPacked, DropoutFunction, FusedAddDropoutLN) swapped for its
-    plain twin in the functionals that call it."""
+    """Context manager: every autograd Function of the BERT paths
+    (FlashPairPacked, FlashAttention, DropoutFunction, FusedAddDropoutLN)
+    swapped for its plain twin in the functionals that call it."""
 
     def __enter__(self):
         from paddle_tpu_torch.nn.functional import attention, common, norm
         self._saved = [(attention, "FlashPairPacked", _PlainPairPacked),
+                       (attention, "FlashAttention", _PlainFlashAttention),
                        (common, "DropoutFunction", _PlainDropout),
                        (norm, "FusedAddDropoutLN", _PlainFusedLN)]
         self._saved = [(mod, name, getattr(mod, name), plain)
@@ -1820,17 +1815,52 @@ def _bert_batch(b, s, seed, device="cuda"):
                  for t in (ids, types, None, mlm, nsp))
 
 
-def _bert_recipe(dtype=BF16):
-    """[bert-train]'s recipe: BERT-base (seed 0, dropout 0.1) in ``dtype``,
-    AdamW(1e-4, wd 0.01, multi_precision=True), TrainStep, one fixed
-    random batch of BERT_TRAIN["batch"] x BERT_TRAIN["seq"] (seed 31)."""
+def _bert_pad_lengths(b, s, seed):
+    """Per-row lengths of a padded batch, made from ``seed`` with numpy:
+    uniform in [32, s], row 0 at s and row 1 at 33 (a length that ends just
+    inside a tile, leaving that tile nearly empty)."""
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(32, s + 1, size=b)
+    lens[0], lens[1] = s, 33
+    return lens
+
+
+def _bert_pad_batch(b, s, seed, device="cuda"):
+    """A padded pretraining batch from ``seed`` (numpy): lengths of
+    ``_bert_pad_lengths``; token ids past a length 0 and token types 0
+    there (1 from a random split point inside each sequence); MLM labels on
+    15% of the valid positions (-100 everywhere else); NSP labels random.
+    Returns the TrainStep inputs (ids, token_type_ids, attn_mask=None,
+    masked_lm_labels, next_sentence_labels, seq_lens)."""
+    rs = np.random.RandomState(seed)
+    lens = _bert_pad_lengths(b, s, seed)
+    valid = np.arange(s)[None, :] < lens[:, None]
+    ids = np.where(valid, rs.randint(1, BERT_BASE["vocab_size"], (b, s)), 0)
+    split = (lens * rs.uniform(0.25, 0.75, b)).astype(np.int64)
+    types = (np.arange(s)[None, :] >= split[:, None]) & valid
+    mlm = np.where(valid & (rs.rand(b, s) < 0.15), ids, -100)
+    nsp = rs.randint(0, 2, b)
+    out = [torch.from_numpy(np.ascontiguousarray(a)).long()
+           for a in (ids, types, mlm, nsp, lens)]
+    ids, types, mlm, nsp, lens = (t.to(device) for t in out)
+    return ids, types, None, mlm, nsp, lens
+
+
+def _bert_recipe(dtype=BF16, padded=False):
+    """The recipe of [bert-train] and [bert-pad-train]: BERT-base (seed 0,
+    dropout 0.1) in ``dtype``, AdamW(1e-4, wd 0.01, multi_precision=True),
+    TrainStep, one fixed batch of BERT_TRAIN["batch"] x BERT_TRAIN["seq"]:
+    unpadded (``_bert_batch``, seed 31) or, with ``padded``, padded
+    (``_bert_pad_batch``, seed BERT_PAD_SEED)."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import BertConfig, BertForPreTraining
     from paddle_tpu_torch.optimizer import AdamW
     model = BertForPreTraining(BertConfig(**BERT_BASE), dtype=dtype, seed=0)
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
                 parameters=model.parameters(), multi_precision=True)
-    batch = _bert_batch(BERT_TRAIN["batch"], BERT_TRAIN["seq"], 31)
+    make = _bert_pad_batch if padded else _bert_batch
+    batch = make(BERT_TRAIN["batch"], BERT_TRAIN["seq"],
+                 BERT_PAD_SEED if padded else 31)
     return model, opt, TrainStep(model, opt), batch
 
 
@@ -1842,22 +1872,38 @@ def _is_bert_kernel(key):
                                  "fused_ln_bwd_kernel"))
 
 
-def phase_bert_train():
+def phase_bert_train(smi, padded=False):
     """BERT-base pretraining: the recipe of ``_bert_recipe``, 1 warm-up
-    step and BERT_TRAIN["steps"] timed steps (each synchronised). Every
+    step and BERT_TRAIN["steps"] timed steps (each synchronised), on the
+    unpadded batch (the packed path, the pair kernels: [bert-train]) or,
+    with ``padded``, on the padded batch with ``seq_lens`` (the flat
+    kernels with the lengths and no pair kernel: [bert-pad-train]). Every
     loss is finite, the first is near ln(vocab) + ln 2 (MLM over a random
     vocabulary plus NSP, within LOSS0_SLACK) and a later one is below it;
-    each step launches exactly BERT_STEP_LAUNCHES; every parameter equals
-    its fp32 master cast to bf16. Returns the model, optimizer, batch and
-    losses."""
+    each step launches exactly BERT_STEP_LAUNCHES (BERT_PAD_STEP_LAUNCHES);
+    every parameter equals its fp32 master cast to bf16. The timing line
+    carries the card's name and power limit (``smi``). Returns the model,
+    optimizer, batch and losses."""
     from paddle_tpu_torch.kernels import launch_counts
+    tag = "[bert-pad-train]" if padded else "[bert-train]"
+    want = BERT_PAD_STEP_LAUNCHES if padded else BERT_STEP_LAUNCHES
     t0 = time.perf_counter()
-    model, opt, step, batch = _bert_recipe()
+    model, opt, step, batch = _bert_recipe(padded=padded)
     b, s = batch[0].shape
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[bert-train] BERT-base {n_params / 1e6:.1f} M params bf16, dropout "
-        f"0.1, AdamW(multi_precision) built in {time.perf_counter() - t0:.1f}"
-        f" s; batch {b} x {s}, {int((batch[3] != -100).sum())} MLM labels")
+    valid_tokens, padding = b * s, ""
+    if padded:
+        lens = batch[5]
+        valid_tokens = int(lens.sum())
+        tiles = int(((lens + 63) // 64).sum()) / (b * ((s + 63) // 64))
+        padding = (f" padded, lengths in [{int(lens.min())}, "
+                   f"{int(lens.max())}], mean length {valid_tokens / b:.2f} "
+                   f"({valid_tokens / (b * s):.4f} of the tokens and of the "
+                   f"B*S*S pairs valid; live 64-key tiles {tiles:.4f}),")
+    log(f"{tag} BERT-base {n_params / 1e6:.1f} M params bf16, dropout 0.1, "
+        f"AdamW(multi_precision) built in {time.perf_counter() - t0:.1f} s; "
+        f"batch {b} x {s},{padding} {int((batch[3] != -100).sum())} MLM "
+        f"labels")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, walls = [], []
@@ -1867,9 +1913,8 @@ def phase_bert_train():
         loss = step(*batch)
         losses.append(loss.item())              # synchronises
         walls.append(time.perf_counter() - t0)
-        _expect_launches(f"[bert-train] step {i}",
-                         _grew(before, launch_counts()),
-                         **BERT_STEP_LAUNCHES)
+        _expect_launches(f"{tag} step {i}", _grew(before, launch_counts()),
+                         **want)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
@@ -1888,56 +1933,70 @@ def phase_bert_train():
                                  "to bf16")
     timed = walls[1:]
     wall = sum(timed) / len(timed)
-    log(f"[bert-train] losses {[round(x, 4) for x in losses]} (ln vocab + "
-        f"ln 2 = {want0:.4f})")
-    log(f"[bert-train] {len(timed)} timed steps: wall per step "
-        f"{wall * 1e3:.1f} ms (min {min(timed) * 1e3:.1f}, max "
-        f"{max(timed) * 1e3:.1f}; warm-up {walls[0] * 1e3:.1f}), "
-        f"{b / wall:.1f} seq/s, {b * s / wall:.0f} tokens/s; launches per "
-        f"step {BERT_STEP_LAUNCHES}; peak memory {peak_gb:.2f} GB")
+    log(f"{tag} losses {[round(x, 4) for x in losses]} (ln vocab + ln 2 = "
+        f"{want0:.4f})")
+    log(f"{tag} {len(timed)} timed steps: wall per step {wall * 1e3:.1f} ms "
+        f"(min {min(timed) * 1e3:.1f}, max {max(timed) * 1e3:.1f}; warm-up "
+        f"{walls[0] * 1e3:.1f}), {b / wall:.1f} seq/s, {b * s / wall:.0f} "
+        f"tokens/s, {valid_tokens / wall:.0f} valid tokens/s; launches per "
+        f"step {want}; peak memory {peak_gb:.2f} GB; {smi}")
     return model, opt, batch, losses
 
 
-def phase_bert_scoring(model):
+def phase_bert_scoring(model, padded=False):
     """BERT-base's eval forward at [64, 512] bf16 (no labels: MLM and NSP
-    logits): finite, of the right shapes, and exactly 12 pair forwards and
-    24 fused-LN forwards at rate 0, no dropout. Returns the batch."""
+    logits), unpadded or, with ``padded``, on a padded batch with
+    ``seq_lens``: finite, of the right shapes, and exactly 12 pair (padded:
+    flat) forwards and 24 fused-LN forwards at rate 0, no dropout. Returns
+    the model's inputs."""
     from paddle_tpu_torch.kernels import launch_counts
-    ids, types = _bert_batch(64, 512, 32)[:2]
+    if padded:
+        ids, types, _, _, _, lens = _bert_pad_batch(64, 512, 50)
+        inputs, tag, kernel = (ids, types, None, None, None, lens), \
+            "[bert-pad-scoring]", "flash_attention_fwd"
+    else:
+        ids, types = _bert_batch(64, 512, 32)[:2]
+        inputs, tag, kernel = (ids, types), "[bert-scoring]", "flash_pair_fwd"
     model.eval()
     before = launch_counts()
     with torch.no_grad():
-        mlm, nsp = model(ids, types)
+        mlm, nsp = model(*inputs)
     torch.cuda.synchronize()
     layers = BERT_BASE["num_layers"]
-    _expect_launches("[bert-scoring]", _grew(before, launch_counts()),
-                     flash_pair_fwd=layers,
+    _expect_launches(tag, _grew(before, launch_counts()), **{kernel: layers},
                      fused_add_dropout_ln_fwd=2 * layers)
-    if mlm.shape != (64, 512, BERT_BASE["vocab_size"]) \
-            or nsp.shape != (64, 2):
+    if mlm.shape != (*ids.shape, BERT_BASE["vocab_size"]) \
+            or nsp.shape != (ids.shape[0], 2):
         raise AssertionError(f"shapes {tuple(mlm.shape)}, {tuple(nsp.shape)}")
     if not (torch.isfinite(mlm).all() and torch.isfinite(nsp).all()):
         raise AssertionError("non-finite scoring logits")
-    log(f"[bert-scoring] eval [64, 512]: MLM logits {tuple(mlm.shape)}, NSP "
-        f"{tuple(nsp.shape)} finite; {layers} pair forwards + {2 * layers} "
-        f"fused-LN forwards at rate 0, no dropout")
-    return ids, types
+    log(f"{tag} eval {list(ids.shape)}"
+        + (f" padded (mean length {float(lens.float().mean()):.2f})"
+           if padded else "")
+        + f": MLM logits {tuple(mlm.shape)}, NSP {tuple(nsp.shape)} finite; "
+        f"{layers} {kernel} + {2 * layers} fused-LN forwards at rate 0, no "
+        f"dropout")
+    return inputs
 
 
-def phase_bert_scoring_time(model, ids, types):
-    """Device time of one BERT-base eval forward at [64, 512] (outside the
-    path's launch count)."""
+def phase_bert_scoring_time(model, inputs, tag, beside=""):
+    """Device time of one BERT-base eval forward on ``inputs`` (outside the
+    path's launch count), in ms; ``beside`` is printed after it."""
     with torch.no_grad():
-        ms = cuda_time_ms(lambda: model(ids, types), iters=3, warmup=1)
-    log(f"[bert-scoring] forward [64, 512]: {ms:.2f} ms, "
-        f"{64 / ms * 1e3:.1f} seq/s")
+        ms = cuda_time_ms(lambda: model(*inputs), iters=3, warmup=1)
+    b = inputs[0].shape[0]
+    log(f"{tag} forward {list(inputs[0].shape)}: {ms:.2f} ms, "
+        f"{b / ms * 1e3:.1f} seq/s{beside}")
+    return ms
 
 
-def phase_profile_bert_train(model, opt, batch):
-    """One [bert-train] step under torch.profiler: the device busy share,
-    the six kernels with the most device time, and the share of device
-    time taken by the kernels of BERT's path (the pair kernels with the
-    dq conversion, dropout, fused-LN forward and backward)."""
+def phase_profile_bert_train(model, opt, batch, tag):
+    """One step of [bert-train] (or [bert-pad-train]: ``batch`` padded)
+    under torch.profiler: the device busy share, the flash kernels' share
+    of device time (forward, backward and dq conversion), the share of
+    the kernels of BERT's path (the flash kernels, dropout, fused-LN
+    forward and backward) by name, and the six kernels with the most
+    device time."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.jit import TrainStep
     model.train()
@@ -1950,6 +2009,8 @@ def phase_profile_bert_train(model, opt, batch):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
+    flash_us = sum(e.self_device_time_total for e in kernels
+                   if _is_flash_kernel(e.key))
     ours = {}
     for e in kernels:
         if _is_bert_kernel(e.key):
@@ -1960,25 +2021,27 @@ def phase_profile_bert_train(model, opt, batch):
             ours[name] = ours.get(name, 0.0) + e.self_device_time_total
     ours_us = sum(ours.values())
     busy = max(busy_us, 1.0)
-    log(f"[profile-bert-train] one step, profiler on: {wall * 1e3:.1f} ms "
-        f"wall, device busy {busy_us / 1e3:.1f} ms = "
-        f"{busy_us / 1e6 / wall:.3f} of wall; the path's kernels "
-        f"{ours_us / 1e3:.1f} ms = {ours_us / busy:.3f} of device time ("
+    log(f"{tag} one step, profiler on: {wall * 1e3:.1f} ms wall, device "
+        f"busy {busy_us / 1e3:.1f} ms = {busy_us / 1e6 / wall:.3f} of wall; "
+        f"the flash kernels {flash_us / 1e3:.1f} ms = {flash_us / busy:.3f} "
+        f"of device time; the path's kernels {ours_us / 1e3:.1f} ms = "
+        f"{ours_us / busy:.3f} ("
         + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in sorted(ours.items()))
         + ")")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"[profile-bert-train]   {e.self_device_time_total / 1e3:8.2f} ms"
-            f" x{e.count:5d}  {e.key[:90]}")
+        log(f"{tag}   {e.self_device_time_total / 1e3:8.2f} ms x"
+            f"{e.count:5d}  {e.key[:90]}")
 
 
-def phase_bert_train_plain(losses):
-    """A witness for [bert-train]: the same recipe, batch and steps with
-    every kernel of the path in its plain version (``_plain_kernels``: no
-    launch). The plain versions draw the same masks from the same seeds,
-    so every step's loss agrees with [bert-train]'s within
+def phase_bert_train_plain(losses, padded=False):
+    """A witness for [bert-train] (or [bert-pad-train]): the same recipe,
+    batch and steps with every kernel of the path in its plain version
+    (``_plain_kernels``: no launch). The plain versions draw the same masks
+    from the same seeds, so every step's loss agrees within
     TRAIN_PLAIN_LOSS_LIMIT."""
     from paddle_tpu_torch.kernels import launch_counts
-    model, opt, step, batch = _bert_recipe()
+    tag = "[bert-pad-train-plain]" if padded else "[bert-train-plain]"
+    model, opt, step, batch = _bert_recipe(padded=padded)
     with _plain_kernels():
         before = launch_counts()
         t0 = time.perf_counter()
@@ -1989,8 +2052,8 @@ def phase_bert_train_plain(losses):
         raise AssertionError(f"the plain run launched kernels: {before} -> "
                              f"{after}")
     diff = max(abs(x - y) for x, y in zip(losses, plain))
-    log(f"[bert-train-plain] losses {[round(x, 4) for x in plain]}; largest "
-        f"|kernel - plain| over the {len(plain)} steps {diff:.3g} (limit "
+    log(f"{tag} losses {[round(x, 4) for x in plain]}; largest |kernel - "
+        f"plain| over the {len(plain)} steps {diff:.3g} (limit "
         f"{TRAIN_PLAIN_LOSS_LIMIT}); {wall / len(plain) * 1e3:.0f} ms per "
         f"step")
     if not diff < TRAIN_PLAIN_LOSS_LIMIT:
@@ -2036,6 +2099,451 @@ def phase_gpt_dropout_check():
                             dropout_fwd=10))
 
 
+# ------------------------------- masks, row 6, BERT on padded batches
+
+
+def _mask_case_inputs(case, gen):
+    """q, k, v, dO on the card and the mask keywords of one
+    [compare-fa-masks] case."""
+    tag, b, lq, lk, h, hkv, d, dtype, causal, lens, cuts, rate = case
+    q, k, v, g = _fa_inputs(b, lq, lk, h, hkv, d, dtype, gen)
+    kw = dict(kv_lens=torch.as_tensor(lens, dtype=torch.int32,
+                                      device="cuda"))
+    if cuts is not None:
+        for name, length in (("q_segments", lq), ("kv_segments", lk)):
+            seg = torch.zeros(b, length, dtype=torch.int32, device="cuda")
+            for c in cuts:                       # a share of the length
+                seg[:, int(c * length):] += 1
+            kw[name] = seg
+    if rate:
+        kw["seed"] = 0x5EED0000 + b
+    return q, k, v, g, kw
+
+
+def _fa_mask_cases():
+    """(tag, B, Lq, Lk, H, Hkv, D, dtype, causal, kv_lens, segment cuts as
+    shares of the length, rate) of [compare-fa-masks]: BERT's padded shape
+    at rates 0 and 0.1, GQA 32/8 causal with lengths, fp32 ragged Lq != Lk
+    with lengths, 3 segments a row and dropout, and a length shorter than
+    one tile. BERT's lengths are [bert-pad-train]'s batch's (seed 45)."""
+    bert = [int(x) for x in _bert_pad_lengths(BERT_TRAIN["batch"],
+                                              BERT_TRAIN["seq"],
+                                              BERT_PAD_SEED)]
+    return [("bert", 64, 512, 512, 12, 12, 64, BF16, False, bert, None, 0.0),
+            ("bert", 64, 512, 512, 12, 12, 64, BF16, False, bert, None, 0.1),
+            ("gqa", 2, 2048, 2048, 32, 8, 128, BF16, True, [2048, 1111],
+             None, 0.0),
+            ("ragged", 2, 200, 300, 4, 2, 64, FP32, True, [300, 230],
+             (0.3, 0.6), 0.1),
+            ("short", 2, 256, 256, 4, 4, 64, BF16, False, [40, 1], None,
+             0.1)]
+
+
+def phase_compare_fa_masks():
+    """flash_attention_fwd and _bwd with kv_lens, segment ids and dropout
+    against their plain versions (``_fa_mask_cases``), at [compare-fa]'s
+    limits: out within atol 4e-3 times the probability-weighted |v| (kept
+    pairs scaled by 1 / (1 - rate)) + rtol 1e-2 in bf16 (1e-4 in fp32), lse
+    within 1e-3, dq/dk/dv within FA_BWD_REL_LIMIT, dk and dv equal between
+    two launches and exactly zero on the keys past each length. Each case
+    is timed beside its plain version, sdpa with a boolean mask and
+    dropout_p (forward, and autograd through it) and the bounds, which
+    count the attended pairs. Returns the records of BERT's shape at rate
+    0.1 (the padded path's), forward and backward."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        _visible, flash_attention_bwd, flash_attention_bwd_reference,
+        flash_attention_fwd, flash_attention_fwd_reference)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(40)
+    records = None
+    for case in _fa_mask_cases():
+        tag, b, lq, lk, h, hkv, d, dtype, causal, lens, cuts, rate = case
+        q, k, v, g, kw = _mask_case_inputs(case, gen)
+        out, lse = flash_attention_fwd(q, k, v, causal, None, rate, **kw)
+        got = flash_attention_bwd(q, k, v, out, lse, g, causal, None, rate,
+                                  **kw)
+        again = flash_attention_bwd(q, k, v, out, lse, g, causal, None, rate,
+                                    **kw)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = flash_attention_fwd_reference(q, k, v, causal,
+                                                         None, rate, **kw)
+        atol, rtol = (4e-3, 1e-2) if dtype == BF16 else (1e-4, 1e-4)
+        weight = flash_attention_fwd_reference(q, k, v.abs(), causal, None,
+                                               rate, **kw)[0].float()
+        diff = (out.float() - ref_out.float()).abs()
+        err = diff.max().item()
+        of_limit = (diff / (atol * weight.clamp_min(1.0)
+                            + rtol * ref_out.float().abs())).max().item()
+        lse_ok = bool(((lse - ref_lse).abs()
+                       <= 1e-3 + 1e-3 * ref_lse.abs()).all())
+        want = flash_attention_bwd_reference(q, k, v, out, lse, g, causal,
+                                             None, rate, **kw)
+        rels = [rel_err(x, y) for x, y in zip(got, want)]
+        worst_abs = max((x.float() - y.float()).abs().max().item()
+                        for x, y in zip(got, want))
+        stable = torch.equal(got[1], again[1]) and torch.equal(got[2],
+                                                               again[2])
+        dead = sum(int(torch.count_nonzero(t[r, n:])) for t in got[1:]
+                   for r, n in enumerate(lens))
+        del weight, diff, want, again, ref_lse, ref_out
+        valid = _visible(lq, lk, causal, "cuda", kw["kv_lens"],
+                         kw.get("q_segments"), kw.get("kv_segments"))
+        pairs = int(valid.sum())
+        ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v, causal, None,
+                                                      rate, **kw))
+        bwd_ms = cuda_time_ms(lambda: flash_attention_bwd(
+            q, k, v, out, lse, g, causal, None, rate, **kw), iters=10)
+        plain_ms = cuda_time_ms(lambda: flash_attention_fwd_reference(
+            q, k, v, causal, None, rate, **kw), iters=3, warmup=1)
+        plain_bwd_ms = cuda_time_ms(lambda: flash_attention_bwd_reference(
+            q, k, v, out, lse, g, causal, None, rate, **kw), iters=3,
+            warmup=1)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_ms = cuda_time_ms(lambda: _sdpa_library(*leaves, causal, valid,
+                                                    rate))
+        o = _sdpa_library(*leaves, causal, valid, rate)
+        lib_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            o, leaves, g.transpose(1, 2), retain_graph=True))
+        kv_rows = sum(min(lk, n) for n in lens)
+        fb = fa_bound_ms(b, lq, lk, h, hkv, d, dtype, causal, pairs=pairs,
+                         kv_rows=kv_rows)
+        bb = fa_bound_ms(b, lq, lk, h, hkv, d, dtype, causal, True, pairs,
+                         kv_rows)
+        name = (f"[compare-fa-masks] {tag} B={b} Lq={lq} Lk={lk} H={h} "
+                f"Hkv={hkv} D={d} {str(dtype)[6:]} causal={causal} rate "
+                f"{rate}" + (", 3 segments a row" if cuts else ""))
+        shown = lens if len(lens) <= 4 else f"mean {np.mean(lens):.2f}"
+        tiles = sum(-(-n // 64) for n in lens) / (b * -(-lk // 64))
+        log(f"{name}: lengths {shown}, live 64-key tiles {tiles:.4f}, "
+            f"attended pairs {pairs / (b * lq * lk):.4f} of B*Lq*Lk; out "
+            f"{of_limit:.3f} of the limit (atol {atol}, rtol {rtol}); dq/dk/"
+            f"dv rel {rels[0]:.3g}/{rels[1]:.3g}/{rels[2]:.3g} (limit "
+            f"{FA_BWD_REL_LIMIT[dtype]}); nonzero dk/dv past the lengths "
+            f"{dead}")
+        log(f"{name}: forward {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
+            f"{lib_ms:.4f}, bound {fb[0]:.4f} ms {fb[1]}); backward "
+            f"{bwd_ms:.4f} ms (plain {plain_bwd_ms:.4f}, sdpa backward "
+            f"{lib_bwd_ms:.4f}, bound {bb[0]:.4f} ms {bb[1]})")
+        if not (of_limit <= 1.0 and lse_ok and stable and dead == 0
+                and max(rels) < FA_BWD_REL_LIMIT[dtype]):
+            raise AssertionError(f"{name}: the flat kernels disagree with "
+                                 f"their plain versions")
+        if tag == "bert" and rate:
+            records = (dict(max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=fb[0],
+                            bound_by=fb[1], library_ms=lib_ms),
+                       dict(max_abs_err=worst_abs, ms=bwd_ms,
+                            plain_ms=plain_bwd_ms, bound_ms=bb[0],
+                            bound_by=bb[1], library_ms=lib_bwd_ms))
+        del q, k, v, g, out, lse, got, leaves, o, valid
+        torch.cuda.empty_cache()
+    return records
+
+
+def _fa_mask_probe(b, L, h, d, causal, seed, rate, kw):
+    """Read the flat kernels' keep masks back off the card, as
+    ``_attn_mask_probe`` does for the pair kernels (q = k = 0: p = 1 / l;
+    one-hot v and dO expose each pair). Over every (b, h, q, key) pair,
+    the kernel's nonzero pattern must be philox.attention_keep AND the
+    pairs the lengths and segments let through. Returns (forward
+    mismatches on attended pairs, backward mismatches on attended pairs,
+    nonzero probabilities on masked pairs, forward and backward together,
+    nonzero dk/dv past the lengths, attended pairs, masked pairs)."""
+    from paddle_tpu_torch.kernels import philox
+    from paddle_tpu_torch.kernels.flash_attention import (
+        _visible, flash_attention_bwd, flash_attention_fwd)
+    keep = philox.attention_keep(seed, b, h, L, L, rate, "cuda")
+    visible = _visible(L, L, causal, "cuda", kw.get("kv_lens"),
+                       kw.get("q_segments"), kw.get("kv_segments"))
+    want = keep & visible                              # [b, h, i, j]
+    e = torch.arange(d, device="cuda")
+    fwd_m = bwd_m = leak = dead = 0
+    q = torch.zeros(b, L, h, d, dtype=BF16, device="cuda")
+    for t in range(L // d):
+        keys = t * d + e
+        v = torch.zeros(b, L, h, d, dtype=BF16, device="cuda")
+        v[:, keys, :, e] = 1.0
+        out, lse = flash_attention_fwd(q, q, v, causal, None, rate,
+                                       seed=seed, **kw)
+        got = out.permute(0, 2, 1, 3) != 0            # [b, h, i, e]
+        sl = slice(t * d, (t + 1) * d)
+        fwd_m += int(((got != want[..., sl]) & visible[..., sl]).sum())
+        leak += int((got & ~visible[..., sl]).sum())
+        dout = torch.zeros(b, L, h, d, dtype=BF16, device="cuda")
+        dout[:, keys, :, e] = 1.0
+        _, dk, dv = flash_attention_bwd(q, q, v, out, lse, dout, causal,
+                                        None, rate, seed=seed, **kw)
+        got = dv.permute(0, 2, 3, 1) != 0              # [b, h, e, j]
+        vis = visible[:, :, sl, :].expand(b, h, d, L)
+        bwd_m += int(((got != want[:, :, sl, :]) & vis).sum())
+        leak += int((got & ~vis).sum())
+        dead += sum(int(torch.count_nonzero(x[r, n:])) for x in (dk, dv)
+                    for r, n in enumerate(kw["kv_lens"].tolist()))
+        del v, out, lse, dout, dk, dv, got
+    attended = int(visible.expand(b, h, L, L).sum())
+    return fwd_m, bwd_m, leak, dead, attended, b * h * L * L - attended
+
+
+def phase_fa_mask_probe():
+    """The keep masks of both flat kernels read back with probe inputs
+    (``_fa_mask_probe``) at BERT's padded shape [64, 512, 12, 64] rate 0.1
+    and at [2, 256, 4, 64] causal with lengths and 3 segments a row (the
+    kSegs instantiations): 0 mismatches against philox.attention_keep on
+    the attended pairs, probability exactly 0 on every masked pair (past a
+    length, across segments, above the diagonal), and dk = dv = 0 exactly
+    on the keys past each length."""
+    rate = 0.1
+    bert_lens = _bert_pad_lengths(BERT_TRAIN["batch"], BERT_TRAIN["seq"], 42)
+    seg = torch.zeros(2, 256, dtype=torch.int32, device="cuda")
+    seg[:, 70:] += 1
+    seg[:, 150:] += 1
+    cases = [(64, 512, 12, 64, False,
+              dict(kv_lens=torch.as_tensor(bert_lens, dtype=torch.int32,
+                                           device="cuda"))),
+             (2, 256, 4, 64, True,
+              dict(kv_lens=torch.tensor([256, 201], dtype=torch.int32,
+                                        device="cuda"),
+                   q_segments=seg, kv_segments=seg))]
+    for b, L, h, d, causal, kw in cases:
+        fwd_m, bwd_m, leak, dead, attended, masked = _fa_mask_probe(
+            b, L, h, d, causal, 0xFACE + b, rate, kw)
+        log(f"[fa-mask-probe] B={b} L={L} H={h} D={d} bf16 causal={causal} "
+            f"rate {rate}{', 3 segments a row' if 'q_segments' in kw else ''}"
+            f": keep-mask mismatches forward {fwd_m}, backward {bwd_m} over "
+            f"{attended} attended pairs; nonzero probabilities on the "
+            f"{masked} masked pairs {leak}; nonzero dk/dv past the lengths "
+            f"{dead}")
+        if fwd_m or bwd_m or leak or dead:
+            raise AssertionError("[fa-mask-probe]: the flat kernels' masks "
+                                 "are not the plain Philox mask and the "
+                                 "structured masks")
+        torch.cuda.empty_cache()
+
+
+FA_PACKED_SHAPE = (2, 2048, 16, 128)      # row 6: [B, L, 3*H*D], D = 128
+
+
+def phase_compare_fa_packed():
+    """Row 6, ``kernels.flash_attention_qkv_packed`` (the call a user
+    makes; no model reaches it): the pair kernels on [2, 2048, 3*16*128]
+    bf16 causal, rates 0 and 0.1, under autograd, exactly one launch each
+    way (counts set to 0 just before the call, read just after). Out within
+    [compare-fa]'s limit and d(qkv) per block within FA_BWD_REL_LIMIT of
+    its plain version, the flat references on the three column slices; lse
+    within 1e-3; out and dk/dv equal to the pair wrappers called directly.
+    Timed (those wrappers) beside the plain versions, sdpa on the column
+    views (forward, autograd through it) and the bounds. Returns the launch
+    counts of the rate-0.1 call and the records at rate 0.1, forward and
+    backward."""
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_reference, flash_attention_fwd_reference,
+        flash_attention_qkv_packed)
+    from paddle_tpu_torch.kernels.flash_pair import (flash_pair_bwd,
+                                                     flash_pair_fwd)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(43)
+    b, L, h, d = FA_PACKED_SHAPE
+    hd = h * d
+    for rate in (0.0, 0.1):
+        seed = 0xC0FFEE if rate else None
+        qkv, dout = _bwd_inputs(b, L, h, d, BF16, gen)
+        leaf = qkv.clone().requires_grad_()
+        reset_launch_counts()              # row 6's call starts here
+        out = flash_attention_qkv_packed(leaf, h, True, None, rate, seed)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        counts = launch_counts()           # ... and ends here
+        tag = (f"[compare-fa-packed] flash_attention_qkv_packed B={b} L={L} "
+               f"H={h} D={d} bf16 causal rate {rate}")
+        _expect_launches(tag, counts, flash_pair_fwd=1, flash_pair_bwd=1)
+        out_k, lse = flash_pair_fwd(qkv, h, True, rate, seed)
+        direct = flash_pair_bwd(qkv, out_k, lse, dout, h, True, rate, seed)
+        q, k, v = (qkv[..., i * hd:(i + 1) * hd].reshape(b, L, h, d)
+                   .contiguous() for i in range(3))
+        do = dout.view(b, L, h, d)
+        ref_out, ref_lse = flash_attention_fwd_reference(q, k, v, True, None,
+                                                         rate, seed=seed)
+        weight = flash_attention_fwd_reference(q, k, v.abs(), True, None,
+                                               rate, seed=seed)[0].float()
+        diff = (out.detach().view(b, L, h, d).float()
+                - ref_out.float()).abs()
+        of_limit = (diff / (4e-3 * weight.clamp_min(1.0)
+                            + 1e-2 * ref_out.float().abs())).max().item()
+        err = diff.max().item()
+        lse_ok = bool(((lse - ref_lse).abs()
+                       <= 1e-3 + 1e-3 * ref_lse.abs()).all())
+        want = flash_attention_bwd_reference(q, k, v, out_k.view(b, L, h, d),
+                                             lse, do, True, None, rate,
+                                             seed=seed)
+        got = leaf.grad
+        rels = [rel_err(got[..., i * hd:(i + 1) * hd].view(b, L, h, d), w)
+                for i, w in enumerate(want)]
+        worst_abs = max((got[..., i * hd:(i + 1) * hd].view(b, L, h, d)
+                         .float() - w.float()).abs().max().item()
+                        for i, w in enumerate(want))
+        same = (torch.equal(out, out_k)
+                and torch.equal(got[..., hd:], direct[..., hd:]))
+        del weight, diff, want, direct, ref_out, ref_lse
+        ms = cuda_time_ms(lambda: flash_pair_fwd(qkv, h, True, rate, seed))
+        bwd_ms = cuda_time_ms(lambda: flash_pair_bwd(
+            qkv, out_k, lse, dout, h, True, rate, seed), iters=10)
+        plain_ms = cuda_time_ms(lambda: flash_attention_fwd_reference(
+            q, k, v, True, None, rate, seed=seed), iters=3, warmup=1)
+        plain_bwd_ms = cuda_time_ms(lambda: flash_attention_bwd_reference(
+            q, k, v, out_k.view(b, L, h, d), lse, do, True, None, rate,
+            seed=seed), iters=3, warmup=1)
+        lib_leaf = qkv.detach().requires_grad_()
+        lq, lk, lv = (lib_leaf[..., i * hd:(i + 1) * hd].view(b, L, h, d)
+                      .transpose(1, 2) for i in range(3))
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                lq, lk, lv, dropout_p=rate, is_causal=True)
+        lib_ms = cuda_time_ms(library)
+        o = library()
+        lib_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            o, lib_leaf, do.transpose(1, 2), retain_graph=True))
+        fb = flash_bound_ms(b, L, h, d, BF16, True)
+        bb = flash_bwd_bound_ms(b, L, h, d, BF16, True)
+        log(f"{tag}: launches {counts}; out {of_limit:.3f} of the limit "
+            f"(max|err| {err:.3g}), lse ok {lse_ok}; dq/dk/dv rel "
+            f"{rels[0]:.3g}/{rels[1]:.3g}/{rels[2]:.3g} (limit "
+            f"{FA_BWD_REL_LIMIT[BF16]}); out and dk/dv equal to the pair "
+            f"wrappers called directly {same}")
+        log(f"{tag}: forward {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
+            f"{lib_ms:.4f}, bound {fb[0]:.4f} ms {fb[1]}); backward "
+            f"{bwd_ms:.4f} ms (plain {plain_bwd_ms:.4f}, sdpa backward "
+            f"{lib_bwd_ms:.4f}, bound {bb[0]:.4f} ms {bb[1]})")
+        if not (of_limit <= 1.0 and lse_ok and same
+                and max(rels) < FA_BWD_REL_LIMIT[BF16]):
+            raise AssertionError(f"{tag}: row 6 disagrees with its plain "
+                                 f"version")
+        if rate:
+            path = counts
+            records = (dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=fb[0], bound_by=fb[1],
+                            library_ms=lib_ms),
+                       dict(max_abs_err=worst_abs, ms=bwd_ms,
+                            plain_ms=plain_bwd_ms, bound_ms=bb[0],
+                            bound_by=bb[1], library_ms=lib_bwd_ms))
+        del qkv, dout, leaf, out, out_k, lse, got, q, k, v, do, lib_leaf
+        del lq, lk, lv, o
+        torch.cuda.empty_cache()
+    return path, records
+
+
+class _PlainFlashAttention(torch.autograd.Function):
+    """``FlashAttention`` with both kernels replaced by their plain
+    versions, for the kernel-free witnesses in ``phase_llama_train_plain``
+    and ``phase_bert_pad_train_plain``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, dropout_rate=0.0, seed=None,
+                kv_lens=None, q_segments=None, kv_segments=None):
+        from paddle_tpu_torch.kernels.flash_attention import (
+            flash_attention_fwd_reference)
+        masks = dict(kv_lens=kv_lens, q_segments=q_segments,
+                     kv_segments=kv_segments)
+        out, lse = flash_attention_fwd_reference(q, k, v, causal, None,
+                                                 dropout_rate, seed=seed,
+                                                 **masks)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, dropout_rate, seed, masks)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from paddle_tpu_torch.kernels.flash_attention import (
+            flash_attention_bwd_reference)
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, rate, seed, masks = ctx.args
+        grads = flash_attention_bwd_reference(q, k, v, out, lse,
+                                              dout.contiguous(), causal,
+                                              None, rate, seed=seed, **masks)
+        return (*grads, None, None, None, None, None, None)
+
+
+def phase_bert_pad_train_check():
+    """BERT-base width at 2 layers in fp32, a padded [2, 512] batch
+    (lengths 512 and 33), dropout 0.1: the card (the flat kernels with the
+    lengths and dropout, the fused-LN and dropout kernels) against the
+    plain CPU path from the same weights and generator state
+    (``_card_vs_cpu``, every leaf within TRAIN_CHECK_REL_LIMIT)."""
+    from paddle_tpu_torch.models import BertConfig, BertForPreTraining
+    cfg = BertConfig(**dict(BERT_BASE, num_layers=2))
+    _card_vs_cpu(
+        "[bert-pad-train-check] fp32, 2 layers, padded [2, 512] (lengths "
+        "512, 33), dropout 0.1:",
+        lambda dev: BertForPreTraining(cfg, device=dev, seed=9),
+        _bert_pad_batch(2, 512, 46, device="cpu"),
+        dict(flash_attention_fwd=2, flash_attention_bwd=2,
+             fused_add_dropout_ln_fwd=4, fused_add_dropout_ln_bwd=4,
+             dropout_fwd=2))
+
+
+def _pad_vs_packed(model, batch, gen_seed):
+    """The loss and gradients of ``model`` on ``batch`` through the padded
+    route (every length = S) and the packed route, each from generator
+    state ``gen_seed``: ((loss, grads), (loss, grads), launches of each)."""
+    from paddle_tpu_torch.kernels import launch_counts
+    ids, types, _, mlm, nsp = batch[:5]
+    full = torch.full((ids.shape[0],), ids.shape[1], device=ids.device)
+    runs = []
+    for lens in (full, None):
+        model.zero_grad(set_to_none=True)
+        model.generator.manual_seed(gen_seed)
+        before = launch_counts()
+        loss = model(ids, types, None, mlm, nsp, lens)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs.append((loss.item(), {n: p.grad.clone()
+                                   for n, p in model.named_parameters()},
+                     _grew(before, launch_counts())))
+    return runs
+
+
+def phase_bert_pad_full():
+    """The padded route with every length = 512 against the packed route
+    on the same weights and generator state, dropout 0.1: the same Philox
+    masks on two kernel layouts (the flat kernels with lengths against
+    the pair kernels). fp32, 2 layers of BERT-base width, [2, 512]: loss
+    and every leaf's gradient within 1e-5 relative. Then the bf16
+    12-layer model at [64, 512]: the loss gap, printed."""
+    from paddle_tpu_torch.models import BertConfig, BertForPreTraining
+    cfg = BertConfig(**dict(BERT_BASE, num_layers=2))
+    model = BertForPreTraining(cfg, device="cuda", seed=10).train()
+    batch = _bert_batch(2, 512, 47)
+    (pl, pg, pn), (kl, kg, kn) = _pad_vs_packed(model, batch, 48)
+    loss_rel = abs(pl - kl) / abs(kl)
+    rels = {n: rel_err(pg[n], kg[n]) for n in kg if kg[n] is not None}
+    worst = max(rels, key=rels.get)
+    _expect_launches("[bert-pad-full] padded", pn, flash_attention_fwd=2,
+                     flash_attention_bwd=2, fused_add_dropout_ln_fwd=4,
+                     fused_add_dropout_ln_bwd=4, dropout_fwd=2)
+    _expect_launches("[bert-pad-full] packed", kn, flash_pair_fwd=2,
+                     flash_pair_bwd=2, fused_add_dropout_ln_fwd=4,
+                     fused_add_dropout_ln_bwd=4, dropout_fwd=2)
+    log(f"[bert-pad-full] fp32, 2 layers, [2, 512], every length 512, "
+        f"dropout 0.1: loss padded {pl:.7f} vs packed {kl:.7f} (rel "
+        f"{loss_rel:.3g}); worst leaf gradient rel {rels[worst]:.3g} "
+        f"({worst}); limit 1e-5")
+    if not (loss_rel <= 1e-5 and rels[worst] <= 1e-5):
+        raise AssertionError("[bert-pad-full]: the padded route at full "
+                             "lengths departs from the packed route")
+    del model
+    torch.cuda.empty_cache()
+    model = BertForPreTraining(BertConfig(**BERT_BASE), dtype=BF16,
+                               seed=0).train()
+    batch = _bert_batch(BERT_TRAIN["batch"], BERT_TRAIN["seq"], 31)
+    (pl, _, _), (kl, _, _) = _pad_vs_packed(model, batch, 49)
+    log(f"[bert-pad-full] bf16, 12 layers, [64, 512], every length 512, "
+        f"dropout 0.1: loss padded {pl:.5f} vs packed {kl:.5f}, gap "
+        f"{abs(pl - kl):.3g}")
+    del model
+    torch.cuda.empty_cache()
+
+
 def _kernel_entry(name, source, replaces, launches, record):
     return dict(name=name, route="cuda",
                 source=f"paddle_tpu_torch/csrc/{source}",
@@ -2064,12 +2572,17 @@ def main() -> int:
     records = {"flash_pair_fwd": phase_compare(),
                "flash_pair_bwd": phase_compare_bwd()}
     phase_autograd()
-    records["flash_attention_fwd"] = phase_compare_fa()
-    records["flash_attention_bwd"] = phase_compare_fa_bwd()
+    phase_compare_fa()
+    phase_compare_fa_bwd()
     records["dropout_fwd"] = phase_compare_dropout()
     (records["fused_add_dropout_ln_fwd"],
      records["fused_add_dropout_ln_bwd"]) = phase_compare_fused_ln()
     phase_compare_dropout_attn()
+    (records["flash_attention_fwd"],
+     records["flash_attention_bwd"]) = phase_compare_fa_masks()
+    phase_fa_mask_probe()
+    row6, row6_records = phase_compare_fa_packed()   # row 6's own call
+    paths = {}
     t0 = time.perf_counter()
     model = GPTForCausalLM(GPTConfig(**GPT_MEDIUM), dtype=torch.bfloat16,
                            seed=0).eval()
@@ -2077,7 +2590,6 @@ def main() -> int:
     log(f"[model] GPT-medium {n_params / 1e6:.1f} M params, bf16, built in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    paths = {}
     reset_launch_counts()                  # GPT serving starts here
     ids = phase_scoring(model)
     reqs = phase_engine(model)
@@ -2102,18 +2614,36 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     reset_launch_counts()                  # BERT training starts here
-    bert, opt, batch, losses = phase_bert_train()
+    bert, opt, batch, losses = phase_bert_train(smi)
     paths["bert-training"] = launch_counts()   # ... and ends here
-    phase_profile_bert_train(bert, opt, batch)
+    phase_profile_bert_train(bert, opt, batch, "[profile-bert-train]")
     reset_launch_counts()                  # BERT scoring starts here
-    ids, types = phase_bert_scoring(bert)
+    inputs = phase_bert_scoring(bert)
     paths["bert-scoring"] = launch_counts()    # ... and ends here
-    phase_bert_scoring_time(bert, ids, types)
-    del bert, opt, batch, ids, types
+    packed_ms = phase_bert_scoring_time(bert, inputs, "[bert-scoring]")
+    del bert, opt, batch, inputs
     torch.cuda.empty_cache()
     phase_bert_train_plain(losses)
     torch.cuda.empty_cache()
     phase_bert_train_check()
+    torch.cuda.empty_cache()
+
+    reset_launch_counts()                  # BERT padded training starts here
+    bert, opt, batch, losses = phase_bert_train(smi, padded=True)
+    paths["bert-pad-training"] = launch_counts()   # ... and ends here
+    phase_profile_bert_train(bert, opt, batch, "[profile-bert-pad-train]")
+    reset_launch_counts()                  # BERT padded scoring starts here
+    inputs = phase_bert_scoring(bert, padded=True)
+    paths["bert-pad-scoring"] = launch_counts()    # ... and ends here
+    phase_bert_scoring_time(bert, inputs, "[bert-pad-scoring]",
+                            f" (packed [bert-scoring]: {packed_ms:.2f} ms)")
+    del bert, opt, batch, inputs
+    torch.cuda.empty_cache()
+    phase_bert_train_plain(losses, padded=True)
+    torch.cuda.empty_cache()
+    phase_bert_pad_train_check()
+    torch.cuda.empty_cache()
+    phase_bert_pad_full()
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -2150,6 +2680,12 @@ def main() -> int:
                                "dropout_fwd", "fused_add_dropout_ln_fwd",
                                "fused_add_dropout_ln_bwd"],
              "bert-scoring": ["flash_pair_fwd", "fused_add_dropout_ln_fwd"],
+             "bert-pad-training": ["flash_attention_fwd",
+                                   "flash_attention_bwd", "dropout_fwd",
+                                   "fused_add_dropout_ln_fwd",
+                                   "fused_add_dropout_ln_bwd"],
+             "bert-pad-scoring": ["flash_attention_fwd",
+                                  "fused_add_dropout_ln_fwd"],
              "llama-serving": ["flash_attention_fwd"],
              "llama-training": ["flash_attention_fwd",
                                 "flash_attention_bwd"]}
@@ -2158,7 +2694,7 @@ def main() -> int:
             if paths[path][kernel] < 1:
                 raise AssertionError(f"the {path} path never launched "
                                      f"{kernel}")
-    log(f"[paths] launches: {paths}")
+    log(f"[paths] launches: {paths}; row 6's call: {row6}")
     launches = {k: sum(p[k] for p in paths.values()) for k in records}
     kernels = [
         _kernel_entry("flash_pair_fwd", "flash_pair_fwd.cu",
@@ -2172,6 +2708,14 @@ def main() -> int:
         _kernel_entry("flash_attention_bwd", "flash_attention_bwd.cu",
                       "flash_attention.py:340", launches,
                       records["flash_attention_bwd"]),
+        # row 6 runs the pair kernels: its entries carry their launches in
+        # its own call and their times at its shape
+        dict(_kernel_entry("flash_pair_fwd", "flash_pair_fwd.cu",
+                           "flash_attention.py:701", row6, row6_records[0]),
+             name="flash_attention_qkv_packed (flash_pair_fwd)"),
+        dict(_kernel_entry("flash_pair_bwd", "flash_pair_bwd.cu",
+                           "flash_attention.py:755", row6, row6_records[1]),
+             name="flash_attention_qkv_packed (flash_pair_bwd)"),
         _kernel_entry("dropout_fwd", "dropout.cu", "dropout.py:21", launches,
                       records["dropout_fwd"]),
         _kernel_entry("fused_add_dropout_ln_fwd", "fused_residual_fwd.cu",

@@ -2,9 +2,11 @@
 // by the port's two attention layouts. Each launcher source includes this
 // header and exposes one `extern "C"` entry point bound with ctypes:
 //   flash_pair_fwd.cu / flash_pair_bwd.cu         GPT's packed qkv
-//       [B, L, 3*H*D] (columns [q heads | k heads | v heads]);
+//       [B, L, 3*H*D] (columns [q heads | k heads | v heads]), also the
+//       packed-qkv flat API for heads of 128;
 //   flash_attention_fwd.cu / flash_attention_bwd.cu   q [B, Lq, H, D]
-//       against k, v [B, Lk, Hkv, D] (grouped-query attention).
+//       against k, v [B, Lk, Hkv, D] (grouped-query attention), with
+//       per-sequence key lengths and segment ids.
 // Both are the same computation over rows read by stride: a q row of head
 // h starts at h*D, a k/v row of KV head hk at hk*D, and consecutive rows
 // are `*_row` elements apart (3*H*D in the packed layout). q head h reads
@@ -14,7 +16,10 @@
 // What the forward computes, per q head h and row i:
 //   out[b, i, h, :] = softmax_j(round(q_i * scale) . k_j) v_j
 // over the keys j visible to row i: all of them, or (causal) j <= i + Lk - Lq,
-// the bottom-right-aligned diagonal of the Pallas `causal_offset`, and
+// the bottom-right-aligned diagonal of the Pallas `causal_offset`; with
+// lengths only j < lens[b] (rows at or past lens[b] still attend the valid
+// keys: an additive padding mask's semantics), and with segment ids only j
+// of row i's segment, as the Pallas `_valid_mask` has it; and
 // lse[b, h, i] (fp32). A row with no visible key outputs 0 and
 // lse = -1e30 + log(1e-30). Rounding points match the Pallas bodies: q *
 // scale rounded to the input type before Q.K^T, the probabilities rounded
@@ -58,16 +63,30 @@
 // there is no length cutoff: one kernel does the job of the Pallas fused
 // and split backward forms.
 //
-// Dropout on the attention probabilities (the pair launchers; the flat ones
-// launch at rate 0), as the Pallas pair kernels have it
+// Dropout on the attention probabilities (every launcher), as the Pallas
+// kernels have it
 // (flash_pair.py:126-135, :163-177, `_bwd_tile_core` :282-295): the
 // forward sums l over the undropped p, then feeds round(p * keep_factor) to
 // P.V; the backward uses p * keep_factor for dV and dp * keep_factor in ds =
 // p * (dp - delta), with keep_factor = 1 / (1 - rate) where the element is
 // kept and 0 where it is dropped. The keep decision comes from philox.cuh,
-// keyed on (b, h, q row, key column), so the forward's q tiles and the
-// backward's kv tiles drop the same elements. Rate 0 compiles without any
-// of it (the kDrop template flag): a rate-0 launch is the kernel as it was.
+// keyed on (b, q head h, q row, key column) with absolute positions, so the
+// forward's q tiles and the backward's kv tiles drop the same elements, and
+// the flat and packed layouts drop the same ones for the same sequence.
+// Rate 0 compiles without any of it (the kDrop template flag): a rate-0
+// launch is the kernel as it was.
+//
+// Lengths and segment ids (the flat launchers; the Pallas `_valid_mask` and
+// `_tile_liveness`). A length is one scalar a CTA, len = min(Lk,
+// lens[b]) (Lk without lengths): the mask tests key < len where it tested
+// key < Lk, the forward's kv walk stops at ceil(len / 64) tiles, and a
+// backward CTA whose kv tile starts at or past len writes zero dk/dv and
+// exits before any load or dq atomic. Segment ids are the kSegs template
+// flag: the mask then also compares q_seg[b, i] with k_seg[b, j], read
+// only inside [0, Lq) x [0, len), and nothing is skipped for them. A row
+// whose segment owns no key of a tile keeps m at -1e30 (finite), so the
+// online softmax never forms -inf - -inf. Without either, the mask's
+// decisions are those of the kernel before them.
 //
 // Both: rows past a length read as zero and are never written; kv rows that
 // no query sees get zero gradients. bf16 products run on the tensor cores
@@ -142,13 +161,31 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int r0, int L,
   }
 }
 
-// Which (q row, key) pairs are attended.
+// Which (q row, key) pairs of one batch row are attended: keys below len,
+// the causal band and, with kSegs, the pairs of one segment (qs and ks are
+// this batch row's segment ids). The tests run in this order, so a segment
+// id is read only for a row below Lq and a key below len.
+template <bool kSegs>
 struct Mask {
-  int Lq, Lk, offset, causal;
+  int Lq, len, offset, causal;
+  const int* qs;
+  const int* ks;
   __device__ __forceinline__ bool operator()(int qrow, int kc) const {
-    return qrow < Lq && kc < Lk && (!causal || kc <= qrow + offset);
+    bool ok = qrow < Lq && kc < len && (!causal || kc <= qrow + offset);
+    if constexpr (kSegs) ok = ok && qs[qrow] == ks[kc];
+    return ok;
   }
 };
+
+// The mask of batch row b: len = min(Lk, lens[b]) (clamped at 0), Lk
+// without lengths; the segment ids' rows with kSegs.
+template <bool kSegs, typename Args>
+__device__ __forceinline__ Mask<kSegs> mask_of(const Args& a, int b) {
+  const int len = a.lens ? max(0, min(a.Lk, a.lens[b])) : a.Lk;
+  const int* qs = kSegs ? a.q_seg + (long)b * a.Lq : nullptr;
+  const int* ks = kSegs ? a.k_seg + (long)b * a.Lk : nullptr;
+  return Mask<kSegs>{a.Lq, len, a.Lk - a.Lq, a.causal, qs, ks};
+}
 
 // ------------------------------------------------------------------ forward
 
@@ -156,7 +193,8 @@ struct Mask {
 // v at KV head 0; *_row are the element strides between rows (a batch row
 // is L rows). out is [B, Lq, H, D] rows o_row apart, lse [B, H, Lq].
 // drop is read only by the kDrop instantiations (zero from a launcher that
-// leaves it out).
+// leaves it out); lens ([B] int32) and q_seg, k_seg ([B, Lq], [B, Lk]
+// int32, read only by the kSegs instantiations) may be null.
 struct FwdArgs {
   const void* q;
   const void* k;
@@ -168,6 +206,9 @@ struct FwdArgs {
   float sm_scale;
   int causal;
   DropParams drop;
+  const int* lens;
+  const int* q_seg;
+  const int* k_seg;
 };
 
 template <typename T, int D>
@@ -269,7 +310,7 @@ __device__ __forceinline__ void accumulate_pv(const T* Ps, const T* Vs,
   }
 }
 
-template <typename T, int D, bool kDrop>
+template <typename T, int D, bool kDrop, bool kSegs>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
   using G = FwdGeom<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -290,7 +331,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
   const uint32_t bh = (uint32_t)(b * a.H + h);  // dropout's row word 1
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const Mask mask{a.Lq, a.Lk, a.Lk - a.Lq, a.causal};
+  const Mask<kSegs> mask = mask_of<kSegs>(a, b);
   const T* qg = static_cast<const T*>(a.q) + (long)b * a.Lq * a.q_row +
                 (long)h * D;
   const long kv_base = (long)b * a.Lk * a.kv_row + (long)hk * D;
@@ -308,9 +349,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
   const int r = warp * 16 + (lane >> 1);
   const int qrow = q0 + r;
   const int half = lane & 1;
-  // causal: the tile's last row sees keys up to q0 + 63 + offset
+  // keys below len; causal: the tile's last row sees keys up to q0 + 63 +
+  // offset
   const int kv_end =
-      a.causal ? min(a.Lk, max(0, q0 + kBM + mask.offset)) : a.Lk;
+      a.causal ? min(mask.len, max(0, q0 + kBM + mask.offset)) : mask.len;
 
   for (int n0 = 0; n0 < kv_end; n0 += kBN) {
     __syncthreads();  // previous tile fully consumed (and Q/O/M/L ready)
@@ -384,10 +426,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
   }
 }
 
-template <typename T, int D, bool kDrop>
+template <typename T, int D, bool kDrop, bool kSegs>
 cudaError_t launch_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
   using G = FwdGeom<T, D>;
-  auto kernel = flash_fwd_kernel<T, D, kDrop>;
+  auto kernel = flash_fwd_kernel<T, D, kDrop, kSegs>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kBytes);
   if (err != cudaSuccess) return err;
@@ -397,19 +439,20 @@ cudaError_t launch_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
 }
 
 // The forward for input type (bf16 or fp32) and head size (64 or 128),
-// with dropout (kDrop, a.drop) or without; returns the cudaError_t of the
-// launch.
-template <bool kDrop = false>
+// with dropout (kDrop, a.drop) or without, with segment ids (kSegs,
+// a.q_seg and a.k_seg) or without; returns the cudaError_t of the launch.
+template <bool kDrop = false, bool kSegs = false>
 int flash_fwd(const FwdArgs& a, int B, int D, int is_bf16, cudaStream_t st) {
   if (B <= 0 || a.Lq <= 0 || a.Lk <= 0 || a.H <= 0 || a.Hkv <= 0 ||
-      a.H % a.Hkv)
+      a.H % a.Hkv || (kSegs && (!a.q_seg || !a.k_seg)))
     return (int)cudaErrorInvalidValue;
+  using BF = __nv_bfloat16;
   if (is_bf16) {
-    if (D == 64) return (int)launch_fwd<__nv_bfloat16, 64, kDrop>(a, B, st);
-    if (D == 128) return (int)launch_fwd<__nv_bfloat16, 128, kDrop>(a, B, st);
+    if (D == 64) return (int)launch_fwd<BF, 64, kDrop, kSegs>(a, B, st);
+    if (D == 128) return (int)launch_fwd<BF, 128, kDrop, kSegs>(a, B, st);
   } else {
-    if (D == 64) return (int)launch_fwd<float, 64, kDrop>(a, B, st);
-    if (D == 128) return (int)launch_fwd<float, 128, kDrop>(a, B, st);
+    if (D == 64) return (int)launch_fwd<float, 64, kDrop, kSegs>(a, B, st);
+    if (D == 128) return (int)launch_fwd<float, 128, kDrop, kSegs>(a, B, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -419,7 +462,7 @@ int flash_fwd(const FwdArgs& a, int B, int D, int is_bf16, cudaStream_t st) {
 // Operands of one backward launch. q, k, v as in FwdArgs; dout [B, Lq, H,
 // D] contiguous; lse and delta [B, H, Lq] fp32; dq_acc [B, Lq, H*D] fp32,
 // zeroed; dq rows dq_row apart (head h at h*D), dk and dv rows dkv_row
-// apart (KV head hk at hk*D). drop as in FwdArgs.
+// apart (KV head hk at hk*D). drop, lens, q_seg and k_seg as in FwdArgs.
 struct BwdArgs {
   const void* q;
   const void* k;
@@ -436,6 +479,9 @@ struct BwdArgs {
   float sm_scale;
   int causal;
   DropParams drop;
+  const int* lens;
+  const int* q_seg;
+  const int* k_seg;
 };
 
 // Shared-memory geometry; every region size is a multiple of 128 bytes.
@@ -484,10 +530,10 @@ struct Acc<float, D> {  // thread t: kv row t / 2, columns [(t % 2) * D / 2, +D 
 // One (q tile, kv tile) step on the tensor cores (bf16). dqg points at
 // this head's dq scratch, whose rows are q_stride apart; bh = b * H + h
 // keys the dropout words.
-template <int D, bool kDrop>
+template <int D, bool kDrop, class M>
 __device__ __forceinline__ void step_bf16(
     Acc<__nv_bfloat16, D>& acc, unsigned char* smem, int m0, int n0,
-    Mask mask, float sm_scale, float* dqg, long q_stride, int warp,
+    M mask, float sm_scale, float* dqg, long q_stride, int warp,
     int lane, const DropParams& drop, uint32_t bh) {
   using namespace nvcuda;
   using T = __nv_bfloat16;
@@ -618,10 +664,10 @@ __device__ __forceinline__ void step_bf16(
 }
 
 // One (q tile, kv tile) step with plain FMA (fp32).
-template <int D, bool kDrop>
+template <int D, bool kDrop, class M>
 __device__ __forceinline__ void step_f32(Acc<float, D>& acc,
                                          unsigned char* smem, int m0, int n0,
-                                         Mask mask, float sm_scale,
+                                         M mask, float sm_scale,
                                          float* dqg, long q_stride,
                                          const DropParams& drop,
                                          uint32_t bh) {
@@ -711,7 +757,7 @@ __device__ __forceinline__ void step_f32(Acc<float, D>& acc,
   }
 }
 
-template <typename T, int D, bool kDrop>
+template <typename T, int D, bool kDrop, bool kSegs>
 __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(BwdArgs a) {
   using G = BwdGeom<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -730,8 +776,23 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(BwdArgs a) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const long do_row = (long)a.H * D;  // dO and the dq scratch: contiguous
-  const Mask mask{a.Lq, a.Lk, a.Lk - a.Lq, a.causal};
+  const Mask<kSegs> mask = mask_of<kSegs>(a, b);
   const long kv_base = (long)b * a.Lk * a.kv_row + (long)hk * D;
+
+  if (n0 >= mask.len) {
+    // every key of this tile is past the length: no query sees it, so its
+    // dk and dv are zero, and it adds nothing to dq
+    const long base = (long)b * a.Lk * a.dkv_row + (long)hk * D;
+    for (int i = threadIdx.x; i < kBN * D; i += kThreads) {
+      const int gr = n0 + i / D;
+      if (gr < a.Lk) {
+        const long at = base + (long)gr * a.dkv_row + i % D;
+        static_cast<T*>(a.dk)[at] = from_f<T>(0.0f);
+        static_cast<T*>(a.dv)[at] = from_f<T>(0.0f);
+      }
+    }
+    return;
+  }
 
   load_tile<T, D, false>(Ks, static_cast<const T*>(a.k) + kv_base, n0, a.Lk,
                          a.kv_row, 1.0f);
@@ -846,10 +907,10 @@ __global__ void dq_convert_kernel(const float* __restrict__ dq_acc,
   }
 }
 
-template <typename T, int D, bool kDrop>
+template <typename T, int D, bool kDrop, bool kSegs>
 cudaError_t launch_bwd(const BwdArgs& a, int B, cudaStream_t stream) {
   using G = BwdGeom<T, D>;
-  auto kernel = flash_bwd_kernel<T, D, kDrop>;
+  auto kernel = flash_bwd_kernel<T, D, kDrop, kSegs>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kBytes);
   if (err != cudaSuccess) return err;
@@ -865,19 +926,20 @@ cudaError_t launch_bwd(const BwdArgs& a, int B, cudaStream_t stream) {
 }
 
 // The backward for input type (bf16 or fp32) and head size (64 or 128),
-// with dropout (kDrop, a.drop) or without; returns the cudaError_t of the
-// launches.
-template <bool kDrop = false>
+// with dropout (kDrop, a.drop) or without, with segment ids (kSegs) or
+// without; returns the cudaError_t of the launches.
+template <bool kDrop = false, bool kSegs = false>
 int flash_bwd(const BwdArgs& a, int B, int D, int is_bf16, cudaStream_t st) {
   if (B <= 0 || a.Lq <= 0 || a.Lk <= 0 || a.H <= 0 || a.Hkv <= 0 ||
-      a.H % a.Hkv)
+      a.H % a.Hkv || (kSegs && (!a.q_seg || !a.k_seg)))
     return (int)cudaErrorInvalidValue;
+  using BF = __nv_bfloat16;
   if (is_bf16) {
-    if (D == 64) return (int)launch_bwd<__nv_bfloat16, 64, kDrop>(a, B, st);
-    if (D == 128) return (int)launch_bwd<__nv_bfloat16, 128, kDrop>(a, B, st);
+    if (D == 64) return (int)launch_bwd<BF, 64, kDrop, kSegs>(a, B, st);
+    if (D == 128) return (int)launch_bwd<BF, 128, kDrop, kSegs>(a, B, st);
   } else {
-    if (D == 64) return (int)launch_bwd<float, 64, kDrop>(a, B, st);
-    if (D == 128) return (int)launch_bwd<float, 128, kDrop>(a, B, st);
+    if (D == 64) return (int)launch_bwd<float, 64, kDrop, kSegs>(a, B, st);
+    if (D == 128) return (int)launch_bwd<float, 128, kDrop, kSegs>(a, B, st);
   }
   return (int)cudaErrorInvalidValue;
 }

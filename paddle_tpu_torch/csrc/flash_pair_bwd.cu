@@ -7,7 +7,9 @@
 // compute one function; this kernel keeps only tile-sized state, so it has
 // no length cutoff and does the job of both forms. Dropout regenerates the
 // forward's keep mask from the same seed (Philox, philox.cuh; keyed on the
-// element, so the forward's q tiles and these kv tiles agree).
+// element, so the forward's q tiles and these kv tiles agree). It is also
+// the port's `_flash_bwd_packed` (flash_attention.py:755, heads of 128): the
+// same function on the same layout.
 //
 // From qkv [B, L, 3*H*D], dO [B, L, H*D], the forward's lse [B, H, L] and
 // delta = rowsum(dO * O) [B, H, L] (fp32): d(qkv) [B, L, 3*H*D] in the

@@ -3,6 +3,9 @@
 // Replaces: paddle_tpu/kernels/pallas/flash_pair.py `_pair_fwd_kernel`
 // (launched by `_pair_fwd`), with its in-kernel dropout on the attention
 // probabilities (Philox, philox.cuh; rate 0 launches the kernel without it).
+// It is also the port's `_flash_fwd_packed` (flash_attention.py:701, public
+// `flash_attention_qkv_packed`, heads of 128): the same function on the
+// same layout.
 //
 // For qkv [B, L, 3*H*D] with column order [q heads | k heads | v heads]:
 // out [B, L, H*D] (the packed context) and lse [B, H, L] fp32, causal or

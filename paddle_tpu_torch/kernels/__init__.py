@@ -3,12 +3,14 @@
 * ``flash_pair_fwd`` (``csrc/flash_pair_fwd.cu``) and ``flash_pair_bwd``
   (``csrc/flash_pair_bwd.cu``), the flash-attention forward and backward
   over the packed qkv layout with in-kernel dropout, tied together under
-  autograd by ``FlashPairPacked`` (GPT, BERT);
+  autograd by ``FlashPairPacked`` (GPT, BERT, and
+  ``flash_attention_qkv_packed``, the packed-qkv call for heads of 128);
 * ``flash_attention_fwd`` (``csrc/flash_attention_fwd.cu``) and
   ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``), the same on
-  the ``[B, L, H, D]`` layout with grouped-query attention, tied together
-  by ``FlashAttention`` (LLaMA, ``F.flash_attention`` and the no-mask
-  ``F.scaled_dot_product_attention``);
+  the ``[B, L, H, D]`` layout with grouped-query attention, per-sequence
+  key lengths, segment ids and in-kernel dropout, tied together by
+  ``FlashAttention`` (LLaMA, BERT's padded batches, ``F.flash_attention``
+  and ``F.scaled_dot_product_attention`` without an additive mask);
 * ``dropout_fwd`` (``csrc/dropout.cu``), dropout with the mask drawn in the
   kernel, forward and backward under ``DropoutFunction`` (``F.dropout``);
 * ``fused_add_dropout_ln_fwd`` (``csrc/fused_residual_fwd.cu``) and
@@ -29,7 +31,8 @@ from .dropout import DropoutFunction, dropout_fwd, dropout_fwd_reference
 from .flash_attention import (FlashAttention, flash_attention_bwd,
                               flash_attention_bwd_reference,
                               flash_attention_fwd,
-                              flash_attention_fwd_reference)
+                              flash_attention_fwd_reference,
+                              flash_attention_qkv_packed)
 from .flash_pair import (FlashPairPacked, flash_pair_bwd,
                          flash_pair_bwd_reference, flash_pair_fwd,
                          flash_pair_fwd_reference, pair_layout_supported)
@@ -43,6 +46,7 @@ __all__ = ["flash_pair_fwd", "flash_pair_fwd_reference", "flash_pair_bwd",
            "pair_layout_supported", "flash_attention_fwd",
            "flash_attention_fwd_reference", "flash_attention_bwd",
            "flash_attention_bwd_reference", "FlashAttention",
+           "flash_attention_qkv_packed",
            "dropout_fwd", "dropout_fwd_reference", "DropoutFunction",
            "fused_add_dropout_ln_fwd", "fused_add_dropout_ln_fwd_reference",
            "fused_add_dropout_ln_bwd", "fused_add_dropout_ln_bwd_reference",

@@ -1,10 +1,11 @@
 """Flash attention on the ``[B, L, H, D]`` layout, with grouped-query
-attention (the "flat" path).
+attention, per-sequence key lengths, segment ids and in-kernel dropout (the
+"flat" path), and packed-qkv attention for heads of 128.
 
 Counterpart of ``paddle_tpu/kernels/pallas/flash_attention.py``
-(``flash_attention_blhd``) at dropout rate 0, without per-sequence
-``kv_lens`` or segment ids. Two kernels, CUDA C++ for ``sm_90a``, built
-with ``nvcc`` at first use and bound with ``ctypes``:
+(``flash_attention_blhd`` and ``flash_attention_qkv_packed``). Two kernels,
+CUDA C++ for ``sm_90a``, built with ``nvcc`` at first use and bound with
+``ctypes``:
 
 * ``flash_attention_fwd(q, k, v, causal)`` (``csrc/flash_attention_fwd.cu``)
   takes queries ``[B, Lq, H, D]`` and keys/values ``[B, Lk, Hkv, D]``
@@ -19,10 +20,25 @@ with ``nvcc`` at first use and bound with ``ctypes``:
   inputs' layouts: the job of the Pallas fused, dq and dkv kernels, with
   each KV head's gradient summed over its group of q heads in fp32.
 
-``FlashAttention`` ties them together under autograd. On a CUDA tensor a
-wrapper launches its kernel; on a CPU tensor it computes its ``_reference``,
-the same math in plain torch. There is no other path: anything the kernels
-do not take raises.
+Both take the masks of the Pallas ``_valid_mask``: ``kv_lens`` ``[B]``
+(key ``j`` of batch row ``b`` is attended only below ``kv_lens[b]``;
+queries past it still attend the valid keys, an additive padding mask's
+semantics) and ``q_segments`` / ``kv_segments`` ``[B, Lq]`` / ``[B, Lk]``
+(only pairs of one segment attend), and drop the probabilities at
+``dropout_rate`` under ``seed`` with the mask of ``philox.attention_keep``
+keyed on (b, q head, q position, key position): the pair kernels' mask, so
+a padded batch at full lengths drops what the packed path drops.
+
+``flash_attention_qkv_packed(qkv, num_heads)`` (row 6: the Pallas
+``_flash_fwd_packed`` / ``_flash_bwd_packed``) takes the fused projection
+output ``[B, L, 3*H*D]`` with ``D % 128 == 0``: the pair kernels' layout,
+so it runs them (``flash_pair.FlashPairPacked``), which compute the same
+function there.
+
+``FlashAttention`` ties the two kernels together under autograd. On a
+CUDA tensor a wrapper launches its kernel; on a CPU tensor it computes its
+``_reference``, the same math in plain torch. There is no other path:
+anything the kernels do not take raises.
 """
 from __future__ import annotations
 
@@ -31,25 +47,31 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, philox
+from .flash_pair import FlashPairPacked
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_reference",
            "flash_attention_bwd", "flash_attention_bwd_reference",
-           "FlashAttention"]
+           "FlashAttention", "flash_attention_qkv_packed"]
 
 _NEG_INF = -1e30
 _DTYPES = (torch.bfloat16, torch.float32)
 _HEAD_DIMS = (64, 128)
 
 
-def _check(q, k, v, dropout_rate=0.0, block_q=None, block_k=None,
+def _check_rate(who, dropout_rate, seed):
+    if not 0.0 <= float(dropout_rate) < 1.0:
+        raise ValueError(f"{who}: dropout_rate must be in [0, 1), got "
+                         f"{dropout_rate}")
+    if dropout_rate > 0.0 and seed is None:
+        raise ValueError(f"{who}: dropout_rate > 0 needs a seed "
+                         f"(core.random.next_seed)")
+
+
+def _check(q, k, v, dropout_rate=0.0, seed=None, block_q=None, block_k=None,
            who="flash_attention_fwd"):
     """Validate the forward's inputs; returns ``(B, Lq, Lk, H, Hkv, D)``."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            f"{who}: in-kernel dropout on the [B, L, H, D] kernels comes "
-            f"with kv_lens in slice 5 (ROADMAP Queue 2, items 4-5); call it "
-            f"with dropout_rate=0")
+    _check_rate(who, dropout_rate, seed)
     if block_q is not None or block_k is not None:
         raise NotImplementedError(
             f"{who}: the block sizes are the kernel's own; a measured block "
@@ -84,6 +106,30 @@ def _check(q, k, v, dropout_rate=0.0, block_q=None, block_k=None,
     return b, lq, lk, h, hkv, d
 
 
+def _masks(b, lq, lk, device, kv_lens, q_segments, kv_segments,
+           who="flash_attention_fwd"):
+    """The structured masks as the kernels read them: ``(lens [B],
+    q_segments [B, Lq], kv_segments [B, Lk])``, each int32, contiguous, on
+    ``device``, or None (the JAX ``flash_attention_blhd`` casts them the
+    same way). Segments come in pairs."""
+    if (q_segments is None) != (kv_segments is None):
+        raise ValueError(f"{who}: q_segments and kv_segments must be given "
+                         f"together")
+
+    def as_int32(x, shape, name):
+        t = torch.as_tensor(x, device=device).to(torch.int32).contiguous()
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{who}: {name} must be {list(shape)}, got "
+                             f"{list(t.shape)}")
+        return t
+
+    lens = None if kv_lens is None else as_int32(kv_lens, (b,), "kv_lens")
+    if q_segments is None:
+        return lens, None, None
+    return (lens, as_int32(q_segments, (b, lq), "q_segments"),
+            as_int32(kv_segments, (b, lk), "kv_segments"))
+
+
 def _scale(d, sm_scale):
     return 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
 
@@ -95,42 +141,63 @@ def _heads_first(x, group):
     return x.float().transpose(1, 2).repeat_interleave(group, dim=1)
 
 
-def _visible(lq, lk, causal, device):
-    """``[Lq, Lk]`` mask of the (query, key) pairs attended: all, or the
-    bottom-right-aligned causal band ``j <= i + Lk - Lq``."""
-    if not causal:
-        return torch.ones(lq, lk, dtype=torch.bool, device=device)
-    return torch.ones(lq, lk, dtype=torch.bool, device=device).tril(lk - lq)
+def _visible(lq, lk, causal, device, lens=None, q_seg=None, kv_seg=None):
+    """Mask of the (query, key) pairs attended, ``[Lq, Lk]`` or, with
+    lengths or segments, ``[B, 1, Lq, Lk]``: all, or the
+    bottom-right-aligned causal band ``j <= i + Lk - Lq``; keys below
+    ``lens[b]``; pairs of one segment."""
+    valid = torch.ones(lq, lk, dtype=torch.bool, device=device)
+    if causal:
+        valid = valid.tril(lk - lq)
+    if lens is not None:
+        cols = torch.arange(lk, device=device)
+        valid = valid & (cols < lens.long()[:, None])[:, None, None, :]
+    if q_seg is not None:
+        valid = valid & (q_seg[:, :, None] == kv_seg[:, None, :])[:, None]
+    return valid
+
+
+def _keep_factor(b, h, lq, lk, dropout_rate, seed, device):
+    """``[B, H, Lq, Lk]`` fp32 factor of each pair: ``keep_scale`` where the
+    Philox word keeps it, 0 where it drops (None at rate 0)."""
+    if dropout_rate <= 0.0:
+        return None
+    keep = philox.attention_keep(seed, b, h, lq, lk, dropout_rate, device)
+    return torch.where(keep, philox.keep_scale(dropout_rate), 0.0)
 
 
 def flash_attention_fwd_reference(q, k, v, causal: bool, sm_scale=None,
-                                  dropout_rate: float = 0.0):
+                                  dropout_rate: float = 0.0, *, seed=None,
+                                  kv_lens=None, q_segments=None,
+                                  kv_segments=None):
     """The kernel's math in fp32 torch: q * scale rounded to the input type
-    before Q.K^T, the mask at -1e30, probabilities rounded to v's type
-    before P.V and the final ``acc / max(l, 1e-30)``, so a row with no
-    visible key gives 0 and its lse is -1e30. Returns ``(out [B, Lq, H, D]
-    in q's type, lse [B, H, Lq] fp32)``."""
-    b, lq, lk, h, hkv, d = _check(q, k, v, dropout_rate)
+    before Q.K^T, the masked pairs at -1e30, ``l`` summed over the
+    undropped probabilities, then each probability times its keep factor
+    (dropout), rounded to v's type before P.V, and the final ``acc / max(l,
+    1e-30)``, so a row with no visible key gives 0 and its lse is -1e30.
+    Returns ``(out [B, Lq, H, D] in q's type, lse [B, H, Lq] fp32)``."""
+    b, lq, lk, h, hkv, d = _check(q, k, v, dropout_rate, seed)
+    masks = _masks(b, lq, lk, q.device, kv_lens, q_segments, kv_segments)
     dt = q.dtype
     scale = _scale(d, sm_scale)
     qs = (q.float() * scale).to(dt).float().transpose(1, 2)   # [b,h,lq,d]
     kf = _heads_first(k, h // hkv)
     vf = _heads_first(v, h // hkv)
-    valid = _visible(lq, lk, causal, q.device)
+    valid = _visible(lq, lk, causal, q.device, *masks)
     s = torch.where(valid, qs @ kf.transpose(-1, -2), _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    f = _keep_factor(b, h, lq, lk, dropout_rate, seed, q.device)
+    if f is not None:
+        p = p * f
     o = (p.to(dt).float() @ vf) / l
     lse = (m + torch.log(l))[..., 0]
     return o.transpose(1, 2).to(dt).contiguous(), lse
 
 
-_FWD_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                 ctypes.c_void_p)
+_FWD_ARGTYPES = (*(ctypes.c_void_p,) * 8, *(ctypes.c_int,) * 8,
+                 ctypes.c_float, *philox.KERNEL_ARGTYPES, ctypes.c_void_p)
 
 
 def _check_aligned(who, *tensors):
@@ -139,20 +206,33 @@ def _check_aligned(who, *tensors):
                          f"reads them in 16-byte vectors)")
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def flash_attention_fwd(q, k, v, causal: bool, sm_scale=None,
                         dropout_rate: float = 0.0, block_q=None,
-                        block_k=None):
-    """Flash-attention forward: ``(out [B, Lq, H, D], lse [B, H, Lq])``.
+                        block_k=None, *, seed=None, kv_lens=None,
+                        q_segments=None, kv_segments=None):
+    """Flash-attention forward: ``(out [B, Lq, H, D], lse [B, H, Lq])``,
+    with the masks of ``kv_lens`` and the segment ids, the probabilities
+    dropped at ``dropout_rate`` under ``seed`` (a 64-bit int; required when
+    the rate is positive).
 
     A CUDA tensor launches the kernel on the current stream (one launch
     per call, counted in ``flash_attention_fwd.launches``); a CPU tensor
-    runs ``flash_attention_fwd_reference``. Raises on ``dropout_rate > 0``,
-    explicit block sizes, a head size other than 64 or 128, a query head
-    count that is not a multiple of the KV head count, a type other than
-    bf16/fp32, and non-contiguous or misaligned input."""
-    b, lq, lk, h, hkv, d = _check(q, k, v, dropout_rate, block_q, block_k)
+    runs ``flash_attention_fwd_reference``. Raises on a rate outside [0, 1),
+    a positive rate without a seed, explicit block sizes, a head size other
+    than 64 or 128, a query head count that is not a multiple of the KV
+    head count, a type other than bf16/fp32, malformed masks, and
+    non-contiguous or misaligned input."""
+    dims = _check(q, k, v, dropout_rate, seed, block_q, block_k)
+    b, lq, lk, h, hkv, d = dims
+    masks = _masks(b, lq, lk, q.device, kv_lens, q_segments, kv_segments)
     if q.device.type == "cpu":
-        return flash_attention_fwd_reference(q, k, v, causal, sm_scale)
+        return flash_attention_fwd_reference(
+            q, k, v, causal, sm_scale, dropout_rate, seed=seed,
+            kv_lens=masks[0], q_segments=masks[1], kv_segments=masks[2])
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: unsupported device "
                          f"{q.device}")
@@ -164,9 +244,10 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale=None,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, lq, lk, h, hkv, d,
+            lse.data_ptr(), *map(_ptr, masks), b, lq, lk, h, hkv, d,
             int(q.dtype == torch.bfloat16), int(bool(causal)),
-            _scale(d, sm_scale), stream)
+            _scale(d, sm_scale), *philox.kernel_args(dropout_rate, seed),
+            stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd: kernel launch failed "
                            f"(cudaError {rc})")
@@ -177,8 +258,9 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale=None,
 flash_attention_fwd.launches = 0
 
 
-def _check_bwd(q, k, v, out, lse, dout):
-    b, lq, lk, h, hkv, d = _check(q, k, v, who="flash_attention_bwd")
+def _check_bwd(q, k, v, out, lse, dout, dropout_rate, seed):
+    b, lq, lk, h, hkv, d = _check(q, k, v, dropout_rate, seed,
+                                  who="flash_attention_bwd")
     for name, t in (("out", out), ("dout", dout)):
         if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype:
             raise ValueError(f"flash_attention_bwd: {name} must be [B, Lq, "
@@ -204,14 +286,17 @@ def _delta(out, dout):
 
 
 def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal: bool,
-                                  sm_scale=None):
+                                  sm_scale=None, dropout_rate: float = 0.0,
+                                  *, seed=None, kv_lens=None,
+                                  q_segments=None, kv_segments=None):
     """The backward kernel's math in fp32 torch, written out at the
     kernel's rounding points (not autograd of the forward): ``qs = q *
     scale`` rounded to the input type, ``p = exp(qs.K^T - lse)`` zeroed
-    where masked, ``dp = dO.V^T``, ``ds = p * (dp - delta)`` rounded to the
+    where masked, ``f`` the forward's keep factor of each pair (1 at rate
+    0), ``dp = (dO.V^T) * f``, ``ds = p * (dp - delta)`` rounded to the
     input type, ``dq = ds.K * scale``, ``dk = ds^T.q * scale`` with the
-    unscaled q, ``dv = round(p)^T.dO``, per q head; then each KV head's dk
-    and dv are the fp32 sums over its group of q heads, rounded once.
+    unscaled q, ``dv = round(p * f)^T.dO``, per q head; then each KV head's
+    dk and dv are the fp32 sums over its group of q heads, rounded once.
 
     Where this differs from the JAX package: ``_flash_bwd`` rounds each q
     head's dk and dv to the input type before its fp32 group sum
@@ -220,7 +305,10 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal: bool,
     one q head per KV head, and in fp32, the two agree up to summation
     order. Returns ``(dq [B, Lq, H, D], dk, dv [B, Lk, Hkv, D])`` in the
     input type."""
-    b, lq, lk, h, hkv, d = _check_bwd(q, k, v, out, lse, dout)
+    b, lq, lk, h, hkv, d = _check_bwd(q, k, v, out, lse, dout, dropout_rate,
+                                      seed)
+    masks = _masks(b, lq, lk, q.device, kv_lens, q_segments, kv_segments,
+                   "flash_attention_bwd")
     dt = q.dtype
     group = h // hkv
     scale = _scale(d, sm_scale)
@@ -229,32 +317,36 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal: bool,
     kf = _heads_first(k, group)                               # [b,h,lk,d]
     vf = _heads_first(v, group)
     do = dout.float().transpose(1, 2)
-    valid = _visible(lq, lk, causal, q.device)
+    valid = _visible(lq, lk, causal, q.device, *masks)
     p = torch.where(valid, torch.exp(qs @ kf.transpose(-1, -2)
                                      - lse[..., None]), 0.0)
     dp = do @ vf.transpose(-1, -2)
+    p_dv = p
+    f = _keep_factor(b, h, lq, lk, dropout_rate, seed, q.device)
+    if f is not None:
+        p_dv = p * f
+        dp = dp * f
     ds = (p * (dp - _delta(out, dout)[..., None])).to(dt).float()
     dq = (ds @ kf) * scale
     dk = (ds.transpose(-1, -2) @ qf).reshape(b, hkv, group, lk, d).sum(2) \
         * scale
-    dv = (p.to(dt).float().transpose(-1, -2) @ do) \
+    dv = (p_dv.to(dt).float().transpose(-1, -2) @ do) \
         .reshape(b, hkv, group, lk, d).sum(2)
     return tuple(x.transpose(1, 2).to(dt).contiguous() for x in (dq, dk, dv))
 
 
-_BWD_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
+_BWD_ARGTYPES = (*(ctypes.c_void_p,) * 13, *(ctypes.c_int,) * 8,
+                 ctypes.c_float, *philox.KERNEL_ARGTYPES, ctypes.c_void_p)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
-                        sm_scale=None):
+                        sm_scale=None, dropout_rate: float = 0.0, *,
+                        seed=None, kv_lens=None, q_segments=None,
+                        kv_segments=None):
     """Flash-attention backward: ``(dq, dk, dv)`` in the inputs' layouts
     and type, from the forward's inputs and outputs and the output's
-    gradient ``dout``.
+    gradient ``dout``; the masks, ``dropout_rate`` and ``seed`` are the
+    forward's.
 
     A CUDA tensor launches the kernel on the current stream (one counted
     launch per call in ``flash_attention_bwd.launches``; the kernel's dq
@@ -263,28 +355,34 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
     rowsum(dO*O)`` is a torch expression here, as the JAX package computes
     it outside its kernel. Raises on what the kernel does not take, as the
     forward does, and on mismatched shapes or types."""
-    b, lq, lk, h, hkv, d = _check_bwd(q, k, v, out, lse, dout)
+    dims = _check_bwd(q, k, v, out, lse, dout, dropout_rate, seed)
+    b, lq, lk, h, hkv, d = dims
+    masks = _masks(b, lq, lk, q.device, kv_lens, q_segments, kv_segments,
+                   "flash_attention_bwd")
     if q.device.type == "cpu":
-        return flash_attention_bwd_reference(q, k, v, out, lse, dout,
-                                             causal, sm_scale)
+        return flash_attention_bwd_reference(
+            q, k, v, out, lse, dout, causal, sm_scale, dropout_rate,
+            seed=seed, kv_lens=masks[0], q_segments=masks[1],
+            kv_segments=masks[2])
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
     _check_aligned("flash_attention_bwd", q, k, v, dout)
-    delta = _delta(out, dout)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    delta = _delta(out, dout)
     lib = _build.load("flash_attention_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, lq, lk, h, hkv,
-            d, int(q.dtype == torch.bfloat16), int(bool(causal)),
-            _scale(d, sm_scale), stream)
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *map(_ptr, masks),
+            b, lq, lk, h, hkv, d, int(q.dtype == torch.bfloat16),
+            int(bool(causal)), _scale(d, sm_scale),
+            *philox.kernel_args(dropout_rate, seed), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd: kernel launch failed "
                            f"(cudaError {rc})")
@@ -298,20 +396,57 @@ flash_attention_bwd.launches = 0
 class FlashAttention(torch.autograd.Function):
     """Flash attention under autograd (the counterpart of the JAX
     package's ``custom_vjp`` ``_flash``): ``forward`` runs
-    ``flash_attention_fwd`` and saves ``(q, k, v, out, lse)``,
-    ``backward`` runs ``flash_attention_bwd``. ``apply(q, k, v, causal)
-    -> out [B, Lq, H, D]``."""
+    ``flash_attention_fwd`` and saves ``(q, k, v, out, lse)``, the masks
+    (int32 tensors) and the dropout seed (an int); ``backward`` runs
+    ``flash_attention_bwd``, which regenerates the forward's keep mask from
+    that seed. ``apply(q, k, v, causal, dropout_rate=0.0, seed=None,
+    kv_lens=None, q_segments=None, kv_segments=None) -> out [B, Lq, H,
+    D]``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = flash_attention_fwd(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, causal, dropout_rate=0.0, seed=None,
+                kv_lens=None, q_segments=None, kv_segments=None):
+        b, lq, h, _ = q.shape
+        masks = _masks(b, lq, k.shape[1], q.device, kv_lens, q_segments,
+                       kv_segments)
+        out, lse = flash_attention_fwd(
+            q, k, v, causal, dropout_rate=dropout_rate, seed=seed,
+            kv_lens=masks[0], q_segments=masks[1], kv_segments=masks[2])
+        ctx.save_for_backward(q, k, v, out, lse, *masks)
         ctx.causal = causal
+        ctx.dropout_rate, ctx.seed = dropout_rate, seed
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         dout.contiguous(), ctx.causal)
-        return dq, dk, dv, None
+        q, k, v, out, lse, lens, q_seg, kv_seg = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, dout.contiguous(), ctx.causal,
+            dropout_rate=ctx.dropout_rate, seed=ctx.seed, kv_lens=lens,
+            q_segments=q_seg, kv_segments=kv_seg)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+# ------------------------------------------------------------ packed qkv
+
+
+def flash_attention_qkv_packed(qkv, num_heads: int, causal: bool = True,
+                               sm_scale=None, dropout_rate: float = 0.0,
+                               seed=None):
+    """Flash attention straight off the fused projection (row 6, the JAX
+    ``flash_attention_qkv_packed``): ``qkv [B, L, 3*H*D]`` (q | k | v
+    column blocks, ``D % 128 == 0``) -> the packed context ``[B, L,
+    H*D]``, differentiable; ``seed`` (a 64-bit int) is required at a
+    positive ``dropout_rate``. The layout is the pair kernels' own, so this
+    is ``FlashPairPacked``: ``flash_pair_fwd`` / ``flash_pair_bwd`` launch
+    on a CUDA tensor, their plain versions run on a CPU tensor."""
+    if qkv.dim() != 3 or qkv.shape[-1] % (3 * num_heads):
+        raise ValueError(f"flash_attention_qkv_packed: qkv must be [B, L, "
+                         f"3*H*D] with H={num_heads}, got {tuple(qkv.shape)}")
+    d = qkv.shape[-1] // (3 * num_heads)
+    if d % 128:
+        raise ValueError(f"flash_attention_qkv_packed: the packed layout "
+                         f"takes head_dim 128 (a multiple of 128 the kernels "
+                         f"support), got {d}; use flash_attention_fwd")
+    return FlashPairPacked.apply(qkv, int(num_heads), bool(causal),
+                                 float(dropout_rate), seed, sm_scale)

@@ -4,13 +4,13 @@ Counterpart of ``paddle_tpu/kernels/pallas/flash_pair.py``, in-kernel
 dropout included. Two kernels, CUDA C++ for ``sm_90a``, built with
 ``nvcc`` at first use and bound with ``ctypes``:
 
-* ``flash_pair_fwd(qkv, num_heads, causal, dropout_rate, seed)``
+* ``flash_pair_fwd(qkv, num_heads, causal, dropout_rate, seed, sm_scale)``
   (``csrc/flash_pair_fwd.cu``) takes the fused projection output ``[B, L,
   3*H*D]`` (columns ``[q heads | k heads | v heads]``) and returns the
   packed context ``[B, L, H*D]`` in the input type and the per-row
   log-sum-exp ``[B, H, L]`` in fp32.
 * ``flash_pair_bwd(qkv, out, lse, dout, num_heads, causal, dropout_rate,
-  seed)`` (``csrc/flash_pair_bwd.cu``) returns ``d(qkv)`` ``[B, L,
+  seed, sm_scale)`` (``csrc/flash_pair_bwd.cu``) returns ``d(qkv)`` ``[B, L,
   3*H*D]`` in the packed layout: the one-pass backward of ``_pair_bwd``,
   fused and split forms alike (they compute the same function).
 
@@ -57,6 +57,11 @@ def pair_layout_supported(head_dim: int, num_heads: int,
             and num_heads % hpb == 0)
 
 
+def _scale(d: int, sm_scale) -> float:
+    """The softmax scale: ``sm_scale``, or ``1 / sqrt(D)`` when None."""
+    return 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
+
+
 def _compute_type(dt: torch.dtype) -> torch.dtype:
     """fp32 for the kernels' types; fp64 stays fp64 (the plain versions
     take it for gradient checks)."""
@@ -100,8 +105,9 @@ def _keep_factor(qkv, num_heads, dropout_rate, seed, ct):
 
 def flash_pair_fwd_reference(qkv: torch.Tensor, num_heads: int,
                              causal: bool, dropout_rate: float = 0.0,
-                             seed=None):
-    """The kernel's math in fp32 torch: q * scale rounded to the input
+                             seed=None, sm_scale=None):
+    """The kernel's math in fp32 torch: q * scale (``sm_scale``, default
+    ``1 / sqrt(D)``) rounded to the input
     type before Q.K^T, the mask at -1e30, ``l`` summed over the undropped
     probabilities, then each probability times its keep factor (dropout),
     rounded to v's type before P.V, and the final ``acc / max(l, 1e-30)``.
@@ -112,7 +118,7 @@ def flash_pair_fwd_reference(qkv: torch.Tensor, num_heads: int,
     dt = qkv.dtype
     ct = _compute_type(dt)
     x = qkv.reshape(b, L, 3, num_heads, d).permute(0, 2, 3, 1, 4)  # [b,3,H,L,d]
-    q = (x[:, 0].to(ct) * (1.0 / math.sqrt(d))).to(dt).to(ct)
+    q = (x[:, 0].to(ct) * _scale(d, sm_scale)).to(dt).to(ct)
     k = x[:, 1].to(ct)
     v = x[:, 2].to(ct)
     s = q @ k.transpose(-1, -2)                               # [b,H,L,L]
@@ -141,10 +147,11 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 
 
 def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
-                   dropout_rate: float = 0.0, seed=None):
+                   dropout_rate: float = 0.0, seed=None, sm_scale=None):
     """Packed flash-attention forward: ``(out [B, L, H*D], lse [B, H, L])``,
     the probabilities dropped at ``dropout_rate`` under ``seed`` (a 64-bit
-    int; required when the rate is positive).
+    int; required when the rate is positive); the scores scaled by
+    ``sm_scale`` (default ``1 / sqrt(D)``).
 
     A CUDA tensor launches the kernel on the current stream (one launch
     per call, counted in ``flash_pair_fwd.launches``); a CPU tensor runs
@@ -154,7 +161,7 @@ def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
     d = _check(qkv, num_heads, dropout_rate, seed)
     if qkv.device.type == "cpu":
         return flash_pair_fwd_reference(qkv, num_heads, causal,
-                                        dropout_rate, seed)
+                                        dropout_rate, seed, sm_scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_pair_fwd: unsupported device {qkv.device}")
     if qkv.data_ptr() % 16:
@@ -171,7 +178,7 @@ def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
         rc = lib.flash_pair_fwd(
             qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, L, num_heads,
             d, int(qkv.dtype == torch.bfloat16), int(bool(causal)),
-            1.0 / math.sqrt(d), *philox.kernel_args(dropout_rate, seed),
+            _scale(d, sm_scale), *philox.kernel_args(dropout_rate, seed),
             stream)
     if rc != 0:
         raise RuntimeError(f"flash_pair_fwd: kernel launch failed "
@@ -219,7 +226,8 @@ def _delta(out: torch.Tensor, dout: torch.Tensor, num_heads: int):
 def flash_pair_bwd_reference(qkv: torch.Tensor, out: torch.Tensor,
                              lse: torch.Tensor, dout: torch.Tensor,
                              num_heads: int, causal: bool,
-                             dropout_rate: float = 0.0, seed=None):
+                             dropout_rate: float = 0.0, seed=None,
+                             sm_scale=None):
     """The backward kernel's math in fp32 torch, written out as the Pallas
     ``_bwd_tile_core`` has it (not autograd of the forward): ``qs = q *
     scale`` rounded to the input type, ``p = exp(qs.K^T - lse)`` zeroed
@@ -233,7 +241,7 @@ def flash_pair_bwd_reference(qkv: torch.Tensor, out: torch.Tensor,
     b, L, _ = qkv.shape
     dt = qkv.dtype
     ct = _compute_type(dt)
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(d, sm_scale)
     x = qkv.reshape(b, L, 3, num_heads, d).permute(0, 2, 3, 1, 4)  # [b,3,H,L,d]
     q = x[:, 0].to(ct)
     k = x[:, 1].to(ct)
@@ -270,10 +278,11 @@ _BWD_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 
 def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                    dout: torch.Tensor, num_heads: int, causal: bool,
-                   dropout_rate: float = 0.0, seed=None):
+                   dropout_rate: float = 0.0, seed=None, sm_scale=None):
     """Packed flash-attention backward: ``d(qkv)`` ``[B, L, 3*H*D]`` in
     qkv's type from the forward's inputs and outputs and the output's
-    gradient ``dout``; ``dropout_rate`` and ``seed`` are the forward's.
+    gradient ``dout``; ``dropout_rate``, ``seed`` and ``sm_scale`` are the
+    forward's.
 
     A CUDA tensor launches the kernel on the current stream (one counted
     launch per call in ``flash_pair_bwd.launches``; the kernel's dq goes
@@ -286,7 +295,7 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
     d = _check_bwd(qkv, out, lse, dout, num_heads, dropout_rate, seed)
     if qkv.device.type == "cpu":
         return flash_pair_bwd_reference(qkv, out, lse, dout, num_heads,
-                                        causal, dropout_rate, seed)
+                                        causal, dropout_rate, seed, sm_scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_pair_bwd: unsupported device {qkv.device}")
     if qkv.data_ptr() % 16 or dout.data_ptr() % 16:
@@ -304,7 +313,7 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
             qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq_acc.data_ptr(), dqkv.data_ptr(), b, L,
             num_heads, d, int(qkv.dtype == torch.bfloat16), int(bool(causal)),
-            1.0 / math.sqrt(d), *philox.kernel_args(dropout_rate, seed),
+            _scale(d, sm_scale), *philox.kernel_args(dropout_rate, seed),
             stream)
     if rc != 0:
         raise RuntimeError(f"flash_pair_bwd: kernel launch failed "
@@ -322,15 +331,19 @@ class FlashPairPacked(torch.autograd.Function):
     ``flash_pair_fwd`` and saves ``(qkv, out, lse)`` and the dropout seed
     (an int), ``backward`` runs ``flash_pair_bwd``, which regenerates the
     forward's mask from that seed, and returns ``d(qkv)``. ``apply(qkv,
-    num_heads, causal, dropout_rate=0.0, seed=None) -> out [B, L, H*D]``."""
+    num_heads, causal, dropout_rate=0.0, seed=None, sm_scale=None) -> out
+    [B, L, H*D]``."""
 
     @staticmethod
-    def forward(ctx, qkv, num_heads, causal, dropout_rate=0.0, seed=None):
-        out, lse = flash_pair_fwd(qkv, num_heads, causal, dropout_rate, seed)
+    def forward(ctx, qkv, num_heads, causal, dropout_rate=0.0, seed=None,
+                sm_scale=None):
+        out, lse = flash_pair_fwd(qkv, num_heads, causal, dropout_rate, seed,
+                                  sm_scale)
         ctx.save_for_backward(qkv, out, lse)
         ctx.num_heads = num_heads
         ctx.causal = causal
         ctx.dropout_rate, ctx.seed = dropout_rate, seed
+        ctx.sm_scale = sm_scale
         return out
 
     @staticmethod
@@ -338,5 +351,5 @@ class FlashPairPacked(torch.autograd.Function):
         qkv, out, lse = ctx.saved_tensors
         dqkv = flash_pair_bwd(qkv, out, lse, dout.contiguous(),
                               ctx.num_heads, ctx.causal, ctx.dropout_rate,
-                              ctx.seed)
-        return dqkv, None, None, None, None
+                              ctx.seed, ctx.sm_scale)
+        return dqkv, None, None, None, None, None

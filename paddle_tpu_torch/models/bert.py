@@ -11,13 +11,18 @@ is a multiple of 128), the tanh-GELU FFN and a second fused epilogue. The
 embeddings' sum goes through a LayerNorm and the dropout kernel. Every
 dropout draws its seed from the model's generator.
 
+Padded batches (``seq_lens`` ``[B]``, the valid-token count of each row,
+or an additive ``attn_mask``) take the JAX package's other branch: the qkv
+projection is viewed as ``[B, S, 3, H, D]`` and its q, k, v go to
+``F.scaled_dot_product_attention`` with ``kv_lens=seq_lens``, which on the
+card runs the ``[B, L, H, D]`` flash kernels with the lengths and
+in-kernel dropout (an ``attn_mask`` takes the plain softmax chain, as in
+the JAX package). Positions past a length still compute (their queries
+attend the valid keys); the loss ignores them through the -100 labels.
+
 Parameter names are the JAX package's, so ``convert.load_paddle_state``
 maps them one to one (``torch.nn.Linear`` weights transposed; the tied
 ``word_embeddings`` is an ``nn.Embedding``, kept as it is).
-
-Not ported yet: the padded-batch route (``attn_mask`` / ``seq_lens``),
-which needs ``kv_lens`` in the ``[B, L, H, D]`` kernels (ROADMAP Queue 2,
-item 4): passing either raises.
 """
 from __future__ import annotations
 
@@ -65,13 +70,6 @@ def bert_tiny(**overrides) -> BertConfig:
     return BertConfig(**cfg)
 
 
-def _padded_route_waits(attn_mask, seq_lens):
-    if attn_mask is not None or seq_lens is not None:
-        raise NotImplementedError(
-            "BERT's padded-batch route (attn_mask / seq_lens) needs kv_lens "
-            "in the [B, L, H, D] flash kernels (ROADMAP Queue 2, item 4)")
-
-
 class BertEmbeddings(nn.Module):
     def __init__(self, config: BertConfig, generator=None):
         super().__init__()
@@ -95,13 +93,15 @@ class BertEmbeddings(nn.Module):
 
 class BertLayer(nn.Module):
     """Post-LN encoder block (attention -> add & norm -> FFN -> add &
-    norm), the packed path only."""
+    norm): the packed path without masks, the ``[B, L, H, D]`` path with
+    ``seq_lens`` or ``attn_mask``."""
 
     def __init__(self, config: BertConfig, generator=None):
         super().__init__()
         h = config.hidden_size
         eps = config.layer_norm_epsilon
         self.num_heads = config.num_heads
+        self.head_dim = h // config.num_heads
         self.qkv_proj = nn.Linear(h, 3 * h)
         self.out_proj = nn.Linear(h, h)
         self.attn_norm = nn.LayerNorm(h, eps=eps)
@@ -113,11 +113,21 @@ class BertLayer(nn.Module):
         self.generator = generator
 
     def forward(self, x, attn_mask=None, seq_lens=None):
-        _padded_route_waits(attn_mask, seq_lens)
-        # packed path: attention reads the projection output in place
-        attn = F.flash_attention_qkv_packed(
-            self.qkv_proj(x), self.num_heads, dropout=self.attn_dropout_p,
-            causal=False, training=self.training, generator=self.generator)
+        qkv = self.qkv_proj(x)
+        if attn_mask is None and seq_lens is None:
+            # packed path: attention reads the projection output in place
+            attn = F.flash_attention_qkv_packed(
+                qkv, self.num_heads, dropout=self.attn_dropout_p,
+                causal=False, training=self.training,
+                generator=self.generator)
+        else:
+            b, s, h = x.shape
+            q, k, v = qkv.reshape(b, s, 3, self.num_heads,
+                                  self.head_dim).unbind(2)
+            attn = F.scaled_dot_product_attention(
+                q, k, v, attn_mask=attn_mask, dropout_p=self.attn_dropout_p,
+                training=self.training, kv_lens=seq_lens,
+                generator=self.generator).reshape(b, s, h)
         x = F.add_dropout_ln(x, self.out_proj(attn), self.attn_norm.weight,
                              self.attn_norm.bias, p=self.hidden_dropout_p,
                              epsilon=self.attn_norm.eps,
@@ -147,10 +157,11 @@ class BertModel(nn.Module):
 
     def forward(self, input_ids, token_type_ids=None, attn_mask=None,
                 seq_lens=None):
-        _padded_route_waits(attn_mask, seq_lens)
+        # seq_lens ([B] int): per-sequence valid-token counts, the
+        # structured (flash-kernel) form of a [B, 1, 1, S] padding attn_mask
         x = self.embeddings(input_ids, token_type_ids)
         for layer in self.encoder:
-            x = layer(x)
+            x = layer(x, attn_mask, seq_lens)
         return x, torch.tanh(self.pooler(x[:, 0]))
 
 
@@ -159,7 +170,8 @@ class BertForPreTraining(nn.Module):
     NSP heads on ``BertModel``.
 
     ``forward(input_ids, token_type_ids, attn_mask, masked_lm_labels,
-    next_sentence_labels, seq_lens)`` returns ``(mlm_logits [B, S, V],
+    next_sentence_labels, seq_lens)`` (a padded batch passes ``seq_lens``
+    [B] or an additive ``attn_mask``) returns ``(mlm_logits [B, S, V],
     nsp_logits [B, 2])`` without labels; with ``masked_lm_labels`` ([B, S],
     -100 off the masked positions) the loss: the fp32 head + cross-entropy
     over every position (``_lm_head_ce`` with the bias; the ``[B, S, V]``

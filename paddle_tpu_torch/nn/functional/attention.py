@@ -5,24 +5,25 @@ Routing mirrors the JAX package. When the shape gate passes (sequence >=
 
 * ``flash_attention_qkv_packed`` runs the packed flash kernels
   (``FlashPairPacked``) when the pair layout takes the head size, and
-  otherwise splits the heads and goes through
-  ``scaled_dot_product_attention``;
-* ``flash_attention`` and ``scaled_dot_product_attention`` with no mask
-  run the ``[B, L, H, D]`` flash kernels with grouped-query attention
-  (``FlashAttention``),
+  otherwise splits the heads and goes through the ``[B, L, H, D]`` route;
+* ``flash_attention`` and ``scaled_dot_product_attention`` without an
+  additive ``attn_mask`` run the ``[B, L, H, D]`` flash kernels
+  (``FlashAttention``), with grouped-query attention, ``kv_lens`` and
+  segment ids: the JAX package's four ops ``flash_attn_pallas{,_lens,
+  _segs,_segs_lens}``,
 
 forward and backward under autograd. Otherwise attention is the plain
 softmax chain of ``scaled_dot_product_attention``, which is what the JAX
-package runs off the TPU or below the kernel's tile minimum.
+package runs off the TPU, below the kernel's tile minimum, or whenever an
+additive ``attn_mask`` is given (lengths and segment ids then become an
+additive mask combined with it).
 
-Attention dropout is ported for the packed path: ``flash_attention_qkv_
-packed`` draws one seed from its ``generator`` and the pair kernels drop
-in-kernel; the plain chain drops the same elements (the Philox mask of
-``kernels/philox.py``, keyed on (b, h, q position, key position)), so the
-card and the CPU agree. Dropout on the ``[B, L, H, D]`` kernels waits for
-slice 5 with ``kv_lens`` (ROADMAP Queue 2, items 4-5): there a positive
-rate in training mode raises, as do the structured masks (``kv_lens``,
-segment ids) and an additive ``attn_mask``.
+Attention dropout draws one seed per call from the caller's ``generator``
+(a CPU ``torch.Generator``, required in training at a positive rate) and
+keys a Philox mask on (b, q head, q position, key position)
+(``kernels/philox.py``): the kernels drop in-kernel, the plain chain
+multiplies by the same keep factors, so the card and the CPU agree, and the
+packed and the ``[B, L, H, D]`` routes drop the same elements.
 """
 from __future__ import annotations
 
@@ -40,11 +41,6 @@ __all__ = ["flash_path_available", "pair_layout_supported",
            "scaled_dot_product_attention"]
 
 
-_DROPOUT_WAITS = ("attention dropout on the [B, L, H, D] path comes with "
-                  "kv_lens in slice 5 (ROADMAP Queue 2, items 4-5); train "
-                  "at dropout 0, call eval(), or use the packed path")
-
-
 def flash_path_available(seq_len: int, head_dim: int, sample=None) -> bool:
     """The gate for the flash kernels: tile minimums, then placement on
     CUDA (``sample``'s device when given, else whether CUDA exists)."""
@@ -55,53 +51,115 @@ def flash_path_available(seq_len: int, head_dim: int, sample=None) -> bool:
     return torch.cuda.is_available()
 
 
-def _flash_blhd(query, key, value, causal):
-    return FlashAttention.apply(query.contiguous(), key.contiguous(),
-                                value.contiguous(), bool(causal))
+def _draw_seed(rate: float, generator, who: str):
+    """One Philox seed from ``generator`` for a dropout at ``rate`` (None
+    at rate 0); raises without a generator."""
+    if rate <= 0.0:
+        return None
+    if generator is None:
+        raise ValueError(f"{who}: training at dropout > 0 needs a generator")
+    return next_seed(generator)
+
+
+def _structured_to_additive(query, key, kv_lens, q_segments, kv_segments):
+    """``[B]`` lengths / ``[B, L]`` segment ids -> an additive fp32 ``[B,
+    1, Lq, Lk]`` mask: 0 where the pair is attended, -1e30 where not (the
+    JAX package's ``_structured_to_additive``)."""
+    b, lq, lk = query.shape[0], query.shape[1], key.shape[1]
+    dev = query.device
+
+    def shaped(x, shape, name):
+        t = torch.as_tensor(x, device=dev)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"scaled_dot_product_attention: {name} must be "
+                             f"{list(shape)}, got {list(t.shape)}")
+        return t
+
+    valid = None
+    if kv_lens is not None:
+        lens = shaped(kv_lens, (b,), "kv_lens")
+        cols = torch.arange(lk, device=dev)[None, :] < lens[:, None]
+        valid = cols[:, None, :].expand(b, lq, lk)
+    if q_segments is not None:
+        sq = shaped(q_segments, (b, lq), "q_segments")
+        sk = shaped(kv_segments, (b, lk), "kv_segments")
+        seg_ok = sq[:, :, None] == sk[:, None, :]
+        valid = seg_ok if valid is None else valid & seg_ok
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return torch.where(valid, zero, -1e30)[:, None]
+
+
+def _attend(query, key, value, attn_mask, causal, rate, seed, kv_lens=None,
+            q_segments=None, kv_segments=None):
+    """The routing of ``scaled_dot_product_attention`` once the dropout
+    seed is drawn."""
+    if (q_segments is None) != (kv_segments is None):
+        raise ValueError("scaled_dot_product_attention: q_segments and "
+                         "kv_segments must be given together")
+    if attn_mask is None and flash_path_available(query.shape[1],
+                                                  query.shape[3], query):
+        return FlashAttention.apply(query.contiguous(), key.contiguous(),
+                                    value.contiguous(), bool(causal), rate,
+                                    seed, kv_lens, q_segments, kv_segments)
+    if attn_mask is not None and attn_mask.dtype == torch.bool:
+        raise TypeError("scaled_dot_product_attention: attn_mask is additive "
+                        "(added to the logits), got a bool mask")
+    if kv_lens is not None or q_segments is not None:
+        # lengths and segments as an additive mask, combined with the
+        # user's: dropping either would attend padding keys
+        structured = _structured_to_additive(query, key, kv_lens, q_segments,
+                                             kv_segments)
+        attn_mask = structured if attn_mask is None \
+            else structured + attn_mask.float()
+    return _plain_attention(query, key, value, causal, rate, seed, attn_mask)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
                                  training: bool = True, kv_lens=None,
-                                 q_segments=None, kv_segments=None):
+                                 q_segments=None, kv_segments=None,
+                                 generator=None):
     """Softmax attention on ``[B, L, H, D]`` queries against ``[B, L, Hkv,
     D]`` keys and values (``H`` a multiple of ``Hkv``: grouped-query
     attention, each KV head serving ``H / Hkv`` consecutive q heads).
 
-    With no mask, on CUDA, past the tile minimums: the flash kernels
-    (``FlashAttention``), as the JAX package routes this call to its Pallas
-    kernel. Otherwise the counterpart of the JAX package's ``_sdpa_fwd``:
-    KV heads repeated to the q heads, logits in the input type scaled by
-    ``1/sqrt(D)``, the causal mask (aligned bottom-right) at the type's
-    lowest value, softmax, then the weighted sum of values. Dropout,
-    ``attn_mask``, ``kv_lens`` and segment ids raise."""
-    if training and dropout_p > 0.0:
-        raise NotImplementedError(_DROPOUT_WAITS)
-    if attn_mask is not None:
-        raise NotImplementedError(
-            "scaled_dot_product_attention: an additive attn_mask is not "
-            "ported yet (ROADMAP Queue 1, item 2)")
-    if kv_lens is not None or q_segments is not None \
-            or kv_segments is not None:
-        raise NotImplementedError(
-            "scaled_dot_product_attention: kv_lens and segment ids (the "
-            "flash kernel's padding and packed-sequence masks) are not "
-            "ported yet (ROADMAP Queue 2, item 4)")
-    b, lq, h, d = query.shape
-    if flash_path_available(lq, d, query):
-        return _flash_blhd(query, key, value, is_causal)
-    return _plain_attention(query, key, value, is_causal)
+    ``kv_lens`` ``[B]``: per-sequence key counts (the structured form of a
+    ``[B, 1, 1, L]`` padding mask; queries past a length still attend the
+    valid keys). ``q_segments`` / ``kv_segments`` ``[B, Lq]`` / ``[B,
+    Lk]``: packed-sequence ids, only same-segment pairs attend (both or
+    neither). ``attn_mask``: an additive float mask broadcast against the
+    ``[B, H, Lq, Lk]`` logits.
+
+    With no ``attn_mask``, on CUDA, past the tile minimums: the flash
+    kernels (``FlashAttention``) with the lengths, segment ids and
+    in-kernel dropout, as the JAX package routes this call to its Pallas
+    kernels. Otherwise the counterpart of the JAX package's ``_sdpa_fwd``,
+    on the card as well when an ``attn_mask`` is given (that is the JAX
+    routing, not a fallback): KV heads repeated to the q heads, logits in
+    the input type scaled by ``1/sqrt(D)``, plus ``attn_mask`` and the
+    lengths and segments as a -1e30 additive mask, the causal mask
+    (aligned bottom-right) at the type's lowest value, softmax, then the
+    weighted sum of values.
+
+    In training at ``dropout_p > 0`` one seed is drawn from ``generator``
+    (a CPU ``torch.Generator``, required then) and both routes drop the
+    elements of ``philox.attention_keep`` at that seed."""
+    rate = float(dropout_p) if training else 0.0
+    seed = _draw_seed(rate, generator, "scaled_dot_product_attention")
+    return _attend(query, key, value, attn_mask, is_causal, rate, seed,
+                   kv_lens, q_segments, kv_segments)
 
 
 def _plain_attention(query, key, value, causal, rate: float = 0.0,
-                     seed=None):
+                     seed=None, attn_mask=None):
     """The JAX package's ``_sdpa_fwd`` softmax chain on ``[B, L, H, D]``:
     KV heads repeated to the q heads, logits in the input type scaled by
-    ``1/sqrt(D)``, the causal mask (aligned bottom-right) at the type's
-    lowest value, softmax, at ``rate > 0`` each probability times its
-    keep factor (``philox.attention_keep(seed, ...)``: the pair kernels'
-    mask), then the weighted sum of values."""
+    ``1/sqrt(D)``, plus the additive ``attn_mask`` in the logits' type,
+    the causal mask (aligned bottom-right) at the type's lowest value,
+    softmax, at ``rate > 0`` each probability times its keep factor
+    (``philox.attention_keep(seed, ...)``: the kernels' mask), then the
+    weighted sum of values."""
     b, lq, h, d = query.shape
     if key.shape[2] != h:
         rep = h // key.shape[2]
@@ -109,6 +167,8 @@ def _plain_attention(query, key, value, causal, rate: float = 0.0,
         value = value.repeat_interleave(rep, dim=2)
     qt, kt, vt = (t.transpose(1, 2) for t in (query, key, value))
     logits = (qt @ kt.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    if attn_mask is not None:
+        logits = logits + attn_mask.to(logits.dtype)
     if causal:
         ql, kl = logits.shape[-2], logits.shape[-1]
         keep = torch.ones(ql, kl, dtype=torch.bool,
@@ -124,19 +184,19 @@ def _plain_attention(query, key, value, causal, rate: float = 0.0,
 
 
 def flash_attention(query, key, value, dropout: float = 0.0,
-                    causal: bool = False, training: bool = True):
+                    causal: bool = False, training: bool = True,
+                    generator=None):
     """``paddle.nn.functional.flash_attention`` on ``[B, L, H, D]`` queries
     and ``[B, L, Hkv, D]`` keys and values (grouped-query attention when
     ``Hkv < H``). Through the flash kernels (``FlashAttention``: the
     forward kernel, and the backward kernel when a gradient is taken) when
-    the gate passes; else ``scaled_dot_product_attention``. A positive
-    dropout rate in training mode raises (slice 5)."""
-    if training and dropout > 0.0:
-        raise NotImplementedError(_DROPOUT_WAITS)
-    if flash_path_available(query.shape[1], query.shape[3], query):
-        return _flash_blhd(query, key, value, causal)
-    return scaled_dot_product_attention(query, key, value,
-                                        is_causal=causal, training=training)
+    the gate passes; else ``scaled_dot_product_attention``'s plain chain.
+    In training at ``dropout > 0`` one seed is drawn from ``generator`` (a
+    CPU ``torch.Generator``, required then) and the probabilities drop
+    in-kernel."""
+    rate = float(dropout) if training else 0.0
+    seed = _draw_seed(rate, generator, "flash_attention")
+    return _attend(query, key, value, None, causal, rate, seed)
 
 
 def flash_attention_qkv_packed(qkv, num_heads: int, dropout: float = 0.0,
@@ -145,33 +205,23 @@ def flash_attention_qkv_packed(qkv, num_heads: int, dropout: float = 0.0,
     """Attention on the fused projection output ``[B, L, 3*H*D]`` -> the
     packed context ``[B, L, H*D]``. Through the packed flash kernels
     (``FlashPairPacked``) when the gate passes and the pair layout takes
-    the head size; else the heads are split and sent through
-    ``scaled_dot_product_attention`` (which reaches the ``[B, L, H, D]``
-    flash kernels on the card, as the JAX package's fallback does).
+    the head size; else the heads are split and take the ``[B, L, H, D]``
+    route of ``scaled_dot_product_attention`` (the flash kernels on the
+    card, as the JAX package's fallback reaches its Pallas kernel; the
+    plain chain below the gate).
 
     In training at ``dropout > 0`` one seed is drawn from ``generator`` (a
-    CPU ``torch.Generator``, required then) and the probabilities drop
-    in the pair kernels, or in the plain chain with the same mask; where
-    the heads would go to the ``[B, L, H, D]`` kernels instead, dropout
-    raises (slice 5)."""
+    CPU ``torch.Generator``, required then) and every route drops the same
+    elements under it."""
     rate = float(dropout) if training else 0.0
-    if rate > 0.0 and generator is None:
-        raise ValueError("flash_attention_qkv_packed: training at dropout > "
-                         "0 needs a generator")
-    seed = next_seed(generator) if rate > 0.0 else None
+    seed = _draw_seed(rate, generator, "flash_attention_qkv_packed")
     b, L, width = qkv.shape
     d = width // (3 * num_heads)
-    flash = flash_path_available(L, d, qkv)
-    if flash and pair_layout_supported(d, num_heads, L):
+    if flash_path_available(L, d, qkv) and pair_layout_supported(
+            d, num_heads, L):
         return FlashPairPacked.apply(qkv.contiguous(), num_heads, causal,
                                      rate, seed)
     hd = num_heads * d
     q, k, v = (qkv[:, :, i * hd:(i + 1) * hd].reshape(b, L, num_heads, d)
                for i in range(3))
-    if rate > 0.0:
-        if flash:
-            raise NotImplementedError(_DROPOUT_WAITS)
-        out = _plain_attention(q, k, v, causal, rate, seed)
-    else:
-        out = scaled_dot_product_attention(q, k, v, is_causal=causal)
-    return out.reshape(b, L, hd)
+    return _attend(q, k, v, None, causal, rate, seed).reshape(b, L, hd)

@@ -6,10 +6,13 @@ vocab 256, max_pos 128), so on the card attention would take the pair
 kernels, and the width is a multiple of 128, so the residual epilogues
 take the fused add-dropout-LayerNorm (its plain version here). At dropout
 0 the port is held to the JAX model: MLM/NSP logits, the pretraining loss,
-every leaf's gradient and 3 AdamW TrainSteps. At dropout 0.1 the two
+every leaf's gradient and 3 AdamW TrainSteps, on the packed path and on
+padded batches (``seq_lens``, or an additive ``attn_mask``: the JAX
+package's other branch, sdpa with ``kv_lens``). At dropout 0.1 the two
 packages draw different bits, so the port is held to its own contract:
-the same generator seed gives the same loss, and training differs from
-eval. Weights are drawn with numpy and carried by convert.py.
+the same generator seed gives the same loss, training differs from eval,
+and a padded batch at full lengths gives the packed path's loss. Weights
+are drawn with numpy and carried by convert.py.
 """
 import numpy as np
 import pytest
@@ -235,15 +238,178 @@ def test_convert_round_trips_bert():
 
 
 def test_padded_route_and_missing_generator_raise():
-    tm = BertForPreTraining(BertConfig(**SMALL), device="cpu")
-    ids = torch.zeros(1, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="kv_lens"):
-        tm(ids, seq_lens=torch.tensor([8]))
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tm(ids, attn_mask=torch.zeros(1, 1, 8, 8))
+    """The padded route runs (it raised before it was ported): seq_lens
+    and the equivalent additive attn_mask give one output, which differs
+    from the unpadded batch's, and full lengths give the packed path's.
+    Dropout in training without a generator still raises, on both
+    routes."""
+    tm = BertForPreTraining(BertConfig(**SMALL), device="cpu").eval()
+    ids = torch.randint(0, SMALL["vocab_size"], (2, 8),
+                        generator=torch.Generator().manual_seed(0))
+    lens = torch.tensor([8, 5])
+    with torch.no_grad():
+        by_lens = tm(ids, seq_lens=lens)[0]
+        by_mask = tm(ids, attn_mask=_additive(lens, 8))[0]
+        packed = tm(ids)[0]
+        full = tm(ids, seq_lens=torch.tensor([8, 8]))[0]
+    torch.testing.assert_close(by_lens, by_mask)
+    torch.testing.assert_close(full, packed, atol=1e-5, rtol=1e-5)
+    assert not torch.allclose(by_lens, packed, atol=1e-3)
     bare = BertModel(BertConfig(**dict(SMALL, hidden_dropout_prob=0.1)))
     with pytest.raises(ValueError, match="generator"):
         bare(ids)
+    bare = BertModel(BertConfig(**dict(SMALL, attention_dropout_prob=0.1)))
+    with pytest.raises(ValueError, match="generator"):
+        bare(ids, seq_lens=lens)
+
+
+def _additive(lens, s):
+    """The [B, 1, 1, S] additive padding mask of lengths ``lens``: 0 on
+    valid keys, -1e30 past them (numpy in, numpy out; torch in, torch
+    out)."""
+    lens_np = np.asarray(lens)
+    mask = np.where(np.arange(s)[None, :] < lens_np[:, None], 0.0,
+                    -1e30).astype(np.float32)[:, None, None, :]
+    return torch.from_numpy(mask) if torch.is_tensor(lens) else mask
+
+
+def _padded_batch(seed, lens, s=S):
+    """A padded pretraining batch (numpy): ids and token types 0 past each
+    length, MLM labels on 15% of the valid positions (-100 elsewhere),
+    NSP labels."""
+    rs = np.random.RandomState(seed)
+    b = len(lens)
+    valid = np.arange(s)[None, :] < np.asarray(lens)[:, None]
+    ids = np.where(valid, rs.randint(1, SMALL["vocab_size"], (b, s)),
+                   0).astype(np.int32)
+    types = ((np.arange(s)[None, :] >= np.asarray(lens)[:, None] // 2)
+             & valid).astype(np.int32)
+    mlm = np.where(valid & (rs.rand(b, s) < 0.15), ids, -100) \
+        .astype(np.int32)
+    nsp = rs.randint(0, 2, (b,)).astype(np.int32)
+    return ids, types, mlm, nsp
+
+
+PAD_LENS = [128, 53]
+
+
+def _route_inputs(route, lens):
+    """The masks of a padded route as (attn_mask, seq_lens) for the JAX
+    model and for the port: ``seq_lens`` or an additive ``attn_mask``."""
+    if route == "seq_lens":
+        arr = np.asarray(lens, np.int32)
+        return (None, paddle.to_tensor(arr)), (None, torch.from_numpy(arr))
+    mask = _additive(lens, S)
+    return (paddle.to_tensor(mask), None), (torch.from_numpy(mask), None)
+
+
+def _rel(got, want):
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(np.asarray(got, np.float64) - want)
+                 / max(np.linalg.norm(want), 1e-30))
+
+
+@pytest.mark.parametrize("route", ["seq_lens", "attn_mask"])
+def test_padded_logits_loss_and_gradients_match_jax(route):
+    """A padded batch (lengths 128 and 53) at dropout 0: eval logits, the
+    training loss and every leaf's gradient within 1e-5 relative of the JAX
+    model on the same weights. The JAX gradients come from its eager
+    ``loss.backward()``: on the padded branch its tape holds (the packed
+    branch's loses qkv_proj on the CPU)."""
+    jm, _, tm = _pair(seed=10)
+    (jmask, jlens), (tmask, tlens) = _route_inputs(route, PAD_LENS)
+    ids, types, mlm, nsp = _padded_batch(4, PAD_LENS)
+    jm.eval()
+    tm.eval()
+    mlm_j, nsp_j = jm(*_j(ids, types), jmask, None, None, jlens)
+    with torch.no_grad():
+        mlm_t, nsp_t = tm(*_t(ids, types), tmask, None, None, tlens)
+    assert _rel(mlm_t.numpy(), mlm_j.numpy()) < 1e-5
+    assert _rel(nsp_t.numpy(), nsp_j.numpy()) < 1e-5
+    jm.train()
+    tm.train()
+    loss_j = jm(*_j(ids, types), jmask, *_j(mlm, nsp), jlens)
+    loss_j.backward()
+    loss_t = tm(*_t(ids, types), tmask, *_t(mlm, nsp), tlens)
+    loss_t.backward()
+    assert abs(loss_t.item() - float(loss_j)) <= 1e-5 * abs(float(loss_j))
+    want = convert_paddle_state(
+        {n: np.asarray(p.grad.numpy(), np.float32)
+         for n, p in jm.named_parameters()}, tm)
+    for name, p in tm.named_parameters():
+        assert _rel(p.grad.numpy(), want[name].numpy()) < 1e-5, name
+
+
+class _JaxPaddedLossOf(paddle.nn.Layer):
+    """(ids, types, mlm, nsp, mask) -> the JAX model's loss on a padded
+    batch, the mask as ``seq_lens`` or ``attn_mask``."""
+
+    def __init__(self, model, route):
+        super().__init__()
+        self.model, self.route = model, route
+
+    def forward(self, ids, types, mlm, nsp, mask):
+        if self.route == "seq_lens":
+            return self.model(ids, types, None, mlm, nsp, mask)
+        return self.model(ids, types, mask, mlm, nsp)
+
+
+@pytest.mark.parametrize("route", ["seq_lens", "attn_mask"])
+def test_padded_three_train_steps_match_jax(route):
+    """3 TrainStep + AdamW(1e-3, wd 0.01) calls on a repeated padded batch:
+    every step's loss within 1e-4 relative of the JAX package's, and the
+    loss falls."""
+    jm, _, tm = _pair(seed=11)
+    jm.train()
+    tm.train()
+    (jmask, jlens), (tmask, tlens) = _route_inputs(route, PAD_LENS)
+    ids, types, mlm, nsp = _padded_batch(5, PAD_LENS)
+    step_j = paddle.jit.TrainStep(
+        _JaxPaddedLossOf(jm, route),
+        paddle.optimizer.AdamW(learning_rate=1e-3, weight_decay=0.01,
+                               parameters=jm.parameters()))
+    step_t = TrainStep(tm, AdamW(learning_rate=1e-3, weight_decay=0.01,
+                                 parameters=tm.parameters()))
+    losses_j, losses_t = [], []
+    for _ in range(3):
+        losses_j.append(float(step_j(*_j(ids, types, mlm, nsp),
+                                     jlens if jmask is None else jmask)))
+        losses_t.append(step_t(*_t(ids, types), tmask, *_t(mlm, nsp),
+                               tlens).item())
+    np.testing.assert_allclose(losses_t, losses_j, rtol=1e-4)
+    assert losses_t[2] < losses_t[0]
+
+
+def test_padded_dropout_is_deterministic_and_full_lengths_equal_packed():
+    """At dropout 0.1 on the padded route: the same generator seed gives
+    the same loss and gradients, another seed another loss; with every
+    length = S the padded route draws the packed path's seeds in the same
+    order and drops the same attention pairs, so loss and gradients equal
+    the packed path's (fp32, 1e-5 relative)."""
+    _, _, tm = _pair(seed=12, hidden_dropout_prob=0.1,
+                     attention_dropout_prob=0.1)
+    tm.train()
+    ids, types, mlm, nsp = _t(*_padded_batch(6, PAD_LENS))
+
+    def run(gen_seed, lens=None):
+        tm.zero_grad(set_to_none=True)
+        tm.generator.manual_seed(gen_seed)
+        loss = tm(ids, types, None, mlm, nsp, lens)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in tm.named_parameters()}
+
+    lens = torch.tensor(PAD_LENS)
+    a, ga = run(21, lens)
+    b, gb = run(21, lens)
+    c, _ = run(22, lens)
+    assert a == b and a != c
+    assert all(torch.equal(ga[n], gb[n]) for n in ga)
+    full, g_full = run(23, torch.tensor([S, S]))
+    packed, g_packed = run(23)
+    assert abs(full - packed) <= 1e-5 * abs(packed)
+    for n in g_full:
+        assert _rel(g_full[n].numpy(), g_packed[n].numpy()) < 1e-5, n
 
 
 def test_configs():
@@ -282,6 +448,50 @@ def test_cuda_bert_step_goes_through_the_kernels():
     assert counts["fused_add_dropout_ln_bwd"] == 4
     assert counts["dropout_fwd"] == 2
     loss_cpu = cpu(ids, None, None, mlm, nsp)
+    loss_cpu.backward()
+    assert abs(loss_card.item() - loss_cpu.item()) < 1e-4 * loss_cpu.item()
+    for (name, a), b in zip(card.named_parameters(), cpu.parameters()):
+        if b.grad is None:
+            continue
+        rel = ((a.grad.cpu() - b.grad).norm() / b.grad.norm()).item()
+        assert rel < 1e-4, name
+
+
+@pytest.mark.cuda
+def test_cuda_padded_bert_step_goes_through_the_flat_kernels():
+    """One training step of a 2-layer BERT-base-width model on a padded
+    batch (seq_lens) at dropout 0.1 on the card: the flat flash kernels
+    (not the pair kernels), the fused-LN kernels and the dropout kernel
+    launch the counts of the path, and the loss and every leaf's gradient
+    agree with the CPU plain path from the same weights and generator
+    state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    cfg = bert_base(num_layers=2)
+    cpu = BertForPreTraining(cfg, device="cpu", seed=3)
+    card = BertForPreTraining(cfg, device="cuda", seed=3)
+    card.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(5)
+    lens = torch.tensor([256, 130])
+    valid = torch.arange(256)[None, :] < lens[:, None]
+    ids = torch.where(valid, torch.from_numpy(
+        rs.randint(1, cfg.vocab_size, (2, 256))).long(), 0)
+    mlm = torch.where(valid & (torch.from_numpy(rs.rand(2, 256)) < 0.15),
+                      ids, -100)
+    nsp = torch.tensor([1, 0])
+    reset_launch_counts()
+    loss_card = card(ids.cuda(), None, None, mlm.cuda(), nsp.cuda(),
+                     seq_lens=lens.cuda())
+    loss_card.backward()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["flash_attention_fwd"] == 2
+    assert counts["flash_attention_bwd"] == 2
+    assert counts["flash_pair_fwd"] == counts["flash_pair_bwd"] == 0
+    assert counts["fused_add_dropout_ln_fwd"] == 4
+    assert counts["fused_add_dropout_ln_bwd"] == 4
+    assert counts["dropout_fwd"] == 2
+    loss_cpu = cpu(ids, None, None, mlm, nsp, seq_lens=lens)
     loss_cpu.backward()
     assert abs(loss_card.item() - loss_cpu.item()) < 1e-4 * loss_cpu.item()
     for (name, a), b in zip(card.named_parameters(), cpu.parameters()):

@@ -7,8 +7,15 @@ the Pallas kernels in interpret mode with 128 x 128 blocks (as
 tests/test_flash_attention.py runs them): the forward's out and lse to
 ``_flash_fwd``, the backward to ``jax.vjp`` of ``flash_attention_blhd``,
 which at L = 128 takes the fused kernel and at L = 256 the split dq/dkv
-kernels. The CUDA kernels themselves are held to the plain versions by the
-``cuda``-marked tests, which run only where a card is present.
+kernels. The masks (``kv_lens``, segment ids) are held the same way to
+``_flash_fwd`` and the vjp of ``flash_attention_blhd`` with those masks,
+mirroring tests/test_flash_masks.py, and the packed-qkv route (row 6) to
+the JAX ``flash_attention_qkv_packed``. With dropout the Pallas kernels
+draw TPU hardware bits, so the port's dropout is held to its own contract:
+the Philox mask of the seed, the same mask on every route, and a padded
+batch at full lengths equal to the packed path. The CUDA kernels
+themselves are held to the plain versions by the ``cuda``-marked tests,
+which run only where a card is present.
 """
 import math
 
@@ -19,13 +26,19 @@ import pytest
 import torch
 
 import paddle_tpu as paddle
+from paddle_tpu.kernels.pallas import flash_attention as jfa
 from paddle_tpu.kernels.pallas.flash_attention import (_flash_fwd,
                                                        flash_attention_blhd)
 from paddle_tpu.nn import functional as JF
-from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+from paddle_tpu_torch.core.random import make_generator, next_seed
+from paddle_tpu_torch.kernels import launch_counts, philox, \
+    reset_launch_counts
 from paddle_tpu_torch.kernels.flash_attention import (
     FlashAttention, flash_attention_bwd, flash_attention_bwd_reference,
-    flash_attention_fwd, flash_attention_fwd_reference)
+    flash_attention_fwd, flash_attention_fwd_reference,
+    flash_attention_qkv_packed)
+from paddle_tpu_torch.kernels.flash_pair import (flash_pair_bwd_reference,
+                                                 flash_pair_fwd_reference)
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.functional import attention
 
@@ -164,8 +177,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
     q = torch.zeros(1, 128, 4, 64)
     k = torch.zeros(1, 128, 2, 64)
     if bad == "dropout":
-        with pytest.raises(NotImplementedError, match="slice 5"):
+        # dropout runs in-kernel; what is refused is a rate without a seed
+        # and a rate outside [0, 1)
+        with pytest.raises(ValueError, match="seed"):
             flash_attention_fwd(q, k, k, True, dropout_rate=0.1)
+        with pytest.raises(ValueError, match=r"\[0, 1\)"):
+            flash_attention_fwd(q, k, k, True, dropout_rate=1.0, seed=1)
     elif bad == "head_dim":
         with pytest.raises(ValueError):
             flash_attention_fwd(torch.zeros(1, 128, 4, 96),
@@ -189,15 +206,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
             flash_attention_fwd(q, k, k, True, block_q=256)
 
 
-@pytest.mark.parametrize("kw", [dict(kv_lens=torch.tensor([100])),
-                                dict(q_segments=torch.zeros(1, 128),
-                                     kv_segments=torch.zeros(1, 128)),
-                                dict(attn_mask=torch.zeros(1, 1, 128, 128)),
+@pytest.mark.parametrize("kw", [dict(kv_lens=torch.tensor([100, 100])),
+                                dict(q_segments=torch.zeros(1, 128)),
+                                dict(attn_mask=torch.zeros(1, 1, 128, 128,
+                                                           dtype=torch.bool)),
                                 dict(dropout_p=0.1)],
                          ids=["kv_lens", "segments", "attn_mask", "dropout"])
 def test_sdpa_refuses_masks_and_dropout(kw):
+    """The masks and dropout run now (the tests below); what sdpa still
+    refuses: lengths that are not [B], q segments without kv segments, a
+    bool attn_mask (the mask is additive), and dropout in training without
+    a generator."""
     q = torch.zeros(1, 128, 4, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    want = {"kv_lens": (ValueError, "kv_lens"),
+            "q_segments": (ValueError, "together"),
+            "attn_mask": (TypeError, "additive"),
+            "dropout_p": (ValueError, "generator")}[next(iter(kw))]
+    with pytest.raises(want[0], match=want[1]):
         F.scaled_dot_product_attention(q, q, q, **kw)
 
 
@@ -249,10 +274,377 @@ def test_functionals_route_to_the_kernel_when_the_gate_passes(monkeypatch):
 
 
 def test_flash_attention_refuses_dropout_in_training():
-    q = torch.zeros(1, 128, 2, 64)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        F.flash_attention(q, q, q, dropout=0.1, training=True)
-    F.flash_attention(q, q, q, dropout=0.1, training=False)
+    """Training at dropout 0.1 without a generator raises; with one, the
+    probabilities drop under the seed it gives (the plain version at that
+    seed); eval needs none."""
+    q, k, v = _t(*_inputs(1, 128, 128, 2, 2, 64, seed=16))
+    with pytest.raises(ValueError, match="generator"):
+        F.flash_attention(q, k, v, dropout=0.1, training=True)
+    F.flash_attention(q, k, v, dropout=0.1, training=False)
+    got = F.flash_attention(q, k, v, dropout=0.1, training=True,
+                            generator=make_generator(3))
+    want = F.scaled_dot_product_attention(q, k, v, dropout_p=0.1,
+                                          generator=make_generator(3))
+    torch.testing.assert_close(got, want)
+    nodrop = F.flash_attention(q, k, v, training=True)
+    assert not torch.allclose(got, nodrop)
+
+
+# ------------------------------------------------- masks, dropout, row 6
+
+
+def _segments(b, L, cuts):
+    """``[B, L]`` int32 segment ids: row ``r`` switches to the next id at
+    each position of ``cuts[r]``."""
+    seg = np.zeros((b, L), np.int32)
+    for r, row in enumerate(cuts):
+        for c in row:
+            seg[r, c:] += 1
+    return seg
+
+
+# (name, B, L, H, Hkv, causal, kv_lens, segment cuts per row), after the
+# cases of tests/test_flash_masks.py; L = 256 takes the split backward
+MASK_CASES = [
+    ("lens", 3, 256, 2, 2, False, [256, 200, 77], None),
+    ("lens_causal", 3, 256, 2, 2, True, [256, 200, 77], None),
+    ("gqa_lens", 2, 256, 4, 2, False, [256, 192], None),
+    ("gqa_lens_causal", 2, 256, 4, 2, True, [256, 130], None),
+    ("segments", 2, 256, 2, 2, False, None, [[100], [200]]),
+    ("lens_segments", 2, 256, 2, 2, False, [256, 180], [[128], [128]]),
+    ("lens_segments_causal", 2, 256, 2, 1, True, [256, 180],
+     [[64, 190], [128]]),
+    ("lens_shorter_than_block", 2, 256, 1, 1, False, [40, 100], None),
+    ("length_of_one", 2, 128, 2, 2, False, [1, 128], None),
+    ("length_of_one_causal", 2, 128, 2, 2, True, [128, 1], None),
+]
+
+
+@pytest.mark.parametrize("case", MASK_CASES, ids=[c[0] for c in MASK_CASES])
+def test_masked_plain_versions_match_pallas_interpret(case):
+    """kv_lens and segment ids: the plain forward's out and lse against
+    ``_flash_fwd`` with the same masks, and the plain backward (on the
+    plain forward's out and lse) against jax.vjp of flash_attention_blhd,
+    Pallas in interpret mode with 128 x 128 blocks, fp32, atol = rtol =
+    1e-4. Keys past a length get exactly zero dk and dv."""
+    _, b, L, h, hkv, causal, lens, cuts = case
+    d = 64
+    q, k, v = _inputs(b, L, L, h, hkv, d, seed=17 + L + h + hkv)
+    g = np.random.RandomState(L + hkv).randn(b, L, h, d).astype(np.float32)
+    jm, tm = {}, {}
+    if lens is not None:
+        lens = np.asarray(lens, np.int32)
+        jm["kv_lens"] = jnp.asarray(lens)
+        tm["kv_lens"] = torch.from_numpy(lens)
+    if cuts is not None:
+        seg = _segments(b, L, cuts)
+        jm["q_segments"] = jm["kv_segments"] = jnp.asarray(seg)
+        tm["q_segments"] = tm["kv_segments"] = torch.from_numpy(seg)
+    out_j, lse_j = _flash_fwd(
+        _flat(q), _flat(k), _flat(v), jnp.asarray([0], jnp.int32), causal,
+        1.0 / math.sqrt(d), 128, 128, 0.0, True, h, hkv,
+        lens=jm.get("kv_lens"), seg_q=jm.get("q_segments"),
+        seg_k=jm.get("kv_segments"))
+    _, vjp = jax.vjp(
+        lambda a, bb, c: flash_attention_blhd(a, bb, c, causal=causal,
+                                              block_q=128, block_k=128,
+                                              interpret=True, **jm),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(g))
+    qt, kt, vt, gt = _t(q, k, v, g)
+    out, lse = flash_attention_fwd_reference(qt, kt, vt, causal, **tm)
+    np.testing.assert_allclose(
+        out.numpy(),
+        np.asarray(out_j).reshape(b, h, L, d).transpose(0, 2, 1, 3),
+        atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(
+        lse.numpy(), np.asarray(lse_j).reshape(b, h, -1)[:, :, :L],
+        atol=1e-4, rtol=1e-4)
+    got = flash_attention_bwd_reference(qt, kt, vt, out, lse, gt, causal,
+                                        **tm)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=1e-4,
+                                   rtol=1e-4, err_msg=name)
+    if lens is not None:
+        for r, n in enumerate(lens):
+            assert torch.count_nonzero(got[1][r, n:]) == 0
+            assert torch.count_nonzero(got[2][r, n:]) == 0
+
+
+def _packed_vs_pallas(causal, sm_scale):
+    """flash_attention_qkv_packed on CPU tensors against the JAX one in
+    interpret mode at rate 0, heads of 128: the packed context and d(qkv)
+    from jax.vjp, fp32, atol = rtol = 1e-4; nothing launches."""
+    b, L, h, d = 2, 256, 2, 128
+    rs = np.random.RandomState(18)
+    x = (rs.randn(b, L, 3 * h * d) * 0.6).astype(np.float32)
+    g = rs.randn(b, L, h * d).astype(np.float32)
+    out_j, vjp = jax.vjp(
+        lambda a: jfa.flash_attention_qkv_packed(a, h, causal=causal,
+                                                 sm_scale=sm_scale,
+                                                 interpret=True),
+        jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(g))
+    leaf = torch.from_numpy(x).requires_grad_()
+    reset_launch_counts()
+    out = flash_attention_qkv_packed(leaf, h, causal, sm_scale)
+    out.backward(torch.from_numpy(g))
+    assert launch_counts() == NO_LAUNCHES
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(want),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_packed_qkv_plain_matches_pallas_interpret(causal):
+    """Row 6 (flash_attention_qkv_packed: FlashPairPacked, whose plain
+    versions run on the CPU) against the JAX flash_attention_qkv_packed in
+    interpret mode at the default scale."""
+    _packed_vs_pallas(causal, None)
+
+
+def test_packed_qkv_sm_scale_matches_pallas_interpret():
+    """Row 6 with an explicit ``sm_scale`` (the pair wrappers take it for
+    this call) against the JAX function with the same scale."""
+    _packed_vs_pallas(True, 0.05)
+
+
+def _column_slices(qkv, h, d):
+    """The q, k, v column blocks of packed qkv as contiguous [B, L, H, D]."""
+    b, L, _ = qkv.shape
+    return [qkv[..., i * h * d:(i + 1) * h * d].reshape(b, L, h, d)
+            .contiguous() for i in range(3)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_packed_qkv_equals_flat_plain_on_column_slices(causal):
+    """Row 6's plain route equals the flat plain versions on the three
+    column slices at rate 0.1 with one seed and an explicit scale (the
+    same Philox mask on both layouts): out to 1e-6, d(qkv) per block to
+    1e-5, fp32."""
+    b, L, h, d = 2, 256, 2, 128
+    rs = np.random.RandomState(19)
+    x = torch.from_numpy((rs.randn(b, L, 3 * h * d) * 0.6)
+                         .astype(np.float32))
+    g = torch.from_numpy(rs.randn(b, L, h * d).astype(np.float32))
+    leaf = x.clone().requires_grad_()
+    out = flash_attention_qkv_packed(leaf, h, causal, 0.07, 0.1, 1234)
+    out.backward(g)
+    q, k, v = _column_slices(x, h, d)
+    ref, lse = flash_attention_fwd_reference(q, k, v, causal, 0.07, 0.1,
+                                             seed=1234)
+    np.testing.assert_allclose(out.detach().numpy(),
+                               ref.reshape(b, L, h * d).numpy(), atol=1e-6,
+                               rtol=1e-6)
+    grads = flash_attention_bwd_reference(q, k, v, ref, lse,
+                                          g.reshape(b, L, h, d), causal,
+                                          0.07, 0.1, seed=1234)
+    want = torch.cat([t.reshape(b, L, h * d) for t in grads], -1)
+    np.testing.assert_allclose(leaf.grad.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_packed_qkv_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="head_dim 128"):
+        flash_attention_qkv_packed(torch.zeros(1, 128, 3 * 2 * 64), 2)
+    with pytest.raises(ValueError, match="seed"):
+        flash_attention_qkv_packed(torch.zeros(1, 128, 3 * 128), 1,
+                                   dropout_rate=0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_qkv_packed(
+            torch.zeros(1, 3 * 128, 128).transpose(1, 2), 1)
+
+
+def _jax_mask(mask):
+    return None if mask is None else paddle.to_tensor(mask)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("which", ["attn_mask", "kv_lens", "both"])
+def test_sdpa_masks_match_jax(which, causal):
+    """sdpa with an additive attn_mask, with kv_lens and with both (GQA 4
+    on 2): the plain chain (lengths as a -1e30 additive mask, combined with
+    the user's) against the JAX package's scaled_dot_product_attention on
+    the CPU, fp32, 1e-5."""
+    b, L = 2, 96
+    q, k, v = _inputs(b, L, L, 4, 2, 64, seed=19)
+    rs = np.random.RandomState(20)
+    mask = lens = None
+    if which != "kv_lens":
+        mask = np.where(rs.rand(b, 1, L, L) < 0.2, -1e4,
+                        rs.randn(b, 1, L, L)).astype(np.float32)
+    if which != "attn_mask":
+        lens = np.array([96, 41], np.int32)
+    ref = JF.scaled_dot_product_attention(
+        *map(paddle.to_tensor, (q, k, v)), attn_mask=_jax_mask(mask),
+        is_causal=causal,
+        kv_lens=None if lens is None else paddle.to_tensor(lens)).numpy()
+    got = F.scaled_dot_product_attention(
+        *_t(q, k, v), is_causal=causal,
+        attn_mask=None if mask is None else torch.from_numpy(mask),
+        kv_lens=None if lens is None else torch.from_numpy(lens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("masks", ["lens", "segments", "lens_segments"])
+def test_sdpa_kernel_route_matches_the_plain_chain(masks, monkeypatch):
+    """With the gate forced open on the CPU, sdpa with kv_lens and/or
+    segment ids goes through FlashAttention (the kernels' plain versions)
+    and gives the JAX package's output for the same call (its additive-mask
+    chain on the CPU), and the gradients of the plain chain, fp32, 1e-5;
+    at rate 0.1 the same generator state gives the same output on both
+    routes."""
+    b, L = 2, 128
+    q, k, v = _inputs(b, L, L, 4, 2, 64, seed=21)
+    kw = {}
+    if "lens" in masks:
+        kw["kv_lens"] = np.array([128, 77], np.int32)
+    if "segments" in masks:
+        kw["q_segments"] = kw["kv_segments"] = _segments(b, L, [[30], [60]])
+    ref = JF.scaled_dot_product_attention(
+        *map(paddle.to_tensor, (q, k, v)),
+        **{n: paddle.to_tensor(a) for n, a in kw.items()}).numpy()
+    tkw = {n: torch.from_numpy(a) for n, a in kw.items()}
+    g = torch.from_numpy(np.random.RandomState(22).randn(b, L, 4, 64)
+                         .astype(np.float32))
+    chain = [t.requires_grad_() for t in _t(q, k, v)]
+    want = F.scaled_dot_product_attention(*chain, **tkw)
+    want.backward(g)
+    drop_chain = F.scaled_dot_product_attention(
+        *_t(q, k, v), dropout_p=0.1, generator=make_generator(5), **tkw)
+    calls = []
+    real = FlashAttention.apply
+    monkeypatch.setattr(attention.FlashAttention, "apply",
+                        lambda *a: calls.append(a[6:]) or real(*a))
+    monkeypatch.setattr(attention, "flash_path_available",
+                        lambda *a, **kw: True)
+    routed = [t.requires_grad_() for t in _t(q, k, v)]
+    got = F.scaled_dot_product_attention(*routed, **tkw)
+    got.backward(g)
+    drop_routed = F.scaled_dot_product_attention(
+        *_t(q, k, v), dropout_p=0.1, generator=make_generator(5), **tkw)
+    assert len(calls) == 2 and calls[0] == (tkw.get("kv_lens"),
+                                            tkw.get("q_segments"),
+                                            tkw.get("kv_segments"))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               atol=1e-5, rtol=1e-5)
+    for x, y in zip(routed, chain):
+        torch.testing.assert_close(x.grad, y.grad, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(drop_routed, drop_chain, atol=1e-5,
+                               rtol=1e-5)
+    assert not torch.allclose(drop_routed, got.detach())
+
+
+def test_dropout_keep_share_and_mask_on_both_routes(monkeypatch):
+    """Probe at rate 0.1: q = k = 0 makes every probability 1 / Lk, and v
+    of key j is the unit vector e_j (Lk = D = 64), so out[b, i, h, j] is
+    nonzero exactly where pair (i, j) is kept. On the plain chain and on
+    the kernel route (gate forced open) the kept pairs are those of
+    philox.attention_keep, their share within 4 sigma of 0.9, and one
+    generator seed gives one output."""
+    b, lq, h, d = 2, 256, 4, 64
+    rate = 0.1
+    q = torch.zeros(b, lq, h, d)
+    v = torch.eye(d).reshape(1, d, 1, d).expand(b, d, h, d).contiguous()
+    k = torch.zeros(b, d, h, d)
+    gen = make_generator(6)
+    want = philox.attention_keep(next_seed(gen), b, h, lq, d, rate)
+    kept = []
+    for gate in (False, True):
+        monkeypatch.setattr(attention, "flash_path_available",
+                            lambda *a, g=gate, **kw: g)
+        outs = [F.scaled_dot_product_attention(
+            q, k, v, dropout_p=rate, generator=make_generator(6))
+            for _ in range(2)]
+        assert torch.equal(outs[0], outs[1])
+        got = outs[0].permute(0, 2, 1, 3) != 0          # [b, h, i, j]
+        assert torch.equal(got, want)
+        kept.append(got.float().mean().item())
+    n = want.numel()
+    sigma = math.sqrt(rate * (1 - rate) / n)
+    assert abs(kept[0] - (1 - rate)) < 4 * sigma
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_full_lengths_drop_what_the_packed_path_drops(causal):
+    """At rate 0.1, the flat plain versions with every kv_lens = L give the
+    pair path's plain forward and backward at the same seed (one Philox
+    mask keyed on (b, q head, q position, key position)), fp32, 1e-6."""
+    b, L, h, d, rate, seed = 2, 128, 2, 64, 0.1, 0x5EED
+    rs = np.random.RandomState(23)
+    x = torch.from_numpy((rs.randn(b, L, 3 * h * d) * 0.6)
+                         .astype(np.float32))
+    g = torch.from_numpy(rs.randn(b, L, h * d).astype(np.float32))
+    lens = torch.full((b,), L)
+    q, k, v = (x[..., i * h * d:(i + 1) * h * d].reshape(b, L, h, d)
+               .contiguous() for i in range(3))
+    out, lse = flash_attention_fwd_reference(q, k, v, causal, None, rate,
+                                             seed=seed, kv_lens=lens)
+    pair_out, pair_lse = flash_pair_fwd_reference(x, h, causal, rate, seed)
+    torch.testing.assert_close(out.reshape(b, L, h * d), pair_out,
+                               atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(lse, pair_lse, atol=1e-6, rtol=1e-6)
+    grads = flash_attention_bwd_reference(
+        q, k, v, out, lse, g.reshape(b, L, h, d), causal, None, rate,
+        seed=seed, kv_lens=lens)
+    pair = flash_pair_bwd_reference(x, pair_out, pair_lse, g, h, causal,
+                                    rate, seed)
+    torch.testing.assert_close(
+        torch.cat([t.reshape(b, L, h * d) for t in grads], -1), pair,
+        atol=1e-6, rtol=1e-6)
+
+
+def test_dropout_seed_and_masks_are_saved_for_the_backward():
+    """FlashAttention at rate 0.1 with lengths and segments on the CPU: the
+    gradient equals the backward plain version at the forward's seed and
+    masks, not at another seed."""
+    q, k, v = _t(*_inputs(2, 128, 160, 4, 2, 64, seed=24))
+    lens = torch.tensor([160, 90])
+    seg_q = torch.from_numpy(_segments(2, 128, [[50], [70]]))
+    seg_k = torch.from_numpy(_segments(2, 160, [[60], [80]]))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = FlashAttention.apply(*leaves, False, 0.1, 77, lens, seg_q, seg_k)
+    g = torch.ones_like(out)
+    out.backward(g)
+    o, lse = flash_attention_fwd_reference(q, k, v, False, None, 0.1,
+                                           seed=77, kv_lens=lens,
+                                           q_segments=seg_q,
+                                           kv_segments=seg_k)
+    torch.testing.assert_close(out.detach(), o)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, g, False, None,
+                                         0.1, seed=77, kv_lens=lens,
+                                         q_segments=seg_q, kv_segments=seg_k)
+    other = flash_attention_bwd_reference(q, k, v, o, lse, g, False, None,
+                                          0.1, seed=78, kv_lens=lens,
+                                          q_segments=seg_q,
+                                          kv_segments=seg_k)
+    for leaf, w, x in zip(leaves, want, other):
+        torch.testing.assert_close(leaf.grad, w)
+        assert not torch.allclose(leaf.grad, x)
+
+
+def test_packed_qkv_split_route_drops_in_the_flat_kernels(monkeypatch):
+    """F.flash_attention_qkv_packed with heads the pair layout refuses (3
+    of 64), gate forced open, training at 0.1: the heads go to
+    FlashAttention with the seed drawn from the generator (the plain
+    version here), and the output is the flat plain forward at that
+    seed."""
+    b, L, h, d = 1, 128, 3, 64
+    x = torch.from_numpy(np.random.RandomState(25).randn(b, L, 3 * h * d)
+                         .astype(np.float32))
+    monkeypatch.setattr(attention, "flash_path_available",
+                        lambda *a, **kw: True)
+    gen = make_generator(8)
+    seed = next_seed(make_generator(8))
+    out = F.flash_attention_qkv_packed(x, h, dropout=0.1, causal=True,
+                                       training=True, generator=gen)
+    q, k, v = (x[..., i * h * d:(i + 1) * h * d].reshape(b, L, h, d)
+               .contiguous() for i in range(3))
+    want, _ = flash_attention_fwd_reference(q, k, v, True, None, 0.1,
+                                            seed=seed)
+    torch.testing.assert_close(out, want.reshape(b, L, h * d))
 
 
 # ------------------------------------------------------------------ cuda
@@ -313,3 +705,109 @@ def test_cuda_backward_matches_plain(case):
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         err = ((x.float() - y.float()).norm() / y.float().norm()).item()
         assert err < limit, f"{name}: relative error {err:.3g} >= {limit}"
+
+
+def _card_masks(b, lq, lk, lens, cuts, device="cuda"):
+    kw = {}
+    if lens is not None:
+        kw["kv_lens"] = torch.tensor(lens, dtype=torch.int32, device=device)
+    if cuts is not None:
+        kw["q_segments"] = torch.from_numpy(_segments(b, lq, cuts)).to(device)
+        kw["kv_segments"] = torch.from_numpy(
+            _segments(b, lk, [[c * lk // lq for c in row] for row in cuts])
+        ).to(device)
+    return kw
+
+
+# (B, Lq, Lk, H, Hkv, D, dtype, causal, kv_lens, segment cuts, rate)
+CARD_MASK_CASES = [
+    (4, 512, 512, 4, 4, 64, "bfloat16", False, [512, 33, 300, 64], None,
+     0.1),
+    (2, 512, 512, 8, 2, 128, "bfloat16", True, [512, 100], None, 0.0),
+    (2, 200, 300, 4, 2, 64, "float32", True, [300, 77], [[50, 120], [90]],
+     0.1),
+    (2, 256, 256, 2, 2, 64, "float32", False, [40, 1], None, 0.0),
+]
+
+
+def _weighted_limit(q, k, v, causal, out_ref, dtype, **kw):
+    """chip_smoke.py's [compare-fa] limit on each output element."""
+    atol, rtol = (4e-3, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    weight = flash_attention_fwd_reference(q, k, v.abs(), causal, **kw)[0]
+    return atol * weight.float().clamp_min(1.0) + rtol * out_ref.float().abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_MASK_CASES)
+def test_cuda_masked_kernels_match_plain(case):
+    """The flat kernels with lengths, segment ids and dropout against their
+    plain versions on the card (the limits of chip_smoke.py's
+    [compare-fa-masks]); dk and dv are exactly zero past each length; one
+    launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    b, lq, lk, h, hkv, d, dt, causal, lens, cuts, rate = case
+    dtype = getattr(torch, dt)
+    q, k, v, g = _card_inputs(b, lq, lk, h, hkv, d, dtype, seed=23)
+    kw = dict(_card_masks(b, lq, lk, lens, cuts), seed=99 if rate else None)
+    reset_launch_counts()
+    out, lse = flash_attention_fwd(q, k, v, causal, None, rate, **kw)
+    got = flash_attention_bwd(q, k, v, out, lse, g, causal, None, rate, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts() == dict(NO_LAUNCHES, flash_attention_fwd=1,
+                                   flash_attention_bwd=1)
+    ref_out, ref_lse = flash_attention_fwd_reference(q, k, v, causal, None,
+                                                     rate, **kw)
+    limit = _weighted_limit(q, k, v, causal, ref_out, dtype,
+                            dropout_rate=rate, **kw)
+    assert bool(((out.float() - ref_out.float()).abs() <= limit).all())
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, g, causal, None,
+                                         rate, **kw)
+    bound = 8.3e-4 if dtype == torch.bfloat16 else 9e-7
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        err = ((x.float() - y.float()).norm() / y.float().norm()).item()
+        assert err < bound, f"{name}: relative error {err:.3g} >= {bound}"
+    for r, n in enumerate(lens):
+        assert torch.count_nonzero(got[1][r, n:]) == 0
+        assert torch.count_nonzero(got[2][r, n:]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate, sm_scale", [(0.0, None), (0.1, None),
+                                            (0.1, 0.05)])
+def test_cuda_packed_qkv_matches_plain(rate, sm_scale):
+    """Row 6 on the card: flash_attention_qkv_packed at [2, 512, 3*4*128]
+    bf16 causal runs the pair kernels (one counted launch each way) and
+    matches the flat plain versions on the three column slices."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    b, L, h, d = 2, 512, 4, 128
+    rs = np.random.RandomState(24)
+    x = torch.from_numpy(rs.randn(b, L, 3 * h * d).astype(np.float32))
+    x[..., :2 * h * d] *= 2.0
+    x = x.cuda().to(torch.bfloat16)
+    g = torch.from_numpy(rs.randn(b, L, h * d).astype(np.float32)).cuda() \
+        .to(torch.bfloat16)
+    seed = 7 if rate else None
+    leaf = x.clone().requires_grad_()
+    reset_launch_counts()
+    out = flash_attention_qkv_packed(leaf, h, True, sm_scale, rate, seed)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert launch_counts() == dict(NO_LAUNCHES, flash_pair_fwd=1,
+                                   flash_pair_bwd=1)
+    q, k, v = _column_slices(x, h, d)
+    ref, lse = flash_attention_fwd_reference(q, k, v, True, sm_scale, rate,
+                                             seed=seed)
+    limit = _weighted_limit(q, k, v, True, ref, torch.bfloat16,
+                            sm_scale=sm_scale, seed=seed, dropout_rate=rate)
+    assert bool(((out.detach().float() - ref.reshape(b, L, h * d).float())
+                 .abs() <= limit.reshape(b, L, h * d)).all())
+    grads = flash_attention_bwd_reference(
+        q, k, v, out.detach().reshape(b, L, h, d), lse,
+        g.reshape(b, L, h, d), True, sm_scale, rate, seed=seed)
+    for i, want in enumerate(grads):
+        got = leaf.grad[..., i * h * d:(i + 1) * h * d].float()
+        want = want.reshape(b, L, h * d).float()
+        assert ((got - want).norm() / want.norm()).item() < 8.3e-4
