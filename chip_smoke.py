@@ -11,11 +11,16 @@ for heads of 128), ``flash_attention_fwd`` and ``flash_attention_bwd``
 per-sequence key lengths, segment ids and in-kernel dropout),
 ``dropout_fwd`` (dropout, forward and backward) and
 ``fused_add_dropout_ln_fwd`` / ``_bwd`` (BERT's residual epilogue
-``LayerNorm(x + dropout(sub))``). It holds each kernel against its plain
-PyTorch version at the shapes the main paths give it (every dropout mask
-for mask: each is one Philox function of the seed and the element, and the
-attention masks are read back with probe inputs), then drives the main
-paths through the user entry points, random weights from a seed:
+``LayerNorm(x + dropout(sub))``); the build fails on a wgmma that ptxas
+serialises (its note C7520). It times both attention forwards against the
+parent commit's (``[parent-fwd]``: an unpacked ``git archive`` of it in
+``smoke_checkout/parent/`` or ``PARENT_TREE``; without one the phase says
+so), holds each kernel against its plain PyTorch version at the shapes the
+main paths give it and at every head size the kernels are built for (64,
+80, 96, 128, 256, and 72 on zero-padded heads; every dropout mask for mask:
+each is one Philox function of the seed and the element, and the attention
+masks are read back with probe inputs), then drives the main paths through
+the user entry points, random weights from a seed:
 
 * GPT-medium (vocab 50304, hidden 1024, 16 blocks, 8 heads of 128)
   serving: the scoring forward and the paged DecodeEngine answering 8
@@ -68,8 +73,10 @@ yardstick only; the port never calls it). The last line is ``{"ok": true,
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -118,6 +125,15 @@ FA_CASES = [(2, 2048, 2048, 32, 32, 128, BF16, True), FA_TRAIN_CASE,
             (2, 2048, 2048, 4, 1, 128, BF16, True),
             (2, 200, 300, 4, 2, 64, FP32, True),
             (2, 200, 300, 4, 2, 64, FP32, False)]
+# the head sizes the JAX gate also sends to a kernel: built at 80, 96 and
+# 256, and 72 (run at 80 on zero-padded heads), bf16 and fp32, GQA 8/2
+FA_CASES += [(2, 1024, 1024, 8, 2, d, BF16, True) for d in (80, 96, 256, 72)]
+FA_CASES += [(2, 200, 300, 4, 2, d, FP32, c)
+             for d, c in ((80, True), (96, False), (256, True), (72, False))]
+# [parent-fwd]: where the parent commit's forward kernels are timed beside
+# these (an unpacked git archive of it; absent, the phase says so)
+PARENT_TREE = os.environ.get("PARENT_TREE", os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "smoke_checkout", "parent"))
 # [compare-fa-bwd] limits on the relative Frobenius error of each of dq,
 # dk, dv against the plain version: 3x the largest first reading on an
 # H100 (bf16 2.76e-4, dv of multi-query 4/1; fp32 2.96e-7)
@@ -227,7 +243,8 @@ def _is_flash_kernel(key):
     """A profiler key of the flash kernels (csrc/flash_attention.cuh: the
     forward, the backward and the backward's dq conversion; one family
     runs on each training path)."""
-    return any(name in key for name in ("flash_fwd_kernel",
+    return any(name in key for name in ("flash_fwd_sm90_kernel",
+                                        "flash_fwd_f32_kernel",
                                         "flash_bwd_kernel",
                                         "dq_convert_kernel"))
 
@@ -254,17 +271,25 @@ def phase_build():
     """Builds every source; per compiled kernel (an entry function, its
     mangled name cut to the kernel's name and template arguments: type,
     head size, dropout flag), ptxas's registers and spills."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from paddle_tpu_torch.kernels import _build
     t0 = time.perf_counter()
-    built = _build.build_all()
+    with ThreadPoolExecutor(1) as pool:
+        parent = pool.submit(_build_parent)
+        built = _build.build_all()
+        parent_libs = parent.result()
     log(f"[build] {len(built)} kernel source(s) in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s"
+        + ("" if parent_libs is None else
+           f" (the parent's two forward sources beside them)"))
     for name, res in built.items():
         entry, spill = "?", ""
         for line in res["log"].splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
-                m = re.search(r"\d([a-z_]+kernel)I(.+)", entry)
+                m = re.search(r"(flash_fwd_sm90_kernel|flash_fwd_f32_kernel|"
+                              r"flash_bwd_kernel|[a-z_]+kernel)I(.+)", entry)
                 if m:
                     entry = f"{m.group(1)}<{m.group(2)}>"
             elif "spill" in line:
@@ -272,12 +297,42 @@ def phase_build():
             elif "Used" in line and "registers" in line:
                 regs = line.split("Used")[1].split(",")[0].strip()
                 log(f"[build] {name} {entry}: {regs}; {spill}")
+            elif "C7520" in line:
+                # a wgmma the compiler serialises: a kernel as written that
+                # runs far below its design
+                raise AssertionError(f"[build] {name}: {line.strip()}")
+    return parent_libs
+
+
+def _build_parent():
+    """The parent commit's two forward launchers, built from PARENT_TREE
+    with the port's flags beside the checkout's own (for [parent-fwd]):
+    {name: loaded library}, or None without a parent tree."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from paddle_tpu_torch.kernels import _build
+    csrc = os.path.join(PARENT_TREE, "paddle_tpu_torch", "csrc")
+    if not os.path.isdir(csrc):
+        return None
+    out = _build.BUILD_DIR / "parent"
+    out.mkdir(parents=True, exist_ok=True)
+
+    def one(name):
+        lib = out / f"lib{name}.so"
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                        str(lib), os.path.join(csrc, f"{name}.cu")],
+                       check=True, capture_output=True, text=True)
+        return ctypes.CDLL(str(lib))
+
+    names = ("flash_attention_fwd", "flash_pair_fwd")
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(one, names)))
 
 
 def phase_compare():
     """Kernel vs plain version: the scoring shape, a ragged fp32 D=64
-    case, a bidirectional case and the training shape. Returns the scoring
-    shape's record.
+    case, a bidirectional case, the training shape and heads of 256 (bf16
+    causal, fp32 bidirectional). Returns the scoring shape's record.
 
     q and k are drawn N(0, 2^2) and v N(0, 1), so the scores have a spread
     of 4 and a handful of keys carry each row: the outputs are O(1)
@@ -295,7 +350,9 @@ def phase_compare():
     cases = [(2, 1024, 8, 128, torch.bfloat16, True),    # the slice's shape
              (2, 300, 4, 64, torch.float32, True),       # ragged L, D=64
              (2, 1024, 8, 128, torch.bfloat16, False),   # bidirectional
-             (16, 1024, 8, 128, torch.bfloat16, True)]   # the train shape
+             (16, 1024, 8, 128, torch.bfloat16, True),   # the train shape
+             (2, 1024, 4, 256, torch.bfloat16, True),    # heads of 256
+             (2, 300, 2, 256, torch.float32, False)]
     for b, L, h, d, dtype, causal in cases:
         qkv = torch.randn(b, L, 3, h * d, device="cuda", generator=gen)
         qkv[:, :, :2] *= 2.0
@@ -332,6 +389,80 @@ def phase_compare():
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=library_ms)
     return record
+
+
+# [parent-fwd] shapes: (tag, launcher, B, L, H, D, causal, rate, lengths):
+# the headline shapes (LLaMA-7B's training and scoring forwards, GPT-
+# medium's training forward, BERT's packed training forward) and those of
+# the kernels line's forward records
+PARENT_FWD_CASES = [
+    ("llama-train", "flat", 4, 2048, 32, 128, True, 0.0, False),
+    ("llama-scoring", "flat", 2, 2048, 32, 128, True, 0.0, False),
+    ("gpt-train", "pair", 16, 1024, 8, 128, True, 0.0, False),
+    ("gpt-scoring", "pair", 2, 1024, 8, 128, True, 0.0, False),
+    ("bert-packed", "pair", 64, 512, 12, 64, False, 0.1, False),
+    ("bert-padded", "flat", 64, 512, 12, 64, False, 0.1, True),
+    ("row6", "pair", 2, 2048, 16, 128, True, 0.1, False)]
+
+
+def phase_parent_fwd(parent_libs):
+    """Both forward launchers against the parent commit's (built from
+    PARENT_TREE by ``_build_parent``) on the same inputs, in the same
+    process on the same card: the wrappers are the same, only the loaded
+    library differs. Each case's time must be no more than the parent's.
+    Returns
+    {tag: parent ms} (empty without a parent tree)."""
+    from paddle_tpu_torch.kernels import _build, flash_attention, flash_pair
+    if parent_libs is None:
+        log(f"[parent-fwd] not measured: no parent tree at {PARENT_TREE} "
+            f"(set PARENT_TREE to an unpacked git archive of the parent "
+            f"commit)")
+        return {}
+    argtypes = {"flash_attention_fwd": flash_attention._FWD_ARGTYPES,
+                "flash_pair_fwd": flash_pair._ARGTYPES}
+    for name, lib in parent_libs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes[name])
+        fn.restype = ctypes.c_int
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(60)
+    parent_ms = {}
+    for tag, launcher, b, L, h, d, causal, rate, lens in PARENT_FWD_CASES:
+        seed = 0x9A4E47 if rate else None
+        if launcher == "flat":
+            name = "flash_attention_fwd"
+            q, k, v, _ = _fa_inputs(b, L, L, h, h, d, BF16, gen)
+            kw = {}
+            if lens:
+                kw["kv_lens"] = torch.as_tensor(
+                    _bert_pad_lengths(b, L, BERT_PAD_SEED), dtype=torch.int32,
+                    device="cuda")
+
+            def call():
+                return flash_attention.flash_attention_fwd(
+                    q, k, v, causal, None, rate, seed=seed, **kw)
+        else:
+            name = "flash_pair_fwd"
+            qkv, _ = _bwd_inputs(b, L, h, d, BF16, gen)
+
+            def call():
+                return flash_pair.flash_pair_fwd(qkv, h, causal, rate, seed)
+        ms = cuda_time_ms(call)
+        ours = _build._loaded[name]
+        _build._loaded[name] = parent_libs[name]
+        try:
+            parent_ms[tag] = cuda_time_ms(call, iters=10)
+        finally:
+            _build._loaded[name] = ours
+        log(f"[parent-fwd] {tag}: {name} B={b} L={L} H={h} D={d} bf16 "
+            f"causal={causal} rate {rate}{' lengths' if lens else ''}: "
+            f"kernel {ms:.4f} ms, the parent's {parent_ms[tag]:.4f} ms "
+            f"({parent_ms[tag] / ms:.2f}x)")
+        if ms > parent_ms[tag]:
+            raise AssertionError(f"[parent-fwd] {tag}: the forward is slower "
+                                 f"than the parent's")
+        torch.cuda.empty_cache()
+    return parent_ms
 
 
 def _bwd_inputs(b, L, h, d, dtype, gen):
@@ -932,9 +1063,10 @@ def _sdpa_library(q, k, v, causal, valid=None, rate=0.0):
 def phase_compare_fa():
     """flash_attention_fwd vs its plain version: LLaMA-7B's scoring shape
     [2, 2048, 32, 128] and training shape [4, 2048, 32, 128] (bf16,
-    causal), GQA (32 q heads on 8 KV heads), multi-query (4 on 1), and
-    fp32 ragged Lq = 200, Lk = 300, D = 64 (GQA 4 on 2), causal and
-    bidirectional. Inputs as [compare]. The limit on each output element
+    causal), GQA (32 q heads on 8 KV heads), multi-query (4 on 1), fp32
+    ragged Lq = 200, Lk = 300, D = 64 (GQA 4 on 2), causal and
+    bidirectional, and the head sizes 80, 96, 256 and 72 (padded to 80) in
+    bf16 [2, 1024, 8 on 2] and fp32 ragged. Inputs as [compare]. The limit on each output element
     is [compare]'s, atol 4e-3 + rtol 1e-2 in bf16 (1e-4 in fp32), with
     atol multiplied by the probability-weighted |v| the element sums over
     where that exceeds 1 (the plain version on |v| computes it): the
@@ -998,8 +1130,9 @@ def phase_compare_fa_bwd():
     [compare-fa]: per part (dq, dk, dv) the relative Frobenius error
     (limits FA_BWD_REL_LIMIT), dk and dv equal bit for bit between two
     launches (no atomics there) and dq's run-to-run change. At the
-    training shape it then times the kernel beside the plain version,
-    torch.autograd.grad through the library call and the bound."""
+    training shape and at heads of 256 (bf16) it then times the kernel
+    beside the plain version, torch.autograd.grad through the library call
+    and the bound."""
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_reference,
         flash_attention_fwd)
@@ -1031,7 +1164,7 @@ def phase_compare_fa_bwd():
             f"H={h} Hkv={hkv} D={d} {str(dtype)[6:]} causal={causal}: "
             f"{'; '.join(parts)} (limit rel {FA_BWD_REL_LIMIT[dtype]}); dq "
             f"run-to-run max|diff| {dq_jitter:.3g}")
-        if case == FA_TRAIN_CASE:
+        if case == FA_TRAIN_CASE or (d == 256 and dtype == BF16):
             ms = cuda_time_ms(
                 lambda: flash_attention_bwd(q, k, v, out, lse, g, causal),
                 iters=10)
@@ -1045,7 +1178,7 @@ def phase_compare_fa_bwd():
                 o, leaves, g.transpose(1, 2), retain_graph=True))
             bound_ms, bound_by = fa_bound_ms(b, lq, lk, h, hkv, d, dtype,
                                              causal, backward=True)
-            log(f"[compare-fa-bwd] at the training shape: kernel {ms:.4f} "
+            log(f"[compare-fa-bwd] at [{b}, {lq}, {h}, {d}]: kernel {ms:.4f} "
                 f"ms, plain {plain_ms:.4f} ms, sdpa backward "
                 f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
             del leaves, o
@@ -2014,7 +2147,8 @@ def phase_profile_bert_train(model, opt, batch, tag):
     ours = {}
     for e in kernels:
         if _is_bert_kernel(e.key):
-            name = next(n for n in ("flash_fwd_kernel", "flash_bwd_kernel",
+            name = next(n for n in ("flash_fwd_sm90_kernel",
+                                    "flash_fwd_f32_kernel", "flash_bwd_kernel",
                                     "dq_convert_kernel", "dropout_kernel",
                                     "fused_ln_fwd_kernel",
                                     "fused_ln_bwd_kernel") if n in e.key)
@@ -2125,7 +2259,9 @@ def _fa_mask_cases():
     shares of the length, rate) of [compare-fa-masks]: BERT's padded shape
     at rates 0 and 0.1, GQA 32/8 causal with lengths, fp32 ragged Lq != Lk
     with lengths, 3 segments a row and dropout, and a length shorter than
-    one tile. BERT's lengths are [bert-pad-train]'s batch's (seed 45)."""
+    one tile, and the bf16 kernel's segment ids at D = 128 (causal, rate
+    0.1) and D = 64. BERT's lengths are [bert-pad-train]'s batch's (seed
+    45)."""
     bert = [int(x) for x in _bert_pad_lengths(BERT_TRAIN["batch"],
                                               BERT_TRAIN["seq"],
                                               BERT_PAD_SEED)]
@@ -2136,7 +2272,12 @@ def _fa_mask_cases():
             ("ragged", 2, 200, 300, 4, 2, 64, FP32, True, [300, 230],
              (0.3, 0.6), 0.1),
             ("short", 2, 256, 256, 4, 4, 64, BF16, False, [40, 1], None,
-             0.1)]
+             0.1),
+            # the bf16 kernel's segment-id instantiations at both head sizes
+            ("segs", 2, 1024, 1024, 8, 2, 128, BF16, True, [1024, 700],
+             (0.25, 0.5), 0.1),
+            ("segs", 4, 512, 512, 4, 4, 64, BF16, False, [512, 300, 100, 512],
+             (0.5,), 0.0)]
 
 
 def phase_compare_fa_masks():
@@ -2286,9 +2427,10 @@ def _fa_mask_probe(b, L, h, d, causal, seed, rate, kw):
 
 def phase_fa_mask_probe():
     """The keep masks of both flat kernels read back with probe inputs
-    (``_fa_mask_probe``) at BERT's padded shape [64, 512, 12, 64] rate 0.1
-    and at [2, 256, 4, 64] causal with lengths and 3 segments a row (the
-    kSegs instantiations): 0 mismatches against philox.attention_keep on
+    (``_fa_mask_probe``) at BERT's padded shape [64, 512, 12, 64] rate 0.1,
+    at [2, 256, 4, 64] and [2, 256, 2, 128] causal with lengths and 3
+    segments a row (the kSegs instantiations) and at [2, 256, 2, 128]
+    bidirectional with lengths: 0 mismatches against philox.attention_keep on
     the attended pairs, probability exactly 0 on every masked pair (past a
     length, across segments, above the diagonal), and dk = dv = 0 exactly
     on the keys past each length."""
@@ -2303,7 +2445,14 @@ def phase_fa_mask_probe():
              (2, 256, 4, 64, True,
               dict(kv_lens=torch.tensor([256, 201], dtype=torch.int32,
                                         device="cuda"),
-                   q_segments=seg, kv_segments=seg))]
+                   q_segments=seg, kv_segments=seg)),
+             (2, 256, 2, 128, True,
+              dict(kv_lens=torch.tensor([256, 201], dtype=torch.int32,
+                                        device="cuda"),
+                   q_segments=seg, kv_segments=seg)),
+             (2, 256, 2, 128, False,
+              dict(kv_lens=torch.tensor([130, 256], dtype=torch.int32,
+                                        device="cuda")))]
     for b, L, h, d, causal, kw in cases:
         fwd_m, bwd_m, leak, dead, attended, masked = _fa_mask_probe(
             b, L, h, d, causal, 0xFACE + b, rate, kw)
@@ -2568,7 +2717,8 @@ def main() -> int:
     name, count, smi = phase_card()
     log("[card] TF32 off (torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False)")
-    phase_build()
+    parent_libs = phase_build()
+    parent_ms = phase_parent_fwd(parent_libs)
     records = {"flash_pair_fwd": phase_compare(),
                "flash_pair_bwd": phase_compare_bwd()}
     phase_autograd()
@@ -2582,6 +2732,11 @@ def main() -> int:
      records["flash_attention_bwd"]) = phase_compare_fa_masks()
     phase_fa_mask_probe()
     row6, row6_records = phase_compare_fa_packed()   # row 6's own call
+    # the forward records beside the parent's time at their shapes
+    for record, tag in ((records["flash_pair_fwd"], "gpt-scoring"),
+                        (records["flash_attention_fwd"], "bert-padded"),
+                        (row6_records[0], "row6")):
+        record["parent_ms"] = parent_ms.get(tag)
     paths = {}
     t0 = time.perf_counter()
     model = GPTForCausalLM(GPTConfig(**GPT_MEDIUM), dtype=torch.bfloat16,

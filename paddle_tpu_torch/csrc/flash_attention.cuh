@@ -39,12 +39,15 @@
 // round once; the JAX package rounds each q head's dk/dv to the input type
 // before its fp32 group sum (`group` roundings in bf16 against one here).
 //
-// Forward design: one CTA of 4 warps per (64-row q tile, q head, batch
-// row). It keeps the q tile, one k tile, one v tile, the score and
-// probability tiles and the fp32 output accumulator in shared memory, and
-// walks the kv tiles up to the diagonal (causal tile skip) with the online
-// softmax; each warp owns 16 q rows end to end, so only the shared k/v tile
-// loads need a CTA barrier. Heavy causal q tiles launch first.
+// Forward design: bf16 runs the Hopper kernel of flash_fwd_sm90.cuh (TMA
+// loads into rings of K and V stages, two warpgroups of 64 q rows, wgmma
+// with S, P and O in registers, the softmax of one kv tile overlapped with
+// the previous tile's P.V; that header sets it out). fp32 keeps the SIMT
+// body below (plain FMA: TF32 would miss the fp32 reference): one CTA of 4
+// warps per (64-row q tile, q head, batch row), the tiles and the fp32
+// output accumulator in shared memory, a lane pair per q row. Both walk the
+// kv tiles up to the diagonal (causal tile skip) with the online softmax;
+// heavy causal q tiles launch first.
 //
 // Backward design (FlashAttention-2's, extended over a GQA group): one CTA
 // of 4 warps per (64-row kv tile, KV head, batch row). It loads its K and
@@ -89,23 +92,20 @@
 // decisions are those of the kernel before them.
 //
 // Both: rows past a length read as zero and are never written; kv rows that
-// no query sees get zero gradients. bf16 products run on the tensor cores
-// through WMMA (16x16x16, fp32 accumulate); fp32 uses plain FMA, because
-// TF32 would miss the fp32 reference. The block sizes are the kernels' own
-// (64 x 64); the Pallas default of 1024 x 1024 is a VMEM choice of the TPU.
+// no query sees get zero gradients. The backward's bf16 products run on
+// the tensor cores through WMMA (16x16x16, fp32 accumulate); fp32 uses
+// plain FMA. Head sizes 64, 80, 96, 128 and 256 are built (80 and 96 are
+// multiples of WMMA's 16; at 256 the backward's kv tile is 32 rows and the
+// fp32 forward's 32 keys, so the tiles fit in shared memory); the wrappers
+// run any other head size up to 256 on zero-padded heads.
 //
-// What bounds them on the H100, and the plan: both are bound by their
-// operations at the shapes the models give them (4*D and 10*D operations a
-// attended pair against ~2 bytes a pair of the rows), and both are 20-40x
-// that bound in this first version: WMMA from shared memory, synchronous
-// global loads, the forward's accumulator in shared memory (2 CTAs per
-// SM), the backward's 171 KB of shared memory (one CTA per SM, 255
-// registers), scalar fp32 atomics for dq, and causal walks of unequal
-// length. The plan for speed: wgmma on 64-row warpgroup tiles with the
-// accumulators in registers, TMA loads into a multi-stage ring, exp2-based
-// softmax, dq reduced in registers with vector reductions, and a persistent
-// schedule that pairs long and short causal walks (the FlashAttention-3
-// structure).
+// What bounds them on the H100: both are bound by their operations at the
+// shapes the models give them (4*D and 10*D operations an attended pair
+// against ~2 bytes a pair of the rows). The plan for the backward (R2),
+// 9x the library and 23x its bound in its first version: wgmma on 64-row
+// warpgroup tiles with dK/dV in registers, the forward's TMA rings, dq
+// reduced in registers with vector reductions, and a persistent schedule
+// that pairs long and short causal walks (the FlashAttention-3 structure).
 
 #pragma once
 
@@ -121,9 +121,8 @@
 
 namespace {
 
-constexpr int kBM = 64;            // q rows per tile
-constexpr int kBN = 64;            // kv rows per tile
-constexpr int kWarps = 4;          // bf16: each warp owns 16 q (and kv) rows
+constexpr int kBM = 64;            // q rows per tile (SIMT forward, backward)
+constexpr int kWarps = 4;          // each warp owns 16 q rows
 constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;  // _NEG_INF of the Pallas kernels
 
@@ -133,17 +132,18 @@ constexpr float kNegInf = -1e30f;  // _NEG_INF of the Pallas kernels
 template <typename T, int D>
 constexpr int kLdTile = D + 16 / (int)sizeof(T);
 
-// Copy rows [r0, r0 + 64) of one head's D columns (rows row_stride apart)
-// into a shared tile with 16-byte vector loads; rows at or past L are
-// zero-filled (a zero v row times a zero probability stays zero, garbage
-// could be NaN). With kScale the values are multiplied by sm_scale and
-// rounded back to T.
+// Copy rows [r0, r0 + rows) of one head's D columns (rows row_stride
+// apart) into a shared tile with 16-byte vector loads; rows at or past L
+// are zero-filled (a zero v row times a zero probability stays zero,
+// garbage could be NaN). With kScale the values are multiplied by sm_scale
+// and rounded back to T.
 template <typename T, int D, bool kScale>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int r0, int L,
-                                          long row_stride, float sm_scale) {
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int r0,
+                                          int rows, int L, long row_stride,
+                                          float sm_scale) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kVecPerRow = D / kVec;
-  for (int i = threadIdx.x; i < 64 * kVecPerRow; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * kVecPerRow; i += kThreads) {
     const int r = i / kVecPerRow;
     const int cv = i % kVecPerRow;
     const int gr = r0 + r;
@@ -211,114 +211,77 @@ struct FwdArgs {
   const int* k_seg;
 };
 
-template <typename T, int D>
+}  // namespace
+
+#include "flash_fwd_sm90.cuh"  // the bf16 forward
+
+namespace {
+
+// The fp32 forward (plain FMA: TF32 would miss the fp32 reference) keeps
+// the first slices' SIMT design: one CTA of 4 warps per (64-row q tile, q
+// head, batch row), the q tile, one k and one v tile of BN rows, the score
+// and probability tiles and the output accumulator in shared memory, a lane
+// pair per q row. BN is 64, or 32 at D = 256 so the tiles fit.
+template <int D>
+constexpr int kFwdF32BN = D == 256 ? 32 : 64;
+
+template <int D, int BN>
 struct FwdGeom {
-  static constexpr int kLdT = kLdTile<T, D>;  // q/k/v tiles (T)
-  static constexpr int kLdS = kBN + 4;        // score tile (float)
-  static constexpr int kLdP = kBN + 16 / (int)sizeof(T);  // probabilities
-  static constexpr int kLdO = D + 4;          // output accumulator (float)
+  static constexpr int kLdT = kLdTile<float, D>;  // q/k/v tiles
+  static constexpr int kLdS = BN + 4;             // scores, probabilities
+  static constexpr int kLdO = D + 4;              // output accumulator
   static constexpr size_t kQ = 0;
-  static constexpr size_t kK = kQ + sizeof(T) * kBM * kLdT;
-  static constexpr size_t kV = kK + sizeof(T) * kBN * kLdT;
-  static constexpr size_t kS = kV + sizeof(T) * kBN * kLdT;
+  static constexpr size_t kK = kQ + sizeof(float) * kBM * kLdT;
+  static constexpr size_t kV = kK + sizeof(float) * BN * kLdT;
+  static constexpr size_t kS = kV + sizeof(float) * BN * kLdT;
   static constexpr size_t kP = kS + sizeof(float) * kBM * kLdS;
-  static constexpr size_t kO = kP + sizeof(T) * kBM * kLdP;
+  static constexpr size_t kO = kP + sizeof(float) * kBM * kLdS;
   static constexpr size_t kM = kO + sizeof(float) * kBM * kLdO;
   static constexpr size_t kL = kM + sizeof(float) * kBM;
   static constexpr size_t kBytes = kL + sizeof(float) * kBM;
 };
 
-// S[rows of this warp] = Q . K^T for the current kv tile.
-template <typename T, int D>
-__device__ __forceinline__ void scores(const T* Qs, const T* Ks, float* Ss,
-                                       int warp, int lane) {
-  using G = FwdGeom<T, D>;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    using namespace nvcuda;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kBN / 16];
-#pragma unroll
-    for (int j = 0; j < kBN / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a;
-      wmma::load_matrix_sync(a, Qs + warp * 16 * G::kLdT + kk, G::kLdT);
-#pragma unroll
-      for (int j = 0; j < kBN / 16; ++j) {
-        // K stored [n][d] row-major is K^T in column-major order
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> bk;
-        wmma::load_matrix_sync(bk, Ks + j * 16 * G::kLdT + kk, G::kLdT);
-        wmma::mma_sync(acc[j], a, bk, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kBN / 16; ++j) {
-      wmma::store_matrix_sync(Ss + warp * 16 * G::kLdS + j * 16, acc[j],
-                              G::kLdS, wmma::mem_row_major);
-    }
-  } else {
-    // lane pair per row, half the tile's columns each
-    const int r = warp * 16 + (lane >> 1);
-    const int c0 = (lane & 1) * (kBN / 2);
-    const T* q = Qs + r * G::kLdT;
-    for (int c = c0; c < c0 + kBN / 2; ++c) {
-      const T* k = Ks + c * G::kLdT;
-      float acc = 0.0f;
+// S[this lane pair's row, its half of the columns] = Q . K^T.
+template <int D, int BN>
+__device__ __forceinline__ void scores(const float* Qs, const float* Ks,
+                                       float* Ss, int r, int half) {
+  using G = FwdGeom<D, BN>;
+  const int c0 = half * (BN / 2);
+  const float* q = Qs + r * G::kLdT;
+  for (int c = c0; c < c0 + BN / 2; ++c) {
+    const float* k = Ks + c * G::kLdT;
+    float acc = 0.0f;
 #pragma unroll 8
-      for (int d = 0; d < D; ++d) acc = fmaf(to_f(q[d]), to_f(k[d]), acc);
-      Ss[r * G::kLdS + c] = acc;
-    }
+    for (int d = 0; d < D; ++d) acc = fmaf(q[d], k[d], acc);
+    Ss[r * G::kLdS + c] = acc;
   }
 }
 
-// O[rows of this warp] += P . V for the current kv tile.
-template <typename T, int D>
-__device__ __forceinline__ void accumulate_pv(const T* Ps, const T* Vs,
-                                              float* Os, int warp, int lane) {
-  using G = FwdGeom<T, D>;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    using namespace nvcuda;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-      float* optr = Os + warp * 16 * G::kLdO + j * 16;
-      wmma::load_matrix_sync(o, optr, G::kLdO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBN; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> bv;
-        wmma::load_matrix_sync(a, Ps + warp * 16 * G::kLdP + kk, G::kLdP);
-        wmma::load_matrix_sync(bv, Vs + kk * G::kLdT + j * 16, G::kLdT);
-        wmma::mma_sync(o, a, bv, o);
-      }
-      wmma::store_matrix_sync(optr, o, G::kLdO, wmma::mem_row_major);
-    }
-  } else {
-    const int r = warp * 16 + (lane >> 1);
-    const int d0 = (lane & 1) * (D / 2);
-    const T* p = Ps + r * G::kLdP;
-    float* o = Os + r * G::kLdO;
-    for (int d = d0; d < d0 + D / 2; ++d) {
-      float acc = o[d];
-      for (int c = 0; c < kBN; ++c)
-        acc = fmaf(to_f(p[c]), to_f(Vs[c * G::kLdT + d]), acc);
-      o[d] = acc;
-    }
+// O[this lane pair's row, its half of the columns] += P . V.
+template <int D, int BN>
+__device__ __forceinline__ void accumulate_pv(const float* Ps,
+                                              const float* Vs, float* Os,
+                                              int r, int half) {
+  using G = FwdGeom<D, BN>;
+  const float* p = Ps + r * G::kLdS;
+  float* o = Os + r * G::kLdO;
+  for (int d = half * (D / 2); d < (half + 1) * (D / 2); ++d) {
+    float acc = o[d];
+    for (int c = 0; c < BN; ++c) acc = fmaf(p[c], Vs[c * G::kLdT + d], acc);
+    o[d] = acc;
   }
 }
 
-template <typename T, int D, bool kDrop, bool kSegs>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
-  using G = FwdGeom<T, D>;
+template <int D, int BN, bool kDrop, bool kSegs>
+__global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(FwdArgs a) {
+  using T = float;
+  using G = FwdGeom<D, BN>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + G::kQ);
   T* Ks = reinterpret_cast<T*>(smem + G::kK);
   T* Vs = reinterpret_cast<T*>(smem + G::kV);
   float* Ss = reinterpret_cast<float*>(smem + G::kS);
-  T* Ps = reinterpret_cast<T*>(smem + G::kP);
+  float* Ps = reinterpret_cast<float*>(smem + G::kP);
   float* Os = reinterpret_cast<float*>(smem + G::kO);
   float* Ms = reinterpret_cast<float*>(smem + G::kM);
   float* Ls = reinterpret_cast<float*>(smem + G::kL);
@@ -338,14 +301,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
   const T* kg = static_cast<const T*>(a.k) + kv_base;
   const T* vg = static_cast<const T*>(a.v) + kv_base;
 
-  load_tile<T, D, true>(Qs, qg, q0, a.Lq, a.q_row, a.sm_scale);
+  load_tile<T, D, true>(Qs, qg, q0, kBM, a.Lq, a.q_row, a.sm_scale);
   for (int i = threadIdx.x; i < kBM * G::kLdO; i += kThreads) Os[i] = 0.0f;
   if (threadIdx.x < kBM) {
     Ms[threadIdx.x] = kNegInf;
     Ls[threadIdx.x] = 0.0f;
   }
 
-  // rows this lane pair owns in the softmax and the fp32 paths
+  // the row this lane pair owns, and which half of the columns
   const int r = warp * 16 + (lane >> 1);
   const int qrow = q0 + r;
   const int half = lane & 1;
@@ -354,21 +317,21 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
   const int kv_end =
       a.causal ? min(mask.len, max(0, q0 + kBM + mask.offset)) : mask.len;
 
-  for (int n0 = 0; n0 < kv_end; n0 += kBN) {
+  for (int n0 = 0; n0 < kv_end; n0 += BN) {
     __syncthreads();  // previous tile fully consumed (and Q/O/M/L ready)
-    load_tile<T, D, false>(Ks, kg, n0, a.Lk, a.kv_row, 1.0f);
-    load_tile<T, D, false>(Vs, vg, n0, a.Lk, a.kv_row, 1.0f);
+    load_tile<T, D, false>(Ks, kg, n0, BN, a.Lk, a.kv_row, 1.0f);
+    load_tile<T, D, false>(Vs, vg, n0, BN, a.Lk, a.kv_row, 1.0f);
     __syncthreads();
 
-    scores<T, D>(Qs, Ks, Ss, warp, lane);
+    scores<D, BN>(Qs, Ks, Ss, r, half);
     __syncwarp();
 
     // online softmax over this row's half of the tile
     float* srow = Ss + r * G::kLdS;
-    T* prow = Ps + r * G::kLdP;
-    const int c0 = half * (kBN / 2);
+    float* prow = Ps + r * G::kLdS;
+    const int c0 = half * (BN / 2);
     float mx = kNegInf;
-    for (int c = c0; c < c0 + kBN / 2; ++c) {
+    for (int c = c0; c < c0 + BN / 2; ++c) {
       const float s = mask(qrow, n0 + c) ? srow[c] : kNegInf;
       srow[c] = s;
       mx = fmaxf(mx, s);
@@ -378,7 +341,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
     const float m_cur = fmaxf(m_prev, mx);
     const float corr = expf(m_prev - m_cur);
     float sum = 0.0f;
-    for (int c = c0; c < c0 + kBN / 2; c += 4) {
+    for (int c = c0; c < c0 + BN / 2; c += 4) {
       uint4 w;
       if constexpr (kDrop)
         w = keep_words(a.drop, (uint32_t)(n0 + c) >> 2, (uint32_t)qrow, bh,
@@ -390,7 +353,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
         sum += p;  // l from the undropped p
         float pv = p;
         if constexpr (kDrop) pv = p * keep_factor(a.drop, word_of(w, e));
-        prow[c + e] = from_f<T>(pv);  // rounded to v's type before P.V
+        prow[c + e] = pv;
       }
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -404,7 +367,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
     }
     __syncwarp();
 
-    accumulate_pv<T, D>(Ps, Vs, Os, warp, lane);
+    accumulate_pv<D, BN>(Ps, Vs, Os, r, half);
   }
   __syncthreads();
 
@@ -416,7 +379,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
     const int gr = q0 + rr;
     if (gr < a.Lq) {
       const float l = fmaxf(Ls[rr], 1e-30f);
-      og[(long)gr * a.o_row + d] = from_f<T>(Os[rr * G::kLdO + d] / l);
+      og[(long)gr * a.o_row + d] = Os[rr * G::kLdO + d] / l;
     }
   }
   if (threadIdx.x < kBM && q0 + threadIdx.x < a.Lq) {
@@ -426,10 +389,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
   }
 }
 
-template <typename T, int D, bool kDrop, bool kSegs>
-cudaError_t launch_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
-  using G = FwdGeom<T, D>;
-  auto kernel = flash_fwd_kernel<T, D, kDrop, kSegs>;
+template <int D, bool kDrop, bool kSegs>
+cudaError_t launch_fwd_f32(const FwdArgs& a, int B, cudaStream_t stream) {
+  constexpr int BN = kFwdF32BN<D>;
+  using G = FwdGeom<D, BN>;
+  auto kernel = flash_fwd_f32_kernel<D, BN, kDrop, kSegs>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kBytes);
   if (err != cudaSuccess) return err;
@@ -438,23 +402,38 @@ cudaError_t launch_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The forward for input type (bf16 or fp32) and head size (64 or 128),
-// with dropout (kDrop, a.drop) or without, with segment ids (kSegs,
-// a.q_seg and a.k_seg) or without; returns the cudaError_t of the launch.
-template <bool kDrop = false, bool kSegs = false>
-int flash_fwd(const FwdArgs& a, int B, int D, int is_bf16, cudaStream_t st) {
+template <int D, bool kDrop, bool kSegs>
+cudaError_t launch_fwd(const FwdArgs& a, int B, int is_bf16,
+                       cudaStream_t st) {
+  return is_bf16 ? sm90::launch<D, kDrop, kSegs>(a, B, st)
+                 : launch_fwd_f32<D, kDrop, kSegs>(a, B, st);
+}
+
+// The head sizes the launchers are built for: every size of the [B, L, H,
+// D] layout, and the pair layout's (whole 128-column blocks of heads). The
+// wrappers pad any other head size up to the next of them with zero
+// columns.
+template <int... Ds>
+struct HeadDims {};
+using FlatHeadDims = HeadDims<64, 80, 96, 128, 256>;
+using PairHeadDims = HeadDims<64, 128, 256>;
+
+// The forward for input type (bf16: the wgmma kernel; fp32: the SIMT
+// kernel) and head size D (one of Ds), with dropout (kDrop, a.drop) or
+// without, with segment ids (kSegs, a.q_seg and a.k_seg) or without;
+// returns the cudaError_t of the launch (cudaErrorInvalidValue also when a
+// TMA descriptor cannot be encoded).
+template <bool kDrop, bool kSegs, int... Ds>
+int flash_fwd(HeadDims<Ds...>, const FwdArgs& a, int B, int D, int is_bf16,
+              cudaStream_t st) {
   if (B <= 0 || a.Lq <= 0 || a.Lk <= 0 || a.H <= 0 || a.Hkv <= 0 ||
       a.H % a.Hkv || (kSegs && (!a.q_seg || !a.k_seg)))
     return (int)cudaErrorInvalidValue;
-  using BF = __nv_bfloat16;
-  if (is_bf16) {
-    if (D == 64) return (int)launch_fwd<BF, 64, kDrop, kSegs>(a, B, st);
-    if (D == 128) return (int)launch_fwd<BF, 128, kDrop, kSegs>(a, B, st);
-  } else {
-    if (D == 64) return (int)launch_fwd<float, 64, kDrop, kSegs>(a, B, st);
-    if (D == 128) return (int)launch_fwd<float, 128, kDrop, kSegs>(a, B, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  int rc = (int)cudaErrorInvalidValue;
+  ((D == Ds ? (rc = (int)launch_fwd<Ds, kDrop, kSegs>(a, B, is_bf16, st))
+            : 0),
+   ...);
+  return rc;
 }
 
 // ----------------------------------------------------------------- backward
@@ -484,60 +463,83 @@ struct BwdArgs {
   const int* k_seg;
 };
 
+// kv rows of a backward CTA: 64, or 32 at D = 256 so the tiles fit in
+// shared memory and dK/dV in registers.
+template <int D>
+constexpr int kBwdBN = D == 256 ? 32 : 64;
+
 // Shared-memory geometry; every region size is a multiple of 128 bytes.
-//   K, V, Q (unscaled), dO : [64][kLdT] T
+//   K, V                   : [BN][kLdT] T
+//   Q (unscaled), dO       : [64][kLdT] T
 //   Qs (q * scale, rounded): [64][kLdT] T           (bf16 only)
 //   S, dP                  : [64][kLdS] float       (fp32: p and ds in place)
 //   P, dS                  : [64][kLdP] T           (bf16 only)
 //   dQ/dK/dV staging       : [64][kLdQ] float       (bf16 only)
 //   lse, delta             : [64] float
-template <typename T, int D>
+template <typename T, int D, int BN>
 struct BwdGeom {
   static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   static constexpr int kLdT = kLdTile<T, D>;
-  static constexpr int kLdS = kBN + 4;
-  static constexpr int kLdP = kBN + 16 / (int)sizeof(T);
+  static constexpr int kLdS = BN + 4;
+  static constexpr int kLdP = BN + 16 / (int)sizeof(T);
   static constexpr int kLdQ = D + 4;
-  static constexpr size_t kTileT = sizeof(T) * 64 * kLdT;
+  static constexpr size_t kTileQ = sizeof(T) * kBM * kLdT;
+  static constexpr size_t kTileKV = sizeof(T) * BN * kLdT;
   static constexpr size_t kK = 0;
-  static constexpr size_t kV = kK + kTileT;
-  static constexpr size_t kQ = kV + kTileT;
-  static constexpr size_t kDO = kQ + kTileT;
-  static constexpr size_t kQs = kDO + kTileT;
-  static constexpr size_t kS = kQs + (kBf16 ? kTileT : 0);
+  static constexpr size_t kV = kK + kTileKV;
+  static constexpr size_t kQ = kV + kTileKV;
+  static constexpr size_t kDO = kQ + kTileQ;
+  static constexpr size_t kQs = kDO + kTileQ;
+  static constexpr size_t kS = kQs + (kBf16 ? kTileQ : 0);
   static constexpr size_t kDP = kS + sizeof(float) * kBM * kLdS;
   static constexpr size_t kP = kDP + sizeof(float) * kBM * kLdS;
   static constexpr size_t kDS = kP + (kBf16 ? sizeof(T) * kBM * kLdP : 0);
   static constexpr size_t kDQ = kDS + (kBf16 ? sizeof(T) * kBM * kLdP : 0);
-  static constexpr size_t kLse = kDQ + (kBf16 ? sizeof(float) * 64 * kLdQ : 0);
+  static constexpr size_t kLse = kDQ + (kBf16 ? sizeof(float) * kBM * kLdQ : 0);
   static constexpr size_t kDelta = kLse + sizeof(float) * kBM;
   static constexpr size_t kBytes = kDelta + sizeof(float) * kBM;
+  // bf16: warp w owns kv rows [16 * (w % kRowBlocks), +16) and columns
+  // [(w / kRowBlocks) * kCols, +kCols) of dK and dV
+  static constexpr int kRowBlocks = BN / 16;
+  static constexpr int kCols = D / (kWarps / kRowBlocks);
+  __device__ static int row0(int warp) {
+    return (kRowBlocks == kWarps ? warp : warp % kRowBlocks) * 16;
+  }
+  __device__ static int col0(int warp) {  // 0 when a warp owns all of D
+    return kRowBlocks == kWarps ? 0 : (warp / kRowBlocks) * kCols;
+  }
+  // fp32: thread t owns kv row t / kTpr, columns [(t % kTpr) * D / kTpr,
+  // +D / kTpr)
+  static constexpr int kTpr = kThreads / BN;
+  static_assert(kBytes <= 232448, "backward tiles exceed shared memory");
 };
 
 // dK/dV accumulators, fp32, live for the CTA's whole walk.
-template <typename T, int D>
+template <typename T, int D, int BN>
 struct Acc;
-template <int D>
-struct Acc<__nv_bfloat16, D> {  // warp w: kv rows [16w, 16w + 16), all D
+template <int D, int BN>
+struct Acc<__nv_bfloat16, D, BN> {
+  static constexpr int kFrags = BwdGeom<__nv_bfloat16, D, BN>::kCols / 16;
   nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
-      dk[D / 16], dv[D / 16];
+      dk[kFrags], dv[kFrags];
 };
-template <int D>
-struct Acc<float, D> {  // thread t: kv row t / 2, columns [(t % 2) * D / 2, +D / 2)
-  float dk[D / 2], dv[D / 2];
+template <int D, int BN>
+struct Acc<float, D, BN> {
+  static constexpr int kN = D / BwdGeom<float, D, BN>::kTpr;
+  float dk[kN], dv[kN];
 };
 
 // One (q tile, kv tile) step on the tensor cores (bf16). dqg points at
 // this head's dq scratch, whose rows are q_stride apart; bh = b * H + h
 // keys the dropout words.
-template <int D, bool kDrop, class M>
+template <int D, int BN, bool kDrop, class M>
 __device__ __forceinline__ void step_bf16(
-    Acc<__nv_bfloat16, D>& acc, unsigned char* smem, int m0, int n0,
+    Acc<__nv_bfloat16, D, BN>& acc, unsigned char* smem, int m0, int n0,
     M mask, float sm_scale, float* dqg, long q_stride, int warp,
     int lane, const DropParams& drop, uint32_t bh) {
   using namespace nvcuda;
   using T = __nv_bfloat16;
-  using G = BwdGeom<T, D>;
+  using G = BwdGeom<T, D, BN>;
   using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>;
   using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major>;
   using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major>;
@@ -557,21 +559,21 @@ __device__ __forceinline__ void step_bf16(
   const float* Delta = reinterpret_cast<const float*>(smem + G::kDelta);
 
   // S = Qs . K^T, then dP = dO . V^T, for this warp's 16 q rows (two passes
-  // keep only four accumulator fragments live beside dK/dV)
+  // keep only BN / 16 accumulator fragments live beside dK/dV)
 #pragma unroll
   for (int pass = 0; pass < 2; ++pass) {
     const T* A = pass == 0 ? QSs : DOs;
     const T* Bm = pass == 0 ? Ks : Vs;
     float* out = pass == 0 ? Ss : DPs;
-    FragC c[kBN / 16];
+    FragC c[BN / 16];
 #pragma unroll
-    for (int j = 0; j < kBN / 16; ++j) wmma::fill_fragment(c[j], 0.0f);
+    for (int j = 0; j < BN / 16; ++j) wmma::fill_fragment(c[j], 0.0f);
 #pragma unroll
     for (int kk = 0; kk < D; kk += 16) {
       FragA fa;
       wmma::load_matrix_sync(fa, A + warp * 16 * G::kLdT + kk, G::kLdT);
 #pragma unroll
-      for (int j = 0; j < kBN / 16; ++j) {
+      for (int j = 0; j < BN / 16; ++j) {
         // a [n][d] row-major tile is its transpose in column-major order
         FragBt bt;
         wmma::load_matrix_sync(bt, Bm + j * 16 * G::kLdT + kk, G::kLdT);
@@ -579,21 +581,21 @@ __device__ __forceinline__ void step_bf16(
       }
     }
 #pragma unroll
-    for (int j = 0; j < kBN / 16; ++j) {
+    for (int j = 0; j < BN / 16; ++j) {
       wmma::store_matrix_sync(out + warp * 16 * G::kLdS + j * 16, c[j],
                               G::kLdS, wmma::mem_row_major);
     }
   }
   __syncwarp();
 
-  // p and ds for this warp's rows: a lane pair per row, 32 columns each
+  // p and ds for this warp's rows: a lane pair per row, BN / 2 columns each
   {
     const int r = warp * 16 + (lane >> 1);
     const int qrow = m0 + r;
-    const int c0 = (lane & 1) * (kBN / 2);
+    const int c0 = (lane & 1) * (BN / 2);
     const float l = Lse[r];
     const float dl = Delta[r];
-    for (int c = c0; c < c0 + kBN / 2; c += 4) {
+    for (int c = c0; c < c0 + BN / 2; c += 4) {
       uint4 w;
       if constexpr (kDrop)
         w = keep_words(drop, (uint32_t)(n0 + c) >> 2, (uint32_t)qrow, bh,
@@ -618,18 +620,20 @@ __device__ __forceinline__ void step_bf16(
   }
   __syncthreads();  // dV and dK read every q row's p and ds
 
-  // dV += P^T . dO and dK += dS^T . Q for this warp's 16 kv rows
+  // dV += P^T . dO and dK += dS^T . Q for this warp's kv rows and columns
+  const int rb = G::row0(warp);
+  const int cb = G::col0(warp);
 #pragma unroll
   for (int kk = 0; kk < kBM; kk += 16) {
     FragAt pt, dst;
-    wmma::load_matrix_sync(pt, Ps + kk * G::kLdP + warp * 16, G::kLdP);
-    wmma::load_matrix_sync(dst, DSs + kk * G::kLdP + warp * 16, G::kLdP);
+    wmma::load_matrix_sync(pt, Ps + kk * G::kLdP + rb, G::kLdP);
+    wmma::load_matrix_sync(dst, DSs + kk * G::kLdP + rb, G::kLdP);
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
+    for (int j = 0; j < G::kCols / 16; ++j) {
       FragB bdo, bq;
-      wmma::load_matrix_sync(bdo, DOs + kk * G::kLdT + j * 16, G::kLdT);
+      wmma::load_matrix_sync(bdo, DOs + kk * G::kLdT + cb + j * 16, G::kLdT);
       wmma::mma_sync(acc.dv[j], pt, bdo, acc.dv[j]);
-      wmma::load_matrix_sync(bq, Qs + kk * G::kLdT + j * 16, G::kLdT);
+      wmma::load_matrix_sync(bq, Qs + kk * G::kLdT + cb + j * 16, G::kLdT);
       wmma::mma_sync(acc.dk[j], dst, bq, acc.dk[j]);
     }
   }
@@ -641,7 +645,7 @@ __device__ __forceinline__ void step_bf16(
     FragC c;
     wmma::fill_fragment(c, 0.0f);
 #pragma unroll
-    for (int kk = 0; kk < kBN; kk += 16) {
+    for (int kk = 0; kk < BN; kk += 16) {
       FragA fa;
       FragB bk;
       wmma::load_matrix_sync(fa, DSs + warp * 16 * G::kLdP + kk, G::kLdP);
@@ -664,15 +668,15 @@ __device__ __forceinline__ void step_bf16(
 }
 
 // One (q tile, kv tile) step with plain FMA (fp32).
-template <int D, bool kDrop, class M>
-__device__ __forceinline__ void step_f32(Acc<float, D>& acc,
+template <int D, int BN, bool kDrop, class M>
+__device__ __forceinline__ void step_f32(Acc<float, D, BN>& acc,
                                          unsigned char* smem, int m0, int n0,
                                          M mask, float sm_scale,
                                          float* dqg, long q_stride,
                                          const DropParams& drop,
                                          uint32_t bh) {
   using T = float;
-  using G = BwdGeom<T, D>;
+  using G = BwdGeom<T, D, BN>;
   const T* Ks = reinterpret_cast<const T*>(smem + G::kK);
   const T* Vs = reinterpret_cast<const T*>(smem + G::kV);
   const T* Qs = reinterpret_cast<const T*>(smem + G::kQ);
@@ -684,14 +688,14 @@ __device__ __forceinline__ void step_f32(Acc<float, D>& acc,
   const int r = threadIdx.x >> 1;
   const int half = threadIdx.x & 1;
 
-  // s, p, dp and ds for q row r, kv columns [half * 32, +32)
+  // s, p, dp and ds for q row r, kv columns [half * BN / 2, +BN / 2)
   {
     const int qrow = m0 + r;
     const float l = Lse[r];
     const float dl = Delta[r];
     const T* q = Qs + r * G::kLdT;
     const T* dout = DOs + r * G::kLdT;
-    for (int c4 = half * (kBN / 2); c4 < (half + 1) * (kBN / 2); c4 += 4) {
+    for (int c4 = half * (BN / 2); c4 < (half + 1) * (BN / 2); c4 += 4) {
       uint4 w;
       if constexpr (kDrop)
         w = keep_words(drop, (uint32_t)(n0 + c4) >> 2, (uint32_t)qrow, bh,
@@ -720,36 +724,42 @@ __device__ __forceinline__ void step_f32(Acc<float, D>& acc,
   }
   __syncthreads();  // dV and dK read every q row's p and ds
 
-  // dV += P^T . dO and dK += dS^T . Q for kv row r, this thread's columns
-  const int d0 = half * (D / 2);
-  for (int c = 0; c < kBM; ++c) {
-    const float p = Ps[c * G::kLdS + r];
-    const float ds = DSs[c * G::kLdS + r];
-    const T* dout = DOs + c * G::kLdT + d0;
-    const T* q = Qs + c * G::kLdT + d0;
+  // dV += P^T . dO and dK += dS^T . Q for this thread's kv row and columns
+  {
+    const int kr = threadIdx.x / G::kTpr;
+    const int d0 = (threadIdx.x % G::kTpr) * Acc<float, D, BN>::kN;
+    for (int c = 0; c < kBM; ++c) {
+      const float p = Ps[c * G::kLdS + kr];
+      const float ds = DSs[c * G::kLdS + kr];
+      const T* dout = DOs + c * G::kLdT + d0;
+      const T* q = Qs + c * G::kLdT + d0;
 #pragma unroll
-    for (int dd = 0; dd < D / 2; ++dd) {
-      acc.dv[dd] = fmaf(p, dout[dd], acc.dv[dd]);
-      acc.dk[dd] = fmaf(ds, q[dd], acc.dk[dd]);
+      for (int dd = 0; dd < Acc<float, D, BN>::kN; ++dd) {
+        acc.dv[dd] = fmaf(p, dout[dd], acc.dv[dd]);
+        acc.dk[dd] = fmaf(ds, q[dd], acc.dk[dd]);
+      }
     }
   }
 
-  // dQ partial = dS . K for q row r, this thread's columns, 16 at a time
+  // dQ partial = dS . K for q row r, this thread's half of the columns, a
+  // chunk at a time
+  constexpr int kChunk = (D / 2) % 16 == 0 ? 16 : 8;
+  const int d0 = half * (D / 2);
   const int qrow = m0 + r;
 #pragma unroll
-  for (int j = 0; j < D / 2; j += 16) {
-    float part[16];
+  for (int j = 0; j < D / 2; j += kChunk) {
+    float part[kChunk];
 #pragma unroll
-    for (int e = 0; e < 16; ++e) part[e] = 0.0f;
-    for (int c = 0; c < kBN; ++c) {
+    for (int e = 0; e < kChunk; ++e) part[e] = 0.0f;
+    for (int c = 0; c < BN; ++c) {
       const float ds = DSs[r * G::kLdS + c];
       const T* k = Ks + c * G::kLdT + d0 + j;
 #pragma unroll
-      for (int e = 0; e < 16; ++e) part[e] = fmaf(ds, k[e], part[e]);
+      for (int e = 0; e < kChunk; ++e) part[e] = fmaf(ds, k[e], part[e]);
     }
     if (qrow < mask.Lq) {
 #pragma unroll
-      for (int e = 0; e < 16; ++e) {
+      for (int e = 0; e < kChunk; ++e) {
         atomicAdd(dqg + (long)qrow * q_stride + d0 + j + e,
                   part[e] * sm_scale);
       }
@@ -757,9 +767,9 @@ __device__ __forceinline__ void step_f32(Acc<float, D>& acc,
   }
 }
 
-template <typename T, int D, bool kDrop, bool kSegs>
+template <typename T, int D, int BN, bool kDrop, bool kSegs>
 __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(BwdArgs a) {
-  using G = BwdGeom<T, D>;
+  using G = BwdGeom<T, D, BN>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem + G::kK);
   T* Vs = reinterpret_cast<T*>(smem + G::kV);
@@ -769,7 +779,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(BwdArgs a) {
   float* Lse = reinterpret_cast<float*>(smem + G::kLse);
   float* Delta = reinterpret_cast<float*>(smem + G::kDelta);
 
-  const int n0 = blockIdx.x * kBN;  // kv tile 0 walks the most q tiles
+  const int n0 = blockIdx.x * BN;  // kv tile 0 walks the most q tiles
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int group = a.H / a.Hkv;
@@ -783,7 +793,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(BwdArgs a) {
     // every key of this tile is past the length: no query sees it, so its
     // dk and dv are zero, and it adds nothing to dq
     const long base = (long)b * a.Lk * a.dkv_row + (long)hk * D;
-    for (int i = threadIdx.x; i < kBN * D; i += kThreads) {
+    for (int i = threadIdx.x; i < BN * D; i += kThreads) {
       const int gr = n0 + i / D;
       if (gr < a.Lk) {
         const long at = base + (long)gr * a.dkv_row + i % D;
@@ -794,21 +804,21 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(BwdArgs a) {
     return;
   }
 
-  load_tile<T, D, false>(Ks, static_cast<const T*>(a.k) + kv_base, n0, a.Lk,
-                         a.kv_row, 1.0f);
-  load_tile<T, D, false>(Vs, static_cast<const T*>(a.v) + kv_base, n0, a.Lk,
-                         a.kv_row, 1.0f);
+  load_tile<T, D, false>(Ks, static_cast<const T*>(a.k) + kv_base, n0, BN,
+                         a.Lk, a.kv_row, 1.0f);
+  load_tile<T, D, false>(Vs, static_cast<const T*>(a.v) + kv_base, n0, BN,
+                         a.Lk, a.kv_row, 1.0f);
 
-  Acc<T, D> acc;
+  Acc<T, D, BN> acc;
   if constexpr (G::kBf16) {
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
+    for (int j = 0; j < Acc<T, D, BN>::kFrags; ++j) {
       nvcuda::wmma::fill_fragment(acc.dk[j], 0.0f);
       nvcuda::wmma::fill_fragment(acc.dv[j], 0.0f);
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) {
+    for (int j = 0; j < Acc<T, D, BN>::kN; ++j) {
       acc.dk[j] = 0.0f;
       acc.dv[j] = 0.0f;
     }
@@ -829,11 +839,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(BwdArgs a) {
     float* dqg = a.dq_acc + (long)b * a.Lq * do_row + (long)h * D;
     for (int m0 = m_begin; m0 < a.Lq; m0 += kBM) {
       __syncthreads();  // the previous step is done with Q, dO, P, dS
-      load_tile<T, D, false>(Qs, qg, m0, a.Lq, a.q_row, 1.0f);
+      load_tile<T, D, false>(Qs, qg, m0, kBM, a.Lq, a.q_row, 1.0f);
       if constexpr (G::kBf16) {
-        load_tile<T, D, true>(QSs, qg, m0, a.Lq, a.q_row, a.sm_scale);
+        load_tile<T, D, true>(QSs, qg, m0, kBM, a.Lq, a.q_row, a.sm_scale);
       }
-      load_tile<T, D, false>(DOs, dog, m0, a.Lq, do_row, 1.0f);
+      load_tile<T, D, false>(DOs, dog, m0, kBM, a.Lq, do_row, 1.0f);
       if (threadIdx.x < kBM) {
         const int gr = m0 + threadIdx.x;
         Lse[threadIdx.x] = gr < a.Lq ? lseg[gr] : 0.0f;
@@ -842,11 +852,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(BwdArgs a) {
       __syncthreads();
       const uint32_t bh = (uint32_t)(b * a.H + h);
       if constexpr (G::kBf16) {
-        step_bf16<D, kDrop>(acc, smem, m0, n0, mask, a.sm_scale, dqg, do_row,
-                            warp, lane, a.drop, bh);
+        step_bf16<D, BN, kDrop>(acc, smem, m0, n0, mask, a.sm_scale, dqg,
+                                do_row, warp, lane, a.drop, bh);
       } else {
-        step_f32<D, kDrop>(acc, smem, m0, n0, mask, a.sm_scale, dqg, do_row,
-                           a.drop, bh);
+        step_f32<D, BN, kDrop>(acc, smem, m0, n0, mask, a.sm_scale, dqg,
+                               do_row, a.drop, bh);
       }
     }
   }
@@ -858,36 +868,39 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(BwdArgs a) {
   T* dv_out = static_cast<T*>(a.dv) + dkv_base;
   if constexpr (G::kBf16) {
     float* stage = reinterpret_cast<float*>(smem + G::kDQ);
+    const int rb = G::row0(warp);
+    const int cb = G::col0(warp);
     __syncthreads();
 #pragma unroll
     for (int part = 0; part < 2; ++part) {
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
+      for (int j = 0; j < Acc<T, D, BN>::kFrags; ++j) {
         nvcuda::wmma::store_matrix_sync(
-            stage + warp * 16 * G::kLdQ + j * 16,
+            stage + rb * G::kLdQ + cb + j * 16,
             part == 0 ? acc.dk[j] : acc.dv[j], G::kLdQ,
             nvcuda::wmma::mem_row_major);
       }
       __syncwarp();
       T* dst = part == 0 ? dk_out : dv_out;
       const float mul = part == 0 ? a.sm_scale : 1.0f;
-      for (int i = lane; i < 16 * D; i += 32) {
-        const int rr = i / D;
-        const int d = i % D;
-        const int gr = n0 + warp * 16 + rr;
+      for (int i = lane; i < 16 * G::kCols; i += 32) {
+        const int rr = i / G::kCols;
+        const int d = cb + i % G::kCols;
+        const int gr = n0 + rb + rr;
         if (gr < a.Lk) {
           dst[(long)gr * a.dkv_row + d] =
-              from_f<T>(stage[(warp * 16 + rr) * G::kLdQ + d] * mul);
+              from_f<T>(stage[(rb + rr) * G::kLdQ + d] * mul);
         }
       }
       __syncwarp();
     }
   } else {
-    const int gr = n0 + (threadIdx.x >> 1);
-    const int d0 = (threadIdx.x & 1) * (D / 2);
+    constexpr int kN = Acc<T, D, BN>::kN;
+    const int gr = n0 + threadIdx.x / G::kTpr;
+    const int d0 = (threadIdx.x % G::kTpr) * kN;
     if (gr < a.Lk) {
 #pragma unroll
-      for (int dd = 0; dd < D / 2; ++dd) {
+      for (int dd = 0; dd < kN; ++dd) {
         dk_out[(long)gr * a.dkv_row + d0 + dd] = acc.dk[dd] * a.sm_scale;
         dv_out[(long)gr * a.dkv_row + d0 + dd] = acc.dv[dd];
       }
@@ -909,12 +922,13 @@ __global__ void dq_convert_kernel(const float* __restrict__ dq_acc,
 
 template <typename T, int D, bool kDrop, bool kSegs>
 cudaError_t launch_bwd(const BwdArgs& a, int B, cudaStream_t stream) {
-  using G = BwdGeom<T, D>;
-  auto kernel = flash_bwd_kernel<T, D, kDrop, kSegs>;
+  constexpr int BN = kBwdBN<D>;
+  using G = BwdGeom<T, D, BN>;
+  auto kernel = flash_bwd_kernel<T, D, BN, kDrop, kSegs>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kBytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Lk + kBN - 1) / kBN, a.Hkv, B);
+  dim3 grid((a.Lk + BN - 1) / BN, a.Hkv, B);
   kernel<<<grid, kThreads, G::kBytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -925,23 +939,23 @@ cudaError_t launch_bwd(const BwdArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The backward for input type (bf16 or fp32) and head size (64 or 128),
+// The backward for input type (bf16 or fp32) and head size D (one of Ds),
 // with dropout (kDrop, a.drop) or without, with segment ids (kSegs) or
 // without; returns the cudaError_t of the launches.
-template <bool kDrop = false, bool kSegs = false>
-int flash_bwd(const BwdArgs& a, int B, int D, int is_bf16, cudaStream_t st) {
+template <bool kDrop, bool kSegs, int... Ds>
+int flash_bwd(HeadDims<Ds...>, const BwdArgs& a, int B, int D, int is_bf16,
+              cudaStream_t st) {
   if (B <= 0 || a.Lq <= 0 || a.Lk <= 0 || a.H <= 0 || a.Hkv <= 0 ||
       a.H % a.Hkv || (kSegs && (!a.q_seg || !a.k_seg)))
     return (int)cudaErrorInvalidValue;
   using BF = __nv_bfloat16;
-  if (is_bf16) {
-    if (D == 64) return (int)launch_bwd<BF, 64, kDrop, kSegs>(a, B, st);
-    if (D == 128) return (int)launch_bwd<BF, 128, kDrop, kSegs>(a, B, st);
-  } else {
-    if (D == 64) return (int)launch_bwd<float, 64, kDrop, kSegs>(a, B, st);
-    if (D == 128) return (int)launch_bwd<float, 128, kDrop, kSegs>(a, B, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  int rc = (int)cudaErrorInvalidValue;
+  ((D == Ds ? (rc = (int)(is_bf16 ? launch_bwd<BF, Ds, kDrop, kSegs>(a, B, st)
+                                  : launch_bwd<float, Ds, kDrop, kSegs>(
+                                        a, B, st)))
+            : 0),
+   ...);
+  return rc;
 }
 
 }  // namespace

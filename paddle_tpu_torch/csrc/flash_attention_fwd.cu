@@ -10,11 +10,13 @@
 // multiple of Hkv): the context out [B, Lq, H, D] and lse [B, H, Lq] fp32,
 // causal (the diagonal aligned bottom-right, Lk - Lq) or bidirectional; key
 // j of batch row b is attended only below lens[b] and, with segment ids,
-// only by the queries of its segment. The kernel is flash_attention.cuh's
-// forward reading the rows by stride (no transpose to the Pallas [B*H, L,
-// D] layout); that header gives the math, the rounding points and the
-// design. K/V tiles are read once per q head of a group (from L2 after the
-// first).
+// only by the queries of its segment. Head sizes 64, 80, 96, 128 and 256
+// are built. The kernel is flash_attention.cuh's forward: in bf16 the
+// Hopper kernel of flash_fwd_sm90.cuh, whose TMA descriptors read q as a
+// 3-D tensor (H*D columns, Lq rows, B) and k, v as (Hkv*D, Lk, B), so no
+// transpose to the Pallas [B*H, L, D] layout; in fp32 the SIMT kernel.
+// Those headers give the math, the rounding points and the design. K/V
+// tiles are read once per q head of a group (from L2 after the first).
 //
 // Bound on the H100: operations = 4*D*B*H*(attended pairs), bytes = q, k, v
 // read once and out, lse written once. At LLaMA-7B's training shape (B=4,
@@ -47,10 +49,11 @@ extern "C" int flash_attention_fwd(
             static_cast<const int*>(lens), static_cast<const int*>(q_seg),
             static_cast<const int*>(k_seg)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const FlatHeadDims dims{};
   if (q_seg != nullptr) {
-    return dropout ? flash_fwd<true, true>(a, B, D, is_bf16, st)
-                   : flash_fwd<false, true>(a, B, D, is_bf16, st);
+    return dropout ? flash_fwd<true, true>(dims, a, B, D, is_bf16, st)
+                   : flash_fwd<false, true>(dims, a, B, D, is_bf16, st);
   }
-  return dropout ? flash_fwd<true, false>(a, B, D, is_bf16, st)
-                 : flash_fwd<false, false>(a, B, D, is_bf16, st);
+  return dropout ? flash_fwd<true, false>(dims, a, B, D, is_bf16, st)
+                 : flash_fwd<false, false>(dims, a, B, D, is_bf16, st);
 }

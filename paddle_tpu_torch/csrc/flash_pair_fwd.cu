@@ -9,10 +9,14 @@
 //
 // For qkv [B, L, 3*H*D] with column order [q heads | k heads | v heads]:
 // out [B, L, H*D] (the packed context) and lse [B, H, L] fp32, causal or
-// bidirectional. The kernel is flash_attention.cuh's forward reading q, k
-// and v straight out of the packed rows (row stride 3*H*D, k at column
-// H*D, v at 2*H*D; no relayout, no padding copy), one KV head per q head;
-// that header gives the math, the rounding points and the design.
+// bidirectional, at head sizes 64, 128 and 256. The kernel is
+// flash_attention.cuh's forward reading q, k and v straight out of the
+// packed rows (row stride 3*H*D, k at column H*D, v at 2*H*D; no relayout,
+// no padding copy), one KV head per q head: in bf16 the Hopper kernel of
+// flash_fwd_sm90.cuh, whose TMA descriptors see q, k and v as three 3-D
+// tensors (H*D columns, L rows, B) over the same rows; in fp32 the SIMT
+// kernel. Those headers give the math, the rounding points and the
+// design.
 //
 // Bound on the H100: at the GPT-medium shape (B=2, L=1024, H=8, D=128,
 // causal, bf16) the work is 2*B*H*D*L*(L+1) ~= 4.3 GFLOP (4.4 us at 989
@@ -42,6 +46,7 @@ extern "C" int flash_pair_fwd(const void* qkv, void* out, void* lse, int B,
             static_cast<float*>(lse), 3 * hd, 3 * hd, hd, L, L, H, H,
             sm_scale, causal, {seed_lo, seed_hi, threshold, keep_scale}};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dropout ? flash_fwd<true>(a, B, D, is_bf16, st)
-                 : flash_fwd<false>(a, B, D, is_bf16, st);
+  const PairHeadDims dims{};
+  return dropout ? flash_fwd<true, false>(dims, a, B, D, is_bf16, st)
+                 : flash_fwd<false, false>(dims, a, B, D, is_bf16, st);
 }

@@ -56,7 +56,25 @@ __all__ = ["flash_attention_fwd", "flash_attention_fwd_reference",
 
 _NEG_INF = -1e30
 _DTYPES = (torch.bfloat16, torch.float32)
-_HEAD_DIMS = (64, 128)
+# head sizes the kernels are built for (csrc/flash_attention.cuh
+# FlatHeadDims); any other size up to the largest runs at the next of them
+# with zero columns
+_HEAD_DIMS = (64, 80, 96, 128, 256)
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head size a head of ``d`` runs at on the card: the smallest
+    built size that holds it (``d`` itself when it is built). Zero columns
+    add exact zeros to q.k and give zero output columns, which are sliced
+    off."""
+    return next(k for k in _HEAD_DIMS if k >= d)
+
+
+def pad_head_dim(x, d: int):
+    """``x [..., D]`` with zero columns up to ``d`` (``x`` itself when
+    ``D == d``), contiguous."""
+    return x if x.shape[-1] == d else \
+        torch.nn.functional.pad(x, (0, d - x.shape[-1])).contiguous()
 
 
 def _check_rate(who, dropout_rate, seed):
@@ -91,9 +109,10 @@ def _check(q, k, v, dropout_rate=0.0, seed=None, block_q=None, block_k=None,
     if h % hkv:
         raise ValueError(f"{who}: {h} query heads are not a multiple of "
                          f"{hkv} key/value heads")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{who}: head_dim {d} is not supported (head_dim "
-                         f"in {_HEAD_DIMS})")
+    if not 1 <= d <= _HEAD_DIMS[-1]:
+        raise ValueError(f"{who}: head_dim {d} is not supported: the kernels "
+                         f"take head_dim up to {_HEAD_DIMS[-1]} (larger heads "
+                         f"are ROADMAP Queue 2 K1)")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{who}: q, k, v must share one dtype of bfloat16 "
                         f"or float32, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -202,8 +221,8 @@ _FWD_ARGTYPES = (*(ctypes.c_void_p,) * 8, *(ctypes.c_int,) * 8,
 
 def _check_aligned(who, *tensors):
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{who}: inputs must be 16-byte aligned (the kernel "
-                         f"reads them in 16-byte vectors)")
+        raise ValueError(f"{who}: inputs must be 16-byte aligned (the kernels "
+                         f"read them with TMA and in 16-byte vectors)")
 
 
 def _ptr(t):
@@ -220,12 +239,14 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale=None,
     the rate is positive).
 
     A CUDA tensor launches the kernel on the current stream (one launch
-    per call, counted in ``flash_attention_fwd.launches``); a CPU tensor
-    runs ``flash_attention_fwd_reference``. Raises on a rate outside [0, 1),
-    a positive rate without a seed, explicit block sizes, a head size other
-    than 64 or 128, a query head count that is not a multiple of the KV
-    head count, a type other than bf16/fp32, malformed masks, and
-    non-contiguous or misaligned input."""
+    per call, counted in ``flash_attention_fwd.launches``; a head size that
+    is not built runs at ``kernel_head_dim`` on zero-padded copies, with
+    the scale of the true size); a CPU tensor runs
+    ``flash_attention_fwd_reference``. Raises on a rate outside [0, 1), a
+    positive rate without a seed, explicit block sizes, a head size above
+    256, a query head count that is not a multiple of the KV head count, a
+    type other than bf16/fp32, malformed masks, and non-contiguous or
+    misaligned input."""
     dims = _check(q, k, v, dropout_rate, seed, block_q, block_k)
     b, lq, lk, h, hkv, d = dims
     masks = _masks(b, lq, lk, q.device, kv_lens, q_segments, kv_segments)
@@ -236,6 +257,13 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale=None,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: unsupported device "
                          f"{q.device}")
+    kd = kernel_head_dim(d)
+    if kd != d:
+        out, lse = flash_attention_fwd(
+            *(pad_head_dim(t, kd) for t in (q, k, v)), causal,
+            _scale(d, sm_scale), dropout_rate, seed=seed, kv_lens=masks[0],
+            q_segments=masks[1], kv_segments=masks[2])
+        return out[..., :d].contiguous(), lse
     _check_aligned("flash_attention_fwd", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty(b, h, lq, dtype=torch.float32, device=q.device)
@@ -350,7 +378,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
 
     A CUDA tensor launches the kernel on the current stream (one counted
     launch per call in ``flash_attention_bwd.launches``; the kernel's dq
-    goes through an fp32 scratch and a small conversion launch behind it);
+    goes through an fp32 scratch and a small conversion launch behind it;
+    a head size that is not built runs padded, as in the forward);
     a CPU tensor runs ``flash_attention_bwd_reference``. ``delta =
     rowsum(dO*O)`` is a torch expression here, as the JAX package computes
     it outside its kernel. Raises on what the kernel does not take, as the
@@ -367,6 +396,15 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
+    kd = kernel_head_dim(d)
+    if kd != d:
+        # dO's zero columns meet O's: delta is unchanged
+        grads = flash_attention_bwd(
+            *(pad_head_dim(t, kd) for t in (q, k, v, out)), lse,
+            pad_head_dim(dout, kd), causal, _scale(d, sm_scale),
+            dropout_rate, seed=seed, kv_lens=masks[0], q_segments=masks[1],
+            kv_segments=masks[2])
+        return tuple(g[..., :d].contiguous() for g in grads)
     _check_aligned("flash_attention_bwd", q, k, v, dout)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)

@@ -39,7 +39,7 @@ __all__ = ["flash_pair_fwd", "flash_pair_fwd_reference", "flash_pair_bwd",
 
 _NEG_INF = -1e30
 _DTYPES = (torch.bfloat16, torch.float32)
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)   # csrc/flash_attention.cuh PairHeadDims
 
 
 def _heads_per_block(head_dim: int) -> int:
@@ -156,8 +156,8 @@ def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
     A CUDA tensor launches the kernel on the current stream (one launch
     per call, counted in ``flash_pair_fwd.launches``); a CPU tensor runs
     ``flash_pair_fwd_reference``. Raises on a rate outside [0, 1), a
-    positive rate without a seed, a head size other than 64 or 128, a type
-    other than bf16/fp32 and non-contiguous input."""
+    positive rate without a seed, a head size other than 64, 128 or 256, a
+    type other than bf16/fp32 and non-contiguous input."""
     d = _check(qkv, num_heads, dropout_rate, seed)
     if qkv.device.type == "cpu":
         return flash_pair_fwd_reference(qkv, num_heads, causal,
@@ -166,7 +166,7 @@ def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
         raise ValueError(f"flash_pair_fwd: unsupported device {qkv.device}")
     if qkv.data_ptr() % 16:
         raise ValueError("flash_pair_fwd: qkv must be 16-byte aligned (the "
-                         "kernel reads it in 16-byte vectors)")
+                         "kernels read it with TMA and in 16-byte vectors)")
     b, L, _ = qkv.shape
     out = torch.empty(b, L, num_heads * d, dtype=qkv.dtype,
                       device=qkv.device)
@@ -290,7 +290,7 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
     CPU tensor runs ``flash_pair_bwd_reference``. ``delta = rowsum(dO*O)``
     is a torch expression here, as the JAX package computes it outside its
     kernel. Raises on what the kernel does not take: a head size other than
-    64 or 128, a type other than bf16/fp32, mismatched shapes or types,
+    64, 128 or 256, a type other than bf16/fp32, mismatched shapes or types,
     non-contiguous or misaligned input."""
     d = _check_bwd(qkv, out, lse, dout, num_heads, dropout_rate, seed)
     if qkv.device.type == "cpu":

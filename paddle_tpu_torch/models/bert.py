@@ -26,6 +26,7 @@ maps them one to one (``torch.nn.Linear`` weights transposed; the tied
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -180,9 +181,11 @@ class BertForPreTraining(nn.Module):
 
     ``device`` defaults to the GPU (raises without CUDA; ``device="cpu"``
     for the plain path). Weights are drawn on the CPU from a generator
-    seeded with ``seed`` (every matrix N(0, initializer_range), biases 0,
-    LayerNorm 1), then moved and cast to ``dtype``; the dropouts draw from
-    ``self.generator``, seeded with ``seed ^ DROPOUT_STREAM``."""
+    seeded with ``seed`` as the JAX package initialises them: every matrix
+    of ``BertModel`` N(0, initializer_range), the heads' ``transform`` and
+    ``nsp_head`` weights XavierUniform (``nn.Linear``'s default there),
+    biases 0, LayerNorm 1; then moved and cast to ``dtype``; the dropouts
+    draw from ``self.generator``, seeded with ``seed ^ DROPOUT_STREAM``."""
 
     def __init__(self, config: BertConfig, *, device=None,
                  dtype=torch.float32, seed: int = 0):
@@ -199,11 +202,19 @@ class BertForPreTraining(nn.Module):
         self._init_weights(make_generator(seed))
         self.to(device=dev, dtype=convert_dtype(dtype))
 
+    # the heads' matrices keep nn.Linear's default init in the JAX package
+    # (BertModel._init_weights covers only BertModel's parameters)
+    _XAVIER = ("transform.weight", "nsp_head.weight")
+
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator):
         std = self.config.initializer_range
         for name, p in self.named_parameters():
-            if p.ndim >= 2:
+            if name in self._XAVIER:
+                fan_out, fan_in = p.shape
+                bound = math.sqrt(6.0 / (fan_in + fan_out))
+                p.uniform_(-bound, bound, generator=gen)
+            elif p.ndim >= 2:
                 p.normal_(0.0, std, generator=gen)
             elif name.endswith("bias"):
                 p.zero_()

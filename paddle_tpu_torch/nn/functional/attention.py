@@ -117,9 +117,9 @@ def _attend(query, key, value, attn_mask, causal, rate, seed, kv_lens=None,
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
-                                 training: bool = True, kv_lens=None,
-                                 q_segments=None, kv_segments=None,
-                                 generator=None):
+                                 training: bool = True, name=None,
+                                 kv_lens=None, q_segments=None,
+                                 kv_segments=None, *, generator=None):
     """Softmax attention on ``[B, L, H, D]`` queries against ``[B, L, Hkv,
     D]`` keys and values (``H`` a multiple of ``Hkv``: grouped-query
     attention, each KV head serving ``H / Hkv`` consecutive q heads).
@@ -144,7 +144,11 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
     In training at ``dropout_p > 0`` one seed is drawn from ``generator``
     (a CPU ``torch.Generator``, required then) and both routes drop the
-    elements of ``philox.attention_keep`` at that seed."""
+    elements of ``philox.attention_keep`` at that seed.
+
+    The positional order is the JAX package's; ``name`` is accepted and
+    ignored there as here, and ``generator`` (the port's) is keyword-only
+    after it."""
     rate = float(dropout_p) if training else 0.0
     seed = _draw_seed(rate, generator, "scaled_dot_product_attention")
     return _attend(query, key, value, attn_mask, is_causal, rate, seed,
@@ -184,19 +188,36 @@ def _plain_attention(query, key, value, causal, rate: float = 0.0,
 
 
 def flash_attention(query, key, value, dropout: float = 0.0,
-                    causal: bool = False, training: bool = True,
+                    causal: bool = False, return_softmax: bool = False,
+                    fixed_seed_offset=None, rng_name: str = "",
+                    training: bool = True, name=None, use_pallas=None, *,
                     generator=None):
     """``paddle.nn.functional.flash_attention`` on ``[B, L, H, D]`` queries
     and ``[B, L, Hkv, D]`` keys and values (grouped-query attention when
-    ``Hkv < H``). Through the flash kernels (``FlashAttention``: the
-    forward kernel, and the backward kernel when a gradient is taken) when
-    the gate passes; else ``scaled_dot_product_attention``'s plain chain.
-    In training at ``dropout > 0`` one seed is drawn from ``generator`` (a
-    CPU ``torch.Generator``, required then) and the probabilities drop
-    in-kernel."""
+    ``Hkv < H``), with the JAX package's positional order.
+
+    ``use_pallas`` picks the route as there: None takes the gate (the
+    flash kernels, ``FlashAttention``: the forward kernel, and the
+    backward kernel when a gradient is taken, when it passes; else
+    ``scaled_dot_product_attention``'s plain chain); True takes the kernel
+    route (the kernels' plain versions on a CPU tensor); False takes the
+    ``scaled_dot_product_attention`` route. ``return_softmax=True`` returns
+    ``(out, None)``: the probabilities are not kept, as in the JAX package.
+    ``fixed_seed_offset``, ``rng_name`` and ``name`` are accepted and
+    ignored, as there. In training at ``dropout > 0`` one seed is drawn
+    from ``generator`` (keyword-only: a CPU ``torch.Generator``, required
+    then) and the probabilities drop in-kernel."""
     rate = float(dropout) if training else 0.0
     seed = _draw_seed(rate, generator, "flash_attention")
-    return _attend(query, key, value, None, causal, rate, seed)
+    if use_pallas:
+        out = FlashAttention.apply(query.contiguous(), key.contiguous(),
+                                   value.contiguous(), bool(causal), rate,
+                                   seed)
+    else:
+        # None: the gate inside the sdpa route; False: the sdpa route,
+        # which is the same routing
+        out = _attend(query, key, value, None, causal, rate, seed)
+    return (out, None) if return_softmax else out
 
 
 def flash_attention_qkv_packed(qkv, num_heads: int, dropout: float = 0.0,

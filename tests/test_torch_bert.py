@@ -499,3 +499,36 @@ def test_cuda_padded_bert_step_goes_through_the_flat_kernels():
             continue
         rel = ((a.grad.cpu() - b.grad).norm() / b.grad.norm()).item()
         assert rel < 1e-4, name
+
+
+def test_init_matches_the_reference_per_parameter():
+    """The init's spread per parameter against the JAX package's (the two
+    draw different numbers, so the test is statistical): BertModel's
+    matrices N(0, 0.02), the heads' ``transform`` and ``nsp_head`` weights
+    nn.Linear's default XavierUniform (std sqrt(2 / (fan_in + fan_out)):
+    0.036 and 0.051 at BERT-base's width, 0.0625 and 0.088 here), biases
+    0 and LayerNorm 1 in both. Each matrix's std agrees within 15% (the
+    smallest, nsp_head's 512 values, estimates its std within ~3%)."""
+    cfg = dict(vocab_size=512, hidden_size=256, num_layers=1, num_heads=4,
+               intermediate_size=512, max_position_embeddings=128)
+    paddle.seed(0)
+    jm = JaxBert(JaxBertConfig(**cfg))
+    tm = BertForPreTraining(BertConfig(**cfg), device="cpu", seed=0)
+    jstd = {n: float(np.asarray(p.numpy()).std())
+            for n, p in jm.named_parameters()}
+    tparams = dict(tm.named_parameters())
+    assert set(jstd) == set(tparams)
+    for name, p in tparams.items():
+        got = float(p.detach().double().std(unbiased=False))
+        if p.ndim >= 2:
+            assert abs(got / jstd[name] - 1.0) < 0.15, (name, got,
+                                                         jstd[name])
+        else:
+            assert got == pytest.approx(jstd[name], abs=1e-7), name
+    h = cfg["hidden_size"]
+    for name, fan_out in (("transform.weight", h), ("nsp_head.weight", 2)):
+        want = (2.0 / (h + fan_out)) ** 0.5
+        got = float(tparams[name].detach().std())
+        assert abs(got / want - 1.0) < 0.1, (name, got, want)
+    assert abs(float(tparams["bert.pooler.weight"].detach().std()) / 0.02
+               - 1.0) < 0.05

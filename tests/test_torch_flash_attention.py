@@ -36,7 +36,7 @@ from paddle_tpu_torch.kernels import launch_counts, philox, \
 from paddle_tpu_torch.kernels.flash_attention import (
     FlashAttention, flash_attention_bwd, flash_attention_bwd_reference,
     flash_attention_fwd, flash_attention_fwd_reference,
-    flash_attention_qkv_packed)
+    flash_attention_qkv_packed, kernel_head_dim, pad_head_dim)
 from paddle_tpu_torch.kernels.flash_pair import (flash_pair_bwd_reference,
                                                  flash_pair_fwd_reference)
 from paddle_tpu_torch.nn import functional as F
@@ -184,10 +184,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
         with pytest.raises(ValueError, match=r"\[0, 1\)"):
             flash_attention_fwd(q, k, k, True, dropout_rate=1.0, seed=1)
     elif bad == "head_dim":
-        with pytest.raises(ValueError):
-            flash_attention_fwd(torch.zeros(1, 128, 4, 96),
-                                torch.zeros(1, 128, 2, 96),
-                                torch.zeros(1, 128, 2, 96), True)
+        # up to 256 every head size runs (padded to a built size); above,
+        # the kernels have no instantiation (ROADMAP Queue 2 K1)
+        with pytest.raises(ValueError, match="K1"):
+            flash_attention_fwd(torch.zeros(1, 128, 4, 320),
+                                torch.zeros(1, 128, 2, 320),
+                                torch.zeros(1, 128, 2, 320), True)
     elif bad == "gqa_ratio":
         k3 = torch.zeros(1, 128, 3, 64)
         with pytest.raises(ValueError):
@@ -647,6 +649,160 @@ def test_packed_qkv_split_route_drops_in_the_flat_kernels(monkeypatch):
     torch.testing.assert_close(out, want.reshape(b, L, h * d))
 
 
+# ---------------------------------------------- head sizes, signatures
+
+# built at 80, 96 and 256 besides 64 and 128; 72 runs padded to 80
+F1_HEAD_DIMS = [80, 96, 256, 72]
+
+
+@pytest.mark.parametrize("d", F1_HEAD_DIMS)
+def test_head_dims_match_pallas_interpret(d):
+    """Every head size the JAX gate sends to a kernel: the plain forward
+    (out, lse) against ``_flash_fwd`` and the plain backward against
+    jax.vjp of ``flash_attention_blhd``, both in interpret mode, causal
+    GQA at L = 128, fp32 within 1e-4."""
+    b, L, h, hkv = 1, 128, 4, 2
+    q, k, v = _inputs(b, L, L, h, hkv, d, seed=30 + d)
+    out_j, lse_j = _flash_fwd(_flat(q), _flat(k), _flat(v),
+                              jnp.asarray([0], jnp.int32), True,
+                              1.0 / math.sqrt(d), 128, 128, 0.0, True, h,
+                              hkv)
+    out_t, lse_t = flash_attention_fwd(*_t(q, k, v), True)
+    np.testing.assert_allclose(
+        out_t.numpy(),
+        np.asarray(out_j).reshape(b, h, L, d).transpose(0, 2, 1, 3),
+        atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(lse_t.numpy(),
+                               np.asarray(lse_j).reshape(b, h, -1)[:, :, :L],
+                               atol=1e-4, rtol=1e-4)
+    g = np.random.RandomState(d).randn(b, L, h, d).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda a, bb, c: flash_attention_blhd(a, bb, c, causal=True,
+                                              block_q=128, block_k=128,
+                                              interpret=True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = flash_attention_bwd(*_t(q, k, v), out_t, lse_t,
+                              torch.from_numpy(g), True)
+    for name, x, y in zip(("dq", "dk", "dv"), got, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=1e-4,
+                                   rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("d", F1_HEAD_DIMS)
+def test_head_dims_functionals_match_jax(d, monkeypatch):
+    """F.scaled_dot_product_attention and F.flash_attention at the new head
+    sizes, through the kernel route (the gate forced open: the plain
+    versions on the CPU) and the softmax chain, against the JAX package's
+    functionals on the CPU, fp32 within 1e-5."""
+    q, k, v = _inputs(1, 128, 128, 4, 2, d, seed=40 + d)
+    ref = np.asarray(JF.scaled_dot_product_attention(
+        *map(paddle.to_tensor, (q, k, v)), is_causal=True).numpy())
+    chain = F.scaled_dot_product_attention(*_t(q, k, v), is_causal=True)
+    monkeypatch.setattr(attention, "flash_path_available",
+                        lambda *a, **kw: True)
+    routed = [F.scaled_dot_product_attention(*_t(q, k, v), is_causal=True),
+              F.flash_attention(*_t(q, k, v), causal=True)]
+    for got in (chain, *routed):
+        assert got.shape == (1, 128, 4, d)
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("d", [72, 100, 200])
+def test_padded_head_dim_is_exact(d):
+    """A head size that is not built runs at ``kernel_head_dim(d)`` on
+    zero-padded copies with the true size's scale: the zero columns add
+    exact zeros to q.k, give zero output columns, and dO's zero columns
+    meet O's, so the sliced forward and backward equal the unpadded ones
+    (the plain versions stand in for the kernels here)."""
+    kd = kernel_head_dim(d)
+    assert kd > d and kd in (80, 128, 256)
+    q, k, v = _t(*_inputs(2, 96, 128, 4, 2, d, seed=d))
+    g = torch.from_numpy(
+        np.random.RandomState(d).randn(2, 96, 4, d).astype(np.float32))
+    out, lse = flash_attention_fwd_reference(q, k, v, True)
+    pq, pk, pv, pg = (pad_head_dim(t, kd) for t in (q, k, v, g))
+    scale = 1.0 / math.sqrt(d)
+    pout, plse = flash_attention_fwd_reference(pq, pk, pv, True, scale)
+    torch.testing.assert_close(pout[..., :d], out, atol=1e-6, rtol=1e-6)
+    assert torch.count_nonzero(pout[..., d:]) == 0
+    torch.testing.assert_close(plse, lse, atol=1e-6, rtol=1e-6)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, g, True)
+    got = flash_attention_bwd_reference(pq, pk, pv, pout, plse, pg, True,
+                                        scale)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x[..., :d], y, atol=1e-6, rtol=1e-6)
+        assert torch.count_nonzero(x[..., d:]) == 0
+
+
+@pytest.mark.parametrize("fn", ["scaled_dot_product_attention",
+                                "flash_attention"])
+def test_signatures_bind_positionals_as_the_reference(fn):
+    """The port's functionals take the JAX package's positional parameters
+    in its order, then the port's ``generator``, keyword-only."""
+    import inspect
+    mine = inspect.signature(getattr(F, fn)).parameters
+    ref = list(inspect.signature(getattr(JF, fn)).parameters)
+    assert list(mine)[:len(ref)] == ref
+    assert list(mine)[len(ref):] == ["generator"]
+    assert mine["generator"].kind is inspect.Parameter.KEYWORD_ONLY
+
+
+def test_sdpa_positional_kv_lens_follows_name():
+    """The 9th positional argument of scaled_dot_product_attention is
+    kv_lens (after the ignored ``name``), as in the JAX package: the call
+    equals the keyword one, and the masked keys change the result."""
+    q, k, v = _t(*_inputs(2, 96, 96, 4, 2, 64, seed=17))
+    lens = torch.tensor([96, 40])
+    pos = F.scaled_dot_product_attention(q, k, v, None, 0.0, True, True,
+                                         "attn", lens)
+    kw = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                        kv_lens=lens)
+    torch.testing.assert_close(pos, kw, rtol=0, atol=0)
+    ref = JF.scaled_dot_product_attention(
+        *map(paddle.to_tensor, (q.numpy(), k.numpy(), v.numpy())), None,
+        0.0, True, True, "attn", paddle.to_tensor(lens.numpy()))
+    np.testing.assert_allclose(pos.numpy(), np.asarray(ref.numpy()),
+                               atol=1e-5, rtol=1e-5)
+    assert not torch.allclose(pos, F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    with pytest.raises(TypeError):
+        F.scaled_dot_product_attention(q, k, v, None, 0.0, True, True, None,
+                                       None, None, None, None)
+
+
+def test_flash_attention_options_as_the_reference(monkeypatch):
+    """F.flash_attention's reference options: ``return_softmax`` returns
+    ``(out, None)``; ``use_pallas=True`` takes the kernel route even below
+    the gate (its plain versions on a CPU tensor), False and None the
+    softmax chain there, all equal in fp32; ``fixed_seed_offset``,
+    ``rng_name`` and ``name`` are ignored; positional order as in the JAX
+    package."""
+    calls = []
+    real = FlashAttention.apply
+
+    def spy(*args):
+        calls.append(tuple(args[0].shape))
+        return real(*args)
+
+    monkeypatch.setattr(attention.FlashAttention, "apply", spy)
+    q, k, v = _t(*_inputs(1, 96, 96, 4, 2, 64, seed=18))
+    chain = F.flash_attention(q, k, v, 0.0, True)
+    assert calls == []
+    out, soft = F.flash_attention(q, k, v, 0.0, True, True, 5, "rng", True,
+                                  "attn", True)
+    assert soft is None and calls == [(1, 96, 4, 64)]
+    off = F.flash_attention(q, k, v, 0.0, True, use_pallas=False)
+    assert calls == [(1, 96, 4, 64)]
+    for got in (out, off):
+        torch.testing.assert_close(got, chain, atol=1e-5, rtol=1e-5)
+    ref, ref_soft = JF.flash_attention(
+        *map(paddle.to_tensor, (q.numpy(), k.numpy(), v.numpy())), 0.0,
+        True, True)
+    assert ref_soft is None
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref.numpy()),
+                               atol=1e-5, rtol=1e-5)
+
+
 # ------------------------------------------------------------------ cuda
 
 
@@ -811,3 +967,80 @@ def test_cuda_packed_qkv_matches_plain(rate, sm_scale):
         got = leaf.grad[..., i * h * d:(i + 1) * h * d].float()
         want = want.reshape(b, L, h * d).float()
         assert ((got - want).norm() / want.norm()).item() < 8.3e-4
+
+
+# (flag set, causal, kv_lens, segment cuts, rate) for the bf16 forward
+CARD_FLAG_CASES = [("plain", True, None, None, 0.0),
+                   ("lengths", False, [512, 97], None, 0.0),
+                   ("segments", True, [512, 300], [[128, 300], [200]], 0.0),
+                   ("dropout", False, [512, 400], None, 0.1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", CARD_FLAG_CASES, ids=[c[0] for c in
+                                                       CARD_FLAG_CASES])
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256, 72])
+def test_cuda_bf16_forward_every_head_dim_and_flag(d, flags):
+    """The bf16 Hopper forward (72: run at 80 on zero-padded heads) at each
+    built head size and each flag combination (causal, lengths, segment
+    ids, dropout) against its plain version, at chip_smoke.py's
+    [compare-fa] limits; one counted launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _, causal, lens, cuts, rate = flags
+    b, L, h, hkv = 2, 512, 4, 2
+    q, k, v, _ = _card_inputs(b, L, L, h, hkv, d, torch.bfloat16, seed=d)
+    kw = dict(_card_masks(b, L, L, lens, cuts), seed=5 if rate else None)
+    reset_launch_counts()
+    out, lse = flash_attention_fwd(q, k, v, causal, None, rate, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts() == dict(NO_LAUNCHES, flash_attention_fwd=1)
+    ref, ref_lse = flash_attention_fwd_reference(q, k, v, causal, None,
+                                                 rate, **kw)
+    limit = _weighted_limit(q, k, v, causal, ref, torch.bfloat16,
+                            dropout_rate=rate, **kw)
+    assert bool(((out.float() - ref.float()).abs() <= limit).all())
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [96, 256])
+def test_cuda_functionals_run_a_kernel_at_new_head_dims(d):
+    """The three attention functionals at head sizes 96 and 256 on the card
+    (the packed one at 256, the pair kernels' size): each runs its kernels
+    forward and backward (counted launches) and matches the plain versions
+    (forward at [compare-fa]'s limits, gradients within 8.3e-4 relative)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    b, L, h = 2, 256, 4
+    q, k, v, g = _card_inputs(b, L, L, h, h, d, torch.bfloat16, seed=50 + d)
+    calls = [("sdpa", lambda a, bb, c: F.scaled_dot_product_attention(
+                  a, bb, c, is_causal=True)),
+             ("flash", lambda a, bb, c: F.flash_attention(a, bb, c,
+                                                          causal=True))]
+    if d == 256:
+        calls.append(("packed", None))
+    for name, fn in calls:
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        reset_launch_counts()
+        if name == "packed":
+            qkv = torch.cat([t.reshape(b, L, h * d) for t in leaves], -1)
+            out = F.flash_attention_qkv_packed(qkv, h, causal=True)
+            out = out.reshape(b, L, h, d)
+        else:
+            out = fn(*leaves)
+        out.backward(g)
+        torch.cuda.synchronize()
+        want = dict(flash_pair_fwd=1, flash_pair_bwd=1) if name == "packed" \
+            else dict(flash_attention_fwd=1, flash_attention_bwd=1)
+        assert launch_counts() == dict(NO_LAUNCHES, **want), name
+        ref, lse = flash_attention_fwd_reference(q, k, v, True)
+        limit = _weighted_limit(q, k, v, True, ref, torch.bfloat16)
+        assert bool(((out.detach().float() - ref.float()).abs()
+                     <= limit).all()), name
+        grads = flash_attention_bwd_reference(q, k, v, out.detach(), lse, g,
+                                              True)
+        for leaf, w in zip(leaves, grads):
+            err = ((leaf.grad.float() - w.float()).norm()
+                   / w.float().norm()).item()
+            assert err < 8.3e-4, (name, err)

@@ -45,7 +45,7 @@ def _qkv(b, L, heads, d, seed):
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("L", [256, 300])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_plain_matches_pallas_interpret(d, L, causal):
     b, heads = 2, 2
     x = _qkv(b, L, heads, d, seed=d + L)
@@ -98,7 +98,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [(2, 1024, 8, 128, "bfloat16", True),
                                   (2, 300, 4, 64, "float32", True),
-                                  (2, 300, 4, 64, "bfloat16", False)])
+                                  (2, 300, 4, 64, "bfloat16", False),
+                                  (2, 300, 2, 256, "bfloat16", True),
+                                  (2, 300, 2, 256, "float32", False)])
 def test_cuda_kernel_matches_plain(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -128,7 +130,7 @@ def test_cuda_kernel_matches_plain(case):
 @pytest.mark.parametrize("max_fused_bwd", [None, 0], ids=["fused", "split"])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("L", [256, 300])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_backward_matches_pallas_vjp(d, L, causal, max_fused_bwd):
     """d(qkv) through FlashPairPacked on the CPU against jax.vjp of the
     Pallas pair path in interpret mode, on the same random cotangent; the
@@ -228,7 +230,9 @@ def _rel(a, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [(2, 1024, 8, 128, "bfloat16", True),
                                   (2, 300, 4, 64, "float32", True),
-                                  (2, 300, 4, 64, "bfloat16", False)])
+                                  (2, 300, 4, 64, "bfloat16", False),
+                                  (2, 300, 2, 256, "bfloat16", True),
+                                  (2, 300, 2, 256, "float32", False)])
 def test_cuda_backward_matches_plain(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
