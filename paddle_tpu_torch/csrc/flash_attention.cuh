@@ -1,6 +1,8 @@
-// Flash-attention forward and backward kernels for Hopper (sm_90a), shared
-// by the port's two attention layouts. Each launcher source includes this
-// header and exposes one `extern "C"` entry point bound with ctypes:
+// Flash-attention forward and backward for Hopper (sm_90a), shared by the
+// port's two attention layouts: the operands, the masks, the shared
+// helpers, the fp32 and WMMA bodies and the dispatch. Each launcher source
+// includes this header and exposes one `extern "C"` entry point bound with
+// ctypes:
 //   flash_pair_fwd.cu / flash_pair_bwd.cu         GPT's packed qkv
 //       [B, L, 3*H*D] (columns [q heads | k heads | v heads]), also the
 //       packed-qkv flat API for heads of 128;
@@ -39,32 +41,56 @@
 // round once; the JAX package rounds each q head's dk/dv to the input type
 // before its fp32 group sum (`group` roundings in bf16 against one here).
 //
-// Forward design: bf16 runs the Hopper kernel of flash_fwd_sm90.cuh (TMA
-// loads into rings of K and V stages, two warpgroups of 64 q rows, wgmma
-// with S, P and O in registers, the softmax of one kv tile overlapped with
-// the previous tile's P.V; that header sets it out). fp32 keeps the SIMT
-// body below (plain FMA: TF32 would miss the fp32 reference): one CTA of 4
-// warps per (64-row q tile, q head, batch row), the tiles and the fp32
-// output accumulator in shared memory, a lane pair per q row. Both walk the
-// kv tiles up to the diagonal (causal tile skip) with the online softmax;
-// heavy causal q tiles launch first.
+// Which body runs (flash_fwd and flash_bwd dispatch on the input type and
+// the head size D):
 //
-// Backward design (FlashAttention-2's, extended over a GQA group): one CTA
-// of 4 warps per (64-row kv tile, KV head, batch row). It loads its K and
-// V tiles once, then walks every q head of its group and, for each, the
-// 64-row q tiles from the diagonal down (causal: the Pallas tile skip
-// becomes the loop's start), recomputing s and p once per (q tile, kv tile)
-// and feeding all three gradients from them, which is what makes the form
-// "fused". dk and dv accumulate in fp32 on chip for the whole walk (WMMA
-// accumulator fragments in registers for bf16, per-thread register arrays
-// for fp32), so the group sum needs no per-head scratch and no second pass.
-// dq needs a sum over kv tiles that live in other CTAs: each CTA adds its
-// fp32 partial with atomicAdd into a [B, Lq, H*D] fp32 scratch that the
-// wrapper zeroes, and a second small launch converts the scratch into dq's
-// rows. The atomics make the order of dq's sums change from run to run
-// (compare dq with a tolerance, never bit for bit). State is tile-sized, so
-// there is no length cutoff: one kernel does the job of the Pallas fused
-// and split backward forms.
+//   forward   bf16, D = 64, 80, 96, 128, 256   sm90::flash_fwd_sm90_kernel
+//                                              (flash_fwd_sm90.cuh: TMA,
+//                                              wgmma, S, P, O in registers)
+//             fp32, the same sizes             flash_fwd_f32_kernel (below,
+//                                              SIMT: TF32 would miss the
+//                                              fp32 reference)
+//   backward  bf16, D = 64, 128                sm90::flash_bwd_sm90_kernel
+//                                              (flash_bwd_sm90.cuh: TMA,
+//                                              wgmma, dK/dV in registers,
+//                                              bulk dq reductions)
+//             bf16, D = 80, 96, 256            flash_bwd_kernel<bf16>
+//                                              (below: WMMA from shared
+//                                              memory)
+//             fp32, D = 64, 80, 96, 128, 256   flash_bwd_kernel<float>
+//                                              (below, SIMT)
+//   both      bf16 and fp32, D > 256 with      bigd:: kernels
+//             D % 64 == 0                      (flash_big_d.cuh: SIMT, the
+//                                              accumulators in a global
+//                                              fp32 scratch, D in chunks)
+//
+// The [B, L, H, D] launchers take every one of those sizes; the pair
+// launchers 64, 128, 256 and the multiples of 128 above 256 (the pair
+// gate's whole 128-column blocks). The wrappers run any other D on
+// zero-padded heads.
+//
+// Every backward is three launches on the stream: bwd_prepass_kernel
+// (delta = rowsum(dO * O) in fp32 and a copy of lse, both at rows padded
+// to a multiple of 64 so the bf16 body loads them with one bulk copy a q
+// tile, and the fp32 dq scratch zeroed), the body, and dq_convert_kernel
+// (dq = scratch * sm_scale in the input type: the bodies add unscaled
+// partials). The scratch and the padded rows live in one fp32 workspace
+// the wrapper allocates (bwd_work_floats).
+//
+// The WMMA and SIMT backward (FlashAttention-2's, extended over a GQA
+// group): one CTA of 4 warps per (64-row kv tile, KV head, batch row; 32
+// rows at D = 256 so the tiles fit). It loads its K and V tiles once, then
+// walks every q head of its group and, for each, the 64-row q tiles from
+// the diagonal down (causal: the Pallas tile skip becomes the loop's
+// start), recomputing s and p once per (q tile, kv tile) and feeding all
+// three gradients from them. dk and dv accumulate in fp32 on chip for the
+// whole walk (WMMA accumulator fragments for bf16, per-thread register
+// arrays for fp32), so the group sum needs no scratch; dq's partials go
+// into the fp32 scratch by scalar atomicAdd. The atomics (and the bf16
+// body's bulk reductions) make the order of dq's sums change from run to
+// run (compare dq with a tolerance, never bit for bit). State is
+// tile-sized, so there is no length cutoff: one kernel does the job of the
+// Pallas fused and split backward forms.
 //
 // Dropout on the attention probabilities (every launcher), as the Pallas
 // kernels have it
@@ -92,20 +118,12 @@
 // decisions are those of the kernel before them.
 //
 // Both: rows past a length read as zero and are never written; kv rows that
-// no query sees get zero gradients. The backward's bf16 products run on
-// the tensor cores through WMMA (16x16x16, fp32 accumulate); fp32 uses
-// plain FMA. Head sizes 64, 80, 96, 128 and 256 are built (80 and 96 are
-// multiples of WMMA's 16; at 256 the backward's kv tile is 32 rows and the
-// fp32 forward's 32 keys, so the tiles fit in shared memory); the wrappers
-// run any other head size up to 256 on zero-padded heads.
+// no query sees get zero gradients.
 //
-// What bounds them on the H100: both are bound by their operations at the
-// shapes the models give them (4*D and 10*D operations an attended pair
-// against ~2 bytes a pair of the rows). The plan for the backward (R2),
-// 9x the library and 23x its bound in its first version: wgmma on 64-row
-// warpgroup tiles with dK/dV in registers, the forward's TMA rings, dq
-// reduced in registers with vector reductions, and a persistent schedule
-// that pairs long and short causal walks (the FlashAttention-3 structure).
+// What bounds them on the H100: every body is bound by its operations at
+// the shapes the models give it (4*D and 10*D operations an attended pair
+// against ~2 bytes a pair of the rows); each header says what its design
+// does about that.
 
 #pragma once
 
@@ -211,9 +229,59 @@ struct FwdArgs {
   const int* k_seg;
 };
 
+// Operands of one backward launch. q, k, v as in FwdArgs; out and dout
+// [B, Lq, H*D] contiguous; lse [B, H, Lq] fp32, the forward's; lse_pad,
+// delta [B*H, Lq_pad] and dq_acc [B, Lq, H*D] fp32, written by the
+// pre-pass; dkv_acc [2, B, Lk, Hkv*D] fp32 scratch of the D > 256 body;
+// dq rows dq_row apart (head h at h*D), dk and dv rows dkv_row apart (KV
+// head hk at hk*D). drop, lens, q_seg and k_seg as in FwdArgs.
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* out;
+  const void* dout;
+  const float* lse;
+  float* lse_pad;
+  float* delta;
+  float* dq_acc;
+  float* dkv_acc;
+  void* dq;
+  void* dk;
+  void* dv;
+  long q_row, kv_row, dq_row, dkv_row;
+  int Lq, Lk, H, Hkv, Lq_pad;
+  float sm_scale;
+  int causal;
+  DropParams drop;
+  const int* lens;
+  const int* q_seg;
+  const int* k_seg;
+};
+
+// The backward's fp32 workspace, in floats: dq_acc, lse_pad, delta and, at
+// D > 256, dkv_acc (kernels/flash_attention.py `_bwd_work_floats` sizes it
+// the same way).
+inline long bwd_work_floats(int B, int Lq, int Lk, int H, int Hkv, int D) {
+  const long lq_pad = (Lq + 63) / 64 * 64;
+  return (long)B * Lq * H * D + 2L * B * H * lq_pad +
+         (D > 256 ? 2L * B * Lk * Hkv * D : 0L);
+}
+
+// Points a's scratch into `work` (bwd_work_floats(...) floats).
+inline void bwd_set_work(BwdArgs& a, float* work, int B, int D) {
+  a.Lq_pad = (a.Lq + 63) / 64 * 64;
+  a.dq_acc = work;
+  a.lse_pad = work + (long)B * a.Lq * a.H * D;
+  a.delta = a.lse_pad + (long)B * a.H * a.Lq_pad;
+  a.dkv_acc = D > 256 ? a.delta + (long)B * a.H * a.Lq_pad : nullptr;
+}
+
 }  // namespace
 
 #include "flash_fwd_sm90.cuh"  // the bf16 forward
+#include "flash_bwd_sm90.cuh"  // the bf16 backward at D = 64, 128
+#include "flash_big_d.cuh"     // D > 256, both types and directions
 
 namespace {
 
@@ -409,8 +477,9 @@ cudaError_t launch_fwd(const FwdArgs& a, int B, int is_bf16,
                  : launch_fwd_f32<D, kDrop, kSegs>(a, B, st);
 }
 
-// The head sizes the launchers are built for: every size of the [B, L, H,
-// D] layout, and the pair layout's (whole 128-column blocks of heads). The
+// The head sizes up to 256 the launchers are built for: every size of the
+// [B, L, H, D] layout, and the pair layout's (whole 128-column blocks of
+// heads); above 256 every multiple of 64 runs the bigd:: kernels. The
 // wrappers pad any other head size up to the next of them with zero
 // columns.
 template <int... Ds>
@@ -419,16 +488,24 @@ using FlatHeadDims = HeadDims<64, 80, 96, 128, 256>;
 using PairHeadDims = HeadDims<64, 128, 256>;
 
 // The forward for input type (bf16: the wgmma kernel; fp32: the SIMT
-// kernel) and head size D (one of Ds), with dropout (kDrop, a.drop) or
+// kernel; D > 256: the bigd:: kernel) and head size D (one of Ds, or a
+// multiple of 64 above 256), with dropout (kDrop, a.drop) or
 // without, with segment ids (kSegs, a.q_seg and a.k_seg) or without;
 // returns the cudaError_t of the launch (cudaErrorInvalidValue also when a
-// TMA descriptor cannot be encoded).
+// TMA descriptor cannot be encoded). `work` is an fp32 scratch laid out as
+// out, read only at D > 256 (the bigd:: kernel's accumulator).
 template <bool kDrop, bool kSegs, int... Ds>
-int flash_fwd(HeadDims<Ds...>, const FwdArgs& a, int B, int D, int is_bf16,
-              cudaStream_t st) {
+int flash_fwd(HeadDims<Ds...>, const FwdArgs& a, float* work, int B, int D,
+              int is_bf16, cudaStream_t st) {
   if (B <= 0 || a.Lq <= 0 || a.Lk <= 0 || a.H <= 0 || a.Hkv <= 0 ||
       a.H % a.Hkv || (kSegs && (!a.q_seg || !a.k_seg)))
     return (int)cudaErrorInvalidValue;
+  if (D > 256)
+    return (int)(is_bf16
+                     ? bigd::launch_fwd<__nv_bfloat16, kDrop, kSegs>(a, work, B,
+                                                                   D, st)
+                     : bigd::launch_fwd<float, kDrop, kSegs>(a, work, B, D,
+                                                            st));
   int rc = (int)cudaErrorInvalidValue;
   ((D == Ds ? (rc = (int)launch_fwd<Ds, kDrop, kSegs>(a, B, is_bf16, st))
             : 0),
@@ -437,31 +514,6 @@ int flash_fwd(HeadDims<Ds...>, const FwdArgs& a, int B, int D, int is_bf16,
 }
 
 // ----------------------------------------------------------------- backward
-
-// Operands of one backward launch. q, k, v as in FwdArgs; dout [B, Lq, H,
-// D] contiguous; lse and delta [B, H, Lq] fp32; dq_acc [B, Lq, H*D] fp32,
-// zeroed; dq rows dq_row apart (head h at h*D), dk and dv rows dkv_row
-// apart (KV head hk at hk*D). drop, lens, q_seg and k_seg as in FwdArgs.
-struct BwdArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  const float* lse;
-  const float* delta;
-  float* dq_acc;
-  void* dq;
-  void* dk;
-  void* dv;
-  long q_row, kv_row, dq_row, dkv_row;
-  int Lq, Lk, H, Hkv;
-  float sm_scale;
-  int causal;
-  DropParams drop;
-  const int* lens;
-  const int* q_seg;
-  const int* k_seg;
-};
 
 // kv rows of a backward CTA: 64, or 32 at D = 256 so the tiles fit in
 // shared memory and dK/dV in registers.
@@ -529,14 +581,14 @@ struct Acc<float, D, BN> {
   float dk[kN], dv[kN];
 };
 
-// One (q tile, kv tile) step on the tensor cores (bf16). dqg points at
-// this head's dq scratch, whose rows are q_stride apart; bh = b * H + h
-// keys the dropout words.
+// One (q tile, kv tile) step on the tensor cores (bf16, the WMMA body).
+// dqg points at this head's dq scratch, whose rows are q_stride apart; bh =
+// b * H + h keys the dropout words.
 template <int D, int BN, bool kDrop, class M>
 __device__ __forceinline__ void step_bf16(
     Acc<__nv_bfloat16, D, BN>& acc, unsigned char* smem, int m0, int n0,
-    M mask, float sm_scale, float* dqg, long q_stride, int warp,
-    int lane, const DropParams& drop, uint32_t bh) {
+    M mask, float* dqg, long q_stride, int warp, int lane,
+    const DropParams& drop, uint32_t bh) {
   using namespace nvcuda;
   using T = __nv_bfloat16;
   using G = BwdGeom<T, D, BN>;
@@ -639,7 +691,7 @@ __device__ __forceinline__ void step_bf16(
   }
 
   // dQ partial = dS . K for this warp's 16 q rows, staged and added to the
-  // fp32 scratch with atomics (scaled per tile)
+  // fp32 scratch with atomics (unscaled: the conversion scales)
 #pragma unroll
   for (int j = 0; j < D / 16; ++j) {
     FragC c;
@@ -662,7 +714,7 @@ __device__ __forceinline__ void step_bf16(
     const int gr = m0 + warp * 16 + rr;
     if (gr < mask.Lq) {
       atomicAdd(dqg + (long)gr * q_stride + d,
-                DQs[(warp * 16 + rr) * G::kLdQ + d] * sm_scale);
+                DQs[(warp * 16 + rr) * G::kLdQ + d]);
     }
   }
 }
@@ -760,8 +812,7 @@ __device__ __forceinline__ void step_f32(Acc<float, D, BN>& acc,
     if (qrow < mask.Lq) {
 #pragma unroll
       for (int e = 0; e < kChunk; ++e) {
-        atomicAdd(dqg + (long)qrow * q_stride + d0 + j + e,
-                  part[e] * sm_scale);
+        atomicAdd(dqg + (long)qrow * q_stride + d0 + j + e, part[e]);
       }
     }
   }
@@ -834,8 +885,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(BwdArgs a) {
                   (long)h * D;
     const T* dog = static_cast<const T*>(a.dout) + (long)b * a.Lq * do_row +
                    (long)h * D;
-    const float* lseg = a.lse + ((long)b * a.H + h) * a.Lq;
-    const float* deltag = a.delta + ((long)b * a.H + h) * a.Lq;
+    const float* lseg = a.lse_pad + ((long)b * a.H + h) * a.Lq_pad;
+    const float* deltag = a.delta + ((long)b * a.H + h) * a.Lq_pad;
     float* dqg = a.dq_acc + (long)b * a.Lq * do_row + (long)h * D;
     for (int m0 = m_begin; m0 < a.Lq; m0 += kBM) {
       __syncthreads();  // the previous step is done with Q, dO, P, dS
@@ -852,8 +903,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(BwdArgs a) {
       __syncthreads();
       const uint32_t bh = (uint32_t)(b * a.H + h);
       if constexpr (G::kBf16) {
-        step_bf16<D, BN, kDrop>(acc, smem, m0, n0, mask, a.sm_scale, dqg,
-                                do_row, warp, lane, a.drop, bh);
+        step_bf16<D, BN, kDrop>(acc, smem, m0, n0, mask, dqg, do_row, warp,
+                                lane, a.drop, bh);
       } else {
         step_f32<D, BN, kDrop>(acc, smem, m0, n0, mask, a.sm_scale, dqg,
                                do_row, a.drop, bh);
@@ -908,54 +959,130 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(BwdArgs a) {
   }
 }
 
-// dq's fp32 scratch [rows, hd] -> dq's rows (dq_row apart), input type.
+// delta = rowsum(dO * O) in fp32 and the forward's lse, both into rows
+// padded to Lq_pad (0 past Lq), and the dq scratch zeroed: a thread per
+// (b, h, q row), then a grid-stride pass over the scratch.
+template <typename T>
+__global__ void bwd_prepass_kernel(BwdArgs a, int B, int D) {
+  const long hd = (long)a.H * D;
+  const long stride = (long)gridDim.x * blockDim.x;
+  const long tid = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long rows = (long)B * a.H * a.Lq_pad;
+  constexpr int kVec = 16 / sizeof(T);
+  for (long i = tid; i < rows; i += stride) {
+    const long bh = i / a.Lq_pad;
+    const int r = (int)(i % a.Lq_pad);
+    float l = 0.0f, dl = 0.0f;
+    if (r < a.Lq) {
+      const long b = bh / a.H, h = bh % a.H;
+      l = a.lse[bh * a.Lq + r];
+      const long at = (b * a.Lq + r) * hd + h * D;
+      const T* o = static_cast<const T*>(a.out) + at;
+      const T* g = static_cast<const T*>(a.dout) + at;
+      // blocked: kVec running sums over a 32-column block, then the
+      // blocks' totals (short fp32 chains at every D)
+      for (int c0 = 0; c0 < D; c0 += 32) {
+        float part[kVec] = {};
+        for (int c = c0; c < min(D, c0 + 32); c += kVec) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(o + c);
+          const uint4 gv = *reinterpret_cast<const uint4*>(g + c);
+          const T* oe = reinterpret_cast<const T*>(&ov);
+          const T* ge = reinterpret_cast<const T*>(&gv);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e)
+            part[e] = fmaf(to_f(oe[e]), to_f(ge[e]), part[e]);
+        }
+        float blk = 0.0f;
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) blk += part[e];
+        dl += blk;
+      }
+    }
+    a.lse_pad[i] = l;
+    a.delta[i] = dl;
+  }
+  const long n4 = (long)B * a.Lq * hd / 4;
+  for (long i = tid; i < n4; i += stride)
+    reinterpret_cast<float4*>(a.dq_acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// dq's fp32 scratch [rows, hd] times `scale` -> dq's rows (dq_row apart),
+// input type.
 template <typename T>
 __global__ void dq_convert_kernel(const float* __restrict__ dq_acc,
                                   T* __restrict__ dq, long n, int hd,
-                                  long dq_row) {
+                                  long dq_row, float scale) {
   const long stride = (long)gridDim.x * blockDim.x;
   for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    dq[(i / hd) * dq_row + i % hd] = from_f<T>(dq_acc[i]);
+    dq[(i / hd) * dq_row + i % hd] = from_f<T>(dq_acc[i] * scale);
   }
 }
 
+// The WMMA (bf16) and SIMT (fp32) backward body at head size D.
 template <typename T, int D, bool kDrop, bool kSegs>
-cudaError_t launch_bwd(const BwdArgs& a, int B, cudaStream_t stream) {
-  constexpr int BN = kBwdBN<D>;
-  using G = BwdGeom<T, D, BN>;
-  auto kernel = flash_bwd_kernel<T, D, BN, kDrop, kSegs>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kBytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.Lk + BN - 1) / BN, a.Hkv, B);
-  kernel<<<grid, kThreads, G::kBytes, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+cudaError_t launch_bwd_body(const BwdArgs& a, int B, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value &&
+                sm90::bwd_sm90_takes(D)) {
+    return sm90::launch_bwd<D, kDrop, kSegs>(a, B, stream);
+  } else {
+    constexpr int BN = kBwdBN<D>;
+    using G = BwdGeom<T, D, BN>;
+    auto kernel = flash_bwd_kernel<T, D, BN, kDrop, kSegs>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kBytes);
+    if (err != cudaSuccess) return err;
+    dim3 grid((a.Lk + BN - 1) / BN, a.Hkv, B);
+    kernel<<<grid, kThreads, G::kBytes, stream>>>(a);
+    return cudaGetLastError();
+  }
+}
+
+static inline unsigned grid_for(long n) {
+  const long blocks = (n + 255) / 256;
+  return (unsigned)(blocks < 132L * 16 ? (blocks > 0 ? blocks : 1) : 132L * 16);
+}
+
+// The three launches of one backward in input type T: the pre-pass, the
+// body (D > 256: bigd::; else one of Ds), the dq conversion.
+template <typename T, bool kDrop, bool kSegs, int... Ds>
+cudaError_t launch_bwd_all(HeadDims<Ds...>, const BwdArgs& a, int B, int D,
+                           cudaStream_t st) {
+  const long rows = (long)B * a.H * a.Lq_pad;
   const long n = (long)B * a.Lq * a.H * D;
-  const long blocks = (n + 255) / 256 < 132L * 16 ? (n + 255) / 256 : 132L * 16;
-  dq_convert_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(
-      a.dq_acc, static_cast<T*>(a.dq), n, a.H * D, a.dq_row);
+  bwd_prepass_kernel<T><<<grid_for(rows > n / 4 ? rows : n / 4), 256, 0,
+                          st>>>(a, B, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaErrorInvalidValue;
+  if (D > 256) {
+    err = bigd::launch_bwd<T, kDrop, kSegs>(a, B, D, st);
+  } else {
+    ((D == Ds ? (err = launch_bwd_body<T, Ds, kDrop, kSegs>(a, B, st)) : err),
+     ...);
+  }
+  if (err != cudaSuccess) return err;
+  dq_convert_kernel<T><<<grid_for(n), 256, 0, st>>>(
+      a.dq_acc, static_cast<T*>(a.dq), n, a.H * D, a.dq_row, a.sm_scale);
   return cudaGetLastError();
 }
 
-// The backward for input type (bf16 or fp32) and head size D (one of Ds),
-// with dropout (kDrop, a.drop) or without, with segment ids (kSegs) or
-// without; returns the cudaError_t of the launches.
+// The backward for input type (bf16 or fp32) and head size D (one of Ds,
+// or a multiple of 64 above 256), with dropout (kDrop, a.drop) or
+// without, with segment ids (kSegs) or without; `work` is the fp32
+// workspace of bwd_work_floats. Returns the cudaError_t of the launches.
 template <bool kDrop, bool kSegs, int... Ds>
-int flash_bwd(HeadDims<Ds...>, const BwdArgs& a, int B, int D, int is_bf16,
-              cudaStream_t st) {
+int flash_bwd(HeadDims<Ds...> dims, BwdArgs a, float* work, int B, int D,
+              int is_bf16, cudaStream_t st) {
   if (B <= 0 || a.Lq <= 0 || a.Lk <= 0 || a.H <= 0 || a.Hkv <= 0 ||
-      a.H % a.Hkv || (kSegs && (!a.q_seg || !a.k_seg)))
+      a.H % a.Hkv || (kSegs && (!a.q_seg || !a.k_seg)) ||
+      (D > 256 && D % 64) || work == nullptr)
     return (int)cudaErrorInvalidValue;
-  using BF = __nv_bfloat16;
-  int rc = (int)cudaErrorInvalidValue;
-  ((D == Ds ? (rc = (int)(is_bf16 ? launch_bwd<BF, Ds, kDrop, kSegs>(a, B, st)
-                                  : launch_bwd<float, Ds, kDrop, kSegs>(
-                                        a, B, st)))
-            : 0),
-   ...);
-  return rc;
+  bwd_set_work(a, work, B, D);
+  return (int)(is_bf16
+                   ? launch_bwd_all<__nv_bfloat16, kDrop, kSegs>(dims, a, B,
+                                                                 D, st)
+                   : launch_bwd_all<float, kDrop, kSegs>(dims, a, B, D, st));
 }
 
 }  // namespace

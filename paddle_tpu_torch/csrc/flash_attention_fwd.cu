@@ -11,7 +11,9 @@
 // causal (the diagonal aligned bottom-right, Lk - Lq) or bidirectional; key
 // j of batch row b is attended only below lens[b] and, with segment ids,
 // only by the queries of its segment. Head sizes 64, 80, 96, 128 and 256
-// are built. The kernel is flash_attention.cuh's forward: in bf16 the
+// are built, and every multiple of 64 above 256 (the bigd:: kernel of
+// flash_big_d.cuh, its accumulator in the fp32 workspace `work`). The
+// kernel is flash_attention.cuh's forward: in bf16 the
 // Hopper kernel of flash_fwd_sm90.cuh, whose TMA descriptors read q as a
 // 3-D tensor (H*D columns, Lq rows, B) and k, v as (Hkv*D, Lk, B), so no
 // transpose to the Pallas [B*H, L, D] layout; in fp32 the SIMT kernel.
@@ -34,11 +36,13 @@
 // alignment: q and out are [B, Lq, H, D], k and v [B, Lk, Hkv, D], all of
 // the input type and contiguous; lse is [B, H, Lq] fp32; lens ([B]), q_seg
 // ([B, Lq]) and k_seg ([B, Lk]) are int32 or null (the segments both or
-// neither). With `dropout` set, the probabilities drop under the seed's
-// words, the keep threshold and the scale of kernels/philox.py.
+// neither); work is an fp32 [B, Lq, H, D] scratch at D > 256 (else
+// unread, may be null). With `dropout` set, the probabilities drop under
+// the seed's words, the keep threshold and the scale of kernels/philox.py.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse,
-    const void* lens, const void* q_seg, const void* k_seg, int B, int Lq,
+    void* work, const void* lens, const void* q_seg, const void* k_seg,
+    int B, int Lq,
     int Lk, int H, int Hkv, int D, int is_bf16, int causal, float sm_scale,
     int dropout, unsigned seed_lo, unsigned seed_hi, unsigned threshold,
     float keep_scale, void* stream) {
@@ -48,12 +52,13 @@ extern "C" int flash_attention_fwd(
             {seed_lo, seed_hi, threshold, keep_scale},
             static_cast<const int*>(lens), static_cast<const int*>(q_seg),
             static_cast<const int*>(k_seg)};
+  float* w = static_cast<float*>(work);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const FlatHeadDims dims{};
   if (q_seg != nullptr) {
-    return dropout ? flash_fwd<true, true>(dims, a, B, D, is_bf16, st)
-                   : flash_fwd<false, true>(dims, a, B, D, is_bf16, st);
+    return dropout ? flash_fwd<true, true>(dims, a, w, B, D, is_bf16, st)
+                   : flash_fwd<false, true>(dims, a, w, B, D, is_bf16, st);
   }
-  return dropout ? flash_fwd<true, false>(dims, a, B, D, is_bf16, st)
-                 : flash_fwd<false, false>(dims, a, B, D, is_bf16, st);
+  return dropout ? flash_fwd<true, false>(dims, a, w, B, D, is_bf16, st)
+                 : flash_fwd<false, false>(dims, a, w, B, D, is_bf16, st);
 }

@@ -2,7 +2,7 @@
 // the tensor cores, accumulators in registers. Included by
 // flash_attention.cuh, whose forward contract it computes (the math, the
 // rounding points and the masks are set out there); flash_fwd dispatches
-// every bf16 forward here, from both launchers (flash_attention_fwd.cu, the
+// every bf16 forward with D <= 256 here, from both launchers (flash_attention_fwd.cu, the
 // [B, L, H, D] layout; flash_pair_fwd.cu, packed qkv).
 //
 // Replaces: paddle_tpu/kernels/pallas/flash_attention.py

@@ -11,8 +11,9 @@
 // the port's `_flash_bwd_packed` (flash_attention.py:755, heads of 128): the
 // same function on the same layout.
 //
-// From qkv [B, L, 3*H*D], dO [B, L, H*D], the forward's lse [B, H, L] and
-// delta = rowsum(dO * O) [B, H, L] (fp32): d(qkv) [B, L, 3*H*D] in the
+// From qkv [B, L, 3*H*D], O and dO [B, L, H*D] and the forward's lse [B,
+// H, L] (fp32; delta = rowsum(dO * O) comes from the pre-pass launch):
+// d(qkv) [B, L, 3*H*D] in the
 // packed layout, dq at columns h*D, dk at (H+h)*D, dv at (2H+h)*D, no
 // concatenation copy. The kernel is flash_attention.cuh's backward reading
 // the packed rows (row stride 3*H*D) and writing dk/dv and (through the
@@ -27,20 +28,23 @@
 // dominate. At BERT's shape (B=64, L=512, H=12, D=64, bidirectional)
 // 129 GFLOP (130 us) against 403 MB (120 us).
 
-// Head sizes 64, 128 and 256 are built; at 256 a CTA owns 32
-// kv rows, so the tiles fit in shared memory and dK/dV in registers.
+// Head sizes 64, 128, 256 and every multiple of 128 above 256 (the pair
+// gate's) are built: bf16 at 64 and 128 runs the Hopper body of
+// flash_bwd_sm90.cuh, bf16 at 256 the WMMA body, fp32 the SIMT body, and
+// D > 256 the bigd:: kernels of flash_big_d.cuh.
 
 #include "flash_attention.cuh"
 
 // C entry point, bound with ctypes. Returns the cudaError_t of the launches
 // (0 on success). The caller has checked shapes, types, contiguity and
-// alignment: qkv and dqkv are [B, L, 3*H*D], dout [B, L, H*D] of the input
-// type; lse and delta [B, H, L] fp32; dq_acc [B, L, H*D] fp32, zeroed. The
-// dropout arguments are the forward's.
-extern "C" int flash_pair_bwd(const void* qkv, const void* dout,
-                              const void* lse, const void* delta,
-                              void* dq_acc, void* dqkv, int B, int L, int H,
-                              int D, int is_bf16, int causal, float sm_scale,
+// alignment: qkv and dqkv are [B, L, 3*H*D], out and dout [B, L, H*D] of
+// the input type; lse [B, H, L] fp32, the forward's; work an fp32
+// workspace of bwd_work_floats(B, L, L, H, H, D) floats. The dropout
+// arguments are the forward's.
+extern "C" int flash_pair_bwd(const void* qkv, const void* out,
+                              const void* dout, const void* lse, void* work,
+                              void* dqkv, int B, int L, int H, int D,
+                              int is_bf16, int causal, float sm_scale,
                               int dropout, unsigned seed_lo, unsigned seed_hi,
                               unsigned threshold, float keep_scale,
                               void* stream) {
@@ -48,13 +52,14 @@ extern "C" int flash_pair_bwd(const void* qkv, const void* dout,
   const size_t esize = is_bf16 ? 2 : 4;
   const char* in = static_cast<const char*>(qkv);
   char* grad = static_cast<char*>(dqkv);
-  BwdArgs a{qkv, in + hd * esize, in + 2 * hd * esize, dout,
-            static_cast<const float*>(lse), static_cast<const float*>(delta),
-            static_cast<float*>(dq_acc), dqkv, grad + hd * esize,
-            grad + 2 * hd * esize, 3 * hd, 3 * hd, 3 * hd, 3 * hd, L, L, H, H,
-            sm_scale, causal, {seed_lo, seed_hi, threshold, keep_scale}};
+  BwdArgs a{qkv, in + hd * esize, in + 2 * hd * esize, out, dout,
+            static_cast<const float*>(lse), nullptr, nullptr, nullptr,
+            nullptr, dqkv, grad + hd * esize, grad + 2 * hd * esize, 3 * hd,
+            3 * hd, 3 * hd, 3 * hd, L, L, H, H, 0, sm_scale, causal,
+            {seed_lo, seed_hi, threshold, keep_scale}};
+  float* w = static_cast<float*>(work);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PairHeadDims dims{};
-  return dropout ? flash_bwd<true, false>(dims, a, B, D, is_bf16, st)
-                 : flash_bwd<false, false>(dims, a, B, D, is_bf16, st);
+  return dropout ? flash_bwd<true, false>(dims, a, w, B, D, is_bf16, st)
+                 : flash_bwd<false, false>(dims, a, w, B, D, is_bf16, st);
 }

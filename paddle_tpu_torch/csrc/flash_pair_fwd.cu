@@ -9,7 +9,9 @@
 //
 // For qkv [B, L, 3*H*D] with column order [q heads | k heads | v heads]:
 // out [B, L, H*D] (the packed context) and lse [B, H, L] fp32, causal or
-// bidirectional, at head sizes 64, 128 and 256. The kernel is
+// bidirectional, at head sizes 64, 128, 256 and the multiples of 128
+// above 256 (those through the bigd:: kernel of flash_big_d.cuh, its
+// accumulator in the fp32 workspace `work`). The kernel is
 // flash_attention.cuh's forward reading q, k and v straight out of the
 // packed rows (row stride 3*H*D, k at column H*D, v at 2*H*D; no relayout,
 // no padding copy), one KV head per q head: in bf16 the Hopper kernel of
@@ -32,10 +34,12 @@
 // C entry point, bound with ctypes. Returns the cudaError_t of the launch
 // (0 on success). The caller has checked shapes, types, contiguity and
 // alignment; `out` is [B, L, H*D] of the input type and `lse` is [B, H, L]
-// fp32. With `dropout` set, the probabilities drop under the seed's words,
-// the keep threshold and the scale of kernels/philox.py.
-extern "C" int flash_pair_fwd(const void* qkv, void* out, void* lse, int B,
-                              int L, int H, int D, int is_bf16, int causal,
+// fp32; `work` an fp32 [B, L, H*D] scratch at D > 256 (else unread, may be
+// null). With `dropout` set, the probabilities drop under the seed's
+// words, the keep threshold and the scale of kernels/philox.py.
+extern "C" int flash_pair_fwd(const void* qkv, void* out, void* lse,
+                              void* work, int B, int L, int H, int D,
+                              int is_bf16, int causal,
                               float sm_scale, int dropout, unsigned seed_lo,
                               unsigned seed_hi, unsigned threshold,
                               float keep_scale, void* stream) {
@@ -45,8 +49,9 @@ extern "C" int flash_pair_fwd(const void* qkv, void* out, void* lse, int B,
   FwdArgs a{qkv, base + hd * esize, base + 2 * hd * esize, out,
             static_cast<float*>(lse), 3 * hd, 3 * hd, hd, L, L, H, H,
             sm_scale, causal, {seed_lo, seed_hi, threshold, keep_scale}};
+  float* w = static_cast<float*>(work);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PairHeadDims dims{};
-  return dropout ? flash_fwd<true, false>(dims, a, B, D, is_bf16, st)
-                 : flash_fwd<false, false>(dims, a, B, D, is_bf16, st);
+  return dropout ? flash_fwd<true, false>(dims, a, w, B, D, is_bf16, st)
+                 : flash_fwd<false, false>(dims, a, w, B, D, is_bf16, st);
 }

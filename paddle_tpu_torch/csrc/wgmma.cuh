@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX for the port's kernels:
-// mbarriers, TMA tile loads, the fences between the generic and the async
-// proxy, named barriers, wgmma shared-memory descriptors, the wgmma
-// instructions the attention forward issues and a fast exp2. Each wrapper
+// mbarriers, TMA tile loads, bulk copies and bulk fp32 reductions, the
+// fences between the generic and the async proxy, named barriers, wgmma
+// shared-memory descriptors, the wgmma instructions the attention kernels
+// issue and a fast exp2. Each wrapper
 // is one PTX instruction (or a short fixed sequence); the register lists
 // of the wgmma instructions are written out because inline PTX takes
 // literal operand lists. PTX ISA 8.x, "Asynchronous warpgroup level matrix
@@ -79,6 +80,52 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(issue)
       : "memory");
+}
+
+// Copies `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// global memory at `src` into shared memory at `dst`; completion is counted
+// on `bar`. Issued by the threads whose `issue` is nonzero.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar,
+                                          int issue = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %4, 0;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n}\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar), "r"(issue)
+      : "memory");
+}
+
+// Adds `bytes` of fp32 values from shared memory at `src` to global memory
+// at `dst` (both 16-byte aligned, a multiple of 16 bytes), element by
+// element and atomically with respect to other reductions; issued by the
+// threads whose `issue` is nonzero, tracked by this thread's bulk groups.
+__device__ __forceinline__ void bulk_reduce_add_f32(void* dst, uint32_t src,
+                                                    uint32_t bytes,
+                                                    int issue = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\n"
+      "@p cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
+      "[%0], [%1], %2;\n}\n" ::"l"(reinterpret_cast<uint64_t>(dst)),
+      "r"(src), "r"(bytes), "r"(issue)
+      : "memory");
+}
+
+// Closes this thread's pending bulk reductions into one group.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until this thread's bulk groups have finished reading their shared
+// memory sources (the sources may then be overwritten).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Waits until this thread's bulk groups have completed (their writes to
+// global memory are done).
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // Makes this thread's generic-proxy writes to shared memory visible to the
@@ -197,6 +244,27 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[128 / 2], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, fp32) {+}= A . B with both operands MN-major (transposed)
+// bf16 from shared memory: A's 64 rows and B's 64 columns are the
+// contiguous dimension of their tiles.
+__device__ __forceinline__ void wgmma_ss64_tt(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

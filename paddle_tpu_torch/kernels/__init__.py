@@ -4,7 +4,8 @@
   (``csrc/flash_pair_bwd.cu``), the flash-attention forward and backward
   over the packed qkv layout with in-kernel dropout, tied together under
   autograd by ``FlashPairPacked`` (GPT, BERT, and
-  ``flash_attention_qkv_packed``, the packed-qkv call for heads of 128);
+  ``flash_attention_qkv_packed``, the packed-qkv call for heads of a
+  multiple of 128);
 * ``flash_attention_fwd`` (``csrc/flash_attention_fwd.cu``) and
   ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``), the same on
   the ``[B, L, H, D]`` layout with grouped-query attention, per-sequence

@@ -2,9 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``_build/lib<name>-<hash>.so`` (the hash covers the source, every header of
-``csrc/`` (``flash_attention.cuh``, ``fused_residual.cuh``, ``philox.cuh``,
-``common.cuh``) and the flags, so an edited source or header rebuilds and a
-stale library is never loaded) and bound with ``ctypes``: each source
+``csrc/`` (``*.cuh``) and the flags, so an edited source or header rebuilds
+and a stale library is never loaded) and bound with ``ctypes``: each source
 exposes one plain ``extern "C"`` launcher named like the kernel, so no
 PyTorch header is compiled and a build takes seconds. Nothing is built when a module is imported; the first launch
 builds what it needs, and ``build_all()`` builds every source that is not

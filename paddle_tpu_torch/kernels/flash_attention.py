@@ -20,6 +20,13 @@ CUDA C++ for ``sm_90a``, built with ``nvcc`` at first use and bound with
   inputs' layouts: the job of the Pallas fused, dq and dkv kernels, with
   each KV head's gradient summed over its group of q heads in fp32.
 
+Every head size runs: 64, 80, 96, 128 and 256 are built (in bf16 the
+Hopper kernels of ``csrc/flash_fwd_sm90.cuh`` and, at 64 and 128,
+``csrc/flash_bwd_sm90.cuh``), above 256 every multiple of 64 (the kernels
+of ``csrc/flash_big_d.cuh``), and any other size runs at the next built
+one on zero-padded heads (``kernel_head_dim``), as the JAX
+``flash_attention_blhd`` takes any head size.
+
 Both take the masks of the Pallas ``_valid_mask``: ``kv_lens`` ``[B]``
 (key ``j`` of batch row ``b`` is attended only below ``kv_lens[b]``;
 queries past it still attend the valid keys, an additive padding mask's
@@ -48,7 +55,7 @@ import math
 import torch
 
 from . import _build, philox
-from .flash_pair import FlashPairPacked
+from .flash_pair import FlashPairPacked, bwd_work_floats
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_reference",
            "flash_attention_bwd", "flash_attention_bwd_reference",
@@ -56,17 +63,22 @@ __all__ = ["flash_attention_fwd", "flash_attention_fwd_reference",
 
 _NEG_INF = -1e30
 _DTYPES = (torch.bfloat16, torch.float32)
-# head sizes the kernels are built for (csrc/flash_attention.cuh
-# FlatHeadDims); any other size up to the largest runs at the next of them
-# with zero columns
+# head sizes up to 256 the kernels are built for (csrc/flash_attention.cuh
+# FlatHeadDims); above 256 every multiple of 64 is built (the kernels of
+# csrc/flash_big_d.cuh). Any other size runs at the next built one with
+# zero columns.
 _HEAD_DIMS = (64, 80, 96, 128, 256)
+_BIG_D_QUANTUM = 64
 
 
 def kernel_head_dim(d: int) -> int:
     """The head size a head of ``d`` runs at on the card: the smallest
-    built size that holds it (``d`` itself when it is built). Zero columns
+    built size that holds it (``d`` itself when it is built): one of
+    ``_HEAD_DIMS`` up to 256, the next multiple of 64 above. Zero columns
     add exact zeros to q.k and give zero output columns, which are sliced
     off."""
+    if d > _HEAD_DIMS[-1]:
+        return -(-d // _BIG_D_QUANTUM) * _BIG_D_QUANTUM
     return next(k for k in _HEAD_DIMS if k >= d)
 
 
@@ -86,9 +98,16 @@ def _check_rate(who, dropout_rate, seed):
                          f"(core.random.next_seed)")
 
 
+def _compute_type(dt):
+    """fp32 for the kernels' types; fp64 stays fp64 (the plain versions
+    take it, as an exact oracle)."""
+    return torch.promote_types(dt, torch.float32)
+
+
 def _check(q, k, v, dropout_rate=0.0, seed=None, block_q=None, block_k=None,
-           who="flash_attention_fwd"):
-    """Validate the forward's inputs; returns ``(B, Lq, Lk, H, Hkv, D)``."""
+           who="flash_attention_fwd", plain=False):
+    """Validate the forward's inputs (``plain``: the plain versions', which
+    also take fp64); returns ``(B, Lq, Lk, H, Hkv, D)``."""
     _check_rate(who, dropout_rate, seed)
     if block_q is not None or block_k is not None:
         raise NotImplementedError(
@@ -109,11 +128,10 @@ def _check(q, k, v, dropout_rate=0.0, seed=None, block_q=None, block_k=None,
     if h % hkv:
         raise ValueError(f"{who}: {h} query heads are not a multiple of "
                          f"{hkv} key/value heads")
-    if not 1 <= d <= _HEAD_DIMS[-1]:
-        raise ValueError(f"{who}: head_dim {d} is not supported: the kernels "
-                         f"take head_dim up to {_HEAD_DIMS[-1]} (larger heads "
-                         f"are ROADMAP Queue 2 K1)")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if d < 1:
+        raise ValueError(f"{who}: empty head (head_dim {d})")
+    types = _DTYPES + ((torch.float64,) if plain else ())
+    if q.dtype not in types or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{who}: q, k, v must share one dtype of bfloat16 "
                         f"or float32, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -154,10 +172,11 @@ def _scale(d, sm_scale):
 
 
 def _heads_first(x, group):
-    """``[B, L, Hx, D]`` -> fp32 ``[B, Hx * group, L, D]``, each head
-    repeated ``group`` times in place (q head ``h`` reads KV head ``h //
-    group``)."""
-    return x.float().transpose(1, 2).repeat_interleave(group, dim=1)
+    """``[B, L, Hx, D]`` -> ``[B, Hx * group, L, D]`` in the compute type,
+    each head repeated ``group`` times in place (q head ``h`` reads KV head
+    ``h // group``)."""
+    return x.to(_compute_type(x.dtype)).transpose(1, 2) \
+        .repeat_interleave(group, dim=1)
 
 
 def _visible(lq, lk, causal, device, lens=None, q_seg=None, kv_seg=None):
@@ -194,12 +213,14 @@ def flash_attention_fwd_reference(q, k, v, causal: bool, sm_scale=None,
     undropped probabilities, then each probability times its keep factor
     (dropout), rounded to v's type before P.V, and the final ``acc / max(l,
     1e-30)``, so a row with no visible key gives 0 and its lse is -1e30.
-    Returns ``(out [B, Lq, H, D] in q's type, lse [B, H, Lq] fp32)``."""
-    b, lq, lk, h, hkv, d = _check(q, k, v, dropout_rate, seed)
+    Returns ``(out [B, Lq, H, D] in q's type, lse [B, H, Lq] fp32)``. Takes
+    fp64 too (computed in fp64, lse fp64), as an exact oracle."""
+    b, lq, lk, h, hkv, d = _check(q, k, v, dropout_rate, seed, plain=True)
     masks = _masks(b, lq, lk, q.device, kv_lens, q_segments, kv_segments)
     dt = q.dtype
+    ct = _compute_type(dt)
     scale = _scale(d, sm_scale)
-    qs = (q.float() * scale).to(dt).float().transpose(1, 2)   # [b,h,lq,d]
+    qs = (q.to(ct) * scale).to(dt).to(ct).transpose(1, 2)     # [b,h,lq,d]
     kf = _heads_first(k, h // hkv)
     vf = _heads_first(v, h // hkv)
     valid = _visible(lq, lk, causal, q.device, *masks)
@@ -210,12 +231,12 @@ def flash_attention_fwd_reference(q, k, v, causal: bool, sm_scale=None,
     f = _keep_factor(b, h, lq, lk, dropout_rate, seed, q.device)
     if f is not None:
         p = p * f
-    o = (p.to(dt).float() @ vf) / l
+    o = (p.to(dt).to(ct) @ vf) / l
     lse = (m + torch.log(l))[..., 0]
     return o.transpose(1, 2).to(dt).contiguous(), lse
 
 
-_FWD_ARGTYPES = (*(ctypes.c_void_p,) * 8, *(ctypes.c_int,) * 8,
+_FWD_ARGTYPES = (*(ctypes.c_void_p,) * 9, *(ctypes.c_int,) * 8,
                  ctypes.c_float, *philox.KERNEL_ARGTYPES, ctypes.c_void_p)
 
 
@@ -241,12 +262,12 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale=None,
     A CUDA tensor launches the kernel on the current stream (one launch
     per call, counted in ``flash_attention_fwd.launches``; a head size that
     is not built runs at ``kernel_head_dim`` on zero-padded copies, with
-    the scale of the true size); a CPU tensor runs
+    the scale of the true size; above 256 the kernel accumulates in an fp32
+    scratch of out's shape); a CPU tensor runs
     ``flash_attention_fwd_reference``. Raises on a rate outside [0, 1), a
-    positive rate without a seed, explicit block sizes, a head size above
-    256, a query head count that is not a multiple of the KV head count, a
-    type other than bf16/fp32, malformed masks, and non-contiguous or
-    misaligned input."""
+    positive rate without a seed, explicit block sizes, a query head count
+    that is not a multiple of the KV head count, a type other than
+    bf16/fp32, malformed masks, and non-contiguous or misaligned input."""
     dims = _check(q, k, v, dropout_rate, seed, block_q, block_k)
     b, lq, lk, h, hkv, d = dims
     masks = _masks(b, lq, lk, q.device, kv_lens, q_segments, kv_segments)
@@ -267,12 +288,15 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale=None,
     _check_aligned("flash_attention_fwd", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty(b, h, lq, dtype=torch.float32, device=q.device)
+    work = torch.empty(q.shape, dtype=torch.float32, device=q.device) \
+        if d > _HEAD_DIMS[-1] else None
     lib = _build.load("flash_attention_fwd", _FWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), *map(_ptr, masks), b, lq, lk, h, hkv, d,
+            lse.data_ptr(), _ptr(work), *map(_ptr, masks), b, lq, lk, h,
+            hkv, d,
             int(q.dtype == torch.bfloat16), int(bool(causal)),
             _scale(d, sm_scale), *philox.kernel_args(dropout_rate, seed),
             stream)
@@ -286,15 +310,15 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale=None,
 flash_attention_fwd.launches = 0
 
 
-def _check_bwd(q, k, v, out, lse, dout, dropout_rate, seed):
+def _check_bwd(q, k, v, out, lse, dout, dropout_rate, seed, plain=False):
     b, lq, lk, h, hkv, d = _check(q, k, v, dropout_rate, seed,
-                                  who="flash_attention_bwd")
+                                  who="flash_attention_bwd", plain=plain)
     for name, t in (("out", out), ("dout", dout)):
         if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype:
             raise ValueError(f"flash_attention_bwd: {name} must be [B, Lq, "
                              f"H, D] = {tuple(q.shape)} of {q.dtype}, got "
                              f"{tuple(t.shape)} of {t.dtype}")
-    if tuple(lse.shape) != (b, h, lq) or lse.dtype != torch.float32:
+    if tuple(lse.shape) != (b, h, lq) or lse.dtype != _compute_type(q.dtype):
         raise ValueError(f"flash_attention_bwd: lse must be [B, H, Lq] = "
                          f"{(b, h, lq)} float32, got {tuple(lse.shape)} "
                          f"{lse.dtype}")
@@ -308,9 +332,11 @@ def _check_bwd(q, k, v, out, lse, dout, dropout_rate, seed):
 
 
 def _delta(out, dout):
-    """``rowsum(dO * O)`` in fp32 as ``[B, H, Lq]`` (flash_attention.py:526,
-    outside the kernel there too)."""
-    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    """``rowsum(dO * O)`` in the compute type as ``[B, H, Lq]``
+    (flash_attention.py:526, outside the kernel there too; the kernels'
+    pre-pass computes the same)."""
+    ct = _compute_type(out.dtype)
+    return (dout.to(ct) * out.to(ct)).sum(-1).transpose(1, 2).contiguous()
 
 
 def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal: bool,
@@ -332,19 +358,21 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal: bool,
     head's gradient carries ``group`` roundings there and one here. With
     one q head per KV head, and in fp32, the two agree up to summation
     order. Returns ``(dq [B, Lq, H, D], dk, dv [B, Lk, Hkv, D])`` in the
-    input type."""
+    input type. Takes fp64 too (with an fp64 lse; computed in fp64), as an
+    exact oracle."""
     b, lq, lk, h, hkv, d = _check_bwd(q, k, v, out, lse, dout, dropout_rate,
-                                      seed)
+                                      seed, plain=True)
     masks = _masks(b, lq, lk, q.device, kv_lens, q_segments, kv_segments,
                    "flash_attention_bwd")
     dt = q.dtype
+    ct = _compute_type(dt)
     group = h // hkv
     scale = _scale(d, sm_scale)
-    qf = q.float().transpose(1, 2)                            # [b,h,lq,d]
-    qs = (q.float() * scale).to(dt).float().transpose(1, 2)
+    qf = q.to(ct).transpose(1, 2)                             # [b,h,lq,d]
+    qs = (q.to(ct) * scale).to(dt).to(ct).transpose(1, 2)
     kf = _heads_first(k, group)                               # [b,h,lk,d]
     vf = _heads_first(v, group)
-    do = dout.float().transpose(1, 2)
+    do = dout.to(ct).transpose(1, 2)
     valid = _visible(lq, lk, causal, q.device, *masks)
     p = torch.where(valid, torch.exp(qs @ kf.transpose(-1, -2)
                                      - lse[..., None]), 0.0)
@@ -354,11 +382,11 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal: bool,
     if f is not None:
         p_dv = p * f
         dp = dp * f
-    ds = (p * (dp - _delta(out, dout)[..., None])).to(dt).float()
+    ds = (p * (dp - _delta(out, dout)[..., None])).to(dt).to(ct)
     dq = (ds @ kf) * scale
     dk = (ds.transpose(-1, -2) @ qf).reshape(b, hkv, group, lk, d).sum(2) \
         * scale
-    dv = (p_dv.to(dt).float().transpose(-1, -2) @ do) \
+    dv = (p_dv.to(dt).to(ct).transpose(-1, -2) @ do) \
         .reshape(b, hkv, group, lk, d).sum(2)
     return tuple(x.transpose(1, 2).to(dt).contiguous() for x in (dq, dk, dv))
 
@@ -377,13 +405,14 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
     forward's.
 
     A CUDA tensor launches the kernel on the current stream (one counted
-    launch per call in ``flash_attention_bwd.launches``; the kernel's dq
-    goes through an fp32 scratch and a small conversion launch behind it;
-    a head size that is not built runs padded, as in the forward);
-    a CPU tensor runs ``flash_attention_bwd_reference``. ``delta =
-    rowsum(dO*O)`` is a torch expression here, as the JAX package computes
-    it outside its kernel. Raises on what the kernel does not take, as the
-    forward does, and on mismatched shapes or types."""
+    launch per call in ``flash_attention_bwd.launches``; a pre-pass launch
+    before the kernel computes ``delta = rowsum(dO*O)``, as the JAX package
+    computes it outside its kernel, and zeroes dq's fp32 scratch, and a
+    small conversion launch behind it writes dq; all in one fp32 workspace;
+    a head size that is not built runs padded, as in the forward); a CPU
+    tensor runs ``flash_attention_bwd_reference``. Raises on what the
+    kernel does not take, as the forward does, and on mismatched shapes or
+    types."""
     dims = _check_bwd(q, k, v, out, lse, dout, dropout_rate, seed)
     b, lq, lk, h, hkv, d = dims
     masks = _masks(b, lq, lk, q.device, kv_lens, q_segments, kv_segments,
@@ -405,19 +434,19 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
             dropout_rate, seed=seed, kv_lens=masks[0], q_segments=masks[1],
             kv_segments=masks[2])
         return tuple(g[..., :d].contiguous() for g in grads)
-    _check_aligned("flash_attention_bwd", q, k, v, dout)
-    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    _check_aligned("flash_attention_bwd", q, k, v, out, dout)
+    work = torch.empty(bwd_work_floats(b, lq, lk, h, hkv, d),
+                       dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    delta = _delta(out, dout)
     lib = _build.load("flash_attention_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *map(_ptr, masks),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), *map(_ptr, masks),
             b, lq, lk, h, hkv, d, int(q.dtype == torch.bfloat16),
             int(bool(causal)), _scale(d, sm_scale),
             *philox.kernel_args(dropout_rate, seed), stream)

@@ -35,11 +35,30 @@ from . import _build, philox
 
 __all__ = ["flash_pair_fwd", "flash_pair_fwd_reference", "flash_pair_bwd",
            "flash_pair_bwd_reference", "FlashPairPacked",
-           "pair_layout_supported"]
+           "pair_layout_supported", "bwd_work_floats"]
 
 _NEG_INF = -1e30
 _DTYPES = (torch.bfloat16, torch.float32)
 _HEAD_DIMS = (64, 128, 256)   # csrc/flash_attention.cuh PairHeadDims
+# above 256 the pair gate's whole 128-column blocks run the kernels of
+# csrc/flash_big_d.cuh
+
+
+def _kernel_takes(d: int) -> bool:
+    """Whether the pair kernels are built for head size ``d``."""
+    return d in _HEAD_DIMS or (d > _HEAD_DIMS[-1] and d % 128 == 0)
+
+
+def bwd_work_floats(b: int, lq: int, lk: int, h: int, hkv: int,
+                    d: int) -> int:
+    """Floats of a backward launch's fp32 workspace
+    (csrc/flash_attention.cuh ``bwd_work_floats``): dq's scratch ``[B, Lq,
+    H*D]``, lse and delta at rows padded to a multiple of 64 ``[B*H,
+    Lq_pad]`` each, and at ``D > 256`` the dk and dv scratch ``[B, Lk,
+    Hkv*D]`` each."""
+    lq_pad = -(-lq // 64) * 64
+    return (b * lq * h * d + 2 * b * h * lq_pad
+            + (2 * b * lk * hkv * d if d > _HEAD_DIMS[-1] else 0))
 
 
 def _heads_per_block(head_dim: int) -> int:
@@ -80,10 +99,11 @@ def _check(qkv: torch.Tensor, num_heads: int, dropout_rate: float,
         raise ValueError(f"{who}: qkv must be [B, L, 3*H*D] with "
                          f"H={num_heads}, got {tuple(qkv.shape)}")
     d = qkv.shape[-1] // (3 * num_heads)
-    if d not in _HEAD_DIMS or not pair_layout_supported(d, num_heads):
+    if not _kernel_takes(d) or not pair_layout_supported(d, num_heads):
         raise ValueError(f"{who}: head_dim {d} with {num_heads} "
-                         f"heads is not supported (head_dim in {_HEAD_DIMS}, "
-                         f"num_heads a multiple of max(1, 128 // head_dim))")
+                         f"heads is not supported (head_dim in {_HEAD_DIMS} "
+                         f"or a multiple of 128 above 256, num_heads a "
+                         f"multiple of max(1, 128 // head_dim))")
     if qkv.dtype not in _DTYPES + ((torch.float64,) if plain else ()):
         raise TypeError(f"{who}: dtype {qkv.dtype} is not "
                         f"supported (bfloat16 or float32)")
@@ -141,8 +161,8 @@ def flash_pair_fwd_reference(qkv: torch.Tensor, num_heads: int,
 
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_float,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
              *philox.KERNEL_ARGTYPES, ctypes.c_void_p)
 
 
@@ -156,8 +176,10 @@ def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
     A CUDA tensor launches the kernel on the current stream (one launch
     per call, counted in ``flash_pair_fwd.launches``); a CPU tensor runs
     ``flash_pair_fwd_reference``. Raises on a rate outside [0, 1), a
-    positive rate without a seed, a head size other than 64, 128 or 256, a
-    type other than bf16/fp32 and non-contiguous input."""
+    positive rate without a seed, a head size other than 64, 128, 256 or a
+    multiple of 128 above 256 (there the kernel accumulates in an fp32
+    scratch of out's shape), a type other than bf16/fp32 and
+    non-contiguous input."""
     d = _check(qkv, num_heads, dropout_rate, seed)
     if qkv.device.type == "cpu":
         return flash_pair_fwd_reference(qkv, num_heads, causal,
@@ -172,12 +194,15 @@ def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
                       device=qkv.device)
     lse = torch.empty(b, num_heads, L, dtype=torch.float32,
                       device=qkv.device)
+    work = torch.empty(out.shape, dtype=torch.float32, device=qkv.device) \
+        if d > _HEAD_DIMS[-1] else None
     lib = _build.load("flash_pair_fwd", _ARGTYPES)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_pair_fwd(
-            qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, L, num_heads,
-            d, int(qkv.dtype == torch.bfloat16), int(bool(causal)),
+            qkv.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            None if work is None else work.data_ptr(), b, L, num_heads, d,
+            int(qkv.dtype == torch.bfloat16), int(bool(causal)),
             _scale(d, sm_scale), *philox.kernel_args(dropout_rate, seed),
             stream)
     if rc != 0:
@@ -285,33 +310,34 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
     forward's.
 
     A CUDA tensor launches the kernel on the current stream (one counted
-    launch per call in ``flash_pair_bwd.launches``; the kernel's dq goes
-    through an fp32 scratch and a small conversion launch behind it); a
-    CPU tensor runs ``flash_pair_bwd_reference``. ``delta = rowsum(dO*O)``
-    is a torch expression here, as the JAX package computes it outside its
-    kernel. Raises on what the kernel does not take: a head size other than
-    64, 128 or 256, a type other than bf16/fp32, mismatched shapes or types,
-    non-contiguous or misaligned input."""
+    launch per call in ``flash_pair_bwd.launches``; a pre-pass launch
+    before the kernel computes ``delta = rowsum(dO*O)``, as the JAX package
+    computes it outside its kernel, and zeroes dq's fp32 scratch, and a
+    small conversion launch behind it writes dq; all in one fp32
+    workspace); a CPU tensor runs ``flash_pair_bwd_reference``. Raises on
+    what the kernel does not take: a head size other than 64, 128, 256 or a
+    multiple of 128 above 256, a type other than bf16/fp32, mismatched
+    shapes or types, non-contiguous or misaligned input."""
     d = _check_bwd(qkv, out, lse, dout, num_heads, dropout_rate, seed)
     if qkv.device.type == "cpu":
         return flash_pair_bwd_reference(qkv, out, lse, dout, num_heads,
                                         causal, dropout_rate, seed, sm_scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_pair_bwd: unsupported device {qkv.device}")
-    if qkv.data_ptr() % 16 or dout.data_ptr() % 16:
-        raise ValueError("flash_pair_bwd: qkv and dout must be 16-byte "
-                         "aligned (the kernel reads them in 16-byte vectors)")
+    if qkv.data_ptr() % 16 or out.data_ptr() % 16 or dout.data_ptr() % 16:
+        raise ValueError("flash_pair_bwd: qkv, out and dout must be 16-byte "
+                         "aligned (the kernels read them with TMA and in "
+                         "16-byte vectors)")
     b, L, _ = qkv.shape
-    delta = _delta(out, dout, num_heads)
-    dq_acc = torch.zeros(b, L, num_heads * d, dtype=torch.float32,
-                         device=qkv.device)
+    work = torch.empty(bwd_work_floats(b, L, L, num_heads, num_heads, d),
+                       dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
     lib = _build.load("flash_pair_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_pair_bwd(
-            qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq_acc.data_ptr(), dqkv.data_ptr(), b, L,
+            qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            work.data_ptr(), dqkv.data_ptr(), b, L,
             num_heads, d, int(qkv.dtype == torch.bfloat16), int(bool(causal)),
             _scale(d, sm_scale), *philox.kernel_args(dropout_rate, seed),
             stream)

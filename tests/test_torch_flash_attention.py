@@ -184,12 +184,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
         with pytest.raises(ValueError, match=r"\[0, 1\)"):
             flash_attention_fwd(q, k, k, True, dropout_rate=1.0, seed=1)
     elif bad == "head_dim":
-        # up to 256 every head size runs (padded to a built size); above,
-        # the kernels have no instantiation (ROADMAP Queue 2 K1)
-        with pytest.raises(ValueError, match="K1"):
-            flash_attention_fwd(torch.zeros(1, 128, 4, 320),
-                                torch.zeros(1, 128, 2, 320),
-                                torch.zeros(1, 128, 2, 320), True)
+        # every head size runs (padded to a built size; above 256 the
+        # kernels take any multiple of 64): only an empty head is refused
+        with pytest.raises(ValueError, match="empty head"):
+            flash_attention_fwd(torch.zeros(1, 128, 4, 0),
+                                torch.zeros(1, 128, 2, 0),
+                                torch.zeros(1, 128, 2, 0), True)
+        assert kernel_head_dim(320) == 320 and kernel_head_dim(300) == 320
     elif bad == "gqa_ratio":
         k3 = torch.zeros(1, 128, 3, 64)
         with pytest.raises(ValueError):
@@ -653,9 +654,11 @@ def test_packed_qkv_split_route_drops_in_the_flat_kernels(monkeypatch):
 
 # built at 80, 96 and 256 besides 64 and 128; 72 runs padded to 80
 F1_HEAD_DIMS = [80, 96, 256, 72]
+# above 256 every multiple of 64 is built (csrc/flash_big_d.cuh)
+BIG_HEAD_DIMS = [320]
 
 
-@pytest.mark.parametrize("d", F1_HEAD_DIMS)
+@pytest.mark.parametrize("d", F1_HEAD_DIMS + BIG_HEAD_DIMS)
 def test_head_dims_match_pallas_interpret(d):
     """Every head size the JAX gate sends to a kernel: the plain forward
     (out, lse) against ``_flash_fwd`` and the plain backward against
@@ -688,7 +691,63 @@ def test_head_dims_match_pallas_interpret(d):
                                    rtol=1e-4, err_msg=name)
 
 
-@pytest.mark.parametrize("d", F1_HEAD_DIMS)
+@pytest.mark.parametrize("causal", [False, True])
+def test_big_head_dim_gqa_matches_pallas_interpret(causal):
+    """D = 320 (above 256: the kernels of csrc/flash_big_d.cuh on the
+    card, their plain versions here) with multi-query GQA 4/1 and Lq = 128
+    against Lk = 256 (the diagonal moved by 128; two kv tiles: the Pallas
+    split dq/dkv kernels), fp32 within 1e-4: out and lse against
+    ``_flash_fwd``, dq, dk, dv against jax.vjp of ``flash_attention_blhd``,
+    both in interpret mode."""
+    b, lq, lk, h, hkv, d = 1, 128, 256, 4, 1, 320
+    q, k, v = _inputs(b, lq, lk, h, hkv, d, seed=int(causal) + 320)
+    out_j, lse_j = _flash_fwd(_flat(q), _flat(k), _flat(v),
+                              jnp.asarray([0], jnp.int32), causal,
+                              1.0 / math.sqrt(d), 128, 128, 0.0, True, h,
+                              hkv)
+    out_t, lse_t = flash_attention_fwd(*_t(q, k, v), causal)
+    np.testing.assert_allclose(
+        out_t.numpy(),
+        np.asarray(out_j).reshape(b, h, lq, d).transpose(0, 2, 1, 3),
+        atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(lse_t.numpy(),
+                               np.asarray(lse_j).reshape(b, h, -1)[:, :, :lq],
+                               atol=1e-4, rtol=1e-4)
+    g = np.random.RandomState(5).randn(b, lq, h, d).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda a, bb, c: flash_attention_blhd(a, bb, c, causal=causal,
+                                              block_q=128, block_k=128,
+                                              interpret=True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = flash_attention_bwd(*_t(q, k, v), out_t, lse_t,
+                              torch.from_numpy(g), causal)
+    for name, x, y in zip(("dq", "dk", "dv"), got, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=1e-4,
+                                   rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_plain_backward_fp64_matches_autograd_of_forward(rate):
+    """The plain versions take fp64 (the exact oracle the card's fp32
+    kernels above D = 256 are held to): the written-out backward equals
+    torch autograd of the fp64 forward under the same masks and dropout,
+    GQA 4/2 with lengths at D = 320."""
+    b, lq, lk, h, hkv, d = 2, 96, 128, 4, 2, 320
+    q, k, v = (torch.from_numpy(a).double().requires_grad_()
+               for a in _inputs(b, lq, lk, h, hkv, d, seed=7))
+    kw = dict(kv_lens=torch.tensor([128, 70]), seed=11 if rate else None)
+    out, lse = flash_attention_fwd_reference(q, k, v, True, None, rate, **kw)
+    assert out.dtype == lse.dtype == torch.float64
+    g = torch.from_numpy(np.random.RandomState(8).randn(*out.shape))
+    out.backward(g)
+    got = flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(),
+                                        out.detach(), lse.detach(), g, True,
+                                        None, rate, **kw)
+    for x, leaf in zip(got, (q, k, v)):
+        torch.testing.assert_close(x, leaf.grad, atol=1e-10, rtol=1e-10)
+
+
+@pytest.mark.parametrize("d", F1_HEAD_DIMS + BIG_HEAD_DIMS)
 def test_head_dims_functionals_match_jax(d, monkeypatch):
     """F.scaled_dot_product_attention and F.flash_attention at the new head
     sizes, through the kernel route (the gate forced open: the plain
@@ -707,7 +766,7 @@ def test_head_dims_functionals_match_jax(d, monkeypatch):
         np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("d", [72, 100, 200])
+@pytest.mark.parametrize("d", [72, 100, 200, 300])
 def test_padded_head_dim_is_exact(d):
     """A head size that is not built runs at ``kernel_head_dim(d)`` on
     zero-padded copies with the true size's scale: the zero columns add
@@ -715,7 +774,7 @@ def test_padded_head_dim_is_exact(d):
     meet O's, so the sliced forward and backward equal the unpadded ones
     (the plain versions stand in for the kernels here)."""
     kd = kernel_head_dim(d)
-    assert kd > d and kd in (80, 128, 256)
+    assert kd > d and kd in (80, 128, 256, 320)
     q, k, v = _t(*_inputs(2, 96, 128, 4, 2, d, seed=d))
     g = torch.from_numpy(
         np.random.RandomState(d).randn(2, 96, 4, d).astype(np.float32))
@@ -820,7 +879,14 @@ def _card_inputs(b, lq, lk, h, hkv, d, dtype, seed):
 
 CARD_CASES = [(2, 512, 512, 8, 2, 128, "bfloat16", True),
               (2, 200, 300, 4, 1, 64, "float32", True),
-              (2, 200, 300, 4, 4, 64, "float32", False)]
+              (2, 200, 300, 4, 4, 64, "float32", False),
+              # the Hopper backward: ragged lengths, multi-query 4/1
+              (2, 300, 300, 4, 1, 64, "bfloat16", False),
+              (2, 200, 333, 4, 1, 128, "bfloat16", True),
+              # heads above 256 (csrc/flash_big_d.cuh)
+              (2, 256, 256, 4, 2, 512, "bfloat16", True),
+              (2, 200, 300, 4, 2, 320, "float32", True),
+              (1, 128, 200, 2, 1, 512, "float32", False)]
 
 
 @pytest.mark.cuda
@@ -855,9 +921,19 @@ def test_cuda_backward_matches_plain(case):
     got = flash_attention_bwd(q, k, v, out, lse, g, causal)
     torch.cuda.synchronize()
     assert launch_counts() == dict(NO_LAUNCHES, flash_attention_bwd=1)
-    want = flash_attention_bwd_reference(q, k, v, out, lse, g, causal)
-    # the limits of chip_smoke.py's compare-fa-bwd phase
+    # the limits of chip_smoke.py's compare-fa-bwd phase; fp32 above D =
+    # 256 against the exact gradient (the plain versions in fp64 from fp64
+    # inputs) within its BIG_D_FP32_REL_LIMIT: there the fp32 plain
+    # version itself sits 3e-6 to 4e-6 from it
     limit = 8.3e-4 if dtype == torch.bfloat16 else 9e-7
+    if dtype == torch.float32 and d > 256:
+        q64, k64, v64, g64 = (t.double() for t in (q, k, v, g))
+        o64, l64 = flash_attention_fwd_reference(q64, k64, v64, causal)
+        want = flash_attention_bwd_reference(q64, k64, v64, o64, l64, g64,
+                                             causal)
+        limit = 2.3e-6
+    else:
+        want = flash_attention_bwd_reference(q, k, v, out, lse, g, causal)
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         err = ((x.float() - y.float()).norm() / y.float().norm()).item()
         assert err < limit, f"{name}: relative error {err:.3g} >= {limit}"
@@ -1001,6 +1077,51 @@ def test_cuda_bf16_forward_every_head_dim_and_flag(d, flags):
                             dropout_rate=rate, **kw)
     assert bool(((out.float() - ref.float()).abs() <= limit).all())
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+
+
+# (flag set, causal, kv_lens, segment cuts, rate) for the bf16 backward:
+# a length below one tile, segment ids, dropout with lengths
+CARD_BWD_FLAG_CASES = [("plain", True, None, None, 0.0),
+                       ("bidirectional", False, None, None, 0.0),
+                       ("lengths", True, [512, 40], None, 0.0),
+                       ("segments", True, [512, 300], [[128, 300], [200]],
+                        0.0),
+                       ("dropout", False, [512, 97], None, 0.1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", CARD_BWD_FLAG_CASES,
+                         ids=[c[0] for c in CARD_BWD_FLAG_CASES])
+@pytest.mark.parametrize("d", [64, 128, 80, 96, 256, 320])
+def test_cuda_bf16_backward_every_head_dim_and_flag(d, flags):
+    """The bf16 backward at every body's head sizes (64 and 128: the
+    Hopper body; 80, 96, 256: the WMMA body; 320: the D > 256 kernel),
+    GQA 4/2 at a ragged L = 500 (not a multiple of a tile), against its
+    plain version at chip_smoke.py's [compare-fa-bwd] limit; dk and dv
+    zero past each length, equal between two launches; one counted
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _, causal, lens, cuts, rate = flags
+    b, L, h, hkv = 2, 500, 4, 2
+    q, k, v, g = _card_inputs(b, L, L, h, hkv, d, torch.bfloat16, seed=d + 1)
+    kw = dict(_card_masks(b, L, L, lens, cuts), seed=6 if rate else None)
+    out, lse = flash_attention_fwd(q, k, v, causal, None, rate, **kw)
+    reset_launch_counts()
+    got = flash_attention_bwd(q, k, v, out, lse, g, causal, None, rate, **kw)
+    again = flash_attention_bwd(q, k, v, out, lse, g, causal, None, rate,
+                                **kw)
+    torch.cuda.synchronize()
+    assert launch_counts() == dict(NO_LAUNCHES, flash_attention_bwd=2)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, g, causal, None,
+                                         rate, **kw)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        err = ((x.float() - y.float()).norm() / y.float().norm()).item()
+        assert err < 8.3e-4, f"{name}: relative error {err:.3g}"
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    for r, n in enumerate(lens or []):
+        assert torch.count_nonzero(got[1][r, n:]) == 0
+        assert torch.count_nonzero(got[2][r, n:]) == 0
 
 
 @pytest.mark.cuda

@@ -61,6 +61,34 @@ def test_plain_matches_pallas_interpret(d, L, causal):
     np.testing.assert_allclose(lse_t.numpy(), lse_j, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dim_384_matches_pallas_interpret(causal):
+    """Heads of 384 (above 256: the kernels of csrc/flash_big_d.cuh on the
+    card, which the pair gate admits as whole 128-column blocks): the
+    plain forward against ``_pair_fwd`` and d(qkv) through
+    FlashPairPacked against jax.vjp of ``flash_pair_packed``, both in
+    interpret mode, at L = 300 (a ragged second tile), fp32 within 1e-4."""
+    b, L, heads, d = 1, 300, 2, 384
+    x = _qkv(b, L, heads, d, seed=384 + int(causal))
+    out_j, lse_j = _pair_fwd(jnp.asarray(x), jnp.asarray([0], jnp.int32),
+                             heads, d, causal, 1.0 / math.sqrt(d), 256,
+                             dropout_rate=0.0, interpret=True)
+    lse_j = np.asarray(lse_j).reshape(b, heads, -1)[:, :, :L]
+    xt = torch.from_numpy(x).requires_grad_()
+    out_t, lse_t = flash_pair_fwd(xt.detach(), heads, causal)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j),
+                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(lse_t.numpy(), lse_j, atol=1e-4, rtol=1e-4)
+    g = np.random.RandomState(3).randn(b, L, heads * d).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: flash_pair_packed(a, heads, causal,
+                                                 interpret=True),
+                     jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(g))
+    FlashPairPacked.apply(xt, heads, causal).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want),
+                               atol=1e-4, rtol=1e-4)
+
+
 def test_cpu_tensor_takes_plain_path_uncounted():
     x = torch.from_numpy(_qkv(1, 160, 2, 64, seed=3))
     reset_launch_counts()
@@ -100,7 +128,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
                                   (2, 300, 4, 64, "float32", True),
                                   (2, 300, 4, 64, "bfloat16", False),
                                   (2, 300, 2, 256, "bfloat16", True),
-                                  (2, 300, 2, 256, "float32", False)])
+                                  (2, 300, 2, 256, "float32", False),
+                                  (2, 512, 2, 384, "bfloat16", True),
+                                  (2, 300, 2, 384, "float32", False)])
 def test_cuda_kernel_matches_plain(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -232,7 +262,13 @@ def _rel(a, b):
                                   (2, 300, 4, 64, "float32", True),
                                   (2, 300, 4, 64, "bfloat16", False),
                                   (2, 300, 2, 256, "bfloat16", True),
-                                  (2, 300, 2, 256, "float32", False)])
+                                  (2, 300, 2, 256, "float32", False),
+                                  # the Hopper backward, ragged L
+                                  (4, 300, 4, 64, "bfloat16", True),
+                                  (2, 333, 4, 128, "bfloat16", False),
+                                  # heads above 256
+                                  (2, 512, 2, 384, "bfloat16", True),
+                                  (2, 300, 2, 384, "float32", False)])
 def test_cuda_backward_matches_plain(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -244,11 +280,21 @@ def test_cuda_backward_matches_plain(case):
     got = flash_pair_bwd(x, out, lse, g, heads, causal)
     torch.cuda.synchronize()
     assert launch_counts() == dict(NO_LAUNCHES, flash_pair_bwd=1)
-    want = flash_pair_bwd_reference(x, out, lse, g, heads, causal)
     hd = heads * d
     # relative Frobenius error per part; the limits of chip_smoke.py's
-    # compare-bwd phase (3x its first readings on an H100)
+    # compare-bwd phase (3x its first readings on an H100); fp32 above D =
+    # 256 against the exact gradient (the plain versions in fp64 from fp64
+    # inputs) within its BIG_D_FP32_REL_LIMIT: there the fp32 plain
+    # version itself sits 3e-6 to 4e-6 from it
     limit = 7e-4 if dtype == torch.bfloat16 else 6e-7
+    if dtype == torch.float32 and d > 256:
+        x64 = x.double()
+        o64, l64 = flash_pair_fwd_reference(x64, heads, causal)
+        want = flash_pair_bwd_reference(x64, o64, l64, g.double(), heads,
+                                        causal)
+        limit = 2.3e-6
+    else:
+        want = flash_pair_bwd_reference(x, out, lse, g, heads, causal)
     for i, part in enumerate(("dq", "dk", "dv")):
         err = _rel(got[..., i * hd:(i + 1) * hd], want[..., i * hd:(i + 1) * hd])
         assert err < limit, f"{part}: relative error {err:.3g} >= {limit}"
@@ -359,7 +405,9 @@ def test_dropout_seed_is_saved_for_the_backward():
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [(4, 512, 12, 64, "bfloat16", False),
                                   (2, 1024, 8, 128, "bfloat16", True),
-                                  (2, 300, 4, 64, "float32", True)])
+                                  (2, 300, 4, 64, "float32", True),
+                                  (2, 300, 4, 128, "bfloat16", False),
+                                  (2, 256, 2, 384, "bfloat16", True)])
 def test_cuda_dropout_kernels_match_plain(case):
     """The pair kernels at rate 0.1 against their plain versions on the
     same seed (the limits of the rate-0 tests)."""
