@@ -16,11 +16,14 @@ serialises (its note C7520). It times both attention forwards and both
 backwards against the parent commit's wrappers and kernels
 (``[parent-fwd]``, ``[parent-bwd]``: an unpacked ``git archive`` of it in
 ``smoke_checkout/parent/`` or ``PARENT_TREE``; without one the phases say
-so), in turns, and fails a case only beyond the timing noise; it holds
-each kernel against its plain PyTorch version at the shapes the main paths
-give it and at every head size the kernels are built for (64, 80, 96, 128,
-256, 72 on zero-padded heads, and above 256: 320, 384 packed, 512, and 300
-on zero-padded heads; every dropout mask for mask:
+so), in turns, and fails a case only beyond the timing noise, beside sdpa
+and the bound; it holds each kernel against its plain PyTorch version at
+the shapes the main paths give it and at every head size the kernels are
+built for (64, 80, 96, 128, 256, 72 on zero-padded heads, and above 256:
+320, 384, 448, 512, and 300 on zero-padded heads; the bf16 wide-head
+kernels at their headline shape, ``[compare-wide]``, and the bodies each
+launcher runs by the profiler's kernel names, ``[wide-route]``; every
+dropout mask for mask:
 each is one Philox function of the seed and the element, and the attention
 masks are read back with probe inputs), then drives the main paths through
 the user entry points, random weights from a seed:
@@ -132,13 +135,18 @@ FA_CASES = [(2, 2048, 2048, 32, 32, 128, BF16, True), FA_TRAIN_CASE,
 FA_CASES += [(2, 1024, 1024, 8, 2, d, BF16, True) for d in (80, 96, 256, 72)]
 FA_CASES += [(2, 200, 300, 4, 2, d, FP32, c)
              for d, c in ((80, True), (96, False), (256, True), (72, False))]
-# heads above 256 (csrc/flash_big_d.cuh): 320 and 512 in bf16 and fp32, and
-# 300 (run at 320 on zero-padded heads), GQA 4/2
+# heads above 256 (bf16: csrc/flash_wide_sm90.cuh; fp32:
+# csrc/flash_big_d.cuh): 320 and 512 in bf16 and fp32, and 300 (run at 320
+# on zero-padded heads), GQA 4/2; 384 and 448 in bf16, and 512 multi-query
+# 4/1 at a ragged Lq != Lk
 FA_CASES += [(2, 512, 512, 4, 2, 320, BF16, True),
              (2, 512, 512, 4, 2, 512, BF16, False),
              (2, 256, 256, 4, 2, 300, BF16, True),
              (2, 200, 300, 4, 2, 320, FP32, True),
-             (2, 200, 300, 4, 2, 512, FP32, False)]
+             (2, 200, 300, 4, 2, 512, FP32, False),
+             (2, 512, 512, 4, 2, 384, BF16, True),
+             (2, 512, 512, 4, 2, 448, BF16, False),
+             (2, 200, 333, 4, 1, 512, BF16, True)]
 # [parent-fwd]: where the parent commit's forward kernels are timed beside
 # these (an unpacked git archive of it; absent, the phase says so)
 PARENT_TREE = os.environ.get("PARENT_TREE", os.path.join(
@@ -267,10 +275,11 @@ def _expect_launches(where, grew, **want):
 # the flash kernels' names (csrc/flash_attention.cuh and the headers it
 # includes: the forwards, the backwards, the backward's pre-pass and dq
 # conversion), as profiler keys contain them
-FLASH_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_f32_kernel",
-                 "flash_fwd_big_kernel", "flash_bwd_sm90_kernel",
+FLASH_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_wide_kernel",
+                 "flash_fwd_f32_kernel", "flash_fwd_big_kernel",
+                 "flash_bwd_sm90_kernel", "flash_bwd_wide_kernel",
                  "flash_bwd_kernel", "flash_bwd_big_kernel",
-                 "bwd_prepass_kernel", "dq_convert_kernel")
+                 "bwd_prepass_kernel", "scale_q_kernel", "dq_convert_kernel")
 
 
 def _is_flash_kernel(key):
@@ -318,9 +327,11 @@ def phase_build():
     for name, res in built.items():
         _log_registers(f"[build] {name}", res["log"])
     if parent_kernels is not None:
-        # the parent's Hopper kernels, to see where codegen moved
+        # the parent's Hopper and big-head kernels, to see where codegen
+        # moved
         for name, res in parent_kernels.build_logs.items():
-            _log_registers(f"[build] parent {name}", res["log"], "sm90")
+            for only in ("sm90", "big"):
+                _log_registers(f"[build] parent {name}", res["log"], only)
     return parent_kernels
 
 
@@ -475,13 +486,14 @@ def _timing_noise():
 
 def _timed_pair(ours, parent, iters):
     """Best time and relative spread of ``ours`` and ``parent`` over
-    ROUNDS interleaved rounds of ``iters`` calls each: ((best, spread),
-    (best, spread))."""
+    ROUNDS interleaved rounds of ``iters`` calls each (after as many warm-up
+    calls, at most 3): ((best, spread), (best, spread))."""
     times = ([], [])
     for r in range(ROUNDS):
         order = (0, 1) if r % 2 == 0 else (1, 0)
         for i in order:
-            times[i].append(cuda_time_ms((ours, parent)[i], iters=iters))
+            times[i].append(cuda_time_ms((ours, parent)[i], iters=iters,
+                                         warmup=min(3, iters)))
     return tuple((min(t), (max(t) - min(t)) / min(t)) for t in times)
 
 
@@ -502,85 +514,122 @@ def _judge_parent(tag, where, ours, parent, noise):
                              f"beyond the timing noise")
 
 
-# [parent-fwd] shapes: (tag, launcher, B, L, H, D, causal, rate, lengths):
-# the headline shapes (LLaMA-7B's training and scoring forwards, GPT-
-# medium's training forward, BERT's packed training forward) and those of
-# the kernels line's forward records
+# [parent-fwd] shapes: (tag, launcher, B, L, H, Hkv, D, causal, rate,
+# lengths, calls a round): the headline shapes (LLaMA-7B's training and
+# scoring forwards, GPT-medium's training forward, BERT's packed training
+# forward), those of the kernels line's forward records, and the wide-head
+# kernels' headline shapes (flat D = 512 with GQA 8/2 at rate 0, flat D =
+# 320 with GQA 16/4 at rate 0.1, packed D = 384), where the parent's SIMT
+# kernels take tens of ms a call (3 calls a round)
 PARENT_FWD_CASES = [
-    ("llama-train", "flat", 4, 2048, 32, 128, True, 0.0, False),
-    ("llama-scoring", "flat", 2, 2048, 32, 128, True, 0.0, False),
-    ("gpt-train", "pair", 16, 1024, 8, 128, True, 0.0, False),
-    ("gpt-scoring", "pair", 2, 1024, 8, 128, True, 0.0, False),
-    ("bert-packed", "pair", 64, 512, 12, 64, False, 0.1, False),
-    ("bert-padded", "flat", 64, 512, 12, 64, False, 0.1, True),
-    ("row6", "pair", 2, 2048, 16, 128, True, 0.1, False)]
+    ("llama-train", "flat", 4, 2048, 32, 32, 128, True, 0.0, False, 20),
+    ("llama-scoring", "flat", 2, 2048, 32, 32, 128, True, 0.0, False, 20),
+    ("gpt-train", "pair", 16, 1024, 8, 8, 128, True, 0.0, False, 20),
+    ("gpt-scoring", "pair", 2, 1024, 8, 8, 128, True, 0.0, False, 20),
+    ("bert-packed", "pair", 64, 512, 12, 12, 64, False, 0.1, False, 20),
+    ("bert-padded", "flat", 64, 512, 12, 12, 64, False, 0.1, True, 20),
+    ("row6", "pair", 2, 2048, 16, 16, 128, True, 0.1, False, 20),
+    ("wide-512", "flat", 2, 2048, 8, 2, 512, True, 0.0, False, 3),
+    ("wide-320", "flat", 2, 2048, 16, 4, 320, True, 0.1, False, 3),
+    ("wide-pair-384", "pair", 2, 2048, 8, 8, 384, True, 0.0, False, 3)]
 
 
 def phase_parent_fwd(parent, noise):
     """Both forward wrappers against the parent commit's (its kernels
     package, ``_parent_kernels``) on the same inputs, in the same process
-    on the same card, timed in turns (``_timed_pair``, 20 calls a round
-    each). A case fails only when slower than the parent's beyond the
-    timing noise (``_judge_parent``). Returns {tag: parent ms} (empty
-    without a parent tree)."""
+    on the same card, timed in turns (``_timed_pair``), beside
+    scaled_dot_product_attention on the same inputs (the yardstick) and
+    the bound. A case fails only when slower than the parent's beyond the
+    timing noise (``_judge_parent``). Returns {tag: (ms, parent ms, sdpa
+    ms, bound ms)}; the parent's is None without a parent tree."""
     from paddle_tpu_torch.kernels import flash_attention, flash_pair
-    if parent is None:
-        log(f"[parent-fwd] not measured: no parent tree at {PARENT_TREE} "
-            f"(set PARENT_TREE to an unpacked git archive of the parent "
-            f"commit)")
-        return {}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(60)
-    parent_ms = {}
-    for tag, launcher, b, L, h, d, causal, rate, lens in PARENT_FWD_CASES:
+    out = {}
+    for (tag, launcher, b, L, h, hkv, d, causal, rate, lens,
+         iters) in PARENT_FWD_CASES:
         seed = 0x9A4E47 if rate else None
         if launcher == "flat":
             name = "flash_attention_fwd"
-            q, k, v, _ = _fa_inputs(b, L, L, h, h, d, BF16, gen)
-            kw = {}
+            q, k, v, _ = _fa_inputs(b, L, L, h, hkv, d, BF16, gen)
+            kw, valid, pairs, kv_rows = {}, None, None, None
             if lens:
-                kw["kv_lens"] = torch.as_tensor(
-                    _bert_pad_lengths(b, L, BERT_PAD_SEED), dtype=torch.int32,
-                    device="cuda")
+                n = _bert_pad_lengths(b, L, BERT_PAD_SEED)
+                kw["kv_lens"] = torch.as_tensor(n, dtype=torch.int32,
+                                                device="cuda")
+                valid = flash_attention._visible(L, L, causal, "cuda",
+                                                 kw["kv_lens"])
+                pairs = int(valid.sum())
+                kv_rows = sum(min(L, x) for x in n)
 
             def call(mod):
                 return lambda: mod.flash_attention_fwd(
                     q, k, v, causal, None, rate, seed=seed, **kw)
-            mods = (flash_attention, parent.flash_attention)
+            mods = (flash_attention, parent and parent.flash_attention)
+            lib_ms = cuda_time_ms(lambda: _sdpa_library(q, k, v, causal,
+                                                        valid, rate))
+            bound = fa_bound_ms(b, L, L, h, hkv, d, BF16, causal, False,
+                                pairs, kv_rows)[0]
         else:
             name = "flash_pair_fwd"
             qkv, _ = _bwd_inputs(b, L, h, d, BF16, gen)
 
             def call(mod):
                 return lambda: mod.flash_pair_fwd(qkv, h, causal, rate, seed)
-            mods = (flash_pair, parent.flash_pair)
-        ours, theirs = _timed_pair(call(mods[0]), call(mods[1]), 20)
-        parent_ms[tag] = theirs[0]
-        _judge_parent("[parent-fwd]", f"{tag}: {name} B={b} L={L} H={h} "
-                      f"D={d} bf16 causal={causal} rate {rate}"
-                      f"{' lengths' if lens else ''}", ours, theirs, noise)
+            mods = (flash_pair, parent and parent.flash_pair)
+            lq, lk, lv = (qkv[..., i * h * d:(i + 1) * h * d]
+                          .view(b, L, h, d).transpose(1, 2) for i in range(3))
+            lib_ms = cuda_time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    lq, lk, lv, dropout_p=rate, is_causal=causal))
+            bound = flash_bound_ms(b, L, h, d, BF16, causal)[0]
+        where = (f"{tag}: {name} B={b} L={L} H={h} Hkv={hkv} D={d} bf16 "
+                 f"causal={causal} rate {rate}{' lengths' if lens else ''}")
+        if parent is None:
+            ms = cuda_time_ms(call(mods[0]), iters=iters,
+                              warmup=min(3, iters))
+            pms = None
+            log(f"[parent-fwd] {where}: kernel {ms:.4f} ms; the parent's not "
+                f"measured (no parent tree at {PARENT_TREE}: set PARENT_TREE "
+                f"to an unpacked git archive of the parent commit)")
+        else:
+            ours, theirs = _timed_pair(call(mods[0]), call(mods[1]), iters)
+            ms, pms = ours[0], theirs[0]
+            _judge_parent("[parent-fwd]", where, ours, theirs, noise)
+        log(f"[parent-fwd] {tag}: sdpa {lib_ms:.4f} ms ({ms / lib_ms:.2f}x "
+            f"the kernel's time), bound {bound:.4f} ms ({ms / bound:.1f}x)")
+        out[tag] = (ms, pms, lib_ms, bound)
         torch.cuda.empty_cache()
-    return parent_ms
+    return out
 
 
 # [parent-bwd] shapes: (tag, launcher, B, L, H, Hkv, D, causal, rate,
-# lengths): LLaMA-7B's training backward, GQA 32/8 with lengths (those of
-# [compare-fa-masks]), GPT-medium's training backward, BERT's packed and
-# padded training backwards at rate 0.1, row 3 (L = 4608, where the JAX
-# package runs its split kernels) and row 6's call at rate 0.1
+# lengths, calls a round): LLaMA-7B's training backward, GQA 32/8 with
+# lengths (those of [compare-fa-masks]), GPT-medium's training backward,
+# BERT's packed and padded training backwards at rate 0.1, row 3 (L =
+# 4608, where the JAX package runs its split kernels), row 6's call at rate
+# 0.1, the wide-head shapes of [parent-fwd] (3 calls a round: the parent's
+# SIMT kernels take tens to hundreds of ms there) and the D = 256 backward
+# (the wide body here, the WMMA body in the parent: the route's
+# measurement)
 PARENT_BWD_CASES = [
-    ("llama-train", "flat", 4, 2048, 32, 32, 128, True, 0.0, None),
-    ("gqa-lengths", "flat", 2, 2048, 32, 8, 128, True, 0.0, [2048, 1111]),
-    ("gpt-train", "pair", 16, 1024, 8, 8, 128, True, 0.0, None),
-    ("bert-packed", "pair", 64, 512, 12, 12, 64, False, 0.1, None),
-    ("bert-padded", "flat", 64, 512, 12, 12, 64, False, 0.1, "bert"),
-    ("row3", "pair", 1, 4608, 8, 8, 128, True, 0.0, None),
-    ("row6", "pair", 2, 2048, 16, 16, 128, True, 0.1, None)]
+    ("llama-train", "flat", 4, 2048, 32, 32, 128, True, 0.0, None, 10),
+    ("gqa-lengths", "flat", 2, 2048, 32, 8, 128, True, 0.0, [2048, 1111],
+     10),
+    ("gpt-train", "pair", 16, 1024, 8, 8, 128, True, 0.0, None, 10),
+    ("bert-packed", "pair", 64, 512, 12, 12, 64, False, 0.1, None, 10),
+    ("bert-padded", "flat", 64, 512, 12, 12, 64, False, 0.1, "bert", 10),
+    ("row3", "pair", 1, 4608, 8, 8, 128, True, 0.0, None, 10),
+    ("row6", "pair", 2, 2048, 16, 16, 128, True, 0.1, None, 10),
+    ("wide-512", "flat", 2, 2048, 8, 2, 512, True, 0.0, None, 3),
+    ("wide-320", "flat", 2, 2048, 16, 4, 320, True, 0.1, None, 3),
+    ("wide-pair-384", "pair", 2, 2048, 8, 8, 384, True, 0.0, None, 3),
+    ("d256-bwd", "flat", 2, 2048, 8, 2, 256, True, 0.0, None, 10)]
 
 
 def phase_parent_bwd(parent, noise):
     """Both backward wrappers against the parent commit's, as
-    [parent-fwd] does (10 calls a round), with torch.autograd.grad through
+    [parent-fwd] does, with torch.autograd.grad through
     scaled_dot_product_attention on the same inputs beside them (the
     yardstick) and the bound. Every case must be faster than the parent's
     (beyond the noise, ``_judge_parent``). Returns {tag: (ms, parent ms,
@@ -589,8 +638,8 @@ def phase_parent_bwd(parent, noise):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(61)
     out = {}
-    for (tag, launcher, b, L, h, hkv, d, causal, rate,
-         lens) in PARENT_BWD_CASES:
+    for (tag, launcher, b, L, h, hkv, d, causal, rate, lens,
+         iters) in PARENT_BWD_CASES:
         seed = 0xB4C4 if rate else None
         valid = None
         if launcher == "flat":
@@ -634,17 +683,19 @@ def phase_parent_bwd(parent, noise):
             grad_out = g.view(b, L, h, d).transpose(1, 2)
             bound = flash_bwd_bound_ms(b, L, h, d, BF16, causal)[0]
         lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
-            lib_out, leaves, grad_out, retain_graph=True), iters=10)
+            lib_out, leaves, grad_out, retain_graph=True), iters=iters,
+            warmup=min(3, iters))
         where = (f"{tag}: {mods[0].__name__.split('.')[-1]} B={b} L={L} "
                  f"H={h} Hkv={hkv} D={d} bf16 causal={causal} rate {rate}"
                  f"{' lengths' if lens is not None else ''}")
         if parent is None:
-            ms = cuda_time_ms(call(mods[0]), iters=10)
+            ms = cuda_time_ms(call(mods[0]), iters=iters,
+                              warmup=min(3, iters))
             pms = None
             log(f"[parent-bwd] {where}: kernel {ms:.4f} ms; the parent's not "
                 f"measured (no parent tree at {PARENT_TREE})")
         else:
-            ours, theirs = _timed_pair(call(mods[0]), call(mods[1]), 10)
+            ours, theirs = _timed_pair(call(mods[0]), call(mods[1]), iters)
             ms, pms = ours[0], theirs[0]
             _judge_parent("[parent-bwd]", where, ours, theirs, noise)
         log(f"[parent-bwd] {tag}: sdpa backward {lib_ms:.4f} ms "
@@ -1201,6 +1252,212 @@ def phase_profile_train(model, opt, ids):
             f"x{e.count:5d}  {e.key[:90]}")
 
 
+# ------------------------------------------------- heads above 256 (wide)
+
+# the wide-head kernels' headline shape: flat [2, 2048, 8 q / 2 KV heads,
+# 512] bf16 causal (csrc/flash_wide_sm90.cuh both ways)
+WIDE_SHAPE = (2, 2048, 8, 2, 512)
+
+
+def phase_compare_wide():
+    """The bf16 wide-head kernels at WIDE_SHAPE against their plain
+    versions, at [compare-fa]'s and [compare-fa-bwd]'s limits (out within
+    atol 4e-3 times the probability-weighted |v| + rtol 1e-2, lse within
+    1e-3, dq/dk/dv within FA_BWD_REL_LIMIT, dk and dv equal between two
+    launches), then timed beside the plain versions, sdpa (forward, and
+    autograd through it; at D > 256 it has no FlashAttention backend) and
+    the bounds. Returns the forward and backward records."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_reference,
+        flash_attention_fwd, flash_attention_fwd_reference)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(80)
+    b, L, h, hkv, d = WIDE_SHAPE
+    q, k, v, g = _fa_inputs(b, L, L, h, hkv, d, BF16, gen)
+    out, lse = flash_attention_fwd(q, k, v, True)
+    got = flash_attention_bwd(q, k, v, out, lse, g, True)
+    again = flash_attention_bwd(q, k, v, out, lse, g, True)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_attention_fwd_reference(q, k, v, True)
+    weight = flash_attention_fwd_reference(q, k, v.abs(), True)[0].float()
+    diff = (out.float() - ref_out.float()).abs()
+    err = diff.max().item()
+    of_limit = (diff / (4e-3 * weight.clamp_min(1.0)
+                        + 1e-2 * ref_out.float().abs())).max().item()
+    lse_ok = bool(((lse - ref_lse).abs() <= 1e-3 + 1e-3 * ref_lse.abs())
+                  .all())
+    del weight, diff, ref_out, ref_lse
+    want = flash_attention_bwd_reference(q, k, v, out, lse, g, True)
+    rels = [rel_err(x, y) for x, y in zip(got, want)]
+    worst_abs = max((x.float() - y.float()).abs().max().item()
+                    for x, y in zip(got, want))
+    stable = torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    del want, again, got
+    ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v, True))
+    bwd_ms = cuda_time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, g,
+                                                      True), iters=10)
+    plain_ms = cuda_time_ms(lambda: flash_attention_fwd_reference(
+        q, k, v, True), iters=3, warmup=1)
+    plain_bwd_ms = cuda_time_ms(lambda: flash_attention_bwd_reference(
+        q, k, v, out, lse, g, True), iters=3, warmup=1)
+    lib_ms = cuda_time_ms(lambda: _sdpa_library(q, k, v, True), iters=10)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = _sdpa_library(*leaves, True)
+    lib_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        o, leaves, g.transpose(1, 2), retain_graph=True), iters=10)
+    fb = fa_bound_ms(b, L, L, h, hkv, d, BF16, True)
+    bb = fa_bound_ms(b, L, L, h, hkv, d, BF16, True, backward=True)
+    tag = (f"[compare-wide] flash_attention_fwd/_bwd B={b} L={L} H={h} "
+           f"Hkv={hkv} D={d} bf16 causal")
+    log(f"{tag}: out {of_limit:.3f} of the limit (max|err| {err:.3g}), lse "
+        f"ok {lse_ok}; dq/dk/dv rel {rels[0]:.3g}/{rels[1]:.3g}/"
+        f"{rels[2]:.3g} (limit {FA_BWD_REL_LIMIT[BF16]}); dk/dv equal "
+        f"between launches {stable}")
+    log(f"{tag}: forward {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
+        f"{lib_ms:.4f}, bound {fb[0]:.4f} ms {fb[1]}); backward {bwd_ms:.4f} "
+        f"ms (plain {plain_bwd_ms:.4f}, sdpa backward {lib_bwd_ms:.4f}, "
+        f"bound {bb[0]:.4f} ms {bb[1]})")
+    if not (of_limit <= 1.0 and lse_ok and stable
+            and max(rels) < FA_BWD_REL_LIMIT[BF16]):
+        raise AssertionError(f"{tag}: the wide kernels disagree with their "
+                             f"plain versions")
+    del q, k, v, g, out, lse, leaves, o
+    torch.cuda.empty_cache()
+    return (dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=fb[0],
+                 bound_by=fb[1], library_ms=lib_ms),
+            dict(max_abs_err=worst_abs, ms=bwd_ms, plain_ms=plain_bwd_ms,
+                 bound_ms=bb[0], bound_by=bb[1], library_ms=lib_bwd_ms))
+
+
+# [wide-route]: (launcher, D, dtype, the forward's and the backward's body
+# as the profiler names them, whether each is a wide-head launch)
+WIDE_ROUTES = [
+    ("flat", 512, BF16, "flash_fwd_wide_kernel", "flash_bwd_wide_kernel",
+     True, True),
+    ("pair", 384, BF16, "flash_fwd_wide_kernel", "flash_bwd_wide_kernel",
+     True, True),
+    ("flat", 256, BF16, "flash_fwd_sm90_kernel", "flash_bwd_wide_kernel",
+     False, True),
+    ("pair", 256, BF16, "flash_fwd_sm90_kernel", "flash_bwd_wide_kernel",
+     False, True),
+    ("flat", 96, BF16, "flash_fwd_sm90_kernel", "flash_bwd_kernel",
+     False, False),
+    ("flat", 320, FP32, "flash_fwd_big_kernel", "flash_bwd_big_kernel",
+     False, False)]
+
+
+def phase_wide_route():
+    """Which body each launcher runs, read from the profiler's kernel names
+    and the launch counters (one forward and one backward under
+    torch.profiler, counts set to 0 just before): bf16 heads above 256 on
+    both launchers run flash_fwd_wide_kernel and flash_bwd_wide_kernel
+    (each behind its scale_q_kernel launch) and no SIMT bigd:: kernel; the
+    bf16 D = 256 backward runs flash_bwd_wide_kernel, not the WMMA body;
+    D = 96 keeps the WMMA backward and fp32 above 256 the bigd:: kernels.
+    The flash kernels seen must be exactly the expected ones, and the
+    wrappers' wide-launch counters must agree."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.kernels import (flash_attention, flash_pair,
+                                          launch_counts, reset_launch_counts,
+                                          wide_launch_counts)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(81)
+    for launcher, d, dtype, fwd_body, bwd_body, wide_f, wide_b in WIDE_ROUTES:
+        b, L, h = 2, 256, 4
+        if launcher == "flat":
+            q, k, v, g = _fa_inputs(b, L, L, h, 2, d, dtype, gen)
+            names = ("flash_attention_fwd", "flash_attention_bwd")
+
+            def run():
+                out, lse = flash_attention.flash_attention_fwd(q, k, v, True)
+                flash_attention.flash_attention_bwd(q, k, v, out, lse, g,
+                                                    True)
+        else:
+            qkv, g = _bwd_inputs(b, L, h, d, dtype, gen)
+            names = ("flash_pair_fwd", "flash_pair_bwd")
+
+            def run():
+                out, lse = flash_pair.flash_pair_fwd(qkv, h, True)
+                flash_pair.flash_pair_bwd(qkv, out, lse, g, h, True)
+        run()                                # built and warm
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        counts, wide = launch_counts(), wide_launch_counts()
+        seen = {n for n in FLASH_KERNELS
+                if any(n in e.key for e in prof.key_averages())}
+        want = {fwd_body, bwd_body, "bwd_prepass_kernel", "dq_convert_kernel"}
+        if wide_f or wide_b:
+            want.add("scale_q_kernel")
+        tag = (f"[wide-route] {launcher} D={d} {str(dtype)[6:]}: flash "
+               f"kernels {sorted(seen)}; launches {names[0]} "
+               f"{counts[names[0]]} (wide {wide[names[0]]}), {names[1]} "
+               f"{counts[names[1]]} (wide {wide[names[1]]})")
+        log(tag)
+        if not (seen == want and counts[names[0]] == 1
+                and counts[names[1]] == 1
+                and wide[names[0]] == int(wide_f)
+                and wide[names[1]] == int(wide_b)):
+            raise AssertionError(f"{tag}: expected the kernels "
+                                 f"{sorted(want)}")
+        torch.cuda.empty_cache()
+
+
+def phase_fp32_bodies(parent):
+    """The fp32 bodies beside sdpa in fp32 (TF32 off) and the fp32 bound
+    (67 TFLOP/s), one shape each, causal, GQA 8/2: the SIMT forward and
+    backward at [2, 1024, 8, 128] and the bigd:: kernels at [2, 1024, 8,
+    512]. The bigd:: kernels' code is the parent's with its bf16 path
+    removed: with a parent tree, their out, lse, dk and dv equal the
+    parent's bit for bit on the same inputs (dq adds by atomics in another
+    order each run: its largest difference is printed)."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(82)
+    for d, iters in ((128, 5), (512, 2)):
+        b, L, h, hkv = 2, 1024, 8, 2
+        q, k, v, g = _fa_inputs(b, L, L, h, hkv, d, FP32, gen)
+        out, lse = flash_attention_fwd(q, k, v, True)
+        got = flash_attention_bwd(q, k, v, out, lse, g, True)
+        ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v, True),
+                          iters=iters, warmup=1)
+        bwd_ms = cuda_time_ms(lambda: flash_attention_bwd(
+            q, k, v, out, lse, g, True), iters=iters, warmup=1)
+        lib_ms = cuda_time_ms(lambda: _sdpa_library(q, k, v, True))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = _sdpa_library(*leaves, True)
+        lib_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            o, leaves, g.transpose(1, 2), retain_graph=True))
+        fb = fa_bound_ms(b, L, L, h, hkv, d, FP32, True)
+        bb = fa_bound_ms(b, L, L, h, hkv, d, FP32, True, backward=True)
+        tag = (f"[fp32-bodies] B={b} L={L} H={h} Hkv={hkv} D={d} fp32 causal "
+               f"({'bigd::' if d > 256 else 'SIMT'} kernels)")
+        log(f"{tag}: forward {ms:.4f} ms (sdpa {lib_ms:.4f}, bound "
+            f"{fb[0]:.4f} ms {fb[1]}); backward {bwd_ms:.4f} ms (sdpa "
+            f"backward {lib_bwd_ms:.4f}, bound {bb[0]:.4f} ms {bb[1]})")
+        if d > 256 and parent is not None:
+            p_out, p_lse = parent.flash_attention.flash_attention_fwd(
+                q, k, v, True)
+            p_got = parent.flash_attention.flash_attention_bwd(
+                q, k, v, out, lse, g, True)
+            same = (torch.equal(out, p_out) and torch.equal(lse, p_lse)
+                    and torch.equal(got[1], p_got[1])
+                    and torch.equal(got[2], p_got[2]))
+            dq_diff = (got[0] - p_got[0]).abs().max().item()
+            log(f"{tag}: out, lse, dk, dv equal to the parent's {same}; dq "
+                f"max|diff| {dq_diff:.3g}")
+            if not same:
+                raise AssertionError(f"{tag}: the fp32 bigd:: kernels moved")
+            del p_out, p_lse, p_got
+        del q, k, v, g, out, lse, got, leaves, o
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ LLaMA
 
 
@@ -1333,9 +1590,9 @@ def phase_compare_fa_bwd():
     [compare-fa]: per part (dq, dk, dv) the relative Frobenius error
     (limits FA_BWD_REL_LIMIT), dk and dv equal bit for bit between two
     launches (no atomics there) and dq's run-to-run change. At the
-    training shape and at heads of 256 (bf16) it then times the kernel
-    beside the plain version, torch.autograd.grad through the library call
-    and the bound."""
+    training shape and at heads of 80, 96 (the WMMA body) and 256 (the wide
+    body), bf16, it then times the kernel beside the plain version,
+    torch.autograd.grad through the library call and the bound."""
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_reference,
         flash_attention_fwd, flash_attention_fwd_reference)
@@ -1376,7 +1633,7 @@ def phase_compare_fa_bwd():
             f"{'; '.join(parts)} (limit rel {limit}"
             f"{EXACT_NOTE if _exact(dtype, d) else ''}); "
             f"dq run-to-run max|diff| {dq_jitter:.3g}")
-        if case == FA_TRAIN_CASE or (d == 256 and dtype == BF16):
+        if case == FA_TRAIN_CASE or (dtype == BF16 and d in (80, 96, 256)):
             ms = cuda_time_ms(
                 lambda: flash_attention_bwd(q, k, v, out, lse, g, causal),
                 iters=10)
@@ -1972,8 +2229,9 @@ def _attn_mask_probe(b, L, h, d, causal, seed, rate):
 def phase_compare_dropout_attn():
     """The pair kernels with dropout against their plain versions on the
     same seed: BERT's shape [64, 512, 3*12*64] bidirectional (new to the
-    table: first at rate 0, then 0.1) and GPT-medium's training shape [16,
-    1024, 3*8*128] causal at 0.1, bf16. The limits of [compare-fa] (out:
+    table: first at rate 0, then 0.1), GPT-medium's training shape [16,
+    1024, 3*8*128] causal at 0.1 and heads of 384 on the wide kernels [2,
+    768, 3*2*384] causal at 0.1, bf16. The limits of [compare-fa] (out:
     atol 4e-3 times the probability-weighted |v| where that exceeds 1, +
     rtol 1e-2; lse) and [compare-bwd] (relative Frobenius error per part,
     dk/dv equal between launches). The weighted form is needed here: the
@@ -1994,7 +2252,8 @@ def phase_compare_dropout_attn():
     gen.manual_seed(22)
     times = {}
     for b, L, h, d, causal, rates in ((64, 512, 12, 64, False, (0.0, 0.1)),
-                                      (16, 1024, 8, 128, True, (0.1,))):
+                                      (16, 1024, 8, 128, True, (0.1,)),
+                                      (2, 768, 2, 384, True, (0.1,))):
         for rate in rates:
             seed = 0xABCDEF12345 if rate else None
             qkv, dout = _bwd_inputs(b, L, h, d, BF16, gen)
@@ -2639,8 +2898,10 @@ def phase_fa_mask_probe():
     """The keep masks of both flat kernels read back with probe inputs
     (``_fa_mask_probe``) at BERT's padded shape [64, 512, 12, 64] rate 0.1,
     at [2, 256, 4, 64] and [2, 256, 2, 128] causal with lengths and 3
-    segments a row (the kSegs instantiations) and at [2, 256, 2, 128]
-    bidirectional with lengths: 0 mismatches against philox.attention_keep on
+    segments a row (the kSegs instantiations), at [2, 256, 2, 128]
+    bidirectional with lengths, and on the wide kernels at [2, 640, 2, 320]
+    causal with lengths and segments and [2, 512, 2, 512] bidirectional
+    with lengths: 0 mismatches against philox.attention_keep on
     the attended pairs, probability exactly 0 on every masked pair (past a
     length, across segments, above the diagonal), and dk = dv = 0 exactly
     on the keys past each length."""
@@ -2649,6 +2910,9 @@ def phase_fa_mask_probe():
     seg = torch.zeros(2, 256, dtype=torch.int32, device="cuda")
     seg[:, 70:] += 1
     seg[:, 150:] += 1
+    wide_seg = torch.zeros(2, 640, dtype=torch.int32, device="cuda")
+    wide_seg[:, 170:] += 1
+    wide_seg[:, 400:] += 1
     cases = [(64, 512, 12, 64, False,
               dict(kv_lens=torch.as_tensor(bert_lens, dtype=torch.int32,
                                            device="cuda"))),
@@ -2662,6 +2926,15 @@ def phase_fa_mask_probe():
                    q_segments=seg, kv_segments=seg)),
              (2, 256, 2, 128, False,
               dict(kv_lens=torch.tensor([130, 256], dtype=torch.int32,
+                                        device="cuda"))),
+             # the wide kernels (heads above 256): lengths and 3 segments a
+             # row (the forward's 64-key tiles), lengths alone
+             (2, 640, 2, 320, True,
+              dict(kv_lens=torch.tensor([640, 501], dtype=torch.int32,
+                                        device="cuda"),
+                   q_segments=wide_seg, kv_segments=wide_seg)),
+             (2, 512, 2, 512, False,
+              dict(kv_lens=torch.tensor([512, 200], dtype=torch.int32,
                                         device="cuda")))]
     for b, L, h, d, causal, kw in cases:
         fwd_m, bwd_m, leak, dead, attended, masked = _fa_mask_probe(
@@ -2917,7 +3190,8 @@ def main() -> int:
         return 2
     try:
         from paddle_tpu_torch.kernels import (launch_counts,
-                                              reset_launch_counts)
+                                              reset_launch_counts,
+                                              wide_launch_counts)
         from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                              LlamaForCausalLM, llama_7b)
     except ModuleNotFoundError as e:
@@ -2937,7 +3211,7 @@ def main() -> int:
         "torch.backends.cudnn.allow_tf32 = False)")
     parent = phase_build()
     noise = _timing_noise() if parent is not None else 0.0
-    parent_ms = phase_parent_fwd(parent, noise)
+    parent_fwd = phase_parent_fwd(parent, noise)
     parent_bwd = phase_parent_bwd(parent, noise)
     records = {"flash_pair_fwd": phase_compare(),
                "flash_pair_bwd": phase_compare_bwd()}
@@ -2952,16 +3226,26 @@ def main() -> int:
      records["flash_attention_bwd"]) = phase_compare_fa_masks()
     phase_fa_mask_probe()
     row6, row6_records = phase_compare_fa_packed()   # row 6's own call
+    wide_records = phase_compare_wide()
+    phase_wide_route()
+    phase_fp32_bodies(parent)
     # the forward records beside the parent's time at their shapes
     for record, tag in ((records["flash_pair_fwd"], "gpt-scoring"),
                         (records["flash_attention_fwd"], "bert-padded"),
-                        (row6_records[0], "row6")):
-        record["parent_ms"] = parent_ms.get(tag)
+                        (row6_records[0], "row6"),
+                        (wide_records[0], "wide-512")):
+        record["parent_ms"] = parent_fwd[tag][1]
     # ... and the backward records beside the parent's at theirs
     for record, tag in ((records["flash_pair_bwd"], "gpt-train"),
                         (records["flash_attention_bwd"], "bert-padded"),
-                        (row6_records[1], "row6")):
+                        (row6_records[1], "row6"),
+                        (wide_records[1], "wide-512")):
         record["parent_ms"] = parent_bwd[tag][1]
+
+    def counts():
+        """The launch counts and, as "wide:<wrapper>", the wide bodies'."""
+        return dict(launch_counts(), **{f"wide:{k}": n for k, n in
+                                        wide_launch_counts().items()})
     paths = {}
     t0 = time.perf_counter()
     model = GPTForCausalLM(GPTConfig(**GPT_MEDIUM), dtype=torch.bfloat16,
@@ -2973,7 +3257,7 @@ def main() -> int:
     reset_launch_counts()                  # GPT serving starts here
     ids = phase_scoring(model)
     reqs = phase_engine(model)
-    paths["gpt-serving"] = launch_counts()     # ... and ends here
+    paths["gpt-serving"] = counts()     # ... and ends here
     phase_crosscheck(model, reqs)
     phase_scoring_time(model, ids)
     phase_profile(model)
@@ -2982,7 +3266,7 @@ def main() -> int:
 
     reset_launch_counts()                  # GPT training starts here
     train_model, opt, train_ids, losses = phase_train()
-    paths["gpt-training"] = launch_counts()    # ... and ends here
+    paths["gpt-training"] = counts()    # ... and ends here
     phase_profile_train(train_model, opt, train_ids)
     del train_model, opt
     torch.cuda.empty_cache()
@@ -2995,11 +3279,11 @@ def main() -> int:
 
     reset_launch_counts()                  # BERT training starts here
     bert, opt, batch, losses = phase_bert_train(smi)
-    paths["bert-training"] = launch_counts()   # ... and ends here
+    paths["bert-training"] = counts()   # ... and ends here
     phase_profile_bert_train(bert, opt, batch, "[profile-bert-train]")
     reset_launch_counts()                  # BERT scoring starts here
     inputs = phase_bert_scoring(bert)
-    paths["bert-scoring"] = launch_counts()    # ... and ends here
+    paths["bert-scoring"] = counts()    # ... and ends here
     packed_ms = phase_bert_scoring_time(bert, inputs, "[bert-scoring]")
     del bert, opt, batch, inputs
     torch.cuda.empty_cache()
@@ -3010,11 +3294,11 @@ def main() -> int:
 
     reset_launch_counts()                  # BERT padded training starts here
     bert, opt, batch, losses = phase_bert_train(smi, padded=True)
-    paths["bert-pad-training"] = launch_counts()   # ... and ends here
+    paths["bert-pad-training"] = counts()   # ... and ends here
     phase_profile_bert_train(bert, opt, batch, "[profile-bert-pad-train]")
     reset_launch_counts()                  # BERT padded scoring starts here
     inputs = phase_bert_scoring(bert, padded=True)
-    paths["bert-pad-scoring"] = launch_counts()    # ... and ends here
+    paths["bert-pad-scoring"] = counts()    # ... and ends here
     phase_bert_scoring_time(bert, inputs, "[bert-pad-scoring]",
                             f" (packed [bert-scoring]: {packed_ms:.2f} ms)")
     del bert, opt, batch, inputs
@@ -3035,7 +3319,7 @@ def main() -> int:
     reset_launch_counts()                  # LLaMA serving starts here
     ids = phase_llama_scoring(llama)
     reqs = phase_llama_engine(llama)
-    paths["llama-serving"] = launch_counts()   # ... and ends here
+    paths["llama-serving"] = counts()   # ... and ends here
     phase_llama_crosscheck(llama, reqs)
     phase_llama_scoring_time(llama, ids)
     del llama, reqs, ids
@@ -3045,7 +3329,7 @@ def main() -> int:
 
     reset_launch_counts()                  # LLaMA training starts here
     llama_model, opt, ids, losses = phase_llama_train()
-    paths["llama-training"] = launch_counts()  # ... and ends here
+    paths["llama-training"] = counts()  # ... and ends here
     phase_profile_llama_train(llama_model, opt, ids)
     del llama_model, opt, ids
     torch.cuda.empty_cache()
@@ -3076,6 +3360,12 @@ def main() -> int:
                                      f"{kernel}")
     log(f"[paths] launches: {paths}; row 6's call: {row6}")
     launches = {k: sum(p[k] for p in paths.values()) for k in records}
+    # the wide-head bodies' launches on the model paths (heads of 64 and
+    # 128 there: none)
+    wide_launches = {
+        f"wide:{d}": sum(p[f"wide:flash_attention_{d}"]
+                         + p[f"wide:flash_pair_{d}"] for p in paths.values())
+        for d in ("fwd", "bwd")}
     kernels = [
         _kernel_entry("flash_pair_fwd", "flash_pair_fwd.cu",
                       "flash_pair.py:95", launches, records["flash_pair_fwd"]),
@@ -3103,7 +3393,18 @@ def main() -> int:
                       records["fused_add_dropout_ln_fwd"]),
         _kernel_entry("fused_add_dropout_ln_bwd", "fused_residual_bwd.cu",
                       "fused_residual.py:57", launches,
-                      records["fused_add_dropout_ln_bwd"])]
+                      records["fused_add_dropout_ln_bwd"]),
+        # the wide-head bodies (bf16 heads above 256, both launchers; the
+        # D = 256 backward), at WIDE_SHAPE: their launches on the model
+        # paths, their times at the headline shape
+        dict(_kernel_entry("wide:fwd", "flash_wide_sm90.cuh",
+                           "flash_attention.py:122", wide_launches,
+                           wide_records[0]),
+             name="flash_attention_fwd (wide body, bf16 D > 256)"),
+        dict(_kernel_entry("wide:bwd", "flash_wide_sm90.cuh",
+                           "flash_attention.py:340", wide_launches,
+                           wide_records[1]),
+             name="flash_attention_bwd (wide body, bf16 D >= 256)")]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -47,22 +47,34 @@
 //   forward   bf16, D = 64, 80, 96, 128, 256   sm90::flash_fwd_sm90_kernel
 //                                              (flash_fwd_sm90.cuh: TMA,
 //                                              wgmma, S, P, O in registers)
-//             fp32, the same sizes             flash_fwd_f32_kernel (below,
+//             bf16, D > 256 with D % 64 == 0   wide::flash_fwd_wide_kernel
+//                                              (flash_wide_sm90.cuh: TMA,
+//                                              wgmma, O in 128-column
+//                                              slices, S over D in chunks)
+//             fp32, D <= 256                   flash_fwd_f32_kernel (below,
 //                                              SIMT: TF32 would miss the
 //                                              fp32 reference)
+//             fp32, D > 256                    bigd::flash_fwd_big_kernel
+//                                              (flash_big_d.cuh: SIMT, the
+//                                              accumulator in a global fp32
+//                                              scratch, D in chunks)
 //   backward  bf16, D = 64, 128                sm90::flash_bwd_sm90_kernel
 //                                              (flash_bwd_sm90.cuh: TMA,
 //                                              wgmma, dK/dV in registers,
 //                                              bulk dq reductions)
-//             bf16, D = 80, 96, 256            flash_bwd_kernel<bf16>
+//             bf16, D = 80, 96                 flash_bwd_kernel<bf16>
 //                                              (below: WMMA from shared
 //                                              memory)
+//             bf16, D = 256, and D > 256 with  wide::flash_bwd_wide_kernel
+//             D % 64 == 0                      (flash_wide_sm90.cuh: dK/dV
+//                                              in 128-column slices, S^T
+//                                              and dP^T over D in chunks)
 //             fp32, D = 64, 80, 96, 128, 256   flash_bwd_kernel<float>
 //                                              (below, SIMT)
-//   both      bf16 and fp32, D > 256 with      bigd:: kernels
-//             D % 64 == 0                      (flash_big_d.cuh: SIMT, the
-//                                              accumulators in a global
-//                                              fp32 scratch, D in chunks)
+//             fp32, D > 256                    bigd::flash_bwd_big_kernel
+//                                              (flash_big_d.cuh: SIMT, dK
+//                                              and dV in a global fp32
+//                                              scratch)
 //
 // The [B, L, H, D] launchers take every one of those sizes; the pair
 // launchers 64, 128, 256 and the multiples of 128 above 256 (the pair
@@ -75,11 +87,14 @@
 // tile, and the fp32 dq scratch zeroed), the body, and dq_convert_kernel
 // (dq = scratch * sm_scale in the input type: the bodies add unscaled
 // partials). The scratch and the padded rows live in one fp32 workspace
-// the wrapper allocates (bwd_work_floats).
+// the wrapper allocates (bwd_work_floats), with, where a body needs it,
+// fp32 dK/dV accumulators (bigd::, fp32 D > 256) or the scaled copy of q
+// (wide::, bf16 D >= 256: written by its scale_q_kernel launch, the body's
+// fourth).
 //
 // The WMMA and SIMT backward (FlashAttention-2's, extended over a GQA
 // group): one CTA of 4 warps per (64-row kv tile, KV head, batch row; 32
-// rows at D = 256 so the tiles fit). It loads its K and V tiles once, then
+// rows at D = 256, fp32, so the tiles fit). It loads its K and V tiles once, then
 // walks every q head of its group and, for each, the 64-row q tiles from
 // the diagonal down (causal: the Pallas tile skip becomes the loop's
 // start), recomputing s and p once per (q tile, kv tile) and feeding all
@@ -232,7 +247,8 @@ struct FwdArgs {
 // Operands of one backward launch. q, k, v as in FwdArgs; out and dout
 // [B, Lq, H*D] contiguous; lse [B, H, Lq] fp32, the forward's; lse_pad,
 // delta [B*H, Lq_pad] and dq_acc [B, Lq, H*D] fp32, written by the
-// pre-pass; dkv_acc [2, B, Lk, Hkv*D] fp32 scratch of the D > 256 body;
+// pre-pass; dkv_acc [2, B, Lk, Hkv*D] fp32 scratch of the fp32 D > 256
+// body (null otherwise);
 // dq rows dq_row apart (head h at h*D), dk and dv rows dkv_row apart (KV
 // head hk at hk*D). drop, lens, q_seg and k_seg as in FwdArgs.
 struct BwdArgs {
@@ -259,29 +275,49 @@ struct BwdArgs {
   const int* k_seg;
 };
 
-// The backward's fp32 workspace, in floats: dq_acc, lse_pad, delta and, at
-// D > 256, dkv_acc (kernels/flash_attention.py `_bwd_work_floats` sizes it
-// the same way).
-inline long bwd_work_floats(int B, int Lq, int Lk, int H, int Hkv, int D) {
+// The backward's fp32 workspace, in floats: dq_acc, lse_pad, delta and,
+// in fp32 at D > 256, dkv_acc (the bigd:: body's dK and dV), in bf16 at D
+// >= 256 the scaled copy of q (the wide body's, bf16 [B, Lq, H*D]).
+// kernels/flash_pair.py `bwd_work_floats` sizes it the same way.
+inline long bwd_work_floats(int B, int Lq, int Lk, int H, int Hkv, int D,
+                            int is_bf16) {
   const long lq_pad = (Lq + 63) / 64 * 64;
-  return (long)B * Lq * H * D + 2L * B * H * lq_pad +
-         (D > 256 ? 2L * B * Lk * Hkv * D : 0L);
+  const long base = (long)B * Lq * H * D + 2L * B * H * lq_pad;
+  if (is_bf16) return base + (D >= 256 ? (long)B * Lq * H * D / 2 : 0L);
+  return base + (D > 256 ? 2L * B * Lk * Hkv * D : 0L);
 }
 
 // Points a's scratch into `work` (bwd_work_floats(...) floats).
-inline void bwd_set_work(BwdArgs& a, float* work, int B, int D) {
+inline void bwd_set_work(BwdArgs& a, float* work, int B, int D,
+                         int is_bf16) {
   a.Lq_pad = (a.Lq + 63) / 64 * 64;
   a.dq_acc = work;
   a.lse_pad = work + (long)B * a.Lq * a.H * D;
   a.delta = a.lse_pad + (long)B * a.H * a.Lq_pad;
-  a.dkv_acc = D > 256 ? a.delta + (long)B * a.H * a.Lq_pad : nullptr;
+  a.dkv_acc = !is_bf16 && D > 256 ? a.delta + (long)B * a.H * a.Lq_pad
+                                  : nullptr;
+}
+
+// Blocks of 256 threads for a grid-stride pass over n items: one an item,
+// at most 16 a streaming multiprocessor of the H100's 132.
+static inline unsigned grid_for(long n) {
+  const long blocks = (n + 255) / 256;
+  return (unsigned)(blocks < 132L * 16 ? (blocks > 0 ? blocks : 1) : 132L * 16);
+}
+
+// The wide bf16 body's scaled copy of q: the workspace's region after
+// delta (bwd_work_floats).
+inline __nv_bfloat16* bwd_qs(const BwdArgs& a, int B) {
+  return reinterpret_cast<__nv_bfloat16*>(a.delta +
+                                          (long)B * a.H * a.Lq_pad);
 }
 
 }  // namespace
 
-#include "flash_fwd_sm90.cuh"  // the bf16 forward
-#include "flash_bwd_sm90.cuh"  // the bf16 backward at D = 64, 128
-#include "flash_big_d.cuh"     // D > 256, both types and directions
+#include "flash_fwd_sm90.cuh"   // the bf16 forward at D <= 256
+#include "flash_bwd_sm90.cuh"   // the bf16 backward at D = 64, 128
+#include "flash_wide_sm90.cuh"  // bf16 D > 256 both ways, D = 256 backward
+#include "flash_big_d.cuh"      // fp32 D > 256, both directions
 
 namespace {
 
@@ -479,21 +515,22 @@ cudaError_t launch_fwd(const FwdArgs& a, int B, int is_bf16,
 
 // The head sizes up to 256 the launchers are built for: every size of the
 // [B, L, H, D] layout, and the pair layout's (whole 128-column blocks of
-// heads); above 256 every multiple of 64 runs the bigd:: kernels. The
-// wrappers pad any other head size up to the next of them with zero
-// columns.
+// heads); above 256 every multiple of 64 runs the wide:: (bf16) and
+// bigd:: (fp32) kernels. The wrappers pad any other head size up to the
+// next of them with zero columns.
 template <int... Ds>
 struct HeadDims {};
 using FlatHeadDims = HeadDims<64, 80, 96, 128, 256>;
 using PairHeadDims = HeadDims<64, 128, 256>;
 
-// The forward for input type (bf16: the wgmma kernel; fp32: the SIMT
-// kernel; D > 256: the bigd:: kernel) and head size D (one of Ds, or a
-// multiple of 64 above 256), with dropout (kDrop, a.drop) or
-// without, with segment ids (kSegs, a.q_seg and a.k_seg) or without;
-// returns the cudaError_t of the launch (cudaErrorInvalidValue also when a
-// TMA descriptor cannot be encoded). `work` is an fp32 scratch laid out as
-// out, read only at D > 256 (the bigd:: kernel's accumulator).
+// The forward for input type (bf16: the wgmma kernels; fp32: the SIMT
+// kernels) and head size D (one of Ds, or a multiple of 64 above 256),
+// with dropout (kDrop, a.drop) or without, with segment ids (kSegs, a.q_seg
+// and a.k_seg) or without; returns the cudaError_t of the launch
+// (cudaErrorInvalidValue also when a TMA descriptor cannot be encoded).
+// `work` is read only at D > 256: in fp32 the bigd:: kernel's accumulator
+// (fp32, laid out as out), in bf16 the wide kernel's scaled copy of q (bf16
+// [B, Lq, H*D], written by its scale_q_kernel launch).
 template <bool kDrop, bool kSegs, int... Ds>
 int flash_fwd(HeadDims<Ds...>, const FwdArgs& a, float* work, int B, int D,
               int is_bf16, cudaStream_t st) {
@@ -502,10 +539,10 @@ int flash_fwd(HeadDims<Ds...>, const FwdArgs& a, float* work, int B, int D,
     return (int)cudaErrorInvalidValue;
   if (D > 256)
     return (int)(is_bf16
-                     ? bigd::launch_fwd<__nv_bfloat16, kDrop, kSegs>(a, work, B,
-                                                                   D, st)
-                     : bigd::launch_fwd<float, kDrop, kSegs>(a, work, B, D,
-                                                            st));
+                     ? wide::launch_fwd<kDrop, kSegs>(
+                           a, reinterpret_cast<__nv_bfloat16*>(work), B, D,
+                           st)
+                     : bigd::launch_fwd<kDrop, kSegs>(a, work, B, D, st));
   int rc = (int)cudaErrorInvalidValue;
   ((D == Ds ? (rc = (int)launch_fwd<Ds, kDrop, kSegs>(a, B, is_bf16, st))
             : 0),
@@ -515,8 +552,8 @@ int flash_fwd(HeadDims<Ds...>, const FwdArgs& a, float* work, int B, int D,
 
 // ----------------------------------------------------------------- backward
 
-// kv rows of a backward CTA: 64, or 32 at D = 256 so the tiles fit in
-// shared memory and dK/dV in registers.
+// kv rows of a backward CTA (the WMMA and SIMT bodies): 64, or 32 at D =
+// 256 (fp32) so the tiles fit in shared memory and dK/dV in registers.
 template <int D>
 constexpr int kBwdBN = D == 256 ? 32 : 64;
 
@@ -1019,12 +1056,16 @@ __global__ void dq_convert_kernel(const float* __restrict__ dq_acc,
   }
 }
 
-// The WMMA (bf16) and SIMT (fp32) backward body at head size D.
+// The backward body at head size D (D <= 256): in bf16 the Hopper body
+// (64, 128), the wide body (256) or the WMMA body (80, 96); in fp32 the
+// SIMT body.
 template <typename T, int D, bool kDrop, bool kSegs>
 cudaError_t launch_bwd_body(const BwdArgs& a, int B, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value &&
-                sm90::bwd_sm90_takes(D)) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  if constexpr (kBf16 && sm90::bwd_sm90_takes(D)) {
     return sm90::launch_bwd<D, kDrop, kSegs>(a, B, stream);
+  } else if constexpr (kBf16 && wide::bwd_takes(D)) {
+    return wide::launch_bwd<kDrop, kSegs>(a, bwd_qs(a, B), B, D, stream);
   } else {
     constexpr int BN = kBwdBN<D>;
     using G = BwdGeom<T, D, BN>;
@@ -1038,13 +1079,8 @@ cudaError_t launch_bwd_body(const BwdArgs& a, int B, cudaStream_t stream) {
   }
 }
 
-static inline unsigned grid_for(long n) {
-  const long blocks = (n + 255) / 256;
-  return (unsigned)(blocks < 132L * 16 ? (blocks > 0 ? blocks : 1) : 132L * 16);
-}
-
-// The three launches of one backward in input type T: the pre-pass, the
-// body (D > 256: bigd::; else one of Ds), the dq conversion.
+// The launches of one backward in input type T: the pre-pass, the body (D >
+// 256: wide:: in bf16, bigd:: in fp32; else one of Ds), the dq conversion.
 template <typename T, bool kDrop, bool kSegs, int... Ds>
 cudaError_t launch_bwd_all(HeadDims<Ds...>, const BwdArgs& a, int B, int D,
                            cudaStream_t st) {
@@ -1056,7 +1092,10 @@ cudaError_t launch_bwd_all(HeadDims<Ds...>, const BwdArgs& a, int B, int D,
   if (err != cudaSuccess) return err;
   err = cudaErrorInvalidValue;
   if (D > 256) {
-    err = bigd::launch_bwd<T, kDrop, kSegs>(a, B, D, st);
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      err = wide::launch_bwd<kDrop, kSegs>(a, bwd_qs(a, B), B, D, st);
+    else
+      err = bigd::launch_bwd<kDrop, kSegs>(a, B, D, st);
   } else {
     ((D == Ds ? (err = launch_bwd_body<T, Ds, kDrop, kSegs>(a, B, st)) : err),
      ...);
@@ -1078,7 +1117,7 @@ int flash_bwd(HeadDims<Ds...> dims, BwdArgs a, float* work, int B, int D,
       a.H % a.Hkv || (kSegs && (!a.q_seg || !a.k_seg)) ||
       (D > 256 && D % 64) || work == nullptr)
     return (int)cudaErrorInvalidValue;
-  bwd_set_work(a, work, B, D);
+  bwd_set_work(a, work, B, D, is_bf16);
   return (int)(is_bf16
                    ? launch_bwd_all<__nv_bfloat16, kDrop, kSegs>(dims, a, B,
                                                                  D, st)

@@ -32,9 +32,10 @@
 
 // Head sizes 64, 80, 96, 128, 256 and every multiple of 64 above 256 are
 // built: bf16 at 64 and 128 runs the Hopper body of flash_bwd_sm90.cuh,
-// bf16 at 80, 96 and 256 the WMMA body, fp32 the SIMT body, and D > 256
-// the bigd:: kernels of flash_big_d.cuh (flash_attention.cuh sets out the
-// dispatch).
+// at 256 and above the wide Hopper body of flash_wide_sm90.cuh (dK/dV in
+// 128-column slices), at 80 and 96 the WMMA body; fp32 the SIMT body, and
+// above 256 the bigd:: kernel of flash_big_d.cuh (flash_attention.cuh sets
+// out the dispatch).
 
 #include "flash_attention.cuh"
 
@@ -42,7 +43,8 @@
 // (0 on success). The caller has checked shapes, types, contiguity and
 // alignment: q, out, dout and dq are [B, Lq, H, D]; k, v, dk and dv [B, Lk,
 // Hkv, D], all of the input type; lse [B, H, Lq] fp32, the forward's;
-// work an fp32 workspace of bwd_work_floats(B, Lq, Lk, H, Hkv, D) floats;
+// work an fp32 workspace of bwd_work_floats(B, Lq, Lk, H, Hkv, D, is_bf16)
+// floats;
 // lens, q_seg, k_seg and the dropout arguments are the forward's.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* out,

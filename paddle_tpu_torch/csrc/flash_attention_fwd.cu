@@ -11,12 +11,13 @@
 // causal (the diagonal aligned bottom-right, Lk - Lq) or bidirectional; key
 // j of batch row b is attended only below lens[b] and, with segment ids,
 // only by the queries of its segment. Head sizes 64, 80, 96, 128 and 256
-// are built, and every multiple of 64 above 256 (the bigd:: kernel of
-// flash_big_d.cuh, its accumulator in the fp32 workspace `work`). The
-// kernel is flash_attention.cuh's forward: in bf16 the
-// Hopper kernel of flash_fwd_sm90.cuh, whose TMA descriptors read q as a
-// 3-D tensor (H*D columns, Lq rows, B) and k, v as (Hkv*D, Lk, B), so no
-// transpose to the Pallas [B*H, L, D] layout; in fp32 the SIMT kernel.
+// are built, and every multiple of 64 above 256. The kernel is
+// flash_attention.cuh's forward: in bf16 the Hopper kernels, up to 256
+// flash_fwd_sm90.cuh's, above 256 flash_wide_sm90.cuh's (O in 128-column
+// slices, round(q * scale) in the workspace `work`), whose TMA descriptors
+// read q as a 3-D tensor (H*D columns, Lq rows, B) and k, v as (Hkv*D, Lk,
+// B), so no transpose to the Pallas [B*H, L, D] layout; in fp32 the SIMT
+// kernels (above 256 flash_big_d.cuh's, its accumulator in `work`).
 // Those headers give the math, the rounding points and the design. K/V
 // tiles are read once per q head of a group (from L2 after the first).
 //
@@ -36,8 +37,9 @@
 // alignment: q and out are [B, Lq, H, D], k and v [B, Lk, Hkv, D], all of
 // the input type and contiguous; lse is [B, H, Lq] fp32; lens ([B]), q_seg
 // ([B, Lq]) and k_seg ([B, Lk]) are int32 or null (the segments both or
-// neither); work is an fp32 [B, Lq, H, D] scratch at D > 256 (else
-// unread, may be null). With `dropout` set, the probabilities drop under
+// neither); work is, at D > 256, kernels/flash_pair.py fwd_work_floats
+// floats (fp32: an accumulator laid out as out; bf16: the scaled copy of
+// q, bf16 [B, Lq, H*D]), else unread and may be null. With `dropout` set, the probabilities drop under
 // the seed's words, the keep threshold and the scale of kernels/philox.py.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse,

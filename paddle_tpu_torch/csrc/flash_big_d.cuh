@@ -1,43 +1,44 @@
-// Flash attention for heads above 256 (any multiple of 64: 320, 384, 512,
-// ...), forward and backward, bf16 and fp32, on both launchers. Included
-// by flash_attention.cuh, whose contracts these kernels compute (the math,
+// Flash attention in fp32 for heads above 256 (any multiple of 64: 320,
+// 384, 512, ...), forward and backward, on both launchers. Included by
+// flash_attention.cuh, whose contracts these kernels compute (the math,
 // the rounding points, the masks and the dropout keying are set out
-// there); flash_fwd and flash_bwd dispatch every D > 256 here. The
-// wrappers run any other D > 256 on zero-padded heads.
+// there); flash_fwd and flash_bwd dispatch every fp32 D > 256 here (bf16
+// runs the wgmma kernels of flash_wide_sm90.cuh). The wrappers run any
+// other D > 256 on zero-padded heads.
 //
-// Replaces, at those head sizes: paddle_tpu/kernels/pallas/
+// Replaces, at those head sizes in fp32: paddle_tpu/kernels/pallas/
 // flash_attention.py `_flash_fwd_kernel`, `_flash_bwd_fused_kernel` and
 // `_flash_dq_kernel` + `_flash_dkv_kernel` (the JAX `flash_attention_blhd`
 // takes any D), and flash_pair.py `_pair_fwd_kernel` / `_pair_bwd_fused_
 // kernel` (the pair gate admits 384, 512, ...).
 //
 // What bounds them on the H100: the same operations as at smaller heads
-// (4*D and 10*D an attended pair), here on the SIMT pipes in fp32. The
-// design is the simple one that is right: no accumulator of D columns
-// fits in registers, so the accumulators live in an fp32 global scratch
-// that the CTA owns exclusively (no atomics there), and every tile is
-// walked in chunks of 64 columns through shared memory.
+// (4*D and 10*D an attended pair), on the SIMT pipes in fp32 (plain FMA:
+// TF32 would miss the fp32 reference). The design is the simple one that
+// is right: no accumulator of D columns fits in registers, so the
+// accumulators live in an fp32 global scratch that the CTA owns
+// exclusively (no atomics there), and every tile is walked in chunks of 64
+// columns through shared memory.
 //
 // * Forward: one CTA of 256 threads per (64-row q tile, q head, batch
 //   row), four threads a q row, sixteen keys each. Two passes over the kv
 //   tiles: the first takes the row max m and the sum l of the undropped
 //   exp(s - m) (online), the second recomputes s, forms p = exp(s - m)
 //   with the final m (the plain version's exact form), times the keep
-//   factor, rounds it to the input type and adds P.V chunk by chunk to the
-//   scratch; then out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)).
+//   factor, and adds P.V chunk by chunk to the scratch; then out = acc /
+//   max(l, 1e-30), lse = m + log(max(l, 1e-30)).
 // * Backward: one CTA per (64-row kv tile, KV head, batch row), dK and dV
 //   in the scratch for the whole walk over the group's q heads and the q
 //   tiles from the causal diagonal down; per step s and dp over D chunks,
-//   p and ds at the backward's rounding points in shared memory, then per
-//   chunk dV += P^T dO, dK += dS^T q (unscaled) into the scratch and
-//   dQ partial = dS K by fp32 atomics into dq's scratch (unscaled; the
-//   conversion scales it). A kv tile past the length writes zero dK, dV.
+//   p and ds in shared memory, then per chunk dV += P^T dO, dK += dS^T q
+//   (unscaled) into the scratch and dQ partial = dS K by fp32 atomics into
+//   dq's scratch (unscaled; the conversion scales it). A kv tile past the
+//   length writes zero dK, dV.
 // * Dropout: a thread's sixteen keys of one q row are four Philox groups,
 //   one call each, keyed on absolute positions as every other kernel.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stdint.h>
@@ -51,18 +52,18 @@ constexpr int kLd = kT + 1;     // fp32 tile row stride (floats)
 constexpr int kTile = kT * kLd;
 
 // rows [r0, r0 + 64) x columns [c0, c0 + 64) of rows `row` elements apart
-// into an fp32 tile; rows at or past L read as zero; with kScale each
-// value is multiplied by `scale` and rounded back to T
-template <typename T, bool kScale>
-__device__ __forceinline__ void load_chunk(float* dst, const T* src, int r0,
-                                           int L, long row, int c0,
+// into a tile; rows at or past L read as zero; with kScale each value is
+// multiplied by `scale`
+template <bool kScale>
+__device__ __forceinline__ void load_chunk(float* dst, const float* src,
+                                           int r0, int L, long row, int c0,
                                            float scale) {
   for (int i = threadIdx.x; i < kT * kT; i += kThr) {
     const int r = i / kT, c = i % kT;
     float x = 0.0f;
     if (r0 + r < L) {
-      x = to_f(src[(long)(r0 + r) * row + c0 + c]);
-      if (kScale) x = to_f(from_f<T>(x * scale));
+      x = src[(long)(r0 + r) * row + c0 + c];
+      if (kScale) x = x * scale;
     }
     dst[r * kLd + c] = x;
   }
@@ -107,10 +108,11 @@ __device__ __forceinline__ void keep16(float (&f)[16], const DropParams& d,
   }
 }
 
-template <typename T, bool kDrop, bool kSegs>
+template <bool kDrop, bool kSegs>
 __global__ void __launch_bounds__(kThr) flash_fwd_big_kernel(FwdArgs a,
                                                              float* o_acc,
                                                              int D) {
+  using T = float;
   extern __shared__ __align__(16) float sm[];
   float* Qc = sm;
   float* Kc = Qc + kTile;
@@ -143,8 +145,8 @@ __global__ void __launch_bounds__(kThr) flash_fwd_big_kernel(FwdArgs a,
     for (int k = 0; k < 16; ++k) s[k] = 0.0f;
     for (int c0 = 0; c0 < D; c0 += kT) {
       __syncthreads();
-      load_chunk<T, true>(Qc, qg, q0, a.Lq, a.q_row, c0, a.sm_scale);
-      load_chunk<T, false>(Kc, kg, n0, a.Lk, a.kv_row, c0, 1.0f);
+      load_chunk<true>(Qc, qg, q0, a.Lq, a.q_row, c0, a.sm_scale);
+      load_chunk<false>(Kc, kg, n0, a.Lk, a.kv_row, c0, 1.0f);
       __syncthreads();
       dot_rows(s, Qc, Kc, r, cg);
     }
@@ -172,7 +174,7 @@ __global__ void __launch_bounds__(kThr) flash_fwd_big_kernel(FwdArgs a,
     m = mn;
   }
 
-  // pass 2: acc = round(p * keep) . V with p at the final m
+  // pass 2: acc = (p * keep) . V with p at the final m
   if (qrow < a.Lq)
     for (int c = cg; c < D; c += kT)
 #pragma unroll
@@ -187,11 +189,11 @@ __global__ void __launch_bounds__(kThr) flash_fwd_big_kernel(FwdArgs a,
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
       const float p = mask(qrow, n0 + cg + k) ? expf(s[k] - m) : 0.0f;
-      Ps[r * kLd + cg + k] = to_f(from_f<T>(p * f[k]));
+      Ps[r * kLd + cg + k] = p * f[k];
     }
     for (int c0 = 0; c0 < D; c0 += kT) {
       __syncthreads();  // P written; the previous chunk's V consumed
-      load_chunk<T, false>(Vc, vg, n0, a.Lk, a.kv_row, c0, 1.0f);
+      load_chunk<false>(Vc, vg, n0, a.Lk, a.kv_row, c0, 1.0f);
       __syncthreads();
       float o[16];
 #pragma unroll
@@ -217,18 +219,18 @@ __global__ void __launch_bounds__(kThr) flash_fwd_big_kernel(FwdArgs a,
 #pragma unroll
       for (int k = 0; k < 16; ++k) {
         const long at = (long)qrow * a.o_row + c + k;
-        og[at] = from_f<T>(acc_g[at] * inv);
+        og[at] = acc_g[at] * inv;
       }
     if (threadIdx.x % 4 == 0)
       a.lse[((long)b * a.H + h) * a.Lq + qrow] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
-template <typename T, bool kDrop, bool kSegs>
+template <bool kDrop, bool kSegs>
 cudaError_t launch_fwd(const FwdArgs& a, float* o_acc, int B, int D,
                        cudaStream_t stream) {
   if (D % kT || o_acc == nullptr) return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_big_kernel<T, kDrop, kSegs>;
+  auto kernel = flash_fwd_big_kernel<kDrop, kSegs>;
   const int bytes = 4 * kTile * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -238,16 +240,17 @@ cudaError_t launch_fwd(const FwdArgs& a, float* o_acc, int B, int D,
   return cudaGetLastError();
 }
 
-template <typename T, bool kDrop, bool kSegs>
+template <bool kDrop, bool kSegs>
 __global__ void __launch_bounds__(kThr) flash_bwd_big_kernel(BwdArgs a,
                                                              int D) {
+  using T = float;
   extern __shared__ __align__(16) float sm[];
   float* Qc = sm;
   float* Kc = Qc + kTile;
   float* Vc = Kc + kTile;
   float* DOc = Vc + kTile;
-  float* Ps = DOc + kTile;   // round(p * keep), [q][kv]
-  float* DSs = Ps + kTile;   // round(ds), [q][kv]
+  float* Ps = DOc + kTile;   // p * keep, [q][kv]
+  float* DSs = Ps + kTile;   // ds, [q][kv]
   float* Lse = DSs + kTile;
   float* Delta = Lse + kT;
   const int n0 = blockIdx.x * kT;  // kv tile 0 walks the most q tiles
@@ -277,8 +280,8 @@ __global__ void __launch_bounds__(kThr) flash_bwd_big_kernel(BwdArgs a,
       for (int c = cg; c < D; c += kT)
 #pragma unroll
         for (int k = 0; k < 16; ++k) {
-          dk_out[(long)kvrow * a.dkv_row + c + k] = from_f<T>(0.0f);
-          dv_out[(long)kvrow * a.dkv_row + c + k] = from_f<T>(0.0f);
+          dk_out[(long)kvrow * a.dkv_row + c + k] = 0.0f;
+          dv_out[(long)kvrow * a.dkv_row + c + k] = 0.0f;
         }
     return;
   }
@@ -309,10 +312,10 @@ __global__ void __launch_bounds__(kThr) flash_bwd_big_kernel(BwdArgs a,
       for (int k = 0; k < 16; ++k) s[k] = dp[k] = 0.0f;
       for (int c0 = 0; c0 < D; c0 += kT) {
         __syncthreads();
-        load_chunk<T, true>(Qc, qg, m0, a.Lq, a.q_row, c0, a.sm_scale);
-        load_chunk<T, false>(Kc, kg, n0, a.Lk, a.kv_row, c0, 1.0f);
-        load_chunk<T, false>(DOc, dog, m0, a.Lq, hd, c0, 1.0f);
-        load_chunk<T, false>(Vc, vg, n0, a.Lk, a.kv_row, c0, 1.0f);
+        load_chunk<true>(Qc, qg, m0, a.Lq, a.q_row, c0, a.sm_scale);
+        load_chunk<false>(Kc, kg, n0, a.Lk, a.kv_row, c0, 1.0f);
+        load_chunk<false>(DOc, dog, m0, a.Lq, hd, c0, 1.0f);
+        load_chunk<false>(Vc, vg, n0, a.Lk, a.kv_row, c0, 1.0f);
         if (threadIdx.x < kT) {
           Lse[threadIdx.x] = a.lse_pad[pad_row + m0 + threadIdx.x];
           Delta[threadIdx.x] = a.delta[pad_row + m0 + threadIdx.x];
@@ -329,14 +332,14 @@ __global__ void __launch_bounds__(kThr) flash_bwd_big_kernel(BwdArgs a,
       for (int k = 0; k < 16; ++k) {
         const float p =
             mask(qrow, n0 + cg + k) ? expf(s[k] - Lse[r]) : 0.0f;
-        Ps[r * kLd + cg + k] = to_f(from_f<T>(p * f[k]));
-        DSs[r * kLd + cg + k] = to_f(from_f<T>(p * (dp[k] * f[k] - Delta[r])));
+        Ps[r * kLd + cg + k] = p * f[k];
+        DSs[r * kLd + cg + k] = p * (dp[k] * f[k] - Delta[r]);
       }
       for (int c0 = 0; c0 < D; c0 += kT) {
         __syncthreads();  // P, dS written; the previous chunk consumed
-        load_chunk<T, false>(Qc, qg, m0, a.Lq, a.q_row, c0, 1.0f);
-        load_chunk<T, false>(DOc, dog, m0, a.Lq, hd, c0, 1.0f);
-        load_chunk<T, false>(Kc, kg, n0, a.Lk, a.kv_row, c0, 1.0f);
+        load_chunk<false>(Qc, qg, m0, a.Lq, a.q_row, c0, 1.0f);
+        load_chunk<false>(DOc, dog, m0, a.Lq, hd, c0, 1.0f);
+        load_chunk<false>(Kc, kg, n0, a.Lk, a.kv_row, c0, 1.0f);
         __syncthreads();
         // dV, dK for kv row r, columns c0 + cg + [0, 16)
         float gv[16], gk[16];
@@ -371,22 +374,22 @@ __global__ void __launch_bounds__(kThr) flash_bwd_big_kernel(BwdArgs a,
     }
   }
 
-  // dk (scaled once) and dv, the group's fp32 sums, rounded once
+  // dk (scaled once) and dv, the group's fp32 sums
   if (kvrow < a.Lk)
     for (int c = cg; c < D; c += kT)
 #pragma unroll
       for (int k = 0; k < 16; ++k) {
         const long at = (long)kvrow * acc_row + c + k;
         dk_out[(long)kvrow * a.dkv_row + c + k] =
-            from_f<T>(dk_acc[at] * a.sm_scale);
-        dv_out[(long)kvrow * a.dkv_row + c + k] = from_f<T>(dv_acc[at]);
+            dk_acc[at] * a.sm_scale;
+        dv_out[(long)kvrow * a.dkv_row + c + k] = dv_acc[at];
       }
 }
 
-template <typename T, bool kDrop, bool kSegs>
+template <bool kDrop, bool kSegs>
 cudaError_t launch_bwd(const BwdArgs& a, int B, int D, cudaStream_t stream) {
   if (D % kT || a.dkv_acc == nullptr) return cudaErrorInvalidValue;
-  auto kernel = flash_bwd_big_kernel<T, kDrop, kSegs>;
+  auto kernel = flash_bwd_big_kernel<kDrop, kSegs>;
   const int bytes = (6 * kTile + 2 * kT) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);

@@ -5,10 +5,11 @@
 // masks and the dropout keying are set out there); flash_bwd dispatches
 // every bf16 backward at head sizes 64 and 128 here, from both launchers
 // (flash_attention_bwd.cu, the [B, L, H, D] layout with GQA, lengths and
-// segment ids; flash_pair_bwd.cu, packed qkv). Heads of 80, 96 and 256
-// keep the WMMA body of flash_attention.cuh: their dK/dV do not fit in
-// registers beside this walk's S and dP (256), or need the 32-byte
-// swizzle's column blocks in every product (80, 96).
+// segment ids; flash_pair_bwd.cu, packed qkv). Heads of 256 run the wide
+// body of flash_wide_sm90.cuh (dK/dV of a whole head do not fit in
+// registers beside this walk's S and dP there), 80 and 96 keep the WMMA
+// body of flash_attention.cuh (they need the 32-byte swizzle's column
+// blocks in every product).
 //
 // Replaces: paddle_tpu/kernels/pallas/flash_attention.py
 // `_flash_bwd_fused_kernel`, `_flash_dq_kernel` + `_flash_dkv_kernel` and

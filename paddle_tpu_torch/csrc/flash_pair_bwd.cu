@@ -30,8 +30,9 @@
 
 // Head sizes 64, 128, 256 and every multiple of 128 above 256 (the pair
 // gate's) are built: bf16 at 64 and 128 runs the Hopper body of
-// flash_bwd_sm90.cuh, bf16 at 256 the WMMA body, fp32 the SIMT body, and
-// D > 256 the bigd:: kernels of flash_big_d.cuh.
+// flash_bwd_sm90.cuh, bf16 at 256 and above the wide Hopper body of
+// flash_wide_sm90.cuh, fp32 the SIMT body, and fp32 above 256 the bigd::
+// kernel of flash_big_d.cuh.
 
 #include "flash_attention.cuh"
 
@@ -39,8 +40,8 @@
 // (0 on success). The caller has checked shapes, types, contiguity and
 // alignment: qkv and dqkv are [B, L, 3*H*D], out and dout [B, L, H*D] of
 // the input type; lse [B, H, L] fp32, the forward's; work an fp32
-// workspace of bwd_work_floats(B, L, L, H, H, D) floats. The dropout
-// arguments are the forward's.
+// workspace of bwd_work_floats(B, L, L, H, H, D, is_bf16) floats. The
+// dropout arguments are the forward's.
 extern "C" int flash_pair_bwd(const void* qkv, const void* out,
                               const void* dout, const void* lse, void* work,
                               void* dqkv, int B, int L, int H, int D,

@@ -10,15 +10,15 @@
 // For qkv [B, L, 3*H*D] with column order [q heads | k heads | v heads]:
 // out [B, L, H*D] (the packed context) and lse [B, H, L] fp32, causal or
 // bidirectional, at head sizes 64, 128, 256 and the multiples of 128
-// above 256 (those through the bigd:: kernel of flash_big_d.cuh, its
-// accumulator in the fp32 workspace `work`). The kernel is
-// flash_attention.cuh's forward reading q, k and v straight out of the
-// packed rows (row stride 3*H*D, k at column H*D, v at 2*H*D; no relayout,
-// no padding copy), one KV head per q head: in bf16 the Hopper kernel of
-// flash_fwd_sm90.cuh, whose TMA descriptors see q, k and v as three 3-D
-// tensors (H*D columns, L rows, B) over the same rows; in fp32 the SIMT
-// kernel. Those headers give the math, the rounding points and the
-// design.
+// above 256. The kernel is flash_attention.cuh's forward reading q, k and
+// v straight out of the packed rows (row stride 3*H*D, k at column H*D, v
+// at 2*H*D; no relayout, no padding copy), one KV head per q head: in bf16
+// the Hopper kernels (up to 256 flash_fwd_sm90.cuh's, above 256
+// flash_wide_sm90.cuh's, round(q * scale) in the workspace `work`), whose
+// TMA descriptors see q, k and v as three 3-D tensors (H*D columns, L
+// rows, B) over the same rows; in fp32 the SIMT kernels (above 256
+// flash_big_d.cuh's, its accumulator in `work`). Those headers give the
+// math, the rounding points and the design.
 //
 // Bound on the H100: at the GPT-medium shape (B=2, L=1024, H=8, D=128,
 // causal, bf16) the work is 2*B*H*D*L*(L+1) ~= 4.3 GFLOP (4.4 us at 989
@@ -34,9 +34,10 @@
 // C entry point, bound with ctypes. Returns the cudaError_t of the launch
 // (0 on success). The caller has checked shapes, types, contiguity and
 // alignment; `out` is [B, L, H*D] of the input type and `lse` is [B, H, L]
-// fp32; `work` an fp32 [B, L, H*D] scratch at D > 256 (else unread, may be
-// null). With `dropout` set, the probabilities drop under the seed's
-// words, the keep threshold and the scale of kernels/philox.py.
+// fp32; `work` at D > 256 kernels/flash_pair.py fwd_work_floats floats
+// (fp32: an accumulator laid out as out; bf16: the scaled copy of q), else
+// unread and may be null. With `dropout` set, the probabilities drop under
+// the seed's words, the keep threshold and the scale of kernels/philox.py.
 extern "C" int flash_pair_fwd(const void* qkv, void* out, void* lse,
                               void* work, int B, int L, int H, int D,
                               int is_bf16, int causal,

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX for the port's kernels:
 // mbarriers, TMA tile loads, bulk copies and bulk fp32 reductions, the
-// fences between the generic and the async proxy, named barriers, wgmma
+// fences between the generic and the async proxy, volatile shared-memory
+// loads and stores, named barriers, wgmma
 // shared-memory descriptors, the wgmma instructions the attention kernels
 // issue and a fast exp2. Each wrapper
 // is one PTX instruction (or a short fixed sequence); the register lists
@@ -132,6 +133,31 @@ __device__ __forceinline__ void bulk_wait_all() {
 // async proxy (wgmma operands read from shared memory, TMA).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 32-bit shared-memory loads and stores at a shared-space address. They
+// are volatile: the compiler re-reads a value where it is used instead of
+// holding it in a register across a loop (a register-pressure tool).
+__device__ __forceinline__ int ld_shared_s32(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared.s32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ float2 ld_shared_f32x2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_shared_f32x2(uint32_t addr, float x,
+                                                float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x),
+               "f"(y)
+               : "memory");
 }
 
 // Barrier over `threads` threads (a multiple of 32) under id `id` (1..15;

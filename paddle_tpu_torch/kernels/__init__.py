@@ -26,7 +26,10 @@ so a kernel and its plain version drop the same elements.
 Every wrapper counts its launches in a plain integer attribute
 (``<wrapper>.launches``); ``launch_counts()`` reads them all and
 ``reset_launch_counts()`` zeroes them, so a run can show that its main path
-went through the kernels.
+went through the kernels. The four flash wrappers also count the launches
+of the wide-head bodies (``csrc/flash_wide_sm90.cuh``: bf16 heads above 256
+both ways, the bf16 backward at 256) in ``<wrapper>.wide_launches``, read by
+``wide_launch_counts()``.
 """
 from .dropout import DropoutFunction, dropout_fwd, dropout_fwd_reference
 from .flash_attention import (FlashAttention, flash_attention_bwd,
@@ -51,7 +54,8 @@ __all__ = ["flash_pair_fwd", "flash_pair_fwd_reference", "flash_pair_bwd",
            "dropout_fwd", "dropout_fwd_reference", "DropoutFunction",
            "fused_add_dropout_ln_fwd", "fused_add_dropout_ln_fwd_reference",
            "fused_add_dropout_ln_bwd", "fused_add_dropout_ln_bwd_reference",
-           "FusedAddDropoutLN", "launch_counts", "reset_launch_counts"]
+           "FusedAddDropoutLN", "launch_counts", "reset_launch_counts",
+           "wide_launch_counts"]
 
 WRAPPERS = {"flash_pair_fwd": flash_pair_fwd,
             "flash_pair_bwd": flash_pair_bwd,
@@ -62,10 +66,21 @@ WRAPPERS = {"flash_pair_fwd": flash_pair_fwd,
             "fused_add_dropout_ln_bwd": fused_add_dropout_ln_bwd}
 
 
+# the wrappers that also count their wide-head bodies' launches
+WIDE_WRAPPERS = ("flash_pair_fwd", "flash_pair_bwd", "flash_attention_fwd",
+                 "flash_attention_bwd")
+
+
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def wide_launch_counts() -> dict:
+    return {name: WRAPPERS[name].wide_launches for name in WIDE_WRAPPERS}
 
 
 def reset_launch_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for name in WIDE_WRAPPERS:
+        WRAPPERS[name].wide_launches = 0

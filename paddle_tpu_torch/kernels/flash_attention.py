@@ -20,12 +20,16 @@ CUDA C++ for ``sm_90a``, built with ``nvcc`` at first use and bound with
   inputs' layouts: the job of the Pallas fused, dq and dkv kernels, with
   each KV head's gradient summed over its group of q heads in fp32.
 
-Every head size runs: 64, 80, 96, 128 and 256 are built (in bf16 the
-Hopper kernels of ``csrc/flash_fwd_sm90.cuh`` and, at 64 and 128,
-``csrc/flash_bwd_sm90.cuh``), above 256 every multiple of 64 (the kernels
-of ``csrc/flash_big_d.cuh``), and any other size runs at the next built
-one on zero-padded heads (``kernel_head_dim``), as the JAX
-``flash_attention_blhd`` takes any head size.
+Every head size runs: 64, 80, 96, 128 and 256 are built, and above 256
+every multiple of 64; any other size runs at the next built one on
+zero-padded heads (``kernel_head_dim``), as the JAX ``flash_attention_blhd``
+takes any head size. In bf16 the kernels are Hopper ones: the forward
+``csrc/flash_fwd_sm90.cuh`` up to 256 and ``csrc/flash_wide_sm90.cuh``
+above; the backward ``csrc/flash_bwd_sm90.cuh`` at 64 and 128,
+``csrc/flash_wide_sm90.cuh`` at 256 and above, the WMMA body of
+``csrc/flash_attention.cuh`` at 80 and 96. In fp32 SIMT kernels
+(``csrc/flash_attention.cuh``, above 256 ``csrc/flash_big_d.cuh``).
+``csrc/flash_attention.cuh``'s header table says which body runs where.
 
 Both take the masks of the Pallas ``_valid_mask``: ``kv_lens`` ``[B]``
 (key ``j`` of batch row ``b`` is attended only below ``kv_lens[b]``;
@@ -55,7 +59,8 @@ import math
 import torch
 
 from . import _build, philox
-from .flash_pair import FlashPairPacked, bwd_work_floats
+from .flash_pair import (_WIDE_BWD_MIN_D, FlashPairPacked, bwd_work_floats,
+                         fwd_work_floats)
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_reference",
            "flash_attention_bwd", "flash_attention_bwd_reference",
@@ -64,9 +69,9 @@ __all__ = ["flash_attention_fwd", "flash_attention_fwd_reference",
 _NEG_INF = -1e30
 _DTYPES = (torch.bfloat16, torch.float32)
 # head sizes up to 256 the kernels are built for (csrc/flash_attention.cuh
-# FlatHeadDims); above 256 every multiple of 64 is built (the kernels of
-# csrc/flash_big_d.cuh). Any other size runs at the next built one with
-# zero columns.
+# FlatHeadDims); above 256 every multiple of 64 is built (bf16: the wide
+# kernels of csrc/flash_wide_sm90.cuh; fp32: csrc/flash_big_d.cuh). Any
+# other size runs at the next built one with zero columns.
 _HEAD_DIMS = (64, 80, 96, 128, 256)
 _BIG_D_QUANTUM = 64
 
@@ -260,10 +265,11 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale=None,
     the rate is positive).
 
     A CUDA tensor launches the kernel on the current stream (one launch
-    per call, counted in ``flash_attention_fwd.launches``; a head size that
+    per call, counted in ``flash_attention_fwd.launches``, and a bf16 head
+    above 256, the wide kernel's, also in ``.wide_launches``; a head size that
     is not built runs at ``kernel_head_dim`` on zero-padded copies, with
-    the scale of the true size; above 256 the kernel accumulates in an fp32
-    scratch of out's shape); a CPU tensor runs
+    the scale of the true size; above 256 the kernel takes an fp32
+    workspace of ``flash_pair.fwd_work_floats``); a CPU tensor runs
     ``flash_attention_fwd_reference``. Raises on a rate outside [0, 1), a
     positive rate without a seed, explicit block sizes, a query head count
     that is not a multiple of the KV head count, a type other than
@@ -288,8 +294,9 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale=None,
     _check_aligned("flash_attention_fwd", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty(b, h, lq, dtype=torch.float32, device=q.device)
-    work = torch.empty(q.shape, dtype=torch.float32, device=q.device) \
-        if d > _HEAD_DIMS[-1] else None
+    n_work = fwd_work_floats(b, lq, h, d, q.dtype)
+    work = torch.empty(n_work, dtype=torch.float32, device=q.device) \
+        if n_work else None
     lib = _build.load("flash_attention_fwd", _FWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -304,10 +311,13 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale=None,
         raise RuntimeError(f"flash_attention_fwd: kernel launch failed "
                            f"(cudaError {rc})")
     flash_attention_fwd.launches += 1
+    if q.dtype == torch.bfloat16 and d > _HEAD_DIMS[-1]:
+        flash_attention_fwd.wide_launches += 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.wide_launches = 0
 
 
 def _check_bwd(q, k, v, out, lse, dout, dropout_rate, seed, plain=False):
@@ -405,7 +415,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
     forward's.
 
     A CUDA tensor launches the kernel on the current stream (one counted
-    launch per call in ``flash_attention_bwd.launches``; a pre-pass launch
+    launch per call in ``flash_attention_bwd.launches``, and a bf16 head of
+    256 or more, the wide body's, also in ``.wide_launches``; a pre-pass
+    launch
     before the kernel computes ``delta = rowsum(dO*O)``, as the JAX package
     computes it outside its kernel, and zeroes dq's fp32 scratch, and a
     small conversion launch behind it writes dq; all in one fp32 workspace;
@@ -435,7 +447,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
             kv_segments=masks[2])
         return tuple(g[..., :d].contiguous() for g in grads)
     _check_aligned("flash_attention_bwd", q, k, v, out, dout)
-    work = torch.empty(bwd_work_floats(b, lq, lk, h, hkv, d),
+    work = torch.empty(bwd_work_floats(b, lq, lk, h, hkv, d, q.dtype),
                        dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
@@ -454,10 +466,13 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
         raise RuntimeError(f"flash_attention_bwd: kernel launch failed "
                            f"(cudaError {rc})")
     flash_attention_bwd.launches += 1
+    if q.dtype == torch.bfloat16 and d >= _WIDE_BWD_MIN_D:
+        flash_attention_bwd.wide_launches += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.wide_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

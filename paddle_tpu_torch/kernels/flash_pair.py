@@ -35,13 +35,17 @@ from . import _build, philox
 
 __all__ = ["flash_pair_fwd", "flash_pair_fwd_reference", "flash_pair_bwd",
            "flash_pair_bwd_reference", "FlashPairPacked",
-           "pair_layout_supported", "bwd_work_floats"]
+           "pair_layout_supported", "fwd_work_floats", "bwd_work_floats"]
 
 _NEG_INF = -1e30
 _DTYPES = (torch.bfloat16, torch.float32)
 _HEAD_DIMS = (64, 128, 256)   # csrc/flash_attention.cuh PairHeadDims
-# above 256 the pair gate's whole 128-column blocks run the kernels of
-# csrc/flash_big_d.cuh
+# above 256 the pair gate's whole 128-column blocks run the wide kernels of
+# csrc/flash_wide_sm90.cuh (bf16) and csrc/flash_big_d.cuh (fp32)
+# the bf16 backward at this head size and above runs the wide body, which
+# reads a scaled copy of q from its workspace (csrc/flash_wide_sm90.cuh
+# ``bwd_takes``)
+_WIDE_BWD_MIN_D = 256
 
 
 def _kernel_takes(d: int) -> bool:
@@ -49,16 +53,30 @@ def _kernel_takes(d: int) -> bool:
     return d in _HEAD_DIMS or (d > _HEAD_DIMS[-1] and d % 128 == 0)
 
 
-def bwd_work_floats(b: int, lq: int, lk: int, h: int, hkv: int,
-                    d: int) -> int:
+def fwd_work_floats(b: int, lq: int, h: int, d: int, dtype) -> int:
+    """Floats of a forward launch's fp32 workspace: none up to ``D = 256``;
+    above, in fp32 the SIMT kernel's accumulator ``[B, Lq, H*D]`` and in
+    bf16 the wide kernel's copy of ``round(q * scale)``, bf16 ``[B, Lq,
+    H*D]`` (half as many floats)."""
+    if d <= _HEAD_DIMS[-1]:
+        return 0
+    n = b * lq * h * d
+    return n // 2 if dtype == torch.bfloat16 else n
+
+
+def bwd_work_floats(b: int, lq: int, lk: int, h: int, hkv: int, d: int,
+                    dtype) -> int:
     """Floats of a backward launch's fp32 workspace
     (csrc/flash_attention.cuh ``bwd_work_floats``): dq's scratch ``[B, Lq,
     H*D]``, lse and delta at rows padded to a multiple of 64 ``[B*H,
-    Lq_pad]`` each, and at ``D > 256`` the dk and dv scratch ``[B, Lk,
-    Hkv*D]`` each."""
+    Lq_pad]`` each; in fp32 at ``D > 256`` the SIMT kernel's dk and dv
+    scratch ``[B, Lk, Hkv*D]`` each, in bf16 at ``D >= 256`` the wide
+    body's copy of ``round(q * scale)``, bf16 ``[B, Lq, H*D]``."""
     lq_pad = -(-lq // 64) * 64
-    return (b * lq * h * d + 2 * b * h * lq_pad
-            + (2 * b * lk * hkv * d if d > _HEAD_DIMS[-1] else 0))
+    n = b * lq * h * d + 2 * b * h * lq_pad
+    if dtype == torch.bfloat16:
+        return n + (b * lq * h * d // 2 if d >= _WIDE_BWD_MIN_D else 0)
+    return n + (2 * b * lk * hkv * d if d > _HEAD_DIMS[-1] else 0)
 
 
 def _heads_per_block(head_dim: int) -> int:
@@ -174,12 +192,13 @@ def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
     ``sm_scale`` (default ``1 / sqrt(D)``).
 
     A CUDA tensor launches the kernel on the current stream (one launch
-    per call, counted in ``flash_pair_fwd.launches``); a CPU tensor runs
+    per call, counted in ``flash_pair_fwd.launches``, and a bf16 head above
+    256, the wide kernel's, also in ``.wide_launches``); a CPU tensor runs
     ``flash_pair_fwd_reference``. Raises on a rate outside [0, 1), a
     positive rate without a seed, a head size other than 64, 128, 256 or a
-    multiple of 128 above 256 (there the kernel accumulates in an fp32
-    scratch of out's shape), a type other than bf16/fp32 and
-    non-contiguous input."""
+    multiple of 128 above 256 (there the kernel takes an fp32 workspace of
+    ``fwd_work_floats``), a type other than bf16/fp32 and non-contiguous
+    input."""
     d = _check(qkv, num_heads, dropout_rate, seed)
     if qkv.device.type == "cpu":
         return flash_pair_fwd_reference(qkv, num_heads, causal,
@@ -194,8 +213,9 @@ def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
                       device=qkv.device)
     lse = torch.empty(b, num_heads, L, dtype=torch.float32,
                       device=qkv.device)
-    work = torch.empty(out.shape, dtype=torch.float32, device=qkv.device) \
-        if d > _HEAD_DIMS[-1] else None
+    n_work = fwd_work_floats(b, L, num_heads, d, qkv.dtype)
+    work = torch.empty(n_work, dtype=torch.float32, device=qkv.device) \
+        if n_work else None
     lib = _build.load("flash_pair_fwd", _ARGTYPES)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -209,10 +229,13 @@ def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
         raise RuntimeError(f"flash_pair_fwd: kernel launch failed "
                            f"(cudaError {rc})")
     flash_pair_fwd.launches += 1
+    if qkv.dtype == torch.bfloat16 and d > _HEAD_DIMS[-1]:
+        flash_pair_fwd.wide_launches += 1
     return out, lse
 
 
 flash_pair_fwd.launches = 0
+flash_pair_fwd.wide_launches = 0
 
 
 def _check_bwd(qkv, out, lse, dout, num_heads, dropout_rate, seed,
@@ -310,7 +333,8 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
     forward's.
 
     A CUDA tensor launches the kernel on the current stream (one counted
-    launch per call in ``flash_pair_bwd.launches``; a pre-pass launch
+    launch per call in ``flash_pair_bwd.launches``, and a bf16 head of 256
+    or more, the wide body's, also in ``.wide_launches``; a pre-pass launch
     before the kernel computes ``delta = rowsum(dO*O)``, as the JAX package
     computes it outside its kernel, and zeroes dq's fp32 scratch, and a
     small conversion launch behind it writes dq; all in one fp32
@@ -329,7 +353,8 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                          "aligned (the kernels read them with TMA and in "
                          "16-byte vectors)")
     b, L, _ = qkv.shape
-    work = torch.empty(bwd_work_floats(b, L, L, num_heads, num_heads, d),
+    work = torch.empty(bwd_work_floats(b, L, L, num_heads, num_heads, d,
+                                       qkv.dtype),
                        dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
     lib = _build.load("flash_pair_bwd", _BWD_ARGTYPES)
@@ -345,10 +370,13 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
         raise RuntimeError(f"flash_pair_bwd: kernel launch failed "
                            f"(cudaError {rc})")
     flash_pair_bwd.launches += 1
+    if qkv.dtype == torch.bfloat16 and d >= _WIDE_BWD_MIN_D:
+        flash_pair_bwd.wide_launches += 1
     return dqkv
 
 
 flash_pair_bwd.launches = 0
+flash_pair_bwd.wide_launches = 0
 
 
 class FlashPairPacked(torch.autograd.Function):

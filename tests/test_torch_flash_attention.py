@@ -32,13 +32,14 @@ from paddle_tpu.kernels.pallas.flash_attention import (_flash_fwd,
 from paddle_tpu.nn import functional as JF
 from paddle_tpu_torch.core.random import make_generator, next_seed
 from paddle_tpu_torch.kernels import launch_counts, philox, \
-    reset_launch_counts
+    reset_launch_counts, wide_launch_counts
 from paddle_tpu_torch.kernels.flash_attention import (
     FlashAttention, flash_attention_bwd, flash_attention_bwd_reference,
     flash_attention_fwd, flash_attention_fwd_reference,
     flash_attention_qkv_packed, kernel_head_dim, pad_head_dim)
-from paddle_tpu_torch.kernels.flash_pair import (flash_pair_bwd_reference,
-                                                 flash_pair_fwd_reference)
+from paddle_tpu_torch.kernels.flash_pair import (
+    bwd_work_floats, flash_pair_bwd, flash_pair_bwd_reference, flash_pair_fwd,
+    flash_pair_fwd_reference, fwd_work_floats)
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.functional import attention
 
@@ -862,6 +863,30 @@ def test_flash_attention_options_as_the_reference(monkeypatch):
                                atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [64, 128, 256, 320, 512])
+def test_workspace_sizing_by_dtype(d, dtype):
+    """The kernels' fp32 workspaces, sized by type and head size: the bf16
+    wide bodies (forward above D = 256, backward from 256) take no
+    accumulator scratch, only a bf16 copy of round(q * scale) (half a
+    float an element), while fp32 keeps the floats it had: the forward's
+    accumulator above 256, the backward's dk and dv scratch above 256."""
+    b, lq, lk, h, hkv = 2, 200, 300, 4, 2
+    dt = getattr(torch, dtype)
+    lq_pad = 256
+    base = b * lq * h * d + 2 * b * h * lq_pad   # dq, lse and delta
+    if dtype == "float32":
+        assert fwd_work_floats(b, lq, h, d, dt) == \
+            (b * lq * h * d if d > 256 else 0)
+        assert bwd_work_floats(b, lq, lk, h, hkv, d, dt) == \
+            base + (2 * b * lk * hkv * d if d > 256 else 0)
+    else:
+        assert fwd_work_floats(b, lq, h, d, dt) == \
+            (b * lq * h * d // 2 if d > 256 else 0)
+        assert bwd_work_floats(b, lq, lk, h, hkv, d, dt) == \
+            base + (b * lq * h * d // 2 if d >= 256 else 0)
+
+
 # ------------------------------------------------------------------ cuda
 
 
@@ -883,7 +908,8 @@ CARD_CASES = [(2, 512, 512, 8, 2, 128, "bfloat16", True),
               # the Hopper backward: ragged lengths, multi-query 4/1
               (2, 300, 300, 4, 1, 64, "bfloat16", False),
               (2, 200, 333, 4, 1, 128, "bfloat16", True),
-              # heads above 256 (csrc/flash_big_d.cuh)
+              # heads above 256 (bf16: csrc/flash_wide_sm90.cuh; fp32:
+              # csrc/flash_big_d.cuh)
               (2, 256, 256, 4, 2, 512, "bfloat16", True),
               (2, 200, 300, 4, 2, 320, "float32", True),
               (1, 128, 200, 2, 1, 512, "float32", False)]
@@ -1055,12 +1081,14 @@ CARD_FLAG_CASES = [("plain", True, None, None, 0.0),
 @pytest.mark.cuda
 @pytest.mark.parametrize("flags", CARD_FLAG_CASES, ids=[c[0] for c in
                                                        CARD_FLAG_CASES])
-@pytest.mark.parametrize("d", [64, 80, 96, 128, 256, 72])
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256, 72, 320, 384, 448, 512,
+                               300])
 def test_cuda_bf16_forward_every_head_dim_and_flag(d, flags):
-    """The bf16 Hopper forward (72: run at 80 on zero-padded heads) at each
-    built head size and each flag combination (causal, lengths, segment
-    ids, dropout) against its plain version, at chip_smoke.py's
-    [compare-fa] limits; one counted launch."""
+    """The bf16 Hopper forwards (up to 256 flash_fwd_sm90.cuh's, above
+    flash_wide_sm90.cuh's; 72 and 300: run at 80 and 320 on zero-padded
+    heads) at each built head size and each flag combination (causal,
+    lengths, segment ids, dropout) against their plain version, at
+    chip_smoke.py's [compare-fa] limits; one counted launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     _, causal, lens, cuts, rate = flags
@@ -1092,11 +1120,13 @@ CARD_BWD_FLAG_CASES = [("plain", True, None, None, 0.0),
 @pytest.mark.cuda
 @pytest.mark.parametrize("flags", CARD_BWD_FLAG_CASES,
                          ids=[c[0] for c in CARD_BWD_FLAG_CASES])
-@pytest.mark.parametrize("d", [64, 128, 80, 96, 256, 320])
+@pytest.mark.parametrize("d", [64, 128, 80, 96, 256, 320, 384, 448, 512,
+                               300])
 def test_cuda_bf16_backward_every_head_dim_and_flag(d, flags):
     """The bf16 backward at every body's head sizes (64 and 128: the
-    Hopper body; 80, 96, 256: the WMMA body; 320: the D > 256 kernel),
-    GQA 4/2 at a ragged L = 500 (not a multiple of a tile), against its
+    Hopper body; 80, 96: the WMMA body; 256 and above: the wide body; 300
+    runs at 320 on zero-padded heads), GQA 4/2 at a ragged L = 500 (not a
+    multiple of a tile), against its
     plain version at chip_smoke.py's [compare-fa-bwd] limit; dk and dv
     zero past each length, equal between two launches; one counted
     launch."""
@@ -1165,3 +1195,109 @@ def test_cuda_functionals_run_a_kernel_at_new_head_dims(d):
             err = ((leaf.grad.float() - w.float()).norm()
                    / w.float().norm()).item()
             assert err < 8.3e-4, (name, err)
+
+
+# (B, Lq, Lk, H, Hkv, D, causal, kv_lens): multi-query 4/1 and ragged Lq !=
+# Lk on the wide bodies, both ways
+CARD_WIDE_CASES = [(2, 200, 333, 4, 1, 512, True, None),
+                   (2, 333, 200, 4, 1, 320, False, None),
+                   (2, 300, 300, 4, 1, 384, True, [300, 40]),
+                   (1, 130, 260, 2, 1, 448, False, [260])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_WIDE_CASES)
+def test_cuda_bf16_wide_heads_mqa_and_ragged(case):
+    """The wide bodies (csrc/flash_wide_sm90.cuh) at multi-query 4/1 and Lq
+    != Lk, against their plain versions at [compare-fa]'s and
+    [compare-fa-bwd]'s limits; dk and dv zero past each length; one
+    counted launch each way, both counted as wide-body launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    b, lq, lk, h, hkv, d, causal, lens = case
+    q, k, v, g = _card_inputs(b, lq, lk, h, hkv, d, torch.bfloat16,
+                              seed=d + lq)
+    kw = _card_masks(b, lq, lk, lens, None)
+    reset_launch_counts()
+    out, lse = flash_attention_fwd(q, k, v, causal, **kw)
+    got = flash_attention_bwd(q, k, v, out, lse, g, causal, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts() == dict(NO_LAUNCHES, flash_attention_fwd=1,
+                                   flash_attention_bwd=1)
+    assert wide_launch_counts() == dict(
+        flash_pair_fwd=0, flash_pair_bwd=0, flash_attention_fwd=1,
+        flash_attention_bwd=1)
+    ref, ref_lse = flash_attention_fwd_reference(q, k, v, causal, **kw)
+    limit = _weighted_limit(q, k, v, causal, ref, torch.bfloat16, **kw)
+    assert bool(((out.float() - ref.float()).abs() <= limit).all())
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, g, causal, **kw)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        err = ((x.float() - y.float()).norm() / y.float().norm()).item()
+        assert err < 8.3e-4, f"{name}: relative error {err:.3g}"
+    for r, n in enumerate(lens or []):
+        assert torch.count_nonzero(got[1][r, n:]) == 0
+        assert torch.count_nonzero(got[2][r, n:]) == 0
+
+
+# (launcher, D, the forward's and the backward's body as the profiler
+# names them, whether each is a wide-body launch)
+CARD_ROUTES = [("flat", 512, "flash_fwd_wide_kernel", "flash_bwd_wide_kernel",
+                1, 1),
+               ("pair", 384, "flash_fwd_wide_kernel", "flash_bwd_wide_kernel",
+                1, 1),
+               ("flat", 256, "flash_fwd_sm90_kernel", "flash_bwd_wide_kernel",
+                0, 1),
+               ("pair", 256, "flash_fwd_sm90_kernel", "flash_bwd_wide_kernel",
+                0, 1)]
+BODIES = ("flash_fwd_sm90_kernel", "flash_fwd_wide_kernel",
+          "flash_fwd_f32_kernel", "flash_fwd_big_kernel",
+          "flash_bwd_sm90_kernel", "flash_bwd_wide_kernel",
+          "flash_bwd_kernel", "flash_bwd_big_kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", CARD_ROUTES,
+                         ids=[f"{r[0]}-{r[1]}" for r in CARD_ROUTES])
+def test_cuda_bf16_wide_heads_run_the_wide_bodies(route):
+    """Which body a bf16 launch runs, read from the profiler's kernel names:
+    heads above 256 on both launchers run the wide forward and backward
+    (csrc/flash_wide_sm90.cuh), never the SIMT bigd:: kernels; the D = 256
+    backward runs the wide body, not the WMMA one, beside the Hopper
+    forward. The wrappers' wide-launch counters agree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+    launcher, d, fwd_body, bwd_body, wide_f, wide_b = route
+    b, L, h = 2, 256, 4
+    if launcher == "flat":
+        q, k, v, g = _card_inputs(b, L, L, h, 2, d, torch.bfloat16, seed=d)
+        names = ("flash_attention_fwd", "flash_attention_bwd")
+
+        def run():
+            out, lse = flash_attention_fwd(q, k, v, True)
+            flash_attention_bwd(q, k, v, out, lse, g, True)
+    else:
+        rs = np.random.RandomState(d)
+        x = torch.from_numpy(rs.randn(b, L, 3 * h * d).astype(np.float32))
+        x = x.cuda().to(torch.bfloat16)
+        g = torch.from_numpy(rs.randn(b, L, h * d).astype(np.float32)) \
+            .cuda().to(torch.bfloat16)
+        names = ("flash_pair_fwd", "flash_pair_bwd")
+
+        def run():
+            out, lse = flash_pair_fwd(x, h, True)
+            flash_pair_bwd(x, out, lse, g, h, True)
+    run()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    keys = [e.key for e in prof.key_averages()]
+    seen = {n for n in BODIES if any(n in key for key in keys)}
+    assert seen == {fwd_body, bwd_body}, keys
+    assert launch_counts() == dict(NO_LAUNCHES, **{names[0]: 1, names[1]: 1})
+    wide = wide_launch_counts()
+    assert (wide[names[0]], wide[names[1]]) == (wide_f, wide_b)

@@ -130,7 +130,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
                                   (2, 300, 2, 256, "bfloat16", True),
                                   (2, 300, 2, 256, "float32", False),
                                   (2, 512, 2, 384, "bfloat16", True),
-                                  (2, 300, 2, 384, "float32", False)])
+                                  (2, 300, 2, 384, "float32", False),
+                                  (2, 300, 2, 512, "bfloat16", False)])
 def test_cuda_kernel_matches_plain(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -268,7 +269,8 @@ def _rel(a, b):
                                   (2, 333, 4, 128, "bfloat16", False),
                                   # heads above 256
                                   (2, 512, 2, 384, "bfloat16", True),
-                                  (2, 300, 2, 384, "float32", False)])
+                                  (2, 300, 2, 384, "float32", False),
+                                  (2, 300, 2, 512, "bfloat16", False)])
 def test_cuda_backward_matches_plain(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -407,7 +409,8 @@ def test_dropout_seed_is_saved_for_the_backward():
                                   (2, 1024, 8, 128, "bfloat16", True),
                                   (2, 300, 4, 64, "float32", True),
                                   (2, 300, 4, 128, "bfloat16", False),
-                                  (2, 256, 2, 384, "bfloat16", True)])
+                                  (2, 256, 2, 384, "bfloat16", True),
+                                  (2, 300, 2, 512, "bfloat16", False)])
 def test_cuda_dropout_kernels_match_plain(case):
     """The pair kernels at rate 0.1 against their plain versions on the
     same seed (the limits of the rate-0 tests)."""
