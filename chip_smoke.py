@@ -20,10 +20,11 @@ so), in turns, and fails a case only beyond the timing noise, beside sdpa
 and the bound; it holds each kernel against its plain PyTorch version at
 the shapes the main paths give it and at every head size the kernels are
 built for (64, 80, 96, 128, 256, 72 on zero-padded heads, and above 256:
-320, 384, 448, 512, and 300 on zero-padded heads; the bf16 wide-head
-kernels at their headline shape, ``[compare-wide]``, and the bodies each
-launcher runs by the profiler's kernel names, ``[wide-route]``; every
-dropout mask for mask:
+320, 384, 448, 512, 1024 (fp32: two column slices), and 300 on
+zero-padded heads; the bf16 wide-head kernels at their headline shape,
+``[compare-wide]``, the fp32 ones at theirs beside the parent's and sdpa's,
+``[fp32-bodies]``, and the bodies each launcher runs by the profiler's
+kernel names, ``[wide-route]``; every dropout mask for mask:
 each is one Philox function of the seed and the element, and the attention
 masks are read back with probe inputs), then drives the main paths through
 the user entry points, random weights from a seed:
@@ -136,9 +137,10 @@ FA_CASES += [(2, 1024, 1024, 8, 2, d, BF16, True) for d in (80, 96, 256, 72)]
 FA_CASES += [(2, 200, 300, 4, 2, d, FP32, c)
              for d, c in ((80, True), (96, False), (256, True), (72, False))]
 # heads above 256 (bf16: csrc/flash_wide_sm90.cuh; fp32:
-# csrc/flash_big_d.cuh): 320 and 512 in bf16 and fp32, and 300 (run at 320
-# on zero-padded heads), GQA 4/2; 384 and 448 in bf16, and 512 multi-query
-# 4/1 at a ragged Lq != Lk
+# csrc/flash_f32_wide.cuh): 320 and 512 in bf16 and fp32, and 300 (run at
+# 320 on zero-padded heads), GQA 4/2; 384 and 448 in bf16, 512 multi-query
+# 4/1 at a ragged Lq != Lk, and fp32 1024 (GQA 2/1), where the fp32
+# kernels split the head's columns into two slices of 512
 FA_CASES += [(2, 512, 512, 4, 2, 320, BF16, True),
              (2, 512, 512, 4, 2, 512, BF16, False),
              (2, 256, 256, 4, 2, 300, BF16, True),
@@ -146,7 +148,8 @@ FA_CASES += [(2, 512, 512, 4, 2, 320, BF16, True),
              (2, 200, 300, 4, 2, 512, FP32, False),
              (2, 512, 512, 4, 2, 384, BF16, True),
              (2, 512, 512, 4, 2, 448, BF16, False),
-             (2, 200, 333, 4, 1, 512, BF16, True)]
+             (2, 200, 333, 4, 1, 512, BF16, True),
+             (1, 256, 256, 2, 1, 1024, FP32, True)]
 # [parent-fwd]: where the parent commit's forward kernels are timed beside
 # these (an unpacked git archive of it; absent, the phase says so)
 PARENT_TREE = os.environ.get("PARENT_TREE", os.path.join(
@@ -155,12 +158,15 @@ PARENT_TREE = os.environ.get("PARENT_TREE", os.path.join(
 # dk, dv against the plain version: 3x the largest first reading on an
 # H100 (bf16 2.76e-4, dv of multi-query 4/1; fp32 2.96e-7)
 FA_BWD_REL_LIMIT = {BF16: 8.3e-4, FP32: 9e-7}
-# fp32 backwards above D = 256 ([compare-bwd], [compare-fa-bwd]): there the
+# fp32 backwards above D = 256 ([compare-bwd], [compare-fa-bwd],
+# [compare-fa-masks], [compare-dropout-attn], [fp32-bodies]): there the
 # fp32 plain version on the card sits 3e-6 to 4e-6 from the exact gradient
 # (cuBLAS's fp32 products at those depths; 1e-6 at D = 64) and the kernel,
-# which sums in 64-column blocks, ~7.7e-7 (the first readings on an
-# H100). Those cases are held to the exact gradient, the plain versions
-# run in fp64 from fp64 inputs (forward included), within 3x that reading.
+# which sums in 64-column blocks, ~7.7e-7 (the first readings on an H100,
+# the first kernels; the FFMA micro-tile kernels of csrc/flash_f32_wide.cuh
+# read 0.9e-6 to 1.1e-6). Those cases are held to the exact gradient, the
+# plain versions run in fp64 from fp64 inputs (forward included), within
+# 3x the first reading.
 BIG_D_FP32_REL_LIMIT = 2.3e-6
 
 
@@ -276,9 +282,9 @@ def _expect_launches(where, grew, **want):
 # includes: the forwards, the backwards, the backward's pre-pass and dq
 # conversion), as profiler keys contain them
 FLASH_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_wide_kernel",
-                 "flash_fwd_f32_kernel", "flash_fwd_big_kernel",
+                 "flash_fwd_f32_kernel", "flash_fwd_f32_wide_kernel",
                  "flash_bwd_sm90_kernel", "flash_bwd_wide_kernel",
-                 "flash_bwd_kernel", "flash_bwd_big_kernel",
+                 "flash_bwd_kernel", "flash_bwd_f32_wide_kernel",
                  "bwd_prepass_kernel", "scale_q_kernel", "dq_convert_kernel")
 
 
@@ -289,9 +295,10 @@ def _is_flash_kernel(key):
 
 
 def rel_err(got, want):
-    """Relative Frobenius error ||got - want|| / ||want|| in fp32."""
-    got, want = got.float(), want.float()
-    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+    """Relative Frobenius error ||got - want|| / ||want||, taken in fp64
+    (the exact references are fp64)."""
+    got, want = got.double(), want.double()
+    return ((got - want).norm() / want.norm().clamp_min(1e-300)).item()
 
 
 def phase_card():
@@ -515,23 +522,26 @@ def _judge_parent(tag, where, ours, parent, noise):
 
 
 # [parent-fwd] shapes: (tag, launcher, B, L, H, Hkv, D, causal, rate,
-# lengths, calls a round): the headline shapes (LLaMA-7B's training and
-# scoring forwards, GPT-medium's training forward, BERT's packed training
-# forward), those of the kernels line's forward records, and the wide-head
-# kernels' headline shapes (flat D = 512 with GQA 8/2 at rate 0, flat D =
-# 320 with GQA 16/4 at rate 0.1, packed D = 384), where the parent's SIMT
-# kernels take tens of ms a call (3 calls a round)
+# lengths, calls a round, dtype): the headline shapes (LLaMA-7B's training
+# and scoring forwards, GPT-medium's training forward, BERT's packed
+# training forward), those of the kernels line's forward records, the
+# wide-head kernels' headline shapes (flat D = 512 with GQA 8/2 at rate 0,
+# flat D = 320 with GQA 16/4 at rate 0.1, packed D = 384) and the fp32
+# wide kernels' (flat D = 512, GQA 8/2, [2, 1024]), where the parent's
+# kernels take several to tens of ms a call (3 calls a round)
 PARENT_FWD_CASES = [
-    ("llama-train", "flat", 4, 2048, 32, 32, 128, True, 0.0, False, 20),
-    ("llama-scoring", "flat", 2, 2048, 32, 32, 128, True, 0.0, False, 20),
-    ("gpt-train", "pair", 16, 1024, 8, 8, 128, True, 0.0, False, 20),
-    ("gpt-scoring", "pair", 2, 1024, 8, 8, 128, True, 0.0, False, 20),
-    ("bert-packed", "pair", 64, 512, 12, 12, 64, False, 0.1, False, 20),
-    ("bert-padded", "flat", 64, 512, 12, 12, 64, False, 0.1, True, 20),
-    ("row6", "pair", 2, 2048, 16, 16, 128, True, 0.1, False, 20),
-    ("wide-512", "flat", 2, 2048, 8, 2, 512, True, 0.0, False, 3),
-    ("wide-320", "flat", 2, 2048, 16, 4, 320, True, 0.1, False, 3),
-    ("wide-pair-384", "pair", 2, 2048, 8, 8, 384, True, 0.0, False, 3)]
+    ("llama-train", "flat", 4, 2048, 32, 32, 128, True, 0.0, False, 20, BF16),
+    ("llama-scoring", "flat", 2, 2048, 32, 32, 128, True, 0.0, False, 20,
+     BF16),
+    ("gpt-train", "pair", 16, 1024, 8, 8, 128, True, 0.0, False, 20, BF16),
+    ("gpt-scoring", "pair", 2, 1024, 8, 8, 128, True, 0.0, False, 20, BF16),
+    ("bert-packed", "pair", 64, 512, 12, 12, 64, False, 0.1, False, 20, BF16),
+    ("bert-padded", "flat", 64, 512, 12, 12, 64, False, 0.1, True, 20, BF16),
+    ("row6", "pair", 2, 2048, 16, 16, 128, True, 0.1, False, 20, BF16),
+    ("wide-512", "flat", 2, 2048, 8, 2, 512, True, 0.0, False, 3, BF16),
+    ("wide-320", "flat", 2, 2048, 16, 4, 320, True, 0.1, False, 3, BF16),
+    ("wide-pair-384", "pair", 2, 2048, 8, 8, 384, True, 0.0, False, 3, BF16),
+    ("wide-f32-512", "flat", 2, 1024, 8, 2, 512, True, 0.0, False, 3, FP32)]
 
 
 def phase_parent_fwd(parent, noise):
@@ -546,12 +556,12 @@ def phase_parent_fwd(parent, noise):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(60)
     out = {}
-    for (tag, launcher, b, L, h, hkv, d, causal, rate, lens,
-         iters) in PARENT_FWD_CASES:
+    for (tag, launcher, b, L, h, hkv, d, causal, rate, lens, iters,
+         dtype) in PARENT_FWD_CASES:
         seed = 0x9A4E47 if rate else None
         if launcher == "flat":
             name = "flash_attention_fwd"
-            q, k, v, _ = _fa_inputs(b, L, L, h, hkv, d, BF16, gen)
+            q, k, v, _ = _fa_inputs(b, L, L, h, hkv, d, dtype, gen)
             kw, valid, pairs, kv_rows = {}, None, None, None
             if lens:
                 n = _bert_pad_lengths(b, L, BERT_PAD_SEED)
@@ -568,11 +578,11 @@ def phase_parent_fwd(parent, noise):
             mods = (flash_attention, parent and parent.flash_attention)
             lib_ms = cuda_time_ms(lambda: _sdpa_library(q, k, v, causal,
                                                         valid, rate))
-            bound = fa_bound_ms(b, L, L, h, hkv, d, BF16, causal, False,
+            bound = fa_bound_ms(b, L, L, h, hkv, d, dtype, causal, False,
                                 pairs, kv_rows)[0]
         else:
             name = "flash_pair_fwd"
-            qkv, _ = _bwd_inputs(b, L, h, d, BF16, gen)
+            qkv, _ = _bwd_inputs(b, L, h, d, dtype, gen)
 
             def call(mod):
                 return lambda: mod.flash_pair_fwd(qkv, h, causal, rate, seed)
@@ -582,9 +592,10 @@ def phase_parent_fwd(parent, noise):
             lib_ms = cuda_time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     lq, lk, lv, dropout_p=rate, is_causal=causal))
-            bound = flash_bound_ms(b, L, h, d, BF16, causal)[0]
-        where = (f"{tag}: {name} B={b} L={L} H={h} Hkv={hkv} D={d} bf16 "
-                 f"causal={causal} rate {rate}{' lengths' if lens else ''}")
+            bound = flash_bound_ms(b, L, h, d, dtype, causal)[0]
+        where = (f"{tag}: {name} B={b} L={L} H={h} Hkv={hkv} D={d} "
+                 f"{str(dtype)[6:]} causal={causal} rate {rate}"
+                 f"{' lengths' if lens else ''}")
         if parent is None:
             ms = cuda_time_ms(call(mods[0]), iters=iters,
                               warmup=min(3, iters))
@@ -604,27 +615,29 @@ def phase_parent_fwd(parent, noise):
 
 
 # [parent-bwd] shapes: (tag, launcher, B, L, H, Hkv, D, causal, rate,
-# lengths, calls a round): LLaMA-7B's training backward, GQA 32/8 with
-# lengths (those of [compare-fa-masks]), GPT-medium's training backward,
-# BERT's packed and padded training backwards at rate 0.1, row 3 (L =
-# 4608, where the JAX package runs its split kernels), row 6's call at rate
-# 0.1, the wide-head shapes of [parent-fwd] (3 calls a round: the parent's
-# SIMT kernels take tens to hundreds of ms there) and the D = 256 backward
-# (the wide body here, the WMMA body in the parent: the route's
+# lengths, calls a round, dtype): LLaMA-7B's training backward, GQA 32/8
+# with lengths (those of [compare-fa-masks]), GPT-medium's training
+# backward, BERT's packed and padded training backwards at rate 0.1, row 3
+# (L = 4608, where the JAX package runs its split kernels), row 6's call at
+# rate 0.1, the wide-head shapes of [parent-fwd] (3 calls a round: the
+# parent's kernels take tens to hundreds of ms there) and the D = 256
+# backward (the wide body here, the WMMA body in the parent: the route's
 # measurement)
 PARENT_BWD_CASES = [
-    ("llama-train", "flat", 4, 2048, 32, 32, 128, True, 0.0, None, 10),
+    ("llama-train", "flat", 4, 2048, 32, 32, 128, True, 0.0, None, 10, BF16),
     ("gqa-lengths", "flat", 2, 2048, 32, 8, 128, True, 0.0, [2048, 1111],
-     10),
-    ("gpt-train", "pair", 16, 1024, 8, 8, 128, True, 0.0, None, 10),
-    ("bert-packed", "pair", 64, 512, 12, 12, 64, False, 0.1, None, 10),
-    ("bert-padded", "flat", 64, 512, 12, 12, 64, False, 0.1, "bert", 10),
-    ("row3", "pair", 1, 4608, 8, 8, 128, True, 0.0, None, 10),
-    ("row6", "pair", 2, 2048, 16, 16, 128, True, 0.1, None, 10),
-    ("wide-512", "flat", 2, 2048, 8, 2, 512, True, 0.0, None, 3),
-    ("wide-320", "flat", 2, 2048, 16, 4, 320, True, 0.1, None, 3),
-    ("wide-pair-384", "pair", 2, 2048, 8, 8, 384, True, 0.0, None, 3),
-    ("d256-bwd", "flat", 2, 2048, 8, 2, 256, True, 0.0, None, 10)]
+     10, BF16),
+    ("gpt-train", "pair", 16, 1024, 8, 8, 128, True, 0.0, None, 10, BF16),
+    ("bert-packed", "pair", 64, 512, 12, 12, 64, False, 0.1, None, 10, BF16),
+    ("bert-padded", "flat", 64, 512, 12, 12, 64, False, 0.1, "bert", 10,
+     BF16),
+    ("row3", "pair", 1, 4608, 8, 8, 128, True, 0.0, None, 10, BF16),
+    ("row6", "pair", 2, 2048, 16, 16, 128, True, 0.1, None, 10, BF16),
+    ("wide-512", "flat", 2, 2048, 8, 2, 512, True, 0.0, None, 3, BF16),
+    ("wide-320", "flat", 2, 2048, 16, 4, 320, True, 0.1, None, 3, BF16),
+    ("wide-pair-384", "pair", 2, 2048, 8, 8, 384, True, 0.0, None, 3, BF16),
+    ("d256-bwd", "flat", 2, 2048, 8, 2, 256, True, 0.0, None, 10, BF16),
+    ("wide-f32-512", "flat", 2, 1024, 8, 2, 512, True, 0.0, None, 3, FP32)]
 
 
 def phase_parent_bwd(parent, noise):
@@ -638,12 +651,12 @@ def phase_parent_bwd(parent, noise):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(61)
     out = {}
-    for (tag, launcher, b, L, h, hkv, d, causal, rate, lens,
-         iters) in PARENT_BWD_CASES:
+    for (tag, launcher, b, L, h, hkv, d, causal, rate, lens, iters,
+         dtype) in PARENT_BWD_CASES:
         seed = 0xB4C4 if rate else None
         valid = None
         if launcher == "flat":
-            q, k, v, g = _fa_inputs(b, L, L, h, hkv, d, BF16, gen)
+            q, k, v, g = _fa_inputs(b, L, L, h, hkv, d, dtype, gen)
             kw = {}
             if lens is not None:
                 lens = _bert_pad_lengths(b, L, BERT_PAD_SEED) \
@@ -664,10 +677,10 @@ def phase_parent_bwd(parent, noise):
             grad_out = g.transpose(1, 2)
             pairs = None if valid is None else int(valid.sum())
             kv_rows = None if lens is None else sum(min(L, n) for n in lens)
-            bound = fa_bound_ms(b, L, L, h, hkv, d, BF16, causal, True,
+            bound = fa_bound_ms(b, L, L, h, hkv, d, dtype, causal, True,
                                 pairs, kv_rows)[0]
         else:
-            qkv, g = _bwd_inputs(b, L, h, d, BF16, gen)
+            qkv, g = _bwd_inputs(b, L, h, d, dtype, gen)
             o, lse = flash_pair.flash_pair_fwd(qkv, h, causal, rate, seed)
 
             def call(mod):
@@ -681,13 +694,13 @@ def phase_parent_bwd(parent, noise):
             lib_out = torch.nn.functional.scaled_dot_product_attention(
                 lq, lk, lv, dropout_p=rate, is_causal=causal)
             grad_out = g.view(b, L, h, d).transpose(1, 2)
-            bound = flash_bwd_bound_ms(b, L, h, d, BF16, causal)[0]
+            bound = flash_bwd_bound_ms(b, L, h, d, dtype, causal)[0]
         lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
             lib_out, leaves, grad_out, retain_graph=True), iters=iters,
             warmup=min(3, iters))
         where = (f"{tag}: {mods[0].__name__.split('.')[-1]} B={b} L={L} "
-                 f"H={h} Hkv={hkv} D={d} bf16 causal={causal} rate {rate}"
-                 f"{' lengths' if lens is not None else ''}")
+                 f"H={h} Hkv={hkv} D={d} {str(dtype)[6:]} causal={causal} "
+                 f"rate {rate}{' lengths' if lens is not None else ''}")
         if parent is None:
             ms = cuda_time_ms(call(mods[0]), iters=iters,
                               warmup=min(3, iters))
@@ -1330,7 +1343,9 @@ def phase_compare_wide():
 
 
 # [wide-route]: (launcher, D, dtype, the forward's and the backward's body
-# as the profiler names them, whether each is a wide-head launch)
+# as the profiler names them, whether each is a wide-head launch: one of
+# the bf16 wide bodies' (.wide_launches) or of the fp32 ones'
+# (.f32_wide_launches), as the dtype says)
 WIDE_ROUTES = [
     ("flat", 512, BF16, "flash_fwd_wide_kernel", "flash_bwd_wide_kernel",
      True, True),
@@ -1342,8 +1357,10 @@ WIDE_ROUTES = [
      False, True),
     ("flat", 96, BF16, "flash_fwd_sm90_kernel", "flash_bwd_kernel",
      False, False),
-    ("flat", 320, FP32, "flash_fwd_big_kernel", "flash_bwd_big_kernel",
-     False, False)]
+    ("flat", 320, FP32, "flash_fwd_f32_wide_kernel",
+     "flash_bwd_f32_wide_kernel", True, True),
+    ("pair", 384, FP32, "flash_fwd_f32_wide_kernel",
+     "flash_bwd_f32_wide_kernel", True, True)]
 
 
 def phase_wide_route():
@@ -1351,14 +1368,16 @@ def phase_wide_route():
     and the launch counters (one forward and one backward under
     torch.profiler, counts set to 0 just before): bf16 heads above 256 on
     both launchers run flash_fwd_wide_kernel and flash_bwd_wide_kernel
-    (each behind its scale_q_kernel launch) and no SIMT bigd:: kernel; the
-    bf16 D = 256 backward runs flash_bwd_wide_kernel, not the WMMA body;
-    D = 96 keeps the WMMA backward and fp32 above 256 the bigd:: kernels.
-    The flash kernels seen must be exactly the expected ones, and the
-    wrappers' wide-launch counters must agree."""
+    (each behind its scale_q_kernel launch); the bf16 D = 256 backward runs
+    flash_bwd_wide_kernel, not the WMMA body; D = 96 keeps the WMMA
+    backward; fp32 above 256 runs flash_fwd_f32_wide_kernel and
+    flash_bwd_f32_wide_kernel on both launchers. The flash kernels seen
+    must be exactly the expected ones, and the wrappers' wide-launch
+    counters (bf16 and fp32) must agree."""
     from torch.profiler import ProfilerActivity, profile
 
-    from paddle_tpu_torch.kernels import (flash_attention, flash_pair,
+    from paddle_tpu_torch.kernels import (f32_wide_launch_counts,
+                                          flash_attention, flash_pair,
                                           launch_counts, reset_launch_counts,
                                           wide_launch_counts)
     gen = torch.Generator(device="cuda")
@@ -1387,11 +1406,15 @@ def phase_wide_route():
                                  ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
-        counts, wide = launch_counts(), wide_launch_counts()
+        counts = launch_counts()
+        wide = (wide_launch_counts() if dtype == BF16
+                else f32_wide_launch_counts())
+        other = (f32_wide_launch_counts() if dtype == BF16
+                 else wide_launch_counts())
         seen = {n for n in FLASH_KERNELS
                 if any(n in e.key for e in prof.key_averages())}
         want = {fwd_body, bwd_body, "bwd_prepass_kernel", "dq_convert_kernel"}
-        if wide_f or wide_b:
+        if dtype == BF16 and (wide_f or wide_b):
             want.add("scale_q_kernel")
         tag = (f"[wide-route] {launcher} D={d} {str(dtype)[6:]}: flash "
                f"kernels {sorted(seen)}; launches {names[0]} "
@@ -1401,61 +1424,247 @@ def phase_wide_route():
         if not (seen == want and counts[names[0]] == 1
                 and counts[names[1]] == 1
                 and wide[names[0]] == int(wide_f)
-                and wide[names[1]] == int(wide_b)):
+                and wide[names[1]] == int(wide_b)
+                and not any(other.values())):
             raise AssertionError(f"{tag}: expected the kernels "
                                  f"{sorted(want)}")
         torch.cuda.empty_cache()
 
 
-def phase_fp32_bodies(parent):
-    """The fp32 bodies beside sdpa in fp32 (TF32 off) and the fp32 bound
-    (67 TFLOP/s), one shape each, causal, GQA 8/2: the SIMT forward and
-    backward at [2, 1024, 8, 128] and the bigd:: kernels at [2, 1024, 8,
-    512]. The bigd:: kernels' code is the parent's with its bf16 path
-    removed: with a parent tree, their out, lse, dk and dv equal the
-    parent's bit for bit on the same inputs (dq adds by atomics in another
-    order each run: its largest difference is printed)."""
+# [fp32-bodies]: the fp32 wide kernels' headline shapes, (launcher, B, L,
+# H, Hkv, D): flat [2, 1024, 8/2, 512] causal (the kernels line's records;
+# its parent's times are [parent-*]'s wide-f32-512) and packed [2, 1024,
+# 3*8*384] causal
+FP32_WIDE_CASES = [("flat", 2, 1024, 8, 2, 512),
+                   ("pair", 2, 1024, 8, 8, 384)]
+# the speed-ups over the parent's SIMT bigd:: kernels the fp32 wide kernels
+# must show at the flat headline shape, forward and backward
+FP32_WIDE_SPEEDUP = (6.0, 8.0)
+
+
+def _sdpa_kernels(fn):
+    """The CUDA kernels one call of ``fn`` runs, by the profiler's names
+    (the largest device time first)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return [e.key[:60] for e in events[:3]]
+
+
+def phase_fp32_bodies(parent, parent_fwd, parent_bwd):
+    """The fp32 bodies beside sdpa in fp32 and the fp32 bound (67 TFLOP/s),
+    causal: the SIMT forward and backward at [2, 1024, 8/2, 128], and the
+    fp32 wide kernels (csrc/flash_f32_wide.cuh) at FP32_WIDE_CASES.
+
+    TF32 is off for matrix products (allow_tf32 False, printed), so sdpa
+    runs fp32; the phase names the kernels sdpa ran (profiler) and holds
+    both to the exact output and gradient (the plain versions in fp64 from
+    fp64 inputs): ours within BIG_D_FP32_REL_LIMIT per part, sdpa's
+    printed beside. At the wide shapes the forward must also agree with
+    its fp32 plain version within [compare-fa]'s limits (out atol = rtol =
+    1e-4, lse 1e-3), dk and dv be equal between two launches and, with a
+    parent tree, out and lse agree with the parent's bigd:: kernels within
+    atol = rtol = 1e-4 (the parent's gradient, against the same exact one,
+    is printed). Times: the flat case's beside its parent's from
+    [parent-fwd] / [parent-bwd] (at least FP32_WIDE_SPEEDUP faster), the
+    packed case's beside its parent's in turns here. Returns the flat
+    case's forward and backward records."""
     from paddle_tpu_torch.kernels.flash_attention import (
-        flash_attention_bwd, flash_attention_fwd)
+        flash_attention_bwd, flash_attention_bwd_reference,
+        flash_attention_fwd, flash_attention_fwd_reference)
+    from paddle_tpu_torch.kernels.flash_pair import (
+        flash_pair_bwd, flash_pair_bwd_reference, flash_pair_fwd,
+        flash_pair_fwd_reference)
+    log(f"[fp32-bodies] torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}, "
+        f"torch.backends.cudnn.allow_tf32 = "
+        f"{torch.backends.cudnn.allow_tf32}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(82)
-    for d, iters in ((128, 5), (512, 2)):
-        b, L, h, hkv = 2, 1024, 8, 2
-        q, k, v, g = _fa_inputs(b, L, L, h, hkv, d, FP32, gen)
-        out, lse = flash_attention_fwd(q, k, v, True)
-        got = flash_attention_bwd(q, k, v, out, lse, g, True)
-        ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v, True),
-                          iters=iters, warmup=1)
-        bwd_ms = cuda_time_ms(lambda: flash_attention_bwd(
-            q, k, v, out, lse, g, True), iters=iters, warmup=1)
-        lib_ms = cuda_time_ms(lambda: _sdpa_library(q, k, v, True))
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        o = _sdpa_library(*leaves, True)
-        lib_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
-            o, leaves, g.transpose(1, 2), retain_graph=True))
-        fb = fa_bound_ms(b, L, L, h, hkv, d, FP32, True)
-        bb = fa_bound_ms(b, L, L, h, hkv, d, FP32, True, backward=True)
-        tag = (f"[fp32-bodies] B={b} L={L} H={h} Hkv={hkv} D={d} fp32 causal "
-               f"({'bigd::' if d > 256 else 'SIMT'} kernels)")
-        log(f"{tag}: forward {ms:.4f} ms (sdpa {lib_ms:.4f}, bound "
-            f"{fb[0]:.4f} ms {fb[1]}); backward {bwd_ms:.4f} ms (sdpa "
-            f"backward {lib_bwd_ms:.4f}, bound {bb[0]:.4f} ms {bb[1]})")
-        if d > 256 and parent is not None:
-            p_out, p_lse = parent.flash_attention.flash_attention_fwd(
-                q, k, v, True)
-            p_got = parent.flash_attention.flash_attention_bwd(
-                q, k, v, out, lse, g, True)
-            same = (torch.equal(out, p_out) and torch.equal(lse, p_lse)
-                    and torch.equal(got[1], p_got[1])
-                    and torch.equal(got[2], p_got[2]))
-            dq_diff = (got[0] - p_got[0]).abs().max().item()
-            log(f"{tag}: out, lse, dk, dv equal to the parent's {same}; dq "
-                f"max|diff| {dq_diff:.3g}")
-            if not same:
-                raise AssertionError(f"{tag}: the fp32 bigd:: kernels moved")
+    b, L, h, hkv, d = 2, 1024, 8, 2, 128
+    q, k, v, g = _fa_inputs(b, L, L, h, hkv, d, FP32, gen)
+    out, lse = flash_attention_fwd(q, k, v, True)
+    ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v, True), iters=5,
+                      warmup=1)
+    bwd_ms = cuda_time_ms(lambda: flash_attention_bwd(
+        q, k, v, out, lse, g, True), iters=5, warmup=1)
+    lib_ms = cuda_time_ms(lambda: _sdpa_library(q, k, v, True))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = _sdpa_library(*leaves, True)
+    lib_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        o, leaves, g.transpose(1, 2), retain_graph=True))
+    fb = fa_bound_ms(b, L, L, h, hkv, d, FP32, True)
+    bb = fa_bound_ms(b, L, L, h, hkv, d, FP32, True, backward=True)
+    log(f"[fp32-bodies] B={b} L={L} H={h} Hkv={hkv} D={d} fp32 causal (SIMT "
+        f"kernels): forward {ms:.4f} ms (sdpa {lib_ms:.4f}, bound "
+        f"{fb[0]:.4f} ms {fb[1]}); backward {bwd_ms:.4f} ms (sdpa backward "
+        f"{lib_bwd_ms:.4f}, bound {bb[0]:.4f} ms {bb[1]})")
+    del q, k, v, g, out, lse, leaves, o
+    torch.cuda.empty_cache()
+
+    records = None
+    for launcher, b, L, h, hkv, d in FP32_WIDE_CASES:
+        tag = (f"[fp32-bodies] {launcher} B={b} L={L} H={h} Hkv={hkv} D={d} "
+               f"fp32 causal (fp32 wide kernels)")
+        if launcher == "flat":
+            q, k, v, g = _fa_inputs(b, L, L, h, hkv, d, FP32, gen)
+            pmod = parent and parent.flash_attention
+
+            def fwd(mod=None):
+                return (mod.flash_attention_fwd if mod else
+                        flash_attention_fwd)(q, k, v, True)
+
+            def bwd(o, lse, mod=None):
+                return (mod.flash_attention_bwd if mod else
+                        flash_attention_bwd)(q, k, v, o, lse, g, True)
+            fwd_ref = lambda: flash_attention_fwd_reference(q, k, v, True)
+            q64, k64, v64, g64 = (t.double() for t in (q, k, v, g))
+            o64, l64 = flash_attention_fwd_reference(q64, k64, v64, True)
+            exact = flash_attention_bwd_reference(q64, k64, v64, o64, l64,
+                                                  g64, True)
+            bwd_ref = lambda o, lse: flash_attention_bwd_reference(
+                q, k, v, o, lse, g, True)
+            parts = lambda grads: grads
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            sdpa = lambda: _sdpa_library(*leaves, True)
+            grad_out = g.transpose(1, 2)
+            sdpa_out = lambda o: o.transpose(1, 2)
+            fb = fa_bound_ms(b, L, L, h, hkv, d, FP32, True)
+            bb = fa_bound_ms(b, L, L, h, hkv, d, FP32, True, backward=True)
+        else:
+            qkv, g = _bwd_inputs(b, L, h, d, FP32, gen)
+            pmod = parent and parent.flash_pair
+
+            def fwd(mod=None):
+                return (mod.flash_pair_fwd if mod else
+                        flash_pair_fwd)(qkv, h, True)
+
+            def bwd(o, lse, mod=None):
+                return (mod.flash_pair_bwd if mod else
+                        flash_pair_bwd)(qkv, o, lse, g, h, True)
+            fwd_ref = lambda: flash_pair_fwd_reference(qkv, h, True)
+            o64, l64 = flash_pair_fwd_reference(qkv.double(), h, True)
+            exact = flash_pair_bwd_reference(qkv.double(), o64, l64,
+                                             g.double(), h, True)
+            bwd_ref = lambda o, lse: flash_pair_bwd_reference(
+                qkv, o, lse, g, h, True)
+            hd = h * d
+            parts = lambda x: [x[..., i * hd:(i + 1) * hd] for i in range(3)]
+            leaf = qkv.detach().requires_grad_()
+            leaves = [leaf]
+            lq, lk, lv = (leaf[..., i * hd:(i + 1) * hd].view(b, L, h, d)
+                          .transpose(1, 2) for i in range(3))
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+                lq, lk, lv, is_causal=True)
+            grad_out = g.view(b, L, h, d).transpose(1, 2)
+            sdpa_out = lambda o: o.transpose(1, 2).reshape(b, L, hd)
+            fb = flash_bound_ms(b, L, h, d, FP32, True)
+            bb = flash_bwd_bound_ms(b, L, h, d, FP32, True)
+        out, lse = fwd()
+        got = bwd(out, lse)
+        again = bwd(out, lse)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fwd_ref()
+        diff = (out - ref_out).abs()
+        err = diff.max().item()
+        of_limit = (diff / (1e-4 + 1e-4 * ref_out.abs())).max().item()
+        lse_ok = bool(((lse - ref_lse).abs()
+                       <= 1e-3 + 1e-3 * ref_lse.abs()).all())
+        rels = [rel_err(x, y) for x, y in zip(parts(got), parts(exact))]
+        worst_abs = max((x.double() - y).abs().max().item()
+                        for x, y in zip(parts(got), parts(exact)))
+        stable = all(torch.equal(x, y) for x, y in
+                     zip(parts(got)[1:], parts(again)[1:]))
+        out_rel = rel_err(out, o64)
+        # sdpa in fp32 against the same exact output and gradient
+        lib_o = sdpa()
+        lib_grads = torch.autograd.grad(lib_o, leaves, grad_out,
+                                        retain_graph=True)
+        lib_out_rel = rel_err(sdpa_out(lib_o), o64)
+        lib_rels = [rel_err(x, y) for x, y in
+                    zip(parts(lib_grads[0]) if launcher == "pair"
+                        else lib_grads, parts(exact))]
+        lib_fwd_names = _sdpa_kernels(sdpa)
+        lib_bwd_names = _sdpa_kernels(lambda: torch.autograd.grad(
+            lib_o, leaves, grad_out, retain_graph=True))
+        del lib_grads, again
+        log(f"{tag}: out {of_limit:.3f} of the limit (atol 1e-4, rtol 1e-4; "
+            f"max|err| {err:.3g}), lse ok {lse_ok}; dq/dk/dv rel "
+            f"{rels[0]:.3g}/{rels[1]:.3g}/{rels[2]:.3g} (limit "
+            f"{BIG_D_FP32_REL_LIMIT}{EXACT_NOTE}); dk/dv equal between "
+            f"launches {stable}")
+        log(f"{tag}: against the exact (fp64) output and gradient, ours: out "
+            f"{out_rel:.3g}, dq/dk/dv {rels[0]:.3g}/{rels[1]:.3g}/"
+            f"{rels[2]:.3g}; sdpa's (fp32, TF32 off): out {lib_out_rel:.3g}, "
+            f"dq/dk/dv {lib_rels[0]:.3g}/{lib_rels[1]:.3g}/{lib_rels[2]:.3g}; "
+            f"sdpa ran {lib_fwd_names} forward, {lib_bwd_names} backward")
+        ok = (of_limit <= 1.0 and lse_ok and stable
+              and max(rels) < BIG_D_FP32_REL_LIMIT)
+        if parent is not None:
+            p_out, p_lse = fwd(pmod)
+            p_got = bwd(out, lse, pmod)
+            same = (torch.allclose(out, p_out, atol=1e-4, rtol=1e-4)
+                    and torch.allclose(lse, p_lse, atol=1e-4, rtol=1e-4))
+            p_rels = [rel_err(x, y) for x, y in
+                      zip(parts(p_got), parts(exact))]
+            log(f"{tag}: out, lse within 1e-4 of the parent's {same} "
+                f"(max|diff| {(out - p_out).abs().max().item():.3g}, "
+                f"{(lse - p_lse).abs().max().item():.3g}); the parent's dq/dk/"
+                f"dv rel {p_rels[0]:.3g}/{p_rels[1]:.3g}/{p_rels[2]:.3g}"
+                f"{EXACT_NOTE}")
+            ok = ok and same
             del p_out, p_lse, p_got
-        del q, k, v, g, out, lse, got, leaves, o
+        if not ok:
+            raise AssertionError(f"{tag}: the fp32 wide kernels disagree")
+        plain_ms = cuda_time_ms(fwd_ref, iters=3, warmup=1)
+        plain_bwd_ms = cuda_time_ms(lambda: bwd_ref(out, lse), iters=3,
+                                    warmup=1)
+        lib_ms = cuda_time_ms(sdpa)
+        lib_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            lib_o, leaves, grad_out, retain_graph=True), iters=10)
+        if launcher == "flat":
+            ms, pms = parent_fwd["wide-f32-512"][:2]
+            bwd_ms, pbwd_ms = parent_bwd["wide-f32-512"][:2]
+        elif parent is not None:
+            (ms, _), (pms, _) = _timed_pair(fwd, lambda: fwd(pmod), 3)
+            (bwd_ms, _), (pbwd_ms, _) = _timed_pair(
+                lambda: bwd(out, lse), lambda: bwd(out, lse, pmod), 3)
+        else:
+            ms = cuda_time_ms(fwd, iters=10)
+            bwd_ms = cuda_time_ms(lambda: bwd(out, lse), iters=10)
+            pms = pbwd_ms = None
+        def beside(mine, theirs):
+            return ("the parent's not measured" if theirs is None else
+                    f"the parent's {theirs:.4f} ms, {theirs / mine:.2f}x")
+        log(f"{tag}: forward {ms:.4f} ms ({beside(ms, pms)}; sdpa "
+            f"{lib_ms:.4f}, {ms / lib_ms:.2f}x its time; plain {plain_ms:.4f};"
+            f" bound {fb[0]:.4f} ms {fb[1]}); backward {bwd_ms:.4f} ms "
+            f"({beside(bwd_ms, pbwd_ms)}; sdpa backward {lib_bwd_ms:.4f}, "
+            f"{bwd_ms / lib_bwd_ms:.2f}x its time; plain {plain_bwd_ms:.4f}; "
+            f"bound {bb[0]:.4f} ms {bb[1]})")
+        if launcher == "flat":
+            if pms is not None and (pms / ms < FP32_WIDE_SPEEDUP[0]
+                                    or pbwd_ms / bwd_ms
+                                    < FP32_WIDE_SPEEDUP[1]):
+                raise AssertionError(f"{tag}: under {FP32_WIDE_SPEEDUP} "
+                                     f"times the parent's speed")
+            records = (dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=fb[0], bound_by=fb[1],
+                            library_ms=lib_ms, parent_ms=pms),
+                       dict(max_abs_err=worst_abs, ms=bwd_ms,
+                            plain_ms=plain_bwd_ms, bound_ms=bb[0],
+                            bound_by=bb[1], library_ms=lib_bwd_ms,
+                            parent_ms=pbwd_ms))
+        del out, lse, got, exact, o64, l64, leaves, lib_o, ref_out, ref_lse
         torch.cuda.empty_cache()
+    return records
 
 
 # ------------------------------------------------------------------ LLaMA
@@ -2186,7 +2395,7 @@ def phase_compare_fused_ln():
     return records
 
 
-def _attn_mask_probe(b, L, h, d, causal, seed, rate):
+def _attn_mask_probe(b, L, h, d, causal, seed, rate, dtype=BF16):
     """Read the pair kernels' keep masks back off the card and count where
     they differ from ``philox.attention_keep`` over the attended pairs.
 
@@ -2211,13 +2420,13 @@ def _attn_mask_probe(b, L, h, d, causal, seed, rate):
     fwd_m = bwd_m = 0
     for t in range(L // d):
         rows = (t * d + e)[None, :].expand(h, d)
-        qkv = torch.zeros(b, L, 3 * hd, dtype=BF16, device="cuda")
+        qkv = torch.zeros(b, L, 3 * hd, dtype=dtype, device="cuda")
         qkv[:, rows, 2 * hd + heads] = 1.0
         out, lse = flash_pair_fwd(qkv, h, causal, rate, seed)
         got = out.view(b, L, h, d).permute(0, 2, 1, 3) != 0  # [b, h, i, e]
         sl = slice(t * d, (t + 1) * d)
         fwd_m += int(((got != want[..., sl]) & visible[:, sl]).sum())
-        dout = torch.zeros(b, L, hd, dtype=BF16, device="cuda")
+        dout = torch.zeros(b, L, hd, dtype=dtype, device="cuda")
         dout[:, rows, heads] = 1.0
         dqkv = flash_pair_bwd(qkv, out, lse, dout, h, causal, rate, seed)
         dv = dqkv[..., 2 * hd:].view(b, L, h, d).permute(0, 2, 3, 1) != 0
@@ -2231,10 +2440,12 @@ def phase_compare_dropout_attn():
     same seed: BERT's shape [64, 512, 3*12*64] bidirectional (new to the
     table: first at rate 0, then 0.1), GPT-medium's training shape [16,
     1024, 3*8*128] causal at 0.1 and heads of 384 on the wide kernels [2,
-    768, 3*2*384] causal at 0.1, bf16. The limits of [compare-fa] (out:
-    atol 4e-3 times the probability-weighted |v| where that exceeds 1, +
-    rtol 1e-2; lse) and [compare-bwd] (relative Frobenius error per part,
-    dk/dv equal between launches). The weighted form is needed here: the
+    768, 3*2*384] causal at 0.1, bf16, and in fp32 (the fp32 wide kernels).
+    The limits of [compare-fa] (out: atol 4e-3 times the
+    probability-weighted |v| where that exceeds 1, + rtol 1e-2; fp32 1e-4
+    and 1e-4; lse) and [compare-bwd] (relative Frobenius error per part,
+    fp32 above D = 256 against the exact gradient; dk/dv equal between
+    launches). The weighted form is needed here: the
     error is each rounded p * keep_factor times its v, and a kept pair
     carries 1 / (1 - rate) = 1.11 of its p, so the weight passes 1 where
     [compare]'s unweighted atol assumed it would not (the first reading at
@@ -2244,28 +2455,41 @@ def phase_compare_dropout_attn():
     (``_attn_mask_probe``) match the plain Philox mask at every attended
     pair. Times beside the plain versions, scaled_dot_product_attention
     at the same dropout rate (forward, and autograd through it: library_ms
-    only) and the bounds. Returns {(shape tag, rate): (fwd ms, bwd ms)}."""
+    only) and the bounds. Returns {(B, L, rate, dtype): (fwd ms, bwd
+    ms)}."""
     from paddle_tpu_torch.kernels.flash_pair import (
         flash_pair_bwd, flash_pair_bwd_reference, flash_pair_fwd,
         flash_pair_fwd_reference)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(22)
     times = {}
-    for b, L, h, d, causal, rates in ((64, 512, 12, 64, False, (0.0, 0.1)),
-                                      (16, 1024, 8, 128, True, (0.1,)),
-                                      (2, 768, 2, 384, True, (0.1,))):
+    for b, L, h, d, causal, rates, dtype in (
+            (64, 512, 12, 64, False, (0.0, 0.1), BF16),
+            (16, 1024, 8, 128, True, (0.1,), BF16),
+            (2, 768, 2, 384, True, (0.1,), BF16),
+            (2, 768, 2, 384, True, (0.1,), FP32)):
         for rate in rates:
             seed = 0xABCDEF12345 if rate else None
-            qkv, dout = _bwd_inputs(b, L, h, d, BF16, gen)
+            qkv, dout = _bwd_inputs(b, L, h, d, dtype, gen)
             out, lse = flash_pair_fwd(qkv, h, causal, rate, seed)
             got = flash_pair_bwd(qkv, out, lse, dout, h, causal, rate, seed)
             again = flash_pair_bwd(qkv, out, lse, dout, h, causal, rate, seed)
             torch.cuda.synchronize()
             ref_out, ref_lse = flash_pair_fwd_reference(qkv, h, causal, rate,
                                                         seed)
-            want = flash_pair_bwd_reference(qkv, out, lse, dout, h, causal,
-                                            rate, seed)
-            atol, rtol = 4e-3, 1e-2
+            limit = BWD_REL_LIMIT[dtype]
+            if _exact(dtype, d):
+                q64, g64 = qkv.double(), dout.double()
+                o64, l64 = flash_pair_fwd_reference(q64, h, causal, rate,
+                                                    seed)
+                want = flash_pair_bwd_reference(q64, o64, l64, g64, h,
+                                                causal, rate, seed)
+                limit = BIG_D_FP32_REL_LIMIT
+                del q64, g64, o64, l64
+            else:
+                want = flash_pair_bwd_reference(qkv, out, lse, dout, h,
+                                                causal, rate, seed)
+            atol, rtol = (4e-3, 1e-2) if dtype == BF16 else (1e-4, 1e-4)
             # the probability-weighted |v| of each output element, kept
             # pairs scaled by 1/(1 - rate): [compare-fa]'s atol scale
             absv = qkv.clone()
@@ -2284,8 +2508,8 @@ def phase_compare_dropout_attn():
                             want[..., i * hd:(i + 1) * hd]) for i in range(3)]
             stable = torch.equal(got[..., hd:], again[..., hd:])
             del ref_out, ref_lse, want, again
-            probe = _attn_mask_probe(b, L, h, d, causal, seed, rate) \
-                if rate else (0, 0, 0)
+            probe = _attn_mask_probe(b, L, h, d, causal, seed, rate,
+                                     dtype) if rate else (0, 0, 0)
             fwd_ms = cuda_time_ms(
                 lambda: flash_pair_fwd(qkv, h, causal, rate, seed))
             bwd_ms = cuda_time_ms(
@@ -2308,14 +2532,15 @@ def phase_compare_dropout_attn():
             do = dout.view(b, L, h, d).transpose(1, 2)
             lib_bwd_ms = cuda_time_ms(
                 lambda: torch.autograd.grad(o, leaf, do, retain_graph=True))
-            fb = flash_bound_ms(b, L, h, d, BF16, causal)
-            bb = flash_bwd_bound_ms(b, L, h, d, BF16, causal)
-            tag = (f"[compare-dropout-attn] B={b} L={L} H={h} D={d} bf16 "
-                   f"causal={causal} rate {rate}")
+            fb = flash_bound_ms(b, L, h, d, dtype, causal)
+            bb = flash_bwd_bound_ms(b, L, h, d, dtype, causal)
+            tag = (f"[compare-dropout-attn] B={b} L={L} H={h} D={d} "
+                   f"{str(dtype)[6:]} causal={causal} rate {rate}")
             log(f"{tag}: out {of_limit:.3f} of the limit (atol {atol}, rtol "
                 f"{rtol}), max|lse err| {lse_err:.3g}; dq/dk/dv rel "
                 f"{rels[0]:.3g}/{rels[1]:.3g}/{rels[2]:.3g} (limit "
-                f"{BWD_REL_LIMIT[BF16]}); keep-mask mismatches forward "
+                f"{limit}{EXACT_NOTE if _exact(dtype, d) else ''}); "
+                f"keep-mask mismatches forward "
                 f"{probe[0]}, backward {probe[1]} over {probe[2]} attended "
                 f"pairs")
             log(f"{tag}: forward {fwd_ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
@@ -2323,11 +2548,11 @@ def phase_compare_dropout_attn():
                 f"{bwd_ms:.4f} ms (plain {plain_bwd_ms:.4f}, sdpa backward "
                 f"{lib_bwd_ms:.4f}, bound {bb[0]:.4f} ms {bb[1]})")
             if not (of_limit <= 1.0 and lse_ok and stable
-                    and max(rels) < BWD_REL_LIMIT[BF16]
+                    and max(rels) < limit
                     and probe[0] == 0 and probe[1] == 0):
                 raise AssertionError(f"{tag}: the pair kernels disagree with "
                                      f"their plain versions")
-            times[(b, L, rate)] = (fwd_ms, bwd_ms)
+            times[(b, L, rate, dtype)] = (fwd_ms, bwd_ms)
             del qkv, dout, out, lse, got, leaf, q, k, v, o, do, diff
             torch.cuda.empty_cache()
     return times
@@ -2728,8 +2953,10 @@ def _fa_mask_cases():
     shares of the length, rate) of [compare-fa-masks]: BERT's padded shape
     at rates 0 and 0.1, GQA 32/8 causal with lengths, fp32 ragged Lq != Lk
     with lengths, 3 segments a row and dropout, and a length shorter than
-    one tile, and the bf16 kernel's segment ids at D = 128 (causal, rate
-    0.1) and D = 64. BERT's lengths are [bert-pad-train]'s batch's (seed
+    one tile, the bf16 kernel's segment ids at D = 128 (causal, rate 0.1)
+    and D = 64, and the fp32 wide kernels at D = 512, ragged, GQA 4/2, with
+    lengths, 3 segments a row and dropout (its walks long enough for
+    clusters of 2). BERT's lengths are [bert-pad-train]'s batch's (seed
     45)."""
     bert = [int(x) for x in _bert_pad_lengths(BERT_TRAIN["batch"],
                                               BERT_TRAIN["seq"],
@@ -2746,7 +2973,9 @@ def _fa_mask_cases():
             ("segs", 2, 1024, 1024, 8, 2, 128, BF16, True, [1024, 700],
              (0.25, 0.5), 0.1),
             ("segs", 4, 512, 512, 4, 4, 64, BF16, False, [512, 300, 100, 512],
-             (0.5,), 0.0)]
+             (0.5,), 0.0),
+            ("ragged-wide", 2, 600, 700, 4, 2, 512, FP32, True, [700, 333],
+             (0.3, 0.6), 0.1)]
 
 
 def phase_compare_fa_masks():
@@ -2754,10 +2983,11 @@ def phase_compare_fa_masks():
     against their plain versions (``_fa_mask_cases``), at [compare-fa]'s
     limits: out within atol 4e-3 times the probability-weighted |v| (kept
     pairs scaled by 1 / (1 - rate)) + rtol 1e-2 in bf16 (1e-4 in fp32), lse
-    within 1e-3, dq/dk/dv within FA_BWD_REL_LIMIT, dk and dv equal between
-    two launches and exactly zero on the keys past each length. Each case
-    is timed beside its plain version, sdpa with a boolean mask and
-    dropout_p (forward, and autograd through it) and the bounds, which
+    within 1e-3, dq/dk/dv within FA_BWD_REL_LIMIT (fp32 above D = 256:
+    BIG_D_FP32_REL_LIMIT against the exact gradient), dk and dv equal
+    between two launches and exactly zero on the keys past each length.
+    Each case is timed beside its plain version, sdpa with a boolean mask
+    and dropout_p (forward, and autograd through it) and the bounds, which
     count the attended pairs. Returns the records of BERT's shape at rate
     0.1 (the padded path's), forward and backward."""
     from paddle_tpu_torch.kernels.flash_attention import (
@@ -2786,8 +3016,19 @@ def phase_compare_fa_masks():
                             + rtol * ref_out.float().abs())).max().item()
         lse_ok = bool(((lse - ref_lse).abs()
                        <= 1e-3 + 1e-3 * ref_lse.abs()).all())
-        want = flash_attention_bwd_reference(q, k, v, out, lse, g, causal,
-                                             None, rate, **kw)
+        limit = FA_BWD_REL_LIMIT[dtype]
+        if _exact(dtype, d):
+            q64, k64, v64, g64 = (t.double() for t in (q, k, v, g))
+            o64, l64 = flash_attention_fwd_reference(q64, k64, v64, causal,
+                                                     None, rate, **kw)
+            want = flash_attention_bwd_reference(q64, k64, v64, o64, l64,
+                                                 g64, causal, None, rate,
+                                                 **kw)
+            limit = BIG_D_FP32_REL_LIMIT
+            del q64, k64, v64, g64, o64, l64
+        else:
+            want = flash_attention_bwd_reference(q, k, v, out, lse, g,
+                                                 causal, None, rate, **kw)
         rels = [rel_err(x, y) for x, y in zip(got, want)]
         worst_abs = max((x.float() - y.float()).abs().max().item()
                         for x, y in zip(got, want))
@@ -2828,14 +3069,14 @@ def phase_compare_fa_masks():
             f"attended pairs {pairs / (b * lq * lk):.4f} of B*Lq*Lk; out "
             f"{of_limit:.3f} of the limit (atol {atol}, rtol {rtol}); dq/dk/"
             f"dv rel {rels[0]:.3g}/{rels[1]:.3g}/{rels[2]:.3g} (limit "
-            f"{FA_BWD_REL_LIMIT[dtype]}); nonzero dk/dv past the lengths "
-            f"{dead}")
+            f"{limit}{EXACT_NOTE if _exact(dtype, d) else ''}); nonzero "
+            f"dk/dv past the lengths {dead}")
         log(f"{name}: forward {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
             f"{lib_ms:.4f}, bound {fb[0]:.4f} ms {fb[1]}); backward "
             f"{bwd_ms:.4f} ms (plain {plain_bwd_ms:.4f}, sdpa backward "
             f"{lib_bwd_ms:.4f}, bound {bb[0]:.4f} ms {bb[1]})")
         if not (of_limit <= 1.0 and lse_ok and stable and dead == 0
-                and max(rels) < FA_BWD_REL_LIMIT[dtype]):
+                and max(rels) < limit):
             raise AssertionError(f"{name}: the flat kernels disagree with "
                                  f"their plain versions")
         if tag == "bert" and rate:
@@ -2850,7 +3091,7 @@ def phase_compare_fa_masks():
     return records
 
 
-def _fa_mask_probe(b, L, h, d, causal, seed, rate, kw):
+def _fa_mask_probe(b, L, h, d, causal, seed, rate, kw, dtype=BF16):
     """Read the flat kernels' keep masks back off the card, as
     ``_attn_mask_probe`` does for the pair kernels (q = k = 0: p = 1 / l;
     one-hot v and dO expose each pair). Over every (b, h, q, key) pair,
@@ -2868,10 +3109,10 @@ def _fa_mask_probe(b, L, h, d, causal, seed, rate, kw):
     want = keep & visible                              # [b, h, i, j]
     e = torch.arange(d, device="cuda")
     fwd_m = bwd_m = leak = dead = 0
-    q = torch.zeros(b, L, h, d, dtype=BF16, device="cuda")
+    q = torch.zeros(b, L, h, d, dtype=dtype, device="cuda")
     for t in range(L // d):
         keys = t * d + e
-        v = torch.zeros(b, L, h, d, dtype=BF16, device="cuda")
+        v = torch.zeros(b, L, h, d, dtype=dtype, device="cuda")
         v[:, keys, :, e] = 1.0
         out, lse = flash_attention_fwd(q, q, v, causal, None, rate,
                                        seed=seed, **kw)
@@ -2879,7 +3120,7 @@ def _fa_mask_probe(b, L, h, d, causal, seed, rate, kw):
         sl = slice(t * d, (t + 1) * d)
         fwd_m += int(((got != want[..., sl]) & visible[..., sl]).sum())
         leak += int((got & ~visible[..., sl]).sum())
-        dout = torch.zeros(b, L, h, d, dtype=BF16, device="cuda")
+        dout = torch.zeros(b, L, h, d, dtype=dtype, device="cuda")
         dout[:, keys, :, e] = 1.0
         _, dk, dv = flash_attention_bwd(q, q, v, out, lse, dout, causal,
                                         None, rate, seed=seed, **kw)
@@ -2899,9 +3140,10 @@ def phase_fa_mask_probe():
     (``_fa_mask_probe``) at BERT's padded shape [64, 512, 12, 64] rate 0.1,
     at [2, 256, 4, 64] and [2, 256, 2, 128] causal with lengths and 3
     segments a row (the kSegs instantiations), at [2, 256, 2, 128]
-    bidirectional with lengths, and on the wide kernels at [2, 640, 2, 320]
+    bidirectional with lengths, on the wide kernels at [2, 640, 2, 320]
     causal with lengths and segments and [2, 512, 2, 512] bidirectional
-    with lengths: 0 mismatches against philox.attention_keep on
+    with lengths, and on the fp32 wide kernels at [2, 640, 2, 320] causal
+    with lengths and segments: 0 mismatches against philox.attention_keep on
     the attended pairs, probability exactly 0 on every masked pair (past a
     length, across segments, above the diagonal), and dk = dv = 0 exactly
     on the keys past each length."""
@@ -2936,10 +3178,18 @@ def phase_fa_mask_probe():
              (2, 512, 2, 512, False,
               dict(kv_lens=torch.tensor([512, 200], dtype=torch.int32,
                                         device="cuda")))]
-    for b, L, h, d, causal, kw in cases:
+    cases = [c + (BF16,) for c in cases]
+    # the fp32 wide kernels (csrc/flash_f32_wide.cuh): lengths and 3
+    # segments a row
+    cases.append((2, 640, 2, 320, True,
+                  dict(kv_lens=torch.tensor([640, 501], dtype=torch.int32,
+                                            device="cuda"),
+                       q_segments=wide_seg, kv_segments=wide_seg), FP32))
+    for b, L, h, d, causal, kw, dtype in cases:
         fwd_m, bwd_m, leak, dead, attended, masked = _fa_mask_probe(
-            b, L, h, d, causal, 0xFACE + b, rate, kw)
-        log(f"[fa-mask-probe] B={b} L={L} H={h} D={d} bf16 causal={causal} "
+            b, L, h, d, causal, 0xFACE + b, rate, kw, dtype)
+        log(f"[fa-mask-probe] B={b} L={L} H={h} D={d} {str(dtype)[6:]} "
+            f"causal={causal} "
             f"rate {rate}{', 3 segments a row' if 'q_segments' in kw else ''}"
             f": keep-mask mismatches forward {fwd_m}, backward {bwd_m} over "
             f"{attended} attended pairs; nonzero probabilities on the "
@@ -3189,7 +3439,8 @@ def main() -> int:
               "GPU", file=sys.stderr)
         return 2
     try:
-        from paddle_tpu_torch.kernels import (launch_counts,
+        from paddle_tpu_torch.kernels import (f32_wide_launch_counts,
+                                              launch_counts,
                                               reset_launch_counts,
                                               wide_launch_counts)
         from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
@@ -3228,7 +3479,7 @@ def main() -> int:
     row6, row6_records = phase_compare_fa_packed()   # row 6's own call
     wide_records = phase_compare_wide()
     phase_wide_route()
-    phase_fp32_bodies(parent)
+    f32_records = phase_fp32_bodies(parent, parent_fwd, parent_bwd)
     # the forward records beside the parent's time at their shapes
     for record, tag in ((records["flash_pair_fwd"], "gpt-scoring"),
                         (records["flash_attention_fwd"], "bert-padded"),
@@ -3243,9 +3494,13 @@ def main() -> int:
         record["parent_ms"] = parent_bwd[tag][1]
 
     def counts():
-        """The launch counts and, as "wide:<wrapper>", the wide bodies'."""
-        return dict(launch_counts(), **{f"wide:{k}": n for k, n in
-                                        wide_launch_counts().items()})
+        """The launch counts and, as "wide:<wrapper>" and "f32w:<wrapper>",
+        the bf16 and fp32 wide bodies'."""
+        return dict(launch_counts(),
+                    **{f"wide:{k}": n for k, n in
+                       wide_launch_counts().items()},
+                    **{f"f32w:{k}": n for k, n in
+                       f32_wide_launch_counts().items()})
     paths = {}
     t0 = time.perf_counter()
     model = GPTForCausalLM(GPTConfig(**GPT_MEDIUM), dtype=torch.bfloat16,
@@ -3360,12 +3615,13 @@ def main() -> int:
                                      f"{kernel}")
     log(f"[paths] launches: {paths}; row 6's call: {row6}")
     launches = {k: sum(p[k] for p in paths.values()) for k in records}
-    # the wide-head bodies' launches on the model paths (heads of 64 and
-    # 128 there: none)
+    # the wide-head bodies' launches on the model paths (bf16 heads of 64
+    # and 128 there: none)
     wide_launches = {
-        f"wide:{d}": sum(p[f"wide:flash_attention_{d}"]
-                         + p[f"wide:flash_pair_{d}"] for p in paths.values())
-        for d in ("fwd", "bwd")}
+        f"{body}:{d}": sum(p[f"{body}:flash_attention_{d}"]
+                           + p[f"{body}:flash_pair_{d}"]
+                           for p in paths.values())
+        for body in ("wide", "f32w") for d in ("fwd", "bwd")}
     kernels = [
         _kernel_entry("flash_pair_fwd", "flash_pair_fwd.cu",
                       "flash_pair.py:95", launches, records["flash_pair_fwd"]),
@@ -3404,7 +3660,17 @@ def main() -> int:
         dict(_kernel_entry("wide:bwd", "flash_wide_sm90.cuh",
                            "flash_attention.py:340", wide_launches,
                            wide_records[1]),
-             name="flash_attention_bwd (wide body, bf16 D >= 256)")]
+             name="flash_attention_bwd (wide body, bf16 D >= 256)"),
+        # the fp32 wide-head bodies (both launchers), at [2, 1024, 8/2,
+        # 512] ([fp32-bodies]): their launches on the model paths
+        dict(_kernel_entry("f32w:fwd", "flash_f32_wide.cuh",
+                           "flash_attention.py:122", wide_launches,
+                           f32_records[0]),
+             name="flash_attention_fwd (fp32 wide body, D > 256)"),
+        dict(_kernel_entry("f32w:bwd", "flash_f32_wide.cuh",
+                           "flash_attention.py:340", wide_launches,
+                           f32_records[1]),
+             name="flash_attention_bwd (fp32 wide body, D > 256)")]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -54,10 +54,10 @@
 //             fp32, D <= 256                   flash_fwd_f32_kernel (below,
 //                                              SIMT: TF32 would miss the
 //                                              fp32 reference)
-//             fp32, D > 256                    bigd::flash_fwd_big_kernel
-//                                              (flash_big_d.cuh: SIMT, the
-//                                              accumulator in a global fp32
-//                                              scratch, D in chunks)
+//             fp32, D > 256 with D % 64 == 0   f32w::flash_fwd_f32_wide_kernel
+//                                              (flash_f32_wide.cuh: FFMA
+//                                              register micro-tiles, O in
+//                                              shared memory, one pass)
 //   backward  bf16, D = 64, 128                sm90::flash_bwd_sm90_kernel
 //                                              (flash_bwd_sm90.cuh: TMA,
 //                                              wgmma, dK/dV in registers,
@@ -71,10 +71,10 @@
 //                                              and dP^T over D in chunks)
 //             fp32, D = 64, 80, 96, 128, 256   flash_bwd_kernel<float>
 //                                              (below, SIMT)
-//             fp32, D > 256                    bigd::flash_bwd_big_kernel
-//                                              (flash_big_d.cuh: SIMT, dK
-//                                              and dV in a global fp32
-//                                              scratch)
+//             fp32, D > 256 with D % 64 == 0   f32w::flash_bwd_f32_wide_kernel
+//                                              (flash_f32_wide.cuh: FFMA
+//                                              register micro-tiles, dK and
+//                                              dV in shared memory)
 //
 // The [B, L, H, D] launchers take every one of those sizes; the pair
 // launchers 64, 128, 256 and the multiples of 128 above 256 (the pair
@@ -88,9 +88,8 @@
 // (dq = scratch * sm_scale in the input type: the bodies add unscaled
 // partials). The scratch and the padded rows live in one fp32 workspace
 // the wrapper allocates (bwd_work_floats), with, where a body needs it,
-// fp32 dK/dV accumulators (bigd::, fp32 D > 256) or the scaled copy of q
-// (wide::, bf16 D >= 256: written by its scale_q_kernel launch, the body's
-// fourth).
+// the scaled copy of q (wide::, bf16 D >= 256: written by its scale_q_kernel
+// launch, the body's fourth).
 //
 // The WMMA and SIMT backward (FlashAttention-2's, extended over a GQA
 // group): one CTA of 4 warps per (64-row kv tile, KV head, batch row; 32
@@ -247,8 +246,7 @@ struct FwdArgs {
 // Operands of one backward launch. q, k, v as in FwdArgs; out and dout
 // [B, Lq, H*D] contiguous; lse [B, H, Lq] fp32, the forward's; lse_pad,
 // delta [B*H, Lq_pad] and dq_acc [B, Lq, H*D] fp32, written by the
-// pre-pass; dkv_acc [2, B, Lk, Hkv*D] fp32 scratch of the fp32 D > 256
-// body (null otherwise);
+// pre-pass;
 // dq rows dq_row apart (head h at h*D), dk and dv rows dkv_row apart (KV
 // head hk at hk*D). drop, lens, q_seg and k_seg as in FwdArgs.
 struct BwdArgs {
@@ -261,7 +259,6 @@ struct BwdArgs {
   float* lse_pad;
   float* delta;
   float* dq_acc;
-  float* dkv_acc;
   void* dq;
   void* dk;
   void* dv;
@@ -276,26 +273,20 @@ struct BwdArgs {
 };
 
 // The backward's fp32 workspace, in floats: dq_acc, lse_pad, delta and,
-// in fp32 at D > 256, dkv_acc (the bigd:: body's dK and dV), in bf16 at D
-// >= 256 the scaled copy of q (the wide body's, bf16 [B, Lq, H*D]).
-// kernels/flash_pair.py `bwd_work_floats` sizes it the same way.
-inline long bwd_work_floats(int B, int Lq, int Lk, int H, int Hkv, int D,
-                            int is_bf16) {
+// in bf16 at D >= 256, the scaled copy of q (the wide body's, bf16 [B, Lq,
+// H*D]). kernels/flash_pair.py `bwd_work_floats` sizes it the same way.
+inline long bwd_work_floats(int B, int Lq, int H, int D, int is_bf16) {
   const long lq_pad = (Lq + 63) / 64 * 64;
   const long base = (long)B * Lq * H * D + 2L * B * H * lq_pad;
-  if (is_bf16) return base + (D >= 256 ? (long)B * Lq * H * D / 2 : 0L);
-  return base + (D > 256 ? 2L * B * Lk * Hkv * D : 0L);
+  return base + (is_bf16 && D >= 256 ? (long)B * Lq * H * D / 2 : 0L);
 }
 
 // Points a's scratch into `work` (bwd_work_floats(...) floats).
-inline void bwd_set_work(BwdArgs& a, float* work, int B, int D,
-                         int is_bf16) {
+inline void bwd_set_work(BwdArgs& a, float* work, int B, int D) {
   a.Lq_pad = (a.Lq + 63) / 64 * 64;
   a.dq_acc = work;
   a.lse_pad = work + (long)B * a.Lq * a.H * D;
   a.delta = a.lse_pad + (long)B * a.H * a.Lq_pad;
-  a.dkv_acc = !is_bf16 && D > 256 ? a.delta + (long)B * a.H * a.Lq_pad
-                                  : nullptr;
 }
 
 // Blocks of 256 threads for a grid-stride pass over n items: one an item,
@@ -317,7 +308,7 @@ inline __nv_bfloat16* bwd_qs(const BwdArgs& a, int B) {
 #include "flash_fwd_sm90.cuh"   // the bf16 forward at D <= 256
 #include "flash_bwd_sm90.cuh"   // the bf16 backward at D = 64, 128
 #include "flash_wide_sm90.cuh"  // bf16 D > 256 both ways, D = 256 backward
-#include "flash_big_d.cuh"      // fp32 D > 256, both directions
+#include "flash_f32_wide.cuh"   // fp32 D > 256, both directions
 
 namespace {
 
@@ -516,21 +507,20 @@ cudaError_t launch_fwd(const FwdArgs& a, int B, int is_bf16,
 // The head sizes up to 256 the launchers are built for: every size of the
 // [B, L, H, D] layout, and the pair layout's (whole 128-column blocks of
 // heads); above 256 every multiple of 64 runs the wide:: (bf16) and
-// bigd:: (fp32) kernels. The wrappers pad any other head size up to the
+// f32w:: (fp32) kernels. The wrappers pad any other head size up to the
 // next of them with zero columns.
 template <int... Ds>
 struct HeadDims {};
 using FlatHeadDims = HeadDims<64, 80, 96, 128, 256>;
 using PairHeadDims = HeadDims<64, 128, 256>;
 
-// The forward for input type (bf16: the wgmma kernels; fp32: the SIMT
+// The forward for input type (bf16: the wgmma kernels; fp32: the FFMA
 // kernels) and head size D (one of Ds, or a multiple of 64 above 256),
 // with dropout (kDrop, a.drop) or without, with segment ids (kSegs, a.q_seg
 // and a.k_seg) or without; returns the cudaError_t of the launch
 // (cudaErrorInvalidValue also when a TMA descriptor cannot be encoded).
-// `work` is read only at D > 256: in fp32 the bigd:: kernel's accumulator
-// (fp32, laid out as out), in bf16 the wide kernel's scaled copy of q (bf16
-// [B, Lq, H*D], written by its scale_q_kernel launch).
+// `work` is read only in bf16 at D > 256: the wide kernel's scaled copy of
+// q (bf16 [B, Lq, H*D], written by its scale_q_kernel launch).
 template <bool kDrop, bool kSegs, int... Ds>
 int flash_fwd(HeadDims<Ds...>, const FwdArgs& a, float* work, int B, int D,
               int is_bf16, cudaStream_t st) {
@@ -542,7 +532,7 @@ int flash_fwd(HeadDims<Ds...>, const FwdArgs& a, float* work, int B, int D,
                      ? wide::launch_fwd<kDrop, kSegs>(
                            a, reinterpret_cast<__nv_bfloat16*>(work), B, D,
                            st)
-                     : bigd::launch_fwd<kDrop, kSegs>(a, work, B, D, st));
+                     : f32w::launch_fwd<kDrop, kSegs>(a, B, D, st));
   int rc = (int)cudaErrorInvalidValue;
   ((D == Ds ? (rc = (int)launch_fwd<Ds, kDrop, kSegs>(a, B, is_bf16, st))
             : 0),
@@ -1080,7 +1070,7 @@ cudaError_t launch_bwd_body(const BwdArgs& a, int B, cudaStream_t stream) {
 }
 
 // The launches of one backward in input type T: the pre-pass, the body (D >
-// 256: wide:: in bf16, bigd:: in fp32; else one of Ds), the dq conversion.
+// 256: wide:: in bf16, f32w:: in fp32; else one of Ds), the dq conversion.
 template <typename T, bool kDrop, bool kSegs, int... Ds>
 cudaError_t launch_bwd_all(HeadDims<Ds...>, const BwdArgs& a, int B, int D,
                            cudaStream_t st) {
@@ -1095,7 +1085,7 @@ cudaError_t launch_bwd_all(HeadDims<Ds...>, const BwdArgs& a, int B, int D,
     if constexpr (std::is_same<T, __nv_bfloat16>::value)
       err = wide::launch_bwd<kDrop, kSegs>(a, bwd_qs(a, B), B, D, st);
     else
-      err = bigd::launch_bwd<kDrop, kSegs>(a, B, D, st);
+      err = f32w::launch_bwd<kDrop, kSegs>(a, B, D, st);
   } else {
     ((D == Ds ? (err = launch_bwd_body<T, Ds, kDrop, kSegs>(a, B, st)) : err),
      ...);
@@ -1117,7 +1107,7 @@ int flash_bwd(HeadDims<Ds...> dims, BwdArgs a, float* work, int B, int D,
       a.H % a.Hkv || (kSegs && (!a.q_seg || !a.k_seg)) ||
       (D > 256 && D % 64) || work == nullptr)
     return (int)cudaErrorInvalidValue;
-  bwd_set_work(a, work, B, D, is_bf16);
+  bwd_set_work(a, work, B, D);
   return (int)(is_bf16
                    ? launch_bwd_all<__nv_bfloat16, kDrop, kSegs>(dims, a, B,
                                                                  D, st)

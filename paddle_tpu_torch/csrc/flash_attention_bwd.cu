@@ -34,8 +34,8 @@
 // built: bf16 at 64 and 128 runs the Hopper body of flash_bwd_sm90.cuh,
 // at 256 and above the wide Hopper body of flash_wide_sm90.cuh (dK/dV in
 // 128-column slices), at 80 and 96 the WMMA body; fp32 the SIMT body, and
-// above 256 the bigd:: kernel of flash_big_d.cuh (flash_attention.cuh sets
-// out the dispatch).
+// above 256 the f32w:: kernel of flash_f32_wide.cuh (flash_attention.cuh
+// sets out the dispatch).
 
 #include "flash_attention.cuh"
 
@@ -43,8 +43,7 @@
 // (0 on success). The caller has checked shapes, types, contiguity and
 // alignment: q, out, dout and dq are [B, Lq, H, D]; k, v, dk and dv [B, Lk,
 // Hkv, D], all of the input type; lse [B, H, Lq] fp32, the forward's;
-// work an fp32 workspace of bwd_work_floats(B, Lq, Lk, H, Hkv, D, is_bf16)
-// floats;
+// work an fp32 workspace of bwd_work_floats(B, Lq, H, D, is_bf16) floats;
 // lens, q_seg, k_seg and the dropout arguments are the forward's.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* out,
@@ -55,7 +54,7 @@ extern "C" int flash_attention_bwd(
     unsigned threshold, float keep_scale, void* stream) {
   const long q_row = (long)H * D, kv_row = (long)Hkv * D;
   BwdArgs a{q, k, v, out, dout, static_cast<const float*>(lse), nullptr,
-            nullptr, nullptr, nullptr, dq, dk, dv, q_row, kv_row, q_row,
+            nullptr, nullptr, dq, dk, dv, q_row, kv_row, q_row,
             kv_row, Lq, Lk, H, Hkv, 0, sm_scale, causal,
             {seed_lo, seed_hi, threshold, keep_scale},
             static_cast<const int*>(lens), static_cast<const int*>(q_seg),

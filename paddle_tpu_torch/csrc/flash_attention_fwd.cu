@@ -16,8 +16,8 @@
 // flash_fwd_sm90.cuh's, above 256 flash_wide_sm90.cuh's (O in 128-column
 // slices, round(q * scale) in the workspace `work`), whose TMA descriptors
 // read q as a 3-D tensor (H*D columns, Lq rows, B) and k, v as (Hkv*D, Lk,
-// B), so no transpose to the Pallas [B*H, L, D] layout; in fp32 the SIMT
-// kernels (above 256 flash_big_d.cuh's, its accumulator in `work`).
+// B), so no transpose to the Pallas [B*H, L, D] layout; in fp32 the FFMA
+// kernels (above 256 flash_f32_wide.cuh's, O in shared memory).
 // Those headers give the math, the rounding points and the design. K/V
 // tiles are read once per q head of a group (from L2 after the first).
 //
@@ -37,9 +37,9 @@
 // alignment: q and out are [B, Lq, H, D], k and v [B, Lk, Hkv, D], all of
 // the input type and contiguous; lse is [B, H, Lq] fp32; lens ([B]), q_seg
 // ([B, Lq]) and k_seg ([B, Lk]) are int32 or null (the segments both or
-// neither); work is, at D > 256, kernels/flash_pair.py fwd_work_floats
-// floats (fp32: an accumulator laid out as out; bf16: the scaled copy of
-// q, bf16 [B, Lq, H*D]), else unread and may be null. With `dropout` set, the probabilities drop under
+// neither); work is, in bf16 at D > 256, kernels/flash_pair.py
+// fwd_work_floats floats (the scaled copy of q, bf16 [B, Lq, H*D]), else
+// unread and may be null. With `dropout` set, the probabilities drop under
 // the seed's words, the keep threshold and the scale of kernels/philox.py.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse,

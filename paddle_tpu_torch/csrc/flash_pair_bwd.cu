@@ -31,8 +31,8 @@
 // Head sizes 64, 128, 256 and every multiple of 128 above 256 (the pair
 // gate's) are built: bf16 at 64 and 128 runs the Hopper body of
 // flash_bwd_sm90.cuh, bf16 at 256 and above the wide Hopper body of
-// flash_wide_sm90.cuh, fp32 the SIMT body, and fp32 above 256 the bigd::
-// kernel of flash_big_d.cuh.
+// flash_wide_sm90.cuh, fp32 the SIMT body, and fp32 above 256 the f32w::
+// kernel of flash_f32_wide.cuh.
 
 #include "flash_attention.cuh"
 
@@ -40,7 +40,7 @@
 // (0 on success). The caller has checked shapes, types, contiguity and
 // alignment: qkv and dqkv are [B, L, 3*H*D], out and dout [B, L, H*D] of
 // the input type; lse [B, H, L] fp32, the forward's; work an fp32
-// workspace of bwd_work_floats(B, L, L, H, H, D, is_bf16) floats. The
+// workspace of bwd_work_floats(B, L, H, D, is_bf16) floats. The
 // dropout arguments are the forward's.
 extern "C" int flash_pair_bwd(const void* qkv, const void* out,
                               const void* dout, const void* lse, void* work,
@@ -54,8 +54,8 @@ extern "C" int flash_pair_bwd(const void* qkv, const void* out,
   const char* in = static_cast<const char*>(qkv);
   char* grad = static_cast<char*>(dqkv);
   BwdArgs a{qkv, in + hd * esize, in + 2 * hd * esize, out, dout,
-            static_cast<const float*>(lse), nullptr, nullptr, nullptr,
-            nullptr, dqkv, grad + hd * esize, grad + 2 * hd * esize, 3 * hd,
+            static_cast<const float*>(lse), nullptr, nullptr, nullptr, dqkv,
+            grad + hd * esize, grad + 2 * hd * esize, 3 * hd,
             3 * hd, 3 * hd, 3 * hd, L, L, H, H, 0, sm_scale, causal,
             {seed_lo, seed_hi, threshold, keep_scale}};
   float* w = static_cast<float*>(work);

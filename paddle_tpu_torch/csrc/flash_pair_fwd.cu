@@ -16,8 +16,8 @@
 // the Hopper kernels (up to 256 flash_fwd_sm90.cuh's, above 256
 // flash_wide_sm90.cuh's, round(q * scale) in the workspace `work`), whose
 // TMA descriptors see q, k and v as three 3-D tensors (H*D columns, L
-// rows, B) over the same rows; in fp32 the SIMT kernels (above 256
-// flash_big_d.cuh's, its accumulator in `work`). Those headers give the
+// rows, B) over the same rows; in fp32 the FFMA kernels (above 256
+// flash_f32_wide.cuh's, O in shared memory). Those headers give the
 // math, the rounding points and the design.
 //
 // Bound on the H100: at the GPT-medium shape (B=2, L=1024, H=8, D=128,
@@ -34,9 +34,8 @@
 // C entry point, bound with ctypes. Returns the cudaError_t of the launch
 // (0 on success). The caller has checked shapes, types, contiguity and
 // alignment; `out` is [B, L, H*D] of the input type and `lse` is [B, H, L]
-// fp32; `work` at D > 256 kernels/flash_pair.py fwd_work_floats floats
-// (fp32: an accumulator laid out as out; bf16: the scaled copy of q), else
-// unread and may be null. With `dropout` set, the probabilities drop under
+// fp32; `work` in bf16 at D > 256 kernels/flash_pair.py fwd_work_floats
+// floats (the scaled copy of q), else unread and may be null. With `dropout` set, the probabilities drop under
 // the seed's words, the keep threshold and the scale of kernels/philox.py.
 extern "C" int flash_pair_fwd(const void* qkv, void* out, void* lse,
                               void* work, int B, int L, int H, int D,

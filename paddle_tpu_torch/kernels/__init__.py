@@ -27,9 +27,11 @@ Every wrapper counts its launches in a plain integer attribute
 (``<wrapper>.launches``); ``launch_counts()`` reads them all and
 ``reset_launch_counts()`` zeroes them, so a run can show that its main path
 went through the kernels. The four flash wrappers also count the launches
-of the wide-head bodies (``csrc/flash_wide_sm90.cuh``: bf16 heads above 256
+of the wide-head bodies: ``csrc/flash_wide_sm90.cuh`` (bf16 heads above 256
 both ways, the bf16 backward at 256) in ``<wrapper>.wide_launches``, read by
-``wide_launch_counts()``.
+``wide_launch_counts()``, and ``csrc/flash_f32_wide.cuh`` (fp32 heads above
+256 both ways) in ``<wrapper>.f32_wide_launches``, read by
+``f32_wide_launch_counts()``.
 """
 from .dropout import DropoutFunction, dropout_fwd, dropout_fwd_reference
 from .flash_attention import (FlashAttention, flash_attention_bwd,
@@ -55,7 +57,7 @@ __all__ = ["flash_pair_fwd", "flash_pair_fwd_reference", "flash_pair_bwd",
            "fused_add_dropout_ln_fwd", "fused_add_dropout_ln_fwd_reference",
            "fused_add_dropout_ln_bwd", "fused_add_dropout_ln_bwd_reference",
            "FusedAddDropoutLN", "launch_counts", "reset_launch_counts",
-           "wide_launch_counts"]
+           "wide_launch_counts", "f32_wide_launch_counts"]
 
 WRAPPERS = {"flash_pair_fwd": flash_pair_fwd,
             "flash_pair_bwd": flash_pair_bwd,
@@ -79,8 +81,13 @@ def wide_launch_counts() -> dict:
     return {name: WRAPPERS[name].wide_launches for name in WIDE_WRAPPERS}
 
 
+def f32_wide_launch_counts() -> dict:
+    return {name: WRAPPERS[name].f32_wide_launches for name in WIDE_WRAPPERS}
+
+
 def reset_launch_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0
     for name in WIDE_WRAPPERS:
         WRAPPERS[name].wide_launches = 0
+        WRAPPERS[name].f32_wide_launches = 0

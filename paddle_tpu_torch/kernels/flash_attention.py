@@ -28,7 +28,8 @@ takes any head size. In bf16 the kernels are Hopper ones: the forward
 above; the backward ``csrc/flash_bwd_sm90.cuh`` at 64 and 128,
 ``csrc/flash_wide_sm90.cuh`` at 256 and above, the WMMA body of
 ``csrc/flash_attention.cuh`` at 80 and 96. In fp32 SIMT kernels
-(``csrc/flash_attention.cuh``, above 256 ``csrc/flash_big_d.cuh``).
+(``csrc/flash_attention.cuh``), above 256 the FFMA micro-tile kernels of
+``csrc/flash_f32_wide.cuh``.
 ``csrc/flash_attention.cuh``'s header table says which body runs where.
 
 Both take the masks of the Pallas ``_valid_mask``: ``kv_lens`` ``[B]``
@@ -59,7 +60,7 @@ import math
 import torch
 
 from . import _build, philox
-from .flash_pair import (_WIDE_BWD_MIN_D, FlashPairPacked, bwd_work_floats,
+from .flash_pair import (FlashPairPacked, bwd_work_floats, count_wide,
                          fwd_work_floats)
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_reference",
@@ -70,7 +71,7 @@ _NEG_INF = -1e30
 _DTYPES = (torch.bfloat16, torch.float32)
 # head sizes up to 256 the kernels are built for (csrc/flash_attention.cuh
 # FlatHeadDims); above 256 every multiple of 64 is built (bf16: the wide
-# kernels of csrc/flash_wide_sm90.cuh; fp32: csrc/flash_big_d.cuh). Any
+# kernels of csrc/flash_wide_sm90.cuh; fp32: csrc/flash_f32_wide.cuh). Any
 # other size runs at the next built one with zero columns.
 _HEAD_DIMS = (64, 80, 96, 128, 256)
 _BIG_D_QUANTUM = 64
@@ -265,11 +266,12 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale=None,
     the rate is positive).
 
     A CUDA tensor launches the kernel on the current stream (one launch
-    per call, counted in ``flash_attention_fwd.launches``, and a bf16 head
-    above 256, the wide kernel's, also in ``.wide_launches``; a head size that
-    is not built runs at ``kernel_head_dim`` on zero-padded copies, with
-    the scale of the true size; above 256 the kernel takes an fp32
-    workspace of ``flash_pair.fwd_work_floats``); a CPU tensor runs
+    per call, counted in ``flash_attention_fwd.launches``; a head above 256
+    also in ``.wide_launches``, the bf16 wide kernel's, or
+    ``.f32_wide_launches``, the fp32 one's; a head size that is not built
+    runs at ``kernel_head_dim`` on zero-padded copies, with the scale of the
+    true size; in bf16 above 256 the kernel takes an fp32 workspace of
+    ``flash_pair.fwd_work_floats``); a CPU tensor runs
     ``flash_attention_fwd_reference``. Raises on a rate outside [0, 1), a
     positive rate without a seed, explicit block sizes, a query head count
     that is not a multiple of the KV head count, a type other than
@@ -311,13 +313,13 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale=None,
         raise RuntimeError(f"flash_attention_fwd: kernel launch failed "
                            f"(cudaError {rc})")
     flash_attention_fwd.launches += 1
-    if q.dtype == torch.bfloat16 and d > _HEAD_DIMS[-1]:
-        flash_attention_fwd.wide_launches += 1
+    count_wide(flash_attention_fwd, q.dtype, d)
     return out, lse
 
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.wide_launches = 0
+flash_attention_fwd.f32_wide_launches = 0
 
 
 def _check_bwd(q, k, v, out, lse, dout, dropout_rate, seed, plain=False):
@@ -415,8 +417,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
     forward's.
 
     A CUDA tensor launches the kernel on the current stream (one counted
-    launch per call in ``flash_attention_bwd.launches``, and a bf16 head of
-    256 or more, the wide body's, also in ``.wide_launches``; a pre-pass
+    launch per call in ``flash_attention_bwd.launches``; a bf16 head of 256
+    or more, the wide body's, also in ``.wide_launches``, an fp32 head above
+    256, the fp32 wide body's, in ``.f32_wide_launches``; a pre-pass
     launch
     before the kernel computes ``delta = rowsum(dO*O)``, as the JAX package
     computes it outside its kernel, and zeroes dq's fp32 scratch, and a
@@ -447,7 +450,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
             kv_segments=masks[2])
         return tuple(g[..., :d].contiguous() for g in grads)
     _check_aligned("flash_attention_bwd", q, k, v, out, dout)
-    work = torch.empty(bwd_work_floats(b, lq, lk, h, hkv, d, q.dtype),
+    work = torch.empty(bwd_work_floats(b, lq, h, d, q.dtype),
                        dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
@@ -466,13 +469,13 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
         raise RuntimeError(f"flash_attention_bwd: kernel launch failed "
                            f"(cudaError {rc})")
     flash_attention_bwd.launches += 1
-    if q.dtype == torch.bfloat16 and d >= _WIDE_BWD_MIN_D:
-        flash_attention_bwd.wide_launches += 1
+    count_wide(flash_attention_bwd, q.dtype, d, backward=True)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.wide_launches = 0
+flash_attention_bwd.f32_wide_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

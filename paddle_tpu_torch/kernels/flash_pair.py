@@ -41,7 +41,7 @@ _NEG_INF = -1e30
 _DTYPES = (torch.bfloat16, torch.float32)
 _HEAD_DIMS = (64, 128, 256)   # csrc/flash_attention.cuh PairHeadDims
 # above 256 the pair gate's whole 128-column blocks run the wide kernels of
-# csrc/flash_wide_sm90.cuh (bf16) and csrc/flash_big_d.cuh (fp32)
+# csrc/flash_wide_sm90.cuh (bf16) and csrc/flash_f32_wide.cuh (fp32)
 # the bf16 backward at this head size and above runs the wide body, which
 # reads a scaled copy of q from its workspace (csrc/flash_wide_sm90.cuh
 # ``bwd_takes``)
@@ -54,29 +54,38 @@ def _kernel_takes(d: int) -> bool:
 
 
 def fwd_work_floats(b: int, lq: int, h: int, d: int, dtype) -> int:
-    """Floats of a forward launch's fp32 workspace: none up to ``D = 256``;
-    above, in fp32 the SIMT kernel's accumulator ``[B, Lq, H*D]`` and in
-    bf16 the wide kernel's copy of ``round(q * scale)``, bf16 ``[B, Lq,
-    H*D]`` (half as many floats)."""
-    if d <= _HEAD_DIMS[-1]:
+    """Floats of a forward launch's fp32 workspace: the bf16 wide
+    kernel's copy of ``round(q * scale)`` above ``D = 256``, bf16 ``[B, Lq,
+    H*D]`` (half a float an element); none otherwise (the fp32 kernels keep
+    their accumulators in shared memory)."""
+    if dtype != torch.bfloat16 or d <= _HEAD_DIMS[-1]:
         return 0
-    n = b * lq * h * d
-    return n // 2 if dtype == torch.bfloat16 else n
+    return b * lq * h * d // 2
 
 
-def bwd_work_floats(b: int, lq: int, lk: int, h: int, hkv: int, d: int,
-                    dtype) -> int:
+def bwd_work_floats(b: int, lq: int, h: int, d: int, dtype) -> int:
     """Floats of a backward launch's fp32 workspace
     (csrc/flash_attention.cuh ``bwd_work_floats``): dq's scratch ``[B, Lq,
     H*D]``, lse and delta at rows padded to a multiple of 64 ``[B*H,
-    Lq_pad]`` each; in fp32 at ``D > 256`` the SIMT kernel's dk and dv
-    scratch ``[B, Lk, Hkv*D]`` each, in bf16 at ``D >= 256`` the wide
-    body's copy of ``round(q * scale)``, bf16 ``[B, Lq, H*D]``."""
+    Lq_pad]`` each, and in bf16 at ``D >= 256`` the wide body's copy of
+    ``round(q * scale)``, bf16 ``[B, Lq, H*D]``."""
     lq_pad = -(-lq // 64) * 64
     n = b * lq * h * d + 2 * b * h * lq_pad
+    if dtype == torch.bfloat16 and d >= _WIDE_BWD_MIN_D:
+        n += b * lq * h * d // 2
+    return n
+
+
+def count_wide(wrapper, dtype, d: int, backward: bool = False):
+    """Count one launch by ``wrapper`` at head size ``d`` where a wide-head
+    body runs it: bf16 above 256 (the backward from 256) in
+    ``.wide_launches`` (csrc/flash_wide_sm90.cuh), fp32 above 256 in
+    ``.f32_wide_launches`` (csrc/flash_f32_wide.cuh)."""
     if dtype == torch.bfloat16:
-        return n + (b * lq * h * d // 2 if d >= _WIDE_BWD_MIN_D else 0)
-    return n + (2 * b * lk * hkv * d if d > _HEAD_DIMS[-1] else 0)
+        if d > _HEAD_DIMS[-1] or (backward and d >= _WIDE_BWD_MIN_D):
+            wrapper.wide_launches += 1
+    elif d > _HEAD_DIMS[-1]:
+        wrapper.f32_wide_launches += 1
 
 
 def _heads_per_block(head_dim: int) -> int:
@@ -192,13 +201,13 @@ def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
     ``sm_scale`` (default ``1 / sqrt(D)``).
 
     A CUDA tensor launches the kernel on the current stream (one launch
-    per call, counted in ``flash_pair_fwd.launches``, and a bf16 head above
-    256, the wide kernel's, also in ``.wide_launches``); a CPU tensor runs
-    ``flash_pair_fwd_reference``. Raises on a rate outside [0, 1), a
-    positive rate without a seed, a head size other than 64, 128, 256 or a
-    multiple of 128 above 256 (there the kernel takes an fp32 workspace of
-    ``fwd_work_floats``), a type other than bf16/fp32 and non-contiguous
-    input."""
+    per call, counted in ``flash_pair_fwd.launches``; a head above 256 also
+    in ``.wide_launches``, the bf16 wide kernel's, or ``.f32_wide_launches``,
+    the fp32 one's); a CPU tensor runs ``flash_pair_fwd_reference``. Raises
+    on a rate outside [0, 1), a positive rate without a seed, a head size
+    other than 64, 128, 256 or a multiple of 128 above 256 (there the bf16
+    kernel takes an fp32 workspace of ``fwd_work_floats``), a type other
+    than bf16/fp32 and non-contiguous input."""
     d = _check(qkv, num_heads, dropout_rate, seed)
     if qkv.device.type == "cpu":
         return flash_pair_fwd_reference(qkv, num_heads, causal,
@@ -229,13 +238,13 @@ def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
         raise RuntimeError(f"flash_pair_fwd: kernel launch failed "
                            f"(cudaError {rc})")
     flash_pair_fwd.launches += 1
-    if qkv.dtype == torch.bfloat16 and d > _HEAD_DIMS[-1]:
-        flash_pair_fwd.wide_launches += 1
+    count_wide(flash_pair_fwd, qkv.dtype, d)
     return out, lse
 
 
 flash_pair_fwd.launches = 0
 flash_pair_fwd.wide_launches = 0
+flash_pair_fwd.f32_wide_launches = 0
 
 
 def _check_bwd(qkv, out, lse, dout, num_heads, dropout_rate, seed,
@@ -333,8 +342,9 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
     forward's.
 
     A CUDA tensor launches the kernel on the current stream (one counted
-    launch per call in ``flash_pair_bwd.launches``, and a bf16 head of 256
-    or more, the wide body's, also in ``.wide_launches``; a pre-pass launch
+    launch per call in ``flash_pair_bwd.launches``; a bf16 head of 256 or
+    more, the wide body's, also in ``.wide_launches``, an fp32 head above
+    256, the fp32 wide body's, in ``.f32_wide_launches``; a pre-pass launch
     before the kernel computes ``delta = rowsum(dO*O)``, as the JAX package
     computes it outside its kernel, and zeroes dq's fp32 scratch, and a
     small conversion launch behind it writes dq; all in one fp32
@@ -353,8 +363,7 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                          "aligned (the kernels read them with TMA and in "
                          "16-byte vectors)")
     b, L, _ = qkv.shape
-    work = torch.empty(bwd_work_floats(b, L, L, num_heads, num_heads, d,
-                                       qkv.dtype),
+    work = torch.empty(bwd_work_floats(b, L, num_heads, d, qkv.dtype),
                        dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
     lib = _build.load("flash_pair_bwd", _BWD_ARGTYPES)
@@ -370,13 +379,13 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
         raise RuntimeError(f"flash_pair_bwd: kernel launch failed "
                            f"(cudaError {rc})")
     flash_pair_bwd.launches += 1
-    if qkv.dtype == torch.bfloat16 and d >= _WIDE_BWD_MIN_D:
-        flash_pair_bwd.wide_launches += 1
+    count_wide(flash_pair_bwd, qkv.dtype, d, backward=True)
     return dqkv
 
 
 flash_pair_bwd.launches = 0
 flash_pair_bwd.wide_launches = 0
+flash_pair_bwd.f32_wide_launches = 0
 
 
 class FlashPairPacked(torch.autograd.Function):

@@ -32,7 +32,7 @@ from paddle_tpu.kernels.pallas.flash_attention import (_flash_fwd,
 from paddle_tpu.nn import functional as JF
 from paddle_tpu_torch.core.random import make_generator, next_seed
 from paddle_tpu_torch.kernels import launch_counts, philox, \
-    reset_launch_counts, wide_launch_counts
+    reset_launch_counts, wide_launch_counts, f32_wide_launch_counts
 from paddle_tpu_torch.kernels.flash_attention import (
     FlashAttention, flash_attention_bwd, flash_attention_bwd_reference,
     flash_attention_fwd, flash_attention_fwd_reference,
@@ -655,8 +655,9 @@ def test_packed_qkv_split_route_drops_in_the_flat_kernels(monkeypatch):
 
 # built at 80, 96 and 256 besides 64 and 128; 72 runs padded to 80
 F1_HEAD_DIMS = [80, 96, 256, 72]
-# above 256 every multiple of 64 is built (csrc/flash_big_d.cuh)
-BIG_HEAD_DIMS = [320]
+# above 256 every multiple of 64 is built (fp32: csrc/flash_f32_wide.cuh,
+# one column slice up to 512)
+BIG_HEAD_DIMS = [320, 512]
 
 
 @pytest.mark.parametrize("d", F1_HEAD_DIMS + BIG_HEAD_DIMS)
@@ -694,7 +695,7 @@ def test_head_dims_match_pallas_interpret(d):
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_big_head_dim_gqa_matches_pallas_interpret(causal):
-    """D = 320 (above 256: the kernels of csrc/flash_big_d.cuh on the
+    """D = 320 (above 256: the kernels of csrc/flash_f32_wide.cuh on the
     card, their plain versions here) with multi-query GQA 4/1 and Lq = 128
     against Lk = 256 (the diagonal moved by 128; two kv tiles: the Pallas
     split dq/dkv kernels), fp32 within 1e-4: out and lse against
@@ -727,16 +728,21 @@ def test_big_head_dim_gqa_matches_pallas_interpret(causal):
                                    rtol=1e-4, err_msg=name)
 
 
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_plain_backward_fp64_matches_autograd_of_forward(rate):
+@pytest.mark.parametrize("rate, segments", [(0.0, False), (0.1, False),
+                                            (0.1, True)],
+                         ids=["0.0", "0.1", "0.1-segments"])
+def test_plain_backward_fp64_matches_autograd_of_forward(rate, segments):
     """The plain versions take fp64 (the exact oracle the card's fp32
     kernels above D = 256 are held to): the written-out backward equals
     torch autograd of the fp64 forward under the same masks and dropout,
-    GQA 4/2 with lengths at D = 320."""
+    GQA 4/2 with lengths at D = 320, and with segment ids (3 a row)."""
     b, lq, lk, h, hkv, d = 2, 96, 128, 4, 2, 320
     q, k, v = (torch.from_numpy(a).double().requires_grad_()
                for a in _inputs(b, lq, lk, h, hkv, d, seed=7))
     kw = dict(kv_lens=torch.tensor([128, 70]), seed=11 if rate else None)
+    if segments:
+        kw.update(_card_masks(b, lq, lk, None, [[30, 60], [20, 70]],
+                              device="cpu"))
     out, lse = flash_attention_fwd_reference(q, k, v, True, None, rate, **kw)
     assert out.dtype == lse.dtype == torch.float64
     g = torch.from_numpy(np.random.RandomState(8).randn(*out.shape))
@@ -867,23 +873,22 @@ def test_flash_attention_options_as_the_reference(monkeypatch):
 @pytest.mark.parametrize("d", [64, 128, 256, 320, 512])
 def test_workspace_sizing_by_dtype(d, dtype):
     """The kernels' fp32 workspaces, sized by type and head size: the bf16
-    wide bodies (forward above D = 256, backward from 256) take no
-    accumulator scratch, only a bf16 copy of round(q * scale) (half a
-    float an element), while fp32 keeps the floats it had: the forward's
-    accumulator above 256, the backward's dk and dv scratch above 256."""
-    b, lq, lk, h, hkv = 2, 200, 300, 4, 2
+    wide bodies (forward above D = 256, backward from 256) take a bf16
+    copy of round(q * scale) (half a float an element); fp32 takes no
+    forward workspace and, in the backward, only dq's scratch, lse and
+    delta at every head size (the fp32 wide kernels keep O, dK and dV in
+    shared memory)."""
+    b, lq, h = 2, 200, 4
     dt = getattr(torch, dtype)
     lq_pad = 256
     base = b * lq * h * d + 2 * b * h * lq_pad   # dq, lse and delta
     if dtype == "float32":
-        assert fwd_work_floats(b, lq, h, d, dt) == \
-            (b * lq * h * d if d > 256 else 0)
-        assert bwd_work_floats(b, lq, lk, h, hkv, d, dt) == \
-            base + (2 * b * lk * hkv * d if d > 256 else 0)
+        assert fwd_work_floats(b, lq, h, d, dt) == 0
+        assert bwd_work_floats(b, lq, h, d, dt) == base
     else:
         assert fwd_work_floats(b, lq, h, d, dt) == \
             (b * lq * h * d // 2 if d > 256 else 0)
-        assert bwd_work_floats(b, lq, lk, h, hkv, d, dt) == \
+        assert bwd_work_floats(b, lq, h, d, dt) == \
             base + (b * lq * h * d // 2 if d >= 256 else 0)
 
 
@@ -909,10 +914,14 @@ CARD_CASES = [(2, 512, 512, 8, 2, 128, "bfloat16", True),
               (2, 300, 300, 4, 1, 64, "bfloat16", False),
               (2, 200, 333, 4, 1, 128, "bfloat16", True),
               # heads above 256 (bf16: csrc/flash_wide_sm90.cuh; fp32:
-              # csrc/flash_big_d.cuh)
+              # csrc/flash_f32_wide.cuh: 1024 in two column slices; at
+              # [2, 1024, 4/2, 320] the backward's walks are shared by
+              # clusters of 4 CTAs)
               (2, 256, 256, 4, 2, 512, "bfloat16", True),
               (2, 200, 300, 4, 2, 320, "float32", True),
-              (1, 128, 200, 2, 1, 512, "float32", False)]
+              (1, 128, 200, 2, 1, 512, "float32", False),
+              (1, 256, 256, 2, 1, 1024, "float32", True),
+              (2, 1024, 1024, 4, 2, 320, "float32", True)]
 
 
 @pytest.mark.cuda
@@ -985,6 +994,9 @@ CARD_MASK_CASES = [
     (2, 200, 300, 4, 2, 64, "float32", True, [300, 77], [[50, 120], [90]],
      0.1),
     (2, 256, 256, 2, 2, 64, "float32", False, [40, 1], None, 0.0),
+    # the fp32 wide kernels, ragged, GQA 4/2 (walks shared by clusters of 2)
+    (2, 600, 700, 4, 2, 512, "float32", True, [700, 333],
+     [[180, 360], [250]], 0.1),
 ]
 
 
@@ -1000,8 +1012,9 @@ def _weighted_limit(q, k, v, causal, out_ref, dtype, **kw):
 def test_cuda_masked_kernels_match_plain(case):
     """The flat kernels with lengths, segment ids and dropout against their
     plain versions on the card (the limits of chip_smoke.py's
-    [compare-fa-masks]); dk and dv are exactly zero past each length; one
-    launch each."""
+    [compare-fa-masks]; fp32 above D = 256 the backward against the exact
+    gradient); dk and dv are exactly zero past each length; one launch
+    each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     b, lq, lk, h, hkv, d, dt, causal, lens, cuts, rate = case
@@ -1020,9 +1033,17 @@ def test_cuda_masked_kernels_match_plain(case):
                             dropout_rate=rate, **kw)
     assert bool(((out.float() - ref_out.float()).abs() <= limit).all())
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
-    want = flash_attention_bwd_reference(q, k, v, out, lse, g, causal, None,
-                                         rate, **kw)
     bound = 8.3e-4 if dtype == torch.bfloat16 else 9e-7
+    if dtype == torch.float32 and d > 256:
+        q64, k64, v64, g64 = (t.double() for t in (q, k, v, g))
+        o64, l64 = flash_attention_fwd_reference(q64, k64, v64, causal, None,
+                                                 rate, **kw)
+        want = flash_attention_bwd_reference(q64, k64, v64, o64, l64, g64,
+                                             causal, None, rate, **kw)
+        bound = 2.3e-6
+    else:
+        want = flash_attention_bwd_reference(q, k, v, out, lse, g, causal,
+                                             None, rate, **kw)
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         err = ((x.float() - y.float()).norm() / y.float().norm()).item()
         assert err < bound, f"{name}: relative error {err:.3g} >= {bound}"
@@ -1240,38 +1261,47 @@ def test_cuda_bf16_wide_heads_mqa_and_ragged(case):
         assert torch.count_nonzero(got[2][r, n:]) == 0
 
 
-# (launcher, D, the forward's and the backward's body as the profiler
-# names them, whether each is a wide-body launch)
-CARD_ROUTES = [("flat", 512, "flash_fwd_wide_kernel", "flash_bwd_wide_kernel",
-                1, 1),
-               ("pair", 384, "flash_fwd_wide_kernel", "flash_bwd_wide_kernel",
-                1, 1),
-               ("flat", 256, "flash_fwd_sm90_kernel", "flash_bwd_wide_kernel",
-                0, 1),
-               ("pair", 256, "flash_fwd_sm90_kernel", "flash_bwd_wide_kernel",
-                0, 1)]
+# (launcher, D, dtype, the forward's and the backward's body as the
+# profiler names them, whether each is a wide-body launch: of the bf16
+# bodies, or in fp32 of the fp32 ones)
+CARD_ROUTES = [("flat", 512, "bfloat16", "flash_fwd_wide_kernel",
+                "flash_bwd_wide_kernel", 1, 1),
+               ("pair", 384, "bfloat16", "flash_fwd_wide_kernel",
+                "flash_bwd_wide_kernel", 1, 1),
+               ("flat", 256, "bfloat16", "flash_fwd_sm90_kernel",
+                "flash_bwd_wide_kernel", 0, 1),
+               ("pair", 256, "bfloat16", "flash_fwd_sm90_kernel",
+                "flash_bwd_wide_kernel", 0, 1),
+               ("flat", 320, "float32", "flash_fwd_f32_wide_kernel",
+                "flash_bwd_f32_wide_kernel", 1, 1),
+               ("pair", 384, "float32", "flash_fwd_f32_wide_kernel",
+                "flash_bwd_f32_wide_kernel", 1, 1)]
 BODIES = ("flash_fwd_sm90_kernel", "flash_fwd_wide_kernel",
-          "flash_fwd_f32_kernel", "flash_fwd_big_kernel",
+          "flash_fwd_f32_kernel", "flash_fwd_f32_wide_kernel",
           "flash_bwd_sm90_kernel", "flash_bwd_wide_kernel",
-          "flash_bwd_kernel", "flash_bwd_big_kernel")
+          "flash_bwd_kernel", "flash_bwd_f32_wide_kernel")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("route", CARD_ROUTES,
-                         ids=[f"{r[0]}-{r[1]}" for r in CARD_ROUTES])
+                         ids=[f"{r[0]}-{r[1]}" + ("-fp32" * (r[2] == "float32"))
+                              for r in CARD_ROUTES])
 def test_cuda_bf16_wide_heads_run_the_wide_bodies(route):
-    """Which body a bf16 launch runs, read from the profiler's kernel names:
+    """Which body a launch runs, read from the profiler's kernel names: bf16
     heads above 256 on both launchers run the wide forward and backward
-    (csrc/flash_wide_sm90.cuh), never the SIMT bigd:: kernels; the D = 256
-    backward runs the wide body, not the WMMA one, beside the Hopper
-    forward. The wrappers' wide-launch counters agree."""
+    (csrc/flash_wide_sm90.cuh); the bf16 D = 256 backward runs the wide
+    body, not the WMMA one, beside the Hopper forward; fp32 heads above
+    256 on both launchers run the fp32 wide kernels
+    (csrc/flash_f32_wide.cuh). The wrappers' wide-launch counters (bf16
+    and fp32) agree."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from torch.profiler import ProfilerActivity, profile
-    launcher, d, fwd_body, bwd_body, wide_f, wide_b = route
+    launcher, d, dt, fwd_body, bwd_body, wide_f, wide_b = route
+    dtype = getattr(torch, dt)
     b, L, h = 2, 256, 4
     if launcher == "flat":
-        q, k, v, g = _card_inputs(b, L, L, h, 2, d, torch.bfloat16, seed=d)
+        q, k, v, g = _card_inputs(b, L, L, h, 2, d, dtype, seed=d)
         names = ("flash_attention_fwd", "flash_attention_bwd")
 
         def run():
@@ -1280,9 +1310,9 @@ def test_cuda_bf16_wide_heads_run_the_wide_bodies(route):
     else:
         rs = np.random.RandomState(d)
         x = torch.from_numpy(rs.randn(b, L, 3 * h * d).astype(np.float32))
-        x = x.cuda().to(torch.bfloat16)
+        x = x.cuda().to(dtype)
         g = torch.from_numpy(rs.randn(b, L, h * d).astype(np.float32)) \
-            .cuda().to(torch.bfloat16)
+            .cuda().to(dtype)
         names = ("flash_pair_fwd", "flash_pair_bwd")
 
         def run():
@@ -1299,5 +1329,8 @@ def test_cuda_bf16_wide_heads_run_the_wide_bodies(route):
     seen = {n for n in BODIES if any(n in key for key in keys)}
     assert seen == {fwd_body, bwd_body}, keys
     assert launch_counts() == dict(NO_LAUNCHES, **{names[0]: 1, names[1]: 1})
-    wide = wide_launch_counts()
+    wide, other = wide_launch_counts(), f32_wide_launch_counts()
+    if dtype == torch.float32:
+        wide, other = other, wide
     assert (wide[names[0]], wide[names[1]]) == (wide_f, wide_b)
+    assert not any(other.values())

@@ -63,8 +63,9 @@ def test_plain_matches_pallas_interpret(d, L, causal):
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_head_dim_384_matches_pallas_interpret(causal):
-    """Heads of 384 (above 256: the kernels of csrc/flash_big_d.cuh on the
-    card, which the pair gate admits as whole 128-column blocks): the
+    """Heads of 384 (above 256: the kernels of csrc/flash_f32_wide.cuh on
+    the card in fp32, which the pair gate admits as whole 128-column
+    blocks): the
     plain forward against ``_pair_fwd`` and d(qkv) through
     FlashPairPacked against jax.vjp of ``flash_pair_packed``, both in
     interpret mode, at L = 300 (a ragged second tile), fp32 within 1e-4."""
@@ -410,10 +411,13 @@ def test_dropout_seed_is_saved_for_the_backward():
                                   (2, 300, 4, 64, "float32", True),
                                   (2, 300, 4, 128, "bfloat16", False),
                                   (2, 256, 2, 384, "bfloat16", True),
-                                  (2, 300, 2, 512, "bfloat16", False)])
+                                  (2, 300, 2, 512, "bfloat16", False),
+                                  # the fp32 wide kernels
+                                  (2, 768, 2, 384, "float32", True)])
 def test_cuda_dropout_kernels_match_plain(case):
     """The pair kernels at rate 0.1 against their plain versions on the
-    same seed (the limits of the rate-0 tests)."""
+    same seed (the limits of the rate-0 tests; fp32 above D = 256 the
+    backward against the exact gradient)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     b, L, heads, d, dt, causal = case
@@ -436,8 +440,16 @@ def test_cuda_dropout_kernels_match_plain(case):
     limit = atol * weight.float().clamp_min(1.0) + rtol * ref_out.float().abs()
     assert ((out.float() - ref_out.float()).abs() <= limit).all()
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
-    want = flash_pair_bwd_reference(x, out, lse, g, heads, causal, 0.1, seed)
     limit = 7e-4 if dtype == torch.bfloat16 else 6e-7
+    if dtype == torch.float32 and d > 256:
+        x64 = x.double()
+        o64, l64 = flash_pair_fwd_reference(x64, heads, causal, 0.1, seed)
+        want = flash_pair_bwd_reference(x64, o64, l64, g.double(), heads,
+                                        causal, 0.1, seed)
+        limit = 2.3e-6
+    else:
+        want = flash_pair_bwd_reference(x, out, lse, g, heads, causal, 0.1,
+                                        seed)
     hd = heads * d
     for i in range(3):
         assert _rel(got[..., i * hd:(i + 1) * hd],
