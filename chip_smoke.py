@@ -16,15 +16,18 @@ serialises (its note C7520). It times both attention forwards and both
 backwards against the parent commit's wrappers and kernels
 (``[parent-fwd]``, ``[parent-bwd]``: an unpacked ``git archive`` of it in
 ``smoke_checkout/parent/`` or ``PARENT_TREE``; without one the phases say
-so), in turns, and fails a case only beyond the timing noise, beside sdpa
-and the bound; it holds each kernel against its plain PyTorch version at
+so), in turns, and fails a case only beyond the timing noise (a body
+redesigned by the change also below its asked speed-up, ``BWD_SPEEDUP``),
+beside sdpa and the bound; it holds each kernel against its plain PyTorch
+version at
 the shapes the main paths give it and at every head size the kernels are
 built for (64, 80, 96, 128, 256, 72 on zero-padded heads, and above 256:
 320, 384, 448, 512, 1024 (fp32: two column slices), and 300 on
 zero-padded heads; the bf16 wide-head kernels at their headline shape,
-``[compare-wide]``, the fp32 ones at theirs beside the parent's and sdpa's,
-``[fp32-bodies]``, and the bodies each launcher runs by the profiler's
-kernel names, ``[wide-route]``; every dropout mask for mask:
+``[compare-wide]``, the fp32 ones and the fp32 backward at heads up to
+256 at theirs beside the parent's and sdpa's, ``[fp32-bodies]``, and the
+bodies each launcher runs by the profiler's kernel names and the body
+counters, ``[wide-route]``; every dropout mask for mask:
 each is one Philox function of the seed and the element, and the attention
 masks are read back with probe inputs), then drives the main paths through
 the user entry points, random weights from a seed:
@@ -284,7 +287,7 @@ def _expect_launches(where, grew, **want):
 FLASH_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_wide_kernel",
                  "flash_fwd_f32_kernel", "flash_fwd_f32_wide_kernel",
                  "flash_bwd_sm90_kernel", "flash_bwd_wide_kernel",
-                 "flash_bwd_kernel", "flash_bwd_f32_wide_kernel",
+                 "flash_bwd_f32_kernel", "flash_bwd_f32_wide_kernel",
                  "bwd_prepass_kernel", "scale_q_kernel", "dq_convert_kernel")
 
 
@@ -504,21 +507,31 @@ def _timed_pair(ours, parent, iters):
     return tuple((min(t), (max(t) - min(t)) / min(t)) for t in times)
 
 
-def _judge_parent(tag, where, ours, parent, noise):
+def _judge_parent(tag, where, ours, parent, noise, speedup=None):
     """Log one [parent-*] case and fail it when the change is slower than
     the parent by more than the noise (``_timed_pair``; ``noise``, from
     ``_timing_noise``, its floor); a case under HOST_BOUND_MS is only
-    logged."""
+    logged. A case whose body this change redesigned must do better:
+    ``speedup`` "noise", faster than the parent beyond the noise; a
+    number, at least that many times the parent's speed."""
     (ms, sp), (pms, psp) = ours, parent
     margin = max(sp, psp, noise)
     judged = pms >= HOST_BOUND_MS
+    want = ("" if speedup is None else
+            "; must be faster beyond the noise" if speedup == "noise" else
+            f"; must be at least {speedup}x")
     log(f"{tag} {where}: kernel {ms:.4f} ms (spread {sp:.3f}), the "
         f"parent's {pms:.4f} ms (spread {psp:.3f}), {pms / ms:.2f}x; "
-        + (f"margin {margin:.3f}" if judged else
+        + (f"margin {margin:.3f}{want}" if judged else
            f"not judged (under {HOST_BOUND_MS} ms: host-bound)"))
     if judged and ms > pms * (1.0 + margin):
         raise AssertionError(f"{tag} {where}: slower than the parent's "
                              f"beyond the timing noise")
+    if judged and ((speedup == "noise" and ms * (1.0 + margin) >= pms)
+                   or (speedup not in (None, "noise")
+                       and pms / ms < speedup)):
+        raise AssertionError(f"{tag} {where}: not the speed-up asked of a "
+                             f"redesigned body{want}")
 
 
 # [parent-fwd] shapes: (tag, launcher, B, L, H, Hkv, D, causal, rate,
@@ -619,10 +632,14 @@ def phase_parent_fwd(parent, noise):
 # with lengths (those of [compare-fa-masks]), GPT-medium's training
 # backward, BERT's packed and padded training backwards at rate 0.1, row 3
 # (L = 4608, where the JAX package runs its split kernels), row 6's call at
-# rate 0.1, the wide-head shapes of [parent-fwd] (3 calls a round: the
-# parent's kernels take tens to hundreds of ms there) and the D = 256
-# backward (the wide body here, the WMMA body in the parent: the route's
-# measurement)
+# rate 0.1, the wide-head shapes of [parent-fwd] (3 calls a round), the
+# D = 256 backward (the wide body), and the bodies of
+# csrc/flash_f32_wide.cuh ``flash_bwd_f32_kernel`` (fp32 heads up to 256:
+# flat [2, 1024, 8/2, D] causal at every built size, GPT's head on the pair
+# launcher, BERT's check shape at rate 0.1 on both launchers) and of
+# csrc/flash_bwd_sm90.cuh at 80 and 96 (bf16 on 32-byte swizzle blocks: [2,
+# 1024, 8/2, D] and Phi-2's / Phi-3-mini's attention at LLaMA's training
+# geometry), whose parents are the SIMT and WMMA bodies
 PARENT_BWD_CASES = [
     ("llama-train", "flat", 4, 2048, 32, 32, 128, True, 0.0, None, 10, BF16),
     ("gqa-lengths", "flat", 2, 2048, 32, 8, 128, True, 0.0, [2048, 1111],
@@ -637,7 +654,29 @@ PARENT_BWD_CASES = [
     ("wide-320", "flat", 2, 2048, 16, 4, 320, True, 0.1, None, 3, BF16),
     ("wide-pair-384", "pair", 2, 2048, 8, 8, 384, True, 0.0, None, 3, BF16),
     ("d256-bwd", "flat", 2, 2048, 8, 2, 256, True, 0.0, None, 10, BF16),
-    ("wide-f32-512", "flat", 2, 1024, 8, 2, 512, True, 0.0, None, 3, FP32)]
+    ("wide-f32-512", "flat", 2, 1024, 8, 2, 512, True, 0.0, None, 3, FP32),
+    ("f32-128", "flat", 2, 1024, 8, 2, 128, True, 0.0, None, 3, FP32),
+    ("f32-64", "flat", 2, 1024, 8, 2, 64, True, 0.0, None, 3, FP32),
+    ("f32-80", "flat", 2, 1024, 8, 2, 80, True, 0.0, None, 3, FP32),
+    ("f32-96", "flat", 2, 1024, 8, 2, 96, True, 0.0, None, 3, FP32),
+    ("f32-256", "flat", 2, 1024, 8, 2, 256, True, 0.0, None, 3, FP32),
+    ("f32-pair-128", "pair", 2, 1024, 8, 8, 128, True, 0.0, None, 3, FP32),
+    ("f32-bert-pair", "pair", 2, 512, 12, 12, 64, False, 0.1, None, 3, FP32),
+    ("f32-bert-flat", "flat", 2, 512, 12, 12, 64, False, 0.1, "bert", 3,
+     FP32),
+    ("wmma-80", "flat", 2, 1024, 8, 2, 80, True, 0.0, None, 10, BF16),
+    ("wmma-96", "flat", 2, 1024, 8, 2, 96, True, 0.0, None, 10, BF16),
+    ("phi2-80", "flat", 4, 2048, 32, 32, 80, True, 0.0, None, 5, BF16),
+    ("phi3-96", "flat", 4, 2048, 32, 32, 96, True, 0.0, None, 5, BF16)]
+# the speed-ups over the parent's bodies the redesigned ones must show
+# (the SIMT fp32 body at [2, 1024, 8/2, 128], the WMMA bf16 one at 80 and
+# 96), and the other cases of the fp32 body, which must be faster than the
+# parent's beyond the noise
+BWD_SPEEDUP = {"f32-128": 5.0, "wmma-80": 2.0, "wmma-96": 2.0,
+               "phi2-80": 3.0, "phi3-96": 3.0}
+BWD_SPEEDUP.update({tag: "noise" for tag in (
+    "f32-64", "f32-80", "f32-96", "f32-256", "f32-pair-128",
+    "f32-bert-pair", "f32-bert-flat")})
 
 
 def phase_parent_bwd(parent, noise):
@@ -710,7 +749,8 @@ def phase_parent_bwd(parent, noise):
         else:
             ours, theirs = _timed_pair(call(mods[0]), call(mods[1]), iters)
             ms, pms = ours[0], theirs[0]
-            _judge_parent("[parent-bwd]", where, ours, theirs, noise)
+            _judge_parent("[parent-bwd]", where, ours, theirs, noise,
+                          BWD_SPEEDUP.get(tag))
         log(f"[parent-bwd] {tag}: sdpa backward {lib_ms:.4f} ms "
             f"({ms / lib_ms:.2f}x the kernel's time), bound {bound:.4f} ms "
             f"({ms / bound:.1f}x)")
@@ -1343,24 +1383,31 @@ def phase_compare_wide():
 
 
 # [wide-route]: (launcher, D, dtype, the forward's and the backward's body
-# as the profiler names them, whether each is a wide-head launch: one of
-# the bf16 wide bodies' (.wide_launches) or of the fp32 ones'
-# (.f32_wide_launches), as the dtype says)
+# as the profiler names them, the counter of each launch's body or None:
+# "wide", the bf16 wide bodies' (.wide_launches); "f32_wide", the fp32
+# ones' (.f32_wide_launches); "f32_bwd", the fp32 backward up to 256
+# (.f32_bwd_launches); "sw32_bwd", the bf16 backward at 80 and 96
+# (.sw32_bwd_launches))
 WIDE_ROUTES = [
     ("flat", 512, BF16, "flash_fwd_wide_kernel", "flash_bwd_wide_kernel",
-     True, True),
+     "wide", "wide"),
     ("pair", 384, BF16, "flash_fwd_wide_kernel", "flash_bwd_wide_kernel",
-     True, True),
+     "wide", "wide"),
     ("flat", 256, BF16, "flash_fwd_sm90_kernel", "flash_bwd_wide_kernel",
-     False, True),
+     None, "wide"),
     ("pair", 256, BF16, "flash_fwd_sm90_kernel", "flash_bwd_wide_kernel",
-     False, True),
-    ("flat", 96, BF16, "flash_fwd_sm90_kernel", "flash_bwd_kernel",
-     False, False),
+     None, "wide"),
+    ("flat", 80, BF16, "flash_fwd_sm90_kernel", "flash_bwd_sm90_kernel",
+     None, "sw32_bwd"),
+    ("flat", 96, BF16, "flash_fwd_sm90_kernel", "flash_bwd_sm90_kernel",
+     None, "sw32_bwd"),
     ("flat", 320, FP32, "flash_fwd_f32_wide_kernel",
-     "flash_bwd_f32_wide_kernel", True, True),
+     "flash_bwd_f32_wide_kernel", "f32_wide", "f32_wide"),
     ("pair", 384, FP32, "flash_fwd_f32_wide_kernel",
-     "flash_bwd_f32_wide_kernel", True, True)]
+     "flash_bwd_f32_wide_kernel", "f32_wide", "f32_wide")]
+WIDE_ROUTES += [(launcher, d, FP32, "flash_fwd_f32_kernel",
+                 "flash_bwd_f32_kernel", None, "f32_bwd")
+                for launcher in ("flat", "pair") for d in (64, 128, 256)]
 
 
 def phase_wide_route():
@@ -1369,20 +1416,28 @@ def phase_wide_route():
     torch.profiler, counts set to 0 just before): bf16 heads above 256 on
     both launchers run flash_fwd_wide_kernel and flash_bwd_wide_kernel
     (each behind its scale_q_kernel launch); the bf16 D = 256 backward runs
-    flash_bwd_wide_kernel, not the WMMA body; D = 96 keeps the WMMA
-    backward; fp32 above 256 runs flash_fwd_f32_wide_kernel and
-    flash_bwd_f32_wide_kernel on both launchers. The flash kernels seen
-    must be exactly the expected ones, and the wrappers' wide-launch
-    counters (bf16 and fp32) must agree."""
+    flash_bwd_wide_kernel; the bf16 backward at 80 and 96 runs
+    flash_bwd_sm90_kernel at that head size (its template argument in the
+    name); fp32 above 256 runs flash_fwd_f32_wide_kernel and
+    flash_bwd_f32_wide_kernel on both launchers, and fp32 at 64, 128 and
+    256 the SIMT forward and flash_bwd_f32_kernel. The flash kernels seen
+    must be exactly the expected ones, and each body counter of the
+    wrappers (bf16 wide, fp32 wide, fp32 backward, bf16 80/96 backward)
+    must read 1 where its body ran and 0 elsewhere."""
     from torch.profiler import ProfilerActivity, profile
 
-    from paddle_tpu_torch.kernels import (f32_wide_launch_counts,
+    from paddle_tpu_torch.kernels import (f32_bwd_launch_counts,
+                                          f32_wide_launch_counts,
                                           flash_attention, flash_pair,
                                           launch_counts, reset_launch_counts,
+                                          sw32_bwd_launch_counts,
                                           wide_launch_counts)
+    readers = {"wide": wide_launch_counts, "f32_wide": f32_wide_launch_counts,
+               "f32_bwd": f32_bwd_launch_counts,
+               "sw32_bwd": sw32_bwd_launch_counts}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(81)
-    for launcher, d, dtype, fwd_body, bwd_body, wide_f, wide_b in WIDE_ROUTES:
+    for launcher, d, dtype, fwd_body, bwd_body, ctr_f, ctr_b in WIDE_ROUTES:
         b, L, h = 2, 256, 4
         if launcher == "flat":
             q, k, v, g = _fa_inputs(b, L, L, h, 2, d, dtype, gen)
@@ -1407,27 +1462,29 @@ def phase_wide_route():
             run()
             torch.cuda.synchronize()
         counts = launch_counts()
-        wide = (wide_launch_counts() if dtype == BF16
-                else f32_wide_launch_counts())
-        other = (f32_wide_launch_counts() if dtype == BF16
-                 else wide_launch_counts())
-        seen = {n for n in FLASH_KERNELS
-                if any(n in e.key for e in prof.key_averages())}
+        keys = [e.key for e in prof.key_averages()]
+        seen = {n for n in FLASH_KERNELS if any(n in key for key in keys)}
         want = {fwd_body, bwd_body, "bwd_prepass_kernel", "dq_convert_kernel"}
-        if dtype == BF16 and (wide_f or wide_b):
+        if dtype == BF16 and "wide" in (ctr_f, ctr_b):
             want.add("scale_q_kernel")
+        bodies = {}                          # counter -> {wrapper: count}
+        for ctr, reader in readers.items():
+            bodies.update({(ctr, n): c for n, c in reader().items()})
+        expect = {key: int(key in ((ctr_f, names[0]), (ctr_b, names[1])))
+                  for key in bodies}
+        sized = bwd_body != "flash_bwd_sm90_kernel" or any(
+            f"flash_bwd_sm90_kernel<{d}," in key for key in keys)
+        ran = {f"{c}:{n}": x for (c, n), x in bodies.items() if x}
         tag = (f"[wide-route] {launcher} D={d} {str(dtype)[6:]}: flash "
                f"kernels {sorted(seen)}; launches {names[0]} "
-               f"{counts[names[0]]} (wide {wide[names[0]]}), {names[1]} "
-               f"{counts[names[1]]} (wide {wide[names[1]]})")
+               f"{counts[names[0]]}, {names[1]} {counts[names[1]]}; body "
+               f"counters {ran}")
         log(tag)
         if not (seen == want and counts[names[0]] == 1
-                and counts[names[1]] == 1
-                and wide[names[0]] == int(wide_f)
-                and wide[names[1]] == int(wide_b)
-                and not any(other.values())):
+                and counts[names[1]] == 1 and bodies == expect and sized):
             raise AssertionError(f"{tag}: expected the kernels "
-                                 f"{sorted(want)}")
+                                 f"{sorted(want)} and the counters "
+                                 f"{ctr_f}, {ctr_b}")
         torch.cuda.empty_cache()
 
 
@@ -1437,9 +1494,6 @@ def phase_wide_route():
 # 3*8*384] causal
 FP32_WIDE_CASES = [("flat", 2, 1024, 8, 2, 512),
                    ("pair", 2, 1024, 8, 8, 384)]
-# the speed-ups over the parent's SIMT bigd:: kernels the fp32 wide kernels
-# must show at the flat headline shape, forward and backward
-FP32_WIDE_SPEEDUP = (6.0, 8.0)
 
 
 def _sdpa_kernels(fn):
@@ -1460,8 +1514,9 @@ def _sdpa_kernels(fn):
 
 def phase_fp32_bodies(parent, parent_fwd, parent_bwd):
     """The fp32 bodies beside sdpa in fp32 and the fp32 bound (67 TFLOP/s),
-    causal: the SIMT forward and backward at [2, 1024, 8/2, 128], and the
-    fp32 wide kernels (csrc/flash_f32_wide.cuh) at FP32_WIDE_CASES.
+    causal: the SIMT forward and the FFMA backward (flash_bwd_f32_kernel of
+    csrc/flash_f32_wide.cuh) at [2, 1024, 8/2, 128], and the fp32 wide
+    kernels (the same header) at FP32_WIDE_CASES.
 
     TF32 is off for matrix products (allow_tf32 False, printed), so sdpa
     runs fp32; the phase names the kernels sdpa ran (profiler) and holds
@@ -1470,12 +1525,17 @@ def phase_fp32_bodies(parent, parent_fwd, parent_bwd):
     printed beside. At the wide shapes the forward must also agree with
     its fp32 plain version within [compare-fa]'s limits (out atol = rtol =
     1e-4, lse 1e-3), dk and dv be equal between two launches and, with a
-    parent tree, out and lse agree with the parent's bigd:: kernels within
+    parent tree, out and lse agree with the parent's kernels within
     atol = rtol = 1e-4 (the parent's gradient, against the same exact one,
     is printed). Times: the flat case's beside its parent's from
-    [parent-fwd] / [parent-bwd] (at least FP32_WIDE_SPEEDUP faster), the
-    packed case's beside its parent's in turns here. Returns the flat
-    case's forward and backward records."""
+    [parent-fwd] / [parent-bwd] (no slower beyond the noise there), the
+    packed case's beside its parent's in turns here. At D = 128 the
+    backward is held to its fp32 plain version within
+    FA_BWD_REL_LIMIT[FP32] (its scores are the SIMT forward's sums, bit for
+    bit), dk and dv equal between launches, and its time is
+    [parent-bwd]'s f32-128 (at least BWD_SPEEDUP times the parent's SIMT
+    body). Returns the wide flat case's forward and backward records and
+    the D = 128 backward's."""
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_reference,
         flash_attention_fwd, flash_attention_fwd_reference)
@@ -1491,10 +1551,24 @@ def phase_fp32_bodies(parent, parent_fwd, parent_bwd):
     b, L, h, hkv, d = 2, 1024, 8, 2, 128
     q, k, v, g = _fa_inputs(b, L, L, h, hkv, d, FP32, gen)
     out, lse = flash_attention_fwd(q, k, v, True)
+    got = flash_attention_bwd(q, k, v, out, lse, g, True)
+    again = flash_attention_bwd(q, k, v, out, lse, g, True)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_reference(q, k, v, out, lse, g, True)
+    rels = [rel_err(x, y) for x, y in zip(got, want)]
+    worst_abs = max((x - y).abs().max().item() for x, y in zip(got, want))
+    stable = torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    q64, k64, v64, g64 = (t.double() for t in (q, k, v, g))
+    o64, l64 = flash_attention_fwd_reference(q64, k64, v64, True)
+    exact = flash_attention_bwd_reference(q64, k64, v64, o64, l64, g64, True)
+    ours_x = [rel_err(x, y) for x, y in zip(got, exact)]
+    plain_x = [rel_err(x, y) for x, y in zip(want, exact)]
+    del got, again, q64, k64, v64, g64, o64, l64
     ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v, True), iters=5,
                       warmup=1)
-    bwd_ms = cuda_time_ms(lambda: flash_attention_bwd(
-        q, k, v, out, lse, g, True), iters=5, warmup=1)
+    bwd_ms, pbwd_ms = parent_bwd["f32-128"][:2]
+    plain_bwd_ms = cuda_time_ms(lambda: flash_attention_bwd_reference(
+        q, k, v, out, lse, g, True), iters=3, warmup=1)
     lib_ms = cuda_time_ms(lambda: _sdpa_library(q, k, v, True))
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     o = _sdpa_library(*leaves, True)
@@ -1502,11 +1576,27 @@ def phase_fp32_bodies(parent, parent_fwd, parent_bwd):
         o, leaves, g.transpose(1, 2), retain_graph=True))
     fb = fa_bound_ms(b, L, L, h, hkv, d, FP32, True)
     bb = fa_bound_ms(b, L, L, h, hkv, d, FP32, True, backward=True)
-    log(f"[fp32-bodies] B={b} L={L} H={h} Hkv={hkv} D={d} fp32 causal (SIMT "
-        f"kernels): forward {ms:.4f} ms (sdpa {lib_ms:.4f}, bound "
-        f"{fb[0]:.4f} ms {fb[1]}); backward {bwd_ms:.4f} ms (sdpa backward "
-        f"{lib_bwd_ms:.4f}, bound {bb[0]:.4f} ms {bb[1]})")
-    del q, k, v, g, out, lse, leaves, o
+    tag = f"[fp32-bodies] B={b} L={L} H={h} Hkv={hkv} D={d} fp32 causal"
+    log(f"{tag} (flash_bwd_f32_kernel): dq/dk/dv rel {rels[0]:.3g}/"
+        f"{rels[1]:.3g}/{rels[2]:.3g} (limit {FA_BWD_REL_LIMIT[FP32]}); "
+        f"against the exact gradient ours {ours_x[0]:.3g}/{ours_x[1]:.3g}/"
+        f"{ours_x[2]:.3g}, the plain version's {plain_x[0]:.3g}/"
+        f"{plain_x[1]:.3g}/{plain_x[2]:.3g}; dk/dv equal between launches "
+        f"{stable}")
+    parent_note = ("the parent's not measured" if pbwd_ms is None else
+                   f"the parent's SIMT body {pbwd_ms:.4f} ms, "
+                   f"{pbwd_ms / bwd_ms:.2f}x")
+    log(f"{tag} (SIMT forward, flash_bwd_f32_kernel backward): forward "
+        f"{ms:.4f} ms (sdpa {lib_ms:.4f}, bound {fb[0]:.4f} ms {fb[1]}); "
+        f"backward {bwd_ms:.4f} ms ({parent_note}; sdpa backward "
+        f"{lib_bwd_ms:.4f}, {bwd_ms / lib_bwd_ms:.2f}x its time; plain "
+        f"{plain_bwd_ms:.4f}; bound {bb[0]:.4f} ms {bb[1]})")
+    if not (stable and max(rels) < FA_BWD_REL_LIMIT[FP32]):
+        raise AssertionError(f"{tag}: the fp32 backward disagrees")
+    small_record = dict(max_abs_err=worst_abs, ms=bwd_ms,
+                        plain_ms=plain_bwd_ms, bound_ms=bb[0], bound_by=bb[1],
+                        library_ms=lib_bwd_ms, parent_ms=pbwd_ms)
+    del q, k, v, g, out, lse, leaves, o, want, exact
     torch.cuda.empty_cache()
 
     records = None
@@ -1650,11 +1740,6 @@ def phase_fp32_bodies(parent, parent_fwd, parent_bwd):
             f"{bwd_ms / lib_bwd_ms:.2f}x its time; plain {plain_bwd_ms:.4f}; "
             f"bound {bb[0]:.4f} ms {bb[1]})")
         if launcher == "flat":
-            if pms is not None and (pms / ms < FP32_WIDE_SPEEDUP[0]
-                                    or pbwd_ms / bwd_ms
-                                    < FP32_WIDE_SPEEDUP[1]):
-                raise AssertionError(f"{tag}: under {FP32_WIDE_SPEEDUP} "
-                                     f"times the parent's speed")
             records = (dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=fb[0], bound_by=fb[1],
                             library_ms=lib_ms, parent_ms=pms),
@@ -1664,7 +1749,7 @@ def phase_fp32_bodies(parent, parent_fwd, parent_bwd):
                             parent_ms=pbwd_ms))
         del out, lse, got, exact, o64, l64, leaves, lib_o, ref_out, ref_lse
         torch.cuda.empty_cache()
-    return records
+    return records + (small_record,)
 
 
 # ------------------------------------------------------------------ LLaMA
@@ -1799,14 +1884,17 @@ def phase_compare_fa_bwd():
     [compare-fa]: per part (dq, dk, dv) the relative Frobenius error
     (limits FA_BWD_REL_LIMIT), dk and dv equal bit for bit between two
     launches (no atomics there) and dq's run-to-run change. At the
-    training shape and at heads of 80, 96 (the WMMA body) and 256 (the wide
-    body), bf16, it then times the kernel beside the plain version,
-    torch.autograd.grad through the library call and the bound."""
+    training shape and at heads of 80, 96 (csrc/flash_bwd_sm90.cuh on
+    32-byte swizzle blocks) and 256 (the wide body), bf16, it then times
+    the kernel beside the plain version, torch.autograd.grad through the
+    library call and the bound. Returns the record of the bf16 D = 80 case
+    (the kernels line's entry of that body)."""
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_reference,
         flash_attention_fwd, flash_attention_fwd_reference)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
+    record = None
     for case in FA_CASES:
         b, lq, lk, h, hkv, d, dtype, causal = case
         q, k, v, g = _fa_inputs(b, lq, lk, h, hkv, d, dtype, gen)
@@ -1823,10 +1911,11 @@ def phase_compare_fa_bwd():
             limit = BIG_D_FP32_REL_LIMIT
         else:
             want = flash_attention_bwd_reference(q, k, v, out, lse, g, causal)
-        parts = []
+        parts, worst_abs = [], 0.0
         for part, x, y in zip(("dq", "dk", "dv"), got, want):
             rel = rel_err(x, y)
             mx = (x.float() - y.float()).abs().max().item()
+            worst_abs = max(worst_abs, mx)
             parts.append(f"{part} rel {rel:.3g} max|err| {mx:.3g}")
             if not rel < limit:
                 raise AssertionError(
@@ -1859,9 +1948,14 @@ def phase_compare_fa_bwd():
             log(f"[compare-fa-bwd] at [{b}, {lq}, {h}, {d}]: kernel {ms:.4f} "
                 f"ms, plain {plain_ms:.4f} ms, sdpa backward "
                 f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            if dtype == BF16 and d == 80:
+                record = dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=library_ms)
             del leaves, o
         del q, k, v, g, out, lse, got, again, want
         torch.cuda.empty_cache()
+    return record
 
 
 def phase_llama_scoring(model):
@@ -3439,9 +3533,11 @@ def main() -> int:
               "GPU", file=sys.stderr)
         return 2
     try:
-        from paddle_tpu_torch.kernels import (f32_wide_launch_counts,
+        from paddle_tpu_torch.kernels import (f32_bwd_launch_counts,
+                                              f32_wide_launch_counts,
                                               launch_counts,
                                               reset_launch_counts,
+                                              sw32_bwd_launch_counts,
                                               wide_launch_counts)
         from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                              LlamaForCausalLM, llama_7b)
@@ -3468,7 +3564,8 @@ def main() -> int:
                "flash_pair_bwd": phase_compare_bwd()}
     phase_autograd()
     phase_compare_fa()
-    phase_compare_fa_bwd()
+    sw32_record = phase_compare_fa_bwd()
+    sw32_record["parent_ms"] = parent_bwd["wmma-80"][1]
     records["dropout_fwd"] = phase_compare_dropout()
     (records["fused_add_dropout_ln_fwd"],
      records["fused_add_dropout_ln_bwd"]) = phase_compare_fused_ln()
@@ -3494,13 +3591,26 @@ def main() -> int:
         record["parent_ms"] = parent_bwd[tag][1]
 
     def counts():
-        """The launch counts and, as "wide:<wrapper>" and "f32w:<wrapper>",
-        the bf16 and fp32 wide bodies'."""
+        """The launch counts and, as "wide:<wrapper>", "f32w:<wrapper>",
+        "f32b:<wrapper>" and "sw32:<wrapper>", the bf16 and fp32 wide
+        bodies', the fp32 backward's up to 256 and the bf16 backward's at
+        80 and 96."""
         return dict(launch_counts(),
                     **{f"wide:{k}": n for k, n in
                        wide_launch_counts().items()},
                     **{f"f32w:{k}": n for k, n in
-                       f32_wide_launch_counts().items()})
+                       f32_wide_launch_counts().items()},
+                    **{f"f32b:{k}": n for k, n in
+                       f32_bwd_launch_counts().items()},
+                    **{f"sw32:{k}": n for k, n in
+                       sw32_bwd_launch_counts().items()})
+
+    checks = {}        # the fp32 card-vs-CPU phases' launches
+
+    def counted(tag, phase):
+        reset_launch_counts()
+        phase()
+        checks[tag] = counts()
     paths = {}
     t0 = time.perf_counter()
     model = GPTForCausalLM(GPTConfig(**GPT_MEDIUM), dtype=torch.bfloat16,
@@ -3527,9 +3637,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_plain(losses)
     torch.cuda.empty_cache()
-    phase_train_check()
+    counted("train-check", phase_train_check)
     torch.cuda.empty_cache()
-    phase_gpt_dropout_check()
+    counted("gpt-dropout-check", phase_gpt_dropout_check)
     torch.cuda.empty_cache()
 
     reset_launch_counts()                  # BERT training starts here
@@ -3544,7 +3654,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_bert_train_plain(losses)
     torch.cuda.empty_cache()
-    phase_bert_train_check()
+    counted("bert-train-check", phase_bert_train_check)
     torch.cuda.empty_cache()
 
     reset_launch_counts()                  # BERT padded training starts here
@@ -3560,7 +3670,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_bert_train_plain(losses, padded=True)
     torch.cuda.empty_cache()
-    phase_bert_pad_train_check()
+    counted("bert-pad-train-check", phase_bert_pad_train_check)
     torch.cuda.empty_cache()
     phase_bert_pad_full()
     torch.cuda.empty_cache()
@@ -3590,7 +3700,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_llama_train_plain(losses)
     torch.cuda.empty_cache()
-    phase_llama_train_check()
+    counted("llama-train-check", phase_llama_train_check)
 
     # every kernel of a path ran on it
     needs = {"gpt-serving": ["flash_pair_fwd"],
@@ -3613,7 +3723,8 @@ def main() -> int:
             if paths[path][kernel] < 1:
                 raise AssertionError(f"the {path} path never launched "
                                      f"{kernel}")
-    log(f"[paths] launches: {paths}; row 6's call: {row6}")
+    log(f"[paths] launches: {paths}; row 6's call: {row6}; the fp32 "
+        f"check phases: {checks}")
     launches = {k: sum(p[k] for p in paths.values()) for k in records}
     # the wide-head bodies' launches on the model paths (bf16 heads of 64
     # and 128 there: none)
@@ -3622,6 +3733,16 @@ def main() -> int:
                            + p[f"{body}:flash_pair_{d}"]
                            for p in paths.values())
         for body in ("wide", "f32w") for d in ("fwd", "bwd")}
+    # the fp32 backward up to 256 and the bf16 backward at 80 and 96 (no
+    # model path runs fp32 or a head of 80 or 96): their launches on the
+    # model paths and in the fp32 check phases
+    for body in ("f32b", "sw32"):
+        wide_launches[f"{body}:bwd"] = sum(
+            p[f"{body}:flash_attention_bwd"] + p[f"{body}:flash_pair_bwd"]
+            for p in (*paths.values(), *checks.values()))
+    if wide_launches["f32b:bwd"] < 1:
+        raise AssertionError("the fp32 check phases never launched the "
+                             "fp32 backward body")
     kernels = [
         _kernel_entry("flash_pair_fwd", "flash_pair_fwd.cu",
                       "flash_pair.py:95", launches, records["flash_pair_fwd"]),
@@ -3670,7 +3791,19 @@ def main() -> int:
         dict(_kernel_entry("f32w:bwd", "flash_f32_wide.cuh",
                            "flash_attention.py:340", wide_launches,
                            f32_records[1]),
-             name="flash_attention_bwd (fp32 wide body, D > 256)")]
+             name="flash_attention_bwd (fp32 wide body, D > 256)"),
+        # the fp32 backward up to 256 (both launchers; [fp32-bodies] at
+        # [2, 1024, 8/2, 128]) and the bf16 backward at 80 and 96
+        # ([compare-fa-bwd] at [2, 1024, 8/2, 80]): their launches on the
+        # model paths and in the fp32 check phases
+        dict(_kernel_entry("f32b:bwd", "flash_f32_wide.cuh",
+                           "flash_attention.py:340", wide_launches,
+                           f32_records[2]),
+             name="flash_attention_bwd (fp32 body, D <= 256)"),
+        dict(_kernel_entry("sw32:bwd", "flash_bwd_sm90.cuh",
+                           "flash_attention.py:340", wide_launches,
+                           sw32_record),
+             name="flash_attention_bwd (bf16 body, D = 80, 96)")]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 // Flash-attention forward and backward for Hopper (sm_90a), shared by the
 // port's two attention layouts: the operands, the masks, the shared
-// helpers, the fp32 and WMMA bodies and the dispatch. Each launcher source
+// helpers, the fp32 SIMT forward, the backward's pre-pass and dq
+// conversion, and the dispatch. Each launcher source
 // includes this header and exposes one `extern "C"` entry point bound with
 // ctypes:
 //   flash_pair_fwd.cu / flash_pair_bwd.cu         GPT's packed qkv
@@ -58,23 +59,22 @@
 //                                              (flash_f32_wide.cuh: FFMA
 //                                              register micro-tiles, O in
 //                                              shared memory, one pass)
-//   backward  bf16, D = 64, 128                sm90::flash_bwd_sm90_kernel
+//   backward  bf16, D = 64, 80, 96, 128        sm90::flash_bwd_sm90_kernel
 //                                              (flash_bwd_sm90.cuh: TMA,
 //                                              wgmma, dK/dV in registers,
-//                                              bulk dq reductions)
-//             bf16, D = 80, 96                 flash_bwd_kernel<bf16>
-//                                              (below: WMMA from shared
-//                                              memory)
+//                                              bulk dq reductions; 80 and 96
+//                                              on 32-byte swizzle blocks)
 //             bf16, D = 256, and D > 256 with  wide::flash_bwd_wide_kernel
 //             D % 64 == 0                      (flash_wide_sm90.cuh: dK/dV
 //                                              in 128-column slices, S^T
 //                                              and dP^T over D in chunks)
-//             fp32, D = 64, 80, 96, 128, 256   flash_bwd_kernel<float>
-//                                              (below, SIMT)
-//             fp32, D > 256 with D % 64 == 0   f32w::flash_bwd_f32_wide_kernel
+//             fp32, D = 64, 80, 96, 128, 256   f32w::flash_bwd_f32_kernel
 //                                              (flash_f32_wide.cuh: FFMA
 //                                              register micro-tiles, dK and
 //                                              dV in shared memory)
+//             fp32, D > 256 with D % 64 == 0   f32w::flash_bwd_f32_wide_kernel
+//                                              (the same body, in column
+//                                              slices of up to 512)
 //
 // The [B, L, H, D] launchers take every one of those sizes; the pair
 // launchers 64, 128, 256 and the multiples of 128 above 256 (the pair
@@ -91,20 +91,17 @@
 // the scaled copy of q (wide::, bf16 D >= 256: written by its scale_q_kernel
 // launch, the body's fourth).
 //
-// The WMMA and SIMT backward (FlashAttention-2's, extended over a GQA
-// group): one CTA of 4 warps per (64-row kv tile, KV head, batch row; 32
-// rows at D = 256, fp32, so the tiles fit). It loads its K and V tiles once, then
+// Every backward body is FlashAttention-2's, extended over a GQA group: a
+// CTA (or a cluster of them) owns a kv tile of one KV head and batch row,
 // walks every q head of its group and, for each, the 64-row q tiles from
 // the diagonal down (causal: the Pallas tile skip becomes the loop's
 // start), recomputing s and p once per (q tile, kv tile) and feeding all
 // three gradients from them. dk and dv accumulate in fp32 on chip for the
-// whole walk (WMMA accumulator fragments for bf16, per-thread register
-// arrays for fp32), so the group sum needs no scratch; dq's partials go
-// into the fp32 scratch by scalar atomicAdd. The atomics (and the bf16
-// body's bulk reductions) make the order of dq's sums change from run to
-// run (compare dq with a tolerance, never bit for bit). State is
-// tile-sized, so there is no length cutoff: one kernel does the job of the
-// Pallas fused and split backward forms.
+// whole walk, so the group sum needs no scratch; dq's partials go into the
+// fp32 scratch by reductions, whose order changes from run to run (compare
+// dq with a tolerance, never bit for bit). State is tile-sized, so there is
+// no length cutoff: one kernel does the job of the Pallas fused and split
+// backward forms.
 //
 // Dropout on the attention probabilities (every launcher), as the Pallas
 // kernels have it
@@ -143,7 +140,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <stdint.h>
 #include <type_traits>
@@ -153,14 +149,13 @@
 
 namespace {
 
-constexpr int kBM = 64;            // q rows per tile (SIMT forward, backward)
+constexpr int kBM = 64;            // q rows per tile (the SIMT forward)
 constexpr int kWarps = 4;          // each warp owns 16 q rows
 constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;  // _NEG_INF of the Pallas kernels
 
 // Rows of T tiles in shared memory are padded by 16 bytes, which keeps
-// every row 16-byte aligned for vector stores and every 16-row WMMA
-// fragment 32-byte aligned.
+// every row 16-byte aligned for vector stores.
 template <typename T, int D>
 constexpr int kLdTile = D + 16 / (int)sizeof(T);
 
@@ -306,9 +301,9 @@ inline __nv_bfloat16* bwd_qs(const BwdArgs& a, int B) {
 }  // namespace
 
 #include "flash_fwd_sm90.cuh"   // the bf16 forward at D <= 256
-#include "flash_bwd_sm90.cuh"   // the bf16 backward at D = 64, 128
+#include "flash_bwd_sm90.cuh"   // the bf16 backward at D = 64, 80, 96, 128
 #include "flash_wide_sm90.cuh"  // bf16 D > 256 both ways, D = 256 backward
-#include "flash_f32_wide.cuh"   // fp32 D > 256, both directions
+#include "flash_f32_wide.cuh"   // fp32 D > 256 both ways, the D <= 256 backward
 
 namespace {
 
@@ -542,450 +537,6 @@ int flash_fwd(HeadDims<Ds...>, const FwdArgs& a, float* work, int B, int D,
 
 // ----------------------------------------------------------------- backward
 
-// kv rows of a backward CTA (the WMMA and SIMT bodies): 64, or 32 at D =
-// 256 (fp32) so the tiles fit in shared memory and dK/dV in registers.
-template <int D>
-constexpr int kBwdBN = D == 256 ? 32 : 64;
-
-// Shared-memory geometry; every region size is a multiple of 128 bytes.
-//   K, V                   : [BN][kLdT] T
-//   Q (unscaled), dO       : [64][kLdT] T
-//   Qs (q * scale, rounded): [64][kLdT] T           (bf16 only)
-//   S, dP                  : [64][kLdS] float       (fp32: p and ds in place)
-//   P, dS                  : [64][kLdP] T           (bf16 only)
-//   dQ/dK/dV staging       : [64][kLdQ] float       (bf16 only)
-//   lse, delta             : [64] float
-template <typename T, int D, int BN>
-struct BwdGeom {
-  static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  static constexpr int kLdT = kLdTile<T, D>;
-  static constexpr int kLdS = BN + 4;
-  static constexpr int kLdP = BN + 16 / (int)sizeof(T);
-  static constexpr int kLdQ = D + 4;
-  static constexpr size_t kTileQ = sizeof(T) * kBM * kLdT;
-  static constexpr size_t kTileKV = sizeof(T) * BN * kLdT;
-  static constexpr size_t kK = 0;
-  static constexpr size_t kV = kK + kTileKV;
-  static constexpr size_t kQ = kV + kTileKV;
-  static constexpr size_t kDO = kQ + kTileQ;
-  static constexpr size_t kQs = kDO + kTileQ;
-  static constexpr size_t kS = kQs + (kBf16 ? kTileQ : 0);
-  static constexpr size_t kDP = kS + sizeof(float) * kBM * kLdS;
-  static constexpr size_t kP = kDP + sizeof(float) * kBM * kLdS;
-  static constexpr size_t kDS = kP + (kBf16 ? sizeof(T) * kBM * kLdP : 0);
-  static constexpr size_t kDQ = kDS + (kBf16 ? sizeof(T) * kBM * kLdP : 0);
-  static constexpr size_t kLse = kDQ + (kBf16 ? sizeof(float) * kBM * kLdQ : 0);
-  static constexpr size_t kDelta = kLse + sizeof(float) * kBM;
-  static constexpr size_t kBytes = kDelta + sizeof(float) * kBM;
-  // bf16: warp w owns kv rows [16 * (w % kRowBlocks), +16) and columns
-  // [(w / kRowBlocks) * kCols, +kCols) of dK and dV
-  static constexpr int kRowBlocks = BN / 16;
-  static constexpr int kCols = D / (kWarps / kRowBlocks);
-  __device__ static int row0(int warp) {
-    return (kRowBlocks == kWarps ? warp : warp % kRowBlocks) * 16;
-  }
-  __device__ static int col0(int warp) {  // 0 when a warp owns all of D
-    return kRowBlocks == kWarps ? 0 : (warp / kRowBlocks) * kCols;
-  }
-  // fp32: thread t owns kv row t / kTpr, columns [(t % kTpr) * D / kTpr,
-  // +D / kTpr)
-  static constexpr int kTpr = kThreads / BN;
-  static_assert(kBytes <= 232448, "backward tiles exceed shared memory");
-};
-
-// dK/dV accumulators, fp32, live for the CTA's whole walk.
-template <typename T, int D, int BN>
-struct Acc;
-template <int D, int BN>
-struct Acc<__nv_bfloat16, D, BN> {
-  static constexpr int kFrags = BwdGeom<__nv_bfloat16, D, BN>::kCols / 16;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
-      dk[kFrags], dv[kFrags];
-};
-template <int D, int BN>
-struct Acc<float, D, BN> {
-  static constexpr int kN = D / BwdGeom<float, D, BN>::kTpr;
-  float dk[kN], dv[kN];
-};
-
-// One (q tile, kv tile) step on the tensor cores (bf16, the WMMA body).
-// dqg points at this head's dq scratch, whose rows are q_stride apart; bh =
-// b * H + h keys the dropout words.
-template <int D, int BN, bool kDrop, class M>
-__device__ __forceinline__ void step_bf16(
-    Acc<__nv_bfloat16, D, BN>& acc, unsigned char* smem, int m0, int n0,
-    M mask, float* dqg, long q_stride, int warp, int lane,
-    const DropParams& drop, uint32_t bh) {
-  using namespace nvcuda;
-  using T = __nv_bfloat16;
-  using G = BwdGeom<T, D, BN>;
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>;
-  using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major>;
-  using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major>;
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  const T* Ks = reinterpret_cast<const T*>(smem + G::kK);
-  const T* Vs = reinterpret_cast<const T*>(smem + G::kV);
-  const T* Qs = reinterpret_cast<const T*>(smem + G::kQ);
-  const T* DOs = reinterpret_cast<const T*>(smem + G::kDO);
-  const T* QSs = reinterpret_cast<const T*>(smem + G::kQs);
-  float* Ss = reinterpret_cast<float*>(smem + G::kS);
-  float* DPs = reinterpret_cast<float*>(smem + G::kDP);
-  T* Ps = reinterpret_cast<T*>(smem + G::kP);
-  T* DSs = reinterpret_cast<T*>(smem + G::kDS);
-  float* DQs = reinterpret_cast<float*>(smem + G::kDQ);
-  const float* Lse = reinterpret_cast<const float*>(smem + G::kLse);
-  const float* Delta = reinterpret_cast<const float*>(smem + G::kDelta);
-
-  // S = Qs . K^T, then dP = dO . V^T, for this warp's 16 q rows (two passes
-  // keep only BN / 16 accumulator fragments live beside dK/dV)
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-    const T* A = pass == 0 ? QSs : DOs;
-    const T* Bm = pass == 0 ? Ks : Vs;
-    float* out = pass == 0 ? Ss : DPs;
-    FragC c[BN / 16];
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) wmma::fill_fragment(c[j], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, A + warp * 16 * G::kLdT + kk, G::kLdT);
-#pragma unroll
-      for (int j = 0; j < BN / 16; ++j) {
-        // a [n][d] row-major tile is its transpose in column-major order
-        FragBt bt;
-        wmma::load_matrix_sync(bt, Bm + j * 16 * G::kLdT + kk, G::kLdT);
-        wmma::mma_sync(c[j], fa, bt, c[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      wmma::store_matrix_sync(out + warp * 16 * G::kLdS + j * 16, c[j],
-                              G::kLdS, wmma::mem_row_major);
-    }
-  }
-  __syncwarp();
-
-  // p and ds for this warp's rows: a lane pair per row, BN / 2 columns each
-  {
-    const int r = warp * 16 + (lane >> 1);
-    const int qrow = m0 + r;
-    const int c0 = (lane & 1) * (BN / 2);
-    const float l = Lse[r];
-    const float dl = Delta[r];
-    for (int c = c0; c < c0 + BN / 2; c += 4) {
-      uint4 w;
-      if constexpr (kDrop)
-        w = keep_words(drop, (uint32_t)(n0 + c) >> 2, (uint32_t)qrow, bh,
-                       kSaltAttention);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int cc = c + e;
-        const float p = mask(qrow, n0 + cc)
-                            ? expf(Ss[r * G::kLdS + cc] - l) : 0.0f;
-        float dp = DPs[r * G::kLdS + cc];
-        float p_dv = p;
-        if constexpr (kDrop) {
-          const float f = keep_factor(drop, word_of(w, e));
-          p_dv = p * f;
-          dp = dp * f;
-        }
-        const float ds = p * (dp - dl);
-        Ps[r * G::kLdP + cc] = from_f<T>(p_dv);  // rounded to dO's type
-        DSs[r * G::kLdP + cc] = from_f<T>(ds);   // rounded to the input type
-      }
-    }
-  }
-  __syncthreads();  // dV and dK read every q row's p and ds
-
-  // dV += P^T . dO and dK += dS^T . Q for this warp's kv rows and columns
-  const int rb = G::row0(warp);
-  const int cb = G::col0(warp);
-#pragma unroll
-  for (int kk = 0; kk < kBM; kk += 16) {
-    FragAt pt, dst;
-    wmma::load_matrix_sync(pt, Ps + kk * G::kLdP + rb, G::kLdP);
-    wmma::load_matrix_sync(dst, DSs + kk * G::kLdP + rb, G::kLdP);
-#pragma unroll
-    for (int j = 0; j < G::kCols / 16; ++j) {
-      FragB bdo, bq;
-      wmma::load_matrix_sync(bdo, DOs + kk * G::kLdT + cb + j * 16, G::kLdT);
-      wmma::mma_sync(acc.dv[j], pt, bdo, acc.dv[j]);
-      wmma::load_matrix_sync(bq, Qs + kk * G::kLdT + cb + j * 16, G::kLdT);
-      wmma::mma_sync(acc.dk[j], dst, bq, acc.dk[j]);
-    }
-  }
-
-  // dQ partial = dS . K for this warp's 16 q rows, staged and added to the
-  // fp32 scratch with atomics (unscaled: the conversion scales)
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    FragC c;
-    wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < BN; kk += 16) {
-      FragA fa;
-      FragB bk;
-      wmma::load_matrix_sync(fa, DSs + warp * 16 * G::kLdP + kk, G::kLdP);
-      wmma::load_matrix_sync(bk, Ks + kk * G::kLdT + j * 16, G::kLdT);
-      wmma::mma_sync(c, fa, bk, c);
-    }
-    wmma::store_matrix_sync(DQs + warp * 16 * G::kLdQ + j * 16, c, G::kLdQ,
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int rr = i / D;
-    const int d = i % D;
-    const int gr = m0 + warp * 16 + rr;
-    if (gr < mask.Lq) {
-      atomicAdd(dqg + (long)gr * q_stride + d,
-                DQs[(warp * 16 + rr) * G::kLdQ + d]);
-    }
-  }
-}
-
-// One (q tile, kv tile) step with plain FMA (fp32).
-template <int D, int BN, bool kDrop, class M>
-__device__ __forceinline__ void step_f32(Acc<float, D, BN>& acc,
-                                         unsigned char* smem, int m0, int n0,
-                                         M mask, float sm_scale,
-                                         float* dqg, long q_stride,
-                                         const DropParams& drop,
-                                         uint32_t bh) {
-  using T = float;
-  using G = BwdGeom<T, D, BN>;
-  const T* Ks = reinterpret_cast<const T*>(smem + G::kK);
-  const T* Vs = reinterpret_cast<const T*>(smem + G::kV);
-  const T* Qs = reinterpret_cast<const T*>(smem + G::kQ);
-  const T* DOs = reinterpret_cast<const T*>(smem + G::kDO);
-  float* Ps = reinterpret_cast<float*>(smem + G::kS);   // p over s
-  float* DSs = reinterpret_cast<float*>(smem + G::kDP); // ds over dp
-  const float* Lse = reinterpret_cast<const float*>(smem + G::kLse);
-  const float* Delta = reinterpret_cast<const float*>(smem + G::kDelta);
-  const int r = threadIdx.x >> 1;
-  const int half = threadIdx.x & 1;
-
-  // s, p, dp and ds for q row r, kv columns [half * BN / 2, +BN / 2)
-  {
-    const int qrow = m0 + r;
-    const float l = Lse[r];
-    const float dl = Delta[r];
-    const T* q = Qs + r * G::kLdT;
-    const T* dout = DOs + r * G::kLdT;
-    for (int c4 = half * (BN / 2); c4 < (half + 1) * (BN / 2); c4 += 4) {
-      uint4 w;
-      if constexpr (kDrop)
-        w = keep_words(drop, (uint32_t)(n0 + c4) >> 2, (uint32_t)qrow, bh,
-                       kSaltAttention);
-      for (int e = 0; e < 4; ++e) {
-        const int c = c4 + e;
-        const T* k = Ks + c * G::kLdT;
-        const T* v = Vs + c * G::kLdT;
-        float s = 0.0f, dp = 0.0f;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) {
-          s = fmaf(q[d] * sm_scale, k[d], s);
-          dp = fmaf(dout[d], v[d], dp);
-        }
-        const float p = mask(qrow, n0 + c) ? expf(s - l) : 0.0f;
-        float p_dv = p;
-        if constexpr (kDrop) {
-          const float f = keep_factor(drop, word_of(w, e));
-          p_dv = p * f;
-          dp = dp * f;
-        }
-        Ps[r * G::kLdS + c] = p_dv;
-        DSs[r * G::kLdS + c] = p * (dp - dl);
-      }
-    }
-  }
-  __syncthreads();  // dV and dK read every q row's p and ds
-
-  // dV += P^T . dO and dK += dS^T . Q for this thread's kv row and columns
-  {
-    const int kr = threadIdx.x / G::kTpr;
-    const int d0 = (threadIdx.x % G::kTpr) * Acc<float, D, BN>::kN;
-    for (int c = 0; c < kBM; ++c) {
-      const float p = Ps[c * G::kLdS + kr];
-      const float ds = DSs[c * G::kLdS + kr];
-      const T* dout = DOs + c * G::kLdT + d0;
-      const T* q = Qs + c * G::kLdT + d0;
-#pragma unroll
-      for (int dd = 0; dd < Acc<float, D, BN>::kN; ++dd) {
-        acc.dv[dd] = fmaf(p, dout[dd], acc.dv[dd]);
-        acc.dk[dd] = fmaf(ds, q[dd], acc.dk[dd]);
-      }
-    }
-  }
-
-  // dQ partial = dS . K for q row r, this thread's half of the columns, a
-  // chunk at a time
-  constexpr int kChunk = (D / 2) % 16 == 0 ? 16 : 8;
-  const int d0 = half * (D / 2);
-  const int qrow = m0 + r;
-#pragma unroll
-  for (int j = 0; j < D / 2; j += kChunk) {
-    float part[kChunk];
-#pragma unroll
-    for (int e = 0; e < kChunk; ++e) part[e] = 0.0f;
-    for (int c = 0; c < BN; ++c) {
-      const float ds = DSs[r * G::kLdS + c];
-      const T* k = Ks + c * G::kLdT + d0 + j;
-#pragma unroll
-      for (int e = 0; e < kChunk; ++e) part[e] = fmaf(ds, k[e], part[e]);
-    }
-    if (qrow < mask.Lq) {
-#pragma unroll
-      for (int e = 0; e < kChunk; ++e) {
-        atomicAdd(dqg + (long)qrow * q_stride + d0 + j + e, part[e]);
-      }
-    }
-  }
-}
-
-template <typename T, int D, int BN, bool kDrop, bool kSegs>
-__global__ void __launch_bounds__(kThreads) flash_bwd_kernel(BwdArgs a) {
-  using G = BwdGeom<T, D, BN>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem + G::kK);
-  T* Vs = reinterpret_cast<T*>(smem + G::kV);
-  T* Qs = reinterpret_cast<T*>(smem + G::kQ);
-  T* DOs = reinterpret_cast<T*>(smem + G::kDO);
-  T* QSs = reinterpret_cast<T*>(smem + G::kQs);
-  float* Lse = reinterpret_cast<float*>(smem + G::kLse);
-  float* Delta = reinterpret_cast<float*>(smem + G::kDelta);
-
-  const int n0 = blockIdx.x * BN;  // kv tile 0 walks the most q tiles
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int group = a.H / a.Hkv;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const long do_row = (long)a.H * D;  // dO and the dq scratch: contiguous
-  const Mask<kSegs> mask = mask_of<kSegs>(a, b);
-  const long kv_base = (long)b * a.Lk * a.kv_row + (long)hk * D;
-
-  if (n0 >= mask.len) {
-    // every key of this tile is past the length: no query sees it, so its
-    // dk and dv are zero, and it adds nothing to dq
-    const long base = (long)b * a.Lk * a.dkv_row + (long)hk * D;
-    for (int i = threadIdx.x; i < BN * D; i += kThreads) {
-      const int gr = n0 + i / D;
-      if (gr < a.Lk) {
-        const long at = base + (long)gr * a.dkv_row + i % D;
-        static_cast<T*>(a.dk)[at] = from_f<T>(0.0f);
-        static_cast<T*>(a.dv)[at] = from_f<T>(0.0f);
-      }
-    }
-    return;
-  }
-
-  load_tile<T, D, false>(Ks, static_cast<const T*>(a.k) + kv_base, n0, BN,
-                         a.Lk, a.kv_row, 1.0f);
-  load_tile<T, D, false>(Vs, static_cast<const T*>(a.v) + kv_base, n0, BN,
-                         a.Lk, a.kv_row, 1.0f);
-
-  Acc<T, D, BN> acc;
-  if constexpr (G::kBf16) {
-#pragma unroll
-    for (int j = 0; j < Acc<T, D, BN>::kFrags; ++j) {
-      nvcuda::wmma::fill_fragment(acc.dk[j], 0.0f);
-      nvcuda::wmma::fill_fragment(acc.dv[j], 0.0f);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < Acc<T, D, BN>::kN; ++j) {
-      acc.dk[j] = 0.0f;
-      acc.dv[j] = 0.0f;
-    }
-  }
-
-  // causal: the first q row that sees key n0 is n0 - offset; the walk
-  // starts at the q tile holding it (tiles are aligned at multiples of 64)
-  const int first = a.causal ? max(0, n0 - mask.offset) : 0;
-  const int m_begin = (first / kBM) * kBM;
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const T* qg = static_cast<const T*>(a.q) + (long)b * a.Lq * a.q_row +
-                  (long)h * D;
-    const T* dog = static_cast<const T*>(a.dout) + (long)b * a.Lq * do_row +
-                   (long)h * D;
-    const float* lseg = a.lse_pad + ((long)b * a.H + h) * a.Lq_pad;
-    const float* deltag = a.delta + ((long)b * a.H + h) * a.Lq_pad;
-    float* dqg = a.dq_acc + (long)b * a.Lq * do_row + (long)h * D;
-    for (int m0 = m_begin; m0 < a.Lq; m0 += kBM) {
-      __syncthreads();  // the previous step is done with Q, dO, P, dS
-      load_tile<T, D, false>(Qs, qg, m0, kBM, a.Lq, a.q_row, 1.0f);
-      if constexpr (G::kBf16) {
-        load_tile<T, D, true>(QSs, qg, m0, kBM, a.Lq, a.q_row, a.sm_scale);
-      }
-      load_tile<T, D, false>(DOs, dog, m0, kBM, a.Lq, do_row, 1.0f);
-      if (threadIdx.x < kBM) {
-        const int gr = m0 + threadIdx.x;
-        Lse[threadIdx.x] = gr < a.Lq ? lseg[gr] : 0.0f;
-        Delta[threadIdx.x] = gr < a.Lq ? deltag[gr] : 0.0f;
-      }
-      __syncthreads();
-      const uint32_t bh = (uint32_t)(b * a.H + h);
-      if constexpr (G::kBf16) {
-        step_bf16<D, BN, kDrop>(acc, smem, m0, n0, mask, dqg, do_row, warp,
-                                lane, a.drop, bh);
-      } else {
-        step_f32<D, BN, kDrop>(acc, smem, m0, n0, mask, a.sm_scale, dqg,
-                               do_row, a.drop, bh);
-      }
-    }
-  }
-
-  // dk (scaled once here rather than per tile) and dv, the group's fp32
-  // sums, rounded once into their rows
-  const long dkv_base = (long)b * a.Lk * a.dkv_row + (long)hk * D;
-  T* dk_out = static_cast<T*>(a.dk) + dkv_base;
-  T* dv_out = static_cast<T*>(a.dv) + dkv_base;
-  if constexpr (G::kBf16) {
-    float* stage = reinterpret_cast<float*>(smem + G::kDQ);
-    const int rb = G::row0(warp);
-    const int cb = G::col0(warp);
-    __syncthreads();
-#pragma unroll
-    for (int part = 0; part < 2; ++part) {
-#pragma unroll
-      for (int j = 0; j < Acc<T, D, BN>::kFrags; ++j) {
-        nvcuda::wmma::store_matrix_sync(
-            stage + rb * G::kLdQ + cb + j * 16,
-            part == 0 ? acc.dk[j] : acc.dv[j], G::kLdQ,
-            nvcuda::wmma::mem_row_major);
-      }
-      __syncwarp();
-      T* dst = part == 0 ? dk_out : dv_out;
-      const float mul = part == 0 ? a.sm_scale : 1.0f;
-      for (int i = lane; i < 16 * G::kCols; i += 32) {
-        const int rr = i / G::kCols;
-        const int d = cb + i % G::kCols;
-        const int gr = n0 + rb + rr;
-        if (gr < a.Lk) {
-          dst[(long)gr * a.dkv_row + d] =
-              from_f<T>(stage[(rb + rr) * G::kLdQ + d] * mul);
-        }
-      }
-      __syncwarp();
-    }
-  } else {
-    constexpr int kN = Acc<T, D, BN>::kN;
-    const int gr = n0 + threadIdx.x / G::kTpr;
-    const int d0 = (threadIdx.x % G::kTpr) * kN;
-    if (gr < a.Lk) {
-#pragma unroll
-      for (int dd = 0; dd < kN; ++dd) {
-        dk_out[(long)gr * a.dkv_row + d0 + dd] = acc.dk[dd] * a.sm_scale;
-        dv_out[(long)gr * a.dkv_row + d0 + dd] = acc.dv[dd];
-      }
-    }
-  }
-}
-
 // delta = rowsum(dO * O) in fp32 and the forward's lse, both into rows
 // padded to Lq_pad (0 past Lq), and the dq scratch zeroed: a thread per
 // (b, h, q row), then a grid-stride pass over the scratch.
@@ -1046,31 +597,21 @@ __global__ void dq_convert_kernel(const float* __restrict__ dq_acc,
   }
 }
 
-// The backward body at head size D (D <= 256): in bf16 the Hopper body
-// (64, 128), the wide body (256) or the WMMA body (80, 96); in fp32 the
-// SIMT body.
-template <typename T, int D, bool kDrop, bool kSegs>
-cudaError_t launch_bwd_body(const BwdArgs& a, int B, cudaStream_t stream) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  if constexpr (kBf16 && sm90::bwd_sm90_takes(D)) {
+// The bf16 backward body at head size D (D <= 256): the Hopper body (64,
+// 80, 96, 128) or the wide body (256).
+template <int D, bool kDrop, bool kSegs>
+cudaError_t launch_bwd_bf16(const BwdArgs& a, int B, cudaStream_t stream) {
+  static_assert(sm90::bwd_sm90_takes(D) || wide::bwd_takes(D),
+                "a bf16 backward body for every built head size");
+  if constexpr (sm90::bwd_sm90_takes(D))
     return sm90::launch_bwd<D, kDrop, kSegs>(a, B, stream);
-  } else if constexpr (kBf16 && wide::bwd_takes(D)) {
+  else
     return wide::launch_bwd<kDrop, kSegs>(a, bwd_qs(a, B), B, D, stream);
-  } else {
-    constexpr int BN = kBwdBN<D>;
-    using G = BwdGeom<T, D, BN>;
-    auto kernel = flash_bwd_kernel<T, D, BN, kDrop, kSegs>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kBytes);
-    if (err != cudaSuccess) return err;
-    dim3 grid((a.Lk + BN - 1) / BN, a.Hkv, B);
-    kernel<<<grid, kThreads, G::kBytes, stream>>>(a);
-    return cudaGetLastError();
-  }
 }
 
-// The launches of one backward in input type T: the pre-pass, the body (D >
-// 256: wide:: in bf16, f32w:: in fp32; else one of Ds), the dq conversion.
+// The launches of one backward in input type T: the pre-pass, the body
+// (bf16: wide:: above 256, else one of Ds; fp32: f32w:: at every D, one of
+// Ds up to 256), the dq conversion.
 template <typename T, bool kDrop, bool kSegs, int... Ds>
 cudaError_t launch_bwd_all(HeadDims<Ds...>, const BwdArgs& a, int B, int D,
                            cudaStream_t st) {
@@ -1081,14 +622,14 @@ cudaError_t launch_bwd_all(HeadDims<Ds...>, const BwdArgs& a, int B, int D,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = cudaErrorInvalidValue;
-  if (D > 256) {
-    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (D > 256)
       err = wide::launch_bwd<kDrop, kSegs>(a, bwd_qs(a, B), B, D, st);
     else
-      err = f32w::launch_bwd<kDrop, kSegs>(a, B, D, st);
-  } else {
-    ((D == Ds ? (err = launch_bwd_body<T, Ds, kDrop, kSegs>(a, B, st)) : err),
-     ...);
+      ((D == Ds ? (err = launch_bwd_bf16<Ds, kDrop, kSegs>(a, B, st)) : err),
+       ...);
+  } else if (D > 256 || ((D == Ds) || ...)) {
+    err = f32w::launch_bwd<kDrop, kSegs>(a, B, D, st);
   }
   if (err != cudaSuccess) return err;
   dq_convert_kernel<T><<<grid_for(n), 256, 0, st>>>(

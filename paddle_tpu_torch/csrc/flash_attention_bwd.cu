@@ -31,11 +31,10 @@
 // ms) against 403 MB (0.12 ms): bytes bound it.
 
 // Head sizes 64, 80, 96, 128, 256 and every multiple of 64 above 256 are
-// built: bf16 at 64 and 128 runs the Hopper body of flash_bwd_sm90.cuh,
-// at 256 and above the wide Hopper body of flash_wide_sm90.cuh (dK/dV in
-// 128-column slices), at 80 and 96 the WMMA body; fp32 the SIMT body, and
-// above 256 the f32w:: kernel of flash_f32_wide.cuh (flash_attention.cuh
-// sets out the dispatch).
+// built: bf16 at 64, 80, 96 and 128 runs the Hopper body of
+// flash_bwd_sm90.cuh, at 256 and above the wide Hopper body of
+// flash_wide_sm90.cuh (dK/dV in 128-column slices); fp32 the FFMA kernels
+// of flash_f32_wide.cuh (flash_attention.cuh sets out the dispatch).
 
 #include "flash_attention.cuh"
 

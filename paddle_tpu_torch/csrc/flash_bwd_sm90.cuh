@@ -3,13 +3,11 @@
 // its fp32 scratch by bulk reductions. Included by flash_attention.cuh,
 // whose backward contract it computes (the math, the rounding points, the
 // masks and the dropout keying are set out there); flash_bwd dispatches
-// every bf16 backward at head sizes 64 and 128 here, from both launchers
-// (flash_attention_bwd.cu, the [B, L, H, D] layout with GQA, lengths and
-// segment ids; flash_pair_bwd.cu, packed qkv). Heads of 256 run the wide
-// body of flash_wide_sm90.cuh (dK/dV of a whole head do not fit in
-// registers beside this walk's S and dP there), 80 and 96 keep the WMMA
-// body of flash_attention.cuh (they need the 32-byte swizzle's column
-// blocks in every product).
+// every bf16 backward at head sizes 64, 80, 96 and 128 here, from both
+// launchers (flash_attention_bwd.cu, the [B, L, H, D] layout with GQA,
+// lengths and segment ids; flash_pair_bwd.cu, packed qkv, at 64 and 128).
+// Heads of 256 run the wide body of flash_wide_sm90.cuh (dK/dV of a whole
+// head do not fit in registers beside this walk's S and dP there).
 //
 // Replaces: paddle_tpu/kernels/pallas/flash_attention.py
 // `_flash_bwd_fused_kernel`, `_flash_dq_kernel` + `_flash_dkv_kernel` and
@@ -30,6 +28,12 @@
 //   thread at 168 registers): warp 0 issues the TMA loads, lane 0
 //   predicated inside the PTX. The grid's slowest dimension is the kv
 //   tile, so the longest causal walks (kv tile 0) launch first.
+// * Tiles live in shared memory in TMA's swizzled layout, cut into column
+//   blocks of W = 64 bf16 (128-byte swizzle) where D is a multiple of 64,
+//   else of 16 (32-byte swizzle: five blocks at D = 80, six at 96), as the
+//   forward's; every product's descriptors carry the blocks' swizzle
+//   (S^T and dP^T take one block a k-step, dV, dK and dQ read dO, Q and K
+//   MN-major with the blocks' distance as the leading offset).
 // * Loads: K and V once by TMA (3-D boxes: columns, L, batch row, so rows
 //   past L read as zero within each batch row); Q, dO and the q tile's lse
 //   and delta through a ring of two stages with full and empty mbarriers,
@@ -44,8 +48,9 @@
 //   dQ = dS K needs every kv row of the tile: dS^T goes to a 128-byte
 //   swizzled bf16 tile [128 kv][64 q], and dQ reads it and K both
 //   MN-major (transposed operands). At D = 128 each warpgroup computes one
-//   64-column half of dQ over all 128 kv rows; at D = 64 each sums its own
-//   64 kv rows over all columns (two reductions of each dq element a tile).
+//   64-column half of dQ over all 128 kv rows; at D = 64, 80 and 96 each
+//   sums its own 64 kv rows over all D columns (m64nDk16; two reductions of
+//   each dq element a tile).
 //   No product stages through fp32 shared memory.
 // * The two copies of q: dK takes the unscaled q (the TMA tile), S the
 //   scaled and rounded round(q * scale): the consumers write the next q
@@ -69,13 +74,13 @@
 //   the four draws the words of a quarter of the group's q columns and the
 //   four transpose them with three xor-shuffles; the keep bits of the
 //   thread's 32 pairs become one 32-bit mask, drawn while the tensor cores
-//   run S and dP at D = 64, and before they are issued at D = 128 (where
+//   run S and dP at D = 64, and before they are issued at D >= 80 (where
 //   the Philox state and the two accumulators do not fit in registers
 //   together).
 // * dq: each warpgroup stages its fp32 dQ tile in shared memory (rows
-//   padded to 288 bytes: no bank conflicts) and adds it to the fp32
-//   scratch with one cp.reduce.async.bulk .add.f32 a q row (256 bytes),
-//   issued by 64 threads; sm_scale is applied once, in the conversion
+//   padded by 32 bytes: no bank conflicts) and adds it to the fp32 scratch
+//   with one cp.reduce.async.bulk .add.f32 a q row (256 bytes; 4 * D at D
+//   = 64, 80, 96), issued by 64 threads; sm_scale is applied once, in the conversion
 //   launch behind the kernel. The reductions' order changes from run to
 //   run (compare dq with a tolerance).
 // * Every branch beside a live accumulator is warp-uniform (trip counts
@@ -106,12 +111,15 @@ constexpr int kBwdRowsKV = kConsumers * kBwdRowsWG;
 
 // The head sizes this body runs (bf16).
 __host__ __device__ constexpr bool bwd_sm90_takes(int D) {
-  return D == 64 || D == 128;
+  return D == 64 || D == 80 || D == 96 || D == 128;
 }
 
 template <int D>
 struct BwdGeom {
-  static constexpr int W = 64;  // columns of one 128-byte swizzle block
+  // columns of one swizzle block: 64 (128-byte swizzle) where D allows,
+  // else 16 (32-byte swizzle: five blocks at D = 80, six at 96), as the
+  // forward's Geom
+  static constexpr int W = D % 64 == 0 ? 64 : 16;
   static constexpr int kBlocks = D / W;
   static constexpr int kRowBytes = W * 2;
   static constexpr int kLayout = swizzle_code(kRowBytes);
@@ -124,6 +132,11 @@ struct BwdGeom {
   static constexpr bool kSplitN = D >= 128;
   static constexpr int kDqCols = kSplitN ? D / kConsumers : D;
   static constexpr int kDqLd = kDqCols * 4 + 32;  // staged dQ row, bytes
+  // 16-byte chunks of one q tile: whole passes of the CTA's threads, and
+  // the warps that take the last, partial one (D = 80)
+  static constexpr int kQChunks = kQTile / 16;
+  static constexpr int kQPasses = kQChunks / kThreadsCTA;
+  static constexpr int kQTailWarps = kQChunks % kThreadsCTA / 32;
   static constexpr int kStages = 2;
   // a stage: Q, dO, the scaled copy of Q, lse[64], delta[64]
   static constexpr int kStQ = 0;
@@ -136,6 +149,7 @@ struct BwdGeom {
   static constexpr int kV = kKVTile;
   static constexpr int kSt = 2 * kKVTile;
   static constexpr int kDS = kSt + kStages * kStage;     // dS^T [128][64] bf16
+  static constexpr int kDSLayout = swizzle_code(128);  // dS^T's, at every D
   static constexpr int kDQ = kDS + kBwdRowsKV * kBwdRowsQ * 2;
   static constexpr int kBars = kDQ + kConsumers * kBwdRowsQ * kDqLd;
   // kv full, full and empty per stage, then "dS^T free" (D = 128)
@@ -152,7 +166,10 @@ struct BwdGeom {
     return base + kBars + 8 * (1 + 2 * kStages);
   }
   static_assert(kAlloc <= 232448, "backward tiles exceed shared memory");
-  static_assert(kDqCols == 64, "one dQ tile of 64 columns a consumer");
+  static_assert(kDqCols == 64 || !kSplitN, "64-column dQ halves");
+  static_assert(kQChunks % 32 == 0, "whole warps in the scaled copy");
+  static_assert(kQBlock % 256 == 0 && kKVBlock % 256 == 0,
+                "swizzle alignment of the column blocks");
 };
 
 template <int D, bool kDrop, bool kSegs>
@@ -164,8 +181,8 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
                           const BwdArgs a) {
   using G = BwdGeom<D>;
   using bf16 = __nv_bfloat16;
-  // the keep bits before the products are issued (D = 128: registers)
-  constexpr bool kEarlyKeep = D >= 128;
+  // the keep bits before the products are issued (D >= 80: registers)
+  constexpr bool kEarlyKeep = D >= 80;
   constexpr int kSlotUnroll = kEarlyKeep ? 1 : 8;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -252,7 +269,8 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
 
   // warp-uniform values the compiler can see as such
   const int n_iter = __shfl_sync(0xffffffffu, n_steps, 0);
-  const bool warp0 = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0) == 0;
+  const int warp_u = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const bool warp0 = warp_u == 0;
   const int g = threadIdx.x / 128;  // consumer index
   const int t = threadIdx.x % 128;
   const int warp = t / 32;
@@ -283,7 +301,7 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
   // The keep bits of the thread's 32 pairs of q tile m0 (bit i for st[i]):
   // slot sl draws group j = sl / 4 for q column i = 4 * (sl % 4) + kr, then
   // the four lanes transpose the words.
-  // (At D = 128 the slots run one after another: unrolled, their Philox
+  // (At D >= 80 the slots run one after another: unrolled, their Philox
   // states meet dK and dV in registers and spill.)
   auto keep_bits = [&](int m0, uint32_t bh) {
     uint32_t keep = 0u;
@@ -316,7 +334,8 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
 
   // Waits for step st's stage and writes its scaled copy round(q * scale)
   // beside Q (elementwise at the same offsets, so the swizzle is kept);
-  // every thread of the CTA takes a share.
+  // every thread of the CTA takes a share (at D = 80 the first warps a
+  // last, partial pass: a warp-uniform test).
   auto scale_q = [&](int st) {
     const int s = st % G::kStages;
     mbar_wait(G::full(base, s), (uint32_t)(st / G::kStages) & 1u);
@@ -324,14 +343,16 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
     const uint4* src = reinterpret_cast<const uint4*>(stage_ptr + G::kStQ);
     uint4* dst = reinterpret_cast<uint4*>(stage_ptr + G::kStQS);
 #pragma unroll
-    for (int it = 0; it < G::kQTile / 16 / kThreadsCTA; ++it) {
-      const int i = it * kThreadsCTA + threadIdx.x;
-      uint4 v = src[i];
-      bf16* e = reinterpret_cast<bf16*>(&v);
+    for (int it = 0; it < G::kQPasses + (G::kQTailWarps > 0); ++it) {
+      if (it < G::kQPasses || warp_u < G::kQTailWarps) {
+        const int i = it * kThreadsCTA + threadIdx.x;
+        uint4 v = src[i];
+        bf16* e = reinterpret_cast<bf16*>(&v);
 #pragma unroll
-      for (int k = 0; k < 8; ++k)
-        e[k] = __float2bfloat16(__bfloat162float(e[k]) * a.sm_scale);
-      dst[i] = v;
+        for (int k = 0; k < 8; ++k)
+          e[k] = __float2bfloat16(__bfloat162float(e[k]) * a.sm_scale);
+        dst[i] = v;
+      }
     }
   };
 
@@ -502,28 +523,28 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
     if (step + 1 < n_iter) scale_q(step + 1);  // warp-uniform
     fence_proxy_async();
     named_barrier(1, kThreadsCTA);
-    float dq[32];
+    float dq[G::kDqCols / 2];
     wgmma_fence();
     if constexpr (G::kSplitN) {
 #pragma unroll
       for (int ks = 0; ks < kBwdRowsKV / 16; ++ks) {
         const uint64_t da = wgmma_desc(ds_base + ks * 16 * 128, 128 * 128,
-                                       8 * 128, G::kLayout);
+                                       8 * 128, G::kDSLayout);
         const uint64_t db = wgmma_desc(
             base + G::kK + g * G::kKVBlock + ks * 16 * G::kRowBytes,
             G::kKVBlock, 8 * G::kRowBytes, G::kLayout);
-        wgmma_ss64_tt(dq, da, db, ks > 0);
+        wgmma_ss_tt<64>(dq, da, db, ks > 0);
       }
     } else {
 #pragma unroll
       for (int ks = 0; ks < kBwdRowsWG / 16; ++ks) {
         const int r = g * kBwdRowsWG + ks * 16;
         const uint64_t da = wgmma_desc(ds_base + r * 128, 128 * 128, 8 * 128,
-                                       G::kLayout);
+                                       G::kDSLayout);
         const uint64_t db = wgmma_desc(base + G::kK + r * G::kRowBytes,
                                        G::kKVBlock, 8 * G::kRowBytes,
                                        G::kLayout);
-        wgmma_ss64_tt(dq, da, db, ks > 0);
+        wgmma_ss_tt<G::kDqCols>(dq, da, db, ks > 0);
       }
     }
     wgmma_commit();
@@ -542,7 +563,7 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
     bulk_wait_read();
     named_barrier(2 + g, 128);
 #pragma unroll
-    for (int jn = 0; jn < 8; ++jn) {
+    for (int jn = 0; jn < G::kDqCols / 8; ++jn) {
       const int col = 8 * jn + 2 * c4;
       *reinterpret_cast<float2*>(dq_stage + row_a * G::kDqLd + col * 4) =
           make_float2(dq[4 * jn], dq[4 * jn + 1]);

@@ -1,18 +1,21 @@
-// Flash attention in fp32 for heads above 256 (every multiple of 64: 320,
-// 384, 512, ...), forward and backward, on both launchers, for Hopper
-// (sm_90a). Included by flash_attention.cuh, whose contracts these kernels
-// compute (the math, the rounding points, the masks and the dropout keying
-// are set out there); flash_fwd and flash_bwd dispatch every fp32 D > 256
-// here from both launchers (flash_attention_{fwd,bwd}.cu, the [B, L, H, D]
-// layout with GQA, lengths and segment ids; flash_pair_{fwd,bwd}.cu,
-// packed qkv at the multiples of 128). bf16 runs the wgmma kernels of
-// flash_wide_sm90.cuh.
+// Flash attention in fp32 for Hopper (sm_90a), on both launchers: the
+// forward and backward for heads above 256 (every multiple of 64: 320,
+// 384, 512, ...), and the backward for heads up to 256 (64, 80, 96, 128,
+// 256: flash_bwd_f32_kernel). Included by flash_attention.cuh, whose
+// contracts these kernels compute (the math, the rounding points, the
+// masks and the dropout keying are set out there); flash_fwd dispatches
+// every fp32 D > 256 and flash_bwd every fp32 D here from both launchers
+// (flash_attention_{fwd,bwd}.cu, the [B, L, H, D] layout with GQA, lengths
+// and segment ids; flash_pair_{fwd,bwd}.cu, packed qkv at 64, 128, 256 and
+// the multiples of 128 above). bf16 runs the wgmma kernels.
 //
 // Replaces, at those head sizes in fp32: paddle_tpu/kernels/pallas/
 // flash_attention.py `_flash_fwd_kernel`, `_flash_bwd_fused_kernel` and
 // `_flash_dq_kernel` + `_flash_dkv_kernel` (the JAX `flash_attention_blhd`
 // takes any D), and flash_pair.py `_pair_fwd_kernel` / `_pair_bwd_fused_
-// kernel` (the pair gate admits 384, 512, ...).
+// kernel`; flash_bwd_f32_kernel takes the place of the port's SIMT
+// backward (one lane pair a q row, one chain over D a score, scalar dq
+// atomics).
 //
 // What bounds them: the products, 4*D operations an attended pair forward
 // and 10*D backward, on the fp32 FMA pipes (67 TFLOP/s on the H100: TF32
@@ -65,12 +68,25 @@
 //   sums its rows of dK and dV over the cluster in rank order through
 //   distributed shared memory, so dk and dv stay equal between launches.
 //   A kv tile past the length writes zero dk, dv.
+// * Heads up to 256 (flash_bwd_f32_kernel): the same walk at one slice,
+//   with two changes measured for small heads. The scores s and dp are one
+//   fp32 chain over the head in column order, as flash_attention.cuh's
+//   SIMT forward sums its scores, so s equals the forward's bit for bit
+//   and p = exp(s - lse) keeps the forward's normalisation (summed in
+//   chunks, as above 256, p sat farther from the exact gradient than the
+//   plain version, over its 9e-7 gate). Score items are 64 columns where D
+//   is a multiple of 64 (half the items and barriers a step), 32 at 80
+//   and 96 (three items, not two of 64 over 128 columns); columns past D
+//   are copied as zeros (cp.async's source size) and never written, so
+//   80 and 96 need no padded copy.
 //
 // Shared memory (bytes), static_asserted below: forward 87,040 + 256 * W,
-// backward 100,864 + 256 * W for a slice of W columns: D = 320, 384, 448,
-// 512 run one slice (forward 168,960 / 185,344 / 201,728 / 218,112;
-// backward 182,784 / 199,168 / 215,552 / 231,936); D = 1024 runs two
-// slices of 512 (the score products twice).
+// backward 100,864 + 256 * W for a slice of W columns (32-column score
+// items; 123,392 + 256 * W with 64-column ones): D = 320, 384, 448, 512
+// run one slice (forward 168,960 / 185,344 / 201,728 / 218,112; backward
+// 182,784 / 199,168 / 215,552 / 231,936); D = 1024 runs two slices of 512
+// (the score products twice); the backward up to 256 takes 139,776 /
+// 133,632 / 133,632 / 156,160 / 188,928 at D = 64 / 80 / 96 / 128 / 256.
 
 #pragma once
 
@@ -87,9 +103,8 @@ constexpr int kThr = 256;     // threads of a CTA
 constexpr int kRows = 64;     // q rows of a forward CTA and of a backward step
 constexpr int kKeys = 32;     // kv rows of a backward CTA
 constexpr int kW = 64;        // columns of a chunk
-constexpr int kH = 32;        // columns of a backward score item
+constexpr int kH = 32;        // columns of a backward score item (32-wide)
 constexpr int kLd = kW + 4;   // padded row of a forward score operand (floats)
-constexpr int kLdH = kH + 4;  // padded row of a backward score operand
 constexpr int kLdP = kKeys + 4;  // padded row of the backward's P and dS
 constexpr int kMaxW = 512;    // columns of the widest slice
 constexpr int kMaxSplit = 4;  // CTAs of a backward cluster
@@ -109,24 +124,36 @@ __host__ __device__ constexpr int fwd_smem_bytes(int W) {
 static_assert(fwd_smem_bytes(kMaxW) <= kSmemMax,
               "forward tiles exceed shared memory");
 
-// Backward layout (floats): 2 stages | P, dS [64][kLdP] | lse, delta [64]
-// | dK, dV [32][W]. A stage holds a score item's {Q [64][kLdH], K
-// [32][kLdH], dO [64][kLdH], V [32][kLdH]} (32 columns of each) or a
-// gradient item's {dO [64][64], q [64][64], K [32][64]} (64 columns).
-constexpr int kBwdStage = 2 * kRows * kW + kKeys * kW;
-static_assert(kBwdStage >= 2 * (kRows + kKeys) * kLdH, "stage too small");
-constexpr int kBwdP = 2 * kBwdStage;
-constexpr int kBwdDS = kBwdP + kRows * kLdP;
-constexpr int kBwdLse = kBwdDS + kRows * kLdP;
-constexpr int kBwdAcc = kBwdLse + 2 * kRows;
-__host__ __device__ constexpr int bwd_smem_bytes(int W) {
-  return 4 * (kBwdAcc + 2 * kKeys * W);
-}
-static_assert(bwd_smem_bytes(kMaxW) <= kSmemMax,
+// Backward layout (floats) for score items of SW columns: 2 stages | P, dS
+// [64][kLdP] | lse, delta [64] | dK, dV [32][W]. A stage holds a score
+// item's {Q [64][kLd], K [32][kLd], dO [64][kLd], V [32][kLd]} (SW columns
+// of each, rows padded to kLd = SW + 4) or a gradient item's {dO [64][64],
+// q [64][64], K [32][64]} (64 columns).
+template <int SW>
+struct BwdLayout {
+  static constexpr int kLd = SW + 4;
+  static constexpr int kGrad = 2 * kRows * kW + kKeys * kW;
+  static constexpr int kScore = 2 * (kRows + kKeys) * kLd;
+  static constexpr int kStage = kGrad > kScore ? kGrad : kScore;
+  static constexpr int kP = 2 * kStage;
+  static constexpr int kDS = kP + kRows * kLdP;
+  static constexpr int kLse = kDS + kRows * kLdP;
+  static constexpr int kAcc = kLse + 2 * kRows;
+  __host__ __device__ static constexpr int bytes(int W) {
+    return 4 * (kAcc + 2 * kKeys * W);
+  }
+  static_assert(kAcc % 4 == 0 && kStage % 4 == 0 && kP % 4 == 0 &&
+                    kDS % 4 == 0 && kLse % 4 == 0,
+                "16-byte alignment of the regions");
+};
+// Columns of a score item of the backward up to 256 at head size D: 64
+// where D is a multiple of 64 (half the items and barriers of 32-column
+// ones), 32 at 80 and 96 (three cover 96 columns; two of 64 would run 128).
+__host__ __device__ constexpr int small_sw(int D) { return D % kW ? kH : kW; }
+static_assert(BwdLayout<kH>::bytes(kMaxW) <= kSmemMax &&
+                  BwdLayout<kW>::bytes(256) <= kSmemMax,
               "backward tiles exceed shared memory");
-static_assert(kFwdO % 4 == 0 && kBwdAcc % 4 == 0 && kBwdStage % 4 == 0 &&
-                  kBwdP % 4 == 0 && kBwdDS % 4 == 0 && kBwdLse % 4 == 0,
-              "16-byte alignment of the regions");
+static_assert(kFwdO % 4 == 0, "16-byte alignment of the regions");
 
 // Slices of a head of D columns: ceil(D / kMaxW), chunk c in slice s when
 // s * nC / slices <= c < (s + 1) * nC / slices (nC = D / 64 chunks).
@@ -196,20 +223,24 @@ __device__ __forceinline__ float4 add4(float4 x, float4 y) {
 // Copies rows [r0, r0 + R) x columns [c0, c0 + C) of a matrix whose rows
 // are `row` floats apart into a tile whose rows are LD floats apart, with
 // kPerm row 4t + b at tile row b * R / 4 + t; rows at or past L read as
-// zero. Thread i copies the 16-byte slots i, i + 256, ... (scale_tile
-// scales the same slots).
-template <int R, int C, int LD, bool kPerm>
+// zero, and with kCols columns at or past `cols` (a multiple of 4) too.
+// Thread i copies the 16-byte slots i, i + 256, ... (scale_tile scales the
+// same slots).
+template <int R, int C, int LD, bool kPerm, bool kCols = false>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int L, long row, int c0) {
+                                          int r0, int L, long row, int c0,
+                                          int cols = 0) {
   static_assert((R * C / 4) % kThr == 0, "whole passes");
 #pragma unroll
   for (int k = 0; k < R * C / 4 / kThr; ++k) {
     const int i = threadIdx.x + k * kThr;
     const int r = i / (C / 4), s = i % (C / 4);
     const int tr = kPerm ? (r & 3) * (R / 4) + (r >> 2) : r;
-    const bool ok = r0 + r < L;
+    const bool ok = r0 + r < L && (!kCols || c0 + 4 * s < cols);
     cp_async16(dst + tr * LD + 4 * s,
-               src + (long)(ok ? r0 + r : 0) * row + c0 + 4 * s, ok ? 16 : 0);
+               src + (long)(ok ? r0 + r : 0) * row +
+                   (!kCols || ok ? c0 + 4 * s : 0),
+               ok ? 16 : 0);
   }
 }
 
@@ -233,9 +264,10 @@ __device__ __forceinline__ void scale_tile(float* t, float scale) {
 
 // acc[a][b] += A[a] . B[b] over K columns (kSet: acc = ...), summed apart
 // in one chain and then added (the short chains the exact-gradient gate
-// needs): A rows `a_ld` floats apart from A, B rows `b_ld` floats apart
-// from B (16-byte loads along the contraction).
-template <int K, bool kSet = false, int NA, int NB>
+// needs), or with kChain in acc's own chain, column after column (the
+// order of the SIMT forward's scores): A rows `a_ld` floats apart from A,
+// B rows `b_ld` floats apart from B (16-byte loads along the contraction).
+template <int K, bool kSet = false, bool kChain = false, int NA, int NB>
 __device__ __forceinline__ void nt_chunk(float (&acc)[NA][NB],
                                          const float* A, int a_ld,
                                          const float* B, int b_ld) {
@@ -243,7 +275,7 @@ __device__ __forceinline__ void nt_chunk(float (&acc)[NA][NB],
 #pragma unroll
   for (int a = 0; a < NA; ++a)
 #pragma unroll
-    for (int b = 0; b < NB; ++b) part[a][b] = 0.0f;
+    for (int b = 0; b < NB; ++b) part[a][b] = kChain ? acc[a][b] : 0.0f;
 #pragma unroll
   for (int d4 = 0; d4 < K / 4; ++d4) {
     float4 x[NA], y[NB];
@@ -265,7 +297,7 @@ __device__ __forceinline__ void nt_chunk(float (&acc)[NA][NB],
   for (int a = 0; a < NA; ++a)
 #pragma unroll
     for (int b = 0; b < NB; ++b)
-      acc[a][b] = kSet ? part[a][b] : acc[a][b] + part[a][b];
+      acc[a][b] = kSet || kChain ? part[a][b] : acc[a][b] + part[a][b];
 }
 
 // acc[a][0..3] = sum over K keys j of A[a][j] * B[j][0..3]: A rows a_ld
@@ -474,16 +506,28 @@ cudaError_t launch_fwd(const FwdArgs& a, int B, int D, cudaStream_t stream) {
 
 // ----------------------------------------------------------------- backward
 
-template <bool kDrop, bool kSegs>
-__global__ void __launch_bounds__(kThr, 1)
-    flash_bwd_f32_wide_kernel(BwdArgs a, int D, int slices, int split) {
+// One backward CTA's work (both kernels below): head size D, a multiple of
+// 16; the gradient chunks cover ceil(D / 64) * 64 columns and the score
+// items ceil(D / 32) * 32, columns past D read as zero and are never
+// written. With kChain the scores s and dp are one fp32 chain over the
+// head in column order, as flash_fwd_f32_kernel sums its scores (D <= 256):
+// s then equals the forward's bit for bit, so p = exp(s - lse) keeps the
+// forward's normalisation; else each 64-column chunk is summed apart, as
+// the wide forward does.
+template <bool kDrop, bool kSegs, bool kChain, int SW>
+__device__ __forceinline__ void bwd_cta(const BwdArgs& a, int D, int slices,
+                                        int split) {
+  using Lay = BwdLayout<SW>;
+  constexpr int kLd = Lay::kLd;
+  static_assert(kChain || SW == kH, "chunk sums pair 32-column items");
   extern __shared__ __align__(16) float sm[];
-  float* Ps = sm + kBwdP;
-  float* DSs = sm + kBwdDS;
-  float* Lse = sm + kBwdLse;
+  float* Ps = sm + Lay::kP;
+  float* DSs = sm + Lay::kDS;
+  float* Lse = sm + Lay::kLse;
   float* Delta = Lse + kRows;
-  float* dKs = sm + kBwdAcc;
-  const int nc = D / kW;
+  float* dKs = sm + Lay::kAcc;
+  const int nc = (D + kW - 1) / kW;  // gradient chunks of the head
+  const int ns = (D + SW - 1) / SW;  // score items of a step
   const int rank = blockIdx.x % split;  // the CTA's rank in its cluster
   const int slice = blockIdx.x / split % slices;
   const int n0 = (int)blockIdx.x / split / slices * kKeys;  // tile 0 walks most
@@ -493,6 +537,7 @@ __global__ void __launch_bounds__(kThr, 1)
   const long hd = (long)a.H * D;  // dO and the dq scratch: contiguous rows
   const int c_lo = slice * nc / slices;
   const int W = ((slice + 1) * nc / slices - c_lo) * kW;
+  const int Wv = min(W, D - c_lo * kW);  // the slice's columns inside D
   float* dVs = dKs + kKeys * W;
   const Mask<kSegs> mask = mask_of<kSegs>(a, b);
   const long kv_base = (long)b * a.Lk * a.kv_row + (long)hk * D;
@@ -507,8 +552,8 @@ __global__ void __launch_bounds__(kThr, 1)
 
   if (n0 >= mask.len) {
     // every key of this tile is past the length: zero dk, dv, no dq
-    for (int i = threadIdx.x; i < (w_hi - w_lo) * W / 4; i += kThr) {
-      const int r = w_lo + i / (W / 4), c = 4 * (i % (W / 4));
+    for (int i = threadIdx.x; i < (w_hi - w_lo) * Wv / 4; i += kThr) {
+      const int r = w_lo + i / (Wv / 4), c = 4 * (i % (Wv / 4));
       if (n0 + r < a.Lk) {
         st4(dk_out + (long)(n0 + r) * a.dkv_row + c,
             make_float4(0.f, 0.f, 0.f, 0.f));
@@ -529,7 +574,7 @@ __global__ void __launch_bounds__(kThr, 1)
   const int nq = max(0, (a.Lq - m_begin + kRows - 1) / kRows);
   const int steps = group * nq;
   const int step0 = rank * steps / split;
-  const int per = 2 * nc + W / kW;  // score items (half chunks), gradients
+  const int per = ns + W / kW;  // score items, then gradient chunks
   const int n_items = ((rank + 1) * steps / split - step0) * per;
 
   // the item's q head and q tile
@@ -538,21 +583,22 @@ __global__ void __launch_bounds__(kThr, 1)
     return m_begin + (step0 + it / per) % nq * kRows;
   };
   auto issue = [&](int it) {
-    float* st = sm + (it & 1) * kBwdStage;
+    float* st = sm + (it & 1) * Lay::kStage;
     const int h = head(it), m0 = tile0(it), c = it % per;
     const float* qg = static_cast<const float*>(a.q) +
                       (long)b * a.Lq * a.q_row + (long)h * D;
     const float* dog = static_cast<const float*>(a.dout) +
                        (long)b * a.Lq * hd + (long)h * D;
-    if (c < 2 * nc) {
-      const int col = c * kH;
-      load_tile<kRows, kH, kLdH, false>(st, qg, m0, a.Lq, a.q_row, col);
-      load_tile<kKeys, kH, kLdH, true>(st + kRows * kLdH, kg, n0, a.Lk,
-                                       a.kv_row, col);
-      load_tile<kRows, kH, kLdH, false>(st + (kRows + kKeys) * kLdH, dog, m0,
-                                        a.Lq, hd, col);
-      load_tile<kKeys, kH, kLdH, true>(st + (2 * kRows + kKeys) * kLdH, vg,
-                                       n0, a.Lk, a.kv_row, col);
+    if (c < ns) {
+      const int col = c * SW;
+      load_tile<kRows, SW, kLd, false, true>(st, qg, m0, a.Lq, a.q_row, col,
+                                             D);
+      load_tile<kKeys, SW, kLd, true, true>(st + kRows * kLd, kg, n0, a.Lk,
+                                            a.kv_row, col, D);
+      load_tile<kRows, SW, kLd, false, true>(st + (kRows + kKeys) * kLd, dog,
+                                             m0, a.Lq, hd, col, D);
+      load_tile<kKeys, SW, kLd, true, true>(st + (2 * kRows + kKeys) * kLd,
+                                            vg, n0, a.Lk, a.kv_row, col, D);
       if (c == 0 && threadIdx.x < 32) {
         const long pad = ((long)b * a.H + h) * a.Lq_pad + m0;
         const int i = threadIdx.x & 15;
@@ -561,12 +607,12 @@ __global__ void __launch_bounds__(kThr, 1)
         cp_async16(dst, src + 4 * i, 16);
       }
     } else {
-      const int col = (c_lo + c - 2 * nc) * kW;
-      load_tile<kRows, kW, kW, false>(st, dog, m0, a.Lq, hd, col);
-      load_tile<kRows, kW, kW, false>(st + kRows * kW, qg, m0, a.Lq, a.q_row,
-                                      col);
-      load_tile<kKeys, kW, kW, false>(st + 2 * kRows * kW, kg, n0, a.Lk,
-                                      a.kv_row, col);
+      const int col = (c_lo + c - ns) * kW;
+      load_tile<kRows, kW, kW, false, true>(st, dog, m0, a.Lq, hd, col, D);
+      load_tile<kRows, kW, kW, false, true>(st + kRows * kW, qg, m0, a.Lq,
+                                            a.q_row, col, D);
+      load_tile<kKeys, kW, kW, false, true>(st + 2 * kRows * kW, kg, n0, a.Lk,
+                                            a.kv_row, col, D);
     }
     cp_async_commit();
   };
@@ -580,12 +626,12 @@ __global__ void __launch_bounds__(kThr, 1)
   float half[4][4];  // the 64-column chunk's sum, over two score items
   if (n_items > 0) issue(0);
   for (int it = 0; it < n_items; ++it) {
-    float* st = sm + (it & 1) * kBwdStage;
+    float* st = sm + (it & 1) * Lay::kStage;
     const int c = it % per;
     cp_async_wait_all();
-    if (c < 2 * nc) scale_tile<kH, kLdH>(st, a.sm_scale);
+    if (c < ns) scale_tile<SW, kLd>(st, a.sm_scale);
     __syncthreads();  // item it landed; item it - 1's stage is free
-    if (c == 2 * nc) {
+    if (c == ns) {
       // p and dS of the step from s (this lane's registers, warps 0-3) and
       // dp (written by warps 4-7), in place of dp
       if (!dp_warp) {
@@ -622,27 +668,32 @@ __global__ void __launch_bounds__(kThr, 1)
       __syncthreads();  // P and dS of the step written
     }
     if (it + 1 < n_items) issue(it + 1);
-    if (c < 2 * nc) {
+    if (c < ns) {
       if (c == 0) {
 #pragma unroll
         for (int r = 0; r < 4; ++r)
 #pragma unroll
           for (int k = 0; k < 4; ++k) sd[r][k] = 0.0f;
       }
-      const float* A = st + (dp_warp ? (kRows + kKeys) * kLdH : 0);
-      const float* Bt = st + (dp_warp ? 2 * kRows + kKeys : kRows) * kLdH;
-      if (c % 2 == 0) {
-        nt_chunk<kH, true>(half, A + rs * kLdH, 4 * kLdH, Bt + ks * kLdH,
-                           8 * kLdH);
+      const float* A = st + (dp_warp ? (kRows + kKeys) * kLd : 0);
+      const float* Bt = st + (dp_warp ? 2 * kRows + kKeys : kRows) * kLd;
+      if constexpr (kChain) {
+        nt_chunk<SW, false, true>(sd, A + rs * kLd, 4 * kLd, Bt + ks * kLd,
+                                  8 * kLd);
       } else {
-        nt_chunk<kH>(half, A + rs * kLdH, 4 * kLdH, Bt + ks * kLdH,
-                     8 * kLdH);
+        if (c % 2 == 0)
+          nt_chunk<SW, true>(half, A + rs * kLd, 4 * kLd, Bt + ks * kLd,
+                             8 * kLd);
+        else
+          nt_chunk<SW>(half, A + rs * kLd, 4 * kLd, Bt + ks * kLd, 8 * kLd);
+        if (c % 2 == 1) {  // a 64-column chunk's sum
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+          for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int k = 0; k < 4; ++k) sd[r][k] += half[r][k];
+            for (int k = 0; k < 4; ++k) sd[r][k] += half[r][k];
+        }
       }
-      if (c == 2 * nc - 1 && dp_warp) {
+      if (c == ns - 1 && dp_warp) {
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           st4(DSs + (rs + 4 * r) * kLdP + 4 * ks,
@@ -650,7 +701,7 @@ __global__ void __launch_bounds__(kThr, 1)
       }
     } else {
       const int m0 = tile0(it);
-      const int cc = (c - 2 * nc) * kW;  // the chunk's columns in the slice
+      const int cc = (c - ns) * kW;  // the chunk's columns in the slice
       if (warp < 4) {
         // dV += P^T dO (warps 0-1), dK += dS^T q (warps 2-3): lane t of
         // the pair owns kv rows 8 (t / 16) + {0..7} and chunk columns
@@ -694,12 +745,12 @@ __global__ void __launch_bounds__(kThr, 1)
         nn_tile<kKeys>(acc, DSs + r0 * kLdP, 2 * kLdP,
                        st + 2 * kRows * kW + 4 * tx, kW);
         const int h = head(it);
-        float* dqg = a.dq_acc + (long)b * a.Lq * hd + (long)h * D +
-                     (c_lo * kW + cc) + 4 * tx;
+        const int col = c_lo * kW + cc + 4 * tx;
+        float* dqg = a.dq_acc + (long)b * a.Lq * hd + (long)h * D + col;
 #pragma unroll
         for (int r = 0; r < 8; ++r) {
           const int qrow = m0 + r0 + 2 * r;
-          if (qrow < a.Lq)
+          if (qrow < a.Lq && col < D)
             red_add4(dqg + (long)qrow * hd,
                      make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
         }
@@ -711,8 +762,8 @@ __global__ void __launch_bounds__(kThr, 1)
   // rank order (so the same inputs give the same bits), of this CTA's rows
   __syncthreads();
   if (split > 1) cluster_sync();  // every CTA's dK, dV final
-  for (int i = threadIdx.x; i < (w_hi - w_lo) * W / 4; i += kThr) {
-    const int r = w_lo + i / (W / 4), c = 4 * (i % (W / 4));
+  for (int i = threadIdx.x; i < (w_hi - w_lo) * Wv / 4; i += kThr) {
+    const int r = w_lo + i / (Wv / 4), c = 4 * (i % (Wv / 4));
     if (n0 + r < a.Lk) {
       float4 k4 = ld4(dKs + r * W + c), v4 = ld4(dVs + r * W + c);
       if (split > 1) {
@@ -731,19 +782,40 @@ __global__ void __launch_bounds__(kThr, 1)
   if (split > 1) cluster_sync();  // no CTA leaves while its rows are read
 }
 
+// fp32 heads above 256 (multiples of 64).
+template <bool kDrop, bool kSegs>
+__global__ void __launch_bounds__(kThr, 1)
+    flash_bwd_f32_wide_kernel(BwdArgs a, int D, int slices, int split) {
+  bwd_cta<kDrop, kSegs, false, kH>(a, D, slices, split);
+}
+
+// fp32 heads up to 256 (64, 80, 96, 128, 256: one slice), score items of
+// SW = small_sw(D) columns.
+template <int SW, bool kDrop, bool kSegs>
+__global__ void __launch_bounds__(kThr, 1)
+    flash_bwd_f32_kernel(BwdArgs a, int D, int slices, int split) {
+  bwd_cta<kDrop, kSegs, true, SW>(a, D, slices, split);
+}
+
+// The fp32 backward body at head size D: a multiple of 16 up to 256
+// (flash_bwd_f32_kernel) or of 64 above (flash_bwd_f32_wide_kernel).
 template <bool kDrop, bool kSegs>
 cudaError_t launch_bwd(const BwdArgs& a, int B, int D, cudaStream_t stream) {
-  if (D % kW) return cudaErrorInvalidValue;
-  auto kernel = flash_bwd_f32_wide_kernel<kDrop, kSegs>;
+  if (D <= 0 || D % (D > 256 ? kW : 16)) return cudaErrorInvalidValue;
+  const bool wide = D > 256, sw64 = !wide && small_sw(D) == kW;
+  auto kernel = wide   ? flash_bwd_f32_wide_kernel<kDrop, kSegs>
+                : sw64 ? flash_bwd_f32_kernel<kW, kDrop, kSegs>
+                       : flash_bwd_f32_kernel<kH, kDrop, kSegs>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bwd_smem_bytes(kMaxW));
+      sw64 ? BwdLayout<kW>::bytes(256) : BwdLayout<kH>::bytes(kMaxW));
   if (err != cudaSuccess) return err;
   // a cluster of `split` CTAs shares out a kv tile's walk when the longest
   // walk (kv tile 0: every q tile of the group's heads) has at least 8
   // steps a CTA: causal walks differ by up to Lq / 64 steps, and the
   // longest one sets the launch's time
-  const int slices = n_slices(D);
+  const int Dg = (D + kW - 1) / kW * kW;  // the gradient chunks' columns
+  const int slices = n_slices(Dg);
   const int tiles = (a.Lk + kKeys - 1) / kKeys * slices;
   const int longest = a.H / a.Hkv * ((a.Lq + kRows - 1) / kRows);
   int split = 1;
@@ -751,7 +823,8 @@ cudaError_t launch_bwd(const BwdArgs& a, int B, int D, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles * split, a.Hkv, B);
   cfg.blockDim = dim3(kThr);
-  cfg.dynamicSmemBytes = bwd_smem_bytes(widest_slice(D));
+  cfg.dynamicSmemBytes = sw64 ? BwdLayout<kW>::bytes(Dg)
+                              : BwdLayout<kH>::bytes(widest_slice(Dg));
   cfg.stream = stream;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;

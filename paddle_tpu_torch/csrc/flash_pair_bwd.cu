@@ -31,8 +31,7 @@
 // Head sizes 64, 128, 256 and every multiple of 128 above 256 (the pair
 // gate's) are built: bf16 at 64 and 128 runs the Hopper body of
 // flash_bwd_sm90.cuh, bf16 at 256 and above the wide Hopper body of
-// flash_wide_sm90.cuh, fp32 the SIMT body, and fp32 above 256 the f32w::
-// kernel of flash_f32_wide.cuh.
+// flash_wide_sm90.cuh, fp32 the FFMA kernels of flash_f32_wide.cuh.
 
 #include "flash_attention.cuh"
 

@@ -105,8 +105,8 @@ constexpr int kSlice = 128;     // accumulator columns a CTA owns
 constexpr int kLayout = swizzle_code(kRowB);
 
 // The bf16 backward at head size D runs here (else flash_bwd_sm90.cuh at
-// 64 and 128, the WMMA body at 80 and 96): D = 256 too, where dK and dV
-// stopped fitting in registers.
+// 64, 80, 96 and 128): D = 256 too, where dK and dV stopped fitting in
+// registers.
 __host__ __device__ constexpr bool bwd_takes(int D) { return D >= 256; }
 
 __host__ __device__ inline int n_slices(int D) {
@@ -940,7 +940,7 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < kBwdRowsKV / 16; ++ks)
-      wgmma_ss64_tt(dq, mndesc(base + G::kDS + ks * 16 * 128, 128 * 128),
+      wgmma_ss_tt<64>(dq, mndesc(base + G::kDS + ks * 16 * 128, 128 * 128),
                     mndesc(base + G::kK + g * G::kKVChunk + ks * 16 * kRowB,
                            G::kKVChunk),
                     ks > 0);

@@ -31,7 +31,12 @@ of the wide-head bodies: ``csrc/flash_wide_sm90.cuh`` (bf16 heads above 256
 both ways, the bf16 backward at 256) in ``<wrapper>.wide_launches``, read by
 ``wide_launch_counts()``, and ``csrc/flash_f32_wide.cuh`` (fp32 heads above
 256 both ways) in ``<wrapper>.f32_wide_launches``, read by
-``f32_wide_launch_counts()``.
+``f32_wide_launch_counts()``. The two backward wrappers also count the
+fp32 backward at heads up to 256 (``flash_bwd_f32_kernel`` of
+``csrc/flash_f32_wide.cuh``) in ``<wrapper>.f32_bwd_launches``, read by
+``f32_bwd_launch_counts()``, and the bf16 backward at heads of 80 and 96
+(``csrc/flash_bwd_sm90.cuh`` on 32-byte swizzle blocks) in
+``<wrapper>.sw32_bwd_launches``, read by ``sw32_bwd_launch_counts()``.
 """
 from .dropout import DropoutFunction, dropout_fwd, dropout_fwd_reference
 from .flash_attention import (FlashAttention, flash_attention_bwd,
@@ -57,7 +62,8 @@ __all__ = ["flash_pair_fwd", "flash_pair_fwd_reference", "flash_pair_bwd",
            "fused_add_dropout_ln_fwd", "fused_add_dropout_ln_fwd_reference",
            "fused_add_dropout_ln_bwd", "fused_add_dropout_ln_bwd_reference",
            "FusedAddDropoutLN", "launch_counts", "reset_launch_counts",
-           "wide_launch_counts", "f32_wide_launch_counts"]
+           "wide_launch_counts", "f32_wide_launch_counts",
+           "f32_bwd_launch_counts", "sw32_bwd_launch_counts"]
 
 WRAPPERS = {"flash_pair_fwd": flash_pair_fwd,
             "flash_pair_bwd": flash_pair_bwd,
@@ -68,9 +74,11 @@ WRAPPERS = {"flash_pair_fwd": flash_pair_fwd,
             "fused_add_dropout_ln_bwd": fused_add_dropout_ln_bwd}
 
 
-# the wrappers that also count their wide-head bodies' launches
+# the wrappers that also count their wide-head bodies' launches, and of
+# them the backward ones, which count two more bodies
 WIDE_WRAPPERS = ("flash_pair_fwd", "flash_pair_bwd", "flash_attention_fwd",
                  "flash_attention_bwd")
+BWD_WRAPPERS = ("flash_pair_bwd", "flash_attention_bwd")
 
 
 def launch_counts() -> dict:
@@ -85,9 +93,20 @@ def f32_wide_launch_counts() -> dict:
     return {name: WRAPPERS[name].f32_wide_launches for name in WIDE_WRAPPERS}
 
 
+def f32_bwd_launch_counts() -> dict:
+    return {name: WRAPPERS[name].f32_bwd_launches for name in BWD_WRAPPERS}
+
+
+def sw32_bwd_launch_counts() -> dict:
+    return {name: WRAPPERS[name].sw32_bwd_launches for name in BWD_WRAPPERS}
+
+
 def reset_launch_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0
     for name in WIDE_WRAPPERS:
         WRAPPERS[name].wide_launches = 0
         WRAPPERS[name].f32_wide_launches = 0
+    for name in BWD_WRAPPERS:
+        WRAPPERS[name].f32_bwd_launches = 0
+        WRAPPERS[name].sw32_bwd_launches = 0

@@ -25,11 +25,11 @@ every multiple of 64; any other size runs at the next built one on
 zero-padded heads (``kernel_head_dim``), as the JAX ``flash_attention_blhd``
 takes any head size. In bf16 the kernels are Hopper ones: the forward
 ``csrc/flash_fwd_sm90.cuh`` up to 256 and ``csrc/flash_wide_sm90.cuh``
-above; the backward ``csrc/flash_bwd_sm90.cuh`` at 64 and 128,
-``csrc/flash_wide_sm90.cuh`` at 256 and above, the WMMA body of
-``csrc/flash_attention.cuh`` at 80 and 96. In fp32 SIMT kernels
-(``csrc/flash_attention.cuh``), above 256 the FFMA micro-tile kernels of
-``csrc/flash_f32_wide.cuh``.
+above; the backward ``csrc/flash_bwd_sm90.cuh`` at 64, 80, 96 and 128
+(80 and 96 on 32-byte swizzle blocks), ``csrc/flash_wide_sm90.cuh`` at 256
+and above. In fp32 the forward is a SIMT kernel (``csrc/
+flash_attention.cuh``) up to 256, and every other fp32 body is an FFMA
+micro-tile kernel of ``csrc/flash_f32_wide.cuh``.
 ``csrc/flash_attention.cuh``'s header table says which body runs where.
 
 Both take the masks of the Pallas ``_valid_mask``: ``kv_lens`` ``[B]``
@@ -60,7 +60,7 @@ import math
 import torch
 
 from . import _build, philox
-from .flash_pair import (FlashPairPacked, bwd_work_floats, count_wide,
+from .flash_pair import (FlashPairPacked, bwd_work_floats, count_bodies,
                          fwd_work_floats)
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_reference",
@@ -313,7 +313,7 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale=None,
         raise RuntimeError(f"flash_attention_fwd: kernel launch failed "
                            f"(cudaError {rc})")
     flash_attention_fwd.launches += 1
-    count_wide(flash_attention_fwd, q.dtype, d)
+    count_bodies(flash_attention_fwd, q.dtype, d)
     return out, lse
 
 
@@ -419,9 +419,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
     A CUDA tensor launches the kernel on the current stream (one counted
     launch per call in ``flash_attention_bwd.launches``; a bf16 head of 256
     or more, the wide body's, also in ``.wide_launches``, an fp32 head above
-    256, the fp32 wide body's, in ``.f32_wide_launches``; a pre-pass
-    launch
-    before the kernel computes ``delta = rowsum(dO*O)``, as the JAX package
+    256, the fp32 wide body's, in ``.f32_wide_launches``, an fp32 head up to
+    256 in ``.f32_bwd_launches``, a bf16 head of 80 or 96 in
+    ``.sw32_bwd_launches``; a pre-pass launch before the kernel computes ``delta = rowsum(dO*O)``, as the JAX package
     computes it outside its kernel, and zeroes dq's fp32 scratch, and a
     small conversion launch behind it writes dq; all in one fp32 workspace;
     a head size that is not built runs padded, as in the forward); a CPU
@@ -469,13 +469,15 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
         raise RuntimeError(f"flash_attention_bwd: kernel launch failed "
                            f"(cudaError {rc})")
     flash_attention_bwd.launches += 1
-    count_wide(flash_attention_bwd, q.dtype, d, backward=True)
+    count_bodies(flash_attention_bwd, q.dtype, d, backward=True)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.wide_launches = 0
 flash_attention_bwd.f32_wide_launches = 0
+flash_attention_bwd.f32_bwd_launches = 0
+flash_attention_bwd.sw32_bwd_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

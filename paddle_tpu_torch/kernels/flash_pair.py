@@ -76,16 +76,29 @@ def bwd_work_floats(b: int, lq: int, h: int, d: int, dtype) -> int:
     return n
 
 
-def count_wide(wrapper, dtype, d: int, backward: bool = False):
-    """Count one launch by ``wrapper`` at head size ``d`` where a wide-head
-    body runs it: bf16 above 256 (the backward from 256) in
-    ``.wide_launches`` (csrc/flash_wide_sm90.cuh), fp32 above 256 in
-    ``.f32_wide_launches`` (csrc/flash_f32_wide.cuh)."""
+# the bf16 backward's head sizes on 32-byte swizzle blocks
+# (csrc/flash_bwd_sm90.cuh)
+_SW32_BWD_DIMS = (80, 96)
+
+
+def count_bodies(wrapper, dtype, d: int, backward: bool = False):
+    """Count one launch by ``wrapper`` at head size ``d`` in the counter of
+    the body that runs it, where that body has one: bf16 above 256 (the
+    backward from 256) in ``.wide_launches`` (csrc/flash_wide_sm90.cuh),
+    fp32 above 256 in ``.f32_wide_launches`` (csrc/flash_f32_wide.cuh's
+    wide kernels); the fp32 backward up to 256 in ``.f32_bwd_launches``
+    (``flash_bwd_f32_kernel``), the bf16 backward at 80 and 96 in
+    ``.sw32_bwd_launches`` (csrc/flash_bwd_sm90.cuh on 32-byte swizzle
+    blocks)."""
     if dtype == torch.bfloat16:
         if d > _HEAD_DIMS[-1] or (backward and d >= _WIDE_BWD_MIN_D):
             wrapper.wide_launches += 1
+        elif backward and d in _SW32_BWD_DIMS:
+            wrapper.sw32_bwd_launches += 1
     elif d > _HEAD_DIMS[-1]:
         wrapper.f32_wide_launches += 1
+    elif backward:
+        wrapper.f32_bwd_launches += 1
 
 
 def _heads_per_block(head_dim: int) -> int:
@@ -238,7 +251,7 @@ def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
         raise RuntimeError(f"flash_pair_fwd: kernel launch failed "
                            f"(cudaError {rc})")
     flash_pair_fwd.launches += 1
-    count_wide(flash_pair_fwd, qkv.dtype, d)
+    count_bodies(flash_pair_fwd, qkv.dtype, d)
     return out, lse
 
 
@@ -344,7 +357,8 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
     A CUDA tensor launches the kernel on the current stream (one counted
     launch per call in ``flash_pair_bwd.launches``; a bf16 head of 256 or
     more, the wide body's, also in ``.wide_launches``, an fp32 head above
-    256, the fp32 wide body's, in ``.f32_wide_launches``; a pre-pass launch
+    256, the fp32 wide body's, in ``.f32_wide_launches``, an fp32 head up
+    to 256 in ``.f32_bwd_launches``; a pre-pass launch
     before the kernel computes ``delta = rowsum(dO*O)``, as the JAX package
     computes it outside its kernel, and zeroes dq's fp32 scratch, and a
     small conversion launch behind it writes dq; all in one fp32
@@ -379,13 +393,15 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
         raise RuntimeError(f"flash_pair_bwd: kernel launch failed "
                            f"(cudaError {rc})")
     flash_pair_bwd.launches += 1
-    count_wide(flash_pair_bwd, qkv.dtype, d, backward=True)
+    count_bodies(flash_pair_bwd, qkv.dtype, d, backward=True)
     return dqkv
 
 
 flash_pair_bwd.launches = 0
 flash_pair_bwd.wide_launches = 0
 flash_pair_bwd.f32_wide_launches = 0
+flash_pair_bwd.f32_bwd_launches = 0
+flash_pair_bwd.sw32_bwd_launches = 0
 
 
 class FlashPairPacked(torch.autograd.Function):

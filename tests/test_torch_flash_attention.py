@@ -32,7 +32,8 @@ from paddle_tpu.kernels.pallas.flash_attention import (_flash_fwd,
 from paddle_tpu.nn import functional as JF
 from paddle_tpu_torch.core.random import make_generator, next_seed
 from paddle_tpu_torch.kernels import launch_counts, philox, \
-    reset_launch_counts, wide_launch_counts, f32_wide_launch_counts
+    reset_launch_counts, wide_launch_counts, f32_wide_launch_counts, \
+    f32_bwd_launch_counts, sw32_bwd_launch_counts
 from paddle_tpu_torch.kernels.flash_attention import (
     FlashAttention, flash_attention_bwd, flash_attention_bwd_reference,
     flash_attention_fwd, flash_attention_fwd_reference,
@@ -728,6 +729,56 @@ def test_big_head_dim_gqa_matches_pallas_interpret(causal):
                                    rtol=1e-4, err_msg=name)
 
 
+# (name, D, Lq, Lk, H, Hkv, causal, kv_lens, segment cuts per row of q) at
+# the head sizes of the backward bodies redesigned for Hopper: bf16 80 and
+# 96 (csrc/flash_bwd_sm90.cuh on 32-byte swizzle blocks) and fp32 128 (the
+# FFMA kernel of csrc/flash_f32_wide.cuh, at every head size up to 256);
+# lengths with segment ids, multi-query 4/1, and Lq = 128 against Lk = 256
+BODY_CASES = [
+    (f"d{d}_{name}", d, lq, lk, h, hkv, causal, lens, cuts)
+    for d in (80, 96, 128)
+    for name, lq, lk, h, hkv, causal, lens, cuts in (
+        ("lens_segments", 256, 256, 4, 2, d != 96, [256, 150],
+         [[64, 190], [100]]),
+        ("mqa", 256, 256, 4, 1, True, None, None),
+        ("ragged", 128, 256, 4, 2, d != 80, None, None))]
+
+
+@pytest.mark.parametrize("case", BODY_CASES, ids=[c[0] for c in BODY_CASES])
+def test_backward_bodies_plain_matches_pallas_vjp(case):
+    """The plain backward the redesigned bodies are held to on the card,
+    against jax.vjp of ``flash_attention_blhd`` in interpret mode (128 x
+    128 blocks: the split dq/dkv kernels at Lk = 256) with the same masks,
+    fp32 within 1e-4; keys past a length get exactly zero dk and dv."""
+    _, d, lq, lk, h, hkv, causal, lens, cuts = case
+    b = 2
+    q, k, v = _inputs(b, lq, lk, h, hkv, d, seed=50 + d + lq + hkv)
+    g = np.random.RandomState(d + hkv).randn(b, lq, h, d).astype(np.float32)
+    jm, tm = {}, {}
+    if lens is not None:
+        lens = np.asarray(lens, np.int32)
+        jm["kv_lens"] = jnp.asarray(lens)
+        tm["kv_lens"] = torch.from_numpy(lens)
+    if cuts is not None:
+        seg = _segments(b, lq, cuts)
+        jm["q_segments"] = jm["kv_segments"] = jnp.asarray(seg)
+        tm["q_segments"] = tm["kv_segments"] = torch.from_numpy(seg)
+    _, vjp = jax.vjp(
+        lambda a, bb, c: flash_attention_blhd(a, bb, c, causal=causal,
+                                              block_q=128, block_k=128,
+                                              interpret=True, **jm),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    qt, kt, vt, gt = _t(q, k, v, g)
+    out, lse = flash_attention_fwd(qt, kt, vt, causal, **tm)
+    got = flash_attention_bwd(qt, kt, vt, out, lse, gt, causal, **tm)
+    for name, x, y in zip(("dq", "dk", "dv"), got, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=1e-4,
+                                   rtol=1e-4, err_msg=name)
+    for r, n in enumerate(lens if lens is not None else []):
+        assert torch.count_nonzero(got[1][r, n:]) == 0
+        assert torch.count_nonzero(got[2][r, n:]) == 0
+
+
 @pytest.mark.parametrize("rate, segments", [(0.0, False), (0.1, False),
                                             (0.1, True)],
                          ids=["0.0", "0.1", "0.1-segments"])
@@ -870,14 +921,15 @@ def test_flash_attention_options_as_the_reference(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("d", [64, 128, 256, 320, 512])
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256, 320, 512])
 def test_workspace_sizing_by_dtype(d, dtype):
     """The kernels' fp32 workspaces, sized by type and head size: the bf16
     wide bodies (forward above D = 256, backward from 256) take a bf16
     copy of round(q * scale) (half a float an element); fp32 takes no
     forward workspace and, in the backward, only dq's scratch, lse and
     delta at every head size (the fp32 wide kernels keep O, dK and dV in
-    shared memory)."""
+    shared memory; the bf16 D = 80, 96 backward keeps dK and dV in
+    registers)."""
     b, lq, h = 2, 200, 4
     dt = getattr(torch, dtype)
     lq_pad = 256
@@ -1144,10 +1196,10 @@ CARD_BWD_FLAG_CASES = [("plain", True, None, None, 0.0),
 @pytest.mark.parametrize("d", [64, 128, 80, 96, 256, 320, 384, 448, 512,
                                300])
 def test_cuda_bf16_backward_every_head_dim_and_flag(d, flags):
-    """The bf16 backward at every body's head sizes (64 and 128: the
-    Hopper body; 80, 96: the WMMA body; 256 and above: the wide body; 300
-    runs at 320 on zero-padded heads), GQA 4/2 at a ragged L = 500 (not a
-    multiple of a tile), against its
+    """The bf16 backward at every body's head sizes (64, 80, 96 and 128:
+    the Hopper body, 80 and 96 on 32-byte swizzle blocks; 256 and above:
+    the wide body; 300 runs at 320 on zero-padded heads), GQA 4/2 at a
+    ragged L = 500 (not a multiple of a tile), against its
     plain version at chip_smoke.py's [compare-fa-bwd] limit; dk and dv
     zero past each length, equal between two launches; one counted
     launch."""
@@ -1169,6 +1221,43 @@ def test_cuda_bf16_backward_every_head_dim_and_flag(d, flags):
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         err = ((x.float() - y.float()).norm() / y.float().norm()).item()
         assert err < 8.3e-4, f"{name}: relative error {err:.3g}"
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    for r, n in enumerate(lens or []):
+        assert torch.count_nonzero(got[1][r, n:]) == 0
+        assert torch.count_nonzero(got[2][r, n:]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", CARD_BWD_FLAG_CASES,
+                         ids=[c[0] for c in CARD_BWD_FLAG_CASES])
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
+def test_cuda_fp32_backward_every_head_dim_and_flag(d, flags):
+    """The fp32 backward up to 256 (flash_bwd_f32_kernel of
+    csrc/flash_f32_wide.cuh) at every built head size and flag, GQA 4/2 at
+    a ragged L = 500, against its fp32 plain version at chip_smoke.py's
+    [compare-fa-bwd] limit (its scores are the SIMT forward's sums, bit for
+    bit); dk and dv zero past each length, equal between two launches; two
+    counted launches of that body."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _, causal, lens, cuts, rate = flags
+    b, L, h, hkv = 2, 500, 4, 2
+    q, k, v, g = _card_inputs(b, L, L, h, hkv, d, torch.float32, seed=d + 2)
+    kw = dict(_card_masks(b, L, L, lens, cuts), seed=7 if rate else None)
+    out, lse = flash_attention_fwd(q, k, v, causal, None, rate, **kw)
+    reset_launch_counts()
+    got = flash_attention_bwd(q, k, v, out, lse, g, causal, None, rate, **kw)
+    again = flash_attention_bwd(q, k, v, out, lse, g, causal, None, rate,
+                                **kw)
+    torch.cuda.synchronize()
+    assert launch_counts() == dict(NO_LAUNCHES, flash_attention_bwd=2)
+    assert f32_bwd_launch_counts() == dict(flash_pair_bwd=0,
+                                           flash_attention_bwd=2)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, g, causal, None,
+                                         rate, **kw)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        err = ((x - y).norm() / y.norm()).item()
+        assert err < 9e-7, f"{name}: relative error {err:.3g}"
     assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
     for r, n in enumerate(lens or []):
         assert torch.count_nonzero(got[1][r, n:]) == 0
@@ -1262,24 +1351,37 @@ def test_cuda_bf16_wide_heads_mqa_and_ragged(case):
 
 
 # (launcher, D, dtype, the forward's and the backward's body as the
-# profiler names them, whether each is a wide-body launch: of the bf16
-# bodies, or in fp32 of the fp32 ones)
+# profiler names them, the body counter of each launch or None: "wide",
+# the bf16 wide bodies'; "f32_wide", the fp32 wide ones'; "f32_bwd", the
+# fp32 backward's up to 256; "sw32_bwd", the bf16 backward's at 80 and 96)
 CARD_ROUTES = [("flat", 512, "bfloat16", "flash_fwd_wide_kernel",
-                "flash_bwd_wide_kernel", 1, 1),
+                "flash_bwd_wide_kernel", "wide", "wide"),
                ("pair", 384, "bfloat16", "flash_fwd_wide_kernel",
-                "flash_bwd_wide_kernel", 1, 1),
+                "flash_bwd_wide_kernel", "wide", "wide"),
                ("flat", 256, "bfloat16", "flash_fwd_sm90_kernel",
-                "flash_bwd_wide_kernel", 0, 1),
+                "flash_bwd_wide_kernel", None, "wide"),
                ("pair", 256, "bfloat16", "flash_fwd_sm90_kernel",
-                "flash_bwd_wide_kernel", 0, 1),
+                "flash_bwd_wide_kernel", None, "wide"),
                ("flat", 320, "float32", "flash_fwd_f32_wide_kernel",
-                "flash_bwd_f32_wide_kernel", 1, 1),
+                "flash_bwd_f32_wide_kernel", "f32_wide", "f32_wide"),
                ("pair", 384, "float32", "flash_fwd_f32_wide_kernel",
-                "flash_bwd_f32_wide_kernel", 1, 1)]
+                "flash_bwd_f32_wide_kernel", "f32_wide", "f32_wide"),
+               ("flat", 128, "float32", "flash_fwd_f32_kernel",
+                "flash_bwd_f32_kernel", None, "f32_bwd"),
+               ("pair", 128, "float32", "flash_fwd_f32_kernel",
+                "flash_bwd_f32_kernel", None, "f32_bwd"),
+               ("flat", 80, "bfloat16", "flash_fwd_sm90_kernel",
+                "flash_bwd_sm90_kernel", None, "sw32_bwd"),
+               ("flat", 96, "bfloat16", "flash_fwd_sm90_kernel",
+                "flash_bwd_sm90_kernel", None, "sw32_bwd")]
 BODIES = ("flash_fwd_sm90_kernel", "flash_fwd_wide_kernel",
           "flash_fwd_f32_kernel", "flash_fwd_f32_wide_kernel",
           "flash_bwd_sm90_kernel", "flash_bwd_wide_kernel",
-          "flash_bwd_kernel", "flash_bwd_f32_wide_kernel")
+          "flash_bwd_f32_kernel", "flash_bwd_f32_wide_kernel")
+BODY_COUNTERS = {"wide": wide_launch_counts,
+                 "f32_wide": f32_wide_launch_counts,
+                 "f32_bwd": f32_bwd_launch_counts,
+                 "sw32_bwd": sw32_bwd_launch_counts}
 
 
 @pytest.mark.cuda
@@ -1290,14 +1392,16 @@ def test_cuda_bf16_wide_heads_run_the_wide_bodies(route):
     """Which body a launch runs, read from the profiler's kernel names: bf16
     heads above 256 on both launchers run the wide forward and backward
     (csrc/flash_wide_sm90.cuh); the bf16 D = 256 backward runs the wide
-    body, not the WMMA one, beside the Hopper forward; fp32 heads above
-    256 on both launchers run the fp32 wide kernels
-    (csrc/flash_f32_wide.cuh). The wrappers' wide-launch counters (bf16
-    and fp32) agree."""
+    body beside the Hopper forward; fp32 heads above 256 on both launchers
+    run the fp32 wide kernels (csrc/flash_f32_wide.cuh), and the fp32
+    backward at 128 flash_bwd_f32_kernel of that header; the bf16
+    backward at 80 and 96 runs the Hopper body at that size. The
+    wrappers' body counters agree: 1 for the body that ran, 0 for every
+    other."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from torch.profiler import ProfilerActivity, profile
-    launcher, d, dt, fwd_body, bwd_body, wide_f, wide_b = route
+    launcher, d, dt, fwd_body, bwd_body, ctr_f, ctr_b = route
     dtype = getattr(torch, dt)
     b, L, h = 2, 256, 4
     if launcher == "flat":
@@ -1328,9 +1432,10 @@ def test_cuda_bf16_wide_heads_run_the_wide_bodies(route):
     keys = [e.key for e in prof.key_averages()]
     seen = {n for n in BODIES if any(n in key for key in keys)}
     assert seen == {fwd_body, bwd_body}, keys
+    if bwd_body == "flash_bwd_sm90_kernel":
+        assert any(f"flash_bwd_sm90_kernel<{d}," in key for key in keys), keys
     assert launch_counts() == dict(NO_LAUNCHES, **{names[0]: 1, names[1]: 1})
-    wide, other = wide_launch_counts(), f32_wide_launch_counts()
-    if dtype == torch.float32:
-        wide, other = other, wide
-    assert (wide[names[0]], wide[names[1]]) == (wide_f, wide_b)
-    assert not any(other.values())
+    for ctr, reader in BODY_COUNTERS.items():
+        want = {n: int((ctr, n) in ((ctr_f, names[0]), (ctr_b, names[1])))
+                for n in reader()}
+        assert reader() == want, ctr
