@@ -17,15 +17,18 @@ backwards against the parent commit's wrappers and kernels
 (``[parent-fwd]``, ``[parent-bwd]``: an unpacked ``git archive`` of it in
 ``smoke_checkout/parent/`` or ``PARENT_TREE``; without one the phases say
 so), in turns, and fails a case only beyond the timing noise (a body
-redesigned by the change also below its asked speed-up, ``BWD_SPEEDUP``),
+redesigned by the change also below its asked speed-up, ``FWD_SPEEDUP``:
+the fp32 forward up to 256 at least 4x its parent's SIMT body),
 beside sdpa and the bound; it holds each kernel against its plain PyTorch
 version at
 the shapes the main paths give it and at every head size the kernels are
 built for (64, 80, 96, 128, 256, 72 on zero-padded heads, and above 256:
 320, 384, 448, 512, 1024 (fp32: two column slices), and 300 on
 zero-padded heads; the bf16 wide-head kernels at their headline shape,
-``[compare-wide]``, the fp32 ones and the fp32 backward at heads up to
-256 at theirs beside the parent's and sdpa's, ``[fp32-bodies]``, and the
+``[compare-wide]``, the fp32 ones and the fp32 forward and backward at
+heads up to 256 at theirs beside the parent's and sdpa's,
+``[fp32-bodies]``, the plain versions' times at the other shapes of
+PERF.md's kernel table, ``[plain-times]``, and the
 bodies each launcher runs by the profiler's kernel names and the body
 counters, ``[wide-route]``; every dropout mask for mask:
 each is one Philox function of the seed and the element, and the attention
@@ -286,6 +289,7 @@ def _expect_launches(where, grew, **want):
 # conversion), as profiler keys contain them
 FLASH_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_wide_kernel",
                  "flash_fwd_f32_kernel", "flash_fwd_f32_wide_kernel",
+                 "flash_fwd_f32_small_kernel",
                  "flash_bwd_sm90_kernel", "flash_bwd_wide_kernel",
                  "flash_bwd_f32_kernel", "flash_bwd_f32_wide_kernel",
                  "bwd_prepass_kernel", "scale_q_kernel", "dq_convert_kernel")
@@ -541,7 +545,11 @@ def _judge_parent(tag, where, ours, parent, noise, speedup=None):
 # wide-head kernels' headline shapes (flat D = 512 with GQA 8/2 at rate 0,
 # flat D = 320 with GQA 16/4 at rate 0.1, packed D = 384) and the fp32
 # wide kernels' (flat D = 512, GQA 8/2, [2, 1024]), where the parent's
-# kernels take several to tens of ms a call (3 calls a round)
+# kernels take several to tens of ms a call (3 calls a round), and the
+# fp32 forward up to 256 (csrc/flash_f32_wide.cuh
+# ``flash_fwd_f32_small_kernel``: flat [2, 1024, 8/2, D] causal at every
+# built size, GPT's head on the pair launcher, BERT's check shape at rate
+# 0.1 on both launchers, as [parent-bwd]'s fp32 cases)
 PARENT_FWD_CASES = [
     ("llama-train", "flat", 4, 2048, 32, 32, 128, True, 0.0, False, 20, BF16),
     ("llama-scoring", "flat", 2, 2048, 32, 32, 128, True, 0.0, False, 20,
@@ -554,7 +562,26 @@ PARENT_FWD_CASES = [
     ("wide-512", "flat", 2, 2048, 8, 2, 512, True, 0.0, False, 3, BF16),
     ("wide-320", "flat", 2, 2048, 16, 4, 320, True, 0.1, False, 3, BF16),
     ("wide-pair-384", "pair", 2, 2048, 8, 8, 384, True, 0.0, False, 3, BF16),
-    ("wide-f32-512", "flat", 2, 1024, 8, 2, 512, True, 0.0, False, 3, FP32)]
+    ("wide-f32-512", "flat", 2, 1024, 8, 2, 512, True, 0.0, False, 3, FP32),
+    ("f32-128", "flat", 2, 1024, 8, 2, 128, True, 0.0, False, 10, FP32),
+    ("f32-64", "flat", 2, 1024, 8, 2, 64, True, 0.0, False, 10, FP32),
+    ("f32-80", "flat", 2, 1024, 8, 2, 80, True, 0.0, False, 10, FP32),
+    ("f32-96", "flat", 2, 1024, 8, 2, 96, True, 0.0, False, 10, FP32),
+    ("f32-256", "flat", 2, 1024, 8, 2, 256, True, 0.0, False, 10, FP32),
+    ("f32-pair-128", "pair", 2, 1024, 8, 8, 128, True, 0.0, False, 10,
+     FP32),
+    ("f32-bert-pair", "pair", 2, 512, 12, 12, 64, False, 0.1, False, 10,
+     FP32),
+    ("f32-bert-flat", "flat", 2, 512, 12, 12, 64, False, 0.1, True, 10,
+     FP32)]
+# the speed-ups over the parent's bodies a redesigned forward must show
+# (``_judge_parent``): the fp32 body up to 256 at least 4x the parent's
+# SIMT body at [2, 1024, 8/2, 128], and faster than it beyond the noise at
+# its other cases
+FWD_SPEEDUP = {"f32-128": 4.0}
+FWD_SPEEDUP.update({tag: "noise" for tag in (
+    "f32-64", "f32-80", "f32-96", "f32-256", "f32-pair-128",
+    "f32-bert-pair", "f32-bert-flat")})
 
 
 def phase_parent_fwd(parent, noise):
@@ -562,9 +589,10 @@ def phase_parent_fwd(parent, noise):
     package, ``_parent_kernels``) on the same inputs, in the same process
     on the same card, timed in turns (``_timed_pair``), beside
     scaled_dot_product_attention on the same inputs (the yardstick) and
-    the bound. A case fails only when slower than the parent's beyond the
-    timing noise (``_judge_parent``). Returns {tag: (ms, parent ms, sdpa
-    ms, bound ms)}; the parent's is None without a parent tree."""
+    the bound. A case fails when slower than the parent's beyond the
+    timing noise, or below its FWD_SPEEDUP (``_judge_parent``). Returns
+    {tag: (ms, parent ms, sdpa ms, bound ms)}; the parent's is None
+    without a parent tree."""
     from paddle_tpu_torch.kernels import flash_attention, flash_pair
     gen = torch.Generator(device="cuda")
     gen.manual_seed(60)
@@ -619,7 +647,8 @@ def phase_parent_fwd(parent, noise):
         else:
             ours, theirs = _timed_pair(call(mods[0]), call(mods[1]), iters)
             ms, pms = ours[0], theirs[0]
-            _judge_parent("[parent-fwd]", where, ours, theirs, noise)
+            _judge_parent("[parent-fwd]", where, ours, theirs, noise,
+                          FWD_SPEEDUP.get(tag))
         log(f"[parent-fwd] {tag}: sdpa {lib_ms:.4f} ms ({ms / lib_ms:.2f}x "
             f"the kernel's time), bound {bound:.4f} ms ({ms / bound:.1f}x)")
         out[tag] = (ms, pms, lib_ms, bound)
@@ -639,7 +668,7 @@ def phase_parent_fwd(parent, noise):
 # launcher, BERT's check shape at rate 0.1 on both launchers) and of
 # csrc/flash_bwd_sm90.cuh at 80 and 96 (bf16 on 32-byte swizzle blocks: [2,
 # 1024, 8/2, D] and Phi-2's / Phi-3-mini's attention at LLaMA's training
-# geometry), whose parents are the SIMT and WMMA bodies
+# geometry)
 PARENT_BWD_CASES = [
     ("llama-train", "flat", 4, 2048, 32, 32, 128, True, 0.0, None, 10, BF16),
     ("gqa-lengths", "flat", 2, 2048, 32, 8, 128, True, 0.0, [2048, 1111],
@@ -668,15 +697,10 @@ PARENT_BWD_CASES = [
     ("wmma-96", "flat", 2, 1024, 8, 2, 96, True, 0.0, None, 10, BF16),
     ("phi2-80", "flat", 4, 2048, 32, 32, 80, True, 0.0, None, 5, BF16),
     ("phi3-96", "flat", 4, 2048, 32, 32, 96, True, 0.0, None, 5, BF16)]
-# the speed-ups over the parent's bodies the redesigned ones must show
-# (the SIMT fp32 body at [2, 1024, 8/2, 128], the WMMA bf16 one at 80 and
-# 96), and the other cases of the fp32 body, which must be faster than the
-# parent's beyond the noise
-BWD_SPEEDUP = {"f32-128": 5.0, "wmma-80": 2.0, "wmma-96": 2.0,
-               "phi2-80": 3.0, "phi3-96": 3.0}
-BWD_SPEEDUP.update({tag: "noise" for tag in (
-    "f32-64", "f32-80", "f32-96", "f32-256", "f32-pair-128",
-    "f32-bert-pair", "f32-bert-flat")})
+# the speed-ups over the parent's bodies a redesigned backward must show,
+# as FWD_SPEEDUP: none (every backward body is the parent's design; each
+# case must be no slower than the parent's beyond the noise)
+BWD_SPEEDUP = {}
 
 
 def phase_parent_bwd(parent, noise):
@@ -1385,9 +1409,9 @@ def phase_compare_wide():
 # [wide-route]: (launcher, D, dtype, the forward's and the backward's body
 # as the profiler names them, the counter of each launch's body or None:
 # "wide", the bf16 wide bodies' (.wide_launches); "f32_wide", the fp32
-# ones' (.f32_wide_launches); "f32_bwd", the fp32 backward up to 256
-# (.f32_bwd_launches); "sw32_bwd", the bf16 backward at 80 and 96
-# (.sw32_bwd_launches))
+# ones' (.f32_wide_launches); "f32_fwd" and "f32_bwd", the fp32 forward
+# and backward up to 256 (.f32_fwd_launches, .f32_bwd_launches);
+# "sw32_bwd", the bf16 backward at 80 and 96 (.sw32_bwd_launches))
 WIDE_ROUTES = [
     ("flat", 512, BF16, "flash_fwd_wide_kernel", "flash_bwd_wide_kernel",
      "wide", "wide"),
@@ -1405,9 +1429,12 @@ WIDE_ROUTES = [
      "flash_bwd_f32_wide_kernel", "f32_wide", "f32_wide"),
     ("pair", 384, FP32, "flash_fwd_f32_wide_kernel",
      "flash_bwd_f32_wide_kernel", "f32_wide", "f32_wide")]
-WIDE_ROUTES += [(launcher, d, FP32, "flash_fwd_f32_kernel",
-                 "flash_bwd_f32_kernel", None, "f32_bwd")
-                for launcher in ("flat", "pair") for d in (64, 128, 256)]
+WIDE_ROUTES += [(launcher, d, FP32, "flash_fwd_f32_small_kernel",
+                 "flash_bwd_f32_kernel", "f32_fwd", "f32_bwd")
+                for launcher, d in (("flat", 64), ("flat", 80), ("flat", 96),
+                                    ("flat", 128), ("flat", 256),
+                                    ("pair", 64), ("pair", 128),
+                                    ("pair", 256))]
 
 
 def phase_wide_route():
@@ -1420,19 +1447,25 @@ def phase_wide_route():
     flash_bwd_sm90_kernel at that head size (its template argument in the
     name); fp32 above 256 runs flash_fwd_f32_wide_kernel and
     flash_bwd_f32_wide_kernel on both launchers, and fp32 at 64, 128 and
-    256 the SIMT forward and flash_bwd_f32_kernel. The flash kernels seen
-    must be exactly the expected ones, and each body counter of the
-    wrappers (bf16 wide, fp32 wide, fp32 backward, bf16 80/96 backward)
-    must read 1 where its body ran and 0 elsewhere."""
+    256 on both launchers and 80 and 96 on the flat one
+    flash_fwd_f32_small_kernel and flash_bwd_f32_kernel (the SIMT forward,
+    flash_fwd_f32_kernel, must not run: it is one of the FLASH_KERNELS
+    names read; a trace with no device event at all is taken again, up
+    to three times). The flash kernels seen must be exactly the expected
+    ones, and each body counter of the wrappers (bf16 wide, fp32 wide,
+    fp32 forward and backward, bf16 80/96 backward) must read 1 where its
+    body ran and 0 elsewhere."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.kernels import (f32_bwd_launch_counts,
+                                          f32_fwd_launch_counts,
                                           f32_wide_launch_counts,
                                           flash_attention, flash_pair,
                                           launch_counts, reset_launch_counts,
                                           sw32_bwd_launch_counts,
                                           wide_launch_counts)
     readers = {"wide": wide_launch_counts, "f32_wide": f32_wide_launch_counts,
+               "f32_fwd": f32_fwd_launch_counts,
                "f32_bwd": f32_bwd_launch_counts,
                "sw32_bwd": sw32_bwd_launch_counts}
     gen = torch.Generator(device="cuda")
@@ -1456,13 +1489,23 @@ def phase_wide_route():
                 flash_pair.flash_pair_bwd(qkv, out, lse, g, h, True)
         run()                                # built and warm
         torch.cuda.synchronize()
-        reset_launch_counts()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
+        for attempt in range(3):
+            reset_launch_counts()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+            # a trace without a single device event is the profiler's
+            # failure (an H100 run once gave one), not a route: profile the
+            # same launches again
+            if any(e.device_type == torch.autograd.DeviceType.CUDA
+                   for e in events):
+                break
+            log(f"[wide-route] {launcher} D={d}: the profiler recorded no "
+                f"device event (attempt {attempt + 1}); profiling again")
         counts = launch_counts()
-        keys = [e.key for e in prof.key_averages()]
+        keys = [e.key for e in events]
         seen = {n for n in FLASH_KERNELS if any(n in key for key in keys)}
         want = {fwd_body, bwd_body, "bwd_prepass_kernel", "dq_convert_kernel"}
         if dtype == BF16 and "wide" in (ctr_f, ctr_b):
@@ -1514,7 +1557,8 @@ def _sdpa_kernels(fn):
 
 def phase_fp32_bodies(parent, parent_fwd, parent_bwd):
     """The fp32 bodies beside sdpa in fp32 and the fp32 bound (67 TFLOP/s),
-    causal: the SIMT forward and the FFMA backward (flash_bwd_f32_kernel of
+    causal: the FFMA forward and backward up to 256
+    (flash_fwd_f32_small_kernel and flash_bwd_f32_kernel of
     csrc/flash_f32_wide.cuh) at [2, 1024, 8/2, 128], and the fp32 wide
     kernels (the same header) at FP32_WIDE_CASES.
 
@@ -1530,12 +1574,14 @@ def phase_fp32_bodies(parent, parent_fwd, parent_bwd):
     is printed). Times: the flat case's beside its parent's from
     [parent-fwd] / [parent-bwd] (no slower beyond the noise there), the
     packed case's beside its parent's in turns here. At D = 128 the
-    backward is held to its fp32 plain version within
-    FA_BWD_REL_LIMIT[FP32] (its scores are the SIMT forward's sums, bit for
-    bit), dk and dv equal between launches, and its time is
-    [parent-bwd]'s f32-128 (at least BWD_SPEEDUP times the parent's SIMT
+    forward is held to its fp32 plain version within [compare-fa]'s limits
+    and its error against the exact output printed beside sdpa's; the
+    backward that follows it to its fp32 plain version within
+    FA_BWD_REL_LIMIT[FP32] (its scores are the forward's sums, bit for
+    bit), dk and dv equal between launches; their times are [parent-fwd]'s
+    and [parent-bwd]'s f32-128, beside the parent's (its forward the SIMT
     body). Returns the wide flat case's forward and backward records and
-    the D = 128 backward's."""
+    the D = 128 backward's and forward's."""
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_reference,
         flash_attention_fwd, flash_attention_fwd_reference)
@@ -1554,6 +1600,12 @@ def phase_fp32_bodies(parent, parent_fwd, parent_bwd):
     got = flash_attention_bwd(q, k, v, out, lse, g, True)
     again = flash_attention_bwd(q, k, v, out, lse, g, True)
     torch.cuda.synchronize()
+    ref_out, ref_lse = flash_attention_fwd_reference(q, k, v, True)
+    fdiff = (out - ref_out).abs()
+    fwd_err = fdiff.max().item()
+    fwd_of_limit = (fdiff / (1e-4 + 1e-4 * ref_out.abs())).max().item()
+    lse_ok = bool(((lse - ref_lse).abs()
+                   <= 1e-3 + 1e-3 * ref_lse.abs()).all())
     want = flash_attention_bwd_reference(q, k, v, out, lse, g, True)
     rels = [rel_err(x, y) for x, y in zip(got, want)]
     worst_abs = max((x - y).abs().max().item() for x, y in zip(got, want))
@@ -1563,10 +1615,13 @@ def phase_fp32_bodies(parent, parent_fwd, parent_bwd):
     exact = flash_attention_bwd_reference(q64, k64, v64, o64, l64, g64, True)
     ours_x = [rel_err(x, y) for x, y in zip(got, exact)]
     plain_x = [rel_err(x, y) for x, y in zip(want, exact)]
-    del got, again, q64, k64, v64, g64, o64, l64
-    ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v, True), iters=5,
-                      warmup=1)
+    fwd_x = rel_err(out, o64)
+    lib_fwd_x = rel_err(_sdpa_library(q, k, v, True).transpose(1, 2), o64)
+    del got, again, q64, k64, v64, g64, l64
+    ms, pms = parent_fwd["f32-128"][:2]
     bwd_ms, pbwd_ms = parent_bwd["f32-128"][:2]
+    plain_ms = cuda_time_ms(lambda: flash_attention_fwd_reference(
+        q, k, v, True), iters=3, warmup=1)
     plain_bwd_ms = cuda_time_ms(lambda: flash_attention_bwd_reference(
         q, k, v, out, lse, g, True), iters=3, warmup=1)
     lib_ms = cuda_time_ms(lambda: _sdpa_library(q, k, v, True))
@@ -1577,26 +1632,37 @@ def phase_fp32_bodies(parent, parent_fwd, parent_bwd):
     fb = fa_bound_ms(b, L, L, h, hkv, d, FP32, True)
     bb = fa_bound_ms(b, L, L, h, hkv, d, FP32, True, backward=True)
     tag = f"[fp32-bodies] B={b} L={L} H={h} Hkv={hkv} D={d} fp32 causal"
-    log(f"{tag} (flash_bwd_f32_kernel): dq/dk/dv rel {rels[0]:.3g}/"
-        f"{rels[1]:.3g}/{rels[2]:.3g} (limit {FA_BWD_REL_LIMIT[FP32]}); "
-        f"against the exact gradient ours {ours_x[0]:.3g}/{ours_x[1]:.3g}/"
-        f"{ours_x[2]:.3g}, the plain version's {plain_x[0]:.3g}/"
-        f"{plain_x[1]:.3g}/{plain_x[2]:.3g}; dk/dv equal between launches "
-        f"{stable}")
-    parent_note = ("the parent's not measured" if pbwd_ms is None else
-                   f"the parent's SIMT body {pbwd_ms:.4f} ms, "
-                   f"{pbwd_ms / bwd_ms:.2f}x")
-    log(f"{tag} (SIMT forward, flash_bwd_f32_kernel backward): forward "
-        f"{ms:.4f} ms (sdpa {lib_ms:.4f}, bound {fb[0]:.4f} ms {fb[1]}); "
-        f"backward {bwd_ms:.4f} ms ({parent_note}; sdpa backward "
-        f"{lib_bwd_ms:.4f}, {bwd_ms / lib_bwd_ms:.2f}x its time; plain "
-        f"{plain_bwd_ms:.4f}; bound {bb[0]:.4f} ms {bb[1]})")
-    if not (stable and max(rels) < FA_BWD_REL_LIMIT[FP32]):
-        raise AssertionError(f"{tag}: the fp32 backward disagrees")
-    small_record = dict(max_abs_err=worst_abs, ms=bwd_ms,
-                        plain_ms=plain_bwd_ms, bound_ms=bb[0], bound_by=bb[1],
-                        library_ms=lib_bwd_ms, parent_ms=pbwd_ms)
-    del q, k, v, g, out, lse, leaves, o, want, exact
+    log(f"{tag} (flash_fwd_f32_small_kernel): out {fwd_of_limit:.3f} of the "
+        f"limit (atol 1e-4, rtol 1e-4; max|err| {fwd_err:.3g}), lse ok "
+        f"{lse_ok}; against the exact (fp64) output ours {fwd_x:.3g}, "
+        f"sdpa's (fp32, TF32 off) {lib_fwd_x:.3g}")
+    log(f"{tag} (flash_bwd_f32_kernel after it): dq/dk/dv rel "
+        f"{rels[0]:.3g}/{rels[1]:.3g}/{rels[2]:.3g} (limit "
+        f"{FA_BWD_REL_LIMIT[FP32]}); against the exact gradient ours "
+        f"{ours_x[0]:.3g}/{ours_x[1]:.3g}/{ours_x[2]:.3g}, the plain "
+        f"version's {plain_x[0]:.3g}/{plain_x[1]:.3g}/{plain_x[2]:.3g}; "
+        f"dk/dv equal between launches {stable}")
+
+    def beside(mine, theirs, body):
+        return ("the parent's not measured" if theirs is None else
+                f"the parent's {body}{theirs:.4f} ms, {theirs / mine:.2f}x")
+    log(f"{tag}: forward {ms:.4f} ms ({beside(ms, pms, 'SIMT body ')}; sdpa "
+        f"{lib_ms:.4f}, {ms / lib_ms:.2f}x its time; plain {plain_ms:.4f}; "
+        f"bound {fb[0]:.4f} ms {fb[1]}); backward {bwd_ms:.4f} ms "
+        f"({beside(bwd_ms, pbwd_ms, '')}; sdpa backward {lib_bwd_ms:.4f}, "
+        f"{bwd_ms / lib_bwd_ms:.2f}x its time; plain {plain_bwd_ms:.4f}; "
+        f"bound {bb[0]:.4f} ms {bb[1]})")
+    if not (fwd_of_limit <= 1.0 and lse_ok and stable
+            and max(rels) < FA_BWD_REL_LIMIT[FP32]):
+        raise AssertionError(f"{tag}: the fp32 forward or backward "
+                             f"disagrees")
+    small_records = (
+        dict(max_abs_err=worst_abs, ms=bwd_ms, plain_ms=plain_bwd_ms,
+             bound_ms=bb[0], bound_by=bb[1], library_ms=lib_bwd_ms,
+             parent_ms=pbwd_ms),
+        dict(max_abs_err=fwd_err, ms=ms, plain_ms=plain_ms, bound_ms=fb[0],
+             bound_by=fb[1], library_ms=lib_ms, parent_ms=pms))
+    del q, k, v, g, out, lse, leaves, o, want, exact, o64, ref_out, ref_lse
     torch.cuda.empty_cache()
 
     records = None
@@ -1730,14 +1796,12 @@ def phase_fp32_bodies(parent, parent_fwd, parent_bwd):
             ms = cuda_time_ms(fwd, iters=10)
             bwd_ms = cuda_time_ms(lambda: bwd(out, lse), iters=10)
             pms = pbwd_ms = None
-        def beside(mine, theirs):
-            return ("the parent's not measured" if theirs is None else
-                    f"the parent's {theirs:.4f} ms, {theirs / mine:.2f}x")
-        log(f"{tag}: forward {ms:.4f} ms ({beside(ms, pms)}; sdpa "
+        log(f"{tag}: forward {ms:.4f} ms ({beside(ms, pms, '')}; sdpa "
             f"{lib_ms:.4f}, {ms / lib_ms:.2f}x its time; plain {plain_ms:.4f};"
             f" bound {fb[0]:.4f} ms {fb[1]}); backward {bwd_ms:.4f} ms "
-            f"({beside(bwd_ms, pbwd_ms)}; sdpa backward {lib_bwd_ms:.4f}, "
-            f"{bwd_ms / lib_bwd_ms:.2f}x its time; plain {plain_bwd_ms:.4f}; "
+            f"({beside(bwd_ms, pbwd_ms, '')}; sdpa backward "
+            f"{lib_bwd_ms:.4f}, {bwd_ms / lib_bwd_ms:.2f}x its time; plain "
+            f"{plain_bwd_ms:.4f}; "
             f"bound {bb[0]:.4f} ms {bb[1]})")
         if launcher == "flat":
             records = (dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1749,7 +1813,72 @@ def phase_fp32_bodies(parent, parent_fwd, parent_bwd):
                             parent_ms=pbwd_ms))
         del out, lse, got, exact, o64, l64, leaves, lib_o, ref_out, ref_lse
         torch.cuda.empty_cache()
-    return records + (small_record,)
+    return records + small_records
+
+
+# [plain-times]: the shapes of PERF.md's kernel table where no other phase
+# times the plain version: (tag as in [parent-*], launcher, backward, B, L,
+# H, Hkv, D, dtype, causal, rate, BERT's lengths)
+PLAIN_CASES = [
+    ("wide-pair-384", "pair", False, 2, 2048, 8, 8, 384, BF16, True, 0.0,
+     False),
+    ("wide-pair-384", "pair", True, 2, 2048, 8, 8, 384, BF16, True, 0.0,
+     False),
+    ("f32-pair-128", "pair", False, 2, 1024, 8, 8, 128, FP32, True, 0.0,
+     False),
+    ("f32-pair-128", "pair", True, 2, 1024, 8, 8, 128, FP32, True, 0.0,
+     False),
+    ("f32-bert-pair", "pair", True, 2, 512, 12, 12, 64, FP32, False, 0.1,
+     False),
+    ("wide-320", "flat", False, 2, 2048, 16, 4, 320, BF16, True, 0.1, False),
+    ("wide-320", "flat", True, 2, 2048, 16, 4, 320, BF16, True, 0.1, False),
+    ("d256-bwd", "flat", True, 2, 2048, 8, 2, 256, BF16, True, 0.0, False),
+    ("phi2-80", "flat", True, 4, 2048, 32, 32, 80, BF16, True, 0.0, False),
+    ("phi3-96", "flat", True, 4, 2048, 32, 32, 96, BF16, True, 0.0, False),
+    ("f32-bert-flat", "flat", True, 2, 512, 12, 12, 64, FP32, False, 0.1,
+     True)]
+PLAIN_CASES += [(f"f32-{d}", "flat", True, 2, 1024, 8, 2, d, FP32, True,
+                 0.0, False) for d in (64, 80, 96, 256)]
+
+
+def phase_plain_times():
+    """The plain versions' times (3 calls after 1) at PLAIN_CASES, on
+    [parent-*]'s inputs; a backward's plain version takes the kernel
+    forward's out and lse."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import flash_pair as fp
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(83)
+    for (tag, launcher, backward, b, L, h, hkv, d, dtype, causal, rate,
+         lens) in PLAIN_CASES:
+        seed = 0x9A4E47 if rate else None
+        if launcher == "flat":
+            q, k, v, g = _fa_inputs(b, L, L, h, hkv, d, dtype, gen)
+            kw = {}
+            if lens:
+                kw["kv_lens"] = torch.as_tensor(
+                    _bert_pad_lengths(b, L, BERT_PAD_SEED), dtype=torch.int32,
+                    device="cuda")
+            o, lse = fa.flash_attention_fwd(q, k, v, causal, None, rate,
+                                            seed=seed, **kw)
+            fn = (lambda: fa.flash_attention_bwd_reference(
+                q, k, v, o, lse, g, causal, None, rate, seed=seed, **kw)) \
+                if backward else (lambda: fa.flash_attention_fwd_reference(
+                    q, k, v, causal, None, rate, seed=seed, **kw))
+        else:
+            qkv, g = _bwd_inputs(b, L, h, d, dtype, gen)
+            o, lse = fp.flash_pair_fwd(qkv, h, causal, rate, seed)
+            fn = (lambda: fp.flash_pair_bwd_reference(
+                qkv, o, lse, g, h, causal, rate, seed)) if backward else \
+                (lambda: fp.flash_pair_fwd_reference(qkv, h, causal, rate,
+                                                     seed))
+        ms = cuda_time_ms(fn, iters=3, warmup=1)
+        log(f"[plain-times] {tag}: {launcher} B={b} L={L} H={h} Hkv={hkv} "
+            f"D={d} {str(dtype)[6:]} causal={causal} rate {rate}"
+            f"{' lengths' if lens else ''}: plain "
+            f"{'backward' if backward else 'forward'} {ms:.4f} ms")
+        del fn, o, lse, g
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ LLaMA
@@ -3534,6 +3663,7 @@ def main() -> int:
         return 2
     try:
         from paddle_tpu_torch.kernels import (f32_bwd_launch_counts,
+                                              f32_fwd_launch_counts,
                                               f32_wide_launch_counts,
                                               launch_counts,
                                               reset_launch_counts,
@@ -3577,6 +3707,7 @@ def main() -> int:
     wide_records = phase_compare_wide()
     phase_wide_route()
     f32_records = phase_fp32_bodies(parent, parent_fwd, parent_bwd)
+    phase_plain_times()
     # the forward records beside the parent's time at their shapes
     for record, tag in ((records["flash_pair_fwd"], "gpt-scoring"),
                         (records["flash_attention_fwd"], "bert-padded"),
@@ -3592,20 +3723,22 @@ def main() -> int:
 
     def counts():
         """The launch counts and, as "wide:<wrapper>", "f32w:<wrapper>",
-        "f32b:<wrapper>" and "sw32:<wrapper>", the bf16 and fp32 wide
-        bodies', the fp32 backward's up to 256 and the bf16 backward's at
-        80 and 96."""
+        "f32f:<wrapper>", "f32b:<wrapper>" and "sw32:<wrapper>", the bf16
+        and fp32 wide bodies', the fp32 forward's and backward's up to 256
+        and the bf16 backward's at 80 and 96."""
         return dict(launch_counts(),
                     **{f"wide:{k}": n for k, n in
                        wide_launch_counts().items()},
                     **{f"f32w:{k}": n for k, n in
                        f32_wide_launch_counts().items()},
+                    **{f"f32f:{k}": n for k, n in
+                       f32_fwd_launch_counts().items()},
                     **{f"f32b:{k}": n for k, n in
                        f32_bwd_launch_counts().items()},
                     **{f"sw32:{k}": n for k, n in
                        sw32_bwd_launch_counts().items()})
 
-    checks = {}        # the fp32 card-vs-CPU phases' launches
+    checks = {}        # the fp32 phases' launches (card-vs-CPU, engine)
 
     def counted(tag, phase):
         reset_launch_counts()
@@ -3689,7 +3822,7 @@ def main() -> int:
     phase_llama_scoring_time(llama, ids)
     del llama, reqs, ids
     torch.cuda.empty_cache()
-    phase_llama_engine_fp32()
+    counted("llama-engine-fp32", phase_llama_engine_fp32)
     torch.cuda.empty_cache()
 
     reset_launch_counts()                  # LLaMA training starts here
@@ -3733,16 +3866,18 @@ def main() -> int:
                            + p[f"{body}:flash_pair_{d}"]
                            for p in paths.values())
         for body in ("wide", "f32w") for d in ("fwd", "bwd")}
-    # the fp32 backward up to 256 and the bf16 backward at 80 and 96 (no
-    # model path runs fp32 or a head of 80 or 96): their launches on the
-    # model paths and in the fp32 check phases
-    for body in ("f32b", "sw32"):
-        wide_launches[f"{body}:bwd"] = sum(
-            p[f"{body}:flash_attention_bwd"] + p[f"{body}:flash_pair_bwd"]
+    # the fp32 forward and backward up to 256 and the bf16 backward at 80
+    # and 96 (no model path runs fp32 or a head of 80 or 96): their
+    # launches on the model paths and in the fp32 phases (the check phases
+    # and [llama-engine-fp32])
+    for body, d in (("f32f", "fwd"), ("f32b", "bwd"), ("sw32", "bwd")):
+        wide_launches[f"{body}:{d}"] = sum(
+            p[f"{body}:flash_attention_{d}"] + p[f"{body}:flash_pair_{d}"]
             for p in (*paths.values(), *checks.values()))
-    if wide_launches["f32b:bwd"] < 1:
-        raise AssertionError("the fp32 check phases never launched the "
-                             "fp32 backward body")
+    for body, what in (("f32f:fwd", "forward"), ("f32b:bwd", "backward")):
+        if wide_launches[body] < 1:
+            raise AssertionError(f"the fp32 check phases never launched the "
+                                 f"fp32 {what} body")
     kernels = [
         _kernel_entry("flash_pair_fwd", "flash_pair_fwd.cu",
                       "flash_pair.py:95", launches, records["flash_pair_fwd"]),
@@ -3792,10 +3927,14 @@ def main() -> int:
                            "flash_attention.py:340", wide_launches,
                            f32_records[1]),
              name="flash_attention_bwd (fp32 wide body, D > 256)"),
-        # the fp32 backward up to 256 (both launchers; [fp32-bodies] at
-        # [2, 1024, 8/2, 128]) and the bf16 backward at 80 and 96
-        # ([compare-fa-bwd] at [2, 1024, 8/2, 80]): their launches on the
-        # model paths and in the fp32 check phases
+        # the fp32 forward and backward up to 256 (both launchers;
+        # [fp32-bodies] at [2, 1024, 8/2, 128]) and the bf16 backward at 80
+        # and 96 ([compare-fa-bwd] at [2, 1024, 8/2, 80]): their launches on
+        # the model paths and in the fp32 phases
+        dict(_kernel_entry("f32f:fwd", "flash_f32_wide.cuh",
+                           "flash_attention.py:122", wide_launches,
+                           f32_records[3]),
+             name="flash_attention_fwd (fp32 body, D <= 256)"),
         dict(_kernel_entry("f32b:bwd", "flash_f32_wide.cuh",
                            "flash_attention.py:340", wide_launches,
                            f32_records[2]),

@@ -19,11 +19,14 @@ with fp32 masters, ``jit.TrainStep`` (eager steps), and the paged serving
 engine over GPT or LLaMA (``serving.DecodeEngine``). Every dropout draws
 its seed from the model's CPU generator and its bits from one Philox
 stream keyed on the element, so the card and the CPU drop the same
-elements.
+elements. ``seed``, ``get_rng_state`` and ``set_rng_state`` drive the
+global chain that ``F.dropout``, ``nn.Dropout`` and the attention
+functionals draw from when no generator is given (``core/random.py``).
 ``convert.load_paddle_state`` carries weights over from a ``paddle_tpu``
 model.
 """
 from . import core, jit, kernels, models, nn, optimizer, serving
+from .core.random import get_rng_state, seed, set_rng_state
 from .jit import TrainStep
 from .models import (BertConfig, BertForPreTraining, GPTConfig,
                      GPTForCausalLM, LlamaConfig, LlamaForCausalLM, bert_base,
@@ -33,4 +36,5 @@ from .serving import DecodeEngine
 __all__ = ["core", "jit", "kernels", "models", "nn", "optimizer", "serving",
            "BertConfig", "BertForPreTraining", "bert_base", "GPTConfig",
            "GPTForCausalLM", "LlamaConfig", "LlamaForCausalLM", "llama_7b",
-           "DecodeEngine", "TrainStep"]
+           "DecodeEngine", "TrainStep", "seed", "get_rng_state",
+           "set_rng_state"]

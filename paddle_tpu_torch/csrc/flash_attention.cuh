@@ -1,7 +1,7 @@
 // Flash-attention forward and backward for Hopper (sm_90a), shared by the
 // port's two attention layouts: the operands, the masks, the shared
-// helpers, the fp32 SIMT forward, the backward's pre-pass and dq
-// conversion, and the dispatch. Each launcher source
+// helpers, the backward's pre-pass and dq conversion, and the dispatch to
+// the bodies of the headers included below. Each launcher source
 // includes this header and exposes one `extern "C"` entry point bound with
 // ctypes:
 //   flash_pair_fwd.cu / flash_pair_bwd.cu         GPT's packed qkv
@@ -52,9 +52,12 @@
 //                                              (flash_wide_sm90.cuh: TMA,
 //                                              wgmma, O in 128-column
 //                                              slices, S over D in chunks)
-//             fp32, D <= 256                   flash_fwd_f32_kernel (below,
-//                                              SIMT: TF32 would miss the
-//                                              fp32 reference)
+//             fp32, D = 64, 80, 96, 128, 256   f32w::flash_fwd_f32_small_kernel
+//                                              (flash_f32_wide.cuh: FFMA
+//                                              register micro-tiles, Q in
+//                                              shared memory, O in
+//                                              registers; TF32 would miss
+//                                              the fp32 reference)
 //             fp32, D > 256 with D % 64 == 0   f32w::flash_fwd_f32_wide_kernel
 //                                              (flash_f32_wide.cuh: FFMA
 //                                              register micro-tiles, O in
@@ -149,44 +152,7 @@
 
 namespace {
 
-constexpr int kBM = 64;            // q rows per tile (the SIMT forward)
-constexpr int kWarps = 4;          // each warp owns 16 q rows
-constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;  // _NEG_INF of the Pallas kernels
-
-// Rows of T tiles in shared memory are padded by 16 bytes, which keeps
-// every row 16-byte aligned for vector stores.
-template <typename T, int D>
-constexpr int kLdTile = D + 16 / (int)sizeof(T);
-
-// Copy rows [r0, r0 + rows) of one head's D columns (rows row_stride
-// apart) into a shared tile with 16-byte vector loads; rows at or past L
-// are zero-filled (a zero v row times a zero probability stays zero,
-// garbage could be NaN). With kScale the values are multiplied by sm_scale
-// and rounded back to T.
-template <typename T, int D, bool kScale>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int r0,
-                                          int rows, int L, long row_stride,
-                                          float sm_scale) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecPerRow = D / kVec;
-  for (int i = threadIdx.x; i < rows * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int cv = i % kVecPerRow;
-    const int gr = r0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < L) {
-      val = *reinterpret_cast<const uint4*>(src + (long)gr * row_stride +
-                                            cv * kVec);
-    }
-    if (kScale) {
-      T* e = reinterpret_cast<T*>(&val);
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) e[k] = from_f<T>(to_f(e[k]) * sm_scale);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLdTile<T, D> + cv * kVec) = val;
-  }
-}
 
 // Which (q row, key) pairs of one batch row are attended: keys below len,
 // the causal band and, with kSegs, the pairs of one segment (qs and ks are
@@ -303,200 +269,15 @@ inline __nv_bfloat16* bwd_qs(const BwdArgs& a, int B) {
 #include "flash_fwd_sm90.cuh"   // the bf16 forward at D <= 256
 #include "flash_bwd_sm90.cuh"   // the bf16 backward at D = 64, 80, 96, 128
 #include "flash_wide_sm90.cuh"  // bf16 D > 256 both ways, D = 256 backward
-#include "flash_f32_wide.cuh"   // fp32 D > 256 both ways, the D <= 256 backward
+#include "flash_f32_wide.cuh"   // fp32 both ways at every D
 
 namespace {
-
-// The fp32 forward (plain FMA: TF32 would miss the fp32 reference) keeps
-// the first slices' SIMT design: one CTA of 4 warps per (64-row q tile, q
-// head, batch row), the q tile, one k and one v tile of BN rows, the score
-// and probability tiles and the output accumulator in shared memory, a lane
-// pair per q row. BN is 64, or 32 at D = 256 so the tiles fit.
-template <int D>
-constexpr int kFwdF32BN = D == 256 ? 32 : 64;
-
-template <int D, int BN>
-struct FwdGeom {
-  static constexpr int kLdT = kLdTile<float, D>;  // q/k/v tiles
-  static constexpr int kLdS = BN + 4;             // scores, probabilities
-  static constexpr int kLdO = D + 4;              // output accumulator
-  static constexpr size_t kQ = 0;
-  static constexpr size_t kK = kQ + sizeof(float) * kBM * kLdT;
-  static constexpr size_t kV = kK + sizeof(float) * BN * kLdT;
-  static constexpr size_t kS = kV + sizeof(float) * BN * kLdT;
-  static constexpr size_t kP = kS + sizeof(float) * kBM * kLdS;
-  static constexpr size_t kO = kP + sizeof(float) * kBM * kLdS;
-  static constexpr size_t kM = kO + sizeof(float) * kBM * kLdO;
-  static constexpr size_t kL = kM + sizeof(float) * kBM;
-  static constexpr size_t kBytes = kL + sizeof(float) * kBM;
-};
-
-// S[this lane pair's row, its half of the columns] = Q . K^T.
-template <int D, int BN>
-__device__ __forceinline__ void scores(const float* Qs, const float* Ks,
-                                       float* Ss, int r, int half) {
-  using G = FwdGeom<D, BN>;
-  const int c0 = half * (BN / 2);
-  const float* q = Qs + r * G::kLdT;
-  for (int c = c0; c < c0 + BN / 2; ++c) {
-    const float* k = Ks + c * G::kLdT;
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) acc = fmaf(q[d], k[d], acc);
-    Ss[r * G::kLdS + c] = acc;
-  }
-}
-
-// O[this lane pair's row, its half of the columns] += P . V.
-template <int D, int BN>
-__device__ __forceinline__ void accumulate_pv(const float* Ps,
-                                              const float* Vs, float* Os,
-                                              int r, int half) {
-  using G = FwdGeom<D, BN>;
-  const float* p = Ps + r * G::kLdS;
-  float* o = Os + r * G::kLdO;
-  for (int d = half * (D / 2); d < (half + 1) * (D / 2); ++d) {
-    float acc = o[d];
-    for (int c = 0; c < BN; ++c) acc = fmaf(p[c], Vs[c * G::kLdT + d], acc);
-    o[d] = acc;
-  }
-}
-
-template <int D, int BN, bool kDrop, bool kSegs>
-__global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(FwdArgs a) {
-  using T = float;
-  using G = FwdGeom<D, BN>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + G::kQ);
-  T* Ks = reinterpret_cast<T*>(smem + G::kK);
-  T* Vs = reinterpret_cast<T*>(smem + G::kV);
-  float* Ss = reinterpret_cast<float*>(smem + G::kS);
-  float* Ps = reinterpret_cast<float*>(smem + G::kP);
-  float* Os = reinterpret_cast<float*>(smem + G::kO);
-  float* Ms = reinterpret_cast<float*>(smem + G::kM);
-  float* Ls = reinterpret_cast<float*>(smem + G::kL);
-
-  // heaviest causal q tiles first: they have the most kv tiles to walk
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (a.H / a.Hkv);    // this q head's KV head (_kv_map)
-  const uint32_t bh = (uint32_t)(b * a.H + h);  // dropout's row word 1
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const Mask<kSegs> mask = mask_of<kSegs>(a, b);
-  const T* qg = static_cast<const T*>(a.q) + (long)b * a.Lq * a.q_row +
-                (long)h * D;
-  const long kv_base = (long)b * a.Lk * a.kv_row + (long)hk * D;
-  const T* kg = static_cast<const T*>(a.k) + kv_base;
-  const T* vg = static_cast<const T*>(a.v) + kv_base;
-
-  load_tile<T, D, true>(Qs, qg, q0, kBM, a.Lq, a.q_row, a.sm_scale);
-  for (int i = threadIdx.x; i < kBM * G::kLdO; i += kThreads) Os[i] = 0.0f;
-  if (threadIdx.x < kBM) {
-    Ms[threadIdx.x] = kNegInf;
-    Ls[threadIdx.x] = 0.0f;
-  }
-
-  // the row this lane pair owns, and which half of the columns
-  const int r = warp * 16 + (lane >> 1);
-  const int qrow = q0 + r;
-  const int half = lane & 1;
-  // keys below len; causal: the tile's last row sees keys up to q0 + 63 +
-  // offset
-  const int kv_end =
-      a.causal ? min(mask.len, max(0, q0 + kBM + mask.offset)) : mask.len;
-
-  for (int n0 = 0; n0 < kv_end; n0 += BN) {
-    __syncthreads();  // previous tile fully consumed (and Q/O/M/L ready)
-    load_tile<T, D, false>(Ks, kg, n0, BN, a.Lk, a.kv_row, 1.0f);
-    load_tile<T, D, false>(Vs, vg, n0, BN, a.Lk, a.kv_row, 1.0f);
-    __syncthreads();
-
-    scores<D, BN>(Qs, Ks, Ss, r, half);
-    __syncwarp();
-
-    // online softmax over this row's half of the tile
-    float* srow = Ss + r * G::kLdS;
-    float* prow = Ps + r * G::kLdS;
-    const int c0 = half * (BN / 2);
-    float mx = kNegInf;
-    for (int c = c0; c < c0 + BN / 2; ++c) {
-      const float s = mask(qrow, n0 + c) ? srow[c] : kNegInf;
-      srow[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_prev = Ms[r];
-    const float m_cur = fmaxf(m_prev, mx);
-    const float corr = expf(m_prev - m_cur);
-    float sum = 0.0f;
-    for (int c = c0; c < c0 + BN / 2; c += 4) {
-      uint4 w;
-      if constexpr (kDrop)
-        w = keep_words(a.drop, (uint32_t)(n0 + c) >> 2, (uint32_t)qrow, bh,
-                       kSaltAttention);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p =
-            mask(qrow, n0 + c + e) ? expf(srow[c + e] - m_cur) : 0.0f;
-        sum += p;  // l from the undropped p
-        float pv = p;
-        if constexpr (kDrop) pv = p * keep_factor(a.drop, word_of(w, e));
-        prow[c + e] = pv;
-      }
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    float* orow = Os + r * G::kLdO;
-    for (int d = half * (D / 2); d < (half + 1) * (D / 2); ++d) orow[d] *= corr;
-    const float l_prev = Ls[r];
-    __syncwarp();  // both lanes of the pair have read Ms/Ls
-    if (half == 0) {
-      Ms[r] = m_cur;
-      Ls[r] = l_prev * corr + sum;
-    }
-    __syncwarp();
-
-    accumulate_pv<D, BN>(Ps, Vs, Os, r, half);
-  }
-  __syncthreads();
-
-  // rows with no visible key keep acc = 0, l = 0: output 0
-  T* og = static_cast<T*>(a.out) + (long)b * a.Lq * a.o_row + (long)h * D;
-  for (int i = threadIdx.x; i < kBM * D; i += kThreads) {
-    const int rr = i / D;
-    const int d = i % D;
-    const int gr = q0 + rr;
-    if (gr < a.Lq) {
-      const float l = fmaxf(Ls[rr], 1e-30f);
-      og[(long)gr * a.o_row + d] = Os[rr * G::kLdO + d] / l;
-    }
-  }
-  if (threadIdx.x < kBM && q0 + threadIdx.x < a.Lq) {
-    const int rr = threadIdx.x;
-    a.lse[((long)b * a.H + h) * a.Lq + q0 + rr] =
-        Ms[rr] + logf(fmaxf(Ls[rr], 1e-30f));
-  }
-}
-
-template <int D, bool kDrop, bool kSegs>
-cudaError_t launch_fwd_f32(const FwdArgs& a, int B, cudaStream_t stream) {
-  constexpr int BN = kFwdF32BN<D>;
-  using G = FwdGeom<D, BN>;
-  auto kernel = flash_fwd_f32_kernel<D, BN, kDrop, kSegs>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kBytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.Lq + kBM - 1) / kBM, a.H, B);
-  kernel<<<grid, kThreads, G::kBytes, stream>>>(a);
-  return cudaGetLastError();
-}
 
 template <int D, bool kDrop, bool kSegs>
 cudaError_t launch_fwd(const FwdArgs& a, int B, int is_bf16,
                        cudaStream_t st) {
   return is_bf16 ? sm90::launch<D, kDrop, kSegs>(a, B, st)
-                 : launch_fwd_f32<D, kDrop, kSegs>(a, B, st);
+                 : f32w::launch_fwd_small<D, kDrop, kSegs>(a, B, st);
 }
 
 // The head sizes up to 256 the launchers are built for: every size of the

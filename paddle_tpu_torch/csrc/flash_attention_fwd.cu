@@ -17,7 +17,8 @@
 // slices, round(q * scale) in the workspace `work`), whose TMA descriptors
 // read q as a 3-D tensor (H*D columns, Lq rows, B) and k, v as (Hkv*D, Lk,
 // B), so no transpose to the Pallas [B*H, L, D] layout; in fp32 the FFMA
-// kernels (above 256 flash_f32_wide.cuh's, O in shared memory).
+// kernels of flash_f32_wide.cuh (up to 256 O in registers, above in
+// shared memory).
 // Those headers give the math, the rounding points and the design. K/V
 // tiles are read once per q head of a group (from L2 after the first).
 //

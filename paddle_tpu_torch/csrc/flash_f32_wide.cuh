@@ -1,21 +1,22 @@
-// Flash attention in fp32 for Hopper (sm_90a), on both launchers: the
-// forward and backward for heads above 256 (every multiple of 64: 320,
-// 384, 512, ...), and the backward for heads up to 256 (64, 80, 96, 128,
-// 256: flash_bwd_f32_kernel). Included by flash_attention.cuh, whose
-// contracts these kernels compute (the math, the rounding points, the
-// masks and the dropout keying are set out there); flash_fwd dispatches
-// every fp32 D > 256 and flash_bwd every fp32 D here from both launchers
-// (flash_attention_{fwd,bwd}.cu, the [B, L, H, D] layout with GQA, lengths
-// and segment ids; flash_pair_{fwd,bwd}.cu, packed qkv at 64, 128, 256 and
-// the multiples of 128 above). bf16 runs the wgmma kernels.
+// Flash attention in fp32 for Hopper (sm_90a), on both launchers, both
+// ways at every head size: heads above 256 (every multiple of 64: 320,
+// 384, 512, ...: flash_fwd_f32_wide_kernel, flash_bwd_f32_wide_kernel) and
+// heads up to 256 (64, 80, 96, 128, 256: flash_fwd_f32_small_kernel,
+// flash_bwd_f32_kernel). Included by flash_attention.cuh, whose contracts
+// these kernels compute (the math, the rounding points, the masks and the
+// dropout keying are set out there); flash_fwd and flash_bwd dispatch
+// every fp32 D here from both launchers (flash_attention_{fwd,bwd}.cu, the
+// [B, L, H, D] layout with GQA, lengths and segment ids;
+// flash_pair_{fwd,bwd}.cu, packed qkv at 64, 128, 256 and the multiples of
+// 128 above). bf16 runs the wgmma kernels.
 //
-// Replaces, at those head sizes in fp32: paddle_tpu/kernels/pallas/
-// flash_attention.py `_flash_fwd_kernel`, `_flash_bwd_fused_kernel` and
-// `_flash_dq_kernel` + `_flash_dkv_kernel` (the JAX `flash_attention_blhd`
-// takes any D), and flash_pair.py `_pair_fwd_kernel` / `_pair_bwd_fused_
-// kernel`; flash_bwd_f32_kernel takes the place of the port's SIMT
-// backward (one lane pair a q row, one chain over D a score, scalar dq
-// atomics).
+// Replaces, in fp32: paddle_tpu/kernels/pallas/flash_attention.py
+// `_flash_fwd_kernel`, `_flash_bwd_fused_kernel` and `_flash_dq_kernel` +
+// `_flash_dkv_kernel` (the JAX `flash_attention_blhd` takes any D), and
+// flash_pair.py `_pair_fwd_kernel` / `_pair_bwd_fused_kernel`.
+// flash_fwd_f32_small_kernel and flash_bwd_f32_kernel take the place of
+// the port's first SIMT bodies (one lane pair a q row, one chain over D a
+// score, S, P and O in shared memory, scalar dq atomics).
 //
 // What bounds them: the products, 4*D operations an attended pair forward
 // and 10*D backward, on the fp32 FMA pipes (67 TFLOP/s on the H100: TF32
@@ -68,25 +69,31 @@
 //   sums its rows of dK and dV over the cluster in rank order through
 //   distributed shared memory, so dk and dv stay equal between launches.
 //   A kv tile past the length writes zero dk, dv.
-// * Heads up to 256 (flash_bwd_f32_kernel): the same walk at one slice,
-//   with two changes measured for small heads. The scores s and dp are one
-//   fp32 chain over the head in column order, as flash_attention.cuh's
-//   SIMT forward sums its scores, so s equals the forward's bit for bit
-//   and p = exp(s - lse) keeps the forward's normalisation (summed in
-//   chunks, as above 256, p sat farther from the exact gradient than the
-//   plain version, over its 9e-7 gate). Score items are 64 columns where D
-//   is a multiple of 64 (half the items and barriers a step), 32 at 80
-//   and 96 (three items, not two of 64 over 128 columns); columns past D
-//   are copied as zeros (cp.async's source size) and never written, so
-//   80 and 96 need no padded copy.
+// * Heads up to 256, both ways at one slice with the head size a template
+//   argument of the forward. The scores s are one fp32 chain over the head
+//   in column order, starting at 0, in both: flash_fwd_f32_small_kernel
+//   sums them so and flash_bwd_f32_kernel recomputes them (and dp) the
+//   same way, so the backward's s equals the forward's bit for bit and p =
+//   exp(s - lse) keeps the forward's normalisation (summed in chunks, as
+//   above 256, p sat farther from the exact gradient than the plain
+//   version, over its 9e-7 gate). Change the order in both or in neither.
+//   The forward keeps round(q * scale) in shared memory for the whole walk
+//   and O in registers (a lane's 4 x 4 of each chunk: 16 floats a chunk,
+//   64 at D = 256), so a kv tile is ceil(D / 64) K chunks and as many V
+//   chunks and two CTAs share an SM up to D = 128. The backward's score
+//   items are 64 columns where D is a multiple of 64 (half the items and
+//   barriers a step), 32 at 80 and 96 (three items, not two of 64 over
+//   128 columns). Columns past D are copied as zeros (cp.async's source
+//   size) and never written, so 80 and 96 need no padded copy.
 //
 // Shared memory (bytes), static_asserted below: forward 87,040 + 256 * W,
 // backward 100,864 + 256 * W for a slice of W columns (32-column score
 // items; 123,392 + 256 * W with 64-column ones): D = 320, 384, 448, 512
 // run one slice (forward 168,960 / 185,344 / 201,728 / 218,112; backward
 // 182,784 / 199,168 / 215,552 / 231,936); D = 1024 runs two slices of 512
-// (the score products twice); the backward up to 256 takes 139,776 /
-// 133,632 / 133,632 / 156,160 / 188,928 at D = 64 / 80 / 96 / 128 / 256.
+// (the score products twice); up to 256 the forward takes 69,632 / 86,016
+// / 86,016 / 86,016 / 118,784 and the backward 139,776 / 133,632 / 133,632
+// / 156,160 / 188,928 at D = 64 / 80 / 96 / 128 / 256.
 
 #pragma once
 
@@ -265,7 +272,7 @@ __device__ __forceinline__ void scale_tile(float* t, float scale) {
 // acc[a][b] += A[a] . B[b] over K columns (kSet: acc = ...), summed apart
 // in one chain and then added (the short chains the exact-gradient gate
 // needs), or with kChain in acc's own chain, column after column (the
-// order of the SIMT forward's scores): A rows `a_ld` floats apart from A,
+// scores' order up to D = 256, both ways): A rows `a_ld` floats apart from A,
 // B rows `b_ld` floats apart from B (16-byte loads along the contraction).
 template <int K, bool kSet = false, bool kChain = false, int NA, int NB>
 __device__ __forceinline__ void nt_chunk(float (&acc)[NA][NB],
@@ -300,16 +307,18 @@ __device__ __forceinline__ void nt_chunk(float (&acc)[NA][NB],
       acc[a][b] = kSet || kChain ? part[a][b] : acc[a][b] + part[a][b];
 }
 
-// acc[a][0..3] = sum over K keys j of A[a][j] * B[j][0..3]: A rows a_ld
-// floats apart (16-byte loads along j), B rows b_ld floats apart (a
-// 16-byte load of four output columns a key).
-template <int K, int NA>
+// acc[a][0..3] = sum over K keys j of A[a][j] * B[j][0..3] (kZero false:
+// acc += ...): A rows a_ld floats apart (16-byte loads along j), B rows
+// b_ld floats apart (a 16-byte load of four output columns a key).
+template <int K, bool kZero = true, int NA>
 __device__ __forceinline__ void nn_tile(float (&acc)[NA][4], const float* A,
                                         int a_ld, const float* B, int b_ld) {
+  if constexpr (kZero) {
 #pragma unroll
-  for (int a = 0; a < NA; ++a)
+    for (int a = 0; a < NA; ++a)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[a][e] = 0.0f;
+      for (int e = 0; e < 4; ++e) acc[a][e] = 0.0f;
+  }
 #pragma unroll
   for (int j4 = 0; j4 < K / 4; ++j4) {
     float4 x[NA], y[4];
@@ -504,16 +513,220 @@ cudaError_t launch_fwd(const FwdArgs& a, int B, int D, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ------------------------------------------------ forward, heads up to 256
+
+// Layout of the forward up to 256 (floats): Qs [64][ldq], round(q * scale)
+// for the whole walk | P [64][kLd] | 2 stages of a K or V chunk [64][kLd],
+// with ldq = Dc + 4 for the Dc = ceil(D / 64) * 64 columns of the chunks.
+__host__ __device__ constexpr int small_fwd_ldq(int D) {
+  return (D + kW - 1) / kW * kW + 4;
+}
+__host__ __device__ constexpr int small_fwd_smem_bytes(int D) {
+  return 4 * (kRows * small_fwd_ldq(D) + 3 * kFwdTile);
+}
+// CTAs an SM runs at once: two up to D = 128 (86,016 bytes of shared
+// memory each at 128; 128 registers a thread), one at 256 (118,784 bytes)
+__host__ __device__ constexpr int small_fwd_ctas(int D) {
+  return D <= 128 ? 2 : 1;
+}
+static_assert(small_fwd_smem_bytes(256) <= kSmemMax &&
+                  2 * (small_fwd_smem_bytes(128) + 1024) <= 233472,
+              "forward tiles exceed shared memory");
+
+// fp32 heads up to 256 (64, 80, 96, 128, 256): the forward above at one
+// slice, with D a template argument. Q is copied and scaled once and stays
+// in shared memory for the whole walk; O lives in registers (a lane's 4
+// rows x 4 columns of each 64-column chunk), rescaled by alpha once a kv
+// tile; a kv tile is nc = ceil(D / 64) K chunks, then nc V chunks, through
+// the two-stage ring. The scores are one fp32 chain over the head in column
+// order (nt_chunk's kChain, continued across the chunks): s is the value
+// flash_bwd_f32_kernel recomputes, bit for bit, so p = exp(s - lse) keeps
+// this forward's normalisation in the backward. At 80 and 96 the last
+// chunk's columns past D are copied as zeros (fmaf(0, 0, s) = s) and never
+// written.
+template <int D, bool kDrop, bool kSegs>
+__global__ void __launch_bounds__(kThr, small_fwd_ctas(D))
+    flash_fwd_f32_small_kernel(FwdArgs a) {
+  constexpr int RA = kFwdRA;
+  constexpr int nc = (D + kW - 1) / kW;  // 64-column chunks of the head
+  constexpr int kLdQ = small_fwd_ldq(D);
+  constexpr bool kCols = D % kW != 0;
+  static_assert(D % 16 == 0 && D <= 256, "a head up to 256");
+  extern __shared__ __align__(16) float sm[];
+  float* Qs = sm;
+  float* Ps = sm + kRows * kLdQ;
+  float* ring = Ps + kFwdTile;
+  // heaviest causal q tiles first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (a.H / a.Hkv);
+  const uint32_t bh = (uint32_t)(b * a.H + h);
+  const Mask<kSegs> mask = mask_of<kSegs>(a, b);
+  const float* qg = static_cast<const float*>(a.q) +
+                    (long)b * a.Lq * a.q_row + (long)h * D;
+  const long kv_base = (long)b * a.Lk * a.kv_row + (long)hk * D;
+  const float* kg = static_cast<const float*>(a.k) + kv_base;
+  const float* vg = static_cast<const float*>(a.v) + kv_base;
+  // lane (ty, tx) of warp w owns q rows r0 + 2a (a < RA) and, of a kv
+  // tile, keys 4tx .. 4tx + 3 (of a chunk, O columns 4tx .. 4tx + 3)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tx = lane & 15;
+  const int r0 = warp * 2 * RA + (lane >> 4);
+  const int kv_end =
+      a.causal ? min(mask.len, max(0, q0 + kRows + mask.offset)) : mask.len;
+  const int n_tiles = (kv_end + kW - 1) / kW;
+
+  // item c of the kv tile at n0: K chunk c (c < nc), else V chunk c - nc
+  auto issue = [&](int n0, int c) {
+    float* st = ring + (c & 1) * kFwdTile;
+    if (c < nc)
+      load_tile<kRows, kW, kLd, true, kCols>(st, kg, n0, a.Lk, a.kv_row,
+                                             c * kW, D);
+    else
+      load_tile<kRows, kW, kLd, false, kCols>(st, vg, n0, a.Lk, a.kv_row,
+                                              (c - nc) * kW, D);
+    cp_async_commit();
+  };
+
+  float m[RA], l[RA], s[RA][4], o[nc][RA][4];
+#pragma unroll
+  for (int r = 0; r < RA; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < nc; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[c][r][e] = 0.0f;
+  }
+  if (n_tiles > 0) {
+    load_tile<kRows, nc * kW, kLdQ, false, kCols>(Qs, qg, q0, a.Lq, a.q_row,
+                                                  0, D);
+    issue(0, 0);  // one group with Q
+    cp_async_wait_all();
+    scale_tile<nc * kW, kLdQ>(Qs, a.sm_scale);
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int n0 = t * kW;
+#pragma unroll
+    for (int c = 0; c < 2 * nc; ++c) {
+      const float* st = ring + (c & 1) * kFwdTile;
+      cp_async_wait_all();
+      __syncthreads();  // item c landed (and Q scaled); the other stage free
+      if (c + 1 < 2 * nc)
+        issue(n0, c + 1);
+      else if (t + 1 < n_tiles)
+        issue(n0 + kW, 0);
+      if (c < nc) {
+        if (c == 0) {
+#pragma unroll
+          for (int r = 0; r < RA; ++r)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) s[r][k] = 0.0f;
+        }
+        nt_chunk<kW, false, true>(s, Qs + r0 * kLdQ + c * kW, 2 * kLdQ,
+                                  st + tx * kLd, 16 * kLd);
+        if (c == nc - 1) {
+          // online softmax of this kv tile: m, l, O *= alpha per row; P =
+          // p * keep into the warp's rows of the P tile
+#pragma unroll
+          for (int r = 0; r < RA; ++r) {
+            const int qrow = q0 + r0 + 2 * r;
+            bool vis[4];
+            float mx = kNegInf;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              vis[k] = mask(qrow, n0 + 4 * tx + k);
+              if (vis[k]) mx = fmaxf(mx, s[r][k]);
+            }
+#pragma unroll
+            for (int x = 1; x < 16; x <<= 1)
+              mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+            const float mn = fmaxf(m[r], mx);
+            const float alpha = expf(m[r] - mn);
+            float f[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+            if constexpr (kDrop) {
+              const uint4 w = keep_words(a.drop, (uint32_t)(n0 + 4 * tx) >> 2,
+                                         (uint32_t)qrow, bh, kSaltAttention);
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                f[k] = keep_factor(a.drop, word_of(w, k));
+            }
+            float sum = 0.0f, pv[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float p = vis[k] ? expf(s[r][k] - mn) : 0.0f;
+              sum += p;  // l from the undropped p
+              pv[k] = p * f[k];
+            }
+#pragma unroll
+            for (int x = 1; x < 16; x <<= 1)
+              sum += __shfl_xor_sync(0xffffffffu, sum, x);
+            l[r] = l[r] * alpha + sum;
+            m[r] = mn;
+#pragma unroll
+            for (int cc = 0; cc < nc; ++cc)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) o[cc][r][e] *= alpha;
+            st4(Ps + (r0 + 2 * r) * kLd + 4 * tx,
+                make_float4(pv[0], pv[1], pv[2], pv[3]));
+          }
+          __syncwarp();  // the warp reads only its own rows of P
+        }
+      } else {
+        // O[:, chunk] += P . V[:, chunk] for this lane's rows
+        nn_tile<kW, false>(o[c >= nc ? c - nc : 0], Ps + r0 * kLd, 2 * kLd,
+                           st + 4 * tx, kLd);
+      }
+    }
+  }
+
+  // out = O / max(l, 1e-30) (rows with no visible key: 0) and lse
+  float* og = static_cast<float*>(a.out) + (long)b * a.Lq * a.o_row +
+              (long)h * D;
+#pragma unroll
+  for (int r = 0; r < RA; ++r) {
+    const int qrow = q0 + r0 + 2 * r;
+    if (qrow < a.Lq) {
+      const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+#pragma unroll
+      for (int c = 0; c < nc; ++c) {
+        const int col = c * kW + 4 * tx;
+        if (!kCols || col < D)
+          st4(og + (long)qrow * a.o_row + col,
+              make_float4(o[c][r][0] * inv, o[c][r][1] * inv,
+                          o[c][r][2] * inv, o[c][r][3] * inv));
+      }
+      if (tx == 0)
+        a.lse[((long)b * a.H + h) * a.Lq + qrow] =
+            m[r] + logf(fmaxf(l[r], 1e-30f));
+    }
+  }
+}
+
+// The fp32 forward at head size D (64, 80, 96, 128 or 256).
+template <int D, bool kDrop, bool kSegs>
+cudaError_t launch_fwd_small(const FwdArgs& a, int B, cudaStream_t stream) {
+  auto kernel = flash_fwd_f32_small_kernel<D, kDrop, kSegs>;
+  constexpr int bytes = small_fwd_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Lq + kRows - 1) / kRows, a.H, B);
+  kernel<<<grid, kThr, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // ----------------------------------------------------------------- backward
 
 // One backward CTA's work (both kernels below): head size D, a multiple of
 // 16; the gradient chunks cover ceil(D / 64) * 64 columns and the score
 // items ceil(D / 32) * 32, columns past D read as zero and are never
 // written. With kChain the scores s and dp are one fp32 chain over the
-// head in column order, as flash_fwd_f32_kernel sums its scores (D <= 256):
-// s then equals the forward's bit for bit, so p = exp(s - lse) keeps the
-// forward's normalisation; else each 64-column chunk is summed apart, as
-// the wide forward does.
+// head in column order, as flash_fwd_f32_small_kernel sums its scores (D
+// <= 256): s then equals the forward's bit for bit, so p = exp(s - lse)
+// keeps the forward's normalisation; else each 64-column chunk is summed
+// apart, as the wide forward does.
 template <bool kDrop, bool kSegs, bool kChain, int SW>
 __device__ __forceinline__ void bwd_cta(const BwdArgs& a, int D, int slices,
                                         int split) {

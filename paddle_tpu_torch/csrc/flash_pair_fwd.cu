@@ -16,9 +16,9 @@
 // the Hopper kernels (up to 256 flash_fwd_sm90.cuh's, above 256
 // flash_wide_sm90.cuh's, round(q * scale) in the workspace `work`), whose
 // TMA descriptors see q, k and v as three 3-D tensors (H*D columns, L
-// rows, B) over the same rows; in fp32 the FFMA kernels (above 256
-// flash_f32_wide.cuh's, O in shared memory). Those headers give the
-// math, the rounding points and the design.
+// rows, B) over the same rows; in fp32 the FFMA kernels of
+// flash_f32_wide.cuh (up to 256 O in registers, above in shared memory).
+// Those headers give the math, the rounding points and the design.
 //
 // Bound on the H100: at the GPT-medium shape (B=2, L=1024, H=8, D=128,
 // causal, bf16) the work is 2*B*H*D*L*(L+1) ~= 4.3 GFLOP (4.4 us at 989

@@ -31,10 +31,13 @@ of the wide-head bodies: ``csrc/flash_wide_sm90.cuh`` (bf16 heads above 256
 both ways, the bf16 backward at 256) in ``<wrapper>.wide_launches``, read by
 ``wide_launch_counts()``, and ``csrc/flash_f32_wide.cuh`` (fp32 heads above
 256 both ways) in ``<wrapper>.f32_wide_launches``, read by
-``f32_wide_launch_counts()``. The two backward wrappers also count the
-fp32 backward at heads up to 256 (``flash_bwd_f32_kernel`` of
-``csrc/flash_f32_wide.cuh``) in ``<wrapper>.f32_bwd_launches``, read by
-``f32_bwd_launch_counts()``, and the bf16 backward at heads of 80 and 96
+``f32_wide_launch_counts()``. The fp32 bodies at heads up to 256 (of
+``csrc/flash_f32_wide.cuh`` too) are counted apart: the forward
+(``flash_fwd_f32_small_kernel``) by the two forward wrappers in
+``<wrapper>.f32_fwd_launches``, read by ``f32_fwd_launch_counts()``, the
+backward (``flash_bwd_f32_kernel``) by the two backward wrappers in
+``<wrapper>.f32_bwd_launches``, read by ``f32_bwd_launch_counts()``. The
+backward wrappers also count the bf16 backward at heads of 80 and 96
 (``csrc/flash_bwd_sm90.cuh`` on 32-byte swizzle blocks) in
 ``<wrapper>.sw32_bwd_launches``, read by ``sw32_bwd_launch_counts()``.
 """
@@ -63,7 +66,8 @@ __all__ = ["flash_pair_fwd", "flash_pair_fwd_reference", "flash_pair_bwd",
            "fused_add_dropout_ln_bwd", "fused_add_dropout_ln_bwd_reference",
            "FusedAddDropoutLN", "launch_counts", "reset_launch_counts",
            "wide_launch_counts", "f32_wide_launch_counts",
-           "f32_bwd_launch_counts", "sw32_bwd_launch_counts"]
+           "f32_fwd_launch_counts", "f32_bwd_launch_counts",
+           "sw32_bwd_launch_counts"]
 
 WRAPPERS = {"flash_pair_fwd": flash_pair_fwd,
             "flash_pair_bwd": flash_pair_bwd,
@@ -75,9 +79,11 @@ WRAPPERS = {"flash_pair_fwd": flash_pair_fwd,
 
 
 # the wrappers that also count their wide-head bodies' launches, and of
-# them the backward ones, which count two more bodies
+# them the forward ones, which count one more body, and the backward ones,
+# which count two more
 WIDE_WRAPPERS = ("flash_pair_fwd", "flash_pair_bwd", "flash_attention_fwd",
                  "flash_attention_bwd")
+FWD_WRAPPERS = ("flash_pair_fwd", "flash_attention_fwd")
 BWD_WRAPPERS = ("flash_pair_bwd", "flash_attention_bwd")
 
 
@@ -91,6 +97,10 @@ def wide_launch_counts() -> dict:
 
 def f32_wide_launch_counts() -> dict:
     return {name: WRAPPERS[name].f32_wide_launches for name in WIDE_WRAPPERS}
+
+
+def f32_fwd_launch_counts() -> dict:
+    return {name: WRAPPERS[name].f32_fwd_launches for name in FWD_WRAPPERS}
 
 
 def f32_bwd_launch_counts() -> dict:
@@ -107,6 +117,8 @@ def reset_launch_counts():
     for name in WIDE_WRAPPERS:
         WRAPPERS[name].wide_launches = 0
         WRAPPERS[name].f32_wide_launches = 0
+    for name in FWD_WRAPPERS:
+        WRAPPERS[name].f32_fwd_launches = 0
     for name in BWD_WRAPPERS:
         WRAPPERS[name].f32_bwd_launches = 0
         WRAPPERS[name].sw32_bwd_launches = 0

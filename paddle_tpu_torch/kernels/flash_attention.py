@@ -268,7 +268,8 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale=None,
     A CUDA tensor launches the kernel on the current stream (one launch
     per call, counted in ``flash_attention_fwd.launches``; a head above 256
     also in ``.wide_launches``, the bf16 wide kernel's, or
-    ``.f32_wide_launches``, the fp32 one's; a head size that is not built
+    ``.f32_wide_launches``, the fp32 one's; an fp32 head up to 256 in
+    ``.f32_fwd_launches``; a head size that is not built
     runs at ``kernel_head_dim`` on zero-padded copies, with the scale of the
     true size; in bf16 above 256 the kernel takes an fp32 workspace of
     ``flash_pair.fwd_work_floats``); a CPU tensor runs
@@ -320,6 +321,7 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale=None,
 flash_attention_fwd.launches = 0
 flash_attention_fwd.wide_launches = 0
 flash_attention_fwd.f32_wide_launches = 0
+flash_attention_fwd.f32_fwd_launches = 0
 
 
 def _check_bwd(q, k, v, out, lse, dout, dropout_rate, seed, plain=False):

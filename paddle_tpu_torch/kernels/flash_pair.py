@@ -86,8 +86,9 @@ def count_bodies(wrapper, dtype, d: int, backward: bool = False):
     the body that runs it, where that body has one: bf16 above 256 (the
     backward from 256) in ``.wide_launches`` (csrc/flash_wide_sm90.cuh),
     fp32 above 256 in ``.f32_wide_launches`` (csrc/flash_f32_wide.cuh's
-    wide kernels); the fp32 backward up to 256 in ``.f32_bwd_launches``
-    (``flash_bwd_f32_kernel``), the bf16 backward at 80 and 96 in
+    wide kernels); fp32 up to 256 in ``.f32_fwd_launches`` (the forward,
+    ``flash_fwd_f32_small_kernel``) or ``.f32_bwd_launches`` (the backward,
+    ``flash_bwd_f32_kernel``), the bf16 backward at 80 and 96 in
     ``.sw32_bwd_launches`` (csrc/flash_bwd_sm90.cuh on 32-byte swizzle
     blocks)."""
     if dtype == torch.bfloat16:
@@ -99,6 +100,8 @@ def count_bodies(wrapper, dtype, d: int, backward: bool = False):
         wrapper.f32_wide_launches += 1
     elif backward:
         wrapper.f32_bwd_launches += 1
+    else:
+        wrapper.f32_fwd_launches += 1
 
 
 def _heads_per_block(head_dim: int) -> int:
@@ -216,7 +219,8 @@ def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
     A CUDA tensor launches the kernel on the current stream (one launch
     per call, counted in ``flash_pair_fwd.launches``; a head above 256 also
     in ``.wide_launches``, the bf16 wide kernel's, or ``.f32_wide_launches``,
-    the fp32 one's); a CPU tensor runs ``flash_pair_fwd_reference``. Raises
+    the fp32 one's, and an fp32 head up to 256 in ``.f32_fwd_launches``); a
+    CPU tensor runs ``flash_pair_fwd_reference``. Raises
     on a rate outside [0, 1), a positive rate without a seed, a head size
     other than 64, 128, 256 or a multiple of 128 above 256 (there the bf16
     kernel takes an fp32 workspace of ``fwd_work_floats``), a type other
@@ -258,6 +262,7 @@ def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
 flash_pair_fwd.launches = 0
 flash_pair_fwd.wide_launches = 0
 flash_pair_fwd.f32_wide_launches = 0
+flash_pair_fwd.f32_fwd_launches = 0
 
 
 def _check_bwd(qkv, out, lse, dout, num_heads, dropout_rate, seed,

@@ -34,7 +34,7 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
-from ..core.random import make_generator
+from ..core.random import check_model_generator, make_generator
 from ..nn import Dropout
 from ..nn import functional as F
 from .gpt import DROPOUT_STREAM, _lm_head_ce
@@ -151,6 +151,7 @@ class BertModel(nn.Module):
     def __init__(self, config: BertConfig, generator=None):
         super().__init__()
         self.config = config
+        self.generator = generator
         self.embeddings = BertEmbeddings(config, generator)
         self.encoder = nn.ModuleList(BertLayer(config, generator)
                                      for _ in range(config.num_layers))
@@ -160,6 +161,9 @@ class BertModel(nn.Module):
                 seq_lens=None):
         # seq_lens ([B] int): per-sequence valid-token counts, the
         # structured (flash-kernel) form of a [B, 1, 1, S] padding attn_mask
+        check_model_generator(self, self.generator,
+                              self.config.hidden_dropout_prob,
+                              self.config.attention_dropout_prob)
         x = self.embeddings(input_ids, token_type_ids)
         for layer in self.encoder:
             x = layer(x, attn_mask, seq_lens)

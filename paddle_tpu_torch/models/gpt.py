@@ -27,7 +27,7 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
-from ..core.random import make_generator
+from ..core.random import check_model_generator, make_generator
 from ..nn import Dropout
 from ..nn import functional as F
 
@@ -215,6 +215,7 @@ class GPTModel(nn.Module):
         self.wte = nn.Embedding(config.vocab_size, config.hidden_size)
         self.wpe = nn.Embedding(config.max_position_embeddings,
                                 config.hidden_size)
+        self.generator = generator
         self.drop = Dropout(config.hidden_dropout_prob, generator=generator)
         self.h = nn.ModuleList(GPTBlock(config, generator)
                                for _ in range(config.num_layers))
@@ -233,6 +234,9 @@ class GPTModel(nn.Module):
         b, s = input_ids.shape
         ar = torch.arange(s, device=input_ids.device)
         if kv_caches is None:
+            check_model_generator(self, self.generator,
+                                  cfg.hidden_dropout_prob,
+                                  cfg.attention_dropout_prob)
             x = self.drop(self.wte(input_ids) + self.wpe(ar[None, :]))
             for block in self.h:
                 x = block(x)

@@ -13,10 +13,11 @@ class Dropout(nn.Module):
     """``paddle.nn.Dropout(p, axis, mode)``: ``F.dropout`` in training mode,
     identity (or ``x * (1 - p)`` for ``downscale_in_infer``) in eval.
 
-    Unlike ``torch.nn.Dropout`` it holds the CPU ``torch.Generator`` its
+    Unlike ``torch.nn.Dropout`` it may hold the CPU ``torch.Generator`` its
     masks come from (``generator``; models hand their own to every layer
-    that drops), so two runs from the same generator state drop the same
-    elements on the card and on the CPU."""
+    that drops; without one it draws from the global chain, ``seed``), so
+    two runs from the same generator state drop the same elements on the
+    card and on the CPU."""
 
     def __init__(self, p: float = 0.5, axis=None,
                  mode: str = "upscale_in_train", generator=None):

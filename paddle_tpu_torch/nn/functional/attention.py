@@ -19,11 +19,12 @@ additive ``attn_mask`` is given (lengths and segment ids then become an
 additive mask combined with it).
 
 Attention dropout draws one seed per call from the caller's ``generator``
-(a CPU ``torch.Generator``, required in training at a positive rate) and
-keys a Philox mask on (b, q head, q position, key position)
-(``kernels/philox.py``): the kernels drop in-kernel, the plain chain
-multiplies by the same keep factors, so the card and the CPU agree, and the
-packed and the ``[B, L, H, D]`` routes drop the same elements.
+(a CPU ``torch.Generator``) or, without one, from the global chain
+(``core.random``: ``seed``), and keys a Philox mask on (b, q head, q
+position, key position) (``kernels/philox.py``): the kernels drop
+in-kernel, the plain chain multiplies by the same keep factors, so the
+card and the CPU agree, and the packed and the ``[B, L, H, D]`` routes
+drop the same elements.
 """
 from __future__ import annotations
 
@@ -51,14 +52,10 @@ def flash_path_available(seq_len: int, head_dim: int, sample=None) -> bool:
     return torch.cuda.is_available()
 
 
-def _draw_seed(rate: float, generator, who: str):
-    """One Philox seed from ``generator`` for a dropout at ``rate`` (None
-    at rate 0); raises without a generator."""
-    if rate <= 0.0:
-        return None
-    if generator is None:
-        raise ValueError(f"{who}: training at dropout > 0 needs a generator")
-    return next_seed(generator)
+def _draw_seed(rate: float, generator):
+    """One Philox seed from ``generator`` (the global chain when None) for
+    a dropout at ``rate``; None at rate 0."""
+    return next_seed(generator) if rate > 0.0 else None
 
 
 def _structured_to_additive(query, key, kv_lens, q_segments, kv_segments):
@@ -143,14 +140,14 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     weighted sum of values.
 
     In training at ``dropout_p > 0`` one seed is drawn from ``generator``
-    (a CPU ``torch.Generator``, required then) and both routes drop the
-    elements of ``philox.attention_keep`` at that seed.
+    (a CPU ``torch.Generator``; the global chain without one) and both
+    routes drop the elements of ``philox.attention_keep`` at that seed.
 
     The positional order is the JAX package's; ``name`` is accepted and
     ignored there as here, and ``generator`` (the port's) is keyword-only
     after it."""
     rate = float(dropout_p) if training else 0.0
-    seed = _draw_seed(rate, generator, "scaled_dot_product_attention")
+    seed = _draw_seed(rate, generator)
     return _attend(query, key, value, attn_mask, is_causal, rate, seed,
                    kv_lens, q_segments, kv_segments)
 
@@ -205,10 +202,10 @@ def flash_attention(query, key, value, dropout: float = 0.0,
     ``(out, None)``: the probabilities are not kept, as in the JAX package.
     ``fixed_seed_offset``, ``rng_name`` and ``name`` are accepted and
     ignored, as there. In training at ``dropout > 0`` one seed is drawn
-    from ``generator`` (keyword-only: a CPU ``torch.Generator``, required
-    then) and the probabilities drop in-kernel."""
+    from ``generator`` (keyword-only: a CPU ``torch.Generator``; the global
+    chain without one) and the probabilities drop in-kernel."""
     rate = float(dropout) if training else 0.0
-    seed = _draw_seed(rate, generator, "flash_attention")
+    seed = _draw_seed(rate, generator)
     if use_pallas:
         out = FlashAttention.apply(query.contiguous(), key.contiguous(),
                                    value.contiguous(), bool(causal), rate,
@@ -232,10 +229,10 @@ def flash_attention_qkv_packed(qkv, num_heads: int, dropout: float = 0.0,
     plain chain below the gate).
 
     In training at ``dropout > 0`` one seed is drawn from ``generator`` (a
-    CPU ``torch.Generator``, required then) and every route drops the same
-    elements under it."""
+    CPU ``torch.Generator``; the global chain without one) and every route
+    drops the same elements under it."""
     rate = float(dropout) if training else 0.0
-    seed = _draw_seed(rate, generator, "flash_attention_qkv_packed")
+    seed = _draw_seed(rate, generator)
     b, L, width = qkv.shape
     d = width // (3 * num_heads)
     if flash_path_available(L, d, qkv) and pair_layout_supported(

@@ -1,9 +1,9 @@
 """Common functionals (counterpart of ``paddle_tpu/nn/functional/common.py``):
 dropout.
 
-``dropout`` takes an explicit CPU ``torch.Generator``: the port keeps no
-hidden global random state, so dropping in training without one raises.
-Each call draws one seed from it (``core.random.next_seed``) and hands it
+``dropout`` draws from an explicit CPU ``torch.Generator`` where it is
+given one and from the global chain (``core.random``: ``seed``) where it
+is not. Each call draws one seed (``core.random.next_seed``) and hands it
 to ``DropoutFunction``, whose wrapper launches the dropout kernel on a CUDA
 tensor and runs the kernel's plain version on a CPU tensor: the two drop
 the same elements for the same seed, so a run on the card and one on the
@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ...core.random import next_seed
+from ...core.random import default_generator, next_seed
 from ...kernels.dropout import DropoutFunction
 
 __all__ = ["dropout"]
@@ -31,8 +31,8 @@ def dropout(x, p: float = 0.5, axis=None, training: bool = True,
     ``axis`` the mask comes from the dropout kernel (``DropoutFunction``);
     with ``axis`` it has the shape of ``x`` cut to 1 off ``axis`` and is
     drawn with ``torch.bernoulli`` from ``generator`` (an XLA op in the JAX
-    package too, not a kernel). ``generator`` (a CPU ``torch.Generator``) is
-    required when ``training`` and ``p > 0``."""
+    package too, not a kernel). ``generator`` (a CPU ``torch.Generator``)
+    overrides the global chain, which a call without one draws from."""
     if mode not in ("upscale_in_train", "downscale_in_infer"):
         raise ValueError(f"dropout: unknown mode {mode!r}")
     p = float(p)
@@ -42,10 +42,6 @@ def dropout(x, p: float = 0.5, axis=None, training: bool = True,
         if mode == "downscale_in_infer" and not training:
             return x * (1.0 - p)
         return x
-    if generator is None:
-        raise ValueError("dropout: training at p > 0 needs a generator (the "
-                         "port keeps no global random state; models hold "
-                         "one, seeded from their seed)")
     upscale = mode == "upscale_in_train"
     if p == 1.0:
         return x * 0.0
@@ -54,7 +50,8 @@ def dropout(x, p: float = 0.5, axis=None, training: bool = True,
         axes = [a % x.dim() for a in axes]
         shape = [s if i in axes else 1 for i, s in enumerate(x.shape)]
         keep = torch.bernoulli(torch.full(shape, 1.0 - p),
-                               generator=generator).to(x.device, x.dtype)
+                               generator=default_generator(generator)
+                               ).to(x.device, x.dtype)
         return x * keep / (1.0 - p) if upscale else x * keep
     return DropoutFunction.apply(x.contiguous(), next_seed(generator), p,
                                  upscale)

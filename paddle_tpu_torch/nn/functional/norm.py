@@ -34,12 +34,10 @@ def add_dropout_ln(x, sub, weight, bias, p: float = 0.0,
     version on a CPU tensor, one seed drawn from ``generator`` when it
     drops. Elsewhere it is the composition ``layer_norm(x + dropout(sub))``.
     Either way the card and the CPU draw the same seeds and drop the same
-    elements. ``generator`` is required when ``training`` and ``p > 0``."""
+    elements. Without ``generator`` the seed comes from the global chain
+    (``core.random``: ``seed``)."""
     rate = float(p) if training else 0.0
     if x.shape[-1] % 128 == 0:
-        if rate > 0.0 and generator is None:
-            raise ValueError("add_dropout_ln: training at p > 0 needs a "
-                             "generator")
         seed = next_seed(generator) if rate > 0.0 else 0
         return FusedAddDropoutLN.apply(x, sub, weight, bias, seed, rate,
                                        float(epsilon))

@@ -19,7 +19,9 @@ import torch
 
 import paddle_tpu as paddle
 import paddle_tpu.nn.functional as JF
-from paddle_tpu_torch.core.random import make_generator, next_seed
+import paddle_tpu_torch
+from paddle_tpu_torch.core.random import (get_rng_state, make_generator,
+                                          next_seed, set_rng_state)
 from paddle_tpu_torch.kernels import launch_counts, philox, \
     reset_launch_counts
 from paddle_tpu_torch.kernels.dropout import (DropoutFunction, dropout_fwd,
@@ -166,11 +168,89 @@ def test_downscale_in_infer_matches_jax():
     assert torch.equal(out[kept], x[kept])
 
 
-def test_training_without_a_generator_raises():
-    with pytest.raises(ValueError, match="generator"):
-        F.dropout(_x((2, 8)), 0.1, training=True)
-    with pytest.raises(ValueError, match="generator"):
-        Dropout(0.1)(_x((2, 8)))
+@pytest.fixture
+def chain():
+    """Leaves the global chain as the test found it."""
+    state = get_rng_state()
+    yield
+    set_rng_state(state)
+
+
+def test_training_without_a_generator_draws_from_the_global_chain(chain):
+    """F.dropout and Dropout without a generator draw from the global
+    chain: after seed(s) they drop what the same call with
+    generator=make_generator(s) drops, and the chain advances a call."""
+    x = _x((16, 128))
+    assert paddle_tpu_torch.seed(5) == 5
+    a = F.dropout(x, 0.1, training=True)
+    b = F.dropout(x, 0.1, training=True)
+    assert torch.equal(a, F.dropout(x, 0.1, generator=make_generator(5)))
+    assert not torch.equal(a, b)
+    paddle_tpu_torch.seed(6)
+    layer = Dropout(0.1)
+    assert torch.equal(layer(x), Dropout(0.1, generator=make_generator(6))(x))
+    state = paddle_tpu_torch.get_rng_state()
+    again = layer(x)
+    paddle_tpu_torch.set_rng_state(state)
+    assert torch.equal(layer(x), again)
+    paddle_tpu_torch.seed(7)
+    axis = F.dropout(x, 0.5, axis=0)
+    assert torch.equal(axis, F.dropout(x, 0.5, axis=0,
+                                       generator=make_generator(7)))
+
+
+def _dropping_calls():
+    """The four functionals that drop at a positive rate, each at 0.1 on
+    small CPU inputs: {name: call(**generator keyword)}."""
+    x = _x((16, 128))
+    q, k, v = (_x((1, 128, 2, 64), seed=s) for s in (1, 2, 3))
+    qkv = _x((1, 128, 3 * 2 * 64), seed=4)
+    return {
+        "dropout": lambda **kw: F.dropout(x, 0.1, **kw),
+        "scaled_dot_product_attention":
+            lambda **kw: F.scaled_dot_product_attention(q, k, v,
+                                                        dropout_p=0.1, **kw),
+        "flash_attention":
+            lambda **kw: F.flash_attention(q, k, v, dropout=0.1, **kw),
+        "flash_attention_qkv_packed":
+            lambda **kw: F.flash_attention_qkv_packed(qkv, 2, dropout=0.1,
+                                                      **kw)}
+
+
+@pytest.mark.parametrize("name", ["dropout", "scaled_dot_product_attention",
+                                  "flash_attention",
+                                  "flash_attention_qkv_packed"])
+def test_functionals_draw_from_the_global_chain(name, chain):
+    """Each dropping functional runs at a positive rate without a
+    generator, repeats itself after the same seed(s), and equals the call
+    with generator=make_generator(s); the next call drops other
+    elements."""
+    call = _dropping_calls()[name]
+    paddle_tpu_torch.seed(21)
+    a = call()
+    paddle_tpu_torch.seed(21)
+    b = call()
+    assert torch.equal(a, b)
+    assert torch.equal(a, call(generator=make_generator(21)))
+    assert not torch.equal(a, call())
+
+
+def test_global_chain_keep_share_matches_the_reference(chain):
+    """paddle_tpu.seed(s) / paddle_tpu_torch.seed(s), then F.dropout at p =
+    0.1 in each package: both keep shares within 5 sigma of 0.9, the kept
+    values x / 0.9 (the bits differ between the packages; the
+    distribution and the scaling do not)."""
+    x = _x((64, 1024))
+    paddle.seed(123)
+    ref = np.asarray(JF.dropout(paddle.to_tensor(x.numpy()), p=0.1).numpy())
+    paddle_tpu_torch.seed(123)
+    got = F.dropout(x, 0.1).numpy()
+    sigma = math.sqrt(0.1 * 0.9 / x.numel())
+    for out in (ref, got):
+        kept = out != 0
+        assert abs(kept.mean() - 0.9) < 5 * sigma
+        np.testing.assert_allclose(out[kept], x.numpy()[kept] / 0.9,
+                                   rtol=1e-6)
 
 
 def test_layer_and_functional_replay_from_the_generator_state():

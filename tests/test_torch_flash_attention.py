@@ -30,10 +30,11 @@ from paddle_tpu.kernels.pallas import flash_attention as jfa
 from paddle_tpu.kernels.pallas.flash_attention import (_flash_fwd,
                                                        flash_attention_blhd)
 from paddle_tpu.nn import functional as JF
-from paddle_tpu_torch.core.random import make_generator, next_seed
+from paddle_tpu_torch.core.random import (get_rng_state, make_generator,
+                                          next_seed, seed, set_rng_state)
 from paddle_tpu_torch.kernels import launch_counts, philox, \
     reset_launch_counts, wide_launch_counts, f32_wide_launch_counts, \
-    f32_bwd_launch_counts, sw32_bwd_launch_counts
+    f32_bwd_launch_counts, f32_fwd_launch_counts, sw32_bwd_launch_counts
 from paddle_tpu_torch.kernels.flash_attention import (
     FlashAttention, flash_attention_bwd, flash_attention_bwd_reference,
     flash_attention_fwd, flash_attention_fwd_reference,
@@ -215,18 +216,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
                                 dict(q_segments=torch.zeros(1, 128)),
                                 dict(attn_mask=torch.zeros(1, 1, 128, 128,
                                                            dtype=torch.bool)),
-                                dict(dropout_p=0.1)],
+                                dict(dropout_p=1.5)],
                          ids=["kv_lens", "segments", "attn_mask", "dropout"])
 def test_sdpa_refuses_masks_and_dropout(kw):
-    """The masks and dropout run now (the tests below); what sdpa still
-    refuses: lengths that are not [B], q segments without kv segments, a
-    bool attn_mask (the mask is additive), and dropout in training without
-    a generator."""
+    """The masks and dropout run now (the tests below; dropout without a
+    generator draws from the global chain); what sdpa still refuses:
+    lengths that are not [B], q segments without kv segments, a bool
+    attn_mask (the mask is additive), and a dropout rate above 1."""
     q = torch.zeros(1, 128, 4, 64)
     want = {"kv_lens": (ValueError, "kv_lens"),
             "q_segments": (ValueError, "together"),
             "attn_mask": (TypeError, "additive"),
-            "dropout_p": (ValueError, "generator")}[next(iter(kw))]
+            "dropout_p": (ValueError, "not in")}[next(iter(kw))]
     with pytest.raises(want[0], match=want[1]):
         F.scaled_dot_product_attention(q, q, q, **kw)
 
@@ -278,14 +279,22 @@ def test_functionals_route_to_the_kernel_when_the_gate_passes(monkeypatch):
         np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
 
 
-def test_flash_attention_refuses_dropout_in_training():
-    """Training at dropout 0.1 without a generator raises; with one, the
-    probabilities drop under the seed it gives (the plain version at that
-    seed); eval needs none."""
+def test_flash_attention_dropout_draws_from_the_global_chain():
+    """Training at dropout 0.1 without a generator draws the seed from the
+    global chain (after seed(3), the call with make_generator(3)); with
+    one, the probabilities drop under the seed it gives (the plain version
+    at that seed); eval draws none."""
     q, k, v = _t(*_inputs(1, 128, 128, 2, 2, 64, seed=16))
-    with pytest.raises(ValueError, match="generator"):
-        F.flash_attention(q, k, v, dropout=0.1, training=True)
+    state = get_rng_state()
+    seed(3)
+    chained = F.flash_attention(q, k, v, dropout=0.1, training=True)
+    torch.testing.assert_close(
+        chained, F.flash_attention(q, k, v, dropout=0.1, training=True,
+                                   generator=make_generator(3)))
+    advanced = get_rng_state()
     F.flash_attention(q, k, v, dropout=0.1, training=False)
+    assert torch.equal(get_rng_state(), advanced)
+    set_rng_state(state)
     got = F.flash_attention(q, k, v, dropout=0.1, training=True,
                             generator=make_generator(3))
     want = F.scaled_dot_product_attention(q, k, v, dropout_p=0.1,
@@ -1235,7 +1244,7 @@ def test_cuda_fp32_backward_every_head_dim_and_flag(d, flags):
     """The fp32 backward up to 256 (flash_bwd_f32_kernel of
     csrc/flash_f32_wide.cuh) at every built head size and flag, GQA 4/2 at
     a ragged L = 500, against its fp32 plain version at chip_smoke.py's
-    [compare-fa-bwd] limit (its scores are the SIMT forward's sums, bit for
+    [compare-fa-bwd] limit (its scores are the forward's sums, bit for
     bit); dk and dv zero past each length, equal between two launches; two
     counted launches of that body."""
     if not torch.cuda.is_available():
@@ -1262,6 +1271,56 @@ def test_cuda_fp32_backward_every_head_dim_and_flag(d, flags):
     for r, n in enumerate(lens or []):
         assert torch.count_nonzero(got[1][r, n:]) == 0
         assert torch.count_nonzero(got[2][r, n:]) == 0
+
+
+# (flag set, causal, kv_lens, segment cuts, rate) for the fp32 forward up
+# to 256: causal and not, rates 0 and 0.1, with lengths (one below a
+# tile) and with segment ids
+CARD_F32_FWD_FLAG_CASES = [
+    ("causal", True, None, None, 0.0),
+    ("bidirectional-dropout", False, None, None, 0.1),
+    ("lengths-causal-dropout", True, [500, 40], None, 0.1),
+    ("lengths", False, [500, 97], None, 0.0),
+    ("segments-causal", True, [500, 300], [[128, 300], [200]], 0.0),
+    ("segments-dropout", False, [500, 300], [[128, 300], [200]], 0.1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", CARD_F32_FWD_FLAG_CASES,
+                         ids=[c[0] for c in CARD_F32_FWD_FLAG_CASES])
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
+def test_cuda_fp32_forward_every_head_dim_and_flag(d, flags):
+    """The fp32 forward up to 256 (flash_fwd_f32_small_kernel of
+    csrc/flash_f32_wide.cuh) at every built head size and flag, GQA 4/2 at
+    a ragged L = 500, against its fp32 plain version at chip_smoke.py's
+    [compare-fa] limits (out atol = rtol = 1e-4 on the probability-weighted
+    |v|, lse 1e-3), one counted launch of that body; the fp32 backward
+    that follows it within [compare-fa-bwd]'s 9e-7 of its plain version
+    (the backward recomputes this forward's scores bit for bit)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _, causal, lens, cuts, rate = flags
+    b, L, h, hkv = 2, 500, 4, 2
+    q, k, v, g = _card_inputs(b, L, L, h, hkv, d, torch.float32, seed=d + 3)
+    kw = dict(_card_masks(b, L, L, lens, cuts), seed=8 if rate else None)
+    reset_launch_counts()
+    out, lse = flash_attention_fwd(q, k, v, causal, None, rate, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts() == dict(NO_LAUNCHES, flash_attention_fwd=1)
+    assert f32_fwd_launch_counts() == dict(flash_pair_fwd=0,
+                                           flash_attention_fwd=1)
+    ref, ref_lse = flash_attention_fwd_reference(q, k, v, causal, None,
+                                                 rate, **kw)
+    limit = _weighted_limit(q, k, v, causal, ref, torch.float32,
+                            dropout_rate=rate, **kw)
+    assert bool(((out - ref).abs() <= limit).all())
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    got = flash_attention_bwd(q, k, v, out, lse, g, causal, None, rate, **kw)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, g, causal, None,
+                                         rate, **kw)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        err = ((x - y).norm() / y.norm()).item()
+        assert err < 9e-7, f"{name}: relative error {err:.3g}"
 
 
 @pytest.mark.cuda
@@ -1352,8 +1411,9 @@ def test_cuda_bf16_wide_heads_mqa_and_ragged(case):
 
 # (launcher, D, dtype, the forward's and the backward's body as the
 # profiler names them, the body counter of each launch or None: "wide",
-# the bf16 wide bodies'; "f32_wide", the fp32 wide ones'; "f32_bwd", the
-# fp32 backward's up to 256; "sw32_bwd", the bf16 backward's at 80 and 96)
+# the bf16 wide bodies'; "f32_wide", the fp32 wide ones'; "f32_fwd" and
+# "f32_bwd", the fp32 forward's and backward's up to 256; "sw32_bwd", the
+# bf16 backward's at 80 and 96)
 CARD_ROUTES = [("flat", 512, "bfloat16", "flash_fwd_wide_kernel",
                 "flash_bwd_wide_kernel", "wide", "wide"),
                ("pair", 384, "bfloat16", "flash_fwd_wide_kernel",
@@ -1366,20 +1426,22 @@ CARD_ROUTES = [("flat", 512, "bfloat16", "flash_fwd_wide_kernel",
                 "flash_bwd_f32_wide_kernel", "f32_wide", "f32_wide"),
                ("pair", 384, "float32", "flash_fwd_f32_wide_kernel",
                 "flash_bwd_f32_wide_kernel", "f32_wide", "f32_wide"),
-               ("flat", 128, "float32", "flash_fwd_f32_kernel",
-                "flash_bwd_f32_kernel", None, "f32_bwd"),
-               ("pair", 128, "float32", "flash_fwd_f32_kernel",
-                "flash_bwd_f32_kernel", None, "f32_bwd"),
+               ("flat", 128, "float32", "flash_fwd_f32_small_kernel",
+                "flash_bwd_f32_kernel", "f32_fwd", "f32_bwd"),
+               ("pair", 128, "float32", "flash_fwd_f32_small_kernel",
+                "flash_bwd_f32_kernel", "f32_fwd", "f32_bwd"),
                ("flat", 80, "bfloat16", "flash_fwd_sm90_kernel",
                 "flash_bwd_sm90_kernel", None, "sw32_bwd"),
                ("flat", 96, "bfloat16", "flash_fwd_sm90_kernel",
                 "flash_bwd_sm90_kernel", None, "sw32_bwd")]
 BODIES = ("flash_fwd_sm90_kernel", "flash_fwd_wide_kernel",
           "flash_fwd_f32_kernel", "flash_fwd_f32_wide_kernel",
+          "flash_fwd_f32_small_kernel",
           "flash_bwd_sm90_kernel", "flash_bwd_wide_kernel",
           "flash_bwd_f32_kernel", "flash_bwd_f32_wide_kernel")
 BODY_COUNTERS = {"wide": wide_launch_counts,
                  "f32_wide": f32_wide_launch_counts,
+                 "f32_fwd": f32_fwd_launch_counts,
                  "f32_bwd": f32_bwd_launch_counts,
                  "sw32_bwd": sw32_bwd_launch_counts}
 
@@ -1393,8 +1455,9 @@ def test_cuda_bf16_wide_heads_run_the_wide_bodies(route):
     heads above 256 on both launchers run the wide forward and backward
     (csrc/flash_wide_sm90.cuh); the bf16 D = 256 backward runs the wide
     body beside the Hopper forward; fp32 heads above 256 on both launchers
-    run the fp32 wide kernels (csrc/flash_f32_wide.cuh), and the fp32
-    backward at 128 flash_bwd_f32_kernel of that header; the bf16
+    run the fp32 wide kernels (csrc/flash_f32_wide.cuh), and fp32 at 128
+    flash_fwd_f32_small_kernel and flash_bwd_f32_kernel of that header
+    (never the SIMT forward, flash_fwd_f32_kernel); the bf16
     backward at 80 and 96 runs the Hopper body at that size. The
     wrappers' body counters agree: 1 for the body that ran, 0 for every
     other."""

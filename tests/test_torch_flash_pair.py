@@ -22,9 +22,10 @@ import pytest
 import torch
 
 from paddle_tpu.kernels.pallas.flash_pair import _pair_fwd, flash_pair_packed
-from paddle_tpu_torch.core.random import next_seed
-from paddle_tpu_torch.kernels import launch_counts, philox, \
-    reset_launch_counts
+from paddle_tpu_torch.core.random import (get_rng_state, make_generator,
+                                          next_seed, seed, set_rng_state)
+from paddle_tpu_torch.kernels import f32_fwd_launch_counts, launch_counts, \
+    philox, reset_launch_counts
 from paddle_tpu_torch.kernels.flash_pair import (FlashPairPacked,
                                                  flash_pair_bwd,
                                                  flash_pair_bwd_reference,
@@ -304,6 +305,44 @@ def test_cuda_backward_matches_plain(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_cuda_fp32_forward_every_head_dim(d, causal, rate):
+    """The fp32 forward up to 256 (flash_fwd_f32_small_kernel of
+    csrc/flash_f32_wide.cuh) on the pair launcher at each of its head sizes,
+    causal and not, at rates 0 and 0.1 and a ragged L = 300, against its
+    fp32 plain version (out atol = rtol = 1e-4 on the probability-weighted
+    |v|, lse 1e-3), one counted launch of that body; the fp32 backward
+    that follows it within [compare-bwd]'s 6e-7 of its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    b, L, heads = 2, 300, 2
+    x, g = _bwd_case(b, L, heads, d, torch.float32, seed=d + 14)
+    seed = 0x5EED0 if rate else None
+    reset_launch_counts()
+    out, lse = flash_pair_fwd(x, heads, causal, rate, seed)
+    torch.cuda.synchronize()
+    assert launch_counts() == dict(NO_LAUNCHES, flash_pair_fwd=1)
+    assert f32_fwd_launch_counts() == dict(flash_pair_fwd=1,
+                                           flash_attention_fwd=0)
+    ref_out, ref_lse = flash_pair_fwd_reference(x, heads, causal, rate, seed)
+    absv = x.clone()
+    absv[..., 2 * heads * d:] = absv[..., 2 * heads * d:].abs()
+    weight = flash_pair_fwd_reference(absv, heads, causal, rate, seed)[0]
+    limit = 1e-4 * weight.clamp_min(1.0) + 1e-4 * ref_out.abs()
+    assert ((out - ref_out).abs() <= limit).all()
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    got = flash_pair_bwd(x, out, lse, g, heads, causal, rate, seed)
+    want = flash_pair_bwd_reference(x, out, lse, g, heads, causal, rate, seed)
+    hd = heads * d
+    for i, part in enumerate(("dq", "dk", "dv")):
+        err = _rel(got[..., i * hd:(i + 1) * hd],
+                   want[..., i * hd:(i + 1) * hd])
+        assert err < 6e-7, f"{part}: relative error {err:.3g}"
+
+
+@pytest.mark.cuda
 def test_cuda_gradient_flows_through_the_function():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -382,11 +421,25 @@ def test_plain_attention_route_draws_the_pair_mask(causal):
     torch.testing.assert_close(x.grad, dx, atol=1e-5, rtol=1e-5)
 
 
-def test_packed_attention_dropout_needs_a_generator():
-    x = torch.zeros(1, 128, 3 * 2 * 64)
-    with pytest.raises(ValueError, match="generator"):
-        F.flash_attention_qkv_packed(x, 2, dropout=0.1, training=True)
+def test_packed_attention_dropout_draws_from_the_global_chain():
+    """flash_attention_qkv_packed at dropout 0.1 without a generator draws
+    its seed from the global chain: after seed(4) it equals the call with
+    make_generator(4), and differs from the undropped output; eval draws
+    none."""
+    x = torch.from_numpy(_qkv(1, 128, 2, 64, seed=13))
+    state = get_rng_state()
+    seed(4)
+    chained = F.flash_attention_qkv_packed(x, 2, dropout=0.1, training=True)
+    torch.testing.assert_close(
+        chained, F.flash_attention_qkv_packed(x, 2, dropout=0.1,
+                                              training=True,
+                                              generator=make_generator(4)))
+    assert not torch.allclose(chained, F.flash_attention_qkv_packed(
+        x, 2, training=True))
+    advanced = get_rng_state()
     F.flash_attention_qkv_packed(x, 2, dropout=0.1, training=False)
+    assert torch.equal(get_rng_state(), advanced)
+    set_rng_state(state)
 
 
 def test_dropout_seed_is_saved_for_the_backward():

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from paddle_tpu.kernels.pallas.fused_residual import _fused_bwd, _fused_fwd
+from paddle_tpu_torch.core.random import get_rng_state, seed, set_rng_state
 from paddle_tpu_torch.kernels import launch_counts, philox, \
     reset_launch_counts
 from paddle_tpu_torch.kernels.fused_residual import (
@@ -173,7 +174,8 @@ def test_autograd_function_on_the_cpu_is_uncounted():
 def test_add_dropout_ln_routes_by_width():
     """F.add_dropout_ln: the fused function where the width is a multiple
     of 128 (one seed drawn), else LayerNorm(x + dropout(sub)) with the
-    dropout kernel's mask; identical at rate 0 and in eval."""
+    dropout kernel's mask; identical at rate 0 and in eval; without a
+    generator, the call with one at the global chain's seed."""
     gen = torch.Generator()
     for h in (128, 96):
         x, s, w, b, _ = (torch.from_numpy(a) for a in _inputs(8, h, seed=h))
@@ -185,8 +187,14 @@ def test_add_dropout_ln_routes_by_width():
         gen.manual_seed(1)
         again = F.add_dropout_ln(x, s, w, b, p=0.1, generator=gen)
         assert torch.equal(a, again) and not torch.allclose(a, eval_out)
-    with pytest.raises(ValueError, match="generator"):
-        F.add_dropout_ln(x, s, w, b, p=0.1, training=True)
+        # without a generator the seed comes from the global chain
+        state = get_rng_state()
+        seed(2)
+        chained = F.add_dropout_ln(x, s, w, b, p=0.1, training=True)
+        set_rng_state(state)
+        gen.manual_seed(2)
+        assert torch.equal(chained, F.add_dropout_ln(x, s, w, b, p=0.1,
+                                                     generator=gen))
 
 
 @pytest.mark.parametrize("bad", ["rate", "dtype", "mixed", "shape"])
