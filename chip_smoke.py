@@ -37,9 +37,18 @@ the user entry points, random weights from a seed:
 
 * GPT-medium (vocab 50304, hidden 1024, 16 blocks, 8 heads of 128)
   serving: the scoring forward and the paged DecodeEngine answering 8
-  requests at the ``bench.py decode --paged`` geometry, then a cross-check
-  of the engine's tokens against the uncached forward, the scoring time and
-  a profiled serving run;
+  requests at the ``bench.py decode --paged`` geometry with its steps run
+  eagerly ([engine], the reference), then a cross-check of the engine's
+  tokens against the uncached forward; then the serving engine's captured
+  programs (CUDA graphs; no flash kernel on these paths): the same
+  requests graphed ([engine-graph]: tokens identical to [engine]'s,
+  compile_count 2 after a warm-up request and no capture in the drain,
+  tokens/s and peak memory beside the eager reading), with whole-prompt
+  bucketed prefill ([engine-buckets]), sampling at T 0.8, top_k 50
+  ([engine-sample]: a seed reproduces, another differs, top_k 1 is
+  greedy) and ``generate()`` at 8 x 128 + 64 ([generate]: eager then
+  graphed, identical), both held to the uncached forward; the scoring
+  time and a profiled serving run, eager and graphed;
 * GPT-medium training: ``TrainStep`` + ``AdamW(1e-4, wd 0.01,
   multi_precision=True)`` at the ``bench.py`` train geometry (batch 16 x
   seq 1024, dropout 0 as ``bench.py`` builds it), 1 warm-up and 6 timed
@@ -60,10 +69,12 @@ the user entry points, random weights from a seed:
   autograd at [2, 2048, 3*16*128] (no model reaches it);
 * LLaMA-7B (vocab 32000, hidden 4096, FFN 11008, 32 blocks of 32 heads of
   128, built on the card) serving: the scoring forward at [2, 2048] and
-  the engine answering 8 requests, a cross-check against the uncached
-  forward, the scoring time, and the same engine run and cross-check in
-  fp32 at 2 blocks with GQA (32 q heads on 8 KV heads), where the tokens
-  must agree;
+  the engine answering 8 requests eagerly, a cross-check against the
+  uncached forward, the same requests graphed ([llama-engine-graph], as
+  [engine-graph]), ``generate()`` at 2 x 128 + 32 ([llama-generate]) held
+  to the uncached forward, a profiled graphed serving run, the scoring
+  time, and the graphed engine run and cross-check in fp32 at 2 blocks
+  with GQA (32 q heads on 8 KV heads), where the tokens must agree;
 * LLaMA-7B training at full width and 4 blocks (32 would not fit: 16 bytes
   a parameter), batch 4 x seq 2048, the recipe of GPT's, 1 warm-up and 4
   timed steps, a profiled step, the same steps with attention in its plain
@@ -980,11 +991,9 @@ def phase_scoring_time(model, ids):
     log(f"[scoring] forward [2, 1024]: {fwd_ms:.2f} ms")
 
 
-def phase_engine(model):
-    """8 requests (a shared 32-token prefix + random tokens, 64-128
-    prompt tokens, 32-64 new) through the paged engine, invariants checked
-    after every step."""
-    from paddle_tpu_torch.serving import DecodeEngine
+def _gpt_requests():
+    """[engine]'s 8 requests: a shared 32-token prefix + random tokens,
+    64-128 prompt tokens, 32-64 new."""
     gen = torch.Generator()
     gen.manual_seed(2)
     vocab = GPT_MEDIUM["vocab_size"]
@@ -994,12 +1003,20 @@ def phase_engine(model):
     prompts = [prefix + torch.randint(0, vocab, (n - 32,),
                                       generator=gen).tolist()
                for n in prompt_lens]
-    eng = DecodeEngine(model, **ENGINE)
+    return prompts, new_tokens
+
+
+def _serve(eng, prompts, new_tokens):
+    """The first request alone until it runs (it publishes the shared
+    prefix), then the rest; the pager's invariants after every step.
+    Returns (requests, steps, wall s, peak allocated GB, peak reserved
+    GB), the peaks from the engine's start (weights, pools and, graphed,
+    the graphs' pool included)."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     reqs = [eng.submit(prompts[0], max_new_tokens=new_tokens[0])]
     steps = 0
-    while reqs[0].status != "running":   # publish the shared prefix first
+    while reqs[0].status != "running":
         eng.step()
         eng.check_invariants()
         steps += 1
@@ -1013,39 +1030,217 @@ def phase_engine(model):
             raise AssertionError("engine did not drain in 2000 steps")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     bad = [r for r in reqs if r.status != "done"
            or len(r.tokens) != r.max_new_tokens]
     if bad:
         raise AssertionError(f"requests not done: {bad}")
+    return (reqs, steps, wall, torch.cuda.max_memory_allocated() / 1e9,
+            torch.cuda.max_memory_reserved() / 1e9)
+
+
+def phase_engine(model):
+    """[engine]'s 8 requests through the paged engine, its steps run
+    eagerly (the private switch ``_programs.capture = False``): the
+    reference the captured programs are held to."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    prompts, new_tokens = _gpt_requests()
+    torch.cuda.empty_cache()
+    eng = DecodeEngine(model, **ENGINE)
+    eng._programs.capture = False
+    reqs, steps, wall, peak, reserved = _serve(eng, prompts, new_tokens)
     st = eng.stats()
     if st["paged"]["shared_hits"] < 1:
         raise AssertionError(f"prefix sharing was not hit: {st['paged']}")
-    log(f"[engine] {len(reqs)} requests done in {steps} steps, "
-        f"{wall:.3f} s: {st['tokens_generated']} tokens, "
-        f"{st['tokens_generated'] / wall:.1f} tokens/s; "
+    rate = st["tokens_generated"] / wall
+    log(f"[engine] eager steps: {len(reqs)} requests done in {steps} "
+        f"steps, {wall:.3f} s: {st['tokens_generated']} tokens, "
+        f"{rate:.1f} tokens/s; "
         f"{st['decode_steps']} decode steps, {st['prefill_calls']} chunk "
         f"calls; shared_hits {st['paged']['shared_hits']}, shared_tokens "
         f"{st['paged']['shared_tokens']}, cow {st['paged']['cow_copies']}; "
-        f"peak memory {peak_gb:.2f} GB")
+        f"peak memory {peak:.2f} GB (reserved {reserved:.2f} GB)")
+    return reqs, dict(rate=rate, peak=peak, reserved=reserved)
+
+
+def phase_engine_graph(model, eager_reqs, eager, requests=_gpt_requests,
+                       tag="[engine-graph]"):
+    """The same requests through an engine whose steps are captured CUDA
+    graphs (the default on the card), after a warm-up request that
+    builds both programs: compile_count 2 after it, no capture during the
+    drain, and every request's tokens identical to the eager engine's."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    prompts, new_tokens = requests()
+    torch.cuda.empty_cache()
+    eng = DecodeEngine(model, **ENGINE)
+    gen = torch.Generator()
+    gen.manual_seed(99)
+    warm = torch.randint(0, model.config.vocab_size, (40,),
+                         generator=gen).tolist()
+    t0 = time.perf_counter()
+    eng.submit(warm, max_new_tokens=2)       # two chunk calls, one decode
+    eng.run()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    progs = eng._programs._programs
+    if eng.compile_count != 2 or not all(p.captured for p in progs.values()):
+        raise AssertionError(f"warm-up built {eng.compile_count} programs "
+                             f"({list(progs)}), expected 2 captured")
+    reqs, steps, wall, peak, reserved = _serve(eng, prompts, new_tokens)
+    if eng.compile_count != 2:
+        raise AssertionError(f"{eng.compile_count - 2} captures during the "
+                             f"drain")
+    diff = [r.id for r, e in zip(reqs, eager_reqs) if r.tokens != e.tokens]
+    if diff:
+        raise AssertionError(f"graphed tokens differ from the eager "
+                             f"engine's in requests {diff}")
+    st = eng.stats()
+    rate = (st["tokens_generated"] - 2) / wall
+    log(f"{tag} {len(reqs)} requests done in {steps} steps, {wall:.3f} s: "
+        f"{rate:.1f} tokens/s ({rate / eager['rate']:.2f}x the eager "
+        f"engine's {eager['rate']:.1f}); tokens identical to the eager "
+        f"engine's; compile_count 2 after the warm-up ({warm_s:.2f} s, "
+        f"capture included), 0 captures in the drain; peak memory "
+        f"{peak:.2f} GB (eager {eager['peak']:.2f}), reserved "
+        f"{reserved:.2f} GB (eager {eager['reserved']:.2f})")
     return reqs
 
 
-def phase_crosscheck(model, reqs):
-    """The engine's greedy tokens against the uncached forward (through
-    the flash kernel) over prompt + output: the argmax agrees at >= 95% of
-    generated positions and every disagreement is a near-tie (bf16 rounds
-    differently in the paged cached path and the kernel)."""
+def phase_engine_buckets(model):
+    """prefill_chunk=None: each prompt prefills in one call of the bucket
+    that holds it whole (graphed), [engine]'s requests, then held to the
+    uncached forward by [crosscheck]'s rule at every request."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    prompts, new_tokens = _gpt_requests()
+    eng = DecodeEngine(model, **dict(ENGINE, prefill_chunk=None))
+    reqs, steps, wall, peak, _ = _serve(eng, prompts, new_tokens)
+    if any(r.prefill_chunks != 1 for r in reqs):
+        raise AssertionError("a bucketed prompt took more than one call")
+    st = eng.stats()
+    log(f"[engine-buckets] buckets {eng.prefill_buckets}: {len(reqs)} "
+        f"requests in {steps} steps, {wall:.3f} s (captures included), "
+        f"{st['prefill_calls']} chunk calls; compile_count "
+        f"{eng.compile_count} (programs "
+        f"{sorted(map(str, eng._programs._programs))})")
+    return reqs
+
+
+def phase_engine_sample(model, greedy_reqs):
+    """Sampling at T = 0.8, top_k = 50 (graphed) on [engine]'s requests:
+    seed 1 twice gives identical tokens, seed 2 others, and top_k = 1 the
+    greedy tokens of [engine]."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    prompts, new_tokens = _gpt_requests()
+    runs = {}
+    for name, seed, top_k in (("1", 1, 50), ("1 again", 1, 50),
+                              ("2", 2, 50), ("top_k 1", 3, 1)):
+        eng = DecodeEngine(model, do_sample=True, temperature=0.8,
+                           top_k=top_k, seed=seed, **ENGINE)
+        reqs = _serve(eng, prompts, new_tokens)[0]
+        runs[name] = [r.tokens for r in reqs]
+        if eng.compile_count != 2:
+            raise AssertionError(f"sampling engine built "
+                                 f"{eng.compile_count} programs")
+        del eng
+    greedy = [r.tokens for r in greedy_reqs]
+    same = sum(a == b for a, b in zip(runs["1"], runs["2"]))
+    if runs["1"] != runs["1 again"]:
+        raise AssertionError("the same seed did not reproduce")
+    if same == len(greedy):
+        raise AssertionError("seeds 1 and 2 drew the same tokens")
+    if runs["top_k 1"] != greedy:
+        raise AssertionError("top_k = 1 differs from greedy")
+    agree = sum(x == y for a, g in zip(runs["1"], greedy)
+                for x, y in zip(a, g)) / sum(map(len, greedy))
+    log(f"[engine-sample] T 0.8, top_k 50: seed 1 twice identical, seed 2 "
+        f"differs in {len(greedy) - same} of {len(greedy)} requests; "
+        f"top_k 1 == greedy; sampled tokens equal to greedy at "
+        f"{agree:.3f} of positions")
+
+
+def _as_rows(ids, out):
+    """generate()'s rows as crosscheck records (prompt, tokens, id)."""
+    from types import SimpleNamespace
+    s0 = ids.shape[1]
+    return [SimpleNamespace(id=i, prompt=row[:s0], tokens=row[s0:])
+            for i, row in enumerate(out.tolist())]
+
+
+def _generate_both(model, ids, new, tag):
+    """generate() eagerly (the private ``capture = False`` of the model's
+    program registry), then graphed twice (the first call captures the
+    step): greedy tokens identical each time. Returns the output and the
+    timing record."""
+    from paddle_tpu_torch.models.gpt import _gen_registry
+    model.__dict__.pop("_gen_programs", None)
+    _gen_registry(model).capture = False
+    t0 = time.perf_counter()
+    eager = model.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    model.__dict__.pop("_gen_programs")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = model.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reg = _gen_registry(model)
+    if reg.count != 1 or not all(p.captured
+                                 for p in reg._programs.values()):
+        raise AssertionError(f"{tag} built {reg.count} step programs")
+    if not (torch.equal(first, eager) and torch.equal(out, eager)):
+        raise AssertionError(f"{tag} graphed tokens differ from eager")
+    b = ids.shape[0]
+    if out.shape != (b, ids.shape[1] + new) \
+            or not torch.equal(out[:, :ids.shape[1]], ids):
+        raise AssertionError(f"{tag} output shape {tuple(out.shape)}")
+    log(f"{tag} {b} x {ids.shape[1]} prompts, {new} new tokens: "
+        f"{b * new / wall:.1f} tokens/s graphed ({wall:.3f} s; first call "
+        f"with the capture {first_s:.3f} s) against {b * new / eager_s:.1f} "
+        f"eager ({eager_s:.3f} s); tokens identical; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return out
+
+
+def phase_generate(model):
+    """GPT-medium generate(): 8 x 128 prompts, 64 new tokens."""
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    ids = torch.randint(0, GPT_MEDIUM["vocab_size"], (8, 128),
+                        generator=gen).cuda()
+    return _as_rows(ids, _generate_both(model, ids, 64, "[generate]"))
+
+
+def phase_llama_generate(model):
+    """LLaMA-7B generate(): 2 x 128 prompts, 32 new tokens."""
+    gen = torch.Generator()
+    gen.manual_seed(14)
+    ids = torch.randint(0, LLAMA_7B["vocab_size"], (2, 128),
+                        generator=gen).cuda()
+    return _as_rows(ids, _generate_both(model, ids, 32, "[llama-generate]"))
+
+
+def phase_crosscheck(model, reqs, rows=2, tag="[crosscheck]"):
+    """Greedy tokens (the engine's or generate()'s) against the uncached
+    forward (through the flash kernel) over prompt + output, for the
+    ``rows`` longest requests: the argmax agrees at >= 95% of generated
+    positions and every disagreement is a near-tie (bf16 rounds
+    differently in the cached path and the kernel)."""
     from paddle_tpu_torch.models.gpt import _lm_head_logits
     longest = sorted(reqs, key=lambda r: -(len(r.prompt) + len(r.tokens)))
-    for req in longest[:2]:
+    for req in longest[:rows]:
         seq = req.prompt + req.tokens[:-1]
-        if len(seq) < 128:
-            raise AssertionError("cross-check sequence below the kernel's "
-                                 "128-token minimum")
+        # right-padded to the kernel's 128-token minimum: causal attention,
+        # so the padding changes no earlier position
+        seq = seq + [0] * (128 - len(seq))
         ids = torch.tensor([seq], device="cuda")
         with torch.no_grad():
-            hidden = model.gpt(ids)[0, len(req.prompt) - 1:]
+            n = len(req.prompt)
+            hidden = model.gpt(ids)[0, n - 1:n - 1 + len(req.tokens)]
             logits = _lm_head_logits(hidden, model.head_weight)
         want = torch.tensor(req.tokens, device="cuda")
         top = logits.argmax(dim=-1)
@@ -1053,7 +1248,7 @@ def phase_crosscheck(model, reqs):
         gaps = (logits.gather(1, top[:, None])
                 - logits.gather(1, want[:, None]))[:, 0]
         worst = gaps.max().item()
-        log(f"[crosscheck] request {req.id}: {len(req.tokens)} generated "
+        log(f"{tag} request {req.id}: {len(req.tokens)} generated "
             f"positions, argmax agreement {agree:.3f}, largest logit gap at "
             f"a disagreement {worst:.4f}")
         if agree < 0.95 or worst > 0.1:
@@ -1061,21 +1256,30 @@ def phase_crosscheck(model, reqs):
                                  "forward beyond bf16 near-ties")
 
 
-def phase_profile(model):
+def phase_profile(model, graphed=False, tag=None):
     """Where a serving run's time goes: 16 requests (64-token prompts, 32
-    new tokens) through a fresh engine under torch.profiler. Reports the
-    host wall time per scheduler step, the device's busy share (kernel
-    time over wall time) and the kernels that take the most device time.
-    The profiler adds host overhead, so the wall times here are not the
-    engine's speed; the [engine] line is."""
+    new tokens) through a fresh engine under torch.profiler, its steps
+    eager ([profile]) or captured ([profile-graph], [profile-llama-graph]:
+    both programs built by a warm-up request before the profiler starts).
+    Reports the host wall time per scheduler step, the device's busy share
+    (kernel time over wall time) and the kernels that take the most device
+    time. The profiler adds host overhead, so the wall times here are not
+    the engine's speed; the [engine] lines are."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.serving import DecodeEngine
+    tag = tag or ("[profile-graph]" if graphed else "[profile]")
+    vocab = model.config.vocab_size
     gen = torch.Generator()
     gen.manual_seed(3)
     eng = DecodeEngine(model, **ENGINE)
-    prompts = torch.randint(0, GPT_MEDIUM["vocab_size"], (16, 64),
-                            generator=gen).tolist()
+    eng._programs.capture = graphed
+    if graphed:
+        eng.submit(torch.randint(0, vocab, (40,), generator=gen).tolist(),
+                   max_new_tokens=2)
+        eng.run()
+    prompts = torch.randint(0, vocab, (16, 64), generator=gen).tolist()
     reqs = [eng.submit(p, max_new_tokens=32) for p in prompts]
+    st0 = eng.stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1088,14 +1292,17 @@ def phase_profile(model):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     st = eng.stats()
-    steps = st["decode_steps"] + st["prefill_calls"]
-    log(f"[profile] 16 requests x 32 tokens: {st['decode_steps']} decode "
-        f"steps + {st['prefill_calls']} chunk calls in {wall * 1e3:.1f} ms "
-        f"wall ({wall * 1e3 / max(steps, 1):.2f} ms per call, profiler "
+    decode = st["decode_steps"] - st0["decode_steps"]
+    chunks = st["prefill_calls"] - st0["prefill_calls"]
+    log(f"{tag} 16 requests x 32 tokens: {decode} decode steps + {chunks} "
+        f"chunk calls in {wall * 1e3:.1f} ms wall "
+        f"({wall * 1e3 / max(decode + chunks, 1):.2f} ms per call, profiler "
         f"on); device busy {busy_us / 1e3:.1f} ms = "
-        f"{busy_us / 1e6 / wall:.3f} of wall")
+        f"{busy_us / 1e6 / wall:.3f} of wall"
+        + ("" if kernels else " (no device event in the trace: not "
+           "measured)"))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms "
+        log(f"{tag}   {e.self_device_time_total / 1e3:8.2f} ms "
             f"x{e.count:5d}  {e.key[:90]}")
 
 
@@ -2112,11 +2319,9 @@ def phase_llama_scoring(model):
     return ids
 
 
-def phase_llama_engine(model, tag="[llama-engine]"):
-    """8 requests (a shared 16-token prefix + random tokens, 16-96 prompt
-    tokens, 32 new each) through the paged engine at the ENGINE geometry,
-    invariants checked after every step."""
-    from paddle_tpu_torch.serving import DecodeEngine
+def _llama_requests():
+    """[llama-engine]'s 8 requests: a shared 16-token prefix + random
+    tokens, 16-96 prompt tokens, 32 new each."""
     gen = torch.Generator()
     gen.manual_seed(13)
     vocab = LLAMA_7B["vocab_size"]
@@ -2124,38 +2329,33 @@ def phase_llama_engine(model, tag="[llama-engine]"):
     prompts = [prefix + torch.randint(0, vocab, (n - 16,),
                                       generator=gen).tolist()
                for n in (96, 88, 16, 24, 40, 56, 72, 80)]
+    return prompts, [32] * len(prompts)
+
+
+def phase_llama_engine(model, tag="[llama-engine]", eager=False):
+    """[llama-engine]'s 8 requests through the paged engine at the ENGINE
+    geometry, invariants checked after every step; ``eager`` runs its
+    steps eagerly (the reference of [llama-engine-graph]), else they are
+    captured at their first call. Returns the requests and the eager
+    record (tokens/s, peaks)."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    prompts, new_tokens = _llama_requests()
+    torch.cuda.empty_cache()
     eng = DecodeEngine(model, **ENGINE)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    reqs = [eng.submit(prompts[0], max_new_tokens=32)]
-    steps = 0
-    while reqs[0].status != "running":   # publish the shared prefix first
-        eng.step()
-        eng.check_invariants()
-        steps += 1
-    reqs += [eng.submit(p, max_new_tokens=32) for p in prompts[1:]]
-    while eng.queue_depth or eng.active_count:
-        eng.step()
-        eng.check_invariants()
-        steps += 1
-        if steps > 2000:
-            raise AssertionError("engine did not drain in 2000 steps")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    bad = [r for r in reqs if r.status != "done" or len(r.tokens) != 32]
-    if bad:
-        raise AssertionError(f"requests not done: {bad}")
+    eng._programs.capture = not eager
+    reqs, steps, wall, peak, reserved = _serve(eng, prompts, new_tokens)
     st = eng.stats()
     if st["paged"]["shared_hits"] < 1:
         raise AssertionError(f"prefix sharing was not hit: {st['paged']}")
-    log(f"{tag} {len(reqs)} requests done in {steps} steps, "
-        f"{wall:.3f} s: {st['tokens_generated']} tokens, "
-        f"{st['tokens_generated'] / wall:.1f} tokens/s; "
+    rate = st["tokens_generated"] / wall
+    log(f"{tag} {'eager' if eager else 'graphed'} steps: {len(reqs)} "
+        f"requests done in {steps} steps, {wall:.3f} s: "
+        f"{st['tokens_generated']} tokens, {rate:.1f} tokens/s"
+        f"{'' if eager else ' (captures included)'}; "
         f"{st['decode_steps']} decode steps, {st['prefill_calls']} chunk "
         f"calls; shared_hits {st['paged']['shared_hits']}; peak memory "
-        f"{peak_gb:.2f} GB")
-    return reqs
+        f"{peak:.2f} GB (reserved {reserved:.2f} GB)")
+    return reqs, dict(rate=rate, peak=peak, reserved=reserved)
 
 
 def phase_llama_crosscheck(model, reqs, tag="[llama-crosscheck]"):
@@ -2227,12 +2427,13 @@ def phase_llama_crosscheck(model, reqs, tag="[llama-crosscheck]"):
 def phase_llama_engine_fp32():
     """The engine computes the uncached function on the card: LLaMA-7B
     width with 2 blocks and GQA (32 q heads on 8 KV heads) in fp32, the
-    requests of [llama-engine], then [llama-crosscheck] at the fp32
-    limits (the argmax agrees at >= 0.99 of positions)."""
+    requests of [llama-engine] through captured steps, then
+    [llama-crosscheck] at the fp32 limits (the argmax agrees at >= 0.99
+    of positions)."""
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b
     model = LlamaForCausalLM(llama_7b(num_layers=2, num_kv_heads=8),
                              seed=16).eval()
-    reqs = phase_llama_engine(model, tag="[llama-engine-fp32]")
+    reqs, _ = phase_llama_engine(model, tag="[llama-engine-fp32]")
     phase_llama_crosscheck(model, reqs, tag="[llama-crosscheck-fp32]")
 
 
@@ -3754,12 +3955,25 @@ def main() -> int:
 
     reset_launch_counts()                  # GPT serving starts here
     ids = phase_scoring(model)
-    reqs = phase_engine(model)
+    reqs, eager = phase_engine(model)
     paths["gpt-serving"] = counts()     # ... and ends here
     phase_crosscheck(model, reqs)
+    # GPT serving's captured programs: the engine graphed, bucketed and
+    # sampling, and generate(); no flash kernel lies on these paths
+    reset_launch_counts()
+    phase_engine_graph(model, reqs, eager)
+    bucket_reqs = phase_engine_buckets(model)
+    phase_engine_sample(model, reqs)
+    gen_rows = phase_generate(model)
+    paths["gpt-serving-graph"] = counts()
+    phase_crosscheck(model, bucket_reqs, rows=len(bucket_reqs),
+                     tag="[engine-buckets-crosscheck]")
+    phase_crosscheck(model, gen_rows, rows=len(gen_rows),
+                     tag="[generate-crosscheck]")
     phase_scoring_time(model, ids)
     phase_profile(model)
-    del model, reqs
+    phase_profile(model, graphed=True)
+    del model, reqs, bucket_reqs, gen_rows
     torch.cuda.empty_cache()
 
     reset_launch_counts()                  # GPT training starts here
@@ -3816,11 +4030,19 @@ def main() -> int:
         f"on the card in {time.perf_counter() - t0:.1f} s")
     reset_launch_counts()                  # LLaMA serving starts here
     ids = phase_llama_scoring(llama)
-    reqs = phase_llama_engine(llama)
+    reqs, eager = phase_llama_engine(llama, eager=True)
     paths["llama-serving"] = counts()   # ... and ends here
     phase_llama_crosscheck(llama, reqs)
+    reset_launch_counts()                  # LLaMA's captured programs
+    phase_engine_graph(llama, reqs, eager, requests=_llama_requests,
+                       tag="[llama-engine-graph]")
+    gen_rows = phase_llama_generate(llama)
+    paths["llama-serving-graph"] = counts()
+    phase_llama_crosscheck(llama, gen_rows,
+                           tag="[llama-generate-crosscheck]")
+    phase_profile(llama, graphed=True, tag="[profile-llama-graph]")
     phase_llama_scoring_time(llama, ids)
-    del llama, reqs, ids
+    del llama, reqs, ids, gen_rows
     torch.cuda.empty_cache()
     counted("llama-engine-fp32", phase_llama_engine_fp32)
     torch.cuda.empty_cache()
@@ -3856,6 +4078,11 @@ def main() -> int:
             if paths[path][kernel] < 1:
                 raise AssertionError(f"the {path} path never launched "
                                      f"{kernel}")
+    # the captured programs run the cached attention, no flash kernel
+    for path in ("gpt-serving-graph", "llama-serving-graph"):
+        ran = {k: n for k, n in paths[path].items() if n}
+        if ran:
+            raise AssertionError(f"the {path} path launched {ran}")
     log(f"[paths] launches: {paths}; row 6's call: {row6}; the fp32 "
         f"check phases: {checks}")
     launches = {k: sum(p[k] for p in paths.values()) for k in records}

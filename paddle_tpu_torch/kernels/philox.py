@@ -22,7 +22,10 @@ serve four consecutive columns ``4 * (column // 4) + w``. Rows are
   h) (``attention_keep``);
 * row kernels (dropout, fused add-dropout-LayerNorm) on an ``[N, C]``
   view: column = c, row words = (low and high 32 bits of the row index n)
-  (``row_keep``).
+  (``row_keep``);
+* token sampling (``sample_uniform``, no kernel: plain torch on the card
+  and the CPU alike): column = vocabulary index, row words = (batch row,
+  draw step), under the key of a seed held as device data.
 
 No coordinate of a LLaMA-7B or BERT shape comes near 2^32, so no word
 overflows. An element is kept iff ``(word & 0x7FFFFFFF) >= int(rate *
@@ -37,13 +40,15 @@ import ctypes
 import torch
 
 __all__ = ["SALT_ATTENTION", "SALT_DROPOUT", "SALT_FUSED_LN", "philox4x32",
-           "seed_words", "threshold", "keep_scale", "KERNEL_ARGTYPES",
-           "kernel_args", "row_keep", "attention_keep"]
+           "SALT_SAMPLE", "seed_words", "threshold", "keep_scale",
+           "KERNEL_ARGTYPES", "kernel_args", "row_keep", "attention_keep",
+           "sample_uniform"]
 
 # op salts: the fourth counter word, one per kind of op
 SALT_ATTENTION = 1
 SALT_DROPOUT = 2
 SALT_FUSED_LN = 3
+SALT_SAMPLE = 4
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57      # Philox4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85      # Weyl key increments
@@ -59,13 +64,16 @@ def _mulhilo(m: int, x: torch.Tensor):
     return (b >> 16) + (t >> 32), t & _MASK
 
 
-def philox4x32(c0, c1, c2, c3, k0: int, k1: int, rounds: int = 10):
+def philox4x32(c0, c1, c2, c3, k0, k1, rounds: int = 10):
     """Philox4x32-``rounds`` on int64 tensors holding 32-bit counter words
     (broadcast against each other) under the key ``(k0, k1)``: the four
-    output words as int64 tensors in [0, 2^32)."""
+    output words as int64 tensors in [0, 2^32). The key words are ints or
+    int64 tensors (0-d, on the counters' device): a key that is device
+    data lets a captured program draw under a seed it reads at replay."""
     c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64)
                       for c in (c0, c1, c2, c3))
-    k0, k1 = int(k0) & _MASK, int(k1) & _MASK
+    k0, k1 = ((k & _MASK) if torch.is_tensor(k) else int(k) & _MASK
+              for k in (k0, k1))
     for r in range(rounds):
         if r:
             k0, k1 = (k0 + _W0) & _MASK, (k1 + _W1) & _MASK
@@ -145,3 +153,18 @@ def attention_keep(seed: int, batch: int, heads: int, lq: int, lk: int,
     bh = torch.arange(batch * heads, device=device).reshape(batch, heads,
                                                              1, 1)
     return _keep(philox4x32(groups, i, bh, SALT_ATTENTION, k0, k1), lk, rate)
+
+
+def sample_uniform(key: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """Uniforms ``[rows, cols]`` (float64) in the open interval (0, 1) for
+    one sampling draw. ``key`` is an int64 tensor ``(seed, step)`` on the
+    device the draw runs on; the seed (a non-negative int64) keys Philox,
+    the counter is ``(column // 4, row, step, SALT_SAMPLE)``. A word maps
+    to its top 24 bits plus a half, times 2^-24: never 0 or 1, so
+    ``-log(-log(u))`` is finite."""
+    seed, step = key[0], key[1]
+    groups = torch.arange((cols + 3) // 4, device=key.device)[None, :]
+    r = torch.arange(rows, device=key.device)[:, None]
+    words = philox4x32(groups, r, step & _MASK, SALT_SAMPLE, seed, seed >> 32)
+    bits = torch.stack(words, dim=-1).flatten(-2)[:, :cols]
+    return ((bits >> 8).double() + 0.5) * 2.0 ** -24

@@ -8,7 +8,11 @@ and backward), the loss (``GPTForCausalLM.forward(ids, labels)``, the JAX
 package's ``lm_head_ce``), training at the config's dropout (the
 embedding and residual dropouts through the dropout kernel, the attention
 dropout inside the pair kernels, every mask from the model's generator),
-and the paged-KV cached forward that ``serving.DecodeEngine`` drives.
+the cached forward over a paged KV pool (``serving.DecodeEngine``) or
+contiguous per-row buffers, and ``generate()`` (greedy or temperature +
+top-k sampling; its one-token step is a fixed-shape program,
+``core/programs.py``: a CUDA graph on the card). Every cursor of the
+cached path may be device data, so a captured step reads it at replay.
 Recompute, the scanned layer stack and tensor parallelism come later.
 
 Layouts follow the JAX package at every public function: the fused
@@ -21,13 +25,17 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import partial
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
-from ..core.random import check_model_generator, make_generator
+from ..core.programs import ProgramRegistry, leaf_addresses, serving_mode
+from ..core.random import check_model_generator, make_generator, next_seed
+from ..kernels.philox import sample_uniform
 from ..nn import Dropout
 from ..nn import functional as F
 
@@ -82,9 +90,9 @@ def _paged_kv_update(kv_cache, k, v):
     ``kv_cache`` is ``(pool_k, pool_v, table, pos, write_end)``: per-layer
     ``[NB, BS, n_kv, hd]`` pools, a ``[B, mbs]`` int64 block table, the
     write cursor (a ``[B]`` tensor of per-slot cursors for decode, or an
-    int for one slot's chunk) and the exclusive end of VALID new positions
-    (same form). ``k``/``v`` are this call's projections ``[B, S, n_kv,
-    hd]``.
+    int or 0-d tensor for one slot's chunk) and the exclusive end of VALID
+    new positions (same form); no cursor is read on the host. ``k``/``v``
+    are this call's projections ``[B, S, n_kv, hd]``.
 
     Each position p is written to ``(table[b, p // BS], p % BS)``;
     positions at or past ``write_end`` (padded chunk tails) or beyond the
@@ -118,6 +126,43 @@ def _paged_kv_update(kv_cache, k, v):
     return k_view, v_view
 
 
+def _contiguous_kv_update(kv_cache, k, v):
+    """Contiguous-cache write (``generate()``): ``kv_cache`` is ``(k_buf,
+    v_buf, pos)`` with ``[B, M, n_kv, hd]`` buffers, each batch row owning
+    one row, and ``pos`` an int, a 0-d tensor (one cursor for the batch)
+    or a ``[B]`` tensor (a cursor per row). This call's ``[B, S, n_kv,
+    hd]`` K/V land in place at ``pos .. pos + S``; the buffers come back
+    whole, and the caller's causal mask hides what lies past a query."""
+    k_buf, v_buf, pos = kv_cache
+    b, s = k.shape[:2]
+    ar = torch.arange(s, device=k.device)
+    if torch.is_tensor(pos) and pos.dim() == 1:    # per-row cursors
+        idx = (torch.arange(b, device=k.device)[:, None], pos[:, None] + ar)
+        k_buf.index_put_(idx, k.to(k_buf.dtype))
+        v_buf.index_put_(idx, v.to(v_buf.dtype))
+    else:
+        k_buf.index_copy_(1, pos + ar, k.to(k_buf.dtype))
+        v_buf.index_copy_(1, pos + ar, v.to(v_buf.dtype))
+    return k_buf, v_buf
+
+
+def _kv_update(kv_cache, k, v):
+    """Write this call's K/V into either cache layout and return the
+    ``[B, M, n_kv, hd]`` keys and values to attend, with the cursor:
+    paged ``(pool_k, pool_v, table, pos, write_end)`` or contiguous
+    ``(k_buf, v_buf, pos)``."""
+    if len(kv_cache) == 5:
+        return (*_paged_kv_update(kv_cache, k, v), kv_cache[3])
+    return (*_contiguous_kv_update(kv_cache, k, v), kv_cache[2])
+
+
+def _layer_cache(cache, pos, write_end):
+    """One block's cache argument from a model-level cache entry: a paged
+    ``(pool_k, pool_v, table)`` gains the cursor and the end of valid
+    positions, a contiguous ``(k_buf, v_buf)`` the cursor."""
+    return (*cache, pos, write_end) if len(cache) == 3 else (*cache, pos)
+
+
 class GPTAttention(nn.Module):
     def __init__(self, config: GPTConfig, generator=None):
         super().__init__()
@@ -141,20 +186,16 @@ class GPTAttention(nn.Module):
         return self.out_proj(out)
 
     def _forward_cached(self, x, kv_cache):
-        """Paged KV-cache attention (serving): write this call's K/V at the
-        cursor through the block table and attend each query over every
-        cached position <= its own, softmax in fp32. ``kv_cache`` is
-        ``(pool_k, pool_v, table, pos, write_end)``; see
-        ``_paged_kv_update``."""
-        if len(kv_cache) != 5:
-            raise NotImplementedError(
-                "the contiguous (k_buf, v_buf, pos) cache comes with "
-                "generate() (ROADMAP Queue 1, item 7)")
+        """KV-cache attention (serving and ``generate()``): write this
+        call's K/V at the cursor and attend each query over every cached
+        position <= its own, softmax in fp32. ``kv_cache`` is paged,
+        ``(pool_k, pool_v, table, pos, write_end)`` (``_paged_kv_update``),
+        or contiguous, ``(k_buf, v_buf, pos)``
+        (``_contiguous_kv_update``)."""
         b, s, h = x.shape
         nh, hd = self.num_heads, self.head_dim
         q, k, v = self.qkv_proj(x).reshape(b, s, 3, nh, hd).unbind(2)
-        pos = kv_cache[3]
-        k_buf, v_buf = _paged_kv_update(kv_cache, k, v)
+        k_buf, v_buf, pos = _kv_update(kv_cache, k, v)
         ar = torch.arange(s, device=x.device)
         if torch.is_tensor(pos) and pos.dim() == 1:
             q_pos = (pos[:, None] + ar)[:, None, :, None]
@@ -226,10 +267,11 @@ class GPTModel(nn.Module):
                 write_end=None):
         """Hidden states ``[B, S, hidden]`` after the final LayerNorm.
 
-        With ``kv_caches`` (one ``(pool_k, pool_v, table)`` per block) the
-        blocks run the paged cached attention at ``start_pos`` (an int, or
-        a ``[B]`` tensor of per-row cursors), writing K/V in place below
-        ``write_end`` (default ``start_pos + S``)."""
+        With ``kv_caches`` (one ``(pool_k, pool_v, table)`` per block:
+        paged, or one ``(k_buf, v_buf)``: contiguous) the blocks run the
+        cached attention at ``start_pos`` (an int, a 0-d tensor, or a
+        ``[B]`` tensor of per-row cursors), writing K/V in place (paged:
+        below ``write_end``, default ``start_pos + S``)."""
         cfg = self.config
         b, s = input_ids.shape
         ar = torch.arange(s, device=input_ids.device)
@@ -252,8 +294,8 @@ class GPTModel(nn.Module):
         pos_ids = raw.clamp(max=cfg.max_position_embeddings - 1)
         we = write_end if write_end is not None else p0 + s
         x = self.wte(input_ids) + self.wpe(pos_ids)
-        for block, (pk, pv, table) in zip(self.h, kv_caches):
-            x = block(x, kv_cache=(pk, pv, table, p0, we))
+        for block, cache in zip(self.h, kv_caches):
+            x = block(x, kv_cache=_layer_cache(cache, p0, we))
         return self.ln_f(x)
 
 
@@ -317,6 +359,46 @@ class GPTForCausalLM(nn.Module):
                                      labels[:, 1:])
         return nn.functional.linear(hidden, self.head_weight)
 
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 temperature: float = 1.0, do_sample: bool = False,
+                 top_k: int = 0, eos_token_id=None, seed=None,
+                 max_length=None, use_engine: bool = False):
+        """KV-cache decoding: ``[B, s0 + max_new_tokens]`` int64 token ids
+        on the model's device, the prompt first (the JAX package's
+        ``generate``).
+
+        The prefill writes the prompt's K/V into contiguous ``[B, M, nh,
+        hd]`` buffers (M = ``max_length``, else prompt + new tokens), then
+        one-token steps decode the rest; after its EOS a row emits EOS, and
+        the loop stops once every row has. Greedy by default;
+        ``do_sample=True`` draws from softmax(logits / temperature),
+        optionally cut to the ``top_k`` largest (``_pick_token``);
+        ``seed=None`` draws the sampling seed from the global chain, so
+        ``paddle_tpu_torch.seed`` makes it reproducible. On the card the
+        step is a CUDA graph, captured once per (batch, M, sampling) and
+        replayed. ``use_engine=True`` routes through
+        ``serving.generate_via_engine`` (the paged engine): the same greedy
+        tokens."""
+        cfg = self.config
+        if max_length and max_length > cfg.max_position_embeddings:
+            # the LEARNED position table clamps past its end
+            raise ValueError(
+                f"max_length {max_length} exceeds the learned position "
+                f"table ({cfg.max_position_embeddings}); positions past it "
+                f"would silently clamp")
+        if use_engine:
+            from ..serving.engine import generate_via_engine
+            return generate_via_engine(
+                self, input_ids, max_new_tokens=max_new_tokens,
+                temperature=temperature, do_sample=do_sample, top_k=top_k,
+                eos_token_id=eos_token_id, seed=seed, max_length=max_length)
+        return _generate_with_cache(
+            self, self.gpt, cfg.num_layers, cfg.num_heads,
+            cfg.hidden_size // cfg.num_heads, cfg.max_position_embeddings,
+            input_ids=input_ids, max_new_tokens=max_new_tokens,
+            temperature=temperature, do_sample=do_sample, top_k=top_k,
+            eos_token_id=eos_token_id, seed=seed, max_length=max_length)
+
 
 def _lm_head_ce(hidden, weight, labels, bias=None, ignore_index: int = -100):
     """LM head + next-token cross-entropy (the JAX package's
@@ -350,7 +432,177 @@ def _lm_head_logits(hidden_last, head_weight):
     return hidden_last.float() @ head_weight.float().T
 
 
-def _pick_token(logits):
-    """Greedy pick over ``[B, V]`` logits (the first maximum, as
-    ``jnp.argmax``). Sampling is not ported yet."""
-    return torch.argmax(logits, dim=-1)
+def _pick_token(logits, key=None, do_sample: bool = False,
+                temperature: float = 1.0, top_k: int = 0):
+    """Greedy argmax or a temperature + top-k categorical draw over ``[B,
+    V]`` fp32 logits: the JAX package's ``_pick_token``, shared by the
+    engine and ``generate()``.
+
+    Greedy is the first maximum (as ``jnp.argmax``) and reads no key.
+    Sampling scales to ``lg = logits / max(temperature, 1e-6)``, masks
+    ``lg < kth`` to -1e30 where ``kth`` is the ``top_k``-th largest value
+    (every logit equal to it is kept: the JAX tie rule; ``top_k`` of 0 or
+    at least V keeps all), and takes the Gumbel-max draw (what
+    ``jax.random.categorical`` computes): ``argmax(lg + g)`` with ``g =
+    -log(-log(u))``, ``u`` from ``philox.sample_uniform`` under ``key``,
+    an int64 tensor ``(seed, step)`` on the logits' device, row b drawing
+    from Philox row b. The same key gives the same draw on the card and on
+    the CPU; the key is data, so a captured program draws under whatever
+    seed and step it holds at replay."""
+    if not do_sample:
+        return torch.argmax(logits, dim=-1)
+    lg = logits / max(float(temperature), 1e-6)
+    v = lg.shape[-1]
+    if 0 < top_k < v:
+        # the value of the k-th largest (topk's values are sort's): a
+        # threshold, so ties with it stay in
+        kth = torch.topk(lg, int(top_k), dim=-1).values[:, -1:]
+        lg = torch.where(lg < kth, -1e30, lg)
+    u = sample_uniform(key, lg.shape[0], v)
+    g = -torch.log(-torch.log(u))
+    return torch.argmax(lg + g.to(lg.dtype), dim=-1)
+
+
+def _resolve_decode_horizon(s0: int, max_new_tokens: int, max_length,
+                            max_pos: int, seed, do_sample: bool):
+    """The ``generate()`` front door shared by the eager loop and
+    ``serving.generate_via_engine`` (the JAX package's): validate the token
+    budget, size the KV horizon to the decode (``max_length``, else prompt
+    + new tokens capped at the position horizon), and derive the sampling
+    seed. Un-seeded sampling draws the seed from the global chain
+    (``core.random.next_seed``), so ``paddle_tpu_torch.seed`` reproduces
+    it; greedy reads no seed and never advances the chain."""
+    if max_new_tokens < 0:
+        raise ValueError(f"max_new_tokens must be >= 0, got {max_new_tokens}")
+    m = int(max_length or min(s0 + max_new_tokens, max_pos))
+    if s0 + max_new_tokens > m:
+        raise ValueError(f"prompt {s0} + max_new_tokens {max_new_tokens} "
+                         f"exceeds max_length {m}")
+    if seed is None:
+        seed = next_seed() if do_sample else 0
+    return m, _check_seed(seed)
+
+
+def _check_seed(seed) -> int:
+    """A sampling seed as an int: it keys Philox from an int64 tensor, so
+    it must be a non-negative int64."""
+    seed = int(seed)
+    if not 0 <= seed < 1 << 63:
+        raise ValueError(f"seed {seed} is not a non-negative int64")
+    return seed
+
+
+def _as_ids(input_ids, device) -> torch.Tensor:
+    """``[B, S]`` token ids (a tensor, an array or nested lists) as int64
+    on ``device``."""
+    if not torch.is_tensor(input_ids):
+        input_ids = torch.from_numpy(np.asarray(input_ids))
+    ids = input_ids.to(device=device, dtype=torch.int64)
+    if ids.dim() != 2:
+        raise ValueError(f"input_ids must be [batch, seq], got shape "
+                         f"{tuple(ids.shape)}")
+    return ids
+
+
+# generate() programs kept per model: the bound of the JAX package's
+# lm._gen_cache
+GEN_PROGRAMS = 8
+
+
+def _gen_registry(lm) -> ProgramRegistry:
+    """The model's ``generate()`` programs (made at first use, anew when
+    the model moved to another device)."""
+    dev = lm.head_weight.device
+    reg = lm.__dict__.get("_gen_programs")
+    if reg is None or reg.device != dev:
+        reg = ProgramRegistry(dev, partial(serving_mode, lm),
+                              limit=GEN_PROGRAMS)
+        lm._gen_programs = reg
+    return reg
+
+
+class _GenState:
+    """The static buffers of one ``generate()`` step program: per-layer
+    contiguous K/V ``[B, M, n_kv, hd]``, the last token, the cursor, the
+    EOS flags, the sampling key ``(seed, step)``, the EOS id and the
+    output ``[B, M]`` (prompt, then generated tokens at their positions)."""
+
+    def __init__(self, b, m, num_layers, n_kv_heads, head_dim, dtype,
+                 device):
+        def z(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        self.caches = [(z(b, m, n_kv_heads, head_dim, dtype=dtype),
+                        z(b, m, n_kv_heads, head_dim, dtype=dtype))
+                       for _ in range(num_layers)]
+        self.tok, self.pos, self.done = z(b), z(), z(b, dtype=torch.bool)
+        self.key, self.eos, self.out = z(2), z(), z(b, m)
+
+
+def _generate_with_cache(lm, backbone, num_layers: int, n_kv_heads: int,
+                         head_dim: int, max_pos: int, input_ids,
+                         max_new_tokens, temperature, do_sample, top_k,
+                         eos_token_id, seed, max_length):
+    """The cached decode loop shared by GPT and LLaMA (the JAX package's
+    ``_generate_with_cache``): see ``GPTForCausalLM.generate`` for the
+    contract. ``backbone(ids, kv_caches=, start_pos=)`` takes one ``(k_buf,
+    v_buf)`` per block and returns hidden states.
+
+    The prefill runs eagerly (the prompt's shape varies). The one-token
+    step is one program (``core/programs.py``) keyed on ``(B, M,
+    sampling)``, at most ``GEN_PROGRAMS`` of them kept on the model: it
+    reads the last token, the cursor, the key and the EOS flags from its
+    buffers and advances them itself, so the host only replays it, and
+    reads the flags once a step to stop early when an EOS id is given."""
+    head = lm.head_weight
+    ids = _as_ids(input_ids, head.device)
+    b, s0 = ids.shape
+    m, seed = _resolve_decode_horizon(s0, max_new_tokens, max_length,
+                                      max_pos, seed, do_sample)
+    if max_new_tokens == 0:
+        return ids
+    eos = -1 if eos_token_id is None else int(eos_token_id)
+
+    def pick(logits, key):
+        return _pick_token(logits, key, do_sample, temperature, top_k)
+
+    def build():
+        st = _GenState(b, m, num_layers, n_kv_heads, head_dim, head.dtype,
+                       head.device)
+
+        def step():
+            if do_sample:
+                st.key[1:].add_(1)           # this step's draw
+            hidden = backbone(st.tok[:, None], kv_caches=st.caches,
+                              start_pos=st.pos)
+            nxt = pick(_lm_head_logits(hidden[:, -1], head), st.key)
+            nxt = torch.where(st.done, st.eos, nxt)   # finished rows: EOS
+            st.done.logical_or_(nxt == st.eos)
+            st.out.index_copy_(1, (st.pos + 1).reshape(1), nxt[:, None])
+            st.tok.copy_(nxt)
+            st.pos.add_(1)
+        return step, st
+
+    reg = _gen_registry(lm)
+    reg.validate(leaf_addresses(lm))
+    sampling = (float(temperature), int(top_k)) if do_sample else None
+    prog = reg.get((b, m, sampling), build)
+    st = prog.state
+    with serving_mode(lm):
+        for kb, vb in st.caches:
+            kb.zero_()
+            vb.zero_()
+        st.key.copy_(torch.tensor([seed, 0]))
+        hidden = backbone(ids, kv_caches=st.caches, start_pos=0)
+        tok0 = pick(_lm_head_logits(hidden[:, -1], head), st.key)
+        st.out[:, :s0] = ids
+        st.out[:, s0:] = max(eos, 0)
+        st.out[:, s0] = tok0
+        st.tok.copy_(tok0)
+        st.pos.fill_(s0)
+        st.eos.fill_(eos)
+        torch.eq(tok0, eos, out=st.done)
+    for _ in range(max_new_tokens - 1):
+        prog()
+        if eos >= 0 and bool(st.done.all()):
+            break            # every row emitted EOS: the fill is EOS
+    return st.out[:, :s0 + max_new_tokens].clone()

@@ -3,10 +3,11 @@ RoPE + RMSNorm + SwiGLU + grouped-query attention.
 
 Ported so far: the uncached forward (attention through the ``[B, L, H, D]``
 flash kernels on the GPU, forward and backward, with GQA), the loss
-(``LlamaForCausalLM.forward(ids, labels)``) for training, and the
-paged-KV cached forward that ``serving.DecodeEngine`` drives. Recompute,
-``layer_subset``, tensor parallelism and ``generate()`` come later and
-raise naming their ROADMAP item.
+(``LlamaForCausalLM.forward(ids, labels)``) for training, the cached
+forward over a paged KV pool (``serving.DecodeEngine``) or contiguous
+per-row buffers sized by the KV head count, and ``generate()`` (GPT's
+loop, ``gpt._generate_with_cache``). Recompute, ``layer_subset`` and
+tensor parallelism come later and raise naming their ROADMAP item.
 
 ``torch.nn.Linear`` keeps its weight as ``[out, in]`` where the JAX package
 keeps ``[in, out]``; ``convert.py`` transposes between them.
@@ -24,7 +25,8 @@ from ..core.dtype import convert_dtype
 from ..core.random import make_generator
 from ..nn import RMSNorm
 from ..nn import functional as F
-from .gpt import _lm_head_ce, _paged_kv_update
+from .gpt import (_generate_with_cache, _kv_update, _layer_cache,
+                  _lm_head_ce)
 
 __all__ = ["LlamaConfig", "llama_7b", "llama_tiny", "rope", "LlamaAttention",
            "LlamaMLP", "LlamaBlock", "LlamaModel", "LlamaForCausalLM",
@@ -82,14 +84,17 @@ def rope(q, k, pos=None, theta: float = 10000.0):
     """Rotary embedding on q, k ``[B, S, H, D]`` in the interleaved-pair
     form (pairs ``x[..., ::2]``, ``x[..., 1::2]``, not ``rotate_half``),
     computed in fp32 and cast back: the JAX package's ``_rope_fwd``. ``pos``
-    offsets the positions: None (0), a scalar (the chunk starts there), or
-    a ``[B]`` tensor (each serving slot at its own depth)."""
+    offsets the positions: None (0), an int or a 0-d tensor (the chunk
+    starts there), or a ``[B]`` tensor (each serving slot at its own
+    depth). A tensor cursor is never read on the host."""
     s, d = q.shape[1], q.shape[3]
     ar = torch.arange(s, dtype=torch.float32, device=q.device)
     if pos is None:
         p = ar                                            # [S]
     elif torch.is_tensor(pos) and pos.dim() == 1:
         p = pos.to(torch.float32)[:, None] + ar           # [B, S]
+    elif torch.is_tensor(pos):
+        p = pos.to(torch.float32) + ar
     else:
         p = float(pos) + ar
     inv = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
@@ -142,21 +147,19 @@ class LlamaAttention(nn.Module):
         return self.o_proj(out.reshape(b, s, h))
 
     def _forward_cached(self, x, kv_cache):
-        """Paged KV-cache attention (serving): RoPE at the absolute (per-row)
-        positions, this call's K/V written at the cursor through the block
-        table, and each query attending every cached position <= its own
-        with the q heads folded onto their KV head (``bqkgd,bmkd->bkgqm``),
-        softmax in fp32. ``kv_cache`` is ``(pool_k, pool_v, table, pos,
-        write_end)`` over ``[NB, BS, n_kv, hd]`` pools; see
-        ``gpt._paged_kv_update``."""
-        if len(kv_cache) != 5:
-            raise _unported("the contiguous (k_buf, v_buf, pos) cache, which "
-                            "comes with generate(),", "Queue 1, item 7")
+        """KV-cache attention (serving and ``generate()``): RoPE at the
+        absolute (per-row) positions, this call's K/V written at the cursor,
+        and each query attending every cached position <= its own with the
+        q heads folded onto their KV head (``bqkgd,bmkd->bkgqm``), softmax
+        in fp32. ``kv_cache`` is paged, ``(pool_k, pool_v, table, pos,
+        write_end)`` over ``[NB, BS, n_kv, hd]`` pools, or contiguous,
+        ``(k_buf, v_buf, pos)`` over ``[B, M, n_kv, hd]`` buffers; see
+        ``gpt._kv_update``."""
         b, s, h = x.shape
         nkv, hd = self.num_kv, self.head_dim
-        pos = kv_cache[3]
+        pos = kv_cache[3] if len(kv_cache) == 5 else kv_cache[2]
         q, k, v = self._qkv(x, pos)
-        k_buf, v_buf = _paged_kv_update(kv_cache, k, v)
+        k_buf, v_buf, _ = _kv_update(kv_cache, k, v)
         ar = torch.arange(s, device=x.device)
         if torch.is_tensor(pos) and pos.dim() == 1:
             q_pos = (pos[:, None] + ar)[:, None, None, :, None]
@@ -220,10 +223,11 @@ class LlamaModel(nn.Module):
                 write_end=None, layer_subset=None):
         """Hidden states ``[B, S, hidden]`` after the final RMSNorm.
 
-        With ``kv_caches`` (one ``(pool_k, pool_v, table)`` per block) the
-        blocks run the paged cached attention at ``start_pos`` (an int, or
-        a ``[B]`` tensor of per-row cursors), writing K/V in place below
-        ``write_end`` (default ``start_pos + S``)."""
+        With ``kv_caches`` (one ``(pool_k, pool_v, table)`` per block:
+        paged, or one ``(k_buf, v_buf)``: contiguous) the blocks run the
+        cached attention at ``start_pos`` (an int, a 0-d tensor, or a
+        ``[B]`` tensor of per-row cursors), writing K/V in place (paged:
+        below ``write_end``, default ``start_pos + S``)."""
         if layer_subset is not None:
             raise _unported("layer_subset (the early-exit drafter's shallow "
                             "pass)", "Queue 1, item 7")
@@ -235,8 +239,8 @@ class LlamaModel(nn.Module):
         p0 = 0 if start_pos is None else start_pos
         we = write_end if write_end is not None \
             else p0 + input_ids.shape[1]
-        for block, (pk, pv, table) in zip(self.layers, kv_caches):
-            x = block(x, kv_cache=(pk, pv, table, p0, we))
+        for block, cache in zip(self.layers, kv_caches):
+            x = block(x, kv_cache=_layer_cache(cache, p0, we))
         return self.norm(x)
 
 
@@ -300,9 +304,28 @@ class LlamaForCausalLM(nn.Module):
     def enable_recompute(self, granularity="selective", interval: int = 1):
         raise _unported("activation recompute", "Queue 1, item 5")
 
-    def generate(self, *args, **kwargs):
-        raise _unported("generate() (the contiguous-cache decode loop)",
-                        "Queue 1, item 7")
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 temperature: float = 1.0, do_sample: bool = False,
+                 top_k: int = 0, eos_token_id=None, seed=None,
+                 max_length=None, use_engine: bool = False):
+        """KV-cache decoding, GPT's contract (``GPTForCausalLM.generate``):
+        RoPE at the cursor's absolute positions, contiguous K/V buffers
+        ``[B, M, n_kv, hd]`` (GQA: sized by the KV head count), the step a
+        CUDA graph on the card. ``use_engine=True`` routes through
+        ``serving.generate_via_engine``."""
+        cfg = self.config
+        if use_engine:
+            from ..serving.engine import generate_via_engine
+            return generate_via_engine(
+                self, input_ids, max_new_tokens=max_new_tokens,
+                temperature=temperature, do_sample=do_sample, top_k=top_k,
+                eos_token_id=eos_token_id, seed=seed, max_length=max_length)
+        return _generate_with_cache(
+            self, self.model, cfg.num_layers, cfg.num_kv_heads,
+            cfg.hidden_size // cfg.num_heads, cfg.max_position_embeddings,
+            input_ids=input_ids, max_new_tokens=max_new_tokens,
+            temperature=temperature, do_sample=do_sample, top_k=top_k,
+            eos_token_id=eos_token_id, seed=seed, max_length=max_length)
 
 
 def shard_llama_tp(model, mesh=None, axis: str = "model"):

@@ -1,47 +1,55 @@
 """Decode engine: block-paged KV cache + continuous batching.
 
 Counterpart of ``paddle_tpu/serving/engine.py`` (``DecodeEngine`` with
-``paged=True`` and a ``prefill_chunk``), over GPT or LLaMA (``_model_spec``).
-The KV pool is per-layer ``[kv_blocks, block_size, n_kv_heads, head_dim]``
-K/V tensors plus a
-``[max_slots, max_blocks_per_slot]`` block table; which physical block
-backs which logical position is table DATA owned by the host-side
+``paged=True``), over GPT or LLaMA (``_model_spec``). The KV pool is
+per-layer ``[kv_blocks, block_size, n_kv_heads, head_dim]`` K/V tensors
+plus a ``[max_slots, max_blocks_per_slot]`` block table; which physical
+block backs which logical position is table DATA owned by the host-side
 ``pager.BlockPager`` (free list, refcounts, shared prefix blocks, the
 persistent prefix LRU, copy-on-write decisions). Each scheduler iteration:
 
 * admits queued requests into free slots, adopting any shared prompt
   prefix (co-resident tenants or parked LRU blocks);
-* advances every in-flight prefill by one ``[1, prefill_chunk]`` chunk;
+* advances every in-flight prefill by one ``[1, sc]`` chunk, where ``sc``
+  is ``prefill_chunk``, or (``prefill_chunk=None``) the smallest of
+  ``prefill_buckets`` that holds the whole prompt;
 * runs one ``[max_slots, 1]`` decode step over every slot (a slot that is
   not decoding, free or mid-prefill, sits at position 0 behind an
   all-trash table row, so its writes land in trash block 0).
 
-Copy-on-write block copies the pager reports are applied to the pools at
-the start of the next chunk or decode call, before anything reads or
-writes them. Pool pressure preempts the youngest tenant back to the head
-of the queue (recompute on re-admission), and a slot whose logits go
-non-finite fails alone.
-
-The steps are eager PyTorch calls; the JAX package's AOT executables and
-its ``compile_count`` sentinel map to CUDA-graph capture in a later PR.
-The pools are updated in place.
+The chunk and decode steps are fixed-shape programs (``core/programs.py``:
+one per kind and shape, a CUDA graph captured at its first call on the
+card, the eager step on the CPU), and ``compile_count`` counts the
+programs built: flat in steady state. Every input that changes per call
+is data in a program's static buffers: token ids, the table, cursors,
+the end of valid positions, the copy-on-write pairs the pager reports
+(applied inside the program before anything reads or writes the pools,
+as ``max_slots`` (src, dst) pairs padded with (0, 0) trash no-ops) and,
+when sampling, the key ``(seed, step)`` whose step the program advances
+itself. The pools are updated in place. Pool pressure preempts the
+youngest tenant back to the head of the queue (recompute on
+re-admission), and a slot whose logits go non-finite fails alone.
 """
 from __future__ import annotations
 
 import itertools
 import time
-from contextlib import contextmanager
+from functools import partial
 from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..models.gpt import _lm_head_logits, _pick_token
+from ..core.programs import (ProgramRegistry, StagedInputs, leaf_addresses,
+                             serving_mode)
+from ..models.gpt import (_as_ids, _check_seed, _lm_head_logits,
+                          _pick_token, _resolve_decode_horizon)
 from .pager import TRASH_BLOCK, BlockPager
 from .scheduler import (TERMINAL_STATUSES, AdmissionQueue, Request,
                         SlotAllocator)
 
-__all__ = ["DecodeEngine", "Request", "TERMINAL_STATUSES"]
+__all__ = ["DecodeEngine", "Request", "TERMINAL_STATUSES",
+           "generate_via_engine"]
 
 
 class ModelSpec(NamedTuple):
@@ -95,22 +103,38 @@ class _PrefillState:
         self.chunks = 0
 
 
+class _Step(NamedTuple):
+    """The static buffers of one program: its staged int64 inputs and its
+    int64 output (``[2, B]``: the picked tokens and the finite-logits
+    flags)."""
+    inputs: StagedInputs
+    out: torch.Tensor
+
+
 class DecodeEngine:
     """Paged serving engine over one ``GPTForCausalLM`` or
     ``LlamaForCausalLM``.
 
     Knobs:
-      max_slots      batch rows of the decode step (concurrent requests)
-      max_len        per-slot KV horizon; prompt + new tokens must fit
-      block_size     tokens per KV block
-      kv_blocks      physical pool size incl. the reserved trash block;
-                     default max_slots*ceil(max_len/block_size)+1 — set it
-                     SMALLER to oversubscribe (prefix sharing and
-                     preemption make that safe)
-      prefill_chunk  at most this many prompt tokens run per scheduler
-                     iteration, through one ``[1, prefill_chunk]`` call
-      max_queue      admission-queue bound; a full queue answers
-                     ``rejected_overload`` (None: unbounded)
+      max_slots        batch rows of the decode step (concurrent requests)
+      max_len          per-slot KV horizon; prompt + new tokens must fit
+      block_size       tokens per KV block
+      kv_blocks        physical pool size incl. the reserved trash block;
+                       default max_slots*ceil(max_len/block_size)+1 — set
+                       it SMALLER to oversubscribe (prefix sharing and
+                       preemption make that safe)
+      prefill_chunk    at most this many prompt tokens run per scheduler
+                       iteration, through one ``[1, prefill_chunk]`` call;
+                       None: each prompt prefills in one call of the
+                       smallest bucket that holds it whole
+      prefill_buckets  the chunk widths of ``prefill_chunk=None`` (default
+                       8, 16, 32, ... below max_len, then max_len); a
+                       longer prompt fails at submit
+      max_queue        admission-queue bound; a full queue answers
+                       ``rejected_overload`` (None: unbounded)
+      do_sample, temperature, top_k, seed
+                       the sampling config, static per engine (greedy by
+                       default); the key stream advances once per call
 
     The JAX engine's other knobs raise ``NotImplementedError`` naming the
     ROADMAP item that ports them.
@@ -122,17 +146,13 @@ class DecodeEngine:
                  prefill_chunk: Optional[int] = None,
                  prefill_buckets=None, max_queue: Optional[int] = 1024,
                  quantize: Optional[str] = None, do_sample: bool = False,
+                 temperature: float = 1.0, top_k: int = 0, seed: int = 0,
                  hang_s: Optional[float] = None, fault_schedule=None,
                  drafter=None, kv_pool=None):
         if not paged:
             _not_ported("the row cache (paged=False)", "Queue 1, item 7")
-        if prefill_chunk is None or prefill_buckets is not None:
-            _not_ported("monolithic bucketed prefill (pass prefill_chunk)",
-                        "Queue 1, item 7")
         if quantize is not None:
             _not_ported("int8 weight quantization", "Queue 1, item 7")
-        if do_sample:
-            _not_ported("sampling (do_sample)", "Queue 1, item 7")
         if drafter is not None:
             _not_ported("speculative decoding (drafter)", "Queue 1, item 7")
         if kv_pool is not None:
@@ -154,6 +174,7 @@ class DecodeEngine:
         spec = _model_spec(model)
         self.model = model
         self.backbone = spec.backbone
+        self._leaves = list(model.parameters())
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
         self.block_size = int(min(block_size, self.max_len))
@@ -165,18 +186,44 @@ class DecodeEngine:
                 f"kv_blocks {kv_blocks} cannot back even one full slot "
                 f"({self._mbs} blocks + trash)")
         self.kv_blocks = int(kv_blocks)
-        if not 1 <= int(prefill_chunk) <= self.max_len:
+        if prefill_chunk is not None \
+                and not 1 <= int(prefill_chunk) <= self.max_len:
             raise ValueError(f"prefill_chunk must lie in [1, max_len="
                              f"{self.max_len}], got {prefill_chunk}")
-        self.prefill_chunk = int(prefill_chunk)
+        self.prefill_chunk = None if prefill_chunk is None \
+            else int(prefill_chunk)
+        if prefill_buckets is None:
+            buckets, width = [], 8
+            while width < self.max_len:
+                buckets.append(width)
+                width *= 2
+            buckets.append(self.max_len)
+        else:
+            buckets = [int(w) for w in prefill_buckets]
+            if any(w < 1 or w > self.max_len for w in buckets):
+                raise ValueError(f"prefill_buckets must lie in "
+                                 f"[1, max_len={self.max_len}]: {buckets}")
+        self.prefill_buckets = sorted(set(buckets))
+        self._do_sample = bool(do_sample)
+        self._temperature = float(temperature)
+        self._top_k = int(top_k)
         head = model.head_weight
         self.device = head.device
-        self._pools = [
-            tuple(torch.zeros(self.kv_blocks, self.block_size,
-                              spec.num_kv_heads, spec.head_dim,
-                              dtype=head.dtype, device=self.device)
-                  for _ in range(2))
-            for _ in range(spec.num_layers)]
+        # the sampling key (seed, step): device data every sampling
+        # program reads and advances by one
+        self._key = torch.tensor([_check_seed(seed), 0], dtype=torch.int64,
+                                 device=self.device)
+        # every layer's K and V pool in one tensor, so a program copies
+        # the copy-on-write blocks of all of them in one gather and one
+        # scatter; _pools[l] = (K, V) of layer l, contiguous views
+        self._kv = torch.zeros(spec.num_layers, 2, self.kv_blocks,
+                               self.block_size, spec.num_kv_heads,
+                               spec.head_dim, dtype=head.dtype,
+                               device=self.device)
+        self._pools = [(kv[0], kv[1]) for kv in self._kv]
+        # programs run and capture in eval mode with autograd off
+        self._programs = ProgramRegistry(self.device,
+                                         partial(serving_mode, model))
         self._pager = BlockPager(self.kv_blocks, self.block_size,
                                  self.max_slots, self._mbs)
         # in-flight chunked prefills: slot -> _PrefillState
@@ -201,75 +248,139 @@ class DecodeEngine:
         self.nan_logits = 0
         self.cancelled = 0
 
+    @property
+    def compile_count(self) -> int:
+        """Programs built (the serving recompile sentinel): one per kind
+        and shape, and again after the parameters' storage changed."""
+        return self._programs.count
+
+    def _reseed(self, seed: int):
+        """Restart the key stream at ``(seed, 0)`` and, when the engine is
+        idle, the slot order and the prefix cache with it: a draw is per
+        batch row, so the same requests reproduce only in the same slots
+        (the JAX package's reuse of a sampling engine), and a prefix-cache
+        hit would change how many chunk calls, and so which keys, a
+        request takes. Nothing is rebuilt."""
+        self._key.copy_(torch.tensor([_check_seed(seed), 0]))
+        if not self.active_count and not self._queue:
+            self._slots = SlotAllocator(self.max_slots)
+            self._pager.drop_prefix_cache()
+
     # -------------------------------------------------------- device calls
 
-    @contextmanager
-    def _serving_mode(self):
-        """Every module in eval mode and autograd off for the call, then
-        each module's OWN training flag restored: an engine must not flip a
-        training model's mode as a side effect."""
-        mods = list(self.model.modules())
-        saved = [m.training for m in mods]
-        for m in mods:
-            m.training = False
-        try:
-            with torch.no_grad():
-                yield
-        finally:
-            for m, flag in zip(mods, saved):
-                m.training = flag
+    def _pick(self, logits):
+        """The token of each row (``_pick_token`` under the engine's
+        sampling config); a sampling pick advances the key's step."""
+        if not self._do_sample:
+            return _pick_token(logits)
+        tok = _pick_token(logits, self._key, True, self._temperature,
+                          self._top_k)
+        self._key[1:].add_(1)
+        return tok
 
-    def _to_dev(self, arr) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(arr), dtype=torch.int64,
-                               device=self.device)
+    def _apply_cow(self, src, dst):
+        """Apply copy-on-write block copies inside a program, ``pools[l][
+        dst[i]] = pools[l][src[i]]`` for every layer's K and V before the
+        call reads or writes anything. ``src``/``dst`` are ``[max_slots]``
+        device tensors padded with (0, 0) trash-to-trash no-ops."""
+        self._kv.index_copy_(2, dst, self._kv.index_select(2, src))
 
-    def _apply_cow(self, copies):
-        """Apply the pager's pending copy-on-write block copies,
-        ``pools[l][dst] = pools[l][src]`` for every layer, before the call
-        reads or writes anything."""
-        if not copies:
-            return
-        src = self._to_dev([s for s, _ in copies])
-        dst = self._to_dev([d for _, d in copies])
-        for pool in itertools.chain.from_iterable(self._pools):
-            pool.index_copy_(0, dst, pool.index_select(0, src))
+    def _stage_cow(self, inputs: StagedInputs, copies):
+        """The pager's (src, dst) pairs into a program's ``cow`` input,
+        padded with (0, 0); more than ``max_slots`` pairs raise (a copy is
+        never dropped)."""
+        if len(copies) > self.max_slots:
+            raise RuntimeError(f"{len(copies)} copy-on-write pairs exceed "
+                               f"the program's {self.max_slots}")
+        cow = inputs.host["cow"]
+        cow.fill(0)
+        for i, (src, dst) in enumerate(copies):
+            cow[0, i], cow[1, i] = src, dst
+
+    def _program(self, key, build):
+        """The program under ``key``, rebuilt (and counted) when a
+        parameter's storage moved since the programs were captured."""
+        self._programs.validate(leaf_addresses(self.model))
+        return self._programs.get(key, build)
+
+    def _build_chunk(self, sc: int):
+        """Paged prefill chunk ``[1, sc]``: ``ids`` of ONE slot through its
+        table ``row`` at absolute start ``p0``, K/V written below ``end``
+        (the padded tail goes to trash), the token picked from hidden
+        position ``end - p0 - 1`` by a device index."""
+        inputs = StagedInputs(self.device, ids=(1, sc), row=(1, self._mbs),
+                              p0=(), end=(), cow=(2, self.max_slots))
+        out = torch.zeros(2, 1, dtype=torch.int64, device=self.device)
+        t = inputs.dev
+
+        def fn():
+            self._apply_cow(t["cow"][0], t["cow"][1])
+            caches = [(pk, pv, t["row"]) for pk, pv in self._pools]
+            hidden = self.backbone(t["ids"], kv_caches=caches,
+                                   start_pos=t["p0"], write_end=t["end"])
+            last = (t["end"] - t["p0"] - 1).reshape(1)
+            logits = _lm_head_logits(hidden.index_select(1, last)[:, 0],
+                                     self.model.head_weight)
+            out[0].copy_(self._pick(logits))
+            out[1].copy_(torch.isfinite(logits).all())
+        return fn, _Step(inputs, out)
+
+    def _build_decode(self):
+        """One token for every slot: ``[max_slots, 1]`` at each row's own
+        cursor through the (trash-masked) table."""
+        s = self.max_slots
+        inputs = StagedInputs(self.device, tok=(s,), pos=(s,),
+                              table=(s, self._mbs), cow=(2, s))
+        out = torch.zeros(2, s, dtype=torch.int64, device=self.device)
+        t = inputs.dev
+
+        def fn():
+            self._apply_cow(t["cow"][0], t["cow"][1])
+            caches = [(pk, pv, t["table"]) for pk, pv in self._pools]
+            hidden = self.backbone(t["tok"][:, None], kv_caches=caches,
+                                   start_pos=t["pos"])
+            logits = _lm_head_logits(hidden[:, -1], self.model.head_weight)
+            out[0].copy_(self._pick(logits))
+            out[1].copy_(torch.isfinite(logits).all(dim=-1))
+        return fn, _Step(inputs, out)
 
     def _chunk_call(self, copies, slot: int, ids, p0: int, end: int):
         """Run one prefill chunk of ``slot`` at absolute start ``p0``:
-        ``ids`` is ``[1, prefill_chunk]`` (padded past ``end``, the
-        exclusive end of valid tokens, whose writes go to trash). Returns
-        (token picked at the last valid position, finite-logits flag)."""
-        with self._serving_mode():
-            self._apply_cow(copies)
-            row = self._to_dev(self._pager.tables[slot:slot + 1])
-            caches = [(pk, pv, row) for pk, pv in self._pools]
-            hidden = self.backbone(self._to_dev(ids), kv_caches=caches,
-                                   start_pos=p0, write_end=end)
-            logits = _lm_head_logits(hidden[:, end - p0 - 1],
-                                     self.model.head_weight)
-            tok = _pick_token(logits)[0]
-            ok = torch.isfinite(logits).all()
-            return int(tok), bool(ok)
+        ``ids`` is ``[1, sc]`` (padded past ``end``, the exclusive end of
+        valid tokens, whose writes go to trash). Returns (token picked at
+        the last valid position, finite-logits flag)."""
+        sc = ids.shape[1]
+        prog = self._program(("chunk", sc), lambda: self._build_chunk(sc))
+        inputs, out = prog.state
+        host = inputs.host
+        host["ids"][:] = ids
+        host["row"][:] = self._pager.tables[slot:slot + 1]
+        host["p0"][...] = p0
+        host["end"][...] = end
+        self._stage_cow(inputs, copies)
+        inputs.upload()
+        prog()
+        tok, ok = out.cpu().numpy()[:, 0]
+        return int(tok), bool(ok)
 
     def _decode_call(self, copies):
-        """One token for every slot: ``[max_slots, 1]`` at each row's own
-        cursor. Returns (picked tokens, per-slot finite-logits flags) as
-        numpy arrays."""
-        with self._serving_mode():
-            self._apply_cow(copies)
-            # only live rows may write: a slot mid-prefill is not live, sits
-            # at position 0 and already owns blocks (perhaps a shared prefix
-            # block), so its row reads and writes the trash block instead
-            table = self._to_dev(np.where(self._live[:, None],
-                                          self._pager.tables, TRASH_BLOCK))
-            pos = self._to_dev(self._pos)
-            caches = [(pk, pv, table) for pk, pv in self._pools]
-            hidden = self.backbone(self._to_dev(self._tok)[:, None],
-                                   kv_caches=caches, start_pos=pos)
-            logits = _lm_head_logits(hidden[:, -1], self.model.head_weight)
-            nxt = _pick_token(logits)
-            ok = torch.isfinite(logits).all(dim=-1)
-            return nxt.cpu().numpy(), ok.cpu().numpy()
+        """One token for every slot. Returns (picked tokens, per-slot
+        finite-logits flags) as numpy arrays."""
+        prog = self._program(("decode",), self._build_decode)
+        inputs, out = prog.state
+        host = inputs.host
+        host["tok"][:] = self._tok
+        host["pos"][:] = self._pos
+        # only live rows may write: a slot mid-prefill is not live, sits
+        # at position 0 and already owns blocks (perhaps a shared prefix
+        # block), so its row reads and writes the trash block instead
+        host["table"][:] = np.where(self._live[:, None], self._pager.tables,
+                                    TRASH_BLOCK)
+        self._stage_cow(inputs, copies)
+        inputs.upload()
+        prog()
+        nxt, ok = out.cpu().numpy()
+        return nxt, ok.astype(bool)
 
     # ------------------------------------------------------------ requests
 
@@ -302,11 +413,29 @@ class DecodeEngine:
         elif need > self._pager.usable_blocks:
             self._reject(req, f"request needs {need} KV blocks, pool holds "
                               f"{self._pager.usable_blocks}")
+        elif self.prefill_chunk is None and self._bucket_for(n) is None:
+            self._reject(req, f"prompt length {n} exceeds the largest "
+                              f"prefill bucket ({self.prefill_buckets[-1]})")
         elif not self._queue.push(req):
             req.status, req.error = "rejected_overload", \
                 f"admission queue full ({self._queue.max_queue})"
             req.t_done = time.time()
         return req
+
+    def _bucket_for(self, n: int) -> Optional[int]:
+        """The smallest prefill bucket that holds ``n`` tokens (None: no
+        bucket does)."""
+        for width in self.prefill_buckets:
+            if width >= n:
+                return width
+        return None
+
+    def _chunk_len(self, n: int) -> int:
+        """Width of the chunk program serving a length-``n`` prompt: the
+        fixed ``prefill_chunk``, else the bucket of the whole prompt, sized
+        as if unshared, so prefix sharing never changes which program
+        runs."""
+        return self.prefill_chunk or self._bucket_for(n)
 
     def _reject(self, req: Request, why: str):
         req.status, req.error, req.t_done = "failed", why, time.time()
@@ -328,8 +457,8 @@ class DecodeEngine:
 
     def step(self) -> List[Request]:
         """ONE iteration of continuous batching: fold queued prompts into
-        free slots, advance every in-flight prefill by at most
-        ``prefill_chunk`` tokens, then decode every live slot one token.
+        free slots, advance every in-flight prefill by one chunk, then
+        decode every live slot one token.
         Returns every request that reached a terminal status since the
         last step."""
         finished: List[Request] = list(self._terminal_buf)
@@ -437,7 +566,7 @@ class DecodeEngine:
         slot = self._slots.alloc()
         ctrs = self._pager.sharing_counters()
         cov = self._pager.share_prefix(slot, req.prompt)
-        end = min(cov + self.prefill_chunk, n)
+        end = min(cov + self._chunk_len(n), n)
         copies = self._pager.ensure_writable(slot, cov, end)
         if copies is None:
             self._pager.release_slot(slot)
@@ -455,7 +584,7 @@ class DecodeEngine:
         batch."""
         st = self._prefilling[slot]
         p0 = st.done
-        sc = self.prefill_chunk
+        sc = self._chunk_len(st.n)
         end = min(p0 + sc, st.n)
         copies, st.pending_copies = st.pending_copies, []
         more = self._ensure_or_evict(slot, p0, end)
@@ -607,6 +736,8 @@ class DecodeEngine:
 
     def stats(self) -> dict:
         return {
+            "compile_count": self.compile_count,
+            "executables": len(self._programs),
             "decode_steps": self.decode_steps,
             "prefill_calls": self.prefill_calls,
             "tokens_generated": self.tokens_generated,
@@ -620,3 +751,73 @@ class DecodeEngine:
                           preemptions=self.preemptions,
                           prefilling=len(self._prefilling)),
         }
+
+
+# generate_via_engine's engine geometry: a constant slot count, and at most
+# this many engines kept on a model
+ENGINE_SLOTS = 8
+ENGINES_KEPT = 4
+
+
+def generate_via_engine(lm, input_ids, max_new_tokens: int = 32,
+                        temperature: float = 1.0, do_sample: bool = False,
+                        top_k: int = 0, eos_token_id=None, seed=None,
+                        max_length=None):
+    """``model.generate(use_engine=True)``: run the batch through a
+    ``DecodeEngine`` and give the ``generate()`` output contract (``[B, s0
+    + max_new_tokens]`` int64 on the model's device, the prompt first, a
+    row that stopped at EOS filled with EOS).
+
+    One engine per key ``(slots, max_len, do_sample, (temperature, top_k),
+    chunk)``: ``max_len`` is the horizon rounded up to a power of two from
+    16 and the chunk ``min(32, max_len)``, so callers of other horizons
+    share an engine and its programs; at most ``ENGINES_KEPT`` engines are
+    kept on the model. A reused sampling engine restarts its key stream
+    and its slot order from ``seed`` without a rebuild, so its
+    ``compile_count`` stays flat. A cached engine whose parameter list no
+    longer matches the model's (a module was swapped) is dropped."""
+    head = lm.head_weight
+    ids = _as_ids(input_ids, head.device)
+    b, s0 = ids.shape
+    max_pos = lm.config.max_position_embeddings
+    m, seed = _resolve_decode_horizon(s0, max_new_tokens, max_length,
+                                      max_pos, seed, do_sample)
+    if max_new_tokens == 0:
+        return ids
+    ml = 16
+    while ml < m:
+        ml *= 2
+    ml = max(min(ml, max_pos), m)
+    chunk = min(32, ml)
+    key = (ENGINE_SLOTS, ml, do_sample,
+           (float(temperature), int(top_k)) if do_sample else None, chunk)
+    engines = lm.__dict__.setdefault("_serving_engines", {})
+    engine = engines.get(key)
+    leaves = list(lm.parameters())
+    if engine is not None and (len(leaves) != len(engine._leaves) or any(
+            a is not c for a, c in zip(leaves, engine._leaves))):
+        del engines[key]
+        engine = None
+    if engine is None:
+        if len(engines) >= ENGINES_KEPT:
+            engines.pop(next(iter(engines)))
+        engine = DecodeEngine(lm, max_slots=ENGINE_SLOTS, max_len=ml,
+                              prefill_chunk=chunk, do_sample=do_sample,
+                              temperature=temperature, top_k=top_k,
+                              seed=seed)
+        engines[key] = engine
+    elif do_sample:
+        engine._reseed(seed)
+    reqs = [engine.submit(row, max_new_tokens=max_new_tokens,
+                          eos_token_id=eos_token_id)
+            for row in ids.cpu().tolist()]
+    engine.run()
+    eos = -1 if eos_token_id is None else int(eos_token_id)
+    out = np.full((b, s0 + max_new_tokens), max(eos, 0), np.int64)
+    out[:, :s0] = ids.cpu().numpy()
+    for i, req in enumerate(reqs):
+        if req.status != "done":        # validated above: cannot fail
+            raise RuntimeError(f"engine request failed: {req.error}")
+        toks = req.output_tokens
+        out[i, s0:s0 + len(toks)] = toks   # an EOS-stopped tail keeps EOS
+    return torch.from_numpy(out).to(head.device)

@@ -3,8 +3,11 @@ in fp32 on the CPU: on the same tiny weights and the same submit/step
 schedule the port's engine must give each request the greedy tokens of
 the JAX model (the argmax of its uncached forward at every generated
 position) and the JAX engine's scheduling decisions, under prefix
-sharing, copy-on-write and pool-pressure preemption, and the two pagers
-must make the same allocation decisions under a seeded random op mix.
+sharing, copy-on-write and pool-pressure preemption, with fixed chunks
+and with whole-prompt buckets (``prefill_chunk=None``, where the tokens
+are the JAX engine's too); ``compile_count`` (the programs built, CUDA
+graphs on the card) stays flat under slot churn; and the two pagers must
+make the same allocation decisions under a seeded random op mix.
 
 The tokens are held to the JAX model rather than to the JAX engine: the
 JAX engine's decode step writes every non-decoding row at position 0
@@ -135,6 +138,107 @@ def test_engine_greedy_parity_with_jax(models, kind, kv_blocks):
         assert tst["preemptions"] > 0
 
 
+@pytest.mark.parametrize("kind,kv_blocks", [("sharing", None),
+                                            ("preemption", 9)])
+def test_bucketed_engine_parity_with_jax(models, kind, kv_blocks):
+    """prefill_chunk=None: each prompt prefills in one call of its bucket
+    (sized by the whole prompt, shared or not); the port gives the JAX
+    engine's tokens, statuses and scheduling."""
+    jm, tm = models
+    sched = _schedule(kind)
+    geom = dict(GEOM, prefill_chunk=None)
+    jeng = JaxDecodeEngine(jm, kv_blocks=kv_blocks, **geom)
+    teng = DecodeEngine(tm, kv_blocks=kv_blocks, **geom)
+    assert teng.prefill_buckets == jeng.prefill_buckets == [8, 16, 32, 48]
+    jreqs = _drive(jeng, sched, jeng._pager.check_invariants)
+    treqs = _drive(teng, sched, teng.check_invariants)
+    for jr, tr in zip(jreqs, treqs):
+        assert jr.status == tr.status == "done", (jr, tr)
+        assert list(tr.output_tokens) == list(jr.output_tokens), tr.prompt
+        assert list(tr.output_tokens) == greedy_from(jm, tr), tr.prompt
+        assert tr.preemptions == jr.preemptions
+        assert tr.prefill_chunks == jr.prefill_chunks == 1
+    jst, tst = jeng.stats()["paged"], teng.stats()["paged"]
+    for key in ("shared_hits", "shared_tokens", "cow_copies", "prefix_hits",
+                "preemptions"):
+        assert tst[key] == jst[key], key
+    # one program per bucket the prompts reached, and the decode step
+    assert teng.compile_count == jeng.compile_count
+
+
+def test_bucketed_prompt_too_long_fails_alone(models):
+    jm, tm = models
+    eng = DecodeEngine(tm, max_slots=4, max_len=48, block_size=8,
+                       prefill_buckets=[8, 16])
+    rs = np.random.RandomState(3)
+    reqs = [eng.submit(rs.randint(1, 64, n).tolist(), max_new_tokens=6)
+            for n in (5, 20, 12)]
+    assert reqs[1].status == "failed" and "prefill bucket" in reqs[1].error
+    eng.run()
+    for req in (reqs[0], reqs[2]):
+        assert req.status == "done"
+        assert list(req.output_tokens) == greedy_from(jm, req)
+    assert eng.compile_count == 3           # buckets 8 and 16, decode
+
+
+@pytest.mark.parametrize("chunk", [None, 4])
+def test_zero_recompile_under_slot_churn(models, chunk):
+    """The JAX gate: once the programs are built, a decode window with
+    staggered admissions and evictions of varying prompt lengths and
+    token budgets builds nothing new."""
+    _, tm = models
+    eng = DecodeEngine(tm, max_slots=4, max_len=48, prefill_buckets=[8],
+                       prefill_chunk=chunk)
+    eng.submit([1, 2, 3], max_new_tokens=2)     # builds the chunk + decode
+    eng.run()
+    base = eng.compile_count
+    assert base == 2 == eng.stats()["compile_count"]
+    rng = np.random.RandomState(0)
+    reqs = []
+    for _ in range(10):          # staggered arrivals: submit-then-step
+        reqs.append(eng.submit(rng.randint(1, 64, rng.randint(2, 8)).tolist(),
+                               max_new_tokens=int(rng.randint(2, 7))))
+        eng.step()
+    eng.run()
+    assert all(r.status == "done" for r in reqs)
+    assert eng.compile_count == base, \
+        f"steady-state decode rebuilt {eng.compile_count - base} programs"
+    assert eng.live_count == 0 and eng.queue_depth == 0
+
+
+def test_new_parameter_storage_rebuilds_programs(models):
+    """A parameter given new storage rebuilds (and counts) the programs
+    it reads at their next call; an in-place update does not."""
+    jm, tm = models
+    eng = DecodeEngine(tm, **GEOM)
+    req = eng.submit(list(range(1, 7)), max_new_tokens=12)
+    for _ in range(3):
+        eng.step()
+    assert eng.compile_count == 2
+    with torch.no_grad():
+        tm.gpt.ln_f.weight.mul_(1.0)
+    eng.step()
+    assert eng.compile_count == 2
+    old = tm.gpt.ln_f.weight.data
+    try:
+        tm.gpt.ln_f.weight.data = old.clone()
+        eng.step()
+        assert eng.compile_count == 3       # the decode program, once
+        eng.run()
+    finally:
+        tm.gpt.ln_f.weight.data = old
+    assert req.status == "done"
+    assert list(req.output_tokens) == greedy_from(jm, req)
+
+
+def test_copy_on_write_pairs_beyond_the_program_raise(models):
+    _, tm = models
+    eng = DecodeEngine(tm, **GEOM)
+    ids = np.zeros((1, 8), np.int64)
+    with pytest.raises(RuntimeError, match="copy-on-write"):
+        eng._chunk_call([(1, 2)] * (GEOM["max_slots"] + 1), 0, ids, 0, 4)
+
+
 def test_decode_leaves_prefilling_blocks_alone(models):
     """A decode step beside a slot that is mid-prefill (not live, at
     position 0, but owning blocks) writes nothing into that slot's blocks:
@@ -182,8 +286,7 @@ def test_engine_cancel_and_nonfinite_logits(models):
     eng.check_invariants()
 
 
-@pytest.mark.parametrize("knob", [dict(paged=False), dict(prefill_chunk=None),
-                                  dict(quantize="int8"), dict(do_sample=True),
+@pytest.mark.parametrize("knob", [dict(paged=False), dict(quantize="int8"),
                                   dict(drafter=object()),
                                   dict(kv_pool=object()), dict(hang_s=1.0)])
 def test_engine_unported_knobs_raise(models, knob):
