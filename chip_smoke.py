@@ -17,8 +17,8 @@ backwards against the parent commit's wrappers and kernels
 (``[parent-fwd]``, ``[parent-bwd]``: an unpacked ``git archive`` of it in
 ``smoke_checkout/parent/`` or ``PARENT_TREE``; without one the phases say
 so), in turns, and fails a case only beyond the timing noise (a body
-redesigned by the change also below its asked speed-up, ``FWD_SPEEDUP``:
-the fp32 forward up to 256 at least 4x its parent's SIMT body),
+redesigned by the change also below its asked speed-up, ``FWD_SPEEDUP``
+and ``BWD_SPEEDUP``: none in this tree),
 beside sdpa and the bound; it holds each kernel against its plain PyTorch
 version at
 the shapes the main paths give it and at every head size the kernels are
@@ -48,7 +48,18 @@ the user entry points, random weights from a seed:
   ([engine-sample]: a seed reproduces, another differs, top_k 1 is
   greedy) and ``generate()`` at 8 x 128 + 64 ([generate]: eager then
   graphed, identical), both held to the uncached forward; the scoring
-  time and a profiled serving run, eager and graphed;
+  time and a profiled serving run, eager and graphed; then the engine's
+  other modes on the same requests: the row cache (``paged=False``,
+  buckets 64 and 128: [engine-row], eager then graphed, compile_count 3),
+  speculative decoding with the three drafters of ``bench.py decode
+  --spec`` (prompt lookup; a draft GPT of 4 blocks at hidden 512; early
+  exit through every other block; window 64, k 4: [engine-spec-*],
+  tokens identical to [engine-graph]'s or, where they first differ, a
+  near-tie, then held to the uncached forward), the drafters' programs
+  against their plain attention with the flash launches counted inside
+  the replays ([draft-kernel-*]), int8 weight-only serving
+  ([engine-int8], the model's Linear layers swapped in place) and
+  ``Int8Linear`` on the card against the CPU ([int8-linear]);
 * GPT-medium training: ``TrainStep`` + ``AdamW(1e-4, wd 0.01,
   multi_precision=True)`` at the ``bench.py`` train geometry (batch 16 x
   seq 1024, dropout 0 as ``bench.py`` builds it), 1 warm-up and 6 timed
@@ -73,8 +84,12 @@ the user entry points, random weights from a seed:
   uncached forward, the same requests graphed ([llama-engine-graph], as
   [engine-graph]), ``generate()`` at 2 x 128 + 32 ([llama-generate]) held
   to the uncached forward, a profiled graphed serving run, the scoring
-  time, and the graphed engine run and cross-check in fp32 at 2 blocks
-  with GQA (32 q heads on 8 KV heads), where the tokens must agree;
+  time, the row cache and the early-exit drafter (16 of the 32 blocks
+  draft: [llama-engine-row], [llama-engine-spec], [draft-kernel-llama]),
+  and the graphed engine run and cross-check in fp32 at 2 blocks
+  with GQA (32 q heads on 8 KV heads), where the tokens must agree, with
+  the early-exit drafter too ([llama-engine-spec-fp32]: identical tokens
+  but at a near-tie of 1e-4);
 * LLaMA-7B training at full width and 4 blocks (32 would not fit: 16 bytes
   a parameter), batch 4 x seq 2048, the recipe of GPT's, 1 warm-up and 4
   timed steps, a profiled step, the same steps with attention in its plain
@@ -82,7 +97,11 @@ the user entry points, random weights from a seed:
   CPU path.
 
 Each path is driven with the launch counts set to 0 just before it and
-read just after; a kernel its path never launched fails the run. TF32 is
+read just after; a kernel its path never launched fails the run. A
+drafter's program runs its kernels inside a CUDA graph, whose replays the
+wrappers do not count: a speculative path counts the launches the device
+ran, blocks x the program's calls (``_replayed``; [draft-kernel-*] checks
+that number a replay against the profiler's kernel names). TF32 is
 off for matrix products and cuDNN (``allow_tf32 = False``), so fp32 on the
 card is fp32. Every phase raises on failure; the script exits non-zero and
 prints no result line unless all of them pass. Needs CUDA (exits non-zero
@@ -92,7 +111,8 @@ The second line from the end is the ``kernels`` JSON: per kernel, its
 launches on the main paths, its error against the plain version, its time,
 the plain version's time, the least time the card could take (bound) and
 the time of one PyTorch call computing the same function (library_ms, a
-yardstick only; the port never calls it). The last line is ``{"ok": true,
+yardstick only; the port never calls it); rows 1 and 4 again at the
+drafters' windows. The last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -586,13 +606,9 @@ PARENT_FWD_CASES = [
     ("f32-bert-flat", "flat", 2, 512, 12, 12, 64, False, 0.1, True, 10,
      FP32)]
 # the speed-ups over the parent's bodies a redesigned forward must show
-# (``_judge_parent``): the fp32 body up to 256 at least 4x the parent's
-# SIMT body at [2, 1024, 8/2, 128], and faster than it beyond the noise at
-# its other cases
-FWD_SPEEDUP = {"f32-128": 4.0}
-FWD_SPEEDUP.update({tag: "noise" for tag in (
-    "f32-64", "f32-80", "f32-96", "f32-256", "f32-pair-128",
-    "f32-bert-pair", "f32-bert-flat")})
+# (``_judge_parent``): none (every forward body is the parent's design;
+# each case must be no slower than the parent's beyond the noise)
+FWD_SPEEDUP = {}
 
 
 def phase_parent_fwd(parent, noise):
@@ -1016,7 +1032,7 @@ def _serve(eng, prompts, new_tokens):
     t0 = time.perf_counter()
     reqs = [eng.submit(prompts[0], max_new_tokens=new_tokens[0])]
     steps = 0
-    while reqs[0].status != "running":
+    while reqs[0].status in ("queued", "prefilling"):
         eng.step()
         eng.check_invariants()
         steps += 1
@@ -1102,7 +1118,7 @@ def phase_engine_graph(model, eager_reqs, eager, requests=_gpt_requests,
         f"capture included), 0 captures in the drain; peak memory "
         f"{peak:.2f} GB (eager {eager['peak']:.2f}), reserved "
         f"{reserved:.2f} GB (eager {eager['reserved']:.2f})")
-    return reqs
+    return reqs, dict(rate=rate, peak=peak, reserved=reserved)
 
 
 def phase_engine_buckets(model):
@@ -2429,12 +2445,14 @@ def phase_llama_engine_fp32():
     width with 2 blocks and GQA (32 q heads on 8 KV heads) in fp32, the
     requests of [llama-engine] through captured steps, then
     [llama-crosscheck] at the fp32 limits (the argmax agrees at >= 0.99
-    of positions)."""
+    of positions). Returns the model, the requests and their record
+    ([llama-engine-spec-fp32]'s reference)."""
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b
     model = LlamaForCausalLM(llama_7b(num_layers=2, num_kv_heads=8),
                              seed=16).eval()
-    reqs, _ = phase_llama_engine(model, tag="[llama-engine-fp32]")
+    reqs, record = phase_llama_engine(model, tag="[llama-engine-fp32]")
     phase_llama_crosscheck(model, reqs, tag="[llama-crosscheck-fp32]")
+    return model, reqs, record
 
 
 def phase_llama_scoring_time(model, ids):
@@ -3850,6 +3868,595 @@ def phase_bert_pad_full():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The serving engine's other modes: the row cache, speculative
+# decoding with its three drafters, int8 weight-only serving.
+
+# bench.py decode's row-cache lane at this geometry: [64] would reject its
+# own 65-128-token prompts, so the buckets are 64 and 128
+ROW_ENGINE = dict(max_slots=16, max_len=256, paged=False,
+                  prefill_buckets=[64, 128])
+# bench.py decode --spec=draft_model's draft: a quarter of the blocks, half
+# the width and half the heads of the target (GPT-medium: 4 blocks, hidden
+# 512, 4 heads of 128); both model drafters' window is horizon // 4
+DRAFT_GPT = dict(GPT_MEDIUM, hidden_size=512, num_layers=4, num_heads=4)
+DRAFT_CTX = 64
+# the first generated position where a speculative engine's token differs
+# from the non-speculative engine's must be a near-tie: in the uncached
+# forward's logits there, both tokens within this gap of the top. The
+# verify step multiplies [1, vw] rows where decode multiplies [16, 1], so
+# cuBLAS may sum in another order and bf16 may flip a near-tie. GPT: the
+# gap limit of [crosscheck]; LLaMA: CROSSCHECK_GAP; fp32 with TF32 off:
+# 1e-4
+SPEC_TIE_GAP = {"gpt": 0.1, "llama": CROSSCHECK_GAP[BF16], "fp32": 1e-4}
+# [draft-kernel]: the drafter's last-position logits through the kernels
+# against the same forward with attention in its plain versions, largest
+# |difference| over the logits' own largest |value| (bf16 rounds the
+# attention outputs in one and not the other)
+DRAFT_LOGIT_REL_LIMIT = 0.05
+# [engine-int8]: the int8 model's greedy pick at each of [engine]'s
+# generated positions, fed [engine]'s own tokens, agrees with [engine]'s
+# token at this share of them or more. Free-running, the two engines'
+# trajectories part at the first flipped near-tie (random GPT-medium
+# weights have top-1/top-2 gaps of a few thousandths, [crosscheck]), so
+# that share is reported beside it (0.497 in the first reading on an
+# H100, teacher-forced 0.965)
+INT8_AGREE_FLOOR = 0.8
+
+
+def _uncached_logits(model, seq, first):
+    """fp32 logits of the uncached forward over ``seq`` (through the flash
+    kernels; right-padded to their 128-token gate, causal attention so the
+    padding changes nothing before it) at positions ``first`` to the end:
+    ``[len(seq) - first, vocab]``."""
+    from paddle_tpu_torch.models.gpt import _lm_head_logits
+    from paddle_tpu_torch.serving.engine import _model_spec
+    ids = torch.zeros(1, max(128, len(seq)), dtype=torch.long)
+    ids[0, :len(seq)] = torch.tensor(seq)
+    with torch.no_grad():
+        hidden = _model_spec(model).backbone(ids.cuda())
+    return _lm_head_logits(hidden[0, first:len(seq)], model.head_weight)
+
+
+def _forced_logits(model, req):
+    """The uncached forward's logits at each generated position of
+    ``req``, fed ``req``'s own prompt and tokens (teacher-forced)."""
+    return _uncached_logits(model, req.prompt + req.tokens[:-1],
+                            len(req.prompt) - 1)
+
+
+def phase_crosscheck_pooled(model, reqs, tag):
+    """[crosscheck]'s rule over every generated position of every request,
+    pooled: the argmax of the uncached forward agrees with the engine's
+    tokens at >= 0.95 of them, and every disagreement is a near-tie (logit
+    gap <= 0.1). A speculative engine's verify multiplies [1, vw] rows, so
+    its near-ties fall elsewhere than the decode step's, and a request of
+    36 positions would miss a per-request floor of 0.95 on two of them."""
+    agree, total, worst = 0, 0, 0.0
+    for req in reqs:
+        logits = _forced_logits(model, req)
+        want = torch.tensor(req.tokens, device="cuda")
+        top = logits.argmax(dim=-1)
+        agree += int((top == want).sum())
+        total += len(req.tokens)
+        worst = max(worst, (logits.gather(1, top[:, None])
+                            - logits.gather(1, want[:, None])).max().item())
+    log(f"{tag} {total} generated positions of {len(reqs)} requests: "
+        f"argmax agreement {agree / total:.3f} (floor 0.95), largest logit "
+        f"gap at a disagreement {worst:.4f} (limit 0.1)")
+    if agree / total < 0.95 or worst > 0.1:
+        raise AssertionError("engine tokens disagree with the uncached "
+                             "forward beyond bf16 near-ties")
+
+
+def _hold_to_reference(tag, model, reqs, ref_reqs, gap_limit):
+    """``reqs``' tokens against ``ref_reqs``' (the same requests through
+    the non-speculative engine): identical, or, at the first generated
+    position where a request's differ, a near-tie: in the uncached
+    forward's logits after the common prefix both tokens lie within
+    ``gap_limit`` of the top. Returns how many requests differ."""
+    differ = 0
+    for r, e in zip(reqs, ref_reqs):
+        if r.tokens == e.tokens:
+            continue
+        differ += 1
+        i = next(j for j, (a, b) in enumerate(zip(r.tokens, e.tokens))
+                 if a != b)
+        seq = r.prompt + r.tokens[:i]
+        logits = _uncached_logits(model, seq, len(seq) - 1)[0]
+        gap = (logits.max() - torch.minimum(logits[r.tokens[i]],
+                                            logits[e.tokens[i]])).item()
+        log(f"{tag} request {r.id}: differs first at generated position "
+            f"{i} of {len(r.tokens)} ({r.tokens[i]} vs {e.tokens[i]}); "
+            f"uncached logit gap {gap:.4g} (limit {gap_limit})")
+        if gap > gap_limit:
+            raise AssertionError(f"{tag}: tokens differ from the "
+                                 f"non-speculative engine's beyond a "
+                                 f"near-tie")
+    return differ
+
+
+def _warm(eng, vocab, lengths, new=4):
+    """A warm-up request of each prompt length (random ids, seed 99),
+    drained: builds (and, on the card, captures) the programs they use.
+    Returns the requests."""
+    gen = torch.Generator()
+    gen.manual_seed(99)
+    reqs = [eng.submit(torch.randint(0, vocab, (n,), generator=gen)
+                       .tolist(), max_new_tokens=new) for n in lengths]
+    eng.run()
+    torch.cuda.synchronize()
+    return reqs
+
+
+def _all_captured(tag, registry, want):
+    progs = registry._programs
+    if registry.count != want or not all(p.captured for p in progs.values()):
+        raise AssertionError(f"{tag}: {registry.count} programs "
+                             f"({list(progs)}), expected {want} captured")
+
+
+def phase_engine_row(model, ref, requests=_gpt_requests,
+                     tag="[engine-row]"):
+    """paged=False at the bench.py decode geometry (16 slots, max_len 256,
+    buckets 64 and 128): the requests with eager steps, then graphed after
+    a warm-up that builds both buckets' prefills and the decode step
+    (compile_count 3, no capture in the drain), tokens identical to the
+    eager row engine's. Returns the graphed requests."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    prompts, new_tokens = requests()
+    vocab = model.config.vocab_size
+    torch.cuda.empty_cache()
+    eng = DecodeEngine(model, **ROW_ENGINE)
+    eng._programs.capture = False
+    eager_reqs, _, eager_wall, eager_peak, _ = _serve(eng, prompts,
+                                                      new_tokens)
+    eager_rate = eng.stats()["tokens_generated"] / eager_wall
+    del eng
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() / 1e9
+    eng = DecodeEngine(model, **ROW_ENGINE)
+    _warm(eng, vocab, (40, 100), new=2)
+    _all_captured(tag, eng._programs, 3)
+    warm_tokens = eng.tokens_generated
+    reqs, steps, wall, peak, reserved = _serve(eng, prompts, new_tokens)
+    if eng.compile_count != 3:
+        raise AssertionError(f"{tag}: {eng.compile_count - 3} captures in "
+                             f"the drain")
+    diff = [r.id for r, e in zip(reqs, eager_reqs) if r.tokens != e.tokens]
+    if diff:
+        raise AssertionError(f"{tag}: graphed tokens differ from the eager "
+                             f"row engine's in requests {diff}")
+    st = eng.stats()
+    if "paged" in st or any(r.prefill_chunks != 1 for r in reqs):
+        raise AssertionError(f"{tag}: not the row cache: {st}")
+    rate = (st["tokens_generated"] - warm_tokens) / wall
+    log(f"{tag} {len(reqs)} requests in {steps} steps, {wall:.3f} s: "
+        f"{rate:.1f} tokens/s graphed against {eager_rate:.1f} eager "
+        f"(paged graphed {ref['rate']:.1f}); tokens identical to the eager "
+        f"row engine's; compile_count 3 (buckets {eng.prefill_buckets} + "
+        f"decode), 0 captures in the drain; {st['prefill_calls'] - 2} "
+        f"prefill calls; peak memory {peak:.2f} GB (eager {eager_peak:.2f}; "
+        f"paged graphed {ref['peak']:.2f}; {base:.2f} allocated before the "
+        f"engine), reserved {reserved:.2f} GB")
+    return reqs
+
+
+def _draft_blocks(drafter):
+    """The attention blocks one call of a model drafter's forward runs."""
+    from paddle_tpu_torch.serving.spec import EarlyExitDrafter
+    n = drafter.model.config.num_layers
+    return len(range(0, n, drafter.interval)) \
+        if isinstance(drafter, EarlyExitDrafter) else n
+
+
+def _replayed(tag, counts_now, drafter):
+    """A speculative phase's launch counts as the device ran them. The
+    wrappers count Python calls: the drafter program's first call (eager)
+    and its capture each call every kernel once a block, and a replay
+    calls none. So each count must be 2 x the blocks a call runs, and the
+    device launched blocks x calls."""
+    out = dict(counts_now)
+    ran = {k: n for k, n in counts_now.items() if n}
+    if drafter is None or not hasattr(drafter, "calls"):
+        if ran:
+            raise AssertionError(f"{tag}: launched {ran} without a model "
+                                 f"drafter")
+        return out
+    per_call = _draft_blocks(drafter)
+    for key, n in ran.items():
+        if n != 2 * per_call:
+            raise AssertionError(f"{tag}: {key} counted {n} Python calls, "
+                                 f"expected 2 x {per_call} (the first call "
+                                 f"and its capture)")
+        out[key] = per_call * drafter.calls
+    return out
+
+
+def phase_engine_spec(model, drafter, ref_reqs, ref, tag, gap_limit,
+                      snapshot, requests=_gpt_requests, crosscheck=None):
+    """Speculative decoding on ``ref_reqs``' requests (graphed: a warm-up
+    builds and captures the chunk and verify programs and the drafter's
+    [1, 64] program; nothing is captured in the drain): every request's
+    tokens identical to the non-speculative graphed engine's or, at the
+    first difference, a near-tie (``_hold_to_reference``), then held to
+    the uncached forward by ``crosscheck``; the per-request ledgers sum to
+    stats()["spec"]. Returns (requests, the stats, ``snapshot()`` taken
+    right after the drain: the launch counts of the path, before the
+    checks' own forwards)."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    prompts, new_tokens = requests()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() / 1e9
+    eng = DecodeEngine(model, drafter=drafter, **ENGINE)
+    model_drafter = hasattr(drafter, "calls")
+    warm = _warm(eng, model.config.vocab_size, (40,), new=6)
+    _all_captured(tag, eng._programs, 2)
+    if model_drafter:
+        _all_captured(tag + " drafter", drafter._programs, 1)
+    warm_tokens, calls0 = eng.tokens_generated, getattr(drafter, "calls", 0)
+    reqs, steps, wall, peak, reserved = _serve(eng, prompts, new_tokens)
+    drained = snapshot()
+    if eng.compile_count != 2 or (model_drafter
+                                  and drafter.compile_count != 1):
+        raise AssertionError(f"{tag}: programs were built in the drain")
+    st = eng.stats()
+    spec = st["spec"]
+    if sum(r.spec_drafted for r in warm + reqs) != spec["drafted"] \
+            or sum(r.spec_accepted for r in warm + reqs) \
+            != spec["accepted"] or spec["accepted"] > spec["drafted"]:
+        raise AssertionError(f"{tag}: the ledgers disagree with {spec}")
+    differ = _hold_to_reference(tag, model, reqs, ref_reqs, gap_limit)
+    rate = (st["tokens_generated"] - warm_tokens) / wall
+    calls = getattr(drafter, "calls", 0) - calls0
+    log(f"{tag} {len(reqs)} requests in {steps} steps, {wall:.3f} s: "
+        f"{rate:.1f} tokens/s ({rate / ref['rate']:.2f}x the graphed "
+        f"engine's {ref['rate']:.1f}); stats()['spec'] {spec}; "
+        f"{len(reqs) - differ} of {len(reqs)} requests token-identical to "
+        f"the non-speculative engine; drafter program calls in the drain "
+        f"{calls}; peak memory {peak:.2f} GB (graphed engine "
+        f"{ref['peak']:.2f}; {base:.2f} allocated before the engine), "
+        f"reserved {reserved:.2f} GB")
+    if crosscheck is not None:
+        crosscheck(model, reqs)
+    return reqs, spec, drained
+
+
+def phase_draft_kernel(drafter, tag, gap_limit):
+    """A model drafter's [1, 64] program (captured) against the same
+    forward with attention in its plain versions (``_plain_kernels``): at
+    a full window and a ragged one (37 tokens), the program's token is the
+    eager kernel forward's argmax, and the last-position logits agree
+    within DRAFT_LOGIT_REL_LIMIT with the argmax equal or a near-tie. One
+    proposal (4 replays) is profiled: the flash forward body runs once a
+    block a replay. Then the kernel alone at the drafter's shape, timed
+    beside its plain version, sdpa and the bound. Returns (the kernel's
+    record, its wrapper's name, the shape)."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.models.gpt import _lm_head_logits
+    from paddle_tpu_torch.nn.functional import flash_at_any_length
+    from paddle_tpu_torch.serving.engine import _model_spec
+    model = drafter.model
+    spec = _model_spec(model)
+    prog = drafter._program()
+    inputs, out = prog.state
+    gen = torch.Generator()
+    gen.manual_seed(64)
+    vocab = model.config.vocab_size
+    for n in (DRAFT_CTX, 37):
+        window = torch.randint(0, vocab, (n,), generator=gen)
+        inputs.host["ids"].fill(0)
+        inputs.host["ids"][0, :n] = window.numpy()
+        inputs.host["length"][...] = n
+        inputs.upload()
+        prog()
+        tok = int(out.item())
+        ids = inputs.dev["ids"].clone()
+        with torch.no_grad(), flash_at_any_length():
+            kern = _lm_head_logits(drafter._backbone(spec, ids)[0, n - 1],
+                                   model.head_weight)
+            with _plain_kernels():
+                plain = _lm_head_logits(
+                    drafter._backbone(spec, ids)[0, n - 1],
+                    model.head_weight)
+        rel = ((kern - plain).abs().max() / plain.abs().max()).item()
+        a, b = int(kern.argmax()), int(plain.argmax())
+        gap = (plain[b] - plain[a]).item()
+        log(f"{tag} window {n}: program token {tok}, eager kernel argmax "
+            f"{a}, plain argmax {b} (plain logit gap {gap:.4g}); max|logit "
+            f"difference| / max|logit| {rel:.3g} (limit "
+            f"{DRAFT_LOGIT_REL_LIMIT})")
+        if tok != a or rel > DRAFT_LOGIT_REL_LIMIT \
+                or (a != b and gap > gap_limit):
+            raise AssertionError(f"{tag}: the drafter's kernels disagree "
+                                 f"with the plain versions")
+    req = type("Hist", (), {})()
+    req.prompt = torch.randint(0, vocab, (100,), generator=gen).tolist()
+    req.tokens = []
+    calls0 = drafter.calls
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        drafter.propose(req, 4)
+        torch.cuda.synchronize()
+    replays = drafter.calls - calls0
+    ran = sum(e.count for e in prof.key_averages()
+              if "flash_fwd" in e.key and "kernel" in e.key)
+    per_call = _draft_blocks(drafter)
+    log(f"{tag} one proposal: {replays} replays ran the flash forward "
+        f"{ran} times ({per_call} blocks a replay)")
+    if ran != per_call * replays:
+        raise AssertionError(f"{tag}: the replays launched the flash "
+                             f"forward {ran} times, expected "
+                             f"{per_call * replays}")
+    # the kernel alone at the drafter's shape
+    d = model.config.hidden_size // model.config.num_heads
+    h = model.config.num_heads
+    kgen = torch.Generator(device="cuda")
+    kgen.manual_seed(65)
+    if hasattr(model, "gpt"):
+        from paddle_tpu_torch.kernels.flash_pair import (
+            flash_pair_fwd, flash_pair_fwd_reference)
+        qkv = torch.randn(1, DRAFT_CTX, 3, h * d, device="cuda",
+                          generator=kgen)
+        qkv[:, :, :2] *= 2.0
+        qkv = qkv.reshape(1, DRAFT_CTX, 3 * h * d).to(BF16)
+        got, ref = flash_pair_fwd(qkv, h, True)[0], \
+            flash_pair_fwd_reference(qkv, h, True)[0]
+        ms = cuda_time_ms(lambda: flash_pair_fwd(qkv, h, True))
+        plain_ms = cuda_time_ms(lambda: flash_pair_fwd_reference(qkv, h,
+                                                                 True))
+        q, k, v = (qkv[..., i * h * d:(i + 1) * h * d]
+                   .view(1, DRAFT_CTX, h, d) for i in range(3))
+        bound_ms, bound_by = flash_bound_ms(1, DRAFT_CTX, h, d, BF16, True)
+        wrapper, shape = "flash_pair_fwd", f"[1, {DRAFT_CTX}, 3*{h}*{d}]"
+    else:
+        from paddle_tpu_torch.kernels.flash_attention import (
+            flash_attention_fwd, flash_attention_fwd_reference)
+        hkv = model.config.num_kv_heads
+        q, k, v, _ = _fa_inputs(1, DRAFT_CTX, DRAFT_CTX, h, hkv, d, BF16,
+                                kgen)
+        got, ref = flash_attention_fwd(q, k, v, True)[0], \
+            flash_attention_fwd_reference(q, k, v, True)[0]
+        ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v, True))
+        plain_ms = cuda_time_ms(
+            lambda: flash_attention_fwd_reference(q, k, v, True))
+        bound_ms, bound_by = fa_bound_ms(1, DRAFT_CTX, DRAFT_CTX, h, hkv, d,
+                                         BF16, True)
+        wrapper, shape = ("flash_attention_fwd",
+                          f"[1, {DRAFT_CTX}, {h}/{hkv}, {d}]")
+    torch.testing.assert_close(got.float(), ref.float(), atol=4e-3,
+                               rtol=1e-2)
+    err = (got.float() - ref.float()).abs().max().item()
+    library_ms = cuda_time_ms(lambda: _sdpa_library(q, k, v, True))
+    log(f"{tag} {wrapper} {shape} bf16 causal: max|out err| {err:.3g}; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"{per_call} launches a draft, {per_call * 4} a proposal of 4")
+    return (dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=library_ms), wrapper, shape)
+
+
+def phase_engine_int8(model, ref_reqs, ref, snapshot):
+    """quantize="int8" on GPT-medium, in place (the model's last phase):
+    the number of Linear layers swapped (the tied LM head stays), the
+    model's parameter and buffer bytes before and after and the memory
+    allocated (the old weights are freed), [engine]'s requests with eager
+    steps and then graphed (tokens identical, compile_count 2 after a
+    warm-up, no capture in the drain), and the share of [engine]'s
+    generated positions where the int8 model, fed [engine]'s own tokens,
+    picks [engine]'s token (INT8_AGREE_FLOOR), beside the share of
+    positions where the two engines' free-running tokens agree. Returns
+    ``snapshot()`` taken after the graphed drain (the path's launch
+    counts)."""
+    from paddle_tpu_torch.quantization import Int8Linear
+    from paddle_tpu_torch.serving import DecodeEngine
+    prompts, new_tokens = _gpt_requests()
+
+    def model_bytes():
+        return sum(t.numel() * t.element_size()
+                   for t in (*model.parameters(), *model.buffers()))
+    # no earlier engine may hold the float weights in its leaf list: each
+    # went with its last reference
+    torch.cuda.empty_cache()
+    before, bytes_before = torch.cuda.memory_allocated(), model_bytes()
+    eng = DecodeEngine(model, quantize="int8", **ENGINE)
+    swapped = sum(isinstance(m, Int8Linear) for m in model.modules())
+    left = sum(type(m) is torch.nn.Linear for m in model.modules())
+    torch.cuda.empty_cache()
+    after, bytes_after = torch.cuda.memory_allocated(), model_bytes()
+    pools = eng._kv.numel() * eng._kv.element_size()
+    if swapped != 4 * model.config.num_layers or left:
+        raise AssertionError(f"[engine-int8] swapped {swapped} layers, "
+                             f"{left} Linear left")
+    eng._programs.capture = False
+    eager_reqs, _, eager_wall, eager_peak, _ = _serve(eng, prompts,
+                                                      new_tokens)
+    eager_rate = eng.stats()["tokens_generated"] / eager_wall
+    del eng
+    torch.cuda.empty_cache()
+    eng = DecodeEngine(model, quantize="int8", **ENGINE)
+    _warm(eng, model.config.vocab_size, (40,), new=2)
+    _all_captured("[engine-int8]", eng._programs, 2)
+    warm_tokens = eng.tokens_generated
+    reqs, steps, wall, peak, reserved = _serve(eng, prompts, new_tokens)
+    drained = snapshot()
+    if eng.compile_count != 2:
+        raise AssertionError("[engine-int8]: captures in the drain")
+    diff = [r.id for r, e in zip(reqs, eager_reqs) if r.tokens != e.tokens]
+    if diff:
+        raise AssertionError(f"[engine-int8]: graphed tokens differ from "
+                             f"the eager int8 engine's in {diff}")
+    rate = (eng.stats()["tokens_generated"] - warm_tokens) / wall
+    same = sum(a == b for r, e in zip(reqs, ref_reqs)
+               for a, b in zip(r.tokens, e.tokens))
+    total = sum(len(e.tokens) for e in ref_reqs)
+    # teacher-forced: the int8 model's pick after each of [engine]'s own
+    # prefixes, which a first flip does not carry into later positions
+    forced = sum(int((_forced_logits(model, e).argmax(dim=-1)
+                      == torch.tensor(e.tokens, device="cuda")).sum())
+                 for e in ref_reqs)
+    agree, agree_forced = same / total, forced / total
+    log(f"[engine-int8] {swapped} Linear layers swapped (the tied head "
+        f"stays bf16): the model's parameters and buffers "
+        f"{bytes_before / 1e9:.3f} -> {bytes_after / 1e9:.3f} GB; allocated "
+        f"{before / 1e9:.3f} GB before the engine, {after / 1e9:.3f} GB "
+        f"after the swap with the engine's pools ({pools / 1e9:.3f} GB); "
+        f"{len(reqs)} requests in {steps} "
+        f"steps, {wall:.3f} s: {rate:.1f} tokens/s graphed against "
+        f"{eager_rate:.1f} eager ([engine-graph] {ref['rate']:.1f}); "
+        f"tokens identical to the eager int8 engine's; compile_count 2, 0 "
+        f"captures in the drain; agreement with [engine]'s tokens "
+        f"teacher-forced {agree_forced:.3f} (floor {INT8_AGREE_FLOOR}), "
+        f"free-running {agree:.3f}; peak memory {peak:.2f} GB (eager "
+        f"{eager_peak:.2f}; [engine-graph] {ref['peak']:.2f}), reserved "
+        f"{reserved:.2f} GB")
+    if agree_forced < INT8_AGREE_FLOOR \
+            or after - before > pools - (bytes_before - bytes_after) / 2:
+        raise AssertionError(f"[engine-int8]: teacher-forced agreement "
+                             f"{agree_forced:.3f}, or the float weights "
+                             f"were not freed")
+    return drained
+
+
+def phase_int8_linear():
+    """Int8Linear on the card (torch._int_mm: cuBLASLt's int8 product,
+    rows padded to 32) against the CPU's exact plain product at
+    GPT-medium's QKV width (K 1024, N 3072) and M = 1, 16, 32 rows:
+    identical up to rounding (the int32 sums are exact and the fp32
+    epilogue is the same operations). Timed beside the bf16 Linear it
+    replaces and the bytes bound (int8 weight + activations read, output
+    written)."""
+    import copy
+    from paddle_tpu_torch.quantization import Int8Linear
+    gen = torch.Generator()
+    gen.manual_seed(8)
+    lin = torch.nn.Linear(1024, 3072)
+    with torch.no_grad():
+        lin.weight.normal_(0.0, 0.02, generator=gen)
+        lin.bias.normal_(0.0, 0.1, generator=gen)
+    lin = lin.to(BF16)
+    cpu = Int8Linear.from_linear(lin)        # holds lin's own bias
+    lin = copy.deepcopy(lin).cuda()
+    card = Int8Linear.from_linear(lin)
+    if not torch.equal(card.qweight.cpu(), cpu.qweight):
+        raise AssertionError("[int8-linear] the card's int8 weights differ")
+    for m in (1, 16, 32):
+        x = torch.randn(m, 1024, generator=gen).to(BF16)
+        xc = x.cuda()
+        with torch.no_grad():
+            want = cpu(x).float()
+            got = card(xc).float().cpu()
+            err = (got - want).abs().max().item()
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+            ms = cuda_time_ms(lambda: card(xc))
+            lib_ms = cuda_time_ms(lambda: lin(xc))
+        nbytes = 1024 * 3072 + 3072 * 8 + m * 1024 * 2 + m * 3072 * 2
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        log(f"[int8-linear] M={m} K=1024 N=3072 bf16 in/out: card vs CPU "
+            f"max|err| {err:.3g}; Int8Linear {ms:.4f} ms, bf16 Linear "
+            f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes)")
+
+
+def gpt_other_modes(model, reqs, graph_reqs, graph, counts, paths,
+                    spec_paths, draft_records):
+    """GPT-medium's other serving modes, each path with the launch counts
+    set to 0 just before it and read (``counts()``) just after: the row
+    cache, the three drafters of bench.py decode --spec (their paths count
+    the drafter programs' launches as the device ran them: _replayed),
+    then int8, last, as it swaps the model's Linear layers in place.
+    ``reqs`` / ``graph_reqs``, ``graph`` are [engine]'s and
+    [engine-graph]'s requests and record; fills ``paths``, ``spec_paths``
+    and ``draft_records``."""
+    from paddle_tpu_torch.kernels import reset_launch_counts
+    from paddle_tpu_torch.serving import (DraftModelDrafter,
+                                          EarlyExitDrafter,
+                                          PromptLookupDrafter)
+    # [generate]'s step program and buffers go, so the modes' peaks
+    # compare with [engine-graph]'s, read before [generate] ran
+    model.__dict__.pop("_gen_programs", None)
+    reset_launch_counts()
+    row_reqs = phase_engine_row(model, graph)
+    paths["gpt-serving-row"] = counts()
+    phase_crosscheck(model, row_reqs, rows=len(row_reqs),
+                     tag="[engine-row-crosscheck]")
+    drafters = {
+        "lookup": PromptLookupDrafter(max_n=3, min_n=1, max_k=8),
+        "draft": DraftModelDrafter(_gpt_draft_model(), ctx_len=DRAFT_CTX,
+                                   max_k=4),
+        "early": EarlyExitDrafter(model, interval=2, ctx_len=DRAFT_CTX,
+                                  max_k=4)}
+    for which, drafter in drafters.items():
+        tag = f"[engine-spec-{which}]"
+        reset_launch_counts()
+        _, _, drained = phase_engine_spec(
+            model, drafter, graph_reqs, graph, tag, SPEC_TIE_GAP["gpt"],
+            counts, crosscheck=lambda m, r, t=tag: phase_crosscheck_pooled(
+                m, r, t[:-1] + "-crosscheck]"))
+        spec_paths[f"gpt-serving-spec-{which}"] = _replayed(tag, drained,
+                                                            drafter)
+    for which in ("draft", "early"):
+        draft_records[f"gpt-{which}"] = phase_draft_kernel(
+            drafters[which], f"[draft-kernel-{which}]", SPEC_TIE_GAP["gpt"])
+    del drafters, row_reqs
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    paths["gpt-serving-int8"] = phase_engine_int8(model, reqs, graph, counts)
+    phase_int8_linear()
+
+
+def llama_other_modes(llama, graph_reqs, graph, counts, paths, spec_paths,
+                      draft_records):
+    """LLaMA-7B's row cache and its early-exit drafter (bench.py's
+    interval 2: 16 of the 32 blocks draft), as ``gpt_other_modes``."""
+    from paddle_tpu_torch.kernels import reset_launch_counts
+    from paddle_tpu_torch.serving import EarlyExitDrafter
+    llama.__dict__.pop("_gen_programs", None)    # as gpt_other_modes
+    reset_launch_counts()
+    row_reqs = phase_engine_row(llama, graph, requests=_llama_requests,
+                                tag="[llama-engine-row]")
+    paths["llama-serving-row"] = counts()
+    phase_llama_crosscheck(llama, row_reqs,
+                           tag="[llama-engine-row-crosscheck]")
+    drafter = EarlyExitDrafter(llama, interval=2, ctx_len=DRAFT_CTX, max_k=4)
+    reset_launch_counts()
+    _, _, drained = phase_engine_spec(
+        llama, drafter, graph_reqs, graph, "[llama-engine-spec]",
+        SPEC_TIE_GAP["llama"], counts, requests=_llama_requests,
+        crosscheck=lambda m, r: phase_llama_crosscheck(
+            m, r, tag="[llama-engine-spec-crosscheck]"))
+    spec_paths["llama-serving-spec"] = _replayed("[llama-engine-spec]",
+                                                 drained, drafter)
+    draft_records["llama-early"] = phase_draft_kernel(
+        drafter, "[draft-kernel-llama]", SPEC_TIE_GAP["llama"])
+
+
+def llama_spec_fp32(model, ref_reqs, ref, counts):
+    """[llama-engine-fp32]'s model and requests through the early-exit
+    drafter in fp32 (interval 2: block 0 of 2 drafts, the fp32 forward
+    body in its graph): tokens identical to [llama-engine-fp32]'s under
+    the 1e-4 near-tie clause, then [llama-crosscheck]'s fp32 rule. Returns
+    the path's launch counts as the device ran them."""
+    from paddle_tpu_torch.kernels import reset_launch_counts
+    from paddle_tpu_torch.serving import EarlyExitDrafter
+    drafter = EarlyExitDrafter(model, interval=2, ctx_len=DRAFT_CTX,
+                               max_k=4)
+    reset_launch_counts()
+    _, _, drained = phase_engine_spec(
+        model, drafter, ref_reqs, ref, "[llama-engine-spec-fp32]",
+        SPEC_TIE_GAP["fp32"], counts, requests=_llama_requests,
+        crosscheck=lambda m, r: phase_llama_crosscheck(
+            m, r, tag="[llama-crosscheck-spec-fp32]"))
+    return _replayed("[llama-engine-spec-fp32]", drained, drafter)
+
+
+def _gpt_draft_model():
+    """bench.py decode --spec=draft_model's draft model, random weights
+    from seed 1, bf16."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    return GPTForCausalLM(GPTConfig(**DRAFT_GPT), dtype=BF16,
+                          seed=1).eval()
+
+
 def _kernel_entry(name, source, replaces, launches, record):
     return dict(name=name, route="cuda",
                 source=f"paddle_tpu_torch/csrc/{source}",
@@ -3961,7 +4568,7 @@ def main() -> int:
     # GPT serving's captured programs: the engine graphed, bucketed and
     # sampling, and generate(); no flash kernel lies on these paths
     reset_launch_counts()
-    phase_engine_graph(model, reqs, eager)
+    graph_reqs, graph = phase_engine_graph(model, reqs, eager)
     bucket_reqs = phase_engine_buckets(model)
     phase_engine_sample(model, reqs)
     gen_rows = phase_generate(model)
@@ -3973,7 +4580,10 @@ def main() -> int:
     phase_scoring_time(model, ids)
     phase_profile(model)
     phase_profile(model, graphed=True)
-    del model, reqs, bucket_reqs, gen_rows
+    spec_paths, draft_records = {}, {}
+    gpt_other_modes(model, reqs, graph_reqs, graph, counts, paths,
+                    spec_paths, draft_records)
+    del model, reqs, bucket_reqs, gen_rows, graph_reqs
     torch.cuda.empty_cache()
 
     reset_launch_counts()                  # GPT training starts here
@@ -4034,17 +4644,27 @@ def main() -> int:
     paths["llama-serving"] = counts()   # ... and ends here
     phase_llama_crosscheck(llama, reqs)
     reset_launch_counts()                  # LLaMA's captured programs
-    phase_engine_graph(llama, reqs, eager, requests=_llama_requests,
-                       tag="[llama-engine-graph]")
+    graph_reqs, graph = phase_engine_graph(llama, reqs, eager,
+                                           requests=_llama_requests,
+                                           tag="[llama-engine-graph]")
     gen_rows = phase_llama_generate(llama)
     paths["llama-serving-graph"] = counts()
     phase_llama_crosscheck(llama, gen_rows,
                            tag="[llama-generate-crosscheck]")
     phase_profile(llama, graphed=True, tag="[profile-llama-graph]")
     phase_llama_scoring_time(llama, ids)
-    del llama, reqs, ids, gen_rows
+    llama_other_modes(llama, graph_reqs, graph, counts, paths, spec_paths,
+                      draft_records)
+    del llama, reqs, ids, gen_rows, graph_reqs
     torch.cuda.empty_cache()
-    counted("llama-engine-fp32", phase_llama_engine_fp32)
+    fp32 = {}
+
+    def fp32_engine():
+        fp32["model"], fp32["reqs"], fp32["ref"] = phase_llama_engine_fp32()
+    counted("llama-engine-fp32", fp32_engine)
+    checks["llama-engine-spec-fp32"] = llama_spec_fp32(
+        fp32["model"], fp32["reqs"], fp32["ref"], counts)
+    del fp32
     torch.cuda.empty_cache()
 
     reset_launch_counts()                  # LLaMA training starts here
@@ -4072,19 +4692,27 @@ def main() -> int:
                                   "fused_add_dropout_ln_fwd"],
              "llama-serving": ["flash_attention_fwd"],
              "llama-training": ["flash_attention_fwd",
-                                "flash_attention_bwd"]}
+                                "flash_attention_bwd"],
+             "gpt-serving-spec-draft": ["flash_pair_fwd"],
+             "gpt-serving-spec-early": ["flash_pair_fwd"],
+             "llama-serving-spec": ["flash_attention_fwd"]}
+    every_path = dict(paths, **spec_paths)
     for path, kernels in needs.items():
         for kernel in kernels:
-            if paths[path][kernel] < 1:
+            if every_path[path][kernel] < 1:
                 raise AssertionError(f"the {path} path never launched "
                                      f"{kernel}")
-    # the captured programs run the cached attention, no flash kernel
-    for path in ("gpt-serving-graph", "llama-serving-graph"):
-        ran = {k: n for k, n in paths[path].items() if n}
+    # the captured programs run the cached attention, no flash kernel (a
+    # speculative engine's drafter programs are the exception)
+    for path in ("gpt-serving-graph", "llama-serving-graph",
+                 "gpt-serving-row", "llama-serving-row", "gpt-serving-int8",
+                 "gpt-serving-spec-lookup"):
+        ran = {k: n for k, n in every_path[path].items() if n}
         if ran:
             raise AssertionError(f"the {path} path launched {ran}")
-    log(f"[paths] launches: {paths}; row 6's call: {row6}; the fp32 "
-        f"check phases: {checks}")
+    log(f"[paths] launches: {paths}; the speculative paths (device "
+        f"launches): {spec_paths}; row 6's call: {row6}; the fp32 check "
+        f"phases: {checks}")
     launches = {k: sum(p[k] for p in paths.values()) for k in records}
     # the wide-head bodies' launches on the model paths (bf16 heads of 64
     # and 128 there: none)
@@ -4105,6 +4733,20 @@ def main() -> int:
         if wide_launches[body] < 1:
             raise AssertionError(f"the fp32 check phases never launched the "
                                  f"fp32 {what} body")
+    # the drafters' [1, 64] windows (rows 1 and 4 inside the drafter
+    # programs' graphs): launches on their speculative path, as the
+    # device ran them, and the kernel's record at the window's shape
+    drafted = []
+    for key, path in (("gpt-draft", "gpt-serving-spec-draft"),
+                      ("gpt-early", "gpt-serving-spec-early"),
+                      ("llama-early", "llama-serving-spec")):
+        record, wrapper, shape = draft_records[key]
+        source, line = (("flash_pair_fwd.cu", "flash_pair.py:95")
+                        if wrapper == "flash_pair_fwd" else
+                        ("flash_attention_fwd.cu", "flash_attention.py:122"))
+        drafted.append(dict(_kernel_entry(wrapper, source, line,
+                                          spec_paths[path], record),
+                            name=f"{wrapper} ({key} drafter, {shape})"))
     kernels = [
         _kernel_entry("flash_pair_fwd", "flash_pair_fwd.cu",
                       "flash_pair.py:95", launches, records["flash_pair_fwd"]),
@@ -4169,7 +4811,8 @@ def main() -> int:
         dict(_kernel_entry("sw32:bwd", "flash_bwd_sm90.cuh",
                            "flash_attention.py:340", wide_launches,
                            sw32_record),
-             name="flash_attention_bwd (bf16 body, D = 80, 96)")]
+             name="flash_attention_bwd (bf16 body, D = 80, 96)"),
+        *drafted]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -15,8 +15,10 @@ kernels bidirectional at head_dim 64, the fused add-dropout-LayerNorm
 kernels, MLM + NSP losses), LLaMA inference and training
 (``models.LlamaForCausalLM``: RoPE, RMSNorm, SwiGLU, grouped-query
 attention through the ``[B, L, H, D]`` flash kernels), ``optimizer.AdamW``
-with fp32 masters, ``jit.TrainStep`` (eager steps), and the paged serving
-engine over GPT or LLaMA (``serving.DecodeEngine``). Every dropout draws
+with fp32 masters, ``jit.TrainStep`` (eager steps), and the serving
+engine over GPT or LLaMA (``serving.DecodeEngine``: paged or row cache,
+speculative decoding with three drafters, int8 weight-only serving through
+``quantization.Int8Linear``; its steps CUDA graphs on the card). Every dropout draws
 its seed from the model's CPU generator and its bits from one Philox
 stream keyed on the element, so the card and the CPU drop the same
 elements. ``seed``, ``get_rng_state`` and ``set_rng_state`` drive the
@@ -25,7 +27,8 @@ functionals draw from when no generator is given (``core/random.py``).
 ``convert.load_paddle_state`` carries weights over from a ``paddle_tpu``
 model.
 """
-from . import core, jit, kernels, models, nn, optimizer, serving
+from . import (core, jit, kernels, models, nn, optimizer, quantization,
+               serving)
 from .core.random import get_rng_state, seed, set_rng_state
 from .jit import TrainStep
 from .models import (BertConfig, BertForPreTraining, GPTConfig,
@@ -33,7 +36,8 @@ from .models import (BertConfig, BertForPreTraining, GPTConfig,
                      llama_7b)
 from .serving import DecodeEngine
 
-__all__ = ["core", "jit", "kernels", "models", "nn", "optimizer", "serving",
+__all__ = ["core", "jit", "kernels", "models", "nn", "optimizer",
+           "quantization", "serving",
            "BertConfig", "BertForPreTraining", "bert_base", "GPTConfig",
            "GPTForCausalLM", "LlamaConfig", "LlamaForCausalLM", "llama_7b",
            "DecodeEngine", "TrainStep", "seed", "get_rng_state",

@@ -92,6 +92,19 @@ class StagedInputs:
             self._dev.copy_(self._host, non_blocking=True)
 
 
+# one warm-up stream a device for every program: cuBLAS keeps a workspace
+# for each stream it has run on until the process ends, so a stream of its
+# own a program would hold one more workspace for each program built
+_SIDE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _side_stream(dev: torch.device) -> "torch.cuda.Stream":
+    side = _SIDE_STREAMS.get(dev)
+    if side is None:
+        side = _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return side
+
+
 class Program:
     """One fixed-shape program of a registry; ``state`` is whatever its
     build function returned beside ``fn`` (its static buffers)."""
@@ -121,7 +134,7 @@ class Program:
         # for the calls after it
         dev = reg.device
         cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
+        side = _side_stream(dev)
         side.wait_stream(cur)
         with torch.cuda.stream(side), reg.mode():
             self._fn()

@@ -9,7 +9,8 @@ package's ``lm_head_ce``), training at the config's dropout (the
 embedding and residual dropouts through the dropout kernel, the attention
 dropout inside the pair kernels, every mask from the model's generator),
 the cached forward over a paged KV pool (``serving.DecodeEngine``) or
-contiguous per-row buffers, and ``generate()`` (greedy or temperature +
+contiguous per-row buffers, the early-exit drafter's ``layer_subset``, and
+``generate()`` (greedy or temperature +
 top-k sampling; its one-token step is a fixed-shape program,
 ``core/programs.py``: a CUDA graph on the card). Every cursor of the
 cached path may be device data, so a captured step reads it at replay.
@@ -245,6 +246,14 @@ class GPTBlock(nn.Module):
         return x + self.dropout(self.mlp(self.ln_2(x)))
 
 
+def _blocks(blocks, layer_subset):
+    """The blocks a forward runs: all of them, or those whose index lies in
+    ``layer_subset``, in order."""
+    if layer_subset is None:
+        return list(blocks)
+    return [blk for i, blk in enumerate(blocks) if i in layer_subset]
+
+
 class GPTModel(nn.Module):
     """Embeddings (with the embedding dropout), blocks and the final
     LayerNorm. ``generator`` (a CPU ``torch.Generator``) feeds every
@@ -264,14 +273,18 @@ class GPTModel(nn.Module):
                                  eps=config.layer_norm_epsilon)
 
     def forward(self, input_ids, kv_caches=None, start_pos=None,
-                write_end=None):
+                write_end=None, layer_subset=None):
         """Hidden states ``[B, S, hidden]`` after the final LayerNorm.
 
         With ``kv_caches`` (one ``(pool_k, pool_v, table)`` per block:
         paged, or one ``(k_buf, v_buf)``: contiguous) the blocks run the
         cached attention at ``start_pos`` (an int, a 0-d tensor, or a
         ``[B]`` tensor of per-row cursors), writing K/V in place (paged:
-        below ``write_end``, default ``start_pos + S``)."""
+        below ``write_end``, default ``start_pos + S``).
+
+        ``layer_subset`` (a set of block indices; uncached path only) runs
+        just those blocks: the early-exit drafter's shallow pass over the
+        same weights (``serving.spec.EarlyExitDrafter``)."""
         cfg = self.config
         b, s = input_ids.shape
         ar = torch.arange(s, device=input_ids.device)
@@ -280,9 +293,11 @@ class GPTModel(nn.Module):
                                   cfg.hidden_dropout_prob,
                                   cfg.attention_dropout_prob)
             x = self.drop(self.wte(input_ids) + self.wpe(ar[None, :]))
-            for block in self.h:
+            for block in _blocks(self.h, layer_subset):
                 x = block(x)
             return self.ln_f(x)
+        if layer_subset is not None:
+            raise ValueError("layer_subset runs on the uncached path only")
         p0 = 0 if start_pos is None else start_pos
         if torch.is_tensor(p0) and p0.dim() == 1:
             raw = p0[:, None] + ar[None, :]        # per-row cursors

@@ -5,9 +5,10 @@ Ported so far: the uncached forward (attention through the ``[B, L, H, D]``
 flash kernels on the GPU, forward and backward, with GQA), the loss
 (``LlamaForCausalLM.forward(ids, labels)``) for training, the cached
 forward over a paged KV pool (``serving.DecodeEngine``) or contiguous
-per-row buffers sized by the KV head count, and ``generate()`` (GPT's
-loop, ``gpt._generate_with_cache``). Recompute, ``layer_subset`` and
-tensor parallelism come later and raise naming their ROADMAP item.
+per-row buffers sized by the KV head count, the early-exit drafter's
+``layer_subset``, and ``generate()`` (GPT's loop,
+``gpt._generate_with_cache``). Recompute and tensor parallelism come later
+and raise naming their ROADMAP item.
 
 ``torch.nn.Linear`` keeps its weight as ``[out, in]`` where the JAX package
 keeps ``[in, out]``; ``convert.py`` transposes between them.
@@ -25,7 +26,7 @@ from ..core.dtype import convert_dtype
 from ..core.random import make_generator
 from ..nn import RMSNorm
 from ..nn import functional as F
-from .gpt import (_generate_with_cache, _kv_update, _layer_cache,
+from .gpt import (_blocks, _generate_with_cache, _kv_update, _layer_cache,
                   _lm_head_ce)
 
 __all__ = ["LlamaConfig", "llama_7b", "llama_tiny", "rope", "LlamaAttention",
@@ -227,15 +228,15 @@ class LlamaModel(nn.Module):
         paged, or one ``(k_buf, v_buf)``: contiguous) the blocks run the
         cached attention at ``start_pos`` (an int, a 0-d tensor, or a
         ``[B]`` tensor of per-row cursors), writing K/V in place (paged:
-        below ``write_end``, default ``start_pos + S``)."""
-        if layer_subset is not None:
-            raise _unported("layer_subset (the early-exit drafter's shallow "
-                            "pass)", "Queue 1, item 7")
+        below ``write_end``, default ``start_pos + S``). ``layer_subset``
+        (uncached path only) runs just the named blocks, as GPT's."""
         x = self.embed_tokens(input_ids)
         if kv_caches is None:
-            for block in self.layers:
+            for block in _blocks(self.layers, layer_subset):
                 x = block(x)
             return self.norm(x)
+        if layer_subset is not None:
+            raise ValueError("layer_subset runs on the uncached path only")
         p0 = 0 if start_pos is None else start_pos
         we = write_end if write_end is not None \
             else p0 + input_ids.shape[1]

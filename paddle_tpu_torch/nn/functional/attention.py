@@ -1,7 +1,8 @@
 """Attention functionals (counterpart of ``paddle_tpu/nn/functional/attention.py``).
 
 Routing mirrors the JAX package. When the shape gate passes (sequence >=
-128, head_dim >= 64) and the tensor lies on the accelerator:
+128, lifted inside ``flash_at_any_length``; head_dim >= 64) and the tensor
+lies on the accelerator:
 
 * ``flash_attention_qkv_packed`` runs the packed flash kernels
   (``FlashPairPacked``) when the pair layout takes the head size, and
@@ -29,6 +30,7 @@ drop the same elements.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 
 import torch
 
@@ -37,15 +39,37 @@ from ...kernels import philox
 from ...kernels.flash_attention import FlashAttention
 from ...kernels.flash_pair import FlashPairPacked, pair_layout_supported
 
-__all__ = ["flash_path_available", "pair_layout_supported",
+__all__ = ["flash_path_available", "flash_at_any_length",
+           "pair_layout_supported",
            "flash_attention_qkv_packed", "flash_attention",
            "scaled_dot_product_attention"]
 
 
+# The gate's sequence minimum: the JAX package's, whose Pallas kernels
+# tile 128 rows. ``flash_at_any_length`` lowers it to 1 for its callers.
+_seq_min = 128
+
+
+@contextmanager
+def flash_at_any_length():
+    """Within it the flash gate takes every sequence length: the Hopper
+    kernels have no 128-row minimum (a sequence shorter than a tile is one
+    ragged tile). The speculative drafters run their ``[1, ctx_len]``
+    windows inside it (``serving.spec``), so a window of 64 goes through
+    the kernels; everything else keeps the reference's routing."""
+    global _seq_min
+    saved, _seq_min = _seq_min, 1
+    try:
+        yield
+    finally:
+        _seq_min = saved
+
+
 def flash_path_available(seq_len: int, head_dim: int, sample=None) -> bool:
-    """The gate for the flash kernels: tile minimums, then placement on
-    CUDA (``sample``'s device when given, else whether CUDA exists)."""
-    if seq_len < 128 or head_dim < 64:
+    """The gate for the flash kernels: tile minimums (the sequence's is
+    lifted inside ``flash_at_any_length``), then placement on CUDA
+    (``sample``'s device when given, else whether CUDA exists)."""
+    if seq_len < _seq_min or head_dim < 64:
         return False
     if sample is not None:
         return sample.device.type == "cuda"

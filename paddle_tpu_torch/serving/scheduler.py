@@ -1,9 +1,9 @@
 """Continuous-batching scheduler state: requests, slots, admission queue.
 
 A copy of ``paddle_tpu/serving/scheduler.py`` (pure host bookkeeping) for
-the parts this port's engine uses. Not carried over yet: per-request
-deadlines, the span-tracer hooks and the speculative-decoding ledgers,
-which belong to engine features the port does not have yet.
+the parts this port's engine uses, the speculative-decoding ledgers
+included. Not carried over yet: per-request deadlines and the span-tracer
+hooks, which belong to engine features the port does not have yet.
 
 Iteration-level scheduling (Orca, Yu et al., OSDI 2022): scheduling
 decisions happen between decode STEPS, not between requests. A request
@@ -55,6 +55,14 @@ class Request:
         self.error: Optional[str] = None
         self.slot: Optional[int] = None
         self.preemptions = 0             # pool-pressure evictions survived
+        # speculative decoding: the drafts proposed for and accepted from
+        # THIS request over its life (they sum to the engine's counters),
+        # and the drafter's per-request scratch, reset by
+        # ``Drafter.begin_request`` at every (re-)admission: the token
+        # history it derives from restarts with a preemption
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.drafter_state: Optional[dict] = None
         # chunk calls the (final) prefill took: a request whose prompt was
         # served from shared blocks prefills only the uncovered remainder
         self.prefill_chunks = 0

@@ -316,9 +316,6 @@ def test_convert_transposes_every_linear_and_nothing_else():
 
 
 def test_unported_paths_raise():
-    _, _, tm = _pair(seed=34, num_layers=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.model(torch.zeros(1, 4, dtype=torch.long), layer_subset=[0])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         llama_tiny(recompute_granularity="selective")
 

@@ -15,6 +15,9 @@ through the slot's real block table, so a slot mid-prefill beside a live
 one gets its first position (or a shared prefix block) overwritten, and
 its later tokens drift. The port's engine gives those rows the trash
 block (``test_decode_leaves_prefilling_blocks_alone``)."""
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -60,16 +63,27 @@ def _spread_weights(jm, seed):
     return params
 
 
-@pytest.fixture(scope="module")
-def models():
-    paddle.seed(5)
+def _model_pair(seed=5):
+    paddle.seed(seed)
     jm = JaxGPT(JaxGPTConfig(use_flash_attention=False, **TINY))
     jm.eval()
-    params = _spread_weights(jm, seed=5)
+    params = _spread_weights(jm, seed=seed)
     tm = GPTForCausalLM(GPTConfig(**TINY), device="cpu")
     load_paddle_state(tm, params)
     tm.eval()
     return jm, tm
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _model_pair()
+
+
+@pytest.fixture(scope="module")
+def row_models():
+    """The row-cache tests' own pair: the tests above leave ``models``'s
+    final LayerNorm bias at zero after poisoning it."""
+    return _model_pair()
 
 
 def _schedule(kind):
@@ -286,14 +300,177 @@ def test_engine_cancel_and_nonfinite_logits(models):
     eng.check_invariants()
 
 
-@pytest.mark.parametrize("knob", [dict(paged=False), dict(quantize="int8"),
-                                  dict(drafter=object()),
-                                  dict(kv_pool=object()), dict(hang_s=1.0)])
+@pytest.mark.parametrize("knob", [dict(kv_pool=object()), dict(hang_s=1.0)])
 def test_engine_unported_knobs_raise(models, knob):
     _, tm = models
     kw = dict(GEOM, **knob)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(tm, **kw)
+
+
+def _row_schedule():
+    """Staggered arrivals of varying prompt lengths (2 to 30 tokens, every
+    bucket) and token budgets, more requests than slots."""
+    rng = np.random.RandomState(17)
+    return [(i // 2, rng.randint(1, 64, n).tolist(), int(rng.randint(3, 12)))
+            for i, n in enumerate((5, 12, 30, 2, 16, 9, 23, 7))]
+
+
+def test_row_cache_parity_with_jax_and_paged(row_models):
+    """paged=False: each slot owns a row, each prompt prefills in one call
+    of its bucket at admission. The tokens are the JAX model's greedy
+    tokens and the paged engine's, one program per bucket used plus the
+    decode step."""
+    jm, tm = row_models
+    row = DecodeEngine(tm, max_slots=4, max_len=48, paged=False)
+    paged = DecodeEngine(tm, **GEOM)
+    assert row.prefill_buckets == [8, 16, 32, 48]
+    assert row.block_size is None and row.prefill_chunk is None
+    rreqs = _drive(row, _row_schedule(), row.check_invariants)
+    preqs = _drive(paged, _row_schedule(), paged.check_invariants)
+    for rr, pr in zip(rreqs, preqs):
+        assert rr.status == pr.status == "done", (rr, pr)
+        assert list(rr.output_tokens) == greedy_from(jm, rr), rr.prompt
+        assert list(rr.output_tokens) == list(pr.output_tokens)
+        assert rr.prefill_chunks == 1
+    assert row.compile_count == 3 + 1       # buckets 8, 16, 32 + decode
+    assert row.prefill_calls == len(rreqs)
+    assert row.stats()["kv_util"] == 0.0 and row.live_count == 0
+
+
+def test_row_cache_matches_jax_row_engine(row_models):
+    """The JAX engine's row cache on the same schedule: the same tokens
+    and the same number of programs."""
+    jm, tm = row_models
+    jeng = JaxDecodeEngine(jm, max_slots=4, max_len=48, paged=False,
+                           prefill_buckets=[8, 32])
+    teng = DecodeEngine(tm, max_slots=4, max_len=48, paged=False,
+                        prefill_buckets=[8, 32])
+    sched = [(t, p, n) for t, p, n in _row_schedule() if len(p) <= 32]
+    jreqs = _drive(jeng, sched, lambda: None)
+    treqs = _drive(teng, sched, teng.check_invariants)
+    for jr, tr in zip(jreqs, treqs):
+        assert jr.status == tr.status == "done"
+        assert list(tr.output_tokens) == list(jr.output_tokens), tr.prompt
+    assert teng.compile_count == jeng.compile_count == 3
+    assert "paged" not in teng.stats() and "paged" not in jeng.stats()
+
+
+def test_row_cache_llama_matches_jax():
+    """LLaMA (GQA: the rows are sized by the KV head count) on the row
+    cache: the JAX row engine's tokens, which are its model's greedy
+    tokens."""
+    from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
+    from paddle_tpu.models.llama import llama_tiny as jax_llama_tiny
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    cfg = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
+               num_kv_heads=2, intermediate_size=64,
+               max_position_embeddings=64)
+    paddle.seed(7)
+    jm = JaxLlama(jax_llama_tiny(use_flash_attention=False, **cfg))
+    jm.eval()
+    rs = np.random.RandomState(7)
+    params = {}
+    for name, p in jm.named_parameters():
+        scale = 1.0 / np.sqrt(p.shape[0]) if len(p.shape) == 2 else 0.1
+        a = rs.normal(1.0 if len(p.shape) == 1 else 0.0, scale,
+                      tuple(p.shape)).astype(np.float32)
+        p.set_value(a)
+        params[name] = a
+    tm = LlamaForCausalLM(llama_tiny(**cfg), device="cpu")
+    load_paddle_state(tm, params)
+    tm.eval()
+    geom = dict(max_slots=2, max_len=32, paged=False, prefill_buckets=[8, 16])
+    jeng, teng = JaxDecodeEngine(jm, **geom), DecodeEngine(tm, **geom)
+    assert tuple(teng._rows.shape) == (2, 2, 2, 32, 2, 8)
+    sched = [(t, p, n) for t, p, n in _row_schedule() if len(p) <= 16]
+    sched = [(t, p, min(n, 32 - len(p))) for t, p, n in sched]
+    jreqs = _drive(jeng, sched, lambda: None)
+    treqs = _drive(teng, sched, teng.check_invariants)
+    for jr, tr in zip(jreqs, treqs):
+        assert jr.status == tr.status == "done"
+        assert list(tr.output_tokens) == list(jr.output_tokens), tr.prompt
+    assert teng.compile_count == jeng.compile_count == 3
+
+
+def test_row_cache_rejects_what_it_cannot_serve(row_models):
+    _, tm = row_models
+    with pytest.raises(ValueError, match="prefill_chunk requires paged"):
+        DecodeEngine(tm, max_slots=2, max_len=48, paged=False,
+                     prefill_chunk=8)
+    eng = DecodeEngine(tm, max_slots=2, max_len=48, paged=False,
+                       prefill_buckets=[8, 16])
+    long = eng.submit(list(range(1, 21)), max_new_tokens=4)
+    assert long.status == "failed" and "prefill bucket" in long.error
+    assert eng.queue_depth == 0 and eng.compile_count == 0
+    for bad in ([], [1] * 48):
+        assert eng.submit(bad, max_new_tokens=2).status == "failed"
+
+
+def test_row_cache_nonfinite_prefill_fails_alone(row_models):
+    """A NaN in the position table past a short request's reach poisons
+    only the prefill of a longer prompt: that request fails alone, its
+    slot is freed, and the short one streams on to the greedy tokens."""
+    jm, tm = row_models
+    eng = DecodeEngine(tm, max_slots=2, max_len=48, paged=False)
+    short = eng.submit([3, 1, 4, 1, 5], max_new_tokens=6)
+    eng.step()
+    assert short.status == "running"
+    saved = tm.gpt.wpe.weight.data[20:].clone()
+    with torch.no_grad():
+        tm.gpt.wpe.weight[20:] = float("nan")
+    try:
+        long = eng.submit(list(range(1, 25)), max_new_tokens=4)
+        eng.run(max_steps=20)
+    finally:
+        with torch.no_grad():
+            tm.gpt.wpe.weight[20:] = saved
+    assert long.status == "failed" and "non-finite" in long.error
+    assert short.status == "done"
+    assert list(short.output_tokens) == greedy_from(jm, short)
+    assert eng.nan_logits == 1 and eng.live_count == 0
+    eng.check_invariants()
+
+
+def test_row_cache_cancel_and_stats(row_models):
+    _, tm = row_models
+    eng = DecodeEngine(tm, max_slots=2, max_len=48, paged=False)
+    a = eng.submit([1, 2, 3], max_new_tokens=10)
+    b = eng.submit([4, 5, 6, 7], max_new_tokens=10)
+    c = eng.submit([8, 9], max_new_tokens=10)         # queued: 2 slots
+    eng.step()
+    assert a.status == b.status == "running" and c.status == "queued"
+    util = eng.kv_util()
+    assert util == (len(a.prompt) + 1 + len(b.prompt) + 1) / (2 * 48)
+    assert eng.cancel(b) and eng.cancel(c.id) and not eng.cancel(c)
+    done = eng.step()
+    assert {r.status for r in done} == {"cancelled"} and len(done) == 2
+    eng.check_invariants()
+    eng.run()
+    assert a.status == "done" and eng.cancelled == 2
+    st = eng.stats()
+    assert "paged" not in st and "spec" not in st
+    assert st["compile_count"] == 2 and st["executables"] == 2
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_dropped_engine_is_freed_without_the_collector(models, paged):
+    """An engine's programs hold it weakly: dropping the last reference
+    frees the engine, its caches and its programs at once, with the cycle
+    collector off (the float weights an int8 swap replaced among them)."""
+    _, tm = models
+    kw = dict(GEOM) if paged else dict(max_slots=4, max_len=48, paged=False)
+    eng = DecodeEngine(tm, **kw)
+    eng.submit([1, 2, 3], max_new_tokens=4)
+    eng.run()
+    assert eng.compile_count == 2
+    ref = weakref.ref(eng)
+    gc.disable()
+    try:
+        del eng
+        assert ref() is None
+    finally:
+        gc.enable()
 
 
 def test_engine_rejects_malformed_requests(models):
