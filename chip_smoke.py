@@ -90,11 +90,27 @@ the user entry points, random weights from a seed:
   with GQA (32 q heads on 8 KV heads), where the tokens must agree, with
   the early-exit drafter too ([llama-engine-spec-fp32]: identical tokens
   but at a near-tie of 1e-4);
+* GPT-medium training's features: activation recompute, one forward and
+  backward at 16 x 1024 without it (twice: the run-to-run spread) and
+  under "dots", "selective" and "full" (the leaves no dq reaches bit for
+  bit, the whole gradient within the spread or the dq reorder's, the
+  attention forward launched twice a block, peak memory falling:
+  [train-recompute]), then ``bench.py``'s ``--recompute`` lane
+  (selective, batch 24 x 1024, 3 timed steps: [recompute-lane]); "full"
+  at dropout 0.1 on 4 blocks against no recompute from the same
+  generator state (rows 1, 2 and 8 replay their masks:
+  [train-recompute-dropout]); ``accumulate_steps`` 2 x 8 against one step
+  of 16 and the peak memory of 4 x 4 ([train-accum]); a ``GradScaler``
+  with ``ClipGradByGlobalNorm(1.0)``, clean and with an inf gradient
+  ([train-amp]); ``auto_cast`` O1 on the fp32 model and ``decorate`` + O2
+  at 4 x 1024 against the uncast fp32 step and the bf16 model
+  ([train-amp-cast]);
 * LLaMA-7B training at full width and 4 blocks (32 would not fit: 16 bytes
   a parameter), batch 4 x seq 2048, the recipe of GPT's, 1 warm-up and 4
   timed steps, a profiled step, the same steps with attention in its plain
   versions, then the slice in fp32 at 2 blocks with GQA against the plain
-  CPU path.
+  CPU path, and "selective" recompute against none
+  ([llama-train-recompute]).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel its path never launched fails the run. A
@@ -117,6 +133,7 @@ drafters' windows. The last line is ``{"ok": true,
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -3894,6 +3911,12 @@ SPEC_TIE_GAP = {"gpt": 0.1, "llama": CROSSCHECK_GAP[BF16], "fp32": 1e-4}
 # |difference| over the logits' own largest |value| (bf16 rounds the
 # attention outputs in one and not the other)
 DRAFT_LOGIT_REL_LIMIT = 0.05
+# [draft-kernel-*]: proposals profiled until one reading holds every
+# replay's flash records. A graph replays the same kernels each time, yet
+# the CUDA tracer read 12 of a draft GPT proposal's 16 in two runs and 16
+# in two others on the same code (NVIDIA H100, torch 2.11): a short
+# reading is the tracer's, a reading above the count would be the graph's
+DRAFT_TRACE_TRIES = 3
 # [engine-int8]: the int8 model's greedy pick at each of [engine]'s
 # generated positions, fed [engine]'s own tokens, agrees with [engine]'s
 # token at this share of them or more. Free-running, the two engines'
@@ -4129,7 +4152,8 @@ def phase_draft_kernel(drafter, tag, gap_limit):
     eager kernel forward's argmax, and the last-position logits agree
     within DRAFT_LOGIT_REL_LIMIT with the argmax equal or a near-tie. One
     proposal (4 replays) is profiled: the flash forward body runs once a
-    block a replay. Then the kernel alone at the drafter's shape, timed
+    block a replay (up to DRAFT_TRACE_TRIES proposals, for a reading the
+    tracer did not cut; no reading may exceed it). Then the kernel alone at the drafter's shape, timed
     beside its plain version, sdpa and the bound. Returns (the kernel's
     record, its wrapper's name, the shape)."""
     from torch.profiler import ProfilerActivity, profile
@@ -4173,19 +4197,27 @@ def phase_draft_kernel(drafter, tag, gap_limit):
     req = type("Hist", (), {})()
     req.prompt = torch.randint(0, vocab, (100,), generator=gen).tolist()
     req.tokens = []
-    calls0 = drafter.calls
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        drafter.propose(req, 4)
-        torch.cuda.synchronize()
-    replays = drafter.calls - calls0
-    ran = sum(e.count for e in prof.key_averages()
-              if "flash_fwd" in e.key and "kernel" in e.key)
     per_call = _draft_blocks(drafter)
+    readings = []
+    for _ in range(DRAFT_TRACE_TRIES):
+        calls0 = drafter.calls
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            drafter.propose(req, 4)
+            torch.cuda.synchronize()
+        replays = drafter.calls - calls0
+        events = prof.key_averages()
+        ran = sum(e.count for e in events
+                  if "flash_fwd" in e.key and "kernel" in e.key)
+        readings.append((ran, sum(e.count for e in events)))
+        if ran == per_call * replays:
+            break
     log(f"{tag} one proposal: {replays} replays ran the flash forward "
-        f"{ran} times ({per_call} blocks a replay)")
-    if ran != per_call * replays:
+        f"{ran} times ({per_call} blocks a replay; readings (flash, every "
+        f"record) {readings})")
+    if ran != per_call * replays \
+            or max(r for r, _ in readings) > per_call * replays:
         raise AssertionError(f"{tag}: the replays launched the flash "
-                             f"forward {ran} times, expected "
+                             f"forward {readings}, expected "
                              f"{per_call * replays}")
     # the kernel alone at the drafter's shape
     d = model.config.hidden_size // model.config.num_heads
@@ -4457,6 +4489,530 @@ def _gpt_draft_model():
                           seed=1).eval()
 
 
+# ------------------------- training features: recompute, accumulation, AMP
+
+# [train-recompute], [train-recompute-dropout], [llama-train-recompute]
+# and [train-amp] hold a run's gradients (every leaf) against a run
+# without recompute (or scale) in two parts. The flash backwards add dq
+# into an fp32 scratch with bulk reductions whose order changes from run
+# to run (csrc/flash_bwd_sm90.cuh), so any leaf behind a dq may move by a
+# bf16 rounding between two runs of the same step. (1) The leaves no dq
+# reaches (``_DQ_FREE``: the last block's MLP, its second norm, its
+# output projection, its k and v projections where they stand apart, the
+# final norm and an untied head) equal the reference bit for bit: they
+# read the last block's recomputed activations and the attention
+# backward's dk and dv, whose sums keep their order. (2) The relative
+# error of the whole gradient is at most RECOMPUTE_SPREAD_FACTOR times
+# the larger of the spread of two runs without recompute and
+# DQ_REORDER_REL, the largest whole-gradient difference two runs of one
+# step have shown (LLaMA-7B width, 4 blocks, 4 x 2048: 3.33e-3, NVIDIA
+# H100 80GB HBM3, 700 W; the two runs agree bit for bit as often as not)
+RECOMPUTE_SPREAD_FACTOR = 2.0
+DQ_REORDER_REL = 3.5e-3
+_DQ_FREE = {
+    "gpt": r"gpt\.(ln_f\.|h\.{last}\.(ln_2|mlp|attn\.out_proj)\.)",
+    "llama": r"(model\.norm\.|lm_head\.|model\.layers\.{last}\."
+             r"(post_attention_layernorm\.|mlp\.|self_attn\.[kvo]_proj\.))"}
+# bench.py's --recompute lane: selective at batch 24 x 1024, 3 timed steps
+RECOMPUTE_LANE = dict(batch=24, seq=1024, steps=3)
+# [train-accum]: K = 2 x 8 against one step of 16 rows (bf16 gradients of
+# each microbatch summed in fp32 and halved, against bf16 gradients of the
+# 16 rows): the relative error of the whole gradient and of the loss
+ACCUM_GRAD_REL_LIMIT = 1e-2
+ACCUM_LOSS_REL_LIMIT = 1e-3
+# [train-amp]: the loss scale of the clean step (a power of two: the
+# scaled backward is the unscaled one times it, exactly, in bf16)
+AMP_SCALE = 2.0 ** 15
+# [train-amp-cast]: GPT-medium at 4 x 1024, 5 TrainStep calls a run; the
+# first loss of auto_cast O1 and of decorate + O2 within 1e-2 relative of
+# the uncast fp32 step's (the bf16 tolerance of the CPU test,
+# tests/test_torch_accum_amp.py::test_auto_cast_matches_jax)
+AMP_CAST = dict(batch=4, seq=1024, steps=5)
+AMP_CAST_LOSS_REL_LIMIT = 1e-2
+
+
+def _grad_errors(got, want):
+    """Two ``{name: gradient}`` maps: the relative Frobenius error of the
+    whole gradient (every leaf in one vector), and the largest relative
+    error of one leaf with its name (a leaf whose gradient is 0: the
+    largest absolute difference)."""
+    num = den = 0.0
+    worst = (0.0, None)
+    for n, w in want.items():
+        d = (got[n].double() - w.double()).norm().item()
+        wn = w.double().norm().item()
+        num, den = num + d * d, den + wn * wn
+        worst = max(worst, (d / wn if wn else d, n), key=lambda t: t[0])
+    return math.sqrt(num / den) if den else math.sqrt(num), worst
+
+
+def _fwd_bwd(model, ids, policy, reset=None):
+    """One forward and backward of ``model(ids, ids)`` under ``policy``
+    (after ``reset()`` where given): the loss, every leaf's gradient
+    (cloned), the peak allocated GB from before the forward (what the
+    process held then included: ``_held_gb``), and the launches."""
+    from paddle_tpu_torch.kernels import launch_counts
+    if reset is not None:
+        reset()
+    model.enable_recompute(policy)
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    loss = model(ids, ids)[1]
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    grew = _grew(before, launch_counts())
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads, peak, grew
+
+
+def _hold_grads(tag, what, got, want, spread, family, blocks):
+    """Gate a run's gradients ``got`` against ``want`` (both ``{name:
+    gradient}``) as the comment on RECOMPUTE_SPREAD_FACTOR says: the
+    ``_DQ_FREE[family]`` leaves (the last of ``blocks`` blocks) bit for
+    bit, the whole gradient within the limit. Logs both parts."""
+    pattern = re.compile(_DQ_FREE[family].format(last=blocks - 1))
+    exact = [n for n in want if pattern.match(n)]
+    moved = [n for n in exact if not torch.equal(got[n], want[n])]
+    err, (leaf_err, leaf) = _grad_errors(got, want)
+    limit = RECOMPUTE_SPREAD_FACTOR * max(spread, DQ_REORDER_REL)
+    log(f"{tag} {what}: {len(exact)} leaves no dq reaches, "
+        f"{len(moved)} moved {moved[:4]}; whole gradient error {err:.3g} "
+        f"(limit {RECOMPUTE_SPREAD_FACTOR} x max(spread {spread:.3g}, "
+        f"{DQ_REORDER_REL}); largest leaf {leaf_err:.3g}, {leaf})")
+    if not exact or moved or not err <= limit:
+        raise AssertionError(f"{tag} {what}: leaves no dq reaches moved "
+                             f"({moved[:4]}) or the gradient is {err:.3g} "
+                             f"from the reference (limit {limit:.3g})")
+
+
+def _held_gb():
+    """The GB allocated on the card now (model and optimizer state and
+    whatever earlier phases still hold)."""
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def _policies(tag, model, ids, blocks, fwd, bwd, policies, family,
+              dropouts=0, reset=None):
+    """Two runs without recompute (their spread), then one under each of
+    ``policies``: every policy's gradients held to the first run by
+    ``_hold_grads``, its launches the run without recompute's plus one
+    attention forward (``fwd``) a block, and one dropout a block where the
+    run without recompute launches ``dropouts``; the peak GB of each (the
+    model's weights and what the process held before included; the held
+    GB is printed). ``reset`` runs before every run."""
+    held = _held_gb()
+    loss0, g0, peak0, grew0 = _fwd_bwd(model, ids, "none", reset)
+    _expect_launches(f"{tag} none", grew0, **{fwd: blocks, bwd: blocks},
+                     dropout_fwd=dropouts)
+    loss1, g1, _, _ = _fwd_bwd(model, ids, "none", reset)
+    spread, (leaf_err, leaf) = _grad_errors(g1, g0)
+    log(f"{tag} held {held:.2f} GB at the start (the model's weights "
+        f"included); none: loss {loss0:.6f}, peak {peak0:.2f} GB; a second "
+        f"run without recompute: loss {loss1:.6f}, gradient error "
+        f"{spread:.3g} (largest leaf {leaf_err:.3g}, {leaf})")
+    del g1
+    peaks = {"none": peak0}
+    for policy in policies:
+        loss, g, peak, grew = _fwd_bwd(model, ids, policy, reset)
+        want = {fwd: 2 * blocks, bwd: blocks,
+                "dropout_fwd": dropouts + (blocks if dropouts else 0)}
+        _expect_launches(f"{tag} {policy}", grew, **want)
+        log(f"{tag} {policy}: loss {loss:.6f}, peak {peak:.2f} GB; launches "
+            f"{want}")
+        _hold_grads(tag, f"{policy} against none", g, g0, spread, family,
+                    blocks)
+        peaks[policy] = peak
+        del g
+    return peaks
+
+
+def phase_train_recompute():
+    """GPT-medium bf16 at TRAIN's batch 16 x 1024, one forward and backward
+    without recompute (twice: the spread) and under "dots", "selective"
+    and "full" on every block: gradients held by ``_policies``, the attention forward launched twice a block under
+    each policy (the flash forward is recomputed: its ``lse`` carries no
+    tag), the peak memory none > dots and none > selective > full. Then
+    bench.py's recompute lane: selective at RECOMPUTE_LANE's batch 24 x
+    1024, AdamW(multi_precision), 1 warm-up and 3 timed steps."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    blocks = GPT_MEDIUM["num_layers"]
+    model = GPTForCausalLM(GPTConfig(**GPT_MEDIUM), dtype=BF16,
+                           seed=0).train()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    ids = torch.randint(0, GPT_MEDIUM["vocab_size"],
+                        (TRAIN["batch"], TRAIN["seq"]), device="cuda",
+                        generator=gen)
+    peaks = _policies("[train-recompute]", model, ids, blocks,
+                      "flash_pair_fwd", "flash_pair_bwd",
+                      ("dots", "selective", "full"), "gpt")
+    if not (peaks["none"] > peaks["dots"] and peaks["none"]
+            > peaks["selective"] > peaks["full"]):
+        raise AssertionError(f"[train-recompute] peak memory does not fall: "
+                             f"{peaks}")
+    log(f"[train-recompute] peak GB by policy {peaks}")
+    del model
+    torch.cuda.empty_cache()
+
+    b, L = RECOMPUTE_LANE["batch"], RECOMPUTE_LANE["seq"]
+    model = GPTForCausalLM(GPTConfig(**dict(
+        GPT_MEDIUM, recompute_granularity="selective")), dtype=BF16, seed=0)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters(), multi_precision=True)
+    step = TrainStep(model, opt)
+    ids = torch.randint(0, GPT_MEDIUM["vocab_size"], (b, L), device="cuda",
+                        generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for i in range(1 + RECOMPUTE_LANE["steps"]):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        losses.append(step(ids, ids).item())       # synchronises
+        walls.append(time.perf_counter() - t0)
+        _expect_launches(f"[recompute-lane] step {i}",
+                         _grew(before, launch_counts()),
+                         flash_pair_fwd=2 * blocks, flash_pair_bwd=blocks)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"[recompute-lane] losses {losses}")
+    timed = walls[1:]
+    wall = sum(timed) / len(timed)
+    log(f"[recompute-lane] bench.py --recompute (selective, batch {b} x "
+        f"{L}): losses {[round(x, 4) for x in losses]}; {len(timed)} timed "
+        f"steps: wall per step {wall * 1e3:.1f} ms (min "
+        f"{min(timed) * 1e3:.1f}, max {max(timed) * 1e3:.1f}; warm-up "
+        f"{walls[0] * 1e3:.1f}), {b * L / wall:.0f} tokens/s; peak memory "
+        f"{peak_gb:.2f} GB")
+    del model, opt, step
+
+
+def phase_train_recompute_dropout():
+    """GPT-medium width at 4 blocks and dropout 0.1 (embeddings, residuals,
+    attention), bf16, batch 16 x 1024: "full" recompute from the model
+    generator's state of the run without recompute gives its gradients
+    (``_hold_grads``: the last block's leaves that no dq reaches bit for
+    bit), so the recompute of every block replayed the masks
+    of rows 1 (the pair forward's in-kernel dropout), 2 (the backward's)
+    and 8 (the dropout kernel): a redrawn mask would move the gradients
+    by O(1). Launches: 18 dropout kernels without recompute (1 + 2 a
+    block forward, as many backward), one more a block under "full" (the
+    residual dropout after attention, whose output the second LayerNorm
+    keeps) and one more pair forward a block."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    blocks = 4
+    cfg = GPTConfig(**dict(GPT_MEDIUM, num_layers=blocks,
+                           hidden_dropout_prob=0.1,
+                           attention_dropout_prob=0.1))
+    model = GPTForCausalLM(cfg, dtype=BF16, seed=3).train()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN["batch"], TRAIN["seq"]),
+                        device="cuda", generator=gen)
+    state = model.generator.get_state()
+    _policies("[train-recompute-dropout]", model, ids, blocks,
+              "flash_pair_fwd", "flash_pair_bwd", ("full",), "gpt",
+              dropouts=2 + 4 * blocks,
+              reset=lambda: model.generator.set_state(state))
+    del model
+
+
+def phase_llama_train_recompute():
+    """LLaMA-7B width at LLAMA_TRAIN's 4 blocks and batch 4 x 2048, bf16:
+    "selective" against no recompute (twice: the spread), gradients held
+    by ``_hold_grads``, the flash_attention forward twice a block, peak
+    memory below the run without recompute's."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b
+    blocks = LLAMA_TRAIN["layers"]
+    model = LlamaForCausalLM(llama_7b(num_layers=blocks), dtype=BF16,
+                             seed=0).train()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    ids = torch.randint(0, LLAMA_7B["vocab_size"],
+                        (LLAMA_TRAIN["batch"], LLAMA_TRAIN["seq"]),
+                        device="cuda", generator=gen)
+    peaks = _policies("[llama-train-recompute]", model, ids, blocks,
+                      "flash_attention_fwd", "flash_attention_bwd",
+                      ("selective",), "llama")
+    if not peaks["none"] > peaks["selective"]:
+        raise AssertionError(f"[llama-train-recompute] peak memory does not "
+                             f"fall: {peaks}")
+    del model
+
+
+def _capturing(cls):
+    """``cls`` (an optimizer class) that also keeps an fp32 copy of the
+    gradients each update is given (after the accumulation and the
+    unscale; its clip comes after)."""
+    class Capture(cls):
+        def apply_gradients(self, params, grads):
+            self.captured = [g.detach().float().clone() for g in grads]
+            super().apply_gradients(params, grads)
+    return Capture
+
+
+def _gpt_step(k=None, rows=16, scaler=None, clip=None, seed=4):
+    """A GPT-medium bf16 model (seed 0) with a capturing
+    AdamW(multi_precision) and TrainStep(accumulate_steps=k), and ``rows``
+    x TRAIN["seq"] random ids (``[k, rows / k, seq]`` when k is given)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    model = GPTForCausalLM(GPTConfig(**GPT_MEDIUM), dtype=BF16, seed=0)
+    opt = _capturing(AdamW)(learning_rate=1e-4, weight_decay=0.01,
+                            parameters=model.parameters(),
+                            multi_precision=True, grad_clip=clip)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    ids = torch.randint(0, GPT_MEDIUM["vocab_size"], (rows, TRAIN["seq"]),
+                        device="cuda", generator=gen)
+    if k:
+        ids = ids.view(k, rows // k, TRAIN["seq"])
+    return model, opt, TrainStep(model, opt, accumulate_steps=k,
+                                 grad_scaler=scaler), ids
+
+
+def _peak_step(step, ids):
+    """One step: its loss and the peak allocated GB from before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss = step(ids, ids).item()
+    return loss, torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_train_accum():
+    """GPT-medium bf16: TrainStep(accumulate_steps=2) over 2 x 8 rows
+    against one step of the same 16 rows (average_grads: the sum halved).
+    The loss (the mean of the two microbatch means; every label counts)
+    within ACCUM_LOSS_REL_LIMIT and the whole gradient within
+    ACCUM_GRAD_REL_LIMIT (bf16 microbatch gradients summed in fp32 against
+    bf16 gradients of 16 rows). Then the peak memory of K = 4 x 4 stays
+    below one 16-row step and within 1.5 x the fp32 accumulators (4 bytes
+    a parameter) of one 4-row step. Returns the launches of the K = 2
+    step."""
+    from paddle_tpu_torch.kernels import launch_counts
+    blocks = GPT_MEDIUM["num_layers"]
+    model, opt, step, ids = _gpt_step()
+    loss16, peak16 = _peak_step(step, ids)
+    want = {n: g for n, g in zip([n for n, _ in model.named_parameters()],
+                                 opt.captured)}
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, opt, step
+    torch.cuda.empty_cache()
+    model, opt, step, ids = _gpt_step(k=2)
+    before = launch_counts()
+    loss2, _ = _peak_step(step, ids)
+    grew = _grew(before, launch_counts())
+    _expect_launches("[train-accum] K = 2", grew,
+                     flash_pair_fwd=2 * blocks, flash_pair_bwd=2 * blocks)
+    got = {n: g for n, g in zip([n for n, _ in model.named_parameters()],
+                                opt.captured)}
+    err, (leaf_err, leaf) = _grad_errors(got, want)
+    loss_err = abs(loss2 - loss16) / abs(loss16)
+    log(f"[train-accum] K = 2 x 8 against one step of 16: loss {loss2:.6f} "
+        f"vs {loss16:.6f} (relative {loss_err:.3g}, limit "
+        f"{ACCUM_LOSS_REL_LIMIT}); gradient error {err:.3g} (limit "
+        f"{ACCUM_GRAD_REL_LIMIT}; largest leaf {leaf_err:.3g}, {leaf})")
+    if not (loss_err <= ACCUM_LOSS_REL_LIMIT
+            and err <= ACCUM_GRAD_REL_LIMIT):
+        raise AssertionError("[train-accum] K = 2 x 8 departs from one step "
+                             "of 16")
+    del model, opt, step, got, want
+    torch.cuda.empty_cache()
+    peaks = {}
+    for k, rows in ((None, 4), (4, 16)):
+        model, opt, step, ids = _gpt_step(k=k, rows=rows)
+        _peak_step(step, ids)                  # states and masters made
+        peaks[k] = _peak_step(step, ids)[1]
+        del model, opt, step
+        torch.cuda.empty_cache()
+    acc_gb = 4 * n_params / 1e9
+    log(f"[train-accum] peak GB: one 4-row step {peaks[None]:.2f}, K = 4 x 4 "
+        f"{peaks[4]:.2f} (the fp32 accumulators {acc_gb:.2f}), one 16-row "
+        f"step {peak16:.2f} (its first step)")
+    if not (peaks[4] < peak16 and peaks[4] - peaks[None] <= 1.5 * acc_gb):
+        raise AssertionError(f"[train-accum] K = 4 x 4 peak {peaks[4]:.2f} "
+                             f"GB is not near one 4-row step")
+    return grew
+
+
+def phase_train_amp():
+    """GPT-medium bf16, AdamW(multi_precision, grad_clip=
+    ClipGradByGlobalNorm(1.0)): one step with a GradScaler at AMP_SCALE
+    against the same step without one. A power-of-two scale commutes with
+    every bf16 rounding, so the unscaled gradients the two hand to the
+    update (and so their clips) equal each other bit for bit unless the
+    flash backward's dq order changed between the runs (a third, unscaled
+    run shows that spread; the gate is ``_hold_grads``). Then a gradient made
+    inf by a hook (the last block's fc_in) leaves parameters, masters and
+    moments bit for bit, the step counter where it was, and halves the
+    scale."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    grads = {}
+    for run in ("plain", "plain-again", "scaled"):
+        scaler = GradScaler(init_loss_scaling=AMP_SCALE) \
+            if run == "scaled" else None
+        model, opt, step, ids = _gpt_step(scaler=scaler,
+                                          clip=ClipGradByGlobalNorm(1.0))
+        loss = step(ids, ids).item()
+        names = [n for n, _ in model.named_parameters()]
+        grads[run] = dict(zip(names, opt.captured))
+        log(f"[train-amp] {run}: loss {loss:.6f}")
+        if run != "scaled":
+            del model, opt, step
+            torch.cuda.empty_cache()
+    spread, _ = _grad_errors(grads["plain-again"], grads["plain"])
+    differ = [n for n in grads["plain"]
+              if not torch.equal(grads["scaled"][n], grads["plain"][n])]
+    log(f"[train-amp] scaled x {AMP_SCALE:g} against unscaled: {len(differ)} "
+        f"of {len(grads['plain'])} leaves differ ({differ[:4]}); unscaled "
+        f"against unscaled: {spread:.3g}")
+    _hold_grads("[train-amp]", "scaled against unscaled", grads["scaled"],
+                grads["plain"], spread, "gpt", GPT_MEDIUM["num_layers"])
+    if scaler._scale != AMP_SCALE or scaler._good_steps != 1:
+        raise AssertionError("[train-amp] a clean step moved the scale")
+    snap = [(p.detach().clone(), opt._master_weights[id(p)].clone(),
+             {k: v.clone() for k, v in opt._accumulators[id(p)].items()})
+            for p in model.parameters()]
+    count = opt._step_count
+    hook = model.gpt.h[-1].mlp.fc_in.weight.register_hook(
+        lambda g: torch.full_like(g, float("inf")))
+    try:
+        step(ids, ids)
+    finally:
+        hook.remove()
+    for p, (p0, m0, st0) in zip(model.parameters(), snap):
+        if not (torch.equal(p, p0)
+                and torch.equal(opt._master_weights[id(p)], m0)
+                and all(torch.equal(v, st0[k])
+                        for k, v in opt._accumulators[id(p)].items())):
+            raise AssertionError("[train-amp] the skipped step moved a "
+                                 "parameter, master or moment")
+    if opt._step_count != count or scaler._scale != AMP_SCALE / 2:
+        raise AssertionError(f"[train-amp] step {opt._step_count} (was "
+                             f"{count}), scale {scaler._scale}")
+    log(f"[train-amp] an inf gradient skipped the update: parameters, "
+        f"masters and moments unchanged, step counter {count}, scale "
+        f"{AMP_SCALE:g} -> {scaler._scale:g}")
+
+
+def phase_train_amp_cast():
+    """GPT-medium, AMP_CAST's batch 4 x 1024, AdamW(multi_precision), a
+    capturing optimizer, AMP_CAST["steps"] TrainStep calls on one batch
+    in each of four runs: "fp32" (the fp32 model uncast: the fp32 flash
+    bodies), "O1" (the fp32 model, each call inside ``auto_cast()``),
+    "O2" (``decorate`` + ``auto_cast(level="O2")``) and "bf16" (the bf16
+    model, no AMP: the device work of O2 without the cast mode, so the
+    walls show the mode's host cost). Under O1 and O2 the linears hand
+    bf16 to the attention: every step launches the bf16 pair kernels, one
+    forward and one backward a block, and no fp32 body. O1 keeps the
+    parameters fp32; O2 makes them bf16 with fp32 masters. Each run's
+    losses are finite and fall; O1's and O2's first loss sit within
+    AMP_CAST_LOSS_REL_LIMIT of the uncast one. The relative error of the
+    whole first gradient against the uncast one is printed, not gated
+    (16 blocks of bf16 rounding; the CPU test gates 2 blocks per leaf)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import (f32_bwd_launch_counts,
+                                          f32_fwd_launch_counts,
+                                          launch_counts)
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    blocks = GPT_MEDIUM["num_layers"]
+    b, L = AMP_CAST["batch"], AMP_CAST["seq"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    ids = torch.randint(0, GPT_MEDIUM["vocab_size"], (b, L), device="cuda",
+                        generator=gen)
+    runs = {"fp32": (FP32, None), "O1": (FP32, "O1"), "O2": (FP32, "O2"),
+            "bf16": (BF16, None)}
+    first, grads = {}, {}
+    for run, (dtype, level) in runs.items():
+        model = GPTForCausalLM(GPTConfig(**GPT_MEDIUM), dtype=dtype,
+                               seed=0).train()
+        opt = _capturing(AdamW)(learning_rate=1e-4, weight_decay=0.01,
+                                parameters=model.parameters(),
+                                multi_precision=True)
+        if level == "O2":
+            amp.decorate(model, opt, level="O2")
+        step = TrainStep(model, opt)
+        losses, walls = [], []
+        for i in range(AMP_CAST["steps"]):
+            before = (launch_counts(), f32_fwd_launch_counts(),
+                      f32_bwd_launch_counts())
+            t0 = time.perf_counter()
+            if level is None:
+                loss = step(ids, ids).item()        # synchronises
+            else:
+                with amp.auto_cast(level=level):
+                    loss = step(ids, ids).item()
+            walls.append(time.perf_counter() - t0)
+            losses.append(loss)
+            _expect_launches(f"[train-amp-cast] {run} step {i}",
+                             _grew(before[0], launch_counts()),
+                             flash_pair_fwd=blocks, flash_pair_bwd=blocks)
+            f32 = (f32_fwd_launch_counts()["flash_pair_fwd"]
+                   - before[1]["flash_pair_fwd"],
+                   f32_bwd_launch_counts()["flash_pair_bwd"]
+                   - before[2]["flash_pair_bwd"])
+            want = (blocks, blocks) if run == "fp32" else (0, 0)
+            if f32 != want:
+                raise AssertionError(f"[train-amp-cast] {run} step {i}: fp32 "
+                                     f"body launches {f32}, expected {want}")
+            if i == 0:
+                grads[run] = dict(zip([n for n, _ in
+                                       model.named_parameters()],
+                                      opt.captured))
+        types = {p.dtype for p in model.parameters()}
+        want_types = {BF16} if run in ("O2", "bf16") else {FP32}
+        if types != want_types or (run == "O2" and len(
+                opt._master_weights) != len(list(model.parameters()))):
+            raise AssertionError(f"[train-amp-cast] {run}: parameter types "
+                                 f"{types}, {len(opt._master_weights)} "
+                                 f"masters")
+        if not all(math.isfinite(x) for x in losses) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"[train-amp-cast] {run}: losses {losses}")
+        first[run] = losses[0]
+        timed = walls[1:]
+        log(f"[train-amp-cast] {run}: losses "
+            f"{[round(x, 6) for x in losses]}; wall per step "
+            f"{sum(timed) / len(timed) * 1e3:.1f} ms (steps 2-"
+            f"{AMP_CAST['steps']}; first {walls[0] * 1e3:.1f}); "
+            f"{blocks} + {blocks} flash launches a step "
+            f"({'fp32' if run == 'fp32' else 'bf16'} bodies)")
+        del model, opt, step
+        torch.cuda.empty_cache()
+    for run in ("O1", "O2"):
+        rel = abs(first[run] - first["fp32"]) / abs(first["fp32"])
+        err, (leaf_err, leaf) = _grad_errors(grads[run], grads["fp32"])
+        log(f"[train-amp-cast] {run} against the uncast fp32 step: first "
+            f"loss {first[run]:.6f} vs {first['fp32']:.6f} (relative "
+            f"{rel:.3g}, limit {AMP_CAST_LOSS_REL_LIMIT}); whole gradient "
+            f"error {err:.3g} (largest leaf {leaf_err:.3g}, {leaf})")
+        if not rel <= AMP_CAST_LOSS_REL_LIMIT:
+            raise AssertionError(f"[train-amp-cast] {run}: first loss "
+                                 f"{rel:.3g} from the uncast step's")
+
+
+def _release(tag):
+    """Collect what earlier phases left (reference cycles included), give
+    the cache back, and print what the process still holds."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[memory] {tag}: {_held_gb():.2f} GB allocated")
+
+
 def _kernel_entry(name, source, replaces, launches, record):
     return dict(name=name, route="cuda",
                 source=f"paddle_tpu_torch/csrc/{source}",
@@ -4584,7 +5140,7 @@ def main() -> int:
     gpt_other_modes(model, reqs, graph_reqs, graph, counts, paths,
                     spec_paths, draft_records)
     del model, reqs, bucket_reqs, gen_rows, graph_reqs
-    torch.cuda.empty_cache()
+    _release("GPT serving freed")
 
     reset_launch_counts()                  # GPT training starts here
     train_model, opt, train_ids, losses = phase_train()
@@ -4598,6 +5154,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     counted("gpt-dropout-check", phase_gpt_dropout_check)
     torch.cuda.empty_cache()
+    # the training features: each path from 0 launches to its reading
+    for path, phase in (("gpt-training-recompute", phase_train_recompute),
+                        ("gpt-training-recompute-dropout",
+                         phase_train_recompute_dropout),
+                        ("gpt-training-accum", phase_train_accum),
+                        ("gpt-training-amp", phase_train_amp),
+                        ("gpt-training-amp-cast", phase_train_amp_cast)):
+        reset_launch_counts()
+        phase()
+        paths[path] = counts()
+        torch.cuda.empty_cache()
 
     reset_launch_counts()                  # BERT training starts here
     bert, opt, batch, losses = phase_bert_train(smi)
@@ -4656,7 +5223,7 @@ def main() -> int:
     llama_other_modes(llama, graph_reqs, graph, counts, paths, spec_paths,
                       draft_records)
     del llama, reqs, ids, gen_rows, graph_reqs
-    torch.cuda.empty_cache()
+    _release("LLaMA-7B serving freed")
     fp32 = {}
 
     def fp32_engine():
@@ -4676,6 +5243,10 @@ def main() -> int:
     phase_llama_train_plain(losses)
     torch.cuda.empty_cache()
     counted("llama-train-check", phase_llama_train_check)
+    _release("before [llama-train-recompute]")
+    reset_launch_counts()                  # LLaMA recompute starts here
+    phase_llama_train_recompute()
+    paths["llama-training-recompute"] = counts()   # ... and ends here
 
     # every kernel of a path ran on it
     needs = {"gpt-serving": ["flash_pair_fwd"],
@@ -4693,6 +5264,15 @@ def main() -> int:
              "llama-serving": ["flash_attention_fwd"],
              "llama-training": ["flash_attention_fwd",
                                 "flash_attention_bwd"],
+             "gpt-training-recompute": ["flash_pair_fwd", "flash_pair_bwd"],
+             "gpt-training-recompute-dropout": ["flash_pair_fwd",
+                                                "flash_pair_bwd",
+                                                "dropout_fwd"],
+             "gpt-training-accum": ["flash_pair_fwd", "flash_pair_bwd"],
+             "gpt-training-amp": ["flash_pair_fwd", "flash_pair_bwd"],
+             "gpt-training-amp-cast": ["flash_pair_fwd", "flash_pair_bwd"],
+             "llama-training-recompute": ["flash_attention_fwd",
+                                          "flash_attention_bwd"],
              "gpt-serving-spec-draft": ["flash_pair_fwd"],
              "gpt-serving-spec-early": ["flash_pair_fwd"],
              "llama-serving-spec": ["flash_attention_fwd"]}

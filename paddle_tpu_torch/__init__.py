@@ -25,10 +25,15 @@ elements. ``seed``, ``get_rng_state`` and ``set_rng_state`` drive the
 global chain that ``F.dropout``, ``nn.Dropout`` and the attention
 functionals draw from when no generator is given (``core/random.py``).
 ``convert.load_paddle_state`` carries weights over from a ``paddle_tpu``
-model.
+model. Training takes the JAX package's single-card knobs: activation
+recompute on GPT and LLaMA (``recompute_granularity`` "full", "dots" or
+"selective", ``distributed.fleet.recompute``), gradient accumulation and
+a ``GradScaler`` in ``TrainStep``, ``nn.ClipGradBy*`` as ``grad_clip``,
+``regularizer.L2Decay`` and AdamW's ``apply_decay_param_fun``, and
+``amp.auto_cast`` / ``amp.decorate``.
 """
-from . import (core, jit, kernels, models, nn, optimizer, quantization,
-               serving)
+from . import (amp, core, distributed, jit, kernels, models, nn, optimizer,
+               quantization, regularizer, serving)
 from .core.random import get_rng_state, seed, set_rng_state
 from .jit import TrainStep
 from .models import (BertConfig, BertForPreTraining, GPTConfig,
@@ -36,8 +41,8 @@ from .models import (BertConfig, BertForPreTraining, GPTConfig,
                      llama_7b)
 from .serving import DecodeEngine
 
-__all__ = ["core", "jit", "kernels", "models", "nn", "optimizer",
-           "quantization", "serving",
+__all__ = ["amp", "core", "distributed", "jit", "kernels", "models", "nn",
+           "optimizer", "quantization", "regularizer", "serving",
            "BertConfig", "BertForPreTraining", "bert_base", "GPTConfig",
            "GPTForCausalLM", "LlamaConfig", "LlamaForCausalLM", "llama_7b",
            "DecodeEngine", "TrainStep", "seed", "get_rng_state",

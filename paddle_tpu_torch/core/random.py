@@ -21,14 +21,27 @@ waits for the device, and a run on the card and one on the CPU that start
 from the same generator state draw the same seeds in the same order:
 after ``seed(s)`` a call without a generator drops what the same call
 with ``generator=make_generator(s)`` drops.
+
+An activation-recompute region (``distributed/fleet/recompute.py``) must
+draw in its recompute the seeds its first forward drew, from whatever
+generator each came from: ``record_generators()`` snapshots every
+generator a draw resolves (``default_generator``) the first time it does
+so inside the block, and ``replay_generators(snapshot)`` sets them back
+to those states for the recompute and restores their current states
+after it (the JAX package restores its chain around the recompute the
+same way).
 """
 from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
 
 import torch
 
 __all__ = ["make_generator", "next_seed", "seed", "get_seed",
            "get_rng_state", "set_rng_state", "default_generator",
-           "check_model_generator"]
+           "check_model_generator", "record_generators",
+           "replay_generators"]
 
 # the global chain, seeded with 0 as the JAX package's is
 _CHAIN = torch.Generator(device="cpu")
@@ -67,10 +80,52 @@ def set_rng_state(state: torch.Tensor) -> None:
     _CHAIN.set_state(state)
 
 
+# the open record_generators() snapshots of this thread, innermost last
+_recording = threading.local()
+
+
 def default_generator(generator: torch.Generator | None = None
                       ) -> torch.Generator:
-    """``generator``, or the global chain when it is None."""
-    return _CHAIN if generator is None else generator
+    """``generator``, or the global chain when it is None. Every draw of
+    the port resolves its generator here, so each open
+    ``record_generators`` snapshot takes the generator's state the first
+    time a draw reaches it."""
+    generator = _CHAIN if generator is None else generator
+    for snap in getattr(_recording, "open", ()):
+        if all(g is not generator for g, _ in snap):
+            snap.append((generator, generator.get_state()))
+    return generator
+
+
+@contextmanager
+def record_generators(snap: list):
+    """Within it, every generator a draw resolves is snapshotted into
+    ``snap`` before its first draw, as ``(generator, state)`` pairs for
+    ``replay_generators``."""
+    stack = getattr(_recording, "open", None)
+    if stack is None:
+        stack = _recording.open = []
+    stack.append(snap)
+    try:
+        yield
+    finally:
+        del stack[next(i for i, s in enumerate(stack) if s is snap)]
+
+
+@contextmanager
+def replay_generators(snapshot):
+    """Within it, each generator of ``snapshot`` (from
+    ``record_generators``) stands at its recorded state, so the block
+    draws again the seeds it drew then; each is restored to its current
+    state after."""
+    now = [(g, g.get_state()) for g, _ in snapshot]
+    for g, state in snapshot:
+        g.set_state(state)
+    try:
+        yield
+    finally:
+        for g, state in now:
+            g.set_state(state)
 
 
 def check_model_generator(module, generator, *rates) -> None:

@@ -12,9 +12,12 @@ the cached forward over a paged KV pool (``serving.DecodeEngine``) or
 contiguous per-row buffers, the early-exit drafter's ``layer_subset``, and
 ``generate()`` (greedy or temperature +
 top-k sampling; its one-token step is a fixed-shape program,
-``core/programs.py``: a CUDA graph on the card). Every cursor of the
-cached path may be device data, so a captured step reads it at replay.
-Recompute, the scanned layer stack and tensor parallelism come later.
+``core/programs.py``: a CUDA graph on the card), and activation recompute
+in training (``recompute_granularity`` "full", "dots" or "selective" on
+every ``recompute_interval``-th block, ``distributed.fleet.recompute``;
+the tags of ``core.remat`` sit where the JAX package puts them). Every
+cursor of the cached path may be device data, so a captured step reads it
+at replay. The scanned layer stack and tensor parallelism come later.
 
 Layouts follow the JAX package at every public function: the fused
 projection is ``[B, L, 3*H*D]`` with columns ``[q heads | k heads | v
@@ -32,10 +35,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.amp_state import amp_op
 from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
 from ..core.programs import ProgramRegistry, leaf_addresses, serving_mode
 from ..core.random import check_model_generator, make_generator, next_seed
+from ..core.remat import (ATTN_OUT, ATTN_QKV, MLP_HIDDEN,
+                          normalize_granularity, tag_activation)
+from ..distributed.fleet.recompute import recompute
 from ..kernels.philox import sample_uniform
 from ..nn import Dropout
 from ..nn import functional as F
@@ -62,7 +69,11 @@ class GPTConfig:
     layer_norm_epsilon: float = 1e-5
     tie_word_embeddings: bool = True
     scan_layers: bool = False
+    remat: str = "none"                # legacy alias of recompute_granularity
+    # activation recompute: "none" | "selective" | "dots" | "full" on every
+    # recompute_interval-th block (core.remat.normalize_granularity)
     recompute_granularity: str = "none"
+    recompute_interval: int = 1
 
     def __post_init__(self):
         if self.intermediate_size == 0:
@@ -71,10 +82,11 @@ class GPTConfig:
             raise NotImplementedError(
                 "scan_layers: the scanned block stack is not ported yet "
                 "(ROADMAP Queue 1, item 3)")
-        if self.recompute_granularity != "none":
-            raise NotImplementedError(
-                "activation recompute is not ported yet (ROADMAP Queue 1, "
-                "item 5)")
+        if self.recompute_granularity == "none" and self.remat != "none":
+            self.recompute_granularity = self.remat   # legacy spelling
+        self.recompute_granularity, self.recompute_interval = \
+            normalize_granularity(self.recompute_granularity,
+                                  self.recompute_interval)
 
 
 def gpt_tiny(**overrides) -> GPTConfig:
@@ -179,12 +191,13 @@ class GPTAttention(nn.Module):
             return self._forward_cached(x, kv_cache)
         # packed path: the fused projection feeds the kernel directly and
         # the context comes back [b, s, h], no head split/merge
-        out = F.flash_attention_qkv_packed(self.qkv_proj(x), self.num_heads,
+        qkv = tag_activation(self.qkv_proj(x), ATTN_QKV)
+        out = F.flash_attention_qkv_packed(qkv, self.num_heads,
                                            dropout=self.dropout_p,
                                            causal=True,
                                            training=self.training,
                                            generator=self.generator)
-        return self.out_proj(out)
+        return tag_activation(self.out_proj(out), ATTN_OUT)
 
     def _forward_cached(self, x, kv_cache):
         """KV-cache attention (serving and ``generate()``): write this
@@ -220,8 +233,8 @@ class GPTMLP(nn.Module):
         self.fc_out = nn.Linear(config.intermediate_size, config.hidden_size)
 
     def forward(self, x):
-        return self.fc_out(nn.functional.gelu(self.fc_in(x),
-                                              approximate="tanh"))
+        return self.fc_out(nn.functional.gelu(
+            tag_activation(self.fc_in(x), MLP_HIDDEN), approximate="tanh"))
 
 
 class GPTBlock(nn.Module):
@@ -246,12 +259,30 @@ class GPTBlock(nn.Module):
         return x + self.dropout(self.mlp(self.ln_2(x)))
 
 
-def _blocks(blocks, layer_subset):
-    """The blocks a forward runs: all of them, or those whose index lies in
-    ``layer_subset``, in order."""
-    if layer_subset is None:
-        return list(blocks)
-    return [blk for i, blk in enumerate(blocks) if i in layer_subset]
+def _run_blocks(model, blocks, x, layer_subset):
+    """The uncached forward's block loop, shared by GPT and LLaMA: every
+    block, or those whose index lies in ``layer_subset``, in order. In
+    training with grad enabled, block ``i`` with ``i % recompute_interval
+    == 0`` runs under ``recompute`` with the config's granularity as its
+    policy (none: no block does)."""
+    cfg = model.config
+    gran = cfg.recompute_granularity
+    use_rc = gran != "none" and model.training and torch.is_grad_enabled()
+    for i, block in enumerate(blocks):
+        if layer_subset is not None and i not in layer_subset:
+            continue
+        if use_rc and i % cfg.recompute_interval == 0:
+            x = recompute(block, x, policy=gran)
+        else:
+            x = block(x)
+    return x
+
+
+def _enable_recompute(config, granularity, interval):
+    """``enable_recompute``'s body: set the config's granularity and
+    interval (``normalize_granularity``)."""
+    config.recompute_granularity, config.recompute_interval = \
+        normalize_granularity(granularity, interval)
 
 
 class GPTModel(nn.Module):
@@ -293,9 +324,7 @@ class GPTModel(nn.Module):
                                   cfg.hidden_dropout_prob,
                                   cfg.attention_dropout_prob)
             x = self.drop(self.wte(input_ids) + self.wpe(ar[None, :]))
-            for block in _blocks(self.h, layer_subset):
-                x = block(x)
-            return self.ln_f(x)
+            return self.ln_f(_run_blocks(self, self.h, x, layer_subset))
         if layer_subset is not None:
             raise ValueError("layer_subset runs on the uncached path only")
         p0 = 0 if start_pos is None else start_pos
@@ -312,6 +341,13 @@ class GPTModel(nn.Module):
         for block, cache in zip(self.h, kv_caches):
             x = block(x, kv_cache=_layer_cache(cache, p0, we))
         return self.ln_f(x)
+
+    def enable_recompute(self, granularity="selective", interval: int = 1):
+        """Turn activation recompute on or off after construction:
+        granularity "none" | "selective" | "dots" | "full" (True gives
+        "full", False and None "none"), on every ``interval``-th block."""
+        _enable_recompute(self.config, granularity, interval)
+        return self
 
 
 class GPTForCausalLM(nn.Module):
@@ -355,6 +391,11 @@ class GPTForCausalLM(nn.Module):
                 p.zero_()
             else:
                 p.fill_(1.0)
+
+    def enable_recompute(self, granularity="selective", interval: int = 1):
+        """See ``GPTModel.enable_recompute``."""
+        self.gpt.enable_recompute(granularity, interval)
+        return self
 
     @property
     def head_weight(self) -> torch.Tensor:
@@ -415,6 +456,7 @@ class GPTForCausalLM(nn.Module):
             eos_token_id=eos_token_id, seed=seed, max_length=max_length)
 
 
+@amp_op("lm_head_ce")
 def _lm_head_ce(hidden, weight, labels, bias=None, ignore_index: int = -100):
     """LM head + next-token cross-entropy (the JAX package's
     ``lm_head_ce``, ``paddle_tpu/models/gpt.py:34``): ``hidden [B, S, H]``

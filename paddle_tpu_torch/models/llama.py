@@ -6,9 +6,10 @@ flash kernels on the GPU, forward and backward, with GQA), the loss
 (``LlamaForCausalLM.forward(ids, labels)``) for training, the cached
 forward over a paged KV pool (``serving.DecodeEngine``) or contiguous
 per-row buffers sized by the KV head count, the early-exit drafter's
-``layer_subset``, and ``generate()`` (GPT's loop,
-``gpt._generate_with_cache``). Recompute and tensor parallelism come later
-and raise naming their ROADMAP item.
+``layer_subset``, ``generate()`` (GPT's loop,
+``gpt._generate_with_cache``), and activation recompute in training (GPT's
+block loop, ``gpt._run_blocks``). Tensor parallelism comes later and
+raises naming its ROADMAP item.
 
 ``torch.nn.Linear`` keeps its weight as ``[out, in]`` where the JAX package
 keeps ``[in, out]``; ``convert.py`` transposes between them.
@@ -21,13 +22,16 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..core.amp_state import amp_op
 from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
 from ..core.random import make_generator
+from ..core.remat import (ATTN_CONTEXT, ATTN_OUT, ATTN_QKV, MLP_HIDDEN,
+                          normalize_granularity, tag_activation)
 from ..nn import RMSNorm
 from ..nn import functional as F
-from .gpt import (_blocks, _generate_with_cache, _kv_update, _layer_cache,
-                  _lm_head_ce)
+from .gpt import (_enable_recompute, _generate_with_cache, _kv_update,
+                  _layer_cache, _lm_head_ce, _run_blocks)
 
 __all__ = ["LlamaConfig", "llama_7b", "llama_tiny", "rope", "LlamaAttention",
            "LlamaMLP", "LlamaBlock", "LlamaModel", "LlamaForCausalLM",
@@ -51,7 +55,10 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     initializer_range: float = 0.02
+    # activation recompute ("none" | "selective" | "dots" | "full") on
+    # every recompute_interval-th block, as GPT's
     recompute_granularity: str = "none"
+    recompute_interval: int = 1
 
     def __post_init__(self):
         if self.num_kv_heads == 0:
@@ -59,8 +66,9 @@ class LlamaConfig:
         if self.num_heads % self.num_kv_heads:
             raise ValueError(f"num_heads {self.num_heads} is not a multiple "
                              f"of num_kv_heads {self.num_kv_heads}")
-        if self.recompute_granularity != "none":
-            raise _unported("activation recompute", "Queue 1, item 5")
+        self.recompute_granularity, self.recompute_interval = \
+            normalize_granularity(self.recompute_granularity,
+                                  self.recompute_interval)
 
 
 def llama_7b(**overrides) -> LlamaConfig:
@@ -81,6 +89,7 @@ def llama_tiny(**overrides) -> LlamaConfig:
     return LlamaConfig(**cfg)
 
 
+@amp_op("rope")
 def rope(q, k, pos=None, theta: float = 10000.0):
     """Rotary embedding on q, k ``[B, S, H, D]`` in the interleaved-pair
     form (pairs ``x[..., ::2]``, ``x[..., 1::2]``, not ``rotate_half``),
@@ -129,12 +138,18 @@ class LlamaAttention(nn.Module):
         self.o_proj = nn.Linear(hidden, hidden, bias=False)
 
     def _qkv(self, x, pos=None):
+        """q, k, v ``[B, S, heads, D]`` with RoPE on q and k, tagged where
+        the JAX package tags them (raw v, rotated q and k) and, since an
+        eager recompute cannot skip the projections behind a kept rotation,
+        also at the q and k projections."""
         b, s, _ = x.shape
-        q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
-        k = self.k_proj(x).view(b, s, self.num_kv, self.head_dim)
-        v = self.v_proj(x).view(b, s, self.num_kv, self.head_dim)
-        q, k = rope(q, k, pos, self.theta)
-        return q, k, v
+        q = tag_activation(self.q_proj(x), ATTN_QKV)
+        k = tag_activation(self.k_proj(x), ATTN_QKV)
+        v = tag_activation(self.v_proj(x), ATTN_QKV)
+        q, k = rope(q.view(b, s, self.num_heads, self.head_dim),
+                    k.view(b, s, self.num_kv, self.head_dim), pos, self.theta)
+        return (tag_activation(q, ATTN_QKV), tag_activation(k, ATTN_QKV),
+                v.view(b, s, self.num_kv, self.head_dim))
 
     def forward(self, x, kv_cache=None):
         if kv_cache is not None:
@@ -145,7 +160,8 @@ class LlamaAttention(nn.Module):
         # KV head, so repeated K/V never exists; the context comes back
         # [b, s, H, D], which o_proj reads without a copy
         out = F.flash_attention(q, k, v, causal=True, training=self.training)
-        return self.o_proj(out.reshape(b, s, h))
+        out = tag_activation(out, ATTN_CONTEXT)
+        return tag_activation(self.o_proj(out.reshape(b, s, h)), ATTN_OUT)
 
     def _forward_cached(self, x, kv_cache):
         """KV-cache attention (serving and ``generate()``): RoPE at the
@@ -189,8 +205,9 @@ class LlamaMLP(nn.Module):
         self.down_proj = nn.Linear(inter, hidden, bias=False)
 
     def forward(self, x):
-        return self.down_proj(nn.functional.silu(self.gate_proj(x))
-                              * self.up_proj(x))
+        return self.down_proj(
+            nn.functional.silu(tag_activation(self.gate_proj(x), MLP_HIDDEN))
+            * tag_activation(self.up_proj(x), MLP_HIDDEN))
 
 
 class LlamaBlock(nn.Module):
@@ -232,9 +249,7 @@ class LlamaModel(nn.Module):
         (uncached path only) runs just the named blocks, as GPT's."""
         x = self.embed_tokens(input_ids)
         if kv_caches is None:
-            for block in _blocks(self.layers, layer_subset):
-                x = block(x)
-            return self.norm(x)
+            return self.norm(_run_blocks(self, self.layers, x, layer_subset))
         if layer_subset is not None:
             raise ValueError("layer_subset runs on the uncached path only")
         p0 = 0 if start_pos is None else start_pos
@@ -243,6 +258,12 @@ class LlamaModel(nn.Module):
         for block, cache in zip(self.layers, kv_caches):
             x = block(x, kv_cache=_layer_cache(cache, p0, we))
         return self.norm(x)
+
+    def enable_recompute(self, granularity="selective", interval: int = 1):
+        """Activation recompute on or off; see
+        ``GPTModel.enable_recompute``."""
+        _enable_recompute(self.config, granularity, interval)
+        return self
 
 
 class LlamaForCausalLM(nn.Module):
@@ -303,7 +324,9 @@ class LlamaForCausalLM(nn.Module):
         return nn.functional.linear(hidden, self.head_weight)
 
     def enable_recompute(self, granularity="selective", interval: int = 1):
-        raise _unported("activation recompute", "Queue 1, item 5")
+        """See ``LlamaModel.enable_recompute``."""
+        self.model.enable_recompute(granularity, interval)
+        return self
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  temperature: float = 1.0, do_sample: bool = False,

@@ -34,6 +34,7 @@ from contextlib import contextmanager
 
 import torch
 
+from ...core.amp_state import amp_op
 from ...core.random import next_seed
 from ...kernels import philox
 from ...kernels.flash_attention import FlashAttention
@@ -135,6 +136,7 @@ def _attend(query, key, value, attn_mask, causal, rate, seed, kv_lens=None,
     return _plain_attention(query, key, value, causal, rate, seed, attn_mask)
 
 
+@amp_op("sdpa")
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
@@ -208,6 +210,7 @@ def _plain_attention(query, key, value, causal, rate: float = 0.0,
     return (probs @ vt).transpose(1, 2)
 
 
+@amp_op("flash_attn_pallas")
 def flash_attention(query, key, value, dropout: float = 0.0,
                     causal: bool = False, return_softmax: bool = False,
                     fixed_seed_offset=None, rng_name: str = "",
@@ -241,6 +244,7 @@ def flash_attention(query, key, value, dropout: float = 0.0,
     return (out, None) if return_softmax else out
 
 
+@amp_op("flash_attn_qkv_packed")
 def flash_attention_qkv_packed(qkv, num_heads: int, dropout: float = 0.0,
                                causal: bool = True, training: bool = True,
                                generator=None):

@@ -14,12 +14,14 @@ from __future__ import annotations
 
 import torch
 
+from ...core.amp_state import amp_op
 from ...core.random import default_generator, next_seed
 from ...kernels.dropout import DropoutFunction
 
 __all__ = ["dropout"]
 
 
+@amp_op("dropout")
 def dropout(x, p: float = 0.5, axis=None, training: bool = True,
             mode: str = "upscale_in_train", generator=None):
     """``paddle.nn.functional.dropout``: each element of ``x`` (or each

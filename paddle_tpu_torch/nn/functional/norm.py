@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core.amp_state import amp_op
 from ...core.random import next_seed
 from ...kernels.fused_residual import FusedAddDropoutLN
 from .common import dropout
@@ -23,6 +24,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None,
                                           bias, epsilon)
 
 
+@amp_op("fused_add_dropout_ln")
 def add_dropout_ln(x, sub, weight, bias, p: float = 0.0,
                    epsilon: float = 1e-12, training: bool = True,
                    generator=None):

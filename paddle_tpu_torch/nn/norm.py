@@ -5,9 +5,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..core.amp_state import amp_op
+
 __all__ = ["RMSNorm", "rms_norm"]
 
 
+@amp_op("rms_norm")
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              epsilon: float = 1e-6) -> torch.Tensor:
     """The JAX package's ``_rms_norm_fwd``: the mean of squares in fp32,

@@ -12,6 +12,11 @@ donating those buffers to its update.
 not fp32, made from the parameter's own values, and fp32 moments; each
 ``step()`` casts the gradient to the master's type, updates the master and
 copies it, cast, into the parameter.
+
+``grad_clip`` (``nn.clip``) runs in ``step()`` before the update, on the
+gradients as they stand; the cast to the master's type comes after it.
+``weight_decay`` is a float or an ``L2Decay`` (its coefficient); an
+``L1Decay`` raises ``NotImplementedError``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..core.amp_state import applied
+from ..regularizer import L1Decay
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "Adam", "AdamW", "adam_update"]
@@ -63,17 +70,19 @@ class Optimizer:
         if parameters is None:
             raise ValueError("parameters must be provided (eager mode, like "
                              "reference dygraph optimizers)")
-        if grad_clip is not None:
-            raise NotImplementedError(f"grad_clip is not ported yet ({_ITEM})")
-        if not (weight_decay is None or isinstance(weight_decay,
-                                                   (int, float))):
+        if isinstance(weight_decay, L1Decay):
             raise NotImplementedError(
-                f"regularizer objects as weight_decay are not ported yet "
-                f"({_ITEM}); pass a float")
+                "optimizers apply L2 weight decay; add an L1 penalty to the "
+                "loss (or regularizer(param) to the gradients) by hand")
+        if weight_decay is None or isinstance(weight_decay, (int, float)):
+            self._weight_decay = float(weight_decay or 0.0)
+        else:                            # an L2Decay-style object
+            self._weight_decay = float(getattr(
+                weight_decay, "_coeff", getattr(weight_decay, "coeff", 0.0)))
         self._parameter_list = list(parameters)
         self._learning_rate = learning_rate
+        self._grad_clip = grad_clip
         self._multi_precision = bool(multi_precision)
-        self._weight_decay = float(weight_decay or 0.0)
         self._accumulators: Dict[int, Dict[str, torch.Tensor]] = {}
         self._master_weights: Dict[int, torch.Tensor] = {}
         self._step_count = 0
@@ -111,12 +120,15 @@ class Optimizer:
 
     # ------------------------------------------------------------ step
 
+    def _wd_scale(self, p) -> float:
+        """The per-parameter weight-decay multiplier (AdamW's
+        ``apply_decay_param_fun``)."""
+        return 1.0
+
     @torch.no_grad()
     def step(self):
-        """Update every parameter that has a gradient: the rule runs on the
-        fp32 master where one exists (the gradient cast to fp32), else on
-        the parameter itself; a master is then copied, cast, into the
-        parameter in place."""
+        """Update every parameter that has a gradient (``apply_gradients``
+        on ``p.grad``)."""
         params = [p for p in self._parameter_list
                   if p.requires_grad and p.grad is not None]
         if not params:
@@ -124,17 +136,35 @@ class Optimizer:
         if any(p.grad.is_sparse for p in params):
             raise NotImplementedError(f"sparse gradients (the row-wise rule) "
                                       f"are not ported yet ({_ITEM})")
+        self.apply_gradients(params, [p.grad for p in params])
+
+    @torch.no_grad()
+    def apply_gradients(self, params, grads):
+        """One update of ``params`` from ``grads`` (a list each, in order):
+        the clip on the gradients as given, then the rule on the fp32
+        master where one exists (the gradient cast to its type), else on
+        the parameter itself; a master is then copied, cast, into the
+        parameter in place. ``step()`` runs it on ``p.grad``;
+        ``jit.TrainStep`` on its accumulated fp32 gradients. It runs
+        uncast under ``auto_cast``: O2 would otherwise round the fp32
+        masters' arithmetic to the low type."""
+        with applied(None):
+            self._apply(params, grads)
+
+    def _apply(self, params, grads):
+        if self._grad_clip is not None:
+            grads = [g for _, g in self._grad_clip(list(zip(params, grads)))]
         self._step_count += 1
         lr = self.get_lr()
-        for p in params:
+        for p, g in zip(params, grads):
             state = self._ensure_state(p)
             target = self._master_weights.get(id(p), p)
-            grad = p.grad.to(target.dtype)
-            self._update(target, grad, state, lr, self._step_count)
+            self._update(target, g.to(target.dtype), state, lr,
+                         self._step_count, self._wd_scale(p))
             if target is not p:
                 p.copy_(target)
 
-    def _update(self, param, grad, state, lr, step):
+    def _update(self, param, grad, state, lr, step, wd_scale=1.0):
         raise NotImplementedError
 
     def clear_grad(self):
@@ -162,16 +192,25 @@ class Adam(Optimizer):
         self._beta2 = float(beta2)
         self._epsilon = float(epsilon)
 
-    def _update(self, param, grad, state, lr, step):
+    def _update(self, param, grad, state, lr, step, wd_scale=1.0):
         adam_update(param, grad, state["moment1"], state["moment2"], lr=lr,
                     step=step, beta1=self._beta1, beta2=self._beta2,
-                    epsilon=self._epsilon, weight_decay=self._weight_decay,
+                    epsilon=self._epsilon,
+                    weight_decay=self._weight_decay * wd_scale,
                     decouple_wd=self._decouple_wd)
 
 
 class AdamW(Adam):
-    """Adam with decoupled weight decay (default coefficient 0.01), applied
-    to every parameter."""
+    """Adam with decoupled weight decay (default coefficient 0.01).
+
+    ``apply_decay_param_fun(name)`` returning False exempts a parameter
+    from the decay. It is called with the parameter's name, ``""`` where
+    none was set, as in the JAX package, whose Parameter's name is ``""``
+    unless a ``ParamAttr`` names it. A ``torch.nn.Parameter``'s ``name``
+    slot is read-only, so the port reads the name from ``p.param_name``,
+    which the caller sets (``p.param_name = "..."``). ``lr_ratio`` is
+    taken and never read, as in the JAX package (a fault of the reference:
+    ROADMAP Queue 3)."""
 
     _decouple_wd = True
 
@@ -179,9 +218,14 @@ class AdamW(Adam):
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
                  name=None, lazy_mode=False, multi_precision=False):
-        if apply_decay_param_fun is not None or lr_ratio is not None:
-            raise NotImplementedError(f"apply_decay_param_fun and lr_ratio "
-                                      f"are not ported yet ({_ITEM})")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          weight_decay, grad_clip, name, lazy_mode,
                          multi_precision)
+        self._apply_decay_param_fun = apply_decay_param_fun
+
+    def _wd_scale(self, p) -> float:
+        name = getattr(p, "param_name", "")
+        if (self._apply_decay_param_fun is not None
+                and not self._apply_decay_param_fun(name)):
+            return 0.0
+        return 1.0

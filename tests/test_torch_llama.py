@@ -24,7 +24,7 @@ from paddle_tpu_torch.convert import convert_paddle_state, load_paddle_state
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.kernels.flash_attention import FlashAttention
 from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
-from paddle_tpu_torch.models.llama import rope
+from paddle_tpu_torch.models.llama import rope, shard_llama_tp
 from paddle_tpu_torch.nn import RMSNorm
 from paddle_tpu_torch.nn.functional import attention
 from paddle_tpu_torch.optimizer import AdamW
@@ -317,7 +317,7 @@ def test_convert_transposes_every_linear_and_nothing_else():
 
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        llama_tiny(recompute_granularity="selective")
+        shard_llama_tp(LlamaForCausalLM(llama_tiny(), device="cpu"))
 
 
 def test_default_device_needs_cuda():
