@@ -105,6 +105,20 @@ the user entry points, random weights from a seed:
   ([train-amp]); ``auto_cast`` O1 on the fp32 model and ``decorate`` + O2
   at 4 x 1024 against the uncast fp32 step and the bf16 model
   ([train-amp-cast]);
+* the monitor (``paddle_tpu_torch.monitor``) on GPT-medium: [train]'s
+  recipe under ``monitor.enable(path, trace=True)`` with a health sample
+  every 2 steps, 6 steps on and 6 off in blocks of 3 (the overhead must
+  stay within [train]'s spread), the ledger's MFU and HFU against the
+  H100 peak, the measured and analytic FLOPs a token, one ``recompile``
+  record, the goodput gauges summing to the wall, the shared tools
+  reading the files ([monitor-train]); ``PADDLE_HEALTH_FAULT=nan@param:3``
+  at 4 blocks tripping at the next sample with one WARN and one flight
+  dump ([monitor-health-fault]); and [engine-graph]'s requests through a
+  graphed engine with monitor and tracer on (a trace a request, queue /
+  prefill / decode; ``serve_compile`` = ``compile_count`` 2, none in the
+  drain; tokens/s beside [engine-graph]'s; a prompt-lookup run reaching
+  ``serve_spec_step``: [monitor-engine]); the files land in
+  ``smoke_checkout/monitor/``;
 * LLaMA-7B training at full width and 4 blocks (32 would not fit: 16 bytes
   a parameter), batch 4 x seq 2048, the recipe of GPT's, 1 warm-up and 4
   timed steps, a profiled step, the same steps with attention in its plain
@@ -1359,6 +1373,9 @@ def _train_recipe():
     return model, opt, TrainStep(model, opt), ids
 
 
+TRAIN_WALLS = []          # [train]'s timed steps (s), set by phase_train
+
+
 def phase_train():
     """The training path: the recipe of ``_train_recipe``, 1 warm-up step
     and TRAIN["steps"] timed steps (each synchronised). Every loss is
@@ -1398,6 +1415,7 @@ def phase_train():
             raise AssertionError("a parameter is not its fp32 master cast "
                                  "to bf16")
     timed = walls[1:]
+    TRAIN_WALLS[:] = timed                 # [monitor-train] reads the spread
     wall = sum(timed) / len(timed)
     log(f"[train] losses {[round(x, 4) for x in losses]}")
     log(f"[train] {len(timed)} timed steps: wall per step {wall * 1e3:.1f} "
@@ -5005,6 +5023,322 @@ def phase_train_amp_cast():
                                  f"{rel:.3g} from the uncast step's")
 
 
+# ------------------------------------------------------------------ monitor
+
+MONITOR_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "smoke_checkout", "monitor")
+MONITOR_TRAIN_BLOCKS = ("on", "off", "on", "off")     # 3 steps a block
+MONITOR_FAULT_LAYERS = 4
+MONITOR_FAULT_BATCH = 8
+
+
+class _env:
+    """Set environment variables for a block, then restore them."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _tools_read(tag, *runs):
+    """tools/metrics_summary.py, goodput_report.py and trace_view.py exit 0
+    on the port's files (``runs``: (jsonl, trace jsonl) pairs)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    for jsonl, tjsonl in runs:
+        for tool, path in (("metrics_summary.py", jsonl),
+                           ("goodput_report.py", jsonl),
+                           ("trace_view.py", tjsonl)):
+            out = subprocess.run([sys.executable,
+                                  os.path.join(here, "tools", tool), path],
+                                 capture_output=True, text=True, timeout=120)
+            if out.returncode != 0:
+                raise AssertionError(f"{tag} tools/{tool} exited "
+                                     f"{out.returncode} on {path}: "
+                                     f"{out.stderr[-2000:]}")
+    log(f"{tag} tools/metrics_summary.py, goodput_report.py and "
+        f"trace_view.py exit 0 on the port's files")
+
+
+def _goodput_identity(tag, gauges):
+    from paddle_tpu_torch.monitor.goodput import GOODPUT_STATES
+    total = sum(gauges[f"goodput/{s}_s"] for s in GOODPUT_STATES)
+    if abs(total - gauges["goodput/wall_s"]) > 1e-9 * max(total, 1.0):
+        raise AssertionError(f"{tag} goodput states sum to {total}, wall "
+                             f"{gauges['goodput/wall_s']}")
+    return total
+
+
+def phase_monitor_train(smi):
+    """[monitor-train]: [train]'s recipe (GPT-medium bf16, 16 x 1024,
+    AdamW with masters) under ``monitor.enable(path, trace=True)`` with
+    PADDLE_HEALTH_SAMPLE=2: the mint call and one sampled call (it builds
+    the digest probes), then 6 steps with the monitor
+    on and 6 with it off in blocks of 3 (off: the monitor's and the
+    tracer's module globals set to None, the state the disabled path
+    reads; the same TrainStep throughout), each step synchronised. Prints
+    ms a step on and off and the overhead beside [train]'s spread, which
+    the overhead must stay within; the ledger's MFU and HFU against the
+    H100 peak over the first on-block, and the steady figures of the
+    on-steps; the measured and analytic FLOPs a token and the attention
+    share of the measured count. The JSONL holds one ``recompile``, the
+    goodput gauges sum to the wall, the shared tools read the files."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.monitor import trace as mtrace
+    os.makedirs(MONITOR_DIR, exist_ok=True)
+    path = os.path.join(MONITOR_DIR, "train.jsonl")
+    model, opt, step, ids = _train_recipe()
+    b, L = ids.shape
+    blocks = GPT_MEDIUM["num_layers"]
+    with _env(PADDLE_HEALTH_SAMPLE="2"):
+        mon = monitor.enable(path, trace=True)
+        tracer = mtrace.get()
+        t0 = time.perf_counter()
+        before = launch_counts()
+        losses = [step(ids, ids).item()]
+        mint_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        losses.append(step(ids, ids).item())          # sampled: probes built
+        probe_s = time.perf_counter() - t0
+        _expect_launches("[monitor-train] mint and first sample",
+                         _grew(before, launch_counts()),
+                         flash_pair_fwd=2 * blocks, flash_pair_bwd=2 * blocks)
+        walls = {"on": [], "off": []}
+        sampled = []
+        first = None
+        for i, block in enumerate(MONITOR_TRAIN_BLOCKS):
+            if block == "off":
+                monitor._active = mtrace._active = None
+            for _ in range(3):
+                before = launch_counts()
+                n = step._health_n
+                t0 = time.perf_counter()
+                losses.append(step(ids, ids).item())     # synchronises
+                walls[block].append(time.perf_counter() - t0)
+                if block == "on":
+                    sampled.append(step._health_n != n
+                                   and step._health_n % 2 == 0)
+                _expect_launches(f"[monitor-train] {block}",
+                                 _grew(before, launch_counts()),
+                                 flash_pair_fwd=blocks, flash_pair_bwd=blocks)
+            monitor._active, mtrace._active = mon, tracer
+            if first is None:
+                first = monitor.snapshot()["gauges"]
+        last = monitor.snapshot()["gauges"]
+        cost = step._mint_cost
+        monitor.disable()
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"[monitor-train] losses {losses}")
+    recs = _records(path)
+    kinds = [r["kind"] for r in recs]
+    if kinds.count("recompile") != 1:
+        raise AssertionError(f"[monitor-train] {kinds.count('recompile')} "
+                             f"recompile records, expected 1")
+    if kinds.count("step") != 7:            # the first sample and 6 on
+        raise AssertionError(f"[monitor-train] {kinds.count('step')} step "
+                             f"records, expected 7")
+    for g in (first, last):
+        _goodput_identity("[monitor-train]", g)
+    on = sum(walls["on"]) / 6 * 1e3
+    off = sum(walls["off"]) / 6 * 1e3
+    spread = (max(TRAIN_WALLS) - min(TRAIN_WALLS)) * 1e3 if TRAIN_WALLS \
+        else (max(walls["off"]) - min(walls["off"])) * 1e3
+    tokens = b * L
+    measured = last["mfu/train_bucket1/flops"]
+    analytic = last["mfu/train_bucket1/analytic_flops"]
+    peak = last.get("mfu/peak_flops")
+    if peak is None:
+        raise AssertionError(f"[monitor-train] no peak for "
+                             f"{torch.cuda.get_device_name(0)}")
+    steady_on = min(walls["on"])
+    samp = [w * 1e3 for w, s in zip(walls["on"], sampled) if s]
+    unsamp = [w * 1e3 for w, s in zip(walls["on"], sampled) if not s]
+    log(f"[monitor-train] {smi}: mint call {mint_s * 1e3:.1f} ms (FLOPs "
+        f"counted, recorded as compile), first sampled call "
+        f"{probe_s * 1e3:.1f} ms (probes built); on {on:.2f} ms a step "
+        f"({', '.join(f'{w * 1e3:.2f}' for w in walls['on'])}; sampled "
+        f"{sum(samp) / len(samp):.2f}, unsampled "
+        f"{sum(unsamp) / len(unsamp):.2f}), off {off:.2f} ms "
+        f"({', '.join(f'{w * 1e3:.2f}' for w in walls['off'])}), overhead "
+        f"{on - off:+.2f} ms a step ({(on - off) / off:+.2%}); [train]'s "
+        f"spread {spread:.2f} ms")
+    log(f"[monitor-train] FLOPs a token: measured {measured / tokens:.4e} "
+        f"(attention, reported by the flash wrappers: "
+        f"{cost.kernel / tokens:.4e}, {cost.kernel / measured:.2%} of the "
+        f"count), analytic 6N + 12LdS {analytic / tokens:.4e} "
+        f"(measured / analytic {measured / analytic:.4f})")
+    log(f"[monitor-train] ledger against the H100 peak {peak:.4g} FLOP/s "
+        f"({smi}): after the first on-block MFU {first['mfu/mfu']:.4f} HFU "
+        f"{first['mfu/hfu']:.4f} (goodput {first['goodput/fraction']:.4f}, "
+        f"the mint's wall counted as compile); at the end MFU "
+        f"{last['mfu/mfu']:.4f} HFU {last['mfu/hfu']:.4f} (the off-blocks "
+        f"counted idle); at the fastest on-step, as the ledger defines them "
+        f"(no recompute: model FLOPs = measured): MFU = HFU "
+        f"{measured / steady_on / peak:.4f}; from the analytic count "
+        f"{analytic / steady_on / peak:.4f}")
+    if not abs(on - off) <= spread:
+        raise AssertionError(f"[monitor-train] overhead {on - off:.2f} ms "
+                             f"a step exceeds [train]'s spread "
+                             f"{spread:.2f} ms")
+    _tools_read("[monitor-train]",
+                (path, path.replace(".jsonl", ".trace.jsonl")))
+    del model, opt, step
+    return dict(on=on, off=off, spread=spread,
+                mfu=measured / steady_on / peak)
+
+
+def phase_monitor_health_fault():
+    """[monitor-health-fault]: GPT-medium width at 4 blocks, batch 8 x
+    1024, PADDLE_HEALTH_SAMPLE=2 and PADDLE_HEALTH_FAULT=nan@param:3: the
+    NaN planted before call 3 trips at the next sample (step 4) with one
+    WARN naming the poisoned leaf's group (``gpt.wte``: the first
+    trainable parameter), one ``health_nan`` record and one flight
+    dump."""
+    import warnings
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    os.makedirs(MONITOR_DIR, exist_ok=True)
+    path = os.path.join(MONITOR_DIR, "fault.jsonl")
+    model = GPTForCausalLM(GPTConfig(**dict(
+        GPT_MEDIUM, num_layers=MONITOR_FAULT_LAYERS)), dtype=torch.bfloat16,
+        seed=0)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters(), multi_precision=True)
+    step = TrainStep(model, opt)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    ids = torch.randint(0, GPT_MEDIUM["vocab_size"],
+                        (MONITOR_FAULT_BATCH, TRAIN["seq"]), device="cuda",
+                        generator=gen)
+    with _env(PADDLE_HEALTH_SAMPLE="2", PADDLE_HEALTH_FAULT="nan@param:3"), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        mon = monitor.enable(path, trace=True)
+        losses = [step(ids, ids).item() for _ in range(4)]
+        trips, dumps = mon.health.nan_trips, mon.health._dumps
+        monitor.disable()
+    warns = [str(w.message) for w in caught
+             if "non-finite values" in str(w.message)]
+    recs = _records(path)
+    nan = [r for r in recs if r["kind"] == "health_nan"]
+    if not (math.isfinite(losses[1]) and not math.isfinite(losses[2])):
+        raise AssertionError(f"[monitor-health-fault] losses {losses}")
+    if trips != 1 or len(nan) != 1 or nan[0]["step"] != 4 \
+            or len(warns) != 1:
+        raise AssertionError(f"[monitor-health-fault] trips {trips}, "
+                             f"records {len(nan)}, warnings {warns}")
+    if "gpt.wte" not in nan[0]["groups"] or "gpt.wte" not in warns[0]:
+        raise AssertionError(f"[monitor-health-fault] the WARN does not "
+                             f"name gpt.wte: {warns[0][:300]}")
+    if dumps != 1 or not os.path.exists(nan[0]["dump"]):
+        raise AssertionError(f"[monitor-health-fault] {dumps} flight dumps")
+    log(f"[monitor-health-fault] nan@param:3 on {MONITOR_FAULT_LAYERS} "
+        f"blocks: losses {[round(x, 4) for x in losses]}; tripped at step "
+        f"{nan[0]['step']} (the next sample), {len(nan[0]['groups'])} "
+        f"groups non-finite, the WARN names gpt.wte; "
+        f"{len(nan[0]['leaves'])} poisoned leaves swept; 1 flight dump "
+        f"({os.path.basename(nan[0]['dump'])})")
+    del model, opt, step
+
+
+def phase_monitor_engine(model, graph_reqs, graph):
+    """[monitor-engine]: [engine-graph]'s 8 requests through a graphed
+    paged engine with monitor and tracer on: every request one trace of
+    queue, prefill and decode; ``serve_compile`` records equal to
+    ``compile_count`` (2) and none in the drain; tokens identical to
+    [engine-graph]'s, tokens/s beside its reading; then a prompt-lookup
+    drafter's run whose verify steps reach ``serve_spec_step``."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.serving import DecodeEngine, PromptLookupDrafter
+    os.makedirs(MONITOR_DIR, exist_ok=True)
+    path = os.path.join(MONITOR_DIR, "engine.jsonl")
+    prompts, new_tokens = _gpt_requests()
+    torch.cuda.empty_cache()
+    mon = monitor.enable(path, trace=True)
+    eng = DecodeEngine(model, **ENGINE)
+    gen = torch.Generator()
+    gen.manual_seed(99)
+    warm = torch.randint(0, model.config.vocab_size, (40,),
+                         generator=gen).tolist()
+    eng.submit(warm, max_new_tokens=2)
+    eng.run()
+    torch.cuda.synchronize()
+    compiled = mon.registry.counter("serve/compiles").value
+    reqs, steps, wall, _, _ = _serve(eng, prompts, new_tokens)
+    rate = (eng.stats()["tokens_generated"] - 2) / wall
+    st_counters = mon.registry.snapshot()["counters"]
+    spec = DecodeEngine(model, drafter=PromptLookupDrafter(), **ENGINE)
+    spec_reqs, _, spec_wall, _, _ = _serve(spec, prompts, new_tokens)
+    spec_steps = mon.registry.counter("serve/spec_steps").value
+    monitor.disable()
+    if compiled != 2 or eng.compile_count != 2 \
+            or st_counters["serve/compiles"] != 2:
+        raise AssertionError(f"[monitor-engine] serve_compile {compiled} "
+                             f"after the warm-up, "
+                             f"{st_counters['serve/compiles']} after the "
+                             f"drain, compile_count {eng.compile_count}")
+    diff = [r.id for r, g in zip(reqs, graph_reqs) if r.tokens != g.tokens]
+    if diff:
+        raise AssertionError(f"[monitor-engine] tokens differ from "
+                             f"[engine-graph]'s in requests {diff}")
+    recs = _records(path)
+    engine_ids = {eng.engine_id}
+    compiles = [r for r in recs if r["kind"] == "serve_compile"
+                and r["engine"] in engine_ids]
+    if len(compiles) != eng.compile_count:
+        raise AssertionError(f"[monitor-engine] {len(compiles)} "
+                             f"serve_compile records")
+    tr = _records(path.replace(".jsonl", ".trace.jsonl"))
+    by_req = {}
+    names = {}
+    for r in tr:
+        if r["kind"] == "span":
+            names.setdefault(r["trace"], []).append(r["name"])
+        if r["kind"] == "trace" and r["attrs"].get("engine") in engine_ids:
+            by_req.setdefault(r["attrs"]["request"], []).append(r["trace"])
+    want = [r.id for r in reqs]
+    if any(len(by_req.get(i, [])) != 1 for i in want):
+        raise AssertionError(f"[monitor-engine] traces per request "
+                             f"{ {i: len(by_req.get(i, [])) for i in want} }")
+    for i in want:
+        got = names[by_req[i][0]]
+        if got != ["request", "queue", "prefill", "decode"]:
+            raise AssertionError(f"[monitor-engine] request {i} spans {got}")
+    if spec_steps < 1 or spec_steps != spec.stats()["spec"]["steps"]:
+        raise AssertionError(f"[monitor-engine] serve/spec_steps "
+                             f"{spec_steps}, engine {spec.stats()['spec']}")
+    spec_rate = sum(len(r.tokens) for r in spec_reqs) / spec_wall
+    log(f"[monitor-engine] {len(reqs)} requests in {steps} steps, "
+        f"{wall:.3f} s: {rate:.1f} tokens/s with monitor and tracer on "
+        f"([engine-graph], off, same run: {graph['rate']:.1f}; "
+        f"{rate / graph['rate'] - 1:+.2%}); tokens identical; one trace a "
+        f"request (queue, prefill, decode); serve_compile 2 = compile_count "
+        f"after the warm-up, 0 in the drain; prompt-lookup run: "
+        f"{spec_steps} serve_spec_step calls, {spec_rate:.1f} tokens/s")
+    _tools_read("[monitor-engine]",
+                (path, path.replace(".jsonl", ".trace.jsonl")))
+    del eng, spec
+    return dict(rate=rate, off=graph["rate"])
+
+
 def _release(tag):
     """Collect what earlier phases left (reference cycles included), give
     the cache back, and print what the process still holds."""
@@ -5129,6 +5463,11 @@ def main() -> int:
     phase_engine_sample(model, reqs)
     gen_rows = phase_generate(model)
     paths["gpt-serving-graph"] = counts()
+    # the monitored engine, on the bf16 model (the int8 phase of
+    # gpt_other_modes swaps its Linear layers in place)
+    reset_launch_counts()
+    phase_monitor_engine(model, graph_reqs, graph)
+    paths["gpt-serving-monitor"] = counts()
     phase_crosscheck(model, bucket_reqs, rows=len(bucket_reqs),
                      tag="[engine-buckets-crosscheck]")
     phase_crosscheck(model, gen_rows, rows=len(gen_rows),
@@ -5165,6 +5504,15 @@ def main() -> int:
         phase()
         paths[path] = counts()
         torch.cuda.empty_cache()
+    # the monitor on the training path, then its health plane's tripwire
+    reset_launch_counts()
+    phase_monitor_train(smi)
+    paths["gpt-training-monitor"] = counts()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    phase_monitor_health_fault()
+    paths["gpt-training-monitor-fault"] = counts()
+    torch.cuda.empty_cache()
 
     reset_launch_counts()                  # BERT training starts here
     bert, opt, batch, losses = phase_bert_train(smi)
@@ -5271,6 +5619,9 @@ def main() -> int:
              "gpt-training-accum": ["flash_pair_fwd", "flash_pair_bwd"],
              "gpt-training-amp": ["flash_pair_fwd", "flash_pair_bwd"],
              "gpt-training-amp-cast": ["flash_pair_fwd", "flash_pair_bwd"],
+             "gpt-training-monitor": ["flash_pair_fwd", "flash_pair_bwd"],
+             "gpt-training-monitor-fault": ["flash_pair_fwd",
+                                            "flash_pair_bwd"],
              "llama-training-recompute": ["flash_attention_fwd",
                                           "flash_attention_bwd"],
              "gpt-serving-spec-draft": ["flash_pair_fwd"],
@@ -5286,7 +5637,7 @@ def main() -> int:
     # speculative engine's drafter programs are the exception)
     for path in ("gpt-serving-graph", "llama-serving-graph",
                  "gpt-serving-row", "llama-serving-row", "gpt-serving-int8",
-                 "gpt-serving-spec-lookup"):
+                 "gpt-serving-spec-lookup", "gpt-serving-monitor"):
         ran = {k: n for k, n in every_path[path].items() if n}
         if ran:
             raise AssertionError(f"the {path} path launched {ran}")

@@ -30,10 +30,13 @@ recompute on GPT and LLaMA (``recompute_granularity`` "full", "dots" or
 "selective", ``distributed.fleet.recompute``), gradient accumulation and
 a ``GradScaler`` in ``TrainStep``, ``nn.ClipGradBy*`` as ``grad_clip``,
 ``regularizer.L2Decay`` and AdamW's ``apply_decay_param_fun``, and
-``amp.auto_cast`` / ``amp.decorate``.
+``amp.auto_cast`` / ``amp.decorate``. ``monitor`` is the telemetry plane
+(metrics, JSONL records, spans, goodput and MFU, model health), wired into
+``TrainStep`` and ``DecodeEngine``; ``PADDLE_MONITOR=path`` turns it on at
+import.
 """
-from . import (amp, core, distributed, jit, kernels, models, nn, optimizer,
-               quantization, regularizer, serving)
+from . import (amp, core, distributed, jit, kernels, models, monitor, nn,
+               optimizer, quantization, regularizer, serving)
 from .core.random import get_rng_state, seed, set_rng_state
 from .jit import TrainStep
 from .models import (BertConfig, BertForPreTraining, GPTConfig,
@@ -41,9 +44,12 @@ from .models import (BertConfig, BertForPreTraining, GPTConfig,
                      llama_7b)
 from .serving import DecodeEngine
 
-__all__ = ["amp", "core", "distributed", "jit", "kernels", "models", "nn",
+__all__ = ["amp", "core", "distributed", "jit", "kernels", "models",
+           "monitor", "nn",
            "optimizer", "quantization", "regularizer", "serving",
            "BertConfig", "BertForPreTraining", "bert_base", "GPTConfig",
            "GPTForCausalLM", "LlamaConfig", "LlamaForCausalLM", "llama_7b",
            "DecodeEngine", "TrainStep", "seed", "get_rng_state",
            "set_rng_state"]
+
+monitor._maybe_enable_from_env()

@@ -99,6 +99,13 @@ class GradScaler:
                 if self._good_steps >= self._incr_every_n_steps:
                     self._scale *= self._incr_ratio
                     self._good_steps = 0
+        # feed the health plane: the loss-scale trajectory next to the trip
+        # timeline (update() is the tail of both step()+update() and the
+        # TrainStep replay, so each outcome is fed once)
+        from .. import monitor as _monitor
+        mon = _monitor._active
+        if mon is not None:
+            mon.health.scaler_outcome(self._found_inf, self._scale)
         self._found_inf = False
         self._unscaled = False
 

@@ -24,14 +24,27 @@ There is no fallback: on a CUDA device a capture or replay that fails
 raises. ``capture = False`` on a registry (a private switch, set before
 its first program runs) runs the programs eagerly on the card too, as the
 reference the graphs are held to.
+
+With the monitor on, a registry's ``on_built(program, build_s, cost)``
+hears of each program's first call: its wall (the eager run and, on the
+card, the capture), the FLOPs of its eager run (``monitor.goodput.
+FlopCount``, never open inside the capture) and, on the card, the memory
+the capture reserved (``program.memory``). The observation wraps the
+whole first call: a captured body runs its Python once, at capture, so
+nothing inside a body may report.
 """
 from __future__ import annotations
 
-from contextlib import contextmanager
+import time
+from contextlib import contextmanager, nullcontext
 from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .. import monitor as _monitor
+from ..monitor import goodput as _goodput
+from ..monitor.memory import capture_reading
 
 __all__ = ["ProgramRegistry", "Program", "StagedInputs", "serving_mode",
            "leaf_addresses"]
@@ -106,14 +119,19 @@ def _side_stream(dev: torch.device) -> "torch.cuda.Stream":
 
 
 class Program:
-    """One fixed-shape program of a registry; ``state`` is whatever its
-    build function returned beside ``fn`` (its static buffers)."""
+    """One fixed-shape program of a registry under ``key``; ``state`` is
+    whatever its build function returned beside ``fn`` (its static
+    buffers). ``memory`` is the allocator's growth across its first call
+    on the card when the monitor observed it (else None)."""
 
-    def __init__(self, fn: Callable[[], None], state, registry):
+    def __init__(self, fn: Callable[[], None], state, registry, key=None):
         self._fn = fn
         self.state = state
+        self.key = key
+        self.memory = None
         self._reg = registry
         self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._fresh = True
 
     @property
     def captured(self) -> bool:
@@ -123,9 +141,37 @@ class Program:
         if self._graph is not None:
             self._graph.replay()
             return
+        if _monitor._active is not None and self._fresh \
+                and self._reg.on_built is not None:
+            self._observed_first_call()
+            return
+        self._fresh = False
+        self._run()
+
+    def _observed_first_call(self):
+        """The first call with the monitor on: timed, its eager run's
+        FLOPs counted and, on the card, the capture's memory measured;
+        then ``on_built`` hears of it."""
+        self._fresh = False
+        dev = self._reg.device
+        before = capture_reading(dev)
+        t0 = time.perf_counter()
+        cost = _goodput.FlopCount()
+        self._run(cost)
+        build_s = time.perf_counter() - t0
+        if before is not None:
+            after = capture_reading(dev)
+            self.memory = {k: after[k] - before[k] for k in before}
+        self._reg.on_built(self, build_s, cost)
+
+    def _run(self, count=None):
+        """Run the body: eagerly, or (the first call on the card) the
+        warm-up and the capture. ``count`` (a ``FlopCount``) wraps the
+        eager run only."""
         reg = self._reg
+        count = nullcontext() if count is None else count
         if not reg.capture:
-            with reg.mode():
+            with count, reg.mode():
                 self._fn()
             return
         # the first call on the card: run it on a side stream (the warm-up
@@ -136,7 +182,7 @@ class Program:
         cur = torch.cuda.current_stream(dev)
         side = _side_stream(dev)
         side.wait_stream(cur)
-        with torch.cuda.stream(side), reg.mode():
+        with count, torch.cuda.stream(side), reg.mode():
             self._fn()
         cur.wait_stream(side)
         if reg.pool is None:
@@ -155,7 +201,8 @@ class ProgramRegistry:
     enters (``serving_mode`` of the model). Programs share one graph
     memory pool: they run one at a time on one stream, so their
     intermediates may share memory. ``limit`` bounds how many programs are
-    kept (the oldest is dropped first)."""
+    kept (the oldest is dropped first). ``on_built`` (None, or a callable
+    ``(program, build_s, cost)``) is the owner's monitor hook."""
 
     def __init__(self, device, mode, limit: Optional[int] = None):
         self.device = torch.device(device)
@@ -164,6 +211,7 @@ class ProgramRegistry:
         self.capture = self.device.type == "cuda"
         self.pool = None
         self.count = 0
+        self.on_built = None
         self._programs: Dict[Hashable, Program] = {}
         self._leaves: Optional[Tuple[int, ...]] = None
 
@@ -185,7 +233,7 @@ class ProgramRegistry:
             if self.limit is not None and len(self._programs) >= self.limit:
                 self._programs.pop(next(iter(self._programs)))
             fn, state = build()
-            prog = Program(fn, state, self)
+            prog = Program(fn, state, self, key)
             self._programs[key] = prog
             self.count += 1
         return prog

@@ -17,8 +17,15 @@ the attention context a kernel wrote) is recomputed: keeping it would
 spare only the last operation that wrote it, since everything that leads
 up to it runs again anyway.
 
-The JAX module's trace statistics (``remat/*`` gauges) feed the monitor,
-which the port does not have yet (ROADMAP Queue 1).
+The trace statistics (``reset_trace_stats`` / ``trace_stats`` /
+``note_region``) feed the monitor's ``remat/*`` gauges: ``TrainStep``
+resets them before the call that mints a new input signature and reads
+them after. The JAX package counts what one trace applied; the port
+counts what that call's first microbatch ran (the counterpart of the
+traced body): every recompute region entered and the bytes of every
+tagged activation, the replays in the backward excepted (a replay runs
+under ``monitor.health.suspend_taps``, which also pauses the health
+plane's activation taps).
 """
 from __future__ import annotations
 
@@ -27,9 +34,12 @@ import threading
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..monitor import health as _health
+
 __all__ = ["ATTN_QKV", "ATTN_CONTEXT", "ATTN_OUT", "MLP_HIDDEN",
            "SELECTIVE_SAVE_NAMES", "POLICY_NAMES", "resolve_policy",
-           "normalize_granularity", "tag_activation"]
+           "normalize_granularity", "tag_activation", "reset_trace_stats",
+           "stop_trace_stats", "trace_stats", "note_region"]
 
 ATTN_QKV = "attn_qkv"           # fused qkv (or per-tensor q/k/v) projection
 ATTN_CONTEXT = "attn_context"   # softmax(qk^T) v, before the out projection
@@ -79,6 +89,46 @@ def normalize_granularity(granularity, interval=1):
     return granularity, max(int(interval), 1)
 
 
+# ------------------------------------------------------------- trace stats
+# Reset by TrainStep before the call that mints a signature, read after:
+# the recompute regions the call applied and the bytes of the named
+# activations it tagged. ``recording`` is off outside that window, so
+# every other call pays one dict read a tag.
+
+_stats = {"recording": False, "regions": 0, "policy": None,
+          "named_bytes": {}}
+
+
+def reset_trace_stats():
+    """Zero the statistics and start recording."""
+    _stats["recording"] = True
+    _stats["regions"] = 0
+    _stats["policy"] = None
+    _stats["named_bytes"] = {}
+
+
+def stop_trace_stats():
+    """Stop recording; the statistics stay readable."""
+    _stats["recording"] = False
+
+
+def trace_stats() -> dict:
+    """Snapshot: {"regions", "policy", "named_bytes": {name: bytes},
+    "total_named_bytes"}."""
+    nb = dict(_stats["named_bytes"])
+    return {"regions": _stats["regions"], "policy": _stats["policy"],
+            "named_bytes": nb, "total_named_bytes": sum(nb.values())}
+
+
+def note_region(policy) -> None:
+    """A recompute region was applied during the recorded call."""
+    if not _stats["recording"]:
+        return
+    _stats["regions"] += 1
+    if policy is not None or _stats["policy"] is None:
+        _stats["policy"] = policy if isinstance(policy, str) else "full"
+
+
 # the open _Keep regions of this thread, innermost last
 _open = threading.local()
 
@@ -86,11 +136,27 @@ _open = threading.local()
 def tag_activation(x: torch.Tensor, name: str) -> torch.Tensor:
     """Return ``x``; inside a ``"selective"`` region, a name of
     ``SELECTIVE_SAVE_NAMES`` first tells the region to keep the matrix
-    product that wrote ``x``."""
+    product that wrote ``x``. While the trace statistics record, the tag
+    adds ``x``'s bytes under its name, and while the health plane taps
+    (a sampled step) its sum of squares; neither in a region's replay."""
     stack = getattr(_open, "regions", None)
     if stack and name in SELECTIVE_SAVE_NAMES:
         stack[-1].tag(x)
+    if _stats["recording"] \
+            or getattr(_health._tls, "taps", None) is not None:
+        _record(x, name)
     return x
+
+
+def _record(x, name):
+    if _health.taps_suspended():
+        return
+    if _stats["recording"]:
+        nb = x.numel() * x.element_size()
+        _stats["named_bytes"][name] = _stats["named_bytes"].get(name, 0) + nb
+    taps = _health.active_taps()
+    if taps is not None:
+        taps.record(name, x)
 
 
 class _Keep(TorchDispatchMode):

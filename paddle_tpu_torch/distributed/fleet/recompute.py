@@ -25,7 +25,11 @@ around the recompute:
   (``replay_generators``), so every kernel drops the elements it dropped
   in the forward;
 * AMP: the forward's ``auto_cast`` state is put back in force around the
-  recompute, which runs in the backward, outside the ``auto_cast`` block.
+  recompute, which runs in the backward, outside the ``auto_cast`` block;
+* the monitor: a region counts once in the recompute trace statistics
+  (``core.remat.note_region``), and its replay runs under
+  ``monitor.health.suspend_taps``, so the replayed forward neither taps
+  the health plane's activations nor counts its tags a second time.
 
 The recompute runs the same code on the same inputs, so on the CPU a
 recomputed region gives the gradients of the plain run bit for bit.
@@ -40,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from ...core import amp_state
 from ...core import random as rnd
 from ...core import remat as _remat
+from ...monitor.health import suspend_taps
 
 __all__ = ["recompute", "recompute_sequential"]
 
@@ -67,6 +72,7 @@ def _contexts(policy: str, preserve_rng_state: bool):
             if preserve_rng_state:
                 stack.enter_context(rnd.replay_generators(snap))
             stack.enter_context(amp_state.applied(amp))
+            stack.enter_context(suspend_taps())
             if keep is not None:
                 stack.enter_context(keep)
             yield
@@ -84,6 +90,7 @@ def recompute(function, *args, preserve_rng_state: bool = True,
     policy = _remat.resolve_policy(policy)
     if not torch.is_grad_enabled():
         return function(*args, **kwargs)
+    _remat.note_region(policy)
     return checkpoint(function, *args, use_reentrant=False,
                       preserve_rng_state=preserve_rng_state,
                       context_fn=lambda: _contexts(policy,

@@ -51,6 +51,10 @@ function there.
 CUDA tensor a wrapper launches its kernel; on a CPU tensor it computes its
 ``_reference``, the same math in plain torch. There is no other path:
 anything the kernels do not take raises.
+
+While the monitor counts a call's FLOPs each wrapper reports its score and
+context products over the (query, key) pairs its masks leave visible
+(``_report``), as ``flash_pair`` does.
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ import math
 
 import torch
 
+from ..monitor import goodput as _goodput
 from . import _build, philox
 from .flash_pair import (FlashPairPacked, bwd_work_floats, count_bodies,
                          fwd_work_floats)
@@ -201,6 +206,19 @@ def _visible(lq, lk, causal, device, lens=None, q_seg=None, kv_seg=None):
     return valid
 
 
+def _report(b, lq, lk, h, d, causal, masks, device, backward=False):
+    """Into the open FLOP count: one launch's attention products over
+    the visible pairs (the masks' pairs summed: data-dependent, so read
+    from the device, only while a count is open)."""
+    if any(m is not None for m in masks):
+        pairs_total = int(_visible(lq, lk, causal, device, *masks).sum())
+        pairs, b = pairs_total, 1
+    else:
+        pairs = _goodput.causal_pairs(lq, lk) if causal else lq * lk
+    _goodput.kernel_flops(_goodput.attention_flops(b, h, pairs, d,
+                                                   backward))
+
+
 def _keep_factor(b, h, lq, lk, dropout_rate, seed, device):
     """``[B, H, Lq, Lk]`` fp32 factor of each pair: ``keep_scale`` where the
     Philox word keeps it, 0 where it drops (None at rate 0)."""
@@ -281,9 +299,16 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale=None,
     b, lq, lk, h, hkv, d = dims
     masks = _masks(b, lq, lk, q.device, kv_lens, q_segments, kv_segments)
     if q.device.type == "cpu":
-        return flash_attention_fwd_reference(
-            q, k, v, causal, sm_scale, dropout_rate, seed=seed,
-            kv_lens=masks[0], q_segments=masks[1], kv_segments=masks[2])
+        if not _goodput.counting():
+            return flash_attention_fwd_reference(
+                q, k, v, causal, sm_scale, dropout_rate, seed=seed,
+                kv_lens=masks[0], q_segments=masks[1], kv_segments=masks[2])
+        with _goodput.uncounted():
+            res = flash_attention_fwd_reference(
+                q, k, v, causal, sm_scale, dropout_rate, seed=seed,
+                kv_lens=masks[0], q_segments=masks[1], kv_segments=masks[2])
+        _report(b, lq, lk, h, d, causal, masks, q.device)
+        return res
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: unsupported device "
                          f"{q.device}")
@@ -315,6 +340,8 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale=None,
                            f"(cudaError {rc})")
     flash_attention_fwd.launches += 1
     count_bodies(flash_attention_fwd, q.dtype, d)
+    if _goodput.counting():
+        _report(b, lq, lk, h, d, causal, masks, q.device)
     return out, lse
 
 
@@ -435,10 +462,18 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
     masks = _masks(b, lq, lk, q.device, kv_lens, q_segments, kv_segments,
                    "flash_attention_bwd")
     if q.device.type == "cpu":
-        return flash_attention_bwd_reference(
-            q, k, v, out, lse, dout, causal, sm_scale, dropout_rate,
-            seed=seed, kv_lens=masks[0], q_segments=masks[1],
-            kv_segments=masks[2])
+        if not _goodput.counting():
+            return flash_attention_bwd_reference(
+                q, k, v, out, lse, dout, causal, sm_scale, dropout_rate,
+                seed=seed, kv_lens=masks[0], q_segments=masks[1],
+                kv_segments=masks[2])
+        with _goodput.uncounted():
+            res = flash_attention_bwd_reference(
+                q, k, v, out, lse, dout, causal, sm_scale, dropout_rate,
+                seed=seed, kv_lens=masks[0], q_segments=masks[1],
+                kv_segments=masks[2])
+        _report(b, lq, lk, h, d, causal, masks, q.device, True)
+        return res
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
@@ -472,6 +507,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
                            f"(cudaError {rc})")
     flash_attention_bwd.launches += 1
     count_bodies(flash_attention_bwd, q.dtype, d, backward=True)
+    if _goodput.counting():
+        _report(b, lq, lk, h, d, causal, masks, q.device, True)
     return dq, dk, dv
 
 

@@ -23,6 +23,11 @@ the same seed, and the plain versions draw the same one.
 wrapper launches its kernel; on a CPU tensor it computes its ``_reference``,
 the same math in plain torch. There is no other path: anything the kernels
 do not take raises.
+
+While the monitor counts a call's FLOPs (``monitor.goodput.FlopCount``)
+each wrapper reports its score and context products, which the counter
+cannot see through ``ctypes``; on the CPU it runs the plain version
+outside the count and reports the same number (``_report``).
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import math
 
 import torch
 
+from ..monitor import goodput as _goodput
 from . import _build, philox
 
 __all__ = ["flash_pair_fwd", "flash_pair_fwd_reference", "flash_pair_bwd",
@@ -102,6 +108,14 @@ def count_bodies(wrapper, dtype, d: int, backward: bool = False):
         wrapper.f32_bwd_launches += 1
     else:
         wrapper.f32_fwd_launches += 1
+
+
+def _report(b: int, L: int, h: int, d: int, causal: bool,
+            backward: bool = False):
+    """Into the open FLOP count: one launch's attention products."""
+    pairs = L * (L + 1) // 2 if causal else L * L
+    _goodput.kernel_flops(_goodput.attention_flops(b, h, pairs, d,
+                                                   backward))
 
 
 def _heads_per_block(head_dim: int) -> int:
@@ -227,8 +241,14 @@ def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
     than bf16/fp32 and non-contiguous input."""
     d = _check(qkv, num_heads, dropout_rate, seed)
     if qkv.device.type == "cpu":
-        return flash_pair_fwd_reference(qkv, num_heads, causal,
-                                        dropout_rate, seed, sm_scale)
+        if not _goodput.counting():
+            return flash_pair_fwd_reference(qkv, num_heads, causal,
+                                            dropout_rate, seed, sm_scale)
+        with _goodput.uncounted():
+            res = flash_pair_fwd_reference(qkv, num_heads, causal,
+                                           dropout_rate, seed, sm_scale)
+        _report(qkv.shape[0], qkv.shape[1], num_heads, d, causal)
+        return res
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_pair_fwd: unsupported device {qkv.device}")
     if qkv.data_ptr() % 16:
@@ -256,6 +276,8 @@ def flash_pair_fwd(qkv: torch.Tensor, num_heads: int, causal: bool,
                            f"(cudaError {rc})")
     flash_pair_fwd.launches += 1
     count_bodies(flash_pair_fwd, qkv.dtype, d)
+    if _goodput.counting():
+        _report(b, L, num_heads, d, causal)
     return out, lse
 
 
@@ -373,8 +395,16 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
     shapes or types, non-contiguous or misaligned input."""
     d = _check_bwd(qkv, out, lse, dout, num_heads, dropout_rate, seed)
     if qkv.device.type == "cpu":
-        return flash_pair_bwd_reference(qkv, out, lse, dout, num_heads,
-                                        causal, dropout_rate, seed, sm_scale)
+        if not _goodput.counting():
+            return flash_pair_bwd_reference(qkv, out, lse, dout, num_heads,
+                                            causal, dropout_rate, seed,
+                                            sm_scale)
+        with _goodput.uncounted():
+            res = flash_pair_bwd_reference(qkv, out, lse, dout, num_heads,
+                                           causal, dropout_rate, seed,
+                                           sm_scale)
+        _report(qkv.shape[0], qkv.shape[1], num_heads, d, causal, True)
+        return res
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_pair_bwd: unsupported device {qkv.device}")
     if qkv.data_ptr() % 16 or out.data_ptr() % 16 or dout.data_ptr() % 16:
@@ -399,6 +429,8 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                            f"(cudaError {rc})")
     flash_pair_bwd.launches += 1
     count_bodies(flash_pair_bwd, qkv.dtype, d, backward=True)
+    if _goodput.counting():
+        _report(b, L, num_heads, d, causal, True)
     return dqkv
 
 

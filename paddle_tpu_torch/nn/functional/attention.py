@@ -26,6 +26,10 @@ position, key position) (``kernels/philox.py``): the kernels drop
 in-kernel, the plain chain multiplies by the same keep factors, so the
 card and the CPU agree, and the packed and the ``[B, L, H, D]`` routes
 drop the same elements.
+
+Every route's output is tagged ``attn_context`` (``core.remat``), as the
+JAX package tags each attention op's output: the selective recompute
+policy and the health plane's activation taps see it.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import torch
 
 from ...core.amp_state import amp_op
 from ...core.random import next_seed
+from ...core.remat import ATTN_CONTEXT, tag_activation
 from ...kernels import philox
 from ...kernels.flash_attention import FlashAttention
 from ...kernels.flash_pair import FlashPairPacked, pair_layout_supported
@@ -120,9 +125,11 @@ def _attend(query, key, value, attn_mask, causal, rate, seed, kv_lens=None,
                          "kv_segments must be given together")
     if attn_mask is None and flash_path_available(query.shape[1],
                                                   query.shape[3], query):
-        return FlashAttention.apply(query.contiguous(), key.contiguous(),
-                                    value.contiguous(), bool(causal), rate,
-                                    seed, kv_lens, q_segments, kv_segments)
+        return tag_activation(
+            FlashAttention.apply(query.contiguous(), key.contiguous(),
+                                 value.contiguous(), bool(causal), rate,
+                                 seed, kv_lens, q_segments, kv_segments),
+            ATTN_CONTEXT)
     if attn_mask is not None and attn_mask.dtype == torch.bool:
         raise TypeError("scaled_dot_product_attention: attn_mask is additive "
                         "(added to the logits), got a bool mask")
@@ -133,7 +140,8 @@ def _attend(query, key, value, attn_mask, causal, rate, seed, kv_lens=None,
                                              kv_segments)
         attn_mask = structured if attn_mask is None \
             else structured + attn_mask.float()
-    return _plain_attention(query, key, value, causal, rate, seed, attn_mask)
+    return tag_activation(_plain_attention(query, key, value, causal, rate,
+                                           seed, attn_mask), ATTN_CONTEXT)
 
 
 @amp_op("sdpa")
@@ -234,9 +242,10 @@ def flash_attention(query, key, value, dropout: float = 0.0,
     rate = float(dropout) if training else 0.0
     seed = _draw_seed(rate, generator)
     if use_pallas:
-        out = FlashAttention.apply(query.contiguous(), key.contiguous(),
-                                   value.contiguous(), bool(causal), rate,
-                                   seed)
+        out = tag_activation(
+            FlashAttention.apply(query.contiguous(), key.contiguous(),
+                                 value.contiguous(), bool(causal), rate,
+                                 seed), ATTN_CONTEXT)
     else:
         # None: the gate inside the sdpa route; False: the sdpa route,
         # which is the same routing
@@ -265,8 +274,9 @@ def flash_attention_qkv_packed(qkv, num_heads: int, dropout: float = 0.0,
     d = width // (3 * num_heads)
     if flash_path_available(L, d, qkv) and pair_layout_supported(
             d, num_heads, L):
-        return FlashPairPacked.apply(qkv.contiguous(), num_heads, causal,
-                                     rate, seed)
+        return tag_activation(
+            FlashPairPacked.apply(qkv.contiguous(), num_heads, causal, rate,
+                                  seed), ATTN_CONTEXT)
     hd = num_heads * d
     q, k, v = (qkv[:, :, i * hd:(i + 1) * hd].reshape(b, L, num_heads, d)
                for i in range(3))

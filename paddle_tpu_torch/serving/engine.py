@@ -44,6 +44,17 @@ re-admission), and a slot whose logits go non-finite fails alone.
 ``quantize="int8"`` swaps every ``nn.Linear`` but the LM head for a
 ``quantization.Int8Linear`` in place (``quantize_for_serving``) before
 any program is built: the same programs then run int8 products.
+
+With the monitor on, the engine reports as the JAX engine does
+(``serve_*`` hooks: geometry, admissions, queue waits, prefill chunks,
+decode and verify steps, preemptions, page refusals, non-finite logits,
+completions, cancellations, the scheduler bracket, and ``serve_compile``
+for each program built, with its build wall, FLOPs and, on the card, its
+memory); with the tracer on, each request is one trace from ``submit``:
+a ``queue`` phase, then ``prefill`` (``chunk`` and ``cow`` events), then
+``decode`` (``decode_step`` / ``spec_step`` and ``cow`` events), with
+``preempt`` (and a fresh ``queue`` phase) and ``page_reject`` events on
+the root. Every hook runs around a program call, never inside its body.
 """
 from __future__ import annotations
 
@@ -58,8 +69,10 @@ import torch
 
 from torch import nn
 
+from .. import monitor as _monitor
 from ..core.programs import (ProgramRegistry, StagedInputs, leaf_addresses,
                              serving_mode)
+from ..monitor import trace as _trace
 from ..models.gpt import (_as_ids, _check_seed, _lm_head_logits,
                           _pick_token, _resolve_decode_horizon)
 from .pager import TRASH_BLOCK, BlockPager
@@ -139,7 +152,8 @@ class _PrefillState:
     cached so far (shared-prefix coverage counts) and the pending COW
     copies the next chunk call must apply."""
 
-    __slots__ = ("req", "prompt", "n", "done", "pending_copies", "chunks")
+    __slots__ = ("req", "prompt", "n", "done", "pending_copies", "chunks",
+                 "prefill_s")
 
     def __init__(self, req: Request, start: int, pending_copies):
         self.req = req
@@ -148,6 +162,7 @@ class _PrefillState:
         self.done = int(start)            # positions already cached
         self.pending_copies = list(pending_copies)
         self.chunks = 0
+        self.prefill_s = 0.0              # chunk-call walls, for the monitor
 
 
 class _Step(NamedTuple):
@@ -194,6 +209,8 @@ class DecodeEngine:
     ``fault_schedule``) raise ``NotImplementedError`` naming the ROADMAP
     item that ports them.
     """
+
+    _ids = itertools.count()
 
     def __init__(self, model, *, max_slots: int = 8, max_len: int = 256,
                  paged: bool = True, block_size: int = 16,
@@ -315,9 +332,16 @@ class DecodeEngine:
         # program reads and advances by one
         self._key = torch.tensor([_check_seed(seed), 0], dtype=torch.int64,
                                  device=self.device)
-        # programs run and capture in eval mode with autograd off
+        # programs run and capture in eval mode with autograd off; the
+        # monitor hears of each one built (held weakly, as the programs'
+        # closures hold the engine)
         self._programs = ProgramRegistry(self.device,
                                          partial(serving_mode, model))
+        self._programs.on_built = partial(DecodeEngine._minted,
+                                          weakref.proxy(self))
+        self.engine_id = next(DecodeEngine._ids)
+        # parameter count for the goodput plane's analytic 2ND model
+        self._n_params = sum(p.numel() for p in model.parameters())
         # in-flight chunked prefills: slot -> _PrefillState (paged only;
         # the row cache prefills at admission)
         self._prefilling: dict = {}
@@ -346,6 +370,37 @@ class DecodeEngine:
         self.spec_drafted = 0
         self.spec_accepted = 0
         self.spec_emitted = 0
+        mon = _monitor._active
+        if mon is not None:
+            mon.serve_engine(self.max_slots, self.max_len,
+                             self.prefill_buckets, quantize,
+                             engine_id=self.engine_id, paged=self.paged,
+                             block_size=self.block_size,
+                             kv_blocks=self.kv_blocks,
+                             prefill_chunk=self.prefill_chunk, tp=1,
+                             drafter=getattr(drafter, "name", None)
+                             if drafter is not None else None)
+
+    # program key -> (monitor kind, bucket, tokens one call carries)
+    def _minted(self, program, build_s: float, cost):
+        """``ProgramRegistry.on_built``: the serving recompile sentinel.
+        The chunk and the row cache's prefill report as "prefill" with
+        their width (the JAX engine's chunk and bucket executables)."""
+        mon = _monitor._active
+        if mon is None:
+            return
+        key = program.key
+        if key[0] == "decode":
+            kind, bucket, tokens = "decode", None, self.max_slots
+        elif key[0] == "verify":
+            kind, bucket, tokens = "verify", key[1], key[1]
+        else:                               # ("chunk" | "prefill", width)
+            kind, bucket, tokens = "prefill", key[1], key[1]
+        mon.serve_compiled(kind, bucket, build_s, self.compile_count,
+                           engine_id=self.engine_id, cost=cost,
+                           tokens=tokens,
+                           analytic_flops=2.0 * self._n_params * tokens,
+                           program=program)
 
     @property
     def compile_count(self) -> int:
@@ -580,6 +635,15 @@ class DecodeEngine:
             req = Request([], max_new_tokens=1)
             self._reject(req, f"invalid request: {e}")
             return req
+        trc = _trace._active
+        if trc is not None:
+            # one trace per request, head-sampled at the door; phases open
+            # and close across step() iterations so a TTFT decomposes as
+            # queue + prefill (+ requeue episodes) with no gaps
+            req._trace = trc.start_trace(
+                "request", kind="request", current=False, request=req.id,
+                engine=self.engine_id, prompt=len(req.prompt),
+                max_new=req.max_new_tokens)
         n = len(req.prompt)
         need = self._pager.blocks_for(n + req.max_new_tokens) \
             if self.paged else 0
@@ -605,6 +669,18 @@ class DecodeEngine:
             req.status, req.error = "rejected_overload", \
                 f"admission queue full ({self._queue.max_queue})"
             req.t_done = time.time()
+            mon = _monitor._active
+            if mon is not None:
+                mon.serve_request(queued=False, error=req.error,
+                                  overload=True)
+            if req._trace is not None:
+                req._trace.end(status="rejected_overload", error=req.error)
+        else:
+            mon = _monitor._active
+            if mon is not None:
+                mon.serve_request(queued=True)
+            if req._trace is not None:
+                req._phase = req._trace.span("queue")
         return req
 
     def _bucket_for(self, n: int) -> Optional[int]:
@@ -624,6 +700,11 @@ class DecodeEngine:
 
     def _reject(self, req: Request, why: str):
         req.status, req.error, req.t_done = "failed", why, time.time()
+        mon = _monitor._active
+        if mon is not None:
+            mon.serve_request(queued=False, error=why)
+        if req._trace is not None:
+            req._trace.end(status="failed", error=why)
 
     # ---------------------------------------------------------- scheduling
 
@@ -646,6 +727,10 @@ class DecodeEngine:
         decode every live slot one token.
         Returns every request that reached a terminal status since the
         last step."""
+        mon = _monitor._active
+        # goodput bracket: the whole scheduler iteration; the program calls
+        # inside classify as productive/compile, the rest is host overhead
+        sched_t0 = time.perf_counter() if mon is not None else None
         finished: List[Request] = list(self._terminal_buf)
         self._terminal_buf.clear()
         while self._queue and self._slots.n_free:
@@ -660,6 +745,8 @@ class DecodeEngine:
                 self._advance_prefill(slot, finished)
         if self._live.any():
             self._decode(finished)
+        if sched_t0 is not None and mon is _monitor._active:
+            mon.serve_sched(sched_t0, time.perf_counter())
         return finished
 
     def run(self, max_steps: Optional[int] = None) -> List[Request]:
@@ -691,9 +778,11 @@ class DecodeEngine:
         self._slots.release(slot)
 
     def _terminalize(self, req: Request, status: str, why: str,
-                     finished: Optional[List[Request]]):
-        """Move ``req`` (slot already released) to a terminal status;
-        ``finished=None`` buffers it for the next step()'s return."""
+                     finished: Optional[List[Request]], where: str = None):
+        """Move ``req`` (slot already released) to a terminal status,
+        closing its trace; ``finished=None`` buffers it for the next
+        step()'s return. ``where``: the state it left (queue / prefill /
+        decode)."""
         assert status in TERMINAL_STATUSES and not req.finished
         req.status, req.error = status, why
         req.slot = None
@@ -701,15 +790,29 @@ class DecodeEngine:
         (self._terminal_buf if finished is None else finished).append(req)
         if status == "cancelled":
             self.cancelled += 1
+            mon = _monitor._active
+            if mon is not None:
+                mon.serve_cancelled(where or "?", trace_id=req._trace.trace_id
+                                    if req._trace is not None else None)
+        if req._trace is not None:
+            mono = time.perf_counter()
+            req._trace_phase(None, t0=mono)
+            req._trace.end(t1=mono, status=status, error=why,
+                           tokens=len(req.tokens),
+                           preemptions=req.preemptions)
 
     def _fail_nan(self, slot: int, req: Request, where: str,
                   finished: List[Request]):
         """Non-finite logits: fail this request alone and free its slot;
         the rest of the batch streams on."""
         self.nan_logits += 1
+        mon = _monitor._active
+        if mon is not None:
+            mon.serve_nan_logits(where, trace_id=req._trace.trace_id
+                                 if req._trace is not None else None)
         self._release_slot_state(slot)
         self._terminalize(req, "failed", f"non-finite logits ({where})",
-                          finished)
+                          finished, where=where)
 
     def cancel(self, req) -> bool:
         """Cancel one request wherever it is — queued, mid-prefill or
@@ -730,40 +833,67 @@ class DecodeEngine:
             return False
         if self._queue.remove(req):
             self._terminalize(req, "cancelled", "cancelled while queued",
-                              None)
+                              None, where="queue")
             return True
         for slot, st in list(self._prefilling.items()):
             if st.req is req:
                 self._release_slot_state(slot)
                 self._terminalize(req, "cancelled", "cancelled mid-prefill",
-                                  None)
+                                  None, where="prefill")
                 return True
         for slot in range(self.max_slots):
             if self._slot_req[slot] is req:
                 self._release_slot_state(slot)
                 self._terminalize(req, "cancelled", "cancelled mid-decode",
-                                  None)
+                                  None, where="decode")
                 return True
         return False                     # not this engine's request
 
     def _admit(self, req: Request, slot: int, finished: List[Request]):
         """Row cache: prefill the whole prompt into ``slot``'s row now and
         emit its first token; non-finite logits fail the request alone."""
+        t0 = time.time()
+        mono0 = time.perf_counter()
+        wait_s = max(t0 - req.t_enqueue, 0.0)
+        if req._trace is not None:
+            if req._phase is not None:
+                req._phase.set(slot=slot)
+            req._trace_phase("prefill", t0=mono0, slot=slot,
+                             bucket=self._bucket_for(len(req.prompt)))
         tok0, ok = self._prefill_call(slot, req.prompt)
+        dt = time.time() - t0
         self.prefill_calls += 1
         if not ok:
             self._fail_nan(slot, req, "prefill", finished)
             return
-        self._go_live(slot, req, tok0, chunks=1, finished=finished)
+        mon = _monitor._active
+        if mon is not None:
+            sb = self._bucket_for(len(req.prompt))
+            mon.serve_queue_wait(wait_s)
+            mon.serve_prefill_step(dt, sb, tokens=len(req.prompt),
+                                   engine_id=self.engine_id)
+        if req._phase is not None:
+            req._phase.set(exe_s=round(dt, 6))
+        self._go_live(slot, req, tok0, chunks=1, finished=finished,
+                      bucket=self._bucket_for(len(req.prompt)), prefill_s=dt)
 
     def _go_live(self, slot: int, req: Request, tok0: int, chunks: int,
-                 finished: List[Request]):
+                 finished: List[Request], bucket=None, prefill_s=0.0):
         """The prefill of ``req`` in ``slot`` is done: emit its first token
         and join the decode batch (a drafter restarts its state: the token
-        history it derives from restarted too)."""
+        history it derives from restarted too). ``bucket`` and
+        ``prefill_s`` (the prefill's width and wall) are the monitor's."""
         req.prefill_chunks = chunks
         req.slot, req.status = slot, "running"
         req.t_first_token = time.time()
+        mon = _monitor._active
+        if mon is not None:
+            mon.serve_admitted(req.t_first_token - req.t_submit, bucket,
+                               prefill_s)
+        if req._trace is not None:
+            req._trace_phase("decode")
+            req._trace.root.set(
+                ttft_s=round(req.t_first_token - req.t_submit, 6))
         req.tokens.append(tok0)
         self.tokens_generated += 1
         self._pos[slot] = len(req.prompt)
@@ -787,13 +917,44 @@ class DecodeEngine:
         end = min(cov + self._chunk_len(n), n)
         copies = self._pager.ensure_writable(slot, cov, end)
         if copies is None:
+            needed = self._pager.blocks_needed(slot, cov, end)
+            # a refusal is real saturation only when the free list and the
+            # parked prefix blocks together cannot cover the need
+            free = self._pager.reclaimable_blocks
             self._pager.release_slot(slot)
             self._pager.restore_sharing_counters(ctrs)
             self._slots.release(slot)
+            mon = _monitor._active
+            if mon is not None:
+                mon.serve_page_reject(free, needed, trace_id=req._trace
+                                      .trace_id if req._trace is not None
+                                      else None)
+            if req._trace is not None:
+                req._trace.event("page_reject", free=int(free),
+                                 needed=int(needed), pool_blocks=0)
+                if free >= needed:
+                    # refusal without real pressure is the allocator-bug
+                    # signature: this trace must survive head sampling
+                    req._trace.escalate("page_reject")
             return False
         self._slot_seq[slot] = next(self._admit_seq)
         self._prefilling[slot] = _PrefillState(req, cov, copies)
         req.slot, req.status = slot, "prefilling"
+        mon = _monitor._active
+        if mon is not None:
+            # from the LAST enqueue (a preemption re-queue resets it), so
+            # the histogram and the trace's queue phase agree
+            mon.serve_queue_wait(max(time.time() - req.t_enqueue, 0.0))
+        if req._trace is not None:
+            if req._phase is not None:
+                req._phase.set(slot=slot)
+            ph = req._trace_phase("prefill", slot=slot, shared=int(cov))
+            if self._pager.last_adopt_parked:
+                # blocks revived from the persistent prefix cache
+                ph.set(lru_hit_blocks=self._pager.last_adopt_parked,
+                       lru_hit_tokens=self._pager.last_adopt_parked_tokens)
+            if copies:
+                ph.event("cow", n=len(copies))
         return True
 
     def _advance_prefill(self, slot: int, finished: List[Request]):
@@ -810,10 +971,21 @@ class DecodeEngine:
             return                         # this very slot was preempted
         ids = np.zeros((1, sc), np.int64)
         ids[0, :end - p0] = st.prompt[p0:end]
-        tok0, ok = self._chunk_call(copies + more, slot, ids, p0, end)
+        copies = copies + more
+        t0 = time.time()
+        tok0, ok = self._chunk_call(copies, slot, ids, p0, end)
+        chunk_s = time.time() - t0
+        st.prefill_s += chunk_s
         self.prefill_calls += 1
+        mon = _monitor._active
+        if mon is not None:
+            mon.serve_prefill_step(chunk_s, sc, tokens=end - p0,
+                                   engine_id=self.engine_id)
         st.done = end
         st.chunks += 1
+        if st.req._phase is not None:
+            st.req._phase.event("chunk", p0=int(p0), end=int(end),
+                                dur_s=round(chunk_s, 6), cow=len(copies))
         if not ok:
             # this chunk's cached K/V are garbage: stop prefilling it
             self._fail_nan(slot, st.req, "chunk", finished)
@@ -822,7 +994,11 @@ class DecodeEngine:
             return                         # more chunks next iteration
         self._pager.register_prompt(slot, st.prompt)
         del self._prefilling[slot]
-        self._go_live(slot, st.req, tok0, st.chunks, finished)
+        req = st.req
+        if req._phase is not None:
+            req._phase.set(chunks=st.chunks, exe_s=round(st.prefill_s, 6))
+        self._go_live(slot, req, tok0, st.chunks, finished, bucket=sc,
+                      prefill_s=st.prefill_s)
 
     def _youngest_victim(self, requester: int) -> Optional[int]:
         """Pool-pressure victim: the YOUNGEST tenant, the requester
@@ -847,6 +1023,15 @@ class DecodeEngine:
         req.t_enqueue = time.time()
         self._queue.push_front(req)
         self.preemptions += 1
+        if req._trace is not None:
+            # requeue episode: whatever phase was running ends and a fresh
+            # queue phase opens at the same instant
+            req._trace.event("preempt", nth=req.preemptions)
+            req._trace_phase("queue", requeue=req.preemptions)
+        mon = _monitor._active
+        if mon is not None:
+            mon.serve_preempted(req.preemptions, trace_id=req._trace
+                                .trace_id if req._trace is not None else None)
 
     def _ensure_or_evict(self, slot: int, start: int, end: int):
         """``ensure_writable`` with pool-pressure eviction: preempt the
@@ -863,9 +1048,9 @@ class DecodeEngine:
 
     def _ensure_decode_targets(self):
         """Make every live slot's write target private and present, and
-        return the copy-on-write pairs that takes. A preempted victim's
-        pending copies are DROPPED with it: its freed blocks may be
-        re-handed to the very slot being ensured."""
+        return the copy-on-write pairs that takes, by slot. A preempted
+        victim's pending copies are DROPPED with it: its freed blocks may
+        be re-handed to the very slot being ensured."""
         copies_by_slot = {}
         slot = 0
         while slot < self.max_slots:
@@ -883,20 +1068,30 @@ class DecodeEngine:
                 continue               # else retry the same slot
             copies_by_slot[slot] = c
             slot += 1
-        return [p for c in copies_by_slot.values() for p in c]
+        return copies_by_slot
 
     def _decode(self, finished: List[Request]):
         if self.drafter is not None:
             self._decode_spec(finished)
             return
-        copies = self._ensure_decode_targets() if self.paged else []
+        by_slot = self._ensure_decode_targets() if self.paged else {}
         if not self._live.any():       # everyone self-preempted
             return
-        nxt, ok = self._decode_call(copies)
+        if _trace._active is not None:
+            for s, c in by_slot.items():
+                r2 = self._slot_req[s]
+                if c and r2 is not None and r2._phase is not None:
+                    r2._phase.event("cow", n=len(c))
+        t0 = time.time()
+        nxt, ok = self._decode_call([p for c in by_slot.values()
+                                     for p in c])
+        dt = time.time() - t0
+        live = 0
         for slot in range(self.max_slots):
             req = self._slot_req[slot]
             if req is None:
                 continue
+            live += 1
             if not ok[slot]:
                 self._fail_nan(slot, req, "decode", finished)
                 continue
@@ -905,9 +1100,18 @@ class DecodeEngine:
             self.tokens_generated += 1
             self._pos[slot] += 1
             self._tok[slot] = t
+            if req._phase is not None:
+                req._phase.event("decode_step", dur_s=round(dt, 6))
             if req._stop_hit():
                 self._finish(req, finished)
         self.decode_steps += 1
+        mon = _monitor._active
+        if mon is not None:
+            mon.serve_step(dt, live, len(self._queue),
+                           engine_id=self.engine_id)
+            if self.paged:
+                mon.serve_paged(self._pager.stats(), self.kv_util(),
+                                engine_id=self.engine_id)
 
     def _decode_spec(self, finished: List[Request]):
         """Speculative decode step: per live slot, draft up to ``vw - 1``
@@ -955,7 +1159,9 @@ class DecodeEngine:
             ids = np.zeros((1, vw), np.int64)
             ids[0, 0] = self._tok[slot]
             ids[0, 1:1 + k] = drafts
+            t0 = time.time()
             out, ok = self._verify_call(copies, slot, ids, p, p + 1 + k)
+            dt = time.time() - t0
             if not ok:
                 # release_slot frees the reservation with the slot's blocks
                 self._fail_nan(slot, req, "verify", finished)
@@ -982,16 +1188,49 @@ class DecodeEngine:
             self.spec_accepted += a
             self.spec_emitted += n_emit
             drafter.observe(req, a, k)
+            if req._phase is not None:
+                req._phase.event("spec_step", drafted=k, accepted=a,
+                                 emitted=n_emit, dur_s=round(dt, 6))
+            mon = _monitor._active
+            if mon is not None:
+                mon.serve_spec_step(
+                    dt, k, a, n_emit, vw, drafter.name,
+                    live=self.live_count, queue_depth=len(self._queue),
+                    accepted_per_step=self.spec_emitted / self.spec_steps,
+                    hit_rate=(self.spec_accepted / self.spec_drafted
+                              if self.spec_drafted else 0.0),
+                    engine_id=self.engine_id)
             if req._stop_hit():
                 self._finish(req, finished)
-        if stepped:
-            self.decode_steps += 1
+        if not stepped:
+            return
+        self.decode_steps += 1
+        mon = _monitor._active
+        if mon is not None:
+            mon.serve_paged(self._pager.stats(), self.kv_util(),
+                            engine_id=self.engine_id)
 
     def _finish(self, req: Request, finished: List[Request]):
         self._release_slot_state(req.slot)
         req.status, req.t_done = "done", time.time()
         req.slot = None
         finished.append(req)
+        mon = _monitor._active
+        if mon is not None:
+            mon.serve_done(len(req.tokens), req.t_done - req.t_submit,
+                           "done")
+            if self.drafter is not None and req.spec_drafted:
+                mon.serve_spec(self.drafter.name, req.spec_drafted,
+                               req.spec_accepted, len(req.tokens),
+                               trace_id=req._trace.trace_id
+                               if req._trace is not None else None)
+        if req._trace is not None:
+            mono = time.perf_counter()
+            if req._phase is not None:
+                req._phase.set(tokens=len(req.tokens))
+            req._trace_phase(None, t0=mono)
+            req._trace.end(t1=mono, status="done", tokens=len(req.tokens),
+                           preemptions=req.preemptions)
 
     # ------------------------------------------------------------- insight
 
@@ -1036,6 +1275,7 @@ class DecodeEngine:
 
     def stats(self) -> dict:
         out = {
+            "engine_id": int(self.engine_id),
             "compile_count": self.compile_count,
             "executables": len(self._programs),
             "decode_steps": self.decode_steps,

@@ -1,9 +1,10 @@
 """Continuous-batching scheduler state: requests, slots, admission queue.
 
 A copy of ``paddle_tpu/serving/scheduler.py`` (pure host bookkeeping) for
-the parts this port's engine uses, the speculative-decoding ledgers
-included. Not carried over yet: per-request deadlines and the span-tracer
-hooks, which belong to engine features the port does not have yet.
+the parts this port's engine uses: the speculative-decoding ledgers and
+the span-tracer state (``_trace``, ``_phase``, ``_trace_phase``)
+included. Not carried over yet: per-request deadlines, which belong to
+the guardrails (ROADMAP Queue 1, item 8).
 
 Iteration-level scheduling (Orca, Yu et al., OSDI 2022): scheduling
 decisions happen between decode STEPS, not between requests. A request
@@ -72,6 +73,27 @@ class Request:
         self.t_enqueue = self.t_submit
         self.t_first_token: Optional[float] = None
         self.t_done: Optional[float] = None
+        # span-tracer state (monitor/trace.py): the request's trace and its
+        # currently-open phase span — None while tracing is off
+        self._trace = None
+        self._phase = None
+
+    def _trace_phase(self, name: Optional[str], t0: Optional[float] = None,
+                     **attrs):
+        """Close the open phase span and open ``name`` at the SAME instant
+        — the gap-free chain every engine transition relies on (TTFT must
+        equal the sum of its pre-first-token phases). ``name=None`` just
+        closes. Returns the new span (None when untraced/closing). Set
+        attrs on the CLOSING span via ``self._phase.set(...)`` first."""
+        if self._trace is None:
+            return None
+        if t0 is None:
+            t0 = time.perf_counter()
+        if self._phase is not None:
+            self._phase.end(t0)
+        self._phase = self._trace.span(name, t0=t0, **attrs) \
+            if name is not None else None
+        return self._phase
 
     @property
     def output_tokens(self) -> List[int]:
