@@ -2,21 +2,24 @@
 
     python3 chip_smoke.py
 
-Builds the seven CUDA sources of the port from this checkout, one
+Builds the eight CUDA sources of the port from this checkout, one
 ``nvcc`` each, all started together: ``flash_pair_fwd`` and
 ``flash_pair_bwd`` (flash attention over packed qkv, with in-kernel
 dropout; also ``kernels.flash_attention_qkv_packed``, the packed-qkv call
 for heads of 128), ``flash_attention_fwd`` and ``flash_attention_bwd``
 (flash attention on ``[B, L, H, D]`` with grouped-query attention,
 per-sequence key lengths, segment ids and in-kernel dropout),
-``dropout_fwd`` (dropout, forward and backward) and
+``dq_ordered_sum`` (the backwards' last step: dq summed over their kv
+tiles' partial slabs in kv-tile order), ``dropout_fwd`` (dropout, forward
+and backward) and
 ``fused_add_dropout_ln_fwd`` / ``_bwd`` (BERT's residual epilogue
 ``LayerNorm(x + dropout(sub))``); the build fails on a wgmma that ptxas
 serialises (its note C7520). It times both attention forwards and both
 backwards against the parent commit's wrappers and kernels
 (``[parent-fwd]``, ``[parent-bwd]``: an unpacked ``git archive`` of it in
 ``smoke_checkout/parent/`` or ``PARENT_TREE``; without one the phases say
-so), in turns, and fails a case only beyond the timing noise (a body
+so), in turns, and fails a case only beyond the timing noise (a backward
+also beyond ``BWD_ORDER_SLACK``, what the fixed dq order may cost; a body
 redesigned by the change also below its asked speed-up, ``FWD_SPEEDUP``
 and ``BWD_SPEEDUP``: none in this tree),
 beside sdpa and the bound; it holds each kernel against its plain PyTorch
@@ -30,7 +33,10 @@ heads up to 256 at theirs beside the parent's and sdpa's,
 ``[fp32-bodies]``, the plain versions' times at the other shapes of
 PERF.md's kernel table, ``[plain-times]``, and the
 bodies each launcher runs by the profiler's kernel names and the body
-counters, ``[wide-route]``; every dropout mask for mask:
+counters, ``[wide-route]``; every backward body's dq, dk and dv bit for
+bit over three launches at the model shapes and at one shape per head
+size, and the ordered dq sum bit for bit against its plain version,
+``[bwd-order]``; every dropout mask for mask:
 each is one Philox function of the seed and the element, and the attention
 masks are read back with probe inputs), then drives the main paths through
 the user entry points, random weights from a seed:
@@ -65,7 +71,15 @@ the user entry points, random weights from a seed:
   seq 1024, dropout 0 as ``bench.py`` builds it), 1 warm-up and 6 timed
   steps, a profiled step, the same steps with attention in its plain
   versions, then the slice against the plain CPU path on the same weights
-  (loss and every leaf's gradient), and again at dropout 0.1;
+  (loss and every leaf's gradient), and again at dropout 0.1; then
+  checkpointing on the same recipe: 4 steps straight against 2 steps, an
+  async ``save_checkpoint``, a fresh model from another seed,
+  ``load_checkpoint`` and 2 steps, bit for bit (losses, parameters,
+  moments, masters, step count; the snapshot's bytes, the stall at
+  ``save()``, the background write, the load and a ``block=True`` save
+  timed: [ckpt-resume]), and SIGTERM under a ``PreemptionWatcher`` taking
+  a ``block=True`` save at the next step boundary, resumed bit for bit,
+  the handler restored ([ckpt-preempt]);
 * BERT-base (vocab 30528, hidden 768, 12 layers of 12 heads of 64, FFN
   3072, dropout 0.1; BASELINE.md config 2) pretraining at batch 64 x 512
   (MLM on 15% of positions + NSP), 1 warm-up and 6 timed steps, a profiled
@@ -91,10 +105,9 @@ the user entry points, random weights from a seed:
   the early-exit drafter too ([llama-engine-spec-fp32]: identical tokens
   but at a near-tie of 1e-4);
 * GPT-medium training's features: activation recompute, one forward and
-  backward at 16 x 1024 without it (twice: the run-to-run spread) and
-  under "dots", "selective" and "full" (the leaves no dq reaches bit for
-  bit, the whole gradient within the spread or the dq reorder's, the
-  attention forward launched twice a block, peak memory falling:
+  backward at 16 x 1024 without it (twice: the two runs bit for bit) and
+  under "dots", "selective" and "full" (every leaf of the gradient bit for
+  bit, the attention forward launched twice a block, peak memory falling:
   [train-recompute]), then ``bench.py``'s ``--recompute`` lane
   (selective, batch 24 x 1024, 3 timed steps: [recompute-lane]); "full"
   at dropout 0.1 on 4 blocks against no recompute from the same
@@ -179,8 +192,8 @@ TRAIN_CHECK_REL_LIMIT = 1e-4
 # [train-plain]: largest |loss difference| per step between the bf16
 # training run through the kernels and the same run through the plain
 # attention. The first reading on an H100 was 1.96e-3, growing with the
-# steps (Adam turns noise-level gradient differences into full steps, and
-# dq's atomics change order each run); the limit is 10x that and still
+# steps (Adam turns noise-level gradient differences into full steps); the
+# limit is 10x that and still
 # over 10x below the 0.27 rise of the curve the witness explains.
 TRAIN_PLAIN_LOSS_LIMIT = 0.02
 
@@ -340,21 +353,26 @@ def _grew(before, after):
 
 
 def _expect_launches(where, grew, **want):
-    """Raise unless ``grew`` launched exactly ``want`` and nothing else."""
+    """Raise unless ``grew`` launched exactly ``want`` and nothing else;
+    every flash backward launches one ordered dq sum behind it, so
+    ``dq_ordered_sum`` is expected as often as the two backwards unless
+    ``want`` names it."""
+    want.setdefault("dq_ordered_sum", want.get("flash_pair_bwd", 0)
+                    + want.get("flash_attention_bwd", 0))
     full = {k: want.get(k, 0) for k in grew}
     if grew != full:
         raise AssertionError(f"{where}: launches {grew}, expected {full}")
 
 
 # the flash kernels' names (csrc/flash_attention.cuh and the headers it
-# includes: the forwards, the backwards, the backward's pre-pass and dq
-# conversion), as profiler keys contain them
+# includes: the forwards, the backwards, the backward's pre-pass; and
+# csrc/dq_sum.cu's ordered dq sum), as profiler keys contain them
 FLASH_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_wide_kernel",
                  "flash_fwd_f32_kernel", "flash_fwd_f32_wide_kernel",
                  "flash_fwd_f32_small_kernel",
                  "flash_bwd_sm90_kernel", "flash_bwd_wide_kernel",
                  "flash_bwd_f32_kernel", "flash_bwd_f32_wide_kernel",
-                 "bwd_prepass_kernel", "scale_q_kernel", "dq_convert_kernel")
+                 "bwd_prepass_kernel", "scale_q_kernel", "dq_sum_kernel")
 
 
 def _is_flash_kernel(key):
@@ -440,21 +458,22 @@ PARENT_SOURCES = ("flash_attention_fwd", "flash_attention_bwd",
 
 def _parent_kernels():
     """The parent commit's kernel package (``paddle_tpu_torch/kernels`` of
-    PARENT_TREE, imported as ``parent_kernels``: its wrappers with its own
-    build module, sources and build directory) with its four flash
-    sources built by its own ``_build`` in parallel, for [parent-fwd] and
+    PARENT_TREE, imported as ``parent_port.kernels``: its wrappers with its
+    own build module, sources and build directory, and the sibling modules
+    they import, such as its ``monitor``, from the parent's tree; the
+    parent's package ``__init__`` is not run) with its four flash sources
+    built by its own ``_build`` in parallel, for [parent-fwd] and
     [parent-bwd]; None without a parent tree."""
-    import importlib.util
+    import importlib
+    import types
     from concurrent.futures import ThreadPoolExecutor
-    pkg = os.path.join(PARENT_TREE, "paddle_tpu_torch", "kernels")
-    if not os.path.isfile(os.path.join(pkg, "__init__.py")):
+    root = os.path.join(PARENT_TREE, "paddle_tpu_torch")
+    if not os.path.isfile(os.path.join(root, "kernels", "__init__.py")):
         return None
-    spec = importlib.util.spec_from_file_location(
-        "parent_kernels", os.path.join(pkg, "__init__.py"),
-        submodule_search_locations=[pkg])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules["parent_kernels"] = mod
-    spec.loader.exec_module(mod)
+    port = types.ModuleType("parent_port")
+    port.__path__ = [root]
+    sys.modules["parent_port"] = port
+    mod = importlib.import_module("parent_port.kernels")
     with ThreadPoolExecutor(len(PARENT_SOURCES)) as pool:
         mod.build_logs = dict(zip(PARENT_SOURCES,
                                   pool.map(mod._build.build, PARENT_SOURCES)))
@@ -573,15 +592,17 @@ def _timed_pair(ours, parent, iters):
     return tuple((min(t), (max(t) - min(t)) / min(t)) for t in times)
 
 
-def _judge_parent(tag, where, ours, parent, noise, speedup=None):
+def _judge_parent(tag, where, ours, parent, noise, speedup=None,
+                  slack=0.0):
     """Log one [parent-*] case and fail it when the change is slower than
     the parent by more than the noise (``_timed_pair``; ``noise``, from
-    ``_timing_noise``, its floor); a case under HOST_BOUND_MS is only
+    ``_timing_noise``, its floor) plus ``slack``, the share of the parent's
+    time a change may cost by design; a case under HOST_BOUND_MS is only
     logged. A case whose body this change redesigned must do better:
     ``speedup`` "noise", faster than the parent beyond the noise; a
     number, at least that many times the parent's speed."""
     (ms, sp), (pms, psp) = ours, parent
-    margin = max(sp, psp, noise)
+    margin = max(sp, psp, noise) + slack
     judged = pms >= HOST_BOUND_MS
     want = ("" if speedup is None else
             "; must be faster beyond the noise" if speedup == "noise" else
@@ -756,17 +777,23 @@ PARENT_BWD_CASES = [
     ("phi2-80", "flat", 4, 2048, 32, 32, 80, True, 0.0, None, 5, BF16),
     ("phi3-96", "flat", 4, 2048, 32, 32, 96, True, 0.0, None, 5, BF16)]
 # the speed-ups over the parent's bodies a redesigned backward must show,
-# as FWD_SPEEDUP: none (every backward body is the parent's design; each
-# case must be no slower than the parent's beyond the noise)
+# as FWD_SPEEDUP: none (every backward body is the parent's design)
 BWD_SPEEDUP = {}
+# What F8's repair may cost a backward beyond the noise, as a share of the
+# parent's time: each body now stores dq's partials a kv tile apart and
+# dq_sum.cu adds them in kv-tile order behind it, where the parent's
+# bodies added them by atomics (reads of every slab a row has: ~0.3 ms at
+# LLaMA-7B's training shape against its 1.71 ms backward). None is
+# expected above a third; a case slower than that fails.
+BWD_ORDER_SLACK = 1.0 / 3.0
 
 
 def phase_parent_bwd(parent, noise):
     """Both backward wrappers against the parent commit's, as
     [parent-fwd] does, with torch.autograd.grad through
     scaled_dot_product_attention on the same inputs beside them (the
-    yardstick) and the bound. Every case must be faster than the parent's
-    (beyond the noise, ``_judge_parent``). Returns {tag: (ms, parent ms,
+    yardstick) and the bound. No case may be slower than the parent's
+    beyond the noise and BWD_ORDER_SLACK (``_judge_parent``). Returns {tag: (ms, parent ms,
     sdpa ms, bound ms)}; the parent's is None without a parent tree."""
     from paddle_tpu_torch.kernels import flash_attention, flash_pair
     gen = torch.Generator(device="cuda")
@@ -832,7 +859,7 @@ def phase_parent_bwd(parent, noise):
             ours, theirs = _timed_pair(call(mods[0]), call(mods[1]), iters)
             ms, pms = ours[0], theirs[0]
             _judge_parent("[parent-bwd]", where, ours, theirs, noise,
-                          BWD_SPEEDUP.get(tag))
+                          BWD_SPEEDUP.get(tag), BWD_ORDER_SLACK)
         log(f"[parent-bwd] {tag}: sdpa backward {lib_ms:.4f} ms "
             f"({ms / lib_ms:.2f}x the kernel's time), bound {bound:.4f} ms "
             f"({ms / bound:.1f}x)")
@@ -854,10 +881,10 @@ def _bwd_inputs(b, L, h, d, dtype, gen):
 def _compare_bwd_case(b, L, h, d, dtype, causal, gen):
     """flash_pair_bwd against flash_pair_bwd_reference on the same (qkv,
     out, lse, dO) at one shape. Per part (dq, dk, dv): the relative
-    Frobenius error and the largest absolute error, and the change of dq
-    between two launches (its fp32 atomics add in another order each run).
-    Raises past BWD_REL_LIMIT (fp32 above D = 256: BIG_D_FP32_REL_LIMIT
-    against the exact gradient) or when dk/dv differ between two launches.
+    Frobenius error and the largest absolute error. Raises past
+    BWD_REL_LIMIT (fp32 above D = 256: BIG_D_FP32_REL_LIMIT against the
+    exact gradient) or when d(qkv) differs between two launches (dq sums
+    in a fixed order: every part is the same bit for bit).
     Returns the inputs and the largest absolute error."""
     from paddle_tpu_torch.kernels.flash_pair import (
         flash_pair_bwd, flash_pair_bwd_reference, flash_pair_fwd,
@@ -889,15 +916,13 @@ def _compare_bwd_case(b, L, h, d, dtype, causal, gen):
                 f"flash_pair_bwd {part} at B={b} L={L} H={h} D={d} "
                 f"{dtype} causal={causal}: relative error {rel:.3g} >= "
                 f"{limit}")
-    if not torch.equal(got[..., hd:], again[..., hd:]):
-        raise AssertionError("flash_pair_bwd: dk/dv differ between two "
+    if not torch.equal(got, again):
+        raise AssertionError("flash_pair_bwd: d(qkv) differs between two "
                              "launches on the same inputs")
-    dq_jitter = (got[..., :hd].float()
-                 - again[..., :hd].float()).abs().max().item()
     log(f"[compare-bwd] flash_pair_bwd B={b} L={L} H={h} D={d} "
         f"{str(dtype)[6:]} causal={causal}: {'; '.join(parts)} (limit "
-        f"rel {limit}{EXACT_NOTE if _exact(dtype, d) else ''}); dq "
-        f"run-to-run max|diff| {dq_jitter:.3g}")
+        f"rel {limit}{EXACT_NOTE if _exact(dtype, d) else ''}); two "
+        f"launches bit for bit")
     return qkv, out, lse, dout, worst_abs
 
 
@@ -969,9 +994,8 @@ def phase_compare_bwd():
 
 def phase_autograd():
     """FlashPairPacked on the card at the slice's shape: qkv.grad after
-    .backward(dO) is flash_pair_bwd's output (dk and dv bit for bit; dq,
-    whose atomics add in another order each launch, within 1e-3 relative),
-    and the forward and backward counters each go up by one."""
+    .backward(dO) is flash_pair_bwd's output bit for bit, and the forward
+    and backward counters each go up by one."""
     from paddle_tpu_torch.kernels import (FlashPairPacked, flash_pair_bwd,
                                           flash_pair_fwd, launch_counts)
     gen = torch.Generator(device="cuda")
@@ -986,23 +1010,17 @@ def phase_autograd():
     after = launch_counts()
     ref_out, lse = flash_pair_fwd(qkv, h, True)
     want = flash_pair_bwd(qkv, ref_out, lse, dout, h, True)
-    hd = h * d
-    dq_rel = rel_err(leaf.grad[..., :hd], want[..., :hd])
     if out.grad_fn is None or leaf.grad is None:
         raise AssertionError("no gradient reached qkv through "
                              "FlashPairPacked")
-    if not torch.equal(out, ref_out) or not torch.equal(leaf.grad[..., hd:],
-                                                         want[..., hd:]):
-        raise AssertionError("FlashPairPacked out or dk/dv differ from the "
+    if not torch.equal(out, ref_out) or not torch.equal(leaf.grad, want):
+        raise AssertionError("FlashPairPacked out or d(qkv) differ from the "
                              "kernels called directly")
-    if not dq_rel < 1e-3:
-        raise AssertionError(f"FlashPairPacked dq off by {dq_rel:.3g}")
     grew = _grew(before, after)
     _expect_launches("launches under autograd", grew, flash_pair_fwd=1,
                      flash_pair_bwd=1)
     log(f"[autograd] FlashPairPacked [2, 1024, 3*8*128] bf16: qkv.grad == "
-        f"flash_pair_bwd output (dk, dv exact; dq rel {dq_rel:.3g}); "
-        f"launches {grew}")
+        f"flash_pair_bwd output bit for bit; launches {grew}")
 
 
 def phase_scoring(model):
@@ -1353,16 +1371,16 @@ def phase_profile(model, graphed=False, tag=None):
             f"x{e.count:5d}  {e.key[:90]}")
 
 
-def _train_recipe():
+def _train_recipe(seed=0):
     """The training recipe of [train] and [train-plain]: GPT-medium (bf16,
-    seed 0), AdamW(1e-4, wd 0.01, multi_precision=True), TrainStep, and a
-    fixed random batch of TRAIN["batch"] x TRAIN["seq"] tokens (seed 4).
-    Returns (model, optimizer, step, ids)."""
+    weights from ``seed``), AdamW(1e-4, wd 0.01, multi_precision=True),
+    TrainStep, and a fixed random batch of TRAIN["batch"] x TRAIN["seq"]
+    tokens (seed 4). Returns (model, optimizer, step, ids)."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
     model = GPTForCausalLM(GPTConfig(**GPT_MEDIUM), dtype=torch.bfloat16,
-                           seed=0)
+                           seed=seed)
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
                 parameters=model.parameters(), multi_precision=True)
     gen = torch.Generator(device="cuda")
@@ -1765,7 +1783,7 @@ def phase_wide_route():
         counts = launch_counts()
         keys = [e.key for e in events]
         seen = {n for n in FLASH_KERNELS if any(n in key for key in keys)}
-        want = {fwd_body, bwd_body, "bwd_prepass_kernel", "dq_convert_kernel"}
+        want = {fwd_body, bwd_body, "bwd_prepass_kernel", "dq_sum_kernel"}
         if dtype == BF16 and "wide" in (ctr_f, ctr_b):
             want.add("scale_q_kernel")
         bodies = {}                          # counter -> {wrapper: count}
@@ -2139,6 +2157,165 @@ def phase_plain_times():
         torch.cuda.empty_cache()
 
 
+# [bwd-order] cases: (tag, launcher, B, L, H, Hkv, D, dtype, causal,
+# kv_lens, segment cuts, rate): the model shapes (GPT-medium's training
+# backward, BERT's packed and padded at rate 0.1, LLaMA-7B's), then one
+# shape per head size each body is built for: the bf16 Hopper body at 64,
+# 80, 96 and 128 with GQA 8/2, lengths, three segments a row and dropout;
+# the wide bf16 body at 256 and 512 (flat) and 384 (packed); the fp32 body
+# at 128 and 512 (flat, the same masks) and 64 (packed, bidirectional,
+# dropout)
+_ORDER_MASKS = ([1024, 700], (0.25, 0.5), 0.1)
+BWD_ORDER_CASES = [
+    ("gpt-train", "pair", 16, 1024, 8, 8, 128, BF16, True, None, None, 0.0),
+    ("bert-packed", "pair", 64, 512, 12, 12, 64, BF16, False, None, None,
+     0.1),
+    ("bert-padded", "flat", 64, 512, 12, 12, 64, BF16, False, "bert", None,
+     0.1),
+    ("llama-train", "flat", 4, 2048, 32, 32, 128, BF16, True, None, None,
+     0.0),
+    *[(f"sm90-{d}", "flat", 2, 1024, 8, 2, d, BF16, True, *_ORDER_MASKS)
+      for d in (64, 80, 96, 128)],
+    *[(f"wide-{d}", "flat", 2, 1024, 8, 2, d, BF16, True, *_ORDER_MASKS)
+      for d in (256, 512)],
+    ("wide-pair-384", "pair", 2, 1024, 8, 8, 384, BF16, True, None, None,
+     0.0),
+    *[(f"f32-{d}", "flat", 2, 1024, 8, 2, d, FP32, True, *_ORDER_MASKS)
+      for d in (128, 512)],
+    ("f32-pair-64", "pair", 2, 512, 12, 12, 64, FP32, False, None, None,
+     0.1)]
+BWD_ORDER_RUNS = 3
+
+
+def _order_case_call(case, gen):
+    """The backward call of one BWD_ORDER_CASES case on its inputs (the
+    forward run once), returning the gradients as a tuple."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import flash_pair as fp
+    tag, launcher, b, L, h, hkv, d, dtype, causal, lens, cuts, rate = case
+    seed = 0x0DE7 if rate else None
+    if launcher == "pair":
+        qkv, g = _bwd_inputs(b, L, h, d, dtype, gen)
+        o, lse = fp.flash_pair_fwd(qkv, h, causal, rate, seed)
+        return lambda: (fp.flash_pair_bwd(qkv, o, lse, g, h, causal, rate,
+                                          seed),)
+    if lens == "bert":
+        lens = [int(x) for x in _bert_pad_lengths(b, L, BERT_PAD_SEED)]
+    if lens is None:
+        q, k, v, g = _fa_inputs(b, L, L, h, hkv, d, dtype, gen)
+        kw = {}
+    else:
+        q, k, v, g, kw = _mask_case_inputs(
+            (tag, b, L, L, h, hkv, d, dtype, causal, lens, cuts, rate), gen)
+    kw.pop("seed", None)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, None, rate, seed=seed,
+                                    **kw)
+    return lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, causal, None,
+                                          rate, seed=seed, **kw)
+
+
+def _dq_sum_bytes(n_rows, b, lq, hd, dtype):
+    """The ordered sum's bytes: each row's slabs read once (``n_rows`` the
+    ``[B, Lq]`` slab counts), dq written once."""
+    esize = torch.finfo(dtype).bits // 8
+    return int(n_rows.sum()) * hd * 4 + b * lq * hd * esize
+
+
+def phase_bwd_order():
+    """F8's gate: every backward body gives the same dq, dk and dv bit for
+    bit on the same inputs, BWD_ORDER_RUNS launches of each
+    BWD_ORDER_CASES case (the model shapes and one shape per built head
+    size, with GQA, lengths, segment ids and dropout where the launcher
+    takes them). Then the ordered sum alone (csrc/dq_sum.cu) against its
+    plain version on random slabs, bit for bit: at GPT-medium's training
+    shape (the main path's: 8 slabs of [16, 1024, 1024], causal), where it
+    is timed beside the plain version and its bound (bytes: each row's
+    slabs read once, dq written once; no single PyTorch call sums masked
+    slabs in order, so no library time), at LLaMA-7B's (16 slabs of [4,
+    2048, 4096], timed), and at the part geometries of the bf16 body at 64
+    (two slabs a tile, lengths) and of the fp32 body (32-key tiles, Lq !=
+    Lk, lengths). Returns the GPT shape's record."""
+    from paddle_tpu_torch.kernels.dq_sum import (dq_ordered_sum,
+                                                 dq_ordered_sum_reference,
+                                                 dq_parts, dq_parts_geometry,
+                                                 parts_of_rows)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(71)
+    for case in BWD_ORDER_CASES:
+        call = _order_case_call(case, gen)
+        first = call()
+        for run in range(1, BWD_ORDER_RUNS):
+            again = call()
+            for name, x, y in zip(("dq, dk, dv",) if len(first) == 1
+                                  else ("dq", "dk", "dv"), first, again):
+                if not torch.equal(x, y):
+                    raise AssertionError(
+                        f"[bwd-order] {case[0]}: {name} of launch {run + 1} "
+                        f"differs from launch 1's")
+        tag, launcher, b, L, h, hkv, d, dtype = case[:8]
+        log(f"[bwd-order] {tag}: {launcher} B={b} L={L} H={h} Hkv={hkv} "
+            f"D={d} {str(dtype)[6:]} causal={case[8]} rate {case[11]}"
+            f"{' lengths' if case[9] else ''}"
+            f"{' segments' if case[10] else ''}: {BWD_ORDER_RUNS} launches "
+            f"bit for bit")
+        del call, first, again
+        torch.cuda.empty_cache()
+
+    record = None
+    for tag, b, lq, lk, h, d, dtype, causal, lens, timed in (
+            ("gpt-train", 16, 1024, 1024, 8, 128, BF16, True, None, True),
+            ("llama-train", 4, 2048, 2048, 32, 128, BF16, True, None, True),
+            ("sm90-64", 2, 1024, 1024, 8, 64, BF16, True, [1024, 700],
+             False),
+            ("f32-ragged", 2, 200, 300, 4, 64, FP32, True, [300, 230],
+             False)):
+        hd = h * d
+        kv_tile, per_tile = dq_parts_geometry(d, dtype)
+        n = dq_parts(lk, d, dtype)
+        parts = torch.randn(n, b, lq, hd, device="cuda", generator=gen)
+        lens_t = None if lens is None else torch.tensor(
+            lens, dtype=torch.int32, device="cuda")
+        scale = 1.0 / math.sqrt(d)
+        dq = torch.empty(b, lq, hd, dtype=dtype, device="cuda")
+        got = dq_ordered_sum(parts, dq, lk, causal, kv_tile, per_tile, scale,
+                             lens_t)
+        want = dq_ordered_sum_reference(parts, lk, causal, kv_tile, per_tile,
+                                        scale, dtype, lens_t)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            err = (got.float() - want.float()).abs().max().item()
+            raise AssertionError(f"[bwd-order] dq_ordered_sum {tag}: differs "
+                                 f"from its plain version (max|diff| "
+                                 f"{err:.3g})")
+        where = (f"{n} slabs of [{b}, {lq}, {hd}] -> {str(dtype)[6:]}, "
+                 f"tiles of {kv_tile} keys x {per_tile}, causal={causal}"
+                 f"{' lengths' if lens else ''}")
+        if not timed:
+            log(f"[bwd-order] dq_ordered_sum {tag}: {where}: equal to its "
+                f"plain version bit for bit")
+            continue
+        ms = cuda_time_ms(lambda: dq_ordered_sum(parts, dq, lk, causal,
+                                                 kv_tile, per_tile, scale,
+                                                 lens_t))
+        plain_ms = cuda_time_ms(lambda: dq_ordered_sum_reference(
+            parts, lk, causal, kv_tile, per_tile, scale, dtype, lens_t),
+            iters=3, warmup=1)
+        rows = parts_of_rows(b, lq, lk, causal, kv_tile, per_tile, lens_t)
+        nbytes = _dq_sum_bytes(rows, b, lq, hd, dtype)
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        log(f"[bwd-order] dq_ordered_sum {tag}: {where}: equal to its plain "
+            f"version bit for bit; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {bound_ms:.4f} ms (bytes: {nbytes / 1e9:.3f} GB), "
+            f"{nbytes / ms / 1e6:.0f} GB/s")
+        if record is None:
+            record = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by="bytes",
+                          library_ms=None)
+        del parts, dq, got, want
+        torch.cuda.empty_cache()
+    return record
+
+
 # ------------------------------------------------------------------ LLaMA
 
 
@@ -2269,8 +2446,8 @@ def phase_compare_fa():
 def phase_compare_fa_bwd():
     """flash_attention_bwd vs its plain version at the shapes of
     [compare-fa]: per part (dq, dk, dv) the relative Frobenius error
-    (limits FA_BWD_REL_LIMIT), dk and dv equal bit for bit between two
-    launches (no atomics there) and dq's run-to-run change. At the
+    (limits FA_BWD_REL_LIMIT) and dq, dk and dv equal bit for bit between
+    two launches. At the
     training shape and at heads of 80, 96 (csrc/flash_bwd_sm90.cuh on
     32-byte swizzle blocks) and 256 (the wide body), bf16, it then times
     the kernel beside the plain version, torch.autograd.grad through the
@@ -2308,16 +2485,14 @@ def phase_compare_fa_bwd():
                 raise AssertionError(
                     f"flash_attention_bwd {part} at {case}: relative error "
                     f"{rel:.3g} >= {limit}")
-        if not (torch.equal(got[1], again[1])
-                and torch.equal(got[2], again[2])):
-            raise AssertionError("flash_attention_bwd: dk/dv differ between "
-                                 "two launches on the same inputs")
-        dq_jitter = (got[0].float() - again[0].float()).abs().max().item()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError("flash_attention_bwd: dq, dk or dv differ "
+                                 "between two launches on the same inputs")
         log(f"[compare-fa-bwd] flash_attention_bwd B={b} Lq={lq} Lk={lk} "
             f"H={h} Hkv={hkv} D={d} {str(dtype)[6:]} causal={causal}: "
             f"{'; '.join(parts)} (limit rel {limit}"
-            f"{EXACT_NOTE if _exact(dtype, d) else ''}); "
-            f"dq run-to-run max|diff| {dq_jitter:.3g}")
+            f"{EXACT_NOTE if _exact(dtype, d) else ''}); two launches bit "
+            f"for bit")
         if case == FA_TRAIN_CASE or (dtype == BF16 and d in (80, 96, 256)):
             ms = cuda_time_ms(
                 lambda: flash_attention_bwd(q, k, v, out, lse, g, causal),
@@ -3299,7 +3474,7 @@ def phase_bert_scoring_time(model, inputs, tag, beside=""):
 def phase_profile_bert_train(model, opt, batch, tag):
     """One step of [bert-train] (or [bert-pad-train]: ``batch`` padded)
     under torch.profiler: the device busy share, the flash kernels' share
-    of device time (forward, backward and dq conversion), the share of
+    of device time (forward, backward and the ordered dq sum), the share of
     the kernels of BERT's path (the flash kernels, dropout, fused-LN
     forward and backward) by name, and the six kernels with the most
     device time."""
@@ -4510,27 +4685,10 @@ def _gpt_draft_model():
 # ------------------------- training features: recompute, accumulation, AMP
 
 # [train-recompute], [train-recompute-dropout], [llama-train-recompute]
-# and [train-amp] hold a run's gradients (every leaf) against a run
-# without recompute (or scale) in two parts. The flash backwards add dq
-# into an fp32 scratch with bulk reductions whose order changes from run
-# to run (csrc/flash_bwd_sm90.cuh), so any leaf behind a dq may move by a
-# bf16 rounding between two runs of the same step. (1) The leaves no dq
-# reaches (``_DQ_FREE``: the last block's MLP, its second norm, its
-# output projection, its k and v projections where they stand apart, the
-# final norm and an untied head) equal the reference bit for bit: they
-# read the last block's recomputed activations and the attention
-# backward's dk and dv, whose sums keep their order. (2) The relative
-# error of the whole gradient is at most RECOMPUTE_SPREAD_FACTOR times
-# the larger of the spread of two runs without recompute and
-# DQ_REORDER_REL, the largest whole-gradient difference two runs of one
-# step have shown (LLaMA-7B width, 4 blocks, 4 x 2048: 3.33e-3, NVIDIA
-# H100 80GB HBM3, 700 W; the two runs agree bit for bit as often as not)
-RECOMPUTE_SPREAD_FACTOR = 2.0
-DQ_REORDER_REL = 3.5e-3
-_DQ_FREE = {
-    "gpt": r"gpt\.(ln_f\.|h\.{last}\.(ln_2|mlp|attn\.out_proj)\.)",
-    "llama": r"(model\.norm\.|lm_head\.|model\.layers\.{last}\."
-             r"(post_attention_layernorm\.|mlp\.|self_attn\.[kvo]_proj\.))"}
+# and [train-amp] hold a run's gradients against a run without recompute
+# (or scale) bit for bit, every leaf (``_hold_grads``): the flash
+# backwards sum dq in a fixed order (csrc/dq_sum.cu), so two runs of one
+# step give the same bits, and a recompute replays the same products.
 # bench.py's --recompute lane: selective at batch 24 x 1024, 3 timed steps
 RECOMPUTE_LANE = dict(batch=24, seq=1024, steps=3)
 # [train-accum]: K = 2 x 8 against one step of 16 rows (bf16 gradients of
@@ -4587,24 +4745,19 @@ def _fwd_bwd(model, ids, policy, reset=None):
     return loss.item(), grads, peak, grew
 
 
-def _hold_grads(tag, what, got, want, spread, family, blocks):
+def _hold_grads(tag, what, got, want):
     """Gate a run's gradients ``got`` against ``want`` (both ``{name:
-    gradient}``) as the comment on RECOMPUTE_SPREAD_FACTOR says: the
-    ``_DQ_FREE[family]`` leaves (the last of ``blocks`` blocks) bit for
-    bit, the whole gradient within the limit. Logs both parts."""
-    pattern = re.compile(_DQ_FREE[family].format(last=blocks - 1))
-    exact = [n for n in want if pattern.match(n)]
-    moved = [n for n in exact if not torch.equal(got[n], want[n])]
-    err, (leaf_err, leaf) = _grad_errors(got, want)
-    limit = RECOMPUTE_SPREAD_FACTOR * max(spread, DQ_REORDER_REL)
-    log(f"{tag} {what}: {len(exact)} leaves no dq reaches, "
-        f"{len(moved)} moved {moved[:4]}; whole gradient error {err:.3g} "
-        f"(limit {RECOMPUTE_SPREAD_FACTOR} x max(spread {spread:.3g}, "
-        f"{DQ_REORDER_REL}); largest leaf {leaf_err:.3g}, {leaf})")
-    if not exact or moved or not err <= limit:
-        raise AssertionError(f"{tag} {what}: leaves no dq reaches moved "
-                             f"({moved[:4]}) or the gradient is {err:.3g} "
-                             f"from the reference (limit {limit:.3g})")
+    gradient}``): every leaf bit for bit. Logs the count; the error names
+    the leaves that moved and the relative error of the whole gradient."""
+    moved = [n for n in want if not torch.equal(got[n], want[n])]
+    log(f"{tag} {what}: {len(want) - len(moved)} of {len(want)} leaves bit "
+        f"for bit")
+    if moved:
+        err, (leaf_err, leaf) = _grad_errors(got, want)
+        raise AssertionError(f"{tag} {what}: {len(moved)} leaves moved "
+                             f"({moved[:4]}); whole gradient error "
+                             f"{err:.3g}, largest leaf {leaf_err:.3g} "
+                             f"({leaf})")
 
 
 def _held_gb():
@@ -4614,9 +4767,10 @@ def _held_gb():
     return torch.cuda.memory_allocated() / 1e9
 
 
-def _policies(tag, model, ids, blocks, fwd, bwd, policies, family,
-              dropouts=0, reset=None):
-    """Two runs without recompute (their spread), then one under each of
+def _policies(tag, model, ids, blocks, fwd, bwd, policies, dropouts=0,
+              reset=None):
+    """Two runs without recompute (the second held to the first by
+    ``_hold_grads``: the step is deterministic), then one under each of
     ``policies``: every policy's gradients held to the first run by
     ``_hold_grads``, its launches the run without recompute's plus one
     attention forward (``fwd``) a block, and one dropout a block where the
@@ -4628,11 +4782,10 @@ def _policies(tag, model, ids, blocks, fwd, bwd, policies, family,
     _expect_launches(f"{tag} none", grew0, **{fwd: blocks, bwd: blocks},
                      dropout_fwd=dropouts)
     loss1, g1, _, _ = _fwd_bwd(model, ids, "none", reset)
-    spread, (leaf_err, leaf) = _grad_errors(g1, g0)
     log(f"{tag} held {held:.2f} GB at the start (the model's weights "
         f"included); none: loss {loss0:.6f}, peak {peak0:.2f} GB; a second "
-        f"run without recompute: loss {loss1:.6f}, gradient error "
-        f"{spread:.3g} (largest leaf {leaf_err:.3g}, {leaf})")
+        f"run without recompute: loss {loss1:.6f}")
+    _hold_grads(tag, "none against none", g1, g0)
     del g1
     peaks = {"none": peak0}
     for policy in policies:
@@ -4642,8 +4795,7 @@ def _policies(tag, model, ids, blocks, fwd, bwd, policies, family,
         _expect_launches(f"{tag} {policy}", grew, **want)
         log(f"{tag} {policy}: loss {loss:.6f}, peak {peak:.2f} GB; launches "
             f"{want}")
-        _hold_grads(tag, f"{policy} against none", g, g0, spread, family,
-                    blocks)
+        _hold_grads(tag, f"{policy} against none", g, g0)
         peaks[policy] = peak
         del g
     return peaks
@@ -4671,7 +4823,7 @@ def phase_train_recompute():
                         generator=gen)
     peaks = _policies("[train-recompute]", model, ids, blocks,
                       "flash_pair_fwd", "flash_pair_bwd",
-                      ("dots", "selective", "full"), "gpt")
+                      ("dots", "selective", "full"))
     if not (peaks["none"] > peaks["dots"] and peaks["none"]
             > peaks["selective"] > peaks["full"]):
         raise AssertionError(f"[train-recompute] peak memory does not fall: "
@@ -4718,8 +4870,8 @@ def phase_train_recompute_dropout():
     """GPT-medium width at 4 blocks and dropout 0.1 (embeddings, residuals,
     attention), bf16, batch 16 x 1024: "full" recompute from the model
     generator's state of the run without recompute gives its gradients
-    (``_hold_grads``: the last block's leaves that no dq reaches bit for
-    bit), so the recompute of every block replayed the masks
+    (``_hold_grads``: every leaf bit for bit), so the recompute of every
+    block replayed the masks
     of rows 1 (the pair forward's in-kernel dropout), 2 (the backward's)
     and 8 (the dropout kernel): a redrawn mask would move the gradients
     by O(1). Launches: 18 dropout kernels without recompute (1 + 2 a
@@ -4738,7 +4890,7 @@ def phase_train_recompute_dropout():
                         device="cuda", generator=gen)
     state = model.generator.get_state()
     _policies("[train-recompute-dropout]", model, ids, blocks,
-              "flash_pair_fwd", "flash_pair_bwd", ("full",), "gpt",
+              "flash_pair_fwd", "flash_pair_bwd", ("full",),
               dropouts=2 + 4 * blocks,
               reset=lambda: model.generator.set_state(state))
     del model
@@ -4746,8 +4898,8 @@ def phase_train_recompute_dropout():
 
 def phase_llama_train_recompute():
     """LLaMA-7B width at LLAMA_TRAIN's 4 blocks and batch 4 x 2048, bf16:
-    "selective" against no recompute (twice: the spread), gradients held
-    by ``_hold_grads``, the flash_attention forward twice a block, peak
+    "selective" against no recompute (twice), gradients held by
+    ``_hold_grads``, the flash_attention forward twice a block, peak
     memory below the run without recompute's."""
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b
     blocks = LLAMA_TRAIN["layers"]
@@ -4760,7 +4912,7 @@ def phase_llama_train_recompute():
                         device="cuda", generator=gen)
     peaks = _policies("[llama-train-recompute]", model, ids, blocks,
                       "flash_attention_fwd", "flash_attention_bwd",
-                      ("selective",), "llama")
+                      ("selective",))
     if not peaks["none"] > peaks["selective"]:
         raise AssertionError(f"[llama-train-recompute] peak memory does not "
                              f"fall: {peaks}")
@@ -4868,9 +5020,8 @@ def phase_train_amp():
     ClipGradByGlobalNorm(1.0)): one step with a GradScaler at AMP_SCALE
     against the same step without one. A power-of-two scale commutes with
     every bf16 rounding, so the unscaled gradients the two hand to the
-    update (and so their clips) equal each other bit for bit unless the
-    flash backward's dq order changed between the runs (a third, unscaled
-    run shows that spread; the gate is ``_hold_grads``). Then a gradient made
+    update (and so their clips) equal each other bit for bit, as two
+    unscaled runs do (``_hold_grads``). Then a gradient made
     inf by a hook (the last block's fc_in) leaves parameters, masters and
     moments bit for bit, the step counter where it was, and halves the
     scale."""
@@ -4889,14 +5040,10 @@ def phase_train_amp():
         if run != "scaled":
             del model, opt, step
             torch.cuda.empty_cache()
-    spread, _ = _grad_errors(grads["plain-again"], grads["plain"])
-    differ = [n for n in grads["plain"]
-              if not torch.equal(grads["scaled"][n], grads["plain"][n])]
-    log(f"[train-amp] scaled x {AMP_SCALE:g} against unscaled: {len(differ)} "
-        f"of {len(grads['plain'])} leaves differ ({differ[:4]}); unscaled "
-        f"against unscaled: {spread:.3g}")
-    _hold_grads("[train-amp]", "scaled against unscaled", grads["scaled"],
-                grads["plain"], spread, "gpt", GPT_MEDIUM["num_layers"])
+    _hold_grads("[train-amp]", "unscaled against unscaled",
+                grads["plain-again"], grads["plain"])
+    _hold_grads("[train-amp]", f"scaled x {AMP_SCALE:g} against unscaled",
+                grads["scaled"], grads["plain"])
     if scaler._scale != AMP_SCALE or scaler._good_steps != 1:
         raise AssertionError("[train-amp] a clean step moved the scale")
     snap = [(p.detach().clone(), opt._master_weights[id(p)].clone(),
@@ -5024,6 +5171,183 @@ def phase_train_amp_cast():
 
 
 # ------------------------------------------------------------------ monitor
+
+# ------------------------------------------------ checkpoint and resume
+
+# the snapshots of [ckpt-resume] and [ckpt-preempt] (removed after each)
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "smoke_checkout", "ckpt")
+CKPT_STEPS = 4          # the straight run; the resumed runs split it 2 + 2
+
+
+def _ckpt_batches():
+    """CKPT_STEPS distinct batches of TRAIN's geometry (seed 9)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    return [torch.randint(0, GPT_MEDIUM["vocab_size"],
+                          (TRAIN["batch"], TRAIN["seq"]), device="cuda",
+                          generator=gen) for _ in range(CKPT_STEPS)]
+
+
+def _train_state(model, opt):
+    """Every parameter, moment and master of a run (cloned on the card)
+    and its step count."""
+    state = {f"param:{n}": p.detach().clone()
+             for n, p in model.named_parameters()}
+    for i, p in enumerate(opt._parameter_list):
+        for k, t in opt._accumulators[id(p)].items():
+            state[f"{k}:{i}"] = t.clone()
+        state[f"master:{i}"] = opt._master_weights[id(p)].clone()
+    state["step_count"] = opt._step_count
+    return state
+
+
+def _hold_state(tag, got, want):
+    """Raise unless two ``_train_state``s agree bit for bit, every
+    tensor and the step count."""
+    moved = [k for k in want if not (
+        got[k] == want[k] if isinstance(want[k], int)
+        else torch.equal(got[k], want[k]))]
+    if set(got) != set(want) or moved:
+        raise AssertionError(f"{tag}: the resumed run differs from the "
+                             f"straight one at {moved[:4]} of {len(want)}")
+    log(f"{tag} every parameter, moment and master ({len(want) - 1} "
+        f"tensors) and the step count ({want['step_count']}) equal the "
+        f"straight run's bit for bit")
+
+
+def _snapshot_bytes(path):
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    return sum(f["bytes"] for f in ckpt.read_manifest(path)["files"].values())
+
+
+def phase_ckpt_resume(smi):
+    """Checkpoint and exact resume at GPT-medium 16 x 1024 ([train]'s
+    recipe, bf16 with fp32 masters, dropout 0): CKPT_STEPS steps straight
+    on _ckpt_batches, against a second run: 2 steps, ``save_checkpoint``
+    (async, after each step) and ``wait_checkpoint``, then a fresh model,
+    optimizer and TrainStep from another seed, ``load_checkpoint`` (step
+    2) and the 2 other steps. The losses, every parameter, moment and master and the step
+    count equal bit for bit (the flash backwards sum dq in a fixed order).
+    Prints the snapshot's bytes, the stall ``save()`` puts on the step loop
+    (the host copy: the first save's, which allocates the pinned buffers,
+    and the second's, which reuses them), the background write, the load,
+    and a ``block=True`` save's time, beside the card. Returns the straight run's losses and
+    state (for [ckpt-preempt])."""
+    import shutil
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    batches = _ckpt_batches()
+    directory = os.path.join(CKPT_DIR, "resume")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    model, opt, step, _ = _train_recipe()
+    straight = [step(b, b) for b in batches]
+    want = _train_state(model, opt)
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    model, opt, step, _ = _train_recipe()
+    first = [step(batches[0], batches[0])]
+    t0 = time.perf_counter()
+    step.save_checkpoint(directory, 1)   # allocates the pinned buffers
+    first_stall = time.perf_counter() - t0
+    step.wait_checkpoint()
+    first.append(step(batches[1], batches[1]))
+    t0 = time.perf_counter()
+    step.save_checkpoint(directory, 2)   # reuses them
+    t1 = time.perf_counter()
+    step.wait_checkpoint()
+    t2 = time.perf_counter()
+    stall, write = t1 - t0, t2 - t1
+    copied = step._ckptr.last_bytes
+    base = os.path.join(directory, "step_2")
+    nbytes = _snapshot_bytes(base)
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    model, opt, step, _ = _train_recipe(seed=1)
+    t0 = time.perf_counter()
+    info = step.load_checkpoint(directory)
+    torch.cuda.synchronize()
+    load = time.perf_counter() - t0
+    if info is None or info["step"] != 2:
+        raise AssertionError(f"[ckpt-resume] load_checkpoint gave {info}")
+    second = [step(b, b) for b in batches[2:]]
+    if not all(torch.equal(a, b) for a, b in zip(first + second, straight)):
+        raise AssertionError(f"[ckpt-resume] losses "
+                             f"{[x.item() for x in first + second]} against "
+                             f"the straight run's "
+                             f"{[x.item() for x in straight]}")
+    _hold_state("[ckpt-resume]", _train_state(model, opt), want)
+    t0 = time.perf_counter()
+    step.save_checkpoint(directory, CKPT_STEPS, block=True)
+    emergency = time.perf_counter() - t0
+    log(f"[ckpt-resume] {smi}: GPT-medium {TRAIN['batch']} x "
+        f"{TRAIN['seq']}, losses {[round(x.item(), 6) for x in straight]} "
+        f"straight and resumed alike; snapshot {nbytes / 1e9:.3f} GB on "
+        f"disk ({copied / 1e9:.3f} GB of tensors copied to pinned host "
+        f"memory); stall at save() {stall * 1e3:.1f} ms (the first save, "
+        f"which allocates the pinned buffers: {first_stall * 1e3:.1f} ms); "
+        f"background write "
+        f"{write:.2f} s ({nbytes / write / 1e9:.2f} GB/s, SHA-256 "
+        f"included); load {load:.2f} s (verify and copy); a block=True "
+        f"save {emergency:.2f} s")
+    del model, opt, step
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return straight, want
+
+
+def phase_ckpt_preempt(smi, straight, want):
+    """Preemption at GPT-medium 16 x 1024: under a PreemptionWatcher the
+    process sends itself SIGTERM after step 2; the loop's next
+    ``requested()`` takes a ``block=True`` save; a fresh model from another
+    seed resumes from it and the 2 other steps end bit for bit where
+    [ckpt-resume]'s straight run did. The watcher's handler is gone
+    afterwards (SIGTERM's handler is the one before it)."""
+    import shutil
+    import signal
+    from paddle_tpu_torch.distributed.preemption import PreemptionWatcher
+    batches = _ckpt_batches()
+    directory = os.path.join(CKPT_DIR, "preempt")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    prev = signal.getsignal(signal.SIGTERM)
+    model, opt, step, _ = _train_recipe()
+    saved_at, save_s = None, None
+    with PreemptionWatcher() as w:
+        for i, b in enumerate(batches):
+            step(b, b)
+            if i == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+            if w.requested():
+                t0 = time.perf_counter()
+                step.save_checkpoint(directory, i + 1, block=True)
+                save_s = time.perf_counter() - t0
+                saved_at = i + 1
+                break
+    if signal.getsignal(signal.SIGTERM) is not prev:
+        raise AssertionError("[ckpt-preempt] the watcher's handler outlived "
+                             "it")
+    if saved_at != 2 or w.signum != signal.SIGTERM:
+        raise AssertionError(f"[ckpt-preempt] saved at step {saved_at}, "
+                             f"signal {w.signum}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    model, opt, step, _ = _train_recipe(seed=1)
+    if step.load_checkpoint(directory)["step"] != 2:
+        raise AssertionError("[ckpt-preempt] resumed from the wrong step")
+    tail = [step(b, b) for b in batches[2:]]
+    if not all(torch.equal(a, b) for a, b in zip(tail, straight[2:])):
+        raise AssertionError(f"[ckpt-preempt] losses after the resume "
+                             f"{[x.item() for x in tail]} against "
+                             f"{[x.item() for x in straight[2:]]}")
+    _hold_state("[ckpt-preempt]", _train_state(model, opt), want)
+    log(f"[ckpt-preempt] {smi}: SIGTERM after step 2, the emergency save "
+        f"at the next step boundary in {save_s:.2f} s, the handler restored;"
+        f" resumed steps 3-4 bit for bit")
+    del model, opt, step
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
 
 MONITOR_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "smoke_checkout", "monitor")
@@ -5406,6 +5730,7 @@ def main() -> int:
     phase_wide_route()
     f32_records = phase_fp32_bodies(parent, parent_fwd, parent_bwd)
     phase_plain_times()
+    records["dq_ordered_sum"] = phase_bwd_order()
     # the forward records beside the parent's time at their shapes
     for record, tag in ((records["flash_pair_fwd"], "gpt-scoring"),
                         (records["flash_attention_fwd"], "bert-padded"),
@@ -5512,6 +5837,13 @@ def main() -> int:
     reset_launch_counts()
     phase_monitor_health_fault()
     paths["gpt-training-monitor-fault"] = counts()
+    torch.cuda.empty_cache()
+    # checkpointing: a save, a resume and a preemption on the training path
+    reset_launch_counts()
+    straight, want = phase_ckpt_resume(smi)
+    phase_ckpt_preempt(smi, straight, want)
+    paths["gpt-training-ckpt"] = counts()
+    del straight, want
     torch.cuda.empty_cache()
 
     reset_launch_counts()                  # BERT training starts here
@@ -5622,11 +5954,16 @@ def main() -> int:
              "gpt-training-monitor": ["flash_pair_fwd", "flash_pair_bwd"],
              "gpt-training-monitor-fault": ["flash_pair_fwd",
                                             "flash_pair_bwd"],
+             "gpt-training-ckpt": ["flash_pair_fwd", "flash_pair_bwd"],
              "llama-training-recompute": ["flash_attention_fwd",
                                           "flash_attention_bwd"],
              "gpt-serving-spec-draft": ["flash_pair_fwd"],
              "gpt-serving-spec-early": ["flash_pair_fwd"],
              "llama-serving-spec": ["flash_attention_fwd"]}
+    # every backward launches the ordered dq sum behind it
+    for kernels in needs.values():
+        if {"flash_pair_bwd", "flash_attention_bwd"} & set(kernels):
+            kernels.append("dq_ordered_sum")
     every_path = dict(paths, **spec_paths)
     for path, kernels in needs.items():
         for kernel in kernels:
@@ -5698,6 +6035,15 @@ def main() -> int:
         dict(_kernel_entry("flash_pair_bwd", "flash_pair_bwd.cu",
                            "flash_attention.py:755", row6, row6_records[1]),
              name="flash_attention_qkv_packed (flash_pair_bwd)"),
+        # the backwards' last step: their bodies store dq's partials a kv
+        # tile apart and this kernel adds them in kv-tile order, as the
+        # Pallas backward's sequential grid sums dq (times at GPT-medium's
+        # training shape, [bwd-order])
+        dict(_kernel_entry("dq_ordered_sum", "dq_sum.cu",
+                           "flash_pair.py:298", launches,
+                           records["dq_ordered_sum"]),
+             name="dq_ordered_sum (the flash backwards' dq, in kv-tile "
+                  "order)"),
         _kernel_entry("dropout_fwd", "dropout.cu", "dropout.py:21", launches,
                       records["dropout_fwd"]),
         _kernel_entry("fused_add_dropout_ln_fwd", "fused_residual_fwd.cu",

@@ -30,13 +30,16 @@ recompute on GPT and LLaMA (``recompute_granularity`` "full", "dots" or
 "selective", ``distributed.fleet.recompute``), gradient accumulation and
 a ``GradScaler`` in ``TrainStep``, ``nn.ClipGradBy*`` as ``grad_clip``,
 ``regularizer.L2Decay`` and AdamW's ``apply_decay_param_fun``, and
-``amp.auto_cast`` / ``amp.decorate``. ``monitor`` is the telemetry plane
+``amp.auto_cast`` / ``amp.decorate``; ``TrainStep.save_checkpoint`` /
+``load_checkpoint`` / ``rollback_last_commit`` checkpoint a run on one card
+(``distributed.checkpoint``, with ``distributed.preemption`` for
+SIGTERM). ``monitor`` is the telemetry plane
 (metrics, JSONL records, spans, goodput and MFU, model health), wired into
 ``TrainStep`` and ``DecodeEngine``; ``PADDLE_MONITOR=path`` turns it on at
 import.
 """
 from . import (amp, core, distributed, jit, kernels, models, monitor, nn,
-               optimizer, quantization, regularizer, serving)
+               optimizer, quantization, regularizer, serving, utils)
 from .core.random import get_rng_state, seed, set_rng_state
 from .jit import TrainStep
 from .models import (BertConfig, BertForPreTraining, GPTConfig,
@@ -46,7 +49,7 @@ from .serving import DecodeEngine
 
 __all__ = ["amp", "core", "distributed", "jit", "kernels", "models",
            "monitor", "nn",
-           "optimizer", "quantization", "regularizer", "serving",
+           "optimizer", "quantization", "regularizer", "serving", "utils",
            "BertConfig", "BertForPreTraining", "bert_base", "GPTConfig",
            "GPTForCausalLM", "LlamaConfig", "LlamaForCausalLM", "llama_7b",
            "DecodeEngine", "TrainStep", "seed", "get_rng_state",

@@ -22,15 +22,21 @@ names, so names map one to one. What changes:
 
 Any source name the target lacks, any target name the source lacks, and
 any shape mismatch raises ``ValueError``.
+
+``convert_paddle_optimizer_state`` carries a ``paddle_tpu`` optimizer's
+``state_dict()`` over the same way: moments and fp32 masters take their
+parameter's layout change, the scheduler's state and the step count pass
+as they are, so a run started in the JAX package resumes in the port.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
-__all__ = ["convert_paddle_state", "load_paddle_state"]
+__all__ = ["convert_paddle_state", "load_paddle_state",
+           "convert_paddle_optimizer_state"]
 
 
 def _linear_weight_names(model: torch.nn.Module) -> set:
@@ -69,3 +75,66 @@ def load_paddle_state(model: torch.nn.Module,
     """Convert ``params`` and load them into ``model`` (strict)."""
     model.load_state_dict(convert_paddle_state(params, model), strict=True)
     return model
+
+
+def convert_paddle_optimizer_state(state: Mapping[str, Any],
+                                   names: Mapping[str, str],
+                                   model: torch.nn.Module,
+                                   optimizer) -> Dict[str, Any]:
+    """A ``paddle_tpu`` optimizer's ``state_dict()`` (tensors as numpy
+    arrays) -> a state for ``optimizer.set_state_dict`` of the port.
+
+    ``names`` maps each JAX checkpoint key (the JAX optimizer's
+    ``_param_keys()``: layer-assigned names with ``__<index>``
+    disambiguators, or ``param_{i}``) to the structured name of its
+    parameter (``named_parameters()``: the same in both packages); the
+    port's parameter of that name in ``model`` gives the port's key
+    (``optimizer._param_keys()``). Each moment ``{key}_{state}`` and each
+    master is transposed where the parameter is an ``nn.Linear`` weight,
+    as ``convert_paddle_state`` does the weight; ``LR_Scheduler`` and
+    ``_step_count`` pass as they are. Values arrive as float32 arrays
+    (numpy has no bfloat16) and leave as CPU float32 tensors;
+    ``set_state_dict`` casts them into the live states. A key of ``names``
+    whose parameter the port's optimizer does not hold, a state the
+    optimizer does not keep, or a shape that does not fit raises
+    ``ValueError``."""
+    by_name = dict(model.named_parameters())
+    port_keys = {id(p): k for p, k in zip(optimizer._parameter_list,
+                                          optimizer._param_keys())}
+    linear = _linear_weight_names(model)
+
+    def port(jax_key: str, arr) -> tuple:
+        name = names.get(jax_key)
+        p = by_name.get(name)
+        if p is None or id(p) not in port_keys:
+            raise ValueError(f"convert: optimizer key {jax_key!r} (parameter "
+                             f"{name!r}) has no parameter in the port's "
+                             f"optimizer")
+        a = np.asarray(arr, dtype=np.float32)
+        if name in linear:
+            a = a.T
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"convert: {jax_key}'s state has shape "
+                             f"{tuple(a.shape)} after layout change, "
+                             f"{name} is {tuple(p.shape)}")
+        return port_keys[id(p)], torch.tensor(a)
+
+    out: Dict[str, Any] = {"master_weights": {},
+                           "LR_Scheduler": dict(state.get("LR_Scheduler")
+                                                or {}),
+                           "_step_count": int(state.get("_step_count", 0))}
+    for jax_key, arr in state.get("master_weights", {}).items():
+        key, t = port(jax_key, arr)
+        out["master_weights"][key] = t
+    for k, arr in state.items():
+        if k in ("master_weights", "LR_Scheduler", "_step_count"):
+            continue
+        for st in optimizer._state_names:
+            if k.endswith("_" + st) and k[:-len(st) - 1] in names:
+                key, t = port(k[:-len(st) - 1], arr)
+                out[f"{key}_{st}"] = t
+                break
+        else:
+            raise ValueError(f"convert: optimizer state {k!r} is no "
+                             f"{optimizer._state_names} of a key in names")
+    return out

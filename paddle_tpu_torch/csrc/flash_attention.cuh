@@ -1,6 +1,6 @@
 // Flash-attention forward and backward for Hopper (sm_90a), shared by the
 // port's two attention layouts: the operands, the masks, the shared
-// helpers, the backward's pre-pass and dq conversion, and the dispatch to
+// helpers, the backward's pre-pass and workspace, and the dispatch to
 // the bodies of the headers included below. Each launcher source
 // includes this header and exposes one `extern "C"` entry point bound with
 // ctypes:
@@ -65,7 +65,7 @@
 //   backward  bf16, D = 64, 80, 96, 128        sm90::flash_bwd_sm90_kernel
 //                                              (flash_bwd_sm90.cuh: TMA,
 //                                              wgmma, dK/dV in registers,
-//                                              bulk dq reductions; 80 and 96
+//                                              bulk dq stores; 80 and 96
 //                                              on 32-byte swizzle blocks)
 //             bf16, D = 256, and D > 256 with  wide::flash_bwd_wide_kernel
 //             D % 64 == 0                      (flash_wide_sm90.cuh: dK/dV
@@ -87,12 +87,13 @@
 // Every backward is three launches on the stream: bwd_prepass_kernel
 // (delta = rowsum(dO * O) in fp32 and a copy of lse, both at rows padded
 // to a multiple of 64 so the bf16 body loads them with one bulk copy a q
-// tile, and the fp32 dq scratch zeroed), the body, and dq_convert_kernel
-// (dq = scratch * sm_scale in the input type: the bodies add unscaled
-// partials). The scratch and the padded rows live in one fp32 workspace
-// the wrapper allocates (bwd_work_floats), with, where a body needs it,
-// the scaled copy of q (wide::, bf16 D >= 256: written by its scale_q_kernel
-// launch, the body's fourth).
+// tile), the body, and dq_sum.cu's ordered sum (dq = the sum of the
+// bodies' partial slabs in kv-tile order, times sm_scale, in the input
+// type: the bodies write unscaled partials), which the wrapper launches
+// behind this file's entry point. The slabs and the padded rows live in
+// one fp32 workspace the wrapper allocates (bwd_work_floats), with, where
+// a body needs it, the scaled copy of q (wide::, bf16 D >= 256: written
+// by its scale_q_kernel launch, the body's fourth).
 //
 // Every backward body is FlashAttention-2's, extended over a GQA group: a
 // CTA (or a cluster of them) owns a kv tile of one KV head and batch row,
@@ -100,11 +101,12 @@
 // the diagonal down (causal: the Pallas tile skip becomes the loop's
 // start), recomputing s and p once per (q tile, kv tile) and feeding all
 // three gradients from them. dk and dv accumulate in fp32 on chip for the
-// whole walk, so the group sum needs no scratch; dq's partials go into the
-// fp32 scratch by reductions, whose order changes from run to run (compare
-// dq with a tolerance, never bit for bit). State is tile-sized, so there is
-// no length cutoff: one kernel does the job of the Pallas fused and split
-// backward forms.
+// whole walk, so the group sum needs no scratch; dq's partials go into a
+// slab of the workspace per part (a kv tile, dq_parts.cuh) with plain
+// stores, and the ordered sum adds the slabs in kv-tile order, so every
+// gradient is the same bit for bit from launch to launch. State is
+// tile-sized, so there is no length cutoff: one kernel does the job of
+// the Pallas fused and split backward forms.
 //
 // Dropout on the attention probabilities (every launcher), as the Pallas
 // kernels have it
@@ -124,7 +126,7 @@
 // lens[b]) (Lk without lengths): the mask tests key < len where it tested
 // key < Lk, the forward's kv walk stops at ceil(len / 64) tiles, and a
 // backward CTA whose kv tile starts at or past len writes zero dk/dv and
-// exits before any load or dq atomic. Segment ids are the kSegs template
+// exits before any load or dq store. Segment ids are the kSegs template
 // flag: the mask then also compares q_seg[b, i] with k_seg[b, j], read
 // only inside [0, Lq) x [0, len), and nothing is skipped for them. A row
 // whose segment owns no key of a tile keeps m at -1e30 (finite), so the
@@ -148,6 +150,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "dq_parts.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -206,10 +209,11 @@ struct FwdArgs {
 
 // Operands of one backward launch. q, k, v as in FwdArgs; out and dout
 // [B, Lq, H*D] contiguous; lse [B, H, Lq] fp32, the forward's; lse_pad,
-// delta [B*H, Lq_pad] and dq_acc [B, Lq, H*D] fp32, written by the
-// pre-pass;
-// dq rows dq_row apart (head h at h*D), dk and dv rows dkv_row apart (KV
-// head hk at hk*D). drop, lens, q_seg and k_seg as in FwdArgs.
+// delta [B*H, Lq_pad] fp32, written by the pre-pass; dq_acc the bodies'
+// dq partials, slab p (dq_parts.cuh) at dq_acc + p * dq_slab, each slab
+// [B, Lq, H*D] fp32 (dq_slab floats), which dq_sum.cu sums into dq; dk
+// and dv rows dkv_row apart (KV head hk at hk*D). drop, lens, q_seg and
+// k_seg as in FwdArgs.
 struct BwdArgs {
   const void* q;
   const void* k;
@@ -220,10 +224,9 @@ struct BwdArgs {
   float* lse_pad;
   float* delta;
   float* dq_acc;
-  void* dq;
   void* dk;
   void* dv;
-  long q_row, kv_row, dq_row, dkv_row;
+  long q_row, kv_row, dkv_row;
   int Lq, Lk, H, Hkv, Lq_pad;
   float sm_scale;
   int causal;
@@ -231,22 +234,28 @@ struct BwdArgs {
   const int* lens;
   const int* q_seg;
   const int* k_seg;
+  long dq_slab;
 };
 
-// The backward's fp32 workspace, in floats: dq_acc, lse_pad, delta and,
-// in bf16 at D >= 256, the scaled copy of q (the wide body's, bf16 [B, Lq,
-// H*D]). kernels/flash_pair.py `bwd_work_floats` sizes it the same way.
-inline long bwd_work_floats(int B, int Lq, int H, int D, int is_bf16) {
+// The backward's fp32 workspace, in floats: dq's partial slabs
+// (dq_parts(Lk, D, is_bf16) of [B, Lq, H*D]), lse_pad, delta and, in bf16
+// at D >= 256, the scaled copy of q (the wide body's, bf16 [B, Lq, H*D]).
+// kernels/flash_pair.py `bwd_work_floats` sizes it the same way.
+inline long bwd_work_floats(int B, int Lq, int Lk, int H, int D,
+                            int is_bf16) {
   const long lq_pad = (Lq + 63) / 64 * 64;
-  const long base = (long)B * Lq * H * D + 2L * B * H * lq_pad;
-  return base + (is_bf16 && D >= 256 ? (long)B * Lq * H * D / 2 : 0L);
+  const long slab = (long)B * Lq * H * D;
+  const long base = dq_parts(Lk, D, is_bf16) * slab + 2L * B * H * lq_pad;
+  return base + (is_bf16 && D >= 256 ? slab / 2 : 0L);
 }
 
 // Points a's scratch into `work` (bwd_work_floats(...) floats).
-inline void bwd_set_work(BwdArgs& a, float* work, int B, int D) {
+inline void bwd_set_work(BwdArgs& a, float* work, int B, int D,
+                         int is_bf16) {
   a.Lq_pad = (a.Lq + 63) / 64 * 64;
+  a.dq_slab = (long)B * a.Lq * a.H * D;
   a.dq_acc = work;
-  a.lse_pad = work + (long)B * a.Lq * a.H * D;
+  a.lse_pad = work + dq_parts(a.Lk, D, is_bf16) * a.dq_slab;
   a.delta = a.lse_pad + (long)B * a.H * a.Lq_pad;
 }
 
@@ -270,6 +279,11 @@ inline __nv_bfloat16* bwd_qs(const BwdArgs& a, int B) {
 #include "flash_bwd_sm90.cuh"   // the bf16 backward at D = 64, 80, 96, 128
 #include "flash_wide_sm90.cuh"  // bf16 D > 256 both ways, D = 256 backward
 #include "flash_f32_wide.cuh"   // fp32 both ways at every D
+
+static_assert(sm90::kBwdRowsKV == 128 && sm90::kBwdRowsWG == 64 &&
+                  sm90::kBwdRowsQ == kDqRowsQ && f32w::kKeys == 32 &&
+                  f32w::kRows == kDqRowsQ,
+              "dq_parts.cuh's parts are the backward bodies' tiles");
 
 namespace {
 
@@ -319,8 +333,8 @@ int flash_fwd(HeadDims<Ds...>, const FwdArgs& a, float* work, int B, int D,
 // ----------------------------------------------------------------- backward
 
 // delta = rowsum(dO * O) in fp32 and the forward's lse, both into rows
-// padded to Lq_pad (0 past Lq), and the dq scratch zeroed: a thread per
-// (b, h, q row), then a grid-stride pass over the scratch.
+// padded to Lq_pad (0 past Lq): a thread per (b, h, q row). The dq slabs
+// are not zeroed: the bodies write every element the ordered sum reads.
 template <typename T>
 __global__ void bwd_prepass_kernel(BwdArgs a, int B, int D) {
   const long hd = (long)a.H * D;
@@ -360,22 +374,6 @@ __global__ void bwd_prepass_kernel(BwdArgs a, int B, int D) {
     a.lse_pad[i] = l;
     a.delta[i] = dl;
   }
-  const long n4 = (long)B * a.Lq * hd / 4;
-  for (long i = tid; i < n4; i += stride)
-    reinterpret_cast<float4*>(a.dq_acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-// dq's fp32 scratch [rows, hd] times `scale` -> dq's rows (dq_row apart),
-// input type.
-template <typename T>
-__global__ void dq_convert_kernel(const float* __restrict__ dq_acc,
-                                  T* __restrict__ dq, long n, int hd,
-                                  long dq_row, float scale) {
-  const long stride = (long)gridDim.x * blockDim.x;
-  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    dq[(i / hd) * dq_row + i % hd] = from_f<T>(dq_acc[i] * scale);
-  }
 }
 
 // The bf16 backward body at head size D (D <= 256): the Hopper body (64,
@@ -390,16 +388,15 @@ cudaError_t launch_bwd_bf16(const BwdArgs& a, int B, cudaStream_t stream) {
     return wide::launch_bwd<kDrop, kSegs>(a, bwd_qs(a, B), B, D, stream);
 }
 
-// The launches of one backward in input type T: the pre-pass, the body
-// (bf16: wide:: above 256, else one of Ds; fp32: f32w:: at every D, one of
-// Ds up to 256), the dq conversion.
+// The launches of one backward in input type T: the pre-pass, then the
+// body (bf16: wide:: above 256, else one of Ds; fp32: f32w:: at every D,
+// one of Ds up to 256). dq_sum.cu's ordered sum follows, from the
+// wrapper.
 template <typename T, bool kDrop, bool kSegs, int... Ds>
 cudaError_t launch_bwd_all(HeadDims<Ds...>, const BwdArgs& a, int B, int D,
                            cudaStream_t st) {
   const long rows = (long)B * a.H * a.Lq_pad;
-  const long n = (long)B * a.Lq * a.H * D;
-  bwd_prepass_kernel<T><<<grid_for(rows > n / 4 ? rows : n / 4), 256, 0,
-                          st>>>(a, B, D);
+  bwd_prepass_kernel<T><<<grid_for(rows), 256, 0, st>>>(a, B, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = cudaErrorInvalidValue;
@@ -412,10 +409,7 @@ cudaError_t launch_bwd_all(HeadDims<Ds...>, const BwdArgs& a, int B, int D,
   } else if (D > 256 || ((D == Ds) || ...)) {
     err = f32w::launch_bwd<kDrop, kSegs>(a, B, D, st);
   }
-  if (err != cudaSuccess) return err;
-  dq_convert_kernel<T><<<grid_for(n), 256, 0, st>>>(
-      a.dq_acc, static_cast<T*>(a.dq), n, a.H * D, a.dq_row, a.sm_scale);
-  return cudaGetLastError();
+  return err;
 }
 
 // The backward for input type (bf16 or fp32) and head size D (one of Ds,
@@ -429,7 +423,7 @@ int flash_bwd(HeadDims<Ds...> dims, BwdArgs a, float* work, int B, int D,
       a.H % a.Hkv || (kSegs && (!a.q_seg || !a.k_seg)) ||
       (D > 256 && D % 64) || work == nullptr)
     return (int)cudaErrorInvalidValue;
-  bwd_set_work(a, work, B, D);
+  bwd_set_work(a, work, B, D, is_bf16);
   return (int)(is_bf16
                    ? launch_bwd_all<__nv_bfloat16, kDrop, kSegs>(dims, a, B,
                                                                  D, st)

@@ -40,21 +40,22 @@
 
 // C entry point, bound with ctypes. Returns the cudaError_t of the launches
 // (0 on success). The caller has checked shapes, types, contiguity and
-// alignment: q, out, dout and dq are [B, Lq, H, D]; k, v, dk and dv [B, Lk,
+// alignment: q, out and dout are [B, Lq, H, D]; k, v, dk and dv [B, Lk,
 // Hkv, D], all of the input type; lse [B, H, Lq] fp32, the forward's;
-// work an fp32 workspace of bwd_work_floats(B, Lq, H, D, is_bf16) floats;
+// work an fp32 workspace of bwd_work_floats(B, Lq, Lk, H, D, is_bf16)
+// floats, whose dq slabs the caller then sums into dq (dq_sum.cu);
 // lens, q_seg, k_seg and the dropout arguments are the forward's.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* out,
-    const void* dout, const void* lse, void* work, void* dq, void* dk,
-    void* dv, const void* lens, const void* q_seg, const void* k_seg, int B,
-    int Lq, int Lk, int H, int Hkv, int D, int is_bf16, int causal,
+    const void* dout, const void* lse, void* work, void* dk, void* dv,
+    const void* lens, const void* q_seg, const void* k_seg, int B, int Lq,
+    int Lk, int H, int Hkv, int D, int is_bf16, int causal,
     float sm_scale, int dropout, unsigned seed_lo, unsigned seed_hi,
     unsigned threshold, float keep_scale, void* stream) {
   const long q_row = (long)H * D, kv_row = (long)Hkv * D;
   BwdArgs a{q, k, v, out, dout, static_cast<const float*>(lse), nullptr,
-            nullptr, nullptr, dq, dk, dv, q_row, kv_row, q_row,
-            kv_row, Lq, Lk, H, Hkv, 0, sm_scale, causal,
+            nullptr, nullptr, dk, dv, q_row, kv_row, kv_row, Lq, Lk, H,
+            Hkv, 0, sm_scale, causal,
             {seed_lo, seed_hi, threshold, keep_scale},
             static_cast<const int*>(lens), static_cast<const int*>(q_seg),
             static_cast<const int*>(k_seg)};

@@ -1,6 +1,6 @@
 // The bf16 flash-attention backward for Hopper (sm_90a): TMA-fed, wgmma on
-// the tensor cores, dK and dV in registers for the whole walk, dq added to
-// its fp32 scratch by bulk reductions. Included by flash_attention.cuh,
+// the tensor cores, dK and dV in registers for the whole walk, dq's
+// partials stored by bulk copies into slabs that are summed in order. Included by flash_attention.cuh,
 // whose backward contract it computes (the math, the rounding points, the
 // masks and the dropout keying are set out there); flash_bwd dispatches
 // every bf16 backward at head sizes 64, 80, 96 and 128 here, from both
@@ -49,7 +49,7 @@
 //   swizzled bf16 tile [128 kv][64 q], and dQ reads it and K both
 //   MN-major (transposed operands). At D = 128 each warpgroup computes one
 //   64-column half of dQ over all 128 kv rows; at D = 64, 80 and 96 each
-//   sums its own 64 kv rows over all D columns (m64nDk16; two reductions of
+//   sums its own 64 kv rows over all D columns (m64nDk16; two parts of
 //   each dq element a tile).
 //   No product stages through fp32 shared memory.
 // * The two copies of q: dK takes the unscaled q (the TMA tile), S the
@@ -78,11 +78,14 @@
 //   the Philox state and the two accumulators do not fit in registers
 //   together).
 // * dq: each warpgroup stages its fp32 dQ tile in shared memory (rows
-//   padded by 32 bytes: no bank conflicts) and adds it to the fp32 scratch
-//   with one cp.reduce.async.bulk .add.f32 a q row (256 bytes; 4 * D at D
-//   = 64, 80, 96), issued by 64 threads; sm_scale is applied once, in the conversion
-//   launch behind the kernel. The reductions' order changes from run to
-//   run (compare dq with a tolerance).
+//   padded by 32 bytes: no bank conflicts) and stores it into its part's
+//   slab of the workspace (dq_parts.cuh: the CTA's kv tile at D = 128, the
+//   warpgroup's 64 kv rows at D = 64, 80, 96, where both warpgroups cover
+//   the same q rows) with one cp.async.bulk a q row (256 bytes; 4 * D at
+//   D = 64, 80, 96), issued by 64 threads. dq_sum.cu adds the slabs in
+//   kv-tile order and applies sm_scale, so dq is the same bit for bit
+//   from launch to launch (an atomic reduction into one scratch added in
+//   whatever order the CTAs finished).
 // * Every branch beside a live accumulator is warp-uniform (trip counts
 //   and flags broadcast with __shfl_sync, waits and lane-0 work inside the
 //   PTX): ptxas serialises every wgmma of a kernel otherwise (note C7520;
@@ -200,7 +203,7 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
   // warp-uniform, as a broadcast shows the compiler
   if (n0 >= __shfl_sync(0xffffffffu, mask.len, 0)) {
     // every key of this tile is past the length: no query sees it, so its
-    // dk and dv are zero, and it adds nothing to dq
+    // dk and dv are zero, and it adds nothing to dq (its slab is not read)
     const int rows = min(kBwdRowsKV, a.Lk - n0);
     for (int i = threadIdx.x; i < rows * D; i += kThreadsCTA) {
       const long at = (long)(n0 + i / D) * a.dkv_row + i % D;
@@ -558,8 +561,8 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
     mbar_arrive(G::empty(base, s));
     if (warp0 && step + G::kStages < n_iter) load_step(step + G::kStages);
 
-    // dQ: stage (this consumer's previous reduction has read its rows),
-    // then one bulk fp32 reduction a q row
+    // dQ: stage (this consumer's previous store has read its rows), then
+    // one bulk store a q row into the part's slab
     bulk_wait_read();
     named_barrier(2 + g, 128);
 #pragma unroll
@@ -575,11 +578,12 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
     named_barrier(2 + g, 128);
     {
       const int r = min(t, kBwdRowsQ - 1);
-      const long at = ((long)b * a.Lq + m0 + r) * ((long)a.H * D) +
+      const long part = G::kSplitN ? (long)blockIdx.z : 2L * blockIdx.z + g;
+      const long at = part * a.dq_slab +
+                      ((long)b * a.Lq + m0 + r) * ((long)a.H * D) +
                       (long)h * D + (G::kSplitN ? g * G::kDqCols : 0);
-      bulk_reduce_add_f32(a.dq_acc + at, dq_stage_u32 + r * G::kDqLd,
-                          G::kDqCols * 4,
-                          (t < kBwdRowsQ) & (m0 + t < a.Lq));
+      bulk_store(a.dq_acc + at, dq_stage_u32 + r * G::kDqLd,
+                 G::kDqCols * 4, (t < kBwdRowsQ) & (m0 + t < a.Lq));
       bulk_commit();
     }
   }

@@ -62,8 +62,9 @@
 //   dO V^T (warps 4-7) over D in items of 32 columns (two make a chunk
 //   sum), p and dS into shared memory, then per chunk of the slice dV +=
 //   P^T dO (warps 0-1) and dK += dS^T q (warps 2-3) into the shared
-//   accumulators and dQ = dS K (warps 4-7) added to dq's fp32 scratch by
-//   16-byte reductions (red.global.add.v4.f32). The causal walks differ
+//   accumulators and dQ = dS K (warps 4-7) stored by 16-byte stores into
+//   the kv tile's slab of dq partials (dq_parts.cuh), which dq_sum.cu adds
+//   in kv-tile order. The causal walks differ
 //   by up to Lq / 64 steps, and the longest sets a launch's time: a
 //   cluster of up to kMaxSplit CTAs shares a kv tile's walk, and each CTA
 //   sums its rows of dK and dV over the cluster in rank order through
@@ -184,13 +185,6 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// dq's fp32 scratch += v at p (16-byte aligned): one vector reduction.
-__device__ __forceinline__ void red_add4(float* p, float4 v) {
-  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
-               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
-               : "memory");
 }
 
 // The cluster's CTAs: a barrier over all their threads (release, acquire),
@@ -747,7 +741,7 @@ __device__ __forceinline__ void bwd_cta(const BwdArgs& a, int D, int slices,
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int group = a.H / a.Hkv;
-  const long hd = (long)a.H * D;  // dO and the dq scratch: contiguous rows
+  const long hd = (long)a.H * D;  // dO and the dq slabs: contiguous rows
   const int c_lo = slice * nc / slices;
   const int W = ((slice + 1) * nc / slices - c_lo) * kW;
   const int Wv = min(W, D - c_lo * kW);  // the slice's columns inside D
@@ -764,7 +758,8 @@ __device__ __forceinline__ void bwd_cta(const BwdArgs& a, int D, int slices,
   const int w_lo = rank * kKeys / split, w_hi = (rank + 1) * kKeys / split;
 
   if (n0 >= mask.len) {
-    // every key of this tile is past the length: zero dk, dv, no dq
+    // every key of this tile is past the length: zero dk, dv, no dq (its
+    // slab is not read)
     for (int i = threadIdx.x; i < (w_hi - w_lo) * Wv / 4; i += kThr) {
       const int r = w_lo + i / (Wv / 4), c = 4 * (i % (Wv / 4));
       if (n0 + r < a.Lk) {
@@ -951,7 +946,8 @@ __device__ __forceinline__ void bwd_cta(const BwdArgs& a, int D, int slices,
       } else {
         // dQ partial = dS K[:, chunk] (warps 4-7): lane (ty, tx) of warp w
         // owns q rows 16 (w - 4) + ty + 2a and columns 4tx .. 4tx + 3,
-        // added to dq's scratch (unscaled; the conversion scales)
+        // stored into the kv tile's slab (unscaled; the ordered sum
+        // scales)
         const int r0 = 16 * (warp - 4) + (lane >> 4);
         const int tx = lane & 15;
         float acc[8][4];
@@ -959,13 +955,14 @@ __device__ __forceinline__ void bwd_cta(const BwdArgs& a, int D, int slices,
                        st + 2 * kRows * kW + 4 * tx, kW);
         const int h = head(it);
         const int col = c_lo * kW + cc + 4 * tx;
-        float* dqg = a.dq_acc + (long)b * a.Lq * hd + (long)h * D + col;
+        float* dqg = a.dq_acc + (long)(n0 / kKeys) * a.dq_slab +
+                     (long)b * a.Lq * hd + (long)h * D + col;
 #pragma unroll
         for (int r = 0; r < 8; ++r) {
           const int qrow = m0 + r0 + 2 * r;
           if (qrow < a.Lq && col < D)
-            red_add4(dqg + (long)qrow * hd,
-                     make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
+            st4(dqg + (long)qrow * hd,
+                make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
         }
       }
     }

@@ -16,8 +16,9 @@
 // d(qkv) [B, L, 3*H*D] in the
 // packed layout, dq at columns h*D, dk at (H+h)*D, dv at (2H+h)*D, no
 // concatenation copy. The kernel is flash_attention.cuh's backward reading
-// the packed rows (row stride 3*H*D) and writing dk/dv and (through the
-// fp32 dq scratch) dq into their columns, one q head per KV head; that
+// the packed rows (row stride 3*H*D) and writing dk/dv into their columns
+// and dq's partials into the workspace's slabs (the wrapper's ordered sum,
+// dq_sum.cu, then writes dq into its columns), one q head per KV head; that
 // header gives the math, the rounding points and the design.
 //
 // Bound on the H100: operations = 10*D*B*H*(attended pairs), five products
@@ -39,8 +40,9 @@
 // (0 on success). The caller has checked shapes, types, contiguity and
 // alignment: qkv and dqkv are [B, L, 3*H*D], out and dout [B, L, H*D] of
 // the input type; lse [B, H, L] fp32, the forward's; work an fp32
-// workspace of bwd_work_floats(B, L, H, D, is_bf16) floats. The
-// dropout arguments are the forward's.
+// workspace of bwd_work_floats(B, L, L, H, D, is_bf16) floats, whose dq
+// slabs the caller sums into dqkv's dq columns (dq_sum.cu). The dropout
+// arguments are the forward's.
 extern "C" int flash_pair_bwd(const void* qkv, const void* out,
                               const void* dout, const void* lse, void* work,
                               void* dqkv, int B, int L, int H, int D,
@@ -53,9 +55,9 @@ extern "C" int flash_pair_bwd(const void* qkv, const void* out,
   const char* in = static_cast<const char*>(qkv);
   char* grad = static_cast<char*>(dqkv);
   BwdArgs a{qkv, in + hd * esize, in + 2 * hd * esize, out, dout,
-            static_cast<const float*>(lse), nullptr, nullptr, nullptr, dqkv,
-            grad + hd * esize, grad + 2 * hd * esize, 3 * hd,
-            3 * hd, 3 * hd, 3 * hd, L, L, H, H, 0, sm_scale, causal,
+            static_cast<const float*>(lse), nullptr, nullptr, nullptr,
+            grad + hd * esize, grad + 2 * hd * esize, 3 * hd, 3 * hd, 3 * hd,
+            L, L, H, H, 0, sm_scale, causal,
             {seed_lo, seed_hi, threshold, keep_scale}};
   float* w = static_cast<float*>(work);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -63,8 +63,8 @@
 //   exp2((s - m) * log2(e)), masks branch-free on the tiles that need
 //   them), P as register A fragments of P V, S^T = K Qs^T orientation in the
 //   backward (P^T and dS^T register-sourced into dV and dK), dS^T through a
-//   swizzled tile for dQ, dq by cp.reduce.async.bulk a q row, sm_scale in
-//   the conversion, every branch beside a live accumulator warp-uniform
+//   swizzled tile for dQ, dq stored by cp.async.bulk a q row into the kv
+//   tile's slab (summed in order by dq_sum.cu, which applies sm_scale), every branch beside a live accumulator warp-uniform
 //   (ptxas serialises the wgmmas otherwise: C7520, the build fails on it).
 //   Dropout's keep bits come from the same Philox keys in every slice, so
 //   the slices drop the same pairs. Only slice 0 writes lse.
@@ -628,7 +628,7 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
   // warp-uniform, as a broadcast shows the compiler
   if (n0 >= __shfl_sync(0xffffffffu, mask.len, 0)) {
     // every key of this tile is past the length: no query sees it, so its
-    // dk and dv are zero, and it adds nothing to dq
+    // dk and dv are zero, and it adds nothing to dq (its slab is not read)
     const int cols = min(kSlice, D - c0);
     const long at0 = ((long)b * a.Lk) * a.dkv_row + (long)hk * D + c0;
     const int rows = min(kBwdRowsKV, a.Lk - n0);
@@ -956,8 +956,8 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
     mbar_arrive(G::sl_empty(base));
     if (warp0 && step + 1 < n_iter) load_slice(step + 1);
 
-    // dQ: stage (this consumer's previous reduction has read its rows),
-    // then one bulk fp32 reduction a q row
+    // dQ: stage (this consumer's previous store has read its rows), then
+    // one bulk store a q row into the kv tile's slab
     bulk_wait_read();
     named_barrier(2 + g, 128);
     const uint32_t dq_stage = base + G::kDQ + g * kBwdRowsQ * G::kDqLd;
@@ -980,10 +980,11 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
       const int c0r = cta(kC0);
       const int dq_live = g == 0 || c0r + kW < D;
       const int r = min(t, kBwdRowsQ - 1);
-      const long at = ((long)b * a.Lq + m0r + r) * ((long)a.H * D) +
+      const long at = (long)blockIdx.z * a.dq_slab +
+                      ((long)b * a.Lq + m0r + r) * ((long)a.H * D) +
                       (long)h * D + cta(g ? kC1 : kC0);
-      bulk_reduce_add_f32(a.dq_acc + at, dq_stage + r * G::kDqLd, kW * 4,
-                          (t < kBwdRowsQ) & (m0r + t < a.Lq) & dq_live);
+      bulk_store(a.dq_acc + at, dq_stage + r * G::kDqLd, kW * 4,
+                 (t < kBwdRowsQ) & (m0r + t < a.Lq) & dq_live);
       bulk_commit();
     }
   }
@@ -1024,8 +1025,8 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
 
 // The bf16 backward body at D (256 or a multiple of 64 above): the scaled
 // copy of q into `qs` (bf16 [B, Lq, H * D], the workspace's last region),
-// then the body. The pre-pass (delta, lse, dq's scratch zeroed) runs before
-// and the dq conversion after, as for every backward.
+// then the body. The pre-pass (delta, lse) runs before and the ordered dq
+// sum after, as for every backward.
 template <bool kDrop, bool kSegs>
 cudaError_t launch_bwd(const BwdArgs& a, __nv_bfloat16* qs, int B, int D,
                        cudaStream_t stream) {

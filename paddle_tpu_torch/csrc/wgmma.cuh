@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks in inline PTX for the port's kernels:
-// mbarriers, TMA tile loads, bulk copies and bulk fp32 reductions, the
+// mbarriers, TMA tile loads, bulk copies to and from shared memory, the
 // fences between the generic and the async proxy, volatile shared-memory
 // loads and stores, named barriers, wgmma
 // shared-memory descriptors, the wgmma instructions the attention kernels
@@ -97,22 +97,20 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
-// Adds `bytes` of fp32 values from shared memory at `src` to global memory
-// at `dst` (both 16-byte aligned, a multiple of 16 bytes), element by
-// element and atomically with respect to other reductions; issued by the
-// threads whose `issue` is nonzero, tracked by this thread's bulk groups.
-__device__ __forceinline__ void bulk_reduce_add_f32(void* dst, uint32_t src,
-                                                    uint32_t bytes,
-                                                    int issue = 1) {
+// Copies `bytes` from shared memory at `src` to global memory at `dst`
+// (both 16-byte aligned, a multiple of 16 bytes); issued by the threads
+// whose `issue` is nonzero, tracked by this thread's bulk groups.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes, int issue = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\n"
-      "@p cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
-      "[%0], [%1], %2;\n}\n" ::"l"(reinterpret_cast<uint64_t>(dst)),
-      "r"(src), "r"(bytes), "r"(issue)
+      "@p cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n}\n"
+      ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(src), "r"(bytes),
+      "r"(issue)
       : "memory");
 }
 
-// Closes this thread's pending bulk reductions into one group.
+// Closes this thread's pending bulk stores into one group.
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }

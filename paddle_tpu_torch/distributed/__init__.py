@@ -1,6 +1,9 @@
 """Distributed training of the port (``paddle_tpu.distributed``'s
 counterpart). Ported so far: ``fleet.recompute`` and
-``fleet.recompute_sequential`` (activation recompute on one card)."""
-from . import fleet
+``fleet.recompute_sequential`` (activation recompute on one card),
+``checkpoint`` (single-card fault-tolerant checkpointing: atomic commits,
+verification and quarantine, async and emergency saves, retry) and
+``preemption`` (SIGTERM/SIGINT as a checkpoint request)."""
+from . import checkpoint, fleet, preemption
 
-__all__ = ["fleet"]
+__all__ = ["checkpoint", "fleet", "preemption"]

@@ -65,11 +65,6 @@ from ..monitor import trace as _trace
 __all__ = ["TrainStep"]
 
 
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"TrainStep: {what} is not ported yet "
-                               f"(ROADMAP Queue 1, item {item})")
-
-
 class TrainStep:
     """``TrainStep(model, optimizer, loss_fn=None, accumulate_steps=None,
     average_grads=None, grad_scaler=None)``; ``step(*inputs)`` runs one
@@ -78,8 +73,12 @@ class TrainStep:
     The loss is ``loss_fn(out)`` when ``loss_fn`` is given, else ``out``
     when the model returns a tensor, else ``out[-1]`` (the ``(logits,
     loss)`` convention: ``GPTForCausalLM(ids, labels)`` returns ``(None,
-    loss)``). Inputs pass positionally. The checkpoint methods raise
-    ``NotImplementedError``."""
+    loss)``). Inputs pass positionally.
+
+    ``save_checkpoint`` / ``load_checkpoint`` / ``wait_checkpoint`` /
+    ``rollback_last_commit`` snapshot and restore the model, the optimizer
+    and the step's ``GradScaler`` through ``distributed.checkpoint`` (one
+    card; atomic commits, async writes, fall-back past torn snapshots)."""
 
     _ids = itertools.count()
 
@@ -105,6 +104,7 @@ class TrainStep:
         self._health_n = 0
         self._leaf_meta = None
         self._mint_cost = None
+        self._ckptr = None       # the AsyncCheckpointer of save_checkpoint
 
     def _loss(self, inputs):
         out = self._model(*inputs)
@@ -347,14 +347,65 @@ class TrainStep:
         return loss.detach(), [torch.zeros_like(p) if g is None else g
                                for p, g in zip(params, grads)]
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise _unported("checkpointing", 10)
+    # --------------------------------------------------------- checkpointing
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise _unported("checkpointing", 10)
+    def save_checkpoint(self, directory: str, step: int, extra=None,
+                        keep: int = 3, block: bool = False,
+                        coordinator=None):
+        """Snapshot the model, the optimizer and the step's ``GradScaler``
+        (in ``extra["grad_scaler"]``) into ``<directory>/step_<step>``
+        (``distributed.checkpoint``). Asynchronous by default: the state is
+        copied to host memory now, after the card has finished the steps
+        already queued, then written in the background, at most one save
+        in flight; a previous write's error surfaces here. ``block=True``
+        writes before returning, the form for an emergency save (e.g.
+        after ``PreemptionWatcher.requested()``). Keeps the newest ``keep``
+        committed snapshots. ``coordinator``: None or False (the pod-wide
+        commit is not ported)."""
+        from ..distributed.checkpoint import AsyncCheckpointer
+        ckptr = self._ckptr
+        if ckptr is None or ckptr.directory != directory:
+            if ckptr is not None:
+                ckptr.close()
+            ckptr = AsyncCheckpointer(directory, keep=keep,
+                                      coordinator=coordinator)
+            self._ckptr = ckptr
+        ckptr.keep = keep
+        ckptr.save(step, model=self._model, optimizer=self._opt,
+                   grad_scaler=self._scaler, extra=extra, block=block)
 
-    def wait_checkpoint(self, *args, **kwargs):
-        raise _unported("checkpointing", 10)
+    def wait_checkpoint(self):
+        """Barrier for an in-flight save (surfaces its write error)."""
+        if self._ckptr is not None:
+            self._ckptr.wait()
 
-    def rollback_last_commit(self, *args, **kwargs):
-        raise _unported("checkpointing", 10)
+    def load_checkpoint(self, directory: str, step=None):
+        """Resume the model, the optimizer and the scaler from the newest
+        committed snapshot (falling back past torn or corrupt ones), or
+        from ``step``; returns the checkpoint's info (``{'step': N,
+        **extra}``) or None when nothing is loadable. The values are copied
+        into the live parameters and states in place, so whatever holds
+        their storage stays valid."""
+        from ..distributed.checkpoint import load_checkpoint
+        self.wait_checkpoint()
+        return load_checkpoint(directory, model=self._model,
+                               optimizer=self._opt, step=step,
+                               grad_scaler=self._scaler)
+
+    def rollback_last_commit(self, directory: str, before_step=None):
+        """Restore the newest snapshot committed strictly BEFORE
+        ``before_step`` (any committed snapshot when None), leaving newer,
+        possibly poisoned, snapshots on disk untouched: the health plane's
+        ``rollback_hook`` target in a raw training loop::
+
+            mon.health.rollback_hook = lambda step, info: \\
+                train_step.rollback_last_commit(ckpt_dir, before_step=step)
+
+        Returns the checkpoint's info, or None when nothing older exists.
+        Restores in place, as ``load_checkpoint``."""
+        from ..distributed.checkpoint import load_checkpoint
+        self.wait_checkpoint()
+        max_step = None if before_step is None else int(before_step) - 1
+        return load_checkpoint(directory, model=self._model,
+                               optimizer=self._opt, grad_scaler=self._scaler,
+                               max_step=max_step)

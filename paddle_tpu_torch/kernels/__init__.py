@@ -12,6 +12,10 @@
   key lengths, segment ids and in-kernel dropout, tied together by
   ``FlashAttention`` (LLaMA, BERT's padded batches, ``F.flash_attention``
   and ``F.scaled_dot_product_attention`` without an additive mask);
+* ``dq_ordered_sum`` (``csrc/dq_sum.cu``), the last step of both flash
+  backwards: their bodies store dq's partials a kv tile apart and this
+  kernel adds them in kv-tile order, so every gradient is the same bit for
+  bit from call to call;
 * ``dropout_fwd`` (``csrc/dropout.cu``), dropout with the mask drawn in the
   kernel, forward and backward under ``DropoutFunction`` (``F.dropout``);
 * ``fused_add_dropout_ln_fwd`` (``csrc/fused_residual_fwd.cu``) and
@@ -41,6 +45,7 @@ backward wrappers also count the bf16 backward at heads of 80 and 96
 (``csrc/flash_bwd_sm90.cuh`` on 32-byte swizzle blocks) in
 ``<wrapper>.sw32_bwd_launches``, read by ``sw32_bwd_launch_counts()``.
 """
+from .dq_sum import dq_ordered_sum, dq_ordered_sum_reference
 from .dropout import DropoutFunction, dropout_fwd, dropout_fwd_reference
 from .flash_attention import (FlashAttention, flash_attention_bwd,
                               flash_attention_bwd_reference,
@@ -60,7 +65,8 @@ __all__ = ["flash_pair_fwd", "flash_pair_fwd_reference", "flash_pair_bwd",
            "pair_layout_supported", "flash_attention_fwd",
            "flash_attention_fwd_reference", "flash_attention_bwd",
            "flash_attention_bwd_reference", "FlashAttention",
-           "flash_attention_qkv_packed",
+           "flash_attention_qkv_packed", "dq_ordered_sum",
+           "dq_ordered_sum_reference",
            "dropout_fwd", "dropout_fwd_reference", "DropoutFunction",
            "fused_add_dropout_ln_fwd", "fused_add_dropout_ln_fwd_reference",
            "fused_add_dropout_ln_bwd", "fused_add_dropout_ln_bwd_reference",
@@ -73,6 +79,7 @@ WRAPPERS = {"flash_pair_fwd": flash_pair_fwd,
             "flash_pair_bwd": flash_pair_bwd,
             "flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd": flash_attention_bwd,
+            "dq_ordered_sum": dq_ordered_sum,
             "dropout_fwd": dropout_fwd,
             "fused_add_dropout_ln_fwd": fused_add_dropout_ln_fwd,
             "fused_add_dropout_ln_bwd": fused_add_dropout_ln_bwd}

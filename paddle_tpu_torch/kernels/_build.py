@@ -31,6 +31,7 @@ SOURCES = {"flash_pair_fwd": "flash_pair_fwd.cu",
            "flash_pair_bwd": "flash_pair_bwd.cu",
            "flash_attention_fwd": "flash_attention_fwd.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
+           "dq_ordered_sum": "dq_sum.cu",
            "dropout_fwd": "dropout.cu",
            "fused_add_dropout_ln_fwd": "fused_residual_fwd.cu",
            "fused_add_dropout_ln_bwd": "fused_residual_bwd.cu"}

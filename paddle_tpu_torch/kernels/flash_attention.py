@@ -66,6 +66,7 @@ import torch
 from ..monitor import goodput as _goodput
 from . import _build, philox
 from .flash_pair import (FlashPairPacked, bwd_work_floats, count_bodies,
+                         sum_dq,
                          fwd_work_floats)
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_reference",
@@ -432,7 +433,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal: bool,
     return tuple(x.transpose(1, 2).to(dt).contiguous() for x in (dq, dk, dv))
 
 
-_BWD_ARGTYPES = (*(ctypes.c_void_p,) * 13, *(ctypes.c_int,) * 8,
+_BWD_ARGTYPES = (*(ctypes.c_void_p,) * 12, *(ctypes.c_int,) * 8,
                  ctypes.c_float, *philox.KERNEL_ARGTYPES, ctypes.c_void_p)
 
 
@@ -450,10 +451,13 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
     or more, the wide body's, also in ``.wide_launches``, an fp32 head above
     256, the fp32 wide body's, in ``.f32_wide_launches``, an fp32 head up to
     256 in ``.f32_bwd_launches``, a bf16 head of 80 or 96 in
-    ``.sw32_bwd_launches``; a pre-pass launch before the kernel computes ``delta = rowsum(dO*O)``, as the JAX package
-    computes it outside its kernel, and zeroes dq's fp32 scratch, and a
-    small conversion launch behind it writes dq; all in one fp32 workspace;
-    a head size that is not built runs padded, as in the forward); a CPU
+    ``.sw32_bwd_launches``; a pre-pass launch before the kernel computes
+    ``delta = rowsum(dO*O)``, as the JAX package computes it outside its
+    kernel, the kernel stores dq's partials in slabs of one fp32
+    workspace, and ``dq_sum.dq_ordered_sum`` behind it, counted apart, adds
+    them in kv-tile order into dq, so the gradients are the same bit for
+    bit from call to call; a head size that is not built runs padded, as
+    in the forward); a CPU
     tensor runs ``flash_attention_bwd_reference``. Raises on what the
     kernel does not take, as the forward does, and on mismatched shapes or
     types."""
@@ -487,7 +491,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
             kv_segments=masks[2])
         return tuple(g[..., :d].contiguous() for g in grads)
     _check_aligned("flash_attention_bwd", q, k, v, out, dout)
-    work = torch.empty(bwd_work_floats(b, lq, h, d, q.dtype),
+    work = torch.empty(bwd_work_floats(b, lq, lk, h, d, q.dtype),
                        dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
@@ -497,7 +501,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), work.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), *map(_ptr, masks),
             b, lq, lk, h, hkv, d, int(q.dtype == torch.bfloat16),
             int(bool(causal)), _scale(d, sm_scale),
@@ -507,6 +511,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
                            f"(cudaError {rc})")
     flash_attention_bwd.launches += 1
     count_bodies(flash_attention_bwd, q.dtype, d, backward=True)
+    sum_dq(work, dq.view(b, lq, h * d), lk, d, causal, _scale(d, sm_scale),
+           masks[0])
     if _goodput.counting():
         _report(b, lq, lk, h, d, causal, masks, q.device, True)
     return dq, dk, dv

@@ -38,10 +38,12 @@ import torch
 
 from ..monitor import goodput as _goodput
 from . import _build, philox
+from .dq_sum import dq_ordered_sum, dq_parts, dq_parts_geometry
 
 __all__ = ["flash_pair_fwd", "flash_pair_fwd_reference", "flash_pair_bwd",
            "flash_pair_bwd_reference", "FlashPairPacked",
-           "pair_layout_supported", "fwd_work_floats", "bwd_work_floats"]
+           "pair_layout_supported", "fwd_work_floats", "bwd_work_floats",
+           "sum_dq"]
 
 _NEG_INF = -1e30
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -69,17 +71,34 @@ def fwd_work_floats(b: int, lq: int, h: int, d: int, dtype) -> int:
     return b * lq * h * d // 2
 
 
-def bwd_work_floats(b: int, lq: int, h: int, d: int, dtype) -> int:
+def bwd_work_floats(b: int, lq: int, lk: int, h: int, d: int,
+                    dtype) -> int:
     """Floats of a backward launch's fp32 workspace
-    (csrc/flash_attention.cuh ``bwd_work_floats``): dq's scratch ``[B, Lq,
-    H*D]``, lse and delta at rows padded to a multiple of 64 ``[B*H,
-    Lq_pad]`` each, and in bf16 at ``D >= 256`` the wide body's copy of
-    ``round(q * scale)``, bf16 ``[B, Lq, H*D]``."""
+    (csrc/flash_attention.cuh ``bwd_work_floats``): dq's partial slabs
+    (``dq_sum.dq_parts(lk, d, dtype)`` of ``[B, Lq, H*D]``), lse and delta
+    at rows padded to a multiple of 64 ``[B*H, Lq_pad]`` each, and in bf16
+    at ``D >= 256`` the wide body's copy of ``round(q * scale)``, bf16
+    ``[B, Lq, H*D]``."""
     lq_pad = -(-lq // 64) * 64
-    n = b * lq * h * d + 2 * b * h * lq_pad
+    slab = b * lq * h * d
+    n = dq_parts(lk, d, dtype) * slab + 2 * b * h * lq_pad
     if dtype == torch.bfloat16 and d >= _WIDE_BWD_MIN_D:
-        n += b * lq * h * d // 2
+        n += slab // 2
     return n
+
+
+def sum_dq(work: torch.Tensor, dq: torch.Tensor, lk: int, d: int,
+           causal: bool, sm_scale: float, lens=None) -> torch.Tensor:
+    """dq from a backward's workspace (the launch's last step): the ordered
+    sum (``dq_sum.dq_ordered_sum``) of the slabs at the head of ``work``
+    into ``dq`` (``[B, Lq, H*D]``, rows evenly spaced), with the body's
+    part geometry for head size ``d`` and dq's type."""
+    b, lq, hd = dq.shape
+    kv_tile, per_tile = dq_parts_geometry(d, dq.dtype)
+    n = dq_parts(lk, d, dq.dtype)
+    parts = work[:n * b * lq * hd].view(n, b, lq, hd)
+    return dq_ordered_sum(parts, dq, lk, causal, kv_tile, per_tile,
+                          sm_scale, lens)
 
 
 # the bf16 backward's head sizes on 32-byte swizzle blocks
@@ -387,9 +406,11 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
     256, the fp32 wide body's, in ``.f32_wide_launches``, an fp32 head up
     to 256 in ``.f32_bwd_launches``; a pre-pass launch
     before the kernel computes ``delta = rowsum(dO*O)``, as the JAX package
-    computes it outside its kernel, and zeroes dq's fp32 scratch, and a
-    small conversion launch behind it writes dq; all in one fp32
-    workspace); a CPU tensor runs ``flash_pair_bwd_reference``. Raises on
+    computes it outside its kernel, the kernel stores dq's partials in
+    slabs of one fp32 workspace, and ``dq_sum.dq_ordered_sum`` behind it,
+    counted apart, adds them in kv-tile order into dq, so the gradient is
+    the same bit for bit from call to call); a CPU tensor runs
+    ``flash_pair_bwd_reference``. Raises on
     what the kernel does not take: a head size other than 64, 128, 256 or a
     multiple of 128 above 256, a type other than bf16/fp32, mismatched
     shapes or types, non-contiguous or misaligned input."""
@@ -412,7 +433,7 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                          "aligned (the kernels read them with TMA and in "
                          "16-byte vectors)")
     b, L, _ = qkv.shape
-    work = torch.empty(bwd_work_floats(b, L, num_heads, d, qkv.dtype),
+    work = torch.empty(bwd_work_floats(b, L, L, num_heads, d, qkv.dtype),
                        dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
     lib = _build.load("flash_pair_bwd", _BWD_ARGTYPES)
@@ -429,6 +450,7 @@ def flash_pair_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                            f"(cudaError {rc})")
     flash_pair_bwd.launches += 1
     count_bodies(flash_pair_bwd, qkv.dtype, d, backward=True)
+    sum_dq(work, dqkv[..., :num_heads * d], L, d, causal, _scale(d, sm_scale))
     if _goodput.counting():
         _report(b, L, num_heads, d, causal, True)
     return dqkv

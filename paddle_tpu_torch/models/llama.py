@@ -266,6 +266,21 @@ class LlamaModel(nn.Module):
         return self
 
 
+class _SkipInit(torch.overrides.TorchFunctionMode):
+    """Skips ``torch.nn.init``'s draws while the modules are built on the
+    meta device: ``_init_weights`` draws every weight again after
+    ``to_empty``. A draw on a meta tensor would import ``torch._dynamo``
+    the first time in a process, and that import keeps a cycle of frames
+    that reaches the model under construction, so the first model built
+    would outlive its last reference until the cycle collector ran."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if getattr(func, "__module__", None) == "torch.nn.init":
+            return args[0] if args else kwargs["tensor"]
+        return func(*args, **kwargs)
+
+
 class LlamaForCausalLM(nn.Module):
     """LM head on LlamaModel (untied by default).
 
@@ -285,7 +300,8 @@ class LlamaForCausalLM(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.config = config
-        with torch.device("meta"):       # shapes only: nothing allocated
+        # shapes only: nothing allocated, nothing drawn
+        with torch.device("meta"), _SkipInit():
             self.model = LlamaModel(config)
             self.lm_head = None if config.tie_word_embeddings else \
                 nn.Linear(config.hidden_size, config.vocab_size, bias=False)

@@ -15,11 +15,16 @@ copies it, cast, into the parameter.
 
 ``grad_clip`` (``nn.clip``) runs in ``step()`` before the update, on the
 gradients as they stand; the cast to the master's type comes after it.
+
+``state_dict()`` / ``set_state_dict()`` carry the moments, the fp32
+masters, the scheduler's state and the step count under the JAX
+package's keys (a checkpoint's ``optimizer.pt``).
 ``weight_decay`` is a float or an ``L2Decay`` (its coefficient); an
 ``L1Decay`` raises ``NotImplementedError``, as in the JAX package.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict, List
 
 import numpy as np
@@ -171,6 +176,76 @@ class Optimizer:
         """Drop every gradient (``p.grad = None``)."""
         for p in self._parameter_list:
             p.grad = None
+
+    # ------------------------------------------------------------ checkpoint
+
+    def _param_keys(self) -> List[str]:
+        """Checkpoint keys of ``_parameter_list``, the JAX package's rule: a
+        parameter's name, else ``param_{i}`` (its index in the list), with
+        an ``__<index>`` disambiguator on every name that repeats (a
+        colliding key would cross-wire moments between parameters on
+        restore). A ``torch.nn.Parameter``'s ``name`` slot is read-only, so
+        the name is ``p.param_name`` where the caller set one (as AdamW's
+        ``apply_decay_param_fun`` reads it); the port's models set none, so
+        their keys are ``param_{i}``, as the JAX package's unnamed
+        parameters' are."""
+        names = [getattr(p, "param_name", "") or f"param_{i}"
+                 for i, p in enumerate(self._parameter_list)]
+        counts = Counter(names)
+        return [f"{n}__{i}" if counts[n] > 1 else n
+                for i, n in enumerate(names)]
+
+    def state_dict(self) -> dict:
+        """The optimizer's state BY REFERENCE, under the JAX package's keys:
+        ``{key}_{state}`` for each moment (``moment1``, ``moment2``),
+        ``master_weights`` ``{key: fp32 master}``, ``LR_Scheduler`` (the
+        scheduler's ``state_dict``, empty for a fixed rate) and
+        ``_step_count``. The tensors are the live ones, which the next
+        ``step()`` updates in place: copy them (``AsyncCheckpointer`` does,
+        at ``save()``) to keep this step's values."""
+        out = {"master_weights": {}, "LR_Scheduler": {}}
+        for p, key in zip(self._parameter_list, self._param_keys()):
+            pid = id(p)
+            for name, t in self._accumulators.get(pid, {}).items():
+                out[f"{key}_{name}"] = t
+            if pid in self._master_weights:
+                out["master_weights"][key] = self._master_weights[pid]
+        if isinstance(self._learning_rate, LRScheduler):
+            out["LR_Scheduler"] = self._learning_rate.state_dict()
+        out["_step_count"] = self._step_count
+        return out
+
+    @torch.no_grad()
+    def set_state_dict(self, state: dict):
+        """Restore a ``state_dict()`` (tensors anywhere; numpy arrays too):
+        each saved moment and master is copied into the live state of its
+        parameter in place (created first where the optimizer has not
+        stepped yet), so the live tensors keep their storage; then the
+        scheduler's state and the step count. A saved tensor of another
+        shape than its parameter's state raises ``ValueError``."""
+        masters = state.get("master_weights", {})
+        for p, key in zip(self._parameter_list, self._param_keys()):
+            saved = {name: state[f"{key}_{name}"] for name in self._state_names
+                     if f"{key}_{name}" in state}
+            if not saved and key not in masters:
+                continue
+            live = dict(self._ensure_state(p))
+            if key in masters and id(p) in self._master_weights:
+                live["master_weights"] = self._master_weights[id(p)]
+                saved["master_weights"] = masters[key]
+            for name, v in saved.items():
+                v = torch.as_tensor(v)
+                want = tuple(live[name].shape) if name in live else None
+                if tuple(v.shape) != want:
+                    raise ValueError(
+                        f"set_state_dict: {key}'s {name} is "
+                        f"{tuple(v.shape)} in the state but the parameter's "
+                        f"is {want}")
+                live[name].copy_(v)
+        if isinstance(self._learning_rate, LRScheduler) \
+                and state.get("LR_Scheduler"):
+            self._learning_rate.set_state_dict(state["LR_Scheduler"])
+        self._step_count = int(state.get("_step_count", 0))
 
 
 class Adam(Optimizer):

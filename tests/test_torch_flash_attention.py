@@ -47,8 +47,8 @@ from paddle_tpu_torch.nn.functional import attention
 
 NO_LAUNCHES = {"flash_pair_fwd": 0, "flash_pair_bwd": 0,
                "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-               "dropout_fwd": 0, "fused_add_dropout_ln_fwd": 0,
-               "fused_add_dropout_ln_bwd": 0}
+               "dq_ordered_sum": 0, "dropout_fwd": 0,
+               "fused_add_dropout_ln_fwd": 0, "fused_add_dropout_ln_bwd": 0}
 
 # (Lq, Lk): one tile pair (the fused backward), two (the split backward),
 # and Lq != Lk (the causal diagonal moves by Lk - Lq)
@@ -932,25 +932,32 @@ def test_flash_attention_options_as_the_reference(monkeypatch):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("d", [64, 80, 96, 128, 256, 320, 512])
 def test_workspace_sizing_by_dtype(d, dtype):
-    """The kernels' fp32 workspaces, sized by type and head size: the bf16
-    wide bodies (forward above D = 256, backward from 256) take a bf16
-    copy of round(q * scale) (half a float an element); fp32 takes no
-    forward workspace and, in the backward, only dq's scratch, lse and
-    delta at every head size (the fp32 wide kernels keep O, dK and dV in
-    shared memory; the bf16 D = 80, 96 backward keeps dK and dV in
+    """The kernels' fp32 workspaces, sized by type, head size and key
+    length: the backward holds dq's partial slabs, one a kv tile of its
+    body (128 keys in bf16, two a tile at D = 64, 80, 96, where the two
+    consumer warpgroups store apart; 32 keys in fp32), then lse and
+    delta; the bf16 wide bodies (forward above D = 256, backward from 256)
+    also take a bf16 copy of round(q * scale) (half a float an element);
+    fp32 takes no forward workspace (the fp32 wide kernels keep O, dK and
+    dV in shared memory; the bf16 D = 80, 96 backward keeps dK and dV in
     registers)."""
-    b, lq, h = 2, 200, 4
+    b, lq, lk, h = 2, 200, 300, 4
     dt = getattr(torch, dtype)
     lq_pad = 256
-    base = b * lq * h * d + 2 * b * h * lq_pad   # dq, lse and delta
+    slab = b * lq * h * d
+    if dtype == "float32":
+        parts = -(-lk // 32)
+    else:
+        parts = -(-lk // 128) * (2 if d in (64, 80, 96) else 1)
+    base = parts * slab + 2 * b * h * lq_pad   # dq's slabs, lse and delta
     if dtype == "float32":
         assert fwd_work_floats(b, lq, h, d, dt) == 0
-        assert bwd_work_floats(b, lq, h, d, dt) == base
+        assert bwd_work_floats(b, lq, lk, h, d, dt) == base
     else:
         assert fwd_work_floats(b, lq, h, d, dt) == \
-            (b * lq * h * d // 2 if d > 256 else 0)
-        assert bwd_work_floats(b, lq, h, d, dt) == \
-            base + (b * lq * h * d // 2 if d >= 256 else 0)
+            (slab // 2 if d > 256 else 0)
+        assert bwd_work_floats(b, lq, lk, h, d, dt) == \
+            base + (slab // 2 if d >= 256 else 0)
 
 
 # ------------------------------------------------------------------ cuda
@@ -1016,7 +1023,8 @@ def test_cuda_backward_matches_plain(case):
     reset_launch_counts()
     got = flash_attention_bwd(q, k, v, out, lse, g, causal)
     torch.cuda.synchronize()
-    assert launch_counts() == dict(NO_LAUNCHES, flash_attention_bwd=1)
+    assert launch_counts() == dict(NO_LAUNCHES, flash_attention_bwd=1,
+                                   dq_ordered_sum=1)
     # the limits of chip_smoke.py's compare-fa-bwd phase; fp32 above D =
     # 256 against the exact gradient (the plain versions in fp64 from fp64
     # inputs) within its BIG_D_FP32_REL_LIMIT: there the fp32 plain
@@ -1087,7 +1095,7 @@ def test_cuda_masked_kernels_match_plain(case):
     got = flash_attention_bwd(q, k, v, out, lse, g, causal, None, rate, **kw)
     torch.cuda.synchronize()
     assert launch_counts() == dict(NO_LAUNCHES, flash_attention_fwd=1,
-                                   flash_attention_bwd=1)
+                                   flash_attention_bwd=1, dq_ordered_sum=1)
     ref_out, ref_lse = flash_attention_fwd_reference(q, k, v, causal, None,
                                                      rate, **kw)
     limit = _weighted_limit(q, k, v, causal, ref_out, dtype,
@@ -1136,7 +1144,7 @@ def test_cuda_packed_qkv_matches_plain(rate, sm_scale):
     out.backward(g)
     torch.cuda.synchronize()
     assert launch_counts() == dict(NO_LAUNCHES, flash_pair_fwd=1,
-                                   flash_pair_bwd=1)
+                                   flash_pair_bwd=1, dq_ordered_sum=1)
     q, k, v = _column_slices(x, h, d)
     ref, lse = flash_attention_fwd_reference(q, k, v, True, sm_scale, rate,
                                              seed=seed)
@@ -1224,7 +1232,8 @@ def test_cuda_bf16_backward_every_head_dim_and_flag(d, flags):
     again = flash_attention_bwd(q, k, v, out, lse, g, causal, None, rate,
                                 **kw)
     torch.cuda.synchronize()
-    assert launch_counts() == dict(NO_LAUNCHES, flash_attention_bwd=2)
+    assert launch_counts() == dict(NO_LAUNCHES, flash_attention_bwd=2,
+                                   dq_ordered_sum=2)
     want = flash_attention_bwd_reference(q, k, v, out, lse, g, causal, None,
                                          rate, **kw)
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
@@ -1259,7 +1268,8 @@ def test_cuda_fp32_backward_every_head_dim_and_flag(d, flags):
     again = flash_attention_bwd(q, k, v, out, lse, g, causal, None, rate,
                                 **kw)
     torch.cuda.synchronize()
-    assert launch_counts() == dict(NO_LAUNCHES, flash_attention_bwd=2)
+    assert launch_counts() == dict(NO_LAUNCHES, flash_attention_bwd=2,
+                                   dq_ordered_sum=2)
     assert f32_bwd_launch_counts() == dict(flash_pair_bwd=0,
                                            flash_attention_bwd=2)
     want = flash_attention_bwd_reference(q, k, v, out, lse, g, causal, None,
@@ -1353,6 +1363,7 @@ def test_cuda_functionals_run_a_kernel_at_new_head_dims(d):
         torch.cuda.synchronize()
         want = dict(flash_pair_fwd=1, flash_pair_bwd=1) if name == "packed" \
             else dict(flash_attention_fwd=1, flash_attention_bwd=1)
+        want["dq_ordered_sum"] = 1
         assert launch_counts() == dict(NO_LAUNCHES, **want), name
         ref, lse = flash_attention_fwd_reference(q, k, v, True)
         limit = _weighted_limit(q, k, v, True, ref, torch.bfloat16)
@@ -1392,7 +1403,7 @@ def test_cuda_bf16_wide_heads_mqa_and_ragged(case):
     got = flash_attention_bwd(q, k, v, out, lse, g, causal, **kw)
     torch.cuda.synchronize()
     assert launch_counts() == dict(NO_LAUNCHES, flash_attention_fwd=1,
-                                   flash_attention_bwd=1)
+                                   flash_attention_bwd=1, dq_ordered_sum=1)
     assert wide_launch_counts() == dict(
         flash_pair_fwd=0, flash_pair_bwd=0, flash_attention_fwd=1,
         flash_attention_bwd=1)
@@ -1497,7 +1508,8 @@ def test_cuda_bf16_wide_heads_run_the_wide_bodies(route):
     assert seen == {fwd_body, bwd_body}, keys
     if bwd_body == "flash_bwd_sm90_kernel":
         assert any(f"flash_bwd_sm90_kernel<{d}," in key for key in keys), keys
-    assert launch_counts() == dict(NO_LAUNCHES, **{names[0]: 1, names[1]: 1})
+    assert launch_counts() == dict(NO_LAUNCHES, **{names[0]: 1, names[1]: 1},
+                                   dq_ordered_sum=1)
     for ctr, reader in BODY_COUNTERS.items():
         want = {n: int((ctr, n) in ((ctr_f, names[0]), (ctr_b, names[1])))
                 for n in reader()}

@@ -35,8 +35,8 @@ from paddle_tpu_torch.nn import functional as F
 
 NO_LAUNCHES = {"flash_pair_fwd": 0, "flash_pair_bwd": 0,
                "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-               "dropout_fwd": 0, "fused_add_dropout_ln_fwd": 0,
-               "fused_add_dropout_ln_bwd": 0}
+               "dq_ordered_sum": 0, "dropout_fwd": 0,
+               "fused_add_dropout_ln_fwd": 0, "fused_add_dropout_ln_bwd": 0}
 
 
 def _qkv(b, L, heads, d, seed):
@@ -283,7 +283,8 @@ def test_cuda_backward_matches_plain(case):
     reset_launch_counts()
     got = flash_pair_bwd(x, out, lse, g, heads, causal)
     torch.cuda.synchronize()
-    assert launch_counts() == dict(NO_LAUNCHES, flash_pair_bwd=1)
+    assert launch_counts() == dict(NO_LAUNCHES, flash_pair_bwd=1,
+                                   dq_ordered_sum=1)
     hd = heads * d
     # relative Frobenius error per part; the limits of chip_smoke.py's
     # compare-bwd phase (3x its first readings on an H100); fp32 above D =
@@ -353,7 +354,7 @@ def test_cuda_gradient_flows_through_the_function():
     out.backward(g)
     torch.cuda.synchronize()
     assert launch_counts() == dict(NO_LAUNCHES, flash_pair_fwd=1,
-                                   flash_pair_bwd=1)
+                                   flash_pair_bwd=1, dq_ordered_sum=1)
     o2, lse = flash_pair_fwd(x.detach(), 4, True)
     want = flash_pair_bwd_reference(x.detach(), o2, lse, g, 4, True)
     assert _rel(x.grad, want) < 1e-5
@@ -482,7 +483,7 @@ def test_cuda_dropout_kernels_match_plain(case):
     got = flash_pair_bwd(x, out, lse, g, heads, causal, 0.1, seed)
     torch.cuda.synchronize()
     assert launch_counts() == dict(NO_LAUNCHES, flash_pair_fwd=1,
-                                   flash_pair_bwd=1)
+                                   flash_pair_bwd=1, dq_ordered_sum=1)
     ref_out, ref_lse = flash_pair_fwd_reference(x, heads, causal, 0.1, seed)
     atol, rtol = (4e-3, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
     # atol scales with the probability-weighted |v| where that exceeds 1

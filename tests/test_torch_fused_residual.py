@@ -30,8 +30,8 @@ from paddle_tpu_torch.nn import functional as F
 EPS = 1e-12
 NO_LAUNCHES = {"flash_pair_fwd": 0, "flash_pair_bwd": 0,
                "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-               "dropout_fwd": 0, "fused_add_dropout_ln_fwd": 0,
-               "fused_add_dropout_ln_bwd": 0}
+               "dq_ordered_sum": 0, "dropout_fwd": 0,
+               "fused_add_dropout_ln_fwd": 0, "fused_add_dropout_ln_bwd": 0}
 
 
 def _inputs(n, h, seed):

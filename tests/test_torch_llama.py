@@ -2,13 +2,18 @@
 package's, on the same weights, in fp32 on the CPU: RMSNorm, RoPE, the
 uncached logits (through the softmax chain and through FlashAttention's
 plain versions), the loss and every leaf's gradient, three AdamW
-TrainSteps, the paged DecodeEngine's greedy tokens, weight conversion and
-device resolution.
+TrainSteps, the paged DecodeEngine's greedy tokens, weight conversion,
+device resolution, and the first model of a process freed by reference
+counting alone.
 
 The model is llama_tiny at hidden 256 (4 heads of 64 on 2 KV heads: GQA),
 FFN 512, 2 blocks, vocab 256, at L = 128; weights are drawn with numpy and
 loaded into both packages.
 """
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -325,3 +330,26 @@ def test_default_device_needs_cuda():
         pytest.skip("CUDA is present: the default device resolves")
     with pytest.raises(RuntimeError, match="CUDA"):
         LlamaForCausalLM(llama_tiny())
+
+
+def test_first_model_is_freed_without_the_collector():
+    """With the cycle collector off, the FIRST LlamaForCausalLM of a
+    process dies when its last strong reference goes: its modules are built
+    on the meta device without nn.init's draws, whose first call would
+    import torch._dynamo and leave a cycle of frames reaching the model.
+    The trap fires once a process, so the test runs in a fresh one."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import gc, weakref\n"
+            "gc.disable()\n"
+            "from paddle_tpu_torch.models import LlamaForCausalLM, "
+            "llama_tiny\n"
+            "m = LlamaForCausalLM(llama_tiny(), device='cpu')\n"
+            "ref = weakref.ref(m)\n"
+            "del m\n"
+            "print('alive' if ref() is not None else 'freed')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["freed"], r.stdout + r.stderr

@@ -282,15 +282,12 @@ def test_lr_scheduler_first_values_match_jax(name):
     assert len(set(got)) > 1
 
 
-@pytest.mark.parametrize("knob", ["checkpoint", "lazy_mode", "regularizer",
+@pytest.mark.parametrize("knob", ["lazy_mode", "regularizer",
                                   "train_dropout"])
 def test_unported_knobs_raise(knob):
     tm = GPTForCausalLM(GPTConfig(**dict(SMALL, num_layers=1)), device="cpu")
     params = list(tm.parameters())
-    if knob == "checkpoint":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TrainStep(tm, AdamW(parameters=params)).save_checkpoint("ckpt", 1)
-    elif knob == "lazy_mode":
+    if knob == "lazy_mode":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Adam(parameters=params, lazy_mode=True)
     elif knob == "regularizer":
