@@ -132,6 +132,25 @@ the user entry points, random weights from a seed:
   drain; tokens/s beside [engine-graph]'s; a prompt-lookup run reaching
   ``serve_spec_step``: [monitor-engine]); the files land in
   ``smoke_checkout/monitor/``;
+* the serving guardrails and the fleet on the graphed GPT-medium engine
+  (last, on the model built again from seed 0):
+  a ``PADDLE_SERVE_FAULT`` schedule (injected allocation and admission
+  failures, slow chunk and decode calls) with a queue deadline and a
+  cancel, every request terminal, invariants after every step,
+  compile_count 2, done requests with [engine-graph]'s tokens
+  ([guard-chaos]); the watchdog against a slow call (WARN, flight dump,
+  ``EngineHangError``, the engine reused) and against a sleep enqueued on
+  the card before the decode replay, and tokens/s armed against unarmed
+  ([guard-hang]); SIGTERM drain under a ``PreemptionWatcher``
+  ([guard-drain]); two engines (8 slots, block 16, chunk 32) behind the
+  ``Router`` under affinity and round-robin, a killed engine's tickets
+  requeued, a rolling restart ([fleet-router]); a cold engine adopting a
+  warm one's exported prefix blocks from the pool, with the tokens of the
+  same engine without it ([fleet-pool]); and two worker processes on the
+  card (this script with ``--fleet-worker``; GPT-medium at 4 blocks)
+  behind HTTP doors registered on the port's ``KVServer``, this process
+  the router, one SIGKILLed, with the fleet collector's stream read on
+  rank 0 ([fleet-http]; files in ``smoke_checkout/fleet/``);
 * LLaMA-7B training at full width and 4 blocks (32 would not fit: 16 bytes
   a parameter), batch 4 x seq 2048, the recipe of GPT's, 1 warm-up and 4
   timed steps, a profiled step, the same steps with attention in its plain
@@ -5663,12 +5682,998 @@ def phase_monitor_engine(model, graph_reqs, graph):
     return dict(rate=rate, off=graph["rate"])
 
 
+# ------------------------------------------------- serving guardrails, fleet
+
+# the fleet phases' engines: bench.py decode --paged / --router's geometry
+FLEET_ENGINE = dict(max_slots=8, max_len=256, block_size=16,
+                    prefill_chunk=32)
+GUARD_FAULTS = ("raise@alloc:20,raise@alloc:45,raise@admit:3,"
+                "slow@chunk:4:0.003,slow@decode:6:0.003")
+HANG_S = 0.25                   # [guard-hang]'s watchdog threshold
+HANG_SLEEP_CYCLES = 2_000_000_000   # ~1 s of device clock at 1.98 GHz
+HANG_RATE_ROUNDS = 5            # [guard-hang]'s armed-vs-unarmed drains
+FLEET_PROMPTS = 16              # [fleet-router]'s prompts, two groups
+FLEET_NEW = 48
+FLEET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "smoke_checkout", "fleet")
+POOL_ROUNDS = 5                 # [fleet-pool]'s rounds, the first a warm-up
+FLEET_HTTP_BLOCKS = 4           # [fleet-http]'s workers: GPT-medium widths
+FLEET_HTTP_TICKETS = 8
+FLEET_PUBLISH_S = 0.5
+
+
+def _drive(eng, reqs, limit=4000, each=None):
+    """Step ``eng`` until every request is terminal, its invariants after
+    every step (``each(step)`` first, when given). Returns the steps."""
+    steps = 0
+    while not all(r.finished for r in reqs):
+        if each is not None:
+            each(steps)
+        eng.step()
+        eng.check_invariants()
+        steps += 1
+        if steps > limit:
+            raise AssertionError(f"engine did not finish in {limit} steps: "
+                                 f"{[r.status for r in reqs]}")
+    return steps
+
+
+def _warmed(model, **kw):
+    """A graphed engine at ``FLEET_ENGINE`` (or ``ENGINE`` when
+    ``max_slots`` is given) whose chunk and decode programs are built and
+    captured by a warm-up request of 40 tokens (seed 99)."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    geom = dict(ENGINE) if kw.pop("engine", False) else dict(FLEET_ENGINE)
+    eng = DecodeEngine(model, **geom, **kw)
+    _warm(eng, model.config.vocab_size, [40], new=2)
+    _all_captured("[warm]", eng._programs, 2)
+    return eng
+
+
+def phase_guard_chaos(model, graph_reqs):
+    """[guard-chaos]: the graphed engine at [engine-graph]'s geometry
+    under ``PADDLE_SERVE_FAULT`` (two injected allocation failures, an
+    injected admission failure, slow chunk and decode calls) with a queue
+    deadline and a cancel, on [engine-graph]'s prompts: every request
+    terminal, invariants after every step, compile_count 2 throughout, and
+    every request that ends done has [engine-graph]'s tokens."""
+    from paddle_tpu_torch.serving import FaultSchedule, TERMINAL_STATUSES
+    prompts, new_tokens = _gpt_requests()
+    with _env(PADDLE_SERVE_FAULT=GUARD_FAULTS):
+        eng = _warmed(model, engine=True)
+    if eng._faults is None or eng._faults.entries \
+            != FaultSchedule.parse(GUARD_FAULTS).entries:
+        raise AssertionError("[guard-chaos] the env schedule was not read")
+    t0 = time.perf_counter()
+    reqs = [eng.submit(prompts[0], max_new_tokens=new_tokens[0])]
+    while reqs[0].status in ("queued", "prefilling"):
+        eng.step()
+        eng.check_invariants()
+    for i, (p, n) in enumerate(zip(prompts[1:], new_tokens[1:]), 1):
+        reqs.append(eng.submit(p, max_new_tokens=n,
+                               deadline_s=0.0 if i == 6 else None))
+
+    def each(step):
+        if step == 4 and not reqs[4].finished:
+            eng.cancel(reqs[4])
+    steps = _drive(eng, reqs, each=each)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    statuses = [r.status for r in reqs]
+    if not set(statuses) <= TERMINAL_STATUSES:
+        raise AssertionError(f"[guard-chaos] statuses {statuses}")
+    if eng.compile_count != 2:
+        raise AssertionError(f"[guard-chaos] compile_count "
+                             f"{eng.compile_count} under faults")
+    want = {"expired", "cancelled", "failed", "done"}
+    if set(statuses) != want or eng.preemptions < 1:
+        raise AssertionError(f"[guard-chaos] statuses {statuses}, "
+                             f"preemptions {eng.preemptions}: the schedule "
+                             f"did not reach every path")
+    diff = [r.id for r, g in zip(reqs, graph_reqs)
+            if r.status == "done" and r.tokens != g.tokens]
+    if diff:
+        raise AssertionError(f"[guard-chaos] tokens differ from "
+                             f"[engine-graph]'s in requests {diff}")
+    fired = {s: eng._faults.fired(s) for s in ("alloc", "admit", "chunk",
+                                               "decode")}
+    g = eng.stats()["guardrails"]
+    log(f"[guard-chaos] {GUARD_FAULTS}: {len(reqs)} requests terminal in "
+        f"{steps} steps, {wall:.3f} s ({statuses}); preemptions "
+        f"{eng.preemptions}, expired {g['expired']}, cancelled "
+        f"{g['cancelled']}; sites fired {fired}; invariants held after "
+        f"every step; compile_count 2; the {statuses.count('done')} done "
+        f"requests' tokens identical to [engine-graph]'s")
+    eng.close()
+
+
+class _DeviceSleep:
+    """A program's call with ``torch.cuda._sleep`` enqueued on the current
+    stream before the replay: the host returns from the launch at once and
+    blocks in the read of the output, while the card sleeps."""
+
+    def __init__(self, prog, cycles):
+        self.prog, self.cycles = prog, cycles
+        self.state = prog.state
+        self.building = prog.building
+
+    def __call__(self):
+        torch.cuda._sleep(self.cycles)
+        self.prog()
+
+
+def phase_guard_hang(model, graph_reqs, smi):
+    """[guard-hang]: (1) ``hang_s`` with a ``slow@decode`` far past it (the
+    fault waits for the watchdog, at most 30 s): the WARN, the flight dump
+    and ``EngineHangError``, every request failed, invariants held, and
+    the reused engine's next request healthy with [engine-graph]'s
+    tokens; (2) the same threshold against the device: the decode
+    program's call wrapped (here, not in the package) to sleep on the card
+    before its replay, so the host waits in the output's read, and the
+    watchdog fires from its thread while it waits; (3) tokens/s of
+    [engine-graph]'s requests with the watchdog armed (30 s, never firing),
+    armed with a thread that arming never wakes, and unarmed, same
+    process, in turns."""
+    import threading
+    import warnings
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.serving import EngineHangError, FaultSchedule
+    prompts, new_tokens = _gpt_requests()
+    os.makedirs(MONITOR_DIR, exist_ok=True)
+    path = os.path.join(MONITOR_DIR, "hang.jsonl")
+    flight = path.replace(".jsonl", ".flight.json")
+    if os.path.exists(flight):
+        os.remove(flight)
+    monitor.enable(path)
+    eng = _warmed(model, engine=True, hang_s=HANG_S,
+                  fault_schedule=FaultSchedule.parse("slow@decode:3:30"))
+    fired = threading.Event()
+    on_hang = eng._watchdog._on_hang
+
+    def hook(info, elapsed_s):
+        try:
+            on_hang(info, elapsed_s)
+        finally:
+            fired.set()
+    eng._watchdog._on_hang = hook
+    eng._faults.sleep = fired.wait
+    doomed = [eng.submit(p, max_new_tokens=n)
+              for p, n in zip(prompts[:2], new_tokens[:2])]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            eng.run()
+        except EngineHangError as e:
+            err = str(e)
+        else:
+            raise AssertionError("[guard-hang] no EngineHangError")
+    warned = [str(w.message) for w in caught
+              if "dispatch hang" in str(w.message)]
+    if not fired.is_set() or len(warned) != 1 \
+            or not os.path.exists(flight):
+        raise AssertionError(f"[guard-hang] hang fired {fired.is_set()}, "
+                             f"WARNs {warned}, flight dump "
+                             f"{os.path.exists(flight)}")
+    eng.check_invariants()
+    if any(r.status != "failed" for r in doomed):
+        raise AssertionError(f"[guard-hang] {[r.status for r in doomed]}")
+    # the failed requests' prompts stay registered: drop them, so the
+    # request prefills from 0 as [engine-graph]'s did
+    eng.drop_prefix_cache()
+    ok = eng.submit(prompts[0], max_new_tokens=new_tokens[0])
+    eng.run()
+    if ok.status != "done" or ok.tokens != graph_reqs[0].tokens \
+            or eng.compile_count != 2:
+        raise AssertionError(f"[guard-hang] the reused engine: {ok.status}, "
+                             f"compile_count {eng.compile_count}")
+    hangs = [r for r in _records(path) if r["kind"] == "serve_hang"]
+    log(f"[guard-hang] slow@decode past hang_s {HANG_S}: WARN and "
+        f"serve_hang ({hangs[0]['elapsed_s']:.3f} s), flight dump "
+        f"{os.path.basename(flight)}, EngineHangError ({err[:60]}...); "
+        f"both requests failed, invariants held; the next request on the "
+        f"same engine done with [engine-graph]'s tokens")
+    # (2) the card sleeps before the replay; the host waits in the read
+    orig = eng._program
+    sleeping = {"on": True}
+
+    def program(key, build):
+        prog = orig(key, build)
+        if key == ("decode",) and sleeping["on"]:
+            return _DeviceSleep(prog, HANG_SLEEP_CYCLES)
+        return prog
+    eng._program = program
+    eng._faults = None
+    req = eng.submit(prompts[1], max_new_tokens=new_tokens[1])
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            eng.run()
+        except EngineHangError as e:
+            err = str(e)
+        else:
+            raise AssertionError("[guard-hang] the device-side sleep "
+                                 "raised no EngineHangError")
+    blocked = time.perf_counter() - t0
+    warned = [str(w.message) for w in caught
+              if "dispatch hang" in str(w.message)]
+    if len(warned) != 1 or blocked < 2 * HANG_S \
+            or eng._watchdog.hangs != 2 or req.status != "failed":
+        raise AssertionError(f"[guard-hang] device sleep: WARNs {warned}, "
+                             f"blocked {blocked:.3f} s, hangs "
+                             f"{eng._watchdog.hangs}, {req.status}")
+    sleeping["on"] = False
+    eng.drop_prefix_cache()
+    ok = eng.submit(prompts[1], max_new_tokens=new_tokens[1])
+    eng.run()
+    if ok.status != "done" or ok.tokens != graph_reqs[1].tokens:
+        raise AssertionError("[guard-hang] unhealthy after the device "
+                             "sleep")
+    monitor.disable()
+    eng.close()
+    log(f"[guard-hang] the card slept {HANG_SLEEP_CYCLES} cycles before "
+        f"the decode replay: the host blocked {blocked:.3f} s in the "
+        f"output's read and the watchdog fired from its thread meanwhile "
+        f"(hang_s {HANG_S}): the window covers the device's work; the "
+        f"next request healthy")
+    # (3) armed (never firing) against unarmed, and armed with a thread
+    # that arming never wakes (what the notify costs): one engine each,
+    # served in turns, the first arm rotating, the prefix cache dropped
+    # before each drain
+    engines = {"off": _warmed(model, engine=True),
+               "armed": _warmed(model, engine=True, hang_s=30.0),
+               "quiet": _warmed(model, engine=True, hang_s=30.0)}
+    _arm_quietly(engines["quiet"]._watchdog)
+    rates = {arm: [] for arm in engines}
+    order = list(engines)
+    for i in range(HANG_RATE_ROUNDS):
+        for arm in order[i % 3:] + order[:i % 3]:
+            e = engines[arm]
+            e.drop_prefix_cache()
+            before = e.tokens_generated
+            reqs, _, wall, _, _ = _serve(e, prompts, new_tokens)
+            if [r.tokens for r in reqs] != [g.tokens for g in graph_reqs]:
+                raise AssertionError(f"[guard-hang] {arm}: tokens differ")
+            rates[arm].append((e.tokens_generated - before) / wall)
+    if engines["armed"]._watchdog.hangs or engines["quiet"]._watchdog.hangs:
+        raise AssertionError("[guard-hang] the armed watchdog fired")
+    for e in engines.values():
+        e.close()
+    med = {arm: float(np.median(r)) for arm, r in rates.items()}
+    span = {arm: f"{min(r):.1f}-{max(r):.1f}" for arm, r in rates.items()}
+    log(f"[guard-hang] tokens/s over {HANG_RATE_ROUNDS} drains each, in "
+        f"turns: armed (hang_s 30) median {med['armed']:.1f} "
+        f"({span['armed']}), armed with the thread never woken "
+        f"{med['quiet']:.1f} ({span['quiet']}), unarmed {med['off']:.1f} "
+        f"({span['off']}); armed/unarmed {med['armed'] / med['off']:.4f}, "
+        f"never woken/unarmed {med['quiet'] / med['off']:.4f} ({smi})")
+    return med
+
+
+def _arm_quietly(wd):
+    """Make ``wd.arm`` open its window without notifying the watchdog's
+    thread, which then stays in its untimed idle wait: an armed call's
+    lock and bookkeeping alone, for [guard-hang]'s rates (with hang_s 30
+    no window is meant to fire)."""
+    def arm(**info):
+        with wd._cond:
+            wd.fired = None
+            wd._armed = info
+            wd._armed_at = time.monotonic()
+    wd.arm = arm
+
+
+def phase_guard_drain(model, graph_reqs):
+    """[guard-drain]: ``drain_on_preemption`` under a ``PreemptionWatcher``
+    with the phase sending itself SIGTERM once [engine-graph]'s 8 requests
+    decode and 8 more wait (the engine's 16 slots full): the next step
+    begins the drain, the live slots finish within the grace with
+    [engine-graph]'s tokens, the queue ends ``rejected_draining``, the
+    monitor hears ``serve_drain_begin`` / ``serve_drain_end``, and the
+    SIGTERM handler is restored."""
+    import signal
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.distributed.preemption import PreemptionWatcher
+    prompts, new_tokens = _gpt_requests()
+    os.makedirs(MONITOR_DIR, exist_ok=True)
+    path = os.path.join(MONITOR_DIR, "drain.jsonl")
+    before = signal.getsignal(signal.SIGTERM)
+    monitor.enable(path)
+    eng = _warmed(model, engine=True)
+    gen = torch.Generator()
+    gen.manual_seed(7)
+    with PreemptionWatcher() as watcher:
+        eng.drain_on_preemption(watcher, grace_s=120.0)
+        live = [eng.submit(prompts[0], max_new_tokens=new_tokens[0])]
+        while live[0].status in ("queued", "prefilling"):
+            eng.step()
+        live += [eng.submit(p, max_new_tokens=n)
+                 for p, n in zip(prompts[1:], new_tokens[1:])]
+        live += [eng.submit(torch.randint(0, model.config.vocab_size, (64,),
+                                          generator=gen).tolist(),
+                            max_new_tokens=64) for _ in range(8)]
+        waiting = [eng.submit(p, max_new_tokens=n)
+                   for p, n in zip(prompts, new_tokens)]
+        while any(r.status in ("queued", "prefilling") for r in live):
+            eng.step()
+        t0 = time.perf_counter()
+        os.kill(os.getpid(), signal.SIGTERM)
+        steps = _drive(eng, live + waiting)
+        wall = time.perf_counter() - t0
+        signum = watcher.signum
+    monitor.disable()
+    if signal.getsignal(signal.SIGTERM) != before:
+        raise AssertionError("[guard-drain] SIGTERM handler not restored")
+    if signum != signal.SIGTERM or not eng.drained or eng.drains != 1:
+        raise AssertionError(f"[guard-drain] signal {signum}, drained "
+                             f"{eng.drained}, drains {eng.drains}")
+    if any(r.status != "done" for r in live) \
+            or any(r.status != "rejected_draining" for r in waiting):
+        raise AssertionError(f"[guard-drain] live {[r.status for r in live]}"
+                             f", queued {[r.status for r in waiting]}")
+    diff = [r.id for r, g in zip(live, graph_reqs) if r.tokens != g.tokens]
+    if diff:
+        raise AssertionError(f"[guard-drain] tokens differ from "
+                             f"[engine-graph]'s in requests {diff}")
+    kinds = [r["kind"] for r in _records(path)]
+    if "serve_drain_begin" not in kinds or "serve_drain_end" not in kinds:
+        raise AssertionError("[guard-drain] drain records missing")
+    late = eng.submit(prompts[0], max_new_tokens=4)
+    if late.status != "rejected_draining":
+        raise AssertionError(f"[guard-drain] the door: {late.status}")
+    end = [r for r in _records(path) if r["kind"] == "serve_drain_end"][0]
+    log(f"[guard-drain] SIGTERM -> drain: {len(live)} live requests done "
+        f"within the grace in {steps} steps, {wall:.3f} s "
+        f"(serve_drain_end wall_s {end['wall_s']:.3f}); {len(waiting)} "
+        f"queued ended rejected_draining; the door bounces; tokens of "
+        f"[engine-graph]'s 8 identical; handler restored")
+    eng.close()
+
+
+def _fleet_prompts(vocab, n=FLEET_PROMPTS, seed=5):
+    """Two one-block (16-token) shared prefixes and ``n`` prompts, each
+    opening with one of them (0, 0, 1, 1, 0, ...: out of step with a
+    two-engine round-robin) and a random tail of 16 to 96 tokens."""
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    bs = FLEET_ENGINE["block_size"]
+    prefixes = [torch.randint(0, vocab, (bs,), generator=gen).tolist()
+                for _ in range(2)]
+    prompts = []
+    for i in range(n):
+        tail = int(torch.randint(16, 97, (1,), generator=gen))
+        prompts.append(prefixes[(i // 2) % 2] + torch.randint(
+            0, vocab, (tail,), generator=gen).tolist())
+    return prefixes, prompts
+
+
+class _LocalFleet:
+    """Named graphed engines on a LocalDirectory behind one Router, each
+    warmed with one of the shared prefixes (bench.py decode --router)."""
+
+    def __init__(self, model, prefixes, policy):
+        from paddle_tpu_torch.serving import LocalDirectory, Router
+        self.model, self.prefixes = model, prefixes
+        self.directory = LocalDirectory()
+        self.router = Router(self.directory, policy=policy, stale_after=1e9,
+                             eject_after=2)
+        self.engines, self.endpoints = {}, {}
+        for i in range(2):
+            self.make(f"eng{i}", prefixes[i])
+
+    def make(self, name, prefix):
+        from paddle_tpu_torch.serving import (DecodeEngine, EngineEndpoint,
+                                              LocalEngineClient)
+        eng = DecodeEngine(self.model, **FLEET_ENGINE)
+        warm = eng.submit(prefix + prefix, max_new_tokens=2)
+        eng.run()
+        if warm.status != "done" or eng.compile_count != 2:
+            raise AssertionError(f"[fleet-router] warm-up of {name}")
+        old = self.engines.get(name)
+        if old is not None:
+            old.close()
+            self.endpoints[name].deregister()
+        self.engines[name] = eng
+        self.endpoints[name] = EngineEndpoint(eng, name, self.directory,
+                                              ttl_s=30.0)
+        self.endpoints[name].publish()
+        self.router.attach(name, LocalEngineClient(eng))
+        return eng
+
+    def step(self):
+        for name, eng in list(self.engines.items()):
+            client = self.router._clients.get(name)
+            if client is not None and getattr(client, "dead", False):
+                continue              # the killed engine: nobody steps it
+            eng.step()
+            eng.check_invariants()
+            self.endpoints[name].publish()
+
+    def compiles(self):
+        return {n: e.compile_count for n, e in self.engines.items()}
+
+    def close(self):
+        for eng in self.engines.values():
+            eng.close()
+
+
+def _fleet_run(fleet, prompts, ids, kill_at=None):
+    """Route ``prompts`` at once under ``ids``, step the fleet and poll the
+    router until every ticket is terminal; ``kill_at`` kills eng1 after
+    that many steps. Returns (tickets, wall s, generated tokens)."""
+    t0 = time.perf_counter()
+    tickets = [fleet.router.route(p, max_new_tokens=FLEET_NEW,
+                                  request_id=i) for p, i in zip(prompts, ids)]
+    steps = 0
+    while not all(t.finished for t in tickets):
+        if kill_at is not None and steps == kill_at:
+            fleet.router._clients["eng1"].kill()
+        fleet.step()
+        fleet.router.poll()
+        steps += 1
+        if steps > 4000:
+            raise AssertionError("[fleet-router] tickets did not finish")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return tickets, wall, sum(len(t.tokens) for t in tickets)
+
+
+def phase_fleet_router(model, smi):
+    """[fleet-router]: two in-process graphed GPT-medium engines (8 slots,
+    max_len 256, block 16, chunk 32) behind ``Router(LocalDirectory)``, as
+    bench.py decode --router 2 builds them, each warmed with one of two
+    one-block shared prefixes; 16 prompts opening with one or the other,
+    48 new tokens each, routed under affinity, then under round-robin on
+    fresh engines, twice in turns: tokens/s and the affinity hit rate of
+    each, every
+    ticket's tokens those of a single graphed engine, compile_count flat.
+    Then eng1 killed (``LocalEngineClient.kill()``) mid-run: ejected, its
+    tickets requeued under the same ids, every ticket done with the
+    reference tokens, each id done on exactly one engine; then
+    ``rolling_restart`` over the fleet with a fresh engine for each name
+    drops no request."""
+    vocab = model.config.vocab_size
+    prefixes, prompts = _fleet_prompts(vocab)
+    from paddle_tpu_torch.serving import DecodeEngine
+    ref = DecodeEngine(model, **FLEET_ENGINE)
+    for p in prefixes:
+        ref.submit(p + p, max_new_tokens=2)
+    ref.run()
+    ref_reqs = [ref.submit(p, max_new_tokens=FLEET_NEW) for p in prompts]
+    _drive(ref, ref_reqs)
+    want = {tuple(p): r.tokens for p, r in zip(prompts, ref_reqs)}
+    if any(r.status != "done" for r in ref_reqs):
+        raise AssertionError("[fleet-router] the reference engine")
+    ref.close()
+    del ref
+
+    def check(tag, tickets):
+        bad = [t.id for t in tickets if t.status != "done"
+               or t.tokens != want[tuple(t.prompt)]]
+        if bad:
+            raise AssertionError(f"[fleet-router] {tag}: tickets {bad} "
+                                 f"not done with the single engine's tokens "
+                                 f"({[(t.status, t.error) for t in tickets]})")
+    results = {}
+    for rnd, policy in enumerate(("affinity", "round_robin") * 2):
+        fleet = _LocalFleet(model, prefixes, policy)
+        warm = fleet.compiles()
+        hits0 = sum(e._pager.shared_hits for e in fleet.engines.values())
+        tickets, wall, toks = _fleet_run(
+            fleet, prompts,
+            [f"{policy}-{rnd}-{i}" for i in range(len(prompts))])
+        check(policy, tickets)
+        if fleet.compiles() != warm:
+            raise AssertionError(f"[fleet-router] {policy}: programs built "
+                                 f"in steady state {fleet.compiles()}")
+        view = fleet.router.fleet_view()
+        hits = sum(e._pager.shared_hits
+                   for e in fleet.engines.values()) - hits0
+        placed = {n: sum(t.engine == n for t in tickets)
+                  for n in fleet.engines}
+        prev = results.get(policy, {}).get("rates", [])
+        results[policy] = dict(rates=prev + [toks / wall], hit=view[
+            "affinity_hit_rate"], prefix_hits=hits, placed=placed)
+        fleet.close()
+        del fleet
+    if results["affinity"]["hit"] < 0.99 \
+            or results["affinity"]["prefix_hits"] != len(prompts) \
+            or results["round_robin"]["prefix_hits"] >= len(prompts):
+        raise AssertionError(f"[fleet-router] affinity placement: "
+                             f"{results}")
+    for policy, r in results.items():
+        log(f"[fleet-router] {policy}: {len(prompts)} tickets, "
+            f"{r['rates'][0]:.1f} and {r['rates'][1]:.1f} tokens/s (fleet "
+            f"total, two fleets in turns with the other policy's), "
+            f"affinity hit rate "
+            f"{r['hit']:.3f}, admissions that adopted the prefix "
+            f"{r['prefix_hits']}, "
+            f"placed {r['placed']}; tokens identical to one engine's; "
+            f"compile_count flat ({smi})")
+    # kill eng1 mid-run
+    fleet = _LocalFleet(model, prefixes, "affinity")
+    warm = fleet.compiles()
+    ids = [f"kill-{i}" for i in range(len(prompts))]
+    tickets, wall, _ = _fleet_run(fleet, prompts, ids, kill_at=6)
+    check("kill", tickets)
+    r = fleet.router
+    if "eng1" not in r._ejected or r.counters["requeues"] < 1 \
+            or fleet.engines["eng0"].compile_count != warm["eng0"]:
+        raise AssertionError(f"[fleet-router] kill: {r.counters}, ejected "
+                             f"{sorted(r._ejected)}")
+    twice = [i for i in ids if sum(
+        (e._done_ids.get(i) is not None
+         and e._done_ids[i].status == "done")
+        for e in fleet.engines.values()) != 1]
+    if twice:
+        raise AssertionError(f"[fleet-router] ids done on other than one "
+                             f"engine: {twice}")
+    moved = sum(t.requeues for t in tickets)
+    log(f"[fleet-router] eng1 killed after 6 steps: ejected, {moved} "
+        f"tickets requeued under their ids to eng0, all "
+        f"{len(tickets)} done with the single engine's tokens in "
+        f"{wall:.3f} s, each id done on exactly one engine; eng0 "
+        f"compile_count flat")
+    # rolling restart: eng1 first comes back as a new incarnation
+    fleet.make("eng1", prefixes[1])
+    fleet.router.refresh()
+    ids = [f"roll-{i}" for i in range(len(prompts))]
+    tickets = [fleet.router.route(p, max_new_tokens=FLEET_NEW, request_id=i)
+               for p, i in zip(prompts, ids)]
+    names = []
+
+    def restart(name):
+        names.append(name)
+        fleet.make(name, prefixes[int(name[-1])])
+    t0 = time.perf_counter()
+    fleet.router.rolling_restart(grace_s=300.0, restart=restart,
+                                 step=fleet.step, wait_s=300.0)
+    fleet.router.join(tickets, step=fleet.step, timeout_s=300.0)
+    wall = time.perf_counter() - t0
+    check("rolling restart", tickets)
+    if sorted(names) != ["eng0", "eng1"] \
+            or fleet.router.counters["rejected"]:
+        raise AssertionError(f"[fleet-router] rolling restart: {names}, "
+                             f"{fleet.router.counters}")
+    log(f"[fleet-router] rolling_restart of eng0 and eng1 under "
+        f"{len(tickets)} tickets: {wall:.3f} s, none rejected, "
+        f"{sum(t.requeues for t in tickets)} requeued, every ticket done "
+        f"with the single engine's tokens")
+    fleet.close()
+    return results
+
+
+def _flush_exports(eng):
+    """Step an idle engine until its parked blocks are all exported (the
+    drain sends a few a step, at the step's end)."""
+    while eng._pager.pending_exports:
+        eng.step()
+
+
+def _pool_round(engines, prompt, odd, spent):
+    """One [fleet-pool] round: ``prompt`` admitted alone on the cold
+    engine and on the pooled one (the pooled first when ``odd``), each
+    driven to its end; the pooled engine adopts its 8 shared blocks and
+    gives the cold one's tokens in fewer chunks. Returns the TTFTs (ms),
+    the pooled fetch-and-copy time (ms) and its parts (from the running
+    totals ``spent``), the chunk counts and each request's TTFT window
+    (its clock)."""
+    run = {}
+    for arm in (("pool", "cold") if odd else ("cold", "pool")):
+        eng = engines[arm]
+        before = eng.pool_stats() if arm == "pool" else None
+        was = dict(spent)
+        torch.cuda.synchronize()
+        r = eng.submit(prompt, max_new_tokens=32)
+        _drive(eng, [r])
+        run[arm] = dict(req=r, ttft=r.t_first_token - r.t_submit,
+                        chunks=r.prefill_chunks)
+        if arm == "pool":
+            after = eng.pool_stats()
+            run[arm].update({k: after[k] - before[k] for k in
+                             ("adopted_blocks", "fetch_hits", "fetch_s")})
+            run[arm]["parts"] = {k: (spent[k] - was[k]) * 1e3
+                                 for k in spent}
+            _flush_exports(eng)          # none spills into the next round
+    cold, hot = run["cold"], run["pool"]
+    if hot["req"].tokens != cold["req"].tokens \
+            or hot["adopted_blocks"] != 8 or hot["chunks"] >= cold["chunks"]:
+        raise AssertionError(f"[fleet-pool] adopted {hot['adopted_blocks']}"
+                             f", chunks {hot['chunks']} vs {cold['chunks']}"
+                             f", tokens equal "
+                             f"{hot['req'].tokens == cold['req'].tokens}")
+    return dict(pool=hot["ttft"] * 1e3, cold=cold["ttft"] * 1e3,
+                fetch=hot["fetch_s"] * 1e3, parts=hot["parts"],
+                chunks=(hot["chunks"], cold["chunks"]),
+                windows=[(x["req"].t_submit, x["req"].t_first_token)
+                         for x in (hot, cold)])
+
+
+def phase_fleet_pool(model, smi):
+    """[fleet-pool] (bench.py decode --paged --pool): an engine serves
+    POOL_ROUNDS shared prompts of 8 whole blocks plus a tail each and
+    exports its parked blocks to a ``LocalPool``. A cold engine on the
+    pool and the same cold engine without it then admit each prompt in
+    turn (one request at a time): the pooled one adopts the 8 blocks (one
+    copy of their rows into its KV tensor) and gives, bit for bit, the
+    tokens of the other, in fewer prefill chunks. The first round warms
+    the adopt path (its one-time costs: the first upload, allocation and
+    scatter at this shape) and is printed apart; TTFT with and without
+    the pool in every later round; the bytes a block moves; the adoption's
+    host side alone; then ``drop_prefix_cache`` bumps the generation and
+    a fetch misses."""
+    from paddle_tpu_torch.serving import LocalPool, prefix_digest
+    vocab = model.config.vocab_size
+    gen = torch.Generator()
+    gen.manual_seed(11)
+    bs = FLEET_ENGINE["block_size"]
+    shared = [torch.randint(0, vocab, (8 * bs,), generator=gen).tolist()
+              for _ in range(POOL_ROUNDS)]
+    tail = lambda: torch.randint(0, vocab, (8,), generator=gen).tolist()
+    pool = LocalPool()
+    warm = _warmed(model, kv_pool=pool)
+    for s in shared:
+        _drive(warm, [warm.submit(s + tail(), max_new_tokens=8)])
+    _flush_exports(warm)
+    digests = [[prefix_digest(tuple(s[:bs * k])) for k in range(1, 9)]
+               for s in shared]
+    if any(pool.get(d) is None for ds in digests for d in ds):
+        raise AssertionError(f"[fleet-pool] exports {warm.pool_stats()}")
+    engines = {"cold": _warmed(model), "pool": _warmed(model, kv_pool=pool)}
+    # the collector's pauses (start on the requests' clock, seconds), to
+    # set against each TTFT window
+    pauses, began = [], []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            began[:] = [time.time(), time.perf_counter()]
+        elif began:
+            pauses.append((began[0], time.perf_counter() - began[1]))
+    # the adoption's parts, timed by wrapping the calls it makes: the
+    # pool's get, the block decode, the table splice (the rest of the
+    # fetch-and-copy time is the stack, the upload and the scatter)
+    from paddle_tpu_torch.distributed.reshard import snapshot
+    spent = {"get": 0.0, "decode": 0.0, "splice": 0.0}
+
+    def timed(key, fn):
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return call
+    decode = snapshot.decode_block
+    pager = engines["pool"]._pager
+    pool.get = timed("get", pool.get)
+    snapshot.decode_block = timed("decode", decode)
+    pager.adopt_blocks = timed("splice", pager.adopt_blocks)
+    rounds = []
+    gc.callbacks.append(on_gc)
+    try:
+        for i, s in enumerate(shared):
+            rounds.append(_pool_round(engines, s + tail(), i % 2, spent))
+    finally:
+        gc.callbacks.remove(on_gc)
+        snapshot.decode_block = decode
+        del pool.get, pager.adopt_blocks
+    for r in rounds:
+        r["gc"] = tuple(1e3 * sum(d for t, d in pauses if a <= t <= b)
+                        for a, b in r.pop("windows"))
+    if any(e.compile_count != 2 for e in engines.values()):
+        raise AssertionError(f"[fleet-pool] compile_count "
+                             f"{[e.compile_count for e in engines.values()]}")
+    first, timed = rounds[0], rounds[1:]
+    payload, meta = pool.get(digests[0][0])
+    per_block = len(payload)
+    # the adoption's host side, step by step (5 times): the 8 entries
+    # fetched and decoded, stacked, then one copy to the card
+    parts = {"decode": [], "stack": [], "copy": []}
+    for _ in range(5):
+        t = time.perf_counter()
+        arrs = [snapshot.decode_block(*pool.get(d)) for d in digests[0]]
+        t1 = time.perf_counter()
+        rows = torch.stack(arrs, dim=2)
+        t2 = time.perf_counter()
+        rows.to(engines["pool"].device)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, dt in zip(parts, (t1 - t, t2 - t1, t3 - t2)):
+            parts[k].append(dt * 1e3)
+    parts = {k: (float(np.median(v)), max(v)) for k, v in parts.items()}
+    # a weight swap's hook: the generation moves on, the old entries go;
+    # the warm engine re-serves and re-exports under the new generation,
+    # and a replica still at the old one misses every fetch
+    warm.drop_prefix_cache()
+    if pool.generation() != 1 or len(pool):
+        raise AssertionError("[fleet-pool] the generation bump")
+    again = warm.submit(shared[0] + tail(), max_new_tokens=4)
+    _drive(warm, [again])
+    _flush_exports(warm)
+    if any(pool.get(d) is None for d in digests[0]):
+        raise AssertionError("[fleet-pool] no re-export at generation 1")
+    late = _warmed(model, kv_pool=pool)
+    late._pool_gen = 0                # a replica that missed the bump
+    before = late.pool_stats()
+    r = late.submit(shared[0] + tail(), max_new_tokens=4)
+    _drive(late, [r])
+    after = late.pool_stats()
+    if after["adopted_blocks"] != before["adopted_blocks"] \
+            or after["fetch_misses"] <= before["fetch_misses"] \
+            or r.status != "done":
+        raise AssertionError(f"[fleet-pool] after the bump: {after}")
+    med = lambda k: float(np.median([r[k] for r in timed]))
+    fetches = ", ".join(
+        f"{r['fetch']:.2f} (get {r['parts']['get']:.2f}, decode "
+        f"{r['parts']['decode']:.2f}, splice {r['parts']['splice']:.2f})"
+        for r in timed)
+    pair = lambda r: (f"{r['pool']:.2f} / {r['cold']:.2f} (GC "
+                      f"{r['gc'][0]:.2f} / {r['gc'][1]:.2f})")
+    log(f"[fleet-pool] {len(shared[0]) + 8}-token prompts, 8 shared blocks "
+        f"each, {POOL_ROUNDS} rounds, the arms in turns: the cold engine on "
+        f"the pool adopted 8 blocks a round and ran {first['chunks'][0]} "
+        f"prefill chunk(s) against {first['chunks'][1]}; tokens identical "
+        f"every round; TTFT with / without the pool in ms, with the "
+        f"collector's pauses inside each window: round 0 (the first "
+        f"adoption in the process, warms the adopt path) {pair(first)}, "
+        f"fetch and copy {first['fetch']:.2f}; rounds 1-{POOL_ROUNDS - 1} "
+        + ", ".join(pair(r) for r in timed)
+        + f"; median {med('pool'):.2f} / {med('cold'):.2f}; the pooled "
+        f"fetch and copy, with its parts (the rest: stack, upload, "
+        f"scatter) {fetches}; "
+        f"{per_block} bytes a block ({meta['dtype']} {meta['shape']}); the "
+        f"adoption's host side alone (median and max of 5, ms): fetch and "
+        f"decode {parts['decode'][0]:.2f} ({parts['decode'][1]:.2f}), stack "
+        f"{parts['stack'][0]:.2f} ({parts['stack'][1]:.2f}), one copy to "
+        f"the card {parts['copy'][0]:.2f} ({parts['copy'][1]:.2f}; "
+        f"{8 * per_block / parts['copy'][0] / 1e6:.2f} GB/s); after "
+        f"drop_prefix_cache the generation is {pool.generation()} and "
+        f"fetches miss ({smi})")
+    for e in (warm, *engines.values(), late):
+        e.close()
+    return dict(rounds=rounds, bytes=per_block, **parts)
+
+
+def _http_worker(name, kv, out_dir):
+    """``chip_smoke.py --fleet-worker <name> <kv> <dir>``: one replica of
+    [fleet-http]: GPT-medium at FLEET_HTTP_BLOCKS blocks (seed 0) in a
+    graphed engine behind a ``DoorServer`` and an ``EngineEndpoint`` on a
+    ``KVDirectory``, the monitor's fleet plane on (rank and world from the
+    env). Prints ``READY <addr> <GB reserved>`` once warm, steps until
+    drained, then one JSON line."""
+    import threading
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.kernels import reset_launch_counts
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import (DecodeEngine, DoorServer,
+                                          EngineEndpoint, KVDirectory)
+    monitor.enable(os.path.join(out_dir, "run.jsonl"), fleet=True)
+    cfg = dict(GPT_MEDIUM, num_layers=FLEET_HTTP_BLOCKS)
+    model = GPTForCausalLM(GPTConfig(**cfg), dtype=torch.bfloat16,
+                           seed=0).eval()
+    eng = DecodeEngine(model, **FLEET_ENGINE)
+    _warm(eng, cfg["vocab_size"], [40], new=2)
+    reset_launch_counts()           # the replica's serving path starts here
+    warm_tokens = eng.tokens_generated
+    lock = threading.Lock()
+    ep = EngineEndpoint(eng, name, KVDirectory(endpoint=kv, job_id="smoke"),
+                        ttl_s=2.0)
+    door = DoorServer(eng, lock=lock, endpoint=ep)
+    ep.addr = door.address
+    door.start()
+    ep.publish()
+    ep.start_publishing(lock=lock)
+    print(f"READY {door.address} "
+          f"{torch.cuda.memory_reserved() / 1e9:.3f}", flush=True)
+    deadline = time.time() + 600.0
+    while time.time() < deadline:
+        with lock:
+            eng.step()
+            done = eng.drained
+        if done:
+            break
+        time.sleep(0.001)
+    t_end = time.time() + 1.0
+    while time.time() < t_end:
+        with lock:
+            eng.step()
+        time.sleep(0.01)
+    ep.close()
+    door.stop()
+    eng.check_invariants()
+    print(json.dumps({"name": name, "drained": eng.drained,
+                      "tokens": eng.tokens_generated - warm_tokens,
+                      "launches": _path_counts(),
+                      "compile_count": eng.compile_count,
+                      "reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+                      "fleet": monitor.fleet_state() is not None}),
+          flush=True)
+    monitor.disable()
+    return 0
+
+
+def phase_fleet_http(smi):
+    """[fleet-http]: two worker processes on the one card (``chip_smoke.py
+    --fleet-worker``, GPT-medium at FLEET_HTTP_BLOCKS blocks), each an
+    engine behind a DoorServer registered on a KVDirectory over the port's
+    KVServer, started here; this process is the router, through
+    ``HTTPEngineClient``. The workers run the monitor's fleet plane as
+    ranks 0 and 1 over KVTransport. SIGKILL rank 1 with tickets on it: it
+    goes stale, is ejected, its tickets requeue, every ticket ends done
+    with the tokens of the same model in one engine here; rank 0's
+    ``run.fleet.jsonl`` holds both ranks and then marks rank 1 stale;
+    rank 0 drains over HTTP and exits 0. Returns rank 0's launch counts
+    from its warm-up's end to its exit (the path's own; rank 1's die with
+    it). Every worker is stopped."""
+    import signal
+    from paddle_tpu_torch.distributed.launch.master import KVServer
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import (DecodeEngine, KVDirectory,
+                                          RouteFaultSchedule, Router)
+    cfg = dict(GPT_MEDIUM, num_layers=FLEET_HTTP_BLOCKS)
+    gen = torch.Generator()
+    gen.manual_seed(13)
+    prompts = [torch.randint(0, cfg["vocab_size"], (int(n),),
+                             generator=gen).tolist()
+               for n in torch.randint(24, 120, (FLEET_HTTP_TICKETS,),
+                                      generator=gen)]
+    model = GPTForCausalLM(GPTConfig(**cfg), dtype=torch.bfloat16,
+                           seed=0).eval()
+    ref = _warmed(model)
+    ref_reqs = [ref.submit(p, max_new_tokens=FLEET_NEW) for p in prompts]
+    _drive(ref, ref_reqs)
+    ref.close()
+    del ref, model
+    torch.cuda.empty_cache()
+    srv = KVServer(0, host="127.0.0.1")
+    srv.start()
+    kv = srv.address
+    procs, outs = {}, {}
+    here = os.path.abspath(__file__)
+    try:
+        for rank in (0, 1):
+            d = os.path.join(FLEET_DIR, f"w{rank}")
+            os.makedirs(d, exist_ok=True)
+            for f in os.listdir(d):
+                os.remove(os.path.join(d, f))
+            env = dict(os.environ, PADDLE_TRAINER_ID=str(rank),
+                       PADDLE_TRAINERS_NUM="2", PADDLE_MONITOR_MASTER=kv,
+                       PADDLE_JOB_ID="smoke",
+                       PADDLE_MONITOR_PUBLISH_S=str(FLEET_PUBLISH_S))
+            for k in ("PADDLE_MONITOR", "PADDLE_SERVE_FAULT",
+                      "PADDLE_ROUTE_FAULT", "PADDLE_MONITOR_FLEET"):
+                env.pop(k, None)
+            procs[rank] = subprocess.Popen(
+                [sys.executable, here, "--fleet-worker", f"w{rank}", kv, d],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env=env)
+        held = {}
+        for rank, proc in procs.items():
+            t0 = time.time()
+            while True:
+                line = proc.stdout.readline()
+                if line.startswith("READY"):
+                    held[rank] = float(line.split()[2])
+                    break
+                if (not line and proc.poll() is not None) \
+                        or time.time() - t0 > 300:
+                    raise AssertionError(f"[fleet-http] worker {rank} never "
+                                         f"ready: {line}{proc.stdout.read()}")
+        router = Router(KVDirectory(endpoint=kv, job_id="smoke"),
+                        policy="round_robin", eject_after=2,
+                        fault_schedule=RouteFaultSchedule.parse(""))
+        t0 = time.time()
+        while sorted(router.refresh()) != ["w0", "w1"]:
+            if time.time() - t0 > 60:
+                raise AssertionError("[fleet-http] registrations")
+            time.sleep(0.05)
+        fleet = os.path.join(FLEET_DIR, "w0", "run.fleet.jsonl")
+
+        def fleet_recs():
+            if not os.path.exists(fleet):
+                return []
+            out = []
+            for line in open(fleet):
+                try:
+                    out.append(json.loads(line))
+                except json.JSONDecodeError:
+                    pass
+            return [r for r in out if r.get("kind") == "fleet"]
+
+        def wait(what, cond, limit=120.0):
+            t = time.time()
+            while not cond():
+                if time.time() - t > limit:
+                    raise AssertionError(f"[fleet-http] {what}")
+                time.sleep(0.05)
+        wait("both ranks in rank 0's fleet stream", lambda: any(
+            set(r.get("ranks") or []) >= {0, 1} for r in fleet_recs()))
+        t0 = time.perf_counter()
+        tickets = [router.route(p, max_new_tokens=FLEET_NEW,
+                                request_id=f"http-{i}")
+                   for i, p in enumerate(prompts)]
+        wait("tokens streaming on w1", lambda: (router.poll() or True) and
+             any(t.tokens for t in tickets if t.engine == "w1"))
+        on_w1 = [t.id for t in tickets
+                 if t.engine == "w1" and not t.finished]
+        procs[1].send_signal(signal.SIGKILL)
+        procs[1].wait(timeout=60)
+        router.join(tickets, timeout_s=300.0)
+        wall = time.perf_counter() - t0
+        bad = [(t.id, t.status, t.error) for t, r in zip(tickets, ref_reqs)
+               if t.status != "done" or t.tokens != r.tokens]
+        if bad or "w1" not in router._ejected \
+                or router.counters["requeues"] < len(on_w1):
+            raise AssertionError(f"[fleet-http] {bad}, {router.counters}, "
+                                 f"ejected {sorted(router._ejected)}")
+        wait("rank 1 stale in rank 0's fleet stream", lambda: any(
+            1 in (r.get("stale") or []) for r in fleet_recs()))
+        router._clients["w0"].begin_drain(30.0)
+        out, _ = procs[0].communicate(timeout=300)
+        if procs[0].returncode != 0:
+            raise AssertionError(f"[fleet-http] w0 rc "
+                                 f"{procs[0].returncode}: {out[-3000:]}")
+        summary = json.loads([l for l in out.splitlines()
+                              if l.startswith("{")][-1])
+        if not summary["drained"] or summary["compile_count"] != 2 \
+                or not summary["fleet"] or summary["tokens"] < 1:
+            raise AssertionError(f"[fleet-http] w0 summary {summary}")
+        # the path's launches are the serving replica's own (w1 was
+        # SIGKILLed: its counts die with it); the phase's reference engine
+        # is not the path
+        ran = {k: n for k, n in summary["launches"].items() if n}
+        if ran:
+            raise AssertionError(f"[fleet-http] w0 launched {ran}")
+        stale = next(r for r in fleet_recs() if 1 in (r.get("stale") or []))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        srv.stop()
+    log(f"[fleet-http] 2 worker processes on the card (GPT-medium, "
+        f"{FLEET_HTTP_BLOCKS} blocks; {held[0]:.2f} and {held[1]:.2f} GB "
+        f"reserved at READY, w0 {summary['reserved_gb']:.2f} GB at its "
+        f"peak), this process the router over HTTP: {len(tickets)} tickets, "
+        f"{len(on_w1)} live on w1 when it was SIGKILLed; w1 ejected, "
+        f"{router.counters['requeues']} requeued, all done with one "
+        f"engine's tokens in {wall:.3f} s; rank 0's fleet stream held both "
+        f"ranks and marked rank 1 stale at round {stale['round']}; w0 "
+        f"served {summary['tokens']} tokens after its warm-up with no flash "
+        f"launch in its process (w1's counts died with it), drained over "
+        f"HTTP, rc 0 ({smi})")
+    return summary["launches"]
+
+
 def _release(tag):
     """Collect what earlier phases left (reference cycles included), give
     the cache back, and print what the process still holds."""
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[memory] {tag}: {_held_gb():.2f} GB allocated")
+
+
+def _path_counts():
+    """The launch counts and, as "wide:<wrapper>", "f32w:<wrapper>",
+    "f32f:<wrapper>", "f32b:<wrapper>" and "sw32:<wrapper>", the bf16 and
+    fp32 wide bodies', the fp32 forward's and backward's up to 256 and the
+    bf16 backward's at 80 and 96."""
+    from paddle_tpu_torch.kernels import (f32_bwd_launch_counts,
+                                          f32_fwd_launch_counts,
+                                          f32_wide_launch_counts,
+                                          launch_counts,
+                                          sw32_bwd_launch_counts,
+                                          wide_launch_counts)
+    return dict(launch_counts(),
+                **{f"wide:{k}": n for k, n in wide_launch_counts().items()},
+                **{f"f32w:{k}": n for k, n in
+                   f32_wide_launch_counts().items()},
+                **{f"f32f:{k}": n for k, n in
+                   f32_fwd_launch_counts().items()},
+                **{f"f32b:{k}": n for k, n in
+                   f32_bwd_launch_counts().items()},
+                **{f"sw32:{k}": n for k, n in
+                   sw32_bwd_launch_counts().items()})
 
 
 def _kernel_entry(name, source, replaces, launches, record):
@@ -5684,13 +6689,8 @@ def main() -> int:
               "GPU", file=sys.stderr)
         return 2
     try:
-        from paddle_tpu_torch.kernels import (f32_bwd_launch_counts,
-                                              f32_fwd_launch_counts,
-                                              f32_wide_launch_counts,
-                                              launch_counts,
-                                              reset_launch_counts,
-                                              sw32_bwd_launch_counts,
-                                              wide_launch_counts)
+        from paddle_tpu_torch.kernels import (launch_counts,
+                                              reset_launch_counts)
         from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                              LlamaForCausalLM, llama_7b)
     except ModuleNotFoundError as e:
@@ -5744,23 +6744,7 @@ def main() -> int:
                         (wide_records[1], "wide-512")):
         record["parent_ms"] = parent_bwd[tag][1]
 
-    def counts():
-        """The launch counts and, as "wide:<wrapper>", "f32w:<wrapper>",
-        "f32f:<wrapper>", "f32b:<wrapper>" and "sw32:<wrapper>", the bf16
-        and fp32 wide bodies', the fp32 forward's and backward's up to 256
-        and the bf16 backward's at 80 and 96."""
-        return dict(launch_counts(),
-                    **{f"wide:{k}": n for k, n in
-                       wide_launch_counts().items()},
-                    **{f"f32w:{k}": n for k, n in
-                       f32_wide_launch_counts().items()},
-                    **{f"f32f:{k}": n for k, n in
-                       f32_fwd_launch_counts().items()},
-                    **{f"f32b:{k}": n for k, n in
-                       f32_bwd_launch_counts().items()},
-                    **{f"sw32:{k}": n for k, n in
-                       sw32_bwd_launch_counts().items()})
-
+    counts = _path_counts
     checks = {}        # the fp32 phases' launches (card-vs-CPU, engine)
 
     def counted(tag, phase):
@@ -5803,6 +6787,7 @@ def main() -> int:
     spec_paths, draft_records = {}, {}
     gpt_other_modes(model, reqs, graph_reqs, graph, counts, paths,
                     spec_paths, draft_records)
+    guard_ref = graph_reqs       # [engine-graph]'s tokens, for the last phases
     del model, reqs, bucket_reqs, gen_rows, graph_reqs
     _release("GPT serving freed")
 
@@ -5928,6 +6913,29 @@ def main() -> int:
     phase_llama_train_recompute()
     paths["llama-training-recompute"] = counts()   # ... and ends here
 
+    # the serving guardrails and the fleet run last, on GPT-medium built
+    # again from seed 0 (the same weights): every phase above runs in the
+    # process state it ran in before these phases existed. No flash kernel
+    # lies on these paths (graphed engines).
+    _release("before the guardrail and fleet phases")
+    model = GPTForCausalLM(GPTConfig(**GPT_MEDIUM), dtype=torch.bfloat16,
+                           seed=0).eval()
+    reset_launch_counts()
+    phase_guard_chaos(model, guard_ref)
+    phase_guard_hang(model, guard_ref, smi)
+    phase_guard_drain(model, guard_ref)
+    paths["gpt-serving-guard"] = counts()
+    _release("after the guardrail phases")
+    reset_launch_counts()
+    phase_fleet_router(model, smi)
+    phase_fleet_pool(model, smi)
+    paths["gpt-serving-fleet"] = counts()
+    del model, guard_ref
+    _release("after [fleet-router] and [fleet-pool]")
+    # two serving processes on the card behind this one's router
+    # (the counts of the replica that served, read in its own process)
+    paths["gpt-serving-http"] = phase_fleet_http(smi)
+
     # every kernel of a path ran on it
     needs = {"gpt-serving": ["flash_pair_fwd"],
              "gpt-training": ["flash_pair_fwd", "flash_pair_bwd"],
@@ -5974,7 +6982,9 @@ def main() -> int:
     # speculative engine's drafter programs are the exception)
     for path in ("gpt-serving-graph", "llama-serving-graph",
                  "gpt-serving-row", "llama-serving-row", "gpt-serving-int8",
-                 "gpt-serving-spec-lookup", "gpt-serving-monitor"):
+                 "gpt-serving-spec-lookup", "gpt-serving-monitor",
+                 "gpt-serving-guard", "gpt-serving-fleet",
+                 "gpt-serving-http"):
         ran = {k: n for k, n in every_path[path].items() if n}
         if ran:
             raise AssertionError(f"the {path} path launched {ran}")
@@ -6099,4 +7109,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fleet-worker"]:     # [fleet-http]'s replicas
+        sys.exit(_http_worker(*sys.argv[2:5]))
     sys.exit(main())

@@ -137,6 +137,14 @@ class Program:
     def captured(self) -> bool:
         return self._graph is not None
 
+    @property
+    def building(self) -> bool:
+        """The next call is the program's first: its build (on the card
+        the warm-up and the capture; with the monitor on, the observed
+        eager run). The serving watchdog leaves it out of its window, as
+        the JAX engine's compile is."""
+        return self._fresh
+
     def __call__(self):
         if self._graph is not None:
             self._graph.replay()

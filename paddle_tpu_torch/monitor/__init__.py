@@ -1,5 +1,5 @@
 """paddle_tpu_torch.monitor — always-on structured runtime telemetry
-(counterpart of ``paddle_tpu/monitor``, the fleet collector aside).
+(counterpart of ``paddle_tpu/monitor``).
 
 What the run is doing, all the time:
 
@@ -19,17 +19,17 @@ What the run is doing, all the time:
 * a **flight recorder** — a bounded ring of recent events dumped to JSON on
   an exception escaping ``TrainStep`` (or ``dump()``);
 * the **span tracer** (``trace.py``), the **goodput/MFU ledger**
-  (``goodput.py``, the H100's peak) and the **health plane**
-  (``health.py``).
+  (``goodput.py``, the H100's peak), the **health plane** (``health.py``)
+  and the online **fleet collector** (``collector.py``: per-rank
+  publishers, rank 0's aggregator and its ``run.fleet.jsonl``).
 
 Enable with ``monitor.enable("run.jsonl", trace=True)`` or env
 ``PADDLE_MONITOR=path`` (``PADDLE_TRACE``, ``PADDLE_TRACE_SAMPLE``).
 Disabled cost: every integration point guards on one module-global
 ``monitor._active is None`` check, so the hot path stays a no-op.
 
-Not ported: the fleet collector (``fleet=`` raises, ROADMAP Queue 1,
-item 9) and the per-op dispatch hooks (the port has no dispatcher of its
-own: item 1).
+Not ported: the per-op dispatch hooks (the port has no dispatcher of its
+own: ROADMAP Queue 1, item 1).
 """
 from __future__ import annotations
 
@@ -876,6 +876,14 @@ class Monitor:
         self.flush()
         # span-tracer context: the dump names the trace(s) to open, and a
         # crash force-samples everything in flight so they exist on disk
+        # rank 0 with the fleet plane up: the crash report says what the
+        # FLEET looked like, not just the dying rank
+        fleet = None
+        try:
+            from . import collector as _collector
+            fleet = _collector.fleet_state()
+        except Exception:
+            pass
         trace_info = None
         tracer = _trace_mod._active
         if tracer is not None:
@@ -884,7 +892,7 @@ class Monitor:
             trace_info = tracer.snapshot_info()
             tracer.flush()
         return self.flight.dump(path, registry_snapshot=snap, exc=exc,
-                                trace=trace_info)
+                                fleet=fleet, trace=trace_info)
 
     def on_crash(self, exc: BaseException):
         # one dump per exception object: a TrainStep raising inside a caller
@@ -916,23 +924,16 @@ def enable(path: Optional[str] = None, *, warn_after: Optional[int] = None,
     ``path.procN`` (see sink.resolve_sink_path). Idempotent-safe: enabling
     while enabled closes the previous session first.
 
-    ``fleet`` (or env ``PADDLE_MONITOR_FLEET``) asks for the fleet
-    collector, which the port does not have yet: it raises
-    ``NotImplementedError``.
+    ``fleet`` starts the online fleet-telemetry plane (monitor/collector.py):
+    True derives the rank-0 stream path from ``path`` (``run.jsonl`` ->
+    ``run.fleet.jsonl``), a string is the explicit stream path. Default None
+    follows the ``PADDLE_MONITOR_FLEET`` env.
 
     ``trace`` starts the span tracer (monitor/trace.py): True derives
     ``run.trace.jsonl`` from ``path`` (per-process suffix applies), a
     string is the explicit path; default None follows ``PADDLE_TRACE``;
     sampling follows ``PADDLE_TRACE_SAMPLE``."""
     global _active
-    if fleet is None:
-        v = os.environ.get("PADDLE_MONITOR_FLEET")
-        fleet = None if not v or v.lower() in ("0", "false", "no", "off") \
-            else v
-    if fleet:
-        raise NotImplementedError(
-            "monitor: the fleet collector (fleet=, PADDLE_MONITOR_FLEET) is "
-            "not ported yet (ROADMAP Queue 1, item 9)")
     with _lock:
         if _active is not None:
             _teardown_locked()
@@ -940,6 +941,18 @@ def enable(path: Optional[str] = None, *, warn_after: Optional[int] = None,
                       ring=ring)
         _goodput_mod._set_active(mon.goodput)
         _active = mon
+    if fleet is None:
+        v = os.environ.get("PADDLE_MONITOR_FLEET")
+        # explicit falsy values DISABLE (an operator's FLEET=0 must not
+        # start the plane with a stream file literally named "0")
+        fleet = None if not v or v.lower() in ("0", "false", "no", "off") \
+            else v
+    if fleet:
+        from . import collector as _collector
+        _collector.start(
+            registry=mon.registry, emit=mon.emit,
+            fleet_path=_collector.resolve_fleet_path(
+                fleet if isinstance(fleet, str) else None, path))
     if trace is None:
         v = os.environ.get("PADDLE_TRACE")
         trace = None if not v or v.lower() in ("0", "false", "no", "off") \
@@ -961,6 +974,11 @@ def _teardown_locked():
     global _active
     mon, _active = _active, None
     _goodput_mod._set_active(None)
+    from . import collector as _collector
+    if mon is not None and _collector.get_active() is not None:
+        # only the plane over THIS session's registry dies with it
+        if _collector.get_active().publisher.registry is mon.registry:
+            _collector.stop()
     tracer = _trace_mod.get()
     if mon is not None and tracer is not None \
             and getattr(tracer, "_via_monitor", False):
@@ -971,7 +989,8 @@ def _teardown_locked():
 
 
 def disable():
-    """Flush + close the sink (and a tracer enabled with the monitor)."""
+    """Flush + close the sink (and a tracer and a fleet plane enabled with
+    the monitor)."""
     with _lock:
         _teardown_locked()
 
@@ -1025,21 +1044,27 @@ def snapshot() -> Optional[dict]:
 
 
 def fleet_state() -> Optional[dict]:
-    """The fleet collector's latest record: always None, the collector is
-    not ported yet (ROADMAP Queue 1, item 9)."""
-    return None
+    """Rank 0's latest aggregated fleet record when the collector plane is
+    up (monitor/collector.py); None on other ranks or when inactive."""
+    from . import collector as _collector
+    return _collector.fleet_state()
 
 
 def prom_render(source=None) -> str:
     """Prometheus text-format view of monitor metrics (monitor/prom.py).
 
-    ``source=None`` renders the LIVE registry of the enabled monitor; pass
-    a registry ``snapshot()`` dict or a fleet record to render those
-    instead. Empty string when nothing is enabled."""
+    ``source=None`` renders the LIVE registry of the enabled monitor (plus
+    the latest fleet record when the collector plane is up — per-rank
+    values gain ``rank`` labels); pass a registry ``snapshot()`` dict or a
+    fleet record to render those instead. Empty string when nothing is
+    enabled."""
     if source is None:
         mon = _active
         if mon is None:
             return ""
+        fleet = fleet_state()
+        if fleet is not None:
+            return _prom.render(fleet)
         # a scrape must see current goodput/idle figures, not the state as
         # of the last hook event
         try:

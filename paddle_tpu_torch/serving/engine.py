@@ -55,12 +55,32 @@ a ``queue`` phase, then ``prefill`` (``chunk`` and ``cow`` events), then
 ``decode`` (``decode_step`` / ``spec_step`` and ``cow`` events), with
 ``preempt`` (and a fresh ``queue`` phase) and ``page_reject`` events on
 the root. Every hook runs around a program call, never inside its body.
+
+The guardrail plane (``guardrails.py``, host state only): per-request
+deadlines enforced at step boundaries, ``cancel()``, ``drain()`` (wired to
+SIGTERM by ``drain_on_preemption``), idempotent request ids, the
+``PADDLE_SERVE_FAULT`` chaos seam and a dispatch watchdog
+(``hang_s``). The watchdog's armed window brackets a program's replay AND
+the host read of its output, which waits for the card: a program wedged
+on the device is a wedged dispatch. A program's first call (its build,
+the capture on the card) is left out, as the JAX engine's compile is. The
+window never sits inside a captured body, and no fault changes what a
+program captures.
+
+The cross-process prefix tier (``kv_pool=``, ``kvpool.py``): parked
+registered blocks export at the end of a step (one gather of the block's
+rows of every layer and one copy to the host, ordered after the step's
+programs on the same stream), and an admission whose prefix misses the
+local registry fetches whole blocks from the pool and writes them in
+place into the KV tensor, whose address the captured programs keep.
 """
 from __future__ import annotations
 
 import itertools
+import os
 import time
 import weakref
+from collections import OrderedDict
 from functools import partial
 from typing import List, NamedTuple, Optional
 
@@ -75,12 +95,19 @@ from ..core.programs import (ProgramRegistry, StagedInputs, leaf_addresses,
 from ..monitor import trace as _trace
 from ..models.gpt import (_as_ids, _check_seed, _lm_head_logits,
                           _pick_token, _resolve_decode_horizon)
-from .pager import TRASH_BLOCK, BlockPager
+from ..distributed.reshard import snapshot as _snapshot
+from .guardrails import (HANG_ENV, DispatchWatchdog, EngineHangError,
+                         FaultSchedule, InjectedFault)
+from .pager import TRASH_BLOCK, BlockPager, prefix_digest
 from .scheduler import (TERMINAL_STATUSES, AdmissionQueue, Request,
                         SlotAllocator)
 
 __all__ = ["DecodeEngine", "Request", "TERMINAL_STATUSES",
-           "generate_via_engine", "quantize_for_serving"]
+           "generate_via_engine", "quantize_for_serving", "EngineHangError"]
+
+# terminal caller-supplied request ids remembered per engine for dedup
+# (a requeue retry arriving AFTER completion still returns the original)
+DEDUP_WINDOW = 1024
 
 
 class ModelSpec(NamedTuple):
@@ -142,11 +169,6 @@ def quantize_for_serving(model, skip=()):
     return swap(model)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"DecodeEngine: {what} is not ported yet "
-                              f"(ROADMAP {item})")
-
-
 class _PrefillState:
     """One slot's in-flight chunked prefill: which prompt positions are
     cached so far (shared-prefix coverage counts) and the pending COW
@@ -204,10 +226,26 @@ class DecodeEngine:
       drafter          a ``spec.Drafter``: speculative decoding (paged and
                        greedy only; the verify width is ``min(max(2,
                        drafter.max_k + 1), max_len)``)
+      hang_s           dispatch-watchdog threshold in seconds (default: env
+                       PADDLE_SERVE_HANG_S; 0/unset = off)
+      fault_schedule   a ``guardrails.FaultSchedule``, or None to read the
+                       PADDLE_SERVE_FAULT env (the chaos seam; production
+                       sets neither)
+      kv_pool          a ``kvpool`` pool (``LocalPool``, or ``KVPool`` over
+                       the KV master; ``kvpool.resolve_kv_pool()`` picks by
+                       env): the cross-process prefix tier. None (the
+                       default) turns it off; requires paged=True
 
-    The JAX engine's other knobs (``kv_pool``, ``hang_s``,
-    ``fault_schedule``) raise ``NotImplementedError`` naming the ROADMAP
-    item that ports them.
+    **Guardrails** (host-side: no shape, no program, no token changes when
+    unused): per-request deadlines (``submit(..., ttft_deadline_s=,
+    deadline_s=)``, enforced at step boundaries across preemption and
+    chunked prefill; terminal ``expired``, slot and blocks released
+    exactly once); ``cancel(req)`` from any state; ``drain(grace_s=)`` /
+    ``begin_drain()`` (the door answers ``rejected_draining``, live slots
+    finish or expire within the grace) with ``drain_on_preemption()``
+    turning SIGTERM into a drain; idempotent ``submit(request_id=)``; the
+    dispatch watchdog (a WARN and a flight dump while a program call is
+    stuck, then ``EngineHangError``); the PADDLE_SERVE_FAULT seam.
     """
 
     _ids = itertools.count()
@@ -221,11 +259,6 @@ class DecodeEngine:
                  temperature: float = 1.0, top_k: int = 0, seed: int = 0,
                  hang_s: Optional[float] = None, fault_schedule=None,
                  drafter=None, kv_pool=None):
-        if kv_pool is not None:
-            _not_ported("the cross-process KV pool", "Queue 1, item 9")
-        if hang_s or fault_schedule is not None:
-            _not_ported("the guardrail plane (hang_s, fault_schedule)",
-                        "Queue 1, item 8")
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         if max_len < 2:
@@ -233,6 +266,9 @@ class DecodeEngine:
         if quantize not in (None, "int8"):
             raise ValueError(f"quantize must be None or 'int8', "
                              f"got {quantize!r}")
+        if kv_pool is not None and not paged:
+            raise ValueError("kv_pool requires paged=True (the pool moves "
+                             "page-table blocks)")
         cfg = model.config
         if max_len > cfg.max_position_embeddings:
             raise ValueError(
@@ -363,13 +399,66 @@ class DecodeEngine:
         self.prefill_calls = 0
         self.tokens_generated = 0
         self.nan_logits = 0
-        self.cancelled = 0
         # speculation: verify calls, drafts proposed, drafts accepted,
         # tokens emitted by verify calls (accepted + the verifier's own)
         self.spec_steps = 0
         self.spec_drafted = 0
         self.spec_accepted = 0
         self.spec_emitted = 0
+        # ---- cross-process prefix tier (kvpool.py): parked registered
+        # blocks export to the pool, registry-miss admissions fetch and
+        # adopt. Host state; nothing changes when kv_pool is None
+        self._kv_pool = kv_pool
+        self._pool_gen = 0
+        self._exported: set = set()     # digests already in the pool (gen)
+        self.pool_exports = 0
+        self.pool_export_errors = 0
+        self.pool_fetches = 0
+        self.pool_fetch_hits = 0
+        self.pool_fetch_misses = 0
+        self.pool_fetch_s = 0.0
+        self.pool_adopted_blocks = 0
+        self.pool_adopted_tokens = 0
+        if kv_pool is not None:
+            self._pager.export_enabled = True
+            self._pool_gen = int(kv_pool.generation())
+        # ---- guardrail plane (host state; nothing changes until used).
+        # The injectable clock: deadlines and the drain grace read THIS,
+        # so tests fast-forward time instead of sleeping
+        self._clock = time.time
+        self._faults = fault_schedule if fault_schedule is not None \
+            else FaultSchedule.from_env()
+        if self.paged and self._faults is not None:
+            self._pager.fault_schedule = self._faults
+        if hang_s is None:
+            try:
+                hang_s = float(os.environ.get(HANG_ENV, "0") or 0)
+            except ValueError:
+                hang_s = 0.0
+        self._watchdog = None
+        if hang_s and hang_s > 0:
+            # the watchdog thread holds its engine weakly, so dropping the
+            # engine frees it (and stops the thread) without close()
+            self._watchdog = DispatchWatchdog(
+                hang_s, partial(DecodeEngine._on_hang, weakref.proxy(self)))
+            weakref.finalize(self, self._watchdog.stop)
+        # non-terminal requests carrying a deadline: the expiry sweep
+        # early-outs when this is empty
+        self._deadline_reqs: set = set()
+        # request-id idempotency: caller-supplied ids this engine admitted,
+        # live plus a bounded window of terminal ones; a duplicate submit
+        # gets the EXISTING Request back, so one id never generates twice
+        self._by_id: dict = {}
+        self._done_ids: "OrderedDict" = OrderedDict()
+        self._draining = False
+        self._drain_t0: Optional[float] = None
+        self._drain_deadline: Optional[float] = None
+        self._drain_reported = False
+        self._pw = None                    # PreemptionWatcher, if wired
+        self._pw_grace_s: Optional[float] = None
+        self.expired = 0
+        self.cancelled = 0
+        self.drains = 0
         mon = _monitor._active
         if mon is not None:
             mon.serve_engine(self.max_slots, self.max_len,
@@ -546,8 +635,19 @@ class DecodeEngine:
             out[1].copy_(torch.isfinite(logits).all())
         return fn, _Step(inputs, out)
 
-    def _slot_call(self, key, build, copies, slot: int, ids, p0: int,
-                   end: int):
+    def _run(self, kind: str, bucket, prog, out):
+        """Run ``prog`` under the guardrails (``_dispatch_guarded``) and
+        read its output on the host: the read waits for the card, so the
+        armed window covers the device's work, not only the launch.
+        Returns the output as numpy."""
+        def call():
+            prog()
+            return out.cpu().numpy()
+        return self._dispatch_guarded(kind, bucket, call,
+                                      arm=not prog.building)
+
+    def _slot_call(self, kind: str, key, build, copies, slot: int, ids,
+                   p0: int, end: int):
         """Stage and run one slot's ``[1, w]`` call (``_build_slot_call``)
         at absolute start ``p0``: ``ids`` is ``[1, w]`` (padded past
         ``end``, the exclusive end of valid tokens, whose writes go to
@@ -561,16 +661,15 @@ class DecodeEngine:
         host["end"][...] = end
         self._stage_cow(inputs, copies)
         inputs.upload()
-        prog()
-        return out.cpu().numpy()
+        return self._run(kind, key[1], prog, out)
 
     def _chunk_call(self, copies, slot: int, ids, p0: int, end: int):
         """Run one prefill chunk of ``slot``. Returns (token picked at the
         last valid position, finite-logits flag)."""
         sc = ids.shape[1]
         tok, ok = self._slot_call(
-            ("chunk", sc), lambda: self._build_slot_call(sc, False), copies,
-            slot, ids, p0, end)[:, 0]
+            "chunk", ("chunk", sc), lambda: self._build_slot_call(sc, False),
+            copies, slot, ids, p0, end)[:, 0]
         return int(tok), bool(ok)
 
     def _verify_call(self, copies, slot: int, ids, p0: int, end: int):
@@ -579,8 +678,8 @@ class DecodeEngine:
         position, one finite-logits flag over the window)."""
         vw = self._spec_width
         out = self._slot_call(
-            ("verify", vw), lambda: self._build_slot_call(vw, True), copies,
-            slot, ids, p0, end)
+            "verify", ("verify", vw), lambda: self._build_slot_call(vw, True),
+            copies, slot, ids, p0, end)
         return out[0], bool(out[1, 0])
 
     def _decode_call(self, copies):
@@ -599,8 +698,7 @@ class DecodeEngine:
                                         self._pager.tables, TRASH_BLOCK)
             self._stage_cow(inputs, copies)
         inputs.upload()
-        prog()
-        nxt, ok = out.cpu().numpy()
+        nxt, ok = self._run("decode", None, prog, out)
         return nxt, ok.astype(bool)
 
     def _prefill_call(self, slot: int, prompt):
@@ -617,22 +715,40 @@ class DecodeEngine:
         host["slot"][...] = slot
         host["n"][...] = n
         inputs.upload()
-        prog()
-        tok, ok = out.cpu().numpy()[:, 0]
+        tok, ok = self._run("chunk", sb, prog, out)[:, 0]
         return int(tok), bool(ok)
 
     # ------------------------------------------------------------ requests
 
     def submit(self, prompt, max_new_tokens: int = 32,
-               eos_token_id: Optional[int] = None) -> Request:
+               eos_token_id: Optional[int] = None, request_id=None,
+               ttft_deadline_s: Optional[float] = None,
+               deadline_s: Optional[float] = None) -> Request:
         """Validate + enqueue one request. A malformed request comes back
         ``failed`` with ``error`` set and is never admitted; one hitting a
-        full admission queue comes back ``rejected_overload``."""
+        full admission queue comes back ``rejected_overload``, one arriving
+        while the engine drains ``rejected_draining``.
+
+        ``ttft_deadline_s`` bounds submit -> first token, ``deadline_s``
+        the whole request; both are enforced at step boundaries (terminal
+        ``expired``). A caller-supplied ``request_id`` makes submission
+        idempotent: a duplicate id returns the existing Request (live, or
+        terminal within the last ``DEDUP_WINDOW``), so a router's retry
+        never generates twice. A door bounce is not remembered: a bounced
+        id stays resubmittable."""
+        if request_id is not None:
+            dup = self._by_id.get(request_id)
+            if dup is None:
+                dup = self._done_ids.get(request_id)
+            if dup is not None:
+                return dup
         try:
             req = Request(prompt, max_new_tokens=max_new_tokens,
-                          eos_token_id=eos_token_id)
+                          eos_token_id=eos_token_id, request_id=request_id,
+                          ttft_deadline_s=ttft_deadline_s,
+                          deadline_s=deadline_s)
         except (TypeError, ValueError, OverflowError) as e:
-            req = Request([], max_new_tokens=1)
+            req = Request([], max_new_tokens=1, request_id=request_id)
             self._reject(req, f"invalid request: {e}")
             return req
         trc = _trace._active
@@ -665,6 +781,16 @@ class DecodeEngine:
         elif self.prefill_chunk is None and self._bucket_for(n) is None:
             self._reject(req, f"prompt length {n} exceeds the largest "
                               f"prefill bucket ({self.prefill_buckets[-1]})")
+        elif self._draining:
+            req.status, req.error = "rejected_draining", \
+                "engine is draining (shutdown in progress)"
+            req.t_done = time.time()
+            mon = _monitor._active
+            if mon is not None:
+                mon.serve_request(queued=False, error=req.error,
+                                  draining=True)
+            if req._trace is not None:
+                req._trace.end(status="rejected_draining", error=req.error)
         elif not self._queue.push(req):
             req.status, req.error = "rejected_overload", \
                 f"admission queue full ({self._queue.max_queue})"
@@ -676,6 +802,10 @@ class DecodeEngine:
             if req._trace is not None:
                 req._trace.end(status="rejected_overload", error=req.error)
         else:
+            if req.ttft_deadline_s is not None or req.deadline_s is not None:
+                self._deadline_reqs.add(req)
+            if request_id is not None:
+                self._by_id[req.id] = req
             mon = _monitor._active
             if mon is not None:
                 mon.serve_request(queued=True)
@@ -722,32 +852,70 @@ class DecodeEngine:
         return len(self._queue)
 
     def step(self) -> List[Request]:
-        """ONE iteration of continuous batching: fold queued prompts into
-        free slots, advance every in-flight prefill by one chunk, then
-        decode every live slot one token.
-        Returns every request that reached a terminal status since the
-        last step."""
+        """ONE iteration of continuous batching: enforce deadlines and the
+        drain, fold queued prompts into free slots, advance every in-flight
+        prefill by one chunk, decode every live slot one token, then (with
+        a ``kv_pool``) export freshly parked blocks. Returns every request
+        that reached a terminal status since the last step."""
         mon = _monitor._active
         # goodput bracket: the whole scheduler iteration; the program calls
         # inside classify as productive/compile, the rest is host overhead
         sched_t0 = time.perf_counter() if mon is not None else None
         finished: List[Request] = list(self._terminal_buf)
         self._terminal_buf.clear()
-        while self._queue and self._slots.n_free:
-            if not self.paged:
-                self._admit(self._queue.pop(), self._slots.alloc(), finished)
-                continue
-            if not self._try_admit(self._queue.peek()):
-                break          # head-of-line waits for blocks, FIFO kept
-            self._queue.pop()
+        # SIGTERM wiring: the watcher recorded a signal -> begin draining at
+        # THIS step boundary (never mid-call)
+        if not self._draining and self._pw is not None \
+                and self._pw.requested():
+            self.begin_drain(self._pw_grace_s)
+        now = self._clock()
+        self._expire_sweep(now, finished)
+        if self._draining:
+            self._drain_step(now, finished)
+        else:
+            self._admit_queued(finished)
         for slot in sorted(self._prefilling, key=lambda s: self._slot_seq[s]):
             if slot in self._prefilling:   # an earlier ensure may evict
                 self._advance_prefill(slot, finished)
         if self._live.any():
             self._decode(finished)
+        if self._kv_pool is not None:
+            # parked registered blocks go OUT at the end of the iteration,
+            # after its programs on the same stream, a bounded number a step
+            self._drain_pool_exports()
+            mon3 = _monitor._active
+            if mon3 is not None:
+                mon3.serve_pool(self.pool_stats(), engine_id=self.engine_id)
+        if self._draining and self.drained and not self._drain_reported:
+            self._drain_reported = True
+            self.drains += 1
+            mon2 = _monitor._active
+            if mon2 is not None:
+                mon2.serve_drain_end(self._clock() - (self._drain_t0 or now))
         if sched_t0 is not None and mon is _monitor._active:
             mon.serve_sched(sched_t0, time.perf_counter())
         return finished
+
+    def _admit_queued(self, finished: List[Request]):
+        """Fold queued prompts into free slots (the admission half of
+        step()). The "admit" fault site counts ATTEMPTS (a blocked
+        head-of-line request retrying every step keeps counting), and an
+        injected raise fails just that request, cleanly."""
+        while self._queue and self._slots.n_free:
+            head = self._queue.peek()
+            if self._faults is not None:
+                try:
+                    self._faults.fire("admit")
+                except InjectedFault as e:
+                    self._queue.pop()
+                    self._terminalize(head, "failed", str(e), finished)
+                    continue
+            if not self.paged:
+                self._admit(self._queue.pop(), self._slots.alloc(), finished)
+                continue
+            if not self._try_admit(head):
+                break          # head-of-line waits for blocks, FIFO kept
+            self._queue.pop()
 
     def run(self, max_steps: Optional[int] = None) -> List[Request]:
         """Step until queue and slots are empty. ``max_steps`` is a hard
@@ -766,8 +934,8 @@ class DecodeEngine:
 
     def _release_slot_state(self, slot: int):
         """Return ``slot`` to the allocator and zero its host row — the ONE
-        release path shared by finish / preempt / cancel / failure, so a
-        request's blocks are released exactly once."""
+        release path shared by finish / preempt / expire / cancel /
+        failure, so a request's blocks are released exactly once."""
         self._prefilling.pop(slot, None)
         self._live[slot] = False
         self._pos[slot] = 0
@@ -777,29 +945,89 @@ class DecodeEngine:
             self._pager.release_slot(slot)
         self._slots.release(slot)
 
+    def _retire_id(self, req: Request):
+        """Dedup bookkeeping at a terminal transition: a tracked id moves
+        from the live map to the bounded terminal window, EXCEPT a drain
+        bounce (``rejected_draining``), which generated nothing and must
+        stay resubmittable."""
+        if self._by_id.pop(req.id, None) is None:
+            return
+        if req.status == "rejected_draining":
+            return
+        self._done_ids[req.id] = req
+        while len(self._done_ids) > DEDUP_WINDOW:
+            self._done_ids.popitem(last=False)
+
     def _terminalize(self, req: Request, status: str, why: str,
                      finished: Optional[List[Request]], where: str = None):
         """Move ``req`` (slot already released) to a terminal status,
         closing its trace; ``finished=None`` buffers it for the next
         step()'s return. ``where``: the state it left (queue / prefill /
-        decode)."""
+        decode / drain)."""
         assert status in TERMINAL_STATUSES and not req.finished
+        self._deadline_reqs.discard(req)
         req.status, req.error = status, why
+        self._retire_id(req)
         req.slot = None
         req.t_done = time.time()
         (self._terminal_buf if finished is None else finished).append(req)
-        if status == "cancelled":
-            self.cancelled += 1
-            mon = _monitor._active
-            if mon is not None:
-                mon.serve_cancelled(where or "?", trace_id=req._trace.trace_id
-                                    if req._trace is not None else None)
+        mon = _monitor._active
+        trace_id = req._trace.trace_id if req._trace is not None else None
+        if mon is not None:
+            # dedicated counters, not serve/completions: requests still add
+            # up as completed + rejected + expired + cancelled
+            if status == "expired":
+                mon.serve_expired(where or "?", preemptions=req.preemptions,
+                                  tokens=len(req.tokens), trace_id=trace_id)
+            elif status == "cancelled":
+                mon.serve_cancelled(where or "?", trace_id=trace_id)
+            elif status == "rejected_draining":
+                mon.serve_request(queued=False, error=why, draining=True)
         if req._trace is not None:
             mono = time.perf_counter()
             req._trace_phase(None, t0=mono)
             req._trace.end(t1=mono, status=status, error=why,
                            tokens=len(req.tokens),
                            preemptions=req.preemptions)
+        if status == "expired":
+            self.expired += 1
+        elif status == "cancelled":
+            self.cancelled += 1
+
+    def _expire_sweep(self, now: float, finished: List[Request]):
+        """Enforce deadlines at the step boundary, in every state a request
+        can be in: queued (a preempted, requeued request included: its
+        blocks went at the preemption), mid-prefill and decoding. Slot and
+        blocks release exactly once. Early-outs when no live request
+        carries a deadline."""
+        if not self._deadline_reqs:
+            return
+        for req in [r for r in self._queue if r.deadline_exceeded(now)]:
+            which = req.deadline_exceeded(now)
+            if self._queue.remove(req):
+                self._terminalize(req, "expired",
+                                  f"{which} deadline exceeded in queue",
+                                  finished, where="queue")
+        for slot in [s for s, st in list(self._prefilling.items())
+                     if st.req.deadline_exceeded(now)]:
+            st = self._prefilling[slot]
+            which = st.req.deadline_exceeded(now)
+            self._release_slot_state(slot)
+            self._terminalize(st.req, "expired",
+                              f"{which} deadline exceeded mid-prefill "
+                              f"({st.done}/{st.n} tokens cached)",
+                              finished, where="prefill")
+        for slot in range(self.max_slots):
+            req = self._slot_req[slot]
+            if req is None:
+                continue
+            which = req.deadline_exceeded(now)
+            if which is not None:
+                self._release_slot_state(slot)
+                self._terminalize(req, "expired",
+                                  f"{which} deadline exceeded mid-decode "
+                                  f"({len(req.tokens)} tokens out)",
+                                  finished, where="decode")
 
     def _fail_nan(self, slot: int, req: Request, where: str,
                   finished: List[Request]):
@@ -849,6 +1077,188 @@ class DecodeEngine:
                 return True
         return False                     # not this engine's request
 
+    # --------------------------------------------------------------- drain
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @property
+    def drained(self) -> bool:
+        """Drain complete: the door is closed and nothing is in flight."""
+        return self._draining and not self._queue and not self._prefilling \
+            and not self._live.any() and not self._terminal_buf
+
+    def begin_drain(self, grace_s: Optional[float] = None):
+        """Close the door (later submits answer ``rejected_draining``),
+        bounce the waiting queue, and let live slots finish — or expire
+        them once ``grace_s`` runs out. Idempotent; takes effect at step
+        boundaries. ``drain()`` also runs the steps."""
+        if self._draining:
+            return
+        self._draining = True
+        self._drain_reported = False
+        self._drain_t0 = self._clock()
+        self._drain_deadline = None if grace_s is None \
+            else self._drain_t0 + float(grace_s)
+        mon = _monitor._active
+        if mon is not None:
+            mon.serve_drain_begin(self.live_count + len(self._prefilling),
+                                  len(self._queue), grace_s)
+
+    def _drain_step(self, now: float, finished: List[Request]):
+        """The draining replacement for admission: every still-queued
+        request leaves as ``rejected_draining`` (a preemption re-queue
+        during the drain included), and an exhausted grace expires
+        whatever is still on a slot."""
+        for req in self._queue.drain_all():
+            self._terminalize(req, "rejected_draining",
+                              "engine is draining (shutdown in progress)",
+                              finished)
+        if self._drain_deadline is not None and now > self._drain_deadline:
+            for slot in list(self._prefilling):
+                st = self._prefilling[slot]
+                self._release_slot_state(slot)
+                self._terminalize(st.req, "expired",
+                                  "drain grace exceeded mid-prefill",
+                                  finished, where="drain")
+            for slot in range(self.max_slots):
+                req = self._slot_req[slot]
+                if req is not None:
+                    self._release_slot_state(slot)
+                    self._terminalize(req, "expired",
+                                      "drain grace exceeded mid-decode",
+                                      finished, where="drain")
+
+    def drain(self, grace_s: Optional[float] = None,
+              max_steps: Optional[int] = None) -> List[Request]:
+        """Graceful shutdown: ``begin_drain(grace_s)`` and step until
+        drained. Returns every request that reached a terminal status
+        during the drain; ``max_steps`` is the hard stop of the unbounded
+        (``grace_s=None``) form."""
+        self.begin_drain(grace_s)
+        out: List[Request] = []
+        steps = 0
+        while not self.drained:
+            if max_steps is not None and steps >= max_steps:
+                raise RuntimeError(
+                    f"drain() exceeded max_steps={max_steps} with "
+                    f"{self.live_count} live / {len(self._prefilling)} "
+                    f"prefilling")
+            out.extend(self.step())
+            steps += 1
+        return out
+
+    def drain_on_preemption(self, watcher=None,
+                            grace_s: Optional[float] = 30.0):
+        """Wire a ``distributed.preemption.PreemptionWatcher`` into the
+        serving loop: once it records SIGTERM/SIGINT, the next step()
+        begins a drain with ``grace_s``, so the process finishes (or
+        expires) its live requests instead of dying mid-token.
+        ``watcher=None`` installs the process-wide watcher. Returns the
+        watcher; the serving loop keeps stepping and exits on
+        ``drained``."""
+        if watcher is None:
+            from ..distributed import preemption as _preemption
+            watcher = _preemption.install()
+        self._pw = watcher
+        self._pw_grace_s = grace_s
+        return watcher
+
+    # ------------------------------------------------------ failure paths
+
+    def _fail_engine(self, exc: BaseException):
+        """Deterministic loud failure: a program call raised (or hung past
+        the watchdog). Every in-flight request ends ``failed`` with its
+        slot and blocks released (``check_invariants`` holds) and the
+        exception propagates out of step(): the scheduler never decodes
+        on past a runtime it just caught misbehaving."""
+        why = f"engine failed: {exc}"
+        for req in self._queue.drain_all():
+            self._terminalize(req, "failed", why, None)
+        for slot in list(self._prefilling):
+            st = self._prefilling[slot]
+            self._release_slot_state(slot)
+            self._terminalize(st.req, "failed", why, None)
+        for slot in range(self.max_slots):
+            req = self._slot_req[slot]
+            if req is not None:
+                self._release_slot_state(slot)
+                self._terminalize(req, "failed", why, None)
+        raise exc
+
+    def _on_hang(self, info: dict, elapsed_s: float):
+        """Watchdog thread: the armed call exceeded ``hang_s`` and is STILL
+        STUCK. Make it loud and attributable now — escalate the live
+        requests' traces past head sampling, report ``serve_hang``, dump
+        the monitor's flight ring and WARN naming the program — so the
+        evidence exists even if the call never returns."""
+        import warnings
+        traces = info.get("traces") or ()
+        for tr in traces:
+            try:
+                tr.escalate("serve_hang")
+            except Exception:
+                pass
+        trace_ids = [tr.trace_id for tr in traces]
+        mon = _monitor._active
+        dump_path = None
+        if mon is not None:
+            try:
+                mon.serve_hang(info.get("kind", "?"), info.get("bucket"),
+                               elapsed_s, self._watchdog.hang_s,
+                               engine_id=self.engine_id,
+                               trace_ids=trace_ids)
+                dump_path = mon.dump()
+            except Exception:
+                pass
+        warnings.warn(
+            f"serving dispatch hang: {info.get('kind', '?')} program "
+            f"(engine {self.engine_id}, bucket {info.get('bucket')}) "
+            f"exceeded {HANG_ENV}={self._watchdog.hang_s}s "
+            f"({elapsed_s:.2f}s and counting); traces {trace_ids[:4]}"
+            + (f"; flight dump {dump_path}" if dump_path else ""),
+            RuntimeWarning)
+
+    def _dispatch_guarded(self, kind: str, bucket, call, arm: bool = True):
+        """Run one program call (``call``: the replay and the host read of
+        its output) under the guardrails: the chaos seam fires first,
+        inside the armed window (a ``slow`` there is how the watchdog is
+        tested), and any exception or detected hang routes through
+        ``_fail_engine``. ``arm=False`` (a program's first call: its
+        build, the counterpart of a JAX compile) leaves the watchdog out;
+        the fault still fires."""
+        wd = self._watchdog if arm else None
+        if wd is not None:
+            traces = [r._trace for r in self._slot_req if r is not None
+                      and r._trace is not None]
+            traces += [st.req._trace for st in self._prefilling.values()
+                       if st.req._trace is not None]
+            wd.arm(kind=kind, bucket=bucket, engine=self.engine_id,
+                   traces=traces)
+        try:
+            if self._faults is not None:
+                self._faults.fire(kind)
+            out = call()
+        except Exception as e:
+            if wd is not None:
+                # a hang that then RAISED: the raise is the failure; drop
+                # the latch so the reused engine's next healthy call does
+                # not inherit a stale hang verdict
+                wd.fired = None
+            self._fail_engine(e)
+        finally:
+            if wd is not None:
+                wd.disarm()
+        if wd is not None and wd.fired is not None:
+            fired, wd.fired = wd.fired, None
+            self._fail_engine(EngineHangError(
+                f"{fired.get('kind', '?')} dispatch took "
+                f"{fired.get('elapsed_s', 0):.2f}s "
+                f"(> {HANG_ENV}={wd.hang_s}s); WARN + flight dump emitted "
+                f"while it hung"))
+        return out
+
     def _admit(self, req: Request, slot: int, finished: List[Request]):
         """Row cache: prefill the whole prompt into ``slot``'s row now and
         emit its first token; non-finite logits fail the request alone."""
@@ -860,7 +1270,16 @@ class DecodeEngine:
                 req._phase.set(slot=slot)
             req._trace_phase("prefill", t0=mono0, slot=slot,
                              bucket=self._bucket_for(len(req.prompt)))
-        tok0, ok = self._prefill_call(slot, req.prompt)
+        try:
+            tok0, ok = self._prefill_call(slot, req.prompt)
+        except BaseException as e:
+            # the half-admitted slot is in neither _prefilling nor
+            # _slot_req yet, so _fail_engine could not release it, and its
+            # tenant must end like everyone else
+            self._slots.release(slot)
+            if not req.finished:
+                self._terminalize(req, "failed", f"engine failed: {e}", None)
+            raise
         dt = time.time() - t0
         self.prefill_calls += 1
         if not ok:
@@ -914,6 +1333,15 @@ class DecodeEngine:
         slot = self._slots.alloc()
         ctrs = self._pager.sharing_counters()
         cov = self._pager.share_prefix(slot, req.prompt)
+        pool_meta = None
+        if self._kv_pool is not None and cov % self.block_size == 0:
+            # registry miss past cov: fall through to the cross-process
+            # pool; adoption raises cov, so the accounting below counts
+            # pool-adopted blocks as coverage
+            pool_meta = self._pool_fetch_adopt(req, slot, cov)
+            if pool_meta is not None:
+                cov = pool_meta["cov"]
+        pool_blocks = pool_meta["blocks"] if pool_meta else 0
         end = min(cov + self._chunk_len(n), n)
         copies = self._pager.ensure_writable(slot, cov, end)
         if copies is None:
@@ -928,10 +1356,10 @@ class DecodeEngine:
             if mon is not None:
                 mon.serve_page_reject(free, needed, trace_id=req._trace
                                       .trace_id if req._trace is not None
-                                      else None)
+                                      else None, pool_blocks=pool_blocks)
             if req._trace is not None:
                 req._trace.event("page_reject", free=int(free),
-                                 needed=int(needed), pool_blocks=0)
+                                 needed=int(needed), pool_blocks=pool_blocks)
                 if free >= needed:
                     # refusal without real pressure is the allocator-bug
                     # signature: this trace must survive head sampling
@@ -953,9 +1381,151 @@ class DecodeEngine:
                 # blocks revived from the persistent prefix cache
                 ph.set(lru_hit_blocks=self._pager.last_adopt_parked,
                        lru_hit_tokens=self._pager.last_adopt_parked_tokens)
+            if pool_meta is not None:
+                # the pool fetch is its own slice of the prefill phase, so
+                # a TTFT decomposes into fetch time and prefill compute
+                ph.set(pool_hit_blocks=int(pool_meta["blocks"]),
+                       pool_hit_tokens=int(pool_meta["tokens"]),
+                       pool_fetch_s=round(pool_meta["fetch_s"], 6))
+                ph.event("pool_fetch", blocks=int(pool_meta["blocks"]),
+                         tokens=int(pool_meta["tokens"]),
+                         dur_s=round(pool_meta["fetch_s"], 6))
             if copies:
                 ph.event("cow", n=len(copies))
         return True
+
+    # ------------------------------------------------ cross-process pool
+
+    def _pool_geom(self) -> list:
+        """KV geometry carried in every pool entry's meta: a fetched block
+        adopts only when the exporter's geometry matches ours exactly (a
+        mismatch is a MISS: engines of other shapes sharing a pool fall
+        back to their own caches, they never corrupt)."""
+        spec = self._spec
+        return [int(spec.num_layers), int(self.block_size),
+                int(spec.num_kv_heads), int(spec.head_dim)]
+
+    def _pool_fetch_adopt(self, req: Request, slot: int,
+                          cov: int) -> Optional[dict]:
+        """The registry-miss fallthrough of admission: fetch consecutive
+        whole-block prefixes of ``req`` from the pool and splice them into
+        ``slot``'s table past ``cov`` (a block boundary), writing each
+        block's rows in place into the KV tensor. Returns {"cov",
+        "blocks", "tokens", "fetch_s"} on any adoption, else None. Every
+        failure — a miss, a stale generation, another geometry, a torn
+        payload, an injected fetch/adopt fault, allocation pressure — just
+        STOPS the walk: what was spliced stands and the caller prefills
+        the rest. Never raises."""
+        bs = self.block_size
+        toks = tuple(int(t) for t in req.prompt)
+        n = len(toks)
+        k = cov // bs + 1
+        if k * bs >= n or k > self._mbs:
+            return None
+        t0 = time.perf_counter()
+        geom = self._pool_geom()
+        fetched = []
+        while k * bs < n and k <= self._mbs:
+            key = toks[:k * bs]
+            if key in self._pager._registry:
+                break          # a local copy exists: share_prefix's tier
+            self.pool_fetches += 1
+            if self._faults is not None:
+                try:
+                    self._faults.fire("fetch")
+                except InjectedFault:
+                    self.pool_fetch_misses += 1
+                    break
+            ent = self._kv_pool.get(prefix_digest(key))
+            if ent is None:
+                self.pool_fetch_misses += 1
+                break
+            payload, meta = ent
+            try:
+                if int(meta.get("gen", -1)) != self._pool_gen \
+                        or [int(g) for g in (meta.get("geom") or [])] != geom \
+                        or int(meta.get("tokens", -1)) != k * bs:
+                    raise ValueError("generation/geometry mismatch")
+                arr = _snapshot.decode_block(payload, meta)
+                arr = arr.reshape([geom[0], 2] + geom[1:])
+            except (ValueError, KeyError, TypeError, RuntimeError):
+                self.pool_fetch_misses += 1
+                break
+            self.pool_fetch_hits += 1
+            fetched.append((key, arr))
+            k += 1
+        if not fetched:
+            return None
+        # the table splice (fires the "adopt" fault site; a best-effort
+        # prefix of the fetched keys)
+        blocks = self._pager.adopt_blocks(slot, cov,
+                                          [key for key, _ in fetched])
+        if not blocks:
+            return None
+        nb = len(blocks)
+        # every layer's K and V rows of the adopted blocks: one copy to
+        # the card and one scatter into the KV tensor, in place on the
+        # current stream (after the programs before it; the captured
+        # graphs keep reading the same tensor)
+        rows = torch.stack([arr for _, arr in fetched[:nb]], dim=2)
+        self._kv.index_copy_(
+            2, torch.tensor(blocks, dtype=torch.int64, device=self.device),
+            rows.to(self.device, self._kv.dtype))
+        for key, _ in fetched[:nb]:
+            # the pool already holds these bytes: never re-export them
+            self._exported.add(prefix_digest(key))
+        dt = time.perf_counter() - t0
+        self.pool_adopted_blocks += nb
+        self.pool_adopted_tokens += nb * bs
+        self.pool_fetch_s += dt
+        return {"cov": cov + nb * bs, "blocks": nb, "tokens": nb * bs,
+                "fetch_s": dt}
+
+    def _drain_pool_exports(self, budget: int = 4):
+        """End-of-step export drain: up to ``budget`` freshly parked
+        registered blocks go to the pool (the block's rows of every layer,
+        ``[L, 2, bs, n_kv, hd]``, by one gather and one copy to the host ->
+        ``snapshot.encode_block`` -> put). A partial tail never exports (an
+        adopter copies it on write anyway) and an exported digest is not
+        sent again. An injected "export" fault or a pool error skips that
+        block, counted: losing an export costs a future prefill, nothing
+        else."""
+        pager = self._pager
+        pool = self._kv_pool
+        bs = self.block_size
+        while pager.pending_exports and budget > 0:
+            blk, key = pager.pending_exports.popitem(last=False)
+            if len(key) % bs != 0:
+                continue
+            dig = prefix_digest(key)
+            if dig in self._exported:
+                continue
+            budget -= 1
+            if self._faults is not None:
+                try:
+                    self._faults.fire("export")
+                except InjectedFault:
+                    self.pool_export_errors += 1
+                    continue
+            payload, meta = _snapshot.encode_block(self._kv[:, :, blk])
+            meta.update(gen=self._pool_gen, tokens=len(key),
+                        geom=self._pool_geom())
+            if pool.put(dig, payload, meta):
+                self._exported.add(dig)
+                self.pool_exports += 1
+            else:
+                self.pool_export_errors += 1
+
+    def drop_prefix_cache(self) -> int:
+        """Operator hook for a weight swap: flush the pager's parked prefix
+        blocks AND bump the pool generation, so neither the local cache
+        nor the cross-process tier can serve K/V computed under the old
+        weights. Returns the number of local blocks released."""
+        n = self._pager.drop_prefix_cache() if self.paged else 0
+        if self._kv_pool is not None:
+            self._pool_gen = int(self._kv_pool.bump_generation())
+            self._exported.clear()
+        return n
 
     def _advance_prefill(self, slot: int, finished: List[Request]):
         """Run ONE chunk of ``slot``'s pending prefill; on the final chunk,
@@ -1212,7 +1782,9 @@ class DecodeEngine:
 
     def _finish(self, req: Request, finished: List[Request]):
         self._release_slot_state(req.slot)
+        self._deadline_reqs.discard(req)
         req.status, req.t_done = "done", time.time()
+        self._retire_id(req)
         req.slot = None
         finished.append(req)
         mon = _monitor._active
@@ -1273,6 +1845,68 @@ class DecodeEngine:
             cap = self.max_slots * self.max_len
         return cached / cap if cap else 0.0
 
+    def door_state(self, top_prefixes: int = 8) -> dict:
+        """Cheap, JSON-safe snapshot of this engine's front door: the blob
+        an ``EngineEndpoint`` publishes so the router places and ejects
+        without reaching into the engine. ``state`` is accepting /
+        draining / drained; load is free slots, queue depth and active
+        count; ``prefix_keys`` are digests of the most recently registered
+        first-block prefixes (affinity placement matches against them)."""
+        state = "accepting"
+        if self._draining:
+            state = "drained" if self.drained else "draining"
+        out = {
+            "state": state,
+            "engine_id": int(self.engine_id),
+            "free_slots": int(self._slots.n_free),
+            "queue_depth": int(self.queue_depth),
+            "active": int(self.active_count),
+            "free_blocks": 0,
+            "block_size": int(self.block_size) if self.paged else 0,
+            "prefix_keys": [],
+            "prefix_hits": 0,
+        }
+        if self.paged:
+            out["free_blocks"] = int(self._pager.free_blocks
+                                     + self._pager.lru_blocks)
+            out["prefix_hits"] = int(self._pager.prefix_hits)
+            out["prefix_keys"] = self._pager.prefix_digests(top_prefixes)
+        # the pool's generation and hits travel in the door blob, so the
+        # router can prefer warm-pool hosts and spot a generation skew
+        out["pool_gen"] = int(self._pool_gen) \
+            if self._kv_pool is not None else None
+        out["pool_hits"] = int(self._pager.pool_hits) \
+            if self.paged and self._kv_pool is not None else 0
+        return out
+
+    def pool_stats(self) -> dict:
+        """Cumulative cross-process pool figures of this engine: transfer
+        counters plus the pager's splice counters (the ``pool/*`` gauges
+        read this)."""
+        return {
+            "gen": int(self._pool_gen),
+            "exports": self.pool_exports,
+            "export_errors": self.pool_export_errors,
+            "fetches": self.pool_fetches,
+            "fetch_hits": self.pool_fetch_hits,
+            "fetch_misses": self.pool_fetch_misses,
+            "fetch_s": round(self.pool_fetch_s, 6),
+            "adopted_blocks": self.pool_adopted_blocks,
+            "adopted_tokens": self.pool_adopted_tokens,
+            "pool_hits": int(self._pager.pool_hits) if self.paged else 0,
+            "pool_hit_tokens": int(self._pager.pool_hit_tokens)
+            if self.paged else 0,
+            "pending_exports": len(self._pager.pending_exports)
+            if self.paged else 0,
+        }
+
+    def close(self):
+        """Stop the watchdog thread (also stopped when the engine is
+        dropped)."""
+        if self._watchdog is not None:
+            self._watchdog.stop()
+            self._watchdog = None
+
     def stats(self) -> dict:
         out = {
             "engine_id": int(self.engine_id),
@@ -1284,9 +1918,18 @@ class DecodeEngine:
             "live_slots": self.live_count,
             "queue_depth": self.queue_depth,
             "kv_util": round(self.kv_util(), 4),
-            "nan_logits": self.nan_logits,
-            "cancelled": self.cancelled,
+            "guardrails": {
+                "expired": self.expired,
+                "cancelled": self.cancelled,
+                "drains": self.drains,
+                "nan_logits": self.nan_logits,
+                "draining": self._draining,
+                "hang_warns": self._watchdog.hangs
+                if self._watchdog is not None else 0,
+            },
         }
+        if self._kv_pool is not None:
+            out["pool"] = self.pool_stats()
         if self.paged:
             out["paged"] = dict(self._pager.stats().as_dict(),
                                 block_size=self.block_size,

@@ -2,9 +2,9 @@
 
 A copy of ``paddle_tpu/serving/pager.py`` (pure host bookkeeping over
 numpy; the port keeps its own copy because importing the JAX package pulls
-in jax). The one difference: the JAX package's fault-injection seam
-(``fault_schedule``, fired at the alloc / spec_reserve / adopt sites) is
-not ported, since the port has no guardrail plane yet.
+in jax), the ``fault_schedule`` seam (``guardrails.FaultSchedule``, fired
+at the alloc, spec_reserve and adopt sites) included. The port's engine
+holds every layer's K and V pool in one tensor; the table is the same.
 
 The device side (engine.py) holds per-layer ``[num_blocks, block_size,
 n_kv, hd]`` K/V pools and a fixed-shape ``[max_slots, max_blocks_per_slot]``
@@ -153,6 +153,11 @@ class BlockPager:
         # tenant-owned — only stably parked bytes are safe to serialize).
         self.export_enabled = False
         self.pending_exports: "OrderedDict[int, tuple]" = OrderedDict()
+        # PADDLE_SERVE_FAULT chaos seam (serving/guardrails.py): the engine
+        # installs its FaultSchedule here; an injected "raise" at the alloc
+        # site manifests as deterministic pool exhaustion (the failure the
+        # callers actually handle), never as a propagating exception
+        self.fault_schedule = None
         # cumulative telemetry (monitor gauges/counters read these)
         self.cow_copies = 0
         self.shared_hits = 0          # admissions that adopted >= 1 block
@@ -267,6 +272,12 @@ class BlockPager:
     # ------------------------------------------------------------ allocation
 
     def _alloc_block(self) -> Optional[int]:
+        if self.fault_schedule is not None:
+            from .guardrails import InjectedFault
+            try:
+                self.fault_schedule.fire("alloc")
+            except InjectedFault:
+                return None        # scripted exhaustion: callers evict/defer
         if self._free:
             blk = self._free.pop()
         elif self._lru:
@@ -384,7 +395,15 @@ class BlockPager:
         replaced, in take order — for ``rollback_speculative``. Resolve
         the reservation (rollback or commit) before the slot's next pager
         operation; the engine does so synchronously right after the verify
-        returns."""
+        returns. An injected "spec_reserve" fault (PADDLE_SERVE_FAULT)
+        reserves nothing: the engine degrades to a plain one-token verify,
+        never an error."""
+        if self.fault_schedule is not None:
+            from .guardrails import InjectedFault
+            try:
+                self.fault_schedule.fire("spec_reserve")
+            except InjectedFault:
+                return start_pos, [], []
         copies: List[Tuple[int, int]] = []
         reservation: List[Tuple[int, Optional[int]]] = []
         covered = start_pos
@@ -506,11 +525,17 @@ class BlockPager:
         physical block ids in key order — the caller MUST fill their
         device rows (data-not-shape ``device_put``) before any dispatch
         reads them. Best-effort prefix semantics: the walk stops at the
-        first key the pool cannot place (allocation failure or key
-        already registered locally) and whatever was spliced stands — the
-        caller prefills
+        first key the pool cannot place (allocation failure, key already
+        registered locally, or an injected ``adopt`` fault, which splices
+        nothing) and whatever was spliced stands — the caller prefills
         the remainder (the partial-fetch fallback). Refcounts, the LRU
         and ``check_invariants`` hold at every exit."""
+        if self.fault_schedule is not None:
+            from .guardrails import InjectedFault
+            try:
+                self.fault_schedule.fire("adopt")
+            except InjectedFault:
+                return []
         bs = self.block_size
         assert start_pos % bs == 0, "adopt must start on a block boundary"
         blocks: List[int] = []

@@ -222,12 +222,6 @@ def test_disabled_path_records_nothing(tmp_path):
         and tmon.dump() is None
 
 
-def test_fleet_collector_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        tmon.enable(None, fleet=True)
-    assert tmon.get() is None and tmon.fleet_state() is None
-
-
 # -------------------------------------------------------- TrainStep records
 
 

@@ -300,14 +300,6 @@ def test_engine_cancel_and_nonfinite_logits(models):
     eng.check_invariants()
 
 
-@pytest.mark.parametrize("knob", [dict(kv_pool=object()), dict(hang_s=1.0)])
-def test_engine_unported_knobs_raise(models, knob):
-    _, tm = models
-    kw = dict(GEOM, **knob)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(tm, **kw)
-
-
 def _row_schedule():
     """Staggered arrivals of varying prompt lengths (2 to 30 tokens, every
     bucket) and token budgets, more requests than slots."""
