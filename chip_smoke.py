@@ -160,10 +160,11 @@ the user entry points, random weights from a seed:
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel its path never launched fails the run. A
-drafter's program runs its kernels inside a CUDA graph, whose replays the
-wrappers do not count: a speculative path counts the launches the device
-ran, blocks x the program's calls (``_replayed``; [draft-kernel-*] checks
-that number a replay against the profiler's kernel names). TF32 is
+captured program (a drafter's, a captured training step's) counts the
+launches the device ran: its first call's, then one body's worth at each
+replay (``core/programs.py``); a speculative path's counts are blocks x
+the program's calls (``_replayed``; [draft-kernel-*] checks that number a
+replay against the profiler's kernel names). TF32 is
 off for matrix products and cuDNN (``allow_tf32 = False``), so fp32 on the
 card is fp32. Every phase raises on failure; the script exits non-zero and
 prints no result line unless all of them pass. Needs CUDA (exits non-zero
@@ -184,6 +185,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1407,7 +1409,7 @@ def _train_recipe(seed=0):
     ids = torch.randint(0, GPT_MEDIUM["vocab_size"],
                         (TRAIN["batch"], TRAIN["seq"]), device="cuda",
                         generator=gen)
-    return model, opt, TrainStep(model, opt), ids
+    return model, opt, TrainStep(model, opt, fast_path=False), ids
 
 
 TRAIN_WALLS = []          # [train]'s timed steps (s), set by phase_train
@@ -1591,7 +1593,7 @@ def phase_profile_train(model, opt, ids):
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.gpt import _lm_head_ce
-    step = TrainStep(model, opt)
+    step = TrainStep(model, opt, fast_path=False)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2713,7 +2715,7 @@ def phase_llama_train():
                              dtype=torch.bfloat16, seed=0)
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
                 parameters=model.parameters(), multi_precision=True)
-    step = TrainStep(model, opt)
+    step = TrainStep(model, opt, fast_path=False)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(14)
     b, L = LLAMA_TRAIN["batch"], LLAMA_TRAIN["seq"]
@@ -2784,7 +2786,7 @@ def phase_llama_train_plain(losses):
                              dtype=torch.bfloat16, seed=0)
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
                 parameters=model.parameters(), multi_precision=True)
-    step = TrainStep(model, opt)
+    step = TrainStep(model, opt, fast_path=False)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(14)
     ids = torch.randint(0, LLAMA_7B["vocab_size"],
@@ -2816,7 +2818,7 @@ def phase_profile_llama_train(model, opt, ids):
     and the six kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.jit import TrainStep
-    step = TrainStep(model, opt)
+    step = TrainStep(model, opt, fast_path=False)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3361,7 +3363,7 @@ def _bert_recipe(dtype=BF16, padded=False):
     make = _bert_pad_batch if padded else _bert_batch
     batch = make(BERT_TRAIN["batch"], BERT_TRAIN["seq"],
                  BERT_PAD_SEED if padded else 31)
-    return model, opt, TrainStep(model, opt), batch
+    return model, opt, TrainStep(model, opt, fast_path=False), batch
 
 
 def _is_bert_kernel(key):
@@ -3500,7 +3502,7 @@ def phase_profile_bert_train(model, opt, batch, tag):
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.jit import TrainStep
     model.train()
-    step = TrainStep(model, opt)
+    step = TrainStep(model, opt, fast_path=False)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3871,6 +3873,71 @@ def phase_fa_mask_probe():
                                  "are not the plain Philox mask and the "
                                  "structured masks")
         torch.cuda.empty_cache()
+
+
+def phase_seed_device():
+    """[seed-device]: each launcher with a dropout (rows 1, 2, 4, 5, 7, 8)
+    at rate 0.1, once with the seed passed by value (the eager path) and
+    once reading it from device memory (``philox.DeviceSeed``, as a
+    captured training step passes its staged seeds): every output bit for
+    bit the same, the flat kernels also past 256 (the wide bodies) and in
+    fp32, with lengths and segments."""
+    from paddle_tpu_torch.kernels import (dropout_fwd, flash_attention_bwd,
+                                          flash_attention_fwd,
+                                          flash_pair_bwd, flash_pair_fwd,
+                                          fused_add_dropout_ln_bwd,
+                                          fused_add_dropout_ln_fwd, philox)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(70)
+    seed, rate = 0x2468ACE13579, 0.1
+    dseed = philox.DeviceSeed(torch.tensor([7, seed], dtype=torch.int64,
+                                           device="cuda"), 1)
+    x = _nonzero_randn((8, 512, 768), BF16, gen)
+    n, h = 4096, 768
+    x2, s2, dy = (_nonzero_randn((n, h), BF16, gen) for _ in range(3))
+    w, b = (_nonzero_randn((h,), BF16, gen) for _ in range(2))
+    _, stats = fused_add_dropout_ln_fwd(x2, s2, w, b, seed, rate, 1e-12)
+    qkv = _nonzero_randn((2, 1024, 3 * 8 * 128), BF16, gen)
+    pout, plse = flash_pair_fwd(qkv, 8, True, rate, seed)
+    pdo = _nonzero_randn(tuple(pout.shape), BF16, gen)
+    seg = torch.zeros(2, 640, dtype=torch.int32, device="cuda")
+    seg[:, 300:] += 1
+    lens = torch.tensor([640, 500], dtype=torch.int32, device="cuda")
+    cases = {
+        "dropout_fwd": lambda s: dropout_fwd(x, s, rate),
+        "fused_add_dropout_ln_fwd": lambda s: fused_add_dropout_ln_fwd(
+            x2, s2, w, b, s, rate, 1e-12),
+        "fused_add_dropout_ln_bwd": lambda s: fused_add_dropout_ln_bwd(
+            x2, s2, w, stats, dy, s, rate, 1e-12),
+        "flash_pair_fwd": lambda s: flash_pair_fwd(qkv, 8, True, rate, s),
+        "flash_pair_bwd": lambda s: flash_pair_bwd(qkv, pout, plse, pdo, 8,
+                                                   True, rate, s)}
+    for d, dtype in ((128, BF16), (320, BF16), (128, FP32)):
+        q, k, v, g = _fa_inputs(2, 640, 640, 4, 2, d, dtype, gen)
+        kw = dict(kv_lens=lens, q_segments=seg, kv_segments=seg)
+        fo, fl = flash_attention_fwd(q, k, v, True, None, rate, seed=seed,
+                                     **kw)
+        tag = f"{str(dtype)[6:]} D {d}"
+        cases[f"flash_attention_fwd {tag}"] = \
+            lambda s, q=q, k=k, v=v, kw=kw: flash_attention_fwd(
+                q, k, v, True, None, rate, seed=s, **kw)
+        cases[f"flash_attention_bwd {tag}"] = \
+            lambda s, q=q, k=k, v=v, o=fo, lse=fl, g=g, kw=kw: \
+            flash_attention_bwd(q, k, v, o, lse, g, True, None, rate,
+                                seed=s, **kw)
+    same = []
+    for name, fn in cases.items():
+        a, b_ = fn(seed), fn(dseed)
+        a = a if isinstance(a, (tuple, list)) else (a,)
+        b_ = b_ if isinstance(b_, (tuple, list)) else (b_,)
+        if not all(torch.equal(u, t) for u, t in zip(a, b_)):
+            raise AssertionError(f"[seed-device] {name}: the seed read from "
+                                 f"device memory drops other elements than "
+                                 f"the seed by value")
+        same.append(name)
+    log(f"[seed-device] rate {rate}: seed by value and from device memory "
+        f"give every output bit for bit in {len(same)} launches: "
+        f"{', '.join(same)}")
 
 
 FA_PACKED_SHAPE = (2, 2048, 16, 128)      # row 6: [B, L, 3*H*D], D = 128
@@ -4286,11 +4353,11 @@ def _draft_blocks(drafter):
 
 
 def _replayed(tag, counts_now, drafter):
-    """A speculative phase's launch counts as the device ran them. The
-    wrappers count Python calls: the drafter program's first call (eager)
-    and its capture each call every kernel once a block, and a replay
-    calls none. So each count must be 2 x the blocks a call runs, and the
-    device launched blocks x calls."""
+    """A speculative phase's launch counts, checked against the drafter's
+    calls. A captured program counts the launches the device ran (its
+    first call's eager run, then one body's worth at each replay;
+    ``core/programs.py``), so each count must be the blocks a call runs
+    times the drafter program's calls."""
     out = dict(counts_now)
     ran = {k: n for k, n in counts_now.items() if n}
     if drafter is None or not hasattr(drafter, "calls"):
@@ -4300,11 +4367,10 @@ def _replayed(tag, counts_now, drafter):
         return out
     per_call = _draft_blocks(drafter)
     for key, n in ran.items():
-        if n != 2 * per_call:
-            raise AssertionError(f"{tag}: {key} counted {n} Python calls, "
-                                 f"expected 2 x {per_call} (the first call "
-                                 f"and its capture)")
-        out[key] = per_call * drafter.calls
+        if n != per_call * drafter.calls:
+            raise AssertionError(f"{tag}: {key} counted {n} launches, "
+                                 f"expected {per_call} a call x "
+                                 f"{drafter.calls} calls")
     return out
 
 
@@ -4856,7 +4922,7 @@ def phase_train_recompute():
         GPT_MEDIUM, recompute_granularity="selective")), dtype=BF16, seed=0)
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
                 parameters=model.parameters(), multi_precision=True)
-    step = TrainStep(model, opt)
+    step = TrainStep(model, opt, fast_path=False)
     ids = torch.randint(0, GPT_MEDIUM["vocab_size"], (b, L), device="cuda",
                         generator=gen)
     torch.cuda.synchronize()
@@ -4966,8 +5032,8 @@ def _gpt_step(k=None, rows=16, scaler=None, clip=None, seed=4):
                         device="cuda", generator=gen)
     if k:
         ids = ids.view(k, rows // k, TRAIN["seq"])
-    return model, opt, TrainStep(model, opt, accumulate_steps=k,
-                                 grad_scaler=scaler), ids
+    return model, opt, TrainStep(model, opt, fast_path=False,
+                                 accumulate_steps=k, grad_scaler=scaler), ids
 
 
 def _peak_step(step, ids):
@@ -5129,7 +5195,7 @@ def phase_train_amp_cast():
                                 multi_precision=True)
         if level == "O2":
             amp.decorate(model, opt, level="O2")
-        step = TrainStep(model, opt)
+        step = TrainStep(model, opt, fast_path=False)
         losses, walls = [], []
         for i in range(AMP_CAST["steps"]):
             before = (launch_counts(), f32_fwd_launch_counts(),
@@ -5371,6 +5437,13 @@ def phase_ckpt_preempt(smi, straight, want):
 MONITOR_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "smoke_checkout", "monitor")
 MONITOR_TRAIN_BLOCKS = ("on", "off", "on", "off")     # 3 steps a block
+# [monitor-train]'s budget for a health-sampled step: its extra wall over
+# an unsampled monitored step, as a share of an off-step. A sampled step
+# launches the health reductions and reads them back, launches the host
+# paces (4-28 ms more against a ~200 ms step on the H100), so it is held
+# apart from the monitor's own overhead, which the unsampled steps carry
+# alone
+MONITOR_SAMPLED_BUDGET = 0.25
 MONITOR_FAULT_LAYERS = 4
 MONITOR_FAULT_BATCH = 8
 
@@ -5433,9 +5506,12 @@ def phase_monitor_train(smi):
     the digest probes), then 6 steps with the monitor
     on and 6 with it off in blocks of 3 (off: the monitor's and the
     tracer's module globals set to None, the state the disabled path
-    reads; the same TrainStep throughout), each step synchronised. Prints
-    ms a step on and off and the overhead beside [train]'s spread, which
-    the overhead must stay within; the ledger's MFU and HFU against the
+    reads; the same eager TrainStep throughout), each step synchronised.
+    Of the 6 on-steps 3 are health-sampled and 3 are not. The gate holds
+    the monitor's own overhead, the unsampled on-steps' mean against the
+    off-steps' mean, within [train]'s spread, and a sampled step's extra
+    over an unsampled one within MONITOR_SAMPLED_BUDGET of an off-step;
+    the ledger's MFU and HFU against the
     H100 peak over the first on-block, and the steady figures of the
     on-steps; the measured and analytic FLOPs a token and the attention
     share of the measured count. The JSONL holds one ``recompile``, the
@@ -5512,6 +5588,11 @@ def phase_monitor_train(smi):
     steady_on = min(walls["on"])
     samp = [w * 1e3 for w, s in zip(walls["on"], sampled) if s]
     unsamp = [w * 1e3 for w, s in zip(walls["on"], sampled) if not s]
+    if min(len(samp), len(unsamp), len(walls["off"])) < 3:
+        raise AssertionError(f"[monitor-train] {len(samp)} sampled, "
+                             f"{len(unsamp)} unsampled and "
+                             f"{len(walls['off'])} off-steps: each mean "
+                             f"needs 3 readings")
     log(f"[monitor-train] {smi}: mint call {mint_s * 1e3:.1f} ms (FLOPs "
         f"counted, recorded as compile), first sampled call "
         f"{probe_s * 1e3:.1f} ms (probes built); on {on:.2f} ms a step "
@@ -5535,15 +5616,27 @@ def phase_monitor_train(smi):
         f"(no recompute: model FLOPs = measured): MFU = HFU "
         f"{measured / steady_on / peak:.4f}; from the analytic count "
         f"{analytic / steady_on / peak:.4f}")
-    if not abs(on - off) <= spread:
-        raise AssertionError(f"[monitor-train] overhead {on - off:.2f} ms "
-                             f"a step exceeds [train]'s spread "
+    unsamp_ms = sum(unsamp) / len(unsamp)
+    extra = sum(samp) / len(samp) - unsamp_ms
+    log(f"[monitor-train] gate ({smi}): unsampled on-steps "
+        f"{unsamp_ms:.2f} ms against off {off:.2f} ms: the monitor's "
+        f"overhead {unsamp_ms - off:+.2f} ms (limit [train]'s spread "
+        f"{spread:.2f} ms); a sampled step {extra:+.2f} ms over an "
+        f"unsampled one = {extra / off:.4f} of an off-step (budget "
+        f"{MONITOR_SAMPLED_BUDGET})")
+    if not abs(unsamp_ms - off) <= spread:
+        raise AssertionError(f"[monitor-train] overhead {unsamp_ms - off:.2f}"
+                             f" ms a step exceeds [train]'s spread "
                              f"{spread:.2f} ms")
+    if not extra <= MONITOR_SAMPLED_BUDGET * off:
+        raise AssertionError(f"[monitor-train] a sampled step costs "
+                             f"{extra:.2f} ms over an unsampled one, above "
+                             f"{MONITOR_SAMPLED_BUDGET} of an off-step")
     _tools_read("[monitor-train]",
                 (path, path.replace(".jsonl", ".trace.jsonl")))
     del model, opt, step
-    return dict(on=on, off=off, spread=spread,
-                mfu=measured / steady_on / peak)
+    return dict(on=on, off=off, spread=spread, unsampled=unsamp_ms,
+                sampled_extra=extra, mfu=measured / steady_on / peak)
 
 
 def phase_monitor_health_fault():
@@ -5565,7 +5658,7 @@ def phase_monitor_health_fault():
         seed=0)
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
                 parameters=model.parameters(), multi_precision=True)
-    step = TrainStep(model, opt)
+    step = TrainStep(model, opt, fast_path=False)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     ids = torch.randint(0, GPT_MEDIUM["vocab_size"],
@@ -6645,6 +6738,513 @@ def phase_fleet_http(smi):
     return summary["launches"]
 
 
+# ------------------------------------------------ the captured train step
+
+# [train-graph]: the captured step's steps a side, timed in turns with the
+# eager step's (after 3 held bit for bit); [train-graph-features] and
+# [train-graph-compiles] at GPT-medium width cut to these blocks and rows
+TRAIN_GRAPH_STEPS = 6
+GRAPH_FEATURE_BLOCKS = 4
+GRAPH_FEATURE_ROWS = 8
+GRAPH_COMPILE_BLOCKS = 2
+GRAPH_COMPILE_SHAPES = ((4, 256), (2, 256))
+GRAPH_CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "smoke_checkout", "ckpt_graph")
+
+
+def _bits(t):
+    """A tensor's bits (a NaN equals a NaN of the same bits)."""
+    if t.is_floating_point():
+        return t.contiguous().view({2: torch.int16, 4: torch.int32,
+                                    8: torch.int64}[t.element_size()])
+    return t
+
+
+def _bit_equal(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and torch.equal(_bits(a), _bits(b))
+
+
+def _hold_bits(tag, what, got, want):
+    """Raise unless two ``_train_state``s (and anything else in them) are
+    equal bit for bit."""
+    if set(got) != set(want):
+        raise AssertionError(f"{tag}: the states hold other entries")
+    moved = [k for k in want if not (
+        got[k] == want[k] if not torch.is_tensor(want[k])
+        else _bit_equal(got[k], want[k]))]
+    if moved:
+        raise AssertionError(f"{tag}: the captured step differs from the "
+                             f"eager step at {moved[:4]} of {len(want)}")
+    log(f"{tag} {what}: every parameter, moment and master "
+        f"({sum(torch.is_tensor(v) for v in want.values())} tensors) and "
+        f"the step count ({want['step_count']}) bit for bit")
+
+
+def _graph_of(step):
+    """The captured step's programs: each must be a CUDA graph."""
+    progs = list(step._programs._programs.values())
+    if not progs or not all(p.captured for p in progs):
+        raise AssertionError("the fast path ran a program that is not a "
+                             "CUDA graph")
+    return progs
+
+
+def _busy_share(step, args):
+    """One step under torch.profiler: its wall (ms) and the device's busy
+    share of it (None where the profile holds no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*args).item()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return wall * 1e3, (busy / 1e6 / wall if busy else None)
+
+
+def _pool_gb(step, args):
+    """The step's first call (the warm-up and the capture), and the
+    reserved memory it leaves held once the cache is given back."""
+    opt = step._opt
+    for p in opt._parameter_list:
+        opt._ensure_state(p)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    loss = step(*args)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return loss, (torch.cuda.memory_reserved() - before) / 1e9
+
+
+def phase_train_graph(smi):
+    """[train-graph]: [train]'s recipe (GPT-medium bf16, 16 x 1024, AdamW
+    with fp32 masters, 16 blocks) twice from seed 0: the eager step
+    (``fast_path=False``) and the captured one (the default). 3 steps each
+    from the same start: losses, every parameter, master and moment bit
+    for bit, each step launching both flash kernels once a block (the
+    replays counted as the device ran them), the programs CUDA graphs.
+    Then TRAIN_GRAPH_STEPS timed steps a side in turns (ms a step min-max,
+    tokens/s), one profiled step a side (the device's busy share), the
+    reserved memory the capture holds, and the monitor on against off on
+    the captured step (after its mint and a sampled call, which builds
+    the digest probes), [monitor-train]'s repaired gate: the unsampled
+    on-steps against the off-steps within [train]'s spread, a sampled
+    step within MONITOR_SAMPLED_BUDGET. Returns the timings."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.monitor import trace as mtrace
+    blocks = GPT_MEDIUM["num_layers"]
+    model_e, opt_e, step_e, ids = _train_recipe()
+    model_g, opt_g, _, _ = _train_recipe()
+    step_g = TrainStep(model_g, opt_g)
+    b, L = ids.shape
+    losses = {"eager": [], "graph": []}
+    pool_gb = None
+    for i in range(3):
+        for name, step in (("eager", step_e), ("graph", step_g)):
+            before = launch_counts()
+            if name == "graph" and i == 0:
+                loss, pool_gb = _pool_gb(step, (ids, ids))
+            else:
+                loss = step(ids, ids)
+            losses[name].append(loss)
+            torch.cuda.synchronize()
+            _expect_launches(f"[train-graph] {name} step {i}",
+                             _grew(before, launch_counts()),
+                             flash_pair_fwd=blocks, flash_pair_bwd=blocks)
+    _graph_of(step_g)
+    if not _bit_equal(torch.stack(losses["graph"]),
+                      torch.stack(losses["eager"])):
+        raise AssertionError(f"[train-graph] losses {losses}")
+    _hold_bits("[train-graph]", "captured against eager after 3 steps",
+               _train_state(model_g, opt_g), _train_state(model_e, opt_e))
+    walls = {"eager": [], "graph": []}
+    for i in range(TRAIN_GRAPH_STEPS):
+        order = (("eager", step_e), ("graph", step_g)) if i % 2 == 0 \
+            else (("graph", step_g), ("eager", step_e))
+        for name, step in order:
+            t0 = time.perf_counter()
+            step(ids, ids).item()                    # synchronises
+            walls[name].append(time.perf_counter() - t0)
+    ms = {k: sum(v) / len(v) * 1e3 for k, v in walls.items()}
+    busy = {k: _busy_share(s, (ids, ids))
+            for k, s in (("eager", step_e), ("graph", step_g))}
+    peak = torch.cuda.max_memory_reserved() / 1e9
+
+    def fmt(k):
+        w, share = busy[k]
+        return (f"{ms[k]:.2f} ms a step (min {min(walls[k]) * 1e3:.2f}, max "
+                f"{max(walls[k]) * 1e3:.2f}), {b * L / ms[k] * 1e3:.0f} "
+                f"tokens/s; profiled step {w:.1f} ms, device busy "
+                + ("not measured" if share is None else f"{share:.3f}"))
+    log(f"[train-graph] {smi}: {TRAIN_GRAPH_STEPS} steps a side in turns: "
+        f"eager {fmt('eager')}; captured {fmt('graph')}; captured / eager "
+        f"{ms['graph'] / ms['eager']:.4f}; the capture holds "
+        f"{pool_gb:.2f} GB reserved; process peak reserved {peak:.2f} GB")
+    del model_e, opt_e, step_e
+    torch.cuda.empty_cache()
+    # the monitor on the captured step: the program with the health
+    # plane's reductions is a second program (built here, its first call
+    # the mint), the monitor off runs the first one
+    os.makedirs(MONITOR_DIR, exist_ok=True)
+    path = os.path.join(MONITOR_DIR, "train_graph.jsonl")
+    with _env(PADDLE_HEALTH_SAMPLE="2"):
+        mon = monitor.enable(path, trace=True)
+        tracer = mtrace.get()
+        step_g(ids, ids).item()              # the health program's mint
+        step_g(ids, ids).item()              # sampled: the probes built
+        mon_walls = {"on": [], "off": []}
+        sampled = []
+        for block in MONITOR_TRAIN_BLOCKS:
+            if block == "off":
+                monitor._active = mtrace._active = None
+            for _ in range(3):
+                n = step_g._health_n
+                t0 = time.perf_counter()
+                step_g(ids, ids).item()
+                mon_walls[block].append(time.perf_counter() - t0)
+                if block == "on":
+                    sampled.append(step_g._health_n != n
+                                   and step_g._health_n % 2 == 0)
+            monitor._active, mtrace._active = mon, tracer
+        monitor.disable()
+    kinds = [r["kind"] for r in _records(path)]
+    if kinds.count("recompile") != 1 or step_g.num_compiles != 2:
+        raise AssertionError(f"[train-graph] {kinds.count('recompile')} "
+                             f"recompile records, {step_g.num_compiles} "
+                             f"programs; expected 1 and 2")
+    _graph_of(step_g)
+    samp = [w * 1e3 for w, s in zip(mon_walls["on"], sampled) if s]
+    unsamp = [w * 1e3 for w, s in zip(mon_walls["on"], sampled) if not s]
+    off = sum(mon_walls["off"]) / len(mon_walls["off"]) * 1e3
+    if min(len(samp), len(unsamp)) < 1:
+        raise AssertionError(f"[train-graph] sampled {sampled}")
+    unsamp_ms = sum(unsamp) / len(unsamp)
+    extra = sum(samp) / len(samp) - unsamp_ms
+    spread = (max(TRAIN_WALLS) - min(TRAIN_WALLS)) * 1e3 if TRAIN_WALLS \
+        else (max(mon_walls["off"]) - min(mon_walls["off"])) * 1e3
+    log(f"[train-graph] the monitor on the captured step ({smi}): "
+        f"unsampled on-steps {unsamp_ms:.2f} ms ({len(unsamp)}), sampled "
+        f"{sum(samp) / len(samp):.2f} ({len(samp)}), off {off:.2f} "
+        f"({len(mon_walls['off'])}): overhead {unsamp_ms - off:+.2f} ms "
+        f"(limit [train]'s spread {spread:.2f}), a sampled step "
+        f"{extra:+.2f} ms = {extra / off:.4f} of an off-step (budget "
+        f"{MONITOR_SAMPLED_BUDGET}); {step_g.num_compiles} programs")
+    if not abs(unsamp_ms - off) <= spread \
+            or not extra <= MONITOR_SAMPLED_BUDGET * off:
+        raise AssertionError("[train-graph] the monitor's cost on the "
+                             "captured step is over its gate")
+    del model_g, opt_g, step_g
+    return dict(ms=ms, walls=walls, busy=busy, pool_gb=pool_gb,
+                monitor=dict(unsampled=unsamp_ms, off=off, extra=extra))
+
+
+def _feature_pair(tag, cfg, rows, k=None, scaler=None, recompute=None,
+                  poison=None, steps=3):
+    """One training feature twice from seed 0 at GPT-medium width (``cfg``
+    overrides): eager and captured, ``steps`` steps each on one batch of
+    ``rows`` x 1024 (stacked ``[k, rows / k, 1024]`` under accumulation),
+    the same launches a step each way, then losses, every parameter,
+    master and moment, the step count, the scaler's and the model
+    generator's state held bit for bit. ``poison(model, i)`` runs before
+    step i on both. Returns the captured run's losses and step."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    ids = torch.randint(0, GPT_MEDIUM["vocab_size"], (rows, TRAIN["seq"]),
+                        device="cuda", generator=gen)
+    if k:
+        ids = ids.view(k, rows // k, TRAIN["seq"])
+    runs = {}
+    for fast in (False, True):
+        model = GPTForCausalLM(GPTConfig(**dict(GPT_MEDIUM, **cfg)),
+                               dtype=BF16, seed=0)
+        if recompute:
+            model.enable_recompute(recompute)
+        opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                    parameters=model.parameters(), multi_precision=True)
+        sc = None if scaler is None else scaler()
+        step = TrainStep(model, opt, accumulate_steps=k, grad_scaler=sc,
+                         fast_path=fast)
+        losses, grew = [], []
+        for i in range(steps):
+            if poison is not None:
+                poison(model, i)
+            before = launch_counts()
+            losses.append(step(ids, ids))
+            torch.cuda.synchronize()
+            grew.append(_grew(before, launch_counts()))
+        state = _train_state(model, opt)
+        state["generator"] = model.generator.get_state()
+        if sc is not None:
+            state["scaler"] = sc.state_dict()
+        runs[fast] = (torch.stack(losses), state, grew, step)
+        if fast:
+            _graph_of(step)
+        del model, opt
+    (le, se, ge, _), (lg, sg, gg, step) = runs[False], runs[True]
+    if gg != ge or not any(ge[0].values()):
+        raise AssertionError(f"{tag}: launches a step {gg}, eager {ge}")
+    if not _bit_equal(lg, le):
+        raise AssertionError(f"{tag}: losses {lg.tolist()} against "
+                             f"{le.tolist()}")
+    _hold_bits(tag, f"{steps} captured steps against eager (losses "
+               f"{[round(x, 4) for x in lg.tolist()]})", sg, se)
+    torch.cuda.empty_cache()
+    return lg, step
+
+
+def phase_train_graph_features():
+    """[train-graph-features]: GPT-medium width at GRAPH_FEATURE_BLOCKS
+    blocks, bf16 with masters, GRAPH_FEATURE_ROWS x 1024, each captured
+    against its eager step bit for bit over 3 steps: accumulation K = 4;
+    a GradScaler (2^15) with one forced overflow (an inf planted in the
+    position embedding before step 2 and taken back before step 3): the
+    update skipped bit for bit, the step count not advanced, the scale
+    halved; "selective" recompute at dropout 0.1 (the seeds staged as the
+    eager step draws them, the recompute reading its forward's)."""
+    from paddle_tpu_torch import amp
+    cfg = dict(num_layers=GRAPH_FEATURE_BLOCKS)
+    rows = GRAPH_FEATURE_ROWS
+    _feature_pair("[train-graph-features] K = 4", cfg, rows, k=4)
+
+    def poison(model, i):
+        w = model.gpt.wpe.weight
+        with torch.no_grad():
+            if i == 1:
+                poison.kept = w[5, 0].clone()
+                w[5, 0] = float("inf")
+            elif i == 2:
+                w[5, 0] = poison.kept
+    losses, step = _feature_pair(
+        "[train-graph-features] GradScaler overflow", cfg, rows,
+        scaler=lambda: amp.GradScaler(init_loss_scaling=AMP_SCALE),
+        poison=poison)
+    fin = [math.isfinite(x) for x in losses.tolist()]
+    if fin != [True, False, True] or step._opt._step_count != 2 \
+            or step._scaler._scale != AMP_SCALE / 2:
+        raise AssertionError(f"[train-graph-features] overflow: finite "
+                             f"{fin}, step count {step._opt._step_count}, "
+                             f"scale {step._scaler._scale}")
+    log(f"[train-graph-features] the overflow skipped its update on the "
+        f"device: step count 2 after 3 calls, scale {AMP_SCALE:.0f} -> "
+        f"{step._scaler._scale:.0f}")
+    del step
+    _feature_pair("[train-graph-features] selective recompute, dropout 0.1",
+                  dict(cfg, hidden_dropout_prob=0.1,
+                       attention_dropout_prob=0.1), rows,
+                  recompute="selective")
+
+
+def phase_train_graph_compiles(smi):
+    """[train-graph-compiles]: the JAX package's call sequences on the
+    captured step (GPT-medium width at GRAPH_COMPILE_BLOCKS blocks, bf16
+    with masters): one signature builds 1 program; a new shape 2, the old
+    shape again none; parameters replaced by ones of their shape and type
+    (``p.data = ...``) are copied into the captured storage, building
+    nothing; a checkpoint saved after 2 steps and loaded into another
+    captured step (one already built, its storage written in place)
+    continues bit for bit to the uninterrupted run's 4th step; the model
+    moved to fp32 cannot be re-adopted: the programs are dropped and built
+    again, and the step runs on."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = GPTConfig(**dict(GPT_MEDIUM, num_layers=GRAPH_COMPILE_BLOCKS))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    (r1, s1), (r2, s2) = GRAPH_COMPILE_SHAPES
+    big = [torch.randint(0, cfg.vocab_size, (r1, s1), device="cuda",
+                         generator=gen) for _ in range(4)]
+    small = torch.randint(0, cfg.vocab_size, (r2, s2), device="cuda",
+                          generator=gen)
+
+    def recipe(seed=0):
+        model = GPTForCausalLM(cfg, dtype=BF16, seed=seed)
+        opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                    parameters=model.parameters(), multi_precision=True)
+        return model, opt, TrainStep(model, opt)
+
+    model, opt, step = recipe()
+    seen = []
+    for ids in (big[0], big[0], small, big[0]):
+        step(ids, ids)
+        seen.append(step.num_compiles)
+    old = [p.data_ptr() for p in model.parameters()]
+    for p in model.parameters():
+        p.data = p.data.clone()
+    step(big[0], big[0])
+    seen.append(step.num_compiles)
+    handed = [p.data_ptr() for p in model.parameters()] == old
+    if seen != [1, 1, 2, 2, 2] or not handed:
+        raise AssertionError(f"[train-graph-compiles] num_compiles {seen}, "
+                             f"leaves handed back {handed}")
+    model.float()                       # no program can hold fp32 leaves
+    loss = step(big[0], big[0]).item()
+    seen.append(step.num_compiles)
+    _graph_of(step)
+    if seen[-1] != 1 or not math.isfinite(loss):
+        raise AssertionError(f"[train-graph-compiles] after the fp32 move "
+                             f"num_compiles {seen[-1]}, loss {loss}")
+    del model, opt, step
+    # checkpoint: 4 straight steps against 2 + save, load into a built step
+    shutil.rmtree(GRAPH_CKPT_DIR, ignore_errors=True)
+    model, opt, step = recipe()
+    for ids in big:
+        step(ids, ids)
+    want = _train_state(model, opt)
+    del model, opt, step
+    model, opt, step = recipe()
+    for ids in big[:2]:
+        step(ids, ids)
+    step.save_checkpoint(GRAPH_CKPT_DIR, 2, block=True)
+    del model, opt, step
+    model, opt, step = recipe(seed=3)
+    step(big[0], big[0])                  # built before the load
+    info = step.load_checkpoint(GRAPH_CKPT_DIR)
+    for ids in big[2:]:
+        step(ids, ids)
+    _hold_bits("[train-graph-compiles]", f"saved at step {info['step']}, "
+               f"loaded into a captured step, 2 more steps against 4 "
+               f"straight ones", _train_state(model, opt), want)
+    _graph_of(step)
+    shutil.rmtree(GRAPH_CKPT_DIR, ignore_errors=True)
+    log(f"[train-graph-compiles] ({smi}) num_compiles along the calls "
+        f"(one shape, again, a new shape, the first again, leaves "
+        f"replaced, the model moved to fp32): {seen}; the replaced leaves "
+        f"handed back to their captured storage; {step.num_compiles} "
+        f"program after the load")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+
+def phase_bert_train_graph(smi):
+    """[bert-train-graph]: [bert-train]'s recipe (BERT-base bf16, 64 x 512
+    packed, dropout 0.1, AdamW with masters) eager and captured from seed
+    0: 3 steps each, losses, every parameter, master and moment and the
+    model generator bit for bit, both launching the same kernels a step.
+    The embedding output after its dropout is copied out at every step (a
+    forward hook, recorded into the graph): each replay drops the eager
+    step's elements, and two consecutive replays drop different ones."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import launch_counts
+    runs = {}
+    for fast in (False, True):
+        model, opt, _, batch = _bert_recipe()
+        step = TrainStep(model, opt, fast_path=fast)
+        out = torch.empty(BERT_TRAIN["batch"], BERT_TRAIN["seq"],
+                          BERT_BASE["hidden_size"], dtype=BF16,
+                          device="cuda")
+        def keep(mod, inp, o, out=out):
+            # returns None: a hook's return value would replace o
+            out.copy_(o.detach())
+        hook = model.bert.embeddings.register_forward_hook(keep)
+        losses, masks, grew = [], [], []
+        for _ in range(3):
+            before = launch_counts()
+            losses.append(step(*batch))
+            masks.append(out == 0)
+            torch.cuda.synchronize()
+            grew.append(_grew(before, launch_counts()))
+        hook.remove()
+        state = _train_state(model, opt)
+        state["generator"] = model.generator.get_state()
+        runs[fast] = (torch.stack(losses), masks, state, grew)
+        if fast:
+            _graph_of(step)
+        del model, opt, step, out
+        torch.cuda.empty_cache()
+    (le, me, se, ge), (lg, mg, sg, gg) = runs[False], runs[True]
+    if gg != ge or ge[0] != dict(ge[0], **BERT_STEP_LAUNCHES):
+        raise AssertionError(f"[bert-train-graph] launches {gg}, eager {ge}")
+    if not _bit_equal(lg, le):
+        raise AssertionError(f"[bert-train-graph] losses {lg} vs {le}")
+    same = [torch.equal(a, b) for a, b in zip(mg, me)]
+    moved = [int((mg[i] != mg[i + 1]).sum()) for i in range(2)]
+    dropped = [float(m.float().mean()) for m in mg]
+    if not all(same) or not all(moved):
+        raise AssertionError(f"[bert-train-graph] masks equal to eager's "
+                             f"{same}, differing between replays {moved}")
+    _hold_bits("[bert-train-graph]", f"BERT-base 64 x 512 packed, dropout "
+               f"0.1, 3 steps (losses {[round(x, 4) for x in lg.tolist()]})",
+               sg, se)
+    log(f"[bert-train-graph] ({smi}) the embedding dropout's zeros: each "
+        f"step's equal to the eager step's; {moved} elements differ "
+        f"between consecutive replays; dropped shares "
+        f"{[round(x, 4) for x in dropped]}")
+
+
+def phase_llama_train_graph(smi):
+    """[llama-train-graph]: [llama-train]'s recipe (LLaMA-7B width at
+    LLAMA_TRAIN["layers"] blocks, 4 x 2048, bf16, AdamW with masters):
+    the eager step, 3 steps (its state kept on the host) then 4 timed; the
+    captured step from the same seed, 3 steps held bit for bit to the
+    eager ones (losses, every parameter, master and moment), then 4 timed;
+    the reserved memory the capture holds."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b
+    from paddle_tpu_torch.optimizer import AdamW
+    blocks = LLAMA_TRAIN["layers"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    b, L = LLAMA_TRAIN["batch"], LLAMA_TRAIN["seq"]
+    ids = torch.randint(0, LLAMA_7B["vocab_size"], (b, L), device="cuda",
+                        generator=gen)
+    res = {}
+    for fast in (False, True):
+        model = LlamaForCausalLM(llama_7b(num_layers=blocks),
+                                 dtype=torch.bfloat16, seed=0)
+        opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                    parameters=model.parameters(), multi_precision=True)
+        step = TrainStep(model, opt, fast_path=fast)
+        losses, pool = [], None
+        for i in range(3):
+            before = launch_counts()
+            if fast and i == 0:
+                loss, pool = _pool_gb(step, (ids, ids))
+            else:
+                loss = step(ids, ids)
+            losses.append(loss)
+            torch.cuda.synchronize()
+            _expect_launches(f"[llama-train-graph] step {i}",
+                             _grew(before, launch_counts()),
+                             flash_attention_fwd=blocks,
+                             flash_attention_bwd=blocks)
+        state = {k: v.cpu() if torch.is_tensor(v) else v
+                 for k, v in _train_state(model, opt).items()}
+        walls = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            step(ids, ids).item()
+            walls.append(time.perf_counter() - t0)
+        if fast:
+            _graph_of(step)
+        res[fast] = (torch.stack(losses).cpu(), state, walls, pool)
+        del model, opt, step
+        torch.cuda.empty_cache()
+    (le, se, we, _), (lg, sg, wg, pool) = res[False], res[True]
+    if not _bit_equal(lg, le):
+        raise AssertionError(f"[llama-train-graph] losses {lg} vs {le}")
+    _hold_bits("[llama-train-graph]", "3 captured steps against eager",
+               sg, se)
+    me, mg = (sum(w) / len(w) * 1e3 for w in (we, wg))
+    log(f"[llama-train-graph] {smi}: eager {me:.2f} ms a step (min "
+        f"{min(we) * 1e3:.2f}, max {max(we) * 1e3:.2f}), captured "
+        f"{mg:.2f} (min {min(wg) * 1e3:.2f}, max {max(wg) * 1e3:.2f}): "
+        f"{b * L / me * 1e3:.0f} and {b * L / mg * 1e3:.0f} tokens/s, "
+        f"captured / eager {mg / me:.4f}; the capture holds {pool:.2f} GB "
+        f"reserved")
+    return dict(eager_ms=me, graph_ms=mg, pool_gb=pool)
+
+
 def _release(tag):
     """Collect what earlier phases left (reference cycles included), give
     the cache back, and print what the process still holds."""
@@ -6725,6 +7325,7 @@ def main() -> int:
     (records["flash_attention_fwd"],
      records["flash_attention_bwd"]) = phase_compare_fa_masks()
     phase_fa_mask_probe()
+    phase_seed_device()
     row6, row6_records = phase_compare_fa_packed()   # row 6's own call
     wide_records = phase_compare_wide()
     phase_wide_route()
@@ -6830,6 +7431,19 @@ def main() -> int:
     paths["gpt-training-ckpt"] = counts()
     del straight, want
     torch.cuda.empty_cache()
+    # the captured train step: [train]'s recipe captured against eager,
+    # timed in turns, with the monitor; the features; the compile counts
+    reset_launch_counts()
+    phase_train_graph(smi)
+    paths["gpt-training-graph"] = counts()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    phase_train_graph_features()
+    paths["gpt-training-graph-features"] = counts()
+    reset_launch_counts()
+    phase_train_graph_compiles(smi)
+    paths["gpt-training-graph-compiles"] = counts()
+    torch.cuda.empty_cache()
 
     reset_launch_counts()                  # BERT training starts here
     bert, opt, batch, losses = phase_bert_train(smi)
@@ -6862,6 +7476,10 @@ def main() -> int:
     counted("bert-pad-train-check", phase_bert_pad_train_check)
     torch.cuda.empty_cache()
     phase_bert_pad_full()
+    torch.cuda.empty_cache()
+    reset_launch_counts()                  # BERT captured training
+    phase_bert_train_graph(smi)
+    paths["bert-training-graph"] = counts()
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -6912,6 +7530,10 @@ def main() -> int:
     reset_launch_counts()                  # LLaMA recompute starts here
     phase_llama_train_recompute()
     paths["llama-training-recompute"] = counts()   # ... and ends here
+    _release("before [llama-train-graph]")
+    reset_launch_counts()                  # LLaMA captured training
+    phase_llama_train_graph(smi)
+    paths["llama-training-graph"] = counts()
 
     # the serving guardrails and the fleet run last, on GPT-medium built
     # again from seed 0 (the same weights): every phase above runs in the
@@ -6965,6 +7587,18 @@ def main() -> int:
              "gpt-training-ckpt": ["flash_pair_fwd", "flash_pair_bwd"],
              "llama-training-recompute": ["flash_attention_fwd",
                                           "flash_attention_bwd"],
+             "gpt-training-graph": ["flash_pair_fwd", "flash_pair_bwd"],
+             "gpt-training-graph-features": ["flash_pair_fwd",
+                                             "flash_pair_bwd",
+                                             "dropout_fwd"],
+             "gpt-training-graph-compiles": ["flash_pair_fwd",
+                                             "flash_pair_bwd"],
+             "bert-training-graph": ["flash_pair_fwd", "flash_pair_bwd",
+                                     "dropout_fwd",
+                                     "fused_add_dropout_ln_fwd",
+                                     "fused_add_dropout_ln_bwd"],
+             "llama-training-graph": ["flash_attention_fwd",
+                                      "flash_attention_bwd"],
              "gpt-serving-spec-draft": ["flash_pair_fwd"],
              "gpt-serving-spec-early": ["flash_pair_fwd"],
              "llama-serving-spec": ["flash_attention_fwd"]}

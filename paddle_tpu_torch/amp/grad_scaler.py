@@ -7,20 +7,28 @@ and ``scaler.update()`` (the dynamic-scale state machine), or
 ``scaler.minimize(opt, scaled_loss)`` for both. ``jit.TrainStep(...,
 grad_scaler=scaler)`` scales and unscales inside the step and replays the
 state machine on its found-inf flag (``_compiled_outcome``). The flag
-costs one host sync a step, as in the JAX package.
+costs one host sync a step, as in the JAX package. A captured step
+(``TrainStep``'s fast path) keeps the flag on the device
+(``found_inf_flag``), masks the update with it and reads it once after
+the replay.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["GradScaler", "AmpScaler", "found_inf"]
+__all__ = ["GradScaler", "AmpScaler", "found_inf", "found_inf_flag"]
+
+
+def found_inf_flag(grads) -> torch.Tensor:
+    """A 0-d bool tensor on the gradients' device: whether any of ``grads``
+    (a non-empty list) holds a value that is not finite. No host read."""
+    return ~torch.stack([torch.isfinite(g).all() for g in grads]).all()
 
 
 def found_inf(grads) -> bool:
     """Whether any of ``grads`` holds a value that is not finite: one
     device flag over all of them, read once."""
-    flags = [torch.isfinite(g).all() for g in grads]
-    return bool(flags) and not bool(torch.stack(flags).all())
+    return bool(grads) and bool(found_inf_flag(grads))
 
 
 class GradScaler:

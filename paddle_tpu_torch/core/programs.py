@@ -20,6 +20,17 @@ every program is dropped and rebuilt at its next call, and counted. An
 in-place update (``load_state_dict``, an optimizer step) keeps the
 addresses and needs no rebuild.
 
+The kernel wrappers count their launches when Python calls them
+(``kernels.launch_counts``), which a replay does not. A captured program
+therefore takes back out what its capture counted, keeps it, and adds it
+at each replay: the counts are the launches the device ran (the first
+call's eager run, then one body's worth a replay).
+
+A body may carry ``after_first()``: it runs once, after the first eager
+run of the body (on the card, between the warm-up and the capture), for a
+body that lays out what its first run measured (a training program's seed
+slots).
+
 There is no fallback: on a CUDA device a capture or replay that fails
 raises. ``capture = False`` on a registry (a private switch, set before
 its first program runs) runs the programs eagerly on the card too, as the
@@ -36,6 +47,7 @@ nothing inside a body may report.
 from __future__ import annotations
 
 import time
+import weakref
 from contextlib import contextmanager, nullcontext
 from typing import Callable, Dict, Hashable, Optional, Tuple
 
@@ -46,8 +58,8 @@ from .. import monitor as _monitor
 from ..monitor import goodput as _goodput
 from ..monitor.memory import capture_reading
 
-__all__ = ["ProgramRegistry", "Program", "StagedInputs", "serving_mode",
-           "leaf_addresses"]
+__all__ = ["ProgramRegistry", "Program", "StagedInputs", "StagedBuffer",
+           "serving_mode", "leaf_addresses"]
 
 
 @contextmanager
@@ -74,35 +86,62 @@ def leaf_addresses(model: torch.nn.Module) -> Tuple[int, ...]:
         + tuple(t.data_ptr() for t in model.buffers())
 
 
-class StagedInputs:
-    """Named int64 inputs of one program: views of ONE flat device buffer,
-    filled from one host buffer (pinned on the card) by a single
-    non-blocking copy. ``host[name]`` are numpy views to fill, ``dev[name]``
-    the device tensors the program reads. Nothing is allocated per call.
+class StagedBuffer:
+    """Named host values of any type for one program: views of ONE flat
+    device buffer, filled from one host buffer (pinned on the card) by a
+    single non-blocking copy; on the CPU the two are one buffer.
+    ``specs`` maps a name to ``(shape, dtype)``; ``host[name]`` are the
+    host views to fill, ``dev[name]`` the device views the program reads.
+
+    ``writable()`` waits until the previous upload has left the host
+    buffer (an event recorded behind the copy), so a caller that runs
+    ahead of the card never rewrites values a queued copy has not read."""
+
+    _ALIGN = 16
+
+    def __init__(self, device: torch.device, specs: dict):
+        offs, off = {}, 0
+        for name, (shape, dtype) in specs.items():
+            n = int(np.prod(shape, dtype=np.int64)) \
+                * torch.empty((), dtype=dtype).element_size()
+            offs[name] = (off, n)
+            off += -(-n // self._ALIGN) * self._ALIGN
+        self._dev = torch.zeros(off, dtype=torch.uint8, device=device)
+        self._host = self._dev if self._dev.device.type == "cpu" else \
+            torch.zeros(off, dtype=torch.uint8, pin_memory=True)
+        self.host: Dict[str, torch.Tensor] = {}
+        self.dev: Dict[str, torch.Tensor] = {}
+        for name, (shape, dtype) in specs.items():
+            o, n = offs[name]
+            self.host[name] = self._host[o:o + n].view(dtype).view(shape)
+            self.dev[name] = self._dev[o:o + n].view(dtype).view(shape)
+        self._done = None
+
+    def writable(self):
+        if self._done is not None:
+            self._done.synchronize()
+
+    def upload(self):
+        if self._host is self._dev:
+            return
+        self._dev.copy_(self._host, non_blocking=True)
+        self._done = torch.cuda.Event()
+        self._done.record()
+
+
+class StagedInputs(StagedBuffer):
+    """Named int64 inputs of one program (a ``StagedBuffer`` of int64
+    entries): ``host[name]`` are numpy views to fill, ``dev[name]`` the
+    device tensors the program reads. Nothing is allocated per call.
 
     The host buffer is rewritten only after the caller has read the
     previous call's outputs (which waits for the stream), so an upload
     never races the copy before it."""
 
     def __init__(self, device: torch.device, **shapes):
-        sizes = {k: int(np.prod(s, dtype=np.int64)) for k, s in shapes.items()}
-        n = sum(sizes.values())
-        self._dev = torch.zeros(n, dtype=torch.int64, device=device)
-        self._host = self._dev if self._dev.device.type == "cpu" else \
-            torch.zeros(n, dtype=torch.int64, pin_memory=True)
-        flat = self._host.numpy()
-        self.host: Dict[str, np.ndarray] = {}
-        self.dev: Dict[str, torch.Tensor] = {}
-        off = 0
-        for name, shape in shapes.items():
-            k = sizes[name]
-            self.host[name] = flat[off:off + k].reshape(shape)
-            self.dev[name] = self._dev[off:off + k].view(shape)
-            off += k
-
-    def upload(self):
-        if self._host is not self._dev:
-            self._dev.copy_(self._host, non_blocking=True)
+        super().__init__(device, {k: (s, torch.int64)
+                                  for k, s in shapes.items()})
+        self.host = {k: v.numpy() for k, v in self.host.items()}
 
 
 # one warm-up stream a device for every program: cuBLAS keeps a workspace
@@ -129,9 +168,14 @@ class Program:
         self.state = state
         self.key = key
         self.memory = None
-        self._reg = registry
+        # weakly: the registry holds its programs, and a program holding
+        # its registry would keep both (and the graph's memory) alive past
+        # their owner until the cycle collector ran
+        self._reg = weakref.proxy(registry)
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._fresh = True
+        self._launches = None    # the kernel launches of one replay
+        self._ran = False
 
     @property
     def captured(self) -> bool:
@@ -148,6 +192,9 @@ class Program:
     def __call__(self):
         if self._graph is not None:
             self._graph.replay()
+            if self._launches is not None:
+                from .. import kernels
+                kernels.add_counts(self._launches)
             return
         if _monitor._active is not None and self._fresh \
                 and self._reg.on_built is not None:
@@ -178,9 +225,13 @@ class Program:
         eager run only."""
         reg = self._reg
         count = nullcontext() if count is None else count
+        after = None if self._ran else getattr(self._fn, "after_first", None)
+        self._ran = True
         if not reg.capture:
             with count, reg.mode():
                 self._fn()
+            if after is not None:
+                after()
             return
         # the first call on the card: run it on a side stream (the warm-up
         # that lets cuBLAS and the allocator settle outside the capture;
@@ -193,11 +244,20 @@ class Program:
         with count, torch.cuda.stream(side), reg.mode():
             self._fn()
         cur.wait_stream(side)
+        if after is not None:
+            after()
         if reg.pool is None:
             reg.pool = torch.cuda.graph_pool_handle()
+        from .. import kernels
+        before = kernels.count_snapshot()
         graph = torch.cuda.CUDAGraph()
         with reg.mode(), torch.cuda.graph(graph, pool=reg.pool):
             self._fn()
+        # the capture launched nothing: its counts are one replay's
+        delta = tuple(b - a for a, b in zip(before,
+                                             kernels.count_snapshot()))
+        kernels.add_counts(delta, -1)
+        self._launches = delta if any(delta) else None
         self._graph = graph
 
 

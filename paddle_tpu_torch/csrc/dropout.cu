@@ -32,6 +32,7 @@ template <typename T, bool kVec>
 __global__ void __launch_bounds__(256)
     dropout_kernel(const T* __restrict__ x, T* __restrict__ out, long rows,
                    int cols, DropParams d) {
+  d = resolved(d);  // the seed's words, read once (philox.cuh)
   const long groups = (cols + 3) / 4;
   const long total = rows * groups;
   const long stride = (long)gridDim.x * blockDim.x;

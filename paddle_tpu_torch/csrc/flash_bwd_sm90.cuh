@@ -308,20 +308,21 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
   // states meet dK and dV in registers and spill.)
   auto keep_bits = [&](int m0, uint32_t bh) {
     uint32_t keep = 0u;
+    const DropParams drop = resolved(a.drop);
 #pragma unroll(kSlotUnroll)
     for (int sl = 0; sl < 8; ++sl) {
       const int j = sl / 4;
       const int i = 4 * (sl % 4) + kr;
       const uint32_t qr = (uint32_t)(m0 + 8 * (i / 2) + 2 * c4 + (i & 1));
       const uint4 w =
-          keep_words(a.drop, grp0 + 2 * j, qr, bh, kSaltAttention);
+          keep_words(drop, grp0 + 2 * j, qr, bh, kSaltAttention);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int p = kr ^ k;  // the lane whose key this word serves
         uint32_t word = word_of(w, p);
         if (k) word = __shfl_xor_sync(0xffffffffu, word, 4 * k);
         const int ip = 4 * (sl % 4) + p;  // its q column index
-        keep |= (uint32_t)kept(a.drop, word)
+        keep |= (uint32_t)kept(drop, word)
                 << (4 * (ip / 2) + 2 * j + (ip & 1));
       }
     }

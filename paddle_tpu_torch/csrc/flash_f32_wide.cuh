@@ -339,6 +339,9 @@ template <bool kDrop, bool kSegs>
 __global__ void __launch_bounds__(kThr, 1)
     flash_fwd_f32_wide_kernel(FwdArgs a, int D, int slices) {
   constexpr int RA = kFwdRA;
+  // the dropout seed's words, resolved once (philox.cuh)
+  const DropParams drop =
+      kDrop ? resolved(a.drop) : DropParams{};
   extern __shared__ __align__(16) float sm[];
   float* Ps = sm;
   float* Os = sm + kFwdO;
@@ -432,11 +435,11 @@ __global__ void __launch_bounds__(kThr, 1)
           alpha[r] = expf(m[r] - mn);
           float f[4] = {1.0f, 1.0f, 1.0f, 1.0f};
           if constexpr (kDrop) {
-            const uint4 w = keep_words(a.drop, (uint32_t)(n0 + 4 * tx) >> 2,
+            const uint4 w = keep_words(drop, (uint32_t)(n0 + 4 * tx) >> 2,
                                        (uint32_t)qrow, bh, kSaltAttention);
 #pragma unroll
             for (int k = 0; k < 4; ++k)
-              f[k] = keep_factor(a.drop, word_of(w, k));
+              f[k] = keep_factor(drop, word_of(w, k));
           }
           float sum = 0.0f, pv[4];
 #pragma unroll
@@ -542,6 +545,9 @@ template <int D, bool kDrop, bool kSegs>
 __global__ void __launch_bounds__(kThr, small_fwd_ctas(D))
     flash_fwd_f32_small_kernel(FwdArgs a) {
   constexpr int RA = kFwdRA;
+  // the dropout seed's words, resolved once (philox.cuh)
+  const DropParams drop =
+      kDrop ? resolved(a.drop) : DropParams{};
   constexpr int nc = (D + kW - 1) / kW;  // 64-column chunks of the head
   constexpr int kLdQ = small_fwd_ldq(D);
   constexpr bool kCols = D % kW != 0;
@@ -640,11 +646,11 @@ __global__ void __launch_bounds__(kThr, small_fwd_ctas(D))
             const float alpha = expf(m[r] - mn);
             float f[4] = {1.0f, 1.0f, 1.0f, 1.0f};
             if constexpr (kDrop) {
-              const uint4 w = keep_words(a.drop, (uint32_t)(n0 + 4 * tx) >> 2,
+              const uint4 w = keep_words(drop, (uint32_t)(n0 + 4 * tx) >> 2,
                                          (uint32_t)qrow, bh, kSaltAttention);
 #pragma unroll
               for (int k = 0; k < 4; ++k)
-                f[k] = keep_factor(a.drop, word_of(w, k));
+                f[k] = keep_factor(drop, word_of(w, k));
             }
             float sum = 0.0f, pv[4];
 #pragma unroll
@@ -727,6 +733,9 @@ __device__ __forceinline__ void bwd_cta(const BwdArgs& a, int D, int slices,
   using Lay = BwdLayout<SW>;
   constexpr int kLd = Lay::kLd;
   static_assert(kChain || SW == kH, "chunk sums pair 32-column items");
+  // the dropout seed's words, resolved once (philox.cuh)
+  const DropParams drop =
+      kDrop ? resolved(a.drop) : DropParams{};
   extern __shared__ __align__(16) float sm[];
   float* Ps = sm + Lay::kP;
   float* DSs = sm + Lay::kDS;
@@ -853,11 +862,11 @@ __device__ __forceinline__ void bwd_cta(const BwdArgs& a, int D, int slices,
           const float4 dp4 = ld4(DSs + row * kLdP + 4 * ks);
           float f[4] = {1.0f, 1.0f, 1.0f, 1.0f};
           if constexpr (kDrop) {
-            const uint4 w = keep_words(a.drop, (uint32_t)key0 >> 2,
+            const uint4 w = keep_words(drop, (uint32_t)key0 >> 2,
                                        (uint32_t)qrow, bh, kSaltAttention);
 #pragma unroll
             for (int k = 0; k < 4; ++k)
-              f[k] = keep_factor(a.drop, word_of(w, k));
+              f[k] = keep_factor(drop, word_of(w, k));
           }
           float pv[4], dsv[4];
 #pragma unroll

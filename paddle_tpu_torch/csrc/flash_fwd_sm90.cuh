@@ -161,7 +161,7 @@ __device__ __forceinline__ void release_kv(const CUtensorMap* map,
 }
 
 // One consumer warpgroup's walk over the kv tiles and its epilogue.
-template <int D, int N, bool kDrop, bool kSegs>
+template <int D, int N, bool kDrop, bool kSegs, bool kSeedDev>
 __device__ __forceinline__ void consume(const FwdArgs& a,
                                         const Mask<kSegs>& mask,
                                         const CUtensorMap* tk,
@@ -173,6 +173,11 @@ __device__ __forceinline__ void consume(const FwdArgs& a,
   // the walk's length as a value the compiler knows to be warp-uniform:
   // ptxas serialises wgmmas inside a loop it cannot prove uniform
   const int n_iter = __shfl_sync(0xffffffffu, n_walk, 0);
+  // the dropout seed's words: the launch's parameters, or (kSeedDev: a
+  // staged seed) read from device memory once for the walk (philox.cuh)
+  const DropParams staged =
+      kSeedDev ? resolved(a.drop) : a.drop;
+  const DropParams& drop = kSeedDev ? staged : a.drop;
   const bool warp0 = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0) == 0;
   constexpr int kTileN = G::kTileN;
   const int g = threadIdx.x / 128;         // consumer index
@@ -325,15 +330,15 @@ __device__ __forceinline__ void consume(const FwdArgs& a,
 #pragma unroll
       for (int jn = 0; jn < kTileN / 8; ++jn) {
         const uint32_t grp = (uint32_t)(n0 + 8 * jn) / 4 + (c4 >> 1);
-        const uint4 w = keep_words(a.drop, grp,
+        const uint4 w = keep_words(drop, grp,
                                    (uint32_t)(odd ? qrow1 : qrow0), bh,
                                    kSaltAttention);
         const uint32_t x0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
         const uint32_t x1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
-        sc[4 * jn + 0] *= keep_factor(a.drop, odd ? x0 : w.x);
-        sc[4 * jn + 1] *= keep_factor(a.drop, odd ? x1 : w.y);
-        sc[4 * jn + 2] *= keep_factor(a.drop, odd ? w.z : x0);
-        sc[4 * jn + 3] *= keep_factor(a.drop, odd ? w.w : x1);
+        sc[4 * jn + 0] *= keep_factor(drop, odd ? x0 : w.x);
+        sc[4 * jn + 1] *= keep_factor(drop, odd ? x1 : w.y);
+        sc[4 * jn + 2] *= keep_factor(drop, odd ? w.z : x0);
+        sc[4 * jn + 3] *= keep_factor(drop, odd ? w.w : x1);
       }
     }
   };
@@ -437,7 +442,7 @@ __device__ __forceinline__ void consume(const FwdArgs& a,
   }
 }
 
-template <int D, int N, bool kDrop, bool kSegs>
+template <int D, int N, bool kDrop, bool kSegs, bool kSeedDev>
 __global__ void __launch_bounds__(kThreadsCTA, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -487,8 +492,8 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
       load_tile_kv<D, N>(&tv, base, 1, j, hk, b);
     }
   }
-  consume<D, N, kDrop, kSegs>(a, mask, &tk, &tv, base, gbase, q0, h, hk, b,
-                           n_iter);
+  consume<D, N, kDrop, kSegs, kSeedDev>(a, mask, &tk, &tv, base, gbase, q0,
+                                     h, hk, b, n_iter);
 }
 
 // ------------------------------------------------------------------- host
@@ -546,7 +551,13 @@ cudaError_t launch(const FwdArgs& a, int B, cudaStream_t stream) {
       !make_map(&tv, a.v, (long)a.Hkv * D, a.kv_row, a.Lk, B, G::W,
                 G::kTileN))
     return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_sm90_kernel<D, G::kTileN, kDrop, kSegs>;
+  auto kernel = flash_fwd_sm90_kernel<D, G::kTileN, kDrop, kSegs, false>;
+  if constexpr (kDrop) {
+    // a staged seed: the instantiation that reads it from device memory
+    // (the by-value one keeps its words in the parameter space)
+    if (seed_in_memory(a.drop))
+      kernel = flash_fwd_sm90_kernel<D, G::kTileN, kDrop, kSegs, true>;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kAlloc);
   if (err != cudaSuccess) return err;

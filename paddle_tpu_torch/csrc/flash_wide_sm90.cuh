@@ -190,7 +190,7 @@ struct FwdGeom {
   static_assert(kAlloc <= 232448, "forward tiles exceed shared memory");
 };
 
-template <int N, bool kDrop, bool kSegs>
+template <int N, bool kDrop, bool kSegs, bool kSeedDev>
 __global__ void __launch_bounds__(kThreadsCTA, 1)
     flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -218,6 +218,11 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
   // key masked: output 0) with no branch
   const int n_walk = max(1, (kv_end + N - 1) / N);
   const int nc = D / kW;  // chunks of the contraction
+  // the dropout seed's words: the launch's parameters, or (kSeedDev: a
+  // staged seed) read from device memory once for the walk (philox.cuh)
+  const DropParams staged =
+      kSeedDev ? resolved(a.drop) : a.drop;
+  const DropParams& drop = kSeedDev ? staged : a.drop;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < G::kStages; ++s) {
@@ -408,15 +413,15 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
 #pragma unroll
       for (int jn = 0; jn < N / 8; ++jn) {
         const uint32_t grp = (uint32_t)(n0 + 8 * jn) / 4 + (c4 >> 1);
-        const uint4 w = keep_words(a.drop, grp,
+        const uint4 w = keep_words(drop, grp,
                                    (uint32_t)(odd ? qrow1 : qrow0), bh,
                                    kSaltAttention);
         const uint32_t x0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
         const uint32_t x1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
-        sc[4 * jn + 0] *= keep_factor(a.drop, odd ? x0 : w.x);
-        sc[4 * jn + 1] *= keep_factor(a.drop, odd ? x1 : w.y);
-        sc[4 * jn + 2] *= keep_factor(a.drop, odd ? w.z : x0);
-        sc[4 * jn + 3] *= keep_factor(a.drop, odd ? w.w : x1);
+        sc[4 * jn + 0] *= keep_factor(drop, odd ? x0 : w.x);
+        sc[4 * jn + 1] *= keep_factor(drop, odd ? x1 : w.y);
+        sc[4 * jn + 2] *= keep_factor(drop, odd ? w.z : x0);
+        sc[4 * jn + 3] *= keep_factor(drop, odd ? w.w : x1);
       }
     }
   };
@@ -531,7 +536,12 @@ cudaError_t launch_fwd(const FwdArgs& a, __nv_bfloat16* qs, int B, int D,
       !make_map(&tk, a.k, (long)a.Hkv * D, a.kv_row, a.Lk, B, kW, N) ||
       !make_map(&tv, a.v, (long)a.Hkv * D, a.kv_row, a.Lk, B, kW, N))
     return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_wide_kernel<N, kDrop, kSegs>;
+  auto kernel = flash_fwd_wide_kernel<N, kDrop, kSegs, false>;
+  if constexpr (kDrop) {
+    // a staged seed: the instantiation that reads it from device memory
+    if (seed_in_memory(a.drop))
+      kernel = flash_fwd_wide_kernel<N, kDrop, kSegs, true>;
+  }
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              G::kAlloc);
@@ -755,20 +765,21 @@ __global__ void __launch_bounds__(kThreadsCTA, 1)
     const uint32_t grp0 =
         (uint32_t)(kv_wg + warp * 16 + 4 * (lane / 16)) / 4;
     uint32_t keep = 0u;
+    const DropParams drop = resolved(a.drop);
 #pragma unroll 1
     for (int sl = 0; sl < 8; ++sl) {
       const int j = sl / 4;
       const int i = 4 * (sl % 4) + kr;
       const uint32_t qr = (uint32_t)(m0 + 8 * (i / 2) + 2 * c4 + (i & 1));
       const uint4 w =
-          keep_words(a.drop, grp0 + 2 * j, qr, bh, kSaltAttention);
+          keep_words(drop, grp0 + 2 * j, qr, bh, kSaltAttention);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int p = kr ^ k;  // the lane whose key this word serves
         uint32_t word = word_of(w, p);
         if (k) word = __shfl_xor_sync(0xffffffffu, word, 4 * k);
         const int ip = 4 * (sl % 4) + p;  // its q column index
-        keep |= (uint32_t)kept(a.drop, word)
+        keep |= (uint32_t)kept(drop, word)
                 << (4 * (ip / 2) + 2 * j + (ip & 1));
       }
     }

@@ -30,6 +30,7 @@ __global__ void __launch_bounds__(kRowThreads)
                         const T* __restrict__ dy, T* __restrict__ dx,
                         T* __restrict__ ds, float* __restrict__ parts, long N,
                         int H, DropParams d) {
+  d = resolved(d);  // the seed's words, read once (philox.cuh)
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;

@@ -21,6 +21,7 @@ __global__ void __launch_bounds__(kRowThreads)
                         const T* __restrict__ w, const T* __restrict__ b,
                         T* __restrict__ out, float* __restrict__ stats,
                         long N, int H, float eps, DropParams d) {
+  d = resolved(d);  // the seed's words, read once (philox.cuh)
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;

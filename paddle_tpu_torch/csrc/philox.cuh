@@ -40,12 +40,51 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
 
 // The dropout parameters a launch carries: the seed's two words, the keep
 // threshold and the scale of a kept element (1 / (1 - rate) in fp32).
+//
+// A seed staged in device memory (a captured step's, kernels/philox.py
+// DeviceSeed) travels in the same 16 bytes: the threshold's top bit
+// (kSeedInMemory; a threshold is below 2^31) says so, and the two words
+// then hold the address of the seed's (low, high) words, which the kernel
+// reads (``resolved``), so a launch recorded in a CUDA graph draws under
+// whatever seed the host staged before each replay. An eager launch passes
+// the words by value as before. The parameters keep their layout: a wider
+// struct, or an argument block grown past 128 bytes, made ptxas schedule
+// the bf16 forward's unrolled draws worse on the H100 (PERF.md).
 struct DropParams {
   uint32_t seed_lo, seed_hi, threshold;
   float scale;
 };
 
-// Four keep words for columns [4 * group, 4 * group + 4) of a row.
+constexpr uint32_t kSeedInMemory = 0x80000000u;
+
+// (on the host, a launcher picks the instantiation with it)
+__host__ __device__ __forceinline__ bool seed_in_memory(const DropParams& d) {
+  return (d.threshold & kSeedInMemory) != 0u;
+}
+
+// ``d`` with the seed's words in place (read from device memory for a
+// staged seed) and the flag cleared. A kernel resolves its parameters once
+// and draws from the copy: the bf16 backwards once a tile's keep bits, the
+// fp32 and elementwise kernels at their start. The bf16 forwards draw in
+// unrolled runs where the words as parameter operands cost no register
+// and a resolved copy holds two through the walk: they keep the by-value
+// code and launch a second instantiation (kSeedDev) for a staged seed,
+// which resolves once a CTA. The flag is a kernel parameter, so the choice
+// is uniform over the grid.
+__device__ __forceinline__ DropParams resolved(const DropParams& d) {
+  DropParams r = d;
+  if (seed_in_memory(d)) {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(
+        ((uint64_t)d.seed_hi << 32) | d.seed_lo);
+    r.seed_lo = __ldg(p);
+    r.seed_hi = __ldg(p + 1);
+    r.threshold = d.threshold & ~kSeedInMemory;
+  }
+  return r;
+}
+
+// Four keep words for columns [4 * group, 4 * group + 4) of a row (``d``
+// resolved).
 __device__ __forceinline__ uint4 keep_words(const DropParams& d,
                                             uint32_t group, uint32_t row0,
                                             uint32_t row1, uint32_t salt) {

@@ -23,7 +23,12 @@ around the recompute:
   snapshots each generator it draws from (``core.random.record_generators``)
   and the recompute draws again from those states
   (``replay_generators``), so every kernel drops the elements it dropped
-  in the forward;
+  in the forward (inside a training program's seed stage the snapshot is
+  the draw count, and the recompute reads the forward's seed slots).
+  ``torch.utils.checkpoint`` keeps torch's own generators as well, except
+  while a CUDA graph captures: it would read the card's generator state
+  from the host, which a capture does not allow, and no op of the port
+  draws from it;
 * AMP: the forward's ``auto_cast`` state is put back in force around the
   recompute, which runs in the backward, outside the ``auto_cast`` block;
 * the monitor: a region counts once in the recompute trace statistics
@@ -91,8 +96,11 @@ def recompute(function, *args, preserve_rng_state: bool = True,
     if not torch.is_grad_enabled():
         return function(*args, **kwargs)
     _remat.note_region(policy)
+    capturing = torch.cuda.is_available() \
+        and torch.cuda.is_current_stream_capturing()
     return checkpoint(function, *args, use_reentrant=False,
-                      preserve_rng_state=preserve_rng_state,
+                      preserve_rng_state=preserve_rng_state
+                      and not capturing,
                       context_fn=lambda: _contexts(policy,
                                                    preserve_rng_state),
                       **kwargs)

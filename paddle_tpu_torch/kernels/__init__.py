@@ -44,6 +44,12 @@ backward (``flash_bwd_f32_kernel``) by the two backward wrappers in
 backward wrappers also count the bf16 backward at heads of 80 and 96
 (``csrc/flash_bwd_sm90.cuh`` on 32-byte swizzle blocks) in
 ``<wrapper>.sw32_bwd_launches``, read by ``sw32_bwd_launch_counts()``.
+
+A wrapper counts when Python calls it, which a CUDA graph's replay does
+not: a captured program (``core/programs.py``) takes the counts its
+capture added back out (``count_snapshot``, ``add_counts``), keeps them,
+and adds them again at each replay, so the counts are the launches the
+device ran.
 """
 from .dq_sum import dq_ordered_sum, dq_ordered_sum_reference
 from .dropout import DropoutFunction, dropout_fwd, dropout_fwd_reference
@@ -73,7 +79,7 @@ __all__ = ["flash_pair_fwd", "flash_pair_fwd_reference", "flash_pair_bwd",
            "FusedAddDropoutLN", "launch_counts", "reset_launch_counts",
            "wide_launch_counts", "f32_wide_launch_counts",
            "f32_fwd_launch_counts", "f32_bwd_launch_counts",
-           "sw32_bwd_launch_counts"]
+           "sw32_bwd_launch_counts", "count_snapshot", "add_counts"]
 
 WRAPPERS = {"flash_pair_fwd": flash_pair_fwd,
             "flash_pair_bwd": flash_pair_bwd,
@@ -129,3 +135,27 @@ def reset_launch_counts():
     for name in BWD_WRAPPERS:
         WRAPPERS[name].f32_bwd_launches = 0
         WRAPPERS[name].sw32_bwd_launches = 0
+
+
+def _counters():
+    """Every (wrapper, attribute) pair that counts launches."""
+    out = [(fn, "launches") for fn in WRAPPERS.values()]
+    out += [(WRAPPERS[n], a) for n in WIDE_WRAPPERS
+            for a in ("wide_launches", "f32_wide_launches")]
+    out += [(WRAPPERS[n], "f32_fwd_launches") for n in FWD_WRAPPERS]
+    out += [(WRAPPERS[n], a) for n in BWD_WRAPPERS
+            for a in ("f32_bwd_launches", "sw32_bwd_launches")]
+    return out
+
+
+def count_snapshot() -> tuple:
+    """Every launch counter's value, in ``_counters()`` order."""
+    return tuple(getattr(fn, a) for fn, a in _counters())
+
+
+def add_counts(delta, times: int = 1):
+    """Add ``times`` x ``delta`` (a difference of two ``count_snapshot()``
+    readings) to the counters."""
+    for (fn, a), d in zip(_counters(), delta):
+        if d:
+            setattr(fn, a, getattr(fn, a) + times * d)

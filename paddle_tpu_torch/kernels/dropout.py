@@ -44,7 +44,7 @@ def _scale(rate: float, upscale: bool) -> float:
 def _check(x: torch.Tensor, seed: int, rate: float, plain: bool = False):
     if not 0.0 <= float(rate) < 1.0:
         raise ValueError(f"dropout_fwd: rate must be in [0, 1), got {rate}")
-    philox.seed_words(seed)
+    philox.check_seed(seed)
     if x.dtype not in _DTYPES + ((torch.float64,) if plain else ()):
         raise TypeError(f"dropout_fwd: dtype {x.dtype} is not supported "
                         f"(bfloat16 or float32)")
@@ -89,14 +89,16 @@ def dropout_fwd(x: torch.Tensor, seed: int, rate: float,
     rows, cols = _view_shape(x)
     if rows == 0 or cols == 0:
         return out
-    lo, hi = philox.seed_words(seed)
+    # the seed's words (or a staged seed's address, flagged in the
+    # threshold) as every launcher takes them; at rate 0 the threshold
+    # keeps every element
+    _, lo, hi, thr, _ = philox.kernel_args(rate, seed)
     lib = _build.load("dropout_fwd", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.dropout_fwd(x.data_ptr(), out.data_ptr(), rows, cols,
-                             int(x.dtype == torch.bfloat16), lo, hi,
-                             philox.threshold(rate), _scale(rate, upscale),
-                             stream)
+                             int(x.dtype == torch.bfloat16), lo, hi, thr,
+                             _scale(rate, upscale), stream)
     if rc != 0:
         raise RuntimeError(f"dropout_fwd: kernel launch failed "
                            f"(cudaError {rc})")

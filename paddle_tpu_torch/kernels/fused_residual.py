@@ -46,7 +46,7 @@ def _check(x2, s2, weight, seed, rate, who, plain=False):
     if not 0.0 <= float(rate) < 1.0:
         raise ValueError(f"{who}: rate must be in [0, 1), got {rate}")
     if rate > 0.0:
-        philox.seed_words(seed)
+        philox.check_seed(seed)
     dtypes = _DTYPES + ((torch.float64,) if plain else ())
     if x2.dtype not in dtypes:
         raise TypeError(f"{who}: dtype {x2.dtype} is not supported "

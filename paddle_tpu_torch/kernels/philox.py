@@ -28,7 +28,16 @@ serve four consecutive columns ``4 * (column // 4) + w``. Rows are
   draw step), under the key of a seed held as device data.
 
 No coordinate of a LLaMA-7B or BERT shape comes near 2^32, so no word
-overflows. An element is kept iff ``(word & 0x7FFFFFFF) >= int(rate *
+overflows.
+
+A seed is an int, or a ``DeviceSeed``: one int64 element of a buffer of
+staged seeds (``core.random``'s seed slots, inside a training program). A
+launch then passes the element's address in place of the seed's words,
+with the threshold's top bit set (``SEED_IN_MEMORY``; a threshold is below
+2^31), and the kernel reads the two words there (``csrc/philox.cuh``
+``resolved``), so a CUDA graph that recorded the launch draws under
+whatever seed the host staged before each replay; the plain versions take
+the words as int64 tensors. An element is kept iff ``(word & 0x7FFFFFFF) >= int(rate *
 2^31)``: the JAX package's threshold (``flash_attention.py:45-59``,
 ``dropout.py:24-27``, ``fused_residual.py:29-33``); a kept element is
 scaled by ``keep_scale(rate)``, 1 / (1 - rate) rounded to fp32.
@@ -40,7 +49,8 @@ import ctypes
 import torch
 
 __all__ = ["SALT_ATTENTION", "SALT_DROPOUT", "SALT_FUSED_LN", "philox4x32",
-           "SALT_SAMPLE", "seed_words", "threshold", "keep_scale",
+           "SALT_SAMPLE", "DeviceSeed", "check_seed", "seed_words",
+           "threshold", "keep_scale", "SEED_IN_MEMORY",
            "KERNEL_ARGTYPES", "kernel_args", "row_keep", "attention_keep",
            "sample_uniform"]
 
@@ -83,8 +93,58 @@ def philox4x32(c0, c1, c2, c3, k0, k1, rounds: int = 10):
     return c0, c1, c2, c3
 
 
-def seed_words(seed: int):
-    """The Philox key of ``seed``: its (low, high) 32-bit words."""
+class DeviceSeed:
+    """A seed held as device data: element ``index`` of ``buf``, a 1-d
+    int64 tensor of non-negative seeds. On the CPU it reads as an int
+    (``int(seed)``); on the card a host read would see the value of the
+    moment, not the one a replay stages, so it refuses: the kernels take
+    its address (``ptr``) and the plain versions its words as tensors."""
+
+    __slots__ = ("buf", "index")
+
+    def __init__(self, buf: torch.Tensor, index: int):
+        self.buf = buf
+        self.index = int(index)
+
+    @property
+    def device(self) -> torch.device:
+        return self.buf.device
+
+    def ptr(self) -> int:
+        """The address of the seed's (low, high) words."""
+        return self.buf.data_ptr() + 8 * self.index
+
+    def words(self):
+        """The seed's (low, high) words: ints on the CPU, 0-d int64 tensors
+        on the card."""
+        if self.buf.device.type == "cpu":
+            return seed_words(int(self))
+        t = self.buf[self.index]
+        return t & _MASK, t >> 32
+
+    def __int__(self) -> int:
+        if self.buf.device.type != "cpu":
+            raise TypeError("a staged seed on the card is device data; its "
+                            "value is read by the kernels at replay")
+        return int(self.buf[self.index])
+
+    __index__ = __int__
+
+    def __repr__(self):
+        return f"DeviceSeed({self.buf.device}, index={self.index})"
+
+
+def check_seed(seed) -> None:
+    """Raise unless ``seed`` is a 64-bit unsigned int or a ``DeviceSeed``."""
+    if not isinstance(seed, DeviceSeed):
+        seed_words(seed)
+
+
+def seed_words(seed):
+    """The Philox key of ``seed``: its (low, high) 32-bit words (int64
+    tensors for a ``DeviceSeed`` on the card)."""
+    if isinstance(seed, DeviceSeed):
+        return seed.words()
     seed = int(seed)
     if not 0 <= seed < 1 << 64:
         raise ValueError(f"seed {seed} is not a 64-bit unsigned integer")
@@ -115,12 +175,25 @@ def keep_scale(rate: float) -> float:
 KERNEL_ARGTYPES = (ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
                    ctypes.c_uint32, ctypes.c_float)
 
+# the threshold's flag of a seed staged in device memory (csrc/philox.cuh
+# kSeedInMemory): the two words then hold its address
+SEED_IN_MEMORY = 0x80000000
+
 
 def kernel_args(rate: float, seed):
     """The values of ``KERNEL_ARGTYPES`` for a launch at ``rate`` (all 0 at
-    rate 0, where ``seed`` is not read)."""
+    rate 0, where ``seed`` is not read). An int seed travels by value; a
+    ``DeviceSeed`` by its address in the two words, flagged in the
+    threshold."""
     if rate <= 0.0:
         return 0, 0, 0, 0, 0.0
+    if isinstance(seed, DeviceSeed):
+        if seed.device.type != "cuda":
+            raise ValueError(f"a kernel launch reads its seed on the card; "
+                             f"this one lies on {seed.device}")
+        ptr = seed.ptr()
+        return (1, ptr & _MASK, ptr >> 32, threshold(rate) | SEED_IN_MEMORY,
+                keep_scale(rate))
     lo, hi = seed_words(seed)
     return 1, lo, hi, threshold(rate), keep_scale(rate)
 

@@ -344,10 +344,21 @@ class DeviceStats:
             self._upd, 2, dtype=torch.float32))
         self._old = _flat32(self._upd)
 
-    def after_update(self):
+    def after_update(self, digests: bool = True):
         """||new - old|| per leaf (the copy is overwritten in place by the
         difference, split back into the leaves), and the digests of the
-        updated leaves (from the same flat copy) and of the gradients."""
+        updated leaves (from the same flat copy) and of the gradients.
+        ``digests=False`` (a captured step, where these run in every call)
+        takes the difference leaf by leaf with no flat copy of the new
+        values and leaves the digests to ``digest_parts``, which the host
+        launches on the sampled calls only."""
+        if not digests:
+            views = list(self._old.split([u.numel() for u in self._upd]))
+            torch._foreach_sub_(views, [u.detach().reshape(-1).float()
+                                        for u in self._upd])
+            self._parts["dnorm"] = torch.stack(torch._foreach_norm(views, 2))
+            self._old = None
+            return
         new = _flat32(self._upd)
         if self.n_probes > 0:
             if self.probes is None:
@@ -365,6 +376,23 @@ class DeviceStats:
             list(diff.split([u.numel() for u in self._upd])), 2))
         self._old = None
 
+    def digest_parts(self, grads=None) -> dict:
+        """The digests of the updated leaves and of the gradients (or of
+        ``grads``), as ``after_update`` takes them: host arrays for
+        ``payload``'s ``extra`` (empty without probes)."""
+        if self.n_probes <= 0:
+            return {}
+        grads = self._grads if grads is None else grads
+        if self.probes is None:
+            pdig = digest(self._upd, self.n_probes, self.transposed)
+            gdig = digest(grads, self.n_probes, self.transposed)
+        else:
+            pdig = self.probes.digest(self._upd, self.n_probes,
+                                      self.transposed)
+            gdig = self.probes.digest(grads, self.n_probes, self.transposed)
+        host = torch.cat([pdig, gdig]).cpu().numpy().astype(np.float64)
+        return {"pdig": host[:self.n_probes], "gdig": host[self.n_probes:]}
+
     # --------------------------------------------------------------- host
 
     def read(self, loss: torch.Tensor, act: Optional[dict] = None) -> dict:
@@ -373,19 +401,41 @@ class DeviceStats:
         (``loss2`` [2], ``grad`` [G, 3], ``ratio`` [G, 2], ``pdig``/``gdig``
         [D], ``act`` {name: rms}) and the loss itself (``loss``)."""
         act = act or {}
+        flat = self.gather(loss, act).cpu().numpy()
+        return self.payload(flat, list(act))
+
+    def gather(self, loss: torch.Tensor,
+               act: Optional[dict] = None) -> torch.Tensor:
+        """The loss, every part and the activation rms values stacked into
+        one fp32 vector on the device (``payload`` splits its host copy).
+        A captured step writes it into a buffer at every replay."""
+        act = act or {}
         lf = loss.detach().float().reshape(1)
-        keys = [k for k in ("gmax", "gnorm", "wnorm", "dnorm", "pdig",
-                            "gdig") if k in self._parts]
-        flat = torch.cat([lf] + [self._parts[k].reshape(-1) for k in keys]
+        return torch.cat([lf] + [self._parts[k].reshape(-1)
+                                 for k in self._keys()]
                          + [torch.stack(list(act.values()))
-                            if act else lf[:0]]).cpu().numpy() \
-            .astype(np.float64)
+                            if act else lf[:0]])
+
+    def _keys(self):
+        return [k for k in ("gmax", "gnorm", "wnorm", "dnorm", "pdig",
+                            "gdig") if k in self._parts]
+
+    def payload(self, flat, act_names=(), keep: bool = False,
+                extra=None) -> dict:
+        """The host payload from ``gather``'s vector copied to the host
+        (``act_names``: the activations' names in its order) and
+        ``extra`` (``digest_parts``). ``keep`` leaves the device parts in
+        place (a captured step's, rewritten at every replay); otherwise
+        they are dropped."""
+        flat = np.asarray(flat, dtype=np.float64)
+        keys = self._keys()
         got, off = {}, 1
         for k in keys:
             n = self._parts[k].numel()
             got[k] = flat[off:off + n]
             off += n
-        act_host = dict(zip(act, flat[off:].tolist()))
+        got.update(extra or {})
+        act_host = dict(zip(act_names, flat[off:].tolist()))
         loss_v = flat[0]
         if not math.isfinite(loss_v) or not np.isfinite(
                 np.concatenate([got.get("gmax", []), got.get("gnorm", [])])
@@ -414,8 +464,9 @@ class DeviceStats:
             out["pdig"], out["gdig"] = got["pdig"], got["gdig"]
         if act_host:
             out["act"] = act_host
-        self._parts = {}
-        self._grads = self._upd = None
+        if not keep:
+            self._parts = {}
+            self._grads = self._upd = None
         return out
 
     def _exact_grad_parts(self) -> dict:

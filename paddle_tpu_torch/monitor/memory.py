@@ -33,7 +33,7 @@ def capture_reading(device) -> Optional[dict]:
 
 def _state_bytes(state):
     """(input bytes, other bytes) of the tensors a program was built with:
-    a ``StagedInputs``' device buffer counts as its inputs, any other
+    a ``StagedBuffer``'s device buffer counts as its inputs, any other
     tensor (an output buffer, a scratch cache) as the rest."""
     if state is None:
         return 0, 0

@@ -31,21 +31,32 @@ class ClipGradByValue(ClipGradBase):
 class ClipGradByNorm(ClipGradBase):
     """Scale each gradient by ``min(clip_norm / max(norm, 1e-12), 1)``,
     its own L2 norm taken in its own type, with the constants rounded to
-    that type first (the JAX package's weakly typed Python floats)."""
+    that type first (the JAX package's weakly typed Python floats).
+
+    The three constants are made once per device and type and kept: a
+    tensor made from host values at each call would be a host-to-device
+    copy in every step, which a captured step may not hold."""
 
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
+        self._consts = {}
+
+    def _constants(self, g):
+        key = (g.device, g.dtype)
+        c = self._consts.get(key)
+        if c is None:
+            c = self._consts[key] = tuple(
+                torch.tensor(v, dtype=g.dtype, device=g.device)
+                for v in (self.clip_norm, 1e-12, 1.0))
+        return c
 
     @torch.no_grad()
     def __call__(self, params_grads):
         out = []
         for p, g in params_grads:
-            def const(v):
-                return torch.tensor(v, dtype=g.dtype, device=g.device)
+            clip, tiny, one = self._constants(g)
             norm = g.square().sum().sqrt()
-            scale = torch.minimum(
-                const(self.clip_norm) / torch.maximum(norm, const(1e-12)),
-                const(1.0))
+            scale = torch.minimum(clip / torch.maximum(norm, tiny), one)
             out.append((p, g * scale))
         return out
 

@@ -34,32 +34,72 @@ from ..core.amp_state import applied
 from ..regularizer import L1Decay
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Adam", "AdamW", "adam_update"]
+__all__ = ["Optimizer", "Adam", "AdamW", "adam_update", "adam_scalars"]
 
 _ITEM = "ROADMAP Queue 1, item 4"
 
 
-def adam_update(param, grad, moment1, moment2, *, lr, step, beta1=0.9,
-                beta2=0.999, epsilon=1e-8, weight_decay=0.0,
-                decouple_wd=False):
+def _smul(x: torch.Tensor, s):
+    """``x * s`` for a host float or a 0-d fp32 tensor ``s``, rounded as the
+    host-float product rounds: in fp32, then to x's type (a 0-d fp32
+    tensor beside a bf16 ``x`` would otherwise be cast to bf16 first)."""
+    if torch.is_tensor(s) and x.dtype != s.dtype:
+        return (x.float() * s).to(x.dtype)
+    return x * s
+
+
+def adam_scalars(lr, step, beta1=0.9, beta2=0.999) -> np.ndarray:
+    """The step scalars of Adam's rule, fp32 ``[lr, 1 / bc1, 1 / bc2]``:
+    the bias corrections with ``step`` counted from 1 (in fp32, as the JAX
+    package keeps the step) and their reciprocals. Dividing a tensor by a
+    host float on the card multiplies it by the fp32 reciprocal, so the
+    rule multiplies by these on both devices and the host-float form and
+    the staged form (the same values as device data) are one arithmetic."""
+    f32 = np.float32
+    bc1 = f32(1.0) - f32(beta1) ** f32(step)
+    bc2 = f32(1.0) - f32(beta2) ** f32(step)
+    return np.array([lr, f32(1.0) / bc1, f32(1.0) / bc2], dtype=np.float32)
+
+
+def adam_update(param, grad, moment1, moment2, *, lr=None, step=None,
+                beta1=0.9, beta2=0.999, epsilon=1e-8, weight_decay=0.0,
+                decouple_wd=False, scalars=None, skip=None):
     """One Adam/AdamW step on ``param``, ``moment1`` and ``moment2`` in
     place: the JAX package's ``Adam._update_rule`` (``optimizer.py:497``)
-    written over tensors. Bias correction with ``step`` counted from 1 (in
-    fp32, as the JAX package keeps the step), ``epsilon`` added to
-    ``sqrt(m2 / bc2)``; without ``decouple_wd`` the decay is L2 on the
-    gradient, with it ``lr * weight_decay * param`` is added to the step
-    (AdamW)."""
-    f32 = np.float32
-    bc1 = float(f32(1.0) - f32(beta1) ** f32(step))
-    bc2 = float(f32(1.0) - f32(beta2) ** f32(step))
+    written over tensors. Bias correction with ``step`` counted from 1,
+    ``epsilon`` added to ``sqrt(m2 / bc2)``; without ``decouple_wd`` the
+    decay is L2 on the gradient, with it ``lr * weight_decay * param`` is
+    added to the step (AdamW).
+
+    ``scalars`` replaces ``lr`` and ``step``: ``(lr, 1 / bc1, 1 / bc2,
+    lr * weight_decay)`` as host floats or as 0-d fp32 tensors on the
+    param's device (a captured step's staged scalars); both forms give
+    the bits of ``lr=``, ``step=``. ``skip`` (a 0-d bool tensor) masks the
+    update: where it is true ``param`` and the moments keep their values
+    bit for bit (a scaler's overflow, decided on the device)."""
+    if scalars is None:
+        lr_, inv1, inv2 = (float(v) for v in adam_scalars(lr, step, beta1,
+                                                           beta2))
+        f32 = np.float32
+        scalars = (lr_, inv1, inv2, float(f32(lr) * f32(weight_decay)))
+    lr, inv1, inv2, lr_wd = scalars
     if weight_decay and not decouple_wd:
         grad = grad + weight_decay * param
-    moment1.mul_(beta1).add_(grad * (1 - beta1))
-    moment2.mul_(beta2).add_(grad.square() * (1 - beta2))
-    update = lr * (moment1 / bc1) / ((moment2 / bc2).sqrt() + epsilon)
+    if skip is None:
+        m1 = moment1.mul_(beta1).add_(grad * (1 - beta1))
+        m2 = moment2.mul_(beta2).add_(grad.square() * (1 - beta2))
+    else:
+        m1 = (moment1 * beta1).add_(grad * (1 - beta1))
+        m2 = (moment2 * beta2).add_(grad.square() * (1 - beta2))
+    update = _smul(_smul(m1, inv1), lr) / (_smul(m2, inv2).sqrt() + epsilon)
     if decouple_wd and weight_decay:
-        update += float(f32(lr) * f32(weight_decay)) * param
-    param.sub_(update)
+        update += _smul(param, lr_wd)
+    if skip is None:
+        param.sub_(update)
+        return
+    param.copy_(torch.where(skip, param, param - update))
+    moment1.copy_(torch.where(skip, moment1, m1))
+    moment2.copy_(torch.where(skip, moment2, m2))
 
 
 class Optimizer:
@@ -144,7 +184,7 @@ class Optimizer:
         self.apply_gradients(params, [p.grad for p in params])
 
     @torch.no_grad()
-    def apply_gradients(self, params, grads):
+    def apply_gradients(self, params, grads, staged=None, skip=None):
         """One update of ``params`` from ``grads`` (a list each, in order):
         the clip on the gradients as given, then the rule on the fp32
         master where one exists (the gradient cast to its type), else on
@@ -152,24 +192,86 @@ class Optimizer:
         parameter in place. ``step()`` runs it on ``p.grad``;
         ``jit.TrainStep`` on its accumulated fp32 gradients. It runs
         uncast under ``auto_cast``: O2 would otherwise round the fp32
-        masters' arithmetic to the low type."""
-        with applied(None):
-            self._apply(params, grads)
+        masters' arithmetic to the low type.
 
-    def _apply(self, params, grads):
+        ``staged`` (a captured step's): the step scalars as a 1-d fp32
+        tensor on the parameters' device, ``step_scalars``'s values for the
+        step the caller has counted; the step count is then the caller's
+        to advance. ``skip`` (a 0-d bool tensor) masks the update: where
+        it is true parameters, masters and moments keep their bits."""
+        with applied(None):
+            self._apply(params, grads, staged, skip)
+
+    def step_scalars(self, step: int) -> np.ndarray:
+        """The update's step scalars for step ``step`` (fp32, host): what
+        a captured step stages before each call (``[lr]`` for a rule of
+        host floats, Adam's ``adam_scalars``)."""
+        return self._host_scalars(self.get_lr(), step)
+
+    def _apply(self, params, grads, staged=None, skip=None):
         if self._grad_clip is not None:
             grads = [g for _, g in self._grad_clip(list(zip(params, grads)))]
-        self._step_count += 1
-        lr = self.get_lr()
+        if staged is None:
+            self._step_count += 1
+        if not self._staged_rule:
+            self._apply_host_rule(params, grads, staged, skip)
+            return
+        if staged is None:
+            base = [float(v) for v in self.step_scalars(self._step_count)]
+        else:
+            base = [staged[i] for i in range(len(staged))]
+        by_wd = {}          # lr * decay, once per coefficient
         for p, g in zip(params, grads):
             state = self._ensure_state(p)
             target = self._master_weights.get(id(p), p)
+            wd = self._weight_decay * self._wd_scale(p)
+            if wd not in by_wd:
+                by_wd[wd] = base[0] * float(np.float32(wd)) \
+                    if staged is not None \
+                    else float(np.float32(base[0]) * np.float32(wd))
+            self._update_staged(target, g.to(target.dtype), state,
+                                (*base, by_wd[wd]), wd, skip)
+            self._to_param(p, target, skip)
+
+    def _apply_host_rule(self, params, grads, staged, skip):
+        """A rule of host floats (``_update(param, grad, state, lr, step,
+        wd_scale)``): ``lr`` is the staged one where given; a ``skip``
+        restores what the rule wrote in place."""
+        lr = self.get_lr() if staged is None else staged[0]
+        for p, g in zip(params, grads):
+            state = self._ensure_state(p)
+            target = self._master_weights.get(id(p), p)
+            kept = None if skip is None else \
+                [t.clone() for t in (target, *state.values())]
             self._update(target, g.to(target.dtype), state, lr,
                          self._step_count, self._wd_scale(p))
-            if target is not p:
-                p.copy_(target)
+            if kept is not None:
+                for t, old in zip((target, *state.values()), kept):
+                    t.copy_(torch.where(skip, old, t))
+            self._to_param(p, target, skip)
+
+    @staticmethod
+    def _to_param(p, target, skip):
+        if target is p:
+            return
+        if skip is None:
+            p.copy_(target)
+        else:
+            p.copy_(torch.where(skip, p, target.to(p.dtype)))
+
+    # a rule with ``_update_staged`` (Adam's) takes its step scalars as
+    # host floats or as device data alike; one of host floats
+    # (``_update``) cannot be captured on the card
+    _staged_rule = False
+
+    def _host_scalars(self, lr, step) -> np.ndarray:
+        return np.array([lr], dtype=np.float32)
 
     def _update(self, param, grad, state, lr, step, wd_scale=1.0):
+        raise NotImplementedError
+
+    def _update_staged(self, param, grad, state, scalars, weight_decay,
+                       skip=None):
         raise NotImplementedError
 
     def clear_grad(self):
@@ -267,12 +369,18 @@ class Adam(Optimizer):
         self._beta2 = float(beta2)
         self._epsilon = float(epsilon)
 
-    def _update(self, param, grad, state, lr, step, wd_scale=1.0):
-        adam_update(param, grad, state["moment1"], state["moment2"], lr=lr,
-                    step=step, beta1=self._beta1, beta2=self._beta2,
-                    epsilon=self._epsilon,
-                    weight_decay=self._weight_decay * wd_scale,
-                    decouple_wd=self._decouple_wd)
+    _staged_rule = True
+
+    def _host_scalars(self, lr, step) -> np.ndarray:
+        return adam_scalars(lr, step, self._beta1, self._beta2)
+
+    def _update_staged(self, param, grad, state, scalars, weight_decay,
+                       skip=None):
+        adam_update(param, grad, state["moment1"], state["moment2"],
+                    beta1=self._beta1, beta2=self._beta2,
+                    epsilon=self._epsilon, weight_decay=weight_decay,
+                    decouple_wd=self._decouple_wd, scalars=scalars,
+                    skip=skip)
 
 
 class AdamW(Adam):

@@ -209,14 +209,16 @@ def test_host_half_matches_jax(tmp_path, monkeypatch):
 # ------------------------------------------------------------ the TrainStep
 
 
-def _port_step(monkeypatch, tmp_path, steps, sample=2, **env):
+def _port_step(monkeypatch, tmp_path, steps, sample=2, fast_path=True,
+               **env):
     monkeypatch.setenv("PADDLE_HEALTH_SAMPLE", str(sample))
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     _, _, tm = _pair()
     ids, labels = _batch()
     mon = tmon.enable(str(tmp_path / "run.jsonl"), trace=True)
-    step = TrainStep(tm, SGD(learning_rate=0.1, parameters=tm.parameters()))
+    step = TrainStep(tm, SGD(learning_rate=0.1, parameters=tm.parameters()),
+                     fast_path=fast_path)
     losses = [float(step(torch.from_numpy(ids).long(),
                          torch.from_numpy(labels).long()))
               for _ in range(steps)]
@@ -278,7 +280,10 @@ def test_unsampled_steps_build_no_statistics(monkeypatch, tmp_path):
         built.append(1)
         return real(self, *a, **k)
     monkeypatch.setattr(th.HealthPlane, "device_stats", counting)
-    mon, step, _ = _port_step(monkeypatch, tmp_path, 6, sample=3)
+    # the eager step (the fast path's program takes its statistics in
+    # every call: tests/test_torch_train_graph.py)
+    mon, step, _ = _port_step(monkeypatch, tmp_path, 6, sample=3,
+                              fast_path=False)
     assert len(built) == 2 and step._health_n == 6
     assert mon.registry.gauge("health/digest_step").value == 6
 

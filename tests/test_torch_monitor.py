@@ -258,7 +258,10 @@ def _run_both(tmp_path, monkeypatch, steps=4, jkw=None, tkw=None,
             args = (paddle.to_tensor(ids), paddle.to_tensor(labels))
         else:
             opt = SGD(learning_rate=0.1, parameters=tm.parameters())
-            step = TrainStep(tm, opt, **(tkw or {}))
+            # the eager step, as the JAX step's slow path (the fast path's
+            # records: tests/test_torch_train_graph.py)
+            step = TrainStep(tm, opt, **dict(dict(fast_path=False),
+                                             **(tkw or {})))
             args = (torch.from_numpy(ids).long(),
                     torch.from_numpy(labels).long())
         for i in range(steps):
