@@ -156,7 +156,20 @@ the user entry points, random weights from a seed:
   timed steps, a profiled step, the same steps with attention in its plain
   versions, then the slice in fp32 at 2 blocks with GQA against the plain
   CPU path, and "selective" recompute against none
-  ([llama-train-recompute]).
+  ([llama-train-recompute]);
+* the Paddle dygraph surface (``import paddle_tpu_torch as paddle``) at
+  BERT-base width: ``nn.Embedding(30522, 768)``, ``nn.TransformerEncoder``
+  of 12 ``nn.TransformerEncoderLayer(768, 12, 3072, dropout=0.1,
+  activation="gelu")``, ``nn.LayerNorm``, an ``nn.Linear`` head over every
+  token and ``F.cross_entropy``, cast with ``Layer.to(dtype="bfloat16")``,
+  ``paddle.optimizer.AdamW(multi_precision=True)``, batch 64 x 512: the
+  stack at 2 layers of width 256 in fp32 on the card against the CPU
+  from one seed ([api-check]); the eager Paddle loop ``loss.backward();
+  opt.step(); opt.clear_grad()``, 1 warm-up and 4 timed steps, a profiled
+  step and the dispatcher's host cost ([api-train]); the same model under
+  ``TrainStep`` captured, bit for bit with the eager ``TrainStep``, timed
+  ([api-graph]); two steps with every kernel in its plain version
+  ([api-plain]).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel its path never launched fails the run. A
@@ -7283,6 +7296,303 @@ def _kernel_entry(name, source, replaces, launches, record):
                 launches=launches[name], **record)
 
 
+# ---------------------------------------------------------------- the Paddle
+# dygraph surface (slice 19): BERT-base width written as a user writes it
+
+API_BERT = dict(vocab=30522, d=768, heads=12, ffn=3072, layers=12,
+                dropout=0.1)
+API_TRAIN = dict(batch=64, seq=512, steps=4)      # 1 warm-up, then timed
+API_CHECK = dict(vocab=1024, d=256, heads=4, ffn=1024, layers=2,
+                 dropout=0.0)
+API_CHECK_BATCH = (4, 256)
+# one step of the full-width stack: per block the flat flash forward and
+# backward (the MHA's sdpa, no mask) and three nn.Dropout layers, each a
+# dropout launch forward and one backward
+API_STEP_LAUNCHES = dict(flash_attention_fwd=12, flash_attention_bwd=12,
+                         dropout_fwd=72)
+API_OP_ITERS = 20000      # dispatches timed a side for the per-op cost
+
+
+def _api_encoder(cfg, seed, place):
+    """The stack of the [api-*] phases built with ``import
+    paddle_tpu_torch as paddle`` on ``place`` from ``paddle.seed(seed)``:
+    ``nn.Embedding``, ``nn.TransformerEncoder`` of GELU layers,
+    ``nn.LayerNorm``, an ``nn.Linear`` head over every token and
+    ``F.cross_entropy`` (the logits cast to fp32)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    F = nn.functional
+
+    class Encoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(cfg["vocab"], cfg["d"])
+            self.encoder = nn.TransformerEncoder(
+                nn.TransformerEncoderLayer(cfg["d"], cfg["heads"], cfg["ffn"],
+                                           dropout=cfg["dropout"],
+                                           activation="gelu"),
+                cfg["layers"])
+            self.norm = nn.LayerNorm(cfg["d"])
+            self.head = nn.Linear(cfg["d"], cfg["vocab"])
+
+        def forward(self, ids, labels):
+            logits = self.head(self.norm(self.encoder(self.embed(ids))))
+            return F.cross_entropy(logits.astype("float32"), labels)
+
+    paddle.set_device(place)
+    paddle.seed(seed)
+    return Encoder()
+
+
+def _api_batch(cfg, b, s, seed, place):
+    import paddle_tpu_torch as paddle
+    paddle.set_device(place)
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, cfg["vocab"], (b, s), generator=gen)
+    labels = torch.randint(0, cfg["vocab"], (b, s), generator=gen)
+    return paddle.to_tensor(ids), paddle.to_tensor(labels)
+
+
+def phase_api_check():
+    """[api-check]: the stack at 2 layers, width 256, 4 heads of 64,
+    dropout 0, fp32, built twice from one seed (on the card and on the
+    CPU: the initializers draw on the CPU chain, so the weights agree bit
+    for bit) and run at 4 x 256: the loss and every leaf's gradient within
+    TRAIN_CHECK_REL_LIMIT, the card through the flash kernels."""
+    from paddle_tpu_torch.kernels import launch_counts
+    import paddle_tpu_torch as paddle
+    b, s = API_CHECK_BATCH
+    cpu = _api_encoder(API_CHECK, 3, "cpu")
+    cpu_batch = _api_batch(API_CHECK, b, s, 4, "cpu")
+    card = _api_encoder(API_CHECK, 3, "gpu")
+    card_batch = _api_batch(API_CHECK, b, s, 4, "gpu")
+    same = all(torch.equal(p.cpu(), q) for p, q in
+               zip(card.parameters(), cpu.parameters()))
+    if not same:
+        raise AssertionError("[api-check] one seed gave other weights on "
+                             "the card than on the CPU")
+    before = launch_counts()
+    loss_card = card(*card_batch)
+    loss_card.backward()
+    torch.cuda.synchronize()
+    grew = _grew(before, launch_counts())
+    _expect_launches("[api-check]", grew,
+                     flash_attention_fwd=API_CHECK["layers"],
+                     flash_attention_bwd=API_CHECK["layers"])
+    if not isinstance(loss_card, paddle.Tensor):
+        raise AssertionError(f"[api-check] the loss is a {type(loss_card)}")
+    loss_cpu = cpu(*cpu_batch)
+    loss_cpu.backward()
+    loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    grads = {n: (p.grad.cpu(), q.grad) for (n, p), (_, q) in
+             zip(card.named_parameters(), cpu.named_parameters())}
+    # a key projection's bias adds one constant to a row's logits, which
+    # the softmax ignores: its exact gradient is 0 and both sides hold fp32
+    # noise, so it is held to zero against the largest leaf gradient
+    scale = max(float(q.norm()) for _, q in grads.values())
+    zero = {n: max(float(g.norm()), float(q.norm())) / scale
+            for n, (g, q) in grads.items() if n.endswith("k_proj.bias")}
+    rels = {n: rel_err(g, q) for n, (g, q) in grads.items()
+            if n not in zero}
+    worst = max(rels, key=rels.get)
+    log(f"[api-check] fp32, {API_CHECK['layers']} layers, width "
+        f"{API_CHECK['d']}, [{b}, {s}]: loss card {float(loss_card):.6f} vs "
+        f"cpu {float(loss_cpu):.6f} (rel {loss_rel:.3g}); worst leaf "
+        f"gradient rel {rels[worst]:.3g} ({worst}) of {len(rels)}; the key "
+        f"biases' gradients (exactly 0) at most {max(zero.values()):.3g} of "
+        f"the largest leaf's; limit {TRAIN_CHECK_REL_LIMIT}; launches {grew}")
+    if not (loss_rel < TRAIN_CHECK_REL_LIMIT
+            and rels[worst] < TRAIN_CHECK_REL_LIMIT
+            and max(zero.values()) < TRAIN_CHECK_REL_LIMIT):
+        raise AssertionError("[api-check] the card disagrees with the CPU")
+    paddle.set_device("gpu")
+
+
+def _api_full(seed=0):
+    """The full-width stack in bf16 (``Layer.to(dtype="bfloat16")``) with
+    ``AdamW(multi_precision=True)``, and its batch."""
+    import paddle_tpu_torch as paddle
+    model = _api_encoder(API_BERT, seed, "gpu")
+    model.to(dtype="bfloat16")
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                 parameters=model.parameters(),
+                                 multi_precision=True)
+    batch = _api_batch(API_BERT, API_TRAIN["batch"], API_TRAIN["seq"], 5,
+                       "gpu")
+    return model, opt, batch
+
+
+def _api_eager_step(model, opt, batch):
+    loss = model(*batch)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss
+
+
+def _dispatch_cost_us():
+    """Host microseconds one dispatched op costs over the torch call it
+    runs (``paddle.add`` against ``torch.add`` on small card tensors)."""
+    import paddle_tpu_torch as paddle
+    a = paddle.ones([16])
+    b = paddle.ones([16])
+    pa, pb = a.as_subclass(torch.Tensor), b.as_subclass(torch.Tensor)
+    out = {}
+    for name, fn in (("paddle", lambda: paddle.add(a, b)),
+                     ("torch", lambda: torch.add(pa, pb))):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(API_OP_ITERS):
+            fn()
+        out[name] = (time.perf_counter() - t0) / API_OP_ITERS * 1e6
+        torch.cuda.synchronize()
+    return out["paddle"] - out["torch"], out
+
+
+def phase_api_train(smi):
+    """[api-train]: the full-width stack (BERT-base: vocab 30522, 12
+    layers of 12 heads of 64, FFN 3072, GELU, dropout 0.1) at 64 x 512 as
+    an eager Paddle loop, ``loss.backward(); opt.step();
+    opt.clear_grad()``: 1 warm-up and API_TRAIN["steps"] timed steps (each
+    launching API_STEP_LAUNCHES), peak memory, then one profiled step (the
+    device's busy share) and one step with the dispatcher's profiler hook
+    (ops a step and their host time), and the per-op dispatch cost.
+    Returns the losses (for [api-plain]) and the timings."""
+    from paddle_tpu_torch.core import dispatch
+    from paddle_tpu_torch.kernels import launch_counts
+    model, opt, batch = _api_full()
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for i in range(1 + API_TRAIN["steps"]):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        losses.append(float(_api_eager_step(model, opt, batch)))
+        walls.append(time.perf_counter() - t0)
+        _expect_launches(f"[api-train] step {i}",
+                         _grew(before, launch_counts()), **API_STEP_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    timed = walls[1:]
+    ms = sum(timed) / len(timed) * 1e3
+    tokens = API_TRAIN["batch"] * API_TRAIN["seq"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[api-train] losses {losses}")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(_api_eager_step(model, opt, batch))
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    ops = []
+    dispatch.set_profiler_hook(lambda n, t0, t1: ops.append(t1 - t0))
+    try:
+        t0 = time.perf_counter()
+        float(_api_eager_step(model, opt, batch))
+        hooked = time.perf_counter() - t0
+    finally:
+        dispatch.set_profiler_hook(None)
+    cost_us, per_call = _dispatch_cost_us()
+    log(f"[api-train] ({smi}) {n_params / 1e6:.1f} M params, bf16 with fp32 "
+        f"masters, 64 x 512, dropout 0.1: {ms:.2f} ms a step (min "
+        f"{min(timed) * 1e3:.2f}, max {max(timed) * 1e3:.2f}), "
+        f"{tokens / ms * 1e3:.0f} tokens/s, peak {peak:.2f} GB; losses "
+        f"{[round(x, 4) for x in losses]}")
+    log(f"[api-train] profiled step {wall * 1e3:.1f} ms wall, device busy "
+        f"{busy_us / 1e3:.1f} ms = {busy_us / 1e6 / wall:.3f} of wall; "
+        f"{len(ops)} dispatched ops a step, {sum(ops) * 1e3:.1f} ms of host "
+        f"time inside them (step {hooked * 1e3:.1f} ms with the hook); one "
+        f"dispatch {per_call['paddle']:.2f} us against torch.add's "
+        f"{per_call['torch']:.2f} us: {cost_us:.2f} us more a call, "
+        f"{len(ops) * cost_us / 1e3:.2f} ms a step")
+    del model, opt, batch, prof
+    return losses, dict(ms=ms, min=min(timed) * 1e3, max=max(timed) * 1e3,
+                        busy=busy_us / 1e6 / wall, peak=peak)
+
+
+def phase_api_graph(smi, eager):
+    """[api-graph]: the same model under ``TrainStep(model, opt)`` (the
+    captured step, the default) against ``TrainStep(fast_path=False)``
+    from the same seed and chain state: 3 steps each, losses and every
+    parameter, moment and master bit for bit, the programs CUDA graphs;
+    then API_TRAIN["steps"] timed captured steps, a profiled one (busy
+    share) and ``num_compiles``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import launch_counts
+    res = {}
+    for fast in (False, True):
+        model, opt, batch = _api_full()
+        step = TrainStep(model, opt, fast_path=fast)
+        paddle.seed(11)
+        losses = []
+        for i in range(3):
+            before = launch_counts()
+            losses.append(step(*batch))
+            torch.cuda.synchronize()
+            _expect_launches(f"[api-graph] fast_path={fast} step {i}",
+                             _grew(before, launch_counts()),
+                             **API_STEP_LAUNCHES)
+        state = {k: v.cpu() if torch.is_tensor(v) else v
+                 for k, v in _train_state(model, opt).items()}
+        res[fast] = (torch.stack([x.detach().as_subclass(torch.Tensor)
+                                  for x in losses]).cpu(), state)
+        if fast:
+            _graph_of(step)
+            walls = []
+            for _ in range(API_TRAIN["steps"]):
+                t0 = time.perf_counter()
+                step(*batch).item()
+                walls.append(time.perf_counter() - t0)
+            wall_ms, busy = _busy_share(step, batch)
+            compiles = step.num_compiles
+        del model, opt, step, batch
+        torch.cuda.empty_cache()
+    (le, se), (lg, sg) = res[False], res[True]
+    if not _bit_equal(lg, le):
+        raise AssertionError(f"[api-graph] losses {lg} vs {le}")
+    _hold_bits("[api-graph]", "3 captured steps against eager TrainStep",
+               sg, se)
+    ms = sum(walls) / len(walls) * 1e3
+    tokens = API_TRAIN["batch"] * API_TRAIN["seq"]
+    if compiles != 1:
+        raise AssertionError(f"[api-graph] num_compiles {compiles}")
+    log(f"[api-graph] ({smi}) captured {ms:.2f} ms a step (min "
+        f"{min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}), "
+        f"{tokens / ms * 1e3:.0f} tokens/s; profiled step {wall_ms:.1f} ms, "
+        f"busy {busy if busy is None else round(busy, 3)}; num_compiles "
+        f"{compiles}; the eager loop [api-train] {eager['ms']:.2f} ms "
+        f"(captured / eager {ms / eager['ms']:.4f})")
+
+
+def phase_api_plain(losses):
+    """[api-plain]: [api-train]'s recipe for two steps with every kernel in
+    its plain version (``_plain_kernels``: no launch; the same masks from
+    the same seeds): each loss within TRAIN_PLAIN_LOSS_LIMIT of
+    [api-train]'s."""
+    from paddle_tpu_torch.kernels import launch_counts
+    model, opt, batch = _api_full()
+    with _plain_kernels():
+        before = launch_counts()
+        plain = [float(_api_eager_step(model, opt, batch)) for _ in range(2)]
+        after = launch_counts()
+    if after != before:
+        raise AssertionError(f"[api-plain] launched kernels: {before} -> "
+                             f"{after}")
+    diff = max(abs(x - y) for x, y in zip(losses, plain))
+    log(f"[api-plain] losses {[round(x, 4) for x in plain]} against "
+        f"[api-train]'s {[round(x, 4) for x in losses[:2]]}: largest "
+        f"difference {diff:.3g} (limit {TRAIN_PLAIN_LOSS_LIMIT})")
+    if not diff < TRAIN_PLAIN_LOSS_LIMIT:
+        raise AssertionError("[api-plain] the kernel path departs from the "
+                             "plain path")
+    del model, opt, batch
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -7482,6 +7792,21 @@ def main() -> int:
     paths["bert-training-graph"] = counts()
     torch.cuda.empty_cache()
 
+    # the Paddle dygraph surface at BERT-base width: the card against the
+    # CPU, the eager Paddle loop, the same model captured, the plain witness
+    counted("api-check", phase_api_check)
+    _release("before [api-train]")
+    reset_launch_counts()                  # the Paddle eager loop
+    api_losses, api_eager = phase_api_train(smi)
+    paths["api-training"] = counts()
+    _release("after [api-train]")
+    reset_launch_counts()                  # the Paddle model captured
+    phase_api_graph(smi, api_eager)
+    paths["api-training-graph"] = counts()
+    _release("after [api-graph]")
+    phase_api_plain(api_losses)
+    _release("after [api-plain]")
+
     t0 = time.perf_counter()
     llama = LlamaForCausalLM(llama_7b(), dtype=torch.bfloat16, seed=0).eval()
     torch.cuda.synchronize()
@@ -7599,6 +7924,10 @@ def main() -> int:
                                      "fused_add_dropout_ln_bwd"],
              "llama-training-graph": ["flash_attention_fwd",
                                       "flash_attention_bwd"],
+             "api-training": ["flash_attention_fwd", "flash_attention_bwd",
+                              "dropout_fwd"],
+             "api-training-graph": ["flash_attention_fwd",
+                                    "flash_attention_bwd", "dropout_fwd"],
              "gpt-serving-spec-draft": ["flash_pair_fwd"],
              "gpt-serving-spec-early": ["flash_pair_fwd"],
              "llama-serving-spec": ["flash_attention_fwd"]}

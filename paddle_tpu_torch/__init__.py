@@ -37,22 +37,105 @@ SIGTERM). ``monitor`` is the telemetry plane
 (metrics, JSONL records, spans, goodput and MFU, model health), wired into
 ``TrainStep`` and ``DecodeEngine``; ``PADDLE_MONITOR=path`` turns it on at
 import.
+
+The Paddle dygraph surface (slice 19): ``import paddle_tpu_torch as
+paddle`` reads like the JAX package: ``paddle.to_tensor``, ``Tensor`` (a
+``torch.Tensor`` subclass), ``Parameter``, the dtypes, ``set_device`` /
+``get_device`` / ``CUDAPlace``, ``grad``, ``no_grad``, the ops of
+``ops`` (also ``Tensor`` methods), ``linalg``, ``nn`` (``Layer``, a
+``torch.nn.Module``, and its layers up to ``TransformerEncoder``),
+``nn.functional``, ``autograd.PyLayer``, ``optimizer.SGD`` /
+``Momentum`` / ``Adam`` / ``AdamW``, ``save`` / ``load``, ``ParamAttr``,
+``set_flags`` / ``get_flags``. Every op passes ``core.dispatch.apply_op``.
 """
-from . import (amp, core, distributed, jit, kernels, models, monitor, nn,
-               optimizer, quantization, regularizer, serving, utils)
+import builtins
+
+from . import (amp, autograd, core, distributed, framework, jit, kernels,
+               models, monitor, nn, ops, optimizer, quantization,
+               regularizer, serving, utils)
+from .core.autograd import grad
+from .core.device import (CPUPlace, CUDAPlace, Place, device_count,
+                          get_device, is_compiled_with_cuda, set_device)
+from .core.dispatch import (enable_grad, is_grad_enabled, no_grad,
+                            set_grad_enabled)
+from .core.dtype import (bfloat16, bool_ as bool, complex64,  # noqa: F401
+                         complex128, float16, float32, float64, int8,
+                         int16, int32, int64, uint8)
+from .core.flags import get_flags, set_flags
 from .core.random import get_rng_state, seed, set_rng_state
+from .core.tensor import Parameter, Tensor, to_tensor
 from .jit import TrainStep
 from .models import (BertConfig, BertForPreTraining, GPTConfig,
                      GPTForCausalLM, LlamaConfig, LlamaForCausalLM, bert_base,
                      llama_7b)
+from .ops import *  # noqa: F401,F403
+from .ops import __all__ as _ops_all
+from .ops import linalg
+from .param_attr import ParamAttr
 from .serving import DecodeEngine
 
-__all__ = ["amp", "core", "distributed", "jit", "kernels", "models",
-           "monitor", "nn",
-           "optimizer", "quantization", "regularizer", "serving", "utils",
-           "BertConfig", "BertForPreTraining", "bert_base", "GPTConfig",
-           "GPTForCausalLM", "LlamaConfig", "LlamaForCausalLM", "llama_7b",
-           "DecodeEngine", "TrainStep", "seed", "get_rng_state",
-           "set_rng_state"]
+save = framework.io.save
+load = framework.io.load
+
+_default_dtype = ["float32"]
+
+
+def get_default_dtype():
+    return _default_dtype[0]
+
+
+def set_default_dtype(d):
+    """Record the default floating type's name (read back by
+    ``get_default_dtype``; layers keep float32 parameters, as the JAX
+    package's do)."""
+    from .core.dtype import dtype_name
+    _default_dtype[0] = dtype_name(d)
+
+
+def disable_static(place=None):
+    """Eager is the only mode: nothing to do."""
+
+
+def enable_static():
+    raise NotImplementedError(
+        "the port is eager; static graphs (jit.to_static) are ROADMAP "
+        "Queue 1, item 11")
+
+
+def in_dynamic_mode():
+    return True
+
+
+def is_grad_enabled_():
+    return is_grad_enabled()
+
+
+def summary(net, input_size=None, dtypes=None):
+    """Print and return the parameter counts of ``net``."""
+    total = builtins.sum(p.numel() for p in net.parameters())
+    trainable = builtins.sum(p.numel() for p in net.parameters()
+                             if p.requires_grad)
+    print(f"Total params: {total}")
+    print(f"Trainable params: {trainable}")
+    return {"total_params": total, "trainable_params": trainable}
+
+
+__all__ = (["amp", "autograd", "core", "distributed", "framework", "jit",
+            "kernels", "models", "monitor", "nn", "ops", "optimizer",
+            "quantization", "regularizer", "serving", "utils", "linalg",
+            "BertConfig", "BertForPreTraining", "bert_base", "GPTConfig",
+            "GPTForCausalLM", "LlamaConfig", "LlamaForCausalLM", "llama_7b",
+            "DecodeEngine", "TrainStep", "seed", "get_rng_state",
+            "set_rng_state", "grad", "CPUPlace", "CUDAPlace", "Place",
+            "device_count", "get_device", "is_compiled_with_cuda",
+            "set_device", "enable_grad", "is_grad_enabled", "no_grad",
+            "set_grad_enabled", "bool", "bfloat16", "complex64",
+            "complex128", "float16", "float32", "float64", "int8", "int16",
+            "int32", "int64", "uint8", "get_flags", "set_flags", "Parameter",
+            "Tensor", "to_tensor", "ParamAttr", "save", "load",
+            "get_default_dtype", "set_default_dtype", "disable_static",
+            "enable_static", "in_dynamic_mode", "is_grad_enabled_",
+            "summary"]
+           + [n for n in _ops_all if n != "linalg"])
 
 monitor._maybe_enable_from_env()

@@ -23,6 +23,11 @@ names, so names map one to one. What changes:
 Any source name the target lacks, any target name the source lacks, and
 any shape mismatch raises ``ValueError``.
 
+``load_paddle_layer_state`` carries a JAX ``nn.Layer``'s
+``state_dict()`` into a Paddle-API ``Layer`` of the port with no
+transpose: both hold ``Linear.weight`` as ``[in, out]`` under the same
+structured names.
+
 ``convert_paddle_optimizer_state`` carries a ``paddle_tpu`` optimizer's
 ``state_dict()`` over the same way: moments and fp32 masters take their
 parameter's layout change, the scheduler's state and the step count pass
@@ -36,7 +41,7 @@ import numpy as np
 import torch
 
 __all__ = ["convert_paddle_state", "load_paddle_state",
-           "convert_paddle_optimizer_state"]
+           "load_paddle_layer_state", "convert_paddle_optimizer_state"]
 
 
 def _linear_weight_names(model: torch.nn.Module) -> set:
@@ -75,6 +80,31 @@ def load_paddle_state(model: torch.nn.Module,
     """Convert ``params`` and load them into ``model`` (strict)."""
     model.load_state_dict(convert_paddle_state(params, model), strict=True)
     return model
+
+
+def load_paddle_layer_state(layer: torch.nn.Module,
+                            jax_state: Mapping[str, Any]) -> torch.nn.Module:
+    """Copy a JAX ``Layer.state_dict()`` (its Tensors, or numpy arrays)
+    into the port's ``layer`` in place, by name, with no transpose, cast to
+    each target's type. A missing key, an unexpected key or a shape
+    mismatch raises ``ValueError``."""
+    target = layer.state_dict()
+    leftover = sorted(set(jax_state) - set(target))
+    missing = sorted(set(target) - set(jax_state))
+    if leftover or missing:
+        raise ValueError(f"load_paddle_layer_state: unexpected keys "
+                         f"{leftover}, missing keys {missing}")
+    with torch.no_grad():
+        for name, ref in target.items():
+            src = jax_state[name]
+            arr = np.asarray(src.numpy() if hasattr(src, "numpy") else src)
+            if tuple(arr.shape) != tuple(ref.shape):
+                raise ValueError(f"load_paddle_layer_state: {name} has shape "
+                                 f"{tuple(arr.shape)}, the layer's is "
+                                 f"{tuple(ref.shape)}")
+            torch.Tensor.copy_(ref, torch.as_tensor(np.ascontiguousarray(
+                arr)).to(ref.dtype))
+    return layer
 
 
 def convert_paddle_optimizer_state(state: Mapping[str, Any],

@@ -26,7 +26,7 @@ import torch.nn.functional as TF
 from torch.overrides import TorchFunctionMode
 
 __all__ = ["WHITE_LIST", "BLACK_LIST", "TORCH_NAMES", "AmpAttrs",
-           "amp_state", "applied", "amp_op"]
+           "amp_state", "applied", "amp_op", "maybe_cast_inputs"]
 
 # the O1 lists, the JAX package's op names
 WHITE_LIST = {
@@ -206,3 +206,15 @@ def amp_op(name: str):
                 _tls.suspended -= 1
         return op
     return wrap
+
+
+def maybe_cast_inputs(name: str, args):
+    """``args`` (a list) cast by the rule of the op ``name`` under the
+    ``auto_cast`` in force (the JAX package's ``maybe_cast_inputs``, which
+    its dispatcher calls for every op): unchanged outside ``auto_cast``
+    and inside a suspended body."""
+    st = getattr(_tls, "amp", None)
+    if st is None or getattr(_tls, "suspended", 0):
+        return args
+    rule = st.target(name)
+    return args if rule is None else [_cast(a, *rule) for a in args]

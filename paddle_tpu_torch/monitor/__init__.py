@@ -135,6 +135,9 @@ class Monitor:
         # one `monitor._active is None` check at each integration point.
         self.health = _health_mod.HealthPlane(self)
         self.warn_after = warn_after
+        # per-op dispatch counts of the Paddle surface (op_hook)
+        self._op_counts = {}
+        self._op_compiles = 0
         self._t0 = time.time()
         self.emit("meta", schema=SCHEMA_VERSION, pid=os.getpid(),
                   proc=int(os.environ.get("PADDLE_TRAINER_ID", "0") or 0),
@@ -168,8 +171,29 @@ class Monitor:
         except Exception:
             pass
         snap = self.registry.snapshot()
+        # copy first: op_hook inserts first-seen op names as it goes, and
+        # iterating the live dict would raise mid-dump
+        snap["counters"].update({f"op/{k}": v
+                                 for k, v in sorted(dict(self._op_counts)
+                                                    .items())})
         self.emit("counters", metrics=snap)
         return snap
+
+    # -------------------------------------------------- integration: dispatch
+
+    def op_hook(self, name: str):
+        """Count one dispatch of the op ``name`` (``core.dispatch``)."""
+        c = self._op_counts
+        c[name] = c.get(name, 0) + 1
+
+    def op_compile_hook(self, name: str, attr_key):
+        """The JAX package's per-op executable mint. Eager torch mints none,
+        so ``core.dispatch`` never calls it; it is installed for the
+        signature's sake."""
+        self._op_compiles += 1
+        self.registry.counter("dispatch/op_compiles").inc()
+        self.emit("op_compile", name=name, attrs=repr(attr_key),
+                  count=self._op_compiles)
 
     def flush(self):
         if self.sink is not None:
@@ -941,6 +965,8 @@ def enable(path: Optional[str] = None, *, warn_after: Optional[int] = None,
                       ring=ring)
         _goodput_mod._set_active(mon.goodput)
         _active = mon
+        from ..core import dispatch
+        dispatch.set_monitor_hooks(mon.op_hook, mon.op_compile_hook)
     if fleet is None:
         v = os.environ.get("PADDLE_MONITOR_FLEET")
         # explicit falsy values DISABLE (an operator's FLEET=0 must not
@@ -974,6 +1000,8 @@ def _teardown_locked():
     global _active
     mon, _active = _active, None
     _goodput_mod._set_active(None)
+    from ..core import dispatch
+    dispatch.set_monitor_hooks(None, None)
     from . import collector as _collector
     if mon is not None and _collector.get_active() is not None:
         # only the plane over THIS session's registry dies with it

@@ -33,12 +33,15 @@ policy and the health plane's activation taps see it.
 """
 from __future__ import annotations
 
+import functools
+import inspect
 import math
 from contextlib import contextmanager
 
 import torch
 
 from ...core.amp_state import amp_op
+from ...core.dispatch import apply_op, register_op
 from ...core.random import next_seed
 from ...core.remat import ATTN_CONTEXT, tag_activation
 from ...kernels import philox
@@ -281,3 +284,24 @@ def flash_attention_qkv_packed(qkv, num_heads: int, dropout: float = 0.0,
     q, k, v = (qkv[:, :, i * hd:(i + 1) * hd].reshape(b, L, num_heads, d)
                for i in range(3))
     return _attend(q, k, v, None, causal, rate, seed).reshape(b, L, hd)
+
+
+def _dispatched(name, fn):
+    """``fn`` as the registered op ``name``: a ``Tensor`` in gives a
+    ``Tensor`` out (``core.dispatch.apply_op``); its arguments go
+    positionally so every tensor among them reaches the body plain."""
+    register_op(name, fn)
+    sig = inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs)
+        return apply_op(name, bound.args, bound.kwargs)
+    return call
+
+
+scaled_dot_product_attention = _dispatched("sdpa",
+                                           scaled_dot_product_attention)
+flash_attention = _dispatched("flash_attn_pallas", flash_attention)
+flash_attention_qkv_packed = _dispatched("flash_attn_qkv_packed",
+                                         flash_attention_qkv_packed)

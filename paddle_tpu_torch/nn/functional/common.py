@@ -1,5 +1,8 @@
 """Common functionals (counterpart of ``paddle_tpu/nn/functional/common.py``):
-dropout.
+``linear`` (Paddle's ``[in, out]`` weight), the dropouts, ``embedding``
+and the small tensor functionals, each dispatched through
+``core.dispatch`` (``Tensor`` in, ``Tensor`` out; plain torch tensors
+in, plain out, as the port's models call them).
 
 ``dropout`` draws from an explicit CPU ``torch.Generator`` where it is
 given one and from the global chain (``core.random``: ``seed``) where it
@@ -13,17 +16,31 @@ mask from the seed.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as TF
 
-from ...core.amp_state import amp_op
+from ...core.dispatch import register_op
 from ...core.random import default_generator, next_seed
 from ...kernels.dropout import DropoutFunction
+from ...ops._helpers import _op
+from ...ops.manipulation import one_hot as _one_hot
+from ...ops.manipulation import pad  # noqa: F401  (paddle.nn.functional.pad)
 
-__all__ = ["dropout"]
+__all__ = ["linear", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
+           "embedding", "one_hot", "pad", "bilinear", "cosine_similarity",
+           "pixel_shuffle", "pixel_unshuffle", "channel_shuffle",
+           "label_smooth"]
 
 
-@amp_op("dropout")
+def linear(x, weight, bias=None, name=None):
+    """``x @ weight + bias`` with Paddle's ``[in, out]`` weight."""
+    return _op("linear", x, weight, bias)
+
+
+register_op("linear", lambda x, w, b=None: TF.linear(x, w.t(), b))
+
+
 def dropout(x, p: float = 0.5, axis=None, training: bool = True,
-            mode: str = "upscale_in_train", generator=None):
+            mode: str = "upscale_in_train", name=None, *, generator=None):
     """``paddle.nn.functional.dropout``: each element of ``x`` (or each
     slice along the axes not in ``axis``) is zeroed with probability ``p``.
 
@@ -35,6 +52,12 @@ def dropout(x, p: float = 0.5, axis=None, training: bool = True,
     drawn with ``torch.bernoulli`` from ``generator`` (an XLA op in the JAX
     package too, not a kernel). ``generator`` (a CPU ``torch.Generator``)
     overrides the global chain, which a call without one draws from."""
+    return _op("dropout", x, p=p, axis=axis, training=training, mode=mode,
+               generator=generator)
+
+
+def _dropout_fwd(x, p=0.5, axis=None, training=True,
+                 mode="upscale_in_train", generator=None):
     if mode not in ("upscale_in_train", "downscale_in_infer"):
         raise ValueError(f"dropout: unknown mode {mode!r}")
     p = float(p)
@@ -57,3 +80,133 @@ def dropout(x, p: float = 0.5, axis=None, training: bool = True,
         return x * keep / (1.0 - p) if upscale else x * keep
     return DropoutFunction.apply(x.contiguous(), next_seed(generator), p,
                                  upscale)
+
+
+register_op("dropout", _dropout_fwd)
+
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW", name=None):
+    """Whole channels dropped (the mask varies over N and C only)."""
+    axis = [0, 1] if data_format == "NCHW" else [0, 3]
+    return dropout(x, p, axis=axis, training=training)
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW", name=None):
+    axis = [0, 1] if data_format == "NCDHW" else [0, 4]
+    return dropout(x, p, axis=axis, training=training)
+
+
+def alpha_dropout(x, p=0.5, training=True, name=None):
+    """SELU's dropout: dropped elements go to the negative saturation and
+    an affine map keeps the mean and variance."""
+    if not training or p == 0.0:
+        return x
+    alpha_p = -1.6732632423543772 * 1.0507009873554805
+    keep = torch.bernoulli(torch.full(tuple(x.shape), 1.0 - float(p)),
+                           generator=default_generator()).bool()
+    a = (1.0 - p + p * alpha_p ** 2) ** -0.5
+    b = -a * alpha_p * p
+    return _op("alpha_dropout", x, keep.to(x.device), alpha_p=alpha_p, a=a,
+               b=b)
+
+
+register_op("alpha_dropout", lambda x, keep, alpha_p=0.0, a=1.0, b=0.0:
+            a * torch.where(keep, x, torch.full_like(x, alpha_p)) + b)
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` at the ids ``x``; rows at ``padding_idx`` come out
+    zero (and pass no gradient). ``sparse`` gradients are ROADMAP Queue 1,
+    item 4's sparse rule: the gradient here is dense."""
+    if padding_idx is not None and padding_idx < 0:
+        padding_idx += int(weight.shape[0])
+    return _op("embedding", weight, x, padding_idx=padding_idx)
+
+
+def _embedding_fwd(w, ids, padding_idx=None):
+    out = TF.embedding(ids.long(), w)
+    if padding_idx is not None:
+        out = out.masked_fill((ids == padding_idx).unsqueeze(-1), 0.0)
+    return out
+
+
+register_op("embedding", _embedding_fwd)
+
+
+def one_hot(x, num_classes, name=None):
+    return _one_hot(x, num_classes)
+
+
+def bilinear(x1, x2, weight, bias=None, name=None):
+    """``x1^T W x2 + b`` with ``weight`` ``[out, in1, in2]``."""
+    return _op("bilinear", x1, x2, weight, bias)
+
+
+register_op("bilinear", lambda x1, x2, w, b=None: TF.bilinear(
+    x1, x2, w, None if b is None else b.reshape(-1)))
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8, name=None):
+    return _op("cosine_similarity", x1, x2, axis=int(axis), eps=float(eps))
+
+
+def _cos_sim_fwd(x1, x2, axis=1, eps=1e-8):
+    dot = torch.sum(x1 * x2, dim=axis)
+    n1 = torch.sqrt(torch.sum(torch.square(x1), dim=axis))
+    n2 = torch.sqrt(torch.sum(torch.square(x2), dim=axis))
+    return dot / torch.clamp_min(n1 * n2, eps)
+
+
+register_op("cosine_similarity", _cos_sim_fwd)
+
+
+def pixel_shuffle(x, upscale_factor, data_format="NCHW", name=None):
+    return _op("pixel_shuffle", x, r=int(upscale_factor),
+               channel_last=data_format == "NHWC")
+
+
+def _channels_first(fn):
+    """``fn`` on NCHW, taking and giving NHWC when ``channel_last``."""
+    def run(x, r=1, channel_last=False):
+        if channel_last:
+            return fn(x.permute(0, 3, 1, 2), r).permute(0, 2, 3, 1)
+        return fn(x, r)
+    return run
+
+
+register_op("pixel_shuffle", _channels_first(TF.pixel_shuffle))
+
+
+def pixel_unshuffle(x, downscale_factor, data_format="NCHW", name=None):
+    return _op("pixel_unshuffle", x, r=int(downscale_factor),
+               channel_last=data_format == "NHWC")
+
+
+register_op("pixel_unshuffle", _channels_first(TF.pixel_unshuffle))
+
+
+def channel_shuffle(x, groups, data_format="NCHW", name=None):
+    return _op("channel_shuffle", x, groups=int(groups),
+               channel_last=data_format == "NHWC")
+
+
+def _channel_shuffle_fwd(x, groups=1, channel_last=False):
+    ax = x.dim() - 1 if channel_last else 1
+    c = x.shape[ax]
+    moved = torch.movedim(x, ax, 1)
+    rest = tuple(moved.shape[2:])
+    out = moved.reshape((moved.shape[0], groups, c // groups) + rest)
+    out = out.transpose(1, 2).reshape((moved.shape[0], c) + rest)
+    return torch.movedim(out, 1, ax)
+
+
+register_op("channel_shuffle", _channel_shuffle_fwd)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    return _op("label_smooth", label, prior_dist, epsilon=float(epsilon))
+
+
+register_op("label_smooth", lambda label, prior=None, epsilon=0.1:
+            (1 - epsilon) * label + (epsilon / label.shape[-1]
+                                     if prior is None else epsilon * prior))

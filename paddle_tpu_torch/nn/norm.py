@@ -1,13 +1,14 @@
-"""Normalisation layers the port adds to ``torch.nn`` (counterpart of
-``paddle_tpu/nn/layers_norm_act_loss.py``)."""
+"""``rms_norm``, the RMSNorm op (counterpart of the JAX package's
+``_rms_norm_fwd`` in ``paddle_tpu/nn/layers_norm_act_loss.py``); the
+layer is ``layers_norm_act_loss.RMSNorm``."""
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ..core.amp_state import amp_op
+from ..core.dispatch import register_op
 
-__all__ = ["RMSNorm", "rms_norm"]
+__all__ = ["rms_norm"]
 
 
 @amp_op("rms_norm")
@@ -22,17 +23,4 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (out * weight.float()).to(x.dtype)
 
 
-class RMSNorm(nn.Module):
-    """RMSNorm over the last axis with a learned scale initialised to
-    ones (the LLaMA family's norm)."""
-
-    def __init__(self, hidden_size: int, epsilon: float = 1e-6):
-        super().__init__()
-        self.epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(hidden_size))
-
-    def forward(self, x):
-        return rms_norm(x, self.weight, self.epsilon)
-
-    def extra_repr(self):
-        return f"{self.weight.shape[0]}, epsilon={self.epsilon}"
+register_op("rms_norm", rms_norm)

@@ -34,7 +34,8 @@ from ..core.amp_state import applied
 from ..regularizer import L1Decay
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Adam", "AdamW", "adam_update", "adam_scalars"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "adam_update",
+           "adam_scalars"]
 
 _ITEM = "ROADMAP Queue 1, item 4"
 
@@ -148,6 +149,10 @@ class Optimizer:
         if isinstance(self._learning_rate, LRScheduler):
             raise RuntimeError("cannot set_lr when using an LRScheduler")
         self._learning_rate = float(value)
+
+    def set_lr_scheduler(self, scheduler: LRScheduler):
+        """Let ``scheduler`` drive the rate from now on."""
+        self._learning_rate = scheduler
 
     # ------------------------------------------------------------ state
 
@@ -274,10 +279,25 @@ class Optimizer:
                        skip=None):
         raise NotImplementedError
 
-    def clear_grad(self):
-        """Drop every gradient (``p.grad = None``)."""
+    def clear_grad(self, set_to_zero: bool = False):
+        """Drop every gradient (``p.grad = None``), or zero it in place
+        with ``set_to_zero``."""
         for p in self._parameter_list:
-            p.grad = None
+            if set_to_zero and p.grad is not None:
+                with torch.no_grad():
+                    p.grad.zero_()
+            else:
+                p.grad = None
+
+    clear_gradients = clear_grad
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """``loss.backward()`` then ``step()``; returns ``(None, None)`` as
+        the JAX package's does."""
+        loss.backward()
+        self.step()
+        return None, None
 
     # ------------------------------------------------------------ checkpoint
 
@@ -348,6 +368,47 @@ class Optimizer:
                 and state.get("LR_Scheduler"):
             self._learning_rate.set_state_dict(state["LR_Scheduler"])
         self._step_count = int(state.get("_step_count", 0))
+
+
+class SGD(Optimizer):
+    """``p -= lr * (g + weight_decay * p)`` (L2 decay on the gradient)."""
+
+    _state_names: List[str] = []
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None,
+                 multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+
+    def _update(self, param, grad, state, lr, step, wd_scale=1.0):
+        wd = self._weight_decay * wd_scale
+        g = grad + wd * param if wd else grad
+        param.sub_(_smul(g, lr))
+
+
+class Momentum(Optimizer):
+    """Heavy-ball momentum: ``v = momentum * v + g`` (``g`` with L2 decay),
+    ``p -= lr * v``, or ``p -= lr * (g + momentum * v)`` with
+    ``use_nesterov``."""
+
+    _state_names = ["velocity"]
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._momentum = float(momentum)
+        self._use_nesterov = bool(use_nesterov)
+
+    def _update(self, param, grad, state, lr, step, wd_scale=1.0):
+        wd = self._weight_decay * wd_scale
+        g = grad + wd * param if wd else grad
+        v = state["velocity"]
+        v.mul_(self._momentum).add_(g)
+        upd = g + self._momentum * v if self._use_nesterov else v
+        param.sub_(_smul(upd, lr))
 
 
 class Adam(Optimizer):
