@@ -88,7 +88,10 @@ the user entry points, random weights from a seed:
   path at dropout 0.1: once on the packed path (unpadded batches, the pair
   kernels) and once on padded batches (``seq_lens``; lengths uniform in
   [32, 512] from a seed: the flat kernels with the lengths), where the
-  padded route at full lengths is also held to the packed route;
+  padded route at full lengths is also held to the packed route; the
+  token-type gradient the same in 60 identical backwards ([type-order]:
+  the model's one-hot product, torch's lookup counted beside it) before
+  the captured step is held bit for bit to the eager one;
 * row 6's direct call: ``kernels.flash_attention_qkv_packed`` (the pair
   kernels) under
   autograd at [2, 2048, 3*16*128] (no model reaches it);
@@ -190,6 +193,12 @@ the time of one PyTorch call computing the same function (library_ms, a
 yardstick only; the port never calls it); rows 1 and 4 again at the
 drafters' windows. The last line is ``{"ok": true,
 "device": {...}}``.
+
+    python3 chip_smoke.py --api-only
+
+runs the card's checks, the build and the [api-*] phases alone in a fresh
+process (the Paddle surface's numbers without the script's earlier
+phases) and prints neither JSON line.
 """
 from __future__ import annotations
 
@@ -201,6 +210,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -7138,6 +7148,45 @@ def phase_train_graph_compiles(smi):
     torch.cuda.empty_cache()
 
 
+TYPE_ORDER_CALLS = 60
+
+
+def phase_type_order():
+    """[type-order]: the gradient of BERT's token-type table (2 rows, every
+    token of a 64 x 512 batch in one of them) from TYPE_ORDER_CALLS
+    identical backwards: the model's one-hot product
+    (``models.bert.type_embedding``) must give one result, bit for bit,
+    and its forward the lookup's values; torch's embedding lookup is
+    counted beside it ([bert-train-graph] holds the captured step bit for
+    bit to the eager one)."""
+    from paddle_tpu_torch.models.bert import type_embedding
+    _, types, _, _, _ = _bert_batch(BERT_TRAIN["batch"], BERT_TRAIN["seq"], 31)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    weight = torch.randn(2, BERT_BASE["hidden_size"], device="cuda",
+                         generator=gen).to(BF16).requires_grad_()
+    cot = torch.randn(*types.shape, BERT_BASE["hidden_size"], device="cuda",
+                      generator=gen).to(BF16)
+    same = {}
+    for name, fn in (("one-hot product", type_embedding),
+                     ("torch's lookup", lambda i, w:
+                      torch.nn.functional.embedding(i, w))):
+        grads = []
+        for _ in range(TYPE_ORDER_CALLS):
+            weight.grad = None
+            fn(types, weight).backward(cot)
+            grads.append(weight.grad.clone())
+        same[name] = sum(torch.equal(grads[0], g) for g in grads)
+    lookup = torch.equal(type_embedding(types, weight),
+                         torch.nn.functional.embedding(types, weight))
+    log(f"[type-order] token-type gradient [2, {BERT_BASE['hidden_size']}] "
+        f"over {list(types.shape)} tokens, {TYPE_ORDER_CALLS} identical "
+        f"backwards: equal to the first {same}; the product's forward equals "
+        f"the lookup bit for bit: {lookup}")
+    if same["one-hot product"] != TYPE_ORDER_CALLS or not lookup:
+        raise AssertionError("[type-order] the model's token-type route is "
+                             "not the same every call")
+
+
 def phase_bert_train_graph(smi):
     """[bert-train-graph]: [bert-train]'s recipe (BERT-base bf16, 64 x 512
     packed, dropout 0.1, AdamW with masters) eager and captured from seed
@@ -7432,23 +7481,64 @@ def _api_eager_step(model, opt, batch):
 
 def _dispatch_cost_us():
     """Host microseconds one dispatched op costs over the torch call it
-    runs (``paddle.add`` against ``torch.add`` on small card tensors)."""
+    runs (``paddle.add`` against ``torch.add`` on small card tensors),
+    the two calls' times, the same with the cycle collector off
+    ("paddle_nogc", "torch_nogc"), and a pure-Python loop's ("python":
+    ``sum(range(64))``, no torch), which reads the host's own speed."""
     import paddle_tpu_torch as paddle
     a = paddle.ones([16])
     b = paddle.ones([16])
     pa, pb = a.as_subclass(torch.Tensor), b.as_subclass(torch.Tensor)
     out = {}
     for name, fn in (("paddle", lambda: paddle.add(a, b)),
-                     ("torch", lambda: torch.add(pa, pb))):
-        for _ in range(100):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(API_OP_ITERS):
-            fn()
-        out[name] = (time.perf_counter() - t0) / API_OP_ITERS * 1e6
-        torch.cuda.synchronize()
+                     ("torch", lambda: torch.add(pa, pb)),
+                     ("python", lambda: sum(range(64)))):
+        for collect in (True, False):
+            for _ in range(100):
+                fn()
+            torch.cuda.synchronize()
+            if not collect:
+                gc.disable()
+            try:
+                t0 = time.perf_counter()
+                for _ in range(API_OP_ITERS):
+                    fn()
+                us = (time.perf_counter() - t0) / API_OP_ITERS * 1e6
+            finally:
+                gc.enable()
+            out[name if collect else f"{name}_nogc"] = us
+            torch.cuda.synchronize()
     return out["paddle"] - out["torch"], out
+
+
+def _host_state():
+    """What the process holds that host code pays for on every call: the
+    dispatcher's profiler and monitor hooks, torch function modes, a
+    Python trace or profile function, the live Python threads (by name)
+    and all its threads, its child processes, the machine's load average,
+    and the objects the cycle collector tracks."""
+    from paddle_tpu_torch.core import dispatch
+    names = {}
+    for t in threading.enumerate():
+        key = re.sub(r"[-_ ]?\d+", "", t.name)
+        names[key] = names.get(key, 0) + 1
+    tasks = os.listdir("/proc/self/task")
+    children = []
+    for task in tasks:
+        try:
+            with open(f"/proc/self/task/{task}/children") as fh:
+                children += fh.read().split()
+        except OSError:
+            pass
+    return dict(monitor_hook=dispatch._MONITOR_OP is not None,
+                profiler_hook=dispatch._PROFILER_HOOK is not None,
+                torch_modes=len(torch.overrides
+                                ._get_current_function_mode_stack()),
+                tracing=sys.gettrace() is not None
+                or sys.getprofile() is not None,
+                threads=sum(names.values()), thread_names=names,
+                native_threads=len(tasks), child_processes=len(children),
+                loadavg=os.getloadavg()[0], gc_objects=len(gc.get_objects()))
 
 
 def phase_api_train(smi):
@@ -7496,7 +7586,25 @@ def phase_api_train(smi):
         hooked = time.perf_counter() - t0
     finally:
         dispatch.set_profiler_hook(None)
+    # one step timed by part on the host clock, with no wait between the
+    # parts, then the wait for the device: where an eager step's host
+    # time goes (forward, backward, the optimizer, clear_grad)
+    torch.cuda.synchronize()
+    marks = [time.perf_counter()]
+    loss = model(*batch)
+    marks.append(time.perf_counter())
+    loss.backward()
+    marks.append(time.perf_counter())
+    opt.step()
+    marks.append(time.perf_counter())
+    opt.clear_grad()
+    marks.append(time.perf_counter())
+    float(loss)
+    marks.append(time.perf_counter())
+    parts = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    del loss
     cost_us, per_call = _dispatch_cost_us()
+    state = _host_state()
     log(f"[api-train] ({smi}) {n_params / 1e6:.1f} M params, bf16 with fp32 "
         f"masters, 64 x 512, dropout 0.1: {ms:.2f} ms a step (min "
         f"{min(timed) * 1e3:.2f}, max {max(timed) * 1e3:.2f}), "
@@ -7509,6 +7617,15 @@ def phase_api_train(smi):
         f"dispatch {per_call['paddle']:.2f} us against torch.add's "
         f"{per_call['torch']:.2f} us: {cost_us:.2f} us more a call, "
         f"{len(ops) * cost_us / 1e3:.2f} ms a step")
+    log(f"[api-train] host: with the cycle collector off a dispatch "
+        f"{per_call['paddle_nogc']:.2f} us, torch.add "
+        f"{per_call['torch_nogc']:.2f} us; a pure-Python sum(range(64)) "
+        f"{per_call['python']:.3f} us ({per_call['python_nogc']:.3f} with "
+        f"it off); the process holds {json.dumps(state)}")
+    log(f"[api-train] one step by part on the host: forward "
+        f"{parts[0]:.2f} ms, backward {parts[1]:.2f}, opt.step "
+        f"{parts[2]:.2f}, opt.clear_grad {parts[3]:.2f}, then the wait for "
+        f"the device {parts[4]:.2f} ms ({sum(parts):.2f} in all)")
     del model, opt, batch, prof
     return losses, dict(ms=ms, min=min(timed) * 1e3, max=max(timed) * 1e3,
                         busy=busy_us / 1e6 / wall, peak=peak)
@@ -7787,6 +7904,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_bert_pad_full()
     torch.cuda.empty_cache()
+    phase_type_order()
     reset_launch_counts()                  # BERT captured training
     phase_bert_train_graph(smi)
     paths["bert-training-graph"] = counts()
@@ -8071,7 +8189,37 @@ def main() -> int:
     return 0
 
 
+def api_only() -> int:
+    """``chip_smoke.py --api-only``: the card, the build and the [api-*]
+    phases alone in a fresh process (their numbers without the rest of
+    the script before them); no kernels line and no closing line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from paddle_tpu_torch.kernels import reset_launch_counts
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    _, _, smi = phase_card()
+    phase_build()
+    phase_api_check()
+    reset_launch_counts()
+    losses, eager = phase_api_train(smi)
+    log(f"[paths] api-training {_path_counts()}")
+    _release("after [api-train]")
+    reset_launch_counts()
+    phase_api_graph(smi, eager)
+    log(f"[paths] api-training-graph {_path_counts()}")
+    _release("after [api-graph]")
+    phase_api_plain(losses)
+    log(f"[done] the [api-*] phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fleet-worker"]:     # [fleet-http]'s replicas
         sys.exit(_http_worker(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--api-only"]:
+        sys.exit(api_only())
     sys.exit(main())

@@ -179,7 +179,8 @@ class Tensor(torch.Tensor):
 
     def __repr__(self, **kwargs):
         with _DisableSubclass():
-            body = torch.Tensor.__repr__(self.as_subclass(torch.Tensor))
+            body = torch.Tensor.__repr__(
+                self.detach().as_subclass(torch.Tensor))
         return (f"Tensor(shape={list(self.shape)}, "
                 f"dtype={dtypes.dtype_name(self.dtype)}, place={self.place}, "
                 f"stop_gradient={self.stop_gradient},\n       {body})")

@@ -88,8 +88,21 @@ class BertEmbeddings(nn.Module):
         pos = torch.arange(s, device=input_ids.device)[None, :]
         emb = self.word_embeddings(input_ids) + self.position_embeddings(pos)
         if token_type_ids is not None:
-            emb = emb + self.token_type_embeddings(token_type_ids)
+            emb = emb + type_embedding(token_type_ids,
+                                       self.token_type_embeddings.weight)
         return self.dropout(self.layer_norm(emb))
+
+
+def type_embedding(token_type_ids, weight):
+    """The token-type rows of ``weight`` (``[type_vocab_size, hidden]``) as
+    the product of a one-hot matrix with it: the lookup's values bit for
+    bit, and a gradient summed by a GEMM in a fixed order. torch's
+    embedding backward sums a row's lookups on CUDA in an order that can
+    change between identical calls when a few rows take every token (two
+    rows over a 64 x 512 batch), and the captured step is held bit for bit
+    to the eager one."""
+    one_hot = torch.nn.functional.one_hot(token_type_ids, weight.shape[0])
+    return one_hot.to(weight.dtype) @ weight
 
 
 class BertLayer(nn.Module):

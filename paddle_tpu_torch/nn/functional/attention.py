@@ -33,14 +33,11 @@ policy and the health plane's activation taps see it.
 """
 from __future__ import annotations
 
-import functools
-import inspect
 import math
 from contextlib import contextmanager
 
 import torch
 
-from ...core.amp_state import amp_op
 from ...core.dispatch import apply_op, register_op
 from ...core.random import next_seed
 from ...core.remat import ATTN_CONTEXT, tag_activation
@@ -147,7 +144,6 @@ def _attend(query, key, value, attn_mask, causal, rate, seed, kv_lens=None,
                                            seed, attn_mask), ATTN_CONTEXT)
 
 
-@amp_op("sdpa")
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
@@ -183,10 +179,22 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     The positional order is the JAX package's; ``name`` is accepted and
     ignored there as here, and ``generator`` (the port's) is keyword-only
     after it."""
+    return apply_op("sdpa", (query, key, value, attn_mask, kv_lens,
+                             q_segments, kv_segments),
+                    dict(dropout_p=dropout_p, is_causal=is_causal,
+                         training=training, generator=generator))
+
+
+def _sdpa_fwd(query, key, value, attn_mask, kv_lens, q_segments,
+              kv_segments, dropout_p=0.0, is_causal=False, training=True,
+              generator=None):
     rate = float(dropout_p) if training else 0.0
     seed = _draw_seed(rate, generator)
     return _attend(query, key, value, attn_mask, is_causal, rate, seed,
                    kv_lens, q_segments, kv_segments)
+
+
+register_op("sdpa", _sdpa_fwd)
 
 
 def _plain_attention(query, key, value, causal, rate: float = 0.0,
@@ -221,7 +229,6 @@ def _plain_attention(query, key, value, causal, rate: float = 0.0,
     return (probs @ vt).transpose(1, 2)
 
 
-@amp_op("flash_attn_pallas")
 def flash_attention(query, key, value, dropout: float = 0.0,
                     causal: bool = False, return_softmax: bool = False,
                     fixed_seed_offset=None, rng_name: str = "",
@@ -242,6 +249,14 @@ def flash_attention(query, key, value, dropout: float = 0.0,
     ignored, as there. In training at ``dropout > 0`` one seed is drawn
     from ``generator`` (keyword-only: a CPU ``torch.Generator``; the global
     chain without one) and the probabilities drop in-kernel."""
+    out = apply_op("flash_attn_pallas", (query, key, value),
+                   dict(dropout=dropout, causal=causal, training=training,
+                        use_pallas=use_pallas, generator=generator))
+    return (out, None) if return_softmax else out
+
+
+def _flash_attention_fwd(query, key, value, dropout=0.0, causal=False,
+                         training=True, use_pallas=None, generator=None):
     rate = float(dropout) if training else 0.0
     seed = _draw_seed(rate, generator)
     if use_pallas:
@@ -253,10 +268,12 @@ def flash_attention(query, key, value, dropout: float = 0.0,
         # None: the gate inside the sdpa route; False: the sdpa route,
         # which is the same routing
         out = _attend(query, key, value, None, causal, rate, seed)
-    return (out, None) if return_softmax else out
+    return out
 
 
-@amp_op("flash_attn_qkv_packed")
+register_op("flash_attn_pallas", _flash_attention_fwd)
+
+
 def flash_attention_qkv_packed(qkv, num_heads: int, dropout: float = 0.0,
                                causal: bool = True, training: bool = True,
                                generator=None):
@@ -271,6 +288,13 @@ def flash_attention_qkv_packed(qkv, num_heads: int, dropout: float = 0.0,
     In training at ``dropout > 0`` one seed is drawn from ``generator`` (a
     CPU ``torch.Generator``; the global chain without one) and every route
     drops the same elements under it."""
+    return apply_op("flash_attn_qkv_packed", (qkv,),
+                    dict(num_heads=num_heads, dropout=dropout, causal=causal,
+                         training=training, generator=generator))
+
+
+def _flash_qkv_packed_fwd(qkv, num_heads, dropout=0.0, causal=True,
+                          training=True, generator=None):
     rate = float(dropout) if training else 0.0
     seed = _draw_seed(rate, generator)
     b, L, width = qkv.shape
@@ -286,22 +310,4 @@ def flash_attention_qkv_packed(qkv, num_heads: int, dropout: float = 0.0,
     return _attend(q, k, v, None, causal, rate, seed).reshape(b, L, hd)
 
 
-def _dispatched(name, fn):
-    """``fn`` as the registered op ``name``: a ``Tensor`` in gives a
-    ``Tensor`` out (``core.dispatch.apply_op``); its arguments go
-    positionally so every tensor among them reaches the body plain."""
-    register_op(name, fn)
-    sig = inspect.signature(fn)
-
-    @functools.wraps(fn)
-    def call(*args, **kwargs):
-        bound = sig.bind(*args, **kwargs)
-        return apply_op(name, bound.args, bound.kwargs)
-    return call
-
-
-scaled_dot_product_attention = _dispatched("sdpa",
-                                           scaled_dot_product_attention)
-flash_attention = _dispatched("flash_attn_pallas", flash_attention)
-flash_attention_qkv_packed = _dispatched("flash_attn_qkv_packed",
-                                         flash_attention_qkv_packed)
+register_op("flash_attn_qkv_packed", _flash_qkv_packed_fwd)

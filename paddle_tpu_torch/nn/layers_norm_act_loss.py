@@ -7,13 +7,12 @@ from __future__ import annotations
 
 import torch
 
-from ..core.device import chosen_place as _chosen_place
-from ..core.tensor import Parameter, Tensor
+from ..core.tensor import Parameter
 from ..ops._helpers import _op
 from . import functional as F
 from .initializer import Constant
 from .layer import Layer
-from .norm import rms_norm
+from . import norm as _norm  # noqa: F401  (registers rms_norm)
 
 __all__ = [
     "LayerNorm", "RMSNorm", "ReLU", "ReLU6", "GELU", "Sigmoid", "Tanh",
@@ -56,11 +55,12 @@ class RMSNorm(Layer):
     """RMSNorm over the last axis with a learned scale initialised to ones
     (the LLaMA family's norm; ``norm.rms_norm``'s rounding).
 
-    The weight is made where torch's default device points (inside a
-    ``with torch.device(...)`` block: the LLaMA model builds on ``meta``),
-    or on the place ``set_device`` chose where it points to the CPU and
-    one was chosen; the port's models build it without one, on the
-    CPU."""
+    The weight is made on the default place, as every ``Layer``'s
+    parameters are (``create_parameter``). Inside an explicit ``with
+    torch.device(...)`` block on another device than the CPU it is made
+    there instead, as ones: the LLaMA model builds its blocks on ``meta``
+    (shapes only, nothing written) and sets its weights after
+    ``to_empty``."""
 
     def __init__(self, normalized_shape, epsilon=1e-6, weight_attr=None,
                  name=None):
@@ -69,22 +69,20 @@ class RMSNorm(Layer):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self.epsilon = epsilon
-        dev = torch.get_default_device()
-        if dev.type == "cpu" and _chosen_place() is not None:
-            dev = _chosen_place().device
-        init = Constant(1.0) if weight_attr is None or isinstance(
-            weight_attr, bool) else getattr(weight_attr, "initializer",
-                                            None) or Constant(1.0)
-        with torch.device(dev):
+        ctx = torch.get_default_device()
+        if ctx.type == "cpu":
+            self.weight = self.create_parameter(
+                shape=self._normalized_shape, attr=weight_attr,
+                default_initializer=Constant(1.0))
+            return
+        with torch.device(ctx):
             data = torch.empty(self._normalized_shape)
-        if dev.type != "meta":
-            data.copy_(init(self._normalized_shape, torch.float32))
+        if ctx.type != "meta":
+            data.fill_(1.0)
         self.weight = Parameter(data)
 
     def forward(self, x):
-        if isinstance(x, Tensor):
-            return _op("rms_norm", x, self.weight, epsilon=float(self.epsilon))
-        return rms_norm(x, self.weight, self.epsilon)
+        return _op("rms_norm", x, self.weight, epsilon=float(self.epsilon))
 
     def extra_repr(self):
         return f"{self._normalized_shape}, epsilon={self.epsilon}"

@@ -10,10 +10,21 @@ calls a method on a ``Tensor`` with torch's signature (``x.reshape(2,
 3)``, ``x.transpose(0, 1)``, ``x.view(torch.int32)``, ``x.expand(2, 3)``,
 ``x.sum(dim=0)``, ``x.size()``, ``x.numel()``) the method takes that form
 too; ``clone`` and ``numel`` stay torch's.
+
+A method whose name torch gives another meaning (``split``, ``max``,
+``sort``, ``gather``, ``where``, ``normal_``... : ``_CLASHES``) keeps
+torch's meaning for a call in torch's form: one its arguments tell apart
+(``dim=``, ``generator=``, an int where Paddle takes an index tensor),
+and any call from torch's own Python code (``torch.split(x, 2)`` calls
+``x.split(2, 0)``; ``torch.nn.init.normal_`` calls ``x.normal_(0, 1,
+generator=g)``) or from the port's kernel wrappers (a kernel's backward
+gets its saved ``Tensor`` arguments back). Anything else, the user's own
+``x.split(3)``, has Paddle's meaning.
 """
 from __future__ import annotations
 
 import builtins
+import sys
 
 import torch
 
@@ -160,12 +171,116 @@ def _expand_m(self, *shape, name=None):
 
 
 def _reduction_m(fn):
-    def method(self, axis=None, keepdim=False, name=None, *, dim=None,
-               dtype=None):
-        out = fn(self, axis if dim is None else dim, keepdim)
-        return out if dtype is None else out.astype(dtype)
+    """The reduction ``fn`` as a method: ``x.sum(axis, keepdim)``, with
+    ``dtype=`` the type it accumulates in (``x`` is cast first, as torch
+    does); torch's own method for a call in torch's form (``dim=``, a
+    floating tensor or ``other=``, which torch's ``max`` and ``min`` take
+    elementwise, or a call from torch's code: ``x.max(dim=1)`` gives
+    values and indices)."""
+    torch_method = getattr(torch.Tensor, fn.__name__)
+
+    def method(self, *args, **kwargs):
+        if _REDUCTION_TORCH_FORM(args, kwargs) or _torch_caller():
+            return torch_method(self, *args, **kwargs)
+        return _paddle(self, *args, **kwargs)
+
+    def _paddle(self, axis=None, keepdim=False, name=None, *, dtype=None):
+        if dtype is not None:
+            self = cast(self, dtype)  # noqa: F405
+        return fn(self, axis, keepdim)
     method.__name__ = fn.__name__
     method.__doc__ = fn.__doc__
+    return method
+
+
+# ------------------------------------- names torch gives another meaning
+
+# callers whose method calls keep torch's meaning: torch's Python code and
+# the port's kernel wrappers
+_TORCH_MODULES = ("torch.", "paddle_tpu_torch.kernels")
+
+
+def _torch_caller(depth=2):
+    """Whether the code ``depth`` frames up (the caller of the method that
+    asks) is torch's own or one of the port's kernel wrappers."""
+    mod = sys._getframe(depth).f_globals.get("__name__", "")
+    return mod == "torch" or mod.startswith(_TORCH_MODULES)
+
+
+def _kw(*names):
+    names = frozenset(names)
+    return lambda args, kw: not names.isdisjoint(kw)
+
+
+def _first(pred):
+    return lambda args, kw: bool(args) and pred(args[0])
+
+
+def _either(*tests):
+    return lambda args, kw: builtins.any(t(args, kw) for t in tests)
+
+
+def _is_int(a):
+    return isinstance(a, int) and not isinstance(a, bool)
+
+
+def _is_float_tensor(a):
+    return isinstance(a, torch.Tensor) and a.is_floating_point()
+
+
+def _never(args, kw):
+    return False
+
+
+_REDUCTION_TORCH_FORM = _either(_kw("dim", "other"), _first(_is_float_tensor))
+
+# name -> what tells a torch-form call apart by its arguments (the rest
+# is told apart by its caller): torch's keyword names, an int ``dim``
+# where Paddle's first argument is an index tensor, a bool where Paddle
+# takes an axis or a mode, a floating tensor where Paddle takes an axis
+_CLASHES = {
+    "split": _kw("split_size", "split_size_or_sections", "dim"),
+    "sort": _kw("dim", "stable"),
+    "gather": _either(_kw("dim", "sparse_grad"), _first(_is_int)),
+    "index_select": _either(_kw("dim"), _first(_is_int)),
+    "index_add": _either(_kw("dim", "source", "alpha"), _first(_is_int)),
+    "scatter": _either(_kw("dim", "src", "value", "reduce"),
+                       _first(_is_int)),
+    "where": _never,
+    "equal": _never,
+    "std": _either(_kw("dim", "correction"), _first(
+        lambda a: isinstance(a, bool))),
+    "var": _either(_kw("dim", "correction"), _first(
+        lambda a: isinstance(a, bool))),
+    "unique": _kw("sorted", "dim"),
+    "svd": _kw("some", "compute_uv"),
+    "qr": _either(_kw("some"), _first(lambda a: isinstance(a, bool))),
+    "triangular_solve": _never,
+    "slogdet": _never,
+    "histogram": _either(_kw("range", "weight", "density"),
+                         _first(lambda a: isinstance(a, torch.Tensor))),
+    "cov": _kw("correction"),
+    "add": _kw("alpha"),
+    "subtract": _kw("alpha"),
+    "divide": _kw("rounding_mode"),
+    "bernoulli": _either(_kw("p", "generator"), lambda args, kw: bool(args)),
+    "uniform_": _kw("generator", "from", "to"),
+    "normal_": _kw("generator"),
+}
+
+
+def _clashing(name, paddle_method):
+    """``name``'s method: torch's for a call in torch's form (``_CLASHES``
+    or a torch caller), else ``paddle_method``."""
+    torch_method = getattr(torch.Tensor, name)
+    torch_form = _CLASHES[name]
+
+    def method(self, *args, **kwargs):
+        if torch_form(args, kwargs) or _torch_caller():
+            return torch_method(self, *args, **kwargs)
+        return paddle_method(self, *args, **kwargs)
+    method.__name__ = method.__qualname__ = name
+    method.__doc__ = paddle_method.__doc__
     return method
 
 
@@ -269,6 +384,8 @@ def _install_tensor_methods():
         setattr(T, nm, _make_inplace(nm, fn))
     T.uniform_ = _uniform_
     T.normal_ = _normal_
+    for nm in _CLASHES:
+        setattr(T, nm, _clashing(nm, getattr(T, nm)))
 
 
 _install_tensor_methods()

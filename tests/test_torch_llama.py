@@ -106,8 +106,19 @@ def flash_route(monkeypatch):
     return calls
 
 
+@pytest.fixture
+def on_cpu():
+    """A Paddle layer built outside a model (``RMSNorm`` alone) takes the
+    default place, which ``set_device`` makes the CPU here."""
+    from paddle_tpu_torch.core import device as tp_device
+    saved = tp_device._default[0]
+    tp_device.set_device("cpu")
+    yield
+    tp_device._default[0] = saved
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rms_norm_matches_jax(dtype):
+def test_rms_norm_matches_jax(dtype, on_cpu):
     rs = np.random.RandomState(1)
     x = (rs.randn(3, 7, 64) * 3.0).astype(np.float32)
     w = (1.0 + rs.randn(64) * 0.1).astype(np.float32)

@@ -117,6 +117,31 @@ def test_embedding_padding_idx():
     assert float(fresh.weight.grad[9].abs().sum()) == 0.0
 
 
+def test_rms_norm_weight_on_the_default_place():
+    """``nn.RMSNorm``'s weight lies where every layer's parameters lie:
+    on the default place, not on torch's default device (a ``meta``
+    default place shows the difference on the CPU). With no place chosen
+    and no CUDA both layers raise; an explicit ``with torch.device(...)``
+    block off the CPU (LLaMA builds on ``meta``) keeps the weight there."""
+    assert tp.nn.RMSNorm(8).weight.place == tp.nn.LayerNorm(8).weight.place
+    assert tp.nn.RMSNorm(8).weight.place == tp.CPUPlace()
+    tp_device._default[0] = tp_device.Place("meta")
+    assert tp.nn.RMSNorm(8).weight.device.type == "meta"
+    assert tp.nn.LayerNorm(8).weight.device.type == "meta"
+    if not torch.cuda.is_available():
+        tp_device._default[0] = None
+        with pytest.raises(RuntimeError):
+            tp.nn.LayerNorm(8)
+        with pytest.raises(RuntimeError):
+            tp.nn.RMSNorm(8)
+    tp.set_device("cpu")
+    with torch.device("meta"):
+        assert tp.nn.RMSNorm(8).weight.device.type == "meta"
+    norm = tp.nn.RMSNorm(8)
+    assert isinstance(norm.weight, tp.Parameter)
+    assert torch.equal(norm.weight, torch.ones(8))
+
+
 def test_load_paddle_layer_state_refuses_a_mismatch():
     j = jp.nn.Linear(4, 3)
     state = dict(j.state_dict())

@@ -96,6 +96,100 @@ def test_shape_size_numpy_and_methods():
         b.set_value(np.zeros((3, 3)))
 
 
+def _parts(parts):
+    return [list(p.shape) for p in parts]
+
+
+def _host(t):
+    return t.detach().numpy()
+
+
+@pytest.mark.parametrize("holder", ["Tensor", "Parameter"])
+def test_torch_form_calls_keep_torch_meaning(holder):
+    """On a ``Tensor`` and on a ``Parameter``, torch's own functions
+    (which call the tensor's methods in torch's form) and torch-form
+    method calls (``dim=``, an int ``dim`` first) keep torch's meaning;
+    the Paddle-form calls give what the JAX package gives."""
+    data = np.arange(12, dtype=np.float32).reshape(2, 6)[:, ::-1].copy()
+    x = tp.to_tensor(data) if holder == "Tensor" else \
+        tp.Parameter(torch.from_numpy(data.copy()))
+    jx = jp.to_tensor(data)
+    with torch.no_grad():   # a Parameter's outputs need no gradient here
+        # torch's functions
+        assert _parts(torch.split(x, 4, 1)) == [[2, 4], [2, 2]]
+        assert _parts(torch.split(x, 3, dim=1)) == [[2, 3], [2, 3]]
+        vals, idx = torch.max(x, 1)
+        np.testing.assert_array_equal(_host(vals), data.max(1))
+        np.testing.assert_array_equal(_host(idx), data.argmax(1))
+        vals, idx = torch.sort(x, 1)
+        np.testing.assert_array_equal(_host(idx), np.argsort(data, 1))
+        _close(torch.std(x, False), data.std())
+        # torch-form method calls
+        assert _parts(x.split(4, dim=1)) == [[2, 4], [2, 2]]
+        vals, idx = x.max(dim=1)
+        np.testing.assert_array_equal(_host(idx), data.argmax(1))
+        vals, idx = x.min(dim=0, keepdim=True)
+        np.testing.assert_array_equal(_host(idx), data.argmin(0)[None])
+        index = torch.tensor([[0, 2], [1, 1]])
+        _close(x.gather(1, index),
+               np.take_along_axis(data, index.numpy(), 1))
+        _close(x.index_select(1, torch.tensor([0, 2])), data[:, [0, 2]])
+        _close(x.std(False), data.std())
+        _close(x.max(torch.full((2, 6), 5.0)), np.maximum(data, 5.0))
+        # Paddle-form calls, against the JAX package
+        assert _parts(x.split(3, 1)) == _parts(jp.split(jx, 3, 1))
+        assert _parts(x.split(3, 1)) == [[2, 2]] * 3
+        _close(x.max(1), jp.max(jx, 1))
+        _close(x.min(axis=0), jp.min(jx, axis=0))
+        _close(x.sort(1), jp.sort(jx, 1))
+        rows = np.array([1, 0])
+        _close(x.gather(tp.to_tensor(rows)),
+               jp.gather(jx, jp.to_tensor(rows)))
+        _close(x.index_select(tp.to_tensor(rows), 0),
+               jp.index_select(jx, jp.to_tensor(rows), 0))
+
+
+def test_kernel_wrappers_keep_torch_meaning():
+    """A method called from the port's kernel wrappers (whose autograd
+    backwards get their saved ``Tensor`` arguments back) keeps torch's
+    meaning, as a call from torch's own code does."""
+    ns = {"__name__": "paddle_tpu_torch.kernels._probe"}
+    exec("def chunks(t):\n    return t.split(4, 1)\n", ns)
+    x = tp.to_tensor(np.zeros((2, 6), np.float32))
+    assert _parts(ns["chunks"](x)) == [[2, 4], [2, 2]]
+    assert _parts(x.split(3, 1)) == [[2, 2]] * 3     # Paddle's, from here
+
+
+def test_reduction_dtype_accumulates_in_that_type():
+    """``x.sum(dtype=...)`` casts before it reduces, as torch does: the
+    float64 sum of float32 values that cancel in float32 is exact."""
+    data = np.array([1e8, 1.0, -1e8, 1.0], np.float32)
+    x = tp.to_tensor(data)
+    got = x.sum(dtype="float64")
+    assert got.dtype == torch.float64
+    assert float(got) == float(data.astype(np.float64).sum()) == 2.0
+    assert float(x.mean(dtype="float64")) == 0.5
+    assert float(x.sum(dim=0, dtype=torch.float64)) == 2.0
+
+
+def test_torch_init_on_a_parameter():
+    """``torch.nn.init`` draws into a Paddle ``Parameter`` as into any
+    tensor (``normal_`` / ``uniform_`` with torch's ``generator=``), and
+    the parameter stays a leaf."""
+    p = tp.Parameter(torch.zeros(3, 4))
+    torch.nn.init.normal_(p, 0.0, 2.0, generator=torch.Generator()
+                          .manual_seed(5))
+    want = torch.zeros(3, 4).normal_(0.0, 2.0, generator=torch.Generator()
+                                     .manual_seed(5))
+    assert torch.equal(p.detach().as_subclass(torch.Tensor), want)
+    torch.nn.init.uniform_(p, -0.5, 0.5, generator=torch.Generator()
+                           .manual_seed(6))
+    want = torch.zeros(3, 4).uniform_(-0.5, 0.5, generator=torch.Generator()
+                                      .manual_seed(6))
+    assert torch.equal(p.detach().as_subclass(torch.Tensor), want)
+    assert p.is_leaf and p.grad_fn is None
+
+
 def _pair(shape, seed=0, grad=True):
     arr = np.random.default_rng(seed).standard_normal(shape).astype(
         np.float32)
