@@ -173,6 +173,23 @@ the user entry points, random weights from a seed:
   ``TrainStep`` captured, bit for bit with the eager ``TrainStep``, timed
   ([api-graph]); two steps with every kernel in its plain version
   ([api-plain]).
+* convolution, pooling and the batch norms on the Paddle surface and
+  ``vision.models.resnet50`` (slice 20; torch / cuDNN ops, no hand kernel:
+  every launch count stays 0 on these paths): each new functional on the
+  card against the CPU in fp32 and bf16, outputs and gradients
+  ([conv-check]); ResNet-50 (10 classes) in fp32 at 8 x 32 x 32, three
+  ``Momentum(0.1, 0.9)`` steps of the Paddle loop from one shared state
+  on the card, the CPU and the CPU in fp64 (loss and ``_mean`` /
+  ``_variance`` against the CPU's, every update against fp64's:
+  [resnet-check]) and its eval forward ([resnet-eval]); BASELINE config
+  1's rows on seeded 32 x 32 images: the eager Paddle loop at batch 32 in
+  fp32 and under ``auto_cast()`` ([resnet-train]), ``TrainStep`` captured
+  against ``fast_path=False`` at batch 64, bit for bit with the buffers,
+  ``num_compiles`` 1 ([resnet-graph]); 20 identical backwards one result
+  under ``FLAGS_cudnn_deterministic`` ([resnet-order]); one card's share of
+  config 3: 1000 classes at 224 x 224, batch 64, captured, under
+  ``auto_cast()`` ([resnet-224]); images/s, ms a step over windows, peak
+  memory and the busy share.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel its path never launched fails the run. A
@@ -199,6 +216,11 @@ drafters' windows. The last line is ``{"ok": true,
 runs the card's checks, the build and the [api-*] phases alone in a fresh
 process (the Paddle surface's numbers without the script's earlier
 phases) and prints neither JSON line.
+
+    python3 chip_smoke.py --vision-only
+
+runs the card's checks and the vision phases alone in a fresh process (no
+build: no hand kernel lies on their paths) and prints neither JSON line.
 """
 from __future__ import annotations
 
@@ -7710,6 +7732,576 @@ def phase_api_plain(losses):
     del model, opt, batch
 
 
+# ---------------------------------------------------------------- vision
+# (slice 20): convolution, pooling and the batch norms on the Paddle
+# surface, and vision.models' ResNet-50 at BASELINE config 1's geometry
+# (CIFAR-10's [B, 3, 32, 32] and 10 classes, seeded synthetic images drawn
+# on the host) and at one card's share of config 3's (224 x 224, 1000
+# classes). No hand kernel lies on these paths: conv, pooling and BN are
+# XLA ops in the JAX package and torch / cuDNN ops in the port.
+
+# [conv-check]: the card against the CPU on the same values (the CPU in
+# fp32 on the values rounded to the checked type). fp32 is full fp32 on
+# the card (TF32 off); a bf16 output carries 2^-8 of rounding an element
+CONV_CHECK_LIMIT = {FP32: 1e-4, BF16: 2e-2}
+RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
+RESNET_CHECK = dict(batch=8, size=32, steps=3)
+# a training ResNet-50 at this random initialisation is ill-conditioned in
+# fp32 (tests/test_torch_vision.py): its logits differ from an fp64 run's
+# by 1e-4 to 2e-4, and at batch 8 layer4's batch norms (8 values a
+# channel) amplify that into a 1-7% error of every gradient below them,
+# on any device. So [resnet-check] holds the loss and the buffers to the
+# CPU's within VISION_FWD_LIMIT, and each step's update (from one shared
+# state) to the fp64 CPU run's: the card's error, at the median leaf and
+# at the worst, within VISION_UPDATE_RATIO times the CPU fp32 run's own
+# (plus VISION_UPDATE_FLOOR)
+VISION_FWD_LIMIT = 1e-3
+VISION_UPDATE_RATIO = 3.0
+VISION_UPDATE_FLOOR = 1e-4
+VISION_EVAL_LIMIT = 1e-4            # eval mode: fp32 within 1e-6 of fp64
+RESNET_TRAIN = dict(batch=32, size=32, windows=3, steps=10)
+RESNET_GRAPH = dict(batch=64, size=32, steps=5, windows=3, timed=10)
+RESNET_224 = dict(batch=64, size=224, classes=1000, windows=3, steps=5)
+RESNET_ORDER = dict(batch=32, size=32, calls=20)
+
+
+def _resnet50(seed, place, classes=10):
+    """``vision.models.resnet50(num_classes=classes)`` built on ``place``
+    from ``paddle.seed(seed)``: the initializers draw on the CPU chain, so
+    one seed gives the same weights on the card and on the CPU."""
+    import paddle_tpu_torch as paddle
+    paddle.set_device(place)
+    paddle.seed(seed)
+    return paddle.vision.models.resnet50(num_classes=classes).train()
+
+
+def _images(b, size, seed, place, classes=10):
+    """Seeded synthetic images ``[b, 3, size, size]`` and labels in
+    ``[0, classes)``, drawn on the host and put on ``place``."""
+    import paddle_tpu_torch as paddle
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, 3, size, size, generator=gen)
+    y = torch.randint(0, classes, (b,), generator=gen)
+    paddle.set_device(place)
+    return paddle.to_tensor(x), paddle.to_tensor(y)
+
+
+def _momentum(model):
+    import paddle_tpu_torch as paddle
+    return paddle.optimizer.Momentum(learning_rate=RESNET_LR,
+                                     momentum=RESNET_MOMENTUM,
+                                     parameters=model.parameters())
+
+
+def _paddle_step(model, opt, x, y, amp=None):
+    """One step of the Paddle loop (the forward under ``auto_cast(level=
+    amp)`` where given): ``loss.backward(); opt.step(); opt.clear_grad()``.
+    Returns the loss."""
+    import paddle_tpu_torch as paddle
+    from contextlib import nullcontext
+    with paddle.amp.auto_cast(level=amp) if amp else nullcontext():
+        loss = paddle.nn.functional.cross_entropy(model(x), y)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss
+
+
+def _classifier(net):
+    """``net`` with its loss as one Layer, ``forward(x, y)`` the
+    cross-entropy: what ``TrainStep`` differentiates."""
+    from paddle_tpu_torch import nn
+
+    class Classifier(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.net = net
+
+        def forward(self, x, y):
+            return nn.functional.cross_entropy(self.net(x), y)
+    return Classifier()
+
+
+def _vision_state(model, opt):
+    """Every parameter, velocity and BN buffer of a run (cloned to the
+    host) and its step count."""
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    for i, p in enumerate(opt._parameter_list):
+        for k, t in opt._accumulators.get(id(p), {}).items():
+            state[f"{k}:{i}"] = t.cpu().clone()
+    state["step_count"] = opt._step_count
+    return state
+
+
+def _finite_rel(tag, got, want):
+    """rel_err over the finite entries, after requiring the non-finite
+    ones (a ceil_mode window wholly in the pad: -inf, nan) to match."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    fin = torch.isfinite(want)
+    if not (torch.equal(torch.isfinite(got), fin)
+            and torch.equal(got.isnan(), want.isnan())
+            and torch.equal(got[got.isinf()], want[want.isinf()])):
+        raise AssertionError(f"{tag}: the non-finite entries differ")
+    return rel_err(got[fin], want[fin]) if bool(fin.any()) else 0.0
+
+
+def _conv_cases():
+    """(tag, input shapes, call(F, *inputs) -> outputs, how many leading
+    inputs take a gradient, inputs drawn positive)."""
+    return [
+        ("conv2d stride 2 + bias", [(8, 64, 32, 32), (128, 64, 3, 3),
+                                    (128,)],
+         lambda F, x, w, b: F.conv2d(x, w, b, stride=2, padding=1), 3, ()),
+        ("conv2d dilation 2", [(8, 64, 32, 32), (64, 64, 3, 3)],
+         lambda F, x, w: F.conv2d(x, w, padding=2, dilation=2), 2, ()),
+        ("conv2d groups 32", [(8, 64, 16, 16), (64, 2, 3, 3)],
+         lambda F, x, w: F.conv2d(x, w, padding=1, groups=32), 2, ()),
+        ("conv2d depthwise stride 2", [(8, 64, 16, 16), (64, 1, 3, 3)],
+         lambda F, x, w: F.conv2d(x, w, stride=2, padding=1, groups=64), 2,
+         ()),
+        ("conv2d SAME stride 2", [(8, 32, 16, 16), (64, 32, 3, 3)],
+         lambda F, x, w: F.conv2d(x, w, stride=2, padding="SAME"), 2, ()),
+        ("conv2d NHWC", [(8, 16, 16, 32), (64, 32, 3, 3)],
+         lambda F, x, w: F.conv2d(x, w, padding=1, data_format="NHWC"), 2,
+         ()),
+        ("conv2d_transpose output_padding", [(8, 64, 8, 8), (64, 32, 3, 3),
+                                             (32,)],
+         lambda F, x, w, b: F.conv2d_transpose(x, w, b, stride=2, padding=1,
+                                               output_padding=1), 3, ()),
+        ("max_pool2d 3/2/1", [(8, 64, 32, 32)],
+         lambda F, x: F.max_pool2d(x, 3, 2, 1), 1, ()),
+        ("max_pool2d ceil_mode", [(8, 16, 15, 15)],
+         lambda F, x: F.max_pool2d(x, 2, 2, 1, ceil_mode=True), 1, ()),
+        ("max_pool2d return_mask", [(8, 16, 16, 16)],
+         lambda F, x: F.max_pool2d(x, 3, 2, 1, return_mask=True), 1, ()),
+        ("avg_pool2d exclusive", [(8, 64, 32, 32)],
+         lambda F, x: F.avg_pool2d(x, 3, 2, 1), 1, ()),
+        ("avg_pool2d ceil_mode", [(8, 16, 15, 15)],
+         lambda F, x: F.avg_pool2d(x, 2, 2, 1, ceil_mode=True), 0, ()),
+        ("adaptive_avg_pool2d 1x1", [(8, 2048, 4, 4)],
+         lambda F, x: F.adaptive_avg_pool2d(x, 1), 1, ()),
+        ("adaptive_avg_pool2d 3x3 of 7x7", [(8, 64, 7, 7)],
+         lambda F, x: F.adaptive_avg_pool2d(x, 3), 1, ()),
+        ("adaptive_max_pool2d 2x2 of 7x7", [(8, 64, 7, 7)],
+         lambda F, x: F.adaptive_max_pool2d(x, 2), 1, ()),
+        ("batch_norm training", [(8, 64, 16, 16), (64,), (64,), (64,),
+                                 (64,)],
+         lambda F, x, w, b, m, v: (F.batch_norm(x, m, v, w, b,
+                                                training=True), m, v), 3,
+         (4,)),
+        ("batch_norm inference", [(8, 64, 16, 16), (64,), (64,), (64,),
+                                  (64,)],
+         lambda F, x, w, b, m, v: F.batch_norm(x, m, v, w, b), 3, (4,)),
+        ("group_norm 8 groups", [(8, 64, 16, 16), (64,), (64,)],
+         lambda F, x, w, b: F.group_norm(x, 8, weight=w, bias=b), 3, ()),
+        ("instance_norm", [(8, 64, 16, 16), (64,), (64,)],
+         lambda F, x, w, b: F.instance_norm(x, weight=w, bias=b), 3, ()),
+        ("local_response_norm 5", [(8, 64, 16, 16)],
+         lambda F, x: F.local_response_norm(x, 5), 1, ()),
+    ]
+
+
+def phase_conv_check():
+    """[conv-check]: each functional of slice 20 on the card and on the
+    CPU from the same values, in fp32 and in bf16 (the CPU in fp32 on the
+    bf16-rounded values): every output (a batch norm's running buffers,
+    a max pool's int32 mask bit for bit) and the gradient of a fixed
+    random projection of the first output for each float input, within
+    CONV_CHECK_LIMIT; -inf and nan where the JAX package's ceil_mode puts
+    them, on both."""
+    import paddle_tpu_torch as paddle
+    F = paddle.nn.functional
+    gen = torch.Generator().manual_seed(21)
+    worst = {FP32: (0.0, ""), BF16: (0.0, "")}
+    for tag, shapes, call, n_grad, positive in _conv_cases():
+        base = [torch.randn(s, generator=gen) for s in shapes]
+        base = [t.abs() + 0.5 if i in positive else t
+                for i, t in enumerate(base)]
+        for dtype in (FP32, BF16):
+            res = {}
+            for place in ("gpu", "cpu"):
+                paddle.set_device(place)
+                dt = dtype if place == "gpu" else FP32
+                ins = [paddle.to_tensor(t.to(dtype).to(dt),
+                                        stop_gradient=i >= n_grad)
+                       for i, t in enumerate(base)]
+                out = call(F, *ins)
+                outs = list(out) if isinstance(out, tuple) else [out]
+                grads = []
+                if n_grad:
+                    ct = torch.randn(outs[0].shape,
+                                     generator=torch.Generator()
+                                     .manual_seed(22)).to(dtype).to(dt)
+                    ct = paddle.to_tensor(ct)
+                    grads = paddle.grad((outs[0] * ct).sum(), ins[:n_grad])
+                res[place] = outs + list(grads)
+            for k, (g, w) in enumerate(zip(res["gpu"], res["cpu"])):
+                what = f"[conv-check] {tag} {str(dtype)[6:]} output {k}"
+                if not g.is_floating_point():
+                    if not torch.equal(g.cpu(), w):
+                        raise AssertionError(f"{what}: the masks differ")
+                    continue
+                err = _finite_rel(what, g, w)
+                if err > worst[dtype][0]:
+                    worst[dtype] = (err, f"{tag} output {k}")
+                if not err < CONV_CHECK_LIMIT[dtype]:
+                    raise AssertionError(f"{what}: rel {err:.3g}, limit "
+                                         f"{CONV_CHECK_LIMIT[dtype]}")
+    paddle.set_device("gpu")
+    log(f"[conv-check] {len(_conv_cases())} cases on the card against the "
+        f"CPU, outputs and gradients: worst fp32 rel "
+        f"{worst[FP32][0]:.3g} ({worst[FP32][1]}; limit "
+        f"{CONV_CHECK_LIMIT[FP32]}), worst bf16 {worst[BF16][0]:.3g} "
+        f"({worst[BF16][1]}; limit {CONV_CHECK_LIMIT[BF16]})")
+
+
+def _resync(models, opts, src):
+    """Copy ``src``'s parameters, buffers and velocities into every other
+    run (each on its own device and type)."""
+    with torch.no_grad():
+        for k, m in models.items():
+            if k == src:
+                continue
+            for p, q in zip(m.parameters(), models[src].parameters()):
+                p.copy_(q)
+            for b, c in zip(m.buffers(), models[src].buffers()):
+                b.copy_(c)
+            for p, q in zip(opts[k]._parameter_list,
+                            opts[src]._parameter_list):
+                opts[k]._accumulators[id(p)]["velocity"].copy_(
+                    opts[src]._accumulators[id(q)]["velocity"])
+
+
+def phase_resnet_check():
+    """[resnet-check]: fp32 ResNet-50 (10 classes) built from one seed on
+    the card and on the CPU (bit for bit), and an fp64 copy on the CPU,
+    RESNET_CHECK["steps"] steps of the Paddle loop with ``Momentum(0.1,
+    0.9)`` at 8 x 32 x 32, every step from one shared state (the CPU's,
+    copied into the others after each step: a training ResNet-50 is
+    chaotic in fp32, so free-running runs part after a step on any two
+    devices). Each step: the loss and every ``_mean`` / ``_variance``
+    after it within VISION_FWD_LIMIT of the CPU's, and the card's updates
+    no farther from the fp64 run's than VISION_UPDATE_RATIO times the CPU
+    fp32 run's own (median and worst leaf). Returns the card's and the CPU's models (their
+    state shared) for [resnet-eval]."""
+    import copy
+    b, s = RESNET_CHECK["batch"], RESNET_CHECK["size"]
+    cpu = _resnet50(11, "cpu")
+    card = _resnet50(11, "gpu")
+    if not all(torch.equal(p.cpu(), q) for p, q in
+               zip(card.parameters(), cpu.parameters())):
+        raise AssertionError("[resnet-check] one seed gave other weights "
+                             "on the card than on the CPU")
+    models = {"card": card, "cpu": cpu,
+              "fp64": copy.deepcopy(cpu).to(dtype="float64")}
+    opts = {k: _momentum(m) for k, m in models.items()}
+    names = [n for n, _ in cpu.named_parameters()]
+    for step in range(RESNET_CHECK["steps"]):
+        x, y = _images(b, s, 30 + step, "cpu")
+        inputs = {"card": (x.cuda(), y.cuda()), "cpu": (x, y),
+                  "fp64": (x.double(), y)}
+        before = {k: [p.detach().cpu().double().clone()
+                      for p in m.parameters()] for k, m in models.items()}
+        losses = {k: float(_paddle_step(m, opts[k], *inputs[k]))
+                  for k, m in models.items()}
+        upd = {k: [p.detach().double().cpu() - q for p, q in
+                   zip(m.parameters(), before[k])]
+               for k, m in models.items()}
+        loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+        bufs = {n: rel_err(b_.cpu(), c) for (n, b_), (_, c) in
+                zip(card.named_buffers(), cpu.named_buffers())}
+        ucard = [rel_err(a, e) for a, e in zip(upd["card"], upd["fp64"])]
+        ucpu = [rel_err(a, e) for a, e in zip(upd["cpu"], upd["fp64"])]
+        worst = max(range(len(ucard)), key=ucard.__getitem__)
+        med = (float(np.median(ucard)), float(np.median(ucpu)))
+        log(f"[resnet-check] step {step}: loss card {losses['card']:.6f}, "
+            f"cpu {losses['cpu']:.6f} (rel {loss_rel:.3g}), fp64 "
+            f"{losses['fp64']:.6f}; buffers worst rel "
+            f"{max(bufs.values()):.3g} (limit {VISION_FWD_LIMIT}); update "
+            f"against fp64: card median {med[0]:.3g} max {ucard[worst]:.3g} "
+            f"({names[worst]}), cpu median {med[1]:.3g} max "
+            f"{max(ucpu):.3g} (the card's within {VISION_UPDATE_RATIO}x the "
+            f"cpu's + {VISION_UPDATE_FLOOR})")
+        bound = (VISION_UPDATE_RATIO * med[1] + VISION_UPDATE_FLOOR,
+                 VISION_UPDATE_RATIO * max(ucpu) + VISION_UPDATE_FLOOR)
+        if not (loss_rel < VISION_FWD_LIMIT
+                and max(bufs.values()) < VISION_FWD_LIMIT
+                and med[0] <= bound[0] and max(ucard) <= bound[1]):
+            raise AssertionError(f"[resnet-check] step {step}: the card "
+                                 f"disagrees with the CPU")
+        _resync(models, opts, "cpu")
+    return card, cpu
+
+
+def phase_resnet_eval(card, cpu):
+    """[resnet-eval]: ``model.eval()`` on [resnet-check]'s models (one
+    state, its running statistics moved by 3 steps): the forward at
+    8 x 32 x 32 on the card and on the CPU, the logits within
+    VISION_EVAL_LIMIT; the running statistics are read (eval's logits
+    differ from the training forward's)."""
+    import paddle_tpu_torch as paddle
+    x, _ = _images(RESNET_CHECK["batch"], RESNET_CHECK["size"], 40, "cpu")
+    card.eval()
+    cpu.eval()
+    with paddle.no_grad():
+        got, want = card(x.cuda()), cpu(x)
+        cpu.train()
+        train_logits = cpu(x)
+    err = rel_err(got.cpu(), want)
+    moved = rel_err(train_logits, want)
+    log(f"[resnet-eval] fp32 eval forward [8, 3, 32, 32]: logits rel "
+        f"{err:.3g} (limit {VISION_EVAL_LIMIT}); the training forward's "
+        f"logits differ by {moved:.3g}")
+    if not (err < VISION_EVAL_LIMIT and moved > 10 * VISION_EVAL_LIMIT):
+        raise AssertionError("[resnet-eval] the card's eval forward "
+                             "disagrees with the CPU's")
+    paddle.set_device("gpu")
+
+
+def _profiled_busy(fn, n):
+    """``n`` calls of ``fn`` under torch.profiler: the wall (ms) and the
+    device's busy share of it (None where no device time was recorded)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            loss = fn()
+        float(loss)
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return wall * 1e3, (busy / 1e6 / wall if busy else None)
+
+
+def _windows(fn, windows, steps):
+    """``windows`` windows of ``steps`` calls, each closed by reading the
+    last loss: the ms a step of each window and the losses read."""
+    ms, losses = [], []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss = fn()
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) / steps * 1e3)
+    return ms, losses
+
+
+def _rate(tag, smi, b, ms, losses, peak, busy, what):
+    mean = sum(ms) / len(ms)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{tag} {what}: losses {losses}")
+    log(f"{tag} ({smi}) {what}, batch {b}: {b / mean * 1e3:.1f} images/s, "
+        f"{mean:.2f} ms a step (windows {min(ms):.2f}-{max(ms):.2f}), peak "
+        f"{peak:.2f} GB, busy {busy if busy is None else round(busy, 3)}; "
+        f"losses {[round(v, 4) for v in losses]}")
+    return dict(ms=mean, min=min(ms), max=max(ms), ips=b / mean * 1e3,
+                peak=peak, busy=busy)
+
+
+def phase_resnet_train(smi):
+    """[resnet-train]: BASELINE config 1's eager row. ResNet-50 (10
+    classes) on the card, the Paddle loop ``loss.backward(); opt.step();
+    opt.clear_grad()`` with ``Momentum(0.1, 0.9)`` at batch 32 of 32 x 32
+    images, in fp32 (full fp32: TF32 off) and under ``auto_cast()`` (O1:
+    the convs in bf16, the batch norms in fp32): 2 warm-up steps, then
+    RESNET_TRAIN["windows"] windows of RESNET_TRAIN["steps"] steps (images
+    /s, ms a step and its spread over the windows), the peak memory, and
+    the device's busy share over 3 profiled steps."""
+    b, s = RESNET_TRAIN["batch"], RESNET_TRAIN["size"]
+    out = {}
+    for amp in (None, "O1"):
+        model = _resnet50(0, "gpu")
+        opt = _momentum(model)
+        x, y = _images(b, s, 5, "gpu")
+
+        def step():
+            return _paddle_step(model, opt, x, y, amp)
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = _windows(step, RESNET_TRAIN["windows"],
+                              RESNET_TRAIN["steps"])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        _, busy = _profiled_busy(step, 3)
+        what = "fp32" if amp is None else "auto_cast O1 (bf16 convs)"
+        out[amp or "fp32"] = _rate("[resnet-train]", smi, b, ms, losses,
+                                   peak, busy, f"eager Paddle loop, {what}")
+        del model, opt, x, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_resnet_graph(smi):
+    """[resnet-graph]: BASELINE config 1's compiled row. ResNet-50 with
+    its loss under ``TrainStep`` (captured: ``fast_path=True``, the
+    default) against ``TrainStep(fast_path=False)`` from the same seed,
+    ``FLAGS_cudnn_deterministic`` on: after RESNET_GRAPH["steps"] steps at
+    batch 64 the losses, every parameter, velocity and ``_mean`` /
+    ``_variance`` bit for bit, the programs CUDA graphs, ``num_compiles``
+    1; then both timed (images/s, ms a step over windows) and the captured
+    step's busy share."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    b, s = RESNET_GRAPH["batch"], RESNET_GRAPH["size"]
+    res, rates = {}, {}
+    paddle.set_flags({"FLAGS_cudnn_deterministic": True})
+    try:
+        for fast in (False, True):
+            net = _resnet50(0, "gpu")
+            opt = _momentum(net)
+            step = TrainStep(_classifier(net), opt, fast_path=fast)
+            x, y = _images(b, s, 6, "gpu")
+            losses = [step(x, y) for _ in range(RESNET_GRAPH["steps"])]
+            torch.cuda.synchronize()
+            res[fast] = (torch.stack([v.detach().as_subclass(torch.Tensor)
+                                      for v in losses]).cpu(),
+                         _vision_state(net, opt))
+            if fast:
+                _graph_of(step)
+                compiles = step.num_compiles
+            torch.cuda.reset_peak_memory_stats()
+            ms, seen = _windows(lambda: step(x, y), RESNET_GRAPH["windows"],
+                                RESNET_GRAPH["timed"])
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            _, busy = _profiled_busy(lambda: step(x, y), 3)
+            what = "captured TrainStep" if fast else \
+                "TrainStep(fast_path=False)"
+            rates[fast] = _rate("[resnet-graph]", smi, b, ms, seen, peak,
+                                busy, f"{what}, fp32")
+            del net, opt, step, x, y
+            torch.cuda.empty_cache()
+    finally:
+        paddle.set_flags({"FLAGS_cudnn_deterministic": False})
+    (le, se), (lg, sg) = res[False], res[True]
+    if not _bit_equal(lg, le):
+        raise AssertionError(f"[resnet-graph] losses {lg} vs {le}")
+    _hold_bits("[resnet-graph]", f"{RESNET_GRAPH['steps']} captured steps "
+               f"against eager TrainStep (parameters, velocities, _mean and "
+               f"_variance)", sg, se)
+    if compiles != 1:
+        raise AssertionError(f"[resnet-graph] num_compiles {compiles}")
+    log(f"[resnet-graph] num_compiles {compiles}; captured / eager "
+        f"{rates[True]['ms'] / rates[False]['ms']:.4f}")
+    return rates
+
+
+def phase_resnet_224(smi):
+    """[resnet-224]: one card's share of BASELINE config 3's workload
+    (no data parallelism): ResNet-50 with 1000 classes at 224 x 224,
+    batch 64, ``TrainStep`` captured, every call under ``auto_cast()``
+    (O1): the first call (warm-up and capture) and one more, then
+    RESNET_224["windows"] windows of RESNET_224["steps"] steps (images/s,
+    ms a step), the peak memory from the first call on, the busy share of
+    3 steps; one program, a CUDA graph; finite losses."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    b, s, c = RESNET_224["batch"], RESNET_224["size"], RESNET_224["classes"]
+    net = _resnet50(0, "gpu", classes=c)
+    opt = _momentum(net)
+    step = TrainStep(_classifier(net), opt)
+    x, y = _images(b, s, 7, "gpu", classes=c)
+
+    def call():
+        with paddle.amp.auto_cast():
+            return step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    float(call())
+    first = time.perf_counter() - t0
+    call()
+    ms, losses = _windows(call, RESNET_224["windows"], RESNET_224["steps"])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _, busy = _profiled_busy(call, 3)
+    _graph_of(step)
+    if step.num_compiles != 1:
+        raise AssertionError(f"[resnet-224] num_compiles "
+                             f"{step.num_compiles}")
+    rate = _rate("[resnet-224]", smi, b, ms, losses, peak, busy,
+                 f"captured TrainStep, auto_cast O1, {s} x {s}, {c} classes "
+                 f"(first call {first:.1f} s)")
+    del net, opt, step, x, y
+    torch.cuda.empty_cache()
+    return rate
+
+
+def phase_resnet_order():
+    """[resnet-order]: RESNET_ORDER["calls"] identical fp32 ResNet-50
+    forwards and backwards at batch 32 (``paddle.grad`` of the loss for
+    every parameter), ``FLAGS_cudnn_deterministic`` on: every gradient bit
+    for bit the first call's (cuDNN may pick algorithms that add with
+    atomics; the 1 x 1 adaptive average pool's backward adds one term an
+    input). The same calls with the flag off are counted, not gated."""
+    import paddle_tpu_torch as paddle
+    F = paddle.nn.functional
+    model = _resnet50(0, "gpu")
+    params = list(model.parameters())
+    x, y = _images(RESNET_ORDER["batch"], RESNET_ORDER["size"], 8, "gpu")
+    differ = {}
+    for on in (True, False):
+        paddle.set_flags({"FLAGS_cudnn_deterministic": on})
+        try:
+            first, n = None, 0
+            for _ in range(RESNET_ORDER["calls"]):
+                grads = paddle.grad(F.cross_entropy(model(x), y), params)
+                grads = [g.as_subclass(torch.Tensor) for g in grads]
+                if first is None:
+                    first = grads
+                    continue
+                n += not all(_bit_equal(g, h) for g, h in zip(grads, first))
+            differ[on] = n
+        finally:
+            paddle.set_flags({"FLAGS_cudnn_deterministic": False})
+    log(f"[resnet-order] {RESNET_ORDER['calls']} identical fp32 backwards at "
+        f"batch {RESNET_ORDER['batch']}: with FLAGS_cudnn_deterministic "
+        f"{differ[True]} differ from the first; without it {differ[False]}")
+    if differ[True]:
+        raise AssertionError("[resnet-order] deterministic backwards differ")
+    del model, params, x, y, first, grads
+    torch.cuda.empty_cache()
+
+
+def vision_phases(smi):
+    """The slice-20 phases, each with the launch counts set to 0 before it
+    and read after: no hand kernel may launch on the vision paths. Returns
+    each path's counts and the timings for the record."""
+    from paddle_tpu_torch.kernels import reset_launch_counts
+    paths = {}
+
+    def run(tag, fn, *args):
+        reset_launch_counts()
+        out = fn(*args)
+        counts = _path_counts()
+        ran = {k: n for k, n in counts.items() if n}
+        if ran:
+            raise AssertionError(f"[{tag}] launched hand kernels: {ran}")
+        paths[f"vision-{tag}"] = counts
+        return out
+
+    t0 = time.perf_counter()
+    run("conv-check", phase_conv_check)
+    card, cpu = run("resnet-check", phase_resnet_check)
+    run("resnet-eval", phase_resnet_eval, card, cpu)
+    del card, cpu
+    _release("after [resnet-check] and [resnet-eval]")
+    rates = {"train": run("resnet-train", phase_resnet_train, smi)}
+    _release("after [resnet-train]")
+    rates["graph"] = run("resnet-graph", phase_resnet_graph, smi)
+    _release("after [resnet-graph]")
+    run("resnet-order", phase_resnet_order)
+    rates["224"] = run("resnet-224", phase_resnet_224, smi)
+    _release("after [resnet-224]")
+    log(f"[vision] the vision phases passed in "
+        f"{time.perf_counter() - t0:.1f} s; no hand kernel launched on "
+        f"{sorted(paths)}")
+    return paths, rates
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -7924,6 +8516,12 @@ def main() -> int:
     _release("after [api-graph]")
     phase_api_plain(api_losses)
     _release("after [api-plain]")
+
+    # vision (slice 20): conv, pooling and the batch norms on the Paddle
+    # surface, ResNet-50 at BASELINE config 1's geometry and at 224 x 224;
+    # no hand kernel lies on these paths
+    vision_paths, _ = vision_phases(smi)
+    paths.update(vision_paths)
 
     t0 = time.perf_counter()
     llama = LlamaForCausalLM(llama_7b(), dtype=torch.bfloat16, seed=0).eval()
@@ -8217,9 +8815,35 @@ def api_only() -> int:
     return 0
 
 
+def vision_only() -> int:
+    """``chip_smoke.py --vision-only``: the card and the vision phases
+    alone in a fresh process (no build: no hand kernel lies on the vision
+    paths, and their launch counts must stay 0); no kernels line and no
+    closing line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    try:
+        import paddle_tpu_torch  # noqa: F401
+    except ModuleNotFoundError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})",
+              file=sys.stderr)
+        return 3
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    _, _, smi = phase_card()
+    vision_phases(smi)
+    log(f"[done] the vision phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fleet-worker"]:     # [fleet-http]'s replicas
         sys.exit(_http_worker(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--api-only"]:
         sys.exit(api_only())
+    if sys.argv[1:2] == ["--vision-only"]:
+        sys.exit(vision_only())
     sys.exit(main())

@@ -47,12 +47,21 @@ paddle`` reads like the JAX package: ``paddle.to_tensor``, ``Tensor`` (a
 ``nn.functional``, ``autograd.PyLayer``, ``optimizer.SGD`` /
 ``Momentum`` / ``Adam`` / ``AdamW``, ``save`` / ``load``, ``ParamAttr``,
 ``set_flags`` / ``get_flags``. Every op passes ``core.dispatch.apply_op``.
+
+Convolution, pooling and the batch norms (slice 20): ``nn.Conv*D`` and
+their transposes, the max, average and adaptive pools, ``BatchNorm*`` /
+``SyncBatchNorm`` (one process), ``GroupNorm``, ``InstanceNorm*``,
+``LocalResponseNorm`` and their functionals, torch / cuDNN ops (XLA ops
+in the JAX package: no kernel of its is on this path), and ``vision``
+(``vision.models``: ResNet-18 to -152, the ResNeXt and wide ResNets,
+LeNet, VGG, AlexNet, MobileNetV2). ``FLAGS_cudnn_deterministic`` sets
+``torch.backends.cudnn.deterministic``.
 """
 import builtins
 
 from . import (amp, autograd, core, distributed, framework, jit, kernels,
                models, monitor, nn, ops, optimizer, quantization,
-               regularizer, serving, utils)
+               regularizer, serving, utils, vision)
 from .core.autograd import grad
 from .core.device import (CPUPlace, CUDAPlace, Place, device_count,
                           get_device, is_compiled_with_cuda, set_device)
@@ -122,7 +131,8 @@ def summary(net, input_size=None, dtypes=None):
 
 __all__ = (["amp", "autograd", "core", "distributed", "framework", "jit",
             "kernels", "models", "monitor", "nn", "ops", "optimizer",
-            "quantization", "regularizer", "serving", "utils", "linalg",
+            "quantization", "regularizer", "serving", "utils", "vision",
+            "linalg",
             "BertConfig", "BertForPreTraining", "bert_base", "GPTConfig",
             "GPTForCausalLM", "LlamaConfig", "LlamaForCausalLM", "llama_7b",
             "DecodeEngine", "TrainStep", "seed", "get_rng_state",

@@ -27,6 +27,7 @@ run their bodies on plain tensors and make their outputs ``Tensor``s.
 """
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import numpy as np
@@ -103,6 +104,21 @@ class Tensor(torch.Tensor):
         pass
 
     __hash__ = torch.Tensor.__hash__
+
+    def __deepcopy__(self, memo):
+        """A leaf with a copy of the values, the same ``stop_gradient``
+        and a deep copy of the Paddle attributes (torch's own deep copy of
+        a subclass wants ``new_empty`` to keep the class, which it does not
+        under ``__torch_function__``): ``copy.deepcopy`` of a layer with
+        buffers (a batch norm's ``_mean``)."""
+        if id(self) in memo:
+            return memo[id(self)]
+        with torch.no_grad(), _DisableSubclass():
+            data = torch.Tensor.clone(torch.Tensor.detach(self))
+        new = _make(type(self), data, self.requires_grad)
+        new.__dict__.update(copy.deepcopy(self.__dict__, memo))
+        memo[id(self)] = new
+        return new
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):

@@ -1,13 +1,22 @@
 """Normalisation, activation and loss layers (counterpart of
-``paddle_tpu/nn/layers_norm_act_loss.py``). The batch-statistics norms
-(``BatchNorm*``, ``SyncBatchNorm``, ``GroupNorm``, ``InstanceNorm*``,
-``LocalResponseNorm``) wait for the convolution slice (ROADMAP Queue 1,
-item 2's rest)."""
+``paddle_tpu/nn/layers_norm_act_loss.py``).
+
+The batch norms hold Paddle's buffers ``_mean`` (zeros) and
+``_variance`` (ones), made on the default place as the parameters are,
+and update them in place in training (``F.batch_norm``: Paddle's
+momentum, the unbiased running variance). ``SyncBatchNorm`` is a batch
+norm in one process; across processes it would all-reduce the batch
+statistics, and the port has no collective layer yet, so it raises
+there (ROADMAP Queue 1, item 10) rather than normalise each process's
+batch alone."""
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
-from ..core.tensor import Parameter
+from ..core.tensor import Parameter, Tensor
 from ..ops._helpers import _op
 from . import functional as F
 from .initializer import Constant
@@ -15,7 +24,10 @@ from .layer import Layer
 from . import norm as _norm  # noqa: F401  (registers rms_norm)
 
 __all__ = [
-    "LayerNorm", "RMSNorm", "ReLU", "ReLU6", "GELU", "Sigmoid", "Tanh",
+    "BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "SyncBatchNorm",
+    "LayerNorm", "GroupNorm", "InstanceNorm1D", "InstanceNorm2D",
+    "InstanceNorm3D", "LocalResponseNorm", "RMSNorm",
+    "ReLU", "ReLU6", "GELU", "Sigmoid", "Tanh",
     "Softmax", "LogSoftmax", "LeakyReLU", "PReLU", "ELU", "SELU", "CELU",
     "Silu", "Swish", "Mish", "Hardswish", "Hardsigmoid", "Hardtanh",
     "Hardshrink", "Softshrink", "Tanhshrink", "Softsign", "Softplus",
@@ -25,6 +37,120 @@ __all__ = [
     "CosineEmbeddingLoss", "HingeEmbeddingLoss", "TripletMarginLoss",
     "SoftMarginLoss", "MultiLabelSoftMarginLoss", "PoissonNLLLoss",
 ]
+
+
+class _BatchNormBase(Layer):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 use_global_stats=None, name=None):
+        super().__init__()
+        self._num_features = num_features
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self._use_global_stats = use_global_stats
+        if weight_attr is not False and bias_attr is not False:
+            self.weight = self.create_parameter(
+                shape=[num_features], attr=weight_attr,
+                default_initializer=Constant(1.0))
+            self.bias = self.create_parameter(
+                shape=[num_features], attr=bias_attr, is_bias=True)
+        else:
+            self.weight = None
+            self.bias = None
+        self.register_buffer("_mean", Tensor(np.zeros(num_features,
+                                                      np.float32)))
+        self.register_buffer("_variance", Tensor(np.ones(num_features,
+                                                         np.float32)))
+
+    def forward(self, x):
+        return F.batch_norm(x, self._mean, self._variance, self.weight,
+                            self.bias, training=self.training,
+                            momentum=self._momentum, epsilon=self._epsilon,
+                            data_format=self._data_format,
+                            use_global_stats=self._use_global_stats)
+
+    def extra_repr(self):
+        return (f"num_features={self._num_features}, "
+                f"momentum={self._momentum}")
+
+
+class BatchNorm(_BatchNormBase):
+    """The older ``BatchNorm(num_channels, act=None, ...)``: ``act="relu"``
+    applies a ReLU after the norm."""
+
+    def __init__(self, num_channels, act=None, momentum=0.9, epsilon=1e-5,
+                 param_attr=None, bias_attr=None, data_layout="NCHW", **kw):
+        super().__init__(num_channels, momentum, epsilon, param_attr,
+                         bias_attr, data_layout)
+        self._act = act
+
+    def forward(self, x):
+        out = super().forward(x)
+        if self._act == "relu":
+            out = F.relu(out)
+        return out
+
+
+class BatchNorm1D(_BatchNormBase):
+    pass
+
+
+class BatchNorm2D(_BatchNormBase):
+    pass
+
+
+class BatchNorm3D(_BatchNormBase):
+    pass
+
+
+def _world_size() -> int:
+    """Processes of the job: torch.distributed's world where it is
+    initialised, else the launcher's ``PADDLE_TRAINERS_NUM``."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("PADDLE_TRAINERS_NUM", "1") or 1)
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """Cross-process batch norm. In one process it is the batch norm (the
+    JAX package's single-process regime). Training across processes, where
+    every rank must normalise by the global batch's statistics, raises
+    ``NotImplementedError``: the all-reduce of the statistics and of their
+    gradients waits for the port's collectives (ROADMAP Queue 1, item
+    10)."""
+
+    def forward(self, x):
+        use_stats = self._use_global_stats
+        if use_stats is None:
+            use_stats = not self.training
+        if self.training and not use_stats and _world_size() > 1:
+            raise NotImplementedError(
+                "SyncBatchNorm across processes needs the all-reduce of the "
+                "batch statistics, which the port does not have yet "
+                "(ROADMAP Queue 1, item 10)")
+        return super().forward(x)
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """``layer`` with every batch norm in it replaced by a
+        ``SyncBatchNorm`` holding its parameters and buffers."""
+        out = layer
+        if isinstance(layer, _BatchNormBase) \
+                and not isinstance(layer, SyncBatchNorm):
+            out = SyncBatchNorm(layer._num_features, layer._momentum,
+                                layer._epsilon, None, None,
+                                layer._data_format)
+            with torch.no_grad():
+                if layer.weight is not None:
+                    out.weight.copy_(layer.weight)
+                    out.bias.copy_(layer.bias)
+                out._mean.copy_(layer._mean)
+                out._variance.copy_(layer._variance)
+        for name, sub in list(layer._sub_layers.items()):
+            out.add_sublayer(name, cls.convert_sync_batchnorm(sub))
+        return out
 
 
 class LayerNorm(Layer):
@@ -86,6 +212,78 @@ class RMSNorm(Layer):
 
     def extra_repr(self):
         return f"{self._normalized_shape}, epsilon={self.epsilon}"
+
+
+class GroupNorm(Layer):
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self.weight = self.create_parameter(
+            shape=[num_channels], attr=weight_attr,
+            default_initializer=Constant(1.0)) \
+            if weight_attr is not False else None
+        self.bias = self.create_parameter(
+            shape=[num_channels], attr=bias_attr, is_bias=True) \
+            if bias_attr is not False else None
+
+    def forward(self, x):
+        return F.group_norm(x, self._num_groups, self._epsilon, self.weight,
+                            self.bias, self._data_format)
+
+
+class _InstanceNormBase(Layer):
+    """Instance norm with a learned per-channel scale and shift; it keeps
+    no running statistics (``momentum`` and ``data_format`` are taken and
+    not read, as in the JAX package)."""
+
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self._epsilon = epsilon
+        if weight_attr is not False and bias_attr is not False:
+            self.weight = self.create_parameter(
+                shape=[num_features], attr=weight_attr,
+                default_initializer=Constant(1.0))
+            self.bias = self.create_parameter(
+                shape=[num_features], attr=bias_attr, is_bias=True)
+        else:
+            self.weight = None
+            self.bias = None
+
+    def forward(self, x):
+        return F.instance_norm(x, weight=self.weight, bias=self.bias,
+                               eps=self._epsilon)
+
+
+class InstanceNorm1D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm2D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm3D(_InstanceNormBase):
+    pass
+
+
+class LocalResponseNorm(Layer):
+    def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.size = size
+        self.alpha = alpha
+        self.beta = beta
+        self.k = k
+
+    def forward(self, x):
+        return F.local_response_norm(x, self.size, self.alpha, self.beta,
+                                     self.k)
 
 
 # ----------------------------------------------------------------- activations

@@ -390,7 +390,8 @@ class SGD(Optimizer):
 class Momentum(Optimizer):
     """Heavy-ball momentum: ``v = momentum * v + g`` (``g`` with L2 decay),
     ``p -= lr * v``, or ``p -= lr * (g + momentum * v)`` with
-    ``use_nesterov``."""
+    ``use_nesterov``. ``TrainStep(fast_path=True)`` captures it on the
+    card (``_update_staged``)."""
 
     _state_names = ["velocity"]
 
@@ -402,13 +403,24 @@ class Momentum(Optimizer):
         self._momentum = float(momentum)
         self._use_nesterov = bool(use_nesterov)
 
-    def _update(self, param, grad, state, lr, step, wd_scale=1.0):
-        wd = self._weight_decay * wd_scale
-        g = grad + wd * param if wd else grad
+    # lr is its only step scalar: a host float, or the captured step's
+    # staged fp32 value (the same bits), so the rule captures on the card
+    _staged_rule = True
+
+    def _update_staged(self, param, grad, state, scalars, weight_decay,
+                       skip=None):
+        lr = scalars[0]
+        g = grad + weight_decay * param if weight_decay else grad
         v = state["velocity"]
-        v.mul_(self._momentum).add_(g)
-        upd = g + self._momentum * v if self._use_nesterov else v
-        param.sub_(_smul(upd, lr))
+        # in place unless a skip must keep the old bits
+        v_new = v.mul_(self._momentum).add_(g) if skip is None \
+            else (v * self._momentum).add_(g)
+        upd = g + self._momentum * v_new if self._use_nesterov else v_new
+        if skip is None:
+            param.sub_(_smul(upd, lr))
+            return
+        param.copy_(torch.where(skip, param, param - _smul(upd, lr)))
+        v.copy_(torch.where(skip, v, v_new))
 
 
 class Adam(Optimizer):

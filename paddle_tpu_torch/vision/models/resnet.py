@@ -1,0 +1,217 @@
+"""The ResNet family (counterpart of ``paddle_tpu/vision/models/
+resnet.py``): ``BasicBlock``, ``BottleneckBlock``, ``ResNet`` and
+resnet18 to resnet152, the ResNeXt variants and the wide ResNets, on the
+port's ``nn`` layers. Inputs are NCHW; every convolution is
+``nn.functional.conv2d`` (torch's, cuDNN on the card) and every batch
+norm ``nn.BatchNorm2D`` with Paddle's ``_mean`` / ``_variance`` buffers.
+"""
+from __future__ import annotations
+
+from ... import nn
+
+__all__ = [
+    "ResNet", "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+    "resnext50_32x4d", "resnext50_64x4d", "resnext101_32x4d",
+    "resnext101_64x4d", "resnext152_32x4d", "resnext152_64x4d",
+    "wide_resnet50_2", "wide_resnet101_2",
+]
+
+
+class BasicBlock(nn.Layer):
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 base_width=64, dilation=1, norm_layer=None):
+        super().__init__()
+        if norm_layer is None:
+            norm_layer = nn.BatchNorm2D
+        if dilation > 1:
+            raise NotImplementedError(
+                "BasicBlock is defined for dilation=1; use BottleneckBlock "
+                "for dilated variants")
+        self.conv1 = nn.Conv2D(inplanes, planes, 3, padding=1, stride=stride,
+                               bias_attr=False)
+        self.bn1 = norm_layer(planes)
+        self.relu = nn.ReLU()
+        self.conv2 = nn.Conv2D(planes, planes, 3, padding=1, bias_attr=False)
+        self.bn2 = norm_layer(planes)
+        self.downsample = downsample
+        self.stride = stride
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+class BottleneckBlock(nn.Layer):
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 base_width=64, dilation=1, norm_layer=None):
+        super().__init__()
+        if norm_layer is None:
+            norm_layer = nn.BatchNorm2D
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = nn.Conv2D(inplanes, width, 1, bias_attr=False)
+        self.bn1 = norm_layer(width)
+        self.conv2 = nn.Conv2D(width, width, 3, padding=dilation,
+                               stride=stride, groups=groups,
+                               dilation=dilation, bias_attr=False)
+        self.bn2 = norm_layer(width)
+        self.conv3 = nn.Conv2D(width, planes * self.expansion, 1,
+                               bias_attr=False)
+        self.bn3 = norm_layer(planes * self.expansion)
+        self.relu = nn.ReLU()
+        self.downsample = downsample
+        self.stride = stride
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+class ResNet(nn.Layer):
+    """ResNet (reference resnet.py ResNet: depth in {18,34,50,101,152}, width,
+    num_classes, with_pool, groups)."""
+
+    _ARCH = {
+        18: (BasicBlock, [2, 2, 2, 2]),
+        34: (BasicBlock, [3, 4, 6, 3]),
+        50: (BottleneckBlock, [3, 4, 6, 3]),
+        101: (BottleneckBlock, [3, 4, 23, 3]),
+        152: (BottleneckBlock, [3, 8, 36, 3]),
+    }
+
+    def __init__(self, block=None, depth=50, width=64, num_classes=1000,
+                 with_pool=True, groups=1):
+        super().__init__()
+        if block is None:
+            block, layer_cfg = self._ARCH[depth]
+        else:
+            _, layer_cfg = self._ARCH[depth]
+        self.groups = groups
+        self.base_width = width
+        self.num_classes = num_classes
+        self.with_pool = with_pool
+        self._norm_layer = nn.BatchNorm2D
+        self.inplanes = 64
+        self.dilation = 1
+
+        self.conv1 = nn.Conv2D(3, self.inplanes, kernel_size=7, stride=2,
+                               padding=3, bias_attr=False)
+        self.bn1 = self._norm_layer(self.inplanes)
+        self.relu = nn.ReLU()
+        self.maxpool = nn.MaxPool2D(kernel_size=3, stride=2, padding=1)
+        self.layer1 = self._make_layer(block, 64, layer_cfg[0])
+        self.layer2 = self._make_layer(block, 128, layer_cfg[1], stride=2)
+        self.layer3 = self._make_layer(block, 256, layer_cfg[2], stride=2)
+        self.layer4 = self._make_layer(block, 512, layer_cfg[3], stride=2)
+        if with_pool:
+            self.avgpool = nn.AdaptiveAvgPool2D((1, 1))
+        if num_classes > 0:
+            self.fc = nn.Linear(512 * block.expansion, num_classes)
+
+    def _make_layer(self, block, planes, blocks, stride=1, dilate=False):
+        norm_layer = self._norm_layer
+        downsample = None
+        previous_dilation = self.dilation
+        if dilate:
+            self.dilation *= stride
+            stride = 1
+        if stride != 1 or self.inplanes != planes * block.expansion:
+            downsample = nn.Sequential(
+                nn.Conv2D(self.inplanes, planes * block.expansion, 1,
+                          stride=stride, bias_attr=False),
+                norm_layer(planes * block.expansion),
+            )
+        layers = [block(self.inplanes, planes, stride, downsample, self.groups,
+                        self.base_width, previous_dilation, norm_layer)]
+        self.inplanes = planes * block.expansion
+        for _ in range(1, blocks):
+            layers.append(block(self.inplanes, planes, groups=self.groups,
+                                base_width=self.base_width,
+                                norm_layer=norm_layer))
+        return nn.Sequential(*layers)
+
+    def forward(self, x):
+        x = self.relu(self.bn1(self.conv1(x)))
+        x = self.maxpool(x)
+        x = self.layer1(x)
+        x = self.layer2(x)
+        x = self.layer3(x)
+        x = self.layer4(x)
+        if self.with_pool:
+            x = self.avgpool(x)
+        if self.num_classes > 0:
+            x = x.flatten(1)
+            x = self.fc(x)
+        return x
+
+
+def _resnet(depth, pretrained=False, **kwargs):
+    if pretrained:
+        raise NotImplementedError(
+            "pretrained weights are not bundled; load a state_dict with "
+            "paddle.load + set_state_dict")
+    return ResNet(depth=depth, **kwargs)
+
+
+def resnet18(pretrained=False, **kwargs):
+    return _resnet(18, pretrained, **kwargs)
+
+
+def resnet34(pretrained=False, **kwargs):
+    return _resnet(34, pretrained, **kwargs)
+
+
+def resnet50(pretrained=False, **kwargs):
+    return _resnet(50, pretrained, **kwargs)
+
+
+def resnet101(pretrained=False, **kwargs):
+    return _resnet(101, pretrained, **kwargs)
+
+
+def resnet152(pretrained=False, **kwargs):
+    return _resnet(152, pretrained, **kwargs)
+
+
+def resnext50_32x4d(pretrained=False, **kwargs):
+    return _resnet(50, pretrained, groups=32, width=4, **kwargs)
+
+
+def resnext50_64x4d(pretrained=False, **kwargs):
+    return _resnet(50, pretrained, groups=64, width=4, **kwargs)
+
+
+def resnext101_32x4d(pretrained=False, **kwargs):
+    return _resnet(101, pretrained, groups=32, width=4, **kwargs)
+
+
+def resnext101_64x4d(pretrained=False, **kwargs):
+    return _resnet(101, pretrained, groups=64, width=4, **kwargs)
+
+
+def resnext152_32x4d(pretrained=False, **kwargs):
+    return _resnet(152, pretrained, groups=32, width=4, **kwargs)
+
+
+def resnext152_64x4d(pretrained=False, **kwargs):
+    return _resnet(152, pretrained, groups=64, width=4, **kwargs)
+
+
+def wide_resnet50_2(pretrained=False, **kwargs):
+    return _resnet(50, pretrained, width=64 * 2, **kwargs)
+
+
+def wide_resnet101_2(pretrained=False, **kwargs):
+    return _resnet(101, pretrained, width=64 * 2, **kwargs)

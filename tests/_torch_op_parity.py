@@ -58,14 +58,21 @@ def _wrap(pkg, a, stop):
     return a
 
 
-def run_case(name, args, kwargs, grad, module=""):
+def _namespace(pkg, module):
+    for part in filter(None, module.split(".")):
+        pkg = getattr(pkg, part)
+    return pkg
+
+
+def run_case(name, args, kwargs, grad, module="", rtol=RTOL, atol=ATOL,
+             grad_tol=GRAD_TOL):
     """``name`` resolved with getattr on both packages (``module`` a
-    sub-namespace such as ``linalg``), called on the same numpy inputs:
-    every output within RTOL / ATOL; where ``grad`` lists input
-    positions, the gradient of a fixed random projection of the first
-    output against the JAX tape within GRAD_TOL."""
-    jmod = getattr(jp, module) if module else jp
-    tmod = getattr(tp, module) if module else tp
+    sub-namespace such as ``linalg`` or ``nn.functional``), called on the
+    same numpy inputs: every output within ``rtol`` / ``atol`` (NaNs in
+    the same places); where ``grad`` lists input positions, the gradient
+    of a fixed random projection of the first output against the JAX tape
+    within ``grad_tol``."""
+    jmod, tmod = _namespace(jp, module), _namespace(tp, module)
     jfn, tfn = getattr(jmod, name), getattr(tmod, name)
     ja = [_wrap(jp, a, k not in grad) for k, a in enumerate(args)]
     ta = [_wrap(tp, a, k not in grad) for k, a in enumerate(args)]
@@ -83,14 +90,14 @@ def run_case(name, args, kwargs, grad, module=""):
             assert (xa == ya).all(), name
         else:
             np.testing.assert_allclose(xa.astype(np.float64),
-                                       ya.astype(np.float64), rtol=RTOL,
-                                       atol=ATOL, err_msg=name)
+                                       ya.astype(np.float64), rtol=rtol,
+                                       atol=atol, err_msg=name)
     if not grad:
         return
     ct = _rng(99).standard_normal(_as_np(jl[0]).shape).astype(np.float32)
     jg = jp.grad((jl[0] * jp.to_tensor(ct)).sum(), [ja[k] for k in grad])
     tg = tp.grad((tl[0] * tp.to_tensor(ct)).sum(), [ta[k] for k in grad])
     for k, x, y in zip(grad, tg, jg):
-        np.testing.assert_allclose(_as_np(x), _as_np(y), rtol=GRAD_TOL,
-                                   atol=GRAD_TOL,
+        np.testing.assert_allclose(_as_np(x), _as_np(y), rtol=grad_tol,
+                                   atol=grad_tol,
                                    err_msg=f"{name} gradient {k}")

@@ -12,7 +12,7 @@ import pytest
 import paddle_tpu  # noqa: F401  (the JAX package, on the CPU)
 import paddle_tpu_torch
 
-ITEM2 = "ROADMAP Queue 1, item 2's rest (convolution, pooling, BatchNorm)"
+ITEM2 = "ROADMAP Queue 1, item 2's rest (interpolation, unfold, fold)"
 ITEM4 = "ROADMAP Queue 1, item 4's rest (the optimizers not yet ported)"
 ITEM11 = "ROADMAP Queue 1, item 11 (jit.to_static and the JAX tape)"
 
@@ -38,11 +38,20 @@ PORTED = {
     "nn.functional.common": "nn.functional.common",
     "nn.functional.norm": "nn.functional.norm",
     "nn.functional.attention": "nn.functional.attention",
+    "nn.functional.conv": "nn.functional.conv",
+    "nn.functional.pooling": "nn.functional.pooling",
     "nn.layers_common": "nn.layers_common",
+    "nn.layers_conv_pool": "nn.layers_conv_pool",
     "nn.layers_norm_act_loss": "nn.layers_norm_act_loss",
     "nn.layers_transformer": "nn.layers_transformer",
     "optimizer.optimizer": "optimizer.optimizer",
     "framework.io": "framework.io",
+    "vision": "vision",
+    "vision.models.resnet": "vision.models.resnet",
+    "vision.models.lenet": "vision.models.lenet",
+    "vision.models.vgg": "vision.models.vgg",
+    "vision.models.alexnet": "vision.models.alexnet",
+    "vision.models.mobilenetv2": "vision.models.mobilenetv2",
 }
 
 # the JAX package's TPU names, spelled for the card in the port
@@ -56,17 +65,9 @@ LEFT_FOR_LATER = {
     "nn.functional.common": {
         "interpolate": ITEM2, "upsample": ITEM2, "unfold": ITEM2,
         "fold": ITEM2, "class_center_sample": ITEM2},
-    "nn.functional.norm": {
-        "batch_norm": ITEM2, "instance_norm": ITEM2, "group_norm": ITEM2,
-        "local_response_norm": ITEM2},
     "nn.layers_common": {
         "Upsample": ITEM2, "UpsamplingBilinear2D": ITEM2,
         "UpsamplingNearest2D": ITEM2, "Unfold": ITEM2, "Fold": ITEM2},
-    "nn.layers_norm_act_loss": {
-        "BatchNorm": ITEM2, "BatchNorm1D": ITEM2, "BatchNorm2D": ITEM2,
-        "BatchNorm3D": ITEM2, "SyncBatchNorm": ITEM2, "GroupNorm": ITEM2,
-        "InstanceNorm1D": ITEM2, "InstanceNorm2D": ITEM2,
-        "InstanceNorm3D": ITEM2, "LocalResponseNorm": ITEM2},
     "optimizer.optimizer": {
         "Adamax": ITEM4, "Adagrad": ITEM4, "Adadelta": ITEM4,
         "RMSProp": ITEM4, "Lamb": ITEM4},
@@ -106,14 +107,20 @@ def test_left_for_later_names_their_roadmap_items():
     ("", ["ops.creation", "ops.math", "ops.manipulation", "ops.logic",
           "core.tensor", "core.flags"]),
     ("linalg", ["ops.linalg"]),
-    ("nn", ["nn.layers_common", "nn.layers_norm_act_loss",
-            "nn.layers_transformer", "nn.layer"]),
+    ("nn", ["nn.layers_common", "nn.layers_conv_pool",
+            "nn.layers_norm_act_loss", "nn.layers_transformer", "nn.layer"]),
     ("nn.functional", ["nn.functional.activation", "nn.functional.loss",
                        "nn.functional.common", "nn.functional.norm",
-                       "nn.functional.attention"]),
+                       "nn.functional.attention", "nn.functional.conv",
+                       "nn.functional.pooling"]),
     ("nn.initializer", ["nn.initializer.api"]),
-    ("optimizer", ["optimizer.optimizer"])],
-    ids=["paddle", "linalg", "nn", "functional", "initializer", "optimizer"])
+    ("optimizer", ["optimizer.optimizer"]),
+    ("vision", ["vision"]),
+    ("vision.models", ["vision.models.resnet", "vision.models.lenet",
+                       "vision.models.vgg", "vision.models.alexnet",
+                       "vision.models.mobilenetv2"])],
+    ids=["paddle", "linalg", "nn", "functional", "initializer", "optimizer",
+         "vision", "models"])
 def test_namespaces_export_the_ported_names(namespace, modules):
     """``import paddle_tpu_torch as paddle`` reads like the JAX package:
     each namespace exports what its ported modules hold (``wrap_outputs``
@@ -140,6 +147,7 @@ def test_top_level_surface():
         assert hasattr(p, name), name
     assert hasattr(p.nn, "Layer") and hasattr(p.optimizer, "SGD")
     assert hasattr(p.optimizer, "Momentum")
+    assert hasattr(p.vision.models, "resnet50") and hasattr(p.nn, "Conv2D")
 
 
 def test_the_surface_imports_no_jax():
@@ -150,6 +158,7 @@ def test_the_surface_imports_no_jax():
     code = ("import sys, paddle_tpu_torch as p\n"
             "import paddle_tpu_torch.nn, paddle_tpu_torch.ops.linalg\n"
             "import paddle_tpu_torch.autograd, paddle_tpu_torch.framework.io\n"
+            "import paddle_tpu_torch.vision.models\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu']\n"
             "assert not bad, bad\n")

@@ -390,6 +390,48 @@ def test_sgd_momentum_trajectory(opt_name, kwargs):
         _close(t.bias, j.bias)
 
 
+@pytest.mark.parametrize("nesterov", [False, True])
+def test_momentum_staged_rule(nesterov):
+    """``Momentum`` is a staged rule (``TrainStep(fast_path=True)``
+    captures it on the card): its update from the step scalars as staged
+    fp32 tensors equals the host-float update bit for bit, and a true
+    ``skip`` keeps every parameter and velocity bit."""
+    kw = dict(learning_rate=0.1, momentum=0.9, use_nesterov=nesterov,
+              weight_decay=0.01)
+    runs = []
+    for staged in (None, "tensor", "skip"):
+        t = tp.nn.Linear(4, 3)
+        tp.convert.load_paddle_layer_state(
+            t, {"weight": f(4, 3), "bias": f(3, seed=1)})
+        opt = tp.optimizer.Momentum(parameters=t.parameters(), **kw)
+        grads = [tp.to_tensor(f(4, 3, seed=2)), tp.to_tensor(f(3, seed=3))]
+        for k in range(2):
+            if staged is None:
+                opt.apply_gradients(t.parameters(), grads)
+            else:
+                scal = torch.tensor(opt.step_scalars(k + 1))
+                skip = torch.tensor(staged == "skip" and k == 1)
+                opt.apply_gradients(t.parameters(), grads, staged=scal,
+                                    skip=skip)
+        runs.append([p.detach().clone() for p in t.parameters()]
+                    + [opt._accumulators[id(p)]["velocity"].clone()
+                       for p in t.parameters()])
+    host, staged, skipped = runs
+    assert opt._staged_rule
+    for a, b in zip(host, staged):
+        assert torch.equal(a, b)
+    one = tp.nn.Linear(4, 3)
+    tp.convert.load_paddle_layer_state(
+        one, {"weight": f(4, 3), "bias": f(3, seed=1)})
+    ref = tp.optimizer.Momentum(parameters=one.parameters(), **kw)
+    ref.apply_gradients(one.parameters(), [tp.to_tensor(f(4, 3, seed=2)),
+                                           tp.to_tensor(f(3, seed=3))])
+    want = [p.detach() for p in one.parameters()] + \
+        [ref._accumulators[id(p)]["velocity"] for p in one.parameters()]
+    for a, b in zip(skipped, want):
+        assert torch.equal(a, b)
+
+
 def test_clear_grad_set_to_zero_and_scheduler():
     t = tp.nn.Linear(2, 2)
     opt = tp.optimizer.SGD(learning_rate=0.1, parameters=t.parameters())
