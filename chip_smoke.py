@@ -190,6 +190,23 @@ the user entry points, random weights from a seed:
   config 3: 1000 classes at 224 x 224, batch 64, captured, under
   ``auto_cast()`` ([resnet-224]); images/s, ms a step over windows, peak
   memory and the busy share.
+* hapi and io (slice 21): recompute over a batch norm, captured, bit for
+  bit the run without it, the running statistics moved once
+  ([recompute-bn], F12); ``paddle.Model`` on ResNet-50 at config 1's
+  geometry fed by the ``io.DataLoader`` (shuffled, worker threads):
+  ``fit`` eager with ``metric.Accuracy`` bit for bit a hand loop
+  ([hapi-fit]); ``prepare(jit_compile=True)`` through the
+  ``io.DeviceLoader`` as ``fit``, ``fit(metric_lag=2)`` and a hand
+  ``TrainStep`` loop, bit for bit and timed ([hapi-graph]);
+  ``evaluate`` and ``predict`` against the hand eval ([hapi-eval]);
+  ``AutoCheckpoint`` with SIGTERM at step 12, resumed bit for bit, the
+  stall of each ``save()`` ([hapi-ckpt]); and the Paddle-API encoder at
+  BERT-base width accumulating 4 microbatches of 16 x 512 a window
+  through ``prepare(accumulate_steps=4)`` over ``DeviceLoader(
+  stack_batches=4)``, a hand ``TrainStep`` and ``fleet.
+  GradientMergeOptimizer``, bit for bit, rows 4, 5 and 8 and the dq sum
+  counted a window, the eager merge buffer within its stated tolerance
+  ([hapi-accum]).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel its path never launched fails the run. A
@@ -221,6 +238,11 @@ phases) and prints neither JSON line.
 
 runs the card's checks and the vision phases alone in a fresh process (no
 build: no hand kernel lies on their paths) and prints neither JSON line.
+
+    python3 chip_smoke.py --hapi-only
+
+runs the card's checks, the build and the hapi phases alone in a fresh
+process and prints neither JSON line.
 """
 from __future__ import annotations
 
@@ -8060,16 +8082,17 @@ def phase_resnet_eval(card, cpu):
 
 
 def _profiled_busy(fn, n):
-    """``n`` calls of ``fn`` under torch.profiler: the wall (ms) and the
-    device's busy share of it (None where no device time was recorded)."""
+    """``n`` calls of ``fn`` under torch.profiler, then a synchronise: the
+    wall (ms) and the device's busy share of it (None where no device time
+    was recorded)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            loss = fn()
-        float(loss)
+            fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy = sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -8302,6 +8325,680 @@ def vision_phases(smi):
     return paths, rates
 
 
+# ---------------------------------------------------------------- hapi and io
+# (slice 21): paddle.Model's fit / evaluate / predict, the callbacks with
+# AutoCheckpoint, metric, the DataLoader (collating on the host, worker
+# threads) and the DeviceLoader (pinned copies on a side stream), on
+# ResNet-50 at BASELINE config 1's geometry (no hand kernel, as in the
+# vision phases) and on the Paddle-API encoder at BERT-base width through
+# accumulation (rows 4, 5 and 8 and the dq sum). Seeded data only.
+
+HAPI_FIT = dict(batch=32, size=32, steps=20, workers=2, profiled=4, turns=2)
+HAPI_GRAPH = dict(batch=64, size=32, steps=20, workers=2, profiled=4)
+HAPI_EVAL = dict(batch=64, samples=256)
+HAPI_ACCUM = dict(batch=16, seq=512, k=4, windows=3)
+HAPI_CKPT = dict(batch=64, size=32, steps=20, save_steps=5, sigterm_at=12)
+HAPI_CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "smoke_checkout", "hapi_ckpt")
+# [hapi-accum]'s eager GradientMergeOptimizer route sums the microbatches'
+# bf16 gradients in bf16 (the JAX package's merge buffer), where the
+# compiled routes sum them in fp32: each window's loss within
+# HAPI_MERGE_LOSS_LIMIT (relative) and the update of the fp32 masters over
+# the 3 windows within HAPI_MERGE_UPDATE_LIMIT (norm-relative over all
+# leaves) of the compiled routes'. Adam's first updates are about lr times
+# the gradient's sign, so the bf16 sums move only the elements whose
+# gradient is near 0
+HAPI_MERGE_LOSS_LIMIT = 1e-2
+HAPI_MERGE_UPDATE_LIMIT = 5e-2
+
+
+def _hapi_images(n, size, seed, classes=10):
+    """``io.TensorDataset`` of seeded host images ``[n, 3, size, size]``
+    and labels in ``[0, classes)``, as numpy arrays."""
+    import paddle_tpu_torch as paddle
+    r = np.random.default_rng(seed)
+    x = r.standard_normal((n, 3, size, size), dtype=np.float32)
+    y = r.integers(0, classes, (n,)).astype(np.int64)
+    return paddle.io.TensorDataset([x, y])
+
+
+def _hapi_loader(ds, batch, workers, device=True, **kw):
+    """``io.DataLoader`` (shuffled, worker threads), in an
+    ``io.DeviceLoader(prefetch_depth=2)`` where ``device``."""
+    import paddle_tpu_torch as paddle
+    dl = paddle.io.DataLoader(ds, batch_size=batch, shuffle=True,
+                              num_workers=workers)
+    return paddle.io.DeviceLoader(dl, prefetch_depth=2, **kw) if device \
+        else dl
+
+
+def _step_log():
+    """A callback keeping each step's logs and the host clock at each
+    step's end and each epoch's begin and end."""
+    import paddle_tpu_torch as paddle
+
+    class StepLog(paddle.callbacks.Callback):
+        def __init__(self):
+            super().__init__()
+            self.logs, self.epochs, self.ends = [], [], []
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self.epochs.append([time.perf_counter(), None])
+
+        def on_epoch_end(self, epoch, logs=None):
+            self.epochs[-1][1] = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.logs.append(dict(logs))
+            self.ends.append(time.perf_counter())
+
+        def ms(self, epoch, steps):
+            t0, t1 = self.epochs[epoch]
+            return (t1 - t0) / steps * 1e3
+    return StepLog()
+
+
+def _deterministic(fn, *args):
+    """``fn(*args)`` with ``FLAGS_cudnn_deterministic`` on (cuDNN's
+    backwards add with atomics otherwise, as [resnet-order] shows)."""
+    import paddle_tpu_torch as paddle
+    paddle.set_flags({"FLAGS_cudnn_deterministic": True})
+    try:
+        return fn(*args)
+    finally:
+        paddle.set_flags({"FLAGS_cudnn_deterministic": False})
+
+
+def phase_recompute_bn():
+    """[recompute-bn]: F12's card gate. ``Conv2D(3, 3, 3, padding=1)`` +
+    ``BatchNorm2D(3)`` under ``fleet.recompute`` and without it, from one
+    seed, ``FLAGS_cudnn_deterministic`` on: one captured ``TrainStep``
+    with ``Momentum(0.1, 0.9)`` on a seeded [4, 3, 5, 5] batch (the
+    captured step takes a staged rule: ``SGD``'s takes host floats; the
+    parameters after the step carry the gradients, ``_mean`` /
+    ``_variance`` the running update), then ``paddle.grad`` of the loss
+    eagerly: parameters, buffers and gradients bit for bit with and
+    without recompute, and the buffers moved once."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    nn = paddle.nn
+    x = paddle.to_tensor(np.random.default_rng(0).standard_normal(
+        (4, 3, 5, 5), dtype=np.float32))
+
+    class Net(nn.Layer):
+        def __init__(self, recompute):
+            super().__init__()
+            self.recompute = recompute
+            self.conv = nn.Conv2D(3, 3, 3, padding=1)
+            self.bn = nn.BatchNorm2D(3)
+
+        def forward(self, t):
+            def block(u):
+                return self.bn(self.conv(u))
+            y = paddle.distributed.fleet.recompute(block, t) \
+                if self.recompute else block(t)
+            return (y * y).mean()
+
+    def run():
+        out = {}
+        for recompute in (False, True):
+            paddle.seed(5)
+            net = Net(recompute)
+            init = {k: v.detach().clone() for k, v in
+                    net.state_dict().items()}
+            step = TrainStep(net, paddle.optimizer.Momentum(
+                0.1, 0.9, parameters=net.parameters()))
+            step(x)
+            _graph_of(step)
+            state = {k: v.detach().clone() for k, v in
+                     net.state_dict().items()}
+            grads = paddle.grad(net(x), list(net.parameters()))
+            state.update({f"grad:{i}": g.detach().clone()
+                          for i, g in enumerate(grads)})
+            state["step_count"] = 1
+            out[recompute] = (init, state)
+        return out
+    out = _deterministic(run)
+    (init, plain), (_, again) = out[False], out[True]
+    _hold_bits("[recompute-bn]", "recompute against none (captured step, "
+               "then paddle.grad)", again, plain)
+    moved = [k for k in init if k.startswith("bn._")
+             and _bit_equal(plain[k], init[k])]
+    if moved:
+        raise AssertionError(f"[recompute-bn] {moved} did not move")
+
+
+def phase_hapi_fit(smi, resnet):
+    """[hapi-fit]: BASELINE config 1 through the high-level API.
+    ``paddle.Model(vision.models.resnet50(num_classes=10))`` with
+    ``prepare(Momentum(0.1, 0.9), nn.CrossEntropyLoss(),
+    metric.Accuracy())``, eager, one epoch of HAPI_FIT["steps"] steps at
+    batch 32 over a seeded ``io.TensorDataset`` of [3, 32, 32] images, a
+    shuffled ``DataLoader`` with 2 worker threads; against a hand eager
+    loop over the same batches on a model built from the same seed, both
+    under ``FLAGS_cudnn_deterministic`` after two warm-up steps: every
+    step's loss and accuracy bit for bit. Then HAPI_FIT["turns"] more
+    epochs of each in turns (fit, hand, fit, hand) for the times. Prints
+    images/s of each epoch, the host time of ``network.train()`` (the
+    fit calls it every step), and the busy share of HAPI_FIT["profiled"]
+    more fit steps, beside [resnet-train]'s."""
+    import paddle_tpu_torch as paddle
+    F = paddle.nn.functional
+    b, steps = HAPI_FIT["batch"], HAPI_FIT["steps"]
+    ds = _hapi_images(b * steps, HAPI_FIT["size"], 50)
+
+    def run():
+        # cuDNN picks and plans its algorithms at a shape's first call:
+        # two warm-up steps, so neither timed route pays for that
+        warm = _resnet50(0, "gpu")
+        x0, y0 = _images(b, HAPI_FIT["size"], 52, "gpu")
+        for _ in range(2):
+            _paddle_step(warm, _momentum(warm), x0, y0)
+        del warm
+        net = _resnet50(0, "gpu")
+        model = paddle.Model(net)
+        model.prepare(_momentum(net), paddle.nn.CrossEntropyLoss(),
+                      paddle.metric.Accuracy())
+        hand_net = _resnet50(0, "gpu")
+        opt = _momentum(hand_net)
+
+        def fit_epoch():
+            rec = _step_log()
+            torch.cuda.synchronize()
+            model.fit(_hapi_loader(ds, b, HAPI_FIT["workers"],
+                                   device=False),
+                      epochs=1, verbose=0, callbacks=[rec])
+            return rec.logs, rec.ms(0, steps)
+
+        def hand_epoch():
+            acc = paddle.metric.Accuracy()
+            logs = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for xb, yb in _hapi_loader(ds, b, HAPI_FIT["workers"],
+                                       device=False):
+                xb, yb = xb.cuda(), yb.cuda()
+                out = hand_net(xb)
+                loss = F.cross_entropy(out, yb)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                acc.update(acc.compute(out, yb))
+                logs.append({"loss": float(loss),
+                             "acc": float(acc.accumulate())})
+            return logs, (time.perf_counter() - t0) / steps * 1e3
+        np.random.seed(51)
+        logs, fit_ms = fit_epoch()
+        np.random.seed(51)
+        hand, hand_ms = hand_epoch()
+        turns = {"fit": [fit_ms], "hand": [hand_ms]}
+        for _ in range(HAPI_FIT["turns"]):
+            turns["fit"].append(fit_epoch()[1])
+            turns["hand"].append(hand_epoch()[1])
+        t0 = time.perf_counter()
+        for _ in range(50):
+            net.train()
+        train_ms = (time.perf_counter() - t0) / 50 * 1e3
+        sub = paddle.io.Subset(ds, range(b * HAPI_FIT["profiled"]))
+        _, busy = _profiled_busy(lambda: model.fit(
+            _hapi_loader(sub, b, HAPI_FIT["workers"], device=False),
+            epochs=1, verbose=0), 1)
+        return logs, hand, turns, train_ms, busy
+    logs, hand, turns, train_ms, busy = _deterministic(run)
+    if logs != hand or len(logs) != steps:
+        first = next((i for i, (g, w) in enumerate(zip(logs, hand))
+                      if g != w), None)
+        raise AssertionError(f"[hapi-fit] the fit's logs differ from the "
+                             f"hand loop's at step {first}: "
+                             f"{logs[first:first + 1]} vs "
+                             f"{hand[first:first + 1]}")
+    ref = resnet.get("fp32") if resnet else None
+    beside = (f"[resnet-train]'s eager loop {ref['ms']:.2f} ms, busy "
+              f"{ref['busy'] if ref['busy'] is None else round(ref['busy'], 3)}"
+              if ref else "[resnet-train] not run in this process")
+    fit, hand_t = turns["fit"], turns["hand"]
+    log(f"[hapi-fit] ({smi}) Model.fit eager, ResNet-50 fp32, batch {b}, "
+        f"{steps} steps: every step's loss and accuracy bit for bit the "
+        f"hand loop's (last {logs[-1]}); ms a step by epoch, in turns: fit "
+        f"{[round(v, 2) for v in fit]}, hand loop "
+        f"{[round(v, 2) for v in hand_t]} (mean {np.mean(fit):.2f} against "
+        f"{np.mean(hand_t):.2f}: {b / np.mean(fit) * 1e3:.1f} against "
+        f"{b / np.mean(hand_t) * 1e3:.1f} images/s); network.train() "
+        f"{train_ms:.3f} ms on the host; busy "
+        f"{busy if busy is None else round(busy, 3)} over "
+        f"{HAPI_FIT['profiled']} fit steps; {beside}")
+
+
+def phase_hapi_graph(smi):
+    """[hapi-graph]: ``prepare(jit_compile=True)`` (the captured
+    ``TrainStep``) at batch 64, fed by ``io.DeviceLoader(DataLoader(...),
+    prefetch_depth=2)``, ``FLAGS_cudnn_deterministic`` on, 2 epochs of
+    HAPI_GRAPH["steps"] steps from one numpy seed, three ways: ``fit``
+    (a ``float(loss)`` and the callbacks each step), ``fit(metric_lag=
+    2)``, and a hand loop over a ``TrainStep`` of the network and its loss
+    on the same DeviceLoader (the loss read once an epoch). Gate: every
+    step's loss, every parameter, velocity and buffer bit for bit across
+    the three, ``num_compiles`` 1 each. Prints the second epoch's ms a step
+    of each, the DeviceLoader's wait a step, and the busy share over
+    HAPI_GRAPH["profiled"] more steps of the synced fit and the hand loop.
+    Returns route "fit"'s network (for [hapi-eval])."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    b, steps = HAPI_GRAPH["batch"], HAPI_GRAPH["steps"]
+    ds = _hapi_images(b * steps, HAPI_GRAPH["size"], 60)
+    sub = paddle.io.Subset(ds, range(b * HAPI_GRAPH["profiled"]))
+
+    def fit_route(lag):
+        net = _resnet50(0, "gpu")
+        model = paddle.Model(net)
+        opt = _momentum(net)
+        model.prepare(opt, paddle.nn.CrossEntropyLoss(), jit_compile=True)
+        rec = _step_log()
+        loader = _hapi_loader(ds, b, HAPI_GRAPH["workers"])
+        np.random.seed(61)
+        model.fit(loader, epochs=2, verbose=0, callbacks=[rec],
+                  metric_lag=lag)
+        wait = loader.last_wait_s / steps * 1e3
+        state = _vision_state(net, opt)
+        busy = None
+        if not lag:
+            busy = _profiled_busy(lambda: model.fit(
+                _hapi_loader(sub, b, HAPI_GRAPH["workers"]), epochs=1,
+                verbose=0), 1)[1]
+        step = model._train_step
+        _graph_of(step)
+        return dict(losses=[x["loss"] for x in rec.logs], ms=rec.ms(1, steps),
+                    wait=wait, busy=busy, compiles=step.num_compiles,
+                    state=state, net=net)
+
+    def hand_route():
+        net = _resnet50(0, "gpu")
+        opt = _momentum(net)
+        step = TrainStep(_classifier(net), opt)
+        loader = _hapi_loader(ds, b, HAPI_GRAPH["workers"])
+        np.random.seed(61)
+        losses, ms = [], 0.0
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            seen, waits = [], []
+            it = iter(loader)
+            while True:
+                t = time.perf_counter()
+                batch = next(it, None)
+                if batch is None:
+                    break
+                waits.append(time.perf_counter() - t)
+                seen.append(step(*batch))
+            losses += [float(v) for v in seen]
+            ms = (time.perf_counter() - t0) / steps * 1e3
+        wait = loader.last_wait_s / steps * 1e3
+        # the epoch's first batch waits for the pipeline to fill
+        split = (waits[0] * 1e3, np.mean(waits[1:]) * 1e3)
+        state = _vision_state(net, opt)
+
+        def more():
+            for xb, yb in _hapi_loader(sub, b, HAPI_GRAPH["workers"]):
+                step(xb, yb)
+        busy = _profiled_busy(more, 1)[1]
+        _graph_of(step)
+        return dict(losses=losses, ms=ms, wait=wait, busy=busy,
+                    compiles=step.num_compiles, state=state, split=split)
+
+    def run():
+        out = {}
+        for name, fn in (("fit", lambda: fit_route(0)),
+                         ("fit metric_lag=2", lambda: fit_route(2)),
+                         ("hand loop", hand_route)):
+            out[name] = fn()
+            out[name]["state"]["losses"] = torch.tensor(out[name]["losses"])
+            if name != "fit":
+                _release(f"after [hapi-graph] {name}")
+        return out
+    out = _deterministic(run)
+    want = out["fit"]
+    for name, got in out.items():
+        if got["compiles"] != 1:
+            raise AssertionError(f"[hapi-graph] {name}: num_compiles "
+                                 f"{got['compiles']}")
+        if name != "fit":
+            _hold_bits(f"[hapi-graph] {name}", "against fit, 2 epochs of "
+                       f"{steps} captured steps (losses, parameters, "
+                       f"velocities, _mean and _variance)", got["state"],
+                       want["state"])
+
+    def fmt(v):
+        return v if v is None else round(v, 3)
+    log(f"[hapi-graph] ({smi}) ResNet-50 fp32, batch {b}, captured, fed by "
+        f"a DeviceLoader: ms a step (second epoch) "
+        + "; ".join(f"{k} {v['ms']:.2f} (DeviceLoader wait "
+                    f"{v['wait']:.3f} ms a step, busy {fmt(v['busy'])})"
+                    for k, v in out.items())
+        + f"; the hand loop's next() waited {out['hand loop']['split'][0]:.3f}"
+        f" ms for an epoch's first batch and {out['hand loop']['split'][1]:.3f}"
+        f" ms a step after it"
+        + f"; fit / hand loop {want['ms'] / out['hand loop']['ms']:.4f}, "
+        f"metric_lag=2 / hand loop "
+        f"{out['fit metric_lag=2']['ms'] / out['hand loop']['ms']:.4f}")
+    return want["net"]
+
+
+def phase_hapi_eval(net):
+    """[hapi-eval]: on [hapi-graph]'s trained network, ``Model.evaluate``
+    with ``nn.CrossEntropyLoss`` and ``metric.Accuracy(topk=(1, 5))`` over
+    HAPI_EVAL["samples"] seeded images at batch 64 against a hand
+    evaluation (the last batch's loss, top-1 and top-5 bit for bit), and
+    ``predict(stack_outputs=True)`` against the hand eval forward, bit for
+    bit."""
+    import paddle_tpu_torch as paddle
+    b, n = HAPI_EVAL["batch"], HAPI_EVAL["samples"]
+    ds = _hapi_images(n, HAPI_GRAPH["size"], 70)
+    images = paddle.io.TensorDataset([ds.tensors[0]])
+
+    def run():
+        model = paddle.Model(net)
+        model.prepare(loss=paddle.nn.CrossEntropyLoss(),
+                      metrics=paddle.metric.Accuracy(topk=(1, 5)))
+        logs = model.evaluate(ds, batch_size=b, verbose=0)
+        got = (logs["loss"], model._metrics[0].accumulate())
+        pred = model.predict(images, batch_size=b, stack_outputs=True)
+        acc = paddle.metric.Accuracy(topk=(1, 5))
+        net.eval()
+        outs = []
+        with paddle.no_grad():
+            for xb, yb in paddle.io.DataLoader(ds, batch_size=b):
+                xb, yb = xb.cuda(), yb.cuda()
+                out = net(xb)
+                loss = paddle.nn.functional.cross_entropy(out, yb)
+                acc.update(acc.compute(out, yb))
+                outs.append(out.numpy())
+        return got, (float(loss), acc.accumulate()), pred, \
+            np.concatenate(outs)
+    got, want, pred, hand = _deterministic(run)
+    if got != want:
+        raise AssertionError(f"[hapi-eval] evaluate {got} vs the hand "
+                             f"evaluation {want}")
+    if not np.array_equal(pred, hand):
+        raise AssertionError("[hapi-eval] predict differs from the hand "
+                             "forward")
+    log(f"[hapi-eval] evaluate over {n} images: loss {got[0]:.6f}, top-1 "
+        f"{got[1][0]:.4f}, top-5 {got[1][1]:.4f}, bit for bit the hand "
+        f"evaluation; predict(stack_outputs=True) {pred.shape} bit for bit "
+        f"the hand forward")
+
+
+def _accum_launches(tag, counts):
+    """A callback (or a hand loop's check) that holds each window's
+    launches to HAPI_ACCUM["k"] x API_STEP_LAUNCHES."""
+    k = HAPI_ACCUM["k"]
+    want = {n: k * v for n, v in API_STEP_LAUNCHES.items()}
+    _expect_launches(tag, counts, **want)
+
+
+def phase_hapi_accum(smi):
+    """[hapi-accum]: the Paddle-API encoder at BERT-base width
+    (``_api_encoder(API_BERT)``: 12 layers of 12 heads of 64, dropout 0.1)
+    in bf16 with ``AdamW(multi_precision=True)``, microbatches of 16 x
+    512, K = 4, HAPI_ACCUM["windows"] windows, three routes from one seed
+    (the global chain reseeded before each: dropout draws from it):
+    ``Model.fit`` over ``io.DeviceLoader(DataLoader(...),
+    stack_batches=4)`` with ``prepare(accumulate_steps=4)``; a hand
+    ``TrainStep(accumulate_steps=4)`` over ``io.stack_microbatches`` of
+    the host batches; ``TrainStep(fleet.GradientMergeOptimizer(opt,
+    k_steps=4))``. Gate: each window launching 4 x API_STEP_LAUNCHES (rows
+    4, 5 and 8, the dq sum behind each backward), the window losses and
+    every parameter, moment and master bit for bit across the three,
+    ``num_compiles`` 1 each. Then the eager ``GradientMergeOptimizer``
+    route (``loss.backward(); opt.step(); opt.clear_grad()`` a
+    microbatch) within HAPI_MERGE_LOSS_LIMIT and HAPI_MERGE_UPDATE_LIMIT.
+    Returns the launches of the three compiled routes."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import launch_counts
+    b, s, k, windows = (HAPI_ACCUM["batch"], HAPI_ACCUM["seq"],
+                        HAPI_ACCUM["k"], HAPI_ACCUM["windows"])
+    r = np.random.default_rng(80)
+    n = b * k * windows
+    ids = r.integers(0, API_BERT["vocab"], (n, s)).astype(np.int64)
+    labels = r.integers(0, API_BERT["vocab"], (n, s)).astype(np.int64)
+    ds = paddle.io.TensorDataset([ids, labels])
+    total = {}
+
+    def build():
+        model = _api_encoder(API_BERT, 0, "gpu")
+        model.to(dtype="bfloat16")
+        opt = paddle.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                     parameters=model.parameters(),
+                                     multi_precision=True)
+        init = {i: p.detach().float().clone()
+                for i, p in enumerate(opt._parameter_list)}
+        paddle.seed(11)
+        return model, opt, init
+
+    class Window(paddle.callbacks.Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            self.before = launch_counts()
+
+        def on_train_batch_end(self, step, logs=None):
+            _accum_launches(f"[hapi-accum] fit window {step}",
+                            _grew(self.before, launch_counts()))
+
+    def host_windows():
+        dl = paddle.io.DataLoader(ds, batch_size=b)
+        batches = list(dl)
+        return [paddle.io.stack_microbatches(batches[i:i + k])
+                for i in range(0, len(batches), k)]
+
+    def finish(name, model, opt, losses, step, t0, ends):
+        """The route's state (window losses too) and its times: the first
+        window (with the capture) and the mean of the others, each
+        closed by reading its loss."""
+        ms = ((ends[0] - t0) * 1e3,
+              (ends[-1] - ends[0]) / (len(ends) - 1) * 1e3)
+        if step.num_compiles != 1:
+            raise AssertionError(f"[hapi-accum] {name}: num_compiles "
+                                 f"{step.num_compiles}")
+        _graph_of(step)
+        state = {k_: v.cpu() if torch.is_tensor(v) else v
+                 for k_, v in _train_state(model, opt).items()}
+        state["losses"] = torch.tensor(losses)
+        return state, ms
+
+    out, ms = {}, {}
+    before_all = launch_counts()
+    # 1. Model.fit over a stacking DeviceLoader
+    model, opt, init = build()
+    hapi = paddle.Model(model)
+    hapi.prepare(opt, accumulate_steps=k)
+    rec = _step_log()
+    t0 = time.perf_counter()
+    hapi.fit(paddle.io.DeviceLoader(paddle.io.DataLoader(ds, batch_size=b),
+                                    stack_batches=k),
+             epochs=1, verbose=0, callbacks=[Window(), rec])
+    out["fit"], ms["fit"] = finish("fit", model, opt,
+                                   [x["loss"] for x in rec.logs],
+                                   hapi._train_step, t0, rec.ends)
+    del model, opt, hapi
+    _release("after [hapi-accum] fit")
+    # 2. and 3. hand TrainSteps over stacked host windows
+    for name in ("accumulate_steps=4", "GradientMergeOptimizer"):
+        model, opt, _ = build()
+        step = TrainStep(model, opt, accumulate_steps=k) \
+            if name == "accumulate_steps=4" else \
+            TrainStep(model, paddle.distributed.fleet.GradientMergeOptimizer(
+                opt, k_steps=k))
+        losses, ends = [], []
+        t0 = time.perf_counter()
+        for i, window in enumerate(host_windows()):
+            before = launch_counts()
+            losses.append(float(step(*window)))
+            ends.append(time.perf_counter())
+            _accum_launches(f"[hapi-accum] {name} window {i}",
+                            _grew(before, launch_counts()))
+        out[name], ms[name] = finish(name, model, opt, losses, step, t0,
+                                     ends)
+        del model, opt, step
+        _release(f"after [hapi-accum] {name}")
+    total = _grew(before_all, launch_counts())
+    for name, state in out.items():
+        if name != "fit":
+            _hold_bits(f"[hapi-accum] {name}", f"against Model.fit, "
+                       f"{windows} windows of {k} x {b} x {s} (window "
+                       f"losses too)", state, out["fit"])
+    # 4. the eager merge buffer
+    model, opt, _ = build()
+    merged = paddle.distributed.fleet.GradientMergeOptimizer(opt, k_steps=k)
+    eager = []
+    for i, (xb, yb) in enumerate(paddle.io.DataLoader(ds, batch_size=b)):
+        loss = model(xb.cuda(), yb.cuda())
+        loss.backward()
+        merged.step()
+        merged.clear_grad()
+        eager.append(float(loss))
+    windows_eager = [sum(eager[i:i + k]) / k for i in range(0, n // b, k)]
+    ref = out["accumulate_steps=4"]
+    loss_rel = max(abs(a - w) / abs(w) for a, w in
+                   zip(windows_eager, ref["losses"].tolist()))
+    upd_got, upd_want = [], []
+    for i, p in enumerate(opt._parameter_list):
+        m = opt._master_weights.get(id(p), p).detach().float().cpu()
+        upd_got.append((m - init[i].cpu()).flatten())
+        upd_want.append((ref[f"master:{i}"].float() - init[i].cpu())
+                        .flatten())
+    upd_rel = rel_err(torch.cat(upd_got), torch.cat(upd_want))
+    del model, opt, merged
+    _release("after [hapi-accum] eager merge")
+    log(f"[hapi-accum] ({smi}) the Paddle-API encoder, BERT-base width, "
+        f"bf16, {windows} windows of {k} x {b} x {s}: Model.fit over "
+        f"DeviceLoader(stack_batches={k}), TrainStep(accumulate_steps={k}) "
+        f"and TrainStep(GradientMergeOptimizer(k_steps={k})) bit for bit, "
+        f"num_compiles 1 each, window losses "
+        f"{[round(v, 4) for v in out['fit']['losses'].tolist()]}; ms a window "
+        "(the first, with its capture / the mean of the others) "
+        + ", ".join(f"{k_} {v[0]:.2f} / {v[1]:.2f}" for k_, v in ms.items())
+        + f"; launches {total}; the eager "
+        f"merge buffer (bf16 sums): window losses rel {loss_rel:.3g} (limit "
+        f"{HAPI_MERGE_LOSS_LIMIT}), masters' update rel {upd_rel:.3g} (limit "
+        f"{HAPI_MERGE_UPDATE_LIMIT})")
+    if not (loss_rel < HAPI_MERGE_LOSS_LIMIT
+            and upd_rel < HAPI_MERGE_UPDATE_LIMIT):
+        raise AssertionError("[hapi-accum] the eager GradientMergeOptimizer "
+                             "departs from the compiled accumulation")
+    return total
+
+
+def phase_hapi_ckpt(smi):
+    """[hapi-ckpt]: ``callbacks.AutoCheckpoint(save_steps=5)`` on
+    [hapi-graph]'s captured ResNet-50 fit (batch 64, one epoch of
+    HAPI_CKPT["steps"] steps, ``FLAGS_cudnn_deterministic`` on): a callback
+    sends this process SIGTERM at step 12; the fit takes an emergency
+    snapshot at step 12 (after the periodic ones at 5 and 10) and stops.
+    A second fit, on a model built from another seed, resumes from it
+    (replaying the data position) and finishes the epoch. Gate: its
+    parameters, velocities, buffers and step count bit for bit an
+    uninterrupted fit's, the SIGTERM handler restored. Prints the stall
+    each ``save()`` put on the loop."""
+    import signal
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.checkpoint import committed_steps
+    b, steps = HAPI_CKPT["batch"], HAPI_CKPT["steps"]
+    ds = _hapi_images(b * steps, HAPI_GRAPH["size"], 90)
+    shutil.rmtree(HAPI_CKPT_DIR, ignore_errors=True)
+    prev = signal.getsignal(signal.SIGTERM)
+    stalls = []
+
+    class Timed(paddle.callbacks.AutoCheckpoint):
+        def _save(self, block, mode=None):
+            fresh = self._global_step != self._last_saved
+            t0 = time.perf_counter()
+            super()._save(block, mode)
+            if fresh:
+                stalls.append((self._global_step,
+                               mode or ("sync" if block else "async"),
+                               (time.perf_counter() - t0) * 1e3))
+
+    class Sigterm(paddle.callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            if step + 1 == HAPI_CKPT["sigterm_at"]:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    def fit(seed, cbs):
+        net = _resnet50(seed, "gpu")
+        opt = _momentum(net)
+        model = paddle.Model(net)
+        model.prepare(opt, paddle.nn.CrossEntropyLoss(), jit_compile=True)
+        np.random.seed(91)
+        model.fit(_hapi_loader(ds, b, HAPI_GRAPH["workers"]), epochs=1,
+                  verbose=0, callbacks=cbs)
+        if signal.getsignal(signal.SIGTERM) != prev:
+            raise AssertionError("[hapi-ckpt] the SIGTERM handler was not "
+                                 "restored")
+        return model, _vision_state(net, opt)
+
+    def run():
+        _, straight = fit(0, [])
+        cut, _ = fit(0, [Sigterm(), Timed(HAPI_CKPT_DIR, save_steps=HAPI_CKPT[
+            "save_steps"], verbose=0)])
+        saved = committed_steps(HAPI_CKPT_DIR)
+        _, resumed = fit(1, [Timed(HAPI_CKPT_DIR, save_steps=HAPI_CKPT[
+            "save_steps"], verbose=0)])
+        return straight, cut.stop_training, saved, resumed
+    straight, stopped, saved, resumed = _deterministic(run)
+    at = HAPI_CKPT["sigterm_at"]
+    if not stopped or at not in saved or [s for s, _, _ in stalls[:3]] != [
+            5, 10, at] or stalls[2][1] != "emergency":
+        raise AssertionError(f"[hapi-ckpt] no emergency snapshot at step "
+                             f"{at}: saves {stalls}, committed {saved}")
+    _hold_bits("[hapi-ckpt]", f"resumed at step {at} against an "
+               f"uninterrupted fit of {steps} steps (parameters, "
+               f"velocities, _mean and _variance)", resumed, straight)
+    mb = _snapshot_bytes(os.path.join(HAPI_CKPT_DIR, f"step_{at}")) / 1e6
+    log(f"[hapi-ckpt] ({smi}) AutoCheckpoint(save_steps="
+        f"{HAPI_CKPT['save_steps']}) on the captured fit, batch {b}: SIGTERM "
+        f"at step {at} -> emergency snapshot and stop, committed {saved}; a "
+        f"snapshot {mb:.1f} MB; the stall each save() put on the loop: "
+        + ", ".join(f"step {s} {m} {ms:.1f} ms" for s, m, ms in stalls)
+        + " (warm page cache)")
+    shutil.rmtree(HAPI_CKPT_DIR, ignore_errors=True)
+
+
+def hapi_phases(smi, resnet=None):
+    """The slice-21 phases, each with the launch counts set to 0 before it
+    and read after: the ResNet paths launch no hand kernel; [hapi-accum]
+    launches rows 4, 5 and 8 and the dq sum (counted a window inside it).
+    ``resnet`` is [resnet-train]'s rates where the vision phases ran.
+    Returns each path's counts."""
+    from paddle_tpu_torch.kernels import reset_launch_counts
+    paths = {}
+
+    def run(tag, fn, *args, kernels=False):
+        reset_launch_counts()
+        out = fn(*args)
+        counts = _path_counts()
+        ran = {k: n for k, n in counts.items() if n}
+        if ran and not kernels:
+            raise AssertionError(f"[{tag}] launched hand kernels: {ran}")
+        paths[tag] = counts
+        return out
+
+    t0 = time.perf_counter()
+    run("recompute-bn", phase_recompute_bn)
+    run("hapi-fit", phase_hapi_fit, smi, resnet)
+    _release("after [hapi-fit]")
+    net = run("hapi-graph", phase_hapi_graph, smi)
+    run("hapi-eval", phase_hapi_eval, net)
+    del net
+    _release("after [hapi-graph] and [hapi-eval]")
+    run("hapi-accum", phase_hapi_accum, smi, kernels=True)
+    _release("after [hapi-accum]")
+    run("hapi-ckpt", phase_hapi_ckpt, smi)
+    _release("after [hapi-ckpt]")
+    ran = {k: n for k, n in paths["hapi-accum"].items() if n}
+    log(f"[hapi] the hapi phases passed in {time.perf_counter() - t0:.1f} "
+        f"s; [hapi-accum] launched {ran}, the other paths nothing")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -8520,8 +9217,14 @@ def main() -> int:
     # vision (slice 20): conv, pooling and the batch norms on the Paddle
     # surface, ResNet-50 at BASELINE config 1's geometry and at 224 x 224;
     # no hand kernel lies on these paths
-    vision_paths, _ = vision_phases(smi)
+    vision_paths, vision_rates = vision_phases(smi)
     paths.update(vision_paths)
+
+    # hapi and io (slice 21): F12's card gate, Model.fit / evaluate /
+    # predict on ResNet-50 eager and captured through the DeviceLoader,
+    # AutoCheckpoint's preemption and resume, and accumulation on the
+    # Paddle-API encoder (rows 4, 5 and 8)
+    paths.update(hapi_phases(smi, vision_rates["train"]))
 
     t0 = time.perf_counter()
     llama = LlamaForCausalLM(llama_7b(), dtype=torch.bfloat16, seed=0).eval()
@@ -8644,6 +9347,8 @@ def main() -> int:
                               "dropout_fwd"],
              "api-training-graph": ["flash_attention_fwd",
                                     "flash_attention_bwd", "dropout_fwd"],
+             "hapi-accum": ["flash_attention_fwd", "flash_attention_bwd",
+                            "dropout_fwd"],
              "gpt-serving-spec-draft": ["flash_pair_fwd"],
              "gpt-serving-spec-early": ["flash_pair_fwd"],
              "llama-serving-spec": ["flash_attention_fwd"]}
@@ -8839,6 +9544,31 @@ def vision_only() -> int:
     return 0
 
 
+def hapi_only() -> int:
+    """``chip_smoke.py --hapi-only``: the card, the build and the hapi
+    phases alone in a fresh process; no kernels line and no closing
+    line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    try:
+        import paddle_tpu_torch  # noqa: F401
+    except ModuleNotFoundError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})",
+              file=sys.stderr)
+        return 3
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    _, _, smi = phase_card()
+    phase_build()
+    paths = hapi_phases(smi)
+    log(f"[paths] {paths}")
+    log(f"[done] the hapi phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fleet-worker"]:     # [fleet-http]'s replicas
         sys.exit(_http_worker(*sys.argv[2:5]))
@@ -8846,4 +9576,6 @@ if __name__ == "__main__":
         sys.exit(api_only())
     if sys.argv[1:2] == ["--vision-only"]:
         sys.exit(vision_only())
+    if sys.argv[1:2] == ["--hapi-only"]:
+        sys.exit(hapi_only())
     sys.exit(main())

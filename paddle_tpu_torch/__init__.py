@@ -56,12 +56,22 @@ in the JAX package: no kernel of its is on this path), and ``vision``
 (``vision.models``: ResNet-18 to -152, the ResNeXt and wide ResNets,
 LeNet, VGG, AlexNet, MobileNetV2). ``FLAGS_cudnn_deterministic`` sets
 ``torch.backends.cudnn.deterministic``.
+
+hapi and io (slice 21): ``paddle.Model`` (``prepare`` / ``fit`` /
+``evaluate`` / ``predict``, eager or through ``TrainStep`` with
+``jit_compile`` / ``accumulate_steps``), ``callbacks`` (``AutoCheckpoint``
+among them), ``metric``, and ``io``: datasets, samplers, the
+``DataLoader`` (batches collated on the host) and the ``DeviceLoader``
+(host-to-card copies on a side stream ahead of the step;
+``stack_batches=K`` for accumulation); ``distributed.fleet.
+GradientMergeOptimizer`` sets ``TrainStep``'s accumulation.
 """
 import builtins
 
-from . import (amp, autograd, core, distributed, framework, jit, kernels,
-               models, monitor, nn, ops, optimizer, quantization,
-               regularizer, serving, utils, vision)
+from . import (amp, autograd, core, distributed, framework, io, jit,
+               kernels, metric, models, monitor, nn, ops, optimizer,
+               quantization, regularizer, serving, utils, vision)
+from . import callbacks, hapi
 from .core.autograd import grad
 from .core.device import (CPUPlace, CUDAPlace, Place, device_count,
                           get_device, is_compiled_with_cuda, set_device)
@@ -73,6 +83,7 @@ from .core.dtype import (bfloat16, bool_ as bool, complex64,  # noqa: F401
 from .core.flags import get_flags, set_flags
 from .core.random import get_rng_state, seed, set_rng_state
 from .core.tensor import Parameter, Tensor, to_tensor
+from .hapi import Model
 from .jit import TrainStep
 from .models import (BertConfig, BertForPreTraining, GPTConfig,
                      GPTForCausalLM, LlamaConfig, LlamaForCausalLM, bert_base,
@@ -129,10 +140,10 @@ def summary(net, input_size=None, dtypes=None):
     return {"total_params": total, "trainable_params": trainable}
 
 
-__all__ = (["amp", "autograd", "core", "distributed", "framework", "jit",
-            "kernels", "models", "monitor", "nn", "ops", "optimizer",
-            "quantization", "regularizer", "serving", "utils", "vision",
-            "linalg",
+__all__ = (["amp", "autograd", "core", "distributed", "framework", "io",
+            "jit", "kernels", "metric", "models", "monitor", "nn", "ops",
+            "optimizer", "quantization", "regularizer", "serving", "utils",
+            "vision", "linalg", "callbacks", "hapi", "Model",
             "BertConfig", "BertForPreTraining", "bert_base", "GPTConfig",
             "GPTForCausalLM", "LlamaConfig", "LlamaForCausalLM", "llama_7b",
             "DecodeEngine", "TrainStep", "seed", "get_rng_state",

@@ -30,6 +30,7 @@ plane's activation taps).
 from __future__ import annotations
 
 import threading
+from contextlib import contextmanager
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -39,7 +40,8 @@ from ..monitor import health as _health
 __all__ = ["ATTN_QKV", "ATTN_CONTEXT", "ATTN_OUT", "MLP_HIDDEN",
            "SELECTIVE_SAVE_NAMES", "POLICY_NAMES", "resolve_policy",
            "normalize_granularity", "tag_activation", "reset_trace_stats",
-           "stop_trace_stats", "trace_stats", "note_region"]
+           "stop_trace_stats", "trace_stats", "note_region", "replaying",
+           "in_replay"]
 
 ATTN_QKV = "attn_qkv"           # fused qkv (or per-tensor q/k/v) projection
 ATTN_CONTEXT = "attn_context"   # softmax(qk^T) v, before the out projection
@@ -131,6 +133,27 @@ def note_region(policy) -> None:
 
 # the open _Keep regions of this thread, innermost last
 _open = threading.local()
+
+
+@contextmanager
+def replaying():
+    """Open while a recompute region runs its forward again in the
+    backward (``distributed.fleet.recompute``'s replay context), on the
+    thread that runs it."""
+    _open.replays = getattr(_open, "replays", 0) + 1
+    try:
+        yield
+    finally:
+        _open.replays -= 1
+
+
+def in_replay() -> bool:
+    """Whether this thread runs a recompute region's replay: ops with a
+    side effect on state (a batch norm's running statistics) skip it there,
+    so a recomputed forward changes the state once, as the JAX package's
+    ``TrainStep`` does. A Python flag, read when the op runs: a captured
+    step records the replay's ops with the flag as it was at capture."""
+    return getattr(_open, "replays", 0) > 0
 
 
 def tag_activation(x: torch.Tensor, name: str) -> torch.Tensor:

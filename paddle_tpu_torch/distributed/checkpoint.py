@@ -322,9 +322,14 @@ def _host_copy(obj, stage=None, key=()):
     steps. A CUDA tensor goes into ``stage``'s pinned buffer for ``key``
     (its path in the structure) where a stage is given, else into a new
     host tensor; the copies are queued on the current stream, so the
-    caller synchronises it before reading them. A CPU tensor is cloned."""
+    caller synchronises it before reading them. A CPU tensor is cloned.
+    The copies are plain ``torch.Tensor``s: a payload is read back with
+    ``weights_only=True``, which refuses the Paddle surface's ``Tensor``
+    class (a ``BatchNorm``'s ``_mean`` buffer is one)."""
     if torch.is_tensor(obj):
         obj = obj.detach()
+        if type(obj) is not torch.Tensor:
+            obj = obj.as_subclass(torch.Tensor)
         if obj.device.type == "cpu":
             return obj.clone()
         if stage is not None:

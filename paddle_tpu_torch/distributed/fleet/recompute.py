@@ -34,7 +34,12 @@ around the recompute:
 * the monitor: a region counts once in the recompute trace statistics
   (``core.remat.note_region``), and its replay runs under
   ``monitor.health.suspend_taps``, so the replayed forward neither taps
-  the health plane's activations nor counts its tags a second time.
+  the health plane's activations nor counts its tags a second time;
+* state: the replay runs under ``core.remat.replaying``, where a batch
+  norm computes its batch statistics and leaves its running buffers as
+  they are (the first forward updated them), so a recomputed region moves
+  ``_mean`` / ``_variance`` once a step, as the JAX package's
+  ``TrainStep`` does.
 
 The recompute runs the same code on the same inputs, so on the CPU a
 recomputed region gives the gradients of the plain run bit for bit.
@@ -78,6 +83,7 @@ def _contexts(policy: str, preserve_rng_state: bool):
                 stack.enter_context(rnd.replay_generators(snap))
             stack.enter_context(amp_state.applied(amp))
             stack.enter_context(suspend_taps())
+            stack.enter_context(_remat.replaying())
             if keep is not None:
                 stack.enter_context(keep)
             yield

@@ -19,6 +19,10 @@ hand-written flash kernels, and computes what that executable computes:
   does not advance (the JAX package rolls it back). The scaler then
   replays its state machine on the flag.
 * a model with activation recompute just trains.
+* ``fleet.GradientMergeOptimizer(opt, k_steps, avg)`` as the optimizer is
+  unwrapped to ``opt`` with ``accumulate_steps=k_steps`` and
+  ``average_grads=avg`` (explicit arguments win), as the JAX package's
+  step adopts it.
 
 Every step, K = 1 included, takes the gradients with ``autograd.grad``
 (``.grad`` is not touched) and hands them to the optimizer's
@@ -124,6 +128,15 @@ class TrainStep:
                  average_grads: Optional[bool] = None, grad_scaler=None,
                  donate_params: bool = True, fast_path: bool = True):
         self._model = model
+        # fleet.GradientMergeOptimizer is a thin adapter onto accumulation:
+        # adopt its k_steps / avg while unwrapping the optimizer chain
+        while hasattr(optimizer, "_inner_opt"):
+            if getattr(optimizer, "_gradient_merge", False):
+                if accumulate_steps is None:
+                    accumulate_steps = optimizer.k_steps
+                if average_grads is None:
+                    average_grads = optimizer.avg
+            optimizer = optimizer._inner_opt
         self._opt = optimizer
         self._loss_fn = loss_fn
         self._acc_steps = max(int(accumulate_steps or 1), 1)

@@ -10,7 +10,8 @@ value, ``running * momentum + batch * (1 - momentum)`` (torch's
 the running variance takes the unbiased batch variance (``n / (n - 1)``,
 ``n`` the elements a channel), the normalisation the biased one. In
 training the op updates the running buffers in place (so a captured
-step's graph writes them where they live, once a call); torch's
+step's graph writes them where they live, once a call), but not in a
+recompute region's replay (``core.remat.in_replay``); torch's
 ``batch_norm`` (cuDNN on the card) computes the statistics and the
 update in one call where the types agree and a channel has more than one
 element (and ``epsilon`` is positive, which torch requires in training),
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as TF
 
 from ...core.dispatch import register_op
+from ...core.remat import in_replay
 from ...core.random import next_seed
 from ...kernels.fused_residual import FusedAddDropoutLN
 from ...ops._helpers import _op
@@ -76,10 +78,15 @@ register_op("batch_norm_infer", _bn_infer_fwd)
 def _bn_train_fwd(x, weight=None, bias=None, epsilon=1e-5, channel_axis=1,
                   running=None, momentum=0.9):
     """Batch statistics; ``running`` (the two buffers, or None) updated in
-    place by ``momentum``."""
+    place by ``momentum``, except in a recompute region's replay
+    (``core.remat.in_replay``), where copies of them take the update: the
+    ops and their saved tensors stay the first forward's, the buffers keep
+    the one update that forward made."""
     xc = x if channel_axis == 1 else x.movedim(channel_axis, 1)
     n = xc.numel() // xc.shape[1]
     rm, rv = running if running is not None else (None, None)
+    if rm is not None and in_replay():
+        rm, rv = rm.clone(), rv.clone()
     if n > 1 and epsilon > 0 and _one_type(xc, weight, bias, rm, rv):
         out = TF.batch_norm(xc, rm, rv, weight, bias, True, 1.0 - momentum,
                             epsilon)

@@ -15,6 +15,8 @@ import paddle_tpu_torch
 ITEM2 = "ROADMAP Queue 1, item 2's rest (interpolation, unfold, fold)"
 ITEM4 = "ROADMAP Queue 1, item 4's rest (the optimizers not yet ported)"
 ITEM11 = "ROADMAP Queue 1, item 11 (jit.to_static and the JAX tape)"
+ITEM4_RULES = "ROADMAP Queue 1, item 4's rest (DGC and LARS update rules)"
+ITEM10 = "ROADMAP Queue 1, item 10's rest (LocalSGD averages across ranks)"
 
 # JAX module -> port module
 PORTED = {
@@ -52,6 +54,17 @@ PORTED = {
     "vision.models.vgg": "vision.models.vgg",
     "vision.models.alexnet": "vision.models.alexnet",
     "vision.models.mobilenetv2": "vision.models.mobilenetv2",
+    "io.dataset": "io.dataset",
+    "io.sampler": "io.sampler",
+    "io.dataloader": "io.dataloader",
+    "io.bucketing": "io.bucketing",
+    "io.device_loader": "io.device_loader",
+    "metric": "metric",
+    "hapi.model": "hapi.model",
+    "hapi.callbacks": "hapi.callbacks",
+    "hapi.async_metrics": "hapi.async_metrics",
+    "distributed.fleet.meta_optimizer_wrappers":
+        "distributed.fleet.meta_optimizer_wrappers",
 }
 
 # the JAX package's TPU names, spelled for the card in the port
@@ -71,6 +84,9 @@ LEFT_FOR_LATER = {
     "optimizer.optimizer": {
         "Adamax": ITEM4, "Adagrad": ITEM4, "Adadelta": ITEM4,
         "RMSProp": ITEM4, "Lamb": ITEM4},
+    "distributed.fleet.meta_optimizer_wrappers": {
+        "DGCOptimizer": ITEM4_RULES, "LarsMomentumOptimizer": ITEM4_RULES,
+        "LocalSGDOptimizer": ITEM10},
 }
 
 
@@ -118,9 +134,14 @@ def test_left_for_later_names_their_roadmap_items():
     ("vision", ["vision"]),
     ("vision.models", ["vision.models.resnet", "vision.models.lenet",
                        "vision.models.vgg", "vision.models.alexnet",
-                       "vision.models.mobilenetv2"])],
+                       "vision.models.mobilenetv2"]),
+    ("io", ["io.dataset", "io.sampler", "io.dataloader", "io.bucketing",
+            "io.device_loader"]),
+    ("metric", ["metric"]),
+    ("hapi", ["hapi.model", "hapi.async_metrics"]),
+    ("callbacks", ["hapi.callbacks"])],
     ids=["paddle", "linalg", "nn", "functional", "initializer", "optimizer",
-         "vision", "models"])
+         "vision", "models", "io", "metric", "hapi", "callbacks"])
 def test_namespaces_export_the_ported_names(namespace, modules):
     """``import paddle_tpu_torch as paddle`` reads like the JAX package:
     each namespace exports what its ported modules hold (``wrap_outputs``
@@ -148,6 +169,10 @@ def test_top_level_surface():
     assert hasattr(p.nn, "Layer") and hasattr(p.optimizer, "SGD")
     assert hasattr(p.optimizer, "Momentum")
     assert hasattr(p.vision.models, "resnet50") and hasattr(p.nn, "Conv2D")
+    assert p.Model is p.hapi.Model and hasattr(p.io, "DeviceLoader")
+    assert hasattr(p.metric, "Accuracy") and hasattr(p.callbacks,
+                                                     "AutoCheckpoint")
+    assert hasattr(p.distributed.fleet, "GradientMergeOptimizer")
 
 
 def test_the_surface_imports_no_jax():
@@ -159,6 +184,10 @@ def test_the_surface_imports_no_jax():
             "import paddle_tpu_torch.nn, paddle_tpu_torch.ops.linalg\n"
             "import paddle_tpu_torch.autograd, paddle_tpu_torch.framework.io\n"
             "import paddle_tpu_torch.vision.models\n"
+            "import paddle_tpu_torch.io, paddle_tpu_torch.metric\n"
+            "import paddle_tpu_torch.hapi, paddle_tpu_torch.callbacks\n"
+            "import paddle_tpu_torch.distributed.fleet"
+            ".meta_optimizer_wrappers\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu']\n"
             "assert not bad, bad\n")
