@@ -207,6 +207,18 @@ the user entry points, random weights from a seed:
   GradientMergeOptimizer``, bit for bit, rows 4, 5 and 8 and the dq sum
   counted a window, the eager merge buffer within its stated tolerance
   ([hapi-accum]).
+* The rest of nn and the optimizers (slice 22): the PTB "medium" LSTM
+  language model of Zaremba et al. (vocabulary 10,000, 2 x 650, unroll
+  35, batch 20, dropout 0.5 through row 8, SGD 1.0 clipped at 5) at
+  dropout 0 on the card against the CPU ([lstm-check]), as an eager
+  Paddle loop with a cuDNN LSTM yardstick on its weights ([lstm-lm]) and
+  captured bit for bit its eager ``TrainStep`` ([lstm-graph]); BERT-base
+  at [bert-train]'s geometry under ``Lamb`` (fp32 masters), a 2-layer
+  fp32 cut's gradients and Lamb updates on the card against the CPU
+  ([bert-lamb-check]), eager and captured bit for bit, rows 1, 2, 7, 8
+  and the dq sum each step ([bert-lamb]); every new functional and layer
+  and the six new staged rules on the card against the CPU, the rules
+  captured bit for bit ([surface-check]).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel its path never launched fails the run. A
@@ -243,6 +255,13 @@ build: no hand kernel lies on their paths) and prints neither JSON line.
 
 runs the card's checks, the build and the hapi phases alone in a fresh
 process and prints neither JSON line.
+
+    python3 chip_smoke.py --surface-only
+
+runs the card's checks, the build and the slice-22 phases alone in a
+fresh process and prints neither JSON line; ``--surface-only
+--trace-probe N`` then profiles each [wide-route] route N more times and
+counts the traces that lost device events.
 """
 from __future__ import annotations
 
@@ -1480,6 +1499,7 @@ def _train_recipe(seed=0):
 
 
 TRAIN_WALLS = []          # [train]'s timed steps (s), set by phase_train
+BERT_TRAIN_WALLS = []     # [bert-train]'s timed steps (s), [bert-lamb]'s
 
 
 def phase_train():
@@ -1801,6 +1821,111 @@ WIDE_ROUTES += [(launcher, d, FP32, "flash_fwd_f32_small_kernel",
                                     ("pair", 256))]
 
 
+def _wide_route_run(launcher, d, dtype, gen):
+    """One forward and one backward of ``launcher`` ("flat" or "pair") at
+    [2, 256, 4 heads, ``d``] causal on seeded inputs: (the two wrappers'
+    names, the call)."""
+    from paddle_tpu_torch.kernels import flash_attention, flash_pair
+    b, L, h = 2, 256, 4
+    if launcher == "flat":
+        q, k, v, g = _fa_inputs(b, L, L, h, 2, d, dtype, gen)
+
+        def run():
+            out, lse = flash_attention.flash_attention_fwd(q, k, v, True)
+            flash_attention.flash_attention_bwd(q, k, v, out, lse, g, True)
+        return ("flash_attention_fwd", "flash_attention_bwd"), run
+    qkv, g = _bwd_inputs(b, L, h, d, dtype, gen)
+
+    def run():
+        out, lse = flash_pair.flash_pair_fwd(qkv, h, True)
+        flash_pair.flash_pair_bwd(qkv, out, lse, g, h, True)
+    return ("flash_pair_fwd", "flash_pair_bwd"), run
+
+
+def _route_want(dtype, fwd_body, bwd_body, ctr_f, ctr_b):
+    """The flash kernels a [wide-route] route's forward and backward run."""
+    want = {fwd_body, bwd_body, "bwd_prepass_kernel", "dq_sum_kernel"}
+    if dtype == BF16 and "wide" in (ctr_f, ctr_b):
+        want.add("scale_q_kernel")
+    return want
+
+
+# [trace-probe]'s ways to open a profiled window before the route runs:
+# as [wide-route] opens it, after one marker launch and a synchronise,
+# and after the marker, a synchronise and a 10 ms wait
+TRACE_OPENINGS = ("plain", "marker", "marker+wait")
+
+
+def _open_window(how):
+    """What a profiled window runs before the launches it reads."""
+    if how == "plain":
+        return
+    torch.zeros(1, device="cuda").add_(1.0)
+    torch.cuda.synchronize()
+    if how == "marker+wait":
+        time.sleep(0.01)
+
+
+def probe_wide_route_traces(reps):
+    """[trace-probe]: every [wide-route] route profiled ``reps`` more
+    times for each of TRACE_OPENINGS, the launch counters read beside
+    each trace: how many traces held every flash kernel the route ran,
+    how many held only some (the first few logged with their device
+    events in time order and the counters), how many held no device
+    event. It checks nothing: it reads how often the profiler loses
+    device events of launches the counters saw (ROADMAP Queue 3)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    cuda = torch.autograd.DeviceType.CUDA
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(81)
+    tally = {how: {"whole": 0, "partial": 0, "empty": 0, "lost": {}}
+             for how in TRACE_OPENINGS}
+    logged = 0
+    t0 = time.perf_counter()
+    for launcher, d, dtype, fwd_body, bwd_body, ctr_f, ctr_b in WIDE_ROUTES:
+        names, run = _wide_route_run(launcher, d, dtype, gen)
+        want = _route_want(dtype, fwd_body, bwd_body, ctr_f, ctr_b)
+        run()
+        torch.cuda.synchronize()
+        for rep in range(reps):
+            for how in TRACE_OPENINGS:
+                reset_launch_counts()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    _open_window(how)
+                    run()
+                    torch.cuda.synchronize()
+                counts = launch_counts()
+                dev = sorted((e for e in prof.events()
+                              if e.device_type == cuda),
+                             key=lambda e: e.time_range.start)
+                seen = {n for n in FLASH_KERNELS
+                        if any(n in e.name for e in dev)}
+                kind = ("empty" if not dev else "whole" if want <= seen
+                        else "partial")
+                t = tally[how]
+                t[kind] += 1
+                for n in want - seen:
+                    t["lost"][n] = t["lost"].get(n, 0) + 1
+                if kind != "whole" and logged < 12:
+                    logged += 1
+                    log(f"[trace-probe] {how} {launcher} D={d} "
+                        f"{str(dtype)[6:]} rep {rep}: {kind} trace, flash "
+                        f"kernels {sorted(seen)} of {sorted(want)}; device "
+                        f"events in time order "
+                        f"{[e.name[:48] for e in dev]}; launches "
+                        f"{names[0]} {counts[names[0]]}, {names[1]} "
+                        f"{counts[names[1]]}")
+        torch.cuda.empty_cache()
+    for how, t in tally.items():
+        log(f"[trace-probe] {how}: {len(WIDE_ROUTES)} routes x {reps} "
+            f"traces: {t}")
+    log(f"[trace-probe] {time.perf_counter() - t0:.1f} s")
+    return tally
+
+
 def phase_wide_route():
     """Which body each launcher runs, read from the profiler's kernel names
     and the launch counters (one forward and one backward under
@@ -1814,8 +1939,11 @@ def phase_wide_route():
     256 on both launchers and 80 and 96 on the flat one
     flash_fwd_f32_small_kernel and flash_bwd_f32_kernel (the SIMT forward,
     flash_fwd_f32_kernel, must not run: it is one of the FLASH_KERNELS
-    names read; a trace with no device event at all is taken again, up
-    to three times). The flash kernels seen must be exactly the expected
+    names read). Each window opens with a marker launch (``_open_window``),
+    and a trace that lost device events (it holds only some of the
+    route's kernels, or none, and none of another body's) is taken again,
+    up to three times: the profiler loses them ([trace-probe], ROADMAP
+    Queue 3). The flash kernels seen must be exactly the expected
     ones, and each body counter of the wrappers (bf16 wide, fp32 wide,
     fp32 forward and backward, bf16 80/96 backward) must read 1 where its
     body ran and 0 elsewhere."""
@@ -1824,7 +1952,6 @@ def phase_wide_route():
     from paddle_tpu_torch.kernels import (f32_bwd_launch_counts,
                                           f32_fwd_launch_counts,
                                           f32_wide_launch_counts,
-                                          flash_attention, flash_pair,
                                           launch_counts, reset_launch_counts,
                                           sw32_bwd_launch_counts,
                                           wide_launch_counts)
@@ -1835,45 +1962,31 @@ def phase_wide_route():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(81)
     for launcher, d, dtype, fwd_body, bwd_body, ctr_f, ctr_b in WIDE_ROUTES:
-        b, L, h = 2, 256, 4
-        if launcher == "flat":
-            q, k, v, g = _fa_inputs(b, L, L, h, 2, d, dtype, gen)
-            names = ("flash_attention_fwd", "flash_attention_bwd")
-
-            def run():
-                out, lse = flash_attention.flash_attention_fwd(q, k, v, True)
-                flash_attention.flash_attention_bwd(q, k, v, out, lse, g,
-                                                    True)
-        else:
-            qkv, g = _bwd_inputs(b, L, h, d, dtype, gen)
-            names = ("flash_pair_fwd", "flash_pair_bwd")
-
-            def run():
-                out, lse = flash_pair.flash_pair_fwd(qkv, h, True)
-                flash_pair.flash_pair_bwd(qkv, out, lse, g, h, True)
+        names, run = _wide_route_run(launcher, d, dtype, gen)
         run()                                # built and warm
         torch.cuda.synchronize()
+        want = _route_want(dtype, fwd_body, bwd_body, ctr_f, ctr_b)
         for attempt in range(3):
             reset_launch_counts()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
+                _open_window("marker")
                 run()
                 torch.cuda.synchronize()
             events = prof.key_averages()
-            # a trace without a single device event is the profiler's
-            # failure (an H100 run once gave one), not a route: profile the
-            # same launches again
-            if any(e.device_type == torch.autograd.DeviceType.CUDA
-                   for e in events):
+            keys = [e.key for e in events]
+            seen = {n for n in FLASH_KERNELS if any(n in key for key in keys)}
+            # the profiler loses device events ([trace-probe]: most often
+            # the first launches of a window, which the marker takes;
+            # 3-4 marker-opened traces in 320 still lost some or all): a
+            # trace that holds no kernel of another body but misses some
+            # of this route's is taken again; a wrong body is never
+            if not seen < want:
                 break
-            log(f"[wide-route] {launcher} D={d}: the profiler recorded no "
-                f"device event (attempt {attempt + 1}); profiling again")
+            log(f"[wide-route] {launcher} D={d}: the trace lost device "
+                f"events ({sorted(want - seen)} missing, attempt "
+                f"{attempt + 1}); profiling again")
         counts = launch_counts()
-        keys = [e.key for e in events]
-        seen = {n for n in FLASH_KERNELS if any(n in key for key in keys)}
-        want = {fwd_body, bwd_body, "bwd_prepass_kernel", "dq_sum_kernel"}
-        if dtype == BF16 and "wide" in (ctr_f, ctr_b):
-            want.add("scale_q_kernel")
         bodies = {}                          # counter -> {wrapper: count}
         for ctr, reader in readers.items():
             bodies.update({(ctr, n): c for n, c in reader().items()})
@@ -3502,6 +3615,8 @@ def phase_bert_train(smi, padded=False):
                                  "to bf16")
     timed = walls[1:]
     wall = sum(timed) / len(timed)
+    if not padded:
+        BERT_TRAIN_WALLS[:] = timed          # [bert-lamb] prints it beside
     log(f"{tag} losses {[round(x, 4) for x in losses]} (ln vocab + ln 2 = "
         f"{want0:.4f})")
     log(f"{tag} {len(timed)} timed steps: wall per step {wall * 1e3:.1f} ms "
@@ -4260,9 +4375,12 @@ DRAFT_LOGIT_REL_LIMIT = 0.05
 # [draft-kernel-*]: proposals profiled until one reading holds every
 # replay's flash records. A graph replays the same kernels each time, yet
 # the CUDA tracer read 12 of a draft GPT proposal's 16 in two runs and 16
-# in two others on the same code (NVIDIA H100, torch 2.11): a short
-# reading is the tracer's, a reading above the count would be the graph's
-DRAFT_TRACE_TRIES = 3
+# in two others on the same code (NVIDIA H100, torch 2.11), and 31 of an
+# early-exit proposal's 32 in three readings in a row of one run: a short
+# reading is the tracer's, a reading above the count would be the graph's.
+# The tracer loses most often the first launches of a window
+# ([trace-probe]), so each window opens with a marker launch
+DRAFT_TRACE_TRIES = 6
 # [engine-int8]: the int8 model's greedy pick at each of [engine]'s
 # generated positions, fed [engine]'s own tokens, agrees with [engine]'s
 # token at this share of them or more. Free-running, the two engines'
@@ -4497,10 +4615,11 @@ def phase_draft_kernel(drafter, tag, gap_limit):
     eager kernel forward's argmax, and the last-position logits agree
     within DRAFT_LOGIT_REL_LIMIT with the argmax equal or a near-tie. One
     proposal (4 replays) is profiled: the flash forward body runs once a
-    block a replay (up to DRAFT_TRACE_TRIES proposals, for a reading the
-    tracer did not cut; no reading may exceed it). Then the kernel alone at the drafter's shape, timed
-    beside its plain version, sdpa and the bound. Returns (the kernel's
-    record, its wrapper's name, the shape)."""
+    block a replay (each window opened with a marker launch,
+    ``_open_window``; up to DRAFT_TRACE_TRIES proposals, for a reading the
+    tracer did not cut; no reading may exceed it). Then the kernel alone
+    at the drafter's shape, timed beside its plain version, sdpa and the
+    bound. Returns (the kernel's record, its wrapper's name, the shape)."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.models.gpt import _lm_head_logits
     from paddle_tpu_torch.nn.functional import flash_at_any_length
@@ -4547,6 +4666,7 @@ def phase_draft_kernel(drafter, tag, gap_limit):
     for _ in range(DRAFT_TRACE_TRIES):
         calls0 = drafter.calls
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _open_window("marker")
             drafter.propose(req, 4)
             torch.cuda.synchronize()
         replays = drafter.calls - calls0
@@ -5342,14 +5462,15 @@ def _ckpt_batches():
 
 
 def _train_state(model, opt):
-    """Every parameter, moment and master of a run (cloned on the card)
-    and its step count."""
+    """Every parameter, moment and master (where the rule keeps one) of a
+    run (cloned on the card) and its step count."""
     state = {f"param:{n}": p.detach().clone()
              for n, p in model.named_parameters()}
     for i, p in enumerate(opt._parameter_list):
         for k, t in opt._accumulators[id(p)].items():
             state[f"{k}:{i}"] = t.clone()
-        state[f"master:{i}"] = opt._master_weights[id(p)].clone()
+        if id(p) in opt._master_weights:
+            state[f"master:{i}"] = opt._master_weights[id(p)].clone()
     state["step_count"] = opt._step_count
     return state
 
@@ -8414,7 +8535,6 @@ def phase_recompute_bn():
     ``BatchNorm2D(3)`` under ``fleet.recompute`` and without it, from one
     seed, ``FLAGS_cudnn_deterministic`` on: one captured ``TrainStep``
     with ``Momentum(0.1, 0.9)`` on a seeded [4, 3, 5, 5] batch (the
-    captured step takes a staged rule: ``SGD``'s takes host floats; the
     parameters after the step carry the gradients, ``_mean`` /
     ``_variance`` the running update), then ``paddle.grad`` of the loss
     eagerly: parameters, buffers and gradients bit for bit with and
@@ -8999,6 +9119,716 @@ def hapi_phases(smi, resnet=None):
     return paths
 
 
+# ---------------------------------------------------------------- the rest
+# of nn and the optimizers (slice 22): a PTB LSTM language model, BERT-base
+# under Lamb, and the new functionals, layers and rules on the card against
+# the CPU
+
+# Zaremba et al. 2014 (arXiv:1409.2329), the "medium" PTB model: vocabulary
+# 10,000, embedding 650, 2 LSTM layers of 650 unrolled 35 steps, batch 20,
+# dropout 0.5 on the embedding and LSTM outputs, untied head, uniform
+# +-0.05 init, SGD at 1.0 with the global norm clipped at 5, zero states
+PTB_MEDIUM = dict(vocab=10000, hidden=650, layers=2, unroll=35, batch=20,
+                  dropout=0.5, init=0.05, lr=1.0, clip=5.0)
+LSTM_TRAIN = dict(windows=3, steps=10, profiled=3)
+LSTM_CHECK_BATCH = 4
+# a step's launches: the two dropouts (row 8), each forward and backward
+LSTM_STEP_LAUNCHES = dict(dropout_fwd=4)
+# [bert-lamb]: [bert-train]'s recipe with Lamb in place of AdamW (the bf16
+# weights update through fp32 masters, which Lamb keeps whether asked or
+# not); LayerNorm weights and biases exempt from the decay
+BERT_LAMB = dict(lr=1e-4, wd=0.01, steps=3, timed=3)
+SURFACE_REL_LIMIT = 1e-4
+# the six rules [surface-check] runs on the card against the CPU and
+# captured against eager
+SURFACE_RULES = [("SGD", dict(learning_rate=0.1)),
+                 ("Adamax", dict(learning_rate=0.01)),
+                 ("Adagrad", dict(learning_rate=0.1,
+                                  initial_accumulator_value=0.1)),
+                 ("Adadelta", dict(learning_rate=1.0)),
+                 ("RMSProp", dict(learning_rate=0.01, momentum=0.9,
+                                  centered=True)),
+                 ("Lamb", dict(learning_rate=0.01, lamb_weight_decay=0.01))]
+
+
+def _ptb_lm(place, dropout=None, seed=0):
+    """The PTB medium model on ``place`` ("gpu" or "cpu"), every weight
+    drawn uniform in [-init, init] from numpy ``seed`` (the same weights
+    on both places); its ``forward(x, y)`` returns the mean cross-entropy
+    of the next-token logits."""
+    import paddle_tpu_torch as paddle
+    nn, F = paddle.nn, paddle.nn.functional
+    cfg = PTB_MEDIUM
+    rate = cfg["dropout"] if dropout is None else dropout
+
+    class PTBLanguageModel(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(cfg["vocab"], cfg["hidden"])
+            # the LSTM's own dropout is taken and not read (as in JAX)
+            self.drop = nn.Dropout(rate)
+            self.lstm = nn.LSTM(cfg["hidden"], cfg["hidden"],
+                                num_layers=cfg["layers"])
+            self.head = nn.Linear(cfg["hidden"], cfg["vocab"])
+
+        def forward(self, x, y):
+            out, _ = self.lstm(self.drop(self.embedding(x)))
+            logits = self.head(self.drop(out))
+            return F.cross_entropy(logits.reshape([-1, cfg["vocab"]]),
+                                   y.reshape([-1]))
+
+    paddle.set_device(place)
+    model = PTBLanguageModel()
+    paddle.set_device("gpu")
+    rs = np.random.RandomState(seed)
+    for p in model.parameters():
+        p.set_value(rs.uniform(-cfg["init"], cfg["init"],
+                               tuple(p.shape)).astype(np.float32))
+    return model
+
+
+def _ptb_batch(b, seed, place):
+    """Seeded token ids (Zipf over the vocabulary, as word counts are; the
+    PTB files are not in the repository): inputs and next-token targets
+    ``[b, unroll]``."""
+    import paddle_tpu_torch as paddle
+    v, t = PTB_MEDIUM["vocab"], PTB_MEDIUM["unroll"]
+    p = 1.0 / np.arange(1, v + 1)
+    ids = np.random.RandomState(seed).choice(v, size=(b, t + 1),
+                                             p=p / p.sum())
+    return (paddle.to_tensor(ids[:, :-1], dtype="int64", place=place),
+            paddle.to_tensor(ids[:, 1:], dtype="int64", place=place))
+
+
+def _ptb_sgd(model):
+    import paddle_tpu_torch as paddle
+    return paddle.optimizer.SGD(
+        learning_rate=PTB_MEDIUM["lr"], parameters=model.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(PTB_MEDIUM["clip"]))
+
+
+def phase_lstm_check():
+    """[lstm-check]: the PTB model at dropout 0 on the card and on the CPU
+    from the same weights, batch LSTM_CHECK_BATCH x 35, fp32 (TF32 off):
+    the first step's loss and every leaf's gradient within
+    SURFACE_REL_LIMIT, then the losses of two more SGD steps (clipped)."""
+    cpu, card = _ptb_lm("cpu", 0.0), _ptb_lm("gpu", 0.0)
+    oc, og = _ptb_sgd(cpu), _ptb_sgd(card)
+    xc, yc = _ptb_batch(LSTM_CHECK_BATCH, 21, "cpu")
+    xg, yg = _ptb_batch(LSTM_CHECK_BATCH, 21, "gpu")
+    losses, rels = [], {}
+    for i in range(3):
+        lc, lg = cpu(xc, yc), card(xg, yg)
+        lc.backward()
+        lg.backward()
+        losses.append((float(lg), float(lc)))
+        if i == 0:
+            rels = {n: rel_err(p.grad.cpu(), q.grad) for (n, p), (_, q) in
+                    zip(card.named_parameters(), cpu.named_parameters())}
+        oc.step()
+        og.step()
+        oc.clear_grad()
+        og.clear_grad()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in losses)
+    worst = max(rels, key=rels.get)
+    log(f"[lstm-check] PTB medium, dropout 0, fp32, [{LSTM_CHECK_BATCH}, "
+        f"{PTB_MEDIUM['unroll']}]: losses card/cpu "
+        f"{[(round(a, 6), round(b, 6)) for a, b in losses]} (worst rel "
+        f"{loss_rel:.3g}); worst first-step leaf gradient rel "
+        f"{rels[worst]:.3g} ({worst}) of {len(rels)}; limit "
+        f"{SURFACE_REL_LIMIT}")
+    if not (loss_rel < SURFACE_REL_LIMIT
+            and rels[worst] < SURFACE_REL_LIMIT):
+        raise AssertionError("[lstm-check] the card disagrees with the CPU")
+
+
+def _cudnn_yardstick(lstm):
+    """The port's 2-layer LSTM forward and backward (its Python time loop)
+    against ``torch.nn.LSTM`` (cuDNN) on the same weights at [20, 35, 650]:
+    the outputs' relative error and each one's ms (CUDA events). A
+    yardstick only: cuDNN is not the port's route."""
+    b, t, h = PTB_MEDIUM["batch"], PTB_MEDIUM["unroll"], PTB_MEDIUM["hidden"]
+    ref = torch.nn.LSTM(h, h, num_layers=PTB_MEDIUM["layers"],
+                        batch_first=True).cuda()
+    with torch.no_grad():
+        for name, p in ref.named_parameters():
+            p.copy_(getattr(lstm, name))
+    gen = torch.Generator()
+    gen.manual_seed(23)
+    x = torch.randn(b, t, h, generator=gen).cuda().requires_grad_()
+    ct = torch.randn(b, t, h, generator=gen).cuda()
+    ours = [p for p in lstm.parameters()]
+    theirs = list(ref.parameters())
+
+    def port():
+        out = lstm(x)[0].as_subclass(torch.Tensor)
+        return out, torch.autograd.grad(out, [x] + ours, ct)
+
+    def cudnn():
+        out = ref(x)[0]
+        return out, torch.autograd.grad(out, [x] + theirs, ct)
+    (o1, g1), (o2, g2) = port(), cudnn()
+    err = max(rel_err(o1, o2), *(rel_err(a, b) for a, b in zip(g1, g2)))
+    return err, cuda_time_ms(port, iters=10), cuda_time_ms(cudnn, iters=10)
+
+
+def phase_lstm_lm(smi):
+    """[lstm-lm]: the PTB medium model as an eager Paddle loop (``loss =
+    model(x, y); loss.backward(); opt.step(); opt.clear_grad()``) on one
+    seeded batch of 20 x 35: a warm-up step, LSTM_TRAIN["windows"]
+    windows of LSTM_TRAIN["steps"] steps (each step launching
+    LSTM_STEP_LAUNCHES), peak memory, the busy share over profiled steps,
+    and the cuDNN yardstick. Returns the timings for [lstm-graph]."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.kernels import launch_counts
+    paddle.seed(11)
+    model = _ptb_lm("gpu")
+    opt = _ptb_sgd(model)
+    x, y = _ptb_batch(PTB_MEDIUM["batch"], 22, "gpu")
+    n_params = sum(p.numel() for p in model.parameters())
+    before = launch_counts()
+    first = float(_api_eager_step(model, opt, (x, y)))
+    _expect_launches("[lstm-lm] warm-up", _grew(before, launch_counts()),
+                     **LSTM_STEP_LAUNCHES)
+    want0 = math.log(PTB_MEDIUM["vocab"])
+    if not abs(first - want0) < LOSS0_SLACK:
+        raise AssertionError(f"[lstm-lm] first loss {first:.4f} is not near "
+                             f"ln(vocab) = {want0:.4f}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    ms, losses = _windows(lambda: _api_eager_step(model, opt, (x, y)),
+                          LSTM_TRAIN["windows"], LSTM_TRAIN["steps"])
+    n = LSTM_TRAIN["windows"] * LSTM_TRAIN["steps"]
+    _expect_launches("[lstm-lm] timed windows",
+                     _grew(before, launch_counts()),
+                     **{k: v * n for k, v in LSTM_STEP_LAUNCHES.items()})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < first):
+        raise AssertionError(f"[lstm-lm] losses {first} then {losses}")
+    wall, busy = _profiled_busy(lambda: _api_eager_step(model, opt, (x, y)),
+                                LSTM_TRAIN["profiled"])
+    err, port_ms, cudnn_ms = _cudnn_yardstick(model.lstm)
+    mean = sum(ms) / len(ms)
+    tokens = PTB_MEDIUM["batch"] * PTB_MEDIUM["unroll"]
+    log(f"[lstm-lm] ({smi}) PTB medium {n_params / 1e6:.2f} M params fp32, "
+        f"dropout 0.5, SGD 1.0, clip 5, [{PTB_MEDIUM['batch']}, "
+        f"{PTB_MEDIUM['unroll']}]: eager {mean:.2f} ms a step "
+        f"(windows {min(ms):.2f}-{max(ms):.2f}), {tokens / mean * 1e3:.0f} "
+        f"tokens/s, peak {peak:.2f} GB, busy "
+        f"{busy if busy is None else round(busy, 3)} "
+        f"({wall / LSTM_TRAIN['profiled']:.2f} ms a profiled step); losses {round(first, 4)} then "
+        f"{[round(v, 4) for v in losses]} (ln vocab {want0:.4f}); row 8 "
+        f"{LSTM_STEP_LAUNCHES['dropout_fwd']} launches a step")
+    log(f"[lstm-lm] yardstick: the port's LSTM forward+backward at "
+        f"[{PTB_MEDIUM['batch']}, {PTB_MEDIUM['unroll']}, "
+        f"{PTB_MEDIUM['hidden']}] {port_ms:.3f} ms, torch.nn.LSTM (cuDNN) "
+        f"{cudnn_ms:.3f} ms on "
+        f"the same weights (outputs and gradients within {err:.3g})")
+    if not err < SURFACE_REL_LIMIT:
+        raise AssertionError("[lstm-lm] the port's LSTM departs from "
+                             "torch.nn.LSTM's math")
+    del model, opt
+    return dict(ms=mean, min=min(ms), max=max(ms), peak=peak, busy=busy,
+                port_ms=port_ms, cudnn_ms=cudnn_ms)
+
+
+def phase_lstm_graph(smi, eager):
+    """[lstm-graph]: the PTB model under ``TrainStep`` captured against
+    ``TrainStep(fast_path=False)`` from one seed and chain state: 3 steps
+    each, losses, every parameter and the step count bit for bit, both
+    launching LSTM_STEP_LAUNCHES a step; then timed windows of captured
+    steps and their busy share."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import launch_counts
+    x, y = _ptb_batch(PTB_MEDIUM["batch"], 22, "gpu")
+    res = {}
+    for fast in (False, True):
+        model = _ptb_lm("gpu")
+        opt = _ptb_sgd(model)
+        step = TrainStep(model, opt, fast_path=fast)
+        paddle.seed(12)
+        losses = []
+        for i in range(3):
+            before = launch_counts()
+            losses.append(step(x, y))
+            torch.cuda.synchronize()
+            _expect_launches(f"[lstm-graph] fast_path={fast} step {i}",
+                             _grew(before, launch_counts()),
+                             **LSTM_STEP_LAUNCHES)
+        res[fast] = (torch.stack([v.detach().as_subclass(torch.Tensor)
+                                  for v in losses]),
+                     _train_state(model, opt))
+        if fast:
+            _graph_of(step)
+            torch.cuda.reset_peak_memory_stats()
+            ms, tail = _windows(lambda: step(x, y), LSTM_TRAIN["windows"],
+                                LSTM_TRAIN["steps"])
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            wall, busy = _profiled_busy(lambda: step(x, y),
+                                        LSTM_TRAIN["profiled"])
+            compiles = step.num_compiles
+        del model, opt, step
+    (le, se), (lg, sg) = res[False], res[True]
+    if not _bit_equal(lg, le):
+        raise AssertionError(f"[lstm-graph] losses {lg} vs {le}")
+    _hold_bits("[lstm-graph]", "3 captured PTB steps against eager "
+               "TrainStep", sg, se)
+    if compiles != 1 or not all(math.isfinite(v) for v in tail):
+        raise AssertionError(f"[lstm-graph] num_compiles {compiles}, losses "
+                             f"{tail}")
+    mean = sum(ms) / len(ms)
+    tokens = PTB_MEDIUM["batch"] * PTB_MEDIUM["unroll"]
+    log(f"[lstm-graph] ({smi}) captured {mean:.2f} ms a step (windows "
+        f"{min(ms):.2f}-{max(ms):.2f}), {tokens / mean * 1e3:.0f} tokens/s, "
+        f"peak {peak:.2f} GB, busy {busy if busy is None else round(busy, 3)}"
+        f"; the eager loop [lstm-lm] {eager['ms']:.2f} ms (captured / eager "
+        f"{mean / eager['ms']:.4f}); num_compiles {compiles}")
+
+
+def _lamb(model, lr=BERT_LAMB["lr"]):
+    """Lamb on ``model`` with LayerNorm weights and biases exempt from
+    the decay (``exclude_from_weight_decay_fn`` is called with the
+    parameter)."""
+    from paddle_tpu_torch.optimizer import Lamb
+    exempt = {id(p) for n, p in model.named_parameters()
+              if "norm" in n or n.endswith("bias")}
+    return Lamb(learning_rate=lr, lamb_weight_decay=BERT_LAMB["wd"],
+                parameters=model.parameters(),
+                exclude_from_weight_decay_fn=lambda p: id(p) in exempt)
+
+
+def phase_bert_lamb_check():
+    """[bert-lamb-check]: BERT-base width cut to 2 layers, fp32, [2, 128],
+    dropout 0.1, on the card and on the CPU from the same weights and
+    generator state: the loss and every leaf's gradient within
+    SURFACE_REL_LIMIT; then, the CPU's gradients given to both, two Lamb
+    updates: every parameter's update within SURFACE_REL_LIMIT."""
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.models import BertConfig, BertForPreTraining
+    cfg = BertConfig(**dict(BERT_BASE, num_layers=2))
+    cpu = BertForPreTraining(cfg, device="cpu", seed=7)
+    card = BertForPreTraining(cfg, device="cuda", seed=7)
+    card.load_state_dict(cpu.state_dict())
+    batch = _bert_batch(2, 128, 35, device="cpu")
+    oc, og = _lamb(cpu), _lamb(card)
+    before = launch_counts()
+    loss_card = card(*(t.cuda() if t is not None else None for t in batch))
+    loss_card = loss_card[-1] if isinstance(loss_card, tuple) else loss_card
+    loss_card.backward()
+    torch.cuda.synchronize()
+    grew = {k: n for k, n in _grew(before, launch_counts()).items() if n}
+    loss_cpu = cpu(*batch)
+    loss_cpu = loss_cpu[-1] if isinstance(loss_cpu, tuple) else loss_cpu
+    loss_cpu.backward()
+    loss_rel = abs(loss_card.item() - loss_cpu.item()) / abs(loss_cpu.item())
+    grads = {n: rel_err(p.grad.cpu(), q.grad) for (n, p), (_, q) in
+             zip(card.named_parameters(), cpu.named_parameters())
+             if q.grad is not None}
+    upd = {}
+    for _ in range(2):
+        with torch.no_grad():
+            for p, q in zip(card.parameters(), cpu.parameters()):
+                if q.grad is not None:
+                    p.grad.copy_(q.grad)
+        was = [(p.detach().clone(), q.detach().clone()) for p, q in
+               zip(card.parameters(), cpu.parameters())]
+        og.step()
+        oc.step()
+        for (n, p), q, (p0, q0) in zip(card.named_parameters(),
+                                       cpu.parameters(), was):
+            upd[n] = max(upd.get(n, 0.0),
+                         rel_err((p.detach() - p0).cpu(), q.detach() - q0))
+    gw, uw = max(grads, key=grads.get), max(upd, key=upd.get)
+    log(f"[bert-lamb-check] fp32, 2 layers, [2, 128], dropout 0.1: loss "
+        f"card {loss_card.item():.6f} vs cpu {loss_cpu.item():.6f} (rel "
+        f"{loss_rel:.3g}); worst leaf gradient rel {grads[gw]:.3g} ({gw}); "
+        f"worst Lamb update rel {upd[uw]:.3g} ({uw}) over 2 updates of "
+        f"{len(upd)} leaves; limit {SURFACE_REL_LIMIT}; launches {grew}")
+    if not (loss_rel < SURFACE_REL_LIMIT and grads[gw] < SURFACE_REL_LIMIT
+            and upd[uw] < SURFACE_REL_LIMIT):
+        raise AssertionError("[bert-lamb-check] the card disagrees with the "
+                             "CPU")
+    if not grew.get("flash_pair_fwd"):
+        raise AssertionError(f"[bert-lamb-check] no flash launch: {grew}")
+
+
+def phase_bert_lamb(smi):
+    """[bert-lamb]: BERT-base bf16 at 64 x 512, dropout 0.1, seed 0, with
+    ``_lamb`` in place of [bert-train]'s AdamW (the bf16 weights update
+    through their fp32 masters), eager (``TrainStep(fast_path=False)``)
+    and captured from the same seed: 3 steps each launching exactly
+    BERT_STEP_LAUNCHES (rows 1, 2, 7, 8 and the dq sum), losses, every
+    parameter, master and moment, the step count and the model generator
+    bit for bit; the share of the masters' and of the bf16 weights'
+    elements each eager step changed (every master must move); then
+    BERT_LAMB["timed"] more steps of each, timed, beside [bert-train]'s
+    AdamW step where that phase ran in this process."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.models import BertConfig, BertForPreTraining
+    runs = {}
+    for fast in (False, True):
+        model = BertForPreTraining(BertConfig(**BERT_BASE), dtype=BF16,
+                                   seed=0)
+        opt = _lamb(model)
+        step = TrainStep(model, opt, fast_path=fast)
+        batch = _bert_batch(BERT_TRAIN["batch"], BERT_TRAIN["seq"], 31)
+        n_el = sum(p.numel() for p in model.parameters())
+        losses, grew, moved = [], [], []
+        for _ in range(BERT_LAMB["steps"]):
+            # a master is made from its weight at the first step
+            was = None if fast else [
+                (p.detach().clone(),
+                 opt._master_weights.get(id(p), p.detach()).float().clone())
+                for p in model.parameters()]
+            before = launch_counts()
+            losses.append(step(*batch))
+            torch.cuda.synchronize()
+            grew.append(_grew(before, launch_counts()))
+            if was is not None:
+                moved.append(tuple(sum(int((t != w[k]).sum()) for t, w in
+                                       zip(now, was)) / n_el for k, now in
+                                   enumerate((list(model.parameters()),
+                                              [opt._master_weights[id(p)]
+                                               for p in model.parameters()]
+                                              ))))
+            del was
+        state = _train_state(model, opt)
+        state["generator"] = model.generator.get_state()
+        walls = []
+        for _ in range(BERT_LAMB["timed"]):
+            t0 = time.perf_counter()
+            losses.append(step(*batch))
+            float(losses[-1])
+            walls.append(time.perf_counter() - t0)
+        if fast:
+            _graph_of(step)
+        runs[fast] = (torch.stack([v.detach().as_subclass(torch.Tensor)
+                                   for v in losses]), state, grew, walls,
+                      moved)
+        del model, opt, step, state
+        _release(f"after [bert-lamb] fast_path={fast}")
+    (le, se, ge, we, moved), (lg, sg, gg, wg, _) = runs[False], runs[True]
+    n = BERT_LAMB["steps"]
+    if gg != ge or ge[0] != dict(ge[0], **BERT_STEP_LAUNCHES):
+        raise AssertionError(f"[bert-lamb] launches {gg}, eager {ge}")
+    if not _bit_equal(lg[:n], le[:n]):
+        raise AssertionError(f"[bert-lamb] losses {lg[:n]} vs {le[:n]}")
+    _hold_bits("[bert-lamb]", f"BERT-base 64 x 512, Lamb, {n} captured "
+               f"steps against eager", sg, se)
+    losses = le.tolist()
+    if not all(math.isfinite(v) for v in losses + lg.tolist()):
+        raise AssertionError(f"[bert-lamb] losses {losses}, {lg.tolist()}")
+    want0 = math.log(BERT_BASE["vocab_size"]) + math.log(2.0)
+    if not abs(losses[0] - want0) < LOSS0_SLACK:
+        raise AssertionError(f"[bert-lamb] first loss {losses[0]:.4f}")
+    tokens = BERT_TRAIN["batch"] * BERT_TRAIN["seq"]
+    me, mg = (sum(w) / len(w) * 1e3 for w in (we, wg))
+    adamw = (f"{sum(BERT_TRAIN_WALLS) / len(BERT_TRAIN_WALLS) * 1e3:.1f} ms"
+             if BERT_TRAIN_WALLS else "not run in this process")
+    log(f"[bert-lamb] ({smi}) losses eager {[round(v, 4) for v in losses]}, "
+        f"captured {[round(v, 4) for v in lg.tolist()]} (ln vocab + ln 2 = "
+        f"{want0:.4f}); share each eager step changed of the fp32 masters "
+        f"{[round(m, 4) for _, m in moved]} and of the bf16 weights "
+        f"{[round(w, 4) for w, _ in moved]} (lr {BERT_LAMB['lr']})")
+    log(f"[bert-lamb] eager {me:.1f} ms a step (min {min(we) * 1e3:.1f}, max "
+        f"{max(we) * 1e3:.1f}), captured {mg:.1f} ms (min "
+        f"{min(wg) * 1e3:.1f}, max {max(wg) * 1e3:.1f}), {tokens / mg * 1e3:.0f}"
+        f" tokens/s captured; [bert-train]'s eager AdamW step {adamw}; "
+        f"launches a step {ge[0]}")
+
+
+def _twin(build):
+    """``build()`` on the CPU, then on the card with the CPU one's state."""
+    import paddle_tpu_torch as paddle
+    paddle.set_device("cpu")
+    cpu = build()
+    paddle.set_device("gpu")
+    card = build()
+    card.set_state_dict(cpu.state_dict())
+    return {"cpu": cpu, "cuda": card}
+
+
+def _flat(out):
+    if isinstance(out, (tuple, list)):
+        return [x for o in out for x in _flat(o)]
+    return [out]
+
+
+def _surface_pair(tag, make, inputs, grad=(0,)):
+    """``make(device)`` returns ``(fn, params)``; ``fn`` on the same numpy
+    ``inputs`` on the CPU and on the card: every output within
+    SURFACE_REL_LIMIT (integer outputs exactly), and the gradient of a
+    seeded projection of the first output with respect to ``inputs[k]``
+    for k in ``grad`` and to ``params``. Returns the worst error."""
+    got = {}
+    for dev in ("cpu", "cuda"):
+        fn, params = make(dev)
+        ts = [torch.from_numpy(a).to(dev).requires_grad_(
+            k in grad and a.dtype.kind == "f")
+            if isinstance(a, np.ndarray) else a
+            for k, a in enumerate(inputs)]
+        outs = _flat(fn(*ts))
+        wrt = [ts[k] for k in grad] + list(params)
+        grads = []
+        if wrt:
+            gen = torch.Generator()
+            gen.manual_seed(99)
+            ct = torch.randn(tuple(outs[0].shape), generator=gen,
+                             dtype=torch.float32).to(dev, outs[0].dtype)
+            grads = torch.autograd.grad((outs[0] * ct).sum(), wrt)
+        got[dev] = ([o.detach().cpu() for o in outs],
+                    [g.detach().cpu() for g in grads])
+    worst = 0.0
+    for a, b in zip(got["cuda"][0] + got["cuda"][1],
+                    got["cpu"][0] + got["cpu"][1]):
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"[surface-check] {tag}: integer "
+                                     f"outputs differ")
+            continue
+        worst = max(worst, rel_err(a, b))
+    if not worst < SURFACE_REL_LIMIT:
+        raise AssertionError(f"[surface-check] {tag}: card vs CPU {worst:.3g}")
+    return worst
+
+
+def _surface_cases():
+    """(tag, make, inputs, grad) for [surface-check]."""
+    import paddle_tpu_torch as paddle
+    nn, F = paddle.nn, paddle.nn.functional
+    rs = np.random.RandomState(30)
+
+    def r(*shape, lo=None, hi=None):
+        if lo is not None:
+            return rs.uniform(lo, hi, shape).astype(np.float32)
+        return rs.standard_normal(shape).astype(np.float32)
+
+    def fn(f, **kw):
+        return lambda dev: ((lambda *a: f(*a, **kw)), [])
+
+    cases = []
+    for mode, shape, sizes in (
+            ("nearest", (2, 3, 16, 20), ((24, 30), (7, 9))),
+            ("bilinear", (2, 3, 16, 20), ((24, 30), (7, 9))),
+            ("bicubic", (2, 3, 16, 20), ((24, 30), (7, 9))),
+            ("area", (2, 3, 16, 20), ((24, 30), (7, 9))),
+            ("linear", (2, 3, 20), ((31,), (9,))),
+            ("trilinear", (1, 2, 6, 8, 10), ((9, 12, 15), (3, 5, 4)))):
+        x = r(*shape)
+        for size, how in zip(sizes, ("grow", "shrink")):
+            cases.append((f"interpolate {mode} {how}",
+                          fn(F.interpolate, size=size, mode=mode), [x],
+                          (0,)))
+    cases.append(("unfold", fn(F.unfold, kernel_sizes=3, strides=2,
+                                paddings=1), [r(2, 3, 16, 16)], (0,)))
+    cases.append(("fold", fn(F.fold, output_sizes=[16, 16], kernel_sizes=3,
+                              strides=2, paddings=1), [r(2, 27, 64)], (0,)))
+    cases.append(("affine_grid + grid_sample",
+                  lambda dev: ((lambda th, x: F.grid_sample(
+                      x, F.affine_grid(th, [2, 3, 12, 14]))), []),
+                  [r(2, 2, 3, lo=-1.0, hi=1.0), r(2, 3, 16, 16)], (0, 1)))
+    grid = r(2, 12, 14, 2, lo=-1.3, hi=1.3)
+    for mode, pad in (("bilinear", "zeros"), ("bilinear", "border"),
+                      ("bilinear", "reflection"), ("nearest", "zeros")):
+        cases.append((f"grid_sample {mode} {pad}",
+                      fn(F.grid_sample, mode=mode, padding_mode=pad,
+                         align_corners=False),
+                      [r(2, 3, 16, 16), grid],
+                      (0, 1) if mode == "bilinear" else (0,)))
+    for nd, spatial in ((1, (12,)), (2, (6, 5)), (3, (3, 4, 2))):
+        n_in, n_out = int(np.prod(spatial)), int(np.prod(spatial)) * 2 ** nd
+        idx = np.stack([np.stack([np.sort(rs.permutation(n_out)[:n_in])
+                                  for _ in range(3)]) for _ in range(2)])
+        cases.append((f"max_unpool{nd}d",
+                      fn(getattr(F, f"max_unpool{nd}d"), kernel_size=2),
+                      [r(2, 3, *spatial), idx.reshape(2, 3, *spatial)],
+                      (0,)))
+    labels = rs.randint(1, 20, (4, 10)).astype(np.int64)
+    cases.append(("ctc_loss", fn(F.ctc_loss, reduction="none"),
+                  [r(50, 4, 20), labels, np.array([50, 45, 40, 30]),
+                   np.array([10, 9, 7, 5])], (0,)))
+    cases.append(("rnnt_loss", fn(F.rnnt_loss, reduction="none"),
+                  [r(2, 20, 9, 16), rs.randint(1, 16, (2, 8)),
+                   np.array([20, 15]), np.array([8, 6])], (0,)))
+    # a block pattern of 40% of the (row, column) pairs and the diagonal,
+    # as CSR rows padded to the longest head's count (its mask is built
+    # on the device)
+    keep = rs.random_sample((2, 4, 64, 64)) < 0.4
+    keep[..., np.arange(64), np.arange(64)] = True
+    off = np.zeros((2, 4, 65), np.int64)
+    off[..., 1:] = np.cumsum(keep.sum(-1), -1)
+    cols = np.zeros((2, 4, int(off.max())), np.int64)
+    for b, h in np.ndindex(2, 4):
+        listed = np.nonzero(keep[b, h])[1]
+        cols[b, h, :len(listed)] = listed
+    cases.append(("sparse_attention", fn(F.sparse_attention),
+                  [r(2, 4, 64, 32), r(2, 4, 64, 32), r(2, 4, 64, 32), off,
+                   cols], (0, 1, 2)))
+    for tag, build in (
+            ("GRU 2 layers", lambda: nn.GRU(16, 32, num_layers=2)),
+            ("SimpleRNN bidirectional",
+             lambda: nn.SimpleRNN(16, 32, direction="bidirect")),
+            ("BiRNN(GRUCell, LSTMCell)",
+             lambda: nn.BiRNN(nn.GRUCell(16, 32), nn.LSTMCell(16, 32)))):
+        layers = _twin(build)
+        cases.append((tag, lambda dev, m=layers: (m[dev], m[dev].parameters()),
+                      [r(4, 20, 16)], (0,)))
+    sn = _twin(lambda: nn.SpectralNorm((16, 8, 3), dim=1, power_iters=2))
+    cases.append(("SpectralNorm", lambda dev: (sn[dev], []),
+                  [r(16, 8, 3)], (0,)))
+    return cases
+
+
+def _surface_decode():
+    """dynamic_decode over a GRU cell with an embedding and a head, the
+    same weights on both devices: ids exactly, scores within the limit."""
+    import paddle_tpu_torch as paddle
+    nn = paddle.nn
+    parts = _twin(lambda: nn.LayerList([nn.GRUCell(8, 16),
+                                         nn.Embedding(12, 8),
+                                         nn.Linear(16, 12)]))
+    init = np.random.RandomState(31).standard_normal((3, 16)).astype(
+        np.float32)
+    out = {}
+    for dev, (cell, emb, head) in parts.items():
+        dec = nn.BeamSearchDecoder(cell, start_token=0, end_token=1,
+                                   beam_size=4, embedding_fn=emb,
+                                   output_fn=head)
+        ids, scores = nn.dynamic_decode(
+            dec, inits=torch.from_numpy(init).to(dev), max_step_num=8)
+        out[dev] = (ids.cpu(), scores.cpu())
+    if not torch.equal(out["cuda"][0], out["cpu"][0]):
+        raise AssertionError("[surface-check] dynamic_decode ids differ")
+    return rel_err(out["cuda"][1], out["cpu"][1])
+
+
+def _rule_net(seed):
+    """Linear(64, 32) (its weight at rate scale 0.5, F14), Tanh,
+    Linear(32, 8), and the MSE against ``y``: ``forward(x, y)``."""
+    import paddle_tpu_torch as paddle
+    nn = paddle.nn
+
+    class RuleNet(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = nn.Linear(64, 32, weight_attr=paddle.ParamAttr(
+                learning_rate=0.5))
+            self.fc2 = nn.Linear(32, 8)
+
+        def forward(self, x, y):
+            return ((self.fc2(paddle.tanh(self.fc1(x))) - y) ** 2).mean()
+    paddle.seed(seed)
+    return RuleNet()
+
+
+def _surface_rule(name, kw):
+    """One rule: 3 eager steps on the card against the CPU (each
+    parameter's displacement within SURFACE_REL_LIMIT), then 3 steps
+    captured against 3 eager ``TrainStep`` steps on the card, bit for
+    bit. Returns the worst displacement error."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    rs = np.random.RandomState(32)
+    x_np = rs.standard_normal((16, 64)).astype(np.float32)
+    y_np = rs.standard_normal((16, 8)).astype(np.float32)
+    nets = _twin(lambda: _rule_net(5))
+    start = {d: [p.detach().cpu().clone() for p in m.parameters()]
+             for d, m in nets.items()}
+    for dev, net in nets.items():
+        opt = getattr(paddle.optimizer, name)(parameters=net.parameters(),
+                                              **kw)
+        x, y = (torch.from_numpy(a).to(dev) for a in (x_np, y_np))
+        for _ in range(3):
+            _api_eager_step(net, opt, (x, y))
+    worst = max(rel_err(p.detach().cpu() - p0, q.detach() - q0)
+                for p, q, p0, q0 in zip(nets["cuda"].parameters(),
+                                        nets["cpu"].parameters(),
+                                        start["cuda"], start["cpu"]))
+    if not worst < SURFACE_REL_LIMIT:
+        raise AssertionError(f"[surface-check] {name}: card vs CPU {worst}")
+    x, y = (torch.from_numpy(a).cuda() for a in (x_np, y_np))
+    states = {}
+    for fast in (False, True):
+        net = _rule_net(5)
+        opt = getattr(paddle.optimizer, name)(parameters=net.parameters(),
+                                              **kw)
+        step = TrainStep(net, opt, fast_path=fast)
+        losses = torch.stack([step(x, y).detach().as_subclass(torch.Tensor)
+                              for _ in range(3)])
+        if fast:
+            _graph_of(step)
+        states[fast] = dict(_train_state(net, opt), losses=losses)
+    _hold_bits(f"[surface-check] {name}", "3 captured steps against eager",
+               states[True], states[False])
+    return worst
+
+
+def phase_surface_check(smi):
+    """[surface-check]: every new functional and layer (every
+    ``interpolate`` mode growing and shrinking, ``unfold`` / ``fold``,
+    ``affine_grid`` / ``grid_sample``, the unpools, ``ctc_loss``,
+    ``rnnt_loss``, ``sparse_attention``, ``GRU``, a bidirectional
+    ``SimpleRNN``, ``BiRNN`` over cells, ``SpectralNorm``,
+    ``dynamic_decode``) on the card against the
+    CPU in fp32, forward and gradient, within SURFACE_REL_LIMIT; then the
+    six rules of SURFACE_RULES (``_surface_rule``: F14's scaled weight
+    among the parameters)."""
+    t0 = time.perf_counter()
+    worst = {tag: _surface_pair(tag, make, inputs, grad)
+             for tag, make, inputs, grad in _surface_cases()}
+    worst["dynamic_decode (scores)"] = _surface_decode()
+    if not worst["dynamic_decode (scores)"] < SURFACE_REL_LIMIT:
+        raise AssertionError("[surface-check] dynamic_decode scores differ")
+    rules = {name: _surface_rule(name, kw) for name, kw in SURFACE_RULES}
+    tag = max(worst, key=worst.get)
+    log(f"[surface-check] ({smi}) {len(worst)} functionals and layers on the "
+        f"card against the CPU, fp32, forward and gradient: worst "
+        f"{worst[tag]:.3g} ({tag}); six rules, 3 steps card against CPU: "
+        f"{ {k: float(f'{v:.3g}') for k, v in rules.items()} }, each captured "
+        f"bit for bit its eager steps; limit {SURFACE_REL_LIMIT}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def surface_phases(smi):
+    """The slice-22 phases, each with the launch counts set to 0 before it
+    and read after: the PTB LSTM model (row 8 from its two dropouts),
+    BERT-base under Lamb (rows 1, 2, 7, 8 and the dq sum) and the surface
+    checks (no hand kernel). Returns (paths, checks): each model path's
+    counts and the check phases'."""
+    from paddle_tpu_torch.kernels import reset_launch_counts
+    paths, checks = {}, {}
+
+    def run(tag, fn, *args, into=paths, kernels=True):
+        reset_launch_counts()
+        out = fn(*args)
+        counts = _path_counts()
+        ran = {k: n for k, n in counts.items() if n}
+        if ran and not kernels:
+            raise AssertionError(f"[{tag}] launched hand kernels: {ran}")
+        into[tag] = counts
+        return out
+
+    t0 = time.perf_counter()
+    run("lstm-check", phase_lstm_check, into=checks, kernels=False)
+    eager = run("lstm-lm", phase_lstm_lm, smi)
+    run("lstm-lm-graph", phase_lstm_graph, smi, eager)
+    _release("after [lstm-lm] and [lstm-graph]")
+    run("bert-lamb-check", phase_bert_lamb_check, into=checks)
+    _release("after [bert-lamb-check]")
+    run("bert-lamb", phase_bert_lamb, smi)
+    _release("after [bert-lamb]")
+    run("surface-check", phase_surface_check, smi, into=checks,
+        kernels=False)
+    _release("after [surface-check]")
+    log(f"[surface] the slice-22 phases passed in "
+        f"{time.perf_counter() - t0:.1f} s; launches "
+        f"{ {k: {n: c for n, c in v.items() if c} for k, v in paths.items()} }")
+    return paths, checks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -9226,6 +10056,13 @@ def main() -> int:
     # Paddle-API encoder (rows 4, 5 and 8)
     paths.update(hapi_phases(smi, vision_rates["train"]))
 
+    # the rest of nn and the optimizers (slice 22): the PTB LSTM language
+    # model (row 8), BERT-base under Lamb (rows 1, 2, 7, 8 and the dq sum)
+    # and the new functionals, layers and rules on the card against the CPU
+    surface_paths, surface_checks = surface_phases(smi)
+    paths.update(surface_paths)
+    checks.update(surface_checks)
+
     t0 = time.perf_counter()
     llama = LlamaForCausalLM(llama_7b(), dtype=torch.bfloat16, seed=0).eval()
     torch.cuda.synchronize()
@@ -9349,6 +10186,11 @@ def main() -> int:
                                     "flash_attention_bwd", "dropout_fwd"],
              "hapi-accum": ["flash_attention_fwd", "flash_attention_bwd",
                             "dropout_fwd"],
+             "lstm-lm": ["dropout_fwd"],
+             "lstm-lm-graph": ["dropout_fwd"],
+             "bert-lamb": ["flash_pair_fwd", "flash_pair_bwd", "dropout_fwd",
+                           "fused_add_dropout_ln_fwd",
+                           "fused_add_dropout_ln_bwd"],
              "gpt-serving-spec-draft": ["flash_pair_fwd"],
              "gpt-serving-spec-early": ["flash_pair_fwd"],
              "llama-serving-spec": ["flash_attention_fwd"]}
@@ -9569,6 +10411,35 @@ def hapi_only() -> int:
     return 0
 
 
+def surface_only(probe_reps=0) -> int:
+    """``chip_smoke.py --surface-only [--trace-probe N]``: the card, the
+    build and the slice-22 phases ([lstm-*], [bert-lamb*],
+    [surface-check]) alone in a fresh process, then, with N, N traces of
+    each [wide-route] route (``probe_wide_route_traces``); no kernels line
+    and no closing line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    try:
+        import paddle_tpu_torch  # noqa: F401
+    except ModuleNotFoundError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})",
+              file=sys.stderr)
+        return 3
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    _, _, smi = phase_card()
+    phase_build()
+    paths, checks = surface_phases(smi)
+    log(f"[paths] {paths}; checks {checks}")
+    if probe_reps:
+        probe_wide_route_traces(probe_reps)
+    log(f"[done] the slice-22 phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fleet-worker"]:     # [fleet-http]'s replicas
         sys.exit(_http_worker(*sys.argv[2:5]))
@@ -9578,4 +10449,7 @@ if __name__ == "__main__":
         sys.exit(vision_only())
     if sys.argv[1:2] == ["--hapi-only"]:
         sys.exit(hapi_only())
+    if sys.argv[1:2] == ["--surface-only"]:
+        sys.exit(surface_only(int(sys.argv[3]) if sys.argv[2:3]
+                              == ["--trace-probe"] else 0))
     sys.exit(main())

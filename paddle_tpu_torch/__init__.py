@@ -65,6 +65,16 @@ among them), ``metric``, and ``io``: datasets, samplers, the
 (host-to-card copies on a side stream ahead of the step;
 ``stack_batches=K`` for accumulation); ``distributed.fleet.
 GradientMergeOptimizer`` sets ``TrainStep``'s accumulation.
+
+The rest of nn and the optimizers (slice 22): ``nn.functional.
+interpolate`` / ``upsample`` (the JAX package's resize), ``unfold`` /
+``fold`` and their layers, the recurrent layers (``nn.SimpleRNN``,
+``LSTM``, ``GRU``, their cells, ``RNN`` / ``BiRNN``), the extended
+functionals and layers (CTC and RNN-T losses, ``grid_sample``, the
+unpools, ``SpectralNorm``, ``dynamic_decode``), and ``optimizer.Adamax``
+/ ``Adagrad`` / ``Adadelta`` / ``RMSProp`` / ``Lamb``, every rule staged
+(``TrainStep`` captures it) and scaled by each parameter's
+``ParamAttr(learning_rate=...)``.
 """
 import builtins
 

@@ -287,12 +287,6 @@ class TrainStep:
         """A new program: its buffers (``_FastState``) and its body."""
         dev = self._device()
         opt = self._opt
-        if dev.type == "cuda" and not opt._staged_rule:
-            raise TypeError(
-                f"TrainStep(fast_path=True) captures the update on the "
-                f"card, but {type(opt).__name__}'s rule takes host floats "
-                f"(_update(param, grad, state, lr, step, wd_scale)); give "
-                f"it _update_staged or pass fast_path=False")
         params = [p for p in opt._parameter_list if p.requires_grad]
         for p in params:
             opt._ensure_state(p)

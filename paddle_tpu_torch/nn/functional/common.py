@@ -1,8 +1,20 @@
 """Common functionals (counterpart of ``paddle_tpu/nn/functional/common.py``):
 ``linear`` (Paddle's ``[in, out]`` weight), the dropouts, ``embedding``
-and the small tensor functionals, each dispatched through
-``core.dispatch`` (``Tensor`` in, ``Tensor`` out; plain torch tensors
-in, plain out, as the port's models call them).
+and the small tensor functionals, ``interpolate`` / ``upsample``,
+``unfold`` and ``fold``, each dispatched through ``core.dispatch``
+(``Tensor`` in, ``Tensor`` out; plain torch tensors in, plain out, as the
+port's models call them).
+
+``interpolate`` is the JAX package's, which is ``jax.image.resize`` and
+neither Paddle's nor torch's resize: half-pixel centres, ``align_corners``
+and ``align_mode`` taken and never read, ``"area"`` computed as linear,
+``nearest`` sampling at ``floor((i + 0.5) * in / out)`` (torch's
+``"nearest-exact"``), ``linear`` and ``cubic`` antialiased when they
+shrink and ``cubic`` Keys' kernel at a = -0.5 (torch's bicubic is -0.75).
+It builds jax.image's weight matrix for each resized axis on the host, in
+fp32 as jax.image computes it, once for each (sizes, mode, device, type),
+and contracts the input with each: one route for every mode and for 1-D,
+2-D and 3-D.
 
 ``dropout`` draws from an explicit CPU ``torch.Generator`` where it is
 given one and from the global chain (``core.random``: ``seed``) where it
@@ -15,20 +27,24 @@ mask from the seed.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as TF
 
 from ...core.dispatch import register_op
 from ...core.random import default_generator, next_seed
 from ...kernels.dropout import DropoutFunction
-from ...ops._helpers import _op
+from ...ops._helpers import _op, static_int_list
 from ...ops.manipulation import one_hot as _one_hot
 from ...ops.manipulation import pad  # noqa: F401  (paddle.nn.functional.pad)
 
 __all__ = ["linear", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
            "embedding", "one_hot", "pad", "bilinear", "cosine_similarity",
            "pixel_shuffle", "pixel_unshuffle", "channel_shuffle",
-           "label_smooth"]
+           "label_smooth", "interpolate", "upsample", "class_center_sample",
+           "unfold", "fold"]
 
 
 def linear(x, weight, bias=None, name=None):
@@ -210,3 +226,145 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
 register_op("label_smooth", lambda label, prior=None, epsilon=0.1:
             (1 - epsilon) * label + (epsilon / label.shape[-1]
                                      if prior is None else epsilon * prior))
+
+
+# Paddle's modes -> jax.image.resize's methods (the JAX package's table)
+_RESIZE_METHOD = {"nearest": "nearest", "bilinear": "linear",
+                  "linear": "linear", "trilinear": "linear",
+                  "bicubic": "cubic", "area": "linear"}
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, align_mode=0, data_format="NCHW",
+                name=None):
+    """Resize the spatial axes of ``x`` to ``size`` (or ``int(in *
+    scale_factor)`` each) as the JAX package does (``jax.image.resize``;
+    see the module's docstring): ``align_corners`` and ``align_mode`` are
+    taken and not read."""
+    channel_last = data_format in ("NHWC", "NWC", "NDHWC")
+    n_spatial = x.dim() - 2
+    sp_shape = x.shape[1:-1] if channel_last else x.shape[2:]
+    if size is not None:
+        out_sizes = static_int_list(size)
+    else:
+        scales = [float(scale_factor)] * n_spatial \
+            if isinstance(scale_factor, (int, float)) \
+            else [float(v) for v in scale_factor]
+        out_sizes = [int(s * f) for s, f in zip(sp_shape, scales)]
+    return _op("interpolate", x, out_sizes=tuple(int(v) for v in out_sizes),
+               mode=str(mode), channel_last=channel_last)
+
+
+def _keys_cubic(x):
+    out = ((np.float32(1.5) * x - np.float32(2.5)) * x) * x + np.float32(1.0)
+    out = np.where(x >= 1.0, ((np.float32(-0.5) * x + np.float32(2.5)) * x
+                              - np.float32(4.0)) * x + np.float32(2.0), out)
+    return np.where(x >= 2.0, np.float32(0.0), out).astype(np.float32)
+
+
+def _triangle(x):
+    return np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x))
+
+
+@functools.lru_cache(maxsize=256)
+def _resize_matrix(m: int, n: int, method: str, device, dtype):
+    """``_resize_weights(m, n, method)`` as a tensor on ``device`` in
+    ``dtype``, made once: a steady-state resize only contracts."""
+    return torch.from_numpy(_resize_weights(m, n, method)).to(device, dtype)
+
+
+def _resize_weights(m: int, n: int, method: str) -> np.ndarray:
+    """The fp32 ``[m, n]`` matrix that takes an axis of ``m`` samples to
+    ``n`` as ``jax.image.resize`` does (``compute_weight_mat`` with
+    antialiasing, translation 0; ``_resize_nearest``'s gather as a 0/1
+    matrix)."""
+    f32 = np.float32
+    if method == "nearest":
+        src = np.floor((np.arange(n, dtype=f32) + f32(0.5)) * f32(m)
+                       / f32(n)).astype(np.int64)
+        w = np.zeros((m, n), f32)
+        w[src, np.arange(n)] = 1.0
+        return w
+    inv_scale = 1.0 / (n / m)
+    kernel_scale = f32(max(inv_scale, 1.0))
+    sample = (np.arange(n, dtype=f32) + f32(0.5)) * f32(inv_scale) \
+        - f32(0.0) - f32(0.5)
+    dist = np.abs(sample[None, :] - np.arange(m, dtype=f32)[:, None]) \
+        / kernel_scale
+    w = (_keys_cubic if method == "cubic" else _triangle)(dist)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(f32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def _interpolate_fwd(x, out_sizes=(), mode="nearest", channel_last=False):
+    method = _RESIZE_METHOD[mode]
+    first = 1 if channel_last else 2
+    out = x
+    for i, n in enumerate(out_sizes):
+        d = first + i
+        m = int(x.shape[d])
+        if m == n:                   # jax.image.resize skips such an axis
+            continue
+        w = _resize_matrix(m, n, method, x.device, x.dtype)
+        out = torch.movedim(torch.tensordot(out, w, dims=([d], [0])), -1, d)
+    return out
+
+
+register_op("interpolate", _interpolate_fwd)
+
+
+def upsample(x, size=None, scale_factor=None, mode="nearest",
+             align_corners=False, align_mode=0, data_format="NCHW",
+             name=None):
+    return interpolate(x, size, scale_factor, mode, align_corners,
+                       align_mode, data_format)
+
+
+def class_center_sample(label, num_classes, num_samples, group=None):
+    raise NotImplementedError("class_center_sample lands with the "
+                              "PS/recsys stack")
+
+
+def _pair(v):
+    v = static_int_list(v)
+    return tuple(v * 2 if len(v) == 1 else v)
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """``[N, C, H, W]`` -> ``[N, C*kh*kw, L]`` sliding blocks, channel-major
+    then (kh, kw) (the JAX package's ``conv_general_dilated_patches``)."""
+    return _op("unfold", x, k=_pair(kernel_sizes), s=_pair(strides),
+               p=_pair(paddings), d=_pair(dilations))
+
+
+register_op("unfold", lambda x, k=(3, 3), s=(1, 1), p=(0, 0), d=(1, 1):
+            TF.unfold(x, k, dilation=d, padding=p, stride=s))
+
+
+def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0, dilations=1,
+         name=None):
+    """``unfold``'s adjoint: ``[N, C*kh*kw, L]`` blocks summed into ``[N, C,
+    H, W]``, one strided add per kernel offset as in the JAX package."""
+    return _op("fold", x, out_hw=_pair(output_sizes), k=_pair(kernel_sizes),
+               s=_pair(strides), p=_pair(paddings), d=_pair(dilations))
+
+
+def _fold_fwd(x, out_hw=(1, 1), k=(3, 3), s=(1, 1), p=(0, 0), d=(1, 1)):
+    n, ckk, _ = x.shape
+    c = ckk // (k[0] * k[1])
+    oh = (out_hw[0] + 2 * p[0] - d[0] * (k[0] - 1) - 1) // s[0] + 1
+    ow = (out_hw[1] + 2 * p[1] - d[1] * (k[1] - 1) - 1) // s[1] + 1
+    cols = x.reshape(n, c, k[0], k[1], oh, ow)
+    out = x.new_zeros((n, c, out_hw[0] + 2 * p[0], out_hw[1] + 2 * p[1]))
+    for i in range(k[0]):
+        for j in range(k[1]):
+            hi, wj = i * d[0], j * d[1]
+            out[:, :, hi:hi + oh * s[0]:s[0], wj:wj + ow * s[1]:s[1]] += \
+                cols[:, :, i, j]
+    return out[:, :, p[0]:out.shape[2] - p[0], p[1]:out.shape[3] - p[1]]
+
+
+register_op("fold", _fold_fwd)

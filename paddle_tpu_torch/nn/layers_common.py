@@ -1,8 +1,8 @@
 """Common layers (counterpart of ``paddle_tpu/nn/layers_common.py``):
 ``Linear`` (weight ``[in, out]``, Paddle's layout), ``Embedding``, the
-dropouts, ``Flatten``, ``Identity``, the padding and shuffle layers.
-``Upsample*``, ``Unfold`` and ``Fold`` wait for the convolution slice
-(ROADMAP Queue 1, item 2's rest)."""
+dropouts, ``Flatten``, ``Identity``, the padding and shuffle layers,
+``Upsample*`` (``F.interpolate``, the JAX package's resize), ``Unfold``
+and ``Fold``."""
 from __future__ import annotations
 
 import torch
@@ -15,7 +15,8 @@ __all__ = [
     "Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D",
     "AlphaDropout", "Flatten", "Identity", "Pad1D", "Pad2D", "Pad3D",
     "ZeroPad2D", "Bilinear", "CosineSimilarity", "PixelShuffle",
-    "PixelUnshuffle", "ChannelShuffle",
+    "PixelUnshuffle", "ChannelShuffle", "Upsample", "UpsamplingBilinear2D",
+    "UpsamplingNearest2D", "Unfold", "Fold",
 ]
 
 
@@ -233,3 +234,67 @@ class ChannelShuffle(Layer):
 
     def forward(self, x):
         return F.channel_shuffle(x, self.groups, self.data_format)
+
+
+class Upsample(Layer):
+    """``F.interpolate`` with fixed arguments (``align_corners`` and
+    ``align_mode`` are kept and, as in the JAX package, not read)."""
+
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True, 0,
+                         data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False, 0,
+                         data_format)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.kernel_sizes = kernel_sizes
+        self.strides = strides
+        self.paddings = paddings
+        self.dilations = dilations
+
+    def forward(self, x):
+        return F.unfold(x, self.kernel_sizes, self.strides, self.paddings,
+                        self.dilations)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.output_sizes = output_sizes
+        self.kernel_sizes = kernel_sizes
+        self.strides = strides
+        self.paddings = paddings
+        self.dilations = dilations
+
+    def forward(self, x):
+        return F.fold(x, self.output_sizes, self.kernel_sizes, self.strides,
+                      self.paddings, self.dilations)

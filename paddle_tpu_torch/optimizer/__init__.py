@@ -1,11 +1,12 @@
 """Optimizers and LR schedulers of the port (``paddle_tpu.optimizer``'s
-counterpart): ``SGD``, ``Momentum``, ``Adam`` and ``AdamW`` with fp32
-masters, and the 15 schedulers of ``lr``. ``Adamax``, ``Adagrad``,
-``Adadelta``, ``RMSProp`` and ``Lamb`` are ROADMAP Queue 1, item 4's
-rest."""
+counterpart): ``SGD``, ``Momentum``, ``Adam``, ``AdamW``, ``Adamax``,
+``Adagrad``, ``Adadelta``, ``RMSProp`` and ``Lamb`` (every one a staged
+rule that ``TrainStep`` captures on the card), and the 15 schedulers of
+``lr``."""
 from . import lr
 from .lr import LRScheduler
-from .optimizer import SGD, Adam, AdamW, Momentum, Optimizer
+from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Lamb,
+                        Momentum, Optimizer, RMSProp)
 
 __all__ = ["lr", "LRScheduler", "Optimizer", "SGD", "Momentum", "Adam",
-           "AdamW"]
+           "AdamW", "Adamax", "Adagrad", "Adadelta", "RMSProp", "Lamb"]

@@ -1,6 +1,8 @@
 """Optimizers (counterpart of ``paddle_tpu/optimizer/optimizer.py``).
 
-``Optimizer``, ``Adam`` and ``AdamW`` with Paddle's argument names. The JAX
+``Optimizer`` and the rules ``SGD``, ``Momentum``, ``Adam``, ``AdamW``,
+``Adamax``, ``Adagrad``, ``Adadelta``, ``RMSProp`` and ``Lamb`` with
+Paddle's argument names and the JAX rules' arithmetic and state names. The JAX
 package runs one fused update over the whole parameter pytree in a cached
 XLA executable; here the update is eager PyTorch, one parameter at a time,
 and in place: moments, fp32 masters and the parameters the model holds
@@ -11,7 +13,14 @@ donating those buffers to its update.
 ``multi_precision=True`` keeps an fp32 master for every parameter that is
 not fp32, made from the parameter's own values, and fp32 moments; each
 ``step()`` casts the gradient to the master's type, updates the master and
-copies it, cast, into the parameter.
+copies it, cast, into the parameter. A bf16 or fp16 parameter gets its
+master and fp32 moments whether ``multi_precision`` is asked or not, under
+every rule: the JAX rules never round an update into such a parameter.
+Without a master they compute in fp32 (the rate is an fp32 scalar) and
+store the fp32 result, so the parameter turns fp32 in its first step and
+its moments in the second (ROADMAP Queue 3). The port keeps those fp32
+values in the master and the parameter in its own type, which the model's
+kernels were built for.
 
 ``grad_clip`` (``nn.clip``) runs in ``step()`` before the update, on the
 gradients as they stand; the cast to the master's type comes after it.
@@ -21,6 +30,14 @@ masters, the scheduler's state and the step count under the JAX
 package's keys (a checkpoint's ``optimizer.pt``).
 ``weight_decay`` is a float or an ``L2Decay`` (its coefficient); an
 ``L1Decay`` raises ``NotImplementedError``, as in the JAX package.
+
+Every rule multiplies its rate by the parameter's
+``optimize_attr["learning_rate"]`` (``ParamAttr(learning_rate=...)``),
+rounded as the JAX rule rounds ``lr * s``: in fp32, then the product.
+The scale is a constant of the parameter, so a captured step bakes it in.
+Every rule is staged (``_update_staged``): its step scalars are host
+floats or a captured step's device data alike, so ``TrainStep`` captures
+each of them on the card.
 """
 from __future__ import annotations
 
@@ -34,10 +51,13 @@ from ..core.amp_state import applied
 from ..regularizer import L1Decay
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "adam_update",
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
+           "Adagrad", "Adadelta", "RMSProp", "Lamb", "adam_update",
            "adam_scalars"]
 
 _ITEM = "ROADMAP Queue 1, item 4"
+# the types that always update through an fp32 master
+_LOW = (torch.bfloat16, torch.float16)
 
 
 def _smul(x: torch.Tensor, s):
@@ -47,6 +67,33 @@ def _smul(x: torch.Tensor, s):
     if torch.is_tensor(s) and x.dtype != s.dtype:
         return (x.float() * s).to(x.dtype)
     return x * s
+
+
+def _sprod(a, b):
+    """``a * b`` of two step scalars, each a host float or a 0-d fp32
+    tensor, rounded in fp32 either way (the same bits)."""
+    if torch.is_tensor(a) or torch.is_tensor(b):
+        return a * b
+    return float(np.float32(a) * np.float32(b))
+
+
+def _lr_scale(p) -> float:
+    """The parameter's learning-rate multiplier
+    (``ParamAttr(learning_rate=...)``; 1 where it has none)."""
+    attr = getattr(p, "optimize_attr", None)
+    return float(attr.get("learning_rate", 1.0)) if attr else 1.0
+
+
+def _commit(param, new_param, state, new_state, skip):
+    """Write a rule's new parameter and states in place; where ``skip``
+    (a 0-d bool tensor) is true every one keeps its bits."""
+    pairs = [(param, new_param)] + [(state[k], v) for k, v in
+                                    new_state.items()]
+    for old, new in pairs:
+        if skip is None:
+            old.copy_(new)
+        else:
+            old.copy_(torch.where(skip, old, new.to(old.dtype)))
 
 
 def adam_scalars(lr, step, beta1=0.9, beta2=0.999) -> np.ndarray:
@@ -106,7 +153,9 @@ def adam_update(param, grad, moment1, moment2, *, lr=None, step=None,
 class Optimizer:
     """Base class: parameters, learning rate (a float or an
     ``LRScheduler``), per-parameter state and masters. Subclasses name
-    their states in ``_state_names`` and implement ``_update``."""
+    their states in ``_state_names`` and implement ``_update_staged``
+    (and ``_host_scalars`` where the rate is not their only step
+    scalar)."""
 
     _state_names: List[str] = []
 
@@ -159,12 +208,13 @@ class Optimizer:
     def _ensure_state(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
         pid = id(p)
         if pid not in self._accumulators:
-            dtype = torch.float32 if self._multi_precision else p.dtype
+            master = self._multi_precision or p.dtype in _LOW
+            dtype = torch.float32 if master else p.dtype
             self._accumulators[pid] = {
                 name: torch.zeros_like(p, dtype=dtype,
                                        memory_format=torch.contiguous_format)
                 for name in self._state_names}
-            if self._multi_precision and p.dtype != torch.float32:
+            if master and p.dtype != torch.float32:
                 self._master_weights[pid] = p.detach().float().clone()
         return self._accumulators[pid]
 
@@ -209,8 +259,8 @@ class Optimizer:
 
     def step_scalars(self, step: int) -> np.ndarray:
         """The update's step scalars for step ``step`` (fp32, host): what
-        a captured step stages before each call (``[lr]`` for a rule of
-        host floats, Adam's ``adam_scalars``)."""
+        a captured step stages before each call (``[lr]``, or Adam's
+        ``adam_scalars``)."""
         return self._host_scalars(self.get_lr(), step)
 
     def _apply(self, params, grads, staged=None, skip=None):
@@ -218,41 +268,21 @@ class Optimizer:
             grads = [g for _, g in self._grad_clip(list(zip(params, grads)))]
         if staged is None:
             self._step_count += 1
-        if not self._staged_rule:
-            self._apply_host_rule(params, grads, staged, skip)
-            return
-        if staged is None:
             base = [float(v) for v in self.step_scalars(self._step_count)]
         else:
             base = [staged[i] for i in range(len(staged))]
-        by_wd = {}          # lr * decay, once per coefficient
+        by_key = {}     # (lr * s, lr * s * decay), once per (s, decay)
         for p, g in zip(params, grads):
             state = self._ensure_state(p)
             target = self._master_weights.get(id(p), p)
             wd = self._weight_decay * self._wd_scale(p)
-            if wd not in by_wd:
-                by_wd[wd] = base[0] * float(np.float32(wd)) \
-                    if staged is not None \
-                    else float(np.float32(base[0]) * np.float32(wd))
+            s = _lr_scale(p)
+            if (s, wd) not in by_key:
+                lr = base[0] if s == 1.0 else _sprod(base[0], s)
+                by_key[s, wd] = (lr, _sprod(lr, wd))
+            lr, lr_wd = by_key[s, wd]
             self._update_staged(target, g.to(target.dtype), state,
-                                (*base, by_wd[wd]), wd, skip)
-            self._to_param(p, target, skip)
-
-    def _apply_host_rule(self, params, grads, staged, skip):
-        """A rule of host floats (``_update(param, grad, state, lr, step,
-        wd_scale)``): ``lr`` is the staged one where given; a ``skip``
-        restores what the rule wrote in place."""
-        lr = self.get_lr() if staged is None else staged[0]
-        for p, g in zip(params, grads):
-            state = self._ensure_state(p)
-            target = self._master_weights.get(id(p), p)
-            kept = None if skip is None else \
-                [t.clone() for t in (target, *state.values())]
-            self._update(target, g.to(target.dtype), state, lr,
-                         self._step_count, self._wd_scale(p))
-            if kept is not None:
-                for t, old in zip((target, *state.values()), kept):
-                    t.copy_(torch.where(skip, old, t))
+                                (lr, *base[1:], lr_wd), wd, skip)
             self._to_param(p, target, skip)
 
     @staticmethod
@@ -264,16 +294,8 @@ class Optimizer:
         else:
             p.copy_(torch.where(skip, p, target.to(p.dtype)))
 
-    # a rule with ``_update_staged`` (Adam's) takes its step scalars as
-    # host floats or as device data alike; one of host floats
-    # (``_update``) cannot be captured on the card
-    _staged_rule = False
-
     def _host_scalars(self, lr, step) -> np.ndarray:
         return np.array([lr], dtype=np.float32)
-
-    def _update(self, param, grad, state, lr, step, wd_scale=1.0):
-        raise NotImplementedError
 
     def _update_staged(self, param, grad, state, scalars, weight_decay,
                        skip=None):
@@ -371,7 +393,9 @@ class Optimizer:
 
 
 class SGD(Optimizer):
-    """``p -= lr * (g + weight_decay * p)`` (L2 decay on the gradient)."""
+    """``p -= lr * (g + weight_decay * p)`` (L2 decay on the gradient).
+    ``TrainStep(fast_path=True)`` captures it on the card
+    (``_update_staged``: lr is its only step scalar)."""
 
     _state_names: List[str] = []
 
@@ -381,10 +405,13 @@ class SGD(Optimizer):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, multi_precision)
 
-    def _update(self, param, grad, state, lr, step, wd_scale=1.0):
-        wd = self._weight_decay * wd_scale
-        g = grad + wd * param if wd else grad
-        param.sub_(_smul(g, lr))
+    def _update_staged(self, param, grad, state, scalars, weight_decay,
+                       skip=None):
+        g = grad + weight_decay * param if weight_decay else grad
+        if skip is None:
+            param.sub_(_smul(g, scalars[0]))
+            return
+        param.copy_(torch.where(skip, param, param - _smul(g, scalars[0])))
 
 
 class Momentum(Optimizer):
@@ -402,10 +429,6 @@ class Momentum(Optimizer):
                          name, multi_precision)
         self._momentum = float(momentum)
         self._use_nesterov = bool(use_nesterov)
-
-    # lr is its only step scalar: a host float, or the captured step's
-    # staged fp32 value (the same bits), so the rule captures on the card
-    _staged_rule = True
 
     def _update_staged(self, param, grad, state, scalars, weight_decay,
                        skip=None):
@@ -442,7 +465,6 @@ class Adam(Optimizer):
         self._beta2 = float(beta2)
         self._epsilon = float(epsilon)
 
-    _staged_rule = True
 
     def _host_scalars(self, lr, step) -> np.ndarray:
         return adam_scalars(lr, step, self._beta1, self._beta2)
@@ -485,3 +507,171 @@ class AdamW(Adam):
                 and not self._apply_decay_param_fun(name)):
             return 0.0
         return 1.0
+
+
+class Adamax(Optimizer):
+    """Adam with the infinity norm: ``m = beta1 m + (1 - beta1) g``,
+    ``u = max(beta2 u, |g|)``, ``p -= lr / bc1 * m / (u + epsilon)``
+    (``g`` with L2 decay; ``bc1`` the first moment's bias correction,
+    staged as its fp32 reciprocal as Adam's is)."""
+
+    _state_names = ["moment", "inf_norm"]
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._beta1, self._beta2 = float(beta1), float(beta2)
+        self._epsilon = float(epsilon)
+
+    def _host_scalars(self, lr, step) -> np.ndarray:
+        return adam_scalars(lr, step, self._beta1, self._beta2)[:2]
+
+    def _update_staged(self, param, grad, state, scalars, weight_decay,
+                       skip=None):
+        lr, inv1 = scalars[0], scalars[1]
+        g = grad + weight_decay * param if weight_decay else grad
+        m = state["moment"] * self._beta1 + g * (1 - self._beta1)
+        u = torch.maximum(state["inf_norm"] * self._beta2, g.abs())
+        new = param - _smul(m, _sprod(lr, inv1)) / (u + self._epsilon)
+        _commit(param, new, state, {"moment": m, "inf_norm": u}, skip)
+
+
+class Adagrad(Optimizer):
+    """``m += g^2``, ``p -= lr * g / (sqrt(m) + epsilon)`` (``g`` with L2
+    decay); ``m`` starts at ``initial_accumulator_value``."""
+
+    _state_names = ["moment"]
+
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None,
+                 initial_accumulator_value=0.0):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._epsilon = float(epsilon)
+        self._init_acc = float(initial_accumulator_value)
+
+    def _ensure_state(self, p):
+        fresh = id(p) not in self._accumulators
+        state = super()._ensure_state(p)
+        if fresh and self._init_acc:
+            state["moment"].fill_(self._init_acc)
+        return state
+
+    def _update_staged(self, param, grad, state, scalars, weight_decay,
+                       skip=None):
+        g = grad + weight_decay * param if weight_decay else grad
+        m = state["moment"] + g.square()
+        new = param - _smul(g, scalars[0]) / (m.sqrt() + self._epsilon)
+        _commit(param, new, state, {"moment": m}, skip)
+
+
+class Adadelta(Optimizer):
+    """``E[g^2] = rho E[g^2] + (1 - rho) g^2``, ``d = g * sqrt(E[d^2] +
+    epsilon) / sqrt(E[g^2] + epsilon)``, ``E[d^2] = rho E[d^2] + (1 - rho)
+    d^2``, ``p -= lr * d`` (``g`` with L2 decay)."""
+
+    _state_names = ["avg_squared_grad", "avg_squared_update"]
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._epsilon, self._rho = float(epsilon), float(rho)
+
+    def _update_staged(self, param, grad, state, scalars, weight_decay,
+                       skip=None):
+        rho, eps = self._rho, self._epsilon
+        g = grad + weight_decay * param if weight_decay else grad
+        asg = state["avg_squared_grad"] * rho + g.square() * (1 - rho)
+        upd = g * (state["avg_squared_update"] + eps).sqrt() \
+            / (asg + eps).sqrt()
+        asu = state["avg_squared_update"] * rho + upd.square() * (1 - rho)
+        _commit(param, param - _smul(upd, scalars[0]), state,
+                {"avg_squared_grad": asg, "avg_squared_update": asu}, skip)
+
+
+class RMSProp(Optimizer):
+    """``E[g^2] = rho E[g^2] + (1 - rho) g^2``; ``centered`` also keeps
+    ``E[g]`` and divides by ``sqrt(E[g^2] - E[g]^2 + epsilon)``, else by
+    ``sqrt(E[g^2] + epsilon)`` (``mean_grad`` then stays as it is);
+    ``acc = momentum * acc + lr * g / denom``, ``p -= acc`` (``g`` with
+    L2 decay)."""
+
+    _state_names = ["mean_square", "mean_grad", "momentum_acc"]
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._rho, self._epsilon = float(rho), float(epsilon)
+        self._momentum, self._centered = float(momentum), bool(centered)
+
+    def _update_staged(self, param, grad, state, scalars, weight_decay,
+                       skip=None):
+        rho, eps = self._rho, self._epsilon
+        g = grad + weight_decay * param if weight_decay else grad
+        ms = state["mean_square"] * rho + g.square() * (1 - rho)
+        new_state = {"mean_square": ms}
+        if self._centered:
+            mg = state["mean_grad"] * rho + g * (1 - rho)
+            denom = (ms - mg.square() + eps).sqrt()
+            new_state["mean_grad"] = mg
+        else:
+            denom = (ms + eps).sqrt()
+        acc = state["momentum_acc"] * self._momentum \
+            + _smul(g, scalars[0]) / denom
+        new_state["momentum_acc"] = acc
+        _commit(param, param - acc, state, new_state, skip)
+
+
+class Lamb(Optimizer):
+    """LAMB (You et al., 2019): Adam's bias-corrected direction ``r =
+    m1_hat / (sqrt(m2_hat) + epsilon) + lamb_weight_decay * p`` scaled by
+    the trust ratio ``||p|| / ||r||`` (1 where either norm is 0):
+    ``p -= lr * trust * r``. The ratio is computed on the device (two
+    norms and a ``torch.where``, no host read), so the step captures.
+    ``exclude_from_weight_decay_fn(p)`` returning True exempts a
+    parameter from the decay; it is called with the parameter, as in the
+    JAX package. It takes no ``multi_precision``, as the JAX rule takes
+    none; a bf16 or fp16 parameter updates through its fp32 master all the
+    same (see the module's docstring)."""
+
+    _state_names = ["moment1", "moment2"]
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, lamb_weight_decay,
+                         grad_clip, name)
+        self._beta1, self._beta2 = float(beta1), float(beta2)
+        self._epsilon = float(epsilon)
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _wd_scale(self, p) -> float:
+        if self._exclude_fn is not None and self._exclude_fn(p):
+            return 0.0
+        return 1.0
+
+    def _host_scalars(self, lr, step) -> np.ndarray:
+        return adam_scalars(lr, step, self._beta1, self._beta2)
+
+    def _update_staged(self, param, grad, state, scalars, weight_decay,
+                       skip=None):
+        lr, inv1, inv2 = scalars[0], scalars[1], scalars[2]
+        b1, b2 = self._beta1, self._beta2
+        m1 = state["moment1"] * b1 + grad * (1 - b1)
+        m2 = state["moment2"] * b2 + grad.square() * (1 - b2)
+        r = _smul(m1, inv1) / (_smul(m2, inv2).sqrt() + self._epsilon)
+        if weight_decay:
+            r = r + weight_decay * param
+        w_norm = param.square().sum().sqrt()
+        r_norm = r.square().sum().sqrt()
+        trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            torch.ones_like(w_norm))
+        new = param - _sprod(lr, trust) * r
+        _commit(param, new, state, {"moment1": m1, "moment2": m2}, skip)

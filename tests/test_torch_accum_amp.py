@@ -22,8 +22,8 @@ from paddle_tpu_torch import amp
 from paddle_tpu_torch.convert import convert_paddle_state, load_paddle_state
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
-from paddle_tpu_torch.optimizer import Adam, AdamW
-from paddle_tpu_torch.optimizer.optimizer import Optimizer
+# SGD without decay, ``p - lr * g``: gradients read off one update
+from paddle_tpu_torch.optimizer import SGD, Adam, AdamW
 
 SMALL = dict(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
              max_position_embeddings=256, hidden_dropout_prob=0.0,
@@ -31,12 +31,6 @@ SMALL = dict(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
 B, L = 2, 128
 
 
-class SGD(Optimizer):
-    """Plain SGD on the port's Optimizer base (the JAX package's SGD
-    without decay: ``p - lr * g``), for reading gradients off an update."""
-
-    def _update(self, param, grad, state, lr, step, wd_scale=1.0):
-        param.sub_(lr * grad)
 
 
 def _weights(jm, seed):

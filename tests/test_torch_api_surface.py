@@ -12,8 +12,6 @@ import pytest
 import paddle_tpu  # noqa: F401  (the JAX package, on the CPU)
 import paddle_tpu_torch
 
-ITEM2 = "ROADMAP Queue 1, item 2's rest (interpolation, unfold, fold)"
-ITEM4 = "ROADMAP Queue 1, item 4's rest (the optimizers not yet ported)"
 ITEM11 = "ROADMAP Queue 1, item 11 (jit.to_static and the JAX tape)"
 ITEM4_RULES = "ROADMAP Queue 1, item 4's rest (DGC and LARS update rules)"
 ITEM10 = "ROADMAP Queue 1, item 10's rest (LocalSGD averages across ranks)"
@@ -46,6 +44,9 @@ PORTED = {
     "nn.layers_conv_pool": "nn.layers_conv_pool",
     "nn.layers_norm_act_loss": "nn.layers_norm_act_loss",
     "nn.layers_transformer": "nn.layers_transformer",
+    "nn.layers_rnn": "nn.layers_rnn",
+    "nn.layers_extended": "nn.layers_extended",
+    "nn.functional.extended": "nn.functional.extended",
     "optimizer.optimizer": "optimizer.optimizer",
     "framework.io": "framework.io",
     "vision": "vision",
@@ -75,15 +76,6 @@ LEFT_FOR_LATER = {
     "core.dispatch": {
         "TraceContext": ITEM11, "in_trace": ITEM11, "push_trace": ITEM11,
         "pop_trace": ITEM11, "trace_ctx": ITEM11, "record_bwd_call": ITEM11},
-    "nn.functional.common": {
-        "interpolate": ITEM2, "upsample": ITEM2, "unfold": ITEM2,
-        "fold": ITEM2, "class_center_sample": ITEM2},
-    "nn.layers_common": {
-        "Upsample": ITEM2, "UpsamplingBilinear2D": ITEM2,
-        "UpsamplingNearest2D": ITEM2, "Unfold": ITEM2, "Fold": ITEM2},
-    "optimizer.optimizer": {
-        "Adamax": ITEM4, "Adagrad": ITEM4, "Adadelta": ITEM4,
-        "RMSProp": ITEM4, "Lamb": ITEM4},
     "distributed.fleet.meta_optimizer_wrappers": {
         "DGCOptimizer": ITEM4_RULES, "LarsMomentumOptimizer": ITEM4_RULES,
         "LocalSGDOptimizer": ITEM10},
@@ -124,11 +116,12 @@ def test_left_for_later_names_their_roadmap_items():
           "core.tensor", "core.flags"]),
     ("linalg", ["ops.linalg"]),
     ("nn", ["nn.layers_common", "nn.layers_conv_pool",
-            "nn.layers_norm_act_loss", "nn.layers_transformer", "nn.layer"]),
+            "nn.layers_norm_act_loss", "nn.layers_transformer", "nn.layer",
+            "nn.layers_rnn", "nn.layers_extended"]),
     ("nn.functional", ["nn.functional.activation", "nn.functional.loss",
                        "nn.functional.common", "nn.functional.norm",
                        "nn.functional.attention", "nn.functional.conv",
-                       "nn.functional.pooling"]),
+                       "nn.functional.pooling", "nn.functional.extended"]),
     ("nn.initializer", ["nn.initializer.api"]),
     ("optimizer", ["optimizer.optimizer"]),
     ("vision", ["vision"]),
@@ -167,7 +160,9 @@ def test_top_level_surface():
                  "seed", "set_flags", "get_flags", "linalg", "autograd"):
         assert hasattr(p, name), name
     assert hasattr(p.nn, "Layer") and hasattr(p.optimizer, "SGD")
-    assert hasattr(p.optimizer, "Momentum")
+    assert hasattr(p.optimizer, "Momentum") and hasattr(p.optimizer, "Lamb")
+    assert hasattr(p.nn, "LSTM") and hasattr(p.nn.functional, "ctc_loss")
+    assert hasattr(p.nn.functional, "interpolate") and hasattr(p.nn, "Fold")
     assert hasattr(p.vision.models, "resnet50") and hasattr(p.nn, "Conv2D")
     assert p.Model is p.hapi.Model and hasattr(p.io, "DeviceLoader")
     assert hasattr(p.metric, "Accuracy") and hasattr(p.callbacks,

@@ -22,8 +22,8 @@ from paddle_tpu_torch.convert import convert_paddle_state, load_paddle_state
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.nn import clip as port_clip
-from paddle_tpu_torch.optimizer import Adam, AdamW
-from paddle_tpu_torch.optimizer.optimizer import Optimizer
+# SGD without decay, ``p - lr * g``: gradients read off one update
+from paddle_tpu_torch.optimizer import SGD, Adam, AdamW
 from paddle_tpu_torch.regularizer import L1Decay, L2Decay
 
 SMALL = dict(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
@@ -35,12 +35,6 @@ CLIPS = {"value": lambda m: m.ClipGradByValue(0.05, -0.02),
          "global": lambda m: m.ClipGradByGlobalNorm(0.7)}
 
 
-class SGD(Optimizer):
-    """Plain SGD on the port's Optimizer base (the JAX package's SGD
-    without decay: ``p - lr * g``), for reading gradients off an update."""
-
-    def _update(self, param, grad, state, lr, step, wd_scale=1.0):
-        param.sub_(lr * grad)
 
 
 def _grads(seed=0):

@@ -211,8 +211,9 @@ def test_fast_path_equals_eager_bit_for_bit(name):
 
 
 def test_bf16_masters_fast_equals_eager():
-    """bf16 weights with fp32 masters (the card's recipe) and a bf16
-    model without masters: the staged scalars round as the host floats."""
+    """bf16 weights with fp32 masters (the card's recipe), asked for and
+    not (a bf16 weight gets its master either way): the staged scalars
+    round as the host floats."""
     for mp in (True, False):
         rnd.seed(3)
         a = _run("gpt-dropout", fast=False, multi_precision=mp,
